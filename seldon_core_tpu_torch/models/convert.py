@@ -1,0 +1,109 @@
+"""Flax ResNet variables -> the port's ``state_dict``.
+
+The inverse of the JAX package's torch->flax converter: it takes the
+``{"params": ..., "batch_stats": ...}`` tree that
+``seldon_core_tpu.models.resnet.ResNet*`` initialises or loads (leaves as
+numpy arrays) and returns the ``state_dict`` of
+``seldon_core_tpu_torch.models.resnet.ResNet*``:
+
+* conv kernels  HWIO (flax/XLA) -> OIHW,
+* dense kernel  (in, out) -> (out, in),
+* BatchNorm ``scale``/``bias`` params and ``mean``/``var`` stats ->
+  ``weight``/``bias``/``running_mean``/``running_var``,
+* flax's auto-generated module names -> the port's attributes:
+  ``conv_init``/``bn_init`` -> themselves, ``{Basic,Bottleneck}Block_N``
+  -> ``blocks.N``, ``Conv_K``/``BatchNorm_K`` -> ``convK``/``bnK``,
+  ``shortcut_conv``/``shortcut_bn`` -> themselves, ``head`` -> ``head``.
+
+Every leaf of the tree must be consumed and every leaf a module needs
+must be present: a missing or an extra key is a ``ValueError`` naming it.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_BLOCK = re.compile(r"^(BasicBlock|BottleneckBlock)_(\d+)$")
+_BLOCK_CONVS = {"BasicBlock": 2, "BottleneckBlock": 3}
+
+
+def _conv(arr: Any) -> np.ndarray:
+    """HWIO (flax/XLA) -> OIHW (torch)."""
+    return np.transpose(np.asarray(arr), (3, 2, 0, 1))
+
+
+def _linear(arr: Any) -> np.ndarray:
+    """(in, out) -> (out, in)."""
+    return np.transpose(np.asarray(arr), (1, 0))
+
+
+def resnet_params_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ResNet ``variables`` -> the port's ResNet ``state_dict``
+    (float32 CPU tensors; ``load_state_dict`` casts to the model's dtype)."""
+    extra_top = sorted(set(variables) - {"params", "batch_stats"})
+    if extra_top:
+        raise ValueError(f"extra flax collections {extra_top} (expected params and batch_stats)")
+    params = dict(variables.get("params", {}))
+    stats = dict(variables.get("batch_stats", {}))
+    out: Dict[str, np.ndarray] = {}
+    consumed = set()
+
+    def take(tree: Dict, collection: str, path: Tuple[str, ...]) -> np.ndarray:
+        node: Any = tree
+        for key in path:
+            if not isinstance(node, Mapping) or key not in node:
+                raise ValueError(f"flax variables missing {collection}/{'/'.join(path)}")
+            node = node[key]
+        consumed.add((collection, *path))
+        return np.asarray(node)
+
+    def conv(flax_path: Tuple[str, ...], torch_key: str) -> None:
+        out[f"{torch_key}.weight"] = _conv(take(params, "params", (*flax_path, "kernel")))
+
+    def bn(flax_path: Tuple[str, ...], torch_key: str) -> None:
+        out[f"{torch_key}.weight"] = take(params, "params", (*flax_path, "scale"))
+        out[f"{torch_key}.bias"] = take(params, "params", (*flax_path, "bias"))
+        out[f"{torch_key}.running_mean"] = take(stats, "batch_stats", (*flax_path, "mean"))
+        out[f"{torch_key}.running_var"] = take(stats, "batch_stats", (*flax_path, "var"))
+
+    conv(("conv_init",), "conv_init")
+    bn(("bn_init",), "bn_init")
+    blocks = sorted(
+        ((m.group(1), int(m.group(2))) for m in map(_BLOCK.match, params) if m),
+        key=lambda kv: kv[1],
+    )
+    if [i for _, i in blocks] != list(range(len(blocks))):
+        raise ValueError(f"flax block names are not numbered 0..N-1: {[f'{k}_{i}' for k, i in blocks]}")
+    if len({kind for kind, _ in blocks}) > 1:
+        raise ValueError("flax variables mix BasicBlock and BottleneckBlock")
+    for kind, i in blocks:
+        name = f"{kind}_{i}"
+        for k in range(_BLOCK_CONVS[kind]):
+            conv((name, f"Conv_{k}"), f"blocks.{i}.conv{k}")
+            bn((name, f"BatchNorm_{k}"), f"blocks.{i}.bn{k}")
+        if "shortcut_conv" in params[name] or "shortcut_bn" in params[name]:
+            conv((name, "shortcut_conv"), f"blocks.{i}.shortcut_conv")
+            bn((name, "shortcut_bn"), f"blocks.{i}.shortcut_bn")
+    out["head.weight"] = _linear(take(params, "params", ("head", "kernel")))
+    out["head.bias"] = take(params, "params", ("head", "bias"))
+
+    leftover = sorted(
+        "/".join(p) for p in _leaf_paths(params, ("params",)) + _leaf_paths(stats, ("batch_stats",))
+        if p not in consumed
+    )
+    if leftover:
+        raise ValueError(f"unconverted flax entries: {leftover[:8]}")
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in out.items()}
+
+
+def _leaf_paths(tree: Any, prefix: Tuple[str, ...]):
+    if isinstance(tree, Mapping):
+        paths = []
+        for k, v in tree.items():
+            paths.extend(_leaf_paths(v, (*prefix, k)))
+        return paths
+    return [prefix]

@@ -39,3 +39,8 @@ def pytest_configure(config):
         "slow: compile-heavy tests excluded from the default fast tier "
         "(pyproject addopts -m 'not slow'; `make test-all` runs everything)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the PyTorch port's kernels); skips where "
+        "torch.cuda.is_available() is false",
+    )
