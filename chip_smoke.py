@@ -7,12 +7,22 @@ Drives the port (``seldon_core_tpu_torch``) only, and imports nothing of
 JAX or of the JAX package.  Phases, each of which fails the run:
 
 1. card report (``nvidia-smi`` name and power limit);
-2. build every CUDA kernel of the main path from ``ops/csrc``;
-3. each kernel against its plain PyTorch version on the card, bit for
-   bit, at the main path's shapes and at ragged ones; kernel, plain and
-   library-call times (CUDA events, median of 100, L2 flushed before
-   each launch) beside the bound (bytes moved over the card's memory
-   rate);
+2. build every CUDA kernel of the main paths from ``ops/csrc``, one
+   ``nvcc`` per source, all started together;
+3. ``fused_normalize`` (K1) against its plain PyTorch version on the
+   card, bit for bit, at the main path's shapes and at ragged ones;
+   kernel, plain and library-call times (CUDA events, median of 100, L2
+   flushed before each launch) beside the bound (bytes moved over the
+   card's memory rate);
+3b. the paged-decode kernels K4 (``stream``) and K5 (``grid``) against
+   their plain version on the card: the serving shape (16 lanes, 8
+   heads of 64, pages of 64, 16-page tables, random non-contiguous page
+   ids, ragged lengths 0..1024) and a small ragged one (head_dim 16,
+   pages of 8), bf16 and f32 pages; largest |kernel - plain| over finite
+   entries within 1e-4 of the largest |plain|, -inf and 0 exactly where
+   the plain version has them, no NaN; kernel, plain and library
+   (gather + scaled_dot_product_attention) times at uniform length 512
+   and at the ragged lengths, beside the bound;
 4. the main path: the microservice CLI serving ResNet-50 (224x224x3,
    1000 classes, bf16, normalize=true, max_batch_size=32, seeded random
    weights with live residual branches) over REST as a subprocess; uint8
@@ -26,7 +36,27 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    per-row cosine similarity >= 0.99;
 6. numbers: p50/p99 latency of 1000 sequential single-image requests,
    img/s of batch-32 requests from 4 clients over a 10 s window, device
-   forward time, and a profiler breakdown.
+   forward time, and a profiler breakdown;
+7. the generation path: the CLI serving ``StreamingLM`` (vocab 16384,
+   d_model 512, 8 layers, 8 heads, max_len 1024, pages of 64, 16 slots,
+   8 steps a chunk, 64 new tokens, bf16, seeded random weights) over
+   REST as a subprocess; 16 concurrent greedy requests (prompts of 16 to
+   700 tokens) return 64 ids each, in the vocabulary; 8 sequential
+   single requests equal an in-process ``PagedEngine`` of the same
+   weights, each prompt alone, bit for bit; at least 75% of the
+   concurrent rows equal theirs too; a repeated request is identical;
+   the server's K4 launches grow by at least 8 layers x the decode
+   steps it took; numbers: REST p50/p99 over 200 sequential requests
+   (prompt 128, 32 new) and REST tokens/s of 16 closed-loop clients
+   over 10 s;
+8. engine numerics in-process: in f32 the kernel lane, the gather lane
+   (``SELDON_TPU_PAGED_KERNEL=0``) and the grid kernel give identical
+   greedy tokens for 16 ragged prompts (K5's launches counted there);
+   bf16 kernel lane against f32 gather lane on the first decode step's
+   logits, relative L2 <= 5e-2 and per-row cosine >= 0.99; numbers:
+   decode tokens/s at 16 slots (prompt 128, 128 new tokens, full run
+   minus prefill and one chunk), prefill ms for 16 x 128, and a profile
+   of one decode chunk (device time by kernel, K4's share, idle share).
 
 Output: the ``nvidia-smi`` line, then one ``{"kernels": [...]}`` line,
 then the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -37,6 +67,7 @@ this script.
 from __future__ import annotations
 
 import base64
+import contextlib
 import json
 import os
 import signal
@@ -49,6 +80,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MODEL_PARAMS = [
@@ -68,6 +100,24 @@ SERVED_VS_LOCAL_REL_L2 = 2e-2   # each bf16 served row vs in-process bf16, same 
 CROSS_ROW_MIN_REL_L2 = 2 * SERVED_VS_LOCAL_REL_L2  # two images' answers must differ by more
 WHOLE_PATH_REL_L2 = 5e-2        # bf16 + kernel vs f32 + plain, same weights
 WHOLE_PATH_MIN_COS = 0.99
+# the generation cell: the repo's generation serving config (bench.py
+# generation phase, docs/architecture.md: B=16, d512/L8, vocab 16k)
+LM_CONFIG = dict(vocab_size=16384, d_model=512, num_layers=8, num_heads=8, max_len=1024)
+LM_ENGINE = dict(page_size=64, max_slots=16, steps_per_call=8)
+LM_MAX_NEW = 64
+LM_PARAMS = [{"name": k, "value": str(v), "type": "INT"}
+             for k, v in {**LM_CONFIG, **LM_ENGINE, "max_new_tokens": LM_MAX_NEW}.items()]
+RAGGED_LENGTHS = [0, 1, 63, 64, 65, 127, 128, 200, 333, 511, 512, 640, 777, 900, 1000, 1024]
+PAGED_CASES = [  # (lanes, heads, head_dim, page_size, table pages, lengths)
+    (16, 8, 64, 64, 16, RAGGED_LENGTHS),
+    (5, 2, 16, 8, 6, [0, 1, 8, 9, 48]),
+]
+PAGED_REL_TOL = 1e-4            # largest |kernel - plain| over finite entries / largest |plain|
+GEN_MIN_IDENTICAL_SHARE = 0.75  # concurrent served rows equal to the in-process rows
+GEN_LATENCY_REQUESTS = 200
+GEN_CLIENTS = 16
+GEN_SECONDS = 10.0
+F32_PEAK_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores (data sheet)
 
 
 class SmokeFailure(RuntimeError):
@@ -104,11 +154,12 @@ def card_report(torch):
 
 # ---------------------------------------------------------------- timing
 
-def time_cuda(torch, fn, reps: int = 100, warm: int = 5) -> float:
+def time_cuda(torch, fn, reps: int = 100, warm: int = 5, flush_mb: int = 256) -> float:
     """Median ms of one call, CUDA events around each, L2 flushed before
     each (a 256 MB write keeps the GPU busy while the host enqueues, so
-    host overhead stays out of the measured span)."""
-    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    host overhead stays out of the measured span; a wrapper whose host
+    work is longer needs a longer write, ``flush_mb``)."""
+    flush = torch.empty(flush_mb * 1024 * 1024, dtype=torch.uint8, device="cuda")
     for _ in range(warm):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
@@ -182,6 +233,116 @@ def kernel_checks(torch, np, kernels, mem_bytes_per_s):
     return max_err, timings
 
 
+# ---------------------------------------------------------------- phase 3b
+
+@contextlib.contextmanager
+def knob_env(**values):
+    """Set SELDON_TPU_* knobs for a block (None unsets), then restore them."""
+    before = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def paged_inputs(torch, np, B, h, hd, ps, P, lengths, dtype, seed):
+    """q, pages, tables with random non-contiguous page ids, lengths."""
+    rng = np.random.default_rng(seed)
+    num_pages = B * P + 1
+    pk = rng.standard_normal((num_pages, ps, h, hd), dtype=np.float32)
+    pv = rng.standard_normal((num_pages, ps, h, hd), dtype=np.float32)
+    q = rng.standard_normal((B, h, hd), dtype=np.float32) * 0.125
+    tables = rng.permutation(np.arange(1, num_pages)).reshape(B, P).astype(np.int32)
+    out = [torch.from_numpy(a).to(dtype).cuda() for a in (q, pk, pv)]
+    return out + [torch.from_numpy(tables).cuda(), torch.tensor(lengths, dtype=torch.int32).cuda()]
+
+
+def compare_flash_state(torch, got, ref, what):
+    """-> (largest abs error, largest relative error) over acc, m, l."""
+    worst_abs = worst_rel = 0.0
+    for name, g, r in zip(("acc", "m", "l"), got, ref):
+        check(g.shape == r.shape and g.dtype == torch.float32, f"{what} {name}: bad output {tuple(g.shape)}")
+        check(not bool(torch.isnan(g).any()), f"{what} {name}: NaN in the kernel's output")
+        special = torch.isinf(r) | (r == 0)
+        check(bool(torch.equal(g[special], r[special])), f"{what} {name}: -inf/0 differ from the plain version")
+        fin = ~special
+        if bool(fin.any()):
+            err = (g[fin] - r[fin]).abs().max().item()
+            worst_abs = max(worst_abs, err)
+            worst_rel = max(worst_rel, err / r[fin].abs().max().item())
+    return worst_abs, worst_rel
+
+
+def paged_bound(B, h, hd, ps, P, lengths, elt, mem_bytes_per_s):
+    """Least time for one call: the live pages' K and V, q, the tables and
+    lengths read once, acc/m/l written once, over the memory rate; the
+    4 * len * h * hd flops over the f32 peak (far below)."""
+    live = [min(max(n, 0), P * ps) for n in lengths]
+    kv = sum(-(-n // ps) for n in live) * ps * h * hd * 2 * elt
+    nbytes = kv + B * h * hd * elt + B * P * 4 + B * 4 + B * h * hd * 4 + 2 * B * h * 4
+    flops = sum(4 * n * h * hd for n in live)
+    return max(nbytes / mem_bytes_per_s, flops / F32_PEAK_FLOPS) * 1e3, nbytes
+
+
+def paged_kernel_checks(torch, np, kernels, mem_bytes_per_s):
+    errs = {impl: {"max_abs_err": 0.0, "max_rel_err": 0.0} for impl in ("stream", "grid")}
+    for case, (B, h, hd, ps, P, lengths) in enumerate(PAGED_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            args = paged_inputs(torch, np, B, h, hd, ps, P, lengths, dtype, seed=case)
+            ref = kernels.paged_attention_decode_reference(*args, page_size=ps)
+            for impl in ("stream", "grid"):
+                with knob_env(SELDON_TPU_PAGED_KERNEL_IMPL=impl):
+                    got = kernels.paged_attention_decode(*args, page_size=ps)
+                torch.cuda.synchronize()
+                what = f"paged_decode_{impl} B={B} h={h} hd={hd} ps={ps} P={P} {str(dtype)[6:]}"
+                err_abs, err_rel = compare_flash_state(torch, got, ref, what)
+                log(f"{what}: max_abs_err={err_abs:.3e} max_rel_err={err_rel:.3e} (limit {PAGED_REL_TOL})")
+                check(err_rel <= PAGED_REL_TOL, f"{what} differs from its plain version: {err_rel}")
+                e = errs[impl]
+                e["max_abs_err"], e["max_rel_err"] = max(e["max_abs_err"], err_abs), max(e["max_rel_err"], err_rel)
+
+    import torch.nn.functional as F
+
+    B, h, hd, ps, P, _ = PAGED_CASES[0]
+    timings = {}
+    for label, lengths in (("uniform512", [512] * B), ("ragged", RAGGED_LENGTHS)):
+        q, pk, pv, tables, lens = paged_inputs(torch, np, B, h, hd, ps, P, lengths, torch.bfloat16, seed=7)
+        T = P * ps
+        mask = (torch.arange(T, device=lens.device)[None, :] < lens[:, None])[:, None, None, :]
+
+        def library():
+            # the closest PyTorch calls: gather the pages, then one fused
+            # attention over the length mask (normalised output)
+            gk = pk[tables].reshape(B, T, h, hd).transpose(1, 2)
+            gv = pv[tables].reshape(B, T, h, hd).transpose(1, 2)
+            return F.scaled_dot_product_attention(q[:, :, None, :], gk, gv, attn_mask=mask, scale=1.0)
+
+        row = {}
+        for impl in ("stream", "grid"):
+            with knob_env(SELDON_TPU_PAGED_KERNEL_IMPL=impl):
+                row[impl] = time_cuda(torch, lambda: kernels.paged_attention_decode(q, pk, pv, tables, lens,
+                                                                                     page_size=ps), flush_mb=1024)
+        row["plain_ms"] = time_cuda(torch, lambda: kernels.paged_attention_decode_reference(
+            q, pk, pv, tables, lens, page_size=ps), reps=20)
+        row["library_ms"] = time_cuda(torch, library, flush_mb=1024)
+        row["bound_ms"], row["bytes"] = paged_bound(B, h, hd, ps, P, lengths, 2, mem_bytes_per_s)
+        timings[label] = row
+        log(f"paged decode bf16 B={B} h={h} hd={hd} ps={ps} P={P} {label}: K4 stream {row['stream'] * 1e3:.2f} us, "
+            f"K5 grid {row['grid'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} us, gather + SDPA (two calls, "
+            f"normalised) {row['library_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us "
+            f"({row['bytes']} bytes)")
+    return errs, timings
+
+
 # ---------------------------------------------------------------- phase 4 + 6
 
 def free_port() -> int:
@@ -223,10 +384,10 @@ def metrics_values(text: bytes):
     return out
 
 
-def start_server(port: int, logfile):
-    cmd = [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice",
-           "seldon_core_tpu_torch.models.cudaserver.CudaServer", "--api", "REST",
-           "--host", "127.0.0.1", "--http-port", str(port), "--parameters", json.dumps(MODEL_PARAMS)]
+def start_server(port: int, logfile, component: str = "seldon_core_tpu_torch.models.cudaserver.CudaServer",
+                 params=MODEL_PARAMS):
+    cmd = [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice", component, "--api", "REST",
+           "--host", "127.0.0.1", "--http-port", str(port), "--parameters", json.dumps(params)]
     return subprocess.Popen(cmd, cwd=ROOT, stdout=logfile, stderr=subprocess.STDOUT,
                             start_new_session=True)
 
@@ -394,8 +555,7 @@ def main_path(torch, np, kernels, resnet, card):
     log(f"main path: {int(batches)} batches, mean rows/batch {m1['cudaserver_mean_batch_rows']:.2f}, "
         f"kernel launches {launches}")
     check(batches > 0 and m1["cudaserver_mean_batch_rows"] > 1.0, f"/metrics shows no batching: {m1}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    check(launches["fused_normalize"] > 0, "kernel fused_normalize was not launched on the main path")
     numbers = {
         "batches": batches, "launches_per_batch": {k: n / batches for k, n in launches.items()},
         "served_max_row_rel_l2": served_err,
@@ -467,6 +627,259 @@ def whole_path(torch, np, kernels, resnet, card):
     return {"rel_l2": rel, "min_cos": cos, "forward_ms": fwd}
 
 
+# ---------------------------------------------------------------- phase 7
+
+def gen_request(np, base, prompt, max_new: int = LM_MAX_NEW, timeout: float = 300.0):
+    """One greedy generation request over REST; returns its (max_new,) ids."""
+    body = {"data": {"ndarray": [[int(t) for t in prompt]]}}
+    if max_new != LM_MAX_NEW:
+        body["meta"] = {"tags": {"max_new_tokens": max_new}}
+    resp = http(base + "/predict", body, timeout=timeout)
+    check("data" in resp and "ndarray" in resp["data"], f"response carries no ndarray: {str(resp)[:300]}")
+    row = np.asarray(resp["data"]["ndarray"], np.int64)
+    check(row.shape == (1, max_new), f"expected (1, {max_new}) ids, got {row.shape}")
+    check(bool(((row >= 0) & (row < LM_CONFIG["vocab_size"])).all()), "served ids outside the vocabulary")
+    return row[0]
+
+
+def gen_latency(np, base, prompts, n: int, max_new: int):
+    for p in prompts[:4]:  # warm the client side
+        gen_request(np, base, p, max_new)
+    lat = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        gen_request(np, base, prompts[i % len(prompts)], max_new)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return lat
+
+
+def gen_throughput(np, base, prompts, clients: int, seconds: float, max_new: int):
+    """Generated tokens/s of `clients` closed-loop clients sending until
+    `seconds` have passed; in-flight requests finish and count."""
+    t0 = time.perf_counter()
+
+    def client(k):
+        n = 0
+        while time.perf_counter() - t0 < seconds:
+            gen_request(np, base, prompts[(k + n) % len(prompts)], max_new)
+            n += 1
+        return n
+
+    requests = sum(concurrent(client, clients))
+    wall = time.perf_counter() - t0
+    return requests * max_new / wall, requests, wall
+
+
+def lm_engine(PagedEngine, params, dtype):
+    return PagedEngine(params, dtype=dtype, device="cuda", **LM_CONFIG, **LM_ENGINE)
+
+
+def generation_path(torch, np, PagedEngine, load_lm_params, card):
+    """The served generation path, rows held against an in-process engine."""
+    rng = np.random.default_rng(SEED + 20)
+    V = LM_CONFIG["vocab_size"]
+    conc_prompts = [rng.integers(0, V, int(n)) for n in np.linspace(16, 700, 16)]
+    single_prompts = [rng.integers(0, V, n) for n in (20, 64, 65, 128, 200, 333, 511, 640)]
+    bench_prompts = [rng.integers(0, V, 128) for _ in range(16)]
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_lm_server_", suffix=".log")
+    logfile = os.fdopen(fd, "w")
+    proc = start_server(port, logfile, "seldon_core_tpu_torch.models.paged.StreamingLM", LM_PARAMS)
+    try:
+        status, ready_s = wait_ready(proc, base, logpath)
+        log(f"StreamingLM ready in {ready_s:.1f}s (load {status['load_time_s']:.1f}s, device "
+            f"{status['device_name']}, kernel lane {status['kernel_active']})")
+        check(status["device"].startswith("cuda") and status["kernel_active"],
+              f"the generation server is not on the card's kernel lane: {status}")
+        before, chunks0 = status["kernel_launches"], status["engine"]["chunks"]
+        served_conc = concurrent(lambda i: gen_request(np, base, conc_prompts[i]), len(conc_prompts))
+        served_single = [gen_request(np, base, p) for p in single_prompts]
+        repeat = gen_request(np, base, single_prompts[3])
+        after_status = http(base + "/health/status")["jsonData"]
+        lat = gen_latency(np, base, bench_prompts, GEN_LATENCY_REQUESTS, 32)
+        tok_s, tp_requests, tp_wall = gen_throughput(np, base, bench_prompts, GEN_CLIENTS, GEN_SECONDS, 32)
+    finally:
+        stop_server(proc)
+        logfile.close()
+    after = after_status["kernel_launches"]
+    launches = {k: after[k] - before.get(k, 0) for k in after}
+    steps = (after_status["engine"]["chunks"] - chunks0) * LM_ENGINE["steps_per_call"]
+    log(f"generation path: {steps} decode steps, kernel launches {launches}")
+    check(steps > 0 and launches["paged_decode_stream"] >= LM_CONFIG["num_layers"] * steps,
+          f"K4 was not launched on every layer of every decode step: {launches}, {steps} steps")
+    check(bool((repeat == served_single[3]).all()), "a repeated greedy request changed its answer")
+
+    # the server's weights in-process (its default seed 0), each prompt alone
+    eng = lm_engine(PagedEngine, load_lm_params("", LM_CONFIG, 0, torch.device("cuda")), "bfloat16")
+    local_single = [eng.generate(p, max_new_tokens=LM_MAX_NEW) for p in single_prompts]
+    local_conc = [eng.generate(p, max_new_tokens=LM_MAX_NEW) for p in conc_prompts]
+    del eng
+    torch.cuda.empty_cache()
+    same_single = [bool((a == b).all()) for a, b in zip(served_single, local_single)]
+    share = float(np.mean([bool((a == b).all()) for a, b in zip(served_conc, local_conc)]))
+    log(f"served vs in-process engine, each prompt alone: {sum(same_single)}/{len(same_single)} sequential rows "
+        f"bit-identical; concurrent rows identical share {share:.3f} (limit {GEN_MIN_IDENTICAL_SHARE})")
+    check(all(same_single), f"sequential served rows differ from the in-process engine: {same_single}")
+    check(share >= GEN_MIN_IDENTICAL_SHARE, f"too few concurrent rows equal the in-process engine: {share}")
+    numbers = {
+        "decode_steps": steps, "launches": launches, "concurrent_identical_share": share,
+        "rest_p50_ms": pct(lat, 0.50), "rest_p99_ms": pct(lat, 0.99), "n_latency": len(lat),
+        "rest_tokens_per_s": tok_s, "rest_requests": tp_requests, "rest_wall_s": tp_wall,
+        "clients": GEN_CLIENTS,
+    }
+    log(f"generation REST over {len(lat)} sequential requests (prompt 128, 32 new): p50 "
+        f"{numbers['rest_p50_ms']:.2f} ms, p99 {numbers['rest_p99_ms']:.2f} ms; {GEN_CLIENTS} closed-loop clients: "
+        f"{tok_s:.1f} tokens/s ({tp_requests} requests in {tp_wall:.2f} s) [{card}]")
+    return launches, numbers
+
+
+# ---------------------------------------------------------------- phase 8
+
+def first_step_logits(torch, np, eng, prompts, tokens):
+    """Prefill `prompts` (one per slot), then one decode step of `tokens`
+    on the engine's own lane; returns its (slots, vocab) logits."""
+    for p in prompts:
+        eng.submit(p, max_new_tokens=1)
+    with eng._lock:
+        admitted = eng._admit_locked()
+    check(len(admitted) == len(prompts), "not every prompt was admitted")
+    with torch.inference_mode():
+        eng._prefill(admitted)
+        lengths = torch.from_numpy(eng._lengths.copy()).cuda()
+        width = eng._pages_horizon(admitted, 1)
+        tables = torch.from_numpy(np.ascontiguousarray(eng._block_tables[:, :width])).cuda()
+        logits, _, _ = eng.module(tokens[:, None], lengths[:, None], eng.pages_k, eng.pages_v, tables, lengths,
+                                  use_kernel=eng._kernel_active)
+    return logits[:, 0].double().cpu()
+
+
+def engine_numerics(torch, np, kernels, PagedEngine, load_lm_params, card):
+    rng = np.random.default_rng(SEED + 30)
+    V = LM_CONFIG["vocab_size"]
+    prompts = [rng.integers(0, V, int(n)) for n in np.linspace(16, 700, 16)]
+    params = load_lm_params("", LM_CONFIG, SEED + 5, torch.device("cuda"))
+
+    def tokens(**env):
+        with knob_env(**env):
+            eng = lm_engine(PagedEngine, params, "float32")
+            streams = [eng.submit(p, max_new_tokens=16) for p in prompts]
+            eng.run()
+        return np.stack([s.result for s in streams]), eng._kernel_active
+
+    k_stream, lane = tokens(SELDON_TPU_PAGED_KERNEL=None, SELDON_TPU_PAGED_KERNEL_IMPL="stream")
+    gather, lane0 = tokens(SELDON_TPU_PAGED_KERNEL="0")
+    kernels.reset_launch_counts()
+    k_grid, lane_grid = tokens(SELDON_TPU_PAGED_KERNEL=None, SELDON_TPU_PAGED_KERNEL_IMPL="grid")
+    grid_launches = kernels.launch_counts()["paged_decode_grid"]
+    check(lane and lane_grid and not lane0, "the f32 engines did not take the lanes asked for")
+    log(f"f32 greedy, 16 ragged prompts x 16 tokens: K4 lane == gather lane {bool((k_stream == gather).all())}, "
+        f"K4 == K5 {bool((k_stream == k_grid).all())} (K5 launches {grid_launches})")
+    check(bool((k_stream == gather).all()), "f32 kernel lane and gather lane disagree on greedy tokens")
+    check(bool((k_stream == k_grid).all()), "f32 stream and grid kernels disagree on greedy tokens")
+    check(grid_launches > 0, "the grid engine launched no K5")
+
+    step_tokens = torch.from_numpy(rng.integers(0, V, len(prompts))).cuda()
+    with knob_env(SELDON_TPU_PAGED_KERNEL=None, SELDON_TPU_PAGED_KERNEL_IMPL="stream"):
+        got = first_step_logits(torch, np, lm_engine(PagedEngine, params, "bfloat16"), prompts, step_tokens)
+    with knob_env(SELDON_TPU_PAGED_KERNEL="0"):
+        ref = first_step_logits(torch, np, lm_engine(PagedEngine, params, "float32"), prompts, step_tokens)
+    torch.cuda.empty_cache()
+    rel = float((got - ref).norm() / ref.norm())
+    cos = float(torch.nn.functional.cosine_similarity(got, ref, dim=-1).min())
+    log(f"first decode step, bf16 kernel lane vs f32 gather lane: rel L2 {rel:.3e} (limit {WHOLE_PATH_REL_L2}), "
+        f"min row cosine {cos:.6f} (limit {WHOLE_PATH_MIN_COS})")
+    check(bool(torch.isfinite(got).all()), "non-finite bf16 decode logits")
+    check(rel <= WHOLE_PATH_REL_L2 and cos >= WHOLE_PATH_MIN_COS, "bf16 decode numerics out of tolerance")
+    return grid_launches, {"rel_l2": rel, "min_cos": cos}
+
+
+def engine_numbers(torch, np, PagedEngine, load_lm_params, card):
+    """In-process bf16 numbers at 16 slots: decode tokens/s (prompt 128,
+    128 new: full run minus prefill and one chunk, min of 3 each),
+    prefill ms for 16 x 128, and a profile of one decode chunk."""
+    rng = np.random.default_rng(SEED + 40)
+    prompts = rng.integers(0, LM_CONFIG["vocab_size"], (LM_ENGINE["max_slots"], 128))
+    eng = lm_engine(PagedEngine, load_lm_params("", LM_CONFIG, 0, torch.device("cuda")), "bfloat16")
+
+    def run(max_new):
+        t0 = time.perf_counter()
+        streams = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+        eng.run()
+        check(all(s.result.shape == (max_new,) for s in streams), "bad in-process generation")
+        return time.perf_counter() - t0
+
+    run(128)
+    run(1)
+    dt_p1 = min(run(1) for _ in range(3))
+    dt_full = min(run(128) for _ in range(3))
+    decode_tok_s = len(prompts) * 127 / max(dt_full - dt_p1, 1e-9)
+
+    prefill_ms = float("inf")
+    for _ in range(3):
+        for p in prompts:
+            eng.submit(p, max_new_tokens=1)
+        with eng._lock:
+            admitted = eng._admit_locked()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            eng._prefill(admitted)
+        torch.cuda.synchronize()
+        prefill_ms = min(prefill_ms, (time.perf_counter() - t0) * 1e3)
+        eng.run()
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts:
+        eng.submit(p, max_new_tokens=128)
+    eng.step()  # admission, prefill and the first chunk
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()  # one decode chunk (its readback synchronises)
+        chunk_ms = (time.perf_counter() - t0) * 1e3
+    eng.run()
+
+    # device time two ways: the device-side events (kernels, copies,
+    # fills), and the kernels the profiler files under the host op that
+    # launched them; the fuller of the two is the breakdown
+    views = ({}, {})
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, n = views[0].get(e.name, (0.0, 0))
+            views[0][e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        for k in getattr(e, "kernels", None) or ():
+            us, n = views[1].get(k.name, (0.0, 0))
+            views[1][k.name] = (us + k.duration, n + 1)
+    totals = [sum(us for us, _ in v.values()) for v in views]
+    log(f"profiler device time: {totals[0] / 1e3:.3f} ms in {sum(n for _, n in views[0].values())} device events, "
+        f"{totals[1] / 1e3:.3f} ms in {sum(n for _, n in views[1].values())} kernels under host ops")
+    by_name = views[0] if totals[0] >= totals[1] else views[1]
+    busy_us = max(totals)
+    k4_us = sum(us for name, (us, _) in by_name.items() if "paged_decode_stream" in name)
+    launches = sum(n for _, n in by_name.values())
+    log(f"profile of one decode chunk ({LM_ENGINE['steps_per_call']} steps, 16 lanes, prompt 128): wall "
+        f"{chunk_ms:.3f} ms, {launches} device events, device busy {busy_us / 1e3:.3f} ms, idle share "
+        f"{1 - busy_us / 1e3 / chunk_ms:.3f}, K4 {k4_us / 1e3:.3f} ms ({k4_us / max(busy_us, 1e-9):.3f} of device "
+        f"time)")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        log(f"  {us / 1e3:9.3f} ms  {n:6d}x  {us / max(busy_us, 1e-9):6.3f}  {name[:90]}")
+    check(launches > 0, "the profiler recorded no device event in the decode chunk")
+    del eng
+    torch.cuda.empty_cache()
+    numbers = {
+        "decode_tokens_per_s": decode_tok_s, "full_run_s": dt_full, "prefill_plus_chunk_s": dt_p1,
+        "prefill_ms_16x128": prefill_ms, "chunk_wall_ms": chunk_ms, "chunk_device_busy_ms": busy_us / 1e3,
+        "chunk_idle_share": 1 - busy_us / 1e3 / chunk_ms, "k4_share_of_device_time": k4_us / max(busy_us, 1e-9),
+        "chunk_device_events": launches,
+    }
+    log(f"in-process bf16, 16 slots, prompt 128, 128 new: decode {decode_tok_s:.1f} tokens/s, prefill 16x128 "
+        f"{prefill_ms:.3f} ms [{card}]")
+    return numbers
+
+
 # ---------------------------------------------------------------- main
 
 def run() -> int:
@@ -484,6 +897,8 @@ def run() -> int:
         import numpy as np
 
         from seldon_core_tpu_torch.models import resnet
+        from seldon_core_tpu_torch.models.generate import load_lm_params
+        from seldon_core_tpu_torch.models.paged import PagedEngine
         from seldon_core_tpu_torch.ops import _build, kernels
     except ImportError as e:
         print(f"chip_smoke: FAIL: the port is not beside this script ({e})", file=sys.stderr)
@@ -494,12 +909,19 @@ def run() -> int:
         smi_line, name, mem_bytes_per_s = card_report(torch)
         card = smi_line
         t0 = time.perf_counter()
-        lib = _build.build("fused_normalize")
-        _build.load("fused_normalize")
-        log(f"built {lib.name} in {time.perf_counter() - t0:.1f}s")
+        sources = ("fused_normalize", "paged_decode")
+        with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
+            libs = list(pool.map(_build.build, sources))
+        for source in sources:
+            _build.load(source)
+        log(f"built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f}s")
         max_err, timings = kernel_checks(torch, np, kernels, mem_bytes_per_s)
+        paged_errs, paged_timings = paged_kernel_checks(torch, np, kernels, mem_bytes_per_s)
         launches, numbers = main_path(torch, np, kernels, resnet, card)
         whole = whole_path(torch, np, kernels, resnet, card)
+        gen_launches, gen_numbers = generation_path(torch, np, PagedEngine, load_lm_params, card)
+        grid_launches, gen_numerics = engine_numerics(torch, np, kernels, PagedEngine, load_lm_params, card)
+        engine = engine_numbers(torch, np, PagedEngine, load_lm_params, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -508,6 +930,10 @@ def run() -> int:
         "numbers": numbers,
         "whole_path": {"rel_l2": whole["rel_l2"], "min_cos": whole["min_cos"],
                        "forward_ms_b1": whole["forward_ms"][1], "forward_ms_b32": whole["forward_ms"][32]},
+        "generation": gen_numbers,
+        "generation_numerics": gen_numerics,
+        "generation_engine": engine,
+        "paged_timings": paged_timings,
         "seconds": time.perf_counter() - t_start,
     }
     log(json.dumps(result))
@@ -524,6 +950,25 @@ def run() -> int:
         "batch1": {"ms": t1["ms"], "plain_ms": t1["plain_ms"], "library_ms": t1["library_ms"],
                    "bound_ms": t1["bound_ms"]},
     }]}
+    uni, rag = paged_timings["uniform512"], paged_timings["ragged"]
+    B, h, hd, ps, P, _ = PAGED_CASES[0]
+    for impl, line, n, where in (
+            ("stream", 409, gen_launches["paged_decode_stream"], "served generation path"),
+            ("grid", 343, grid_launches, "in-process PagedEngine, SELDON_TPU_PAGED_KERNEL_IMPL=grid")):
+        kernel_line["kernels"].append({
+            "name": f"paged_decode_{impl}",
+            "route": "cuda",
+            "source": "seldon_core_tpu_torch/ops/csrc/paged_decode.cu",
+            "replaces": f"seldon_core_tpu/ops/kernels.py:{line}",
+            "launches": n, "launches_on": where,
+            "max_abs_err": paged_errs[impl]["max_abs_err"], "max_rel_err": paged_errs[impl]["max_rel_err"],
+            "ms": uni[impl], "plain_ms": uni["plain_ms"], "bound_ms": uni["bound_ms"], "bound_by": "bytes",
+            "library_ms": uni["library_ms"],
+            "library_call": "pk[tables] gather + F.scaled_dot_product_attention (two calls, normalised)",
+            "shape": [B, h, hd, ps, P], "lengths": "uniform 512", "pool_dtype": "bfloat16",
+            "ragged": {"ms": rag[impl], "plain_ms": rag["plain_ms"], "library_ms": rag["library_ms"],
+                       "bound_ms": rag["bound_ms"], "lengths": RAGGED_LENGTHS},
+        })
     print(smi_line)
     print(json.dumps(kernel_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,7 +1,8 @@
-"""Flax ResNet variables -> the port's ``state_dict``.
+"""Flax variables -> the port's ``state_dict``: ResNet
+(``resnet_params_from_flax``) and TransformerLM (``lm_params_from_flax``).
 
-The inverse of the JAX package's torch->flax converter: it takes the
-``{"params": ..., "batch_stats": ...}`` tree that
+The inverse of the JAX package's torch->flax converter.  For ResNet it
+takes the ``{"params": ..., "batch_stats": ...}`` tree that
 ``seldon_core_tpu.models.resnet.ResNet*`` initialises or loads (leaves as
 numpy arrays) and returns the ``state_dict`` of
 ``seldon_core_tpu_torch.models.resnet.ResNet*``:
@@ -15,8 +16,11 @@ numpy arrays) and returns the ``state_dict`` of
   -> ``blocks.N``, ``Conv_K``/``BatchNorm_K`` -> ``convK``/``bnK``,
   ``shortcut_conv``/``shortcut_bn`` -> themselves, ``head`` -> ``head``.
 
-Every leaf of the tree must be consumed and every leaf a module needs
-must be present: a missing or an extra key is a ``ValueError`` naming it.
+For TransformerLM, ``lm_params_from_flax`` maps the same way (dense
+kernels transposed, ``Embed.embedding`` as is, LayerNorm ``scale`` ->
+``weight``).  Every leaf of the tree must be consumed and every leaf a
+module needs must be present: a missing or an extra key is a
+``ValueError`` naming it.
 """
 
 from __future__ import annotations
@@ -107,3 +111,59 @@ def _leaf_paths(tree: Any, prefix: Tuple[str, ...]):
             paths.extend(_leaf_paths(v, (*prefix, k)))
         return paths
     return [prefix]
+
+
+_LM_BLOCK = re.compile(r"^block_(\d+)$")
+# flax submodule of a TransformerBlock -> the port's attribute
+_LM_BLOCK_PARTS = {"LayerNorm_0": "ln0", "qkv": "qkv", "attn_proj": "attn_proj", "LayerNorm_1": "ln1",
+                   "mlp_in": "mlp_in", "mlp_out": "mlp_out"}
+
+
+def lm_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``TransformerLM`` params -> the port's ``TransformerLM`` /
+    ``PagedTransformerLM`` ``state_dict`` (float32 CPU tensors).
+
+    Accepts the bare params tree or ``{"params": tree}``.  Dense
+    ``kernel`` (in, out) becomes ``weight`` (out, in); ``Embed.embedding``
+    keeps its (num, features) layout; LayerNorm ``scale``/``bias`` become
+    ``weight``/``bias``; ``block_N`` -> ``blocks.N``, the top-level
+    ``LayerNorm_0`` -> ``ln_f``.  Every leaf must be consumed."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    params = dict(params)
+    out: Dict[str, np.ndarray] = {}
+    consumed = set()
+
+    def take(path: Tuple[str, ...]) -> np.ndarray:
+        node: Any = params
+        for key in path:
+            if not isinstance(node, Mapping) or key not in node:
+                raise ValueError(f"flax params missing {'/'.join(path)}")
+            node = node[key]
+        consumed.add(("params", *path))
+        return np.asarray(node)
+
+    def dense(flax_path: Tuple[str, ...], torch_key: str) -> None:
+        out[f"{torch_key}.weight"] = _linear(take((*flax_path, "kernel")))
+        out[f"{torch_key}.bias"] = take((*flax_path, "bias"))
+
+    def norm(flax_path: Tuple[str, ...], torch_key: str) -> None:
+        out[f"{torch_key}.weight"] = take((*flax_path, "scale"))
+        out[f"{torch_key}.bias"] = take((*flax_path, "bias"))
+
+    out["tok_embed.weight"] = take(("tok_embed", "embedding"))
+    out["pos_embed.weight"] = take(("pos_embed", "embedding"))
+    blocks = sorted(int(m.group(1)) for m in map(_LM_BLOCK.match, params) if m)
+    if blocks != list(range(len(blocks))):
+        raise ValueError(f"flax block names are not numbered 0..N-1: {blocks}")
+    for i in blocks:
+        for flax_name, port_name in _LM_BLOCK_PARTS.items():
+            convert = norm if flax_name.startswith("LayerNorm") else dense
+            convert((f"block_{i}", flax_name), f"blocks.{i}.{port_name}")
+    norm(("LayerNorm_0",), "ln_f")
+    dense(("head",), "head")
+
+    leftover = sorted("/".join(p) for p in _leaf_paths(params, ("params",)) if p not in consumed)
+    if leftover:
+        raise ValueError(f"unconverted flax entries: {leftover[:8]}")
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}

@@ -4,6 +4,10 @@
   in one pass (cast + per-channel affine fused; the plain PyTorch chain
   runs a convert, a multiply, an add and a cast as four passes over
   device memory before the first convolution).
+* ``paged_attention_decode`` — one decode step of attention over a paged
+  K/V pool, read through the block table, as the unnormalised flash
+  state ``(acc, m, l)``; the ``stream`` kernel (K4) by default, the
+  ``grid`` kernel (K5) under ``SELDON_TPU_PAGED_KERNEL_IMPL=grid``.
 
 Every wrapper dispatches on where its input lies and on nothing else: a
 CUDA tensor launches the kernel (building it at first use from
@@ -24,9 +28,10 @@ import numpy as np
 import torch
 
 from seldon_core_tpu_torch.ops import _build
+from seldon_core_tpu_torch.runtime import knobs
 
 _COUNT_LOCK = threading.Lock()
-_LAUNCHES: Dict[str, int] = {"fused_normalize": 0}
+_LAUNCHES: Dict[str, int] = {"fused_normalize": 0, "paged_decode_stream": 0, "paged_decode_grid": 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -41,9 +46,9 @@ def reset_launch_counts() -> None:
             _LAUNCHES[k] = 0
 
 
-def _count(name: str) -> None:
+def _count(name: str, launches: int = 1) -> None:
     with _COUNT_LOCK:
-        _LAUNCHES[name] += 1
+        _LAUNCHES[name] += launches
 
 
 class KernelLaunchError(RuntimeError):
@@ -133,3 +138,137 @@ def imagenet_affine(mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225)) -> Tu
     mean = np.asarray(mean, np.float32)
     std = np.asarray(std, np.float32)
     return 1.0 / (255.0 * std), -mean / std
+
+
+# ---------------------------------------------------------------------------
+# paged attention decode (flash-decoding over a paged K/V pool)
+# ---------------------------------------------------------------------------
+
+# pool dtype -> the kernels' pool_kind code (csrc/paged_decode.cu)
+_POOL_KINDS = {torch.float32: 0, torch.bfloat16: 1}
+PAGED_MAX_HEAD_DIM = 128  # csrc/paged_decode.cu kMaxHeadDim
+
+
+def paged_kernel_impl(heads: int, head_dim: int) -> str:
+    """The decode kernel that serves this geometry: ``stream`` (K4, the
+    default) or ``grid`` (K5), from ``SELDON_TPU_PAGED_KERNEL_IMPL``;
+    any other value raises.  Both kernels take every ``head_dim`` up to
+    128, so the geometry does not change the choice (the JAX package's
+    fallback to ``grid`` for tiny models is a TPU tiling rule)."""
+    impl = knobs.raw("SELDON_TPU_PAGED_KERNEL_IMPL", "stream")
+    if impl not in ("stream", "grid"):
+        raise ValueError(f"unknown SELDON_TPU_PAGED_KERNEL_IMPL {impl!r}: use 'stream' or 'grid'")
+    return impl
+
+
+def _check_paged_args(q, pk, pv, block_tables, lengths, page_size) -> None:
+    if q.dim() != 3 or pk.dim() != 4:
+        raise ValueError(f"paged_attention_decode takes q (B, h, hd) and pages (num_pages, ps, h, hd), "
+                         f"got {tuple(q.shape)} and {tuple(pk.shape)}")
+    B, h, hd = q.shape
+    if tuple(pv.shape) != tuple(pk.shape) or tuple(pk.shape[2:]) != (h, hd):
+        raise ValueError(f"pages {tuple(pk.shape)} / {tuple(pv.shape)} do not match q {tuple(q.shape)}")
+    if page_size != pk.shape[1]:
+        raise ValueError(f"page_size={page_size} does not match the pool's page dim {pk.shape[1]}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B or tuple(lengths.shape) != (B,):
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} / lengths {tuple(lengths.shape)} "
+                         f"do not match {B} lanes")
+
+
+def paged_attention_decode_reference(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
+                                     block_tables: torch.Tensor, lengths: torch.Tensor, *,
+                                     page_size: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version, lane by lane in float32: lane ``b``
+    attends over positions ``[0, min(len_b, P * ps))`` of its pages;
+    a lane of length 0 gives ``acc = 0, m = -inf, l = 0``."""
+    _check_paged_args(q, pk, pv, block_tables, lengths, page_size)
+    B, h, hd = q.shape
+    cap = block_tables.shape[1] * page_size
+    acc = torch.zeros((B, h, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((B, h), float("-inf"), dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, h), dtype=torch.float32, device=q.device)
+    for b, length in enumerate(lengths.tolist()):
+        n = min(max(int(length), 0), cap)
+        if n == 0:
+            continue
+        pages = block_tables[b, : -(-n // page_size)].long()
+        k = pk[pages].reshape(-1, h, hd)[:n].float()
+        v = pv[pages].reshape(-1, h, hd)[:n].float()
+        s = torch.einsum("thd,hd->ht", k, q[b].float())
+        m[b] = s.max(dim=1).values
+        w = torch.exp(s - m[b][:, None])
+        l[b] = w.sum(dim=1)
+        acc[b] = torch.einsum("ht,thd->hd", w, v)
+    return acc, m, l
+
+
+def paged_attention_decode(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
+                           block_tables: torch.Tensor, lengths: torch.Tensor, *,
+                           page_size: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Unnormalised flash state of decode attention over a paged pool.
+
+    ``q`` (B, h, hd), already scaled; ``pk``/``pv`` (num_pages, ps, h, hd)
+    in float32 or bfloat16, the same dtype as ``q``; ``block_tables``
+    (B, P) int32 page ids; ``lengths`` (B,) int32 cached tokens.  Returns
+    float32 ``acc`` (B, h, hd), ``m`` (B, h), ``l`` (B, h): merge with
+    the current token's term by the flash rule.  Lane ``b`` reads its
+    first ``min(len_b, P * ps)`` positions, so the page loop is bounded
+    by the lane's own length.
+
+    On a CUDA tensor this launches K4 (``stream``: one block per lane and
+    head) or K5 (``grid``: one block per lane and page, then a merge
+    launch; both count), as ``paged_kernel_impl`` says; on a CPU tensor
+    it is :func:`paged_attention_decode_reference`.
+    """
+    if not q.is_cuda:
+        return paged_attention_decode_reference(q, pk, pv, block_tables, lengths, page_size=page_size)
+    _check_paged_args(q, pk, pv, block_tables, lengths, page_size)
+    B, h, hd = q.shape
+    P = block_tables.shape[1]
+    impl = paged_kernel_impl(h, hd)
+    if q.dtype not in _POOL_KINDS or pk.dtype != q.dtype or pv.dtype != q.dtype:
+        raise TypeError(f"paged_attention_decode takes float32 or bfloat16 q and pages of one dtype, "
+                        f"got {q.dtype}, {pk.dtype}, {pv.dtype}")
+    if hd > PAGED_MAX_HEAD_DIM:
+        raise ValueError(f"paged_attention_decode supports head_dim <= {PAGED_MAX_HEAD_DIM}, got {hd}")
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("block_tables and lengths must be int32")
+    if not (pk.is_contiguous() and pv.is_contiguous()):
+        raise ValueError("paged_attention_decode needs contiguous pages")
+    tensors = (pk, pv, block_tables, lengths)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("q, pages, block_tables and lengths must lie on one device")
+    lib = _paged_lib()
+    q = q.contiguous()
+    block_tables = block_tables.contiguous()
+    lengths = lengths.contiguous()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc, m, l = torch.empty((B, h, hd), **f32), torch.empty((B, h), **f32), torch.empty((B, h), **f32)
+    head = (q.data_ptr(), pk.data_ptr(), pv.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
+            acc.data_ptr(), m.data_ptr(), l.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if impl == "stream":
+            err = lib.paged_decode_stream(*head, B, h, hd, P, page_size, _POOL_KINDS[q.dtype], stream)
+            launches = 1
+        else:
+            part_acc = torch.empty((B, P, h, hd), **f32)
+            part_m, part_l = torch.empty((B, P, h), **f32), torch.empty((B, P, h), **f32)
+            err = lib.paged_decode_grid(*head, part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+                                        B, h, hd, P, page_size, _POOL_KINDS[q.dtype], stream)
+            launches = 2  # the per-page partials, then the merge
+    if err != 0:
+        raise KernelLaunchError(f"paged_decode_{impl} launch failed: cudaError {err}")
+    _count(f"paged_decode_{impl}", launches)
+    return acc, m, l
+
+
+def _paged_lib() -> ctypes.CDLL:
+    lib = _build.load("paged_decode")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, n_ptrs in (("paged_decode_stream", 8), ("paged_decode_grid", 11)):
+        fn = getattr(lib, name)
+        if fn.restype is not ctypes.c_int or not fn.argtypes:
+            fn.argtypes = [p] * n_ptrs + [i] * 6 + [p]
+            fn.restype = ctypes.c_int
+    return lib

@@ -1,5 +1,5 @@
 """The PyTorch port on a CUDA card: kernels against their plain versions,
-and the served path through the kernel.
+and the served paths through the kernels.
 
 Every test here needs the card and skips without one (the decision is
 made inside each test, never at import).  The module imports no JAX, so
@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from seldon_core_tpu_torch.models.cudaserver import CudaServer
+from seldon_core_tpu_torch.models.generate import load_lm_params
+from seldon_core_tpu_torch.models.paged import PagedEngine
 from seldon_core_tpu_torch.ops import kernels
 
 pytestmark = pytest.mark.cuda
@@ -67,3 +69,63 @@ def test_served_uint8_batch_launches_the_kernel():
         assert kernels.launch_counts()["fused_normalize"] == 1
     finally:
         cs.unload()
+
+
+# K4/K5 shapes: the serving config (B=16, h=8, hd=64, ps=64, P=16) at the
+# lengths chip_smoke.py uses, and a ragged small one (hd=16, ps=8)
+PAGED_CASES = [
+    (16, 8, 64, 64, 16, [0, 1, 63, 64, 65, 127, 128, 200, 333, 511, 512, 640, 777, 900, 1000, 1024]),
+    (5, 2, 16, 8, 6, [0, 1, 8, 9, 48]),
+]
+PAGED_REL_TOL = 1e-4  # largest |kernel - plain| over finite entries / largest |plain|
+
+
+def _paged_inputs(B, h, hd, ps, P, lengths, dtype, seed):
+    rng = np.random.default_rng(seed)
+    num_pages = B * P + 1
+    pool = [rng.standard_normal((num_pages, ps, h, hd), dtype=np.float32) for _ in range(2)]
+    q = rng.standard_normal((B, h, hd), dtype=np.float32) * 0.125
+    tables = rng.permutation(np.arange(1, num_pages)).reshape(B, P).astype(np.int32)  # non-contiguous ids
+    out = [torch.from_numpy(a).to(dtype).cuda() for a in (q, *pool)]
+    return out + [torch.from_numpy(tables).cuda(), torch.tensor(lengths, dtype=torch.int32).cuda()]
+
+
+@pytest.mark.parametrize("case", range(len(PAGED_CASES)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("impl", ["stream", "grid"])
+def test_paged_decode_matches_plain_version(impl, dtype, case, monkeypatch):
+    _need_card()
+    monkeypatch.setenv("SELDON_TPU_PAGED_KERNEL_IMPL", impl)
+    B, h, hd, ps, P, lengths = PAGED_CASES[case]
+    args = _paged_inputs(B, h, hd, ps, P, lengths, dtype, seed=case)
+    name = f"paged_decode_{impl}"
+    before = kernels.launch_counts()[name]
+    got = kernels.paged_attention_decode(*args, page_size=ps)
+    ref = kernels.paged_attention_decode_reference(*args, page_size=ps)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + (1 if impl == "stream" else 2)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32 and g.shape == r.shape and not torch.isnan(g).any()
+        special = torch.isinf(r) | (r == 0)
+        assert torch.equal(g[special], r[special])
+        fin = ~special
+        assert ((g[fin] - r[fin]).abs().max() / r[fin].abs().max()).item() <= PAGED_REL_TOL
+
+
+@pytest.mark.parametrize("impl", ["stream", "grid"])
+def test_paged_engine_launches_the_kernel_every_step_of_every_layer(impl, monkeypatch):
+    _need_card()
+    monkeypatch.setenv("SELDON_TPU_PAGED_KERNEL_IMPL", impl)
+    monkeypatch.delenv("SELDON_TPU_PAGED_KERNEL", raising=False)  # auto: the kernel lane on a CUDA engine
+    cfg = dict(vocab_size=128, d_model=64, num_layers=2, num_heads=4, max_len=128)
+    eng = PagedEngine(load_lm_params("", cfg, 0), dtype="bfloat16", device="cuda", page_size=16, max_slots=4,
+                      steps_per_call=4, **cfg)
+    assert eng._kernel_active
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(0)
+    streams = [eng.submit(rng.integers(0, 128, n), max_new_tokens=8) for n in (5, 17, 40)]
+    eng.run()
+    steps = eng.engine_stats()["chunks"] * 4
+    per_launch = 1 if impl == "stream" else 2
+    assert kernels.launch_counts()[f"paged_decode_{impl}"] == cfg["num_layers"] * steps * per_launch
+    assert all(s.result.shape == (8,) and ((s.result >= 0) & (s.result < 128)).all() for s in streams)
