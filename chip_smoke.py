@@ -23,6 +23,16 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    the plain version has them, no NaN; kernel, plain and library
    (gather + scaled_dot_product_attention) times at uniform length 512
    and at the ragged lengths, beside the bound;
+3c. the flash-attention kernel K3 against its plain version on the card
+   (TF32 off for matmul and cuDNN): the ViT-B/16 serving shape (32, 197,
+   12, 64) bf16 non-causal, also as the strided views of the qkv split;
+   (4, 1024, 8, 64) bf16 causal; (2, 50, 2, 16) and (1, 1, 1, 8) f32,
+   causal and not; head_dim 128 in bf16 and 40 in f16.  float32: the
+   largest |kernel - plain| within 1e-5 of the largest |plain|; bf16 /
+   f16: one step of the format (rtol 2**-7 / 2**-10) with a floor at one
+   step of 2**-8 of the largest |plain|; no NaN.  Kernel, plain and
+   ``F.scaled_dot_product_attention`` times (median of 100, L2 flushed)
+   beside the bound, at the serving and the causal shape;
 4. the main path: the microservice CLI serving ResNet-50 (224x224x3,
    1000 classes, bf16, normalize=true, max_batch_size=32, seeded random
    weights with live residual branches) over REST as a subprocess; uint8
@@ -56,7 +66,24 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    logits, relative L2 <= 5e-2 and per-row cosine >= 0.99; numbers:
    decode tokens/s at 16 slots (prompt 128, 128 new tokens, full run
    minus prefill and one chunk), prefill ms for 16 x 128, and a profile
-   of one decode chunk (device time by kernel, K4's share, idle share).
+   of one decode chunk (device time by kernel, K4's share, idle share);
+9. the ViT path: the CLI serving ViT-B/16 (224x224x3, 1000 classes, d768,
+   12 layers of 12 heads of 64, 197 tokens, bf16, normalize=true,
+   max_batch_size=32, ``{"attention": "flash"}``, seeded random weights)
+   over REST as a subprocess; uint8 ``rawTensor`` requests (a batch of 8
+   and 8 concurrent single images) give 1000 finite logits per row, each
+   within relative L2 2e-2 of an in-process model of the same weights and
+   nearer its own image's answer than any other's; the server's
+   ``flash_attention`` launches grow by exactly 12 x the batches served
+   and ``fused_normalize``'s by the batch count; numbers: p50/p99 of 500
+   sequential single images, img/s of batch-32 requests from 4 clients
+   over 10 s, and the device time of the in-process forward at batch 1
+   and 32 from the profiler, with K3's share and the idle share;
+10. transformer numerics in-process: ViT-B/16 bf16 with K3 against f32
+   with plain attention (TF32 off), relative L2 <= 5e-2 and per-row
+   cosine >= 0.99; ``transformer_lm`` (the generation config) served by
+   an in-process ``CudaServer`` with ``attention=flash`` (causal K3, 8
+   launches a forward) against the plain model in f32, within 1e-4.
 
 Output: the ``nvidia-smi`` line, then one ``{"kernels": [...]}`` line,
 then the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -107,6 +134,32 @@ LM_ENGINE = dict(page_size=64, max_slots=16, steps_per_call=8)
 LM_MAX_NEW = 64
 LM_PARAMS = [{"name": k, "value": str(v), "type": "INT"}
              for k, v in {**LM_CONFIG, **LM_ENGINE, "max_new_tokens": LM_MAX_NEW}.items()]
+# the ViT cell: the JAX registry's vit_base16 (ViT-Base/16, Dosovitskiy et al.
+# 2020, Table 1) served with flash attention
+VIT_PARAMS = [
+    {"name": "model", "value": "vit_base16", "type": "STRING"},
+    {"name": "normalize", "value": "true", "type": "BOOL"},
+    {"name": "dtype", "value": "bfloat16", "type": "STRING"},
+    {"name": "max_batch_size", "value": "32", "type": "INT"},
+    {"name": "model_kwargs", "value": json.dumps({"attention": "flash"}), "type": "JSON"},
+]
+VIT_LAYERS = 12
+VIT_LATENCY_REQUESTS = 500
+FLASH_CASES = [  # (B, L, H, D, dtype name, causal, strided qkv views)
+    (32, 197, 12, 64, "bfloat16", False, False),
+    (32, 197, 12, 64, "bfloat16", False, True),
+    (4, 1024, 8, 64, "bfloat16", True, False),
+    (2, 50, 2, 16, "float32", False, False),
+    (2, 50, 2, 16, "float32", True, False),
+    (1, 1, 1, 8, "float32", False, False),
+    (1, 1, 1, 8, "float32", True, False),
+    (2, 197, 4, 128, "bfloat16", False, False),
+    (2, 130, 3, 40, "float16", True, False),
+]
+FLASH_F32_REL_TOL = 1e-5        # largest |kernel - plain| / largest |plain|
+FLASH_STEP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}  # one step of the format, relative
+LM_FLASH_ATOL = 1e-4            # f32 logits, causal K3 vs plain attention
+BF16_PEAK_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores (data sheet)
 RAGGED_LENGTHS = [0, 1, 63, 64, 65, 127, 128, 200, 333, 511, 512, 640, 777, 900, 1000, 1024]
 PAGED_CASES = [  # (lanes, heads, head_dim, page_size, table pages, lengths)
     (16, 8, 64, 64, 16, RAGGED_LENGTHS),
@@ -341,6 +394,90 @@ def paged_kernel_checks(torch, np, kernels, mem_bytes_per_s):
             f"normalised) {row['library_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us "
             f"({row['bytes']} bytes)")
     return errs, timings
+
+
+# ---------------------------------------------------------------- phase 3c
+
+@contextlib.contextmanager
+def no_tf32(torch):
+    """float32 matmuls and convolutions in full float32 for a block."""
+    before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def flash_inputs(torch, np, B, L, H, D, dtype, strided, seed):
+    """q, k, v on the card; `strided`: the three views of one qkv tensor."""
+    rng = np.random.default_rng(seed)
+    if strided:
+        qkv = torch.from_numpy(rng.standard_normal((B, L, 3 * H * D), dtype=np.float32)).to(dtype).cuda()
+        return [t.reshape(B, L, H, D) for t in qkv.split(H * D, dim=-1)]
+    return [torch.from_numpy(rng.standard_normal((B, L, H, D), dtype=np.float32)).to(dtype).cuda()
+            for _ in range(3)]
+
+
+def flash_bound(B, L, H, D, causal, elt, mem_bytes_per_s):
+    """Least time for one call: q, k, v read once and o written once over
+    the memory rate, against the 4 * B * H * D flops per (query, live key)
+    pair (L * (L + 1) / 2 pairs when causal) over the bf16 tensor-core
+    peak; -> (ms, "bytes" or "operations", bytes, flops)."""
+    nbytes = 4 * B * L * H * D * elt
+    pairs = L * (L + 1) // 2 if causal else L * L
+    flops = 4 * B * H * D * pairs
+    t_bytes, t_ops = nbytes / mem_bytes_per_s, flops / BF16_PEAK_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def flash_kernel_checks(torch, np, kernels, mem_bytes_per_s):
+    import torch.nn.functional as F
+
+    worst = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    with no_tf32(torch):
+        for case, (B, L, H, D, dt, causal, strided) in enumerate(FLASH_CASES):
+            q, k, v = flash_inputs(torch, np, B, L, H, D, getattr(torch, dt), strided, seed=100 + case)
+            got = kernels.flash_attention(q, k, v, causal=causal)
+            ref = kernels.flash_attention_reference(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            what = f"flash_attention {(B, L, H, D)} {dt} causal={causal}{' qkv-split views' if strided else ''}"
+            check(got.shape == ref.shape and got.dtype == ref.dtype, f"{what}: bad output {tuple(got.shape)}")
+            g, r = got.float(), ref.float()
+            check(not bool(torch.isnan(g).any()), f"{what}: NaN in the kernel's output")
+            err = (g - r).abs()
+            peak = r.abs().max().item()
+            rel = err.max().item() / peak
+            if dt == "float32":
+                ok, limit = rel <= FLASH_F32_REL_TOL, f"{FLASH_F32_REL_TOL} of max |plain|"
+            else:
+                step = FLASH_STEP[dt]
+                ok = bool((err <= step * r.abs() + step * 2.0 ** -8 * peak).all())
+                limit = f"one {dt} step, rtol {step}, floor {step * 2.0 ** -8:.3e} x max |plain|"
+            log(f"{what}: max_abs_err={err.max().item():.3e} max|plain|={peak:.3e} rel={rel:.3e} ({limit})")
+            check(ok, f"{what} differs from its plain version")
+            worst["max_abs_err"] = max(worst["max_abs_err"], err.max().item())
+            worst["max_rel_err"] = max(worst["max_rel_err"], rel)
+
+        timings = {}
+        for label, (B, L, H, D, causal) in (("serving", (32, 197, 12, 64, False)), ("causal", (4, 1024, 8, 64, True))):
+            q, k, v = flash_inputs(torch, np, B, L, H, D, torch.bfloat16, False, seed=7)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, L, D) views for the library call
+            row = {
+                "ms": time_cuda(torch, lambda: kernels.flash_attention(q, k, v, causal=causal)),
+                "plain_ms": time_cuda(torch, lambda: kernels.flash_attention_reference(q, k, v, causal=causal)),
+                "library_ms": time_cuda(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)),
+                "shape": [B, L, H, D], "causal": causal,
+            }
+            row["bound_ms"], row["bound_by"], row["bytes"], row["flops"] = flash_bound(B, L, H, D, causal, 2,
+                                                                                         mem_bytes_per_s)
+            timings[label] = row
+            log(f"flash_attention bf16 {(B, L, H, D)} causal={causal}: kernel {row['ms'] * 1e3:.2f} us, plain "
+                f"{row['plain_ms'] * 1e3:.2f} us, F.scaled_dot_product_attention {row['library_ms'] * 1e3:.2f} us, "
+                f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: {row['bytes']} bytes, "
+                f"{row['flops']} flops; {row['bound_ms'] / row['ms'] * 100:.1f}% of the roofline)")
+    return worst, timings
 
 
 # ---------------------------------------------------------------- phase 4 + 6
@@ -736,6 +873,27 @@ def generation_path(torch, np, PagedEngine, load_lm_params, card):
 
 # ---------------------------------------------------------------- phase 8
 
+def device_time_by_name(prof):
+    """-> ({name: (device us, count)}, busy us) of a profiler run.  Device
+    time two ways: the device-side events (kernels, copies, fills), and
+    the kernels the profiler files under the host op that launched them;
+    the fuller of the two is the breakdown."""
+    from torch.autograd import DeviceType
+
+    views = ({}, {})
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, n = views[0].get(e.name, (0.0, 0))
+            views[0][e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        for k in getattr(e, "kernels", None) or ():
+            us, n = views[1].get(k.name, (0.0, 0))
+            views[1][k.name] = (us + k.duration, n + 1)
+    totals = [sum(us for us, _ in v.values()) for v in views]
+    log(f"profiler device time: {totals[0] / 1e3:.3f} ms in {sum(n for _, n in views[0].values())} device events, "
+        f"{totals[1] / 1e3:.3f} ms in {sum(n for _, n in views[1].values())} kernels under host ops")
+    return (views[0] if totals[0] >= totals[1] else views[1]), max(totals)
+
+
 def first_step_logits(torch, np, eng, prompts, tokens):
     """Prefill `prompts` (one per slot), then one decode step of `tokens`
     on the engine's own lane; returns its (slots, vocab) logits."""
@@ -829,7 +987,6 @@ def engine_numbers(torch, np, PagedEngine, load_lm_params, card):
         prefill_ms = min(prefill_ms, (time.perf_counter() - t0) * 1e3)
         eng.run()
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for p in prompts:
@@ -842,22 +999,7 @@ def engine_numbers(torch, np, PagedEngine, load_lm_params, card):
         chunk_ms = (time.perf_counter() - t0) * 1e3
     eng.run()
 
-    # device time two ways: the device-side events (kernels, copies,
-    # fills), and the kernels the profiler files under the host op that
-    # launched them; the fuller of the two is the breakdown
-    views = ({}, {})
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us, n = views[0].get(e.name, (0.0, 0))
-            views[0][e.name] = (us + e.time_range.elapsed_us(), n + 1)
-        for k in getattr(e, "kernels", None) or ():
-            us, n = views[1].get(k.name, (0.0, 0))
-            views[1][k.name] = (us + k.duration, n + 1)
-    totals = [sum(us for us, _ in v.values()) for v in views]
-    log(f"profiler device time: {totals[0] / 1e3:.3f} ms in {sum(n for _, n in views[0].values())} device events, "
-        f"{totals[1] / 1e3:.3f} ms in {sum(n for _, n in views[1].values())} kernels under host ops")
-    by_name = views[0] if totals[0] >= totals[1] else views[1]
-    busy_us = max(totals)
+    by_name, busy_us = device_time_by_name(prof)
     k4_us = sum(us for name, (us, _) in by_name.items() if "paged_decode_stream" in name)
     launches = sum(n for _, n in by_name.values())
     log(f"profile of one decode chunk ({LM_ENGINE['steps_per_call']} steps, 16 lanes, prompt 128): wall "
@@ -880,6 +1022,174 @@ def engine_numbers(torch, np, PagedEngine, load_lm_params, card):
     return numbers
 
 
+# ---------------------------------------------------------------- phase 9
+
+def vit_model(torch, kernels, vit, dtype, flash: bool, seed: int):
+    """ViT-B/16 in-process with the server's seeded init."""
+    attn = {"attn_fn": kernels.flash_attn_fn()} if flash else {}
+    model = vit.ViTBase16(num_classes=NUM_CLASSES, dtype=dtype, **attn)
+    return model.reset_parameters(torch.Generator().manual_seed(seed)).cuda().eval()
+
+
+def vit_path(torch, np, kernels, vit, card):
+    """The served ViT-B/16 path, rows held against an in-process model."""
+    rng = np.random.default_rng(SEED + 50)
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_vit_server_", suffix=".log")
+    logfile = os.fdopen(fd, "w")
+    proc = start_server(port, logfile, params=VIT_PARAMS)
+    try:
+        status, ready_s = wait_ready(proc, base, logpath)
+        log(f"ViT-B/16 server ready in {ready_s:.1f}s (load {status['load_time_s']:.1f}s, buckets "
+            f"{status['buckets']}, device {status['device_name']})")
+        check(status["device"].startswith("cuda"), f"the ViT server is not on the card: {status['device']}")
+        m0 = metrics_values(http(base + "/metrics"))
+        before = status["kernel_launches"]
+        groups = [distinct_images(np, rng, 8), distinct_images(np, rng, 8)]
+        served = [decode_logits(np, http(base + "/predict", raw_request(np, groups[0])), 8)]
+        answers = concurrent(lambda i: http(base + "/predict", raw_request(np, groups[1][i:i + 1])), 8)
+        served.append(np.concatenate([decode_logits(np, a, 1) for a in answers]))
+        lat = latency_window(np, base, rng, VIT_LATENCY_REQUESTS)
+        img_s, b32_requests, b32_wall = throughput_window(np, base, rng, THROUGHPUT_CLIENTS, THROUGHPUT_SECONDS)
+        after = http(base + "/health/status")["jsonData"]["kernel_launches"]
+        m1 = metrics_values(http(base + "/metrics"))
+    finally:
+        stop_server(proc)
+        logfile.close()
+    launches = {k: after[k] - before.get(k, 0) for k in after}
+    batches = int(m1["cudaserver_batches_total"] - m0["cudaserver_batches_total"])
+    log(f"ViT path: {batches} batches, mean rows/batch {m1['cudaserver_mean_batch_rows']:.2f}, kernel launches "
+        f"{launches}")
+    check(batches > 0, "the ViT server served no batch")
+    check(launches["flash_attention"] == VIT_LAYERS * batches,
+          f"flash_attention launches {launches['flash_attention']} != {VIT_LAYERS} x {batches} batches")
+    check(launches["fused_normalize"] == batches,
+          f"fused_normalize launches {launches['fused_normalize']} != {batches} batches")
+
+    # the server's weights in-process (its default seed 0), each group as one batch
+    local = vit_model(torch, kernels, vit, torch.bfloat16, True, SEED)
+    scale, shift = (torch.from_numpy(a).cuda() for a in kernels.imagenet_affine())
+    refs = []
+    with torch.inference_mode():
+        for images in groups:
+            x = kernels.fused_normalize(torch.from_numpy(images).cuda(), scale, shift, torch.bfloat16)
+            refs.append(local(x).double().cpu().numpy())
+    served_all, ref_all = np.concatenate(served), np.concatenate(refs)
+    n = len(ref_all)
+    errs = [rel_l2(np, served_all[i], ref_all[i]) for i in range(n)]
+    nearest = [int(np.argmin([rel_l2(np, served_all[i], ref_all[j]) for j in range(n)])) for i in range(n)]
+    cross = min(rel_l2(np, ref_all[i], ref_all[j]) for i in range(n) for j in range(n) if i != j)
+    log(f"ViT served vs in-process bf16, {n} rows (batch of 8 + 8 concurrent singles): max row rel L2 "
+        f"{max(errs):.3e} (limit {SERVED_VS_LOCAL_REL_L2}); every row nearest its own image's answer: "
+        f"{nearest == list(range(n))}; least rel L2 between two images' answers {cross:.3e}")
+    check(max(errs) <= SERVED_VS_LOCAL_REL_L2, f"served ViT rows disagree with the in-process model: {errs}")
+    check(nearest == list(range(n)), f"a served ViT row is nearer another image's answer: {nearest}")
+    numbers = {
+        "batches": batches, "launches": launches, "served_max_row_rel_l2": max(errs),
+        "least_cross_row_rel_l2": cross,
+        "p50_ms": pct(lat, 0.50), "p99_ms": pct(lat, 0.99), "n_latency": len(lat),
+        "batch32_img_s": img_s, "batch32_requests": b32_requests, "batch32_wall_s": b32_wall,
+        "clients": THROUGHPUT_CLIENTS,
+    }
+    log(f"ViT-B/16 REST single-image latency over {len(lat)} sequential requests: p50 {numbers['p50_ms']:.2f} ms, "
+        f"p99 {numbers['p99_ms']:.2f} ms; batch-32 throughput ({THROUGHPUT_CLIENTS} clients, {b32_requests} "
+        f"requests in {b32_wall:.2f} s): {img_s:.1f} img/s [{card}]")
+    return local, numbers
+
+
+def vit_forward_profile(torch, np, kernels, model, card):
+    """Device time of the served program (K1 + ViT-B/16 bf16 with K3) at
+    batch 1 and 32: event-timed forward, and a profile of 5 forwards
+    (device busy per forward, K3's share, idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(SEED + 51)
+    scale, shift = (torch.from_numpy(a).cuda() for a in kernels.imagenet_affine())
+    out = {}
+    for batch in (1, 32):
+        x = torch.from_numpy(rng.integers(0, 256, (batch, *IMG), dtype=np.uint8)).cuda()
+
+        def step():
+            with torch.inference_mode():
+                model(kernels.fused_normalize(x, scale, shift, torch.bfloat16))
+
+        forward_ms = time_cuda(torch, step, reps=30, warm=5)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(5):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_name, busy_us = device_time_by_name(prof)
+        k3_us = sum(us for name, (us, _) in by_name.items() if "flash_attention" in name)
+        k3_n = sum(n for name, (_, n) in by_name.items() if "flash_attention" in name)
+        row = {"forward_ms": forward_ms, "device_busy_ms_per_forward": busy_us / 5e3,
+               "k3_share_of_device_time": k3_us / max(busy_us, 1e-9), "k3_launches_profiled": k3_n,
+               "profiled_wall_ms_per_forward": wall_ms / 5, "idle_share": 1 - busy_us / 1e3 / wall_ms}
+        out[batch] = row
+        log(f"ViT-B/16 forward (K1 + bf16 ViT with K3) batch {batch}: event-timed {forward_ms:.3f} ms "
+            f"= {batch / forward_ms * 1e3:.1f} img/s; profiled: device busy {row['device_busy_ms_per_forward']:.3f} "
+            f"ms a forward, K3 {row['k3_share_of_device_time']:.3f} of it ({k3_n} launches in 5 forwards), idle "
+            f"share {row['idle_share']:.3f} [{card}]")
+        for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+            log(f"  {us / 5e3:9.3f} ms/fwd  {n // 5:5d}x  {us / max(busy_us, 1e-9):6.3f}  {name[:90]}")
+        check(k3_n == 5 * VIT_LAYERS, f"the profile shows {k3_n} K3 launches in 5 forwards")
+    return out
+
+
+# ---------------------------------------------------------------- phase 10
+
+def transformer_numerics(torch, np, kernels, vit, transformer, CudaServer, card):
+    """ViT-B/16 bf16 + K3 against f32 + plain attention; the causal K3
+    lane of transformer_lm against the plain model, both f32."""
+    rng = np.random.default_rng(SEED + 60)
+    images = torch.from_numpy(rng.integers(0, 256, (8, *IMG), dtype=np.uint8)).cuda()
+    scale, shift = (torch.from_numpy(a).cuda() for a in kernels.imagenet_affine())
+    with no_tf32(torch), torch.inference_mode():
+        ref_model = vit_model(torch, kernels, vit, torch.float32, False, SEED + 3)
+        ref = ref_model(kernels.fused_normalize_reference(images, scale, shift, torch.float32)).double().cpu()
+        del ref_model
+        model = vit_model(torch, kernels, vit, torch.bfloat16, True, SEED + 3)
+        got = model(kernels.fused_normalize(images, scale, shift, torch.bfloat16)).double().cpu()
+        del model
+    check(bool(torch.isfinite(got).all()) and got.shape == (8, NUM_CLASSES), "bad bf16 ViT logits")
+    rel = float((got - ref).norm() / ref.norm())
+    cos = float(torch.nn.functional.cosine_similarity(got, ref, dim=-1).min())
+    log(f"ViT-B/16 bf16 + K1 + K3 vs f32 + plain versions (TF32 off), batch 8: rel L2 {rel:.3e} (limit "
+        f"{WHOLE_PATH_REL_L2}), min row cosine {cos:.6f} (limit {WHOLE_PATH_MIN_COS})")
+    check(rel <= WHOLE_PATH_REL_L2 and cos >= WHOLE_PATH_MIN_COS, "ViT numerics out of tolerance")
+
+    seq = 256
+    tokens = rng.integers(0, LM_CONFIG["vocab_size"], (2, seq)).astype(np.int32)
+    with no_tf32(torch):
+        cs = CudaServer(model="transformer_lm", input_shape=[seq], dtype="float32", max_batch_size=2,
+                        warmup_dtypes=("int32",), seed=SEED + 6, model_kwargs={**LM_CONFIG, "attention": "flash"})
+        cs.load()
+        try:
+            before = kernels.launch_counts()["flash_attention"]
+            flash = cs.predict(tokens, [])
+            lm_launches = kernels.launch_counts()["flash_attention"] - before
+        finally:
+            cs.unload()
+        del cs
+        plain_lm = transformer.TransformerLM(dtype=torch.float32, **LM_CONFIG)
+        plain_lm = plain_lm.reset_parameters(torch.Generator().manual_seed(SEED + 6)).cuda().eval()
+        with torch.inference_mode():
+            plain = plain_lm(torch.from_numpy(tokens).cuda()).cpu().numpy()
+        del plain_lm
+    torch.cuda.empty_cache()
+    err = float(np.abs(flash - plain).max())
+    log(f"transformer_lm served in-process with attention=flash (causal K3, {lm_launches} launches for one batch "
+        f"of 2 x {seq}) vs plain attention, f32: max abs logit diff {err:.3e} (limit {LM_FLASH_ATOL}), max |logit| "
+        f"{float(np.abs(plain).max()):.3f}")
+    check(flash.shape == plain.shape == (2, seq, LM_CONFIG["vocab_size"]), f"bad LM logits {flash.shape}")
+    check(lm_launches == LM_CONFIG["num_layers"], f"causal K3 launched {lm_launches} times, not once per layer")
+    check(err <= LM_FLASH_ATOL, "causal flash LM differs from the plain LM")
+    return {"vit_rel_l2": rel, "vit_min_cos": cos, "lm_max_abs_err": err, "lm_launches": lm_launches}
+
+
 # ---------------------------------------------------------------- main
 
 def run() -> int:
@@ -896,7 +1206,8 @@ def run() -> int:
     try:
         import numpy as np
 
-        from seldon_core_tpu_torch.models import resnet
+        from seldon_core_tpu_torch.models import resnet, transformer, vit
+        from seldon_core_tpu_torch.models.cudaserver import CudaServer
         from seldon_core_tpu_torch.models.generate import load_lm_params
         from seldon_core_tpu_torch.models.paged import PagedEngine
         from seldon_core_tpu_torch.ops import _build, kernels
@@ -909,7 +1220,7 @@ def run() -> int:
         smi_line, name, mem_bytes_per_s = card_report(torch)
         card = smi_line
         t0 = time.perf_counter()
-        sources = ("fused_normalize", "paged_decode")
+        sources = ("fused_normalize", "paged_decode", "flash_attention")
         with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
             libs = list(pool.map(_build.build, sources))
         for source in sources:
@@ -917,11 +1228,17 @@ def run() -> int:
         log(f"built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f}s")
         max_err, timings = kernel_checks(torch, np, kernels, mem_bytes_per_s)
         paged_errs, paged_timings = paged_kernel_checks(torch, np, kernels, mem_bytes_per_s)
+        flash_errs, flash_timings = flash_kernel_checks(torch, np, kernels, mem_bytes_per_s)
         launches, numbers = main_path(torch, np, kernels, resnet, card)
         whole = whole_path(torch, np, kernels, resnet, card)
         gen_launches, gen_numbers = generation_path(torch, np, PagedEngine, load_lm_params, card)
         grid_launches, gen_numerics = engine_numerics(torch, np, kernels, PagedEngine, load_lm_params, card)
         engine = engine_numbers(torch, np, PagedEngine, load_lm_params, card)
+        vit_local, vit_numbers = vit_path(torch, np, kernels, vit, card)
+        vit_profile = vit_forward_profile(torch, np, kernels, vit_local, card)
+        del vit_local
+        torch.cuda.empty_cache()
+        tf_numerics = transformer_numerics(torch, np, kernels, vit, transformer, CudaServer, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -934,6 +1251,10 @@ def run() -> int:
         "generation_numerics": gen_numerics,
         "generation_engine": engine,
         "paged_timings": paged_timings,
+        "vit": vit_numbers,
+        "vit_forward": vit_profile,
+        "transformer_numerics": tf_numerics,
+        "flash_timings": flash_timings,
         "seconds": time.perf_counter() - t_start,
     }
     log(json.dumps(result))
@@ -969,6 +1290,24 @@ def run() -> int:
             "ragged": {"ms": rag[impl], "plain_ms": rag["plain_ms"], "library_ms": rag["library_ms"],
                        "bound_ms": rag["bound_ms"], "lengths": RAGGED_LENGTHS},
         })
+    serving, causal = flash_timings["serving"], flash_timings["causal"]
+    kernel_line["kernels"].append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "seldon_core_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "seldon_core_tpu/ops/kernels.py:255",
+        "launches": vit_numbers["launches"]["flash_attention"],
+        "launches_on": f"served ViT-B/16 REST path ({VIT_LAYERS} per batch, {vit_numbers['batches']} batches)",
+        "max_abs_err": flash_errs["max_abs_err"], "max_rel_err": flash_errs["max_rel_err"],
+        "ms": serving["ms"], "plain_ms": serving["plain_ms"], "bound_ms": serving["bound_ms"],
+        "bound_by": serving["bound_by"], "library_ms": serving["library_ms"],
+        "library_call": "F.scaled_dot_product_attention on (B, H, L, D) views",
+        "shape": serving["shape"], "dtype": "bfloat16",
+        "causal": {"shape": causal["shape"], "ms": causal["ms"], "plain_ms": causal["plain_ms"],
+                        "library_ms": causal["library_ms"], "bound_ms": causal["bound_ms"],
+                        "bound_by": causal["bound_by"], "launches": tf_numerics["lm_launches"],
+                        "launches_on": "in-process CudaServer transformer_lm, attention=flash, f32"},
+    })
     print(smi_line)
     print(json.dumps(kernel_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

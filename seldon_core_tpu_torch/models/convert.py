@@ -1,5 +1,7 @@
 """Flax variables -> the port's ``state_dict``: ResNet
-(``resnet_params_from_flax``) and TransformerLM (``lm_params_from_flax``).
+(``resnet_params_from_flax``), TransformerLM (``lm_params_from_flax``),
+TransformerEncoder (``encoder_params_from_flax``) and VisionTransformer
+(``vit_params_from_flax``).
 
 The inverse of the JAX package's torch->flax converter.  For ResNet it
 takes the ``{"params": ..., "batch_stats": ...}`` tree that
@@ -16,11 +18,12 @@ numpy arrays) and returns the ``state_dict`` of
   -> ``blocks.N``, ``Conv_K``/``BatchNorm_K`` -> ``convK``/``bnK``,
   ``shortcut_conv``/``shortcut_bn`` -> themselves, ``head`` -> ``head``.
 
-For TransformerLM, ``lm_params_from_flax`` maps the same way (dense
-kernels transposed, ``Embed.embedding`` as is, LayerNorm ``scale`` ->
-``weight``).  Every leaf of the tree must be consumed and every leaf a
-module needs must be present: a missing or an extra key is a
-``ValueError`` naming it.
+The transformer family maps the same way (dense kernels transposed,
+``Embed.embedding`` as is, LayerNorm ``scale`` -> ``weight``, the
+TransformerBlock parts of ``_LM_BLOCK_PARTS`` shared by all three).
+Every leaf of the tree must be consumed and every leaf a module needs
+must be present: a missing or an extra key is a ``ValueError`` naming
+it.
 """
 
 from __future__ import annotations
@@ -119,6 +122,58 @@ _LM_BLOCK_PARTS = {"LayerNorm_0": "ln0", "qkv": "qkv", "attn_proj": "attn_proj",
                    "mlp_in": "mlp_in", "mlp_out": "mlp_out"}
 
 
+class _FlaxParams:
+    """One flax params tree being converted: each ``take`` consumes a
+    leaf, and ``state_dict`` refuses a tree with leaves left over."""
+
+    def __init__(self, params: Mapping[str, Any]):
+        if set(params) == {"params"}:
+            params = params["params"]
+        self.params = dict(params)
+        self.out: Dict[str, np.ndarray] = {}
+        self.consumed = set()
+
+    def take(self, path: Tuple[str, ...]) -> np.ndarray:
+        node: Any = self.params
+        for key in path:
+            if not isinstance(node, Mapping) or key not in node:
+                raise ValueError(f"flax params missing {'/'.join(path)}")
+            node = node[key]
+        self.consumed.add(("params", *path))
+        return np.asarray(node)
+
+    def leaf(self, flax_path: Tuple[str, ...], torch_key: str) -> None:
+        self.out[torch_key] = self.take(flax_path)
+
+    def dense(self, flax_path: Tuple[str, ...], torch_key: str) -> None:
+        self.out[f"{torch_key}.weight"] = _linear(self.take((*flax_path, "kernel")))
+        self.out[f"{torch_key}.bias"] = self.take((*flax_path, "bias"))
+
+    def norm(self, flax_path: Tuple[str, ...], torch_key: str) -> None:
+        self.out[f"{torch_key}.weight"] = self.take((*flax_path, "scale"))
+        self.out[f"{torch_key}.bias"] = self.take((*flax_path, "bias"))
+
+    def conv(self, flax_path: Tuple[str, ...], torch_key: str) -> None:
+        self.out[f"{torch_key}.weight"] = _conv(self.take((*flax_path, "kernel")))
+        self.out[f"{torch_key}.bias"] = self.take((*flax_path, "bias"))
+
+    def blocks(self) -> None:
+        """``block_N`` TransformerBlocks -> ``blocks.N``."""
+        blocks = sorted(int(m.group(1)) for m in map(_LM_BLOCK.match, self.params) if m)
+        if blocks != list(range(len(blocks))):
+            raise ValueError(f"flax block names are not numbered 0..N-1: {blocks}")
+        for i in blocks:
+            for flax_name, port_name in _LM_BLOCK_PARTS.items():
+                convert = self.norm if flax_name.startswith("LayerNorm") else self.dense
+                convert((f"block_{i}", flax_name), f"blocks.{i}.{port_name}")
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        leftover = sorted("/".join(p) for p in _leaf_paths(self.params, ("params",)) if p not in self.consumed)
+        if leftover:
+            raise ValueError(f"unconverted flax entries: {leftover[:8]}")
+        return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in self.out.items()}
+
+
 def lm_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax ``TransformerLM`` params -> the port's ``TransformerLM`` /
     ``PagedTransformerLM`` ``state_dict`` (float32 CPU tensors).
@@ -128,42 +183,34 @@ def lm_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     keeps its (num, features) layout; LayerNorm ``scale``/``bias`` become
     ``weight``/``bias``; ``block_N`` -> ``blocks.N``, the top-level
     ``LayerNorm_0`` -> ``ln_f``.  Every leaf must be consumed."""
-    if set(params) == {"params"}:
-        params = params["params"]
-    params = dict(params)
-    out: Dict[str, np.ndarray] = {}
-    consumed = set()
+    tree = _FlaxParams(params)
+    tree.leaf(("tok_embed", "embedding"), "tok_embed.weight")
+    tree.leaf(("pos_embed", "embedding"), "pos_embed.weight")
+    tree.blocks()
+    tree.norm(("LayerNorm_0",), "ln_f")
+    tree.dense(("head",), "head")
+    return tree.state_dict()
 
-    def take(path: Tuple[str, ...]) -> np.ndarray:
-        node: Any = params
-        for key in path:
-            if not isinstance(node, Mapping) or key not in node:
-                raise ValueError(f"flax params missing {'/'.join(path)}")
-            node = node[key]
-        consumed.add(("params", *path))
-        return np.asarray(node)
 
-    def dense(flax_path: Tuple[str, ...], torch_key: str) -> None:
-        out[f"{torch_key}.weight"] = _linear(take((*flax_path, "kernel")))
-        out[f"{torch_key}.bias"] = take((*flax_path, "bias"))
+def encoder_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``TransformerEncoder`` params -> the port's
+    ``TransformerEncoder`` ``state_dict``: the LM's tree and mapping
+    (``tok_embed``, ``pos_embed``, ``block_N``, ``LayerNorm_0``, ``head``
+    whose width is the class count)."""
+    return lm_params_from_flax(params)
 
-    def norm(flax_path: Tuple[str, ...], torch_key: str) -> None:
-        out[f"{torch_key}.weight"] = take((*flax_path, "scale"))
-        out[f"{torch_key}.bias"] = take((*flax_path, "bias"))
 
-    out["tok_embed.weight"] = take(("tok_embed", "embedding"))
-    out["pos_embed.weight"] = take(("pos_embed", "embedding"))
-    blocks = sorted(int(m.group(1)) for m in map(_LM_BLOCK.match, params) if m)
-    if blocks != list(range(len(blocks))):
-        raise ValueError(f"flax block names are not numbered 0..N-1: {blocks}")
-    for i in blocks:
-        for flax_name, port_name in _LM_BLOCK_PARTS.items():
-            convert = norm if flax_name.startswith("LayerNorm") else dense
-            convert((f"block_{i}", flax_name), f"blocks.{i}.{port_name}")
-    norm(("LayerNorm_0",), "ln_f")
-    dense(("head",), "head")
-
-    leftover = sorted("/".join(p) for p in _leaf_paths(params, ("params",)) if p not in consumed)
-    if leftover:
-        raise ValueError(f"unconverted flax entries: {leftover[:8]}")
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+def vit_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``VisionTransformer`` params -> the port's
+    ``VisionTransformer`` ``state_dict``: ``patch_embed`` (kernel HWIO ->
+    OIHW, bias), ``cls_token``, ``pos_embed``, ``block_N`` ->
+    ``blocks.N``, the top-level ``LayerNorm_0`` -> ``ln_f``, ``head``.
+    Every leaf must be consumed."""
+    tree = _FlaxParams(params)
+    tree.conv(("patch_embed",), "patch_embed")
+    tree.leaf(("cls_token",), "cls_token")
+    tree.leaf(("pos_embed",), "pos_embed")
+    tree.blocks()
+    tree.norm(("LayerNorm_0",), "ln_f")
+    tree.dense(("head",), "head")
+    return tree.state_dict()

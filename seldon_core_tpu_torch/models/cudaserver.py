@@ -3,15 +3,23 @@
 The counterpart of ``seldon_core_tpu/models/jaxserver.py`` (``JaxServer``)
 for one NVIDIA GPU:
 
-* the model is a ResNet from the port's registry (resnet18/34/50/101/152,
-  resnet_tiny), its weights held in device memory once;
+* the model comes from the port's registry: the ResNets
+  (resnet18/34/50/101/152, resnet_tiny), the ViTs (vit_tiny, vit_base16,
+  vit_large16), ``transformer_encoder`` and ``transformer_lm``; its
+  weights are held in device memory once;
+* ``model_kwargs`` go to the model, and for the transformer families
+  ``{"attention": "flash"}`` selects the hand-written CUDA flash-attention
+  kernel (``"plain"`` or no entry: the einsum attention; anything else is
+  ``BAD_ATTENTION``); the token families take no default
+  ``input_shape`` (``MISSING_INPUT_SHAPE`` without one);
 * parameters come from ``variables=`` (the JAX package's flax tree,
-  converted by ``models/convert.py``) or, without it, a random init from
-  ``seed`` (flax's scheme, except that each block's last BatchNorm scale
-  is one, not zero, so random weights give answers that depend on every
-  residual branch);
-* compute runs in ``bfloat16`` by default, convolutions in cuDNN with
-  channels_last activations, BatchNorm in float32;
+  converted by ``models/convert.py`` for the model's family) or, without
+  it, a random init from ``seed`` (flax's scheme; for the ResNets each
+  block's last BatchNorm scale is one, not zero, so random weights give
+  answers that depend on every residual branch);
+* compute runs in ``bfloat16`` by default; ResNet convolutions run in
+  cuDNN with channels_last activations and BatchNorm in float32; the
+  transformers keep LayerNorm in float32;
 * uint8 image batches go through the hand-written CUDA ``fused_normalize``
   kernel when ``normalize=True``; then the model; then the optional
   softmax or top-k;
@@ -25,7 +33,8 @@ an error, never a quiet fall back to the CPU.
 
 Not ported yet (each is a ``BAD_PARAMETER`` error when set): ``model_uri``
 checkpoint loading, ``quantize``/``precision`` (int8), ``mesh``, and
-``extra_input_shapes`` (multi-signature batching).
+``extra_input_shapes`` (multi-signature batching); nor the detection
+family (``detector_*``).
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import time
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,19 +69,78 @@ def _compute_dtype(name: str) -> torch.dtype:
         ) from None
 
 
-def _model_registry() -> Dict[str, Tuple[Callable[..., torch.nn.Module], Tuple[int, ...]]]:
-    """name -> (module factory(num_classes=, dtype=, in_channels=, **kw), example input shape)."""
-    from seldon_core_tpu_torch.models import resnet
+class _Entry(NamedTuple):
+    factory: Callable[..., torch.nn.Module]  # (num_classes, dtype, input_shape, **model_kwargs) -> module
+    input_shape: Optional[Tuple[int, ...]]   # the default served shape; None: the caller must give one
+    family: str                              # "resnet", "vit", "encoder" or "lm": weights and memory format
+
+
+def _model_registry() -> Dict[str, _Entry]:
+    """name -> registry entry (the JAX package's registry, less ``mlp``
+    and the detection family)."""
+    from seldon_core_tpu_torch.models import resnet, transformer, vit
+
+    def image(cls):
+        def make(num_classes, dtype, input_shape, **kw):
+            return cls(num_classes=num_classes, dtype=dtype, in_channels=input_shape[-1], **kw)
+
+        return make
+
+    def vision(cls):
+        def make(num_classes, dtype, input_shape, **kw):
+            return cls(num_classes=num_classes, dtype=dtype, in_channels=input_shape[-1],
+                       image_size=tuple(input_shape[:2]), **_resolve_attention(kw))
+
+        return make
+
+    def encoder(num_classes, dtype, input_shape, **kw):
+        return transformer.TransformerEncoder(num_classes=num_classes, dtype=dtype, **_resolve_attention(kw))
+
+    def lm(num_classes, dtype, input_shape, **kw):
+        return transformer.TransformerLM(dtype=dtype, **_resolve_attention(kw))
 
     img = resnet.IMAGENET_INPUT_SHAPE
     return {
-        "resnet18": (resnet.ResNet18, img),
-        "resnet34": (resnet.ResNet34, img),
-        "resnet50": (resnet.ResNet50, img),
-        "resnet101": (resnet.ResNet101, img),
-        "resnet152": (resnet.ResNet152, img),
-        "resnet_tiny": (resnet.ResNetTiny, (32, 32, 3)),
+        "resnet18": _Entry(image(resnet.ResNet18), img, "resnet"),
+        "resnet34": _Entry(image(resnet.ResNet34), img, "resnet"),
+        "resnet50": _Entry(image(resnet.ResNet50), img, "resnet"),
+        "resnet101": _Entry(image(resnet.ResNet101), img, "resnet"),
+        "resnet152": _Entry(image(resnet.ResNet152), img, "resnet"),
+        "resnet_tiny": _Entry(image(resnet.ResNetTiny), (32, 32, 3), "resnet"),
+        "vit_tiny": _Entry(vision(vit.ViTTiny), (32, 32, 3), "vit"),
+        "vit_base16": _Entry(vision(vit.ViTBase16), img, "vit"),
+        "vit_large16": _Entry(vision(vit.ViTLarge16), img, "vit"),
+        # token-id sequences: input_shape is the served context length
+        "transformer_encoder": _Entry(encoder, None, "encoder"),
+        "transformer_lm": _Entry(lm, None, "lm"),
     }
+
+
+def _resolve_attention(kw: Dict[str, Any]) -> Dict[str, Any]:
+    """Map a JSON-able {"attention": "flash"|"plain"} kwarg to attn_fn."""
+    kw = dict(kw)
+    choice = kw.pop("attention", None)
+    if choice == "flash":
+        kw["attn_fn"] = kernels.flash_attn_fn()
+    elif choice not in (None, "plain"):
+        raise MicroserviceError(
+            f"unknown attention {choice!r} (supported: plain, flash)",
+            status_code=400,
+            reason="BAD_ATTENTION",
+        )
+    return kw
+
+
+def _load_flax_variables(module: torch.nn.Module, family: str, variables: Mapping[str, Any]) -> None:
+    from seldon_core_tpu_torch.models import convert
+
+    to_state_dict = {
+        "resnet": convert.resnet_params_from_flax,
+        "vit": convert.vit_params_from_flax,
+        "encoder": convert.encoder_params_from_flax,
+        "lm": convert.lm_params_from_flax,
+    }[family]
+    module.load_state_dict(to_state_dict(variables))
 
 
 def resolve_device(device: str) -> torch.device:
@@ -95,7 +163,7 @@ def resolve_device(device: str) -> torch.device:
 
 
 class CudaServer(TPUComponent):
-    """Serve a ResNet on one GPU (or the CPU, when asked) with dynamic batching."""
+    """Serve a registry model on one GPU (or the CPU, when asked) with dynamic batching."""
 
     accepts_device_arrays = True
 
@@ -175,23 +243,24 @@ class CudaServer(TPUComponent):
                 status_code=400,
                 reason="UNKNOWN_MODEL",
             )
-        factory, default_shape = registry[self.model_name]
+        entry = registry[self.model_name]
         if self.input_shape is None:
-            self.input_shape = tuple(default_shape)
-        module = factory(
-            num_classes=self.num_classes,
-            dtype=self.compute_dtype,
-            in_channels=self.input_shape[-1],
-            **self.model_kwargs,
-        )
+            if entry.input_shape is None:
+                raise MicroserviceError(
+                    f"model {self.model_name!r} needs an explicit input_shape",
+                    status_code=400,
+                    reason="MISSING_INPUT_SHAPE",
+                )
+            self.input_shape = tuple(entry.input_shape)
+        module = entry.factory(self.num_classes, self.compute_dtype, self.input_shape, **self.model_kwargs)
         if self.variables is not None:
-            from seldon_core_tpu_torch.models.convert import resnet_params_from_flax
-
-            module.load_state_dict(resnet_params_from_flax(self.variables))
-        else:
+            _load_flax_variables(module, entry.family, self.variables)
+        elif entry.family == "resnet":
             module.reset_parameters(torch.Generator().manual_seed(self.seed), zero_init_residual=False)
+        else:
+            module.reset_parameters(torch.Generator().manual_seed(self.seed))
         module = module.to(self.device).eval()
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and entry.family == "resnet":
             module = module.to(memory_format=torch.channels_last)
         return module
 

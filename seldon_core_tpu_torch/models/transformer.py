@@ -1,11 +1,13 @@
-"""Transformer family in PyTorch: the causal decoder LM.
+"""Transformer family in PyTorch: the encoder and the causal decoder LM.
 
 The port's counterpart of ``seldon_core_tpu/models/transformer.py``
-``TransformerLM`` (``TransformerEncoder``, the ``decode=True`` cache and
-``ring_attn_fn`` come with later slices).  The parameter tree is the
-flax module's, name for name (``models/convert.py``
-``lm_params_from_flax`` maps one onto the other), and the arithmetic
-follows flax's defaults, which differ from PyTorch's:
+``TransformerBlock``, ``TransformerEncoder`` and ``TransformerLM`` (the
+``decode=True`` cache and ``ring_attn_fn`` come with later slices).
+Attention is pluggable as in the JAX package: ``attn_fn`` is
+:func:`plain_attention` by default, ``ops.kernels.flash_attn_fn()`` for
+the CUDA flash kernel.  The parameter trees are the flax modules', name
+for name (``models/convert.py`` maps one onto the other), and the
+arithmetic follows flax's defaults, which differ from PyTorch's:
 
 * ``nn.LayerNorm(dtype=float32)``: epsilon 1e-6, computed in float32
   and returned in float32 whatever the input's dtype;
@@ -24,7 +26,7 @@ rounds them the same way once); LayerNorm parameters stay float32.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -68,12 +70,19 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-class TransformerBlock(nn.Module):
-    """Pre-LayerNorm block: causal self-attention, then a GELU MLP."""
+AttnFn = Callable[..., torch.Tensor]
 
-    def __init__(self, d_model: int, num_heads: int, mlp_ratio: int = 4, dtype: torch.dtype = torch.bfloat16):
+
+class TransformerBlock(nn.Module):
+    """Pre-LayerNorm block: self-attention through ``attn_fn`` (causal
+    when ``causal``), then a GELU MLP."""
+
+    def __init__(self, d_model: int, num_heads: int, mlp_ratio: int = 4, dtype: torch.dtype = torch.bfloat16,
+                 attn_fn: AttnFn = plain_attention, causal: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_fn = attn_fn
+        self.causal = causal
         self.ln0 = LayerNorm32(d_model)
         self.qkv = Dense(d_model, 3 * d_model, dtype=dtype)
         self.attn_proj = Dense(d_model, d_model, dtype=dtype)
@@ -96,7 +105,69 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = self.qkv_heads(x)
-        return self.mlp_tail(x, plain_attention(q, k, v, causal=True).reshape(x.shape))
+        return self.mlp_tail(x, self.attn_fn(q, k, v, causal=self.causal).reshape(x.shape))
+
+
+@torch.no_grad()
+def flax_default_init_(root: nn.Module, generator: torch.Generator) -> None:
+    """Random init of every dense, convolution, embedding and LayerNorm
+    under ``root`` in flax's default scheme, drawn from ``generator``
+    (the values differ from jax's RNG; ``models/convert.py`` carries a
+    flax init across): dense and conv kernels LeCun-normal (truncated at
+    two standard deviations, std sqrt(1/fan_in) / 0.8796), their biases
+    0, embeddings normal with std sqrt(1/features), LayerNorm scale 1 and
+    bias 0."""
+    for module in root.modules():
+        if isinstance(module, (nn.Linear, nn.Conv2d)):
+            fan_in = module.weight[0].numel()
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            w = torch.empty(module.weight.shape, dtype=torch.float32)
+            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+            module.weight.copy_(w)
+            module.bias.zero_()
+        elif isinstance(module, nn.Embedding):
+            w = torch.randn(module.weight.shape, generator=generator, dtype=torch.float32)
+            module.weight.copy_(w * math.sqrt(1.0 / module.embedding_dim))
+        elif isinstance(module, LayerNorm32):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+
+
+class TransformerEncoder(nn.Module):
+    """Token classifier: non-causal blocks, the final LayerNorm in
+    float32, mean pooling over the sequence (``pool="mean"``) or
+    per-token logits (``pool="none"``), the head in the compute dtype and
+    float32 logits."""
+
+    def __init__(self, num_classes: int = 2, vocab_size: int = 32_000, d_model: int = 256, num_layers: int = 4,
+                 num_heads: int = 8, max_len: int = 2048, dtype: torch.dtype = torch.bfloat16,
+                 attn_fn: AttnFn = plain_attention, pool: str = "mean"):
+        super().__init__()
+        if pool not in ("mean", "none"):
+            raise ValueError(f"pool must be 'mean' or 'none', got {pool!r}")
+        self.pool = pool
+        self.tok_embed = nn.Embedding(vocab_size, d_model, dtype=dtype)
+        self.pos_embed = nn.Embedding(max_len, d_model, dtype=dtype)
+        self.blocks = nn.ModuleList(
+            TransformerBlock(d_model, num_heads, dtype=dtype, attn_fn=attn_fn, causal=False)
+            for _ in range(num_layers))
+        self.ln_f = LayerNorm32(d_model)
+        self.head = Dense(d_model, num_classes, dtype=dtype)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = self.tok_embed(tokens.long()) + self.pos_embed(positions)
+        for block in self.blocks:
+            x = block(x)
+        x = self.ln_f(x)
+        if self.pool == "mean":
+            x = x.mean(dim=1)
+        return self.head(x).float()
+
+    def reset_parameters(self, generator: torch.Generator) -> "TransformerEncoder":
+        """Random init in flax's default scheme (:func:`flax_default_init_`)."""
+        flax_default_init_(self, generator)
+        return self
 
 
 class TransformerLM(nn.Module):
@@ -105,12 +176,14 @@ class TransformerLM(nn.Module):
     block_cls = TransformerBlock
 
     def __init__(self, vocab_size: int = 32_000, d_model: int = 256, num_layers: int = 4,
-                 num_heads: int = 8, max_len: int = 2048, dtype: torch.dtype = torch.bfloat16):
+                 num_heads: int = 8, max_len: int = 2048, dtype: torch.dtype = torch.bfloat16,
+                 attn_fn: AttnFn = plain_attention):
         super().__init__()
         self.vocab_size = vocab_size
         self.tok_embed = nn.Embedding(vocab_size, d_model, dtype=dtype)
         self.pos_embed = nn.Embedding(max_len, d_model, dtype=dtype)
-        self.blocks = nn.ModuleList(self.block_cls(d_model, num_heads, dtype=dtype) for _ in range(num_layers))
+        self.blocks = nn.ModuleList(self.block_cls(d_model, num_heads, dtype=dtype, attn_fn=attn_fn, causal=True)
+                                    for _ in range(num_layers))
         self.ln_f = LayerNorm32(d_model)
         self.head = Dense(d_model, vocab_size, dtype=dtype)
 
@@ -128,25 +201,7 @@ class TransformerLM(nn.Module):
             x = block(x)
         return self.logits(x)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> "TransformerLM":
-        """Random init in flax's default scheme, drawn from ``generator``
-        (the values differ from jax's RNG; ``lm_params_from_flax``
-        carries a flax init across): dense kernels LeCun-normal
-        (truncated at two standard deviations, std sqrt(1/fan_in) /
-        0.8796), dense biases 0, embeddings normal with std
-        sqrt(1/d_model), LayerNorm scale 1 and bias 0."""
-        for module in self.modules():
-            if isinstance(module, nn.Linear):
-                std = math.sqrt(1.0 / module.in_features) / 0.87962566103423978
-                w = torch.empty(module.weight.shape, dtype=torch.float32)
-                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
-                module.weight.copy_(w)
-                module.bias.zero_()
-            elif isinstance(module, nn.Embedding):
-                w = torch.randn(module.weight.shape, generator=generator, dtype=torch.float32)
-                module.weight.copy_(w * math.sqrt(1.0 / module.embedding_dim))
-            elif isinstance(module, LayerNorm32):
-                module.weight.fill_(1.0)
-                module.bias.zero_()
+        """Random init in flax's default scheme (:func:`flax_default_init_`)."""
+        flax_default_init_(self, generator)
         return self

@@ -4,6 +4,10 @@
   in one pass (cast + per-channel affine fused; the plain PyTorch chain
   runs a convert, a multiply, an add and a cast as four passes over
   device memory before the first convolution).
+* ``flash_attention`` (K3) — blockwise attention with an online softmax
+  over (batch, seq, heads, head_dim) q, k, v, causal or not, read where
+  they lie; the attention of every ``TransformerBlock`` served with
+  ``"attention": "flash"`` (the ViTs, the encoder, the LM).
 * ``paged_attention_decode`` — one decode step of attention over a paged
   K/V pool, read through the block table, as the unnormalised flash
   state ``(acc, m, l)``; the ``stream`` kernel (K4) by default, the
@@ -31,7 +35,8 @@ from seldon_core_tpu_torch.ops import _build
 from seldon_core_tpu_torch.runtime import knobs
 
 _COUNT_LOCK = threading.Lock()
-_LAUNCHES: Dict[str, int] = {"fused_normalize": 0, "paged_decode_stream": 0, "paged_decode_grid": 0}
+_LAUNCHES: Dict[str, int] = {"fused_normalize": 0, "flash_attention": 0, "paged_decode_stream": 0,
+                             "paged_decode_grid": 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -138,6 +143,121 @@ def imagenet_affine(mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225)) -> Tu
     mean = np.asarray(mean, np.float32)
     std = np.asarray(std, np.float32)
     return 1.0 / (255.0 * std), -mean / std
+
+
+# ---------------------------------------------------------------------------
+# flash attention (blockwise online softmax)
+# ---------------------------------------------------------------------------
+
+# input dtype -> the kernel's kind code (csrc/flash_attention.cu)
+_FLASH_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+FLASH_MAX_HEAD_DIM = 128  # csrc/flash_attention.cu kMaxHeadDim
+
+
+def _check_flash_args(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"flash_attention takes (batch, seq, heads, head_dim) q, k, v, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, _, h, d = q.shape
+    if tuple(k.shape) != tuple(v.shape) or k.shape[0] != b or tuple(k.shape[2:]) != (h, d):
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              causal: bool = False) -> torch.Tensor:
+    """The plain PyTorch version, in the arithmetic of the flash kernel
+    (not of ``plain_attention``): q upcast to float32 and multiplied by
+    ``1/sqrt(head_dim)``, k and v upcast, scores, softmax and ``p @ v``
+    in float32, masked scores ``-inf`` (keys past the query's position
+    when causal), a row with no live key 0, the result cast to q's dtype.
+    """
+    _check_flash_args(q, k, v)
+    sq, sk = q.shape[1], k.shape[1]
+    if sk == 0:
+        return torch.zeros_like(q)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * (1.0 / float(np.sqrt(q.shape[-1]))), k.float())
+    if causal:
+        above = torch.arange(sk, device=q.device)[None, :] > torch.arange(sq, device=q.device)[:, None]
+        s = s.masked_fill(above, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    safe_m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(torch.isfinite(s), torch.exp(s - safe_m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    l = torch.where(l > 0, l, 1.0).permute(0, 2, 1, 3)  # (b, h, q, 1) -> (b, q, h, 1)
+    return (torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / l).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
+                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """Blockwise attention on (batch, seq, heads, head_dim) tensors.
+
+    On a CUDA tensor this launches K3 (``csrc/flash_attention.cu``): f32,
+    bf16 or f16 q, k, v of one dtype, any strides but a unit-stride
+    head_dim, head_dim a multiple of 8 up to 128; anything else raises.
+    On a CPU tensor it is :func:`flash_attention_reference`.  ``block_q``
+    and ``block_k`` are accepted for parity with the JAX function, where
+    they set the TPU tiling; the CUDA kernel's tiles are 64 rows, and
+    neither changes the result.
+
+    A causal call with ``seq_q != seq_k`` returns ``plain_attention``, on
+    either device: that is the JAX function's own contract (cross-length
+    causal has no absolute-position convention), not a fallback of the
+    kernel.  No served path reaches it: self-attention has
+    ``seq_q == seq_k``.
+    """
+    if block_q < 1 or block_k < 1:
+        raise ValueError(f"block_q and block_k must be positive, got {block_q}, {block_k}")
+    _check_flash_args(q, k, v)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if causal and sq != sk:
+        from seldon_core_tpu_torch.models.transformer import plain_attention
+
+        return plain_attention(q, k, v, causal=True)
+    if not q.is_cuda:
+        return flash_attention_reference(q, k, v, causal=causal)
+    if q.dtype not in _FLASH_KINDS or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes float32, bfloat16 or float16 q, k, v of one dtype, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if d > FLASH_MAX_HEAD_DIM or d % 8:
+        raise ValueError(f"flash_attention supports head_dim a multiple of 8 up to {FLASH_MAX_HEAD_DIM}, got {d}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must lie on one device")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = _flash_lib()
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, b, h, sq, sk, d,
+            int(causal), 1.0 / float(np.sqrt(d)), _FLASH_KINDS[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise KernelLaunchError(f"flash_attention launch failed: cudaError {err}")
+    _count("flash_attention")
+    return out
+
+
+def flash_attn_fn(block_q: int = 128, block_k: int = 128):
+    """Drop-in ``attn_fn`` for the transformer family."""
+
+    def fn(q, k, v, causal: bool = False):
+        return flash_attention(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
+
+    return fn
+
+
+def _flash_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_fwd
+    if fn.restype is not ctypes.c_int or not fn.argtypes:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+    return lib
 
 
 # ---------------------------------------------------------------------------

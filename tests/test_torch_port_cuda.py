@@ -1,5 +1,5 @@
-"""The PyTorch port on a CUDA card: kernels against their plain versions,
-and the served paths through the kernels.
+"""The PyTorch port on a CUDA card: kernels (K1, K3, K4, K5) against their
+plain versions, and the served paths through the kernels.
 
 Every test here needs the card and skips without one (the decision is
 made inside each test, never at import).  The module imports no JAX, so
@@ -129,3 +129,82 @@ def test_paged_engine_launches_the_kernel_every_step_of_every_layer(impl, monkey
     per_launch = 1 if impl == "stream" else 2
     assert kernels.launch_counts()[f"paged_decode_{impl}"] == cfg["num_layers"] * steps * per_launch
     assert all(s.result.shape == (8,) and ((s.result >= 0) & (s.result < 128)).all() for s in streams)
+
+
+# K3 shapes: the ViT-B/16 serving shape, the causal LM check shape, small
+# f32 ones, head_dim 128 and a ragged one in f16; (B, L, H, D, dtype, causal)
+FLASH_CASES = [
+    (32, 197, 12, 64, torch.bfloat16, False),
+    (4, 1024, 8, 64, torch.bfloat16, True),
+    (2, 50, 2, 16, torch.float32, False),
+    (2, 50, 2, 16, torch.float32, True),
+    (1, 1, 1, 8, torch.float32, True),
+    (2, 197, 4, 128, torch.bfloat16, False),
+    (2, 130, 3, 40, torch.float16, True),
+]
+# float32: largest |kernel - plain| within 1e-5 of the largest |plain|;
+# bf16 / f16: one step of the format (rtol 2**-7 / 2**-10), with a floor at
+# one step of 2**-8 of the largest |plain| (near zero the two float32 sums
+# differ by more than a step of the value itself)
+FLASH_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+
+
+def assert_flash_close(got, ref):
+    g, r = got.float(), ref.float()
+    assert got.dtype == ref.dtype and got.shape == ref.shape and not torch.isnan(g).any()
+    if got.dtype == torch.float32:
+        assert (g - r).abs().max().item() <= 1e-5 * r.abs().max().item()
+    else:
+        rtol = FLASH_RTOL[got.dtype]
+        assert bool(((g - r).abs() <= rtol * r.abs() + rtol * 2.0 ** -8 * r.abs().max()).all())
+
+
+@pytest.mark.parametrize("case", range(len(FLASH_CASES)))
+def test_flash_attention_matches_plain_version(case):
+    _need_card()
+    assert not torch.backends.cuda.matmul.allow_tf32  # the plain version's float32 einsums in full float32
+    B, L, H, D, dtype, causal = FLASH_CASES[case]
+    rng = np.random.default_rng(case)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, L, H, D), dtype=np.float32)).to(dtype).cuda()
+               for _ in range(3))
+    before = kernels.launch_counts()["flash_attention"]
+    got = kernels.flash_attention(q, k, v, causal=causal)
+    ref = kernels.flash_attention_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    assert_flash_close(got, ref)
+
+
+def test_flash_attention_reads_the_qkv_split_in_place():
+    _need_card()
+    qkv = torch.randn(3, 197, 3 * 12 * 64, device="cuda", dtype=torch.bfloat16)
+    q, k, v = (t.reshape(3, 197, 12, 64) for t in qkv.split(12 * 64, dim=-1))
+    assert_flash_close(kernels.flash_attention(q, k, v), kernels.flash_attention_reference(q, k, v))
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take():
+    _need_card()
+    q = torch.zeros(1, 4, 2, 136, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        kernels.flash_attention(q, q, q)
+    q = torch.zeros(1, 4, 2, 12, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        kernels.flash_attention(q, q, q)
+    q = torch.zeros(1, 4, 2, 16, device="cuda")
+    with pytest.raises(TypeError, match="one dtype"):
+        kernels.flash_attention(q, q.half(), q)
+
+
+def test_served_vit_launches_the_kernel_in_every_block():
+    _need_card()
+    cs = CudaServer(model="vit_tiny", num_classes=4, normalize=True, max_batch_size=2,
+                    model_kwargs={"attention": "flash"})
+    cs.load()
+    try:
+        kernels.reset_launch_counts()
+        out = cs.predict(np.random.default_rng(10).integers(0, 256, (2, 32, 32, 3), dtype=np.uint8), [])
+        assert out.shape == (2, 4) and np.isfinite(out).all()
+        counts = kernels.launch_counts()
+        assert counts["fused_normalize"] == 1 and counts["flash_attention"] == len(cs.module.blocks)
+    finally:
+        cs.unload()

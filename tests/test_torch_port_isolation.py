@@ -53,6 +53,7 @@ def test_scan_covers_the_port():
     assert "seldon_core_tpu_torch/ops/kernels.py" in names
     assert "seldon_core_tpu_torch/models/paged.py" in names
     assert "seldon_core_tpu_torch/models/transformer.py" in names
+    assert "seldon_core_tpu_torch/models/vit.py" in names
     assert _forbidden("seldon_core_tpu.proto") and _forbidden("jax.numpy") and _forbidden("flax.linen")
     assert not _forbidden("seldon_core_tpu_torch.proto")
 
@@ -63,6 +64,7 @@ def test_importing_the_port_loads_no_jax():
         "import seldon_core_tpu_torch.models.cudaserver, seldon_core_tpu_torch.runtime.microservice\n"
         "import seldon_core_tpu_torch.runtime.rest, seldon_core_tpu_torch.models.convert\n"
         "import seldon_core_tpu_torch.models.paged, seldon_core_tpu_torch.models.generate\n"
+        "import seldon_core_tpu_torch.models.vit\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'seldon_core_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"

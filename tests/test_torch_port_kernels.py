@@ -86,7 +86,8 @@ class TestFusedNormalizeParity:
 
     def test_launch_counts_reset(self):
         kernels.reset_launch_counts()
-        assert kernels.launch_counts() == {"fused_normalize": 0, "paged_decode_stream": 0, "paged_decode_grid": 0}
+        assert kernels.launch_counts() == {"fused_normalize": 0, "flash_attention": 0, "paged_decode_stream": 0,
+                                          "paged_decode_grid": 0}
 
     def test_launch_count_loses_no_update_under_threads(self):
         # the batcher's collector and the warmup may count from different

@@ -239,7 +239,7 @@ class TestDeviceAndParameters:
 
     def test_unknown_model_names_the_supported_ones(self):
         with pytest.raises(MicroserviceError, match="resnet50") as err:
-            CudaServer(device="cpu", model="vit_tiny").load()
+            CudaServer(device="cpu", model="detector_tiny").load()
         assert err.value.reason == "UNKNOWN_MODEL"
 
     @pytest.mark.parametrize("name", ["model_uri", "quantize", "precision", "mesh", "extra_input_shapes"])
