@@ -83,7 +83,38 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    with plain attention (TF32 off), relative L2 <= 5e-2 and per-row
    cosine >= 0.99; ``transformer_lm`` (the generation config) served by
    an in-process ``CudaServer`` with ``attention=flash`` (causal K3, 8
-   launches a forward) against the plain model in f32, within 1e-4.
+   launches a forward) against the plain model in f32, within 1e-4;
+11. the quantised multi-adapter generation path:
+   (a) the int8 and LoRA-fold variants K4-int8, K5-int8, K4-LoRA and
+   K4-int8+LoRA against their plain version on the card at the 3b shapes
+   (random int8 pages, positive random scales, lanes over adapter slots
+   0, 1 and 2, rank 8), q in bf16 and f32: acc / m / l as in 3b, the
+   (B, 3D) delta within 1e-5 of the largest |plain|, slot-0 lanes' delta
+   exactly 0; kernel, plain and library (dequantised gather +
+   scaled_dot_product_attention, plus two torch.bmm for the fold) times at
+   uniform length 512 and ragged, beside the bound;
+   (b) the CLI serving ``StreamingLM`` at the generation config with
+   ``SELDON_TPU_KV_DTYPE=int8``, ``max_adapters=2``, ``lora_rank=8`` and
+   two seeded adapters; 16 concurrent greedy requests mixing the base
+   model, ``a1`` by body tag and ``a2`` by the ``X-Seldon-Adapter``
+   header; 8 sequential requests equal an in-process ``PagedEngine`` of the
+   same weights, adapters and int8 pool, bit for bit, at least 75% of the
+   concurrent rows equal theirs, adapter rows differ from the base row of
+   the same prompt, a body tag wins over the header, and the server's
+   K4-int8+LoRA launches grow by at least 8 layers x its decode steps;
+   numbers: REST p50/p99 over 100 sequential requests (prompt 128, 32 new)
+   and tokens/s of 16 closed-loop clients over 10 s;
+   (c) in-process at the same config: in f32 the int8 kernel lane, the
+   int8 gather lane and the int8 grid kernel, and (native pool, adapters)
+   the fold and the einsum lane, give identical greedy tokens for 16
+   ragged prompts (each variant's launches counted there, exactly layers x
+   decode steps); bf16 int8 kernel lane against the bf16 native pool on
+   the first decode step's logits, relative L2 <= 5e-2 and per-row cosine
+   >= 0.99; f32 int8 against native greedy tokens, first tokens equal and
+   an agreement of at least 0.75; in bf16 with int8 + adapters, 16 prompts
+   in one wave (mixed-adapter prefill groups) give each prompt's tokens
+   alone, all 16; decode tokens/s with int8 + adapters and a profile of
+   one decode chunk (the variant's share, the idle share).
 
 Output: the ``nvidia-smi`` line, then one ``{"kernels": [...]}`` line,
 then the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -171,6 +202,27 @@ GEN_LATENCY_REQUESTS = 200
 GEN_CLIENTS = 16
 GEN_SECONDS = 10.0
 F32_PEAK_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores (data sheet)
+# the quantised multi-adapter cell: the generation config with an int8 KV
+# pool and two rank-8 adapters (the JAX package's default rank)
+LORA_RANK = 8
+LM_ADAPTERS = {"a1": {"seed": 1}, "a2": {"seed": 2}}
+Q_LM_PARAMS = LM_PARAMS + [
+    {"name": "max_adapters", "value": "2", "type": "INT"},
+    {"name": "lora_rank", "value": str(LORA_RANK), "type": "INT"},
+    {"name": "adapters", "value": json.dumps(LM_ADAPTERS), "type": "JSON"},
+]
+Q_LATENCY_REQUESTS = 100
+# (impl, int8 pages, fold) -> the JAX kernel it replaces
+PAGED_VARIANTS = [("stream", True, False), ("grid", True, False), ("stream", False, True), ("stream", True, True)]
+VARIANT_REPLACES = {
+    ("stream", True, False): "seldon_core_tpu/ops/kernels.py:409 (quantized=True)",
+    ("grid", True, False): "seldon_core_tpu/ops/kernels.py:343 (quantized=True)",
+    ("stream", False, True): "seldon_core_tpu/ops/kernels.py:409 (fold_lora=True)",
+    ("stream", True, True): "seldon_core_tpu/ops/kernels.py:409 (quantized=True, fold_lora=True)",
+}
+LORA_SLOTS = 3                  # the zero adapter and two adapters
+DELTA_REL_TOL = 1e-5            # largest |kernel delta - plain| / largest |plain delta|
+INT8_MIN_AGREEMENT = 0.75       # int8 vs native greedy tokens (tests/test_paged_kernel_lane.py's bound)
 
 
 class SmokeFailure(RuntimeError):
@@ -488,9 +540,9 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def http(url: str, body=None, timeout: float = 120.0):
+def http(url: str, body=None, timeout: float = 120.0, headers=None):
     data = None if body is None else json.dumps(body).encode()
-    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json", **(headers or {})})
     with urllib.request.urlopen(req, timeout=timeout) as r:
         raw = r.read()
     return raw if url.endswith("/metrics") else json.loads(raw)
@@ -522,11 +574,11 @@ def metrics_values(text: bytes):
 
 
 def start_server(port: int, logfile, component: str = "seldon_core_tpu_torch.models.cudaserver.CudaServer",
-                 params=MODEL_PARAMS):
+                 params=MODEL_PARAMS, env=None):
     cmd = [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice", component, "--api", "REST",
            "--host", "127.0.0.1", "--http-port", str(port), "--parameters", json.dumps(params)]
     return subprocess.Popen(cmd, cwd=ROOT, stdout=logfile, stderr=subprocess.STDOUT,
-                            start_new_session=True)
+                            start_new_session=True, env=env)
 
 
 def wait_ready(proc, base: str, logpath: str, timeout_s: float = 600.0):
@@ -766,12 +818,17 @@ def whole_path(torch, np, kernels, resnet, card):
 
 # ---------------------------------------------------------------- phase 7
 
-def gen_request(np, base, prompt, max_new: int = LM_MAX_NEW, timeout: float = 300.0):
-    """One greedy generation request over REST; returns its (max_new,) ids."""
+def gen_request(np, base, prompt, max_new: int = LM_MAX_NEW, timeout: float = 300.0, tag=None, header=None):
+    """One greedy generation request over REST; returns its (max_new,) ids.
+    ``tag`` / ``header``: the adapter named in ``meta.tags.adapter`` / in
+    the ``X-Seldon-Adapter`` header."""
     body = {"data": {"ndarray": [[int(t) for t in prompt]]}}
-    if max_new != LM_MAX_NEW:
-        body["meta"] = {"tags": {"max_new_tokens": max_new}}
-    resp = http(base + "/predict", body, timeout=timeout)
+    tags = {"max_new_tokens": max_new} if max_new != LM_MAX_NEW else {}
+    if tag:
+        tags["adapter"] = tag
+    if tags:
+        body["meta"] = {"tags": tags}
+    resp = http(base + "/predict", body, timeout=timeout, headers={"X-Seldon-Adapter": header} if header else None)
     check("data" in resp and "ndarray" in resp["data"], f"response carries no ndarray: {str(resp)[:300]}")
     row = np.asarray(resp["data"]["ndarray"], np.int64)
     check(row.shape == (1, max_new), f"expected (1, {max_new}) ids, got {row.shape}")
@@ -779,26 +836,28 @@ def gen_request(np, base, prompt, max_new: int = LM_MAX_NEW, timeout: float = 30
     return row[0]
 
 
-def gen_latency(np, base, prompts, n: int, max_new: int):
+def gen_latency(np, base, prompts, n: int, max_new: int, adapters=(None,)):
+    """ms of n sequential requests; request i names ``adapters[i % len]``."""
     for p in prompts[:4]:  # warm the client side
         gen_request(np, base, p, max_new)
     lat = []
     for i in range(n):
         t0 = time.perf_counter()
-        gen_request(np, base, prompts[i % len(prompts)], max_new)
+        gen_request(np, base, prompts[i % len(prompts)], max_new, tag=adapters[i % len(adapters)])
         lat.append((time.perf_counter() - t0) * 1e3)
     return lat
 
 
-def gen_throughput(np, base, prompts, clients: int, seconds: float, max_new: int):
+def gen_throughput(np, base, prompts, clients: int, seconds: float, max_new: int, adapters=(None,)):
     """Generated tokens/s of `clients` closed-loop clients sending until
-    `seconds` have passed; in-flight requests finish and count."""
+    `seconds` have passed; in-flight requests finish and count.  Client k
+    names ``adapters[k % len]``."""
     t0 = time.perf_counter()
 
     def client(k):
         n = 0
         while time.perf_counter() - t0 < seconds:
-            gen_request(np, base, prompts[(k + n) % len(prompts)], max_new)
+            gen_request(np, base, prompts[(k + n) % len(prompts)], max_new, tag=adapters[k % len(adapters)])
             n += 1
         return n
 
@@ -908,7 +967,7 @@ def first_step_logits(torch, np, eng, prompts, tokens):
         width = eng._pages_horizon(admitted, 1)
         tables = torch.from_numpy(np.ascontiguousarray(eng._block_tables[:, :width])).cuda()
         logits, _, _ = eng.module(tokens[:, None], lengths[:, None], eng.pages_k, eng.pages_v, tables, lengths,
-                                  use_kernel=eng._kernel_active)
+                                  use_kernel=eng._kernel_active, **eng._model_kwargs(eng._adapter_slots.copy()))
     return logits[:, 0].double().cpu()
 
 
@@ -952,17 +1011,22 @@ def engine_numerics(torch, np, kernels, PagedEngine, load_lm_params, card):
     return grid_launches, {"rel_l2": rel, "min_cos": cos}
 
 
-def engine_numbers(torch, np, PagedEngine, load_lm_params, card):
+def engine_numbers(torch, np, PagedEngine, load_lm_params, card, make_engine=None, adapters=(None,),
+                   what="bf16"):
     """In-process bf16 numbers at 16 slots: decode tokens/s (prompt 128,
     128 new: full run minus prefill and one chunk, min of 3 each),
-    prefill ms for 16 x 128, and a profile of one decode chunk."""
+    prefill ms for 16 x 128, and a profile of one decode chunk.  Prompt i
+    names ``adapters[i % len]``; ``make_engine(params)`` builds another
+    engine than the plain bf16 one."""
     rng = np.random.default_rng(SEED + 40)
     prompts = rng.integers(0, LM_CONFIG["vocab_size"], (LM_ENGINE["max_slots"], 128))
-    eng = lm_engine(PagedEngine, load_lm_params("", LM_CONFIG, 0, torch.device("cuda")), "bfloat16")
+    params = load_lm_params("", LM_CONFIG, 0, torch.device("cuda"))
+    eng = make_engine(params) if make_engine else lm_engine(PagedEngine, params, "bfloat16")
+    names = [adapters[i % len(adapters)] for i in range(len(prompts))]
 
     def run(max_new):
         t0 = time.perf_counter()
-        streams = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+        streams = [eng.submit(p, max_new_tokens=max_new, adapter=a) for p, a in zip(prompts, names)]
         eng.run()
         check(all(s.result.shape == (max_new,) for s in streams), "bad in-process generation")
         return time.perf_counter() - t0
@@ -975,8 +1039,8 @@ def engine_numbers(torch, np, PagedEngine, load_lm_params, card):
 
     prefill_ms = float("inf")
     for _ in range(3):
-        for p in prompts:
-            eng.submit(p, max_new_tokens=1)
+        for p, a in zip(prompts, names):
+            eng.submit(p, max_new_tokens=1, adapter=a)
         with eng._lock:
             admitted = eng._admit_locked()
         torch.cuda.synchronize()
@@ -989,8 +1053,8 @@ def engine_numbers(torch, np, PagedEngine, load_lm_params, card):
 
     from torch.profiler import ProfilerActivity, profile
 
-    for p in prompts:
-        eng.submit(p, max_new_tokens=128)
+    for p, a in zip(prompts, names):
+        eng.submit(p, max_new_tokens=128, adapter=a)
     eng.step()  # admission, prefill and the first chunk
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1002,7 +1066,7 @@ def engine_numbers(torch, np, PagedEngine, load_lm_params, card):
     by_name, busy_us = device_time_by_name(prof)
     k4_us = sum(us for name, (us, _) in by_name.items() if "paged_decode_stream" in name)
     launches = sum(n for _, n in by_name.values())
-    log(f"profile of one decode chunk ({LM_ENGINE['steps_per_call']} steps, 16 lanes, prompt 128): wall "
+    log(f"profile of one {what} decode chunk ({LM_ENGINE['steps_per_call']} steps, 16 lanes, prompt 128): wall "
         f"{chunk_ms:.3f} ms, {launches} device events, device busy {busy_us / 1e3:.3f} ms, idle share "
         f"{1 - busy_us / 1e3 / chunk_ms:.3f}, K4 {k4_us / 1e3:.3f} ms ({k4_us / max(busy_us, 1e-9):.3f} of device "
         f"time)")
@@ -1017,7 +1081,7 @@ def engine_numbers(torch, np, PagedEngine, load_lm_params, card):
         "chunk_idle_share": 1 - busy_us / 1e3 / chunk_ms, "k4_share_of_device_time": k4_us / max(busy_us, 1e-9),
         "chunk_device_events": launches,
     }
-    log(f"in-process bf16, 16 slots, prompt 128, 128 new: decode {decode_tok_s:.1f} tokens/s, prefill 16x128 "
+    log(f"in-process {what}, 16 slots, prompt 128, 128 new: decode {decode_tok_s:.1f} tokens/s, prefill 16x128 "
         f"{prefill_ms:.3f} ms [{card}]")
     return numbers
 
@@ -1190,6 +1254,347 @@ def transformer_numerics(torch, np, kernels, vit, transformer, CudaServer, card)
     return {"vit_rel_l2": rel, "vit_min_cos": cos, "lm_max_abs_err": err, "lm_launches": lm_launches}
 
 
+# ---------------------------------------------------------------- phase 11a
+
+def variant_inputs(torch, np, B, h, hd, ps, P, lengths, qdtype, quantized, seed):
+    """The 3b inputs with int8 pages (positive random scales) or pages in
+    q's dtype, plus the fold's inputs: x (B, D), A (3, D, r), B (3, r, 3D)
+    float32 with slot 0 zero, lanes spread over slots 0, 1 and 2."""
+    rng = np.random.default_rng(seed)
+    num_pages, D = B * P + 1, h * hd
+    if quantized:
+        pk, pv = (torch.from_numpy(rng.integers(-127, 128, (num_pages, ps, h, hd), dtype=np.int8)).cuda()
+                  for _ in range(2))
+        scales = tuple(torch.from_numpy(rng.uniform(0.001, 0.05, num_pages).astype(np.float32)).cuda()
+                       for _ in range(2))
+    else:
+        pk, pv = (torch.from_numpy(rng.standard_normal((num_pages, ps, h, hd), dtype=np.float32)).to(qdtype).cuda()
+                  for _ in range(2))
+        scales = None
+    q = torch.from_numpy(rng.standard_normal((B, h, hd), dtype=np.float32) * 0.125).to(qdtype).cuda()
+    tables = torch.from_numpy(rng.permutation(np.arange(1, num_pages)).reshape(B, P).astype(np.int32)).cuda()
+    a = rng.standard_normal((LORA_SLOTS, D, LORA_RANK), dtype=np.float32) / np.float32(np.sqrt(D))
+    b = rng.standard_normal((LORA_SLOTS, LORA_RANK, 3 * D), dtype=np.float32) / np.float32(np.sqrt(LORA_RANK))
+    a[0] = b[0] = 0
+    lora = (torch.from_numpy(rng.standard_normal((B, D), dtype=np.float32)).cuda(), torch.from_numpy(a).cuda(),
+            torch.from_numpy(b).cuda(), torch.tensor([i % LORA_SLOTS for i in range(B)], dtype=torch.int32).cuda(),
+            hd ** -0.5)
+    return (q, pk, pv, tables, torch.tensor(lengths, dtype=torch.int32).cuda()), scales, lora
+
+
+def paged_variant_bound(B, h, hd, ps, P, lengths, q_elt, pool_elt, quantized, fold, slots_used, mem_bytes_per_s):
+    """Least time for one call of a variant: the 3b bytes with pool
+    elements of `pool_elt` bytes, plus each live page's two scales (int8),
+    plus the distinct slots' A and B, the x rows, the slot ids and the
+    (B, 3D) delta (fold); the flops (scores, weighted sums, the dequant
+    products, the fold's two products and the q update) over the f32 peak.
+    -> (ms, "bytes" or "operations", bytes, flops)."""
+    live = [min(max(n, 0), P * ps) for n in lengths]
+    pages = sum(-(-n // ps) for n in live)
+    D = h * hd
+    nbytes = (pages * ps * h * hd * 2 * pool_elt + B * h * hd * q_elt + B * P * 4 + B * 4
+              + B * h * hd * 4 + 2 * B * h * 4)
+    flops = sum(4 * n * h * hd for n in live)
+    if quantized:
+        nbytes += pages * 2 * 4
+        flops += sum(2 * n * h * hd for n in live)
+    if fold:
+        nbytes += slots_used * (D * LORA_RANK + LORA_RANK * 3 * D) * 4 + B * D * 4 + B * 4 + B * 3 * D * 4
+        flops += B * (2 * D * LORA_RANK + 2 * LORA_RANK * 3 * D + 2 * D)
+    t_bytes, t_ops = nbytes / mem_bytes_per_s, flops / F32_PEAK_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def paged_variant_checks(torch, np, kernels, mem_bytes_per_s):
+    """K4-int8, K5-int8, K4-LoRA and K4-int8+LoRA against their plain
+    version at the 3b shapes, then their times."""
+    import torch.nn.functional as F
+
+    errs = {v: {"max_abs_err": 0.0, "max_rel_err": 0.0, "delta_max_rel_err": 0.0} for v in PAGED_VARIANTS}
+    for case, (B, h, hd, ps, P, lengths) in enumerate(PAGED_CASES):
+        for qdtype in (torch.bfloat16, torch.float32):
+            for quantized in (True, False):
+                args, scales, lora = variant_inputs(torch, np, B, h, hd, ps, P, lengths, qdtype, quantized,
+                                                    seed=20 + case)
+                for v in PAGED_VARIANTS:
+                    impl, v_quant, fold = v
+                    if v_quant != quantized:
+                        continue
+                    kw = dict(page_size=ps, kv_scales=scales, lora=lora if fold else None)
+                    ref = kernels.paged_attention_decode_reference(*args, **kw)
+                    with knob_env(SELDON_TPU_PAGED_KERNEL_IMPL=impl):
+                        got = kernels.paged_attention_decode(*args, **kw)
+                    torch.cuda.synchronize()
+                    what = (f"{kernels.paged_launch_name(*v)} B={B} h={h} hd={hd} ps={ps} P={P} q "
+                            f"{str(qdtype)[6:]}")
+                    check(len(got) == len(ref) == (4 if fold else 3), f"{what}: {len(got)} outputs")
+                    err_abs, err_rel = compare_flash_state(torch, got[:3], ref[:3], what)
+                    e = errs[v]
+                    e["max_abs_err"], e["max_rel_err"] = max(e["max_abs_err"], err_abs), max(e["max_rel_err"], err_rel)
+                    msg = f"{what}: max_abs_err={err_abs:.3e} max_rel_err={err_rel:.3e} (limit {PAGED_REL_TOL})"
+                    if fold:
+                        delta, ref_delta, idx = got[3], ref[3], lora[3]
+                        check(delta.shape == ref_delta.shape and not bool(torch.isnan(delta).any()),
+                              f"{what}: bad delta {tuple(delta.shape)}")
+                        check(bool((delta[idx == 0] == 0).all()), f"{what}: a slot-0 lane's delta is not exactly 0")
+                        d_rel = ((delta - ref_delta).abs().max() / ref_delta.abs().max()).item()
+                        e["max_abs_err"] = max(e["max_abs_err"], (delta - ref_delta).abs().max().item())
+                        e["delta_max_rel_err"] = max(e["delta_max_rel_err"], d_rel)
+                        msg += f"; delta max_rel_err={d_rel:.3e} (limit {DELTA_REL_TOL}), slot-0 lanes exactly 0"
+                        check(d_rel <= DELTA_REL_TOL, f"{what}: the delta differs from its plain version: {d_rel}")
+                    log(msg)
+                    check(err_rel <= PAGED_REL_TOL, f"{what} differs from its plain version: {err_rel}")
+
+    B, h, hd, ps, P, _ = PAGED_CASES[0]
+    T = P * ps
+    timings = {}
+    for label, lengths in (("uniform512", [512] * B), ("ragged", RAGGED_LENGTHS)):
+        for quantized in (True, False):
+            args, scales, lora = variant_inputs(torch, np, B, h, hd, ps, P, lengths, torch.bfloat16, quantized,
+                                                seed=7)
+            q, pk, pv, tables, lens = args
+            x, a, b, idx, q_scale = lora
+            mask = (torch.arange(T, device=lens.device)[None, :] < lens[:, None])[:, None, None, :]
+            slots_used = len(set(idx.tolist()))
+            for v in PAGED_VARIANTS:
+                impl, v_quant, fold = v
+                if v_quant != quantized:
+                    continue
+                kw = dict(page_size=ps, kv_scales=scales, lora=lora if fold else None)
+
+                def library():
+                    # the closest PyTorch calls: the (dequantised) page
+                    # gather, two torch.bmm for the fold, one fused attention
+                    gk, gv = pk[tables], pv[tables]
+                    if quantized:
+                        gk = (gk.float() * scales[0][tables][:, :, None, None, None]).to(q.dtype)
+                        gv = (gv.float() * scales[1][tables][:, :, None, None, None]).to(q.dtype)
+                    qq = q
+                    if fold:
+                        t = torch.bmm(x[:, None, :], a[idx])
+                        delta = torch.bmm(t, b[idx])[:, 0]
+                        qq = (q.float() + q_scale * delta[:, : h * hd].reshape(B, h, hd)).to(q.dtype)
+                    gk = gk.reshape(B, T, h, hd).transpose(1, 2)
+                    gv = gv.reshape(B, T, h, hd).transpose(1, 2)
+                    return F.scaled_dot_product_attention(qq[:, :, None, :], gk, gv, attn_mask=mask, scale=1.0)
+
+                with knob_env(SELDON_TPU_PAGED_KERNEL_IMPL=impl):
+                    row = {"ms": time_cuda(torch, lambda: kernels.paged_attention_decode(*args, **kw), flush_mb=1024)}
+                row["plain_ms"] = time_cuda(torch, lambda: kernels.paged_attention_decode_reference(*args, **kw),
+                                            reps=20)
+                # ~20 host ops a call: a longer flush keeps their enqueue out of the span
+                row["library_ms"] = time_cuda(torch, library, flush_mb=4096)
+                row["bound_ms"], row["bound_by"], row["bytes"], row["flops"] = paged_variant_bound(
+                    B, h, hd, ps, P, lengths, 2, 1 if quantized else 2, quantized, fold, slots_used, mem_bytes_per_s)
+                timings[v, label] = row
+                log(f"{kernels.paged_launch_name(*v)} q bf16 B={B} h={h} hd={hd} ps={ps} P={P} {label}: kernel "
+                    f"{row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} us, library "
+                    f"{row['library_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: "
+                    f"{row['bytes']} bytes, {row['flops']} flops)")
+    return errs, timings
+
+
+# ---------------------------------------------------------------- phase 11b
+
+def adapter_registry(WeightRegistry, make_lora_params):
+    """The server's adapter catalogue in-process: StreamingLM's loader for
+    ``{"seed": n}`` is ``make_lora_params(n, alpha=rank)``."""
+    reg = WeightRegistry()
+    for name, spec in LM_ADAPTERS.items():
+        reg.register(name, (lambda seed=spec["seed"]: make_lora_params(
+            seed, num_layers=LM_CONFIG["num_layers"], d_model=LM_CONFIG["d_model"], rank=LORA_RANK,
+            alpha=float(LORA_RANK))))
+    return reg
+
+
+def quantized_generation_path(torch, np, PagedEngine, load_lm_params, WeightRegistry, make_lora_params, card):
+    """The served int8 + multi-adapter generation path, rows held against
+    an in-process engine of the same weights, adapters and pool."""
+    rng = np.random.default_rng(SEED + 70)
+    V = LM_CONFIG["vocab_size"]
+    conc_prompts = [rng.integers(0, V, int(n)) for n in np.linspace(16, 700, 16)]
+    # request i: the base model, a1 by body tag, a2 by header, in turn
+    conc_routes = [(None, None), ("a1", None), (None, "a2")] * 6
+    single_prompts = [rng.integers(0, V, n) for n in (20, 64, 65, 128, 200, 333, 511, 640)]
+    single_adapters = [None, "a1", "a2", "a1", None, "a2", "a1", "a2"]
+    bench_prompts = [rng.integers(0, V, 128) for _ in range(16)]
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_qlm_server_", suffix=".log")
+    logfile = os.fdopen(fd, "w")
+    proc = start_server(port, logfile, "seldon_core_tpu_torch.models.paged.StreamingLM", Q_LM_PARAMS,
+                        env=dict(os.environ, SELDON_TPU_KV_DTYPE="int8"))
+    try:
+        status, ready_s = wait_ready(proc, base, logpath)
+        log(f"int8 + adapters StreamingLM ready in {ready_s:.1f}s (load {status['load_time_s']:.1f}s, kv pool "
+            f"{status['kv_dtype']}, adapters {status['adapters']['max_adapters']} slots of rank "
+            f"{status['adapters']['rank']}, kernel lane {status['kernel_active']})")
+        check(status["device"].startswith("cuda") and status["kernel_active"] and status["kv_dtype"] == "int8"
+              and status["adapters"]["max_adapters"] == 2,
+              f"the int8 + adapters server is not on the card's kernel lane with its pool and adapters: {status}")
+        before, chunks0 = status["kernel_launches"], status["engine"]["chunks"]
+        served_conc = concurrent(lambda i: gen_request(np, base, conc_prompts[i], tag=conc_routes[i][0],
+                                                       header=conc_routes[i][1]), len(conc_prompts))
+        served_single = [gen_request(np, base, p, tag=a) for p, a in zip(single_prompts, single_adapters)]
+        same_prompt = {a: gen_request(np, base, single_prompts[3], tag=a) for a in (None, "a1", "a2")}
+        same_prompt["a2 header"] = gen_request(np, base, single_prompts[3], header="a2")
+        same_prompt["a1 tag, a2 header"] = gen_request(np, base, single_prompts[3], tag="a1", header="a2")
+        after_status = http(base + "/health/status")["jsonData"]
+        lat = gen_latency(np, base, bench_prompts, Q_LATENCY_REQUESTS, 32, adapters=(None, "a1", "a2"))
+        tok_s, tp_requests, tp_wall = gen_throughput(np, base, bench_prompts, GEN_CLIENTS, GEN_SECONDS, 32,
+                                                     adapters=(None, "a1", "a2"))
+        metrics = metrics_values(http(base + "/metrics"))
+    finally:
+        stop_server(proc)
+        logfile.close()
+    after = after_status["kernel_launches"]
+    launches = {k: after[k] - before.get(k, 0) for k in after}
+    steps = (after_status["engine"]["chunks"] - chunks0) * LM_ENGINE["steps_per_call"]
+    variant = "paged_decode_stream_int8_lora"
+    log(f"int8 + adapters generation path: {steps} decode steps, kernel launches {launches}; adapter stats "
+        f"{ {k: v for k, v in after_status['engine'].items() if k.startswith('adapter')} }")
+    check(steps > 0 and launches[variant] >= LM_CONFIG["num_layers"] * steps,
+          f"K4-int8+LoRA was not launched on every layer of every decode step: {launches}, {steps} steps")
+    check(same_prompt["a1"].tolist() != same_prompt[None].tolist() != same_prompt["a2"].tolist()
+          and same_prompt["a1"].tolist() != same_prompt["a2"].tolist(),
+          "adapter rows do not differ from the base row of the same prompt")
+    check(bool((same_prompt["a2 header"] == same_prompt["a2"]).all()), "the header and the tag select differently")
+    check(bool((same_prompt["a1 tag, a2 header"] == same_prompt["a1"]).all()), "the header won over the body tag")
+    check(bool((same_prompt["a1"] == served_single[3]).all()), "a repeated greedy adapter request changed")
+    check(metrics.get("paged_adapter_loads", 0) >= 2, f"/metrics shows no adapter loads: {metrics}")
+
+    with knob_env(SELDON_TPU_KV_DTYPE="int8"):
+        eng = PagedEngine(load_lm_params("", LM_CONFIG, 0, torch.device("cuda")), dtype="bfloat16", device="cuda",
+                          max_adapters=2, lora_rank=LORA_RANK,
+                          weight_registry=adapter_registry(WeightRegistry, make_lora_params), **LM_CONFIG, **LM_ENGINE)
+    check(eng._kv_int8, "the in-process reference engine has no int8 pool")
+    local_single = [eng.generate(p, max_new_tokens=LM_MAX_NEW, adapter=a)
+                    for p, a in zip(single_prompts, single_adapters)]
+    local_conc = [eng.generate(p, max_new_tokens=LM_MAX_NEW, adapter=r[0] or r[1])
+                  for p, r in zip(conc_prompts, conc_routes)]
+    del eng
+    torch.cuda.empty_cache()
+    same_single = [bool((a == b).all()) for a, b in zip(served_single, local_single)]
+    share = float(np.mean([bool((a == b).all()) for a, b in zip(served_conc, local_conc)]))
+    log(f"int8 + adapters served vs in-process engine, each prompt alone: {sum(same_single)}/{len(same_single)} "
+        f"sequential rows bit-identical; concurrent rows identical share {share:.3f} (limit "
+        f"{GEN_MIN_IDENTICAL_SHARE})")
+    check(all(same_single), f"sequential served rows differ from the in-process engine: {same_single}")
+    check(share >= GEN_MIN_IDENTICAL_SHARE, f"too few concurrent rows equal the in-process engine: {share}")
+    numbers = {
+        "decode_steps": steps, "launches": launches, "concurrent_identical_share": share,
+        "rest_p50_ms": pct(lat, 0.50), "rest_p99_ms": pct(lat, 0.99), "n_latency": len(lat),
+        "rest_tokens_per_s": tok_s, "rest_requests": tp_requests, "rest_wall_s": tp_wall, "clients": GEN_CLIENTS,
+        "adapter_loads": metrics.get("paged_adapter_loads"), "adapter_hits": metrics.get("paged_adapter_hits"),
+    }
+    log(f"int8 + adapters generation REST over {len(lat)} sequential requests (prompt 128, 32 new, base/a1/a2 in "
+        f"turn): p50 {numbers['rest_p50_ms']:.2f} ms, p99 {numbers['rest_p99_ms']:.2f} ms; {GEN_CLIENTS} "
+        f"closed-loop clients: {tok_s:.1f} tokens/s ({tp_requests} requests in {tp_wall:.2f} s) [{card}]")
+    return launches, numbers
+
+
+# ---------------------------------------------------------------- phase 11c
+
+def quantized_engine_numerics(torch, np, kernels, PagedEngine, load_lm_params, WeightRegistry, make_lora_params,
+                              card):
+    """Lane agreement of the int8 pool and of the fold in f32, each
+    variant's launches on its in-process path, and the int8 pool's
+    numerics against the native pool."""
+    rng = np.random.default_rng(SEED + 80)
+    V = LM_CONFIG["vocab_size"]
+    prompts = [rng.integers(0, V, int(n)) for n in np.linspace(16, 700, 16)]
+    adapters = [None, "a1", "a2"] * 6
+    params = load_lm_params("", LM_CONFIG, SEED + 5, torch.device("cuda"))
+    per_launch = {"stream": 1, "grid": 2}
+    launches = {}
+
+    def tokens(dtype="float32", with_adapters=False, max_new=16, **env):
+        """Greedy tokens of the 16 prompts; the launches of each kernel
+        variant on this engine's path (counts reset just before)."""
+        with knob_env(**env):
+            extra = (dict(max_adapters=2, lora_rank=LORA_RANK,
+                          weight_registry=adapter_registry(WeightRegistry, make_lora_params)) if with_adapters else {})
+            eng = PagedEngine(params, dtype=dtype, device="cuda", **LM_CONFIG, **LM_ENGINE, **extra)
+            kernels.reset_launch_counts()
+            streams = [eng.submit(p, max_new_tokens=max_new, adapter=a if with_adapters else None)
+                       for p, a in zip(prompts, adapters)]
+            eng.run()
+            counts = {k: n for k, n in kernels.launch_counts().items() if n}
+            impl = kernels.paged_kernel_impl(LM_CONFIG["num_heads"], LM_CONFIG["d_model"] // LM_CONFIG["num_heads"])
+        steps = eng.engine_stats()["chunks"] * LM_ENGINE["steps_per_call"]
+        out = np.stack([s.result for s in streams])
+        lane = (eng._kernel_active, eng._kv_int8, impl, steps)
+        del eng
+        torch.cuda.empty_cache()
+        return out, counts, lane
+
+    def expect_launches(counts, lane, name):
+        kernel_active, _, impl, steps = lane
+        want = LM_CONFIG["num_layers"] * steps * per_launch[impl]
+        check(kernel_active and counts == {name: want},
+              f"{name}: launches {counts} on its path, expected exactly {want} ({steps} decode steps)")
+        launches[name] = want
+
+    k_int8, c, lane = tokens(SELDON_TPU_KV_DTYPE="int8", SELDON_TPU_PAGED_KERNEL=None,
+                             SELDON_TPU_PAGED_KERNEL_IMPL="stream")
+    check(lane[1], "the int8 engine has no int8 pool")
+    expect_launches(c, lane, "paged_decode_stream_int8")
+    g_int8, c, lane = tokens(SELDON_TPU_KV_DTYPE="int8", SELDON_TPU_PAGED_KERNEL="0")
+    check(not lane[0] and not c, f"the int8 gather lane launched kernels: {c}")
+    k5_int8, c, lane = tokens(SELDON_TPU_KV_DTYPE="int8", SELDON_TPU_PAGED_KERNEL=None,
+                              SELDON_TPU_PAGED_KERNEL_IMPL="grid")
+    expect_launches(c, lane, "paged_decode_grid_int8")
+    fold, c, lane = tokens(with_adapters=True, SELDON_TPU_KV_DTYPE=None, SELDON_TPU_PAGED_KERNEL=None,
+                           SELDON_TPU_PAGED_KERNEL_IMPL="stream")
+    expect_launches(c, lane, "paged_decode_stream_lora")
+    einsum, c, lane = tokens(with_adapters=True, SELDON_TPU_KV_DTYPE=None, SELDON_TPU_PAGED_KERNEL="0")
+    check(not lane[0] and not c, f"the einsum lane launched kernels: {c}")
+    native, _, _ = tokens(SELDON_TPU_KV_DTYPE=None, SELDON_TPU_PAGED_KERNEL=None,
+                          SELDON_TPU_PAGED_KERNEL_IMPL="stream")
+    agreement = float((native == k_int8).mean())
+    firsts = bool((native[:, 0] == k_int8[:, 0]).all())
+    log(f"f32 greedy, 16 ragged prompts x 16 tokens: int8 K4 lane == int8 gather lane "
+        f"{bool((k_int8 == g_int8).all())}, int8 K4 == int8 K5 {bool((k_int8 == k5_int8).all())}; adapters "
+        f"(base/a1/a2 in turn) K4 fold == einsum lane {bool((fold == einsum).all())}; int8 vs native pool: first "
+        f"tokens equal {firsts}, agreement {agreement:.4f} (limit {INT8_MIN_AGREEMENT}); launches {launches}")
+    check(bool((k_int8 == g_int8).all()), "f32 int8 kernel lane and int8 gather lane disagree on greedy tokens")
+    check(bool((k_int8 == k5_int8).all()), "f32 int8 stream and grid kernels disagree on greedy tokens")
+    check(bool((fold == einsum).all()), "f32 fold and einsum lanes disagree on greedy tokens")
+    check(firsts and agreement >= INT8_MIN_AGREEMENT, f"int8 vs native greedy agreement too low: {agreement}")
+    check(not bool((fold[1::3] == native[1::3]).all()), "the adapters changed no token")
+
+    # the served config in-process (bf16, int8 pool, adapters): each prompt
+    # alone against all 16 in one wave, so in mixed-adapter prefill groups
+    with knob_env(SELDON_TPU_KV_DTYPE="int8", SELDON_TPU_PAGED_KERNEL=None, SELDON_TPU_PAGED_KERNEL_IMPL="stream"):
+        eng = PagedEngine(params, dtype="bfloat16", device="cuda", max_adapters=2, lora_rank=LORA_RANK,
+                          weight_registry=adapter_registry(WeightRegistry, make_lora_params), **LM_CONFIG, **LM_ENGINE)
+        alone = [eng.generate(p, max_new_tokens=LM_MAX_NEW, adapter=a) for p, a in zip(prompts, adapters)]
+        wave = [eng.submit(p, max_new_tokens=LM_MAX_NEW, adapter=a) for p, a in zip(prompts, adapters)]
+        eng.run()
+    del eng
+    torch.cuda.empty_cache()
+    wave_same = sum(bool((s.result == r).all()) for s, r in zip(wave, alone))
+    log(f"bf16 int8 + adapters, 16 ragged prompts x {LM_MAX_NEW} tokens: one wave (mixed-adapter prefill groups) "
+        f"== each prompt alone for {wave_same}/16 rows")
+    check(wave_same == len(prompts), f"a stream's tokens depend on its prefill group: {wave_same}/16")
+
+    step_tokens = torch.from_numpy(rng.integers(0, V, len(prompts))).cuda()
+    with knob_env(SELDON_TPU_KV_DTYPE="int8", SELDON_TPU_PAGED_KERNEL=None, SELDON_TPU_PAGED_KERNEL_IMPL="stream"):
+        got = first_step_logits(torch, np, lm_engine(PagedEngine, params, "bfloat16"), prompts, step_tokens)
+    with knob_env(SELDON_TPU_KV_DTYPE=None, SELDON_TPU_PAGED_KERNEL=None, SELDON_TPU_PAGED_KERNEL_IMPL="stream"):
+        ref = first_step_logits(torch, np, lm_engine(PagedEngine, params, "bfloat16"), prompts, step_tokens)
+    torch.cuda.empty_cache()
+    rel = float((got - ref).norm() / ref.norm())
+    cos = float(torch.nn.functional.cosine_similarity(got, ref, dim=-1).min())
+    log(f"first decode step, bf16 int8 pool (K4-int8) vs bf16 native pool (K4): rel L2 {rel:.3e} (limit "
+        f"{WHOLE_PATH_REL_L2}), min row cosine {cos:.6f} (limit {WHOLE_PATH_MIN_COS})")
+    check(bool(torch.isfinite(got).all()), "non-finite int8 decode logits")
+    check(rel <= WHOLE_PATH_REL_L2 and cos >= WHOLE_PATH_MIN_COS, "int8 decode numerics out of tolerance")
+    return launches, {"int8_vs_native_rel_l2": rel, "int8_vs_native_min_cos": cos,
+                      "int8_vs_native_agreement": agreement, "int8_vs_native_first_tokens_equal": firsts,
+                      "wave_equals_alone_rows": wave_same}
+
+
 # ---------------------------------------------------------------- main
 
 def run() -> int:
@@ -1210,14 +1615,16 @@ def run() -> int:
         from seldon_core_tpu_torch.models.cudaserver import CudaServer
         from seldon_core_tpu_torch.models.generate import load_lm_params
         from seldon_core_tpu_torch.models.paged import PagedEngine
+        from seldon_core_tpu_torch.models.registry import WeightRegistry
         from seldon_core_tpu_torch.ops import _build, kernels
+        from seldon_core_tpu_torch.ops.lora import make_lora_params
     except ImportError as e:
         print(f"chip_smoke: FAIL: the port is not beside this script ({e})", file=sys.stderr)
         return 1
 
     t_start = time.perf_counter()
     try:
-        smi_line, name, mem_bytes_per_s = card_report(torch)
+        smi_line, device_kind, mem_bytes_per_s = card_report(torch)
         card = smi_line
         t0 = time.perf_counter()
         sources = ("fused_normalize", "paged_decode", "flash_attention")
@@ -1239,6 +1646,20 @@ def run() -> int:
         del vit_local
         torch.cuda.empty_cache()
         tf_numerics = transformer_numerics(torch, np, kernels, vit, transformer, CudaServer, card)
+        variant_errs, variant_timings = paged_variant_checks(torch, np, kernels, mem_bytes_per_s)
+        q_launches, q_numbers = quantized_generation_path(torch, np, PagedEngine, load_lm_params, WeightRegistry,
+                                                          make_lora_params, card)
+        q_engine_launches, q_numerics = quantized_engine_numerics(torch, np, kernels, PagedEngine, load_lm_params,
+                                                                  WeightRegistry, make_lora_params, card)
+
+        def int8_adapter_engine(params):
+            with knob_env(SELDON_TPU_KV_DTYPE="int8"):
+                return PagedEngine(params, dtype="bfloat16", device="cuda", max_adapters=2, lora_rank=LORA_RANK,
+                                   weight_registry=adapter_registry(WeightRegistry, make_lora_params),
+                                   **LM_CONFIG, **LM_ENGINE)
+
+        q_engine = engine_numbers(torch, np, PagedEngine, load_lm_params, card, make_engine=int8_adapter_engine,
+                                  adapters=(None, "a1", "a2"), what="bf16 int8 pool + adapters (base/a1/a2)")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1255,6 +1676,11 @@ def run() -> int:
         "vit_forward": vit_profile,
         "transformer_numerics": tf_numerics,
         "flash_timings": flash_timings,
+        "int8_adapters_generation": q_numbers,
+        "int8_adapters_numerics": q_numerics,
+        "int8_adapters_engine": q_engine,
+        "paged_variant_timings": {f"{kernels.paged_launch_name(*v)}/{label}": row
+                                  for (v, label), row in variant_timings.items()},
         "seconds": time.perf_counter() - t_start,
     }
     log(json.dumps(result))
@@ -1308,9 +1734,37 @@ def run() -> int:
                         "bound_by": causal["bound_by"], "launches": tf_numerics["lm_launches"],
                         "launches_on": "in-process CudaServer transformer_lm, attention=flash, f32"},
     })
+    for v in PAGED_VARIANTS:
+        variant = kernels.paged_launch_name(*v)
+        uni, rag = variant_timings[v, "uniform512"], variant_timings[v, "ragged"]
+        if v == ("stream", True, True):
+            n, where = q_launches[variant], "served int8 + adapters generation path (StreamingLM over REST)"
+        else:
+            n = q_engine_launches[variant]
+            where = {"paged_decode_stream_int8": "in-process PagedEngine, SELDON_TPU_KV_DTYPE=int8, f32",
+                     "paged_decode_grid_int8": "in-process PagedEngine, SELDON_TPU_KV_DTYPE=int8, "
+                                               "SELDON_TPU_PAGED_KERNEL_IMPL=grid, f32",
+                     "paged_decode_stream_lora": "in-process PagedEngine, max_adapters=2, f32"}[variant]
+        kernel_line["kernels"].append({
+            "name": variant,
+            "route": "cuda",
+            "source": "seldon_core_tpu_torch/ops/csrc/paged_decode.cu",
+            "replaces": VARIANT_REPLACES[v],
+            "launches": n, "launches_on": where,
+            "max_abs_err": variant_errs[v]["max_abs_err"], "max_rel_err": variant_errs[v]["max_rel_err"],
+            "delta_max_rel_err": variant_errs[v]["delta_max_rel_err"] if v[2] else None,
+            "ms": uni["ms"], "plain_ms": uni["plain_ms"], "bound_ms": uni["bound_ms"], "bound_by": uni["bound_by"],
+            "library_ms": uni["library_ms"],
+            "library_call": ("pk[tables] gather" + (" dequantised" if v[1] else "")
+                             + (" + two torch.bmm" if v[2] else "") + " + F.scaled_dot_product_attention"),
+            "shape": [B, h, hd, ps, P], "lengths": "uniform 512", "q_dtype": "bfloat16",
+            "pool_dtype": "int8" if v[1] else "bfloat16",
+            "ragged": {"ms": rag["ms"], "plain_ms": rag["plain_ms"], "library_ms": rag["library_ms"],
+                       "bound_ms": rag["bound_ms"], "bound_by": rag["bound_by"], "lengths": RAGGED_LENGTHS},
+        })
     print(smi_line)
     print(json.dumps(kernel_line))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -3,8 +3,21 @@
 The port's counterpart of ``seldon_core_tpu/models/paged.py``, in the
 JAX package's production configuration: the pool chunk
 (``SELDON_TPU_CHUNK_IMPL=pool``), the split pool layout
-``(layers, pages, page_size, heads, head_dim)``, pages in the engine's
-dtype, no adapters, greedy or sampled decoding.
+``(layers, pages, page_size, heads, head_dim)``, greedy or sampled
+decoding.
+
+* **Pool dtype** — pages in the engine's dtype, or int8 under
+  ``SELDON_TPU_KV_DTYPE=int8``: one float32 scale per page per K/V in
+  the ``(layers, num_pages)`` tables ``scales_k`` / ``scales_v``, half
+  the pool bytes.  Writes requantise whole pages (:func:`write_kv`); the
+  decode kernel dequantises in-register, the gather lane right after the
+  page fetch.
+* **Multi-LoRA** — ``max_adapters`` slots of a factor pool
+  (``ops/lora.py``) beside the KV pool; each stream names its adapter at
+  submit (``meta.tags.adapter`` / ``X-Seldon-Adapter`` through
+  :class:`StreamingLM`), pins its slot for its lifetime, and every
+  projection adds its lane's delta.  On the kernel lane with the
+  ``stream`` kernel the qkv delta folds into K4's launch.
 
 * **Paged pool** — K/V live in one pool of fixed-size pages; each
   stream owns a block-table row mapping its positions to pages.  Page 0
@@ -35,20 +48,24 @@ Decisions of this slice (the JAX engine has more machinery):
   the stream's seed: greedy tokens equal the JAX engine's, sampled
   tokens cannot equal ``jax.random``'s;
 * the prefix cache, chunked prefill, the steps ladder, the ring chunk,
-  speculative decoding, LoRA adapters, int8 KV and weights, meshes,
-  token streaming, drain and migration raise, naming the later slice
-  (``ROADMAP.md`` §A item 8).
+  speculative decoding, int8 weights, meshes, token streaming, drain
+  and migration raise, naming the later slice (``ROADMAP.md`` §A item
+  8); so does a ``{"uri": ...}`` adapter (item 5, checkpoints);
+* the adapter table keeps its pins in one refcount per slot (the JAX
+  engine's temporary pins exist for its allocator audit, which is not
+  ported).
 """
 
 from __future__ import annotations
 
 import functools
+import json
 import logging
 import math
 import threading
 import time
 import zlib
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Any, Deque, Dict, List, Optional
 
 import numpy as np
@@ -58,8 +75,10 @@ from seldon_core_tpu_torch.models.cudaserver import resolve_device
 from seldon_core_tpu_torch.models.generate import _buckets_for, load_lm_params
 from seldon_core_tpu_torch.models.transformer import TransformerBlock, TransformerLM
 from seldon_core_tpu_torch.ops import kernels
+from seldon_core_tpu_torch.ops.lora import LORA_TARGETS, LoraPool, make_lora_params, target_dims
 from seldon_core_tpu_torch.runtime import knobs as _knobs
 from seldon_core_tpu_torch.runtime.component import MicroserviceError, TPUComponent, gauge_metric
+from seldon_core_tpu_torch.utils.deadlines import normalize_adapter
 
 logger = logging.getLogger(__name__)
 
@@ -102,6 +121,30 @@ def paged_kernel_static_eligible(mode: str, mesh_absent: bool, dtype: torch.dtyp
     )
 
 
+def paged_kv_dtype_mode() -> str:
+    """``SELDON_TPU_KV_DTYPE``: "bf16" (default: pages in the engine's
+    dtype) | "int8"; anything else raises."""
+    mode = _knobs.raw("SELDON_TPU_KV_DTYPE", "bf16") or "bf16"
+    if mode not in ("bf16", "int8"):
+        raise ValueError(f"SELDON_TPU_KV_DTYPE={mode!r}: supported values are 'bf16' "
+                         "(native pool dtype) and 'int8'")
+    return mode
+
+
+def paged_kv_int8(mesh_absent: bool, chunk_impl: str) -> bool:
+    """Whether the engine's pool is int8: asked for, and the single-device
+    pool chunk (the ring chunk would need a third dequantisation site);
+    otherwise a WARN and the native pool, as in the JAX engine.  Today
+    the ring chunk and meshes refuse before this is asked."""
+    if paged_kv_dtype_mode() != "int8":
+        return False
+    if not mesh_absent or chunk_impl != "pool":
+        logger.warning("SELDON_TPU_KV_DTYPE=int8 requested but the int8 KV pool is single-device pool-chunk "
+                       "only (mesh=%s, chunk_impl=%s): keeping the native pool dtype", not mesh_absent, chunk_impl)
+        return False
+    return True
+
+
 # ---------------------------------------------------------------------------
 # later slices
 # ---------------------------------------------------------------------------
@@ -114,9 +157,6 @@ _LATER_SLICES = {
     "chunk_token_budget": "8.4, chunked prefill",
     "max_queue": "8.5, SLO/deadlines and the bounded queue",
     "predict_stream": "8.6, predict_stream",
-    "SELDON_TPU_KV_DTYPE=int8": "8.7, the int8 KV pool (kernels K4/K5 int8)",
-    "max_adapters": "8.8, LoRA with the K4 fold",
-    "adapters": "8.8, LoRA with the K4 fold",
     "speculative": "8.9, speculative decoding",
     "drain": "8.10, drain/migration/KV tier",
     "quantize": "queue item 7, int8 / w8a8",
@@ -135,11 +175,11 @@ def _refuse(option: str) -> MicroserviceError:
 
 
 def check_ported_options(*, prefix_cache=None, chunk_token_budget=0, steps_per_call=8,
-                         max_steps_per_call=0, speculative=None, max_adapters=0, adapters=None,
-                         quantize="", precision="", tp=None, dp=None, mesh=None, max_queue=0) -> None:
-    """Raise for every option of the JAX engine this slice does not
-    run, and for the env knobs that select one (int8 KV, the ring
-    chunk, the prefix cache)."""
+                         max_steps_per_call=0, speculative=None, quantize="", precision="", tp=None, dp=None,
+                         mesh=None, max_queue=0) -> None:
+    """Raise for every option of the JAX engine the port does not run
+    yet, and for the env knobs that select one (the ring chunk, the
+    prefix cache), and for an unknown ``SELDON_TPU_KV_DTYPE``."""
     if prefix_cache is None:
         prefix_cache = _knobs.flag("SELDON_TPU_PREFIX_CACHE")
     checks = (
@@ -147,8 +187,6 @@ def check_ported_options(*, prefix_cache=None, chunk_token_budget=0, steps_per_c
         ("chunk_token_budget", int(chunk_token_budget or 0) > 0),
         ("max_steps_per_call", int(max_steps_per_call or 0) > int(steps_per_call)),
         ("speculative", bool(speculative)),
-        ("max_adapters", int(max_adapters or 0) > 0),
-        ("adapters", bool(adapters)),
         ("quantize", bool(quantize)),
         ("precision", (precision or "bf16") != "bf16"),
         ("tp/dp/mesh", int(tp or 0) > 1 or int(dp or 0) > 1 or bool(mesh)),
@@ -157,12 +195,7 @@ def check_ported_options(*, prefix_cache=None, chunk_token_budget=0, steps_per_c
     for option, set_ in checks:
         if set_:
             raise _refuse(option)
-    kv_dtype = _knobs.raw("SELDON_TPU_KV_DTYPE", "bf16") or "bf16"
-    if kv_dtype == "int8":
-        raise _refuse("SELDON_TPU_KV_DTYPE=int8")
-    if kv_dtype != "bf16":
-        raise ValueError(f"SELDON_TPU_KV_DTYPE={kv_dtype!r}: supported values are 'bf16' "
-                         "(native pool dtype) and 'int8'")
+    paged_kv_dtype_mode()
     chunk_impl = _knobs.raw("SELDON_TPU_CHUNK_IMPL", "") or "pool"
     if chunk_impl == "ring":
         raise _refuse("SELDON_TPU_CHUNK_IMPL=ring")
@@ -188,22 +221,47 @@ class PagedTransformerBlock(TransformerBlock):
     """TransformerBlock whose attention reads a paged K/V pool.
 
     Returns this call's K/V instead of writing them: the caller owns the
-    pool write (:func:`write_kv`)."""
+    pool write (:func:`write_kv`).  ``kv_scales=(sk, sv)`` (this layer's
+    (num_pages,) float32 scales) marks an int8 pool; ``lora`` (target ->
+    (A, B) of this layer) with ``adapter_idx`` (B,) adds each lane's
+    adapter delta to every projection."""
 
-    def forward(self, x, pk, pv, block_tables, lengths, use_kernel: bool = False):
+    def forward(self, x, pk, pv, block_tables, lengths, use_kernel: bool = False, kv_scales=None, lora=None,
+                adapter_idx=None):
         # x (B, L, d); pk/pv (num_pages, ps, h, hd); block_tables (B, P)
         # int32; lengths (B,) int32 tokens already in the pool
         batch, seg_len, d_model = x.shape
         heads = self.num_heads
         head_dim = d_model // heads
-        q, k, v = self.qkv_heads(x)
+        kernel_lane = use_kernel and seg_len == 1
+        # the qkv delta folds into K4's launch; the grid kernel keeps the
+        # einsum delta (this model applies no rotation between the qkv
+        # projection and attention, so the delta is linear in its output)
+        fold = (kernel_lane and lora is not None and "qkv" in lora
+                and kernels.paged_kernel_impl(heads, head_dim) == "stream")
+        y = self.ln0(x)
+        q, k, v = self.split_heads(self.project("qkv", y, None if fold else lora, adapter_idx))
         scale = _head_scale(head_dim, q.dtype)
-        if use_kernel and seg_len == 1:
+        if kernel_lane:
             # kernel lane: K4/K5 over the pool, then the current token
             # merged by the flash rule in float32
             q1 = (q * scale)[:, 0]  # (B, h, hd), in the model dtype
-            acc, m, l = kernels.paged_attention_decode(q1, pk, pv, block_tables, lengths, page_size=pk.shape[1])
             q_self, k_self, v_self = q1.float(), k[:, 0].float(), v[:, 0].float()
+            if fold:
+                q_scale = float(head_dim) ** -0.5
+                a, b = lora["qkv"]
+                acc, m, l, delta = kernels.paged_attention_decode(
+                    q1, pk, pv, block_tables, lengths, page_size=pk.shape[1], kv_scales=kv_scales,
+                    lora=(y[:, 0], a, b, adapter_idx, q_scale))
+                dq, dk, dv = (t.reshape(batch, heads, head_dim) for t in delta.split(d_model, dim=-1))
+                q_self = q_self + q_scale * dq
+                k_self = k_self + dk
+                v_self = v_self + dv
+                # the pool write stores the adapted keys and values
+                k, v = k_self[:, None].to(k.dtype), v_self[:, None].to(v.dtype)
+            else:
+                acc, m, l = kernels.paged_attention_decode(q1, pk, pv, block_tables, lengths,
+                                                           page_size=pk.shape[1], kv_scales=kv_scales)
             s_self = torch.einsum("bhd,bhd->bh", q_self, k_self)
             m2 = torch.maximum(m, s_self)
             alpha = torch.exp(m - m2)
@@ -213,9 +271,15 @@ class PagedTransformerBlock(TransformerBlock):
             attn = out[:, None].to(x.dtype).reshape(batch, seg_len, d_model)
         else:
             # gather lane: scores in the model dtype masked with its
-            # finfo.min, softmax in float32, weights cast back
+            # finfo.min, softmax in float32, weights cast back; int8
+            # pages dequantised right after the fetch, one scale per page
             gk = pk[block_tables]  # (B, P, ps, h, hd)
             gv = pv[block_tables]
+            if kv_scales is not None:
+                sk, sv = kv_scales
+                bshape = (batch, gk.shape[1], 1, 1, 1)
+                gk = (gk.float() * sk[block_tables].reshape(bshape)).to(q.dtype)
+                gv = (gv.float() * sv[block_tables].reshape(bshape)).to(q.dtype)
             cache_len = gk.shape[1] * gk.shape[2]
             gk = gk.reshape(batch, cache_len, heads, head_dim)
             gv = gv.reshape(batch, cache_len, heads, head_dim)
@@ -231,7 +295,7 @@ class PagedTransformerBlock(TransformerBlock):
             wc, ws = weights[..., :cache_len], weights[..., cache_len:]
             attn = (torch.einsum("bhqk,bkhd->bqhd", wc, gv) + torch.einsum("bhqk,bkhd->bqhd", ws, v))
             attn = attn.reshape(batch, seg_len, d_model)
-        return self.mlp_tail(x, attn), k, v
+        return self.mlp_tail(x, attn, lora, adapter_idx), k, v
 
 
 class PagedTransformerLM(TransformerLM):
@@ -241,23 +305,58 @@ class PagedTransformerLM(TransformerLM):
     block_cls = PagedTransformerBlock
 
     def forward(self, tokens, positions, pages_k, pages_v, block_tables, lengths, *,
-                use_kernel: bool = False, select: Optional[torch.Tensor] = None):
+                use_kernel: bool = False, select: Optional[torch.Tensor] = None, kv_scales=None, lora=None,
+                adapter_idx=None):
         """-> ``(logits, new_k, new_v)``: float32 logits (B, L, vocab) and
         this call's K/V (layers, B, L, h, hd) for the caller to write.
         ``select`` (B,) keeps one position per row before the head, so
         the logits are (B, 1, vocab); the head is per position, so the
         kept rows are those of the full call.  Token ids wrap modulo the
         vocabulary, as ``jnp.take`` does, so a finished lane's ``eos_id``
-        of -1 embeds like the JAX engine's."""
+        of -1 embeds like the JAX engine's.  ``kv_scales=(sk, sv)``, the
+        (layers, num_pages) scale tables of an int8 pool; ``lora`` (target
+        -> (A (layers, slots, d_in, r), B (layers, slots, r, d_out))) with
+        ``adapter_idx`` (B,) int32 slot ids: each layer gets its slices."""
         x = self.embed(torch.remainder(tokens.long(), self.vocab_size), positions)
         new_k, new_v = [], []
         for i, block in enumerate(self.blocks):
-            x, k, v = block(x, pages_k[i], pages_v[i], block_tables, lengths, use_kernel)
+            scales_i = (kv_scales[0][i], kv_scales[1][i]) if kv_scales is not None else None
+            lora_i = {t: (ab[0][i], ab[1][i]) for t, ab in lora.items()} if lora is not None else None
+            x, k, v = block(x, pages_k[i], pages_v[i], block_tables, lengths, use_kernel, kv_scales=scales_i,
+                            lora=lora_i, adapter_idx=adapter_idx)
             new_k.append(k)
             new_v.append(v)
         if select is not None:
             x = x[torch.arange(x.shape[0], device=x.device), select.long()][:, None]
         return self.logits(x), torch.stack(new_k), torch.stack(new_v)
+
+
+def kv_split(pool):
+    """A pool argument as ``(pages, scales)``: the int8 bundle is the
+    2-tuple ``(int8 pages, float32 per-page scales)``, a bare tensor (the
+    native-dtype pool) splits to ``(pool, None)``."""
+    if isinstance(pool, tuple):
+        return pool
+    return pool, None
+
+
+def kv_join(pages, scales):
+    """Inverse of :func:`kv_split`."""
+    return pages if scales is None else (pages, scales)
+
+
+def _write_positions(block_tables, start, valid, S, *, page_size, max_len, from_zero, device):
+    """Each written token's (page, row): (B, S) page ids and offsets."""
+    B = block_tables.shape[0]
+    offs = torch.arange(S, device=device)
+    if from_zero:
+        pos = offs[None, :].expand(B, S)
+        page = block_tables.long().gather(1, pos // page_size)
+    else:
+        pos = torch.clamp(start.long()[:, None] + offs[None, :], max=max_len - 1)
+        idx = torch.clamp(pos // page_size, max=block_tables.shape[1] - 1)
+        page = torch.where(valid, block_tables.long().gather(1, idx), 0)
+    return page, pos % page_size
 
 
 def write_kv(pk, pv, new_k, new_v, block_tables, start, valid, *, page_size, max_len,
@@ -274,21 +373,83 @@ def write_kv(pk, pv, new_k, new_v, block_tables, start, valid, *, page_size, max
     and later tokens overwrite them.  Positions are clamped to
     ``max_len - 1``.  Writes to distinct (page, offset) pairs are
     exact; which of several writes to the trash page lands is
-    unspecified, as nothing reads it."""
+    unspecified, as nothing reads it.
+
+    An int8 pool comes as ``(pages, scales)`` bundles (:func:`kv_split`)
+    and takes the quantising write, :func:`_write_kv_int8`."""
+    pk_pages, sk = kv_split(pk)
+    pv_pages, sv = kv_split(pv)
+    if sk is not None:
+        _write_kv_int8(pk_pages, sk, pv_pages, sv, new_k, new_v, block_tables, start, valid,
+                       page_size=page_size, max_len=max_len, from_zero=from_zero)
+        return pk, pv
     L, B, S = new_k.shape[:3]
     tail = new_k.shape[3:]
-    offs = torch.arange(S, device=new_k.device)
-    if from_zero:
-        pos = offs[None, :].expand(B, S)
-        page = block_tables.long().gather(1, pos // page_size)
-    else:
-        pos = torch.clamp(start.long()[:, None] + offs[None, :], max=max_len - 1)
-        idx = torch.clamp(pos // page_size, max=block_tables.shape[1] - 1)
-        page = torch.where(valid, block_tables.long().gather(1, idx), 0)
-    page, row = page.reshape(-1), (pos % page_size).reshape(-1)
+    page, row = _write_positions(block_tables, start, valid, S, page_size=page_size, max_len=max_len,
+                                 from_zero=from_zero, device=new_k.device)
+    page, row = page.reshape(-1), row.reshape(-1)
     pk[:, page, row] = new_k.reshape(L, B * S, *tail)
     pv[:, page, row] = new_v.reshape(L, B * S, *tail)
     return pk, pv
+
+
+def _quantize_pages(pagef: torch.Tensor):
+    """(L, N, ps, *tail) float32 pages -> int8 pages and their (L, N)
+    scales: one scale per layer and page, ``max(amax / 127, 1e-8)``,
+    values rounded half to even and clipped to +-127 (the JAX engine's
+    ``_quant``)."""
+    amax = pagef.abs().amax(dim=tuple(range(2, pagef.dim())))
+    scale = torch.clamp(amax / 127.0, min=1e-8)
+    q = torch.round(pagef / scale.reshape(*scale.shape, *(1,) * (pagef.dim() - 2)))
+    return torch.clamp(q, -127, 127).to(torch.int8), scale
+
+
+def _write_kv_int8(pk, sk, pv, sv, new_k, new_v, block_tables, start, valid, *, page_size, max_len, from_zero):
+    """The quantising twin of :func:`write_kv` for the int8 pool, in place.
+
+    Quantisation is page-granular (one float32 scale per page per K/V
+    per layer), so every write touches whole pages, as in the JAX
+    engine's ``_write_kv_int8``:
+
+    * **prefill** (``from_zero``) — each (row, page) block of the
+      segment quantises fresh over its abs-max, the pad tokens between a
+      row's length and the bucket included; only positions past the
+      segment are zero;
+    * **decode and segments** — a read-modify-write requantisation per
+      token: the page dequantised at its old scale, its tail at and past
+      the write offset zeroed (a recycled page's dead values must not
+      inflate the new scale), the token inserted, the whole page
+      requantised.  Lanes are written together (two live lanes never
+      share a page; which write lands on trash page 0 is unspecified),
+      the tokens of a segment one after another."""
+    L, B, S = new_k.shape[:3]
+    tail = new_k.shape[3:]
+    if from_zero:
+        nblk = -(-S // page_size)
+        pages = block_tables.long()[:, :nblk].reshape(-1)  # (B * nblk,)
+        for pool, scales, new in ((pk, sk, new_k), (pv, sv, new_v)):
+            f = new.float()
+            if nblk * page_size > S:
+                f = torch.cat([f, f.new_zeros((L, B, nblk * page_size - S, *tail))], dim=2)
+            q, s = _quantize_pages(f.reshape(L, B * nblk, page_size, *tail))
+            pool[:, pages] = q
+            scales[:, pages] = s
+        return
+    page, off = _write_positions(block_tables, start, valid, S, page_size=page_size, max_len=max_len,
+                                 from_zero=False, device=new_k.device)
+    lanes = torch.arange(B, device=new_k.device)
+    ones = (1,) * len(tail)
+    rows = torch.arange(page_size, device=new_k.device)
+    for t in range(S):
+        p, o = page[:, t], off[:, t]
+        live = (rows[None, :] < o[:, None]).reshape(1, B, page_size, *ones)
+        for pool, scales, new in ((pk, sk, new_k), (pv, sv, new_v)):
+            pagef = pool[:, p].float() * scales[:, p].reshape(L, B, 1, *ones)
+            pagef = torch.where(live, pagef, 0.0)
+            pagef[:, lanes, o] = new[:, :, t].float()
+            q, s = _quantize_pages(pagef)
+            pool[:, p] = q
+            scales[:, p] = s
 
 
 # ---------------------------------------------------------------------------
@@ -299,9 +460,10 @@ class _Stream:
     """One in-flight generation request bound to a slot."""
 
     __slots__ = ("req_id", "prompt", "max_new", "temperature", "top_k", "eos_id", "seed", "tokens",
-                 "event", "result", "error", "slot", "pages", "cancelled", "generator")
+                 "event", "result", "error", "slot", "pages", "cancelled", "generator", "adapter_slot",
+                 "adapter_pinned")
 
-    def __init__(self, req_id, prompt, max_new, temperature, top_k, eos_id, seed):
+    def __init__(self, req_id, prompt, max_new, temperature, top_k, eos_id, seed, adapter_slot=0):
         self.req_id = req_id
         self.prompt = prompt
         self.max_new = max_new
@@ -318,6 +480,10 @@ class _Stream:
         self.cancelled = False
         # the stream's sampler, seeded from `seed` when its prefill ends
         self.generator: Optional[torch.Generator] = None
+        # the adapter pool slot it decodes with (0: the base model), and
+        # whether it still holds its pin on that slot (released once)
+        self.adapter_slot = int(adapter_slot)
+        self.adapter_pinned = bool(adapter_slot)
 
 
 def _resolve_dtype(dtype) -> torch.dtype:
@@ -340,6 +506,11 @@ class PagedEngine:
     bucket, and advances every active stream by ``steps_per_call``
     tokens in one chunk.  ``params`` is a ``TransformerLM`` state_dict
     (``load_lm_params`` or ``models.convert.lm_params_from_flax``).
+
+    ``max_adapters`` (``SELDON_TPU_MAX_ADAPTERS`` when 0) slots of rank
+    ``lora_rank`` serve LoRA adapters, resolved by name through
+    ``weight_registry`` (a :class:`models.registry.WeightRegistry`) or
+    installed with :meth:`load_adapter`; 0 serves the base model only.
     """
 
     def __init__(
@@ -368,11 +539,13 @@ class PagedEngine:
         max_queue: int = 0,
         chunk_token_budget: int = 0,
         max_adapters: int = 0,
+        lora_rank: int = 8,
+        weight_registry: Any = None,
     ):
         check_ported_options(
             prefix_cache=prefix_cache, chunk_token_budget=chunk_token_budget, steps_per_call=steps_per_call,
-            max_steps_per_call=max_steps_per_call, speculative=speculative, max_adapters=max_adapters,
-            quantize=quantize, precision=precision, tp=tp, dp=dp, mesh=mesh, max_queue=max_queue,
+            max_steps_per_call=max_steps_per_call, speculative=speculative, quantize=quantize,
+            precision=precision, tp=tp, dp=dp, mesh=mesh, max_queue=max_queue,
         )
         if max_len % page_size:
             raise ValueError(f"max_len {max_len} must be a multiple of page_size {page_size}")
@@ -395,8 +568,17 @@ class PagedEngine:
         self.module = self.module.to(self.device).eval().requires_grad_(False)
         head_dim = d_model // num_heads
         pool_shape = (num_layers, self.num_pages, self.page_size, num_heads, head_dim)
-        self.pages_k = torch.zeros(pool_shape, dtype=self.dtype, device=self.device)
-        self.pages_v = torch.zeros(pool_shape, dtype=self.dtype, device=self.device)
+        # int8 pool: pages rest int8 with one float32 scale per page per
+        # K/V in the sibling (layers, num_pages) tables
+        self._kv_int8 = paged_kv_int8(True, _knobs.raw("SELDON_TPU_CHUNK_IMPL", "") or "pool")
+        pool_dtype = torch.int8 if self._kv_int8 else self.dtype
+        self.pages_k = torch.zeros(pool_shape, dtype=pool_dtype, device=self.device)
+        self.pages_v = torch.zeros(pool_shape, dtype=pool_dtype, device=self.device)
+        if self._kv_int8:
+            self.scales_k = torch.zeros((num_layers, self.num_pages), dtype=torch.float32, device=self.device)
+            self.scales_v = torch.zeros((num_layers, self.num_pages), dtype=torch.float32, device=self.device)
+        else:
+            self.scales_k = self.scales_v = None
         # which decode lane this engine runs (the `kernel_active` gauge)
         mode = paged_kernel_mode()
         self._kernel_active = paged_kernel_static_eligible(mode, True, self.dtype, self.device)
@@ -417,14 +599,46 @@ class PagedEngine:
         self._lengths = np.zeros((self.max_slots,), np.int32)
         self._next_id = 0
         self._closed = False
-        self._counters = {"chunks": 0, "tokens": 0, "prefills": 0, "completed": 0}
+        self._counters = {"chunks": 0, "tokens": 0, "prefills": 0, "completed": 0, "adapter_loads": 0,
+                          "adapter_hits": 0, "adapter_misses": 0, "adapter_evictions": 0}
+
+        # multi-LoRA: a slot-granular factor pool beside the KV pool (slot 0
+        # = the zero adapter), and the adapter table, guarded by _lock:
+        # name -> slot, per-slot pin counts, an LRU of resident refcount-0
+        # slots (reclaimed when a cold adapter needs one).
+        # _adapter_io_lock serialises the slow load/install path so two
+        # cold admissions of one adapter never install it twice.
+        if not max_adapters:
+            max_adapters = int(_knobs.raw("SELDON_TPU_MAX_ADAPTERS", "0") or 0)
+        self.max_adapters = max(0, int(max_adapters))
+        self._registry = weight_registry
+        self._lora = (LoraPool(num_layers=num_layers, d_model=d_model, max_adapters=self.max_adapters,
+                               rank=int(lora_rank), device=self.device) if self.max_adapters else None)
+        self._adapter_io_lock = threading.Lock()
+        self._adapter_table: Dict[str, int] = {}
+        self._adapter_names: Dict[int, str] = {}
+        self._adapter_ref = np.zeros((self.max_adapters + 1,), np.int32)
+        self._adapter_free: List[int] = list(range(self.max_adapters, 0, -1))
+        self._adapter_lru: "OrderedDict[int, str]" = OrderedDict()
+        # adapter names whose registry pin this engine holds while they are
+        # resident in its pool
+        self._adapter_reg_pinned: set = set()
+        self._adapter_requests: Dict[str, int] = {}
+        # each slot's adapter slot id (slot-major, like _block_tables)
+        self._adapter_slots = np.zeros((self.max_slots,), np.int32)
 
     # ---- submission ------------------------------------------------------
 
     def submit(self, prompt, max_new_tokens: int = 32, temperature: float = 0.0, top_k: int = 0,
-               eos_id: int = -1, seed: int = 0) -> _Stream:
+               eos_id: int = -1, seed: int = 0, adapter: Optional[str] = None) -> _Stream:
         """Queue one prompt (1-D int array).  Returns a stream handle whose
-        ``event`` fires when ``result`` (``(max_new,)`` ids) is ready."""
+        ``event`` fires when ``result`` (``(max_new,)`` ids) is ready.
+
+        ``adapter`` names the LoRA weight set the stream decodes with: a
+        resident adapter pins its pool slot for the stream's lifetime, a
+        cold one loads through the weight registry first, on this thread
+        (load -> pin -> serve -> unpin).  ``None`` is the base model:
+        slot 0, no lookup, no pin."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         plen = len(prompt)
         if plen < 1:
@@ -440,17 +654,206 @@ class PagedEngine:
         if need > self.num_pages - 1:
             raise MicroserviceError(f"request needs {need} pages but the pool holds {self.num_pages - 1}",
                                     status_code=400, reason="SEQUENCE_TOO_LONG")
-        with self._lock:
-            if self._closed:
-                raise MicroserviceError("engine closed", status_code=503, reason="SHUTTING_DOWN")
-            stream = _Stream(self._next_id, prompt, max_new_tokens, float(temperature), int(top_k),
-                             int(eos_id), int(seed))
-            self._next_id += 1
-            self._queue.append(stream)
+        adapter = adapter or None
+        if adapter is not None:
+            self._check_open()  # a closed engine must not load adapters for requests it refuses
+        adapter_slot = self._acquire_adapter_slot(adapter) if adapter is not None else 0
+        try:
+            with self._lock:
+                self._check_open_locked()
+                stream = _Stream(self._next_id, prompt, max_new_tokens, float(temperature), int(top_k),
+                                 int(eos_id), int(seed), adapter_slot=adapter_slot)
+                if adapter_slot:
+                    self._adapter_requests[adapter] = self._adapter_requests.get(adapter, 0) + 1
+                self._next_id += 1
+                self._queue.append(stream)
+        except BaseException:
+            if adapter_slot:
+                with self._lock:
+                    self._unpin_adapter_slot_locked(adapter_slot)
+            raise
         return stream
+
+    def _check_open(self) -> None:
+        with self._lock:
+            self._check_open_locked()
+
+    def _check_open_locked(self) -> None:
+        if self._closed:
+            raise MicroserviceError("engine closed", status_code=503, reason="SHUTTING_DOWN")
 
     def _pages_for(self, plen: int, max_new: int) -> int:
         return -(-(plen + max_new) // self.page_size)
+
+    # ---- multi-LoRA adapter pool: slots, pins, LRU reclaim -----------------
+
+    def _unpin_adapter_slot_locked(self, slot: int) -> None:
+        """Drop one pin on a pool slot; the last pin parks the slot on the
+        adapter LRU (still resident, reclaimed only when a cold load
+        needs it)."""
+        r = int(self._adapter_ref[slot]) - 1
+        self._adapter_ref[slot] = max(r, 0)
+        if r <= 0 and slot in self._adapter_names:
+            self._adapter_lru[slot] = self._adapter_names[slot]
+
+    def _release_adapter_locked(self, stream: _Stream) -> None:
+        """The terminal-path unpin (finish, cancel, failure): exactly once
+        per stream, which ``adapter_pinned`` guards."""
+        if not stream.adapter_pinned:
+            return
+        stream.adapter_pinned = False
+        self._unpin_adapter_slot_locked(stream.adapter_slot)
+
+    def _install_adapter(self, name: str, params: Dict[str, Any]) -> int:
+        """Place one adapter's factors into a pool slot (under
+        ``_adapter_io_lock``, not ``_lock``): a free slot, or the LRU
+        refcount-0 one reclaimed; every slot pinned is a clean 503.  A
+        wrong-rank or partial adapter is a 400 with the slot returned
+        untouched.  The returned slot carries one pin."""
+        victim: Optional[str] = None
+        with self._lock:
+            if self._adapter_free:
+                slot = self._adapter_free.pop()
+            elif self._adapter_lru:
+                slot, victim = self._adapter_lru.popitem(last=False)
+                del self._adapter_table[victim]
+                self._adapter_names.pop(slot, None)
+                self._counters["adapter_evictions"] += 1
+            else:
+                raise MicroserviceError(f"adapter pool exhausted: all {self.max_adapters} slots pinned by live "
+                                        "streams", status_code=503, reason="ADAPTERS_EXHAUSTED")
+        if victim is not None and victim in self._adapter_reg_pinned:
+            # the evicted adapter's host copy becomes reclaimable registry capacity
+            self._adapter_reg_pinned.discard(victim)
+            self._registry.release(victim)
+        # no lane reads this slot (it was free or unpinned), so the install
+        # runs outside _lock and never stalls the decode loop
+        try:
+            self._lora.install(slot, params)
+        except ValueError as exc:
+            with self._lock:
+                self._adapter_free.append(slot)
+            raise MicroserviceError(f"adapter {name!r} does not fit this engine's factor pool: {exc}",
+                                    status_code=400, reason="ADAPTER_INCOMPATIBLE") from exc
+        except BaseException:
+            with self._lock:
+                self._adapter_free.append(slot)
+            raise
+        with self._lock:
+            self._adapter_table[name] = slot
+            self._adapter_names[slot] = name
+            self._adapter_ref[slot] = 1
+            self._counters["adapter_loads"] += 1
+        return slot
+
+    def _acquire_adapter_slot(self, name: str) -> int:
+        """Resolve ``name`` to a pinned pool slot: a resident adapter is a
+        hit (its pin count grows), a cold one loads through the weight
+        registry and installs."""
+        if self._lora is None:
+            raise MicroserviceError("this engine serves no adapters (max_adapters=0 / SELDON_TPU_MAX_ADAPTERS "
+                                    "unset)", status_code=400, reason="ADAPTERS_DISABLED")
+        # the resident path never takes the io lock: check-and-pin is
+        # atomic under _lock, so warm submits never wait for a cold load
+        with self._lock:
+            slot = self._pin_resident_adapter_locked(name)
+            if slot is not None:
+                return slot
+        with self._adapter_io_lock:
+            with self._lock:
+                # a concurrent cold load may have installed it meanwhile
+                slot = self._pin_resident_adapter_locked(name)
+                if slot is not None:
+                    return slot
+                self._counters["adapter_misses"] += 1
+            if self._registry is None or not self._registry.known(name):
+                raise MicroserviceError(f"unknown adapter {name!r}: not resident and not registered in the "
+                                        "weight registry", status_code=404, reason="ADAPTER_UNKNOWN")
+            params = self._registry.acquire(name)
+            try:
+                slot = self._install_adapter(name, params)
+            except BaseException:
+                self._registry.release(name)
+                raise
+            # the registry pin is held while the adapter stays resident here
+            self._adapter_reg_pinned.add(name)
+            return slot
+
+    def _pin_resident_adapter_locked(self, name: str) -> Optional[int]:
+        """The hit path: pin ``name``'s slot if it is resident, else None."""
+        slot = self._adapter_table.get(name)
+        if slot is None:
+            return None
+        self._counters["adapter_hits"] += 1
+        self._adapter_ref[slot] += 1
+        self._adapter_lru.pop(slot, None)
+        return slot
+
+    def load_adapter(self, name: str, params: Optional[Dict[str, Any]] = None) -> int:
+        """Hot-load ``name`` into the pool without serving from it: install
+        ``params`` directly, or pull it from the registry when omitted.
+        Returns the slot; the adapter parks unpinned on the LRU."""
+        if params is None:
+            slot = self._acquire_adapter_slot(name)
+        else:
+            if self._lora is None:
+                raise MicroserviceError("this engine serves no adapters (max_adapters=0)", status_code=400,
+                                        reason="ADAPTERS_DISABLED")
+            with self._adapter_io_lock:
+                with self._lock:
+                    slot = self._adapter_table.get(name)
+                    if slot is not None:
+                        return slot
+                slot = self._install_adapter(name, params)
+        with self._lock:
+            self._unpin_adapter_slot_locked(slot)
+        return slot
+
+    def unload_adapter(self, name: str) -> None:
+        """Evict a resident adapter (rolling re-deploys).  A pinned one
+        refuses with 409: live streams never have their factors swapped
+        mid-decode."""
+        with self._adapter_io_lock:
+            with self._lock:
+                slot = self._adapter_table.get(name)
+                if slot is None:
+                    return
+                if int(self._adapter_ref[slot]) > 0:
+                    raise MicroserviceError(f"adapter {name!r} is pinned by live streams", status_code=409,
+                                            reason="ADAPTER_IN_USE")
+                del self._adapter_table[name]
+                self._adapter_names.pop(slot, None)
+                self._adapter_lru.pop(slot, None)
+                self._adapter_free.append(slot)
+            if name in self._adapter_reg_pinned:
+                self._adapter_reg_pinned.discard(name)
+                self._registry.release(name)
+
+    def adapter_stats(self) -> Dict[str, Any]:
+        """Residency, per-slot pins and the factor pool's device bytes."""
+        with self._lock:
+            resident = [{"name": name, "slot": slot, "refcount": int(self._adapter_ref[slot]),
+                         "cached": slot in self._adapter_lru}
+                        for name, slot in sorted(self._adapter_table.items())]
+            return {
+                "enabled": self._lora is not None,
+                "max_adapters": self.max_adapters,
+                "rank": self._lora.rank if self._lora is not None else 0,
+                "pool_bytes": self._lora.hbm_bytes() if self._lora is not None else 0,
+                "resident": resident,
+                "requests": dict(self._adapter_requests),
+            }
+
+    def _model_kwargs(self, adapter_ids: np.ndarray) -> Dict[str, Any]:
+        """The pool's scale tables and the adapter pool with its lanes' slot
+        ids, as the model takes them."""
+        kw: Dict[str, Any] = {}
+        if self._kv_int8:
+            kw["kv_scales"] = (self.scales_k, self.scales_v)
+        if self._lora is not None:
+            kw["lora"] = self._lora.device_args()
+            kw["adapter_idx"] = torch.from_numpy(np.ascontiguousarray(adapter_ids, np.int32)).to(self.device)
+        return kw
 
     # ---- page allocator + admission (caller holds _lock) -------------------
 
@@ -481,6 +884,8 @@ class PagedEngine:
             self._block_tables[slot] = 0
             self._block_tables[slot, : len(pages)] = pages
             self._lengths[slot] = len(stream.prompt)
+            # the lane's adapter slot id: every call gathers its factors by it
+            self._adapter_slots[slot] = stream.adapter_slot
             admitted.append(stream)
         return admitted
 
@@ -496,8 +901,9 @@ class PagedEngine:
 
     def _prefill_group(self, bucket: int, group: List[_Stream]) -> None:
         """One batched prefill call for same-bucket prompts: ``k`` rows, a
-        power of two; pad rows (one token, table row 0) write only the
-        trash page.  Installs each stream's last-token logits."""
+        power of two; pad rows (one token, table row 0, adapter slot 0)
+        write only the trash page.  Installs each stream's last-token
+        logits."""
         k = 1
         while k < len(group):
             k *= 2
@@ -505,10 +911,12 @@ class PagedEngine:
         padded = np.zeros((k, bucket), np.int64)
         true_lens = np.ones((k,), np.int64)
         block_rows = np.zeros((k, pages_h), np.int32)
+        adapter_rows = np.zeros((k,), np.int32)
         for i, stream in enumerate(group):
             padded[i, : len(stream.prompt)] = stream.prompt
             true_lens[i] = len(stream.prompt)
             block_rows[i] = self._block_tables[stream.slot, :pages_h]
+            adapter_rows[i] = stream.adapter_slot
         dev = self.device
         tokens = torch.from_numpy(padded).to(dev)
         rows = torch.from_numpy(block_rows).to(dev)
@@ -516,9 +924,10 @@ class PagedEngine:
         positions = torch.arange(bucket, device=dev)[None, :].expand(k, bucket)
         zeros = torch.zeros((k,), dtype=torch.int32, device=dev)
         last, nk, nv = self.module(tokens, positions, self.pages_k, self.pages_v, rows, zeros,
-                                   use_kernel=self._kernel_active, select=last_pos)
-        write_kv(self.pages_k, self.pages_v, nk, nv, rows, zeros, None, page_size=self.page_size,
-                 max_len=self.max_len, from_zero=True)
+                                   use_kernel=self._kernel_active, select=last_pos,
+                                   **self._model_kwargs(adapter_rows))
+        write_kv(kv_join(self.pages_k, self.scales_k), kv_join(self.pages_v, self.scales_v), nk, nv, rows, zeros,
+                 None, page_size=self.page_size, max_len=self.max_len, from_zero=True)
         slots = torch.tensor([s.slot for s in group], device=dev)
         self._logits[slots] = last[: len(group), 0]
         for stream in group:
@@ -561,7 +970,7 @@ class PagedEngine:
         return token
 
     def _chunk(self, steps: int, tables: np.ndarray, lengths: np.ndarray, done: np.ndarray,
-               max_new: np.ndarray, eos_ids: np.ndarray, samplers) -> np.ndarray:
+               max_new: np.ndarray, eos_ids: np.ndarray, samplers, adapter_ids: np.ndarray) -> np.ndarray:
         """``steps`` decode steps of every slot as device work; one
         device-to-host copy at the end returns ``(B, steps + 2)``: the
         tokens, then each slot's emitted count and new length."""
@@ -572,6 +981,7 @@ class PagedEngine:
         max_new_t = torch.from_numpy(max_new).to(dev)
         eos_t = torch.from_numpy(eos_ids.astype(np.int64)).to(dev)
         emitted = torch.zeros_like(lengths_t)
+        model_kw = self._model_kwargs(adapter_ids)
         logits = self._logits
         toks = []
         for _ in range(steps):
@@ -582,9 +992,9 @@ class PagedEngine:
             done_t = done_t | (token == eos_t) | (emitted >= max_new_t)
             positions = torch.clamp(lengths_t, max=self.max_len - 1)[:, None]
             new_logits, nk, nv = self.module(token[:, None], positions, self.pages_k, self.pages_v, tables_t,
-                                             lengths_t, use_kernel=self._kernel_active)
-            write_kv(self.pages_k, self.pages_v, nk, nv, tables_t, lengths_t, active[:, None],
-                     page_size=self.page_size, max_len=self.max_len)
+                                             lengths_t, use_kernel=self._kernel_active, **model_kw)
+            write_kv(kv_join(self.pages_k, self.scales_k), kv_join(self.pages_v, self.scales_v), nk, nv, tables_t,
+                     lengths_t, active[:, None], page_size=self.page_size, max_len=self.max_len)
             logits = torch.where(active[:, None], new_logits[:, 0], logits)
             lengths_t = lengths_t + active.int()
             toks.append(token)
@@ -621,8 +1031,9 @@ class PagedEngine:
             pages_h = self._pages_horizon(active, steps)
             tables = np.ascontiguousarray(self._block_tables[:, :pages_h])
             lengths = self._lengths.copy()
+            adapter_ids = self._adapter_slots.copy()
         with torch.inference_mode():
-            out = self._chunk(steps, tables, lengths, done, max_new, eos_ids, samplers)
+            out = self._chunk(steps, tables, lengths, done, max_new, eos_ids, samplers, adapter_ids)
         toks, emitted, lengths_out = out[:, :steps], out[:, steps], out[:, steps + 1]
         with self._lock:
             self._lengths = lengths_out.astype(np.int32)
@@ -652,6 +1063,7 @@ class PagedEngine:
         stream.pages = []
         self._lengths[slot] = 0
         self._block_tables[slot] = 0
+        self._release_adapter_locked(stream)
         self._counters["completed"] += 1
         stream.event.set()
 
@@ -675,6 +1087,7 @@ class PagedEngine:
                 self._queue.remove(stream)
                 toks = stream.tokens[: stream.max_new]
                 stream.result = np.asarray(toks + [stream.eos_id] * (stream.max_new - len(toks)), np.int32)
+                self._release_adapter_locked(stream)
                 stream.event.set()
                 return
             stream.cancelled = True
@@ -694,6 +1107,13 @@ class PagedEngine:
                 "active": sum(s is not None for s in self._slots),
                 "queued": len(self._queue),
                 "free_pages": len(self._free_pages),
+                "kv_dtype_int8": int(self._kv_int8),
+                "adapters_resident": len(self._adapter_table),
+                "adapter_slots": self.max_adapters,
+                "adapter_loads": self._counters["adapter_loads"],
+                "adapter_hits": self._counters["adapter_hits"],
+                "adapter_misses": self._counters["adapter_misses"],
+                "adapter_evictions": self._counters["adapter_evictions"],
             }
 
     def close(self, exc: Optional[Exception] = None) -> None:
@@ -701,6 +1121,12 @@ class PagedEngine:
         with self._lock:
             self._closed = True
         self.fail_all(exc or MicroserviceError("engine closed", status_code=503, reason="SHUTTING_DOWN"))
+        # a closed engine's registry pins drop: its adapters' host copies
+        # become reclaimable registry capacity
+        with self._adapter_io_lock:
+            pinned, self._adapter_reg_pinned = self._adapter_reg_pinned, set()
+        for name in pinned:
+            self._registry.release(name)
 
     def fail_all(self, exc: Exception) -> None:
         """Error out every queued and in-flight stream; the engine stays usable."""
@@ -714,6 +1140,7 @@ class PagedEngine:
                 self._free_locked(stream.pages)
                 stream.pages = []
                 stream.error = exc
+                self._release_adapter_locked(stream)
                 stream.event.set()
 
     def run(self) -> None:
@@ -741,8 +1168,16 @@ class StreamingLM(TPUComponent):
     engine (and is the only thread that touches the device), and every
     caller waits only for its own streams.  Per-request overrides via
     ``meta.tags``: ``max_new_tokens``, ``temperature``, ``top_k``,
-    ``seed``.  Runs on ``cuda`` unless ``device="cpu"``; ``dtype`` is
+    ``seed``, ``adapter`` (the ``X-Seldon-Adapter`` header lands there
+    too).  Runs on ``cuda`` unless ``device="cpu"``; ``dtype`` is
     bfloat16 unless ``float32``.
+
+    ``adapters`` (a dict, or its JSON) is the deployment's adapter
+    catalogue, ``name -> {"seed": n, "alpha": a}`` (deterministic
+    synthetic factors) or ``name -> {target: (A, B)}`` (raw factors);
+    each registers in the process weight registry at load and
+    materialises when a request first selects it, into one of
+    ``max_adapters`` pool slots of rank ``lora_rank``.
     """
 
     def __init__(
@@ -773,6 +1208,7 @@ class StreamingLM(TPUComponent):
         max_queue: int = 0,
         chunk_token_budget: int = 0,
         max_adapters: int = 0,
+        lora_rank: int = 8,
         adapters: Any = None,
         device: str = "cuda",
         dtype: str = "bfloat16",
@@ -781,10 +1217,20 @@ class StreamingLM(TPUComponent):
         super().__init__(**kwargs)
         check_ported_options(
             prefix_cache=prefix_cache, chunk_token_budget=chunk_token_budget, steps_per_call=steps_per_call,
-            max_steps_per_call=max_steps_per_call, speculative=speculative, max_adapters=max_adapters,
-            adapters=adapters, quantize=quantize, precision=precision, tp=tp, dp=dp, mesh=mesh_axes,
-            max_queue=max_queue,
+            max_steps_per_call=max_steps_per_call, speculative=speculative, quantize=quantize,
+            precision=precision, tp=tp, dp=dp, mesh=mesh_axes, max_queue=max_queue,
         )
+        if isinstance(adapters, str):
+            adapters = json.loads(adapters) if adapters else None
+        self.adapters: Dict[str, Any] = dict(adapters) if adapters else {}
+        for name, spec in self.adapters.items():
+            if isinstance(spec, dict) and "uri" in spec and not any(t in spec for t in LORA_TARGETS):
+                raise MicroserviceError(
+                    f"adapter {name!r}: {{'uri': ...}} checkpoints are not ported yet (ROADMAP.md §A item 5, "
+                    "model_uri loading without flax); give {'seed': n} or raw factors",
+                    status_code=400, reason="BAD_PARAMETER")
+        self.max_adapters = int(max_adapters)
+        self.lora_rank = int(lora_rank)
         self.device = resolve_device(device)
         self.dtype_name = dtype
         self.dtype = _resolve_dtype(dtype)
@@ -816,16 +1262,59 @@ class StreamingLM(TPUComponent):
                 return
             t0 = time.perf_counter()
             params = load_lm_params(self.model_uri, self.config, self.seed, self.device)
-            engine = PagedEngine(params, dtype=self.dtype, device=self.device, **self.config,
-                                 **self.engine_config)
+            engine = PagedEngine(params, dtype=self.dtype, device=self.device, max_adapters=self.max_adapters,
+                                 lora_rank=self.lora_rank, weight_registry=self._register_adapters(),
+                                 **self.config, **self.engine_config)
             # first CUDA calls (library handles, the kernel build) pay here, not in a request
             engine.generate(np.zeros((1,), np.int32), max_new_tokens=2)
             self._loop_thread = threading.Thread(target=self._loop, name="streaminglm-decode", daemon=True)
             self.engine = engine  # published after construction; the loop reads it
             self._loop_thread.start()
             self._load_time_s = time.perf_counter() - t0
-            logger.info("streaminglm loaded on %s in %.2fs (kernel lane %s)", self.device, self._load_time_s,
-                        "on" if engine._kernel_active else "off")
+            logger.info("streaminglm loaded on %s in %.2fs (kernel lane %s, kv pool %s, %d adapter slots)",
+                        self.device, self._load_time_s, "on" if engine._kernel_active else "off",
+                        "int8" if engine._kv_int8 else self.dtype_name, engine.max_adapters)
+
+    def _register_adapters(self):
+        """Register the deployment's adapter catalogue in the process
+        weight registry (from :meth:`load`, before the engine exists).
+        Returns the registry the engine resolves names through, or None
+        when multi-LoRA is off entirely."""
+        if not (self.adapters or self.max_adapters):
+            return None
+        from seldon_core_tpu_torch.models.registry import get_registry
+
+        registry = get_registry()
+        hint = 4 * self.config["num_layers"] * sum(
+            (d_in + d_out) * self.lora_rank for d_in, d_out in target_dims(self.config["d_model"]).values())
+        for name, spec in self.adapters.items():
+            registry.register(name, self._adapter_loader(spec), bytes_hint=hint)
+        return registry
+
+    def _adapter_loader(self, spec: Any):
+        """One adapter's loader: a raw ``{target: (A, B)}`` dict passes
+        through; ``{"seed": n, "alpha": a}`` (or a bare seed) builds
+        deterministic synthetic factors (``alpha`` defaults to the rank),
+        the JAX package's for the same seed."""
+        cfg = dict(self.config)
+        rank = self.lora_rank
+
+        def loader():
+            if isinstance(spec, dict) and any(t in spec for t in LORA_TARGETS):
+                return spec
+            seed = int(spec.get("seed", 0)) if isinstance(spec, dict) else int(spec)
+            alpha = float(spec.get("alpha", rank)) if isinstance(spec, dict) else float(rank)
+            return make_lora_params(seed, num_layers=cfg["num_layers"], d_model=cfg["d_model"], rank=rank,
+                                    alpha=alpha)
+
+        return loader
+
+    @staticmethod
+    def _request_adapter(tags) -> Optional[str]:
+        """The request's adapter: ``meta.tags.adapter`` (where the
+        ``X-Seldon-Adapter`` header lands; an explicit body tag wins);
+        empty or absent is the base model."""
+        return normalize_adapter(tags.get("adapter"))
 
     def _loop(self) -> None:
         if self.device.type == "cuda":
@@ -873,13 +1362,14 @@ class StreamingLM(TPUComponent):
         temperature = float(tags.get("temperature", self.temperature))
         top_k = int(tags.get("top_k", self.top_k))
         request_seed = self._request_seed(tags, meta)
+        adapter = self._request_adapter(tags)
         X = np.atleast_2d(np.asarray(X, np.int32))
         streams = []
         try:
             for i, row in enumerate(X):
                 streams.append(self.engine.submit(
                     row, max_new_tokens=max_new, temperature=temperature, top_k=top_k, eos_id=self.eos_id,
-                    seed=self.seed ^ (request_seed * 1000003 + i),
+                    seed=self.seed ^ (request_seed * 1000003 + i), adapter=adapter,
                 ))
             self._wake.set()
             for stream in streams:
@@ -915,7 +1405,13 @@ class StreamingLM(TPUComponent):
             gauge_metric("paged_streams_completed", s["completed"]),
             gauge_metric("paged_free_pages", s["free_pages"]),
             gauge_metric("paged_kernel_active", s["kernel_active"]),
+            gauge_metric("paged_kv_dtype_int8", s["kv_dtype_int8"]),
+            gauge_metric("paged_adapters_resident", s["adapters_resident"]),
         ]
+        for key in ("adapter_loads", "adapter_hits", "adapter_misses", "adapter_evictions"):
+            out.append(gauge_metric(f"paged_{key}", s[key]))
+        for name, n in self.engine.adapter_stats()["requests"].items():
+            out.append(gauge_metric("paged_adapter_requests", n, tags={"adapter": name}))
         for name, n in kernels.launch_counts().items():
             out.append(gauge_metric("streaminglm_kernel_launches", float(n), tags={"kernel": name}))
         return out
@@ -930,6 +1426,8 @@ class StreamingLM(TPUComponent):
             "dtype": self.dtype_name,
             "load_time_s": self._load_time_s,
             "kernel_active": bool(engine is not None and engine._kernel_active),
+            "kv_dtype": ("int8" if engine._kv_int8 else self.dtype_name) if engine is not None else None,
             "kernel_launches": kernels.launch_counts(),
             "engine": engine.engine_stats() if engine is not None else {},
+            "adapters": engine.adapter_stats() if engine is not None else {},
         }

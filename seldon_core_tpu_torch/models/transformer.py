@@ -33,6 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from seldon_core_tpu_torch.ops.lora import lora_delta
+
 NEG_INF = -1e30  # the JAX package's causal-mask fill (parallel/ring_attention.py)
 LN_EPS = 1e-6    # flax nn.LayerNorm's default epsilon
 
@@ -90,18 +92,34 @@ class TransformerBlock(nn.Module):
         self.mlp_in = Dense(d_model, mlp_ratio * d_model, dtype=dtype)
         self.mlp_out = Dense(mlp_ratio * d_model, d_model, dtype=dtype)
 
-    def qkv_heads(self, x: torch.Tensor):
-        """(B, L, d) -> q, k, v of shape (B, L, heads, head_dim)."""
-        B, L, d = x.shape
-        q, k, v = self.qkv(self.ln0(x)).split(d, dim=-1)
-        shape = (B, L, self.num_heads, d // self.num_heads)
+    def project(self, name: str, inp: torch.Tensor, lora=None, adapter_idx=None) -> torch.Tensor:
+        """The dense layer ``name`` on ``inp``, plus each lane's LoRA delta
+        when ``lora`` (target -> (A, B) of this layer, see ``ops/lora.py``)
+        decorates it: ``dense(inp) + lora_delta(inp, ...)`` cast to the
+        dense output's dtype, as the JAX paged block adds it.  Without
+        ``lora`` this is the dense layer alone."""
+        out = getattr(self, name)(inp)
+        if lora is not None and name in lora:
+            a, b = lora[name]
+            out = out + lora_delta(inp, a, b, adapter_idx).to(out.dtype)
+        return out
+
+    def split_heads(self, qkv: torch.Tensor):
+        """(B, L, 3d) -> q, k, v of shape (B, L, heads, head_dim)."""
+        B, L, d3 = qkv.shape
+        shape = (B, L, self.num_heads, d3 // 3 // self.num_heads)
+        q, k, v = qkv.split(d3 // 3, dim=-1)
         return q.reshape(shape), k.reshape(shape), v.reshape(shape)
 
-    def mlp_tail(self, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+    def qkv_heads(self, x: torch.Tensor):
+        """(B, L, d) -> q, k, v of shape (B, L, heads, head_dim)."""
+        return self.split_heads(self.qkv(self.ln0(x)))
+
+    def mlp_tail(self, x: torch.Tensor, attn: torch.Tensor, lora=None, adapter_idx=None) -> torch.Tensor:
         """Residual attention projection, then the residual MLP."""
-        x = x + self.attn_proj(attn)
-        y = F.gelu(self.mlp_in(self.ln1(x)), approximate="tanh")
-        return x + self.mlp_out(y)
+        x = x + self.project("attn_proj", attn, lora, adapter_idx)
+        y = F.gelu(self.project("mlp_in", self.ln1(x), lora, adapter_idx), approximate="tanh")
+        return x + self.project("mlp_out", y, lora, adapter_idx)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = self.qkv_heads(x)

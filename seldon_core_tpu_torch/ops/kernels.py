@@ -11,7 +11,9 @@
 * ``paged_attention_decode`` — one decode step of attention over a paged
   K/V pool, read through the block table, as the unnormalised flash
   state ``(acc, m, l)``; the ``stream`` kernel (K4) by default, the
-  ``grid`` kernel (K5) under ``SELDON_TPU_PAGED_KERNEL_IMPL=grid``.
+  ``grid`` kernel (K5) under ``SELDON_TPU_PAGED_KERNEL_IMPL=grid``; both
+  read int8 pages with per-page scales (``kv_scales``), and K4 folds the
+  per-lane qkv LoRA delta into the same launch (``lora``).
 
 Every wrapper dispatches on where its input lies and on nothing else: a
 CUDA tensor launches the kernel (building it at first use from
@@ -36,7 +38,9 @@ from seldon_core_tpu_torch.runtime import knobs
 
 _COUNT_LOCK = threading.Lock()
 _LAUNCHES: Dict[str, int] = {"fused_normalize": 0, "flash_attention": 0, "paged_decode_stream": 0,
-                             "paged_decode_grid": 0}
+                             "paged_decode_grid": 0, "paged_decode_stream_int8": 0,
+                             "paged_decode_stream_lora": 0, "paged_decode_stream_int8_lora": 0,
+                             "paged_decode_grid_int8": 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -264,9 +268,10 @@ def _flash_lib() -> ctypes.CDLL:
 # paged attention decode (flash-decoding over a paged K/V pool)
 # ---------------------------------------------------------------------------
 
-# pool dtype -> the kernels' pool_kind code (csrc/paged_decode.cu)
-_POOL_KINDS = {torch.float32: 0, torch.bfloat16: 1}
+# q / pool dtype -> the kernels' q_kind / pool_kind code (csrc/paged_decode.cu)
+_POOL_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 PAGED_MAX_HEAD_DIM = 128  # csrc/paged_decode.cu kMaxHeadDim
+PAGED_MAX_LORA_RANK = 64  # csrc/paged_decode.cu kMaxRank
 
 
 def paged_kernel_impl(heads: int, head_dim: int) -> str:
@@ -274,14 +279,21 @@ def paged_kernel_impl(heads: int, head_dim: int) -> str:
     default) or ``grid`` (K5), from ``SELDON_TPU_PAGED_KERNEL_IMPL``;
     any other value raises.  Both kernels take every ``head_dim`` up to
     128, so the geometry does not change the choice (the JAX package's
-    fallback to ``grid`` for tiny models is a TPU tiling rule)."""
+    fallback to ``grid`` for tiny models is a TPU tiling rule).  Callers
+    that gate the stream-only LoRA fold resolve through here, so they
+    cannot disagree with :func:`paged_attention_decode`."""
     impl = knobs.raw("SELDON_TPU_PAGED_KERNEL_IMPL", "stream")
     if impl not in ("stream", "grid"):
         raise ValueError(f"unknown SELDON_TPU_PAGED_KERNEL_IMPL {impl!r}: use 'stream' or 'grid'")
     return impl
 
 
-def _check_paged_args(q, pk, pv, block_tables, lengths, page_size) -> None:
+def paged_launch_name(impl: str, quantized: bool = False, fold: bool = False) -> str:
+    """The launch counter of one kernel variant, e.g. ``paged_decode_stream_int8_lora``."""
+    return f"paged_decode_{impl}" + ("_int8" if quantized else "") + ("_lora" if fold else "")
+
+
+def _check_paged_args(q, pk, pv, block_tables, lengths, page_size, kv_scales, lora) -> None:
     if q.dim() != 3 or pk.dim() != 4:
         raise ValueError(f"paged_attention_decode takes q (B, h, hd) and pages (num_pages, ps, h, hd), "
                          f"got {tuple(q.shape)} and {tuple(pk.shape)}")
@@ -293,17 +305,46 @@ def _check_paged_args(q, pk, pv, block_tables, lengths, page_size) -> None:
     if block_tables.dim() != 2 or block_tables.shape[0] != B or tuple(lengths.shape) != (B,):
         raise ValueError(f"block_tables {tuple(block_tables.shape)} / lengths {tuple(lengths.shape)} "
                          f"do not match {B} lanes")
+    int8_pages = pk.dtype == torch.int8 or pv.dtype == torch.int8
+    if int8_pages != (kv_scales is not None):
+        raise ValueError("int8 pages take kv_scales=(sk, sv), and only int8 pages do")
+    if kv_scales is not None:
+        for name, s in zip(("sk", "sv"), kv_scales):
+            if tuple(s.shape) != (pk.shape[0],):
+                raise ValueError(f"{name} must have shape ({pk.shape[0]},) (one scale per page), "
+                                 f"got {tuple(s.shape)}")
+    if lora is not None:
+        x, a, b, idx, _q_scale = lora
+        D = h * hd
+        if tuple(x.shape) != (B, D) or a.dim() != 3 or tuple(a.shape[1:2]) != (D,):
+            raise ValueError(f"lora x must be ({B}, {D}) and A (slots, {D}, r), got {tuple(x.shape)} and "
+                             f"{tuple(a.shape)}")
+        slots, _, rank = a.shape
+        if tuple(b.shape) != (slots, rank, 3 * D) or tuple(idx.shape) != (B,):
+            raise ValueError(f"lora B must be ({slots}, {rank}, {3 * D}) and adapter_idx ({B},), got "
+                             f"{tuple(b.shape)} and {tuple(idx.shape)}")
 
 
 def paged_attention_decode_reference(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
                                      block_tables: torch.Tensor, lengths: torch.Tensor, *,
-                                     page_size: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                                     page_size: int, kv_scales=None, lora=None):
     """The plain PyTorch version, lane by lane in float32: lane ``b``
     attends over positions ``[0, min(len_b, P * ps))`` of its pages;
-    a lane of length 0 gives ``acc = 0, m = -inf, l = 0``."""
-    _check_paged_args(q, pk, pv, block_tables, lengths, page_size)
+    a lane of length 0 gives ``acc = 0, m = -inf, l = 0``.  int8 pages
+    enter as ``float(page) * scale[page]``.  With ``lora`` the lane's
+    qkv delta ``(x @ A[slot]) @ B[slot]`` is computed first, q becomes
+    ``q + q_scale * delta[:, :D]``, and the delta is the fourth value."""
+    _check_paged_args(q, pk, pv, block_tables, lengths, page_size, kv_scales, lora)
     B, h, hd = q.shape
     cap = block_tables.shape[1] * page_size
+    qf = q.float()
+    delta = None
+    if lora is not None:
+        x, a, b, idx, q_scale = lora
+        idx = idx.long()
+        t = torch.einsum("bd,bdr->br", x.float(), a[idx].float())
+        delta = torch.einsum("br,bro->bo", t, b[idx].float())
+        qf = qf + q_scale * delta[:, : h * hd].reshape(B, h, hd)
     acc = torch.zeros((B, h, hd), dtype=torch.float32, device=q.device)
     m = torch.full((B, h), float("-inf"), dtype=torch.float32, device=q.device)
     l = torch.zeros((B, h), dtype=torch.float32, device=q.device)
@@ -312,42 +353,65 @@ def paged_attention_decode_reference(q: torch.Tensor, pk: torch.Tensor, pv: torc
         if n == 0:
             continue
         pages = block_tables[b, : -(-n // page_size)].long()
-        k = pk[pages].reshape(-1, h, hd)[:n].float()
-        v = pv[pages].reshape(-1, h, hd)[:n].float()
-        s = torch.einsum("thd,hd->ht", k, q[b].float())
+        k, v = pk[pages].float(), pv[pages].float()
+        if kv_scales is not None:
+            k = k * kv_scales[0][pages].float()[:, None, None, None]
+            v = v * kv_scales[1][pages].float()[:, None, None, None]
+        k = k.reshape(-1, h, hd)[:n]
+        v = v.reshape(-1, h, hd)[:n]
+        s = torch.einsum("thd,hd->ht", k, qf[b])
         m[b] = s.max(dim=1).values
         w = torch.exp(s - m[b][:, None])
         l[b] = w.sum(dim=1)
         acc[b] = torch.einsum("ht,thd->hd", w, v)
-    return acc, m, l
+    return (acc, m, l) if lora is None else (acc, m, l, delta)
 
 
 def paged_attention_decode(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
                            block_tables: torch.Tensor, lengths: torch.Tensor, *,
-                           page_size: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                           page_size: int, kv_scales=None, lora=None):
     """Unnormalised flash state of decode attention over a paged pool.
 
-    ``q`` (B, h, hd), already scaled; ``pk``/``pv`` (num_pages, ps, h, hd)
-    in float32 or bfloat16, the same dtype as ``q``; ``block_tables``
-    (B, P) int32 page ids; ``lengths`` (B,) int32 cached tokens.  Returns
-    float32 ``acc`` (B, h, hd), ``m`` (B, h), ``l`` (B, h): merge with
-    the current token's term by the flash rule.  Lane ``b`` reads its
-    first ``min(len_b, P * ps)`` positions, so the page loop is bounded
-    by the lane's own length.
+    ``q`` (B, h, hd), already scaled, float32 or bfloat16; ``pk``/``pv``
+    (num_pages, ps, h, hd) in q's dtype, or int8 with ``kv_scales=(sk,
+    sv)``, this layer's (num_pages,) float32 scale per page for K and for
+    V; ``block_tables`` (B, P) int32 page ids; ``lengths`` (B,) int32
+    cached tokens.  Returns float32 ``acc`` (B, h, hd), ``m`` (B, h),
+    ``l`` (B, h): merge with the current token's term by the flash rule.
+    Lane ``b`` reads its first ``min(len_b, P * ps)`` positions, so the
+    page loop is bounded by the lane's own length.
+
+    ``lora=(x, a, b, adapter_idx, q_scale)`` (stream impl only) folds the
+    per-lane qkv LoRA delta into the same launch: ``x`` (B, D) the block
+    inputs, ``a`` (slots, D, r) and ``b`` (slots, r, 3D) float32 — the
+    adapter pool's qkv factors of this layer in the pool's own layout —
+    ``adapter_idx`` (B,) int32 slot ids (slot 0 is the zero adapter) and
+    ``q_scale`` the ``1/sqrt(hd)`` already applied to q.  The scores use
+    ``q + q_scale * delta[:, :D]``, and the return grows a fourth value,
+    the raw (B, 3D) float32 delta, for the caller's self-term and pool
+    write.  ``lora`` with the grid impl raises, as in the JAX package.
 
     On a CUDA tensor this launches K4 (``stream``: one block per lane and
     head) or K5 (``grid``: one block per lane and page, then a merge
-    launch; both count), as ``paged_kernel_impl`` says; on a CPU tensor
+    launch; both count), as ``paged_kernel_impl`` says, each counted
+    under its variant's name (:func:`paged_launch_name`); on a CPU tensor
     it is :func:`paged_attention_decode_reference`.
     """
-    if not q.is_cuda:
-        return paged_attention_decode_reference(q, pk, pv, block_tables, lengths, page_size=page_size)
-    _check_paged_args(q, pk, pv, block_tables, lengths, page_size)
+    _check_paged_args(q, pk, pv, block_tables, lengths, page_size, kv_scales, lora)
     B, h, hd = q.shape
-    P = block_tables.shape[1]
     impl = paged_kernel_impl(h, hd)
-    if q.dtype not in _POOL_KINDS or pk.dtype != q.dtype or pv.dtype != q.dtype:
-        raise TypeError(f"paged_attention_decode takes float32 or bfloat16 q and pages of one dtype, "
+    if lora is not None and impl != "stream":
+        raise ValueError(f"paged_attention_decode: the in-kernel LoRA fold is a stream-impl feature but "
+                         f"paged_kernel_impl resolved to {impl!r}; callers must gate the fold on "
+                         f"paged_kernel_impl(heads, head_dim)")
+    if not q.is_cuda:
+        return paged_attention_decode_reference(q, pk, pv, block_tables, lengths, page_size=page_size,
+                                                kv_scales=kv_scales, lora=lora)
+    P = block_tables.shape[1]
+    quantized = kv_scales is not None
+    if q.dtype not in (torch.float32, torch.bfloat16) or pk.dtype != pv.dtype or (
+            pk.dtype != (torch.int8 if quantized else q.dtype)):
+        raise TypeError(f"paged_attention_decode takes float32 or bfloat16 q with pages of q's dtype or int8, "
                         f"got {q.dtype}, {pk.dtype}, {pv.dtype}")
     if hd > PAGED_MAX_HEAD_DIM:
         raise ValueError(f"paged_attention_decode supports head_dim <= {PAGED_MAX_HEAD_DIM}, got {hd}")
@@ -355,9 +419,22 @@ def paged_attention_decode(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
         raise TypeError("block_tables and lengths must be int32")
     if not (pk.is_contiguous() and pv.is_contiguous()):
         raise ValueError("paged_attention_decode needs contiguous pages")
-    tensors = (pk, pv, block_tables, lengths)
-    if any(t.device != q.device for t in tensors):
-        raise ValueError("q, pages, block_tables and lengths must lie on one device")
+    extra = []
+    if quantized:
+        sk, sv = (s.to(torch.float32).contiguous() for s in kv_scales)
+        extra += [sk, sv]
+    fold = lora is not None
+    if fold:
+        x, a, b_f, idx, q_scale = lora
+        if a.dtype != torch.float32 or b_f.dtype != torch.float32 or not (a.is_contiguous() and b_f.is_contiguous()):
+            raise TypeError("the LoRA fold takes contiguous float32 factors A (slots, D, r) and B (slots, r, 3D)")
+        if not 1 <= a.shape[2] <= PAGED_MAX_LORA_RANK:
+            raise ValueError(f"the LoRA fold supports rank 1..{PAGED_MAX_LORA_RANK}, got {a.shape[2]}")
+        x = x.to(torch.float32).contiguous()
+        idx = idx.to(torch.int32).contiguous()
+        extra += [x, a, b_f, idx]
+    if any(t.device != q.device for t in (pk, pv, block_tables, lengths, *extra)):
+        raise ValueError("q, pages, block_tables, lengths, scales and LoRA inputs must lie on one device")
     lib = _paged_lib()
     q = q.contiguous()
     block_tables = block_tables.contiguous()
@@ -366,29 +443,44 @@ def paged_attention_decode(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
     acc, m, l = torch.empty((B, h, hd), **f32), torch.empty((B, h), **f32), torch.empty((B, h), **f32)
     head = (q.data_ptr(), pk.data_ptr(), pv.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
             acc.data_ptr(), m.data_ptr(), l.data_ptr())
+    scales = (sk.data_ptr(), sv.data_ptr()) if quantized else (None, None)
+    kinds = (_POOL_KINDS[q.dtype], _POOL_KINDS[pk.dtype])
+    delta = None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if impl == "stream":
-            err = lib.paged_decode_stream(*head, B, h, hd, P, page_size, _POOL_KINDS[q.dtype], stream)
+            if fold:
+                delta = torch.empty((B, 3 * h * hd), **f32)
+                lora_ptrs = (x.data_ptr(), a.data_ptr(), b_f.data_ptr(), idx.data_ptr(), delta.data_ptr())
+                rank, slots, q_scale = a.shape[2], a.shape[0], float(q_scale)
+            else:
+                lora_ptrs, rank, slots, q_scale = (None,) * 5, 0, 0, 0.0
+            err = lib.paged_decode_stream(*head, *scales, *lora_ptrs, B, h, hd, P, page_size, *kinds, rank, slots,
+                                          q_scale, stream)
             launches = 1
         else:
             part_acc = torch.empty((B, P, h, hd), **f32)
             part_m, part_l = torch.empty((B, P, h), **f32), torch.empty((B, P, h), **f32)
-            err = lib.paged_decode_grid(*head, part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-                                        B, h, hd, P, page_size, _POOL_KINDS[q.dtype], stream)
+            err = lib.paged_decode_grid(*head, part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), *scales,
+                                        B, h, hd, P, page_size, *kinds, stream)
             launches = 2  # the per-page partials, then the merge
+    name = paged_launch_name(impl, quantized, fold)
     if err != 0:
-        raise KernelLaunchError(f"paged_decode_{impl} launch failed: cudaError {err}")
-    _count(f"paged_decode_{impl}", launches)
-    return acc, m, l
+        raise KernelLaunchError(f"{name} launch failed: cudaError {err}")
+    _count(name, launches)
+    return (acc, m, l) if delta is None else (acc, m, l, delta)
 
 
 def _paged_lib() -> ctypes.CDLL:
     lib = _build.load("paged_decode")
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name, n_ptrs in (("paged_decode_stream", 8), ("paged_decode_grid", 11)):
+    signatures = {
+        "paged_decode_stream": [p] * 15 + [i] * 9 + [ctypes.c_float, p],
+        "paged_decode_grid": [p] * 13 + [i] * 7 + [p],
+    }
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         if fn.restype is not ctypes.c_int or not fn.argtypes:
-            fn.argtypes = [p] * n_ptrs + [i] * 6 + [p]
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib

@@ -19,7 +19,12 @@ KNOBS: Dict[str, str] = {
     ),
     "SELDON_TPU_PAGED_KERNEL_IMPL": "paged decode kernel: 'stream' (K4, default) or 'grid' (K5)",
     "SELDON_TPU_CHUNK_IMPL": "decode chunk: 'pool' (the only one ported; unset means pool), 'ring' raises",
-    "SELDON_TPU_KV_DTYPE": "KV pool dtype: 'bf16' (default: the engine dtype, natively), 'int8' raises",
+    "SELDON_TPU_KV_DTYPE": (
+        "KV pool dtype: 'bf16' (default: the engine dtype, natively) or 'int8' (int8 pages with one float32 "
+        "scale per page for K and for V: half the pool bytes; the pool chunk only)"
+    ),
+    "SELDON_TPU_MAX_ADAPTERS": "LoRA adapter pool slots of a PagedEngine when max_adapters is 0 (unset/0: adapters off)",
+    "SELDON_TPU_WEIGHT_BUDGET_GIB": "weight registry budget in GiB for named weight sets (unset/0: no budget)",
     "SELDON_TPU_PREFIX_CACHE": "page-granular prefix cache: '1' raises (not ported); off by default here",
 }
 

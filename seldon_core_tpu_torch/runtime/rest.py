@@ -29,6 +29,7 @@ from seldon_core_tpu_torch.runtime import dispatch
 from seldon_core_tpu_torch.runtime.component import MicroserviceError
 from seldon_core_tpu_torch.runtime.executor_pool import run_dispatch
 from seldon_core_tpu_torch.runtime.message import InternalMessage
+from seldon_core_tpu_torch.utils.deadlines import extract_adapter
 
 logger = logging.getLogger(__name__)
 
@@ -84,6 +85,11 @@ def build_app(user_model: Any) -> web.Application:
     async def predict_handler(request: web.Request) -> web.Response:
         try:
             msg = InternalMessage.from_json(await _request_body(request))
+            # X-Seldon-Adapter selects the LoRA weight set; the component
+            # reads meta.tags.adapter, and an explicit body tag wins
+            adapter = extract_adapter(request.headers)
+            if adapter and "adapter" not in msg.meta.tags:
+                msg.meta.tags["adapter"] = adapter
             out = await dispatch.predict_async(user_model, msg)
             return web.json_response(out.to_json())
         except Exception as e:  # noqa: BLE001 — every error must map to a Status

@@ -1,5 +1,6 @@
-"""The PyTorch port on a CUDA card: kernels (K1, K3, K4, K5) against their
-plain versions, and the served paths through the kernels.
+"""The PyTorch port on a CUDA card: kernels (K1, K3, K4, K5, and the int8
+and LoRA-fold variants of K4 / K5) against their plain versions, and the
+served paths through the kernels.
 
 Every test here needs the card and skips without one (the decision is
 made inside each test, never at import).  The module imports no JAX, so
@@ -110,6 +111,103 @@ def test_paged_decode_matches_plain_version(impl, dtype, case, monkeypatch):
         assert torch.equal(g[special], r[special])
         fin = ~special
         assert ((g[fin] - r[fin]).abs().max() / r[fin].abs().max()).item() <= PAGED_REL_TOL
+
+
+# the int8 and LoRA-fold variants: (impl, int8 pages, fold)
+PAGED_VARIANTS = [("stream", True, False), ("grid", True, False), ("stream", False, True), ("stream", True, True)]
+LORA_SLOTS, LORA_RANK = 3, 8
+
+
+def _variant_inputs(B, h, hd, ps, P, lengths, dtype, quantized, seed):
+    """q, pages (int8 with positive scales, or q's dtype), tables, lengths,
+    and the fold's x / A / B / slot ids (lanes over slots 0, 1, 2)."""
+    rng = np.random.default_rng(seed)
+    num_pages, D = B * P + 1, h * hd
+    if quantized:
+        pages = [torch.from_numpy(rng.integers(-127, 128, (num_pages, ps, h, hd), dtype=np.int8)).cuda()
+                 for _ in range(2)]
+        scales = tuple(torch.from_numpy(rng.uniform(0.001, 0.05, num_pages).astype(np.float32)).cuda()
+                       for _ in range(2))
+    else:
+        pages = [torch.from_numpy(rng.standard_normal((num_pages, ps, h, hd), dtype=np.float32)).to(dtype).cuda()
+                 for _ in range(2)]
+        scales = None
+    q = torch.from_numpy(rng.standard_normal((B, h, hd), dtype=np.float32) * 0.125).to(dtype).cuda()
+    tables = torch.from_numpy(rng.permutation(np.arange(1, num_pages)).reshape(B, P).astype(np.int32)).cuda()
+    a = (rng.standard_normal((LORA_SLOTS, D, LORA_RANK), dtype=np.float32) / np.float32(np.sqrt(D)))
+    b = (rng.standard_normal((LORA_SLOTS, LORA_RANK, 3 * D), dtype=np.float32) / np.float32(np.sqrt(LORA_RANK)))
+    a[0] = b[0] = 0
+    lora = (torch.from_numpy(rng.standard_normal((B, D), dtype=np.float32)).cuda(), torch.from_numpy(a).cuda(),
+            torch.from_numpy(b).cuda(), torch.tensor([i % LORA_SLOTS for i in range(B)], dtype=torch.int32).cuda(),
+            hd ** -0.5)
+    return [q, *pages, tables, torch.tensor(lengths, dtype=torch.int32).cuda()], scales, lora
+
+
+@pytest.mark.parametrize("case", range(len(PAGED_CASES)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("impl,quantized,fold", PAGED_VARIANTS,
+                         ids=[kernels.paged_launch_name(*v) for v in PAGED_VARIANTS])
+def test_paged_decode_variants_match_plain_version(impl, quantized, fold, dtype, case, monkeypatch):
+    _need_card()
+    monkeypatch.setenv("SELDON_TPU_PAGED_KERNEL_IMPL", impl)
+    B, h, hd, ps, P, lengths = PAGED_CASES[case]
+    args, scales, lora = _variant_inputs(B, h, hd, ps, P, lengths, dtype, quantized, seed=10 + case)
+    kw = dict(page_size=ps, kv_scales=scales, lora=lora if fold else None)
+    name = kernels.paged_launch_name(impl, quantized, fold)
+    before = kernels.launch_counts()[name]
+    got = kernels.paged_attention_decode(*args, **kw)
+    ref = kernels.paged_attention_decode_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + (1 if impl == "stream" else 2)
+    assert len(got) == len(ref) == (4 if fold else 3)
+    for g, r in zip(got[:3], ref[:3]):
+        assert g.dtype == torch.float32 and g.shape == r.shape and not torch.isnan(g).any()
+        special = torch.isinf(r) | (r == 0)
+        assert torch.equal(g[special], r[special])
+        fin = ~special
+        assert ((g[fin] - r[fin]).abs().max() / r[fin].abs().max()).item() <= PAGED_REL_TOL
+    if fold:
+        delta, ref_delta, idx = got[3], ref[3], lora[3]
+        assert bool((delta[idx == 0] == 0).all())
+        assert ((delta - ref_delta).abs().max() / ref_delta.abs().max()).item() <= 1e-5
+
+
+def test_int8_adapter_streaminglm_round_trip(monkeypatch):
+    """StreamingLM on the card with an int8 pool and two adapters: every
+    decode step of every layer launches K4-int8+LoRA, and each served row
+    equals an in-process engine of the same weights, adapters and pool."""
+    _need_card()
+    from seldon_core_tpu_torch.models.paged import StreamingLM
+    from seldon_core_tpu_torch.models.registry import WeightRegistry
+    from seldon_core_tpu_torch.ops.lora import make_lora_params
+
+    monkeypatch.setenv("SELDON_TPU_KV_DTYPE", "int8")
+    monkeypatch.delenv("SELDON_TPU_PAGED_KERNEL", raising=False)
+    monkeypatch.setenv("SELDON_TPU_PAGED_KERNEL_IMPL", "stream")
+    cfg = dict(vocab_size=128, d_model=64, num_layers=2, num_heads=4, max_len=128)
+    engine = dict(page_size=16, max_slots=4, steps_per_call=4)
+    lm = StreamingLM(max_adapters=2, lora_rank=4, adapters={"cuda-a1": {"seed": 1}, "cuda-a2": {"seed": 2}},
+                     max_new_tokens=8, **cfg, **engine)
+    lm.load()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 128, n) for n in (5, 17, 40)]
+    try:
+        assert lm.engine._kv_int8 and lm.engine._kernel_active
+        kernels.reset_launch_counts()
+        chunks0 = lm.engine.engine_stats()["chunks"]
+        served = [lm.predict(np.asarray([p]), [], meta={"tags": {"adapter": a} if a else {}})[0]
+                  for p, a in zip(prompts, (None, "cuda-a1", "cuda-a2"))]
+        steps = (lm.engine.engine_stats()["chunks"] - chunks0) * engine["steps_per_call"]
+        assert kernels.launch_counts()["paged_decode_stream_int8_lora"] == cfg["num_layers"] * steps
+    finally:
+        lm.unload()
+    reg = WeightRegistry()
+    for name, seed in (("cuda-a1", 1), ("cuda-a2", 2)):
+        reg.register(name, (lambda s=seed: make_lora_params(s, num_layers=2, d_model=64, rank=4, alpha=4.0)))
+    eng = PagedEngine(load_lm_params("", cfg, 0, torch.device("cuda")), dtype="bfloat16", device="cuda",
+                      max_adapters=2, lora_rank=4, weight_registry=reg, **cfg, **engine)
+    for p, a, row in zip(prompts, (None, "cuda-a1", "cuda-a2"), served):
+        np.testing.assert_array_equal(eng.generate(p, max_new_tokens=8, adapter=a), row)
 
 
 @pytest.mark.parametrize("impl", ["stream", "grid"])

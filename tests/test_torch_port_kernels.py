@@ -87,7 +87,9 @@ class TestFusedNormalizeParity:
     def test_launch_counts_reset(self):
         kernels.reset_launch_counts()
         assert kernels.launch_counts() == {"fused_normalize": 0, "flash_attention": 0, "paged_decode_stream": 0,
-                                          "paged_decode_grid": 0}
+                                          "paged_decode_grid": 0, "paged_decode_stream_int8": 0,
+                                          "paged_decode_stream_lora": 0, "paged_decode_stream_int8_lora": 0,
+                                          "paged_decode_grid_int8": 0}
 
     def test_launch_count_loses_no_update_under_threads(self):
         # the batcher's collector and the warmup may count from different

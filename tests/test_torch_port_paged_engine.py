@@ -9,7 +9,7 @@ queue), ten new tokens.  Greedy tokens must be equal, exactly.
 
 The port's own contract: eos padding, cancel, the two lanes agreeing,
 ``top_k=1`` equal to greedy, a seed reproducing its sample, and every
-option of the JAX engine that this slice does not run raising.
+option of the JAX engine that the port does not run yet raising.
 """
 
 import sys
@@ -213,7 +213,6 @@ UNPORTED = [
     ("chunk_token_budget", dict(chunk_token_budget=64)),
     ("max_steps_per_call", dict(max_steps_per_call=16)),
     ("speculative", dict(speculative={"draft": "ngram", "draft_k": 2})),
-    ("max_adapters", dict(max_adapters=2)),
     ("quantize", dict(quantize="int8")),
     ("precision", dict(precision="w8a8")),
     ("tp/dp/mesh", dict(tp=2)),
@@ -231,8 +230,7 @@ def test_unported_options_raise_naming_the_slice(params, option, kw):
         StreamingLM(device="cpu", **CFG, **kw)
 
 
-@pytest.mark.parametrize("env,value", [("SELDON_TPU_KV_DTYPE", "int8"), ("SELDON_TPU_CHUNK_IMPL", "ring"),
-                                       ("SELDON_TPU_PREFIX_CACHE", "1")])
+@pytest.mark.parametrize("env,value", [("SELDON_TPU_CHUNK_IMPL", "ring"), ("SELDON_TPU_PREFIX_CACHE", "1")])
 def test_unported_knobs_raise(params, monkeypatch, env, value):
     monkeypatch.setenv(env, value)
     with pytest.raises(MicroserviceError, match="ROADMAP.md"):
@@ -250,8 +248,8 @@ def test_component_refusals():
     for call in (lambda: lm.predict_stream(np.zeros((1, 4))), lambda: lm.drain()):
         with pytest.raises(MicroserviceError, match="ROADMAP.md"):
             call()
-    with pytest.raises(MicroserviceError, match="adapters"):
-        StreamingLM(device="cpu", adapters={"a": {"seed": 1}}, **CFG)
+    with pytest.raises(MicroserviceError, match="item 5"):
+        StreamingLM(device="cpu", adapters={"a": {"uri": "file:///a.msgpack"}}, **CFG)
     with pytest.raises(MicroserviceError, match="model_uri") as err:
         StreamingLM(device="cpu", model_uri="file:///x.msgpack", **CFG).load()
     assert "item 5" in str(err.value)
