@@ -33,6 +33,16 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    step of 2**-8 of the largest |plain|; no NaN.  Kernel, plain and
    ``F.scaled_dot_product_attention`` times (median of 100, L2 flushed)
    beside the bound, at the serving and the causal shape;
+3d. the int8-weight matmul K2 (``int8_matmul``) against its plain
+   version on the card (TF32 off): (6304, 768) @ (768, 3072) bf16 (ViT-B/16's
+   MLP fc1 at batch 32), (32, 2048) @ (2048, 1000) bf16 (the ResNet-50
+   head at batch 32), (16, 512) @ (512, 1536) f32 (the LM's qkv at 16
+   lanes), ragged (5, 16) @ (16, 10) and (100, 300) @ (300, 70) f32;
+   float32 within 1e-5 of the largest |plain|, bf16 within one step as
+   3c, no NaN; kernel, plain and ``torch.matmul(x, w.to(x.dtype)) * scale``
+   times (median of 100, 4 GB L2 flush) beside the bound at the first
+   three; then K2's path, an ``Int8Dense`` forward at the fc1 shape with
+   the launch counts set to 0 just before it;
 4. the main path: the microservice CLI serving ResNet-50 (224x224x3,
    1000 classes, bf16, normalize=true, max_batch_size=32, seeded random
    weights with live residual branches) over REST as a subprocess; uint8
@@ -44,7 +54,7 @@ JAX or of the JAX package.  Phases, each of which fails the run:
 5. whole-path numerics in-process: bf16 with the kernels against f32
    with the plain versions (TF32 off), relative L2 error <= 5e-2 and
    per-row cosine similarity >= 0.99;
-6. numbers: p50/p99 latency of 1000 sequential single-image requests,
+6. numbers: p50/p99 latency of 600 sequential single-image requests,
    img/s of batch-32 requests from 4 clients over a 10 s window, device
    forward time, and a profiler breakdown;
 7. the generation path: the CLI serving ``StreamingLM`` (vocab 16384,
@@ -56,7 +66,7 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    weights, each prompt alone, bit for bit; at least 75% of the
    concurrent rows equal theirs too; a repeated request is identical;
    the server's K4 launches grow by at least 8 layers x the decode
-   steps it took; numbers: REST p50/p99 over 200 sequential requests
+   steps it took; numbers: REST p50/p99 over 120 sequential requests
    (prompt 128, 32 new) and REST tokens/s of 16 closed-loop clients
    over 10 s;
 8. engine numerics in-process: in f32 the kernel lane, the gather lane
@@ -102,7 +112,7 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    concurrent rows equal theirs, adapter rows differ from the base row of
    the same prompt, a body tag wins over the header, and the server's
    K4-int8+LoRA launches grow by at least 8 layers x its decode steps;
-   numbers: REST p50/p99 over 100 sequential requests (prompt 128, 32 new)
+   numbers: REST p50/p99 over 60 sequential requests (prompt 128, 32 new)
    and tokens/s of 16 closed-loop clients over 10 s;
    (c) in-process at the same config: in f32 the int8 kernel lane, the
    int8 gather lane and the int8 grid kernel, and (native pool, adapters)
@@ -114,7 +124,20 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    an agreement of at least 0.75; in bf16 with int8 + adapters, 16 prompts
    in one wave (mixed-adapter prefill groups) give each prompt's tokens
    alone, all 16; decode tokens/s with int8 + adapters and a profile of
-   one decode chunk (the variant's share, the idle share).
+   one decode chunk (the variant's share, the idle share);
+12. the int8 precision lanes: the CLI serving ResNet-50 in the phase 4
+   configuration with ``precision`` ``int8w`` and then ``w8a8`` over REST;
+   ``/health/status`` must show 54 int8 kernels and 52 calibrated
+   activation scales (w8a8; 0 for int8w); a batch of 8 and 8 concurrent
+   single images each within relative L2 2e-2 of an in-process server of
+   the same lane; every batch one ``fused_normalize`` and, in w8a8, 52
+   integer GEMMs; each lane against the bf16 lane on the same weights
+   (32 images): int8w relative L2 <= 5e-2 and per-row cosine >= 0.99,
+   w8a8 top-1 agreement >= 0.8 (its cosine reported); one w8a8 conv's
+   int32 accumulator equal to the float64 product of the same integers;
+   numbers: REST p50/p99 of 300 sequential single images, img/s of
+   batch-32 requests from 4 clients over 10 s, the device time by group
+   of an in-process forward at batch 32, and the weight bytes on the card.
 
 Output: the ``nvidia-smi`` line, then one ``{"kernels": [...]}`` line,
 then the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -150,7 +173,7 @@ MODEL_PARAMS = [
 IMG = (224, 224, 3)
 NUM_CLASSES = 1000
 SEED = 0
-LATENCY_REQUESTS = 1000         # p99 rests on the 10 slowest
+LATENCY_REQUESTS = 600          # p99 rests on the 6 slowest
 THROUGHPUT_CLIENTS = 4
 THROUGHPUT_SECONDS = 10.0
 # tolerances, stated before any run
@@ -198,7 +221,7 @@ PAGED_CASES = [  # (lanes, heads, head_dim, page_size, table pages, lengths)
 ]
 PAGED_REL_TOL = 1e-4            # largest |kernel - plain| over finite entries / largest |plain|
 GEN_MIN_IDENTICAL_SHARE = 0.75  # concurrent served rows equal to the in-process rows
-GEN_LATENCY_REQUESTS = 200
+GEN_LATENCY_REQUESTS = 120
 GEN_CLIENTS = 16
 GEN_SECONDS = 10.0
 F32_PEAK_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores (data sheet)
@@ -211,7 +234,7 @@ Q_LM_PARAMS = LM_PARAMS + [
     {"name": "lora_rank", "value": str(LORA_RANK), "type": "INT"},
     {"name": "adapters", "value": json.dumps(LM_ADAPTERS), "type": "JSON"},
 ]
-Q_LATENCY_REQUESTS = 100
+Q_LATENCY_REQUESTS = 60
 # (impl, int8 pages, fold) -> the JAX kernel it replaces
 PAGED_VARIANTS = [("stream", True, False), ("grid", True, False), ("stream", False, True), ("stream", True, True)]
 VARIANT_REPLACES = {
@@ -223,6 +246,25 @@ VARIANT_REPLACES = {
 LORA_SLOTS = 3                  # the zero adapter and two adapters
 DELTA_REL_TOL = 1e-5            # largest |kernel delta - plain| / largest |plain delta|
 INT8_MIN_AGREEMENT = 0.75       # int8 vs native greedy tokens (tests/test_paged_kernel_lane.py's bound)
+# K2 (int8_matmul): (M, K, N, x dtype, what the shape is)
+K2_CASES = [
+    (6304, 768, 3072, "bfloat16", "ViT-B/16 MLP fc1 at batch 32"),
+    (32, 2048, 1000, "bfloat16", "ResNet-50 head at batch 32"),
+    (16, 512, 1536, "float32", "the LM's qkv at 16 lanes"),
+    (5, 16, 10, "float32", "ragged"),
+    (100, 300, 70, "float32", "ragged"),
+]
+K2_TIMED = 3                    # the first three cases are timed
+K2_F32_REL_TOL = 1e-5           # largest |kernel - plain| / largest |plain|
+K2_FLUSH_MB = 4096              # the L2 flush before each timed K2 launch
+# the precision lanes: the phase 4 configuration with precision=...
+PRECISIONS = ("int8w", "w8a8")
+PRECISION_KERNELS = 54          # ResNet-50 kernels the surgery quantises (JAX's rule: the stem too)
+W8A8_LAYERS = 52                # block and shortcut convs of ResNet-50: one integer GEMM each a forward
+PRECISION_LATENCY_REQUESTS = 300
+INT8W_VS_BF16_REL_L2 = 5e-2     # int8w lane vs the bf16 lane on the same weights
+INT8W_VS_BF16_MIN_COS = 0.99
+W8A8_MIN_TOP1 = 0.8             # w8a8 vs bf16 top-1 agreement (tests/test_w8a8.py's bar)
 
 
 class SmokeFailure(RuntimeError):
@@ -1595,6 +1637,264 @@ def quantized_engine_numerics(torch, np, kernels, PagedEngine, load_lm_params, W
                       "wave_equals_alone_rows": wave_same}
 
 
+# ---------------------------------------------------------------- phase 3d
+
+def k2_bound(m, k, n, x_elt, out_elt, peak_flops, mem_bytes_per_s):
+    """Least time for one int8_matmul: x, w (int8), scale read once and
+    the output written once over the memory rate, against 2*M*N*K
+    operations over the peak rate of x's type; -> (ms, bound_by, bytes,
+    flops)."""
+    nbytes = m * k * x_elt + k * n + n * 4 + m * n * out_elt
+    flops = 2 * m * n * k
+    t_bytes, t_ops = nbytes / mem_bytes_per_s, flops / peak_flops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def int8_matmul_checks(torch, np, kernels, mem_bytes_per_s, card):
+    """K2 against its plain version at the cases' shapes; kernel, plain
+    and library times at the first three; then K2's path, one Int8Dense
+    forward at the fc1 shape with the counts set to 0 just before."""
+    worst = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    timings = {}
+    rng = np.random.default_rng(SEED + 70)
+    with no_tf32(torch):
+        for case, (m, k, n, dt, what) in enumerate(K2_CASES):
+            dtype = getattr(torch, dt)
+            x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(dtype).cuda()
+            w_q, scale = (torch.from_numpy(a).cuda()
+                          for a in kernels.quantize_weights(rng.standard_normal((k, n), dtype=np.float32)))
+            got = kernels.int8_matmul(x, w_q, scale)
+            ref = kernels.int8_matmul_reference(x, w_q, scale)
+            torch.cuda.synchronize()
+            label = f"int8_matmul ({m}, {k}) @ ({k}, {n}) {dt} [{what}]"
+            check(got.shape == ref.shape and got.dtype == dtype, f"{label}: bad output {tuple(got.shape)}")
+            g, r = got.float(), ref.float()
+            check(not bool(torch.isnan(g).any()), f"{label}: NaN in the kernel's output")
+            err = (g - r).abs()
+            peak = r.abs().max().item()
+            rel = err.max().item() / peak
+            if dt == "float32":
+                ok, limit = rel <= K2_F32_REL_TOL, f"{K2_F32_REL_TOL} of max |plain|"
+            else:
+                step = FLASH_STEP[dt]
+                ok = bool((err <= step * r.abs() + step * 2.0 ** -8 * peak).all())
+                limit = f"one {dt} step, rtol {step}, floor {step * 2.0 ** -8:.3e} x max |plain|"
+            log(f"{label}: max_abs_err={err.max().item():.3e} max|plain|={peak:.3e} rel={rel:.3e} ({limit})")
+            check(ok, f"{label} differs from its plain version")
+            worst["max_abs_err"] = max(worst["max_abs_err"], err.max().item())
+            worst["max_rel_err"] = max(worst["max_rel_err"], rel)
+            if case >= K2_TIMED:
+                continue
+            row = {
+                "ms": time_cuda(torch, lambda: kernels.int8_matmul(x, w_q, scale), flush_mb=K2_FLUSH_MB),
+                "plain_ms": time_cuda(torch, lambda: kernels.int8_matmul_reference(x, w_q, scale),
+                                      flush_mb=K2_FLUSH_MB),
+                "library_ms": time_cuda(torch, lambda: torch.matmul(x, w_q.to(x.dtype)) * scale,
+                                        flush_mb=K2_FLUSH_MB),
+                "shape": [m, k, n], "dtype": dt, "what": what,
+            }
+            peak_flops = BF16_PEAK_FLOPS if dt != "float32" else F32_PEAK_FLOPS
+            row["bound_ms"], row["bound_by"], row["bytes"], row["flops"] = k2_bound(
+                m, k, n, x.element_size(), x.element_size(), peak_flops, mem_bytes_per_s)
+            timings[case] = row
+            log(f"{label}: kernel {row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} us, "
+                f"torch.matmul(x, w.to(x.dtype)) * scale {row['library_ms'] * 1e3:.2f} us, bound "
+                f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: {row['bytes']} bytes, {row['flops']} flops; "
+                f"{row['bound_ms'] / row['ms'] * 100:.1f}% of the roofline) [{card}]")
+
+        # K2's path: Int8Dense, the JAX package's public entry point, at the fc1 shape
+        m, k, n = K2_CASES[0][:3]
+        kernel = (rng.standard_normal((k, n), dtype=np.float32) / np.sqrt(k)).astype(np.float32)
+        bias = rng.standard_normal(n, dtype=np.float32)
+        layer = kernels.Int8Dense(kernel, bias)
+        x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(torch.bfloat16).cuda()
+        kernels.reset_launch_counts()
+        y = layer(x)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()["int8_matmul"]
+        ref = (kernels.int8_matmul_reference(x, layer.w_q, layer.scale) + layer.bias.to(torch.bfloat16)).float()
+        err = (y.float() - ref).abs()
+        ok = bool((err <= 2 * FLASH_STEP["bfloat16"] * (ref.abs() + 2.0 ** -8 * ref.abs().max())).all())
+        log(f"Int8Dense (768 -> 3072) on ({m}, {k}) bf16: {launches} int8_matmul launch(es); max_abs_err vs "
+            f"plain {err.max().item():.3e} (two bf16 steps: the product, then the bias add)")
+        check(launches == 1, f"the Int8Dense forward launched int8_matmul {launches} times")
+        check(y.shape == (m, n) and ok and not bool(torch.isnan(y).any()), "Int8Dense output out of tolerance")
+    return worst, timings, launches
+
+
+# ---------------------------------------------------------------- phase 12
+
+def precision_server(CudaServer, precision):
+    """An in-process server of the phase-4 configuration and lane (its
+    weights are the CLI server's: seed 0, live residual branches)."""
+    cs = CudaServer(model="resnet50", normalize=True, dtype="bfloat16", max_batch_size=32, warmup=False,
+                    precision=precision)
+    cs.load()
+    return cs
+
+
+def lane_logits(torch, np, cs, images):
+    with torch.inference_mode():
+        return cs.apply_fn(torch.from_numpy(images).cuda()).double().cpu().numpy()
+
+
+def w8a8_exact_conv(torch, np, w8a8, same_pads, cs, images):
+    """One w8a8 conv of the served model on real activations: its int32
+    accumulator against the float64 product of the same integers."""
+    key = "blocks.1.conv1"  # 3x3, stride 1, 64 -> 64, on the 56x56 map
+    layer = cs.module.get_submodule(key)
+    captured = {}
+    hook = layer.register_forward_hook(lambda m, i, o: captured.setdefault("x", i[0]))
+    try:
+        lane_logits(torch, np, cs, images)
+    finally:
+        hook.remove()
+    x = captured["x"].permute(0, 2, 3, 1)
+    xq, _ = w8a8.quantize_activation(x, layer.act_scale, reduce_axes=(1, 2, 3))
+    wq, _ = w8a8._quantize_weight_last_axis(cs._qparams[key + ".weight"].dequantize(torch.float32).permute(2, 3, 1, 0))
+    acc = w8a8._int_conv(xq, wq, (1, 1), "SAME")
+    lo, hi = same_pads(x.shape[1], 3, 1)
+    x64 = torch.nn.functional.pad(xq.double().permute(0, 3, 1, 2), (lo, hi, lo, hi))
+    want = torch.nn.functional.conv2d(x64, wq.double().permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+    exact = bool(torch.equal(acc.double(), want))
+    log(f"w8a8 {key} on {tuple(x.shape)} activations: int32 accumulator == float64 product of the same "
+        f"integers: {exact} (largest |acc| {int(acc.abs().max())})")
+    check(exact, f"the w8a8 integer GEMM of {key} is not exact")
+    return exact
+
+
+def lane_profile(torch, np, cs, images, card):
+    """Device time by op of 3 forwards at batch 32 of an in-process lane."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.from_numpy(images).cuda()
+
+    def step():
+        with torch.inference_mode():
+            cs.apply_fn(x)
+
+    forward_ms = time_cuda(torch, step, reps=20, warm=3)
+    torch.cuda.synchronize()
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            cs.apply_fn(x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, busy_us = device_time_by_name(prof)
+    groups = {"int GEMM (cuBLASLt s8)": ("s8", "i8", "imma", "int8"), "cuDNN / cuBLAS float conv + GEMM":
+              ("conv", "gemm", "cutlass", "xmma", "sm90", "nvjet"), "copies (im2col, pads, casts)": ("copy", "pad", "cat")}
+    shares = {g: 0.0 for g in groups}
+    shares["other (quantise, rescale, dequant, BatchNorm, ...)"] = 0.0
+    for name, (us, _) in by_name.items():
+        low = name.lower()
+        for g, keys in groups.items():
+            if any(k in low for k in keys):
+                shares[g] += us
+                break
+        else:
+            shares["other (quantise, rescale, dequant, BatchNorm, ...)"] += us
+    row = {"forward_ms": forward_ms, "device_busy_ms_per_forward": busy_us / 3e3,
+           "idle_share": 1 - busy_us / 1e3 / wall_ms, "profiled_wall_ms_per_forward": wall_ms / 3,
+           "device_ms_by_group": {g: us / 3e3 for g, us in shares.items()}}
+    log(f"{cs.precision} forward (K1 + ResNet-50) batch 32: event-timed {forward_ms:.3f} ms = "
+        f"{32 / forward_ms * 1e3:.1f} img/s; profiled: device busy {row['device_busy_ms_per_forward']:.3f} ms a "
+        f"forward, idle share {row['idle_share']:.3f}; by group {row['device_ms_by_group']} [{card}]")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
+        log(f"  {us / 3e3:9.3f} ms/fwd  {n // 3:5d}x  {us / max(busy_us, 1e-9):6.3f}  {name[:90]}")
+    return row
+
+
+def precision_path(torch, np, kernels, w8a8, same_pads, CudaServer, card):
+    """Phase 12: ResNet-50 served over REST in each int8 lane, held against
+    the in-process model of the same lane and against the bf16 lane."""
+    rng = np.random.default_rng(SEED + 80)
+    bf16 = precision_server(CudaServer, "")
+    compare = distinct_images(np, rng, 32)
+    ref_bf16 = lane_logits(torch, np, bf16, compare)
+    out = {"bf16_param_bytes": bf16.param_bytes}
+    del bf16
+    torch.cuda.empty_cache()
+    for precision in PRECISIONS:
+        params = MODEL_PARAMS + [{"name": "precision", "value": precision, "type": "STRING"}]
+        port = free_port()
+        base = f"http://127.0.0.1:{port}"
+        fd, logpath = tempfile.mkstemp(prefix=f"chip_smoke_{precision}_server_", suffix=".log")
+        logfile = os.fdopen(fd, "w")
+        proc = start_server(port, logfile, params=params)
+        try:
+            status, ready_s = wait_ready(proc, base, logpath)
+            log(f"ResNet-50 {precision} server ready in {ready_s:.1f}s (load {status['load_time_s']:.1f}s, "
+                f"precision {status['precision']}, quantize {status['quantize']}, {status['quantized_kernels']} "
+                f"int8 kernels, {status['act_scales_calibrated']} activation scales, param bytes "
+                f"{status['param_bytes']})")
+            check(status["device"].startswith("cuda"), f"the {precision} server is not on the card")
+            check((status["precision"], status["quantize"]) == (precision, "int8"), f"bad lane status {status}")
+            check(status["quantized_kernels"] == PRECISION_KERNELS,
+                  f"{precision}: {status['quantized_kernels']} int8 kernels, not {PRECISION_KERNELS}")
+            want_scales = W8A8_LAYERS if precision == "w8a8" else 0
+            check(status["act_scales_calibrated"] == want_scales,
+                  f"{precision}: {status['act_scales_calibrated']} activation scales, not {want_scales}")
+            m0 = metrics_values(http(base + "/metrics"))
+            before = status["kernel_launches"]
+            groups = [distinct_images(np, rng, 8), distinct_images(np, rng, 8)]
+            served = [decode_logits(np, http(base + "/predict", raw_request(np, groups[0])), 8)]
+            answers = concurrent(lambda i: http(base + "/predict", raw_request(np, groups[1][i:i + 1])), 8)
+            served.append(np.concatenate([decode_logits(np, a, 1) for a in answers]))
+            after = http(base + "/health/status")["jsonData"]["kernel_launches"]
+            m1 = metrics_values(http(base + "/metrics"))
+            lat = latency_window(np, base, rng, PRECISION_LATENCY_REQUESTS)
+            img_s, b32_requests, b32_wall = throughput_window(np, base, rng, THROUGHPUT_CLIENTS, THROUGHPUT_SECONDS)
+        finally:
+            stop_server(proc)
+            logfile.close()
+        launches = {k: after[k] - before.get(k, 0) for k in after}
+        batches = int(m1["cudaserver_batches_total"] - m0["cudaserver_batches_total"])
+        int_mm_per_forward = launches["w8a8_int_mm"] / max(batches, 1)
+        log(f"{precision} path: {batches} batches for the 16 checked rows, launches {launches} "
+            f"({int_mm_per_forward:.1f} integer GEMMs a forward)")
+        check(launches["fused_normalize"] == batches, f"{precision}: fused_normalize launches != batches")
+        check(int_mm_per_forward == (W8A8_LAYERS if precision == "w8a8" else 0),
+              f"{precision}: {launches['w8a8_int_mm']} integer GEMMs over {batches} forwards")
+
+        local = precision_server(CudaServer, precision)
+        ref = np.concatenate([lane_logits(torch, np, local, g) for g in groups])
+        served_all = np.concatenate(served)
+        errs = [rel_l2(np, served_all[i], ref[i]) for i in range(len(ref))]
+        log(f"{precision} served vs in-process {precision}, {len(ref)} rows (batch of 8 + 8 concurrent singles): "
+            f"max row rel L2 {max(errs):.3e} (limit {SERVED_VS_LOCAL_REL_L2})")
+        check(max(errs) <= SERVED_VS_LOCAL_REL_L2, f"{precision}: served rows disagree with in-process: {errs}")
+
+        got = lane_logits(torch, np, local, compare)
+        rel = rel_l2(np, got, ref_bf16)
+        cos = float(torch.nn.functional.cosine_similarity(torch.from_numpy(got), torch.from_numpy(ref_bf16),
+                                                          dim=-1).min())
+        top1 = float((got.argmax(-1) == ref_bf16.argmax(-1)).mean())
+        log(f"{precision} vs bf16 lane, same weights, 32 images: rel L2 {rel:.3e}, min row cosine {cos:.6f}, "
+            f"top-1 agreement {top1:.3f}")
+        if precision == "int8w":
+            check(rel <= INT8W_VS_BF16_REL_L2 and cos >= INT8W_VS_BF16_MIN_COS,
+                  f"int8w drifts from the bf16 lane: rel L2 {rel}, cosine {cos}")
+        else:
+            check(top1 >= W8A8_MIN_TOP1, f"w8a8 top-1 agreement with the bf16 lane {top1} < {W8A8_MIN_TOP1}")
+        row = {"param_bytes": status["param_bytes"], "load_time_s": status["load_time_s"], "batches": batches,
+               "launches": launches, "served_max_row_rel_l2": max(errs), "vs_bf16_rel_l2": rel,
+               "vs_bf16_min_cos": cos, "vs_bf16_top1": top1,
+               "p50_ms": pct(lat, 0.50), "p99_ms": pct(lat, 0.99), "n_latency": len(lat),
+               "batch32_img_s": img_s, "batch32_requests": b32_requests, "batch32_wall_s": b32_wall}
+        if precision == "w8a8":
+            row["exact_int32_conv"] = w8a8_exact_conv(torch, np, w8a8, same_pads, local, compare)
+        row["profile_b32"] = lane_profile(torch, np, local, compare, card)
+        log(f"ResNet-50 {precision} REST single-image latency over {len(lat)} sequential requests: p50 "
+            f"{row['p50_ms']:.2f} ms, p99 {row['p99_ms']:.2f} ms; batch-32 throughput ({THROUGHPUT_CLIENTS} "
+            f"clients, {b32_requests} requests in {b32_wall:.2f} s): {img_s:.1f} img/s; weights on the card "
+            f"{row['param_bytes']} bytes (bf16 lane {out['bf16_param_bytes']}) [{card}]")
+        out[precision] = row
+        del local
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------- main
 
 def run() -> int:
@@ -1616,7 +1916,8 @@ def run() -> int:
         from seldon_core_tpu_torch.models.generate import load_lm_params
         from seldon_core_tpu_torch.models.paged import PagedEngine
         from seldon_core_tpu_torch.models.registry import WeightRegistry
-        from seldon_core_tpu_torch.ops import _build, kernels
+        from seldon_core_tpu_torch.models.resnet import same_pads
+        from seldon_core_tpu_torch.ops import _build, kernels, w8a8
         from seldon_core_tpu_torch.ops.lora import make_lora_params
     except ImportError as e:
         print(f"chip_smoke: FAIL: the port is not beside this script ({e})", file=sys.stderr)
@@ -1627,7 +1928,7 @@ def run() -> int:
         smi_line, device_kind, mem_bytes_per_s = card_report(torch)
         card = smi_line
         t0 = time.perf_counter()
-        sources = ("fused_normalize", "paged_decode", "flash_attention")
+        sources = ("fused_normalize", "paged_decode", "flash_attention", "int8_matmul")
         with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
             libs = list(pool.map(_build.build, sources))
         for source in sources:
@@ -1636,6 +1937,7 @@ def run() -> int:
         max_err, timings = kernel_checks(torch, np, kernels, mem_bytes_per_s)
         paged_errs, paged_timings = paged_kernel_checks(torch, np, kernels, mem_bytes_per_s)
         flash_errs, flash_timings = flash_kernel_checks(torch, np, kernels, mem_bytes_per_s)
+        k2_errs, k2_timings, k2_launches = int8_matmul_checks(torch, np, kernels, mem_bytes_per_s, card)
         launches, numbers = main_path(torch, np, kernels, resnet, card)
         whole = whole_path(torch, np, kernels, resnet, card)
         gen_launches, gen_numbers = generation_path(torch, np, PagedEngine, load_lm_params, card)
@@ -1660,6 +1962,7 @@ def run() -> int:
 
         q_engine = engine_numbers(torch, np, PagedEngine, load_lm_params, card, make_engine=int8_adapter_engine,
                                   adapters=(None, "a1", "a2"), what="bf16 int8 pool + adapters (base/a1/a2)")
+        precision_numbers = precision_path(torch, np, kernels, w8a8, same_pads, CudaServer, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1681,6 +1984,8 @@ def run() -> int:
         "int8_adapters_engine": q_engine,
         "paged_variant_timings": {f"{kernels.paged_launch_name(*v)}/{label}": row
                                   for (v, label), row in variant_timings.items()},
+        "int8_matmul_timings": {K2_CASES[c][4]: row for c, row in k2_timings.items()},
+        "precision_lanes": precision_numbers,
         "seconds": time.perf_counter() - t_start,
     }
     log(json.dumps(result))
@@ -1762,6 +2067,20 @@ def run() -> int:
             "ragged": {"ms": rag["ms"], "plain_ms": rag["plain_ms"], "library_ms": rag["library_ms"],
                        "bound_ms": rag["bound_ms"], "bound_by": rag["bound_by"], "lengths": RAGGED_LENGTHS},
         })
+    fc1 = k2_timings[0]
+    kernel_line["kernels"].append({
+        "name": "int8_matmul",
+        "route": "cuda",
+        "source": "seldon_core_tpu_torch/ops/csrc/int8_matmul.cu",
+        "replaces": "seldon_core_tpu/ops/kernels.py:97",
+        "launches": k2_launches, "launches_on": "Int8Dense forward at the fc1 shape (its public entry point)",
+        "max_abs_err": k2_errs["max_abs_err"], "max_rel_err": k2_errs["max_rel_err"],
+        "ms": fc1["ms"], "plain_ms": fc1["plain_ms"], "bound_ms": fc1["bound_ms"], "bound_by": fc1["bound_by"],
+        "library_ms": fc1["library_ms"], "library_call": "torch.matmul(x, w.to(x.dtype)) * scale",
+        "shape": fc1["shape"], "dtype": fc1["dtype"],
+        "others": [{k: k2_timings[c][k] for k in ("shape", "dtype", "ms", "plain_ms", "library_ms", "bound_ms",
+                                                   "bound_by")} for c in range(1, K2_TIMED)],
+    })
     print(smi_line)
     print(json.dumps(kernel_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,

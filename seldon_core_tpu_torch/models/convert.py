@@ -15,7 +15,8 @@ numpy arrays) and returns the ``state_dict`` of
   ``weight``/``bias``/``running_mean``/``running_var``,
 * flax's auto-generated module names -> the port's attributes:
   ``conv_init``/``bn_init`` -> themselves, ``{Basic,Bottleneck}Block_N``
-  -> ``blocks.N``, ``Conv_K``/``BatchNorm_K`` -> ``convK``/``bnK``,
+  -> ``blocks.N``, ``Conv_K``/``BatchNorm_K`` -> ``convK``/``bnK`` (a
+  w8a8 flax ResNet auto-names its block convs ``W8A8Conv_K``: taken too),
   ``shortcut_conv``/``shortcut_bn`` -> themselves, ``head`` -> ``head``.
 
 The transformer family maps the same way (dense kernels transposed,
@@ -24,6 +25,13 @@ TransformerBlock parts of ``_LM_BLOCK_PARTS`` shared by all three).
 Every leaf of the tree must be consumed and every leaf a module needs
 must be present: a missing or an extra key is a ``ValueError`` naming
 it.
+
+The w8a8 lane's calibrated ``act_scales`` collection (one ``scale`` per
+w8a8 layer, at the layer's module path) goes into the layers'
+``act_scale`` buffers with :func:`load_act_scales`.
+:func:`state_key_for_flax_path` maps any flax path (a ``quantize_params``
+manifest row's, an ``act_scales`` leaf's) to the port's key, and
+:func:`flax_kernel_path` maps a kernel's key back.
 """
 
 from __future__ import annotations
@@ -51,9 +59,10 @@ def _linear(arr: Any) -> np.ndarray:
 def resnet_params_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax ResNet ``variables`` -> the port's ResNet ``state_dict``
     (float32 CPU tensors; ``load_state_dict`` casts to the model's dtype)."""
-    extra_top = sorted(set(variables) - {"params", "batch_stats"})
+    extra_top = sorted(set(variables) - {"params", "batch_stats", "act_scales"})
     if extra_top:
-        raise ValueError(f"extra flax collections {extra_top} (expected params and batch_stats)")
+        raise ValueError(f"extra flax collections {extra_top} (expected params and batch_stats; act_scales "
+                         "goes to load_act_scales)")
     params = dict(variables.get("params", {}))
     stats = dict(variables.get("batch_stats", {}))
     out: Dict[str, np.ndarray] = {}
@@ -90,7 +99,8 @@ def resnet_params_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Ten
     for kind, i in blocks:
         name = f"{kind}_{i}"
         for k in range(_BLOCK_CONVS[kind]):
-            conv((name, f"Conv_{k}"), f"blocks.{i}.conv{k}")
+            conv_name = f"W8A8Conv_{k}" if f"W8A8Conv_{k}" in params[name] else f"Conv_{k}"
+            conv((name, conv_name), f"blocks.{i}.conv{k}")
             bn((name, f"BatchNorm_{k}"), f"blocks.{i}.bn{k}")
         if "shortcut_conv" in params[name] or "shortcut_bn" in params[name]:
             conv((name, "shortcut_conv"), f"blocks.{i}.shortcut_conv")
@@ -214,3 +224,102 @@ def vit_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     tree.norm(("LayerNorm_0",), "ln_f")
     tree.dense(("head",), "head")
     return tree.state_dict()
+
+
+# ---------------------------------------------------------------------------
+# flax paths <-> the port's keys; the w8a8 act_scales collection
+# ---------------------------------------------------------------------------
+
+_FLAX_BLOCK = re.compile(r"^(BasicBlock|BottleneckBlock|block)_(\d+)$")
+_FLAX_LAYER = re.compile(r"^(Conv|W8A8Conv|BatchNorm)_(\d+)$")
+_PORT_LAYER = re.compile(r"^(conv|bn)(\d+)$")
+# (collection, flax leaf) -> the port's attribute
+_LEAVES = {("params", "kernel"): "weight", ("params", "bias"): "bias", ("params", "scale"): "weight",
+           ("params", "embedding"): "weight", ("batch_stats", "mean"): "running_mean",
+           ("batch_stats", "var"): "running_var", ("act_scales", "scale"): "act_scale"}
+
+
+def state_key_for_flax_path(path: str) -> str:
+    """A flax variables path, ``collection/module/.../leaf`` (e.g. the
+    ``path`` of a JAX ``quantize_params`` manifest row,
+    ``params/BottleneckBlock_3/Conv_1/kernel``), -> the port's key
+    (``blocks.3.conv1.weight``); ``act_scales/.../scale`` -> the w8a8
+    layer's ``...act_scale`` buffer."""
+    collection, *mods, leaf = path.split("/")
+    out, block = [], None
+    for name in mods:
+        m = _FLAX_BLOCK.match(name)
+        if m and not out:
+            out += ["blocks", m.group(2)]
+            block = m.group(1)
+            continue
+        m = _FLAX_LAYER.match(name)
+        if m and block != "block":
+            out.append(("bn" if m.group(1) == "BatchNorm" else "conv") + m.group(2))
+        elif block == "block" and name in _LM_BLOCK_PARTS:
+            out.append(_LM_BLOCK_PARTS[name])
+        elif name == "LayerNorm_0" and not out:
+            out.append("ln_f")
+        else:
+            out.append(name)
+    out.append(_LEAVES.get((collection, leaf), leaf))
+    return ".".join(out)
+
+
+_PORT_BLOCK_PARTS = {v: k for k, v in _LM_BLOCK_PARTS.items()}
+
+
+def flax_kernel_path(module: torch.nn.Module, key: str) -> str:
+    """A kernel's ``state_dict`` key (``blocks.3.conv1.weight``) -> its flax
+    path (``params/BottleneckBlock_3/Conv_1/kernel``); flax's auto-names
+    come from the port modules' classes (``BasicBlock``,
+    ``BottleneckBlock``, else a transformer ``block``; ``W8A8Conv_K`` for
+    a w8a8 conv, as flax names it)."""
+    *mods, leaf = key.split(".")
+    if leaf != "weight":
+        raise ValueError(f"{key!r} is not a kernel key")
+    out, block, i = [], None, 0
+    while i < len(mods):
+        name = mods[i]
+        if name == "blocks" and not out and i + 1 < len(mods):
+            kind = type(module.blocks[int(mods[i + 1])]).__name__
+            block = kind if kind in _BLOCK_CONVS else "block"
+            out.append(f"{block}_{mods[i + 1]}")
+            i += 2
+            continue
+        m = _PORT_LAYER.match(name)
+        if m and block in _BLOCK_CONVS:
+            layer = type(module.get_submodule(".".join(mods[: i + 1]))).__name__
+            kind = "BatchNorm_" if m.group(1) == "bn" else ("W8A8Conv_" if layer == "W8A8Conv" else "Conv_")
+            out.append(kind + m.group(2))
+        elif block == "block" and name in _PORT_BLOCK_PARTS:
+            out.append(_PORT_BLOCK_PARTS[name])
+        elif name == "ln_f" and not out:
+            out.append("LayerNorm_0")
+        else:
+            out.append(name)
+        i += 1
+    return "/".join(["params", *out, "kernel"])
+
+
+def load_act_scales(module: torch.nn.Module, variables: Mapping[str, Any]) -> int:
+    """Copy a flax ``act_scales`` collection (``variables["act_scales"]``,
+    as ``seldon_core_tpu.ops.w8a8.calibrate_act_scales`` leaves it) into
+    the module's w8a8 layers' ``act_scale`` buffers.  Returns the number
+    of scales loaded (0 without the collection); a scale whose layer is
+    missing or is not a w8a8 layer is a ``ValueError``."""
+    tree = variables.get("act_scales")
+    if not tree:
+        return 0
+    buffers = dict(module.named_buffers())
+    n = 0
+    for path in _leaf_paths(tree, ("act_scales",)):
+        key = state_key_for_flax_path("/".join(path))
+        if key not in buffers:
+            raise ValueError(f"flax {'/'.join(path)}: the port module has no w8a8 layer at {key!r}")
+        node: Any = tree
+        for k in path[1:]:
+            node = node[k]
+        buffers[key].copy_(torch.from_numpy(np.array(node, np.float32)))
+        n += 1
+    return n

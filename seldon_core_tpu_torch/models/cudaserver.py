@@ -23,6 +23,16 @@ for one NVIDIA GPU:
 * uint8 image batches go through the hand-written CUDA ``fused_normalize``
   kernel when ``normalize=True``; then the model; then the optional
   softmax or top-k;
+* ``precision`` picks the serving precision lane, as in ``JaxServer``:
+  ``bf16`` (or empty; the default: everything in ``dtype``), ``int8w``
+  (weight-only int8) or ``w8a8`` (int8 weights and activations in the
+  ResNets' block convs, ``ops/w8a8.py``; activation scales calibrated at
+  load over ``calibration_batches`` seeded batches).  Both int8 lanes,
+  and ``quantize="int8"`` alone, rest every large kernel int8 on the
+  device (``ops/surgery.py``) and dequantise per forward: to ``dtype``
+  (``int8w``), to float32 (``w8a8``, whose layers requantise exactly);
+  no dequantised copy is kept.  ``w8a8`` on a family without a
+  ``precision`` option is ``BAD_PRECISION``;
 * requests flow through the dynamic batcher: concurrent requests
   coalesce into padded-bucket device calls, and every bucket is warmed
   at load time so cuDNN has picked its algorithms before traffic.
@@ -32,15 +42,15 @@ The server runs on ``device="cuda"`` unless the caller passes
 an error, never a quiet fall back to the CPU.
 
 Not ported yet (each is a ``BAD_PARAMETER`` error when set): ``model_uri``
-checkpoint loading, ``quantize``/``precision`` (int8), ``mesh``, and
-``extra_input_shapes`` (multi-signature batching); nor the detection
-family (``detector_*``).
+checkpoint loading, ``mesh``, and ``extra_input_shapes`` (multi-signature
+batching); nor the detection family (``detector_*``).
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import threading
 import time
 from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
@@ -49,13 +59,13 @@ import torch
 
 from seldon_core_tpu_torch.batching.batcher import DynamicBatcher
 from seldon_core_tpu_torch.codec.device import to_device
-from seldon_core_tpu_torch.ops import kernels
+from seldon_core_tpu_torch.ops import kernels, surgery
 from seldon_core_tpu_torch.runtime.component import MicroserviceError, TPUComponent, gauge_metric
 
 logger = logging.getLogger(__name__)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
-_LATER = ("model_uri", "quantize", "precision", "mesh", "extra_input_shapes")
+_LATER = ("model_uri", "mesh", "extra_input_shapes")
 
 
 def _compute_dtype(name: str) -> torch.dtype:
@@ -141,6 +151,8 @@ def _load_flax_variables(module: torch.nn.Module, family: str, variables: Mappin
         "lm": convert.lm_params_from_flax,
     }[family]
     module.load_state_dict(to_state_dict(variables))
+    if family == "resnet":
+        convert.load_act_scales(module, variables)
 
 
 def resolve_device(device: str) -> torch.device:
@@ -181,6 +193,9 @@ class CudaServer(TPUComponent):
         top_k: int = 0,
         warmup: bool = True,
         warmup_dtypes: Sequence[str] = ("float32", "uint8"),
+        quantize: str = "",
+        precision: str = "",
+        calibration_batches: int = 4,
         normalize: bool = False,
         normalize_mean: Optional[Sequence[float]] = None,
         normalize_std: Optional[Sequence[float]] = None,
@@ -200,6 +215,20 @@ class CudaServer(TPUComponent):
                 reason="BAD_PARAMETER",
             )
         super().__init__(**kwargs)
+        try:
+            surgery.validate_quantize_mode(quantize)
+            surgery.validate_precision(precision)
+        except ValueError as e:
+            raise MicroserviceError(str(e), status_code=400, reason="BAD_QUANTIZE") from None
+        self.precision = precision
+        self.quantize = quantize or surgery.quantize_mode_for(precision)
+        self.calibration_batches = int(calibration_batches)
+        self.act_scales_calibrated = 0
+        self.quantize_manifest: List[Dict[str, Any]] = []
+        self.param_bytes = 0
+        # the int8 kernels (key -> QuantizedKernel), dequantised per forward
+        self._qparams: Dict[str, surgery.QuantizedKernel] = {}
+        self._apply_lock = threading.Lock()  # functional_call swaps the module's weights
         self.device = resolve_device(device)
         self.model_name = model
         self.num_classes = int(num_classes)
@@ -244,6 +273,16 @@ class CudaServer(TPUComponent):
                 reason="UNKNOWN_MODEL",
             )
         entry = registry[self.model_name]
+        model_kwargs = dict(self.model_kwargs)
+        if self.precision == "w8a8":
+            mk_precision = model_kwargs.get("precision")
+            if mk_precision not in (None, "w8a8"):
+                raise MicroserviceError(
+                    f"precision={self.precision!r} conflicts with model_kwargs precision={mk_precision!r}",
+                    status_code=400,
+                    reason="BAD_PRECISION",
+                )
+            model_kwargs["precision"] = "w8a8"
         if self.input_shape is None:
             if entry.input_shape is None:
                 raise MicroserviceError(
@@ -252,7 +291,17 @@ class CudaServer(TPUComponent):
                     reason="MISSING_INPUT_SHAPE",
                 )
             self.input_shape = tuple(entry.input_shape)
-        module = entry.factory(self.num_classes, self.compute_dtype, self.input_shape, **self.model_kwargs)
+        try:
+            module = entry.factory(self.num_classes, self.compute_dtype, self.input_shape, **model_kwargs)
+        except TypeError as e:
+            if self.precision == "w8a8" and "precision" in str(e):
+                raise MicroserviceError(
+                    f"model {self.model_name!r} does not take a precision kwarg (w8a8 is supported by the "
+                    f"resnet family): {e}",
+                    status_code=400,
+                    reason="BAD_PRECISION",
+                ) from None
+            raise
         if self.variables is not None:
             _load_flax_variables(module, entry.family, self.variables)
         elif entry.family == "resnet":
@@ -283,13 +332,55 @@ class CudaServer(TPUComponent):
         model -> softmax / top-k."""
         if self.normalize and x.dtype == torch.uint8:
             x = kernels.fused_normalize(x, self._norm_scale, self._norm_shift, out_dtype=self.compute_dtype)
-        y = self.module(x)
+        if self._qparams:
+            weights = surgery.materialize(self._qparams, self.quantize, self._dequant_dtype())
+            with self._apply_lock:
+                y = torch.func.functional_call(self.module, weights, (x,))
+        else:
+            y = self.module(x)
         if self.softmax_outputs:
             y = torch.softmax(y, dim=-1)
         if self.top_k:
             values, indices = torch.topk(y, self.top_k, dim=-1)
             y = torch.stack([indices.to(torch.float32), values], dim=-2)
         return y
+
+    def _dequant_dtype(self) -> torch.dtype:
+        # w8a8 dequantises to float32: its layers requantise the kernels,
+        # and a bf16 intermediate would round twice and move integers by
+        # one; the other layers cast to their own dtype as they run
+        return torch.float32 if self.precision == "w8a8" else self.compute_dtype
+
+    def _calibration_batches(self) -> List[torch.Tensor]:
+        """JaxServer's calibration batches: uint8 images from the seed,
+        through the numpy float32 affine when normalizing."""
+        crng = np.random.default_rng(self.seed + 101)
+        cb = min(8, self.max_batch_size)
+        scale, shift = self._normalize_affine()
+        batches = []
+        for _ in range(self.calibration_batches):
+            img = crng.integers(0, 256, size=(cb, *self.input_shape))
+            if self.normalize:
+                x = img.astype(np.float32) * scale + shift
+            else:
+                x = img.astype(np.dtype(self.warmup_dtypes[0]))
+            batches.append(torch.from_numpy(x).to(self.device))
+        return batches
+
+    def _quantize(self) -> None:
+        """Rest every large kernel int8 on the device: the module keeps an
+        empty placeholder where each quantised weight was."""
+        bytes_fp = surgery.tree_hbm_bytes(self.module.state_dict())
+        state, self.quantize_manifest = surgery.quantize_params(self.module)
+        self._qparams = {row["key"]: state[row["key"]] for row in self.quantize_manifest}
+        for key in self._qparams:
+            owner, _, name = key.rpartition(".")
+            old = self.module.get_parameter(key)
+            setattr(self.module.get_submodule(owner), name,
+                    torch.nn.Parameter(old.new_empty(0), requires_grad=False))
+        self.param_bytes = surgery.tree_hbm_bytes(self.module.state_dict()) + surgery.tree_hbm_bytes(self._qparams)
+        logger.info("int8 surgery: %d kernels quantized, params %.1f MB -> %.1f MB",
+                    len(self.quantize_manifest), bytes_fp / 1e6, self.param_bytes / 1e6)
 
     def device_call(self, batch: np.ndarray) -> torch.Tensor:
         """Host batch -> device -> served program; returns the device
@@ -309,6 +400,17 @@ class CudaServer(TPUComponent):
             scale, shift = self._normalize_affine()
             self._norm_scale = torch.from_numpy(scale).to(self.device)
             self._norm_shift = torch.from_numpy(shift).to(self.device)
+        if self.precision == "w8a8" and self.calibration_batches > 0:
+            from seldon_core_tpu_torch.ops.w8a8 import calibrate_act_scales
+
+            batches = self._calibration_batches()
+            self.act_scales_calibrated = calibrate_act_scales(self.module, batches)
+            logger.info("w8a8 calibration: %d activation scales fixed over %d batches",
+                        self.act_scales_calibrated, len(batches))
+        if self.quantize == "int8":
+            self._quantize()
+        else:
+            self.param_bytes = surgery.tree_hbm_bytes(self.module.state_dict())
         self.batcher = DynamicBatcher(
             self.device_call,
             max_batch_size=self.max_batch_size,
@@ -415,6 +517,11 @@ class CudaServer(TPUComponent):
             "device": str(self.device),
             "device_name": torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu",
             "dtype": self.dtype_name,
+            "precision": self.precision or "bf16",
+            "quantize": self.quantize,
+            "quantized_kernels": len(self.quantize_manifest),
+            "act_scales_calibrated": self.act_scales_calibrated,
+            "param_bytes": self.param_bytes,
             "normalize": self.normalize,
             "load_time_s": self._load_time_s,
             "buckets": list(self.batcher.buckets) if self.batcher else [],

@@ -159,8 +159,8 @@ _LATER_SLICES = {
     "predict_stream": "8.6, predict_stream",
     "speculative": "8.9, speculative decoding",
     "drain": "8.10, drain/migration/KV tier",
-    "quantize": "queue item 7, int8 / w8a8",
-    "precision": "queue item 7, int8 / w8a8",
+    "quantize": "7.1, the generation precision lanes",
+    "precision": "7.1, the generation precision lanes",
     "tp/dp/mesh": "queue item 12, parallel/*",
 }
 
@@ -590,6 +590,10 @@ class PagedEngine:
         # last logits of every slot: the next chunk samples from them
         self._logits = torch.zeros((self.max_slots, self.vocab_size), dtype=torch.float32, device=self.device)
 
+        # one step at a time: the StreamingLM decode loop and a caller's
+        # run()/generate() both step the engine, and two interleaved
+        # steps would advance the same slots twice
+        self._step_lock = threading.Lock()
         # host bookkeeping, guarded by _lock
         self._lock = threading.Lock()
         self._free_pages: Deque[int] = deque(range(1, self.num_pages))  # page 0 = trash
@@ -1004,7 +1008,12 @@ class PagedEngine:
 
     def step(self) -> bool:
         """Admit + prefill joiners, run one decode chunk, retire finished.
-        Returns True while there is (or may be) more work."""
+        Returns True while there is (or may be) more work.  Safe from any
+        thread: steps never interleave."""
+        with self._step_lock:
+            return self._step_locked()
+
+    def _step_locked(self) -> bool:
         with self._lock:
             admitted = self._admit_locked()
         if admitted:
@@ -1149,8 +1158,11 @@ class PagedEngine:
             self.step()
 
     def generate(self, prompt, **kw) -> np.ndarray:
+        """One prompt's tokens, stepping the engine from this thread until
+        its stream is done (a serving loop may step it meanwhile)."""
         stream = self.submit(np.asarray(prompt), **kw)
-        self.run()
+        while not stream.event.is_set():
+            self.step()
         if stream.error:
             raise stream.error
         return stream.result
@@ -1165,8 +1177,9 @@ class StreamingLM(TPUComponent):
 
     Concurrent ``predict`` calls share one :class:`PagedEngine`: each
     request's rows become streams, one decode-loop thread steps the
-    engine (and is the only thread that touches the device), and every
-    caller waits only for its own streams.  Per-request overrides via
+    engine, and every caller waits only for its own streams.  Another
+    thread may step the same engine (``engine.generate``): the engine's
+    step lock keeps the two from interleaving.  Per-request overrides via
     ``meta.tags``: ``max_new_tokens``, ``temperature``, ``top_k``,
     ``seed``, ``adapter`` (the ``X-Seldon-Adapter`` header lands there
     too).  Runs on ``cuda`` unless ``device="cpu"``; ``dtype`` is

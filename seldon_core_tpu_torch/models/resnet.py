@@ -14,10 +14,14 @@ same logits in both (``models/convert.py`` maps the flax tree):
   the 7x7 stem keeps its explicit (3, 3);
 * the public layout is the JAX package's NHWC: ``forward`` takes
   (B, H, W, C) and views it as NCHW with channels_last strides, so
-  cuDNN reads NHWC with no transpose copy.
-
-The JAX model's ``precision`` option (int8 ``w8a8`` convolutions) is not
-ported yet: the constructor has no such parameter.
+  cuDNN reads NHWC with no transpose copy;
+* ``precision="w8a8"`` makes every block and shortcut conv a
+  ``W8A8Conv`` (``ops/w8a8.py``: int8 x int8 with int32 accumulation);
+  the 7x7 stem and the head stay in ``dtype``, and the ``state_dict`` is
+  the same at either precision;
+* each conv and the head cast their weights to ``dtype`` as they run,
+  as flax's layers cast their kernels, so a serving lane may hand them
+  float32 weights (the w8a8 lane's dequantised kernels).
 """
 
 from __future__ import annotations
@@ -50,16 +54,16 @@ class ConvSame(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel, dtype=dtype, device=device),
                                    requires_grad=False)
-        self.kernel, self.stride, self.padding = kernel, stride, padding
+        self.kernel, self.stride, self.padding, self.dtype = kernel, stride, padding, dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.weight.dtype)
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
         if self.padding is not None:
-            return F.conv2d(x, self.weight, stride=self.stride, padding=self.padding)
+            return F.conv2d(x, w, stride=self.stride, padding=self.padding)
         (ph0, ph1), (pw0, pw1) = (same_pads(s, self.kernel, self.stride) for s in x.shape[-2:])
         if ph0 == ph1 and pw0 == pw1:
-            return F.conv2d(x, self.weight, stride=self.stride, padding=(ph0, pw0))
-        return F.conv2d(F.pad(x, (pw0, pw1, ph0, ph1)), self.weight, stride=self.stride)
+            return F.conv2d(x, w, stride=self.stride, padding=(ph0, pw0))
+        return F.conv2d(F.pad(x, (pw0, pw1, ph0, ph1)), w, stride=self.stride)
 
 
 class BatchNorm(nn.Module):
@@ -92,9 +96,9 @@ class BasicBlock(nn.Module):
     expansion = 1
     n_convs = 2
 
-    def __init__(self, cin: int, filters: int, stride: int, dtype: torch.dtype, device=None):
+    def __init__(self, cin: int, filters: int, stride: int, dtype: torch.dtype, device=None, conv_cls=None):
         super().__init__()
-        conv = partial(ConvSame, dtype=dtype, device=device)
+        conv = partial(conv_cls or ConvSame, dtype=dtype, device=device)
         self.conv0 = conv(cin, filters, 3, stride)
         self.bn0 = BatchNorm(filters, device)
         self.conv1 = conv(filters, filters, 3)
@@ -117,9 +121,9 @@ class BottleneckBlock(nn.Module):
     expansion = 4
     n_convs = 3
 
-    def __init__(self, cin: int, filters: int, stride: int, dtype: torch.dtype, device=None):
+    def __init__(self, cin: int, filters: int, stride: int, dtype: torch.dtype, device=None, conv_cls=None):
         super().__init__()
-        conv = partial(ConvSame, dtype=dtype, device=device)
+        conv = partial(conv_cls or ConvSame, dtype=dtype, device=device)
         self.conv0 = conv(cin, filters, 1)
         self.bn0 = BatchNorm(filters, device)
         self.conv1 = conv(filters, filters, 3, stride)
@@ -140,15 +144,29 @@ class BottleneckBlock(nn.Module):
 
 
 class ResNet(nn.Module):
-    """ResNet v1.5 classifier; ``forward`` takes NHWC images."""
+    """ResNet v1.5 classifier; ``forward`` takes NHWC images.
+
+    ``precision``: ``"bf16"`` (every conv and the head in ``dtype``) or
+    ``"w8a8"`` (the block and shortcut convs are ``W8A8Conv``; the stem
+    and the head stay in ``dtype``, the usual per-layer fallback for the
+    first and last layers).  The name ``bf16`` is the JAX package's: it
+    means "in ``dtype``", whatever ``dtype`` is."""
 
     def __init__(self, stage_sizes: Sequence[int], block_cls, num_classes: int = 1000,
                  num_filters: int = 64, dtype: torch.dtype = torch.bfloat16,
-                 in_channels: int = 3, device=None):
+                 in_channels: int = 3, device=None, precision: str = "bf16"):
         super().__init__()
+        if precision not in ("bf16", "w8a8"):
+            raise ValueError(f"ResNet precision must be 'bf16' or 'w8a8', got {precision!r}")
+        conv_cls = None
+        if precision == "w8a8":
+            from seldon_core_tpu_torch.ops.w8a8 import W8A8Conv
+
+            conv_cls = W8A8Conv
         self.stage_sizes = list(stage_sizes)
         self.block_cls = block_cls
         self.dtype = dtype
+        self.precision = precision
         self.conv_init = ConvSame(in_channels, num_filters, 7, 2, padding=3, dtype=dtype, device=device)
         self.bn_init = BatchNorm(num_filters, device)
         blocks: List[nn.Module] = []
@@ -157,7 +175,7 @@ class ResNet(nn.Module):
             for j in range(size):
                 stride = 2 if i > 0 and j == 0 else 1
                 filters = num_filters * 2**i
-                blocks.append(block_cls(cin, filters, stride, dtype, device))
+                blocks.append(block_cls(cin, filters, stride, dtype, device, conv_cls))
                 cin = filters * block_cls.expansion
         self.blocks = nn.ModuleList(blocks)
         self.head = nn.Linear(cin, num_classes, dtype=dtype, device=device)
@@ -196,7 +214,8 @@ class ResNet(nn.Module):
         for block in self.blocks:
             x = block(x)
         x = x.mean(dim=(2, 3))
-        return self.head(x.to(self.dtype)).float()
+        h = self.head
+        return F.linear(x.to(self.dtype), h.weight.to(self.dtype), h.bias.to(self.dtype)).float()
 
 
 ResNet18 = partial(ResNet, stage_sizes=[2, 2, 2, 2], block_cls=BasicBlock)

@@ -4,6 +4,10 @@
   in one pass (cast + per-channel affine fused; the plain PyTorch chain
   runs a convert, a multiply, an add and a cast as four passes over
   device memory before the first convolution).
+* ``int8_matmul`` (K2) — ``(x @ w_int8) * scale[col]`` with f32
+  accumulation, the int8 weights converted inside the tile;
+  ``Int8Dense`` wraps it as a layer and ``quantize_weights`` converts a
+  trained (K, N) kernel.
 * ``flash_attention`` (K3) — blockwise attention with an online softmax
   over (batch, seq, heads, head_dim) q, k, v, causal or not, read where
   they lie; the attention of every ``TransformerBlock`` served with
@@ -37,10 +41,13 @@ from seldon_core_tpu_torch.ops import _build
 from seldon_core_tpu_torch.runtime import knobs
 
 _COUNT_LOCK = threading.Lock()
+# one entry per kernel wrapper, plus "w8a8_int_mm": the integer GEMMs of
+# the w8a8 layers (``ops/w8a8.py``, ``torch._int_mm`` on either device;
+# not a kernel of this repo), the evidence that the int path ran
 _LAUNCHES: Dict[str, int] = {"fused_normalize": 0, "flash_attention": 0, "paged_decode_stream": 0,
                              "paged_decode_grid": 0, "paged_decode_stream_int8": 0,
                              "paged_decode_stream_lora": 0, "paged_decode_stream_int8_lora": 0,
-                             "paged_decode_grid_int8": 0}
+                             "paged_decode_grid_int8": 0, "int8_matmul": 0, "w8a8_int_mm": 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -147,6 +154,141 @@ def imagenet_affine(mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225)) -> Tu
     mean = np.asarray(mean, np.float32)
     std = np.asarray(std, np.float32)
     return 1.0 / (255.0 * std), -mean / std
+
+
+# ---------------------------------------------------------------------------
+# int8-weight matmul (K2)
+# ---------------------------------------------------------------------------
+
+# x / output dtype -> the kernel's kind code (csrc/int8_matmul.cu)
+_MATMUL_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _check_int8_matmul_args(x, w_int8, scale) -> None:
+    """The JAX function's errors, naming the same dims."""
+    if x.dim() != 2 or w_int8.dim() != 2:
+        raise ValueError(
+            f"int8_matmul wants 2-D operands, got x{tuple(x.shape)} @ "
+            f"w_int8{tuple(w_int8.shape)}"
+        )
+    m, k = x.shape
+    k2, n = w_int8.shape
+    if k != k2:
+        raise ValueError(
+            f"int8_matmul contraction mismatch: x is (M={m}, K={k}) but "
+            f"w_int8 is (K={k2}, N={n}) — the inner (K) dims must agree"
+        )
+    if tuple(scale.shape) != (n,):
+        raise ValueError(
+            f"int8_matmul scale must be one f32 per output column: want "
+            f"shape ({n},) to match w_int8's N={n}, got {tuple(scale.shape)}"
+        )
+
+
+def int8_matmul_reference(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
+                          out_dtype: torch.dtype = None) -> torch.Tensor:
+    """The plain PyTorch version: ``(x.float() @ w.float()) * scale`` in
+    f32, cast to ``out_dtype`` (default ``x.dtype``)."""
+    _check_int8_matmul_args(x, w_int8, scale)
+    y = (x.float() @ w_int8.float()) * scale.to(device=x.device, dtype=torch.float32)
+    return y.to(out_dtype or x.dtype)
+
+
+def int8_matmul(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
+                out_dtype: torch.dtype = None) -> torch.Tensor:
+    """y = (x @ dequant(w)) with w stored int8, per-column scales.
+
+    x: (M, K) float32, bfloat16 or float16; w_int8: (K, N) int8; scale:
+    (N,) float32.  f32 accumulation, one rounding to ``out_dtype``
+    (default ``x.dtype``).  On a CUDA tensor this launches K2
+    (``csrc/int8_matmul.cu``): x with a unit column stride (any row
+    stride), ragged M, N and K taken as they are; anything else raises.
+    On a CPU tensor it is :func:`int8_matmul_reference`.
+    """
+    _check_int8_matmul_args(x, w_int8, scale)
+    if not x.is_cuda:
+        return int8_matmul_reference(x, w_int8, scale, out_dtype)
+    out_dtype = out_dtype or x.dtype
+    if x.dtype not in _MATMUL_KINDS or out_dtype not in _MATMUL_KINDS:
+        raise TypeError(f"int8_matmul takes float32, bfloat16 or float16 x and output, got {x.dtype} -> {out_dtype}")
+    if w_int8.dtype != torch.int8:
+        raise TypeError(f"int8_matmul takes int8 weights, got {w_int8.dtype}")
+    if w_int8.device != x.device or scale.device != x.device:
+        raise ValueError("x, w_int8 and scale must lie on one device")
+    if x.stride(-1) != 1:
+        x = x.contiguous()
+    if w_int8.stride(-1) != 1:
+        w_int8 = w_int8.contiguous()
+    scale = scale.to(torch.float32).contiguous()
+    (m, k), n = x.shape, w_int8.shape[1]
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lda, ldw = max(x.stride(0), k), max(w_int8.stride(0), n)
+    vec_x = x.data_ptr() % 16 == 0 and (lda * x.element_size()) % 16 == 0
+    vec_w = w_int8.data_ptr() % 8 == 0 and ldw % 8 == 0
+    lib = _matmul_lib()
+    with torch.cuda.device(x.device):
+        err = lib.int8_matmul(
+            x.data_ptr(), w_int8.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, k, lda, ldw,
+            _MATMUL_KINDS[x.dtype], _MATMUL_KINDS[out_dtype], int(vec_x), int(vec_w),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise KernelLaunchError(f"int8_matmul launch failed: cudaError {err}")
+    _count("int8_matmul")
+    return out
+
+
+def _matmul_lib() -> ctypes.CDLL:
+    lib = _build.load("int8_matmul")
+    fn = lib.int8_matmul
+    if fn.restype is not ctypes.c_int or not fn.argtypes:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, i, i, i, ll, ll, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def quantize_weights(w) -> Tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-output-channel int8 quantisation of a (K, N) kernel:
+    ``scale = max|w[:, n]| / 127`` (1.0 for a zero column), ``w_q =
+    clip(round(w / scale), -127, 127)``, round half to even, in numpy
+    float32 — the JAX package's function, bit for bit."""
+    w = np.asarray(w, np.float32)
+    max_abs = np.abs(w).max(axis=0)
+    scale = np.where(max_abs > 0, max_abs / 127.0, 1.0).astype(np.float32)
+    w_q = np.clip(np.round(w / scale[None, :]), -127, 127).astype(np.int8)
+    return w_q, scale
+
+
+class Int8Dense(torch.nn.Module):
+    """A serving-time dense layer with int8 weights.
+
+    Built from a trained kernel in flax's (K, N) layout (and an optional
+    (N,) bias), given as numpy: buffers ``w_q`` (K, N) int8, ``scale``
+    (N,) float32 and ``bias`` float32.  ``forward(x)`` is
+    ``int8_matmul(x, w_q, scale) + bias`` in x's dtype, so K2 runs on the
+    card; the layer lives on ``device`` (``"cuda"`` unless the caller
+    asks for the CPU).
+    """
+
+    def __init__(self, kernel, bias=None, device="cuda"):
+        super().__init__()
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Int8Dense on device 'cuda' but CUDA is not available (pass device='cpu')")
+        w_q, scale = quantize_weights(kernel)
+        self.register_buffer("w_q", torch.from_numpy(w_q).to(device))
+        self.register_buffer("scale", torch.from_numpy(scale).to(device))
+        self.register_buffer("bias", None if bias is None else
+                             torch.from_numpy(np.asarray(bias, np.float32)).to(device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = int8_matmul(x, self.w_q, self.scale)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""The PyTorch port on a CUDA card: kernels (K1, K3, K4, K5, and the int8
-and LoRA-fold variants of K4 / K5) against their plain versions, and the
+"""The PyTorch port on a CUDA card: kernels (K1, K2, K3, K4, K5, and the
+int8 and LoRA-fold variants of K4 / K5) against their plain versions, the
+w8a8 lane's integer GEMMs against an exact float64 product, and the
 served paths through the kernels.
 
 Every test here needs the card and skips without one (the decision is
@@ -16,7 +17,8 @@ import torch
 from seldon_core_tpu_torch.models.cudaserver import CudaServer
 from seldon_core_tpu_torch.models.generate import load_lm_params
 from seldon_core_tpu_torch.models.paged import PagedEngine
-from seldon_core_tpu_torch.ops import kernels
+from seldon_core_tpu_torch.models.resnet import same_pads
+from seldon_core_tpu_torch.ops import kernels, w8a8
 
 pytestmark = pytest.mark.cuda
 
@@ -306,3 +308,114 @@ def test_served_vit_launches_the_kernel_in_every_block():
         assert counts["fused_normalize"] == 1 and counts["flash_attention"] == len(cs.module.blocks)
     finally:
         cs.unload()
+
+
+# ---------------------------------------------------------------------------
+# K2: int8_matmul; the w8a8 lane's integer GEMMs
+# ---------------------------------------------------------------------------
+
+K2_CASES = [  # (M, K, N, x dtype)
+    (6304, 768, 3072, torch.bfloat16), (32, 2048, 1000, torch.bfloat16), (16, 512, 1536, torch.float32),
+    (5, 16, 10, torch.float32), (100, 300, 70, torch.float32), (33, 70, 9, torch.float16), (1, 1, 1, torch.float32),
+]
+
+
+def _k2_inputs(m, k, n, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(dtype).cuda()
+    w_q, scale = kernels.quantize_weights(rng.standard_normal((k, n), dtype=np.float32))
+    return x, torch.from_numpy(w_q).cuda(), torch.from_numpy(scale).cuda()
+
+
+def assert_k2_close(got, ref):
+    """float32 within 1e-5 of the largest |plain|; bf16 / f16 within one
+    step of the format, with a floor at 2**-8 of a step of the largest."""
+    g, r = got.float(), ref.float()
+    assert not bool(torch.isnan(g).any())
+    if got.dtype == torch.float32:
+        assert (g - r).abs().max().item() <= 1e-5 * r.abs().max().item()
+    else:
+        step = FLASH_RTOL[got.dtype]
+        assert bool(((g - r).abs() <= step * r.abs() + step * 2.0 ** -8 * r.abs().max()).all())
+
+
+@pytest.mark.parametrize("case", range(len(K2_CASES)))
+def test_int8_matmul_matches_plain_version(case):
+    _need_card()
+    m, k, n, dtype = K2_CASES[case]
+    x, w_q, scale = _k2_inputs(m, k, n, dtype, seed=case)
+    before = kernels.launch_counts()["int8_matmul"]
+    got = kernels.int8_matmul(x, w_q, scale)
+    ref = kernels.int8_matmul_reference(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["int8_matmul"] == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (m, n)
+    assert_k2_close(got, ref)
+
+
+def test_int8_matmul_strided_and_misaligned_views():
+    _need_card()
+    x, w_q, scale = _k2_inputs(40, 100, 24, torch.bfloat16, seed=20)
+    wide = torch.zeros(40, 103, dtype=torch.bfloat16, device="cuda")
+    wide[:, 1:101] = x
+    view = wide[:, 1:101]  # row stride 103, base 2 bytes past alignment: scalar loads
+    assert_k2_close(kernels.int8_matmul(view, w_q, scale), kernels.int8_matmul_reference(x, w_q, scale))
+    out32 = kernels.int8_matmul(x, w_q, scale, out_dtype=torch.float32)
+    assert out32.dtype == torch.float32
+    assert_k2_close(out32, kernels.int8_matmul_reference(x, w_q, scale, torch.float32))
+
+
+def test_int8_dense_on_the_card():
+    _need_card()
+    rng = np.random.default_rng(21)
+    kernel, bias = rng.standard_normal((64, 48), dtype=np.float32), rng.standard_normal(48, dtype=np.float32)
+    layer = kernels.Int8Dense(kernel, bias)
+    assert layer.w_q.is_cuda
+    x = torch.from_numpy(rng.standard_normal((9, 64), dtype=np.float32)).cuda()
+    before = kernels.launch_counts()["int8_matmul"]
+    got = layer(x)
+    assert kernels.launch_counts()["int8_matmul"] == before + 1
+    ref = kernels.int8_matmul_reference(x, layer.w_q, layer.scale) + layer.bias
+    assert_k2_close(got, ref)
+
+
+def test_int8_matmul_refuses_what_the_kernel_does_not_take():
+    _need_card()
+    x, w_q, scale = _k2_inputs(4, 8, 8, torch.float32, seed=22)
+    with pytest.raises(TypeError, match="int8 weights"):
+        kernels.int8_matmul(x, w_q.float(), scale)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        kernels.int8_matmul(x.double(), w_q, scale)
+    with pytest.raises(ValueError, match="one device"):
+        kernels.int8_matmul(x, w_q.cpu(), scale)
+
+
+@pytest.mark.parametrize("b,hw,cin,cout,kernel,stride", [(32, 56, 64, 64, 3, 1), (2, 28, 128, 128, 3, 2),
+                                                         (4, 14, 256, 512, 1, 2), (1, 7, 512, 2048, 1, 1)])
+def test_w8a8_conv_integer_gemm_is_exact(b, hw, cin, cout, kernel, stride):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(hw)
+    xq = torch.randint(-127, 128, (b, hw, hw, cin), dtype=torch.int8, device="cuda", generator=g)
+    wq = torch.randint(-127, 128, (kernel, kernel, cin, cout), dtype=torch.int8, device="cuda", generator=g)
+    before = kernels.launch_counts()["w8a8_int_mm"]
+    acc = w8a8._int_conv(xq, wq, (stride, stride), "SAME")
+    assert kernels.launch_counts()["w8a8_int_mm"] == before + 1
+    lo, hi = same_pads(hw, kernel, stride)
+    x64 = torch.nn.functional.pad(xq.double().permute(0, 3, 1, 2), (lo, hi, lo, hi))
+    want = torch.nn.functional.conv2d(x64, wq.double().permute(3, 2, 0, 1), stride=stride).permute(0, 2, 3, 1)
+    assert acc.dtype == torch.int32 and torch.equal(acc.double(), want)
+
+
+def test_served_precision_lanes_on_the_card():
+    _need_card()
+    for precision in ("int8w", "w8a8"):
+        cs = CudaServer(model="resnet_tiny", num_classes=4, normalize=True, max_batch_size=2, precision=precision)
+        cs.load()
+        try:
+            assert all(v.q.is_cuda and v.q.dtype == torch.int8 for v in cs._qparams.values())
+            kernels.reset_launch_counts()
+            out = cs.predict(np.random.default_rng(23).integers(0, 256, (2, 32, 32, 3), dtype=np.uint8), [])
+            assert out.shape == (2, 4) and np.isfinite(out).all()
+            assert kernels.launch_counts()["w8a8_int_mm"] == (11 if precision == "w8a8" else 0)
+        finally:
+            cs.unload()

@@ -57,6 +57,8 @@ def test_scan_covers_the_port():
     assert "seldon_core_tpu_torch/ops/lora.py" in names
     assert "seldon_core_tpu_torch/models/registry.py" in names
     assert "seldon_core_tpu_torch/utils/deadlines.py" in names
+    assert "seldon_core_tpu_torch/ops/surgery.py" in names
+    assert "seldon_core_tpu_torch/ops/w8a8.py" in names
     assert _forbidden("seldon_core_tpu.proto") and _forbidden("jax.numpy") and _forbidden("flax.linen")
     assert not _forbidden("seldon_core_tpu_torch.proto")
 
@@ -69,6 +71,7 @@ def test_importing_the_port_loads_no_jax():
         "import seldon_core_tpu_torch.models.paged, seldon_core_tpu_torch.models.generate\n"
         "import seldon_core_tpu_torch.models.vit, seldon_core_tpu_torch.ops.lora\n"
         "import seldon_core_tpu_torch.models.registry, seldon_core_tpu_torch.utils.deadlines\n"
+        "import seldon_core_tpu_torch.ops.surgery, seldon_core_tpu_torch.ops.w8a8\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'seldon_core_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"

@@ -89,7 +89,7 @@ class TestFusedNormalizeParity:
         assert kernels.launch_counts() == {"fused_normalize": 0, "flash_attention": 0, "paged_decode_stream": 0,
                                           "paged_decode_grid": 0, "paged_decode_stream_int8": 0,
                                           "paged_decode_stream_lora": 0, "paged_decode_stream_int8_lora": 0,
-                                          "paged_decode_grid_int8": 0}
+                                          "paged_decode_grid_int8": 0, "int8_matmul": 0, "w8a8_int_mm": 0}
 
     def test_launch_count_loses_no_update_under_threads(self):
         # the batcher's collector and the warmup may count from different

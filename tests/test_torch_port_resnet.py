@@ -157,8 +157,9 @@ class TestConverter:
             resnet_params_from_flax(variables)
 
     def test_extra_collection_is_an_error(self):
+        # act_scales is a known collection (load_act_scales carries it)
         variables = dict(self._tiny_variables())
-        variables["act_scales"] = {}
+        variables["intermediates"] = {}
         with pytest.raises(ValueError, match="extra flax collections"):
             resnet_params_from_flax(variables)
 
@@ -178,6 +179,9 @@ class TestModule:
         assert torch.all(a.blocks[0].bn0.weight == 1)
 
     def test_w8a8_precision_is_not_ported(self):
-        # the JAX model's precision option has no counterpart yet
-        with pytest.raises(TypeError, match="precision"):
-            resnet.ResNetTiny(num_classes=3, precision="w8a8")
+        # the JAX model's precision option is ported: "w8a8" builds the
+        # int8 convs (tests/test_torch_port_w8a8.py), any other value
+        # than "bf16" / "w8a8" is refused as the JAX model refuses it
+        assert resnet.ResNetTiny(num_classes=3, precision="w8a8").precision == "w8a8"
+        with pytest.raises(ValueError, match="precision"):
+            resnet.ResNetTiny(num_classes=3, precision="int8w")
