@@ -12,8 +12,9 @@ JAX or of the JAX package.  Phases, each of which fails the run:
 3. ``fused_normalize`` (K1) against its plain PyTorch version on the
    card, bit for bit, at the main path's shapes and at ragged ones;
    kernel, plain and library-call times (CUDA events, median of 100, L2
-   flushed before each launch) beside the bound (bytes moved over the
-   card's memory rate);
+   flushed before each launch, then a GPU-side spin so the host has
+   enqueued the call before the start event) beside the bound (bytes
+   moved over the card's memory rate);
 3b. the paged-decode kernels K4 (``stream``) and K5 (``grid``) against
    their plain version on the card: the serving shape (16 lanes, 8
    heads of 64, pages of 64, 16-page tables, random non-contiguous page
@@ -27,7 +28,8 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    (TF32 off for matmul and cuDNN): the ViT-B/16 serving shape (32, 197,
    12, 64) bf16 non-causal, also as the strided views of the qkv split;
    (4, 1024, 8, 64) bf16 causal; (2, 50, 2, 16) and (1, 1, 1, 8) f32,
-   causal and not; head_dim 128 in bf16 and 40 in f16.  float32: the
+   causal and not; head_dim 128 in bf16, 40 in f16 and 96 in bf16 (a
+   scale that is not a power of two; checked, not timed).  float32: the
    largest |kernel - plain| within 1e-5 of the largest |plain|; bf16 /
    f16: one step of the format (rtol 2**-7 / 2**-10) with a floor at one
    step of 2**-8 of the largest |plain|; no NaN.  Kernel, plain and
@@ -37,12 +39,16 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    version on the card (TF32 off): (6304, 768) @ (768, 3072) bf16 (ViT-B/16's
    MLP fc1 at batch 32), (32, 2048) @ (2048, 1000) bf16 (the ResNet-50
    head at batch 32), (16, 512) @ (512, 1536) f32 (the LM's qkv at 16
-   lanes), ragged (5, 16) @ (16, 10) and (100, 300) @ (300, 70) f32;
+   lanes), ragged (5, 16) @ (16, 10) and (100, 300) @ (300, 70) f32,
+   (197, 768) @ (768, 2304) f16 and (1, 768) @ (768, 3072) bf16 (the last
+   two checked, not timed);
    float32 within 1e-5 of the largest |plain|, bf16 within one step as
    3c, no NaN; kernel, plain and ``torch.matmul(x, w.to(x.dtype)) * scale``
    times (median of 100, 4 GB L2 flush) beside the bound at the first
    three; then K2's path, an ``Int8Dense`` forward at the fc1 shape with
-   the launch counts set to 0 just before it;
+   the launch counts set to 0 just before it: one launch, its output bit
+   for bit K2's product plus the bias in bf16, and that product within
+   one bf16 step of its plain version;
 4. the main path: the microservice CLI serving ResNet-50 (224x224x3,
    1000 classes, bf16, normalize=true, max_batch_size=32, seeded random
    weights with live residual branches) over REST as a subprocess; uint8
@@ -128,9 +134,12 @@ JAX or of the JAX package.  Phases, each of which fails the run:
 12. the int8 precision lanes: the CLI serving ResNet-50 in the phase 4
    configuration with ``precision`` ``int8w`` and then ``w8a8`` over REST;
    ``/health/status`` must show 54 int8 kernels and 52 calibrated
-   activation scales (w8a8; 0 for int8w); a batch of 8 and 8 concurrent
+   activation scales (w8a8, each by layer, logged against the in-process
+   server's; 0 for int8w); a batch of 8 and 8 concurrent
    single images each within relative L2 2e-2 of an in-process server of
-   the same lane; every batch one ``fused_normalize`` and, in w8a8, 52
+   the same lane (in w8a8 each row is logged beside its group's batch
+   count and its error against in-process runs of its image alone at
+   every bucket up to 8); every batch one ``fused_normalize`` and, in w8a8, 52
    integer GEMMs; each lane against the bf16 lane on the same weights
    (32 images): int8w relative L2 <= 5e-2 and per-row cosine >= 0.99,
    w8a8 top-1 agreement >= 0.8 (its cosine reported); one w8a8 conv's
@@ -209,6 +218,7 @@ FLASH_CASES = [  # (B, L, H, D, dtype name, causal, strided qkv views)
     (1, 1, 1, 8, "float32", True, False),
     (2, 197, 4, 128, "bfloat16", False, False),
     (2, 130, 3, 40, "float16", True, False),
+    (2, 77, 4, 96, "bfloat16", False, False),   # a scale that is not a power of two
 ]
 FLASH_F32_REL_TOL = 1e-5        # largest |kernel - plain| / largest |plain|
 FLASH_STEP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}  # one step of the format, relative
@@ -253,10 +263,13 @@ K2_CASES = [
     (16, 512, 1536, "float32", "the LM's qkv at 16 lanes"),
     (5, 16, 10, "float32", "ragged"),
     (100, 300, 70, "float32", "ragged"),
+    (197, 768, 2304, "float16", "ViT-B/16 qkv of one image, f16"),
+    (1, 768, 3072, "bfloat16", "ViT-B/16 MLP fc1, one row"),
 ]
 K2_TIMED = 3                    # the first three cases are timed
 K2_F32_REL_TOL = 1e-5           # largest |kernel - plain| / largest |plain|
 K2_FLUSH_MB = 4096              # the L2 flush before each timed K2 launch
+TIMING_SLEEP_CYCLES = 1_000_000  # GPU spin before each timed call: ~0.5 ms at the H100's 1.98 GHz boost clock
 # the precision lanes: the phase 4 configuration with precision=...
 PRECISIONS = ("int8w", "w8a8")
 PRECISION_KERNELS = 54          # ResNet-50 kernels the surgery quantises (JAX's rule: the stem too)
@@ -303,9 +316,10 @@ def card_report(torch):
 
 def time_cuda(torch, fn, reps: int = 100, warm: int = 5, flush_mb: int = 256) -> float:
     """Median ms of one call, CUDA events around each, L2 flushed before
-    each (a 256 MB write keeps the GPU busy while the host enqueues, so
-    host overhead stays out of the measured span; a wrapper whose host
-    work is longer needs a longer write, ``flush_mb``)."""
+    each by a ``flush_mb`` write.  Between the flush and the start event
+    the GPU spins for ``TIMING_SLEEP_CYCLES`` (``torch.cuda._sleep``),
+    longer than a wrapper's host work, so the host has enqueued ``fn``
+    before the start event fires and host time stays out of the span."""
     flush = torch.empty(flush_mb * 1024 * 1024, dtype=torch.uint8, device="cuda")
     for _ in range(warm):
         fn()
@@ -313,6 +327,7 @@ def time_cuda(torch, fn, reps: int = 100, warm: int = 5, flush_mb: int = 256) ->
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     for i in range(reps):
         flush.zero_()
+        torch.cuda._sleep(TIMING_SLEEP_CYCLES)
         starts[i].record()
         fn()
         ends[i].record()
@@ -1712,13 +1727,24 @@ def int8_matmul_checks(torch, np, kernels, mem_bytes_per_s, card):
         y = layer(x)
         torch.cuda.synchronize()
         launches = kernels.launch_counts()["int8_matmul"]
-        ref = (kernels.int8_matmul_reference(x, layer.w_q, layer.scale) + layer.bias.to(torch.bfloat16)).float()
-        err = (y.float() - ref).abs()
-        ok = bool((err <= 2 * FLASH_STEP["bfloat16"] * (ref.abs() + 2.0 ** -8 * ref.abs().max())).all())
-        log(f"Int8Dense (768 -> 3072) on ({m}, {k}) bf16: {launches} int8_matmul launch(es); max_abs_err vs "
-            f"plain {err.max().item():.3e} (two bf16 steps: the product, then the bias add)")
+        # the layer is K2's product plus the bias in bf16: bit for bit that
+        # composition, and the product within K2's one-step bar of its plain
+        # version (the bf16 rounding of the product is where a sum order other
+        # than the plain version's shows; the bias add only composes it)
+        product = kernels.int8_matmul(x, layer.w_q, layer.scale)
+        composed = product + layer.bias.to(torch.bfloat16)
+        plain = kernels.int8_matmul_reference(x, layer.w_q, layer.scale).float()
+        torch.cuda.synchronize()
+        exact = torch.equal(y.view(torch.int16), composed.view(torch.int16))
+        err = (product.float() - plain).abs()
+        step = FLASH_STEP["bfloat16"]
+        ok = bool((err <= step * plain.abs() + step * 2.0 ** -8 * plain.abs().max()).all())
+        log(f"Int8Dense (768 -> 3072) on ({m}, {k}) bf16: {launches} int8_matmul launch(es); output == K2's "
+            f"product + bias bit for bit: {exact}; product max_abs_err vs plain {err.max().item():.3e} (one bf16 "
+            f"step, floor {step * 2.0 ** -8:.3e} x max |plain|)")
         check(launches == 1, f"the Int8Dense forward launched int8_matmul {launches} times")
-        check(y.shape == (m, n) and ok and not bool(torch.isnan(y).any()), "Int8Dense output out of tolerance")
+        check(y.shape == (m, n) and exact and ok and not bool(torch.isnan(y).any()),
+              "Int8Dense output out of tolerance")
     return worst, timings, launches
 
 
@@ -1805,6 +1831,41 @@ def lane_profile(torch, np, cs, images, card):
     return row
 
 
+def served_row_buckets(torch, np, local, groups, served_all, errs, group_batches, buckets):
+    """The record C14 asks for: each served row's group (the batch of 8 is
+    one request in one batch; the 8 concurrent singles went out in
+    ``group_batches[1]`` batches), its error against the in-process group
+    batch, and its error against in-process runs of its image alone in a
+    zero-padded batch of each bucket (the batcher pads with zeros)."""
+    out = []
+    for i, served_row in enumerate(served_all):
+        g, j = divmod(i, 8)
+        by_bucket = {}
+        for b in buckets:
+            batch = np.zeros((b, *IMG), np.uint8)
+            batch[0] = groups[g][j]
+            by_bucket[b] = rel_l2(np, served_row, lane_logits(torch, np, local, batch)[0])
+        what = "batch of 8 (bucket 8)" if g == 0 else f"concurrent single ({group_batches[1]} batches for 8 rows)"
+        log(f"  w8a8 served row {i:2d}, {what}: rel L2 {errs[i]:.3e} vs in-process batch of 8; alone at buckets "
+            + ", ".join(f"{b}: {e:.3e}" for b, e in by_bucket.items()))
+        out.append({"row": i, "group": what, "rel_l2_vs_group": errs[i],
+                    "rel_l2_alone_by_bucket": {str(b): e for b, e in by_bucket.items()}})
+    return out
+
+
+def act_scale_gap(served, local):
+    """The record C14 asks for: the served process's calibrated activation
+    scales (``/health/status``) against the in-process server's, layer by
+    layer: how many differ, and the largest relative gap."""
+    names = sorted(set(served) | set(local))
+    gaps = {n: abs(served.get(n, 0.0) - local.get(n, 0.0)) / max(abs(local.get(n, 0.0)), 1e-30) for n in names}
+    worst = max(names, key=gaps.get) if names else ""
+    differ = sum(g > 0 for g in gaps.values())
+    log(f"  w8a8 calibrated activation scales, served process vs in-process: {differ} of {len(names)} differ, "
+        f"largest relative gap {gaps.get(worst, 0.0):.3e} ({worst})")
+    return {"layers": len(names), "differ": differ, "max_rel_gap": gaps.get(worst, 0.0), "worst_layer": worst}
+
+
 def precision_path(torch, np, kernels, w8a8, same_pads, CudaServer, card):
     """Phase 12: ResNet-50 served over REST in each int8 lane, held against
     the in-process model of the same lane and against the bf16 lane."""
@@ -1839,6 +1900,7 @@ def precision_path(torch, np, kernels, w8a8, same_pads, CudaServer, card):
             before = status["kernel_launches"]
             groups = [distinct_images(np, rng, 8), distinct_images(np, rng, 8)]
             served = [decode_logits(np, http(base + "/predict", raw_request(np, groups[0])), 8)]
+            m_mid = metrics_values(http(base + "/metrics"))
             answers = concurrent(lambda i: http(base + "/predict", raw_request(np, groups[1][i:i + 1])), 8)
             served.append(np.concatenate([decode_logits(np, a, 1) for a in answers]))
             after = http(base + "/health/status")["jsonData"]["kernel_launches"]
@@ -1863,6 +1925,14 @@ def precision_path(torch, np, kernels, w8a8, same_pads, CudaServer, card):
         errs = [rel_l2(np, served_all[i], ref[i]) for i in range(len(ref))]
         log(f"{precision} served vs in-process {precision}, {len(ref)} rows (batch of 8 + 8 concurrent singles): "
             f"max row rel L2 {max(errs):.3e} (limit {SERVED_VS_LOCAL_REL_L2})")
+        if precision == "w8a8":  # C14: each served row beside its batch and in-process runs at every bucket
+            group_batches = [int(m_mid["cudaserver_batches_total"] - m0["cudaserver_batches_total"]),
+                             int(m1["cudaserver_batches_total"] - m_mid["cudaserver_batches_total"])]
+            row_log = served_row_buckets(torch, np, local, groups, served_all, errs, group_batches,
+                                         [b for b in status["buckets"] if b <= 8])
+            check(len(status["act_scales"]) == W8A8_LAYERS,
+                  f"w8a8: /health/status shows {len(status['act_scales'])} activation scales")
+            scale_gap = act_scale_gap(status["act_scales"], local.act_scales)
         check(max(errs) <= SERVED_VS_LOCAL_REL_L2, f"{precision}: served rows disagree with in-process: {errs}")
 
         got = lane_logits(torch, np, local, compare)
@@ -1884,6 +1954,8 @@ def precision_path(torch, np, kernels, w8a8, same_pads, CudaServer, card):
                "batch32_img_s": img_s, "batch32_requests": b32_requests, "batch32_wall_s": b32_wall}
         if precision == "w8a8":
             row["exact_int32_conv"] = w8a8_exact_conv(torch, np, w8a8, same_pads, local, compare)
+            row["served_rows"] = row_log
+            row["act_scales_served_vs_local"] = scale_gap
         row["profile_b32"] = lane_profile(torch, np, local, compare, card)
         log(f"ResNet-50 {precision} REST single-image latency over {len(lat)} sequential requests: p50 "
             f"{row['p50_ms']:.2f} ms, p99 {row['p99_ms']:.2f} ms; batch-32 throughput ({THROUGHPUT_CLIENTS} "
@@ -2033,6 +2105,7 @@ def run() -> int:
         "ms": serving["ms"], "plain_ms": serving["plain_ms"], "bound_ms": serving["bound_ms"],
         "bound_by": serving["bound_by"], "library_ms": serving["library_ms"],
         "library_call": "F.scaled_dot_product_attention on (B, H, L, D) views",
+        "design": "tensor-core mma.sync (bf16 / f16); f32: CUDA-core body",
         "shape": serving["shape"], "dtype": "bfloat16",
         "causal": {"shape": causal["shape"], "ms": causal["ms"], "plain_ms": causal["plain_ms"],
                         "library_ms": causal["library_ms"], "bound_ms": causal["bound_ms"],
@@ -2077,6 +2150,7 @@ def run() -> int:
         "max_abs_err": k2_errs["max_abs_err"], "max_rel_err": k2_errs["max_rel_err"],
         "ms": fc1["ms"], "plain_ms": fc1["plain_ms"], "bound_ms": fc1["bound_ms"], "bound_by": fc1["bound_by"],
         "library_ms": fc1["library_ms"], "library_call": "torch.matmul(x, w.to(x.dtype)) * scale",
+        "design": "tensor-core mma.sync",
         "shape": fc1["shape"], "dtype": fc1["dtype"],
         "others": [{k: k2_timings[c][k] for k in ("shape", "dtype", "ms", "plain_ms", "library_ms", "bound_ms",
                                                    "bound_by")} for c in range(1, K2_TIMED)],

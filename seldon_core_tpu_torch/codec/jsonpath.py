@@ -13,7 +13,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-from seldon_core_tpu_torch.codec.tensor import PayloadError, frombuffer_checked, np_dtype
+from seldon_core_tpu_torch.codec.tensor import PayloadError, raw_to_array
 
 
 def _bytes_to_str(x: Any) -> Any:
@@ -55,7 +55,7 @@ def extract_json_payload(body: Dict[str, Any]) -> Tuple[Any, Optional[Dict], Opt
                 except (binascii.Error, ValueError) as e:
                     raise PayloadError(f"rawTensor data is not valid base64: {e}") from None
             shape = tuple(int(d) for d in r.get("shape") or ())
-            arr = frombuffer_checked(data, np_dtype(r.get("dtype", "float32")), shape)
+            arr = raw_to_array(data, r.get("dtype", "float32"), shape)
             return arr, meta, datadef, "rawTensor"
         if "ndarray" in datadef:
             return np.asarray(datadef["ndarray"]), meta, datadef, "ndarray"

@@ -6,12 +6,16 @@ Covers the payload kinds of the wire contract that this port serves:
 * ``ndarray``   — JSON-style nested lists (`google.protobuf.ListValue`)
 * ``rawTensor`` — dtype + shape + raw little-endian bytes; decodes with
                   ``np.frombuffer`` (no copy, no float64 widening), so a
-                  uint8 image batch reaches the device as uint8
+                  uint8 image batch reaches the device as uint8.  numpy
+                  has no bfloat16: a bfloat16 payload is read as uint16
+                  and widened exactly to float32 (``u16 << 16``), the
+                  values the JAX codec's ``ml_dtypes`` array upcasts to
 * ``binData`` / ``strData`` / ``jsonData`` — passed through as
   bytes / str / python objects
 
-Not served yet: ``tftensor`` payloads, and numpy-less dtypes such as
-bfloat16 on the wire.  Both are a :class:`PayloadError` (HTTP 400).
+Not served yet: ``tftensor`` payloads, and the other ``ml_dtypes`` names
+on the wire (the float8 / float6 / float4 and int4 / int2 families).
+Both are a :class:`PayloadError` (HTTP 400).
 """
 
 from __future__ import annotations
@@ -30,12 +34,30 @@ class PayloadError(ValueError):
     """Raised when a message payload cannot be decoded."""
 
 
+# ml_dtypes families the JAX codec resolves and this port does not serve
+# (refused by name even where ml_dtypes, imported by another package, has
+# registered them with numpy)
+_UNSERVED_PREFIXES = ("float8_", "float6_", "float4_", "int4", "uint4", "int2", "uint2")
+
+
 def np_dtype(name: str) -> np.dtype:
     """Resolve a wire dtype name to a numpy dtype."""
+    if name.startswith(_UNSERVED_PREFIXES):
+        raise PayloadError(f"dtype {name!r} on the wire is not served by the PyTorch port yet")
     try:
         return np.dtype(name)
     except TypeError:
         raise PayloadError(f"unknown dtype: {name!r}") from None
+
+
+def raw_to_array(data: bytes, name: str, shape: tuple) -> np.ndarray:
+    """Raw little-endian bytes of wire dtype ``name`` -> ndarray, checked.
+    ``bfloat16`` is widened exactly to float32: its bits are the upper
+    half of the float32 of the same value."""
+    if name == "bfloat16":
+        bits = frombuffer_checked(data, np.dtype("<u2"), shape, name)
+        return (bits.astype(np.uint32) << 16).view(np.float32)
+    return frombuffer_checked(data, np_dtype(name), shape)
 
 
 # ---------------------------------------------------------------------------
@@ -54,23 +76,24 @@ def raw_tensor_to_array(raw: pb.RawTensor) -> np.ndarray:
 
     Malformed payloads raise :class:`PayloadError` naming the byte
     counts precisely, never a bare numpy ValueError."""
-    dtype = np_dtype(raw.dtype or "float32")
-    return frombuffer_checked(raw.data, dtype, tuple(raw.shape))
+    return raw_to_array(raw.data, raw.dtype or "float32", tuple(raw.shape))
 
 
-def frombuffer_checked(data: bytes, dtype: np.dtype, shape: tuple) -> np.ndarray:
+def frombuffer_checked(data: bytes, dtype: np.dtype, shape: tuple, name: Optional[str] = None) -> np.ndarray:
+    """``name``: the wire dtype the messages name (default ``dtype.name``)."""
+    name = name or dtype.name
     nbytes = len(data)
     if nbytes % dtype.itemsize:
         raise PayloadError(
             f"misaligned rawTensor payload: {nbytes} bytes is not a "
-            f"multiple of {dtype.name} itemsize {dtype.itemsize}"
+            f"multiple of {name} itemsize {dtype.itemsize}"
         )
     arr = np.frombuffer(data, dtype=dtype)
     if shape:
         expect = int(np.prod(shape, dtype=np.int64))
         if expect != arr.size:
             raise PayloadError(
-                f"rawTensor shape {shape} needs {expect} {dtype.name} "
+                f"rawTensor shape {shape} needs {expect} {name} "
                 f"elements but the payload carries {arr.size}"
             )
         arr = arr.reshape(shape)

@@ -224,6 +224,7 @@ class CudaServer(TPUComponent):
         self.quantize = quantize or surgery.quantize_mode_for(precision)
         self.calibration_batches = int(calibration_batches)
         self.act_scales_calibrated = 0
+        self.act_scales: Dict[str, float] = {}  # w8a8: each layer's calibrated scale, for /health/status
         self.quantize_manifest: List[Dict[str, Any]] = []
         self.param_bytes = 0
         # the int8 kernels (key -> QuantizedKernel), dequantised per forward
@@ -401,10 +402,11 @@ class CudaServer(TPUComponent):
             self._norm_scale = torch.from_numpy(scale).to(self.device)
             self._norm_shift = torch.from_numpy(shift).to(self.device)
         if self.precision == "w8a8" and self.calibration_batches > 0:
-            from seldon_core_tpu_torch.ops.w8a8 import calibrate_act_scales
+            from seldon_core_tpu_torch.ops.w8a8 import act_scale_table, calibrate_act_scales
 
             batches = self._calibration_batches()
             self.act_scales_calibrated = calibrate_act_scales(self.module, batches)
+            self.act_scales = act_scale_table(self.module)
             logger.info("w8a8 calibration: %d activation scales fixed over %d batches",
                         self.act_scales_calibrated, len(batches))
         if self.quantize == "int8":
@@ -521,6 +523,7 @@ class CudaServer(TPUComponent):
             "quantize": self.quantize,
             "quantized_kernels": len(self.quantize_manifest),
             "act_scales_calibrated": self.act_scales_calibrated,
+            "act_scales": self.act_scales,
             "param_bytes": self.param_bytes,
             "normalize": self.normalize,
             "load_time_s": self._load_time_s,

@@ -5,13 +5,15 @@
   runs a convert, a multiply, an add and a cast as four passes over
   device memory before the first convolution).
 * ``int8_matmul`` (K2) — ``(x @ w_int8) * scale[col]`` with f32
-  accumulation, the int8 weights converted inside the tile;
+  accumulation on the tensor cores, the int8 weights converted inside the
+  tile, K split across blocks (fixed-order sum) when M is small;
   ``Int8Dense`` wraps it as a layer and ``quantize_weights`` converts a
   trained (K, N) kernel.
 * ``flash_attention`` (K3) — blockwise attention with an online softmax
   over (batch, seq, heads, head_dim) q, k, v, causal or not, read where
-  they lie; the attention of every ``TransformerBlock`` served with
-  ``"attention": "flash"`` (the ViTs, the encoder, the LM).
+  they lie (bf16 / f16 products on the tensor cores); the attention of
+  every ``TransformerBlock`` served with ``"attention": "flash"`` (the
+  ViTs, the encoder, the LM).
 * ``paged_attention_decode`` — one decode step of attention over a paged
   K/V pool, read through the block table, as the unnormalised flash
   state ``(acc, m, l)``; the ``stream`` kernel (K4) by default, the
@@ -226,13 +228,22 @@ def int8_matmul(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
         return out
     lda, ldw = max(x.stride(0), k), max(w_int8.stride(0), n)
     vec_x = x.data_ptr() % 16 == 0 and (lda * x.element_size()) % 16 == 0
-    vec_w = w_int8.data_ptr() % 8 == 0 and ldw % 8 == 0
+    w_align = next((a for a in (16, 8) if w_int8.data_ptr() % a == 0 and ldw % a == 0), 1)
+    tiles = -(-m // K2_TILE) * -(-n // K2_TILE)
+    sms = _sm_count(x.device.index)
+    splits = k2_splits(m, n, k, sms, K2_DEPTH[x.dtype])
     lib = _matmul_lib()
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        partials = counters = None
+        if splits > 1:
+            partials = torch.empty((splits, tiles, K2_TILE * K2_TILE), dtype=torch.float32, device=x.device)
+            counters = _k2_counters(x.device, stream, sms)
         err = lib.int8_matmul(
             x.data_ptr(), w_int8.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, k, lda, ldw,
-            _MATMUL_KINDS[x.dtype], _MATMUL_KINDS[out_dtype], int(vec_x), int(vec_w),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            _MATMUL_KINDS[x.dtype], _MATMUL_KINDS[out_dtype], int(vec_x), w_align,
+            None if partials is None else partials.data_ptr(), None if counters is None else counters.data_ptr(),
+            splits, stream,
         )
     if err != 0:
         raise KernelLaunchError(f"int8_matmul launch failed: cudaError {err}")
@@ -240,12 +251,43 @@ def int8_matmul(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+K2_TILE = 128       # csrc/int8_matmul.cu kBM = kBN: the output tile of one block
+# csrc/int8_matmul.cu Layout::kBK: the k-tile, by x's dtype
+K2_DEPTH = {torch.float32: 32, torch.bfloat16: 64, torch.float16: 64}
+_K2_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def k2_splits(m: int, n: int, k: int, sms: int, depth: int) -> int:
+    """K slices of one K2 call: 1 when the 128 x 128 output tiles fill the
+    card's SMs, else as many as bring the blocks to about one wave, each
+    slice at least ``64 // depth`` k-tiles of ``depth`` deep (64 of K) and
+    none empty."""
+    tiles = -(-m // K2_TILE) * -(-n // K2_TILE)
+    k_tiles = -(-k // depth)
+    least = max(64 // depth, 1)
+    if tiles >= sms or k_tiles < 2 * least:
+        return 1
+    splits = min(sms // tiles, k_tiles // least)
+    return -(-k_tiles // -(-k_tiles // splits))  # no empty slice
+
+
+def _k2_counters(device: torch.device, stream: int, sms: int) -> torch.Tensor:
+    """The per-tile arrival counters of split-K calls on one stream, one per
+    SM (a split call has fewer output tiles than SMs): zeroed once, and left
+    at 0 by every call (the last block of a tile resets its counter), so
+    calls in stream order share them."""
+    key = (device.index, stream)
+    if key not in _K2_COUNTERS:
+        _K2_COUNTERS[key] = torch.zeros(sms, dtype=torch.int32, device=device)
+    return _K2_COUNTERS[key]
+
+
 def _matmul_lib() -> ctypes.CDLL:
     lib = _build.load("int8_matmul")
     fn = lib.int8_matmul
     if fn.restype is not ctypes.c_int or not fn.argtypes:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, i, i, i, ll, ll, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, ll, ll, i, i, i, i, p, p, i, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -342,7 +384,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     head_dim, head_dim a multiple of 8 up to 128; anything else raises.
     On a CPU tensor it is :func:`flash_attention_reference`.  ``block_q``
     and ``block_k`` are accepted for parity with the JAX function, where
-    they set the TPU tiling; the CUDA kernel's tiles are 64 rows, and
+    they set the TPU tiling; the CUDA kernel's key tiles are 64 rows, and
     neither changes the result.
 
     A causal call with ``seq_q != seq_k`` returns ``plain_attention``, on

@@ -28,7 +28,7 @@ int path ran (the JAX package audits its HLO for the same purpose).
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -46,6 +46,7 @@ __all__ = [
     "W8A8Dense",
     "W8A8Conv",
     "calibrate_act_scales",
+    "act_scale_table",
 ]
 
 # the flax variable collections these map to: the calibrated scales (the
@@ -294,3 +295,13 @@ def calibrate_act_scales(module: nn.Module, batches: Iterable[torch.Tensor], mar
             m.observed = None
             n += 1
     return n
+
+
+def act_scale_table(module: nn.Module) -> Dict[str, float]:
+    """Each enabled w8a8 layer's ``act_scale`` by module name, in module
+    order (0.0 = a dynamic per-sample scale), read with one device sync."""
+    layers = [(name, m) for name, m in module.named_modules() if isinstance(m, _W8A8Mixin) and m.enable]
+    if not layers:
+        return {}
+    values = torch.stack([m.act_scale.float() for _, m in layers]).cpu().tolist()
+    return {name: v for (name, _), v in zip(layers, values)}

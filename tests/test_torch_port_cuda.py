@@ -419,3 +419,137 @@ def test_served_precision_lanes_on_the_card():
             assert kernels.launch_counts()["w8a8_int_mm"] == (11 if precision == "w8a8" else 0)
         finally:
             cs.unload()
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core bodies of K3 (bf16 / f16) and K2 (mma.sync, split K)
+# ---------------------------------------------------------------------------
+
+def _flash_qkv(B, L, H, D, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((B, L, H, D), dtype=np.float32)).to(dtype).cuda()
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("head_dim", [8, 16, 40, 64, 96, 128])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_flash_attention_tensor_core_head_dims(dtype, head_dim, causal):
+    """Every head_dim the kernel takes, padded to the mma's 16 where it is
+    not a multiple of 16, at the ViT's 197 tokens (ragged tiles)."""
+    _need_card()
+    q, k, v = _flash_qkv(2, 197, 3, head_dim, dtype, seed=head_dim)
+    assert_flash_close(kernels.flash_attention(q, k, v, causal=causal),
+                       kernels.flash_attention_reference(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("L", [1, 2, 63, 64, 65, 197])
+def test_flash_attention_tensor_core_lengths(dtype, L):
+    _need_card()
+    for causal in (False, True):
+        q, k, v = _flash_qkv(3, L, 2, 64, dtype, seed=L)
+        assert_flash_close(kernels.flash_attention(q, k, v, causal=causal),
+                           kernels.flash_attention_reference(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def test_flash_attention_tensor_core_rows_with_no_finite_score_write_zero(dtype):
+    """A causal row whose every live score is non-finite (its q row is inf)
+    gets weight 0 everywhere and writes 0, as the plain version does; the
+    other rows are untouched, and nothing is NaN.  No key at all (Lk = 0)
+    writes 0 too."""
+    _need_card()
+    q, k, v = _flash_qkv(2, 130, 2, 64, dtype, seed=3)
+    q[0, 70] = float("inf")
+    got = kernels.flash_attention(q, k, v, causal=True)
+    ref = kernels.flash_attention_reference(q, k, v, causal=True)
+    assert_flash_close(got, ref)
+    assert bool((got[0, 70] == 0).all())
+    empty = q.new_zeros((2, 0, 2, 64))
+    out = kernels.flash_attention(q[:, :5], empty, empty)
+    assert tuple(out.shape) == (2, 5, 2, 64) and bool((out == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def test_flash_attention_tensor_core_views(dtype):
+    """The qkv split read where it lies, and views whose rows are not
+    16-byte aligned (element loads into shared memory)."""
+    _need_card()
+    B, L, H, D = 2, 197, 4, 64
+    qkv = torch.randn(B, L, 3 * H * D, device="cuda", dtype=dtype)
+    q, k, v = (t.reshape(B, L, H, D) for t in qkv.split(H * D, dim=-1))
+    assert_flash_close(kernels.flash_attention(q, k, v), kernels.flash_attention_reference(q, k, v))
+    flat = torch.randn(3 * B * L * H * D + 1, device="cuda", dtype=dtype)
+    q, k, v = (flat[1 + i * B * L * H * D:1 + (i + 1) * B * L * H * D].view(B, L, H, D) for i in range(3))
+    assert q.data_ptr() % 16
+    for causal in (False, True):
+        assert_flash_close(kernels.flash_attention(q, k, v, causal=causal),
+                           kernels.flash_attention_reference(q, k, v, causal=causal))
+
+
+# (M, K, N): ViT-B/16's fc1 at batch 32, the ResNet-50 head, the LM's qkv, one row
+K2_MODEL_SHAPES = [(6304, 768, 3072), (32, 2048, 1000), (16, 512, 1536), (1, 768, 3072)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32], ids=["bf16", "f16", "f32"])
+@pytest.mark.parametrize("shape", K2_MODEL_SHAPES, ids=["fc1", "head", "qkv", "row"])
+def test_int8_matmul_tensor_core_shapes_repeat_bit_for_bit(dtype, shape):
+    """The model shapes in every x dtype (split K at the small-M ones):
+    within the bars of the plain version, and two calls give the same bits
+    (the slices are added in a fixed order)."""
+    _need_card()
+    m, k, n = shape
+    x, w_q, scale = _k2_inputs(m, k, n, dtype, seed=m + n)
+    first = kernels.int8_matmul(x, w_q, scale)
+    second = kernels.int8_matmul(x, w_q, scale)
+    ref = kernels.int8_matmul_reference(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert_k2_close(first, ref)
+    assert torch.equal(first.view(torch.uint8), second.view(torch.uint8))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32], ids=["bf16", "f16", "f32"])
+@pytest.mark.parametrize("m,k,n", [(129, 31, 130), (7, 1000, 257), (300, 4097, 20), (1, 8, 1), (64, 520, 1003)])
+def test_int8_matmul_tensor_core_ragged_edges(dtype, m, k, n):
+    """M, N and K off every tile edge; K deep enough at (300, 4097) to split;
+    w rows of odd width (element loads of w) at N = 257 and 1003."""
+    _need_card()
+    x, w_q, scale = _k2_inputs(m, k, n, dtype, seed=m * 7 + k)
+    assert_k2_close(kernels.int8_matmul(x, w_q, scale), kernels.int8_matmul_reference(x, w_q, scale))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32], ids=["bf16", "f16", "f32"])
+@pytest.mark.parametrize("n", [1536, 1544], ids=["w16", "w8"])
+def test_int8_matmul_tensor_core_unsplit_every_output_dtype(dtype, n):
+    """Enough output tiles to run without split K, so the epilogue goes
+    straight from the accumulators: every output dtype, w rows aligned to
+    16 and to 8 bytes (N = 1544), and the same bits on a second call."""
+    _need_card()
+    m, k = 2048, 256
+    x, w_q, scale = _k2_inputs(m, k, n, dtype, seed=n)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert kernels.k2_splits(m, n, k, sms, kernels.K2_DEPTH[dtype]) == 1
+    for out_dtype in (torch.float32, torch.bfloat16, torch.float16):
+        got = kernels.int8_matmul(x, w_q, scale, out_dtype=out_dtype)
+        again = kernels.int8_matmul(x, w_q, scale, out_dtype=out_dtype)
+        assert got.dtype == out_dtype and torch.equal(got, again)
+        assert_k2_close(got, kernels.int8_matmul_reference(x, w_q, scale, out_dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_int8_matmul_tensor_core_misaligned_x_and_split_k(dtype):
+    """x rows that are not 16-byte aligned (element loads) at a split-K
+    shape, and every output dtype."""
+    _need_card()
+    m, k, n = 32, 2048, 1000
+    x, w_q, scale = _k2_inputs(m, k, n, dtype, seed=31)
+    wide = torch.zeros(m, k + 3, dtype=dtype, device="cuda")
+    wide[:, 1:k + 1] = x
+    view = wide[:, 1:k + 1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert view.data_ptr() % 16 and kernels.k2_splits(m, n, k, sms, kernels.K2_DEPTH[dtype]) > 1
+    for out_dtype in (torch.float32, torch.bfloat16, torch.float16):
+        got = kernels.int8_matmul(view, w_q, scale, out_dtype=out_dtype)
+        assert got.dtype == out_dtype
+        assert_k2_close(got, kernels.int8_matmul_reference(x, w_q, scale, out_dtype))

@@ -184,6 +184,23 @@ def test_health_of_the_default_lane():
         s.unload()
 
 
+def test_health_reports_each_calibrated_act_scale():
+    """/health/status carries every w8a8 layer's calibrated scale by module
+    name (the same numbers as the layers' buffers), and none for int8w."""
+    q, w = _server(precision="w8a8"), _server(precision="int8w")
+    q.load()
+    w.load()
+    try:
+        scales = q.health_status()["act_scales"]
+        layers = {name: float(m.act_scale) for name, m in q.module.named_modules() if hasattr(m, "act_scale")}
+        assert len(scales) == q.act_scales_calibrated == 11
+        assert scales == layers and all(v > 0 for v in scales.values())
+        assert w.health_status()["act_scales"] == {}
+    finally:
+        q.unload()
+        w.unload()
+
+
 def test_resnet50_w8a8_calibrates_52_layers_and_quantises_54_kernels():
     # constructed and loaded at a small input, not served
     s = _server(model="resnet50", num_classes=16, input_shape=(32, 32, 3), max_batch_size=1,

@@ -24,7 +24,6 @@ from seldon_core_tpu_torch.models import vit
 from seldon_core_tpu_torch.models.convert import encoder_params_from_flax, vit_params_from_flax
 from seldon_core_tpu_torch.models.transformer import TransformerEncoder, TransformerLM, plain_attention
 from seldon_core_tpu_torch.ops import kernels
-from seldon_core_tpu_torch.runtime import MicroserviceError
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -87,12 +86,30 @@ class TestViTTiny:
         assert tuple(sd["pos_embed"].shape) == (1, 17, 64)
 
     def test_non_native_resolution_names_the_roadmap_item(self, tiny_params):
+        """Another resolution divisible by the patch is served through the
+        bicubic pos_embed resize, as flax serves it; one that is not
+        divisible is refused, as flax refuses it."""
         model = _port_vit(vit.ViTTiny, tiny_params, False, num_classes=10)
-        with pytest.raises(MicroserviceError, match="ROADMAP.md §A 9") as err:
-            model(torch.zeros(1, 48, 48, 3))
-        assert err.value.reason == "BAD_INPUT_SHAPE"
+        x = _images(2, (48, 48, 3), seed=7)
+        ref = flax_vit.ViTTiny(num_classes=10, dtype=jnp.float32).apply({"params": tiny_params}, jnp.asarray(x))
+        with torch.inference_mode():
+            got = model(torch.from_numpy(x))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
         with pytest.raises(ValueError, match="not divisible by patch_size"):
             model(torch.zeros(1, 36, 32, 3))
+
+    @pytest.mark.parametrize("size", [48, 24], ids=["up-6x6", "down-3x3"])
+    @pytest.mark.parametrize("flash", [False, True], ids=["plain", "flash"])
+    def test_other_resolutions_match_flax(self, tiny_params, size, flash):
+        x = _images(2, (size, size, 3), seed=size)
+        attn = {"attn_fn": jax_flash_attn_fn()} if flash else {}
+        ref = flax_vit.ViTTiny(num_classes=10, dtype=jnp.float32, **attn).apply({"params": tiny_params},
+                                                                                  jnp.asarray(x))
+        model = _port_vit(vit.ViTTiny, tiny_params, flash, num_classes=10)
+        with torch.inference_mode():
+            got = model(torch.from_numpy(x))
+        assert tuple(got.shape) == (2, 10)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
     def test_legacy_pos_grid_sizes_pos_embed_from_the_image(self):
         module = vit.VisionTransformer(num_classes=5, patch_size=8, d_model=32, num_layers=1, num_heads=2,
@@ -112,6 +129,34 @@ class TestViTTiny:
         assert 0.015 < float(a.pos_embed.detach().std()) < 0.025
         fan_in = 3 * 8 * 8
         assert abs(float(a.patch_embed.weight.detach().std()) * np.sqrt(fan_in) - 1.0) < 0.15
+
+
+# (native grid, output rows, output columns): up, down, non-square, and
+# ViT-B/16's 14x14 grid at 384x384 (24x24) and at 112x160
+@pytest.mark.parametrize("grid,h,w", [(4, 6, 6), (4, 3, 3), (4, 2, 2), (4, 3, 6), (4, 4, 7), (14, 24, 24),
+                                      (14, 7, 10)])
+def test_pos_embed_resize_matches_jax_image_resize(grid, h, w):
+    """float32 within 1e-6 absolute: the same weights, contracted in
+    another order (two einsums against one)."""
+    d = 768 if grid == 14 else 64
+    pos = (np.random.default_rng(grid * h + w).standard_normal((1, grid * grid + 1, d)) * 0.02).astype(np.float32)
+    ref = jax.image.resize(jnp.asarray(pos[:, 1:]).reshape(1, grid, grid, d), (1, h, w, d), method="bicubic")
+    ref = np.concatenate([pos[:, :1], np.asarray(ref).reshape(1, h * w, d)], axis=1)
+    got = vit.resize_pos_embed(torch.from_numpy(pos), grid, h, w)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (1, h * w + 1, d)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
+
+
+def test_bicubic_weights_are_not_interpolates():
+    """Keys' a = -0.5 and the antialiased downsample: each output's taps
+    sum to 1, and the weights differ from F.interpolate's a = -0.75."""
+    for n_in, n_out in ((4, 6), (14, 24), (4, 3), (14, 7)):
+        w = vit.bicubic_weights(n_in, n_out)
+        assert tuple(w.shape) == (n_out, n_in)
+        np.testing.assert_allclose(w.sum(dim=1).numpy(), 1.0, rtol=0, atol=1e-6)
+    eye = torch.eye(4)[None, None]  # interpolate each basis vector: its weights
+    interp = torch.nn.functional.interpolate(eye, size=(4, 6), mode="bicubic", align_corners=False)[0, 0]
+    assert (interp.T - vit.bicubic_weights(4, 6)).abs().max() > 1e-2
 
 
 def test_vit_base16_geometry_cut_to_two_layers_matches_flax():
