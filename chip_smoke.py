@@ -21,7 +21,10 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    ids, ragged lengths 0..1024) and a small ragged one (head_dim 16,
    pages of 8), bf16 and f32 pages; largest |kernel - plain| over finite
    entries within 1e-4 of the largest |plain|, -inf and 0 exactly where
-   the plain version has them, no NaN; kernel, plain and library
+   the plain version has them, no NaN; at the serving shape each lane's
+   bits unchanged by a repeated call, by the lanes in reverse order, by
+   half the batch, and by other lengths and tables in the other lanes
+   (one launch a call for both kernels); kernel, plain and library
    (gather + scaled_dot_product_attention) times at uniform length 512
    and at the ragged lengths, beside the bound;
 3c. the flash-attention kernel K3 against its plain version on the card
@@ -106,7 +109,8 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    (random int8 pages, positive random scales, lanes over adapter slots
    0, 1 and 2, rank 8), q in bf16 and f32: acc / m / l as in 3b, the
    (B, 3D) delta within 1e-5 of the largest |plain|, slot-0 lanes' delta
-   exactly 0; kernel, plain and library (dequantised gather +
+   exactly 0; each lane's bits unchanged as in 3b (the other lanes'
+   adapter slots changed too); kernel, plain and library (dequantised gather +
    scaled_dot_product_attention, plus two torch.bmm for the fold) times at
    uniform length 512 and ragged, beside the bound;
    (b) the CLI serving ``StreamingLM`` at the generation config with
@@ -230,6 +234,8 @@ PAGED_CASES = [  # (lanes, heads, head_dim, page_size, table pages, lengths)
     (5, 2, 16, 8, 6, [0, 1, 8, 9, 48]),
 ]
 PAGED_REL_TOL = 1e-4            # largest |kernel - plain| over finite entries / largest |plain|
+PAGED_DESIGN = ("one launch: a block a (lane, chunk of pages, head group), cp.async into an mbarrier ring, "
+                "the lane's chunks merged by its last block")
 GEN_MIN_IDENTICAL_SHARE = 0.75  # concurrent served rows equal to the in-process rows
 GEN_LATENCY_REQUESTS = 120
 GEN_CLIENTS = 16
@@ -444,6 +450,49 @@ def compare_flash_state(torch, got, ref, what):
     return worst_abs, worst_rel
 
 
+def lane_invariance(torch, kernels, impl, args, kw, what):
+    """A lane's outputs, bit for bit, do not depend on what it is
+    co-scheduled with: a repeated call, the lanes in reverse order, the
+    even lanes alone (half the batch), and the odd lanes given other
+    lengths, tables and adapter slots all give each lane the bits of the
+    first call.  -> the number of comparisons made."""
+    q, pk, pv, tables, lens = args
+    B = q.shape[0]
+
+    def call(sel=None, lens_=lens, tables_=tables, slots=None):
+        sel = torch.arange(B, device=q.device) if sel is None else sel
+        kw_ = dict(kw)
+        if kw.get("lora") is not None:
+            x, a, b, idx, q_scale = kw["lora"]
+            kw_["lora"] = (x[sel], a, b, (idx if slots is None else slots)[sel], q_scale)
+        with knob_env(SELDON_TPU_PAGED_KERNEL_IMPL=impl):
+            out = kernels.paged_attention_decode(q[sel], pk, pv, tables_[sel], lens_[sel], **kw_)
+        torch.cuda.synchronize()
+        return out
+
+    def same(got, lanes, label):
+        for name, g, r in zip(("acc", "m", "l", "delta"), got, base):
+            check(bool(torch.equal(g, r[lanes])), f"{what}: {label} changes a lane's {name} bits")
+
+    base = call()
+    every = torch.arange(B, device=q.device)
+    same(call(), every, "a repeated call")
+    rev = torch.flip(every, (0,))
+    same(call(rev), rev, "reversing the lanes")
+    even, odd = every[0::2], every[1::2]
+    same(call(even), even, "half the batch")
+    lens2, tables2 = lens.clone(), tables.clone()
+    lens2[odd] = torch.roll(lens[odd], 1)
+    tables2[odd] = torch.roll(tables[odd], 1, 0)
+    slots = None
+    if kw.get("lora") is not None:
+        slots = kw["lora"][3].clone()
+        slots[odd] = (slots[odd] + 1) % LORA_SLOTS
+    other = call(lens_=lens2, tables_=tables2, slots=slots)
+    same([t[even] for t in other], even, "other lengths, tables and adapter slots in the other lanes")
+    return 4
+
+
 def paged_bound(B, h, hd, ps, P, lengths, elt, mem_bytes_per_s):
     """Least time for one call: the live pages' K and V, q, the tables and
     lengths read once, acc/m/l written once, over the memory rate; the
@@ -474,7 +523,14 @@ def paged_kernel_checks(torch, np, kernels, mem_bytes_per_s):
 
     import torch.nn.functional as F
 
-    B, h, hd, ps, P, _ = PAGED_CASES[0]
+    B, h, hd, ps, P, lengths = PAGED_CASES[0]
+    for dtype in (torch.bfloat16, torch.float32):
+        args = paged_inputs(torch, np, B, h, hd, ps, P, lengths, dtype, seed=3)
+        for impl in ("stream", "grid"):
+            what = f"paged_decode_{impl} B={B} h={h} hd={hd} ps={ps} P={P} {str(dtype)[6:]}"
+            n = lane_invariance(torch, kernels, impl, args, dict(page_size=ps), what)
+            log(f"{what}: each lane bit-identical over {n} co-schedulings (repeat, reversed, B/2, other lanes "
+                f"changed)")
     timings = {}
     for label, lengths in (("uniform512", [512] * B), ("ragged", RAGGED_LENGTHS)):
         q, pk, pv, tables, lens = paged_inputs(torch, np, B, h, hd, ps, P, lengths, torch.bfloat16, seed=7)
@@ -1121,7 +1177,7 @@ def engine_numbers(torch, np, PagedEngine, load_lm_params, card, make_engine=Non
     eng.run()
 
     by_name, busy_us = device_time_by_name(prof)
-    k4_us = sum(us for name, (us, _) in by_name.items() if "paged_decode_stream" in name)
+    k4_us = sum(us for name, (us, _) in by_name.items() if "paged_decode_kernel" in name)
     launches = sum(n for _, n in by_name.values())
     log(f"profile of one {what} decode chunk ({LM_ENGINE['steps_per_call']} steps, 16 lanes, prompt 128): wall "
         f"{chunk_ms:.3f} ms, {launches} device events, device busy {busy_us / 1e3:.3f} ms, idle share "
@@ -1402,7 +1458,18 @@ def paged_variant_checks(torch, np, kernels, mem_bytes_per_s):
                     log(msg)
                     check(err_rel <= PAGED_REL_TOL, f"{what} differs from its plain version: {err_rel}")
 
-    B, h, hd, ps, P, _ = PAGED_CASES[0]
+    B, h, hd, ps, P, lengths = PAGED_CASES[0]
+    for quantized in (True, False):
+        args, scales, lora = variant_inputs(torch, np, B, h, hd, ps, P, lengths, torch.bfloat16, quantized, seed=23)
+        for v in PAGED_VARIANTS:
+            impl, v_quant, fold = v
+            if v_quant != quantized:
+                continue
+            what = f"{kernels.paged_launch_name(*v)} B={B} h={h} hd={hd} ps={ps} P={P} q bfloat16"
+            n = lane_invariance(torch, kernels, impl, args,
+                                dict(page_size=ps, kv_scales=scales, lora=lora if fold else None), what)
+            log(f"{what}: each lane bit-identical over {n} co-schedulings (repeat, reversed, B/2, other lanes "
+                f"changed{', adapter slots too' if fold else ''})")
     T = P * ps
     timings = {}
     for label, lengths in (("uniform512", [512] * B), ("ragged", RAGGED_LENGTHS)):
@@ -1562,7 +1629,6 @@ def quantized_engine_numerics(torch, np, kernels, PagedEngine, load_lm_params, W
     prompts = [rng.integers(0, V, int(n)) for n in np.linspace(16, 700, 16)]
     adapters = [None, "a1", "a2"] * 6
     params = load_lm_params("", LM_CONFIG, SEED + 5, torch.device("cuda"))
-    per_launch = {"stream": 1, "grid": 2}
     launches = {}
 
     def tokens(dtype="float32", with_adapters=False, max_new=16, **env):
@@ -1577,17 +1643,16 @@ def quantized_engine_numerics(torch, np, kernels, PagedEngine, load_lm_params, W
                        for p, a in zip(prompts, adapters)]
             eng.run()
             counts = {k: n for k, n in kernels.launch_counts().items() if n}
-            impl = kernels.paged_kernel_impl(LM_CONFIG["num_heads"], LM_CONFIG["d_model"] // LM_CONFIG["num_heads"])
         steps = eng.engine_stats()["chunks"] * LM_ENGINE["steps_per_call"]
         out = np.stack([s.result for s in streams])
-        lane = (eng._kernel_active, eng._kv_int8, impl, steps)
+        lane = (eng._kernel_active, eng._kv_int8, steps)
         del eng
         torch.cuda.empty_cache()
         return out, counts, lane
 
     def expect_launches(counts, lane, name):
-        kernel_active, _, impl, steps = lane
-        want = LM_CONFIG["num_layers"] * steps * per_launch[impl]
+        kernel_active, _, steps = lane
+        want = LM_CONFIG["num_layers"] * steps  # K4 and K5 alike: one launch a layer-step
         check(kernel_active and counts == {name: want},
               f"{name}: launches {counts} on its path, expected exactly {want} ({steps} decode steps)")
         launches[name] = want
@@ -2089,6 +2154,7 @@ def run() -> int:
             "ms": uni[impl], "plain_ms": uni["plain_ms"], "bound_ms": uni["bound_ms"], "bound_by": "bytes",
             "library_ms": uni["library_ms"],
             "library_call": "pk[tables] gather + F.scaled_dot_product_attention (two calls, normalised)",
+            "design": PAGED_DESIGN,
             "shape": [B, h, hd, ps, P], "lengths": "uniform 512", "pool_dtype": "bfloat16",
             "ragged": {"ms": rag[impl], "plain_ms": rag["plain_ms"], "library_ms": rag["library_ms"],
                        "bound_ms": rag["bound_ms"], "lengths": RAGGED_LENGTHS},
@@ -2135,6 +2201,7 @@ def run() -> int:
             "library_ms": uni["library_ms"],
             "library_call": ("pk[tables] gather" + (" dequantised" if v[1] else "")
                              + (" + two torch.bmm" if v[2] else "") + " + F.scaled_dot_product_attention"),
+            "design": PAGED_DESIGN,
             "shape": [B, h, hd, ps, P], "lengths": "uniform 512", "q_dtype": "bfloat16",
             "pool_dtype": "int8" if v[1] else "bfloat16",
             "ragged": {"ms": rag["ms"], "plain_ms": rag["plain_ms"], "library_ms": rag["library_ms"],

@@ -7,15 +7,18 @@ Covers the payload kinds of the wire contract that this port serves:
 * ``rawTensor`` — dtype + shape + raw little-endian bytes; decodes with
                   ``np.frombuffer`` (no copy, no float64 widening), so a
                   uint8 image batch reaches the device as uint8.  numpy
-                  has no bfloat16: a bfloat16 payload is read as uint16
-                  and widened exactly to float32 (``u16 << 16``), the
-                  values the JAX codec's ``ml_dtypes`` array upcasts to
+                  has no bfloat16 or narrower floats: a bfloat16 payload
+                  is read as uint16 and widened exactly to float32
+                  (``u16 << 16``); the float8 / float6 / float4 names
+                  (one byte an element, as ``ml_dtypes`` stores them)
+                  widen exactly to float32 and int4 / uint4 / int2 /
+                  uint2 to int8 / uint8, each by a table lookup of the
+                  byte's bits: the values the JAX codec's ``ml_dtypes``
+                  array upcasts to
 * ``binData`` / ``strData`` / ``jsonData`` — passed through as
   bytes / str / python objects
 
-Not served yet: ``tftensor`` payloads, and the other ``ml_dtypes`` names
-on the wire (the float8 / float6 / float4 and int4 / int2 families).
-Both are a :class:`PayloadError` (HTTP 400).
+Not served yet: ``tftensor`` payloads, a :class:`PayloadError` (HTTP 400).
 """
 
 from __future__ import annotations
@@ -34,16 +37,75 @@ class PayloadError(ValueError):
     """Raised when a message payload cannot be decoded."""
 
 
-# ml_dtypes families the JAX codec resolves and this port does not serve
-# (refused by name even where ml_dtypes, imported by another package, has
-# registered them with numpy)
-_UNSERVED_PREFIXES = ("float8_", "float6_", "float4_", "int4", "uint4", "int2", "uint2")
+def _float_table(exp_bits: int, man_bits: int, bias: int, special: str) -> np.ndarray:
+    """float32 value of every code of a narrow float format, from its bit
+    fields: sign (absent for ``e8m0``), ``exp_bits`` exponent bits with
+    ``bias``, ``man_bits`` mantissa bits; subnormals below the smallest
+    exponent.  ``special`` names the format's non-finite codes:
+    ``"ieee"`` inf / NaN at the top exponent; ``"fn"`` NaN where every
+    exponent and mantissa bit is set, no inf; ``"fnuz"`` NaN at the one
+    negative-zero code, no inf and no -0; ``"none"`` every code finite;
+    ``"e8m0"`` unsigned powers of two 2**(e - bias), NaN at all ones."""
+    signed = special != "e8m0"
+    n = 1 << (exp_bits + man_bits + signed)
+    codes = np.arange(n, dtype=np.int64)
+    man = codes & ((1 << man_bits) - 1)
+    exp = (codes >> man_bits) & ((1 << exp_bits) - 1)
+    sign = np.where(codes >= (1 << (exp_bits + man_bits)), -1.0, 1.0)  # e8m0: no code reaches the sign
+    frac = man / float(1 << man_bits)
+    if special == "e8m0":
+        values = np.ldexp(1.0, exp - bias)
+    else:
+        values = sign * np.where(exp == 0, np.ldexp(frac, 1 - bias), np.ldexp(1.0 + frac, exp - bias))
+    top = (1 << exp_bits) - 1
+    if special == "ieee":
+        values = np.where(exp == top, np.where(man == 0, sign * np.inf, np.nan), values)
+    elif special == "fn":
+        values = np.where((exp == top) & (man == (1 << man_bits) - 1), np.nan, values)
+    elif special == "fnuz":
+        values = np.where(codes == n // 2, np.nan, values)
+    elif special == "e8m0":
+        values = np.where(exp == top, np.nan, values)
+    return values.astype(np.float32)
+
+
+def _int_table(bits: int, signed: bool) -> np.ndarray:
+    codes = np.arange(1 << bits, dtype=np.int64)
+    if signed:
+        codes = np.where(codes >= 1 << (bits - 1), codes - (1 << bits), codes)
+    return codes.astype(np.int8 if signed else np.uint8)
+
+
+# the narrow ml_dtypes names the JAX codec resolves: one byte an element
+# on the wire, the format's code in its low bits; each byte widens by a
+# lookup of those bits (float32 for the floats, int8 / uint8 for the ints)
+_NARROW_TABLES = {
+    "float8_e4m3fn": _float_table(4, 3, 7, "fn"),
+    "float8_e5m2": _float_table(5, 2, 15, "ieee"),
+    "float8_e4m3fnuz": _float_table(4, 3, 8, "fnuz"),
+    "float8_e5m2fnuz": _float_table(5, 2, 16, "fnuz"),
+    "float8_e4m3b11fnuz": _float_table(4, 3, 11, "fnuz"),
+    "float8_e3m4": _float_table(3, 4, 3, "ieee"),
+    "float8_e4m3": _float_table(4, 3, 7, "ieee"),
+    "float8_e8m0fnu": _float_table(8, 0, 127, "e8m0"),
+    "float6_e2m3fn": _float_table(2, 3, 1, "none"),
+    "float6_e3m2fn": _float_table(3, 2, 3, "none"),
+    "float4_e2m1fn": _float_table(2, 1, 1, "none"),
+    "int4": _int_table(4, True),
+    "uint4": _int_table(4, False),
+    "int2": _int_table(2, True),
+    "uint2": _int_table(2, False),
+}
 
 
 def np_dtype(name: str) -> np.dtype:
-    """Resolve a wire dtype name to a numpy dtype."""
-    if name.startswith(_UNSERVED_PREFIXES):
-        raise PayloadError(f"dtype {name!r} on the wire is not served by the PyTorch port yet")
+    """Resolve a wire dtype name to the numpy dtype its payload decodes
+    to: the widened type for ``bfloat16`` and the narrow ``ml_dtypes``
+    names, else numpy's own."""
+    if name == "bfloat16":
+        return np.dtype(np.float32)
+    if name in _NARROW_TABLES:
+        return _NARROW_TABLES[name].dtype
     try:
         return np.dtype(name)
     except TypeError:
@@ -53,10 +115,16 @@ def np_dtype(name: str) -> np.dtype:
 def raw_to_array(data: bytes, name: str, shape: tuple) -> np.ndarray:
     """Raw little-endian bytes of wire dtype ``name`` -> ndarray, checked.
     ``bfloat16`` is widened exactly to float32: its bits are the upper
-    half of the float32 of the same value."""
+    half of the float32 of the same value.  A narrow ``ml_dtypes`` name
+    widens through its table (the code's bits below the format's width
+    index it)."""
     if name == "bfloat16":
         bits = frombuffer_checked(data, np.dtype("<u2"), shape, name)
         return (bits.astype(np.uint32) << 16).view(np.float32)
+    table = _NARROW_TABLES.get(name)
+    if table is not None:
+        codes = frombuffer_checked(data, np.dtype(np.uint8), shape, name)
+        return table[codes & (table.size - 1)]
     return frombuffer_checked(data, np_dtype(name), shape)
 
 

@@ -49,6 +49,7 @@ batching); nor the detection family (``detector_*``).
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import logging
 import threading
 import time
@@ -172,6 +173,22 @@ def resolve_device(device: str) -> torch.device:
         raise MicroserviceError(f"unsupported device {device!r} (cuda or cpu)", status_code=400,
                                 reason="BAD_DEVICE")
     return dev
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's autotuner off and its deterministic algorithms on for the
+    block, then the settings as they were.  The w8a8 calibration runs in
+    it: with the autotuner on, each process may time other convolution
+    algorithms, and an abs-max over activations that differ in the last
+    bit calibrates another scale."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.deterministic = before
 
 
 class CudaServer(TPUComponent):
@@ -405,7 +422,8 @@ class CudaServer(TPUComponent):
             from seldon_core_tpu_torch.ops.w8a8 import act_scale_table, calibrate_act_scales
 
             batches = self._calibration_batches()
-            self.act_scales_calibrated = calibrate_act_scales(self.module, batches)
+            with deterministic_cudnn():
+                self.act_scales_calibrated = calibrate_act_scales(self.module, batches)
             self.act_scales = act_scale_table(self.module)
             logger.info("w8a8 calibration: %d activation scales fixed over %d batches",
                         self.act_scales_calibrated, len(batches))

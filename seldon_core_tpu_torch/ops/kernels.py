@@ -64,9 +64,9 @@ def reset_launch_counts() -> None:
             _LAUNCHES[k] = 0
 
 
-def _count(name: str, launches: int = 1) -> None:
+def _count(name: str) -> None:
     with _COUNT_LOCK:
-        _LAUNCHES[name] += launches
+        _LAUNCHES[name] += 1
 
 
 class KernelLaunchError(RuntimeError):
@@ -238,7 +238,7 @@ def int8_matmul(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
         partials = counters = None
         if splits > 1:
             partials = torch.empty((splits, tiles, K2_TILE * K2_TILE), dtype=torch.float32, device=x.device)
-            counters = _k2_counters(x.device, stream, sms)
+            counters = _arrival_counters(x.device, stream, sms)  # a split call has fewer tiles than SMs
         err = lib.int8_matmul(
             x.data_ptr(), w_int8.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, k, lda, ldw,
             _MATMUL_KINDS[x.dtype], _MATMUL_KINDS[out_dtype], int(vec_x), w_align,
@@ -254,7 +254,6 @@ def int8_matmul(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
 K2_TILE = 128       # csrc/int8_matmul.cu kBM = kBN: the output tile of one block
 # csrc/int8_matmul.cu Layout::kBK: the k-tile, by x's dtype
 K2_DEPTH = {torch.float32: 32, torch.bfloat16: 64, torch.float16: 64}
-_K2_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def k2_splits(m: int, n: int, k: int, sms: int, depth: int) -> int:
@@ -271,15 +270,21 @@ def k2_splits(m: int, n: int, k: int, sms: int, depth: int) -> int:
     return -(-k_tiles // -(-k_tiles // splits))  # no empty slice
 
 
-def _k2_counters(device: torch.device, stream: int, sms: int) -> torch.Tensor:
-    """The per-tile arrival counters of split-K calls on one stream, one per
-    SM (a split call has fewer output tiles than SMs): zeroed once, and left
-    at 0 by every call (the last block of a tile resets its counter), so
-    calls in stream order share them."""
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _arrival_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 arrival counters for a kernel that reduces
+    across its blocks in the same launch (K2's split K: one per output
+    tile; the paged decode's merge: one per lane and head group), one
+    buffer per stream: zeroed once, and left at 0 by every call (the last
+    block to arrive resets its counter), so calls in stream order share
+    it; a larger zeroed buffer replaces it when a call needs more."""
     key = (device.index, stream)
-    if key not in _K2_COUNTERS:
-        _K2_COUNTERS[key] = torch.zeros(sms, dtype=torch.int32, device=device)
-    return _K2_COUNTERS[key]
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+    return buf
 
 
 def _matmul_lib() -> ctypes.CDLL:
@@ -456,6 +461,30 @@ def _flash_lib() -> ctypes.CDLL:
 _POOL_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 PAGED_MAX_HEAD_DIM = 128  # csrc/paged_decode.cu kMaxHeadDim
 PAGED_MAX_LORA_RANK = 64  # csrc/paged_decode.cu kMaxRank
+PAGED_CHUNK_ROWS = 64  # csrc/paged_decode.cu kMaxChunkRows: K4's chunk of pages, in rows
+PAGED_GROUP_BYTES = 512  # csrc/paged_decode.cu kMaxGroupBytes: a head group's share of a pool row
+PAGED_GROUP_ELEMS = 256  # csrc/paged_decode.cu kMaxGroupElems: ... in elements, head_dim padded
+PAGED_GROUP_HEADS = 16  # csrc/paged_decode.cu kMaxGroupHeads
+
+
+def paged_split(impl: str, heads: int, head_dim: int, page_size: int, table_pages: int,
+                pool_dtype: torch.dtype) -> Tuple[int, int]:
+    """How a lane is split across the decode kernel's blocks: ``(G, HG)``,
+    a block owning a chunk of ``G`` pages of one lane for a group of
+    ``HG`` heads.  The geometry alone decides, never the batch or the
+    lengths, so a lane's bits do not change with what is co-scheduled.
+    K5 (``grid``) keeps one page a block; K4 (``stream``) gathers pages
+    of fewer than 64 rows into chunks of at most 64 rows.  ``HG`` is the
+    most heads (at most 16, dividing ``heads``) whose share of a pool
+    row, head_dim padded to whole 16-byte pieces, is at most 256
+    elements and 512 bytes (4 heads of 64 in bf16 or int8), so two
+    blocks fit an SM."""
+    chunk_pages = 1 if impl == "grid" else max(1, min(table_pages, PAGED_CHUNK_ROWS // page_size))
+    elt = torch.empty((), dtype=pool_dtype).element_size()
+    padded = -(-head_dim * elt // 16) * 16 // elt  # elements
+    group_heads = max(g for g in range(1, min(heads, PAGED_GROUP_HEADS) + 1)
+                      if heads % g == 0 and g * padded <= PAGED_GROUP_ELEMS and g * padded * elt <= PAGED_GROUP_BYTES)
+    return chunk_pages, group_heads
 
 
 def paged_kernel_impl(heads: int, head_dim: int) -> str:
@@ -575,11 +604,12 @@ def paged_attention_decode(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
     the raw (B, 3D) float32 delta, for the caller's self-term and pool
     write.  ``lora`` with the grid impl raises, as in the JAX package.
 
-    On a CUDA tensor this launches K4 (``stream``: one block per lane and
-    head) or K5 (``grid``: one block per lane and page, then a merge
-    launch; both count), as ``paged_kernel_impl`` says, each counted
-    under its variant's name (:func:`paged_launch_name`); on a CPU tensor
-    it is :func:`paged_attention_decode_reference`.
+    On a CUDA tensor this launches K4 (``stream``) or K5 (``grid``), as
+    ``paged_kernel_impl`` says: one launch, its blocks each a chunk of a
+    lane's pages for a group of heads (:func:`paged_split`), the lane's
+    chunks merged in the same launch; counted under its variant's name
+    (:func:`paged_launch_name`).  On a CPU tensor it is
+    :func:`paged_attention_decode_reference`.
     """
     _check_paged_args(q, pk, pv, block_tables, lengths, page_size, kv_scales, lora)
     B, h, hd = q.shape
@@ -625,46 +655,40 @@ def paged_attention_decode(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
     lengths = lengths.contiguous()
     f32 = dict(dtype=torch.float32, device=q.device)
     acc, m, l = torch.empty((B, h, hd), **f32), torch.empty((B, h), **f32), torch.empty((B, h), **f32)
-    head = (q.data_ptr(), pk.data_ptr(), pv.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-            acc.data_ptr(), m.data_ptr(), l.data_ptr())
+    chunk_pages, group_heads = paged_split(impl, h, hd, page_size, P, pk.dtype)
+    chunks = -(-P // chunk_pages)
     scales = (sk.data_ptr(), sv.data_ptr()) if quantized else (None, None)
-    kinds = (_POOL_KINDS[q.dtype], _POOL_KINDS[pk.dtype])
     delta = None
+    if fold:
+        delta = torch.empty((B, 3 * h * hd), **f32)
+        lora_ptrs = (x.data_ptr(), a.data_ptr(), b_f.data_ptr(), idx.data_ptr(), delta.data_ptr())
+        rank, slots, q_scale = a.shape[2], a.shape[0], float(q_scale)
+    else:
+        lora_ptrs, rank, slots, q_scale = (None,) * 5, 0, 0, 0.0
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if impl == "stream":
-            if fold:
-                delta = torch.empty((B, 3 * h * hd), **f32)
-                lora_ptrs = (x.data_ptr(), a.data_ptr(), b_f.data_ptr(), idx.data_ptr(), delta.data_ptr())
-                rank, slots, q_scale = a.shape[2], a.shape[0], float(q_scale)
-            else:
-                lora_ptrs, rank, slots, q_scale = (None,) * 5, 0, 0, 0.0
-            err = lib.paged_decode_stream(*head, *scales, *lora_ptrs, B, h, hd, P, page_size, *kinds, rank, slots,
-                                          q_scale, stream)
-            launches = 1
-        else:
-            part_acc = torch.empty((B, P, h, hd), **f32)
-            part_m, part_l = torch.empty((B, P, h), **f32), torch.empty((B, P, h), **f32)
-            err = lib.paged_decode_grid(*head, part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), *scales,
-                                        B, h, hd, P, page_size, *kinds, stream)
-            launches = 2  # the per-page partials, then the merge
+        scratch = (None,) * 4
+        if chunks > 1:  # a lane may span several blocks: partials and the merge's counters
+            part_acc = torch.empty((B, chunks, h, hd), **f32)
+            part_m, part_l = torch.empty((B, chunks, h), **f32), torch.empty((B, chunks, h), **f32)
+            counters = _arrival_counters(q.device, stream, B * (h // group_heads))
+            scratch = (part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), counters.data_ptr())
+        err = lib.paged_decode(q.data_ptr(), pk.data_ptr(), pv.data_ptr(), block_tables.data_ptr(),
+                               lengths.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), *scales, *scratch,
+                               *lora_ptrs, B, h, hd, P, page_size, chunk_pages, group_heads,
+                               _POOL_KINDS[q.dtype], _POOL_KINDS[pk.dtype], rank, slots, q_scale, stream)
     name = paged_launch_name(impl, quantized, fold)
     if err != 0:
         raise KernelLaunchError(f"{name} launch failed: cudaError {err}")
-    _count(name, launches)
+    _count(name)
     return (acc, m, l) if delta is None else (acc, m, l, delta)
 
 
 def _paged_lib() -> ctypes.CDLL:
     lib = _build.load("paged_decode")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    signatures = {
-        "paged_decode_stream": [p] * 15 + [i] * 9 + [ctypes.c_float, p],
-        "paged_decode_grid": [p] * 13 + [i] * 7 + [p],
-    }
-    for name, argtypes in signatures.items():
-        fn = getattr(lib, name)
-        if fn.restype is not ctypes.c_int or not fn.argtypes:
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+    fn = lib.paged_decode
+    if fn.restype is not ctypes.c_int or not fn.argtypes:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 19 + [i] * 11 + [ctypes.c_float, p]
+        fn.restype = ctypes.c_int
     return lib

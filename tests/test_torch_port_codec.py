@@ -1,10 +1,12 @@
-"""bfloat16 on the wire: the port's codec against the JAX package's.
+"""bfloat16 and the narrow ml_dtypes on the wire: the port's codec against
+the JAX package's.
 
-The JAX codec resolves ``bfloat16`` through ``ml_dtypes`` and keeps the
-payload as an ``ml_dtypes.bfloat16`` array; the port (no ``ml_dtypes``)
-reads the same bytes as uint16 and widens them to float32.  Widening is
-exact, so the port's array equals the JAX array upcast to float32 bit for
-bit, and a served model sees the values a float32 request would carry.
+The JAX codec resolves ``bfloat16`` and the float8 / float6 / float4 and
+int4 / int2 names through ``ml_dtypes`` and keeps the payload in that
+type; the port (no ``ml_dtypes``) reads the same bytes as uint16 or uint8
+and widens them to float32 (int8 / uint8 for the integers).  Widening is
+exact, so the port's array equals the JAX array upcast bit for bit, and a
+served model sees the values a float32 request would carry.
 """
 
 import asyncio
@@ -59,12 +61,40 @@ def test_bf16_payload_errors_name_the_wire_dtype():
         raw_tensor_to_array(pb.RawTensor(shape=[3], dtype="bfloat16", data=b"\x00" * 4))
 
 
-@pytest.mark.parametrize("name", ["float8_e4m3fn", "float8_e5m2", "int4"])
-def test_other_ml_dtypes_are_refused_by_name(name):
-    data = np.zeros(4, getattr(ml_dtypes, name)).tobytes()
-    jax_tensor.raw_tensor_to_array(jax_pb.RawTensor(shape=[4], dtype=name, data=data))  # the JAX codec takes it
-    with pytest.raises(PayloadError, match=f"{name}.*not served by the PyTorch port"):
-        raw_tensor_to_array(pb.RawTensor(shape=[4], dtype=name, data=data))
+# the narrow ml_dtypes names the JAX codec resolves, with their widths in bits
+NARROW_DTYPES = {
+    "float8_e4m3fn": 8, "float8_e5m2": 8, "float8_e4m3fnuz": 8, "float8_e5m2fnuz": 8, "float8_e4m3b11fnuz": 8,
+    "float8_e3m4": 8, "float8_e4m3": 8, "float8_e8m0fnu": 8, "float6_e2m3fn": 6, "float6_e3m2fn": 6,
+    "float4_e2m1fn": 4, "int4": 4, "uint4": 4, "int2": 2, "uint2": 2,
+}
+
+
+@pytest.mark.parametrize("name", sorted(NARROW_DTYPES))
+def test_narrow_ml_dtypes_widen_like_the_jax_codec(name):
+    """Every code of the format (NaN codes included), as ml_dtypes writes
+    it into a rawTensor, decodes to the JAX codec's array upcast: equal
+    values, NaN at the same places, equal signed zeros."""
+    dtype = np.dtype(getattr(ml_dtypes, name))
+    codes = np.arange(1 << NARROW_DTYPES[name], dtype=np.uint8)
+    x = codes.view(dtype).reshape(-1, 2) if codes.size > 2 else codes.view(dtype)
+    data = x.tobytes()
+    is_float = name.startswith("float")
+    wide = np.float32 if is_float else (np.int8 if name.startswith("int") else np.uint8)
+    if is_float:  # ml_dtypes writes each finite value back as its code
+        values = x.astype(np.float32)
+        finite = ~np.isnan(values)
+        np.testing.assert_array_equal(values[finite].astype(dtype).view(np.uint8), x.view(np.uint8)[finite])
+    ref = jax_tensor.raw_tensor_to_array(jax_pb.RawTensor(shape=list(x.shape), dtype=name, data=data)).astype(wide)
+    got = raw_tensor_to_array(pb.RawTensor(shape=list(x.shape), dtype=name, data=data))
+    got_json, _, _, kind = extract_json_payload(_raw_json(x, dtype=name))  # the REST path's decoder
+    assert kind == "rawTensor"
+    for arr in (got, got_json):
+        assert arr.dtype == wide and arr.shape == x.shape
+        if is_float:
+            np.testing.assert_array_equal(np.isnan(arr), np.isnan(ref))
+            np.testing.assert_array_equal(arr.view(np.uint32)[~np.isnan(ref)], ref.view(np.uint32)[~np.isnan(ref)])
+        else:
+            np.testing.assert_array_equal(arr, ref)
 
 
 def test_cuda_server_answers_bf16_as_the_same_values_in_f32():

@@ -93,6 +93,23 @@ def _paged_inputs(B, h, hd, ps, P, lengths, dtype, seed):
     return out + [torch.from_numpy(tables).cuda(), torch.tensor(lengths, dtype=torch.int32).cuda()]
 
 
+def _assert_paged_close(got, ref):
+    """acc / m / l within PAGED_REL_TOL of the plain version, -inf and 0
+    exactly where it has them; the fold's delta within 1e-5, 0 where it is."""
+    assert len(got) == len(ref)
+    for g, r in zip(got[:3], ref[:3]):
+        assert g.dtype == torch.float32 and g.shape == r.shape and not torch.isnan(g).any()
+        special = torch.isinf(r) | (r == 0)
+        assert torch.equal(g[special], r[special])
+        fin = ~special
+        if bool(fin.any()):
+            assert ((g[fin] - r[fin]).abs().max() / r[fin].abs().max()).item() <= PAGED_REL_TOL
+    if len(got) == 4:
+        d, rd = got[3], ref[3]
+        assert torch.equal(d[rd == 0], rd[rd == 0])
+        assert ((d - rd).abs().max() / rd.abs().max().clamp_min(1e-30)).item() <= 1e-5
+
+
 @pytest.mark.parametrize("case", range(len(PAGED_CASES)))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("impl", ["stream", "grid"])
@@ -106,13 +123,8 @@ def test_paged_decode_matches_plain_version(impl, dtype, case, monkeypatch):
     got = kernels.paged_attention_decode(*args, page_size=ps)
     ref = kernels.paged_attention_decode_reference(*args, page_size=ps)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()[name] == before + (1 if impl == "stream" else 2)
-    for g, r in zip(got, ref):
-        assert g.dtype == torch.float32 and g.shape == r.shape and not torch.isnan(g).any()
-        special = torch.isinf(r) | (r == 0)
-        assert torch.equal(g[special], r[special])
-        fin = ~special
-        assert ((g[fin] - r[fin]).abs().max() / r[fin].abs().max()).item() <= PAGED_REL_TOL
+    assert kernels.launch_counts()[name] == before + 1  # K4 and K5 alike: one launch, the merge inside
+    _assert_paged_close(got, ref)
 
 
 # the int8 and LoRA-fold variants: (impl, int8 pages, fold)
@@ -160,18 +172,155 @@ def test_paged_decode_variants_match_plain_version(impl, quantized, fold, dtype,
     got = kernels.paged_attention_decode(*args, **kw)
     ref = kernels.paged_attention_decode_reference(*args, **kw)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()[name] == before + (1 if impl == "stream" else 2)
+    assert kernels.launch_counts()[name] == before + 1
     assert len(got) == len(ref) == (4 if fold else 3)
-    for g, r in zip(got[:3], ref[:3]):
-        assert g.dtype == torch.float32 and g.shape == r.shape and not torch.isnan(g).any()
-        special = torch.isinf(r) | (r == 0)
-        assert torch.equal(g[special], r[special])
-        fin = ~special
-        assert ((g[fin] - r[fin]).abs().max() / r[fin].abs().max()).item() <= PAGED_REL_TOL
+    _assert_paged_close(got, ref)
     if fold:
-        delta, ref_delta, idx = got[3], ref[3], lora[3]
-        assert bool((delta[idx == 0] == 0).all())
-        assert ((delta - ref_delta).abs().max() / ref_delta.abs().max()).item() <= 1e-5
+        assert bool((got[3][lora[3] == 0] == 0).all())  # slot-0 lanes: exactly 0
+
+
+def _call(impl, args, kw, monkeypatch):
+    monkeypatch.setenv("SELDON_TPU_PAGED_KERNEL_IMPL", impl)
+    return kernels.paged_attention_decode(*args, **kw)
+
+
+def _pick(args, kw, sel, lengths=None, tables=None, slots=None):
+    """The lanes `sel` of a call's inputs, with other lengths / tables /
+    adapter slots where given."""
+    q, pk, pv, t, lens = args
+    lens = lens if lengths is None else lengths
+    t = t if tables is None else tables
+    kw = dict(kw)
+    if kw.get("lora") is not None:
+        x, a, b, idx, q_scale = kw["lora"]
+        kw["lora"] = (x[sel], a, b, (idx if slots is None else slots)[sel], q_scale)
+    return [q[sel], pk, pv, t[sel], lens[sel]], kw
+
+
+@pytest.mark.parametrize("impl,quantized,fold", [("stream", False, False), ("grid", False, False)] + PAGED_VARIANTS,
+                         ids=["paged_decode_stream", "paged_decode_grid"] +
+                             [kernels.paged_launch_name(*v) for v in PAGED_VARIANTS])
+def test_paged_decode_lane_bits_do_not_depend_on_other_lanes(impl, quantized, fold, monkeypatch):
+    """A lane's (acc, m, l, delta) stay bit-identical when the other lanes'
+    lengths, tables and adapter slots change, and when B changes."""
+    _need_card()
+    B, h, hd, ps, P, lengths = PAGED_CASES[0]
+    args, scales, lora = _variant_inputs(B, h, hd, ps, P, lengths, torch.bfloat16, quantized, seed=40)
+    kw = dict(page_size=ps, kv_scales=scales, lora=lora if fold else None)
+    base = _call(impl, args, kw, monkeypatch)
+    every = torch.arange(B, device="cuda")
+    even, odd = every[0::2], every[1::2]
+    lens2, tables2 = args[4].clone(), args[3].clone()
+    lens2[odd] = torch.roll(args[4][odd], 3)
+    tables2[odd] = torch.roll(args[3][odd], 1, 0)
+    slots = lora[3].clone()
+    slots[odd] = (slots[odd] + 1) % LORA_SLOTS
+    for sel, extra in ((torch.flip(every, (0,)), {}), (even, {}), (every[:3], {}),
+                       (every, dict(lengths=lens2, tables=tables2, slots=slots))):
+        got = _call(impl, *_pick(args, kw, sel, **extra), monkeypatch)
+        keep = even if extra else sel
+        for g, r in zip(got, base):
+            assert torch.equal(g[keep if extra else slice(None)], r[keep])
+
+
+@pytest.mark.parametrize("impl", ["stream", "grid"])
+def test_paged_decode_repeats_bit_for_bit(impl, monkeypatch):
+    _need_card()
+    B, h, hd, ps, P, lengths = PAGED_CASES[0]
+    args, scales, lora = _variant_inputs(B, h, hd, ps, P, lengths, torch.bfloat16, True, seed=41)
+    kw = dict(page_size=ps, kv_scales=scales, lora=lora if impl == "stream" else None)
+    first = _call(impl, args, kw, monkeypatch)
+    for _ in range(5):
+        for g, r in zip(_call(impl, args, kw, monkeypatch), first):
+            assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize("impl", ["stream", "grid"])
+def test_paged_decode_lengths_at_chunk_edges(impl, ps, monkeypatch):
+    """Lengths one below, at and one above a chunk of G pages, and above
+    the table's P * ps (capped), against the plain version."""
+    _need_card()
+    h, hd, P = 4, 32, 12
+    G, _ = kernels.paged_split(impl, h, hd, ps, P, torch.bfloat16)
+    edge = G * ps
+    lengths = [0, 1, edge - 1, edge, edge + 1, 2 * edge - 1, 2 * edge + 1, P * ps - 1, P * ps, P * ps + 1,
+               P * ps + 100]
+    args, _, _ = _variant_inputs(len(lengths), h, hd, ps, P, [max(n, 0) for n in lengths], torch.bfloat16,
+                                 False, seed=ps)
+    got = _call(impl, args, dict(page_size=ps), monkeypatch)
+    _assert_paged_close(got, kernels.paged_attention_decode_reference(*args, page_size=ps))
+
+
+# (heads, head_dim, page size): head_dim 16 / 64 / 128, pages of 8 / 16 / 64,
+# h * hd up to 16 x 128
+PAGED_GEOMETRIES = [(2, 16, 8), (8, 64, 16), (4, 128, 64), (16, 128, 16), (16, 64, 64), (3, 40, 8)]
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("geometry", PAGED_GEOMETRIES, ids=[f"h{h}-hd{d}-ps{p}" for h, d, p in PAGED_GEOMETRIES])
+@pytest.mark.parametrize("impl,fold", [("stream", False), ("grid", False), ("stream", True)],
+                         ids=["stream", "grid", "stream-lora"])
+def test_paged_decode_geometries_match_plain_version(impl, fold, geometry, pool, monkeypatch):
+    _need_card()
+    h, hd, ps = geometry
+    P, lengths = 6, [0, 1, ps - 1, ps, ps + 1, 3 * ps + 5, 6 * ps, 6 * ps + 9]
+    quantized = pool == "int8"
+    qdtype = torch.float32 if pool == "float32" else torch.bfloat16
+    args, scales, lora = _variant_inputs(len(lengths), h, hd, ps, P, lengths, qdtype, quantized, seed=h * hd + ps)
+    kw = dict(page_size=ps, kv_scales=scales, lora=lora if fold else None)
+    name = kernels.paged_launch_name(impl, quantized, fold)
+    before = kernels.launch_counts()[name]
+    got = _call(impl, args, kw, monkeypatch)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    _assert_paged_close(got, kernels.paged_attention_decode_reference(*args, **kw))
+
+
+def test_paged_decode_grid_is_one_device_kernel(monkeypatch):
+    """K5 computes, merges and writes in one launch: the profiler sees one
+    kernel on the device for one call."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    B, h, hd, ps, P, lengths = PAGED_CASES[0]
+    args = _paged_inputs(B, h, hd, ps, P, lengths, torch.bfloat16, seed=5)
+    monkeypatch.setenv("SELDON_TPU_PAGED_KERNEL_IMPL", "grid")
+    kernels.paged_attention_decode(*args, page_size=ps)  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kernels.paged_attention_decode(*args, page_size=ps)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+             and "paged_decode" in e.name]
+    assert len(names) == 1, names
+
+
+def test_paged_decode_back_to_back_calls_share_the_counters(monkeypatch):
+    """Calls queued on one stream without a sync between them share the
+    arrival counters (the paged merge's, and K2's split K between them):
+    each result equals its plain version, and the counters are 0
+    afterwards."""
+    _need_card()
+    B, h, hd, ps, P, _ = PAGED_CASES[0]
+    rng = np.random.default_rng(6)
+    calls, products = [], []
+    for i in range(12):
+        lengths = rng.integers(0, P * ps + 1, B).tolist()
+        args, scales, lora = _variant_inputs(B, h, hd, ps, P, lengths, torch.bfloat16, i % 2 == 0, seed=60 + i)
+        impl = ("stream", "grid")[i % 3 == 0]
+        kw = dict(page_size=ps, kv_scales=scales, lora=lora if impl == "stream" and i % 4 == 1 else None)
+        calls.append((impl, args, kw, _call(impl, args, kw, monkeypatch)))
+        if i % 3 == 1:  # the LM's qkv at 16 lanes: K2 splits K
+            x, w_q, scale = _k2_inputs(16, 512, 1536, torch.float32, seed=i)
+            products.append((x, w_q, scale, kernels.int8_matmul(x, w_q, scale)))
+    torch.cuda.synchronize()
+    for impl, args, kw, got in calls:
+        _assert_paged_close(got, kernels.paged_attention_decode_reference(*args, **kw))
+    for x, w_q, scale, got in products:
+        assert_k2_close(got, kernels.int8_matmul_reference(x, w_q, scale))
+    stream = torch.cuda.current_stream().cuda_stream
+    assert int(kernels._COUNTERS[(torch.cuda.current_device(), stream)].abs().sum()) == 0
 
 
 def test_int8_adapter_streaminglm_round_trip(monkeypatch):
@@ -226,8 +375,7 @@ def test_paged_engine_launches_the_kernel_every_step_of_every_layer(impl, monkey
     streams = [eng.submit(rng.integers(0, 128, n), max_new_tokens=8) for n in (5, 17, 40)]
     eng.run()
     steps = eng.engine_stats()["chunks"] * 4
-    per_launch = 1 if impl == "stream" else 2
-    assert kernels.launch_counts()[f"paged_decode_{impl}"] == cfg["num_layers"] * steps * per_launch
+    assert kernels.launch_counts()[f"paged_decode_{impl}"] == cfg["num_layers"] * steps
     assert all(s.result.shape == (8,) and ((s.result >= 0) & (s.result < 128)).all() for s in streams)
 
 

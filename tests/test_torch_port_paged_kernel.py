@@ -139,3 +139,46 @@ def test_page_size_mismatch_raises():
     with pytest.raises(ValueError, match="page_size"):
         kernels.paged_attention_decode(torch.from_numpy(q), torch.from_numpy(pk), torch.from_numpy(pv),
                                        torch.from_numpy(tables), torch.from_numpy(lengths), page_size=PS * 2)
+
+
+# (impl, heads, head_dim, page size, table pages, pool dtype) -> (G, HG)
+SPLITS = [
+    (("stream", 8, 64, 64, 16, torch.bfloat16), (1, 4)),   # the serving shape: a page and 4 heads a block
+    (("grid", 8, 64, 64, 16, torch.bfloat16), (1, 4)),
+    (("stream", 8, 64, 64, 16, torch.float32), (1, 2)),    # f32 rows are twice as wide: half the heads
+    (("stream", 8, 64, 64, 16, torch.int8), (1, 4)),
+    (("stream", 2, 16, 8, 6, torch.float32), (6, 2)),      # pages of 8: up to 64 rows a chunk, capped at P
+    (("grid", 2, 16, 8, 6, torch.float32), (1, 2)),
+    (("stream", 16, 128, 16, 64, torch.bfloat16), (4, 2)),
+    (("stream", 3, 40, 8, 6, torch.int8), (6, 3)),         # head_dim padded to 48 bytes
+]
+
+
+@pytest.mark.parametrize("geometry,split", SPLITS, ids=[f"{g[0]}-h{g[1]}-hd{g[2]}-ps{g[3]}-P{g[4]}-{g[5]}"[:60]
+                                                        for g, _ in SPLITS])
+def test_split_follows_the_geometry(geometry, split):
+    assert kernels.paged_split(*geometry) == split
+
+
+def test_split_depends_on_the_geometry_alone():
+    """How a lane is split across blocks is decided from the geometry
+    (heads, head_dim, page size, table pages, pool dtype) and the impl:
+    nothing about the batch or the lengths enters, and every choice stays
+    inside the kernel's limits."""
+    import inspect
+
+    assert list(inspect.signature(kernels.paged_split).parameters) == [
+        "impl", "heads", "head_dim", "page_size", "table_pages", "pool_dtype"]
+    for impl in ("stream", "grid"):
+        for heads in (1, 2, 3, 8, 12, 16, 32):
+            for head_dim in (8, 16, 40, 64, 128):
+                for ps in (1, 8, 16, 64, 100):
+                    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+                        G, HG = kernels.paged_split(impl, heads, head_dim, ps, 16, dtype)
+                        elt = torch.empty((), dtype=dtype).element_size()
+                        padded = -(-head_dim * elt // 16) * 16  # bytes
+                        assert 1 <= G <= 16 and (G == 1 or G * ps <= kernels.PAGED_CHUNK_ROWS)
+                        assert G == 1 or impl == "stream"
+                        assert heads % HG == 0 and HG <= kernels.PAGED_GROUP_HEADS
+                        assert HG * padded <= kernels.PAGED_GROUP_BYTES
+                        assert HG * padded // elt <= kernels.PAGED_GROUP_ELEMS

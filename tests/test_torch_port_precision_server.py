@@ -201,6 +201,33 @@ def test_health_reports_each_calibrated_act_scale():
         w.unload()
 
 
+def test_w8a8_calibrates_with_the_cudnn_autotuner_off(monkeypatch):
+    """The calibration runs with cuDNN's autotuner off and its
+    deterministic algorithms on, so two processes fix the same scales;
+    the serving settings come back after it."""
+    import torch
+
+    from seldon_core_tpu_torch.ops import w8a8
+
+    seen = []
+    calibrate = w8a8.calibrate_act_scales
+
+    def spy(module, batches, *a, **kw):
+        seen.append((torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic))
+        return calibrate(module, batches, *a, **kw)
+
+    monkeypatch.setattr(w8a8, "calibrate_act_scales", spy)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", True)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    q = _server(precision="w8a8")
+    q.load()
+    try:
+        assert seen == [(False, True)] and q.act_scales_calibrated == 11
+        assert (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic) == (True, False)
+    finally:
+        q.unload()
+
+
 def test_resnet50_w8a8_calibrates_52_layers_and_quantises_54_kernels():
     # constructed and loaded at a small input, not served
     s = _server(model="resnet50", num_classes=16, input_shape=(32, 32, 3), max_batch_size=1,
