@@ -10,11 +10,17 @@ JAX or of the JAX package.  Phases, each of which fails the run:
 2. build every CUDA kernel of the main paths from ``ops/csrc``, one
    ``nvcc`` per source, all started together;
 3. ``fused_normalize`` (K1) against its plain PyTorch version on the
-   card, bit for bit, at the main path's shapes and at ragged ones;
-   kernel, plain and library-call times (CUDA events, median of 100, L2
-   flushed before each launch, then a GPU-side spin so the host has
-   enqueued the call before the start event) beside the bound (bytes
-   moved over the card's memory rate);
+   card, bit for bit, for bf16, f16 and f32 out: the main path's shapes
+   (32 and 1 images of 224x224x3), C = 3 with a byte count that is not a
+   whole number of 16-byte vectors, C = 1 and C = 4 with a tail, C = 5
+   (the generic body), fewer bytes than one vector, and a view 1 byte off
+   16-byte alignment; kernel, plain and library-call times (CUDA events,
+   median of 100, L2 flushed before each launch, then a GPU-side spin so
+   the host has enqueued the call before the start event) beside the
+   bound (bytes moved over the card's memory rate), the launch floor of
+   K1's own grid (the ``launch only`` copy of ``probe_normalize``, whose
+   kernels return at once) and PyTorch's cast-copy of the same traffic
+   (``out_bf16.copy_(x_u8)``);
 3b. the paged-decode kernels K4 (``stream``) and K5 (``grid``) against
    their plain version on the card: the serving shape (16 lanes, 8
    heads of 64, pages of 64, 16-page tables, random non-contiguous page
@@ -233,6 +239,10 @@ PAGED_CASES = [  # (lanes, heads, head_dim, page_size, table pages, lengths)
     (16, 8, 64, 64, 16, RAGGED_LENGTHS),
     (5, 2, 16, 8, 6, [0, 1, 8, 9, 48]),
 ]
+K1_DESIGN = ("one 16-byte vector a thread, the grid's threads a multiple of lcm(16, C) / 16 so a thread's channel "
+             "phase is fixed (C = 1, 3, 4 at compile time: scale and shift in registers), two loads in flight before "
+             "the arithmetic, each warp store writing whole 32-byte sectors (lane pairs trade halves), L2 evict_first "
+             "in / evict_last out, one wave sized from the occupancy")
 PAGED_REL_TOL = 1e-4            # largest |kernel - plain| over finite entries / largest |plain|
 PAGED_DESIGN = ("one launch: a block a (lane, chunk of pages, head group), cp.async into an mbarrier ring, "
                 "the lane's chunks merged by its last block")
@@ -343,34 +353,41 @@ def time_cuda(torch, fn, reps: int = 100, warm: int = 5, flush_mb: int = 256) ->
 
 # ---------------------------------------------------------------- phase 3
 
-def kernel_checks(torch, np, kernels, mem_bytes_per_s):
-    shapes = [(32, *IMG), (1, *IMG), (3, 5, 7, 1), (2, 9, 11, 4)]
+def kernel_checks(torch, np, kernels, mem_bytes_per_s, launch_only):
+    shapes = [(32, *IMG), (1, *IMG), (3, 5, 7, 1), (2, 9, 11, 4), (1, 5, 7, 3), (3, 5, 7, 4), (2, 3, 5, 5),
+              (1, 1, 5, 3), "misaligned"]
     dtypes = [torch.bfloat16, torch.float16, torch.float32]
     bits = {torch.bfloat16: torch.int16, torch.float16: torch.int16, torch.float32: torch.int32}
     rng = np.random.default_rng(SEED)
     max_err = 0.0
     inputs = {}
     for shape in shapes:
+        view = shape == "misaligned"
+        if view:  # (2, 7, 9, 3) one byte past a 16-byte boundary
+            shape = (2, 7, 9, 3)
         c = shape[-1]
         if c == 3:
             scale, shift = kernels.imagenet_affine()
         else:
             scale = rng.uniform(0.001, 0.05, c).astype(np.float32)
             shift = rng.uniform(-2.0, 1.0, c).astype(np.float32)
-        x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).cuda()
+        n = int(np.prod(shape))
+        x = torch.from_numpy(rng.integers(0, 256, n + view, dtype=np.uint8)).cuda()[int(view):].view(shape)
+        check(bool(x.data_ptr() % 16) == view, f"fused_normalize {shape}: the input's alignment is not the case's")
         s, b = torch.from_numpy(scale).cuda(), torch.from_numpy(shift).cuda()
         inputs[shape] = (x, s, b)
+        what = f"{shape}{' misaligned' if view else ''}"
         for dt in dtypes:
             got = kernels.fused_normalize(x, s, b, dt)
             ref = kernels.fused_normalize_reference(x, s, b, dt)
             torch.cuda.synchronize()
             check(got.shape == x.shape and got.dtype == dt and got.is_contiguous(),
-                  f"fused_normalize {shape} {dt}: bad output {tuple(got.shape)} {got.dtype}")
+                  f"fused_normalize {what} {dt}: bad output {tuple(got.shape)} {got.dtype}")
             same = torch.equal(got.view(bits[dt]), ref.view(bits[dt]))
             err = (got.float() - ref.float()).abs().max().item()
             max_err = max(max_err, err)
-            log(f"fused_normalize {shape} -> {str(dt)[6:]}: bit-identical={same} max_abs_err={err}")
-            check(same, f"fused_normalize {shape} {dt} differs from its plain version (max {err})")
+            log(f"fused_normalize {what} -> {str(dt)[6:]}: bit-identical={same} max_abs_err={err}")
+            check(same, f"fused_normalize {what} {dt} differs from its plain version (max {err})")
 
     timings = {}
     for batch in (32, 1):
@@ -388,14 +405,21 @@ def kernel_checks(torch, np, kernels, mem_bytes_per_s):
         ms = time_cuda(torch, lambda: kernels.fused_normalize(x, s, b, torch.bfloat16))
         plain_ms = time_cuda(torch, lambda: kernels.fused_normalize_reference(x, s, b, torch.bfloat16))
         library_ms = time_cuda(torch, library)
+        copy_ms = time_cuda(torch, lambda: lib_out.copy_(x))  # reads 1, writes 2 bytes an element
+        with launch_only:
+            launch_floor_ms = time_cuda(torch, lambda: kernels.fused_normalize(x, s, b, torch.bfloat16))
         n = x.numel()
         bound_bytes = n * (1 + 2) + 2 * s.numel() * 4  # u8 in, bf16 out, scale+shift
         # 2 f32 flops per element; 67 TFLOP/s f32 (non-tensor-core) peak
-        bound_ms = max(bound_bytes / mem_bytes_per_s, 2 * n / 67e12) * 1e3
-        timings[batch] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                          "bound_ms": bound_ms, "bytes": bound_bytes}
-        log(f"fused_normalize ({batch},224,224,3) u8->bf16: kernel {ms * 1e3:.2f} us, "
-            f"plain chain {plain_ms * 1e3:.2f} us, torch.addcmul(out=bf16) {library_ms * 1e3:.2f} us "
+        bound_ms = max(bound_bytes / mem_bytes_per_s, 2 * n / F32_PEAK_FLOPS) * 1e3
+        geo = kernels.fused_normalize_grid(x, torch.bfloat16)
+        timings[batch] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                          "launch_floor_ms": launch_floor_ms, "copy_ms": copy_ms, "bytes": bound_bytes,
+                          "grid": [geo.blocks, geo.threads]}
+        log(f"fused_normalize ({batch},224,224,3) u8->bf16: kernel {ms * 1e3:.2f} us on {geo.blocks} blocks of "
+            f"{geo.threads}, launch floor (same grid, kernels return at once) {launch_floor_ms * 1e3:.2f} us, "
+            f"out_bf16.copy_(x_u8) {copy_ms * 1e3:.2f} us, plain chain {plain_ms * 1e3:.2f} us, "
+            f"torch.addcmul(out=bf16) {library_ms * 1e3:.2f} us "
             f"(max abs diff from the plain version {lib_err}), bound {bound_ms * 1e3:.2f} us "
             f"({bound_bytes} bytes; {bound_ms / ms * 100:.1f}% of the memory roofline)")
     return max_err, timings
@@ -857,7 +881,8 @@ def main_path(torch, np, kernels, resnet, card):
     log(f"main path: {int(batches)} batches, mean rows/batch {m1['cudaserver_mean_batch_rows']:.2f}, "
         f"kernel launches {launches}")
     check(batches > 0 and m1["cudaserver_mean_batch_rows"] > 1.0, f"/metrics shows no batching: {m1}")
-    check(launches["fused_normalize"] > 0, "kernel fused_normalize was not launched on the main path")
+    check(launches["fused_normalize"] == batches,
+          f"fused_normalize launches {launches['fused_normalize']} != {int(batches)} batches on the main path")
     numbers = {
         "batches": batches, "launches_per_batch": {k: n / batches for k, n in launches.items()},
         "served_max_row_rel_l2": served_err,
@@ -2056,6 +2081,7 @@ def run() -> int:
         from seldon_core_tpu_torch.models.resnet import same_pads
         from seldon_core_tpu_torch.ops import _build, kernels, w8a8
         from seldon_core_tpu_torch.ops.lora import make_lora_params
+        from seldon_core_tpu_torch.tools import probe_normalize
     except ImportError as e:
         print(f"chip_smoke: FAIL: the port is not beside this script ({e})", file=sys.stderr)
         return 1
@@ -2066,12 +2092,16 @@ def run() -> int:
         card = smi_line
         t0 = time.perf_counter()
         sources = ("fused_normalize", "paged_decode", "flash_attention", "int8_matmul")
-        with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
+        with tempfile.TemporaryDirectory() as variant_dir, ThreadPoolExecutor(len(sources) + 1) as pool:
+            # one nvcc per source, all at once, and K1's launch-only copy beside them
+            floor = pool.submit(probe_normalize.build_variants, variant_dir, ("launch only",))
             libs = list(pool.map(_build.build, sources))
-        for source in sources:
-            _build.load(source)
-        log(f"built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f}s")
-        max_err, timings = kernel_checks(torch, np, kernels, mem_bytes_per_s)
+            for source in sources:
+                _build.load(source)
+            launch_only = probe_normalize.Swapped(floor.result()[0]["launch only"])
+            log(f"built {', '.join(lib.name for lib in libs)} and K1's launch-only copy in "
+                f"{time.perf_counter() - t0:.1f}s")
+            max_err, timings = kernel_checks(torch, np, kernels, mem_bytes_per_s, launch_only)
         paged_errs, paged_timings = paged_kernel_checks(torch, np, kernels, mem_bytes_per_s)
         flash_errs, flash_timings = flash_kernel_checks(torch, np, kernels, mem_bytes_per_s)
         k2_errs, k2_timings, k2_launches = int8_matmul_checks(torch, np, kernels, mem_bytes_per_s, card)
@@ -2132,12 +2162,15 @@ def run() -> int:
         "source": "seldon_core_tpu_torch/ops/csrc/fused_normalize.cu",
         "replaces": "seldon_core_tpu/ops/kernels.py:46",
         "launches": launches["fused_normalize"],
+        "launches_on": f"served ResNet-50 REST path (phases 4 + 6), one per batch: {int(numbers['batches'])} batches",
         "max_abs_err": max_err,
         "ms": t32["ms"], "plain_ms": t32["plain_ms"], "bound_ms": t32["bound_ms"],
         "bound_by": "bytes", "library_ms": t32["library_ms"], "library_call": "torch.addcmul(out=bf16)",
+        "launch_floor_ms": t32["launch_floor_ms"], "copy_ms": t32["copy_ms"],
+        "design": K1_DESIGN, "grid": t32["grid"],
         "shape": [32, *IMG], "out_dtype": "bfloat16",
-        "batch1": {"ms": t1["ms"], "plain_ms": t1["plain_ms"], "library_ms": t1["library_ms"],
-                   "bound_ms": t1["bound_ms"]},
+        "batch1": {k: t1[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "launch_floor_ms", "copy_ms",
+                                      "grid")},
     }]}
     uni, rag = paged_timings["uniform512"], paged_timings["ragged"]
     B, h, hd, ps, P, _ = PAGED_CASES[0]

@@ -33,8 +33,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import threading
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -125,10 +126,10 @@ def fused_normalize(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     shift = shift.to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):
+        geo = fused_normalize_grid(x, out_dtype)
         err = lib.fused_normalize_u8(
-            x.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(),
-            x.numel(), x.shape[-1], _OUT_KINDS[out_dtype], _sm_count(x.device.index),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            x.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), x.numel(), x.shape[-1],
+            _OUT_KINDS[out_dtype], geo.blocks, geo.threads, torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         raise KernelLaunchError(f"fused_normalize launch failed: cudaError {err}")
@@ -136,18 +137,95 @@ def fused_normalize(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     return out
 
 
+_NORMALIZE_THREADS = 256  # csrc/fused_normalize.cu kMaxThreads: the block of a full grid
+_MAX_BLOCKS_PER_SM = 32   # resident blocks an SM holds at most (sm_90)
+
+
+class NormalizeGeometry(NamedTuple):
+    """K1's launch: ``blocks`` x ``threads`` threads stride over the n // 16
+    whole 16-byte ``vectors`` (thread t takes vectors t, t + T, ... with T
+    the grid's threads), then over the ``tail`` = n % 16 bytes one at a
+    time.  The channel pattern repeats every ``unit`` = lcm(16, C) bytes
+    and T * 16 is a multiple of it, so every vector of a thread starts on
+    the same channel, 16 t mod C."""
+
+    unit: int
+    vectors: int
+    tail: int
+    threads: int
+    blocks: int
+
+    def spans(self, thread: int):
+        """Byte ranges [start, end) that ``thread`` converts, in order."""
+        stride, end = self.blocks * self.threads, 16 * self.vectors
+        return ([(16 * v, 16 * v + 16) for v in range(thread, self.vectors, stride)]
+                + [(i, i + 1) for i in range(end + thread, end + self.tail, stride)])
+
+
+def normalize_geometry(n: int, c: int, sms: int, blocks_per_sm: int) -> NormalizeGeometry:
+    """The grid of one K1 launch over ``n`` bytes of ``c`` channels: one
+    wave, one vector a thread where one wave holds them.
+
+    The block is the largest of 256, 128, 64, 32 threads that still gives
+    min(sms, vectors // 32) blocks, so a small batch spreads over the SMs
+    instead of filling a few.  A full grid (256 threads) holds
+    ``sms * blocks_per_sm`` blocks, the occupancy the library reports
+    (``fused_normalize_blocks_per_sm``); a smaller block holds the
+    registers of a proportional share.  The block count is a multiple of
+    what keeps the grid's threads a multiple of lcm(16, c) / 16.
+    """
+    if n < 0 or c < 1 or sms < 1 or blocks_per_sm < 1:
+        raise ValueError(f"normalize_geometry: bad n={n}, c={c}, sms={sms}, blocks_per_sm={blocks_per_sm}")
+    unit = 16 * c // math.gcd(16, c)
+    vectors, period = n // 16, unit // 16
+
+    def grid(threads):
+        step = period // math.gcd(period, threads)  # blocks that keep the threads a multiple of the period
+        resident = min(_MAX_BLOCKS_PER_SM, blocks_per_sm * _NORMALIZE_THREADS // threads)
+        cap = sms * resident // step * step
+        need = -(-max(1, -(-vectors // threads)) // step) * step
+        return step, cap, need
+
+    want = max(1, min(sms, vectors // 32))
+    threads = next((t for t in (256, 128, 64) if -(-vectors // t) >= want and grid(t)[1] >= grid(t)[0]), 32)
+    step, cap, need = grid(threads)
+    return NormalizeGeometry(unit, vectors, n % 16, threads, max(step, min(need, cap)))
+
+
+def fused_normalize_grid(x: torch.Tensor, out_dtype: torch.dtype) -> NormalizeGeometry:
+    """The grid ``fused_normalize`` launches for the CUDA tensor ``x``; the
+    caller has made ``x``'s device current."""
+    index = x.device.index
+    return normalize_geometry(x.numel(), x.shape[-1], _sm_count(index),
+                              _normalize_occupancy(index, x.shape[-1], _OUT_KINDS[out_dtype]))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _normalize_occupancy(device_index: int, c: int, kind: int) -> int:
+    """Resident 256-thread blocks an SM holds of the body K1 launches for
+    (c, kind); the caller has made the device current."""
+    blocks = ctypes.c_int(0)
+    err = _normalize_lib().fused_normalize_blocks_per_sm(c, kind, _NORMALIZE_THREADS, ctypes.byref(blocks))
+    if err != 0 or blocks.value < 1:
+        raise KernelLaunchError(f"fused_normalize occupancy query failed: cudaError {err}, {blocks.value} blocks")
+    return blocks.value
 
 
 def _normalize_lib() -> ctypes.CDLL:
     lib = _build.load("fused_normalize")
     fn = lib.fused_normalize_u8
     if fn.restype is not ctypes.c_int or not fn.argtypes:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, i, i, p]
+        fn.restype = i
+        occ = lib.fused_normalize_blocks_per_sm
+        occ.argtypes = [i, i, i, ctypes.POINTER(i)]
+        occ.restype = i
     return lib
 
 

@@ -37,7 +37,11 @@ def _inputs(shape, seed):
     return [torch.from_numpy(a).cuda() for a in (x, scale, shift)]
 
 
-@pytest.mark.parametrize("shape", [(32, 224, 224, 3), (3, 5, 7, 1), (2, 9, 11, 4), (1, 1, 1, 17)])
+# the served batches; C = 1, 3, 4 with and without a tail; C = 5 and 17 (the
+# generic body); fewer bytes than one unit; more units than one wave holds
+@pytest.mark.parametrize("shape", [(32, 224, 224, 3), (3, 5, 7, 1), (2, 9, 11, 4), (1, 1, 1, 17),
+                                   (1, 224, 224, 3), (1, 5, 7, 3), (3, 5, 7, 4), (2, 3, 5, 5), (1, 1, 5, 3),
+                                   (64, 224, 224, 3)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_fused_normalize_bit_identical_to_plain_version(shape, dtype):
     _need_card()
@@ -59,6 +63,21 @@ def test_fused_normalize_misaligned_view():
     assert view.data_ptr() % 16
     got = kernels.fused_normalize(view, scale, shift)
     assert torch.equal(got, kernels.fused_normalize_reference(view, scale, shift))
+
+
+def test_fused_normalize_raises_when_the_launch_fails(monkeypatch):
+    _need_card()
+    x, scale, shift = _inputs((2, 9, 11, 3), seed=6)
+    real = kernels.normalize_geometry
+    # 512 threads a block is past the kernel's launch bounds: the library refuses the launch
+    monkeypatch.setattr(kernels, "normalize_geometry", lambda *a: real(*a)._replace(threads=512))
+    before = kernels.launch_counts()["fused_normalize"]
+    with pytest.raises(kernels.KernelLaunchError, match="fused_normalize launch failed"):
+        kernels.fused_normalize(x, scale, shift)
+    assert kernels.launch_counts()["fused_normalize"] == before
+    monkeypatch.setattr(kernels, "normalize_geometry", real)
+    got = kernels.fused_normalize(x, scale, shift)  # the refused launch leaves no error behind
+    assert torch.equal(got, kernels.fused_normalize_reference(x, scale, shift))
 
 
 def test_served_uint8_batch_launches_the_kernel():
