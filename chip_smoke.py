@@ -156,8 +156,38 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    int32 accumulator equal to the float64 product of the same integers;
    numbers: REST p50/p99 of 300 sequential single images, img/s of
    batch-32 requests from 4 clients over 10 s, the device time by group
-   of an in-process forward at batch 32, and the weight bytes on the card.
+   of an in-process forward at batch 32, and the weight bytes on the card;
+13. the ResNet-50 SeldonDeployment over the port's engine (the phase 4
+   served parameters with ``max_wait_ms=1.0``; ``BASELINE.json``'s metric):
+   (a) a gateway child process (``subprocess``, not ``fork``) built by
+   ``gateway_child`` from a one-node ``CUDA_SERVER`` graph
+   (``UnitSpec.from_dict`` -> ``PredictorService`` -> ``Gateway`` ->
+   ``serve_gateway``, sync gRPC), driven with the JAX headline's method
+   (``bench.py:1296-1345``): uint8 ``rawTensor`` flat rows [rows, 150528];
+   4 clients of batch-1 requests for 10 s (p50 / p90 / p99, QPS), then 8
+   clients of batch-32 requests over three windows of 10/3 s (img/s, best
+   and mean), after 3 s of one client's sequential batch-1 requests (the
+   service time without queueing), over gRPC ``Seldon/Predict`` and then REST
+   ``/api/v0.1/predictions`` on the same gateway; zero failures, and the
+   gateway's K1 launches equal its batches (``/metrics``); the headline
+   line prints ``grpc_p50_ms``, ``grpc_p99_ms``, ``grpc_qps``,
+   ``grpc_img_s``, the REST numbers and the 10 ms target beside the p50;
+   (b) the two-process deployment: the microservice CLI with ``--api
+   GRPC`` and a gateway whose node is its gRPC endpoint, the same windows,
+   the hop (p50 minus (a)'s), K1 launches equal to batches (from the
+   answers' metrics); (c) every row served in (a) and (b) within relative
+   L2 2e-2 of an in-process model of the same weights and nearer its own
+   image's answer than any other image's (of the 8 singles, or of its
+   batch); (d) in-process
+   gateways for ``BASELINE.json`` configs 4 and 5 with ResNet-50 children
+   (seeds 1 and 2): an ``EPSILON_GREEDY`` router, 50 predicts each
+   followed by ``SendFeedback`` (routing on every answer, the router's
+   counts sum to 50 and equal the branches served, each answer within 2e-2
+   of its branch's in-process model), and a pass-through ``TRANSFORMER``
+   over an ``AVERAGE_COMBINER`` (each answer within 2e-2 of the mean of
+   the two in-process models; gRPC p50 of 50 sequential requests).
 
+The first line names the card, torch, CUDA and ``grpc.__version__``.
 Output: the ``nvidia-smi`` line, then one ``{"kernels": [...]}`` line,
 then the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when CUDA is unavailable or the port is not beside
@@ -291,6 +321,16 @@ PRECISIONS = ("int8w", "w8a8")
 PRECISION_KERNELS = 54          # ResNet-50 kernels the surgery quantises (JAX's rule: the stem too)
 W8A8_LAYERS = 52                # block and shortcut convs of ResNet-50: one integer GEMM each a forward
 PRECISION_LATENCY_REQUESTS = 300
+# phase 13, the gateway: the JAX headline's method (bench.py:1296-1345)
+GRPC_PARAMS = MODEL_PARAMS + [{"name": "max_wait_ms", "value": "1.0", "type": "FLOAT"}]
+GRPC_SECONDS = 10.0             # the latency window; throughput: three windows of a third each
+GRPC_SEQUENTIAL_SECONDS = 3.0   # one client before the windows: service time without queueing
+GRPC_LAT_CLIENTS = 4            # batch-1 requests
+GRPC_TPUT_CLIENTS = 8           # batch-32 requests
+GRPC_TPUT_WINDOWS = 3
+HEADLINE_P50_MS = 10.0          # BASELINE.json: ResNet-50 gRPC p50 < 10 ms
+MAB_REQUESTS = 50
+COMBINER_REQUESTS = 50
 INT8W_VS_BF16_REL_L2 = 5e-2     # int8w lane vs the bf16 lane on the same weights
 INT8W_VS_BF16_MIN_COS = 0.99
 W8A8_MIN_TOP1 = 0.8             # w8a8 vs bf16 top-1 agreement (tests/test_w8a8.py's bar)
@@ -311,7 +351,7 @@ def check(cond: bool, msg: str) -> None:
 
 # ---------------------------------------------------------------- phase 1
 
-def card_report(torch):
+def card_report(torch, grpc):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -324,7 +364,8 @@ def card_report(torch):
     mem_bytes_per_s = 2.0 * props.memory_clock_rate * 1e3 * props.memory_bus_width / 8
     log(f"card: {smi_line} | torch: {name} | {props.multi_processor_count} SMs | "
         f"memory {mem_bytes_per_s / 1e12:.3f} TB/s (clock {props.memory_clock_rate} kHz, "
-        f"bus {props.memory_bus_width} bit) | torch {torch.__version__} cuda {torch.version.cuda}")
+        f"bus {props.memory_bus_width} bit) | torch {torch.__version__} cuda {torch.version.cuda} | "
+        f"grpc {grpc.__version__}")
     return smi_line, name, mem_bytes_per_s
 
 
@@ -2057,6 +2098,505 @@ def precision_path(torch, np, kernels, w8a8, same_pads, CudaServer, card):
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+
+def reference_resnet(torch, resnet, seed: int):
+    """An in-process ResNet-50 with a served node's weights: CudaServer's
+    seeded init, residual branches live."""
+    m = resnet.ResNet50(num_classes=NUM_CLASSES, dtype=torch.bfloat16)
+    m.reset_parameters(torch.Generator().manual_seed(seed), zero_init_residual=False)
+    return m.cuda().eval().to(memory_format=torch.channels_last)
+
+
+def reference_logits(torch, np, kernels, model, images):
+    """float64 logits of uint8 images through K1 and `model`, batches of 32."""
+    scale, shift = (torch.from_numpy(a).cuda() for a in kernels.imagenet_affine())
+    out = []
+    with torch.inference_mode():
+        for i in range(0, len(images), 32):
+            x = torch.from_numpy(np.ascontiguousarray(images[i:i + 32])).cuda()
+            out.append(model(kernels.fused_normalize(x, scale, shift, torch.bfloat16)).double().cpu().numpy())
+    return np.concatenate(out)
+
+
+class PassThrough:
+    """The pipeline's TRANSFORMER in phase 13d: data passes unchanged
+    (the outlier detector of examples/combiner_pipeline.yaml waits for
+    ROADMAP.md §A item 11)."""
+
+    def transform_input(self, X, names, meta=None):
+        return X
+
+
+def gateway_child(spec_json: str) -> None:
+    """Child process of phase 13: UnitSpec.from_dict -> PredictorService
+    -> Gateway -> serve_gateway (sync gRPC), serving until SIGTERM."""
+    import asyncio
+
+    sys.path.insert(0, ROOT)
+    from seldon_core_tpu_torch.engine import PredictorService, UnitSpec
+    from seldon_core_tpu_torch.engine.server import Gateway, serve_gateway
+
+    spec = json.loads(spec_json)
+
+    async def main():
+        svc = PredictorService(UnitSpec.from_dict(spec["graph"]), name=spec["name"])
+        gateway = Gateway([(svc, 1.0)])
+        runner, handle = await serve_gateway(gateway, host="127.0.0.1", http_port=spec["http_port"],
+                                             grpc_port=spec["grpc_port"])
+        stop = asyncio.Event()
+        asyncio.get_running_loop().add_signal_handler(signal.SIGTERM, stop.set)
+        print("gateway serving", flush=True)
+        await stop.wait()
+        await handle.stop(None)
+        await runner.cleanup()
+        await gateway.close()
+        for unit in svc.graph.walk():
+            component = svc.executor.component(unit.name)
+            if hasattr(component, "unload"):
+                component.unload()
+
+    asyncio.run(main())
+
+
+def start_gateway(name: str, graph: dict, logfile):
+    http_port, grpc_port = free_port(), free_port()
+    spec = {"name": name, "graph": graph, "http_port": http_port, "grpc_port": grpc_port}
+    proc = subprocess.Popen([sys.executable, "-c", "import sys, chip_smoke; chip_smoke.gateway_child(sys.argv[1])",
+                             json.dumps(spec)], cwd=ROOT, stdout=logfile, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    return proc, f"http://127.0.0.1:{http_port}", grpc_port
+
+
+def wait_gateway(procs, base: str, logpath: str, timeout_s: float = 600.0) -> float:
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        for proc in procs:
+            if proc.poll() is not None:
+                raise SmokeFailure(f"a phase 13 process exited with {proc.returncode}:\n{tail(logpath)}")
+        try:
+            with urllib.request.urlopen(base + "/ready", timeout=10) as r:
+                if r.status == 200:
+                    return time.perf_counter() - t0
+        except (urllib.error.URLError, ConnectionError, OSError):
+            pass
+        time.sleep(1.0)
+    raise SmokeFailure(f"gateway not ready after {timeout_s}s:\n{tail(logpath)}")
+
+
+def grpc_request(pb, images):
+    """A uint8 rawTensor of flat rows [rows, 150528] (bench.py:645-667)."""
+    import numpy as np
+
+    req = pb.SeldonMessage()
+    req.data.rawTensor.dtype = "uint8"
+    req.data.rawTensor.shape.extend([len(images), int(np.prod(IMG))])
+    req.data.rawTensor.data = np.ascontiguousarray(images).tobytes()
+    return req
+
+
+def proto_logits(pb, resp, rows: int):
+    import numpy as np
+
+    check(resp.status.status == pb.Status.SUCCESS and resp.status.code in (0, 200),
+          f"gRPC answer failed: {resp.status}")
+    r = resp.data.rawTensor
+    arr = np.frombuffer(r.data, dtype=np.dtype(r.dtype)).reshape(tuple(r.shape))
+    check(arr.shape == (rows, NUM_CLASSES), f"expected ({rows}, {NUM_CLASSES}) logits, got {arr.shape}")
+    check(bool(np.isfinite(arr).all()), "non-finite logits in a served answer")
+    return arr
+
+
+def grpc_callable(services, grpc_server, port: int):
+    import grpc
+
+    channel = grpc.insecure_channel(f"127.0.0.1:{port}", options=grpc_server.message_size_options())
+    return channel, services.unary_callable(channel, "Seldon", "Predict")
+
+
+def load_window(lane, bodies, clients: int, seconds: float):
+    """Closed-loop clients, each on its own connection, sending body k %
+    len(bodies) until `seconds` have passed (bench.py:645-700); the last
+    requests finish and count.  Returns the latencies in ms, the answers
+    as (body index, answer) and the wall time to the last answer."""
+    stop_at = time.perf_counter() + seconds
+    t0 = time.perf_counter()
+
+    def client(k):
+        send, close = lane()
+        lat, answers = [], []
+        try:
+            while time.perf_counter() < stop_at:
+                body = (k + len(lat) * clients) % len(bodies)
+                t = time.perf_counter()
+                answer = send(bodies[body])
+                lat.append((time.perf_counter() - t) * 1e3)
+                answers.append((body, answer))
+        finally:
+            close()
+        return lat, answers
+
+    results = concurrent(client, clients)
+    wall = time.perf_counter() - t0
+    return [x for r in results for x in r[0]], [x for r in results for x in r[1]], wall
+
+
+def grpc_lane(pb, services, grpc_server, port: int):
+    def lane():
+        channel, predict = grpc_callable(services, grpc_server, port)
+        return (lambda req: predict(req, timeout=120)), channel.close
+    return lane
+
+
+def rest_lane(base: str):
+    def send(data: bytes):
+        req = urllib.request.Request(base + "/api/v0.1/predictions", data=data,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+    return lambda: (send, lambda: None)
+
+
+def window_numbers(np, lat, seconds: float, clients: int):
+    return {"p50_ms": pct(lat, 0.50), "p90_ms": pct(lat, 0.90), "p99_ms": pct(lat, 0.99),
+            "qps": len(lat) / seconds, "requests": len(lat), "clients": clients, "seconds": seconds}
+
+
+def headline_windows(np, pb, lane, images, rows_of, refs, errs, what: str, card):
+    """The JAX headline's method on one lane (bench.py:1296-1345):
+    latency = 4 clients of batch-1 requests for GRPC_SECONDS; throughput
+    = 8 clients of batch-32 requests over three windows of GRPC_SECONDS / 3.
+    Every served row is held against its image's in-process answer."""
+    lat_bodies, tput_bodies = images["latency"], images["throughput"]
+    # one client, one request at a time: the service time without queueing
+    seq, answers, _ = load_window(lane, lat_bodies["bodies"], 1, GRPC_SEQUENTIAL_SECONDS)
+    served_rows_errors(np, answers, lat_bodies, rows_of, refs, 1, errs)
+    lat, answers, _ = load_window(lane, lat_bodies["bodies"], GRPC_LAT_CLIENTS, GRPC_SECONDS)
+    served_rows_errors(np, answers, lat_bodies, rows_of, refs, 1, errs)
+    out = window_numbers(np, lat, GRPC_SECONDS, GRPC_LAT_CLIENTS)
+    out.update({"sequential_p50_ms": pct(seq, 0.50), "sequential_p99_ms": pct(seq, 0.99),
+                "sequential_requests": len(seq)})
+    windows, tput_lat = [], []
+    for _ in range(GRPC_TPUT_WINDOWS):
+        w_lat, w_answers, wall = load_window(lane, tput_bodies["bodies"], GRPC_TPUT_CLIENTS,
+                                             GRPC_SECONDS / GRPC_TPUT_WINDOWS)
+        served_rows_errors(np, w_answers, tput_bodies, rows_of, refs, 32, errs)
+        windows.append(len(w_lat) * 32 / wall)
+        tput_lat += w_lat
+    out.update({"img_s_best": max(windows), "img_s_mean": statistics.fmean(windows), "img_s_windows": windows,
+                "batch32_p50_ms": pct(tput_lat, 0.50), "batch32_p99_ms": pct(tput_lat, 0.99),
+                "tput_clients": GRPC_TPUT_CLIENTS})
+    log(f"{what}: one client, {len(seq)} sequential batch-1 requests: p50 {out['sequential_p50_ms']:.3f} ms, "
+        f"p99 {out['sequential_p99_ms']:.3f}; batch-1 latency ({GRPC_LAT_CLIENTS} clients, {GRPC_SECONDS:.0f} s, "
+        f"{len(lat)} requests) "
+        f"p50 {out['p50_ms']:.3f} ms, p90 {out['p90_ms']:.3f}, p99 {out['p99_ms']:.3f}, {out['qps']:.1f} QPS; "
+        f"batch-32 throughput ({GRPC_TPUT_CLIENTS} clients, {GRPC_TPUT_WINDOWS} windows) best "
+        f"{out['img_s_best']:.1f} img/s, mean {out['img_s_mean']:.1f} (windows "
+        f"{', '.join(f'{w:.1f}' for w in windows)}) [{card}]")
+    return out
+
+
+def served_rows_errors(np, answers, bodies, rows_of, refs, rows: int, errs):
+    """Rel L2 of every served row against its image's in-process row; a
+    row nearer another image's in-process row (of the 8 singles, or of
+    its own batch) fails: a row served to the wrong request."""
+    for body, answer in answers:
+        got = rows_of(answer, rows).astype(np.float64)
+        own, pool = bodies["index"][body], bodies["pool"][body]
+        for i in range(rows):
+            dist = np.linalg.norm(refs[pool] - got[i], axis=1)
+            check(pool[int(np.argmin(dist))] == own[i], f"served row {i} of body {body} is nearer another image")
+            errs.append(float(dist[list(pool).index(own[i])] / np.linalg.norm(refs[own[i]])))
+
+
+def phase13_images(np, pb, rng):
+    """8 distinct single images (latency) and 8 batch-32 bodies
+    (throughput), as gRPC requests and as REST JSON bodies; `index` maps
+    a body to its rows of the reference array and `pool` to the rows a
+    served row must be nearest its own among."""
+    singles = distinct_images(np, rng, 8)
+    batches = distinct_images(np, rng, 8 * 32).reshape(8, 32, *IMG)
+    all_images = np.concatenate([singles, batches.reshape(-1, *IMG)])
+    lat = {"index": [np.arange(i, i + 1) for i in range(8)], "pool": [np.arange(8)] * 8}
+    tput = {"index": [8 + np.arange(32 * b, 32 * b + 32) for b in range(8)]}
+    tput["pool"] = tput["index"]
+    flat = lambda x: x.reshape(len(x), -1)  # noqa: E731 — flat rows, as the JAX headline sends them
+    grpc_images = {"latency": {"bodies": [grpc_request(pb, singles[i:i + 1]) for i in range(8)], **lat},
+                   "throughput": {"bodies": [grpc_request(pb, b) for b in batches], **tput}}
+    rest_images = {"latency": {"bodies": [json.dumps(raw_request(np, flat(singles[i:i + 1]))).encode()
+                                          for i in range(8)], **lat},
+                   "throughput": {"bodies": [json.dumps(raw_request(np, flat(b))).encode() for b in batches],
+                                  **tput}}
+    return all_images, grpc_images, rest_images
+
+
+def response_metric(resp, key: str, **tags) -> float:
+    """A gauge from a gRPC answer's meta.metrics (the gateway folds in
+    each node's metrics, a remote node's included)."""
+    for m in resp.meta.metrics:
+        if m.key == key and all(m.tags.get(k) == v for k, v in tags.items()):
+            return float(m.value)
+    raise SmokeFailure(f"answer carries no metric {key} {tags}")
+
+
+def gateway_paths(torch, np, kernels, resnet, card):
+    """Phases 13a-13c: the ResNet-50 SeldonDeployment over gRPC and REST,
+    one process and two."""
+    from seldon_core_tpu_torch.proto import pb, services
+    from seldon_core_tpu_torch.runtime import grpc_server
+
+    rng = np.random.default_rng(SEED + 13)
+    all_images, grpc_images, rest_images = phase13_images(np, pb, rng)
+    local = reference_resnet(torch, resnet, SEED)
+    refs = reference_logits(torch, np, kernels, local, all_images)
+    del local
+    torch.cuda.empty_cache()
+    eight = {"index": [np.arange(8)], "pool": [np.arange(8)]}
+    grpc_rows = lambda resp, rows: proto_logits(pb, resp, rows)  # noqa: E731
+    rest_rows = lambda body, rows: decode_logits(np, body, rows)  # noqa: E731
+    numbers, errs = {}, {"one_process": [], "two_process": []}
+
+    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_gateway_", suffix=".log")
+    logfile = os.fdopen(fd, "w")
+    procs = []
+    try:
+        # (a) one process: the gateway's MODEL node is CUDA_SERVER in-process
+        graph = {"name": "resnet50", "type": "MODEL", "implementation": "CUDA_SERVER", "parameters": GRPC_PARAMS}
+        proc, base, grpc_port = start_gateway("resnet50", graph, logfile)
+        procs.append(proc)
+        ready_s = wait_gateway(procs, base, logpath)
+        log(f"13a gateway ready in {ready_s:.1f}s (ResNet-50 CUDA_SERVER, sync gRPC, port {grpc_port})")
+        m0 = metrics_values(http(base + "/metrics"))
+        channel, predict = grpc_callable(services, grpc_server, grpc_port)
+        try:
+            answer = predict(grpc_request(pb, all_images[:8]), timeout=120)
+            served_rows_errors(np, [(0, answer)], eight, grpc_rows, refs, 8, errs["one_process"])
+        finally:
+            channel.close()
+        lane = grpc_lane(pb, services, grpc_server, grpc_port)
+        numbers["grpc"] = headline_windows(np, pb, lane, grpc_images, grpc_rows, refs, errs["one_process"],
+                                           "13a gRPC Seldon/Predict, one process", card)
+        numbers["rest"] = headline_windows(np, pb, rest_lane(base), rest_images, rest_rows, refs,
+                                           errs["one_process"], "13a REST /api/v0.1/predictions, one process",
+                                           card)
+        m1 = metrics_values(http(base + "/metrics"))
+        labels = 'predictor="resnet50",unit="resnet50"'
+        k1 = m1[f'cudaserver_kernel_launches{{kernel="fused_normalize",{labels}}}'] - \
+            m0[f'cudaserver_kernel_launches{{kernel="fused_normalize",{labels}}}']
+        batches = m1[f"cudaserver_batches_total{{{labels}}}"] - m0[f"cudaserver_batches_total{{{labels}}}"]
+        requests = m1['seldon_api_gateway_requests_total{predictor="resnet50"}']
+        failures = m1['seldon_api_gateway_failures_total{predictor="resnet50"}']
+        log(f"13a gateway path: {int(requests)} requests, {int(failures)} failures, {int(batches)} batches, "
+            f"mean rows/batch {m1[f'cudaserver_mean_batch_rows{{{labels}}}']:.2f}, K1 launches {int(k1)}")
+        check(failures == 0, f"the gateway counted {failures} failed requests")
+        check(batches > 0 and k1 == batches, f"K1 launches {k1} != {batches} batches on the gateway path")
+        numbers["gateway_k1_launches"], numbers["gateway_batches"] = int(k1), int(batches)
+        stop_server(proc)
+        procs.clear()
+
+        # (b) two processes: the microservice CLI (--api GRPC) and a gateway whose node is a gRPC endpoint
+        ms_port = free_port()
+        ms = subprocess.Popen(
+            [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice",
+             "seldon_core_tpu_torch.models.cudaserver.CudaServer", "--api", "GRPC", "--host", "127.0.0.1",
+             "--grpc-port", str(ms_port), "--parameters", json.dumps(GRPC_PARAMS)],
+            cwd=ROOT, stdout=logfile, stderr=subprocess.STDOUT, start_new_session=True)
+        procs.append(ms)
+        graph = {"name": "resnet50", "type": "MODEL",
+                 "endpoint": {"host": "127.0.0.1", "port": ms_port, "transport": "GRPC"}}
+        proc, base, grpc_port = start_gateway("resnet50", graph, logfile)
+        procs.append(proc)
+        ready_s = wait_gateway(procs, base, logpath)
+        log(f"13b microservice (--api GRPC, port {ms_port}) and gateway ready in {ready_s:.1f}s")
+        channel, predict = grpc_callable(services, grpc_server, grpc_port)
+        try:
+            probe = grpc_request(pb, all_images[:1])
+            before = predict(probe, timeout=120)
+            answer = predict(grpc_request(pb, all_images[:8]), timeout=120)
+            served_rows_errors(np, [(0, answer)], eight, grpc_rows, refs, 8, errs["two_process"])
+            lane = grpc_lane(pb, services, grpc_server, grpc_port)
+            numbers["two_process_grpc"] = headline_windows(np, pb, lane, grpc_images, grpc_rows, refs,
+                                                           errs["two_process"], "13b gRPC, two processes", card)
+            after = predict(probe, timeout=120)
+        finally:
+            channel.close()
+        k1_b = response_metric(after, "cudaserver_kernel_launches", kernel="fused_normalize") - \
+            response_metric(before, "cudaserver_kernel_launches", kernel="fused_normalize")
+        batches_b = response_metric(after, "cudaserver_batches_total") - \
+            response_metric(before, "cudaserver_batches_total")
+        check(batches_b > 0 and k1_b == batches_b, f"two-process K1 launches {k1_b} != {batches_b} batches")
+        numbers["two_process_k1_launches"], numbers["two_process_batches"] = int(k1_b), int(batches_b)
+    finally:
+        for proc in procs:
+            stop_server(proc)
+        logfile.close()
+
+    # (c) every served row against the in-process model
+    for lane_name, e in errs.items():
+        log(f"13c {lane_name}: {len(e)} served rows, max rel L2 {max(e):.3e} against the in-process model "
+            f"(limit {SERVED_VS_LOCAL_REL_L2})")
+        check(max(e) <= SERVED_VS_LOCAL_REL_L2, f"{lane_name} served rows disagree with the in-process model")
+        numbers[f"{lane_name}_rows"], numbers[f"{lane_name}_max_row_rel_l2"] = len(e), max(e)
+    numbers["hop_p50_ms"] = numbers["two_process_grpc"]["p50_ms"] - numbers["grpc"]["p50_ms"]
+    headline = {
+        "grpc_p50_ms": numbers["grpc"]["p50_ms"], "grpc_p99_ms": numbers["grpc"]["p99_ms"],
+        "grpc_qps": numbers["grpc"]["qps"], "grpc_img_s": numbers["grpc"]["img_s_best"],
+        "rest_p50_ms": numbers["rest"]["p50_ms"], "rest_p99_ms": numbers["rest"]["p99_ms"],
+        "rest_qps": numbers["rest"]["qps"], "rest_img_s": numbers["rest"]["img_s_best"],
+        "grpc_sequential_p50_ms": numbers["grpc"]["sequential_p50_ms"],
+        "rest_sequential_p50_ms": numbers["rest"]["sequential_p50_ms"],
+        "two_process": {k: numbers["two_process_grpc"][m] for k, m in (
+            ("grpc_p50_ms", "p50_ms"), ("grpc_p99_ms", "p99_ms"), ("grpc_qps", "qps"), ("grpc_img_s", "img_s_best"))},
+        "hop_p50_ms": numbers["hop_p50_ms"], "target_p50_ms": HEADLINE_P50_MS,
+        "target_met": numbers["grpc"]["p50_ms"] < HEADLINE_P50_MS, "card": card,
+    }
+    log("13 headline " + json.dumps(headline))
+    return numbers
+
+
+class LoopThread:
+    """An asyncio loop on a thread of its own: the in-process gateways of
+    phase 13d serve on it and the sync gRPC server bridges into it."""
+
+    def __init__(self):
+        import asyncio
+
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self.thread.start()
+
+    def run(self, coro, timeout: float = 900.0):
+        import asyncio
+
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def close(self):
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=30)
+        self.loop.close()
+
+
+def serve_in_process(loop, graph: dict):
+    from seldon_core_tpu_torch.engine import PredictorService, UnitSpec
+    from seldon_core_tpu_torch.engine.server import Gateway, serve_gateway
+
+    grpc_port = free_port()
+
+    async def start():
+        svc = PredictorService(UnitSpec.from_dict(graph), name=graph["name"])
+        gateway = Gateway([(svc, 1.0)])
+        runner, handle = await serve_gateway(gateway, host="127.0.0.1", http_port=free_port(),
+                                             grpc_port=grpc_port)
+        return svc, gateway, runner, handle
+
+    return (*loop.run(start()), grpc_port)
+
+
+def stop_in_process(loop, svc, gateway, runner, handle):
+    async def stop():
+        await handle.stop(None)
+        await runner.cleanup()
+        await gateway.close()
+
+    loop.run(stop())
+    for unit in svc.graph.walk():
+        component = svc.executor.component(unit.name)
+        if hasattr(component, "unload"):
+            component.unload()
+
+
+def graph_paths(torch, np, kernels, resnet, card):
+    """Phase 13d: BASELINE.json configs 4 and 5 with ResNet-50 children,
+    served in-process over sync gRPC."""
+    from seldon_core_tpu_torch.proto import pb, services
+    from seldon_core_tpu_torch.runtime import grpc_server
+
+    rng = np.random.default_rng(SEED + 14)
+    images = distinct_images(np, rng, 8)
+    refs = {}
+    for seed in (1, 2):
+        model = reference_resnet(torch, resnet, seed)
+        refs[seed] = reference_logits(torch, np, kernels, model, images)
+        del model
+    torch.cuda.empty_cache()
+    member = lambda name, seed: {"name": name, "type": "MODEL", "implementation": "CUDA_SERVER",  # noqa: E731
+                                 "parameters": GRPC_PARAMS + [{"name": "seed", "value": str(seed), "type": "INT"}]}
+    loop = LoopThread()
+    out = {}
+    try:
+        # config 4: an EPSILON_GREEDY router over two ResNet-50s, feedback after every predict
+        mab = {"name": "eg-router", "type": "ROUTER", "implementation": "EPSILON_GREEDY",
+               "parameters": [{"name": "n_branches", "value": "2", "type": "INT"},
+                              {"name": "epsilon", "value": "0.2", "type": "FLOAT"},
+                              {"name": "seed", "value": str(SEED), "type": "INT"}],
+               "children": [member("model-a", 1), member("model-b", 2)]}
+        svc, gateway, runner, handle, port = serve_in_process(loop, mab)
+        channel, predict = grpc_callable(services, grpc_server, port)
+        feedback = services.unary_callable(channel, "Seldon", "SendFeedback")
+        branches, errs = [], []
+        try:
+            for i in range(MAB_REQUESTS):
+                req = grpc_request(pb, images[i % 8:i % 8 + 1])
+                resp = predict(req, timeout=120)
+                check("eg-router" in resp.meta.routing, f"answer {i} carries no routing: {resp.meta}")
+                branch = resp.meta.routing["eg-router"]
+                branches.append(branch)
+                check(set(resp.meta.requestPath) == {"eg-router", ("model-a", "model-b")[branch]},
+                      f"requestPath {dict(resp.meta.requestPath)} does not follow branch {branch}")
+                errs.append(rel_l2(np, proto_logits(pb, resp, 1)[0].astype(np.float64), refs[1 + branch][i % 8]))
+                fb = pb.Feedback(reward=float(branch == 1))
+                fb.request.CopyFrom(req)
+                fb.response.CopyFrom(resp)
+                ack = feedback(fb, timeout=120)
+                check(ack.status.status == pb.Status.SUCCESS, f"feedback {i} failed: {ack.status}")
+        finally:
+            channel.close()
+        router = svc.executor.component("eg-router")
+        counts = router.counts.tolist()
+        stop_in_process(loop, svc, gateway, runner, handle)
+        log(f"13d MAB (EPSILON_GREEDY over two ResNet-50s): {MAB_REQUESTS} predicts + feedback, branches "
+            f"{branches.count(0)} / {branches.count(1)}, router counts {counts}, max row rel L2 against the "
+            f"branch's in-process model {max(errs):.3e} (limit {SERVED_VS_LOCAL_REL_L2})")
+        check(sum(counts) == MAB_REQUESTS, f"router counts {counts} do not sum to {MAB_REQUESTS}")
+        check(counts == [branches.count(0), branches.count(1)], f"router counts {counts} != branches served")
+        check(max(errs) <= SERVED_VS_LOCAL_REL_L2, "MAB answers disagree with their branch's in-process model")
+        out["mab"] = {"requests": MAB_REQUESTS, "branches": [branches.count(0), branches.count(1)],
+                      "router_counts": counts, "max_row_rel_l2": max(errs)}
+
+        # config 5: a pass-through TRANSFORMER over an AVERAGE_COMBINER of two ResNet-50s
+        pipeline = {"name": "passthrough", "type": "TRANSFORMER", "componentClass": "chip_smoke.PassThrough",
+                    "children": [{"name": "ensemble", "type": "COMBINER", "implementation": "AVERAGE_COMBINER",
+                                  "children": [member("member-a", 1), member("member-b", 2)]}]}
+        svc, gateway, runner, handle, port = serve_in_process(loop, pipeline)
+        channel, predict = grpc_callable(services, grpc_server, port)
+        errs, lat = [], []
+        try:
+            mean = (refs[1] + refs[2]) / 2
+            for i in range(2):  # untimed: the new graph's first requests
+                proto_logits(pb, predict(grpc_request(pb, images[i:i + 1]), timeout=120), 1)
+            for i in range(COMBINER_REQUESTS):
+                req = grpc_request(pb, images[i % 8:i % 8 + 1])
+                t = time.perf_counter()
+                resp = predict(req, timeout=120)
+                lat.append((time.perf_counter() - t) * 1e3)
+                check(set(resp.meta.requestPath) == {"passthrough", "ensemble", "member-a", "member-b"},
+                      f"requestPath {dict(resp.meta.requestPath)}")
+                errs.append(rel_l2(np, proto_logits(pb, resp, 1)[0].astype(np.float64), mean[i % 8]))
+        finally:
+            channel.close()
+            stop_in_process(loop, svc, gateway, runner, handle)
+        log(f"13d pipeline (pass-through TRANSFORMER, AVERAGE_COMBINER of two ResNet-50s): {COMBINER_REQUESTS} "
+            f"sequential gRPC requests, p50 {pct(lat, 0.5):.3f} ms, p99 {pct(lat, 0.99):.3f}; max row rel L2 "
+            f"against the mean of the two in-process models {max(errs):.3e} (limit {SERVED_VS_LOCAL_REL_L2}) "
+            f"[{card}]")
+        check(max(errs) <= SERVED_VS_LOCAL_REL_L2, "combiner answers disagree with the in-process mean")
+        out["combiner"] = {"requests": COMBINER_REQUESTS, "grpc_p50_ms": pct(lat, 0.5),
+                           "grpc_p99_ms": pct(lat, 0.99), "max_row_rel_l2": max(errs)}
+    finally:
+        loop.close()
+    return out
+
+
 # ---------------------------------------------------------------- main
 
 def run() -> int:
@@ -2070,6 +2610,11 @@ def run() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    try:
+        import grpc
+    except ImportError as e:
+        print(f"chip_smoke: FAIL: grpc (grpcio) is not importable: {e}", file=sys.stderr)
+        return 1
     try:
         import numpy as np
 
@@ -2088,7 +2633,7 @@ def run() -> int:
 
     t_start = time.perf_counter()
     try:
-        smi_line, device_kind, mem_bytes_per_s = card_report(torch)
+        smi_line, device_kind, mem_bytes_per_s = card_report(torch, grpc)
         card = smi_line
         t0 = time.perf_counter()
         sources = ("fused_normalize", "paged_decode", "flash_attention", "int8_matmul")
@@ -2130,6 +2675,8 @@ def run() -> int:
         q_engine = engine_numbers(torch, np, PagedEngine, load_lm_params, card, make_engine=int8_adapter_engine,
                                   adapters=(None, "a1", "a2"), what="bf16 int8 pool + adapters (base/a1/a2)")
         precision_numbers = precision_path(torch, np, kernels, w8a8, same_pads, CudaServer, card)
+        gateway_numbers = gateway_paths(torch, np, kernels, resnet, card)
+        graph_numbers = graph_paths(torch, np, kernels, resnet, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2153,6 +2700,8 @@ def run() -> int:
                                   for (v, label), row in variant_timings.items()},
         "int8_matmul_timings": {K2_CASES[c][4]: row for c, row in k2_timings.items()},
         "precision_lanes": precision_numbers,
+        "gateway": gateway_numbers,
+        "graphs": graph_numbers,
         "seconds": time.perf_counter() - t_start,
     }
     log(json.dumps(result))
@@ -2166,6 +2715,9 @@ def run() -> int:
         "max_abs_err": max_err,
         "ms": t32["ms"], "plain_ms": t32["plain_ms"], "bound_ms": t32["bound_ms"],
         "bound_by": "bytes", "library_ms": t32["library_ms"], "library_call": "torch.addcmul(out=bf16)",
+        "launches_on_gateway": {"launches": gateway_numbers["gateway_k1_launches"],
+                                "batches": gateway_numbers["gateway_batches"],
+                                "path": "ResNet-50 SeldonDeployment, gateway over gRPC and REST (phase 13a)"},
         "launch_floor_ms": t32["launch_floor_ms"], "copy_ms": t32["copy_ms"],
         "design": K1_DESIGN, "grid": t32["grid"],
         "shape": [32, *IMG], "out_dtype": "bfloat16",

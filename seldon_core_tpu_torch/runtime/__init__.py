@@ -10,6 +10,7 @@ from seldon_core_tpu_torch.runtime.component import (  # noqa: F401
     validate_metrics,
 )
 from seldon_core_tpu_torch.runtime.message import (  # noqa: F401
+    InternalFeedback,
     InternalMessage,
     MsgMeta,
 )

@@ -1,20 +1,20 @@
 """User-facing component API.
 
 ``TPUComponent`` is the duck-typed contract a user model implements —
-the surface of the reference's ``SeldonComponent``
-(reference: python/seldon_core/user_model.py:20-104) that this slice of
-the port serves: ``load``, ``predict``, the ``tags``/``metrics``/
-``class_names`` metadata hooks and the proto-level ``predict_raw``
-override.  Subclassing is optional; any object with the right methods
-works (duck typing, like the reference).  The class keeps the JAX
-package's name so that the two packages' components read alike; nothing
-in it is TPU-specific.  The other node roles (transformers, routers,
-combiners, feedback) and the persistence hooks come with the engine.
+the same surface as the reference's ``SeldonComponent``
+(reference: python/seldon_core/user_model.py:20-104): ``predict``,
+``transform_input``, ``transform_output``, ``route``, ``aggregate``,
+``send_feedback``, plus ``tags``/``metrics``/``class_names`` metadata
+hooks and proto-level ``*_raw`` overrides.
+Subclassing is optional; any object with the right methods works (duck
+typing, like the reference).  The class keeps the JAX package's name so
+that the two packages' components read alike; nothing in it is
+TPU-specific.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 
@@ -51,7 +51,7 @@ class NotImplementedByUser(MicroserviceError):
 
 
 class TPUComponent:
-    """Base class for served components."""
+    """Base class for models / routers / transformers / combiners."""
 
     def __init__(self, **kwargs: Any):
         pass
@@ -76,6 +76,38 @@ class TPUComponent:
 
     def predict(self, X: np.ndarray, names: Iterable[str], meta: Optional[Dict] = None):
         raise NotImplementedByUser("predict not implemented")
+
+    def transform_input(self, X: np.ndarray, names: Iterable[str], meta: Optional[Dict] = None):
+        raise NotImplementedByUser("transform_input not implemented")
+
+    def transform_output(self, X: np.ndarray, names: Iterable[str], meta: Optional[Dict] = None):
+        raise NotImplementedByUser("transform_output not implemented")
+
+    def route(self, features: Union[np.ndarray, str, bytes], feature_names: Iterable[str]) -> int:
+        raise NotImplementedByUser("route not implemented")
+
+    def aggregate(self, features_list: List, feature_names_list: List):
+        raise NotImplementedByUser("aggregate not implemented")
+
+    def send_feedback(
+        self,
+        features: Union[np.ndarray, str, bytes],
+        feature_names: Iterable[str],
+        reward: float,
+        truth,
+        routing: Optional[int],
+    ):
+        raise NotImplementedByUser("send_feedback not implemented")
+
+    # ---- custom serving surface (optional) --------------------------------
+
+    def custom_routes(self) -> Dict[str, Any]:
+        """Extra REST endpoints merged into the microservice app:
+        ``{path: handler}`` where a handler is either an aiohttp
+        handler (async, returns a Response) or a plain callable whose
+        JSON-serialisable return value becomes the response body
+        (reference: examples/models/mean_classifier_with_custom_endpoints)."""
+        return {}
 
 
 # ---------------------------------------------------------------------------

@@ -12,19 +12,20 @@ The wrapper-side execution semantics of the reference
 The payload handed to user code may be a CUDA ``torch.Tensor`` when the
 producer kept it on device and the consumer opts in
 (``accepts_device_arrays = True`` on the component); by default it is
-materialised to numpy.  This slice of the port dispatches ``predict``
-and the health hook; the other node roles (transformers, routers,
-combiners, feedback) come with the engine graph.
+materialised to numpy.  The trace-context carrier of the JAX package's
+dispatch is not ported (``ROADMAP.md`` §A item 4).
 """
 
 from __future__ import annotations
 
-import uuid
-from typing import Any, Optional
+from typing import Any, List, Optional
+
+import numpy as np
 
 from seldon_core_tpu_torch import codec
 from seldon_core_tpu_torch.runtime import component as comp
-from seldon_core_tpu_torch.runtime.message import InternalMessage
+from seldon_core_tpu_torch.runtime.message import InternalFeedback, InternalMessage
+from seldon_core_tpu_torch.runtime.puid import new_puid
 
 
 def _features_for(user_model: Any, msg: InternalMessage) -> Any:
@@ -52,7 +53,7 @@ def _construct_response(user_model: Any, msg: InternalMessage, result: Any) -> I
 
 
 def _try_raw(user_model: Any, raw_name: str, msg: InternalMessage) -> Optional[InternalMessage]:
-    """Proto-level override path (``predict_raw``)."""
+    """Proto-level override path (``predict_raw`` etc.)."""
     fn = getattr(user_model, raw_name, None)
     if fn is None:
         return None
@@ -63,12 +64,17 @@ def _try_raw(user_model: Any, raw_name: str, msg: InternalMessage) -> Optional[I
     return InternalMessage.from_proto(result)
 
 
-def _ensure_puid(msg: InternalMessage) -> str:
-    """puid of the message, assigning one when the caller didn't —
-    standalone microservices have no engine upstream to mint ids."""
-    if not msg.meta.puid:
-        msg.meta.puid = uuid.uuid4().hex[:24]
-    return msg.meta.puid
+def _ensure_puid(msg) -> str:
+    """puid of the message (or its feedback request), assigning one when
+    the caller didn't — standalone microservices have no engine upstream
+    to mint ids."""
+    first = msg[0] if isinstance(msg, list) and msg else msg
+    meta = getattr(first, "meta", None) or getattr(getattr(first, "request", None), "meta", None)
+    if meta is None:
+        return ""
+    if not meta.puid:
+        meta.puid = new_puid()
+    return meta.puid
 
 
 def predict(user_model: Any, msg: InternalMessage) -> InternalMessage:
@@ -94,6 +100,100 @@ async def predict_async(user_model: Any, msg: InternalMessage) -> InternalMessag
     features = _features_for(user_model, msg)
     result = await fn(features, msg.names, meta=msg.meta.to_dict())
     return _construct_response(user_model, msg, result)
+
+
+def transform_input(user_model: Any, msg: InternalMessage) -> InternalMessage:
+    _ensure_puid(msg)
+    raw = _try_raw(user_model, "transform_input_raw", msg)
+    if raw is not None:
+        return raw
+    features = _features_for(user_model, msg)
+    result = user_model.transform_input(features, msg.names, meta=msg.meta.to_dict())
+    return _construct_response(user_model, msg, result)
+
+
+def transform_output(user_model: Any, msg: InternalMessage) -> InternalMessage:
+    _ensure_puid(msg)
+    raw = _try_raw(user_model, "transform_output_raw", msg)
+    if raw is not None:
+        return raw
+    features = _features_for(user_model, msg)
+    result = user_model.transform_output(features, msg.names, meta=msg.meta.to_dict())
+    return _construct_response(user_model, msg, result)
+
+
+def route(user_model: Any, msg: InternalMessage) -> InternalMessage:
+    """Returns a message whose payload is [[branch_index]]
+    (reference: seldon_methods.py route semantics)."""
+    _ensure_puid(msg)
+    raw = _try_raw(user_model, "route_raw", msg)
+    if raw is not None:
+        return raw
+    features = _features_for(user_model, msg)
+    branch = user_model.route(features, msg.names)
+    if not isinstance(branch, (int, np.integer)):
+        raise comp.MicroserviceError(
+            f"route must return int, got {type(branch).__name__}", status_code=500, reason="INVALID_ROUTING"
+        )
+    out = _construct_response(user_model, msg, np.array([[int(branch)]]))
+    out.kind = "ndarray"
+    return out
+
+
+def aggregate(user_model: Any, msgs: List[InternalMessage]) -> InternalMessage:
+    _ensure_puid(msgs)
+    fn = getattr(user_model, "aggregate_raw", None)
+    if fn is not None:
+        try:
+            from seldon_core_tpu_torch.proto import pb
+
+            msg_list = pb.SeldonMessageList(seldonMessages=[m.to_proto() for m in msgs])
+            return InternalMessage.from_proto(fn(msg_list))
+        except comp.NotImplementedByUser:
+            pass
+    if not msgs:
+        raise comp.MicroserviceError("aggregate called with no inputs", status_code=400, reason="EMPTY_AGGREGATE")
+    features_list = [_features_for(user_model, m) for m in msgs]
+    names_list = [m.names for m in msgs]
+    result = user_model.aggregate(features_list, names_list)
+    out = _construct_response(user_model, msgs[0], result)
+    # meta of an aggregate response starts from the union of inputs
+    for m in msgs[1:]:
+        merged = dict(m.meta.tags)
+        merged.update(out.meta.tags)
+        out.meta.tags = merged
+    return out
+
+
+def send_feedback(
+    user_model: Any, feedback: InternalFeedback, predictive_unit_id: Optional[str] = None
+) -> InternalMessage:
+    """Reference: seldon_methods.py:74-120 — routing picked from the
+    response meta for this unit, default response is an empty array."""
+    _ensure_puid(feedback)
+    fn = getattr(user_model, "send_feedback_raw", None)
+    if fn is not None:
+        try:
+            return InternalMessage.from_proto(fn(feedback.to_proto()))
+        except comp.NotImplementedByUser:
+            pass
+    request = feedback.request
+    features = _features_for(user_model, request) if request is not None else None
+    names = request.names if request is not None else []
+    truth = feedback.truth.host_payload() if feedback.truth is not None else None
+    routing = None
+    if feedback.response is not None and predictive_unit_id:
+        routing = feedback.response.meta.routing.get(predictive_unit_id)
+    result = None
+    if hasattr(user_model, "send_feedback"):
+        try:
+            result = user_model.send_feedback(features, names, feedback.reward, truth, routing=routing)
+        except comp.NotImplementedByUser:
+            result = None
+    if result is None:
+        result = np.array([])
+    base = request if request is not None else InternalMessage(kind="ndarray")
+    return _construct_response(user_model, base, np.asarray(result))
 
 
 def health_check(user_model: Any) -> InternalMessage:

@@ -211,3 +211,78 @@ class InternalMessage:
             names=list(names) if names is not None else list(self.names),
             meta=self.meta.copy(),
         )
+
+    def copy(self) -> "InternalMessage":
+        """Isolated copy for concurrent execution paths (shadow traffic):
+        meta is deep-copied — every path mutates it (puid assignment,
+        requestPath, metrics) — while the payload is shared, since the
+        data plane treats payloads as immutable."""
+        return InternalMessage(
+            payload=self.payload,
+            names=list(self.names),
+            kind=self.kind,
+            meta=self.meta.copy(),
+            status=dict(self.status) if self.status else None,
+        )
+
+
+@dataclass
+class InternalFeedback:
+    request: Optional[InternalMessage] = None
+    response: Optional[InternalMessage] = None
+    reward: float = 0.0
+    truth: Optional[InternalMessage] = None
+
+    @classmethod
+    def from_proto(cls, fb: pb.Feedback) -> "InternalFeedback":
+        return cls(
+            request=InternalMessage.from_proto(fb.request) if fb.HasField("request") else None,
+            response=InternalMessage.from_proto(fb.response) if fb.HasField("response") else None,
+            reward=fb.reward,
+            truth=InternalMessage.from_proto(fb.truth) if fb.HasField("truth") else None,
+        )
+
+    @staticmethod
+    def _message_from_json(body: Dict[str, Any]) -> InternalMessage:
+        """Feedback members may omit the payload entirely (a meta-only
+        response carrying just the routing and puid is a legal Feedback,
+        reference: proto/prediction.proto:77-82), which the strict
+        predict-path parser rejects.  Only the absent case is lenient: a
+        malformed payload still raises, so the client sees 400."""
+        if not any(k in body for k in ("data", "binData", "strData", "jsonData")):
+            return InternalMessage(
+                payload=None,
+                kind="jsonData",
+                meta=MsgMeta.from_dict(body.get("meta", {})),
+                status=body.get("status"),
+            )
+        return InternalMessage.from_json(body)
+
+    @classmethod
+    def from_json(cls, body: Dict[str, Any]) -> "InternalFeedback":
+        return cls(
+            request=cls._message_from_json(body["request"]) if "request" in body else None,
+            response=cls._message_from_json(body["response"]) if "response" in body else None,
+            reward=float(body.get("reward", 0.0)),
+            truth=cls._message_from_json(body["truth"]) if "truth" in body else None,
+        )
+
+    def to_proto(self) -> pb.Feedback:
+        fb = pb.Feedback(reward=self.reward)
+        if self.request is not None:
+            fb.request.CopyFrom(self.request.to_proto())
+        if self.response is not None:
+            fb.response.CopyFrom(self.response.to_proto())
+        if self.truth is not None:
+            fb.truth.CopyFrom(self.truth.to_proto())
+        return fb
+
+    def to_json(self) -> Dict[str, Any]:
+        body: Dict[str, Any] = {"reward": self.reward}
+        if self.request is not None:
+            body["request"] = self.request.to_json()
+        if self.response is not None:
+            body["response"] = self.response.to_json()
+        if self.truth is not None:
+            body["truth"] = self.truth.to_json()
+        return body

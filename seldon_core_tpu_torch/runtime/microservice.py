@@ -5,13 +5,14 @@ The port's counterpart of ``seldon_core_tpu.runtime.microservice``
 
     python -m seldon_core_tpu_torch.runtime.microservice \\
         seldon_core_tpu_torch.models.cudaserver.CudaServer --api REST \\
-        --http-port 9000 \\
+        --http-port 9000 --grpc-port 5000 \\
         --parameters '[{"name":"model","value":"resnet50","type":"STRING"}]'
 
-The device is the component's own ``device`` parameter (CudaServer
-serves on ``cuda`` unless told ``cpu``); there is no ``--platform``
-flag.  This slice serves REST only: ``--api GRPC`` and ``--api BOTH``
-stop with an error, because the gRPC server comes with a later slice.
+``--api`` picks REST (the default), GRPC or BOTH; one process serves
+both on one asyncio loop.  The device is the component's own ``device``
+parameter (CudaServer serves on ``cuda`` unless told ``cpu``); there is
+no ``--platform`` flag.  Not ported: TLS, tracing, persistence and the
+component ``custom_service`` side loop.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import signal
 import sys
 from typing import Any, List, Optional
 
+from seldon_core_tpu_torch.runtime.component import MicroserviceError
 from seldon_core_tpu_torch.runtime.params import (
     PARAMETERS_ENV_NAME,
     SERVICE_PORT_ENV_NAME,
@@ -34,11 +36,6 @@ from seldon_core_tpu_torch.runtime.params import (
 )
 
 logger = logging.getLogger(__name__)
-
-GRPC_LATER = (
-    "--api {api}: the PyTorch port serves REST only in this slice; the gRPC "
-    "server (proto/services.py) is the next slice of the port. Use --api REST."
-)
 
 
 def import_component(dotted: str, **kwargs: Any) -> Any:
@@ -57,6 +54,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("component", help="dotted path module.Class of the user component")
     parser.add_argument("--api", choices=("REST", "GRPC", "BOTH"), default="REST")
     parser.add_argument("--http-port", type=int, default=int(os.environ.get(SERVICE_PORT_ENV_NAME, 9000)))
+    parser.add_argument("--grpc-port", type=int, default=5000)
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument(
         "--parameters", default=os.environ.get(PARAMETERS_ENV_NAME, "[]"),
@@ -64,23 +62,29 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     )
     parser.add_argument("--unit-id", default=os.environ.get(UNIT_ID_ENV_NAME, ""))
     parser.add_argument("--log-level", default=os.environ.get("SELDON_LOG_LEVEL", "INFO"))
-    args = parser.parse_args(argv)
-    if args.api != "REST":
-        parser.error(GRPC_LATER.format(api=args.api))
-    return args
+    return parser.parse_args(argv)
 
 
 async def run_servers(
     user_model: Any,
+    api: str = "REST",
     host: str = "0.0.0.0",
     http_port: int = 9000,
+    grpc_port: int = 5000,
+    unit_id: str = "",
     shutdown_event: Optional[asyncio.Event] = None,
 ) -> None:
-    """Serve REST until `shutdown_event` (or SIGINT/SIGTERM)."""
-    from seldon_core_tpu_torch.runtime import rest
+    """Serve until `shutdown_event` (or SIGINT/SIGTERM)."""
+    from seldon_core_tpu_torch.runtime import grpc_server, rest
 
-    runner = await rest.serve(rest.build_app(user_model), host=host, port=http_port)
-    logger.info("REST serving on %s:%d", host, http_port)
+    runner = None
+    server = None
+    if api in ("REST", "BOTH"):
+        runner = await rest.serve(rest.build_app(user_model, unit_id=unit_id), host=host, port=http_port)
+        logger.info("REST serving on %s:%d", host, http_port)
+    if api in ("GRPC", "BOTH"):
+        server = await grpc_server.serve(user_model, port=grpc_port, host=host, unit_id=unit_id)
+        logger.info("gRPC serving on %s:%d", host, grpc_port)
     if shutdown_event is None:
         shutdown_event = asyncio.Event()
         loop = asyncio.get_running_loop()
@@ -88,8 +92,21 @@ async def run_servers(
             loop.add_signal_handler(sig, shutdown_event.set)
     try:
         await shutdown_event.wait()
+        # a component with drain() settles its in-flight work before the
+        # servers stop (the JAX package's StreamingLM journals its streams)
+        drain_fn = getattr(user_model, "drain", None)
+        if callable(drain_fn):
+            try:
+                await asyncio.get_running_loop().run_in_executor(None, drain_fn)
+            except MicroserviceError as e:  # a component that refuses drain (not ported for it)
+                logger.info("component drain skipped: %s", e.message)
+            except Exception:  # noqa: BLE001 — drain is best-effort; exit anyway
+                logger.exception("component drain failed during shutdown")
     finally:
-        await runner.cleanup()
+        if server is not None:
+            await server.stop(grace=20.0)
+        if runner is not None:
+            await runner.cleanup()
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -100,7 +117,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     if hasattr(user_model, "load"):
         user_model.load()
     try:
-        asyncio.run(run_servers(user_model, host=args.host, http_port=args.http_port))
+        asyncio.run(run_servers(user_model, api=args.api, host=args.host, http_port=args.http_port,
+                                grpc_port=args.grpc_port, unit_id=args.unit_id))
     finally:
         if hasattr(user_model, "unload"):
             user_model.unload()

@@ -1,25 +1,30 @@
 """REST server for a single graph-node microservice.
 
 aiohttp application exposing the reference wrapper's endpoint surface
-(reference: python/seldon_core/wrapper.py:21-98) that this slice of the
-port serves:
+(reference: python/seldon_core/wrapper.py:21-98):
 
-    POST /predict
-    GET  /health/ping  /health/status  /metrics
+    POST /predict  /transform-input  /transform-output
+         /route    /aggregate       /send-feedback
+         /api/v0.1/predictions (alias of /predict)
+    GET  /health/ping  /health/status  /metrics  /seldon.json
 
-Requests are JSON bodies (or a ``json`` query field).  Payload stays in
-plain-dict form end-to-end — no proto round-trip on the REST path.
-Error bodies match the JAX package: a component's MicroserviceError
-carries its own code and reason (e.g. 400 ``BAD_INPUT_SHAPE``), an
-undecodable payload is 400 ``BAD_PAYLOAD``, anything else is 500
-``MICROSERVICE_INTERNAL_ERROR``.
+plus a component's ``custom_routes``.  Requests are JSON bodies (or a
+``json`` query field).  Payload stays in plain-dict form end-to-end — no
+proto round-trip on the REST path.  Error bodies match the JAX package:
+a component's MicroserviceError carries its own code and reason (e.g.
+400 ``BAD_INPUT_SHAPE``), an undecodable payload is 400 ``BAD_PAYLOAD``,
+anything else is 500 ``MICROSERVICE_INTERNAL_ERROR``.  Multipart bodies
+and the caller's trace context and deadline are not ported
+(``ROADMAP.md`` §A item 4); ``/metrics`` is a hand-built text of the
+component's custom metrics.
 """
 
 from __future__ import annotations
 
+import asyncio
 import json
 import logging
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Mapping, Optional
 
 from aiohttp import web
 
@@ -28,7 +33,7 @@ from seldon_core_tpu_torch.runtime import component as comp
 from seldon_core_tpu_torch.runtime import dispatch
 from seldon_core_tpu_torch.runtime.component import MicroserviceError
 from seldon_core_tpu_torch.runtime.executor_pool import run_dispatch
-from seldon_core_tpu_torch.runtime.message import InternalMessage
+from seldon_core_tpu_torch.runtime.message import InternalFeedback, InternalMessage
 from seldon_core_tpu_torch.utils.deadlines import extract_adapter
 
 logger = logging.getLogger(__name__)
@@ -63,26 +68,50 @@ def _error_response(e: Exception) -> web.Response:
     return web.json_response(body, status=500)
 
 
-def prometheus_text(user_model: Any) -> str:
+def prometheus_text(user_model: Any, labels: Optional[Mapping[str, str]] = None) -> str:
     """The component's custom metrics in Prometheus text exposition:
-    COUNTER as counter, GAUGE as gauge, TIMER as a gauge in ms."""
+    COUNTER as counter, GAUGE as gauge, TIMER as a gauge in ms.
+    ``labels`` are added to every sample (the gateway names the unit)."""
     lines = []
     typed = set()
     for m in comp.get_custom_metrics(user_model) or []:
         name = m["key"]
         kind = "counter" if m["type"] == comp.COUNTER else "gauge"
-        labels = ",".join(f'{k}="{v}"' for k, v in sorted((m.get("tags") or {}).items()))
+        tags = {**(m.get("tags") or {}), **(labels or {})}
+        label_text = ",".join(f'{k}="{v}"' for k, v in sorted(tags.items()))
         if name not in typed:
             typed.add(name)
             lines.append(f"# TYPE {name} {kind}")
-        lines.append(f"{name}{{{labels}}} {float(m['value'])!r}" if labels else f"{name} {float(m['value'])!r}")
+        value = float(m["value"])
+        lines.append(f"{name}{{{label_text}}} {value!r}" if label_text else f"{name} {value!r}")
     return "\n".join(lines) + "\n"
 
 
-def build_app(user_model: Any) -> web.Application:
-    app = web.Application(client_max_size=1024 * 1024 * 512)
+def _custom_endpoint(user_handler: Callable) -> Callable:
+    """Wrap a user custom-route handler: aiohttp Responses pass
+    through, anything else JSON-serialises, errors map to Status.
+    Sync handlers run on the dispatch pool — they are expected to
+    block, and must not freeze the event loop."""
 
-    async def predict_handler(request: web.Request) -> web.Response:
+    async def handler(request: web.Request) -> web.Response:
+        try:
+            if asyncio.iscoroutinefunction(user_handler):
+                result = await user_handler(request)
+            else:
+                result = await run_dispatch(user_handler, request)
+                if asyncio.iscoroutine(result):  # sync fn returned a coroutine
+                    result = await result
+            if isinstance(result, web.Response):
+                return result
+            return web.json_response(result)
+        except Exception as e:  # noqa: BLE001
+            return _error_response(e)
+
+    return handler
+
+
+def _message_endpoint(user_model: Any, fn: Callable) -> Callable:
+    async def handler(request: web.Request) -> web.Response:
         try:
             msg = InternalMessage.from_json(await _request_body(request))
             # X-Seldon-Adapter selects the LoRA weight set; the component
@@ -90,9 +119,36 @@ def build_app(user_model: Any) -> web.Application:
             adapter = extract_adapter(request.headers)
             if adapter and "adapter" not in msg.meta.tags:
                 msg.meta.tags["adapter"] = adapter
-            out = await dispatch.predict_async(user_model, msg)
+            if fn is dispatch.predict:  # async fast path for batched models
+                out = await dispatch.predict_async(user_model, msg)
+            else:
+                out = await run_dispatch(fn, user_model, msg)
             return web.json_response(out.to_json())
         except Exception as e:  # noqa: BLE001 — every error must map to a Status
+            return _error_response(e)
+
+    return handler
+
+
+def build_app(user_model: Any, unit_id: str = "") -> web.Application:
+    app = web.Application(client_max_size=1024 * 1024 * 512)
+
+    async def aggregate_handler(request: web.Request) -> web.Response:
+        try:
+            body = await _request_body(request)
+            raw_list = body.get("seldonMessages", []) if isinstance(body, dict) else body
+            msgs = [InternalMessage.from_json(b) for b in raw_list]
+            out = await run_dispatch(dispatch.aggregate, user_model, msgs)
+            return web.json_response(out.to_json())
+        except Exception as e:  # noqa: BLE001
+            return _error_response(e)
+
+    async def feedback_handler(request: web.Request) -> web.Response:
+        try:
+            fb = InternalFeedback.from_json(await _request_body(request))
+            out = await run_dispatch(dispatch.send_feedback, user_model, fb, unit_id)
+            return web.json_response(out.to_json())
+        except Exception as e:  # noqa: BLE001
             return _error_response(e)
 
     async def ping(_request: web.Request) -> web.Response:
@@ -112,11 +168,36 @@ def build_app(user_model: Any) -> web.Application:
             return _error_response(e)
         return web.Response(text=text, content_type="text/plain")
 
-    app.router.add_post("/predict", predict_handler)
-    app.router.add_get("/predict", predict_handler)
+    async def openapi_endpoint(_request: web.Request) -> web.Response:
+        from seldon_core_tpu_torch.runtime.openapi import wrapper_openapi
+
+        return web.json_response(wrapper_openapi())
+
+    for path, fn in (
+        ("/predict", dispatch.predict),
+        ("/api/v0.1/predictions", dispatch.predict),  # engine-compatible alias
+        ("/transform-input", dispatch.transform_input),
+        ("/transform-output", dispatch.transform_output),
+        ("/route", dispatch.route),
+    ):
+        handler = _message_endpoint(user_model, fn)
+        app.router.add_post(path, handler)
+        app.router.add_get(path, handler)
+    app.router.add_post("/aggregate", aggregate_handler)
+    app.router.add_get("/aggregate", aggregate_handler)
+    app.router.add_post("/send-feedback", feedback_handler)
+    app.router.add_get("/send-feedback", feedback_handler)
     app.router.add_get("/health/ping", ping)
     app.router.add_get("/health/status", status)
     app.router.add_get("/metrics", metrics_endpoint)
+    app.router.add_get("/seldon.json", openapi_endpoint)
+
+    # component-declared endpoints (reference analogue: custom_service
+    # second process exposing user routes)
+    custom = getattr(user_model, "custom_routes", None)
+    if callable(custom):
+        for path, user_handler in (custom() or {}).items():
+            app.router.add_route("*", path, _custom_endpoint(user_handler))
     return app
 
 

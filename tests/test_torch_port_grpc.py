@@ -1,0 +1,243 @@
+"""The port's gRPC contract against the JAX package's.
+
+* ``proto/services.py``: the method tables equal JAX's by service,
+  method and message type; chunking round-trips.
+* ``runtime/grpc_server.py``: ResNetTiny served by the JAX
+  ``build_server(JaxServer)`` and the port's
+  ``build_server(CudaServer(device="cpu"))`` on loopback, from the same
+  f32 parameters: uint8 and float payloads agree within
+  ``rtol = atol = 1e-4`` (the tolerance of
+  ``tests/test_torch_port_server.py``), and error statuses are equal.
+* The node-role services (Generic, Router, Transformer,
+  OutputTransformer, Combiner, Model/SendFeedback) over a toy component
+  answer byte for byte what the JAX server answers (puid cleared).
+
+Messages cross between the packages only as bytes: both ``seldon_pb2``
+modules carry the same descriptor.
+"""
+
+import asyncio
+import os
+import socket
+import sys
+
+import jax
+import numpy as np
+import pytest
+
+from seldon_core_tpu.models.jaxserver import JaxServer
+from seldon_core_tpu.models.resnet import ResNetTiny as FlaxResNetTiny
+from seldon_core_tpu.proto import services as jax_services
+from seldon_core_tpu.runtime import grpc_server as jax_grpc_server
+from seldon_core_tpu_torch.models.cudaserver import CudaServer
+from seldon_core_tpu_torch.proto import pb, services
+from seldon_core_tpu_torch.runtime import grpc_server
+
+sys.path.insert(0, os.path.dirname(__file__))
+from test_torch_port_dispatch_roles import Scaler, request_bytes  # noqa: E402
+from test_torch_port_resnet import random_variables  # noqa: E402
+
+NUM_CLASSES = 10
+SHAPE = (32, 32, 3)
+# f32 servers, same weights: rtol = atol = 1e-4 (summation order only)
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def test_method_tables_equal_jax():
+    def names(table):
+        return {svc: {m: (req.DESCRIPTOR.full_name, resp.DESCRIPTOR.full_name) for m, (req, resp) in methods.items()}
+                for svc, methods in table.items()}
+
+    for attr in ("SERVICES", "STREAM_METHODS", "UNARY_STREAM_METHODS"):
+        assert names(getattr(services, attr)) == names(getattr(jax_services, attr)), attr
+    assert len(services.SERVICES) == 7
+    assert services.method_path("Model", "Predict") == jax_services.method_path("Model", "Predict")
+    assert services.STREAM_MAX_BYTES == jax_services.STREAM_MAX_BYTES
+    assert services.STREAM_CHUNK_BYTES == jax_services.STREAM_CHUNK_BYTES
+
+
+@pytest.mark.parametrize("chunk_bytes", [1, 7, 1 << 20])
+def test_chunking_round_trips(chunk_bytes):
+    msg = pb.SeldonMessage.FromString(request_bytes("rawTensor"))
+    chunks = list(services.chunk_message(msg, chunk_bytes=chunk_bytes))
+    assert pb.SeldonMessage.FromString(b"".join(c.data for c in chunks)) == msg
+    jax_chunks = list(jax_services.chunk_message(jax_services.pb.SeldonMessage.FromString(msg.SerializeToString()),
+                                                 chunk_bytes=chunk_bytes))
+    assert [c.data for c in chunks] == [c.data for c in jax_chunks]
+    assert list(services.chunk_message(pb.SeldonMessage()))[0].data == b""
+
+
+@pytest.fixture(scope="module")
+def servers():
+    """A JaxServer and a CPU CudaServer with the same f32 parameters."""
+    variables = random_variables(FlaxResNetTiny(num_classes=NUM_CLASSES), SHAPE, seed=23)
+    common = dict(model="resnet_tiny", num_classes=NUM_CLASSES, dtype="float32", normalize=True,
+                  max_batch_size=4, warmup=False)
+    js = JaxServer(**common)
+    js.load()
+    js.variables = jax.device_put(variables)
+    cs = CudaServer(device="cpu", variables=variables, **common)
+    cs.load()
+    yield js, cs
+    cs.unload()
+    js.unload()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+async def call_both(jax_component, port_component, calls):
+    """Serve each component on its own aio server (JAX's and the port's
+    build_server) and make each call on both; returns the responses as
+    bytes, JAX's first."""
+    import grpc
+
+    out = []
+    servers, channels = [], []
+    try:
+        for build, component in ((jax_grpc_server.build_server, jax_component),
+                                 (grpc_server.build_server, port_component)):
+            server = build(component, unit_id="unit-1")
+            port = server.add_insecure_port(f"127.0.0.1:{free_port()}")
+            await server.start()
+            servers.append(server)
+            channels.append(grpc.aio.insecure_channel(f"127.0.0.1:{port}",
+                                                      options=grpc_server.message_size_options()))
+        for service, method, raw, metadata in calls:
+            pair = []
+            for channel in channels:
+                call = services.unary_callable(channel, service, method)
+                req_cls = services.SERVICES[service][method][0]
+                resp = await call(req_cls.FromString(raw), timeout=60, metadata=metadata)
+                pair.append(resp.SerializeToString(deterministic=True))
+            out.append(pair)
+    finally:
+        for channel in channels:
+            await channel.close()
+        for server in servers:
+            await server.stop(grace=None)
+    return out
+
+
+def predict_request(x: np.ndarray, kind: str) -> bytes:
+    msg = pb.SeldonMessage()
+    if kind == "rawTensor":
+        msg.data.rawTensor.shape.extend(x.shape)
+        msg.data.rawTensor.dtype = x.dtype.name
+        msg.data.rawTensor.data = x.tobytes()
+    else:
+        msg.data.tensor.shape.extend(x.shape)
+        msg.data.tensor.values.extend(x.ravel().tolist())
+    return msg.SerializeToString()
+
+
+def logits(raw: bytes) -> np.ndarray:
+    msg = pb.SeldonMessage.FromString(raw)
+    assert msg.status.status == pb.Status.SUCCESS and not msg.status.reason, msg.status
+    which = msg.data.WhichOneof("data_oneof")
+    if which == "rawTensor":
+        r = msg.data.rawTensor
+        return np.frombuffer(r.data, dtype=np.dtype(r.dtype)).reshape(tuple(r.shape))
+    return np.asarray(msg.data.tensor.values).reshape(tuple(msg.data.tensor.shape))
+
+
+def test_resnet_tiny_over_grpc_matches_jax(servers):
+    rng = np.random.default_rng(5)
+    u8 = rng.integers(0, 256, (3, *SHAPE)).astype(np.uint8)
+    f32 = rng.standard_normal((2, *SHAPE)).astype(np.float32)
+    calls = [("Model", "Predict", predict_request(u8, "rawTensor"), ()),
+             ("Model", "Predict", predict_request(u8[:1].reshape(1, -1), "rawTensor"), ()),
+             ("Model", "Predict", predict_request(f32, "tensor"), ()),
+             ("Model", "Predict", predict_request(f32[:1], "rawTensor"), ())]
+    js, cs = servers
+    results = asyncio.run(call_both(js, cs, calls))
+    for jax_raw, port_raw in results:
+        got, want = logits(port_raw), logits(jax_raw)
+        assert got.shape == want.shape and got.shape[-1] == NUM_CLASSES
+        np.testing.assert_allclose(got, want, **TOL)
+        a, b = pb.SeldonMessage.FromString(port_raw), pb.SeldonMessage.FromString(jax_raw)
+        assert a.data.WhichOneof("data_oneof") == b.data.WhichOneof("data_oneof")
+        assert list(a.data.names) == list(b.data.names)
+        assert a.meta.puid and b.meta.puid
+
+
+def test_error_statuses_match_jax(servers):
+    bad_shape = predict_request(np.zeros((1, 5, 5, 3), np.uint8), "rawTensor")
+    bad_dtype = pb.SeldonMessage()
+    bad_dtype.data.rawTensor.shape.extend([1, 2])
+    bad_dtype.data.rawTensor.dtype = "complex1024"
+    bad_dtype.data.rawTensor.data = b"\0" * 8
+    calls = [("Model", "Predict", bad_shape, ()),
+             ("Model", "Predict", bad_dtype.SerializeToString(), ()),
+             ("Router", "Route", bad_shape, ()),
+             ("Generic", "TransformInput", predict_request(np.zeros((1, *SHAPE), np.uint8), "rawTensor"), ())]
+    js, cs = servers
+    for jax_raw, port_raw in asyncio.run(call_both(js, cs, calls)):
+        a, b = pb.SeldonMessage.FromString(port_raw), pb.SeldonMessage.FromString(jax_raw)
+        assert a.status.status == pb.Status.FAILURE
+        assert (a.status.code, a.status.reason) == (b.status.code, b.status.reason)
+    assert pb.SeldonMessage.FromString(asyncio.run(call_both(js, cs, calls[:1]))[0][1]).status.reason == \
+        "BAD_INPUT_SHAPE"
+
+
+def role_calls():
+    tensor = request_bytes("tensor")
+    pair = pb.SeldonMessageList(seldonMessages=[pb.SeldonMessage.FromString(tensor),
+                                                pb.SeldonMessage.FromString(request_bytes("tensor", 1))])
+    fb = pb.Feedback(reward=0.5)
+    fb.request.ParseFromString(tensor)
+    fb.response.ParseFromString(tensor)
+    fb.response.meta.routing["unit-1"] = 0
+    adapter = (("x-seldon-adapter", "a1"),)
+    return [
+        ("Generic", "TransformInput", tensor, ()),
+        ("Generic", "TransformOutput", tensor, ()),
+        ("Generic", "Route", tensor, ()),
+        ("Generic", "Aggregate", pair.SerializeToString(), ()),
+        ("Generic", "SendFeedback", fb.SerializeToString(), ()),
+        ("Model", "Predict", tensor, adapter),
+        ("Model", "SendFeedback", fb.SerializeToString(), ()),
+        ("Router", "Route", tensor, ()),
+        ("Router", "SendFeedback", fb.SerializeToString(), ()),
+        ("Transformer", "TransformInput", tensor, ()),
+        ("OutputTransformer", "TransformOutput", tensor, ()),
+        ("Combiner", "Aggregate", pair.SerializeToString(), ()),
+    ]
+
+
+def test_node_role_services_match_jax_byte_for_byte():
+    calls = role_calls()
+    results = asyncio.run(call_both(Scaler(), Scaler(), calls))
+    for (service, method, _, metadata), (jax_raw, port_raw) in zip(calls, results):
+        a, b = pb.SeldonMessage.FromString(port_raw), pb.SeldonMessage.FromString(jax_raw)
+        assert a.status.status == pb.Status.SUCCESS, (service, method, a.status)
+        a.meta.puid = b.meta.puid = ""
+        assert a.SerializeToString(deterministic=True) == b.SerializeToString(deterministic=True), (service, method)
+        if metadata:  # x-seldon-adapter metadata lands in meta.tags.adapter
+            assert a.meta.tags["adapter"].string_value == "a1"
+
+
+def test_unregistered_method_is_unimplemented():
+    import grpc
+
+    async def go():
+        server = grpc_server.build_server(Scaler())
+        port = server.add_insecure_port(f"127.0.0.1:{free_port()}")
+        await server.start()
+        try:
+            async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as channel:
+                call = services.unary_callable(channel, "Combiner", "Aggregate")
+                await call(pb.SeldonMessageList(), timeout=10)
+                predict = channel.unary_unary("/seldon.protos.Combiner/Predict",
+                                              request_serializer=lambda m: m.SerializeToString(),
+                                              response_deserializer=pb.SeldonMessage.FromString)
+                with pytest.raises(grpc.aio.AioRpcError) as info:
+                    await predict(pb.SeldonMessage(), timeout=10)
+                return info.value.code()
+        finally:
+            await server.stop(grace=None)
+
+    assert asyncio.run(go()).name == "UNIMPLEMENTED"

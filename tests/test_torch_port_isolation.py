@@ -59,6 +59,11 @@ def test_scan_covers_the_port():
     assert "seldon_core_tpu_torch/utils/deadlines.py" in names
     assert "seldon_core_tpu_torch/ops/surgery.py" in names
     assert "seldon_core_tpu_torch/ops/w8a8.py" in names
+    for module in ("proto/services.py", "runtime/puid.py", "runtime/grpc_server.py", "runtime/openapi.py",
+                   "engine/graph.py", "engine/units.py", "engine/transport.py", "engine/executor.py",
+                   "engine/service.py", "engine/server.py", "engine/sync_server.py", "components/routers.py",
+                   "components/__init__.py", "models/__init__.py"):
+        assert f"seldon_core_tpu_torch/{module}" in names, module
     assert _forbidden("seldon_core_tpu.proto") and _forbidden("jax.numpy") and _forbidden("flax.linen")
     assert not _forbidden("seldon_core_tpu_torch.proto")
 
@@ -72,6 +77,11 @@ def test_importing_the_port_loads_no_jax():
         "import seldon_core_tpu_torch.models.vit, seldon_core_tpu_torch.ops.lora\n"
         "import seldon_core_tpu_torch.models.registry, seldon_core_tpu_torch.utils.deadlines\n"
         "import seldon_core_tpu_torch.ops.surgery, seldon_core_tpu_torch.ops.w8a8\n"
+        "import seldon_core_tpu_torch.engine.server, seldon_core_tpu_torch.engine.sync_server\n"
+        "import seldon_core_tpu_torch.runtime.grpc_server, seldon_core_tpu_torch.components.routers\n"
+        "import seldon_core_tpu_torch.runtime.openapi, seldon_core_tpu_torch.proto.services\n"
+        "from seldon_core_tpu_torch.engine import units\n"
+        "[units._lookup_builtin(name) for name in units.PREPACKAGED]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'seldon_core_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"

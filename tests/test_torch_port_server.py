@@ -280,11 +280,58 @@ class TestDeviceAndParameters:
 
 class TestCli:
     @pytest.mark.parametrize("api", ["GRPC", "BOTH"])
-    def test_grpc_is_refused_naming_the_later_slice(self, api, capsys):
-        with pytest.raises(SystemExit) as exit_info:
-            microservice.parse_args(["seldon_core_tpu_torch.models.cudaserver.CudaServer", "--api", api])
-        assert exit_info.value.code == 2
-        assert "gRPC server" in capsys.readouterr().err
+    def test_cli_serves_grpc_on_the_cpu(self, api):
+        import grpc
+
+        from seldon_core_tpu_torch.proto import services
+        from seldon_core_tpu_torch.runtime import grpc_server
+
+        ports = []
+        for _ in range(2):
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                ports.append(s.getsockname()[1])
+        http_port, grpc_port = ports
+        params = [{"name": "model", "value": "resnet_tiny", "type": "STRING"},
+                  {"name": "num_classes", "value": "4", "type": "INT"},
+                  {"name": "normalize", "value": "true", "type": "BOOL"},
+                  {"name": "max_batch_size", "value": "2", "type": "INT"},
+                  {"name": "device", "value": "cpu", "type": "STRING"}]
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice",
+             "seldon_core_tpu_torch.models.cudaserver.CudaServer", "--api", api, "--host", "127.0.0.1",
+             "--http-port", str(http_port), "--grpc-port", str(grpc_port), "--parameters", json.dumps(params)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        )
+        channel = grpc.insecure_channel(f"127.0.0.1:{grpc_port}", options=grpc_server.message_size_options())
+        try:
+            deadline = time.time() + 120
+            while True:
+                assert proc.poll() is None, proc.stdout.read().decode()
+                try:
+                    grpc.channel_ready_future(channel).result(timeout=1)
+                    break
+                except grpc.FutureTimeoutError:
+                    assert time.time() < deadline, "CLI did not start serving gRPC"
+            req = pb.SeldonMessage()
+            images = _images(2, 7)
+            req.data.rawTensor.shape.extend(images.shape)
+            req.data.rawTensor.dtype = "uint8"
+            req.data.rawTensor.data = images.tobytes()
+            resp = services.unary_callable(channel, "Model", "Predict")(req, timeout=60)
+            r = resp.data.rawTensor
+            out = np.frombuffer(r.data, dtype=np.dtype(r.dtype)).reshape(tuple(r.shape))
+            assert out.shape == (2, 4) and np.isfinite(out).all()
+            rest_up = True
+            try:
+                urllib.request.urlopen(f"http://127.0.0.1:{http_port}/health/ping", timeout=2).read()
+            except OSError:
+                rest_up = False
+            assert rest_up == (api == "BOTH")
+        finally:
+            channel.close()
+            proc.send_signal(signal.SIGTERM)
+            assert proc.wait(timeout=60) == 0
 
     def test_cli_serves_rest_on_the_cpu(self):
         with socket.socket() as s:
