@@ -70,7 +70,7 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    with the plain versions (TF32 off), relative L2 error <= 5e-2 and
    per-row cosine similarity >= 0.99;
 6. numbers: p50/p99 latency of 600 sequential single-image requests,
-   img/s of batch-32 requests from 4 clients over a 10 s window, device
+   img/s of batch-32 requests from 4 clients over a 5 s window, device
    forward time, and a profiler breakdown;
 7. the generation path: the CLI serving ``StreamingLM`` (vocab 16384,
    d_model 512, 8 layers, 8 heads, max_len 1024, pages of 64, 16 slots,
@@ -83,7 +83,7 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    the server's K4 launches grow by at least 8 layers x the decode
    steps it took; numbers: REST p50/p99 over 120 sequential requests
    (prompt 128, 32 new) and REST tokens/s of 16 closed-loop clients
-   over 10 s;
+   over 5 s;
 8. engine numerics in-process: in f32 the kernel lane, the gather lane
    (``SELDON_TPU_PAGED_KERNEL=0``) and the grid kernel give identical
    greedy tokens for 16 ragged prompts (K5's launches counted there);
@@ -102,7 +102,7 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    ``flash_attention`` launches grow by exactly 12 x the batches served
    and ``fused_normalize``'s by the batch count; numbers: p50/p99 of 500
    sequential single images, img/s of batch-32 requests from 4 clients
-   over 10 s, and the device time of the in-process forward at batch 1
+   over 5 s, and the device time of the in-process forward at batch 1
    and 32 from the profiler, with K3's share and the idle share;
 10. transformer numerics in-process: ViT-B/16 bf16 with K3 against f32
    with plain attention (TF32 off), relative L2 <= 5e-2 and per-row
@@ -129,7 +129,7 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    the same prompt, a body tag wins over the header, and the server's
    K4-int8+LoRA launches grow by at least 8 layers x its decode steps;
    numbers: REST p50/p99 over 60 sequential requests (prompt 128, 32 new)
-   and tokens/s of 16 closed-loop clients over 10 s;
+   and tokens/s of 16 closed-loop clients over 5 s;
    (c) in-process at the same config: in f32 the int8 kernel lane, the
    int8 gather lane and the int8 grid kernel, and (native pool, adapters)
    the fold and the einsum lane, give identical greedy tokens for 16
@@ -155,7 +155,7 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    w8a8 top-1 agreement >= 0.8 (its cosine reported); one w8a8 conv's
    int32 accumulator equal to the float64 product of the same integers;
    numbers: REST p50/p99 of 300 sequential single images, img/s of
-   batch-32 requests from 4 clients over 10 s, the device time by group
+   batch-32 requests from 4 clients over 5 s, the device time by group
    of an in-process forward at batch 32, and the weight bytes on the card;
 13. the ResNet-50 SeldonDeployment over the port's engine (the phase 4
    served parameters with ``max_wait_ms=1.0``; ``BASELINE.json``'s metric):
@@ -168,12 +168,13 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    clients of batch-32 requests over three windows of 10/3 s (img/s, best
    and mean), after 3 s of one client's sequential batch-1 requests (the
    service time without queueing), over gRPC ``Seldon/Predict`` and then REST
-   ``/api/v0.1/predictions`` on the same gateway; zero failures, and the
+   ``/api/v0.1/predictions`` on the same gateway (REST's windows 5 s and
+   5/3 s); zero failures, and the
    gateway's K1 launches equal its batches (``/metrics``); the headline
    line prints ``grpc_p50_ms``, ``grpc_p99_ms``, ``grpc_qps``,
    ``grpc_img_s``, the REST numbers and the 10 ms target beside the p50;
    (b) the two-process deployment: the microservice CLI with ``--api
-   GRPC`` and a gateway whose node is its gRPC endpoint, the same windows,
+   GRPC`` and a gateway whose node is its gRPC endpoint, the windows of 5 s,
    the hop (p50 minus (a)'s), K1 launches equal to batches (from the
    answers' metrics); (c) every row served in (a) and (b) within relative
    L2 2e-2 of an in-process model of the same weights and nearer its own
@@ -185,7 +186,27 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    counts sum to 50 and equal the branches served, each answer within 2e-2
    of its branch's in-process model), and a pass-through ``TRANSFORMER``
    over an ``AVERAGE_COMBINER`` (each answer within 2e-2 of the mean of
-   the two in-process models; gRPC p50 of 50 sequential requests).
+   the two in-process models; gRPC p50 of 50 sequential requests);
+14. the C++ native ingress (``engine/native_ingress.py``,
+   ``native/frontserver.cc`` built by g++ with phase 2's builds) in front
+   of 13a's gateway child, one port for HTTP/1.1 and h2c gRPC, 4 batch
+   threads (the knob's default): (a) 13a's gRPC clients and windows aimed
+   at the native port (``bench.py:1281-1345``, the JAX headline's
+   method), the batcher's mean collection wait over the one-client
+   window; (b) SRT1 frames over HTTP/1.1 (one client's sequential p50,
+   batch-32 img/s), one multi-frame container of 1, 2 and 5 rows served
+   as ONE micro-batch, one ``Seldon/PredictRaw``; (c) the C++ load
+   clients of ``bench.py``'s ``native_model_phase`` (``loadgen.cc``) on
+   both wire formats: one connection at batch 1, then batch 32 at (8, 1)
+   best of three windows and (8, 4), (8, 8), (8, 12), every answer a 2xx
+   / grpc-status 0 (their bodies, checked in (b) and (a), are not read);
+   (d) every row served in (a) and (b), the container, PredictRaw and a
+   JSON predict within 2e-2 of the in-process model and nearest its own
+   image; no failure on the native server's ``/stats``; its fast-lane
+   count equal to the gRPC and frame requests of (a) and (b); K1
+   launches equal to the model's batches (``/metrics`` on the native
+   port); a JSON predict and a ``SendFeedback`` on the fallback lane; the
+   ``14 headline`` line beside 13a's numbers.
 
 The first line names the card, torch, CUDA and ``grpc.__version__``.
 Output: the ``nvidia-smi`` line, then one ``{"kernels": [...]}`` line,
@@ -331,6 +352,12 @@ GRPC_TPUT_WINDOWS = 3
 HEADLINE_P50_MS = 10.0          # BASELINE.json: ResNet-50 gRPC p50 < 10 ms
 MAB_REQUESTS = 50
 COMBINER_REQUESTS = 50
+# phase 14, the native ingress: the JAX headline's own method (bench.py:1281-1345), then bench.py's C++
+# clients (native_model_phase, bench.py:835-960)
+NATIVE_LOAD_SECONDS = 6.0       # bench.py's default: three windows of a third at (8, 1), one each deeper
+NATIVE_LOAD_DEPTHS = ((8, 4), (8, 8), (8, 12))  # (connections, requests in flight on each)
+NATIVE_BATCH_THREADS = (4, 48)  # 14c at each: the ingress default is one, bench.py's BENCH_NATIVE_BATCH_THREADS 48
+NATIVE_CONTAINER_ROWS = (1, 2, 5)  # one multi-frame container, one micro-batch
 INT8W_VS_BF16_REL_L2 = 5e-2     # int8w lane vs the bf16 lane on the same weights
 INT8W_VS_BF16_MIN_COS = 0.99
 W8A8_MIN_TOP1 = 0.8             # w8a8 vs bf16 top-1 agreement (tests/test_w8a8.py's bar)
@@ -2144,10 +2171,19 @@ def gateway_child(spec_json: str) -> None:
         gateway = Gateway([(svc, 1.0)])
         runner, handle = await serve_gateway(gateway, host="127.0.0.1", http_port=spec["http_port"],
                                              grpc_port=spec["grpc_port"])
+        ingresses = []
+        for port, threads in spec["native"]:  # one C++ front server a (port, batch threads), one gateway
+            from seldon_core_tpu_torch.engine import serve_native_ingress
+
+            ingresses.append(await serve_native_ingress(gateway, host="127.0.0.1", http_port=port,
+                                                        batch_threads=threads))
+            print(f"native ingress serving on port {port} with {threads} batch threads", flush=True)
         stop = asyncio.Event()
         asyncio.get_running_loop().add_signal_handler(signal.SIGTERM, stop.set)
         print("gateway serving", flush=True)
         await stop.wait()
+        for ingress in ingresses:
+            await ingress.stop()
         await handle.stop(None)
         await runner.cleanup()
         await gateway.close()
@@ -2159,9 +2195,11 @@ def gateway_child(spec_json: str) -> None:
     asyncio.run(main())
 
 
-def start_gateway(name: str, graph: dict, logfile):
+def start_gateway(name: str, graph: dict, logfile, native=()):
+    """A gateway child; ``native`` lists (port, batch threads) of native
+    ingress servers to put in front of it."""
     http_port, grpc_port = free_port(), free_port()
-    spec = {"name": name, "graph": graph, "http_port": http_port, "grpc_port": grpc_port}
+    spec = {"name": name, "graph": graph, "http_port": http_port, "grpc_port": grpc_port, "native": list(native)}
     proc = subprocess.Popen([sys.executable, "-c", "import sys, chip_smoke; chip_smoke.gateway_child(sys.argv[1])",
                              json.dumps(spec)], cwd=ROOT, stdout=logfile, stderr=subprocess.STDOUT,
                             start_new_session=True)
@@ -2262,14 +2300,17 @@ def window_numbers(np, lat, seconds: float, clients: int):
             "qps": len(lat) / seconds, "requests": len(lat), "clients": clients, "seconds": seconds}
 
 
-def headline_windows(np, pb, lane, images, rows_of, refs, errs, what: str, card):
+def headline_windows(np, pb, lane, images, rows_of, refs, errs, what: str, card, after_sequential=None):
     """The JAX headline's method on one lane (bench.py:1296-1345):
     latency = 4 clients of batch-1 requests for GRPC_SECONDS; throughput
     = 8 clients of batch-32 requests over three windows of GRPC_SECONDS / 3.
-    Every served row is held against its image's in-process answer."""
+    Every served row is held against its image's in-process answer.
+    ``after_sequential()`` runs right after the one-client window."""
     lat_bodies, tput_bodies = images["latency"], images["throughput"]
     # one client, one request at a time: the service time without queueing
     seq, answers, _ = load_window(lane, lat_bodies["bodies"], 1, GRPC_SEQUENTIAL_SECONDS)
+    if after_sequential is not None:
+        after_sequential()
     served_rows_errors(np, answers, lat_bodies, rows_of, refs, 1, errs)
     lat, answers, _ = load_window(lane, lat_bodies["bodies"], GRPC_LAT_CLIENTS, GRPC_SECONDS)
     served_rows_errors(np, answers, lat_bodies, rows_of, refs, 1, errs)
@@ -2285,7 +2326,7 @@ def headline_windows(np, pb, lane, images, rows_of, refs, errs, what: str, card)
         tput_lat += w_lat
     out.update({"img_s_best": max(windows), "img_s_mean": statistics.fmean(windows), "img_s_windows": windows,
                 "batch32_p50_ms": pct(tput_lat, 0.50), "batch32_p99_ms": pct(tput_lat, 0.99),
-                "tput_clients": GRPC_TPUT_CLIENTS})
+                "tput_clients": GRPC_TPUT_CLIENTS, "tput_requests": len(tput_lat)})
     log(f"{what}: one client, {len(seq)} sequential batch-1 requests: p50 {out['sequential_p50_ms']:.3f} ms, "
         f"p99 {out['sequential_p99_ms']:.3f}; batch-1 latency ({GRPC_LAT_CLIENTS} clients, {GRPC_SECONDS:.0f} s, "
         f"{len(lat)} requests) "
@@ -2597,6 +2638,319 @@ def graph_paths(torch, np, kernels, resnet, card):
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+
+def frame_lane(port: int):
+    """HTTP/1.1 SRT1 frames on one keep-alive connection per client."""
+    from seldon_core_tpu_torch.native.frontserver import read_http_response
+
+    def lane():
+        sock = socket.create_connection(("127.0.0.1", port), timeout=120)
+        pending = [b""]
+
+        def send(frame: bytes):
+            sock.sendall(b"POST /api/v0.1/predictions HTTP/1.1\r\nHost: localhost\r\n"
+                         b"Content-Type: application/x-seldon-raw\r\nContent-Length: "
+                         + str(len(frame)).encode() + b"\r\n\r\n" + frame)
+            status, body, pending[0] = read_http_response(sock, pending[0], timeout_s=120)
+            check(status == 200, f"frame answered {status}: {body[:300]!r}")
+            return body
+
+        return send, sock.close
+    return lane
+
+
+def frame_logits(np, body: bytes, rows: int):
+    from seldon_core_tpu_torch import codec
+
+    arr = codec.unpack_frame(body).array()
+    check(arr.shape == (rows, NUM_CLASSES) and arr.dtype == np.float32,
+          f"expected float32 ({rows}, {NUM_CLASSES}) logits in the frame, got {arr.dtype}{arr.shape}")
+    check(bool(np.isfinite(arr).all()), "non-finite logits in a served frame")
+    return arr
+
+
+def native_stats(base: str) -> dict:
+    return http(base + "/stats")  # answered in C++: requests, fast, raw, batches, rows, failures
+
+
+def quiesce(base: str, max_wait_s: float = 8.0) -> None:
+    """Wait until the native server's batch count stops moving (bench.py's
+    quiesce): requests a C++ client left in flight at its deadline finish
+    before the next window starts."""
+    last, deadline = -1, time.perf_counter() + max_wait_s
+    while time.perf_counter() < deadline:
+        now = native_stats(base)["batches"]
+        if now == last:
+            return
+        last = now
+        time.sleep(0.5)
+
+
+def batcher_means(m0, m1, labels: str):
+    """The batcher's mean collection wait and enqueue -> result time (ms)
+    over the requests between two ``/metrics`` reads."""
+    n = m1[f"cudaserver_batched_requests_total{{{labels}}}"] - m0[f"cudaserver_batched_requests_total{{{labels}}}"]
+    collect = m1[f"cudaserver_batch_collect_ms_total{{{labels}}}"] - m0[f"cudaserver_batch_collect_ms_total{{{labels}}}"]
+    total = m1[f"cudaserver_batch_total_ms_total{{{labels}}}"] - m0[f"cudaserver_batch_total_ms_total{{{labels}}}"]
+    return {"batcher_requests": n, "batcher_collect_mean_ms": collect / max(n, 1),
+            "batcher_total_mean_ms": total / max(n, 1)}
+
+
+def cpp_client_windows(load, base: str, what: str, card, after_first=None):
+    """bench.py's native_model_phase schedule for one C++ client: one
+    connection sequential (3 s), then (8 connections, depth 1) best of
+    three windows of NATIVE_LOAD_SECONDS / 3, then one window at each of
+    NATIVE_LOAD_DEPTHS; every answer a 2xx / grpc-status 0.
+    ``after_first()`` runs once the one-connection run has drained."""
+    window = NATIVE_LOAD_SECONDS / 3
+    runs = [dict(load("one", 3.0, 1, 1), connections=1, depth=1, rows=1)]
+    quiesce(base)
+    if after_first is not None:
+        after_first()
+    for _ in range(3):
+        runs.append(dict(load("batch", window, 8, 1), connections=8, depth=1, rows=32))
+        quiesce(base)
+    for conns, depth in NATIVE_LOAD_DEPTHS:
+        runs.append(dict(load("batch", window, conns, depth), connections=conns, depth=depth, rows=32))
+        quiesce(base)
+    for r in runs:
+        check(r["ok"] > 0 and r["non2xx"] == 0 and r["errors"] == 0, f"{what}: C++ client run failed: {r}")
+        r["img_s"] = r["qps"] * r["rows"]
+    matched = max(runs[1:4], key=lambda r: r["qps"])
+    best = max(runs[1:], key=lambda r: r["qps"])
+    out = {"sequential_qps": runs[0]["qps"], "sequential_mean_ms": 1e3 / runs[0]["qps"],
+           "matched_img_s": matched["img_s"], "best_img_s": best["img_s"],
+           "best_at": [best["connections"], best["depth"]], "runs": runs}
+    log(f"{what}: one connection, batch 1: {runs[0]['qps']:.1f} QPS ({out['sequential_mean_ms']:.3f} ms a "
+        f"request); batch 32 at (8, 1) best of 3: {matched['img_s']:.1f} img/s; "
+        + ", ".join(f"({r['connections']}, {r['depth']}) {r['img_s']:.1f}" for r in runs[4:])
+        + f" img/s; best {best['img_s']:.1f} at ({best['connections']}, {best['depth']}) [{card}]")
+    return out
+
+
+def native_paths(torch, np, kernels, resnet, card, gateway_numbers, forward_ms_b1: float):
+    """Phase 14: the C++ native ingress in front of 13a's gateway child."""
+    import grpc
+
+    from seldon_core_tpu_torch import codec, native
+    from seldon_core_tpu_torch.engine.native_ingress import BATCH_THREADS
+    from seldon_core_tpu_torch.native import frontserver
+    from seldon_core_tpu_torch.proto import pb, services
+    from seldon_core_tpu_torch.runtime import grpc_server
+
+    check(native.available(), "the port's native library (native/*.cc, g++) did not build or load")
+    rng = np.random.default_rng(SEED + 13)  # phase 13's images and bodies
+    all_images, grpc_images, _ = phase13_images(np, pb, rng)
+    flat = lambda x: np.ascontiguousarray(x.reshape(len(x), -1))  # noqa: E731
+    singles, batches = all_images[:8], all_images[8:].reshape(8, 32, *IMG)
+    frame_images = {"latency": {**grpc_images["latency"],
+                                "bodies": [codec.pack_frame(flat(singles[i:i + 1])) for i in range(8)]},
+                    "throughput": {**grpc_images["throughput"],
+                                   "bodies": [codec.pack_frame(flat(b)) for b in batches]}}
+    local = reference_resnet(torch, resnet, SEED)
+    refs = reference_logits(torch, np, kernels, local, all_images)
+    del local
+    torch.cuda.empty_cache()
+    grpc_rows = lambda resp, rows: proto_logits(pb, resp, rows)  # noqa: E731
+    frame_rows = lambda body, rows: frame_logits(np, body, rows)  # noqa: E731
+    numbers, errs = {}, []
+    labels = 'predictor="resnet50",unit="resnet50"'
+    k1_key = f'cudaserver_kernel_launches{{kernel="fused_normalize",{labels}}}'
+    batches_key = f"cudaserver_batches_total{{{labels}}}"
+
+    def metric_delta(m0, m1, key):
+        return m1[key] - m0[key]
+
+    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_native_", suffix=".log")
+    logfile = os.fdopen(fd, "w")
+    proc = None
+    try:
+        check(BATCH_THREADS in NATIVE_BATCH_THREADS, f"the ingress default of {BATCH_THREADS} batch threads is not "
+              f"one of the counts 14c compares, {NATIVE_BATCH_THREADS}")
+        other_threads = next(t for t in NATIVE_BATCH_THREADS if t != BATCH_THREADS)
+        port, other_port = free_port(), free_port()
+        graph = {"name": "resnet50", "type": "MODEL", "implementation": "CUDA_SERVER", "parameters": GRPC_PARAMS}
+        proc, base, _ = start_gateway("resnet50", graph, logfile,
+                                      native=((port, BATCH_THREADS), (other_port, other_threads)))
+        nbase, other_base = f"http://127.0.0.1:{port}", f"http://127.0.0.1:{other_port}"
+        ready_s = wait_gateway([proc], nbase, logpath)
+        wait_gateway([proc], other_base, logpath)
+        log(f"14 native ingress ready in {ready_s:.1f}s (C++ HTTP/1.1 + h2c on port {port} in front of 13a's "
+            f"gateway, {BATCH_THREADS} batch threads; a second on port {other_port} with {other_threads}, for 14c)")
+        m0, s0 = metrics_values(http(nbase + "/metrics")), native_stats(nbase)
+        probes = {}
+
+        def probe(name):
+            return lambda: probes.__setitem__(name, metrics_values(http(nbase + "/metrics")))
+
+        # (a) the headline by the JAX method: Python gRPC clients aimed at the native port
+        lane = grpc_lane(pb, services, grpc_server, port)
+        numbers["grpc"] = headline_windows(np, pb, lane, grpc_images, grpc_rows, refs, errs,
+                                           "14a native gRPC Seldon/Predict (C++ fast lane)", card,
+                                           after_sequential=probe("a_sequential"))
+        numbers["grpc"]["sequential_batcher"] = batcher_means(m0, probes["a_sequential"], labels)
+        # (b) SRT1 frames over HTTP/1.1 to /api/v0.1/predictions
+        flane = frame_lane(port)
+        seq, answers, _ = load_window(flane, frame_images["latency"]["bodies"], 1, GRPC_SEQUENTIAL_SECONDS)
+        served_rows_errors(np, answers, frame_images["latency"], frame_rows, refs, 1, errs)
+        windows, tput_n = [], 0
+        for _ in range(GRPC_TPUT_WINDOWS):
+            w_lat, w_answers, wall = load_window(flane, frame_images["throughput"]["bodies"], GRPC_TPUT_CLIENTS,
+                                                 GRPC_SECONDS / GRPC_TPUT_WINDOWS)
+            served_rows_errors(np, w_answers, frame_images["throughput"], frame_rows, refs, 32, errs)
+            windows.append(len(w_lat) * 32 / wall)
+            tput_n += len(w_lat)
+        numbers["frames"] = {"sequential_p50_ms": pct(seq, 0.5), "sequential_p99_ms": pct(seq, 0.99),
+                             "sequential_requests": len(seq), "img_s_best": max(windows),
+                             "img_s_mean": statistics.fmean(windows), "img_s_windows": windows}
+        log(f"14b SRT1 frames over HTTP/1.1: one client, {len(seq)} sequential batch-1 frames: p50 "
+            f"{pct(seq, 0.5):.3f} ms, p99 {pct(seq, 0.99):.3f}; batch-32 frames ({GRPC_TPUT_CLIENTS} clients, "
+            f"{GRPC_TPUT_WINDOWS} windows) best {max(windows):.1f} img/s, mean {statistics.fmean(windows):.1f} "
+            f"[{card}]")
+        m_ab, s_ab = metrics_values(http(nbase + "/metrics")), native_stats(nbase)
+        # one multi-frame container (1, 2 and 5 rows): the Python frame lane, one raw_batch_views micro-batch
+        parts = np.split(flat(singles), np.cumsum(NATIVE_CONTAINER_ROWS)[:-1])
+        send, close = flane()
+        try:
+            body = send(codec.pack_frames(parts))
+        finally:
+            close()
+        outs = codec.unpack_frames(body)
+        check([v.shape for v in outs] == [(r, NUM_CLASSES) for r in NATIVE_CONTAINER_ROWS],
+              f"container answer shapes {[v.shape for v in outs]}")
+        served_rows_errors(np, [(0, np.concatenate([v.array() for v in outs]))], {"index": [np.arange(8)],
+                           "pool": [np.arange(8)]}, lambda a, rows: a, refs, 8, errs)
+        m_c = metrics_values(http(nbase + "/metrics"))
+        container_batches = metric_delta(m_ab, m_c, batches_key)
+        check(container_batches == 1, f"the container took {container_batches} batches, not one micro-batch")
+        # one Seldon/PredictRaw over h2c: the gRPC message is one SRT1 frame
+        channel = grpc.insecure_channel(f"127.0.0.1:{port}", options=grpc_server.message_size_options())
+        try:
+            raw = channel.unary_unary("/seldon.protos.Seldon/PredictRaw", request_serializer=lambda b: b,
+                                      response_deserializer=lambda b: b)
+            answer = raw(codec.pack_frame(flat(singles)), timeout=120)
+        finally:
+            channel.close()
+        served_rows_errors(np, [(0, answer)], {"index": [np.arange(8)], "pool": [np.arange(8)]}, frame_rows,
+                           refs, 8, errs)
+        # (c) bench.py's own C++ clients (loadgen.cc): the Python client's cost taken out
+        one_blob = frontserver.build_http_blob("/api/v0.1/predictions", frame_images["latency"]["bodies"][0],
+                                               "application/x-seldon-raw")
+        batch_blob = frontserver.build_http_blob("/api/v0.1/predictions", frame_images["throughput"]["bodies"][0],
+                                                 "application/x-seldon-raw")
+        http_blobs = {"one": one_blob, "batch": batch_blob}
+        probe("c_before")()
+        numbers["cpp_http"] = cpp_client_windows(
+            lambda which, sec, conns, depth: frontserver.native_load(port, http_blobs[which], sec, conns, depth),
+            nbase, "14c C++ client (loadgen.cc lg_run), SRT1 frames over HTTP/1.1", card,
+            after_first=probe("c_sequential"))
+        numbers["cpp_http"]["sequential_batcher"] = batcher_means(probes["c_before"], probes["c_sequential"], labels)
+        grpc_blobs = {"one": grpc_images["latency"]["bodies"][0].SerializeToString(),
+                      "batch": grpc_images["throughput"]["bodies"][0].SerializeToString()}
+        numbers["cpp_grpc"] = cpp_client_windows(
+            lambda which, sec, conns, depth: frontserver.native_load_grpc(
+                port, "/seldon.protos.Seldon/Predict", grpc_blobs[which], sec, conns, depth),
+            nbase, "14c C++ client (loadgen.cc lg_run_h2), uint8 rawTensor Seldon/Predict over h2c", card)
+        m1, s1 = metrics_values(http(nbase + "/metrics")), native_stats(nbase)
+        # (d) the counts over (a)-(c), then the fallback lane
+        k1, batches = metric_delta(m0, m1, k1_key), metric_delta(m0, m1, batches_key)
+        fast = s1["fast"] - s0["fast"]
+        log(f"14d native path: {int(s1['requests'] - s0['requests'])} requests ({int(fast)} fast lane, "
+            f"{int(s1['raw'] - s0['raw'])} Python lanes), {int(s1['failures'] - s0['failures'])} failures, "
+            f"{int(s1['batches'] - s0['batches'])} C++ batches, {int(batches)} model batches, K1 launches "
+            f"{int(k1)}")
+        # (the /ready polls answered 503 before the ready flag rose count as failures: deltas from s0)
+        check(s1["failures"] == s0["failures"], f"the native server counted {s1['failures'] - s0['failures']} failures")
+        check(batches > 0 and k1 == batches, f"K1 launches {k1} != {batches} batches on the native path")
+        check(s_ab["fast"] - s0["fast"] == numbers["grpc"]["sequential_requests"] + numbers["grpc"]["requests"]
+              + numbers["grpc"]["tput_requests"] + numbers["frames"]["sequential_requests"] + tput_n,
+              f"fast-lane count {s_ab['fast'] - s0['fast']} != the gRPC and frame requests sent through it")
+        numbers.update(native_k1_launches=int(k1), native_batches=int(batches), fast_requests=int(fast),
+                       raw_requests=int(s1["raw"] - s0["raw"]), container_batches=int(container_batches))
+        answer = http(nbase + "/api/v0.1/predictions", raw_request(np, flat(singles[:1])))
+        served_rows_errors(np, [(0, answer)], {"index": [np.arange(1)], "pool": [np.arange(8)]},
+                           lambda a, rows: decode_logits(np, a, rows), refs, 1, errs)
+        check(answer["meta"]["tags"].get("predictor") == "resnet50", f"JSON answer meta {answer.get('meta')}")
+        channel = grpc.insecure_channel(f"127.0.0.1:{port}", options=grpc_server.message_size_options())
+        try:
+            fb = pb.Feedback(reward=1.0)
+            fb.response.meta.puid = answer["meta"]["puid"]
+            fb.response.meta.tags["predictor"].string_value = "resnet50"
+            ack = services.unary_callable(channel, "Seldon", "SendFeedback")(fb, timeout=120)
+        finally:
+            channel.close()
+        check(ack.status.status == pb.Status.SUCCESS, f"SendFeedback on the fallback lane failed: {ack.status}")
+        s2 = native_stats(nbase)
+        check(s2["failures"] == s0["failures"] and s2["raw"] - s1["raw"] == 2,
+              f"fallback lane: {s2['raw'] - s1['raw']} Python-lane requests, {s2['failures'] - s0['failures']} failures")
+        log(f"14d fallback lane: a JSON rawTensor predict and a SendFeedback served with full engine semantics; "
+            f"a {len(NATIVE_CONTAINER_ROWS)}-frame container of {sum(NATIVE_CONTAINER_ROWS)} rows as "
+            f"{int(container_batches)} micro-batch; PredictRaw of 8 rows")
+        # (c) again, on the second front server of the same gateway: the other count of batch threads
+        m_t0, s_t0 = metrics_values(http(other_base + "/metrics")), native_stats(other_base)
+        other = {
+            "cpp_http": cpp_client_windows(
+                lambda which, sec, conns, depth: frontserver.native_load(other_port, http_blobs[which], sec, conns,
+                                                                         depth),
+                other_base, f"14c C++ client (lg_run), SRT1 frames over HTTP/1.1, {other_threads} batch threads",
+                card),
+            "cpp_grpc": cpp_client_windows(
+                lambda which, sec, conns, depth: frontserver.native_load_grpc(
+                    other_port, "/seldon.protos.Seldon/Predict", grpc_blobs[which], sec, conns, depth),
+                other_base, f"14c C++ client (lg_run_h2), rawTensor Seldon/Predict over h2c, {other_threads} batch "
+                f"threads", card),
+        }
+        m_t1, s_t1 = metrics_values(http(other_base + "/metrics")), native_stats(other_base)
+        k1_t, batches_t = metric_delta(m_t0, m_t1, k1_key), metric_delta(m_t0, m_t1, batches_key)
+        check(s_t1["failures"] == s_t0["failures"],
+              f"the {other_threads}-thread native server counted {s_t1['failures'] - s_t0['failures']} failures")
+        check(batches_t > 0 and k1_t == batches_t,
+              f"K1 launches {k1_t} != {batches_t} batches behind the {other_threads}-thread native server")
+        by_threads = {}
+        for threads, source in ((BATCH_THREADS, numbers), (other_threads, other)):
+            by_threads[threads] = {
+                lane: {"sequential_ms": source[lane]["sequential_mean_ms"],
+                       "matched_img_s": source[lane]["matched_img_s"],
+                       "img_s_at": {f"{r['connections']},{r['depth']}": r["img_s"] for r in source[lane]["runs"][4:]},
+                       "best_img_s": source[lane]["best_img_s"], "best_at": source[lane]["best_at"]}
+                for lane in ("cpp_http", "cpp_grpc")}
+        numbers["cpp_by_batch_threads"] = by_threads
+        log(f"14c batch threads: {BATCH_THREADS} (the default) against {other_threads}, the same gateway and clients: "
+            + json.dumps(by_threads) + f"; {int(batches_t)} batches = K1 launches behind the second server [{card}]")
+    finally:
+        if proc is not None:
+            stop_server(proc)
+        logfile.close()
+    log(f"14d {len(errs)} served rows, max rel L2 {max(errs):.3e} against the in-process model "
+        f"(limit {SERVED_VS_LOCAL_REL_L2})")
+    check(max(errs) <= SERVED_VS_LOCAL_REL_L2, "native-ingress rows disagree with the in-process model")
+    numbers.update(rows=len(errs), max_row_rel_l2=max(errs))
+    g = gateway_numbers["grpc"]
+    headline = {
+        "native_grpc_p50_ms": numbers["grpc"]["p50_ms"], "native_grpc_p99_ms": numbers["grpc"]["p99_ms"],
+        "native_grpc_qps": numbers["grpc"]["qps"], "native_grpc_img_s": numbers["grpc"]["img_s_best"],
+        "native_grpc_sequential_p50_ms": numbers["grpc"]["sequential_p50_ms"],
+        "one_client_split_ms": {  # the C++ client's one connection at batch 1 (14c, SRT1 frames)
+            "request": numbers["cpp_http"]["sequential_mean_ms"],
+            "batcher_collect": numbers["cpp_http"]["sequential_batcher"]["batcher_collect_mean_ms"],
+            "batcher_enqueue_to_result": numbers["cpp_http"]["sequential_batcher"]["batcher_total_mean_ms"],
+            "forward_b1_phase5": forward_ms_b1},
+        "native_grpc_one_client_batcher": numbers["grpc"]["sequential_batcher"],
+        "native_frame_sequential_p50_ms": numbers["frames"]["sequential_p50_ms"],
+        "native_frame_img_s": numbers["frames"]["img_s_best"],
+        "cpp_client_grpc_img_s": numbers["cpp_grpc"]["best_img_s"],
+        "cpp_client_http_img_s": numbers["cpp_http"]["best_img_s"],
+        "cpp_client_grpc_sequential_ms": numbers["cpp_grpc"]["sequential_mean_ms"],
+        "cpp_client_by_batch_threads": numbers["cpp_by_batch_threads"],
+        "gateway_13a": {"grpc_p50_ms": g["p50_ms"], "grpc_p99_ms": g["p99_ms"], "grpc_qps": g["qps"],
+                        "grpc_img_s": g["img_s_best"], "grpc_sequential_p50_ms": g["sequential_p50_ms"]},
+        "target_p50_ms": HEADLINE_P50_MS, "target_met": numbers["grpc"]["p50_ms"] < HEADLINE_P50_MS, "card": card,
+    }
+    log("14 headline " + json.dumps(headline))
+    return numbers
+
+
 # ---------------------------------------------------------------- main
 
 def run() -> int:
@@ -2618,6 +2972,7 @@ def run() -> int:
     try:
         import numpy as np
 
+        from seldon_core_tpu_torch import native
         from seldon_core_tpu_torch.models import resnet, transformer, vit
         from seldon_core_tpu_torch.models.cudaserver import CudaServer
         from seldon_core_tpu_torch.models.generate import load_lm_params
@@ -2637,10 +2992,12 @@ def run() -> int:
         card = smi_line
         t0 = time.perf_counter()
         sources = ("fused_normalize", "paged_decode", "flash_attention", "int8_matmul")
-        with tempfile.TemporaryDirectory() as variant_dir, ThreadPoolExecutor(len(sources) + 1) as pool:
-            # one nvcc per source, all at once, and K1's launch-only copy beside them
+        with tempfile.TemporaryDirectory() as variant_dir, ThreadPoolExecutor(len(sources) + 2) as pool:
+            # one nvcc per source, all at once, K1's launch-only copy and the native ingress's g++ beside them
             floor = pool.submit(probe_normalize.build_variants, variant_dir, ("launch only",))
+            native_lib = pool.submit(native.build)
             libs = list(pool.map(_build.build, sources))
+            log(f"native ingress library {native_lib.result().name} (g++, native/*.cc)")
             for source in sources:
                 _build.load(source)
             launch_only = probe_normalize.Swapped(floor.result()[0]["launch only"])
@@ -2677,6 +3034,7 @@ def run() -> int:
         precision_numbers = precision_path(torch, np, kernels, w8a8, same_pads, CudaServer, card)
         gateway_numbers = gateway_paths(torch, np, kernels, resnet, card)
         graph_numbers = graph_paths(torch, np, kernels, resnet, card)
+        native_numbers = native_paths(torch, np, kernels, resnet, card, gateway_numbers, whole["forward_ms"][1])
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2702,6 +3060,7 @@ def run() -> int:
         "precision_lanes": precision_numbers,
         "gateway": gateway_numbers,
         "graphs": graph_numbers,
+        "native_ingress": native_numbers,
         "seconds": time.perf_counter() - t_start,
     }
     log(json.dumps(result))
@@ -2718,6 +3077,9 @@ def run() -> int:
         "launches_on_gateway": {"launches": gateway_numbers["gateway_k1_launches"],
                                 "batches": gateway_numbers["gateway_batches"],
                                 "path": "ResNet-50 SeldonDeployment, gateway over gRPC and REST (phase 13a)"},
+        "launches_on_native_ingress": {"launches": native_numbers["native_k1_launches"],
+                                       "batches": native_numbers["native_batches"],
+                                       "path": "ResNet-50 SeldonDeployment behind the C++ native ingress (phase 14)"},
         "launch_floor_ms": t32["launch_floor_ms"], "copy_ms": t32["copy_ms"],
         "design": K1_DESIGN, "grid": t32["grid"],
         "shape": [32, *IMG], "out_dtype": "bfloat16",

@@ -24,6 +24,14 @@ sum.
 Thread-based on purpose: model calls arrive from worker threads and
 CUDA calls release the GIL, so the pipeline threads drive the device
 while request threads only block on their own future.
+
+A request's future is resolved only once the batcher has stopped
+reading its rows: after ``predict_fn`` returned (or raised) for the
+batch holding them, or when ``stop()`` fails it unlaunched.  With
+``CudaServer.device_call`` as ``predict_fn`` the rows have been copied
+into the staging buffer by then, so a caller that lends rows it does
+not own (the native ingress hands over a view of C++ memory) may free
+them as soon as the future is done.
 """
 
 from __future__ import annotations
@@ -99,6 +107,12 @@ class BatcherStats:
         self._lat_lock = threading.Lock()
         self.wait_ms: "deque[float]" = deque(maxlen=reservoir)
         self.total_ms: "deque[float]" = deque(maxlen=reservoir)
+        # sums over requests, whose differences between two reads over the
+        # difference of `requests` are a window's means: enqueue -> the
+        # batch's collection closed (the coalescing window and any queueing
+        # behind the collector), and enqueue -> result set
+        self.collect_ms_total = 0.0
+        self.total_ms_sum = 0.0
 
     def record_wait(self, ms: float) -> None:
         with self._lat_lock:
@@ -107,6 +121,7 @@ class BatcherStats:
     def record_total(self, ms: float) -> None:
         with self._lat_lock:
             self.total_ms.append(ms)
+            self.total_ms_sum += ms
 
     def latency_snapshot(self) -> tuple:
         """Consistent copies of both reservoirs (safe under traffic)."""
@@ -210,11 +225,19 @@ class DynamicBatcher:
         if self._thread is not None:
             self._thread.join(timeout=5.0)
             self._thread = None
-        if self._carry is not None:  # deferred item must not hang its caller
-            self._carry.future.set_exception(
-                RuntimeError(f"batcher {self.name!r} stopped")
-            )
+        # items never launched must not hang their callers: the deferred
+        # one and whatever is still queued
+        stopped = RuntimeError(f"batcher {self.name!r} stopped")
+        if self._carry is not None:
+            self._carry.future.set_exception(stopped)
             self._carry = None
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if item is not None and not item.future.done():
+                item.future.set_exception(stopped)
         for _ in self._finishers:
             self._inflight.put(None)
         for t in self._finishers:
@@ -276,6 +299,8 @@ class DynamicBatcher:
 
     def _launch_batch(self, items: List[_WorkItem]) -> None:
         """Stage 1 (collector thread): pad, launch, start async readback."""
+        collected = time.perf_counter()
+        self.stats.collect_ms_total += sum(collected - it.enqueued_at for it in items) * 1000.0
         rows = sum(it.rows for it in items)
         bucket = bucket_for(rows, self.buckets)
         if rows > bucket:  # oversized single request: honest full-size call

@@ -24,3 +24,18 @@ from seldon_core_tpu_torch.codec.device import (  # noqa: F401
     is_device_array,
     to_device,
 )
+from seldon_core_tpu_torch.codec.bufview import (  # noqa: F401
+    BufferView,
+    is_frame,
+    pack_frame,
+    pack_frames,
+    stack_views,
+    unpack_frame,
+    unpack_frames,
+    zero_copy_enabled,
+)
+from seldon_core_tpu_torch.codec.tftensor import (  # noqa: F401
+    TfTensorError,
+    array_to_tftensor,
+    tftensor_to_array,
+)

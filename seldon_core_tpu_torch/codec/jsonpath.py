@@ -59,8 +59,7 @@ def extract_json_payload(body: Dict[str, Any]) -> Tuple[Any, Optional[Dict], Opt
             return arr, meta, datadef, "rawTensor"
         if "ndarray" in datadef:
             return np.asarray(datadef["ndarray"]), meta, datadef, "ndarray"
-        if "tftensor" in datadef:
-            raise PayloadError("tftensor payloads are not served by the PyTorch port yet")
+        # tftensor has no JSON form (TF clients speak gRPC binary)
         raise PayloadError("request 'data' has no tensor/ndarray/rawTensor")
     if "binData" in body:
         raw = body["binData"]

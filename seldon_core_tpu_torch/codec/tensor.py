@@ -15,10 +15,10 @@ Covers the payload kinds of the wire contract that this port serves:
                   uint2 to int8 / uint8, each by a table lookup of the
                   byte's bits: the values the JAX codec's ``ml_dtypes``
                   array upcasts to
+* ``tftensor``  — ``tensorflow.TensorProto``, decoded without TensorFlow
+                  (``codec/tftensor.py``; gRPC only, it has no JSON form)
 * ``binData`` / ``strData`` / ``jsonData`` — passed through as
   bytes / str / python objects
-
-Not served yet: ``tftensor`` payloads, a :class:`PayloadError` (HTTP 400).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import numpy as np
 from google.protobuf import json_format
 from google.protobuf.struct_pb2 import ListValue
 
+from seldon_core_tpu_torch.codec.tftensor import array_to_tftensor, tftensor_to_array
 from seldon_core_tpu_torch.proto import pb
 
 
@@ -182,7 +183,7 @@ def datadef_to_array(datadef: pb.DefaultData) -> np.ndarray:
     if kind == "ndarray":
         return ndarray_to_array(datadef.ndarray)
     if kind == "tftensor":
-        raise PayloadError("tftensor payloads are not served by the PyTorch port yet")
+        return tftensor_to_array(datadef.tftensor)
     raise PayloadError(f"DefaultData has no decodable payload (kind={kind})")
 
 
@@ -220,7 +221,8 @@ def array_to_datadef(
     data_type: str = "tensor",
 ) -> pb.DefaultData:
     """Encode an array with the requested wire encoding
-    ("tensor" | "ndarray" | "rawTensor"); responses echo the request's."""
+    ("tensor" | "ndarray" | "rawTensor" | "tftensor"); responses echo
+    the request's."""
     datadef = pb.DefaultData(names=list(names or []))
     if data_type == "tensor":
         datadef.tensor.CopyFrom(array_to_tensor(arr))
@@ -228,6 +230,8 @@ def array_to_datadef(
         datadef.rawTensor.CopyFrom(array_to_raw_tensor(arr))
     elif data_type == "ndarray":
         datadef.ndarray.CopyFrom(array_to_ndarray(arr))
+    elif data_type == "tftensor":
+        array_to_tftensor(arr, out=datadef.tftensor)
     else:
         raise PayloadError(f"unknown data_type {data_type!r}")
     return datadef

@@ -18,3 +18,4 @@ from seldon_core_tpu_torch.engine.units import (  # noqa: F401
     make_builtin,
     register_implementation,
 )
+from seldon_core_tpu_torch.engine.native_ingress import fast_lane_for, serve_native_ingress  # noqa: F401

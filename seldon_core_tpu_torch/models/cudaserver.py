@@ -35,7 +35,11 @@ for one NVIDIA GPU:
   ``precision`` option is ``BAD_PRECISION``;
 * requests flow through the dynamic batcher: concurrent requests
   coalesce into padded-bucket device calls, and every bucket is warmed
-  at load time so cuDNN has picked its algorithms before traffic.
+  at load time so cuDNN has picked its algorithms before traffic;
+* the native ingress (``engine/native_ingress.py``) calls
+  ``raw_batch_call`` once per batch it coalesced in C++, and the
+  zero-copy frame lane calls ``raw_batch_views``; both keep a uint8
+  batch uint8 and ride the same batcher.
 
 The server runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"`` (the tests do); asking for CUDA on a host without it is
@@ -512,6 +516,65 @@ class CudaServer(TPUComponent):
         out = await asyncio.wrap_future(self.batcher.submit_future(arr))
         return out[0] if squeeze else out
 
+    # ---- native fast lane -------------------------------------------------
+
+    def flat_feature_dim(self) -> int:
+        """Row width of the flattened input the native ingress sends."""
+        if self.input_shape is None:
+            self.load()
+        return int(np.prod(self.input_shape))
+
+    def flat_out_dim(self) -> int:
+        """Row width of the flattened output (2k for top-k)."""
+        return 2 * self.top_k if self.top_k else self.num_classes
+
+    def raw_batch_call(self, batch2d: np.ndarray) -> np.ndarray:
+        """One model call for a batch the C++ ingress coalesced:
+        [rows, flat] uint8 | float32 -> [rows, out] float32.
+
+        The dtype is kept: a uint8 batch reaches the device as uint8 and
+        goes through ``fused_normalize``; other dtypes are cast to
+        ``warmup_dtypes[0]``.  The call rides the same DynamicBatcher as
+        every other lane (its ``max_wait_ms`` is a second coalescing
+        window after the C++ one), and waits for its answer: ``batch2d``
+        may be a view of memory the caller frees when this returns, and
+        the batcher resolves the future only after ``device_call`` has
+        copied the rows into the staging buffer.
+        """
+        if not self._loaded:
+            self.load()
+        arr = np.asarray(batch2d)
+        if arr.dtype.name not in self.warmup_dtypes:
+            arr = arr.astype(np.dtype(self.warmup_dtypes[0]))
+        arr = arr.reshape((-1, *self.input_shape))
+        out = self.batcher.submit_future(arr).result()
+        return np.asarray(out).reshape(arr.shape[0], -1)
+
+    def raw_batch_views(self, views) -> List[np.ndarray]:
+        """The batched submission of the zero-copy lane: N buffer views
+        ``[rows_i, flat]`` stack into ONE micro-batch (one allocation; a
+        lone full view passes through without a copy), ride the batcher
+        as one request and split back into per-view outputs.  A
+        mixed-dtype wave stacks at the canonical dtype."""
+        from seldon_core_tpu_torch.codec.bufview import BufferView, stack_views
+
+        if not self._loaded:
+            self.load()
+        norm = []
+        for v in views:
+            arr = v.array() if isinstance(v, BufferView) else np.asarray(v)
+            if arr.ndim == 1:
+                arr = arr[None, :]
+            if arr.dtype.name not in self.warmup_dtypes:
+                arr = arr.astype(np.dtype(self.warmup_dtypes[0]))
+            norm.append(arr.reshape(arr.shape[0], -1))
+        if len({a.dtype for a in norm}) > 1:
+            canon = np.dtype(self.warmup_dtypes[0])
+            norm = [a.astype(canon, copy=False) for a in norm]
+        batch, offsets = stack_views(norm, dtype=norm[0].dtype)
+        out = self.raw_batch_call(batch)
+        return [out[offsets[i]:offsets[i + 1]] for i in range(len(norm))]
+
     def class_names(self):
         if self.top_k:  # rows are (indices, scores), not per-class columns
             return []
@@ -525,6 +588,10 @@ class CudaServer(TPUComponent):
         out = [
             gauge_metric("cudaserver_mean_batch_rows", self.batcher.stats.mean_batch_rows),
             gauge_metric("cudaserver_batches_total", float(self.batcher.stats.batches)),
+            # sums whose differences over the count's give a window's mean collection wait and enqueue -> result
+            gauge_metric("cudaserver_batched_requests_total", float(self.batcher.stats.requests)),
+            gauge_metric("cudaserver_batch_collect_ms_total", self.batcher.stats.collect_ms_total),
+            gauge_metric("cudaserver_batch_total_ms_total", self.batcher.stats.total_ms_sum),
         ]
         for name, n in kernels.launch_counts().items():
             out.append(gauge_metric("cudaserver_kernel_launches", float(n), tags={"kernel": name}))

@@ -26,6 +26,11 @@ KNOBS: Dict[str, str] = {
     "SELDON_TPU_MAX_ADAPTERS": "LoRA adapter pool slots of a PagedEngine when max_adapters is 0 (unset/0: adapters off)",
     "SELDON_TPU_WEIGHT_BUDGET_GIB": "weight registry budget in GiB for named weight sets (unset/0: no budget)",
     "SELDON_TPU_PREFIX_CACHE": "page-granular prefix cache: '1' raises (not ported); off by default here",
+    "SELDON_TPU_ZERO_COPY": (
+        "buffer-view lane: SRT1 frames decode to zero-copy views from the native ingress to the device "
+        "staging buffer ('0' = proto/JSON paths only; frames are refused naming the knob)"
+    ),
+    "SELDON_TPU_NATIVE_SO": "path of a prebuilt native front-server library to load instead of the port's own build",
 }
 
 # flag knobs and their defaults: "1" = on unless set to "0", "0" = off
@@ -33,6 +38,7 @@ KNOBS: Dict[str, str] = {
 # port has no prefix cache yet, so its default is off.
 _FLAG_DEFAULTS: Dict[str, str] = {
     "SELDON_TPU_PREFIX_CACHE": "0",
+    "SELDON_TPU_ZERO_COPY": "1",
 }
 
 

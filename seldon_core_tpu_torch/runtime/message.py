@@ -142,9 +142,14 @@ class InternalMessage:
     # ---- exporters --------------------------------------------------------
 
     def host_payload(self) -> Any:
-        """Payload with any device tensor fetched back to host."""
+        """Payload with any device tensor fetched back to host.  A
+        buffer-view payload materialises as its ndarray view (no copy),
+        so the proto / JSON exporters serve a zero-copy message through
+        the ordinary wire encodings."""
         if codec.is_device_array(self.payload):
             return codec.from_device(self.payload)
+        if isinstance(self.payload, codec.BufferView):
+            return self.payload.array()
         return self.payload
 
     def to_proto(self) -> pb.SeldonMessage:
@@ -180,9 +185,9 @@ class InternalMessage:
             json_format.ParseDict(payload, msg.jsonData)
         else:
             arr = np.asarray(payload)
-            kind = self.kind if self.kind in JSON_ARRAY_KINDS else "tensor"
-            if arr.dtype.kind in "US":
-                kind = "ndarray"
+            kind = self.kind if self.kind in ARRAY_KINDS else "tensor"
+            if arr.dtype.kind in "US" and kind != "tftensor":
+                kind = "ndarray"  # tftensor carries strings natively (string_val)
             msg.data.CopyFrom(codec.array_to_datadef(arr, self.names, kind))
         return msg
 
@@ -198,7 +203,8 @@ class InternalMessage:
             return body
         kind = self.kind if self.kind in JSON_ARRAY_KINDS else "tensor"
         if isinstance(payload, np.ndarray) and payload.dtype.kind in "USO":
-            # strings can only travel as ndarray in the JSON dialect
+            # strings (DT_STRING tftensor decodes too: object arrays of
+            # bytes) can only travel as ndarray in the JSON dialect
             kind = "ndarray"
         body.update(codec.build_json_payload(payload, names=self.names, data_kind=kind))
         return body

@@ -1,10 +1,11 @@
 """The PyTorch port stands alone: no JAX, no flax, nothing of the JAX package.
 
 An AST scan of every module of ``seldon_core_tpu_torch`` and of
-``chip_smoke.py`` finds no import of ``jax``, ``flax`` or
+``chip_smoke.py`` finds no import of ``jax``, ``flax``,
 ``seldon_core_tpu`` (the ``seldon_core_tpu_torch`` prefix is the port's
-own), and a fresh interpreter that imports the server and the runtime
-has no ``jax`` in ``sys.modules``.
+own) or ``ml_dtypes`` (the card's machine has none), and a fresh
+interpreter that imports the server and the runtime has none of them in
+``sys.modules``.
 """
 
 import ast
@@ -16,7 +17,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "seldon_core_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "seldon_core_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "seldon_core_tpu", "ml_dtypes")
 
 
 def _forbidden(module: str) -> bool:
@@ -62,9 +63,11 @@ def test_scan_covers_the_port():
     for module in ("proto/services.py", "runtime/puid.py", "runtime/grpc_server.py", "runtime/openapi.py",
                    "engine/graph.py", "engine/units.py", "engine/transport.py", "engine/executor.py",
                    "engine/service.py", "engine/server.py", "engine/sync_server.py", "components/routers.py",
-                   "components/__init__.py", "models/__init__.py"):
+                   "components/__init__.py", "models/__init__.py", "codec/bufview.py", "codec/tftensor.py",
+                   "native/__init__.py", "native/frontserver.py", "engine/native_ingress.py"):
         assert f"seldon_core_tpu_torch/{module}" in names, module
     assert _forbidden("seldon_core_tpu.proto") and _forbidden("jax.numpy") and _forbidden("flax.linen")
+    assert _forbidden("seldon_core_tpu.native") and _forbidden("ml_dtypes")
     assert not _forbidden("seldon_core_tpu_torch.proto")
 
 
@@ -80,9 +83,13 @@ def test_importing_the_port_loads_no_jax():
         "import seldon_core_tpu_torch.engine.server, seldon_core_tpu_torch.engine.sync_server\n"
         "import seldon_core_tpu_torch.runtime.grpc_server, seldon_core_tpu_torch.components.routers\n"
         "import seldon_core_tpu_torch.runtime.openapi, seldon_core_tpu_torch.proto.services\n"
+        "import seldon_core_tpu_torch.codec.bufview, seldon_core_tpu_torch.codec.tftensor\n"
+        "import seldon_core_tpu_torch.native, seldon_core_tpu_torch.native.frontserver\n"
+        "import seldon_core_tpu_torch.engine.native_ingress\n"
         "from seldon_core_tpu_torch.engine import units\n"
         "[units._lookup_builtin(name) for name in units.PREPACKAGED]\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'seldon_core_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'seldon_core_tpu',\n"
+        "                                                            'ml_dtypes'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )

@@ -438,10 +438,17 @@ class TestPortBatcherAndCodec:
         assert proto.data.rawTensor.dtype == "uint8"
         back = InternalMessage.from_proto(pb.SeldonMessage.FromString(proto.SerializeToString()))
         np.testing.assert_array_equal(back.payload, arr)
+        # the tftensor message this test once saw refused now decodes
+        # (codec/tftensor.py): DT_FLOAT with no shape and no values is a
+        # float32 scalar 0, answered as a tftensor
         tf = pb.SeldonMessage()
         tf.data.tftensor.dtype = 1
-        with pytest.raises(PayloadError, match="tftensor"):
-            InternalMessage.from_proto(tf)
+        msg = InternalMessage.from_proto(tf)
+        assert msg.kind == "tftensor" and msg.payload.dtype == np.float32 and msg.payload.shape == ()
+        assert float(msg.payload) == 0.0
+        assert msg.to_proto().data.tftensor.dtype == 1
+        with pytest.raises(PayloadError, match="tftensor|no tensor"):
+            InternalMessage.from_json({"data": {"tftensor": {"dtype": "DT_FLOAT"}}})
 
     def test_proto_messages_are_shared_with_the_jax_package(self):
         from seldon_core_tpu.proto import pb as jax_pb
