@@ -206,7 +206,36 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    count equal to the gRPC and frame requests of (a) and (b); K1
    launches equal to the model's batches (``/metrics`` on the native
    port); a JSON predict and a ``SendFeedback`` on the fallback lane; the
-   ``14 headline`` line beside 13a's numbers.
+   ``14 headline`` line beside 13a's numbers;
+15. A4 on the card, the request contract on every ingress of the
+   ResNet-50 deployment (13a's served parameters): (a) a gateway child
+   with TLS (the repo's test CA, ``tests/data/torch_port_tls``) and OAuth
+   on REST and sync gRPC, tracing to its ring and the metrics observer,
+   with a native port in front, beside 13a's plain gateway child; a
+   token from ``/oauth/token``, then 4 TLS sync-gRPC clients of uint8
+   rows [1, 150528], each request with ``authorization: Bearer``,
+   ``x-seldon-deadline-ms: 10000`` and a ``traceparent``, for 10 s after
+   one client's 3 s of sequential requests, on the two gateways in turns
+   (on, off, off, on): p50 / p99 / QPS and the sequential p50 of each
+   window and the A4-minus-plain difference of the means; every served
+   row against the in-process model; K1 launches equal batches on both;
+   (b) the two-process deployment (the CLI with ``--api BOTH
+   --tracing`` and an A4 gateway whose node is its gRPC endpoint, both
+   with ``SELDON_TPU_TRACE_EXPORT``): 8 single images each with a trace
+   of its own and a batch of 8 within 2e-2 of the in-process model and
+   nearest their own image; for each of the 8, in the two JSONL sinks,
+   the microservice's ``microservice.predict`` span a child of the
+   gateway's node span under the client's trace id;
+   ``X-Seldon-Deadline-Ms: 0`` answers 504 ``DEADLINE_EXCEEDED`` on REST
+   and a FAILURE naming ``gateway grpc ingress Seldon/Predict`` on gRPC,
+   no token answers 401 and ``UNAUTHENTICATED``, and K1 does not run for
+   any of them; a multipart REST predict within 2e-2 of the same JSON
+   predict; K1 launches equal batches (the microservice's ``/metrics``);
+   (c) ``/metrics``: ``seldon_api_engine_server_requests_duration_seconds_count``
+   equal to the requests (a) served, on the A4 gateway and on its native
+   port; the two-process hop's request bytes > 0 and its in-flight gauge
+   0 at rest; ``cudaserver_kernel_launches{kernel="fused_normalize"}`` on
+   the gateway, the native port and the microservice.
 
 The first line names the card, torch, CUDA and ``grpc.__version__``.
 Output: the ``nvidia-smi`` line, then one ``{"kernels": [...]}`` line,
@@ -358,6 +387,13 @@ NATIVE_LOAD_SECONDS = 6.0       # bench.py's default: three windows of a third a
 NATIVE_LOAD_DEPTHS = ((8, 4), (8, 8), (8, 12))  # (connections, requests in flight on each)
 NATIVE_BATCH_THREADS = (4, 48)  # 14c at each: the ingress default is one, bench.py's BENCH_NATIVE_BATCH_THREADS 48
 NATIVE_CONTAINER_ROWS = (1, 2, 5)  # one multi-frame container, one micro-batch
+# phase 15, A4 on the card: the request contract on every ingress of the deployment
+TLS_DIR = os.path.join(ROOT, "tests", "data", "torch_port_tls")  # test-only CA and server certificate
+A4_OAUTH = ("chip-smoke-client", "chip-smoke-secret")  # test-only client credentials of the gateways
+A4_DEADLINE_MS = "10000"
+A4_FEATURES = ("tls", "auth", "tracing", "observer")  # what an A4 gateway child puts on
+A4_WINDOWS = 2                  # windows of each gateway, in turns: on, off, off, on
+A4_TRACED_REQUESTS = 8          # 15b: requests whose spans are followed across the two processes
 INT8W_VS_BF16_REL_L2 = 5e-2     # int8w lane vs the bf16 lane on the same weights
 INT8W_VS_BF16_MIN_COS = 0.99
 W8A8_MIN_TOP1 = 0.8             # w8a8 vs bf16 top-1 agreement (tests/test_w8a8.py's bar)
@@ -745,10 +781,18 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def tls_context():
+    """A client context trusting the repo's test CA (phase 15's listeners)."""
+    import ssl
+
+    return ssl.create_default_context(cafile=os.path.join(TLS_DIR, "ca.crt"))
+
+
 def http(url: str, body=None, timeout: float = 120.0, headers=None):
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json", **(headers or {})})
-    with urllib.request.urlopen(req, timeout=timeout) as r:
+    ctx = tls_context() if url.startswith("https:") else None
+    with urllib.request.urlopen(req, timeout=timeout, context=ctx) as r:
         raw = r.read()
     return raw if url.endswith("/metrics") else json.loads(raw)
 
@@ -2156,8 +2200,12 @@ class PassThrough:
 
 
 def gateway_child(spec_json: str) -> None:
-    """Child process of phase 13: UnitSpec.from_dict -> PredictorService
-    -> Gateway -> serve_gateway (sync gRPC), serving until SIGTERM."""
+    """Child process of phases 13-15: UnitSpec.from_dict -> PredictorService
+    -> Gateway -> serve_gateway (sync gRPC), serving until SIGTERM.  With
+    ``a4`` in the spec (phase 15; ``a4_features``): the predictor's
+    PrometheusObserver, TLS from the repo's test certificates and OAuth on
+    both listeners, and the tracer (its JSONL sink at
+    SELDON_TPU_TRACE_EXPORT when set)."""
     import asyncio
 
     sys.path.insert(0, ROOT)
@@ -2165,12 +2213,31 @@ def gateway_child(spec_json: str) -> None:
     from seldon_core_tpu_torch.engine.server import Gateway, serve_gateway
 
     spec = json.loads(spec_json)
+    features = a4_features(spec.get("a4"))
+    observer = tls = auth = None
+    if "observer" in features:
+        from seldon_core_tpu_torch.utils.metrics import PrometheusObserver
+
+        observer = PrometheusObserver(deployment_name=spec["name"], predictor_name=spec["name"])
+    if "tls" in features:
+        from seldon_core_tpu_torch.utils.tls import TlsConfig
+
+        tls = TlsConfig(cert_file=os.path.join(TLS_DIR, "server.crt"), key_file=os.path.join(TLS_DIR, "server.key"))
+    if "auth" in features:
+        from seldon_core_tpu_torch.utils.auth import OAuthConfig
+
+        auth = OAuthConfig(*A4_OAUTH)
+    if "tracing" in features:
+        from seldon_core_tpu_torch.runtime import knobs
+        from seldon_core_tpu_torch.utils.tracing import setup_tracing
+
+        setup_tracing(service_name="gateway", export_path=knobs.raw("SELDON_TPU_TRACE_EXPORT") or None)
 
     async def main():
-        svc = PredictorService(UnitSpec.from_dict(spec["graph"]), name=spec["name"])
+        svc = PredictorService(UnitSpec.from_dict(spec["graph"]), name=spec["name"], observer=observer)
         gateway = Gateway([(svc, 1.0)])
         runner, handle = await serve_gateway(gateway, host="127.0.0.1", http_port=spec["http_port"],
-                                             grpc_port=spec["grpc_port"])
+                                             grpc_port=spec["grpc_port"], tls=tls, auth=auth)
         ingresses = []
         for port, threads in spec["native"]:  # one C++ front server a (port, batch threads), one gateway
             from seldon_core_tpu_torch.engine import serve_native_ingress
@@ -2195,15 +2262,25 @@ def gateway_child(spec_json: str) -> None:
     asyncio.run(main())
 
 
-def start_gateway(name: str, graph: dict, logfile, native=()):
+def a4_features(a4) -> set:
+    """The parts of phase 15's request contract a gateway child puts on:
+    ``True`` is all of A4_FEATURES, a list names some of them."""
+    return set(A4_FEATURES) if a4 is True else set(a4 or ())
+
+
+def start_gateway(name: str, graph: dict, logfile, native=(), a4=False, env=None):
     """A gateway child; ``native`` lists (port, batch threads) of native
-    ingress servers to put in front of it."""
+    ingress servers to put in front of it; ``a4`` puts phase 15's request
+    contract on its listeners (``a4_features``; with TLS the base URL is
+    https)."""
     http_port, grpc_port = free_port(), free_port()
-    spec = {"name": name, "graph": graph, "http_port": http_port, "grpc_port": grpc_port, "native": list(native)}
+    spec = {"name": name, "graph": graph, "http_port": http_port, "grpc_port": grpc_port, "native": list(native),
+            "a4": a4}
     proc = subprocess.Popen([sys.executable, "-c", "import sys, chip_smoke; chip_smoke.gateway_child(sys.argv[1])",
                              json.dumps(spec)], cwd=ROOT, stdout=logfile, stderr=subprocess.STDOUT,
-                            start_new_session=True)
-    return proc, f"http://127.0.0.1:{http_port}", grpc_port
+                            start_new_session=True, env=env)
+    scheme = "https://localhost" if "tls" in a4_features(a4) else "http://127.0.0.1"
+    return proc, f"{scheme}:{http_port}", grpc_port
 
 
 def wait_gateway(procs, base: str, logpath: str, timeout_s: float = 600.0) -> float:
@@ -2213,7 +2290,8 @@ def wait_gateway(procs, base: str, logpath: str, timeout_s: float = 600.0) -> fl
             if proc.poll() is not None:
                 raise SmokeFailure(f"a phase 13 process exited with {proc.returncode}:\n{tail(logpath)}")
         try:
-            with urllib.request.urlopen(base + "/ready", timeout=10) as r:
+            ctx = tls_context() if base.startswith("https:") else None
+            with urllib.request.urlopen(base + "/ready", timeout=10, context=ctx) as r:
                 if r.status == 200:
                     return time.perf_counter() - t0
         except (urllib.error.URLError, ConnectionError, OSError):
@@ -2951,6 +3029,323 @@ def native_paths(torch, np, kernels, resnet, card, gateway_numbers, forward_ms_b
     return numbers
 
 
+# ---------------------------------------------------------------- phase 15
+
+def metric_samples(text: bytes):
+    """[(name, {label: value}, value)] of a Prometheus text exposition."""
+    import re
+
+    out = []
+    for line in text.decode().splitlines():
+        if line and not line.startswith("#"):
+            key, _, val = line.rpartition(" ")
+            name, _, rest = key.partition("{")
+            out.append((name, dict(re.findall(r'([a-zA-Z_]\w*)="((?:[^"\\]|\\.)*)"', rest)), float(val)))
+    return out
+
+
+def metric_value(samples, name: str, **labels) -> float:
+    """The one series of `name` whose labels include `labels`."""
+    hits = [v for n, lab, v in samples if n == name and all(lab.get(k) == w for k, w in labels.items())]
+    check(len(hits) == 1, f"{len(hits)} series {name} {labels} on /metrics, expected one")
+    return hits[0]
+
+
+def http_status(url: str, data: bytes = b"", headers=None, timeout: float = 120.0):
+    """(status, JSON body) of a POST, error statuses included."""
+    req = urllib.request.Request(url, data=data, headers=headers or {})
+    ctx = tls_context() if url.startswith("https:") else None
+    try:
+        with urllib.request.urlopen(req, timeout=timeout, context=ctx) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def oauth_token(base: str) -> str:
+    basic = base64.b64encode(":".join(A4_OAUTH).encode()).decode()
+    status, body = http_status(base + "/oauth/token", headers={"Authorization": f"Basic {basic}"})
+    check(status == 200 and body.get("token_type") == "bearer", f"/oauth/token answered {status}: {body}")
+    return body["access_token"]
+
+
+def a4_metadata(token: str, trace_hex: str, span: int, deadline_ms: str = A4_DEADLINE_MS):
+    return (("authorization", f"Bearer {token}"), ("x-seldon-deadline-ms", deadline_ms),
+            ("traceparent", f"00-{trace_hex}-{span:016x}-01"))
+
+
+def a4_grpc_lane(services, grpc_server, port: int, token: str, trace_hex: str):
+    """Phase 15a's clients: a TLS channel each, every request with a bearer
+    token, a 10 s deadline and a traceparent of its own."""
+    import itertools
+
+    import grpc
+
+    with open(os.path.join(TLS_DIR, "ca.crt"), "rb") as f:
+        creds = grpc.ssl_channel_credentials(root_certificates=f.read())
+    spans = itertools.count(1)
+
+    def lane():
+        channel = grpc.secure_channel(f"localhost:{port}", creds, options=grpc_server.message_size_options())
+        predict = services.unary_callable(channel, "Seldon", "Predict")
+        return (lambda req: predict(req, timeout=120, metadata=a4_metadata(token, trace_hex, next(spans)))), \
+            channel.close
+    return lane
+
+
+def a4_window(np, lane, bodies, rows_of, refs, errs, what: str, card):
+    """One window of 15a: one client's sequential batch-1 requests for
+    GRPC_SEQUENTIAL_SECONDS, then GRPC_LAT_CLIENTS clients for GRPC_SECONDS."""
+    seq, answers, _ = load_window(lane, bodies["bodies"], 1, GRPC_SEQUENTIAL_SECONDS)
+    served_rows_errors(np, answers, bodies, rows_of, refs, 1, errs)
+    lat, answers, _ = load_window(lane, bodies["bodies"], GRPC_LAT_CLIENTS, GRPC_SECONDS)
+    served_rows_errors(np, answers, bodies, rows_of, refs, 1, errs)
+    out = window_numbers(np, lat, GRPC_SECONDS, GRPC_LAT_CLIENTS)
+    out.update(sequential_p50_ms=pct(seq, 0.50), sequential_requests=len(seq))
+    log(f"{what}: one client, {len(seq)} sequential batch-1 requests: p50 {out['sequential_p50_ms']:.3f} ms; "
+        f"{GRPC_LAT_CLIENTS} clients, {GRPC_SECONDS:.0f} s, {len(lat)} requests: p50 {out['p50_ms']:.3f} ms, "
+        f"p99 {out['p99_ms']:.3f}, {out['qps']:.1f} QPS [{card}]")
+    return out
+
+
+def multipart_body(fields):
+    """multipart/form-data of (name, bytes) fields, and its Content-Type."""
+    boundary = "chip-smoke-" + os.urandom(8).hex()
+    body = b"".join(f'--{boundary}\r\nContent-Disposition: form-data; name="{name}"\r\n\r\n'.encode() + value
+                    + b"\r\n" for name, value in fields)
+    return body + f"--{boundary}--\r\n".encode(), f"multipart/form-data; boundary={boundary}"
+
+
+def read_spans(path: str, want: int, timeout_s: float = 20.0):
+    """The spans of a JSONL sink, once it holds at least `want`."""
+    deadline = time.perf_counter() + timeout_s
+    spans = []
+    while time.perf_counter() < deadline:
+        if os.path.exists(path):
+            with open(path) as f:
+                spans = [json.loads(line) for line in f if line.strip()]
+            if len(spans) >= want:
+                break
+        time.sleep(0.2)
+    return spans
+
+
+def a4_paths(torch, np, kernels, resnet, card):
+    """Phase 15: A4 on the card, on ResNet-50 at full width.  (a) the
+    gateway with TLS, OAuth, deadlines, tracing and the metrics observer
+    against 13a's plain gateway, in turns; (b) correctness on the
+    two-process deployment; (c) /metrics on the gateway, the
+    microservice and the native port."""
+    import grpc
+
+    from seldon_core_tpu_torch.engine.native_ingress import BATCH_THREADS
+    from seldon_core_tpu_torch.proto import pb, services
+    from seldon_core_tpu_torch.runtime import grpc_server
+
+    rng = np.random.default_rng(SEED + 15)
+    all_images, grpc_images, _ = phase13_images(np, pb, rng)
+    local = reference_resnet(torch, resnet, SEED)
+    refs = reference_logits(torch, np, kernels, local, all_images)
+    del local
+    torch.cuda.empty_cache()
+    grpc_rows = lambda resp, rows: proto_logits(pb, resp, rows)  # noqa: E731
+    eight = {"index": [np.arange(8)], "pool": [np.arange(8)]}
+    flat = lambda x: np.ascontiguousarray(x.reshape(len(x), -1))  # noqa: E731
+    numbers, errs = {}, {"15a": [], "15b": []}
+    graph = {"name": "resnet50", "type": "MODEL", "implementation": "CUDA_SERVER", "parameters": GRPC_PARAMS}
+    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_a4_", suffix=".log")
+    logfile = os.fdopen(fd, "w")
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_traces_")
+    procs = []
+    with open(os.path.join(TLS_DIR, "ca.crt"), "rb") as f:
+        creds = grpc.ssl_channel_credentials(root_certificates=f.read())
+    try:
+        # (a) the A4 gateway (with a native port in front, read in (c)) and 13a's plain gateway, both up
+        native_port = free_port()
+        a4_proc, a4_base, a4_grpc = start_gateway("resnet50", graph, logfile, native=((native_port, BATCH_THREADS),),
+                                                  a4=True)
+        plain_proc, plain_base, plain_grpc = start_gateway("resnet50", graph, logfile)
+        procs += [a4_proc, plain_proc]
+        ready_s = max(wait_gateway(procs, a4_base, logpath), wait_gateway(procs, plain_base, logpath))
+        wait_gateway(procs, f"http://127.0.0.1:{native_port}", logpath)
+        token = oauth_token(a4_base)
+        log(f"15a gateways ready in {ready_s:.1f}s: A4 on (TLS and OAuth on REST and sync gRPC, port {a4_grpc}; "
+            f"tracing to the ring, the metrics observer; native port {native_port}) and 13a's plain gateway "
+            f"(port {plain_grpc}); token from /oauth/token")
+        trace_hex = os.urandom(16).hex()
+        a4_lane = a4_grpc_lane(services, grpc_server, a4_grpc, token, trace_hex)
+        plain_lane = grpc_lane(pb, services, grpc_server, plain_grpc)
+        served_a4 = 0
+
+        def a4_probe():
+            send, close = a4_lane()
+            try:
+                answer = send(grpc_request(pb, all_images[:8]))
+            finally:
+                close()
+            served_rows_errors(np, [(0, answer)], eight, grpc_rows, refs, 8, errs["15a"])
+            return answer
+
+        before_a4 = a4_probe()
+        served_a4 += 1
+        m0_plain = metric_samples(http(plain_base + "/metrics"))
+        windows = {"on": [], "off": []}
+        for turn in ["on", "off", "off", "on"][:2 * A4_WINDOWS]:
+            lane = a4_lane if turn == "on" else plain_lane
+            w = a4_window(np, lane, grpc_images["latency"], grpc_rows, refs, errs["15a"],
+                          f"15a A4 {turn}, window {len(windows[turn]) + 1}", card)
+            windows[turn].append(w)
+            if turn == "on":
+                served_a4 += w["sequential_requests"] + w["requests"]
+        after_a4 = a4_probe()
+        served_a4 += 1
+        m1_plain = metric_samples(http(plain_base + "/metrics"))
+        launches = {}
+        for what, k1, batches in (
+                ("a4", response_metric(after_a4, "cudaserver_kernel_launches", kernel="fused_normalize")
+                 - response_metric(before_a4, "cudaserver_kernel_launches", kernel="fused_normalize"),
+                 response_metric(after_a4, "cudaserver_batches_total")
+                 - response_metric(before_a4, "cudaserver_batches_total")),
+                ("plain", metric_value(m1_plain, "cudaserver_kernel_launches", kernel="fused_normalize")
+                 - metric_value(m0_plain, "cudaserver_kernel_launches", kernel="fused_normalize"),
+                 metric_value(m1_plain, "cudaserver_batches_total")
+                 - metric_value(m0_plain, "cudaserver_batches_total"))):
+            check(batches > 0 and k1 == batches, f"15a {what}: K1 launches {k1} != {batches} batches")
+            launches[what] = {"k1": int(k1), "batches": int(batches)}
+        stop_server(plain_proc)
+        procs.remove(plain_proc)
+        mean = lambda ws, k: statistics.fmean(w[k] for w in ws)  # noqa: E731
+        summary = {turn: {k: mean(ws, k) for k in ("p50_ms", "p99_ms", "qps", "sequential_p50_ms")}
+                   for turn, ws in windows.items()}
+        cost = {k: summary["on"][k] - summary["off"][k] for k in ("p50_ms", "p99_ms", "qps", "sequential_p50_ms")}
+        numbers["15a"] = {"windows": windows, "mean": summary, "a4_minus_plain": cost, "launches": launches,
+                          "a4_requests": served_a4, "card": card}
+        log("15a A4 on against off, in turns (" + ", ".join(["on", "off", "off", "on"][:2 * A4_WINDOWS])
+            + "): " + json.dumps({"mean": summary, "a4_minus_plain": cost, "launches": launches}) + f" [{card}]")
+
+        # (b) the two-process deployment: the CLI (--api BOTH --tracing) and an A4 gateway whose node is its gRPC
+        ms_http, ms_grpc = free_port(), free_port()
+        ms_spans, gw_spans = os.path.join(trace_dir, "microservice.jsonl"), os.path.join(trace_dir, "gateway.jsonl")
+        ms = subprocess.Popen(
+            [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice",
+             "seldon_core_tpu_torch.models.cudaserver.CudaServer", "--api", "BOTH", "--tracing", "--host",
+             "127.0.0.1", "--http-port", str(ms_http), "--grpc-port", str(ms_grpc), "--unit-id", "resnet50",
+             "--parameters", json.dumps(GRPC_PARAMS)],
+            cwd=ROOT, stdout=logfile, stderr=subprocess.STDOUT, start_new_session=True,
+            env={**os.environ, "SELDON_TPU_TRACE_EXPORT": ms_spans})
+        procs.append(ms)
+        remote = {"name": "resnet50", "type": "MODEL",
+                  "endpoint": {"host": "127.0.0.1", "port": ms_grpc, "transport": "GRPC"}}
+        gw_proc, gw_base, gw_grpc = start_gateway("resnet50", remote, logfile, a4=True,
+                                                  env={**os.environ, "SELDON_TPU_TRACE_EXPORT": gw_spans})
+        procs.append(gw_proc)
+        ms_base = f"http://127.0.0.1:{ms_http}"
+        ready_s = wait_gateway(procs, gw_base, logpath)
+        wait_ready(ms, ms_base, logpath)
+        token_b = oauth_token(gw_base)
+        log(f"15b microservice (--api BOTH --tracing, gRPC port {ms_grpc}) and A4 gateway ready in {ready_s:.1f}s")
+        ms_m0 = metric_samples(http(ms_base + "/metrics"))
+        channel = grpc.secure_channel(f"localhost:{gw_grpc}", creds, options=grpc_server.message_size_options())
+        predict = services.unary_callable(channel, "Seldon", "Predict")
+        traced = [os.urandom(16).hex() for _ in range(A4_TRACED_REQUESTS)]
+        try:
+            for i, trace in enumerate(traced):  # single images, each with a trace of its own
+                answer = predict(grpc_request(pb, all_images[i:i + 1]), timeout=120,
+                                 metadata=a4_metadata(token_b, trace, i + 1))
+                served_rows_errors(np, [(i, answer)], grpc_images["latency"], grpc_rows, refs, 1, errs["15b"])
+            answer = predict(grpc_request(pb, all_images[:8]), timeout=120, metadata=a4_metadata(token_b, traced[0], 99))
+            served_rows_errors(np, [(0, answer)], eight, grpc_rows, refs, 8, errs["15b"])
+            ms_m1 = metric_samples(http(ms_base + "/metrics"))
+            # refusals: a spent deadline and a missing token, on both listeners; the model runs for none
+            url = gw_base + "/api/v0.1/predictions"
+            body = json.dumps(raw_request(np, flat(all_images[:1]))).encode()
+            auth_h = {"Authorization": f"Bearer {token_b}", "Content-Type": "application/json"}
+            spent_rest = http_status(url, body, {**auth_h, "X-Seldon-Deadline-Ms": "0"})
+            check(spent_rest[0] == 504 and spent_rest[1]["status"]["reason"] == "DEADLINE_EXCEEDED",
+                  f"REST with X-Seldon-Deadline-Ms: 0 answered {spent_rest}")
+            spent_grpc = predict(grpc_request(pb, all_images[:1]), timeout=120,
+                                 metadata=a4_metadata(token_b, traced[0], 100, deadline_ms="0"))
+            check(spent_grpc.status.status == pb.Status.FAILURE and spent_grpc.status.reason == "DEADLINE_EXCEEDED"
+                  and "gateway grpc ingress Seldon/Predict" in spent_grpc.status.info,
+                  f"gRPC with x-seldon-deadline-ms: 0 answered {spent_grpc.status}")
+            no_token_rest = http_status(url, body, {"Content-Type": "application/json"})
+            check(no_token_rest[0] == 401, f"REST without a token answered {no_token_rest}")
+            try:
+                predict(grpc_request(pb, all_images[:1]), timeout=120)
+                check(False, "gRPC without a token was served")
+            except grpc.RpcError as e:
+                check(e.code() == grpc.StatusCode.UNAUTHENTICATED, f"gRPC without a token answered {e.code()}")
+            ms_m2 = metric_samples(http(ms_base + "/metrics"))
+            k1_key = dict(name="cudaserver_kernel_launches", kernel="fused_normalize")
+            refused_k1 = metric_value(ms_m2, **k1_key) - metric_value(ms_m1, **k1_key)
+            check(refused_k1 == 0, f"refused requests launched K1 {refused_k1} times")
+            # a multipart predict answers as the same JSON predict
+            status_json, as_json = http_status(url, body, auth_h)
+            mp, ctype = multipart_body([("data", json.dumps(raw_request(np, flat(all_images[:1]))["data"]).encode())])
+            status_mp, as_mp = http_status(url, mp, {"Authorization": f"Bearer {token_b}", "Content-Type": ctype})
+            check(status_json == status_mp == 200, f"JSON / multipart predicts answered {status_json} / {status_mp}")
+            multipart_err = rel_l2(np, decode_logits(np, as_mp, 1).astype(np.float64),
+                                   decode_logits(np, as_json, 1).astype(np.float64))
+            check(multipart_err <= SERVED_VS_LOCAL_REL_L2, f"multipart answer {multipart_err:.3e} from the JSON one")
+            ms_m3 = metric_samples(http(ms_base + "/metrics"))
+        finally:
+            channel.close()
+        k1_b = metric_value(ms_m3, **k1_key) - metric_value(ms_m0, **k1_key)
+        batches_b = metric_value(ms_m3, "cudaserver_batches_total") - metric_value(ms_m0, "cudaserver_batches_total")
+        check(batches_b > 0 and k1_b == batches_b, f"15b K1 launches {k1_b} != {batches_b} batches")
+        # every traced request: the microservice's span is a child of the gateway's node span, one trace id
+        gw_all = read_spans(gw_spans, 2 * len(traced))  # predictor.predict and the node span of each
+        ms_all = read_spans(ms_spans, len(traced))
+        for trace in traced:
+            nodes = [s for s in gw_all if s["traceId"] == trace and s["name"] == "node.resnet50.transform_input"]
+            micro = [s for s in ms_all if s["traceId"] == trace and s["name"] == "microservice.predict"]
+            check(len(nodes) >= 1 and len(micro) >= 1, f"trace {trace}: {len(nodes)} node spans, {len(micro)} "
+                  "microservice spans")
+            node_ids = {s["spanId"] for s in nodes}
+            check(all(s["parentSpanId"] in node_ids for s in micro),
+                  f"trace {trace}: a microservice span's parent is not the gateway's node span")
+        numbers["15b"] = {"traced_requests": len(traced), "gateway_spans": len(gw_all),
+                          "microservice_spans": len(ms_all), "k1_launches": int(k1_b), "batches": int(batches_b),
+                          "refused_k1_launches": int(refused_k1), "multipart_rel_l2": multipart_err,
+                          "spent_rest": spent_rest[1]["status"]["info"], "spent_grpc": spent_grpc.status.info}
+        log(f"15b two processes, A4 on: {len(traced)} traced requests each one trace across both processes "
+            f"(the microservice's span a child of the gateway's node span); X-Seldon-Deadline-Ms: 0 -> 504 "
+            f"DEADLINE_EXCEEDED / gRPC FAILURE '{spent_grpc.status.info}'; no token -> 401 / UNAUTHENTICATED; K1 "
+            f"launches for the refusals {int(refused_k1)}; multipart against JSON {multipart_err:.3e}; K1 {int(k1_b)}"
+            f" = {int(batches_b)} batches")
+
+        # (c) /metrics on the A4 gateway, its native port, the two-process gateway and the microservice
+        count = "seldon_api_engine_server_requests_duration_seconds_count"
+        labels = dict(deployment_name="resnet50", predictor_name="resnet50", method="predictions", code="200")
+        seen = {}
+        for what, url in (("gateway", a4_base), ("native port", f"http://127.0.0.1:{native_port}")):
+            m = metric_samples(http(url + "/metrics"))
+            seen[what] = metric_value(m, count, **labels)
+            check(seen[what] == served_a4, f"{what} /metrics counts {seen[what]} requests, 15a served {served_a4}")
+            metric_value(m, "cudaserver_kernel_launches", kernel="fused_normalize")
+        m_gw = metric_samples(http(gw_base + "/metrics"))
+        hop = dict(unit="resnet50", method="predict", transport="grpc")
+        hop_bytes = metric_value(m_gw, "seldon_tpu_transport_request_bytes_total", **hop)
+        inflight = metric_value(m_gw, "seldon_tpu_transport_inflight", **hop)
+        check(hop_bytes > 0 and inflight == 0, f"two-process hop: {hop_bytes} request bytes, in-flight {inflight}")
+        metric_value(ms_m3, "cudaserver_kernel_launches", kernel="fused_normalize")
+        numbers["15c"] = {"requests_counted": seen, "a4_requests": served_a4, "hop_request_bytes": hop_bytes,
+                          "hop_inflight_at_rest": inflight}
+        log(f"15c /metrics: {count} {seen} = the {served_a4} requests 15a served; the two-process hop "
+            f"{int(hop_bytes)} request bytes, in flight {inflight} at rest; cudaserver_kernel_launches"
+            f"{{kernel=\"fused_normalize\"}} on the gateway, the native port and the microservice")
+    finally:
+        for proc in procs:
+            stop_server(proc)
+        logfile.close()
+    for what, e in errs.items():
+        log(f"{what}: {len(e)} served rows, max rel L2 {max(e):.3e} against the in-process model "
+            f"(limit {SERVED_VS_LOCAL_REL_L2})")
+        check(max(e) <= SERVED_VS_LOCAL_REL_L2, f"{what} served rows disagree with the in-process model")
+        numbers[f"{what}_rows"], numbers[f"{what}_max_row_rel_l2"] = len(e), max(e)
+    return numbers
+
+
 # ---------------------------------------------------------------- main
 
 def run() -> int:
@@ -3035,6 +3430,7 @@ def run() -> int:
         gateway_numbers = gateway_paths(torch, np, kernels, resnet, card)
         graph_numbers = graph_paths(torch, np, kernels, resnet, card)
         native_numbers = native_paths(torch, np, kernels, resnet, card, gateway_numbers, whole["forward_ms"][1])
+        a4_numbers = a4_paths(torch, np, kernels, resnet, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3061,6 +3457,7 @@ def run() -> int:
         "gateway": gateway_numbers,
         "graphs": graph_numbers,
         "native_ingress": native_numbers,
+        "a4": a4_numbers,
         "seconds": time.perf_counter() - t_start,
     }
     log(json.dumps(result))
@@ -3080,6 +3477,10 @@ def run() -> int:
         "launches_on_native_ingress": {"launches": native_numbers["native_k1_launches"],
                                        "batches": native_numbers["native_batches"],
                                        "path": "ResNet-50 SeldonDeployment behind the C++ native ingress (phase 14)"},
+        "launches_on_a4": {
+            "a4_gateway": a4_numbers["15a"]["launches"]["a4"], "plain_gateway": a4_numbers["15a"]["launches"]["plain"],
+            "two_process": {"k1": a4_numbers["15b"]["k1_launches"], "batches": a4_numbers["15b"]["batches"]},
+            "path": "ResNet-50 SeldonDeployment with TLS, OAuth, deadlines and tracing (phase 15)"},
         "launch_floor_ms": t32["launch_floor_ms"], "copy_ms": t32["copy_ms"],
         "design": K1_DESIGN, "grid": t32["grid"],
         "shape": [32, *IMG], "out_dtype": "bfloat16",

@@ -31,7 +31,10 @@ batch holding them, or when ``stop()`` fails it unlaunched.  With
 ``CudaServer.device_call`` as ``predict_fn`` the rows have been copied
 into the staging buffer by then, so a caller that lends rows it does
 not own (the native ingress hands over a view of C++ memory) may free
-them as soon as the future is done.
+them as soon as the future is done.  ``submit_lent`` bounds that wait
+and keeps the rule on timeout: a request still queued is cancelled
+(``_collect`` skips it and never reads its rows), and one already
+collected is waited out until ``predict_fn`` has returned for its batch.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FutureTimeout
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Sequence
 
@@ -84,12 +88,21 @@ def bucket_for(n: int, buckets: Sequence[int]) -> int:
     return buckets[-1]
 
 
+# a request's rows are read by the collector between _TAKEN and _RELEASED;
+# a _CANCELLED one is never read (submit_lent timed out while it was queued)
+_QUEUED, _TAKEN, _RELEASED, _CANCELLED = range(4)
+
+
 @dataclass
 class _WorkItem:
     x: np.ndarray  # [rows, ...]
     rows: int
     future: Future
     enqueued_at: float
+    state: int = _QUEUED
+    # set when the batcher stops reading x: predict_fn returned (or raised)
+    # for the batch holding it, or the item was failed unlaunched
+    released: Optional[threading.Event] = None
 
 
 class BatcherStats:
@@ -201,6 +214,8 @@ class DynamicBatcher:
         self._finishers: List[threading.Thread] = []
         self.finisher_threads = finisher_threads
         self._running = False
+        # guards _WorkItem.state: submit_lent's cancel races the collector's take
+        self._state_lock = threading.Lock()
 
     # ---------------------------------------------------------------- public
 
@@ -229,15 +244,19 @@ class DynamicBatcher:
         # one and whatever is still queued
         stopped = RuntimeError(f"batcher {self.name!r} stopped")
         if self._carry is not None:
-            self._carry.future.set_exception(stopped)
+            self._release([self._carry])
+            if not self._carry.future.done():
+                self._carry.future.set_exception(stopped)
             self._carry = None
         while True:
             try:
                 item = self._queue.get_nowait()
             except queue.Empty:
                 break
-            if item is not None and not item.future.done():
-                item.future.set_exception(stopped)
+            if item is not None:
+                self._release([item])
+                if not item.future.done():
+                    item.future.set_exception(stopped)
         for _ in self._finishers:
             self._inflight.put(None)
         for t in self._finishers:
@@ -247,18 +266,44 @@ class DynamicBatcher:
     def submit_future(self, x: np.ndarray) -> Future:
         """Enqueue one request batch [rows, ...]; returns its Future
         without blocking (async servers await it, no thread pinned)."""
+        return self._enqueue(x).future
+
+    def _enqueue(self, x: np.ndarray, released: Optional[threading.Event] = None) -> _WorkItem:
         if not self._running:
             raise RuntimeError(f"batcher {self.name!r} not started")
         x = np.asarray(x)
         if x.ndim < 1:
             raise ValueError("batcher input must have a leading batch dimension")
-        item = _WorkItem(x=x, rows=x.shape[0], future=Future(), enqueued_at=time.perf_counter())
+        item = _WorkItem(x=x, rows=x.shape[0], future=Future(), enqueued_at=time.perf_counter(), released=released)
         self._queue.put(item)
-        return item.future
+        return item
 
     def submit(self, x: np.ndarray, timeout_s: float = 30.0):
         """Blocking submit of one request batch [rows, ...]; returns [rows, ...out]."""
         return self.submit_future(x).result(timeout=timeout_s)
+
+    def submit_lent(self, x: np.ndarray, timeout_s: float = 120.0):
+        """Blocking submit of rows the caller only lends (a view of memory
+        it frees when this returns): returns [rows, ...out], or raises
+        ``TimeoutError`` after ``timeout_s``.  Never returns while the
+        batcher may still read ``x``: on timeout a queued request is
+        cancelled before the collector takes it, and a collected one is
+        waited out until ``predict_fn`` has returned for its batch."""
+        item = self._enqueue(x, released=threading.Event())
+        try:
+            return item.future.result(timeout=timeout_s)
+        except FutureTimeout:
+            pass
+        with self._state_lock:
+            cancelled = item.state == _QUEUED
+            if cancelled:
+                item.state = _CANCELLED
+        if cancelled:
+            item.x = None  # the collector skips it; drop the lent buffer now
+            item.future.cancel()
+        else:
+            item.released.wait()  # the staging copy of its batch is made
+        raise TimeoutError(f"batcher {self.name!r}: no answer within {timeout_s}s")
 
     # ---------------------------------------------------------------- worker
 
@@ -272,10 +317,13 @@ class DynamicBatcher:
         thread on a mid-traffic algorithm search.  (A single oversized request
         still gets its honest full-size call — only merging is capped.)
         """
-        first = self._carry if self._carry is not None else self._queue.get()
-        self._carry = None
-        if first is None:
-            return None
+        while True:
+            first = self._carry if self._carry is not None else self._queue.get()
+            self._carry = None
+            if first is None:
+                return None
+            if self._take(first):
+                break
         items = [first]
         rows = first.rows
         deadline = time.perf_counter() + self.max_wait_s
@@ -290,12 +338,35 @@ class DynamicBatcher:
             if item is None:
                 self._queue.put(None)  # re-signal shutdown for the outer loop
                 break
+            if item.state == _CANCELLED:
+                continue
             if rows + item.rows > self.max_batch_size:
                 self._carry = item
                 break
+            if not self._take(item):
+                continue
             items.append(item)
             rows += item.rows
         return items
+
+    def _take(self, item: _WorkItem) -> bool:
+        """Mark an item collected (its rows are about to be read); False
+        for one that ``submit_lent`` cancelled, which is dropped unread."""
+        with self._state_lock:
+            if item.state == _CANCELLED:
+                return False
+            item.state = _TAKEN
+            return True
+
+    def _release(self, items: List[_WorkItem]) -> None:
+        """The batcher reads these items' rows no more."""
+        with self._state_lock:
+            for it in items:
+                if it.state != _CANCELLED:
+                    it.state = _RELEASED
+        for it in items:
+            if it.released is not None:
+                it.released.set()
 
     def _launch_batch(self, items: List[_WorkItem]) -> None:
         """Stage 1 (collector thread): pad, launch, start async readback."""
@@ -321,8 +392,13 @@ class DynamicBatcher:
                 pad_width = [(0, padded)] + [(0, 0)] * (batch.ndim - 1)
                 batch = np.pad(batch, pad_width)
         # async CUDA launch: returns immediately; the readback into pinned
-        # memory starts now and overlaps later batches
-        out = from_device_async(self.predict_fn(batch))
+        # memory starts now and overlaps later batches.  Once predict_fn
+        # has returned the rows are staged: lent rows may be freed.
+        try:
+            result = self.predict_fn(batch)
+        finally:
+            self._release(items)
+        out = from_device_async(result)
         self.stats.observe(len(items), rows, padded)
         launched = time.perf_counter()
         for it in items:
@@ -361,6 +437,7 @@ class DynamicBatcher:
                 self._launch_batch(items)
             except Exception as e:  # noqa: BLE001 — propagate to every caller
                 logger.exception("batch launch failed")
+                self._release(items)
                 for it in items:
                     if not it.future.done():
                         it.future.set_exception(e)

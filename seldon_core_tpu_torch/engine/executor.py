@@ -21,6 +21,11 @@ Replicates the reference engine's execution algebra
 Feedback walks the same tree following the recorded routing map
 (reference: PredictiveUnitBean.java:206-246).
 
+Every node method call is a ``node.<unit>.<method>`` span and a
+``node_call`` event to the ``observer`` hook (``utils/metrics.py``
+``PrometheusObserver``: the reference's engine -> node histograms);
+collected node metrics and feedback rewards are observer events too.
+
 Not ported (``ROADMAP.md`` §A item 2.2): circuit breakers, hedging and
 fallback routes; a graph or an annotation that asks for one is refused
 by name.
@@ -31,7 +36,8 @@ from __future__ import annotations
 import asyncio
 import importlib
 import logging
-from typing import Any, Dict, List, Optional
+import time
+from typing import Any, Awaitable, Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -50,8 +56,12 @@ from seldon_core_tpu_torch.engine.transport import GrpcClient, LocalClient, Node
 from seldon_core_tpu_torch.runtime.component import MicroserviceError
 from seldon_core_tpu_torch.runtime.message import InternalFeedback, InternalMessage
 from seldon_core_tpu_torch.runtime.params import parse_parameters
+from seldon_core_tpu_torch.utils.tracing import maybe_span
 
 logger = logging.getLogger(__name__)
+
+# observers: (event, unit_name, payload) -> None; used by metrics
+Observer = Callable[[str, str, Any], None]
 
 A2_2 = "ROADMAP.md §A item 2.2 (circuit breakers, hedging, fallback routes)"
 
@@ -148,10 +158,12 @@ def build_client(unit: UnitSpec, annotations: Optional[Dict[str, str]] = None) -
 class GraphExecutor:
     """Executes one predictor's graph; owns the node clients."""
 
-    def __init__(self, root: UnitSpec, annotations: Optional[Dict[str, str]] = None):
+    def __init__(self, root: UnitSpec, annotations: Optional[Dict[str, str]] = None,
+                 observer: Optional[Observer] = None):
         validate_graph(root)
         _refuse_later(annotations or {}, root)
         self.root = root
+        self.observer = observer
         self.clients: Dict[str, NodeClient] = {}
         for unit in root.walk():
             client = build_client(unit, annotations)
@@ -165,6 +177,23 @@ class GraphExecutor:
                 )
 
     # ------------------------------------------------------------------ util
+
+    def _emit(self, event: str, unit: str, payload: Any = None) -> None:
+        if self.observer is not None:
+            try:
+                self.observer(event, unit, payload)
+            except Exception:  # noqa: BLE001 — observers must never break the data plane
+                logger.exception("observer failed for %s/%s", event, unit)
+
+    async def _timed(self, unit: UnitSpec, method: str, coro: Awaitable, puid: str):
+        """One node method call: a span and a ``node_call`` event (the
+        reference's engine -> node client histograms and per-node spans,
+        reference: PredictiveUnitBean.java:77-78)."""
+        start = time.perf_counter()
+        with maybe_span(f"node.{unit.name}.{method}", trace_id=puid, unit_type=unit.type):
+            result = await coro
+        self._emit("node_call", unit.name, (method, time.perf_counter() - start))
+        return result
 
     def component(self, name: str) -> Optional[Any]:
         """The live in-process component of a node, if local."""
@@ -183,9 +212,10 @@ class GraphExecutor:
         latest.meta.tags = tags
         latest.meta.metrics = []
 
-    @staticmethod
-    def _collect_metrics(msg: Optional[InternalMessage], unit: UnitSpec, metrics: Dict[str, List[Dict]]) -> None:
+    def _collect_metrics(self, msg: Optional[InternalMessage], unit: UnitSpec,
+                         metrics: Dict[str, List[Dict]]) -> None:
         if msg is not None and msg.meta.metrics:
+            self._emit("node_metrics", unit.name, msg.meta.metrics)
             metrics.setdefault(unit.name, []).extend(msg.meta.metrics)
 
     @staticmethod
@@ -234,7 +264,7 @@ class GraphExecutor:
 
         # 1. input transform (a MODEL's predict)
         if unit.has_method(TRANSFORM_INPUT):
-            transformed = await client.transform_input(msg)
+            transformed = await self._timed(unit, "transform_input", client.transform_input(msg), puid)
             self._collect_metrics(transformed, unit, metrics)
             self._merge_meta(transformed, [msg], puid)
         else:
@@ -246,7 +276,7 @@ class GraphExecutor:
 
         # 3. routing
         if unit.has_method(ROUTE):
-            routing_msg = await client.route(transformed)
+            routing_msg = await self._timed(unit, "route", client.route(transformed), puid)
             self._collect_metrics(routing_msg, unit, metrics)
             branch = self._branch_index(routing_msg, unit)
         else:
@@ -263,7 +293,7 @@ class GraphExecutor:
 
         # 5. aggregation
         if unit.has_method(AGGREGATE):
-            aggregated = await client.aggregate(child_outputs)
+            aggregated = await self._timed(unit, "aggregate", client.aggregate(child_outputs), puid)
         else:
             if len(child_outputs) != 1:
                 raise MicroserviceError(
@@ -277,7 +307,7 @@ class GraphExecutor:
 
         # 6. output transform
         if unit.has_method(TRANSFORM_OUTPUT):
-            out = await client.transform_output(aggregated)
+            out = await self._timed(unit, "transform_output", client.transform_output(aggregated), puid)
             self._collect_metrics(out, unit, metrics)
             self._merge_meta(out, [aggregated], puid)
         else:
@@ -310,6 +340,7 @@ class GraphExecutor:
 
         if child_tasks:
             await asyncio.gather(*child_tasks)
+        self._emit("node_feedback", unit.name, feedback.reward)
 
     # ------------------------------------------------------------- readiness
 

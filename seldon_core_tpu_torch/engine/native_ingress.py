@@ -18,7 +18,15 @@ Lanes:
   the running asyncio engine with full semantics.
 
 Readiness: the C++ server answers ``/ready`` from a flag that a
-background task refreshes from ``gateway.ready()``.
+background task refreshes from ``gateway.ready()``.  ``/metrics`` is the
+gateway's exposition (``Gateway.metrics_exposition``), as on its REST
+port.
+
+The C++ lanes hand Python the method, the target and the body, never the
+headers or the gRPC metadata, so neither lane reads a deadline, a
+``traceparent`` or a bearer token, as in the JAX package: put TLS, OAuth
+and deadlines on ``serve_gateway``'s listeners.  The fallback lanes run
+the gateway's engine path, whose spans and metrics see the request.
 
 Not ported: ``Seldon/GenerateStream`` answers UNIMPLEMENTED, naming
 ``ROADMAP.md`` §A item 8.6, as the sync gateway does.
@@ -113,9 +121,8 @@ class NativeIngressHandle:
 
 class _DeploymentRawHandler:
     """``GatewayRawHandler`` plus the GET endpoints of the gateway's REST
-    app, so the native ingress replaces it on the HTTP port.  ``/metrics``
-    is ``gateway.metrics_text()`` (the port has no ``prometheus_client``
-    registry until ``ROADMAP.md`` §A item 4)."""
+    app (``/metrics``, ``/seldon.json``), so the native ingress replaces
+    it on the HTTP port."""
 
     def __init__(self, gateway, loop):
         from seldon_core_tpu_torch.native.frontserver import GatewayRawHandler
@@ -127,7 +134,7 @@ class _DeploymentRawHandler:
         bare = path.split("?", 1)[0]  # the inner handler reads the query itself
         if method == "GET" and bare == "/metrics":
             try:
-                return 200, "text/plain", self.gateway.metrics_text().encode()
+                return 200, "text/plain", self.gateway.metrics_exposition()
             except Exception as e:  # noqa: BLE001 — a metrics fault answers 500, never kills the worker
                 logger.exception("metrics failed")
                 return 500, "text/plain", str(e).encode()

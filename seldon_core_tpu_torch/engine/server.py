@@ -15,14 +15,25 @@ VirtualService weight semantics,
 reference: seldondeployment_controller.go:171-239) plus optional shadow
 traffic (reference: ambassador.go:50-133).
 
+Every ingress carries the request contract: ``X-Seldon-Deadline-Ms``
+mints the end-to-end budget (a spent one answers 504
+``DEADLINE_EXCEEDED`` naming the hop), ``X-Seldon-Priority`` and
+``X-Seldon-Adapter`` land in ``meta.tags`` (a body tag wins), and a
+``traceparent`` makes the gateway's spans children of the caller's.
+``build_gateway_app(gateway, auth=)`` requires ``Authorization: Bearer``
+tokens from the gateway's own ``/oauth/token`` (the client-credentials
+grant) on the data and admin endpoints, and ``serve_gateway(..., tls=,
+auth=)`` puts TLS and the same tokens on both listeners.  ``/metrics``
+is the metrics registry (``utils/metrics.py``: the observer's
+``seldon_api_engine_*`` series, the transport hops) plus the gateway's
+per-predictor counts and, for a predictor without an observer, its
+local components' custom metrics.
+
 Not ported: the debug endpoints (``ROADMAP.md`` §A item 8.11),
 explanations (§A item 11), token streaming over SSE and
 ``Seldon/GenerateStream`` (§A item 8.6: the RPC answers UNIMPLEMENTED),
-auth, TLS, the caller's trace context and deadline (§A item 4), and the
-``grpc.aio`` front end: gRPC is served by the sync server of
+and the ``grpc.aio`` front end: gRPC is served by the sync server of
 ``engine/sync_server.py`` alone (§A item 2.2).
-``/metrics`` is a hand-built text: the gateway's counters and each local
-component's custom metrics.
 """
 
 from __future__ import annotations
@@ -39,10 +50,12 @@ from aiohttp import web
 
 from seldon_core_tpu_torch.engine.service import PredictorService
 from seldon_core_tpu_torch.engine.sync_server import build_sync_seldon_server
+from seldon_core_tpu_torch.runtime import component as comp
 from seldon_core_tpu_torch.runtime.grpc_server import DEFAULT_MAX_MSG_BYTES
 from seldon_core_tpu_torch.runtime.message import InternalFeedback, InternalMessage
-from seldon_core_tpu_torch.runtime.rest import _error_response, _request_body, prometheus_text
-from seldon_core_tpu_torch.utils.deadlines import extract_adapter
+from seldon_core_tpu_torch.runtime.rest import _error_response, _ingress, _request_body
+from seldon_core_tpu_torch.utils import deadlines as _deadlines
+from seldon_core_tpu_torch.utils import metrics as _metrics
 
 logger = logging.getLogger(__name__)
 
@@ -73,7 +86,6 @@ class Gateway:
         self._served: "OrderedDict[str, str]" = OrderedDict()
         self._served_cap = 65536
         self._served_lock = threading.Lock()
-        self.unrouted_feedback = 0
         # strong refs to in-flight shadow tasks: the loop holds tasks weakly
         self._shadow_tasks: Set[asyncio.Future] = set()
 
@@ -166,8 +178,10 @@ class Gateway:
             target = self.entries[0][0]
         if target is None:
             logger.warning("dropping unroutable feedback (no predictor tag, puid unknown)")
-            with self._served_lock:
-                self.unrouted_feedback += 1
+            _metrics.increment_counter(
+                "seldon_api_gateway_feedback_unrouted",
+                "feedback messages dropped because the serving predictor could not be identified",
+            )
             return InternalMessage(
                 payload=None,
                 kind="jsonData",
@@ -204,32 +218,35 @@ class Gateway:
     async def close(self) -> None:
         await asyncio.gather(*(p.close() for p in self.predictors))
 
-    def metrics_text(self) -> str:
-        """Prometheus text: per-predictor request / failure / feedback
-        counts, unrouted feedback, and every local component's custom
-        metrics labelled with its predictor and unit."""
-        lines = ["# TYPE seldon_api_gateway_requests_total counter",
-                 "# TYPE seldon_api_gateway_failures_total counter",
-                 "# TYPE seldon_api_gateway_feedback_total counter"]
+    def _stats_families(self) -> List[_metrics.FamilySnapshot]:
+        """Per-predictor request / failure / feedback counts."""
+        out = []
+        for key in ("requests", "failures", "feedback"):
+            name = f"seldon_api_gateway_{key}_total"
+            samples = [(name, (("predictor", svc.name),), float(svc.stats[key])) for svc in self.predictors]
+            out.append((name, "counter", f"gateway {key} per predictor", samples))
+        return out
+
+    def _component_families(self) -> List[_metrics.FamilySnapshot]:
+        """Custom metrics of the local components of every predictor
+        without an observer, labelled with its predictor and unit (an
+        observer re-registers them with the reference's labels)."""
+        merged: dict = {}
         for svc in self.predictors:
-            for key in ("requests", "failures", "feedback"):
-                lines.append(f'seldon_api_gateway_{key}_total{{predictor="{svc.name}"}} {svc.stats[key]}')
-        lines += ["# TYPE seldon_api_gateway_feedback_unrouted counter",
-                  f"seldon_api_gateway_feedback_unrouted {self.unrouted_feedback}"]
-        typed = set()
-        for svc in self.predictors:
+            if svc.executor.observer is not None:
+                continue
             for unit in svc.graph.walk():
                 component = svc.executor.component(unit.name)
                 if component is None:
                     continue
-                text = prometheus_text(component, labels={"predictor": svc.name, "unit": unit.name})
-                for line in text.splitlines():
-                    if line.startswith("# TYPE"):
-                        if line in typed:
-                            continue
-                        typed.add(line)
-                    lines.append(line)
-        return "\n".join(lines) + "\n"
+                for name, kind, doc, samples in _metrics.custom_metric_families(
+                        comp.get_custom_metrics(component) or [], labels={"predictor": svc.name, "unit": unit.name}):
+                    merged.setdefault(name, (name, kind, doc, []))[3].extend(samples)
+        return list(merged.values())
+
+    def metrics_exposition(self) -> bytes:
+        """The ``/metrics`` body of this gateway, on every listener."""
+        return _metrics.generate_latest(collectors=(self._stats_families, self._component_families))
 
 
 def _http_status(out: InternalMessage) -> int:
@@ -241,18 +258,71 @@ def _http_status(out: InternalMessage) -> int:
     return 200
 
 
-def build_gateway_app(gateway: Gateway) -> web.Application:
-    app = web.Application(client_max_size=DEFAULT_MAX_MSG_BYTES)
+def build_gateway_app(gateway: Gateway, auth=None) -> web.Application:
+    """``auth`` is a ``utils.auth.OAuthConfig``: when set, the data
+    endpoints and the admin verbs need ``Authorization: Bearer`` tokens
+    issued by this gateway's ``/oauth/token`` (client-credentials grant,
+    reference: seldon_client.py:1186-1227).  Probes, ``/metrics``,
+    ``/seldon.json`` and ``/oauth/token`` stay open."""
+    middlewares = []
+    issuer = None
+    if auth is not None:
+        from seldon_core_tpu_torch.utils.auth import UNAUTHENTICATED_MSG, TokenIssuer
+
+        issuer = TokenIssuer(auth)
+
+        @web.middleware
+        async def require_token(request: web.Request, handler):
+            guarded = request.path.startswith("/api/") or request.path in ("/predict", "/pause", "/unpause")
+            if guarded and not issuer.verify_header(request.headers.get("Authorization")):
+                resp = web.json_response(
+                    {"status": {"status": "FAILURE", "code": 401, "info": UNAUTHENTICATED_MSG,
+                                "reason": "UNAUTHORIZED"}},
+                    status=401,
+                )
+                # drain a small declared body (the keep-alive socket stays
+                # usable); a body-less request has nothing to drain; only an
+                # unsized or oversized upload forces a close, since buffering
+                # it for a 401 would pay for bytes being rejected
+                cl = request.content_length
+                chunked = "chunked" in request.headers.get("Transfer-Encoding", "").lower()
+                if cl is not None and cl <= 1 << 20:
+                    await request.read()
+                elif cl is not None or chunked:
+                    resp.force_close()
+                return resp
+            return await handler(request)
+
+        middlewares.append(require_token)
+    app = web.Application(client_max_size=DEFAULT_MAX_MSG_BYTES, middlewares=middlewares)
+
+    if issuer is not None:
+        from seldon_core_tpu_torch.utils.auth import parse_basic_auth
+
+        async def oauth_token(request: web.Request) -> web.Response:
+            creds = parse_basic_auth(request.headers.get("Authorization"))
+            if creds is None or not issuer.check_credentials(*creds):
+                return web.json_response({"error": "invalid_client"}, status=401)
+            return web.json_response(issuer.issue())
+
+        app.router.add_post("/oauth/token", oauth_token)
 
     async def predictions(request: web.Request) -> web.Response:
         try:
             msg = InternalMessage.from_json(await _request_body(request))
-            # X-Seldon-Adapter selects the LoRA weight set; an explicit
-            # tag in the body wins
-            adapter = extract_adapter(request.headers)
+            # X-Seldon-Priority and X-Seldon-Adapter land in meta.tags;
+            # an explicit tag in the body wins
+            prio = _deadlines.extract_priority(request.headers)
+            if prio is not None and "priority" not in msg.meta.tags:
+                msg.meta.tags["priority"] = prio
+            adapter = _deadlines.extract_adapter(request.headers)
             if adapter and "adapter" not in msg.meta.tags:
                 msg.meta.tags["adapter"] = adapter
-            out = await gateway.predict(msg, predictor=request.query.get("predictor"))
+            # the caller's traceparent parents the predictor.predict span;
+            # the deadline budget rides every hop below
+            with _ingress(request):
+                _deadlines.check("gateway ingress /api/v0.1/predictions")
+                out = await gateway.predict(msg, predictor=request.query.get("predictor"))
             return web.json_response(out.to_json(), status=_http_status(out))
         except Exception as e:  # noqa: BLE001
             return _error_response(e)
@@ -260,7 +330,10 @@ def build_gateway_app(gateway: Gateway) -> web.Application:
     async def feedback(request: web.Request) -> web.Response:
         try:
             fb = InternalFeedback.from_json(await _request_body(request))
-            out = await gateway.send_feedback(fb)
+            # feedback is exempt from retries, not from the ingress contract
+            with _ingress(request):
+                _deadlines.check("gateway ingress /api/v0.1/feedback")
+                out = await gateway.send_feedback(fb)
             return web.json_response(out.to_json(), status=_http_status(out))
         except Exception as e:  # noqa: BLE001
             return _error_response(e)
@@ -287,10 +360,10 @@ def build_gateway_app(gateway: Gateway) -> web.Application:
         from seldon_core_tpu_torch.runtime.executor_pool import run_dispatch
 
         try:
-            text = await run_dispatch(gateway.metrics_text)
+            body = await run_dispatch(gateway.metrics_exposition)
         except Exception as e:  # noqa: BLE001
             return _error_response(e)
-        return web.Response(text=text, content_type="text/plain")
+        return web.Response(body=body, content_type=_metrics.CONTENT_TYPE_LATEST.split(";")[0])
 
     async def openapi_endpoint(_r: web.Request) -> web.Response:
         from seldon_core_tpu_torch.runtime.openapi import gateway_openapi
@@ -329,14 +402,20 @@ async def serve_gateway(
     http_port: int = 8000,
     grpc_port: int = 5001,
     max_message_bytes: int = DEFAULT_MAX_MSG_BYTES,
+    tls=None,
+    auth=None,
 ):
     """Start the REST front server and the sync gRPC one; returns
-    (runner, GrpcServerHandle).  Await it inside the running loop that
-    the sync server bridges into."""
+    (runner, GrpcServerHandle).  ``tls`` (``utils.tls.TlsConfig``)
+    terminates TLS and ``auth`` (``utils.auth.OAuthConfig``) requires
+    bearer tokens on both listeners.  Await it inside the running loop
+    that the sync server bridges into."""
     from seldon_core_tpu_torch.runtime import rest
+    from seldon_core_tpu_torch.utils.tls import add_grpc_port
 
-    runner = await rest.serve(build_gateway_app(gateway), host=host, port=http_port)
-    server = build_sync_seldon_server(gateway, asyncio.get_running_loop(), max_message_bytes=max_message_bytes)
-    server.add_insecure_port(f"{host}:{grpc_port}")
+    runner = await rest.serve(build_gateway_app(gateway, auth=auth), host=host, port=http_port, tls=tls)
+    server = build_sync_seldon_server(gateway, asyncio.get_running_loop(), max_message_bytes=max_message_bytes,
+                                      auth=auth)
+    add_grpc_port(server, f"{host}:{grpc_port}", tls)
     server.start()
     return runner, GrpcServerHandle(server)

@@ -4,8 +4,10 @@ Equivalent of the reference's PredictionService + lifecycle endpoints
 (reference: PredictionService.java:94-141 — puid assignment, graph
 dispatch, response status; RestClientController.java:73-118 —
 /ping /ready /live /pause /unpause semantics; App.java:60-97 —
-graceful drain).  Explanations are not ported (``ROADMAP.md`` §A item
-11), nor the request logger.
+graceful drain).  A request is a ``predictor.predict`` span and a
+``predict_done`` event to the executor's observer (the reference's
+server request histogram).  Explanations are not ported (``ROADMAP.md``
+§A item 11), nor the request logger.
 """
 
 from __future__ import annotations
@@ -13,15 +15,17 @@ from __future__ import annotations
 import asyncio
 import logging
 import threading
+import time
 from typing import Dict, Optional
 
-from seldon_core_tpu_torch.engine.executor import GraphExecutor
+from seldon_core_tpu_torch.engine.executor import GraphExecutor, Observer
 from seldon_core_tpu_torch.engine.graph import UnitSpec
 from seldon_core_tpu_torch.engine.transport import LocalClient
 from seldon_core_tpu_torch.runtime import dispatch
 from seldon_core_tpu_torch.runtime.component import MicroserviceError
 from seldon_core_tpu_torch.runtime.message import InternalFeedback, InternalMessage
 from seldon_core_tpu_torch.runtime.puid import new_puid
+from seldon_core_tpu_torch.utils.tracing import maybe_span
 
 logger = logging.getLogger(__name__)
 
@@ -39,9 +43,10 @@ def failure_message(error: Exception, puid: str = "") -> InternalMessage:
 class PredictorService:
     """One deployed predictor: graph executor + lifecycle + bookkeeping."""
 
-    def __init__(self, graph: UnitSpec, name: str = "default", annotations: Optional[Dict[str, str]] = None):
+    def __init__(self, graph: UnitSpec, name: str = "default", annotations: Optional[Dict[str, str]] = None,
+                 observer: Optional[Observer] = None):
         self.name = name
-        self.executor = GraphExecutor(graph, annotations=annotations)
+        self.executor = GraphExecutor(graph, annotations=annotations, observer=observer)
         self.graph = graph
         self._paused = False
         # threading (not asyncio) primitives: predict_sync runs on gRPC
@@ -103,8 +108,10 @@ class PredictorService:
         request.meta.puid = puid
         self._enter_request()
         failed = False
+        start = time.perf_counter()
         try:
-            response = await self.executor.predict(request)
+            with maybe_span("predictor.predict", trace_id=puid, predictor=self.name):
+                response = await self.executor.predict(request)
             if response.status is None:
                 response.status = {"status": "SUCCESS", "code": 200}
             return response
@@ -114,6 +121,7 @@ class PredictorService:
             return failure_message(e, puid)
         finally:
             self._exit_request(failed)
+            self.executor._emit("predict_done", self.name, time.perf_counter() - start)
 
     # ---- synchronous fast path -------------------------------------------
 
@@ -132,7 +140,7 @@ class PredictorService:
         """Synchronous predict for single-local-MODEL graphs.
 
         Semantics identical to the async path (puid, requestPath,
-        metric collection, status) but runs entirely
+        metric collection, status, observer events) but runs entirely
         on the caller's thread — used by the sync gRPC front server to
         bypass asyncio scheduling on the hot path.
         """
@@ -144,8 +152,12 @@ class PredictorService:
         request.meta.puid = puid
         self._enter_request()
         failed = False
+        start = time.perf_counter()
         try:
             response = dispatch.predict(component, request)
+            self.executor._emit("node_call", unit.name, ("transform_input", time.perf_counter() - start))
+            if response.meta.metrics:
+                self.executor._emit("node_metrics", unit.name, response.meta.metrics)
             response.meta.request_path[unit.name] = unit.image or unit.implementation or unit.component_class or "local"
             response.meta.puid = puid
             if response.status is None:
@@ -157,6 +169,7 @@ class PredictorService:
             return failure_message(e, puid)
         finally:
             self._exit_request(failed)
+            self.executor._emit("predict_done", self.name, time.perf_counter() - start)
 
     async def send_feedback(self, feedback: InternalFeedback) -> InternalMessage:
         try:

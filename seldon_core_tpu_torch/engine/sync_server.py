@@ -11,7 +11,15 @@ thread pool:
   batches);
 * multi-node graphs and feedback bridge into the deployment's asyncio
   loop via ``run_coroutine_threadsafe`` (full engine semantics).
-  Context variables do not cross that bridge.
+
+The ingress contract is read on the handler thread: the caller's
+``traceparent`` and the tighter of ``x-seldon-deadline-ms`` and the
+native gRPC deadline, minted once as an ABSOLUTE expiry.  The fast path
+activates both around ``predict_sync``; the bridged path re-activates
+them inside its coroutine, since ``run_coroutine_threadsafe`` does not
+carry the thread's context variables (a deadline re-minted there from a
+duration would refund the queueing time).  With ``auth`` every method
+answers ``UNAUTHENTICATED`` without a valid bearer token.
 
 ``GenerateStream`` answers UNIMPLEMENTED: token streaming is not ported
 (``ROADMAP.md`` §A item 8.6).
@@ -26,8 +34,16 @@ from concurrent import futures
 import grpc
 
 from seldon_core_tpu_torch.proto import pb, services
-from seldon_core_tpu_torch.runtime.grpc_server import DEFAULT_MAX_MSG_BYTES, message_size_options
+from seldon_core_tpu_torch.runtime.component import MicroserviceError
+from seldon_core_tpu_torch.runtime.grpc_server import (
+    DEFAULT_MAX_MSG_BYTES,
+    _grpc_deadline_ms,
+    _grpc_remote_ctx,
+    message_size_options,
+)
 from seldon_core_tpu_torch.runtime.message import InternalFeedback, InternalMessage
+from seldon_core_tpu_torch.utils import deadlines as _deadlines
+from seldon_core_tpu_torch.utils.tracing import activate_context
 
 logger = logging.getLogger(__name__)
 
@@ -36,30 +52,81 @@ GENERATE_STREAM_LATER = (
 )
 
 
+def _ingress(context):
+    """The caller's span context and budget, read on the handler thread;
+    the budget is an absolute expiry minted here, once."""
+    budget_ms = _grpc_deadline_ms(context)
+    budget = _deadlines.Deadline.after_ms(budget_ms) if budget_ms is not None else None
+    return _grpc_remote_ctx(context), budget
+
+
 class SyncSeldonService:
-    def __init__(self, gateway, loop: asyncio.AbstractEventLoop):
+    def __init__(self, gateway, loop: asyncio.AbstractEventLoop, issuer=None):
         self.gateway = gateway
         self.loop = loop
+        self.issuer = issuer  # utils.auth.TokenIssuer when OAuth is on
 
     def _bridge(self, coro):
         return asyncio.run_coroutine_threadsafe(coro, self.loop).result()
 
+    def _check_auth(self, context) -> None:
+        if self.issuer is not None and not self.issuer.verify_grpc(context):
+            from seldon_core_tpu_torch.utils.auth import UNAUTHENTICATED_MSG
+
+            context.abort(grpc.StatusCode.UNAUTHENTICATED, UNAUTHENTICATED_MSG)
+
     def predict(self, request: pb.SeldonMessage, context) -> pb.SeldonMessage:
+        from seldon_core_tpu_torch.engine.service import failure_message
+
+        self._check_auth(context)
         msg = InternalMessage.from_proto(request)
+        prio = _deadlines.extract_priority(context.invocation_metadata() or ())
+        if prio is not None and "priority" not in msg.meta.tags:
+            msg.meta.tags["priority"] = prio
+        adapter = _deadlines.extract_adapter(context.invocation_metadata() or ())
+        if adapter and "adapter" not in msg.meta.tags:
+            msg.meta.tags["adapter"] = adapter
         svc = self.gateway.pick()
         if self.gateway.shadows:
             # isolated copies, fired on the loop: primary and shadow both mutate meta
             self.loop.call_soon_threadsafe(self.gateway.shadow, msg.copy())
-        if svc.single_local_model() is not None:
-            out = svc.predict_sync(msg)
-        else:
-            out = self._bridge(svc.predict(msg))
+        ctx, budget = _ingress(context)
+        try:
+            if svc.single_local_model() is not None:
+                with activate_context(ctx), _deadlines.activate(budget):
+                    _deadlines.check("gateway grpc ingress Seldon/Predict")
+                    out = svc.predict_sync(msg)
+            else:
+                async def _predict_with_ctx():
+                    with activate_context(ctx), _deadlines.activate(budget):
+                        _deadlines.check("gateway grpc ingress Seldon/Predict")
+                        return await svc.predict(msg)
+
+                out = self._bridge(_predict_with_ctx())
+        except MicroserviceError as e:  # the ingress fast-fail (DEADLINE_EXCEEDED)
+            out = failure_message(e, msg.meta.puid)
         return self.gateway.finalize_response(out, msg, svc).to_proto()
 
     def send_feedback(self, request: pb.Feedback, context) -> pb.SeldonMessage:
-        return self._bridge(self.gateway.send_feedback(InternalFeedback.from_proto(request))).to_proto()
+        from seldon_core_tpu_torch.engine.service import failure_message
+
+        self._check_auth(context)
+        fb = InternalFeedback.from_proto(request)
+        ctx, budget = _ingress(context)
+
+        async def _feedback_with_ctx():
+            with activate_context(ctx), _deadlines.activate(budget):
+                _deadlines.check("gateway grpc ingress Seldon/SendFeedback")
+                return await self.gateway.send_feedback(fb)
+
+        try:
+            out = self._bridge(_feedback_with_ctx())
+        except MicroserviceError as e:  # the ingress fast-fail (DEADLINE_EXCEEDED)
+            out = failure_message(e, fb.request.meta.puid if fb.request else "")
+        return out.to_proto()
 
     def generate_stream(self, request: pb.SeldonMessage, context):
+        self._check_auth(context)
         context.abort(grpc.StatusCode.UNIMPLEMENTED, GENERATE_STREAM_LATER)
         yield  # pragma: no cover — a generator, as the RPC is server-streaming
 
@@ -67,6 +134,7 @@ class SyncSeldonService:
         """Chunked predict: reassemble on the handler thread, run the
         ordinary predict path, stream the reply back in chunks.  Bounded
         by the stream lane's own total-size cap."""
+        self._check_auth(context)
         parts = []
         total = 0
         for chunk in request_iterator:
@@ -83,8 +151,15 @@ def build_sync_seldon_server(
     loop: asyncio.AbstractEventLoop,
     max_workers: int = 64,
     max_message_bytes: int = DEFAULT_MAX_MSG_BYTES,
+    auth=None,
 ) -> grpc.Server:
-    service = SyncSeldonService(gateway, loop)
+    """``auth`` (``utils.auth.OAuthConfig``) requires bearer tokens."""
+    issuer = None
+    if auth is not None:
+        from seldon_core_tpu_torch.utils.auth import TokenIssuer
+
+        issuer = TokenIssuer(auth)
+    service = SyncSeldonService(gateway, loop, issuer=issuer)
     server = grpc.server(
         futures.ThreadPoolExecutor(max_workers=max_workers, thread_name_prefix="seldon-grpc"),
         options=message_size_options(max_message_bytes),

@@ -528,7 +528,7 @@ class CudaServer(TPUComponent):
         """Row width of the flattened output (2k for top-k)."""
         return 2 * self.top_k if self.top_k else self.num_classes
 
-    def raw_batch_call(self, batch2d: np.ndarray) -> np.ndarray:
+    def raw_batch_call(self, batch2d: np.ndarray, timeout_s: float = 120.0) -> np.ndarray:
         """One model call for a batch the C++ ingress coalesced:
         [rows, flat] uint8 | float32 -> [rows, out] float32.
 
@@ -539,7 +539,11 @@ class CudaServer(TPUComponent):
         window after the C++ one), and waits for its answer: ``batch2d``
         may be a view of memory the caller frees when this returns, and
         the batcher resolves the future only after ``device_call`` has
-        copied the rows into the staging buffer.
+        copied the rows into the staging buffer.  After ``timeout_s`` it
+        raises ``TimeoutError``, as the reference does, and still never
+        returns while the batcher may read the rows
+        (``DynamicBatcher.submit_lent``), so the C++ side answers its
+        clients with an error instead of holding a batch thread forever.
         """
         if not self._loaded:
             self.load()
@@ -547,10 +551,10 @@ class CudaServer(TPUComponent):
         if arr.dtype.name not in self.warmup_dtypes:
             arr = arr.astype(np.dtype(self.warmup_dtypes[0]))
         arr = arr.reshape((-1, *self.input_shape))
-        out = self.batcher.submit_future(arr).result()
+        out = self.batcher.submit_lent(arr, timeout_s=timeout_s)
         return np.asarray(out).reshape(arr.shape[0], -1)
 
-    def raw_batch_views(self, views) -> List[np.ndarray]:
+    def raw_batch_views(self, views, timeout_s: float = 120.0) -> List[np.ndarray]:
         """The batched submission of the zero-copy lane: N buffer views
         ``[rows_i, flat]`` stack into ONE micro-batch (one allocation; a
         lone full view passes through without a copy), ride the batcher
@@ -572,7 +576,7 @@ class CudaServer(TPUComponent):
             canon = np.dtype(self.warmup_dtypes[0])
             norm = [a.astype(canon, copy=False) for a in norm]
         batch, offsets = stack_views(norm, dtype=norm[0].dtype)
-        out = self.raw_batch_call(batch)
+        out = self.raw_batch_call(batch, timeout_s=timeout_s)
         return [out[offsets[i]:offsets[i + 1]] for i in range(len(norm))]
 
     def class_names(self):

@@ -12,12 +12,17 @@ The wrapper-side execution semantics of the reference
 The payload handed to user code may be a CUDA ``torch.Tensor`` when the
 producer kept it on device and the consumer opts in
 (``accepts_device_arrays = True`` on the component); by default it is
-materialised to numpy.  The trace-context carrier of the JAX package's
-dispatch is not ported (``ROADMAP.md`` §A item 4).
+materialised to numpy.
+
+Every method call is a ``microservice.<method>`` span when tracing is on
+(``_traced``): a child of the caller's span, whether its context arrived
+in the HTTP headers / gRPC metadata (activated by the server) or in
+``meta.traceContext`` (consumed here, tracing on or off).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, List, Optional
 
 import numpy as np
@@ -26,6 +31,7 @@ from seldon_core_tpu_torch import codec
 from seldon_core_tpu_torch.runtime import component as comp
 from seldon_core_tpu_torch.runtime.message import InternalFeedback, InternalMessage
 from seldon_core_tpu_torch.runtime.puid import new_puid
+from seldon_core_tpu_torch.utils import tracing
 
 
 def _features_for(user_model: Any, msg: InternalMessage) -> Any:
@@ -77,8 +83,54 @@ def _ensure_puid(msg) -> str:
     return meta.puid
 
 
+def _consume_trace_context(msg) -> Optional[tracing.SpanContext]:
+    """Pop the W3C trace-context carrier off the message meta (and, for
+    lists, every member) so responses never echo the caller's context
+    downstream, and parse it into a SpanContext (or None).  Consumed even
+    when tracing is off: the carrier is hop state, not payload."""
+    first = msg
+    if isinstance(msg, list):
+        if not msg:
+            return None
+        first = msg[0]
+        for other in msg[1:]:
+            meta = getattr(other, "meta", None)
+            if meta is not None:
+                meta.trace_context = {}
+    meta = getattr(first, "meta", None) or getattr(getattr(first, "request", None), "meta", None)
+    if meta is None or not meta.trace_context:
+        return None
+    carrier, meta.trace_context = meta.trace_context, {}
+    return tracing.extract(carrier)
+
+
+def _traced(method_name: str):
+    """A span per method call, the reference's wrapper-level tracing
+    (microservice.py:124-155); one global read when tracing is off.  A
+    remote context from the message meta parents the span, unless the
+    server already activated one from the headers or metadata (they
+    agree when both exist; the ambient one wins)."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(user_model, msg, *args, **kwargs):
+            puid = _ensure_puid(msg)
+            ctx = _consume_trace_context(msg)
+            if tracing.get_tracer() is None:
+                return fn(user_model, msg, *args, **kwargs)
+            if tracing.current_span() is not None:
+                ctx = None
+            with tracing.activate_context(ctx):
+                with tracing.maybe_span(f"microservice.{method_name}", trace_id=puid):
+                    return fn(user_model, msg, *args, **kwargs)
+
+        return wrapper
+
+    return deco
+
+
+@_traced("predict")
 def predict(user_model: Any, msg: InternalMessage) -> InternalMessage:
-    _ensure_puid(msg)
     raw = _try_raw(user_model, "predict_raw", msg)
     if raw is not None:
         return raw
@@ -96,14 +148,19 @@ async def predict_async(user_model: Any, msg: InternalMessage) -> InternalMessag
         from seldon_core_tpu_torch.runtime.executor_pool import run_dispatch
 
         return await run_dispatch(predict, user_model, msg)
-    _ensure_puid(msg)
-    features = _features_for(user_model, msg)
-    result = await fn(features, msg.names, meta=msg.meta.to_dict())
+    puid = _ensure_puid(msg)
+    ctx = _consume_trace_context(msg)
+    if tracing.current_span() is not None:
+        ctx = None
+    with tracing.activate_context(ctx if tracing.get_tracer() is not None else None):
+        with tracing.maybe_span("microservice.predict", trace_id=puid):
+            features = _features_for(user_model, msg)
+            result = await fn(features, msg.names, meta=msg.meta.to_dict())
     return _construct_response(user_model, msg, result)
 
 
+@_traced("transform_input")
 def transform_input(user_model: Any, msg: InternalMessage) -> InternalMessage:
-    _ensure_puid(msg)
     raw = _try_raw(user_model, "transform_input_raw", msg)
     if raw is not None:
         return raw
@@ -112,8 +169,8 @@ def transform_input(user_model: Any, msg: InternalMessage) -> InternalMessage:
     return _construct_response(user_model, msg, result)
 
 
+@_traced("transform_output")
 def transform_output(user_model: Any, msg: InternalMessage) -> InternalMessage:
-    _ensure_puid(msg)
     raw = _try_raw(user_model, "transform_output_raw", msg)
     if raw is not None:
         return raw
@@ -122,10 +179,10 @@ def transform_output(user_model: Any, msg: InternalMessage) -> InternalMessage:
     return _construct_response(user_model, msg, result)
 
 
+@_traced("route")
 def route(user_model: Any, msg: InternalMessage) -> InternalMessage:
     """Returns a message whose payload is [[branch_index]]
     (reference: seldon_methods.py route semantics)."""
-    _ensure_puid(msg)
     raw = _try_raw(user_model, "route_raw", msg)
     if raw is not None:
         return raw
@@ -140,8 +197,8 @@ def route(user_model: Any, msg: InternalMessage) -> InternalMessage:
     return out
 
 
+@_traced("aggregate")
 def aggregate(user_model: Any, msgs: List[InternalMessage]) -> InternalMessage:
-    _ensure_puid(msgs)
     fn = getattr(user_model, "aggregate_raw", None)
     if fn is not None:
         try:
@@ -165,12 +222,12 @@ def aggregate(user_model: Any, msgs: List[InternalMessage]) -> InternalMessage:
     return out
 
 
+@_traced("send_feedback")
 def send_feedback(
     user_model: Any, feedback: InternalFeedback, predictive_unit_id: Optional[str] = None
 ) -> InternalMessage:
     """Reference: seldon_methods.py:74-120 — routing picked from the
     response meta for this unit, default response is an empty array."""
-    _ensure_puid(feedback)
     fn = getattr(user_model, "send_feedback_raw", None)
     if fn is not None:
         try:

@@ -35,6 +35,12 @@ class MsgMeta:
     routing: Dict[str, int] = field(default_factory=dict)
     request_path: Dict[str, str] = field(default_factory=dict)
     metrics: List[Dict[str, Any]] = field(default_factory=list)
+    # W3C trace-context carrier ({"traceparent": ..., "tracestate": ...})
+    # for hops with no header or metadata channel (the local transport,
+    # the REST JSON body as a header fallback).  Consumed at dispatch
+    # (runtime/dispatch.py pops it), so responses never echo the
+    # caller's context back downstream.
+    trace_context: Dict[str, str] = field(default_factory=dict)
 
     def copy(self) -> "MsgMeta":
         return MsgMeta(
@@ -43,6 +49,7 @@ class MsgMeta:
             routing=dict(self.routing),
             request_path=dict(self.request_path),
             metrics=list(self.metrics),
+            trace_context=dict(self.trace_context),
         )
 
     def to_dict(self) -> Dict[str, Any]:
@@ -57,6 +64,8 @@ class MsgMeta:
             out["requestPath"] = self.request_path
         if self.metrics:
             out["metrics"] = self.metrics
+        if self.trace_context:
+            out["traceContext"] = self.trace_context
         return out
 
     @classmethod
@@ -68,6 +77,7 @@ class MsgMeta:
             routing={k: int(v) for k, v in d.get("routing", {}).items()},
             request_path=dict(d.get("requestPath", {})),
             metrics=list(d.get("metrics", [])),
+            trace_context={str(k): str(v) for k, v in (d.get("traceContext") or {}).items()},
         )
 
 

@@ -11,8 +11,13 @@ The port's counterpart of ``seldon_core_tpu.runtime.microservice``
 ``--api`` picks REST (the default), GRPC or BOTH; one process serves
 both on one asyncio loop.  The device is the component's own ``device``
 parameter (CudaServer serves on ``cuda`` unless told ``cpu``); there is
-no ``--platform`` flag.  Not ported: TLS, tracing, persistence and the
-component ``custom_service`` side loop.
+no ``--platform`` flag.  ``--ssl-cert`` / ``--ssl-key`` (with
+``--ssl-ca`` and ``--ssl-require-client-auth`` for mTLS; or the
+``SELDON_TLS_*`` env) put TLS on both listeners; ``--tracing`` (or
+``TRACING=1``) installs the tracer, with a JSONL span sink at
+``SELDON_TPU_TRACE_EXPORT`` and OTLP export at
+``OTEL_EXPORTER_OTLP_ENDPOINT``.  Not ported: persistence (``ROADMAP.md``
+§A item 11) and the component ``custom_service`` side loop.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import signal
 import sys
 from typing import Any, List, Optional
 
+from seldon_core_tpu_torch.runtime import knobs
 from seldon_core_tpu_torch.runtime.component import MicroserviceError
 from seldon_core_tpu_torch.runtime.params import (
     PARAMETERS_ENV_NAME,
@@ -61,6 +67,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         help="typed parameter list JSON",
     )
     parser.add_argument("--unit-id", default=os.environ.get(UNIT_ID_ENV_NAME, ""))
+    parser.add_argument("--ssl-cert", default=os.environ.get("SELDON_TLS_CERT", ""),
+                        help="PEM certificate; enables TLS on REST and gRPC")
+    parser.add_argument("--ssl-key", default=os.environ.get("SELDON_TLS_KEY", ""))
+    parser.add_argument("--ssl-ca", default=os.environ.get("SELDON_TLS_CA", ""),
+                        help="peer-verification CA (with --ssl-require-client-auth: mTLS)")
+    parser.add_argument("--ssl-require-client-auth", action="store_true",
+                        default=os.environ.get("SELDON_TLS_REQUIRE_CLIENT_AUTH", "0") == "1")
+    parser.add_argument("--tracing", action="store_true", default=bool(int(os.environ.get("TRACING", "0"))))
     parser.add_argument("--log-level", default=os.environ.get("SELDON_LOG_LEVEL", "INFO"))
     return parser.parse_args(argv)
 
@@ -73,18 +87,21 @@ async def run_servers(
     grpc_port: int = 5000,
     unit_id: str = "",
     shutdown_event: Optional[asyncio.Event] = None,
+    tls=None,
 ) -> None:
-    """Serve until `shutdown_event` (or SIGINT/SIGTERM)."""
+    """Serve until `shutdown_event` (or SIGINT/SIGTERM); ``tls`` (a
+    ``utils.tls.TlsConfig``) secures both listeners."""
     from seldon_core_tpu_torch.runtime import grpc_server, rest
 
     runner = None
     server = None
+    secure = " (TLS)" if tls is not None and tls.enabled else ""
     if api in ("REST", "BOTH"):
-        runner = await rest.serve(rest.build_app(user_model, unit_id=unit_id), host=host, port=http_port)
-        logger.info("REST serving on %s:%d", host, http_port)
+        runner = await rest.serve(rest.build_app(user_model, unit_id=unit_id), host=host, port=http_port, tls=tls)
+        logger.info("REST serving on %s:%d%s", host, http_port, secure)
     if api in ("GRPC", "BOTH"):
-        server = await grpc_server.serve(user_model, port=grpc_port, host=host, unit_id=unit_id)
-        logger.info("gRPC serving on %s:%d", host, grpc_port)
+        server = await grpc_server.serve(user_model, port=grpc_port, host=host, unit_id=unit_id, tls=tls)
+        logger.info("gRPC serving on %s:%d%s", host, grpc_port, secure)
     if shutdown_event is None:
         shutdown_event = asyncio.Event()
         loop = asyncio.get_running_loop()
@@ -112,13 +129,26 @@ async def run_servers(
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     logging.basicConfig(level=args.log_level.upper(), format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    tls = None
+    if args.ssl_cert or args.ssl_key:
+        # key-without-cert fails loudly (TlsConfig raises), never serves
+        # the plaintext the operator thinks is TLS
+        from seldon_core_tpu_torch.utils.tls import TlsConfig
+
+        tls = TlsConfig(cert_file=args.ssl_cert, key_file=args.ssl_key, ca_file=args.ssl_ca,
+                        require_client_auth=args.ssl_require_client_auth)
     kwargs = parse_parameters(json.loads(args.parameters))
     user_model = import_component(args.component, **kwargs)
+    if args.tracing:
+        from seldon_core_tpu_torch.utils.tracing import setup_tracing
+
+        setup_tracing(service_name=args.unit_id or args.component,
+                      export_path=knobs.raw("SELDON_TPU_TRACE_EXPORT") or None)
     if hasattr(user_model, "load"):
         user_model.load()
     try:
         asyncio.run(run_servers(user_model, api=args.api, host=args.host, http_port=args.http_port,
-                                grpc_port=args.grpc_port, unit_id=args.unit_id))
+                                grpc_port=args.grpc_port, unit_id=args.unit_id, tls=tls))
     finally:
         if hasattr(user_model, "unload"):
             user_model.unload()

@@ -331,3 +331,112 @@ def test_multi_node_graph_bridges_to_the_loop_over_sync_grpc():
     resp = asyncio.run(go())
     assert list(resp.data.tensor.values) == [12.0]
     assert set(resp.meta.requestPath) == {"t", "m"}
+
+
+# ---------------------------------------------------------------- A4: the request contract on both gateways
+
+CERTS = os.path.join(os.path.dirname(__file__), "data", "torch_port_tls")
+TRACE_ID = "4bf92f3577b34da6a3ce929d0e0e4736"
+OAUTH = ("client", "s3cret")
+
+
+async def drive_a4(pkg, gw, x):
+    """Serve `gw` with TLS and OAuth on both listeners and tracing on, and
+    send the A4 requests: a token from /oauth/token, then predictions with
+    a token, a traceparent, a deadline and a priority, and the refusals
+    (no token, a spent deadline) over REST and sync gRPC."""
+    import ssl
+
+    import aiohttp
+    import grpc
+
+    from seldon_core_tpu.utils import auth as jax_auth
+    from seldon_core_tpu.utils import tls as jax_tls
+    from seldon_core_tpu.utils import tracing as jax_tracing
+    from seldon_core_tpu_torch.utils import auth, tls, tracing
+
+    tls_mod, auth_mod, tracing_mod = (jax_tls, jax_auth, jax_tracing) if pkg == "jax" else (tls, auth, tracing)
+    mod = PACKAGES[pkg][0]
+    tracer = tracing_mod.setup_tracing(service_name=f"{pkg}-gateway")
+    http_port, grpc_port = free_port(), free_port()
+    cfg = tls_mod.TlsConfig(cert_file=os.path.join(CERTS, "server.crt"), key_file=os.path.join(CERTS, "server.key"))
+    runner, handle = await mod.serve_gateway(gw, host="127.0.0.1", http_port=http_port, grpc_port=grpc_port,
+                                             tls=cfg, auth=auth_mod.OAuthConfig(*OAUTH))
+    ctx = ssl.create_default_context(cafile=os.path.join(CERTS, "ca.crt"))
+    base = f"https://localhost:{http_port}"
+    out = {}
+    try:
+        timeout = aiohttp.ClientTimeout(total=60)
+        async with aiohttp.ClientSession(timeout=timeout) as s:
+            basic = base64.b64encode(":".join(OAUTH).encode()).decode()
+            async with s.post(base + "/oauth/token", headers={"Authorization": f"Basic {basic}"}, ssl=ctx) as r:
+                token = (await r.json())["access_token"]
+            wrong = base64.b64encode(b"client:nope").decode()
+            async with s.post(base + "/oauth/token", headers={"Authorization": f"Basic {wrong}"}, ssl=ctx) as r:
+                out["bad_credentials"] = (r.status, await r.json())
+            async with s.post(base + "/api/v0.1/predictions", json=raw_body(x), ssl=ctx) as r:
+                out["rest_no_token"] = (r.status, await r.json())
+            headers = {"Authorization": f"Bearer {token}", "traceparent": f"00-{TRACE_ID}-00f067aa0ba902b7-01",
+                       "X-Seldon-Deadline-Ms": "10000", "X-Seldon-Priority": "99"}
+            async with s.post(base + "/api/v0.1/predictions", json=raw_body(x), headers=headers, ssl=ctx) as r:
+                assert r.status == 200, await r.text()
+                out["rest"] = await r.json()
+            async with s.post(base + "/api/v0.1/predictions", json=raw_body(x),
+                              headers={**headers, "X-Seldon-Deadline-Ms": "0"}, ssl=ctx) as r:
+                out["rest_spent"] = (r.status, await r.json())
+            for path in ("/ping", "/metrics"):  # probes and metrics stay open
+                async with s.get(base + path, ssl=ctx) as r:
+                    out[path] = r.status
+        with open(os.path.join(CERTS, "ca.crt"), "rb") as f:
+            creds = grpc.ssl_channel_credentials(root_certificates=f.read())
+        async with grpc.aio.secure_channel(f"localhost:{grpc_port}", creds,
+                                           options=grpc_server.message_size_options()) as channel:
+            predict = services.unary_callable(channel, "Seldon", "Predict")
+            with pytest.raises(grpc.aio.AioRpcError) as err:
+                await predict(proto_request(x), timeout=30)
+            out["grpc_no_token"] = (err.value.code(), err.value.details())
+            md = [("authorization", f"Bearer {token}"), ("traceparent", f"00-{TRACE_ID}-b7ad6b7169203331-01"),
+                  ("x-seldon-deadline-ms", "10000")]
+            out["grpc"] = await predict(proto_request(x), timeout=30, metadata=md)
+            spent = await predict(proto_request(x), timeout=30, metadata=md[:2] + [("x-seldon-deadline-ms", "0")])
+            out["grpc_spent"] = (spent.status.status, spent.status.code, spent.status.reason, spent.status.info)
+    finally:
+        await handle.stop(None)
+        await runner.cleanup()
+        tracer.close()
+        tracing_mod._tracer = None
+    out["spans"] = list(tracer.spans)
+    return out
+
+
+def _span_shape(spans):
+    """(name, trace id, parent's name or the remote parent's id) per span."""
+    by_id = {s.span_id: s.name for s in spans}
+    return sorted((s.name, s.trace_id, by_id.get(s.parent_span_id, s.parent_span_id)) for s in spans)
+
+
+def test_a4_contract_on_both_gateways(models):
+    """TLS, OAuth, deadlines, priority and W3C tracing on the REST and
+    sync gRPC listeners of both gateways: the same answers, refusals and
+    span trees (names, trace ids, parents)."""
+    x = np.random.default_rng(37).integers(0, 256, (2, *SHAPE)).astype(np.uint8)
+    got = {}
+    for pkg, (mod, Service, Spec, _, _) in PACKAGES.items():
+        gw = mod.Gateway([(Service(Spec(name="resnet", type="MODEL", component=models[pkg]), name="main"), 1.0)])
+        got[pkg] = asyncio.run(drive_a4(pkg, gw, x))
+    ours, theirs = got["torch_port"], got["jax"]
+    np.testing.assert_allclose(from_json(ours["rest"]), from_json(theirs["rest"]), **TOL)
+    np.testing.assert_allclose(from_proto(ours["grpc"]), from_proto(theirs["grpc"]), **TOL)
+    for key in ("bad_credentials", "rest_no_token", "rest_spent", "grpc_no_token", "grpc_spent", "/ping", "/metrics"):
+        assert ours[key] == theirs[key], key
+    assert ours["rest_no_token"][0] == 401 and ours["bad_credentials"][0] == 401
+    assert ours["rest_spent"][0] == 504 and ours["rest_spent"][1]["status"]["reason"] == "DEADLINE_EXCEEDED"
+    assert "gateway ingress /api/v0.1/predictions" in ours["rest_spent"][1]["status"]["info"]
+    assert ours["grpc_spent"][:3] == (pb.Status.FAILURE, 504, "DEADLINE_EXCEEDED")
+    assert "gateway grpc ingress Seldon/Predict" in ours["grpc_spent"][3]
+    assert ours["grpc_no_token"][0].name == "UNAUTHENTICATED"
+    assert ours["rest"]["meta"]["tags"]["priority"] == theirs["rest"]["meta"]["tags"]["priority"] == 15
+    assert _span_shape(ours["spans"]) == _span_shape(theirs["spans"])
+    names = {(s.name, s.trace_id) for s in ours["spans"]}
+    assert {("predictor.predict", TRACE_ID), ("node.resnet.transform_input", TRACE_ID),
+            ("microservice.predict", TRACE_ID)} <= names

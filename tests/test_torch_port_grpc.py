@@ -241,3 +241,146 @@ def test_unregistered_method_is_unimplemented():
             await server.stop(grace=None)
 
     assert asyncio.run(go()).name == "UNIMPLEMENTED"
+
+
+def test_spent_budget_fails_at_the_grpc_ingress_as_jax():
+    """x-seldon-deadline-ms: 0 (or a spent native deadline) answers the
+    same DEADLINE_EXCEEDED FAILURE, byte for byte, before the model runs."""
+    class Counting(Scaler):
+        calls = 0
+
+        def predict(self, X, names, meta=None):
+            Counting.calls += 1
+            return super().predict(X, names, meta)
+
+        def transform_input(self, X, names, meta=None):
+            Counting.calls += 1
+            return super().transform_input(X, names, meta)
+
+        def route(self, features, names):
+            Counting.calls += 1
+            return super().route(features, names)
+
+    calls = [(service, method, request_bytes("tensor"), [("x-seldon-deadline-ms", "0")])
+             for service, method in (("Model", "Predict"), ("Generic", "TransformInput"), ("Router", "Route"))]
+    component = Counting()
+    results = asyncio.run(call_both(Scaler(), component, calls))
+    for (service, method, _, _), (jax_raw, port_raw) in zip(calls, results):
+        assert port_raw == jax_raw, (service, method)
+        out = pb.SeldonMessage.FromString(port_raw)
+        assert (out.status.code, out.status.reason) == (504, "DEADLINE_EXCEEDED")
+        assert f"microservice grpc ingress {method_name(method)}" in out.status.info
+    assert component.calls == 0
+
+
+def method_name(rpc: str) -> str:
+    return {"Predict": "predict", "TransformInput": "transform_input", "Route": "route"}[rpc]
+
+
+def test_two_process_deployment_stitches_one_trace(tmp_path):
+    """The gateway in this process, the CLI with --tracing and a JSONL
+    span sink in another, behind a combiner over its REST and gRPC
+    endpoints (tests/test_trace_propagation.py's acceptance scenario, on
+    ResNetTiny).  One trace, the client's; every microservice span has a
+    gateway node span as its parent; the hop's bytes and in-flight gauge
+    on the gateway's /metrics; the served rows equal the in-process
+    model's; a spent budget stops at the gateway."""
+    import json
+    import subprocess
+    import time
+    import urllib.request
+
+    from seldon_core_tpu_torch.engine import PredictorService, UnitSpec
+    from seldon_core_tpu_torch.engine.graph import Endpoint
+    from seldon_core_tpu_torch.runtime.message import InternalMessage
+    from seldon_core_tpu_torch.utils import deadlines, metrics, tracing
+
+    spans_path = tmp_path / "worker-spans.jsonl"
+    log_path = tmp_path / "worker.log"
+    http_port, grpc_port = free_port(), free_port()
+    params = [{"name": "model", "value": "resnet_tiny", "type": "STRING"},
+              {"name": "num_classes", "value": str(NUM_CLASSES), "type": "INT"},
+              {"name": "dtype", "value": "float32", "type": "STRING"},
+              {"name": "normalize", "value": "true", "type": "BOOL"},
+              {"name": "max_batch_size", "value": "4", "type": "INT"},
+              {"name": "warmup", "value": "false", "type": "BOOL"},
+              {"name": "seed", "value": "5", "type": "INT"},
+              {"name": "input_shape", "value": json.dumps(list(SHAPE)), "type": "JSON"},
+              {"name": "device", "value": "cpu", "type": "STRING"}]
+    env = dict(os.environ, TRACING="1", SELDON_TPU_TRACE_EXPORT=str(spans_path))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice",
+             "seldon_core_tpu_torch.models.cudaserver.CudaServer", "--api", "BOTH", "--host", "127.0.0.1",
+             "--http-port", str(http_port), "--grpc-port", str(grpc_port), "--unit-id", "worker",
+             "--parameters", json.dumps(params)],
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+    local = CudaServer(device="cpu", **{p["name"]: json.loads(p["value"]) if p["type"] in ("INT", "JSON", "BOOL")
+                                         else p["value"] for p in params if p["name"] != "device"})
+    local.load()
+    tracer = tracing.setup_tracing("gateway")
+    try:
+        deadline = time.time() + 120
+        while True:
+            assert proc.poll() is None, log_path.read_text()[-4000:]
+            try:
+                urllib.request.urlopen(f"http://127.0.0.1:{http_port}/health/ping", timeout=1).read()
+                break
+            except OSError:
+                assert time.time() < deadline, "the worker never became ready"
+                time.sleep(0.2)
+        graph = UnitSpec(name="combiner", type="COMBINER", implementation="AVERAGE_COMBINER", children=[
+            UnitSpec(name="rest-leg", type="MODEL", remote=True, endpoint=Endpoint("127.0.0.1", http_port, "REST")),
+            UnitSpec(name="grpc-leg", type="MODEL", remote=True, endpoint=Endpoint("127.0.0.1", grpc_port, "GRPC"))])
+        svc = PredictorService(graph, name="main")
+        images = np.random.default_rng(41).integers(0, 256, (3, *SHAPE)).astype(np.uint8)
+        ctx = tracing.extract({"traceparent": "00-0af7651916cd43dd8448eb211c80319c-b7ad6b7169203331-01"})
+
+        async def go():
+            try:
+                outs = []
+                with tracing.activate_context(ctx):
+                    with deadlines.activate_ms(30_000.0):
+                        for i in range(3):
+                            outs.append(await svc.predict(InternalMessage(payload=images[i:i + 1],
+                                                                          kind="rawTensor")))
+                    with deadlines.activate_ms(0.0):
+                        spent = await svc.predict(InternalMessage(payload=images[:1], kind="rawTensor"))
+                return outs, spent
+            finally:
+                await svc.close()
+
+        outs, spent = asyncio.run(go())
+        local_spans = [s.to_dict() for s in tracer.spans]
+        exposition = metrics.generate_latest().decode()
+    finally:
+        tracer.close()
+        tracing._tracer = None
+        local.unload()
+        proc.terminate()
+        proc.wait(timeout=30)
+    want = np.asarray(local.predict(images, []), np.float64)
+    for i, out in enumerate(outs):
+        assert out.status["status"] == "SUCCESS", out.status
+        got = np.asarray(out.host_payload(), np.float64)[0]
+        assert np.linalg.norm(got - want[i]) / np.linalg.norm(want[i]) <= 2e-2
+    assert spent.status["code"] == 504 and spent.status["reason"] == "DEADLINE_EXCEEDED"
+    assert "node 'rest-leg'" in spent.status["info"] or "node 'grpc-leg'" in spent.status["info"]
+    worker = [json.loads(line) for line in spans_path.read_text().splitlines() if line.strip()]
+    micro = [s for s in worker if s["name"].startswith("microservice.")]
+    assert len(micro) == 6  # three requests, two legs each; the spent one never left the gateway
+    node_ids = {s["spanId"]: s["name"] for s in local_spans if s["name"].startswith("node.")}
+    assert {node_ids[s["parentSpanId"]] for s in micro} == {"node.rest-leg.transform_input",
+                                                            "node.grpc-leg.transform_input"}
+    assert {s["traceId"] for s in local_spans + worker} == {"0af7651916cd43dd8448eb211c80319c"}
+    samples = {}
+    for line in exposition.splitlines():
+        if line and not line.startswith("#"):
+            key, _, val = line.rpartition(" ")
+            samples[key] = float(val)
+    for transport, unit in (("grpc", "grpc-leg"), ("rest", "rest-leg")):
+        labels = f'method="predict",transport="{transport}",unit="{unit}"'
+        assert samples[f"seldon_tpu_transport_request_bytes_total{{{labels}}}"] > 0
+        assert samples[f"seldon_tpu_transport_response_bytes_total{{{labels}}}"] > 0
+        assert samples[f"seldon_tpu_transport_inflight{{{labels}}}"] == 0.0
