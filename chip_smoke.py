@@ -235,7 +235,40 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    equal to the requests (a) served, on the A4 gateway and on its native
    port; the two-process hop's request bytes > 0 and its in-flight gauge
    0 at rest; ``cudaserver_kernel_launches{kernel="fused_normalize"}`` on
-   the gateway, the native port and the microservice.
+   the gateway, the native port and the microservice;
+16. A2.2 on the card, failure containment on replicated ResNet-50 (13a's
+   served parameters): two replicas R1 and R2 (the CLI with ``--api
+   BOTH``, the same seed; the gateway dials their gRPC ports, the smoke
+   reads their ``/metrics``) behind a gateway child whose root node is a
+   ``BalancedClient`` of ``build_client`` replica clients
+   (``seldon.io/breaker-failures: 5``, ``seldon.io/breaker-reset-ms:
+   1000``), sync gRPC; uint8 rows [1, 150528] of 8 distinct images:
+   (a) one client's 3 s, then 4 clients for 10 s: p50 / p99 / QPS, each
+   replica 50% +- 5% of the requests, K1 launches = batches on each;
+   (b) SIGKILL of R2 half-way through a 10 s window of 4 clients: zero
+   client-visible failures; on the gateway's ``/metrics`` R2's
+   ``seldon_tpu_transport_breaker_state`` 2, a transition to open,
+   fast-fails and failovers; p50 / p99 before and after the kill and the
+   slowest request around it (one failover); (c) R2 restarted on its
+   ports and warmed by requests sent to it directly (its first request
+   and the slowest of 4 x 4 concurrent ones printed): the breaker gauge 0
+   within the 1 s cooldown plus 2 s for one probe, R2's K1 launches = its
+   batches again;
+   (d) a gateway whose node is remote on R1 with an in-process
+   ``CUDA_SERVER`` ``precision: int8w`` fallback: 50 sequential answers
+   untagged, a malformed row a 4xx and ``x-seldon-deadline-ms: 0`` a 504
+   ``DEADLINE_EXCEEDED`` with no fallback and no K1 for either; SIGKILL of
+   R1, then 50 answers tagged ``degraded`` / ``fallback_for: model``,
+   each within 2e-2 of an in-process int8w model and nearest its own
+   image, the fallbacks counter = 50 and the fallback's K1 = its batches;
+   the time to the first degraded answer and the degraded p50; R1
+   restarted and warmed as R2, untagged answers again within 3 s;
+   (e) hedging on R1, measured only: ``seldon.io/hedge-ms`` at the p90 of
+   a 5 s unhedged window, then 10 s windows off, on, on, off; hedges and
+   wins on ``/metrics`` = the client's counters; R1's rows between the
+   requests sent and that plus the hedges; a ``SendFeedback`` under
+   ``hedge-ms: 1`` fires no hedge.  Every row of (a)-(e) within 2e-2 of
+   its in-process model and nearest its own image.
 
 The first line names the card, torch, CUDA and ``grpc.__version__``.
 Output: the ``nvidia-smi`` line, then one ``{"kernels": [...]}`` line,
@@ -274,7 +307,7 @@ NUM_CLASSES = 1000
 SEED = 0
 LATENCY_REQUESTS = 600          # p99 rests on the 6 slowest
 THROUGHPUT_CLIENTS = 4
-THROUGHPUT_SECONDS = 10.0
+THROUGHPUT_SECONDS = 5.0
 # tolerances, stated before any run
 SERVED_VS_LOCAL_REL_L2 = 2e-2   # each bf16 served row vs in-process bf16, same weights
 CROSS_ROW_MIN_REL_L2 = 2 * SERVED_VS_LOCAL_REL_L2  # two images' answers must differ by more
@@ -329,7 +362,7 @@ PAGED_DESIGN = ("one launch: a block a (lane, chunk of pages, head group), cp.as
 GEN_MIN_IDENTICAL_SHARE = 0.75  # concurrent served rows equal to the in-process rows
 GEN_LATENCY_REQUESTS = 120
 GEN_CLIENTS = 16
-GEN_SECONDS = 10.0
+GEN_SECONDS = 5.0
 F32_PEAK_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores (data sheet)
 # the quantised multi-adapter cell: the generation config with an int8 KV
 # pool and two rank-8 adapters (the JAX package's default rank)
@@ -383,7 +416,7 @@ MAB_REQUESTS = 50
 COMBINER_REQUESTS = 50
 # phase 14, the native ingress: the JAX headline's own method (bench.py:1281-1345), then bench.py's C++
 # clients (native_model_phase, bench.py:835-960)
-NATIVE_LOAD_SECONDS = 6.0       # bench.py's default: three windows of a third at (8, 1), one each deeper
+NATIVE_LOAD_SECONDS = 3.0       # half bench.py's 6 s default: three windows of a third at (8, 1), one each deeper
 NATIVE_LOAD_DEPTHS = ((8, 4), (8, 8), (8, 12))  # (connections, requests in flight on each)
 NATIVE_BATCH_THREADS = (4, 48)  # 14c at each: the ingress default is one, bench.py's BENCH_NATIVE_BATCH_THREADS 48
 NATIVE_CONTAINER_ROWS = (1, 2, 5)  # one multi-frame container, one micro-batch
@@ -394,6 +427,15 @@ A4_DEADLINE_MS = "10000"
 A4_FEATURES = ("tls", "auth", "tracing", "observer")  # what an A4 gateway child puts on
 A4_WINDOWS = 2                  # windows of each gateway, in turns: on, off, off, on
 A4_TRACED_REQUESTS = 8          # 15b: requests whose spans are followed across the two processes
+# phase 16, A2.2 on the card: breakers, failover, fallback and hedging on replicated ResNet-50
+A22_ANNOTATIONS = {"seldon.io/breaker-failures": "5", "seldon.io/breaker-reset-ms": "1000"}
+A22_RESET_S = 1.0               # the breaker-reset-ms above
+A22_PROBE_SLACK_S = 2.0         # one probe: a fresh channel's connect and a batch-1 forward on a new process
+A22_SECONDS = 10.0              # 16a, 16b and 16e windows of 4 sync-gRPC clients
+A22_CLIENTS = 4
+A22_SPLIT_TOL = 0.05            # each replica serves 50% +- 5% of 16a's requests
+A22_SEQUENTIAL = 50             # 16d: sequential requests healthy, then with the primary killed
+A22_HEDGE_P90_SECONDS = 5.0     # 16e: the unhedged window whose p90 becomes seldon.io/hedge-ms
 INT8W_VS_BF16_REL_L2 = 5e-2     # int8w lane vs the bf16 lane on the same weights
 INT8W_VS_BF16_MIN_COS = 0.99
 W8A8_MIN_TOP1 = 0.8             # w8a8 vs bf16 top-1 agreement (tests/test_w8a8.py's bar)
@@ -2200,16 +2242,22 @@ class PassThrough:
 
 
 def gateway_child(spec_json: str) -> None:
-    """Child process of phases 13-15: UnitSpec.from_dict -> PredictorService
+    """Child process of phases 13-16: UnitSpec.from_dict -> PredictorService
     -> Gateway -> serve_gateway (sync gRPC), serving until SIGTERM.  With
     ``a4`` in the spec (phase 15; ``a4_features``): the predictor's
     PrometheusObserver, TLS from the repo's test certificates and OAuth on
     both listeners, and the tracer (its JSONL sink at
-    SELDON_TPU_TRACE_EXPORT when set)."""
+    SELDON_TPU_TRACE_EXPORT when set).  Phase 16: the spec's
+    ``annotations`` go to the predictor, and ``replicas`` (gRPC ports)
+    put a BalancedClient of ``build_client`` replica clients in the root
+    node (the wiring of the JAX deployer's autoscaled root); on SIGTERM
+    the child prints its clients' hedge counters as ``clients <name>
+    {...}``."""
     import asyncio
 
     sys.path.insert(0, ROOT)
-    from seldon_core_tpu_torch.engine import PredictorService, UnitSpec
+    from seldon_core_tpu_torch.engine import BalancedClient, PredictorService, UnitSpec, build_client
+    from seldon_core_tpu_torch.engine.graph import Endpoint
     from seldon_core_tpu_torch.engine.server import Gateway, serve_gateway
 
     spec = json.loads(spec_json)
@@ -2234,7 +2282,16 @@ def gateway_child(spec_json: str) -> None:
         setup_tracing(service_name="gateway", export_path=knobs.raw("SELDON_TPU_TRACE_EXPORT") or None)
 
     async def main():
-        svc = PredictorService(UnitSpec.from_dict(spec["graph"]), name=spec["name"], observer=observer)
+        root = UnitSpec.from_dict(spec["graph"])
+        annotations = spec.get("annotations") or {}
+        clients = None
+        if spec.get("replicas"):
+            replicas = [build_client(UnitSpec(name=root.name, type=root.type,
+                                              endpoint=Endpoint("127.0.0.1", port, "GRPC")), annotations)
+                        for port in spec["replicas"]]
+            clients = {root.name: BalancedClient(replicas)}
+        svc = PredictorService(root, name=spec["name"], observer=observer, annotations=annotations,
+                               clients=clients)
         gateway = Gateway([(svc, 1.0)])
         runner, handle = await serve_gateway(gateway, host="127.0.0.1", http_port=spec["http_port"],
                                              grpc_port=spec["grpc_port"], tls=tls, auth=auth)
@@ -2249,6 +2306,9 @@ def gateway_child(spec_json: str) -> None:
         asyncio.get_running_loop().add_signal_handler(signal.SIGTERM, stop.set)
         print("gateway serving", flush=True)
         await stop.wait()
+        counters = {name: {"hedges_fired": client.hedges_fired, "hedge_wins": client.hedge_wins}
+                    for name, client in svc.executor.clients.items() if hasattr(client, "hedges_fired")}
+        print(f"clients {spec['name']} {json.dumps(counters)}", flush=True)
         for ingress in ingresses:
             await ingress.stop()
         await handle.stop(None)
@@ -2268,14 +2328,14 @@ def a4_features(a4) -> set:
     return set(A4_FEATURES) if a4 is True else set(a4 or ())
 
 
-def start_gateway(name: str, graph: dict, logfile, native=(), a4=False, env=None):
+def start_gateway(name: str, graph: dict, logfile, native=(), a4=False, env=None, annotations=None, replicas=()):
     """A gateway child; ``native`` lists (port, batch threads) of native
     ingress servers to put in front of it; ``a4`` puts phase 15's request
     contract on its listeners (``a4_features``; with TLS the base URL is
-    https)."""
+    https); ``annotations`` and ``replicas`` as ``gateway_child`` says."""
     http_port, grpc_port = free_port(), free_port()
     spec = {"name": name, "graph": graph, "http_port": http_port, "grpc_port": grpc_port, "native": list(native),
-            "a4": a4}
+            "a4": a4, "annotations": annotations or {}, "replicas": list(replicas)}
     proc = subprocess.Popen([sys.executable, "-c", "import sys, chip_smoke; chip_smoke.gateway_child(sys.argv[1])",
                              json.dumps(spec)], cwd=ROOT, stdout=logfile, stderr=subprocess.STDOUT,
                             start_new_session=True, env=env)
@@ -2330,31 +2390,53 @@ def grpc_callable(services, grpc_server, port: int):
     return channel, services.unary_callable(channel, "Seldon", "Predict")
 
 
+def timed_window(lane, bodies, clients: int, seconds: float, at=None):
+    """load_window's closed loop, keeping each request: (start, ms, body,
+    answer or the exception it raised), in order of start.  ``at`` =
+    (seconds, fn) runs fn on a timer thread that many seconds in."""
+    stop_at = time.perf_counter() + seconds
+
+    def client(k):
+        send, close = lane()
+        out = []
+        try:
+            while time.perf_counter() < stop_at:
+                body = (k + len(out) * clients) % len(bodies)
+                t = time.perf_counter()
+                try:
+                    answer = send(bodies[body])
+                except Exception as e:  # noqa: BLE001 — counted as a client-visible failure by the caller
+                    answer = e
+                out.append((t, (time.perf_counter() - t) * 1e3, body, answer))
+        finally:
+            close()
+        return out
+
+    timer = None
+    if at is not None:
+        timer = threading.Timer(at[0], at[1])
+        timer.start()
+    try:
+        results = concurrent(client, clients)
+    finally:
+        if timer is not None:
+            timer.join()
+    return sorted((r for rs in results for r in rs), key=lambda r: r[0])
+
+
 def load_window(lane, bodies, clients: int, seconds: float):
     """Closed-loop clients, each on its own connection, sending body k %
     len(bodies) until `seconds` have passed (bench.py:645-700); the last
     requests finish and count.  Returns the latencies in ms, the answers
-    as (body index, answer) and the wall time to the last answer."""
-    stop_at = time.perf_counter() + seconds
+    as (body index, answer) and the wall time to the last answer; a
+    request that raised fails the window."""
     t0 = time.perf_counter()
-
-    def client(k):
-        send, close = lane()
-        lat, answers = [], []
-        try:
-            while time.perf_counter() < stop_at:
-                body = (k + len(lat) * clients) % len(bodies)
-                t = time.perf_counter()
-                answer = send(bodies[body])
-                lat.append((time.perf_counter() - t) * 1e3)
-                answers.append((body, answer))
-        finally:
-            close()
-        return lat, answers
-
-    results = concurrent(client, clients)
+    records = timed_window(lane, bodies, clients, seconds)
     wall = time.perf_counter() - t0
-    return [x for r in results for x in r[0]], [x for r in results for x in r[1]], wall
+    for record in records:
+        if isinstance(record[3], Exception):
+            raise record[3]
+    return [r[1] for r in records], [(r[2], r[3]) for r in records], wall
 
 
 def grpc_lane(pb, services, grpc_server, port: int):
@@ -3348,6 +3430,450 @@ def a4_paths(torch, np, kernels, resnet, card):
 
 # ---------------------------------------------------------------- main
 
+# ---------------------------------------------------------------- phase 16
+
+def k1_equals_batches(k1: float, batches: float) -> bool:
+    """One K1 launch per served batch (a CPU rehearsal, whose plain
+    version counts nothing, replaces this)."""
+    return batches > 0 and k1 == batches
+
+
+def start_replica(http_port: int, grpc_port: int, logfile):
+    """A microservice replica: the CLI serving 13a's parameters with
+    ``--api BOTH`` (as the JAX deployer starts replicas): the gateway
+    dials its gRPC port, the smoke reads its REST ``/metrics``."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice",
+         "seldon_core_tpu_torch.models.cudaserver.CudaServer", "--api", "BOTH", "--host", "127.0.0.1",
+         "--http-port", str(http_port), "--grpc-port", str(grpc_port), "--parameters", json.dumps(GRPC_PARAMS)],
+        cwd=ROOT, stdout=logfile, stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def kill_hard(proc) -> None:
+    """SIGKILL a replica's process group, as a crash would end it."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=30)
+
+
+def metric_sum(samples, name: str, **labels) -> float:
+    """The sum of every series of `name` whose labels include `labels`."""
+    return sum(v for n, lab, v in samples if n == name and all(lab.get(k) == w for k, w in labels.items()))
+
+
+def replica_counts(port: int) -> dict:
+    """K1 launches, batches and requests a replica's CudaServer counted."""
+    s = metric_samples(http(f"http://127.0.0.1:{port}/metrics"))
+    return {"k1": metric_value(s, "cudaserver_kernel_launches", kernel="fused_normalize"),
+            "batches": metric_value(s, "cudaserver_batches_total"),
+            "requests": metric_value(s, "cudaserver_batched_requests_total")}
+
+
+def delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def single_bodies(np, pb, rng, n: int = 8):
+    """n distinct images as uint8 rawTensor requests of one flat row each."""
+    images = distinct_images(np, rng, n)
+    bodies = {"bodies": [grpc_request(pb, images[i:i + 1]) for i in range(n)],
+              "index": [np.arange(i, i + 1) for i in range(n)], "pool": [np.arange(n)] * n}
+    return images, bodies
+
+
+def warm_replica(pb, services, grpc_server, port: int, bodies) -> dict:
+    """A restarted replica's first requests, sent straight to its gRPC
+    port (Model/Predict) before the gateway's breaker may probe it: one
+    alone, then 4 threads of 4 (batches of 1, 2 and 4 rows).  A fresh
+    process's first batches stall (ROADMAP S2); warming it first keeps
+    that stall out of the breaker's recovery time, and both are printed."""
+    import grpc
+
+    def send(n: int):
+        with grpc.insecure_channel(f"127.0.0.1:{port}", options=grpc_server.message_size_options()) as channel:
+            predict = services.unary_callable(channel, "Model", "Predict")
+            out = []
+            for i in range(n):
+                t = time.perf_counter()
+                proto_logits(pb, predict(bodies[i % len(bodies)], timeout=120), 1)
+                out.append((time.perf_counter() - t) * 1e3)
+            return out
+
+    first = send(1)[0]
+    rest = [ms for r in concurrent(lambda k: send(4), 4) for ms in r]
+    return {"first_ms": first, "concurrent_max_ms": max(rest)}
+
+
+def answer_tags(resp) -> dict:
+    return {k: getattr(v, v.WhichOneof("kind")) for k, v in resp.meta.tags.items()}
+
+
+def window_failures(pb, records) -> list:
+    return [r for r in records if isinstance(r[3], Exception) or r[3].status.status != pb.Status.SUCCESS
+            or r[3].status.code not in (0, 200)]
+
+
+def check_rows(np, pb, records, bodies, refs, errs, degraded=None):
+    """Every answer succeeded, carries the tags it should (``degraded``:
+    None = untagged, else the primary's name) and passes 16a's row check."""
+    failed = window_failures(pb, records)
+    check(not failed, f"{len(failed)} client-visible failures, first: {str(failed[0][3])[:300] if failed else ''}")
+    for _, _, body, resp in records:
+        tags = answer_tags(resp)
+        if degraded is None:
+            check("degraded" not in tags and "fallback_for" not in tags, f"a primary answer carries {tags}")
+        else:
+            check(tags.get("degraded") is True and tags.get("fallback_for") == degraded,
+                  f"a degraded answer carries {tags}")
+    served_rows_errors(np, [(b, a) for _, _, b, a in records], bodies, lambda r, n: proto_logits(pb, r, n), refs,
+                       1, errs)
+
+
+def lat_numbers(records, seconds: float) -> dict:
+    ms = [r[1] for r in records]
+    return {"p50_ms": pct(ms, 0.5), "p99_ms": pct(ms, 0.99), "qps": len(ms) / seconds, "requests": len(ms)}
+
+
+def child_clients(logpath: str, name: str) -> dict:
+    """The hedge counters a gateway child printed on SIGTERM."""
+    with open(logpath, errors="replace") as f:
+        lines = [ln for ln in f if ln.startswith(f"clients {name} ")]
+    check(len(lines) == 1, f"gateway {name} printed {len(lines)} client counter lines")
+    return json.loads(lines[0][len(f"clients {name} "):])
+
+
+def sequential(lane, bodies, n: int):
+    """n requests from one client, one at a time, as timed_window records."""
+    send, close = lane()
+    out = []
+    try:
+        for i in range(n):
+            body = i % len(bodies)
+            t = time.perf_counter()
+            answer = send(bodies[body])
+            out.append((t, (time.perf_counter() - t) * 1e3, body, answer))
+    finally:
+        close()
+    return out
+
+
+def feedback_never_hedges(np, grpc_port: int) -> dict:
+    """16e: a SendFeedback through a remote client built with
+    ``seldon.io/hedge-ms: 1`` fires no hedge (not idempotent)."""
+    import asyncio
+
+    from seldon_core_tpu_torch.engine import UnitSpec, build_client
+    from seldon_core_tpu_torch.engine.graph import Endpoint
+    from seldon_core_tpu_torch.runtime.message import InternalFeedback, InternalMessage
+    from seldon_core_tpu_torch.utils import metrics
+
+    def hedges() -> float:
+        return metric_sum(metric_samples(metrics.generate_latest()), "seldon_tpu_transport_hedges_total")
+
+    async def go():
+        client = build_client(UnitSpec(name="feedback", type="MODEL", endpoint=Endpoint("127.0.0.1", grpc_port, "GRPC")),
+                              {"seldon.io/hedge-ms": "1"})
+        try:
+            request = InternalMessage(payload=np.zeros((1, 4), np.float32), kind="tensor")
+            out = await client.send_feedback(InternalFeedback(request=request, reward=1.0))
+        finally:
+            await client.close()
+        return client, out
+
+    before = hedges()
+    client, out = asyncio.run(go())
+    after = hedges()
+    check(client.hedge_ms == 1.0 and client.hedges_fired == 0 and after == before,
+          f"a SendFeedback under hedge-ms 1 fired {client.hedges_fired} hedges ({before} -> {after} on /metrics)")
+    check(out.status is None or out.status.get("status") == "SUCCESS", f"SendFeedback failed: {out.status}")
+    return {"hedge_ms": client.hedge_ms, "hedges_fired": client.hedges_fired, "hedges_metric_delta": after - before}
+
+
+def a2_2_paths(torch, np, kernels, resnet, CudaServer, card):
+    """Phase 16: ROADMAP A2.2 on the card.  ResNet-50 (13a's served
+    parameters) on two replicas behind a BalancedClient: (a) balanced
+    steady state; (b) SIGKILL of one replica mid-window; (c) its restart
+    and the breaker closing; (d) a fallback route to an in-process int8w
+    model when the primary dies; (e) hedging, measured only."""
+    from seldon_core_tpu_torch.proto import pb, services
+    from seldon_core_tpu_torch.runtime import grpc_server
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 16)
+    images, bodies = single_bodies(np, pb, rng)
+    local = reference_resnet(torch, resnet, SEED)
+    refs = reference_logits(torch, np, kernels, local, images)
+    del local
+    int8w = precision_server(CudaServer, "int8w")
+    int8w_refs = lane_logits(torch, np, int8w, images)
+    int8w.unload()
+    del int8w
+    torch.cuda.empty_cache()
+    errs = {"16a": [], "16b": [], "16c": [], "16d": [], "16d_degraded": [], "16e": []}
+    numbers = {}
+    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_a2_2_", suffix=".log")
+    logfile = os.fdopen(fd, "w")
+    r_http, r_grpc = [free_port(), free_port()], [free_port(), free_port()]
+    replicas, gateways = [None, None], []
+    lane_of = lambda port: grpc_lane(pb, services, grpc_server, port)  # noqa: E731
+    gauge = lambda s, port: metric_value(s, "seldon_tpu_transport_breaker_state",  # noqa: E731
+                                         endpoint=f"127.0.0.1:{port}")
+    on_r1 = {"host": "127.0.0.1", "port": r_grpc[0], "transport": "GRPC"}
+    fb_unit = "model-int8w"
+    fb_graph = {"name": "model", "type": "MODEL", "endpoint": on_r1,
+                "fallback": {"name": fb_unit, "type": "MODEL", "implementation": "CUDA_SERVER",
+                             "parameters": GRPC_PARAMS + [{"name": "precision", "value": "int8w", "type": "STRING"}]}}
+    try:
+        # every process but 16e's hedged gateway (it needs 16e's first window) starts here, together:
+        # the two replicas (same seed, same weights), the balanced gateway (a), the fallback gateway (d)
+        # and the unhedged one (e)
+        replicas = [start_replica(r_http[i], r_grpc[i], logfile) for i in range(2)]
+        graph = {"name": "model", "type": "MODEL", "remote": True, "endpoint": on_r1}
+        proc, base, port = start_gateway("balanced", graph, logfile, annotations=A22_ANNOTATIONS, replicas=r_grpc)
+        fb_proc, fb_base, fb_port = start_gateway("fallback", fb_graph, logfile, annotations=A22_ANNOTATIONS)
+        off_proc, off_base, off_port = start_gateway("hedge-off", {"name": "model", "type": "MODEL",
+                                                                   "endpoint": on_r1},
+                                                     logfile, annotations=A22_ANNOTATIONS)
+        gateways += [proc, fb_proc, off_proc]
+        for i in range(2):
+            wait_ready(replicas[i], f"http://127.0.0.1:{r_http[i]}", logpath)
+        ready_s = max(wait_gateway(replicas + gateways, b, logpath) for b in (base, fb_base, off_base))
+        log(f"16 replicas R1 / R2 (CLI --api BOTH, gRPC ports {r_grpc}) and the balanced, fallback and unhedged "
+            f"gateways ready in {time.perf_counter() - t_phase:.1f}s (gateways {ready_s:.1f}s)")
+        lane = lane_of(port)
+        send, close = lane()
+        try:  # untimed: each replica's first requests
+            for body in bodies["bodies"][:4]:
+                proto_logits(pb, send(body), 1)
+        finally:
+            close()
+        c0 = [replica_counts(p) for p in r_http]
+        seq = timed_window(lane, bodies["bodies"], 1, GRPC_SEQUENTIAL_SECONDS)
+        win = timed_window(lane, bodies["bodies"], A22_CLIENTS, A22_SECONDS)
+        c1 = [replica_counts(p) for p in r_http]
+        check_rows(np, pb, seq + win, bodies, refs, errs["16a"])
+        served = [delta(c1[i], c0[i]) for i in range(2)]
+        total = len(seq) + len(win)
+        shares = [d["requests"] / total for d in served]
+        numbers["16a"] = {**lat_numbers(win, A22_SECONDS), "sequential_p50_ms": pct([r[1] for r in seq], 0.5),
+                          "replica_requests": [d["requests"] for d in served], "shares": shares,
+                          "replica_k1": [d["k1"] for d in served], "replica_batches": [d["batches"] for d in served]}
+        a = numbers["16a"]
+        log(f"16a balanced: one client p50 {a['sequential_p50_ms']:.3f} ms; {A22_CLIENTS} clients "
+            f"{A22_SECONDS:.0f} s: p50 {a['p50_ms']:.3f} ms, p99 {a['p99_ms']:.3f}, {a['qps']:.1f} QPS; "
+            f"R1 / R2 served {a['replica_requests']} of {total} ({shares[0]:.3f} / {shares[1]:.3f}); K1 "
+            f"{a['replica_k1']} = batches {a['replica_batches']} [{card}]")
+        check(sum(d["requests"] for d in served) == total, f"replicas counted {served}, the clients sent {total}")
+        check(all(abs(x - 0.5) <= A22_SPLIT_TOL for x in shares), f"replica shares {shares} not 50% +- 5%")
+        check(all(k1_equals_batches(d["k1"], d["batches"]) for d in served), f"replica K1 != batches: {served}")
+
+        # (b) SIGKILL R2 half-way through a window of 4 clients
+        killed = {}
+
+        def kill_r2():
+            killed["t"] = time.perf_counter()
+            kill_hard(replicas[1])
+
+        c0 = replica_counts(r_http[0])
+        m0 = metric_samples(http(base + "/metrics"))
+        win = timed_window(lane, bodies["bodies"], A22_CLIENTS, A22_SECONDS, at=(A22_SECONDS / 2, kill_r2))
+        m1 = metric_samples(http(base + "/metrics"))
+        c1 = replica_counts(r_http[0])
+        failed = window_failures(pb, win)
+        t_kill = killed["t"]
+        pre = [r for r in win if r[0] + r[1] / 1e3 < t_kill]
+        post = [r for r in win if r[0] > t_kill]
+        around = [r for r in win if r[0] <= t_kill + 1.0 and r[0] + r[1] / 1e3 >= t_kill]
+        slowest = max(r[1] for r in around)
+        state = gauge(m1, r_grpc[1])
+        opened = metric_value(m1, "seldon_tpu_transport_breaker_transitions_total", endpoint=f"127.0.0.1:{r_grpc[1]}",
+                              to="open")
+        fastfails = metric_sum(m1, "seldon_tpu_transport_breaker_fastfail_total") - \
+            metric_sum(m0, "seldon_tpu_transport_breaker_fastfail_total")
+        failovers = metric_sum(m1, "seldon_tpu_transport_failovers_total", transport="balanced") - \
+            metric_sum(m0, "seldon_tpu_transport_failovers_total", transport="balanced")
+        r1 = delta(c1, c0)
+        numbers["16b"] = {"requests": len(win), "failures": len(failed), "before": lat_numbers(pre, A22_SECONDS / 2),
+                          "after": lat_numbers(post, A22_SECONDS / 2), "slowest_around_kill_ms": slowest,
+                          "breaker_state": state, "transitions_to_open": opened, "fastfails": fastfails,
+                          "failovers": failovers, "r1_k1": r1["k1"], "r1_batches": r1["batches"]}
+        b = numbers["16b"]
+        log(f"16b SIGKILL R2 at {A22_SECONDS / 2:.0f} s of {A22_SECONDS:.0f}: {len(win)} requests, {len(failed)} "
+            f"client-visible failures; p50 / p99 before {b['before']['p50_ms']:.3f} / {b['before']['p99_ms']:.3f} ms, "
+            f"after {b['after']['p50_ms']:.3f} / {b['after']['p99_ms']:.3f}; slowest request around the kill "
+            f"{slowest:.3f} ms (one failover); gateway /metrics: breaker_state{{R2}} {state:.0f}, transitions to "
+            f"open {opened:.0f}, fast-fails {fastfails:.0f}, failovers {failovers:.0f}; R1 K1 {r1['k1']:.0f} = "
+            f"batches {r1['batches']:.0f} [{card}]")
+        check_rows(np, pb, win, bodies, refs, errs["16b"])
+        check(state == 2 and opened >= 1 and fastfails > 0 and failovers > 0,
+              f"after the kill the gateway reads breaker {state}, opened {opened}, fast-fails {fastfails}, "
+              f"failovers {failovers}")
+        check(k1_equals_batches(r1["k1"], r1["batches"]), f"R1 K1 {r1['k1']} != batches {r1['batches']}")
+
+        # (c) restart R2 on the same ports: the breaker closes and R2 serves again
+        replicas[1] = start_replica(r_http[1], r_grpc[1], logfile)
+        restart_s = wait_ready(replicas[1], f"http://127.0.0.1:{r_http[1]}", logpath)[1]
+        warm = warm_replica(pb, services, grpc_server, r_grpc[1], bodies["bodies"])
+        t_ready = time.perf_counter()
+        c0 = replica_counts(r_http[1])
+        closed = {}
+
+        def watch_gauge():
+            while time.perf_counter() - t_ready < A22_RESET_S + A22_PROBE_SLACK_S + 5.0:
+                if gauge(metric_samples(http(base + "/metrics")), r_grpc[1]) == 0:
+                    closed["s"] = time.perf_counter() - t_ready
+                    return
+                time.sleep(0.02)
+
+        watcher = threading.Thread(target=watch_gauge)
+        watcher.start()
+        win = timed_window(lane, bodies["bodies"], A22_CLIENTS, A22_RESET_S + A22_PROBE_SLACK_S + 2.0)
+        watcher.join()
+        c1 = replica_counts(r_http[1])
+        r2 = delta(c1, c0)
+        numbers["16c"] = {"restart_ready_s": restart_s, "warm": warm,
+                          "closed_after_ready_s": closed.get("s"),
+                          "requests": len(win), "r2_k1": r2["k1"], "r2_batches": r2["batches"],
+                          "r2_requests": r2["requests"]}
+        log(f"16c R2 restarted on its ports, ready in {restart_s:.1f}s; sent to it directly, its first request "
+            f"{warm['first_ms']:.3f} ms, then 4 x 4 concurrent at most {warm['concurrent_max_ms']:.3f}; the "
+            f"gateway's breaker gauge read 0 "
+            f"{closed.get('s', float('nan')):.3f} s after that (limit {A22_RESET_S + A22_PROBE_SLACK_S:.1f}); "
+            f"{len(win)} requests, R2 served {r2['requests']:.0f}, its K1 {r2['k1']:.0f} = batches "
+            f"{r2['batches']:.0f} [{card}]")
+        check_rows(np, pb, win, bodies, refs, errs["16c"])
+        check(closed.get("s") is not None and closed["s"] <= A22_RESET_S + A22_PROBE_SLACK_S,
+              f"the breaker of R2 did not close within {A22_RESET_S + A22_PROBE_SLACK_S} s of R2 ready")
+        check(r2["requests"] > 0 and k1_equals_batches(r2["k1"], r2["batches"]),
+              f"the restarted R2: {r2} (K1 must grow with its batches)")
+        stop_server(proc)
+        stop_server(replicas[1])
+
+        # (d) a fallback route: the primary remote on R1, the fallback an in-process int8w model in the gateway
+        base, port = fb_base, fb_port
+        lane = lane_of(port)
+        fb_counts = lambda s: {"k1": metric_value(s, "cudaserver_kernel_launches", kernel="fused_normalize",  # noqa
+                                                  unit=fb_unit),
+                               "batches": metric_value(s, "cudaserver_batches_total", unit=fb_unit),
+                               "fallbacks": metric_sum(s, "seldon_tpu_graph_fallbacks_total")}
+        m0, c0 = fb_counts(metric_samples(http(base + "/metrics"))), replica_counts(r_http[0])
+        healthy = sequential(lane, bodies["bodies"], A22_SEQUENTIAL)
+        check_rows(np, pb, healthy, bodies, refs, errs["16d"])
+        channel, predict = grpc_callable(services, grpc_server, port)
+        try:
+            bad = pb.SeldonMessage()
+            bad.data.rawTensor.dtype = "uint8"
+            bad.data.rawTensor.shape.extend([1, 1000])
+            bad.data.rawTensor.data = bytes(1000)
+            malformed = predict(bad, timeout=120)
+            spent = predict(grpc_request(pb, images[:1]), timeout=120, metadata=(("x-seldon-deadline-ms", "0"),))
+        finally:
+            channel.close()
+        m1, c1 = fb_counts(metric_samples(http(base + "/metrics"))), replica_counts(r_http[0])
+        log(f"16d primary healthy: {A22_SEQUENTIAL} sequential answers untagged, p50 "
+            f"{pct([r[1] for r in healthy], 0.5):.3f} ms; a malformed row answers {malformed.status.code} "
+            f"{malformed.status.reason}; x-seldon-deadline-ms 0 answers {spent.status.code} {spent.status.reason}; "
+            f"fallbacks {m1['fallbacks'] - m0['fallbacks']:.0f} [{card}]")
+        check(400 <= malformed.status.code < 500 and "degraded" not in answer_tags(malformed),
+              f"a malformed row answered {malformed.status}")
+        check(spent.status.code == 504 and spent.status.reason == "DEADLINE_EXCEEDED"
+              and "degraded" not in answer_tags(spent), f"a spent deadline answered {spent.status}")
+        check(m1["fallbacks"] == m0["fallbacks"], "a fallback ran while the primary was healthy")
+        r1 = delta(c1, c0)
+        check(r1["requests"] == A22_SEQUENTIAL and k1_equals_batches(r1["k1"], r1["batches"]),
+              f"R1 counted {r1} for {A22_SEQUENTIAL} healthy requests (the refused two must not run K1)")
+        check(m1["k1"] == m0["k1"] and m1["batches"] == m0["batches"], "the fallback ran K1 while R1 was healthy")
+        kill_hard(replicas[0])
+        t_kill = time.perf_counter()
+        degraded = sequential(lane, bodies["bodies"], A22_SEQUENTIAL)
+        first_s = degraded[0][0] + degraded[0][1] / 1e3 - t_kill
+        m2 = fb_counts(metric_samples(http(base + "/metrics")))
+        check_rows(np, pb, degraded, bodies, int8w_refs, errs["16d_degraded"], degraded="model")
+        fb = delta(m2, m1)
+        check(fb["fallbacks"] == A22_SEQUENTIAL, f"fallbacks counter grew {fb['fallbacks']} for {A22_SEQUENTIAL}")
+        check(k1_equals_batches(fb["k1"], fb["batches"]), f"fallback K1 {fb['k1']} != batches {fb['batches']}")
+        replicas[0] = start_replica(r_http[0], r_grpc[0], logfile)
+        wait_ready(replicas[0], f"http://127.0.0.1:{r_http[0]}", logpath)
+        warm = warm_replica(pb, services, grpc_server, r_grpc[0], bodies["bodies"])
+        t_ready = time.perf_counter()
+        resumed, send_close = None, lane()
+        try:
+            while time.perf_counter() - t_ready < A22_RESET_S + A22_PROBE_SLACK_S + 5.0:
+                resp = send_close[0](bodies["bodies"][0])
+                if "degraded" not in answer_tags(resp):
+                    resumed = time.perf_counter() - t_ready
+                    break
+        finally:
+            send_close[1]()
+        open_p50 = pct([r[1] for r in degraded[10:]], 0.5)
+        numbers["16d"] = {"healthy_p50_ms": pct([r[1] for r in healthy], 0.5), "malformed": malformed.status.code,
+                          "spent": spent.status.code, "first_degraded_s": first_s, "degraded_p50_ms": open_p50,
+                          "degraded_p99_ms": pct([r[1] for r in degraded[10:]], 0.99), "fallbacks": fb["fallbacks"],
+                          "fallback_k1": fb["k1"], "fallback_batches": fb["batches"], "r1_warm": warm,
+                          "resumed_after_ready_s": resumed}
+        d = numbers["16d"]
+        log(f"16d SIGKILL R1: first degraded answer {first_s * 1e3:.3f} ms after the kill; {A22_SEQUENTIAL} "
+            f"answers degraded / fallback_for model, p50 {open_p50:.3f} ms with the breaker open (requests 11-"
+            f"{A22_SEQUENTIAL}; healthy p50 {d['healthy_p50_ms']:.3f}); fallbacks {fb['fallbacks']:.0f}; fallback "
+            f"K1 {fb['k1']:.0f} = batches {fb['batches']:.0f}; R1 restarted (sent to it directly, its first request "
+            f"{warm['first_ms']:.3f} ms, then at most {warm['concurrent_max_ms']:.3f}), untagged answers "
+            f"{resumed if resumed is None else f'{resumed:.3f} s'} after that [{card}]")
+        check(resumed is not None and resumed <= A22_RESET_S + A22_PROBE_SLACK_S,
+              "untagged answers did not resume once R1 was back")
+        stop_server(fb_proc)
+
+        # (e) hedging on R1, measured only: off, then on at the unhedged p90, in turns
+        c0 = replica_counts(r_http[0])
+        first = timed_window(lane_of(off_port), bodies["bodies"], A22_CLIENTS, A22_HEDGE_P90_SECONDS)
+        hedge_ms = pct([r[1] for r in first], 0.9)
+        on_proc, on_base, on_port = start_gateway(
+            "hedge-on", {"name": "model", "type": "MODEL", "endpoint": on_r1}, logfile,
+            annotations={**A22_ANNOTATIONS, "seldon.io/hedge-ms": f"{hedge_ms:.3f}"})
+        gateways.append(on_proc)
+        wait_gateway([replicas[0], off_proc, on_proc], on_base, logpath)
+        windows, records = [], list(first)
+        for name, p in (("off", off_port), ("on", on_port), ("on", on_port), ("off", off_port)):
+            win = timed_window(lane_of(p), bodies["bodies"], A22_CLIENTS, A22_SECONDS)
+            records += win
+            windows.append({"hedge": name, **lat_numbers(win, A22_SECONDS)})
+        m = metric_samples(http(on_base + "/metrics"))
+        fired, wins = metric_sum(m, "seldon_tpu_transport_hedges_total"), metric_sum(m, "seldon_tpu_transport_hedge_wins_total")
+        fb_hedge = feedback_never_hedges(np, r_grpc[0])
+        c1 = replica_counts(r_http[0])
+        stop_server(on_proc)
+        counters = child_clients(logpath, "hedge-on")["model"]
+        r1 = delta(c1, c0)
+        numbers["16e"] = {"hedge_ms": hedge_ms, "windows": windows, "hedges_fired": fired, "hedge_wins": wins,
+                          "client": counters, "feedback": fb_hedge, "r1_k1": r1["k1"], "r1_batches": r1["batches"],
+                          "r1_requests": r1["requests"], "client_requests": len(records)}
+        log(f"16e hedging at seldon.io/hedge-ms {hedge_ms:.3f} (p90 of {len(first)} unhedged requests): "
+            + "; ".join(f"{w['hedge']} p50 {w['p50_ms']:.3f} ms, p99 {w['p99_ms']:.3f}, {w['qps']:.1f} QPS"
+                        for w in windows)
+            + f"; /metrics hedges {fired:.0f}, wins {wins:.0f} (client {counters}); R1 served {r1['requests']:.0f} "
+            f"rows for {len(records)} requests, K1 {r1['k1']:.0f} = batches {r1['batches']:.0f}; SendFeedback "
+            f"under hedge-ms 1 fired {fb_hedge['hedges_fired']} hedges [{card}]")
+        check_rows(np, pb, records, bodies, refs, errs["16e"])
+        check(fired == counters["hedges_fired"] and wins == counters["hedge_wins"],
+              f"/metrics hedges {fired} / wins {wins} != the client's {counters}")
+        check(k1_equals_batches(r1["k1"], r1["batches"]), f"R1 K1 {r1['k1']} != batches {r1['batches']}")
+        check(len(records) <= r1["requests"] <= len(records) + fired,
+              f"R1 served {r1['requests']} rows for {len(records)} requests and {fired} hedges")
+    finally:
+        for p in gateways + replicas:
+            if p is not None:
+                stop_server(p)
+        logfile.close()
+    for name, e in errs.items():
+        limit_refs = "int8w" if name == "16d_degraded" else "bf16"
+        log(f"16 rows {name}: {len(e)} served rows, max rel L2 {max(e):.3e} against the in-process {limit_refs} "
+            f"model (limit {SERVED_VS_LOCAL_REL_L2})")
+        check(max(e) <= SERVED_VS_LOCAL_REL_L2, f"16 {name} rows disagree with the in-process model")
+        numbers[f"{name}_max_row_rel_l2"] = max(e)
+    numbers["seconds"] = time.perf_counter() - t_phase
+    log(f"16 A2.2 phase wall time {numbers['seconds']:.1f} s [{card}]")
+    return numbers
+
+
 def run() -> int:
     try:
         import torch
@@ -3431,6 +3957,7 @@ def run() -> int:
         graph_numbers = graph_paths(torch, np, kernels, resnet, card)
         native_numbers = native_paths(torch, np, kernels, resnet, card, gateway_numbers, whole["forward_ms"][1])
         a4_numbers = a4_paths(torch, np, kernels, resnet, card)
+        a2_2_numbers = a2_2_paths(torch, np, kernels, resnet, CudaServer, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3458,6 +3985,7 @@ def run() -> int:
         "graphs": graph_numbers,
         "native_ingress": native_numbers,
         "a4": a4_numbers,
+        "a2_2": a2_2_numbers,
         "seconds": time.perf_counter() - t_start,
     }
     log(json.dumps(result))

@@ -44,7 +44,7 @@ import queue
 import threading
 import time
 from collections import deque
-from concurrent.futures import Future
+from concurrent.futures import Future, InvalidStateError
 from concurrent.futures import TimeoutError as FutureTimeout
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Sequence
@@ -419,7 +419,10 @@ class DynamicBatcher:
                 done = time.perf_counter()
                 offset = 0
                 for it in items:
-                    it.future.set_result(out[offset : offset + it.rows])
+                    try:
+                        it.future.set_result(out[offset : offset + it.rows])
+                    except InvalidStateError:
+                        pass  # its caller cancelled it (a hedge loser, a client gone); the rest still answer
                     offset += it.rows
                     self.stats.record_total((done - it.enqueued_at) * 1000.0)
             except Exception as e:  # noqa: BLE001 — propagate to every caller

@@ -7,7 +7,12 @@ from seldon_core_tpu_torch.engine.graph import (  # noqa: F401
     validate_graph,
 )
 from seldon_core_tpu_torch.engine.executor import GraphExecutor, build_client  # noqa: F401
-from seldon_core_tpu_torch.engine.transport import backoff_s  # noqa: F401
+from seldon_core_tpu_torch.engine.transport import (  # noqa: F401
+    BalancedClient,
+    CircuitBreaker,
+    backoff_s,
+    breakers_enabled,
+)
 from seldon_core_tpu_torch.engine.service import PredictorService, new_puid  # noqa: F401
 from seldon_core_tpu_torch.engine.units import (  # noqa: F401
     BUILTIN_IMPLEMENTATIONS,

@@ -26,9 +26,11 @@ Every node method call is a ``node.<unit>.<method>`` span and a
 ``PrometheusObserver``: the reference's engine -> node histograms);
 collected node metrics and feedback rewards are observer events too.
 
-Not ported (``ROADMAP.md`` §A item 2.2): circuit breakers, hedging and
-fallback routes; a graph or an annotation that asks for one is refused
-by name.
+A node with a ``fallback`` subtree degrades instead of failing: when its
+breaker is open or its retries are spent transiently (502 / 503), the
+fallback answers, tagged ``degraded`` / ``fallback_for`` in meta, and a
+``node_fallback`` event and ``seldon_tpu_graph_fallbacks_total`` count
+it.  A spent deadline and a deterministic error are never absorbed.
 """
 
 from __future__ import annotations
@@ -52,38 +54,24 @@ from seldon_core_tpu_torch.engine.graph import (
     UnitSpec,
     validate_graph,
 )
-from seldon_core_tpu_torch.engine.transport import GrpcClient, LocalClient, NodeClient, RestClient
+from seldon_core_tpu_torch.engine.transport import (
+    CircuitBreaker,
+    GrpcClient,
+    LocalClient,
+    NodeClient,
+    RestClient,
+    breakers_enabled,
+)
 from seldon_core_tpu_torch.runtime.component import MicroserviceError
 from seldon_core_tpu_torch.runtime.message import InternalFeedback, InternalMessage
 from seldon_core_tpu_torch.runtime.params import parse_parameters
+from seldon_core_tpu_torch.utils.metrics import increment_counter
 from seldon_core_tpu_torch.utils.tracing import maybe_span
 
 logger = logging.getLogger(__name__)
 
 # observers: (event, unit_name, payload) -> None; used by metrics
 Observer = Callable[[str, str, Any], None]
-
-A2_2 = "ROADMAP.md §A item 2.2 (circuit breakers, hedging, fallback routes)"
-
-
-def _refuse_later(annotations: Dict[str, str], root: UnitSpec) -> None:
-    """The self-healing knobs of the JAX engine are not ported: refuse
-    them by name rather than serve without them."""
-    later = sorted(k for k in annotations if k.startswith("seldon.io/breaker") or k == "seldon.io/hedge-ms")
-    if later:
-        raise MicroserviceError(
-            f"annotations {later} are not ported yet: they come with {A2_2}",
-            status_code=400,
-            reason="BAD_PARAMETER",
-        )
-    with_fallback = sorted(u.name for u in root.walk() if u.fallback is not None)
-    if with_fallback:
-        raise MicroserviceError(
-            f"fallback routes on {with_fallback} are not ported yet: they come with {A2_2}",
-            status_code=400,
-            reason="BAD_GRAPH",
-        )
-
 
 def _instantiate_component(unit: UnitSpec) -> Any:
     """Materialise the in-process component for a unit, if any."""
@@ -108,6 +96,15 @@ def build_client(unit: UnitSpec, annotations: Optional[Dict[str, str]] = None) -
     seldon.io/rest-connection-timeout (ms), seldon.io/rest-read-timeout
     (ms), seldon.io/rest-retries, seldon.io/grpc-read-timeout (ms),
     seldon.io/grpc-retries (attempt budget for transient statuses).
+
+    Failure containment: seldon.io/breaker ("0" / "off" / "false" turns
+    circuit breaking off for this deployment), seldon.io/breaker-failures
+    (consecutive transient failures to trip, default 5),
+    seldon.io/breaker-reset-ms (open -> half-open cooldown, default 1000),
+    seldon.io/breaker-probes (concurrent half-open probes, default 2),
+    and seldon.io/hedge-ms (hedging delay of idempotent unary calls;
+    unset / 0 = off).  The breaker is the endpoint's shared one, keyed
+    ``host:port`` for the remote lanes and ``local:<unit>`` in-process.
     """
     ann = annotations or {}
 
@@ -123,6 +120,20 @@ def build_client(unit: UnitSpec, annotations: Optional[Dict[str, str]] = None) -
         except (KeyError, ValueError):
             return default
 
+    def _breaker(key: str):
+        """The annotation-configured shared breaker of an endpoint, or
+        False (off) when annotation or environment disable it."""
+        if not breakers_enabled() or str(ann.get("seldon.io/breaker", "1")).lower() in ("0", "off", "false"):
+            return False
+        return CircuitBreaker.for_endpoint(
+            key,
+            failures=_int("seldon.io/breaker-failures", 5),
+            reset_s=_ms("seldon.io/breaker-reset-ms", 1.0),
+            probes=_int("seldon.io/breaker-probes", 2),
+        )
+
+    hedge_ms = _ms("seldon.io/hedge-ms", 0.0) * 1000.0
+
     if not unit.remote:
         # in-process beats remote — unless the node is declared remote,
         # in which case implementation/component_class describe what the
@@ -131,7 +142,7 @@ def build_client(unit: UnitSpec, annotations: Optional[Dict[str, str]] = None) -
         if component is not None:
             if hasattr(component, "load"):
                 component.load()
-            return LocalClient(unit, component)
+            return LocalClient(unit, component, breaker=_breaker(f"local:{unit.name}"))
     elif unit.endpoint is None:
         raise MicroserviceError(
             f"node {unit.name!r} is remote but has no endpoint — start its microservice and set one "
@@ -140,32 +151,43 @@ def build_client(unit: UnitSpec, annotations: Optional[Dict[str, str]] = None) -
             reason="BAD_GRAPH",
         )
     if unit.endpoint is not None:
+        breaker = _breaker(f"{unit.endpoint.host}:{unit.endpoint.port}")
         if unit.endpoint.transport == REST:
             return RestClient(
                 unit,
                 connect_timeout_s=_ms("seldon.io/rest-connection-timeout", 2.0),
                 read_timeout_s=_ms("seldon.io/rest-read-timeout", 5.0),
                 retries=_int("seldon.io/rest-retries", 3),
+                breaker=breaker,
+                hedge_ms=hedge_ms,
             )
         return GrpcClient(
             unit,
             deadline_s=_ms("seldon.io/grpc-read-timeout", 5.0),
             retries=_int("seldon.io/grpc-retries", 3),
+            breaker=breaker,
+            hedge_ms=hedge_ms,
         )
     return None
 
 
 class GraphExecutor:
-    """Executes one predictor's graph; owns the node clients."""
+    """Executes one predictor's graph; owns the node clients.
 
-    def __init__(self, root: UnitSpec, annotations: Optional[Dict[str, str]] = None,
-                 observer: Optional[Observer] = None):
+    ``clients`` injects ready-made clients by node name (a
+    ``BalancedClient`` over a node's replicas); every other node gets
+    ``build_client``'s."""
+
+    def __init__(self, root: UnitSpec, clients: Optional[Dict[str, NodeClient]] = None,
+                 observer: Optional[Observer] = None, annotations: Optional[Dict[str, str]] = None):
         validate_graph(root)
-        _refuse_later(annotations or {}, root)
         self.root = root
         self.observer = observer
         self.clients: Dict[str, NodeClient] = {}
         for unit in root.walk():
+            if clients is not None and unit.name in clients:
+                self.clients[unit.name] = clients[unit.name]
+                continue
             client = build_client(unit, annotations)
             if client is not None:
                 self.clients[unit.name] = client
@@ -250,7 +272,53 @@ class GraphExecutor:
         response.meta.puid = puid
         return response
 
+    @staticmethod
+    def _fallback_worthy(e: Exception) -> bool:
+        """Failures a fallback route may absorb: the primary's breaker is
+        open (CIRCUIT_OPEN), its retries were spent transiently (502), or
+        it shed transiently (503).  A deterministic error would fail the
+        same way on the fallback, a remote 4xx / plain 500 included (the
+        transports re-raise those as 502 with ``transient=False``; absent
+        means transient, so a bare component 503 such as SHED still
+        degrades).  A spent deadline (504) leaves no budget for a second
+        subtree."""
+        if not isinstance(e, MicroserviceError):
+            return False
+        if e.reason == "DEADLINE_EXCEEDED":
+            return False
+        if e.status_code not in (502, 503):
+            return False
+        return getattr(e, "transient", True)
+
     async def _execute(
+        self,
+        unit: UnitSpec,
+        msg: InternalMessage,
+        puid: str,
+        routing: Dict[str, int],
+        request_path: Dict[str, str],
+        metrics: Dict[str, List[Dict]],
+    ) -> InternalMessage:
+        if unit.fallback is None:
+            return await self._execute_primary(unit, msg, puid, routing, request_path, metrics)
+        try:
+            return await self._execute_primary(unit, msg, puid, routing, request_path, metrics)
+        except MicroserviceError as e:
+            if not self._fallback_worthy(e):
+                raise
+            logger.warning("node %s failed (%s: %s); taking fallback route %s", unit.name, e.reason, e,
+                           unit.fallback.name)
+            self._emit("node_fallback", unit.name, e.reason)
+            increment_counter("seldon_tpu_graph_fallbacks_total",
+                              "requests answered by a fallback route because the "
+                              "primary's breaker was open or its retries exhausted")
+            out = await self._execute(unit.fallback, msg, puid, routing, request_path, metrics)
+            # a degraded answer must be told apart from a primary one
+            out.meta.tags["degraded"] = True
+            out.meta.tags["fallback_for"] = unit.name
+            return out
+
+    async def _execute_primary(
         self,
         unit: UnitSpec,
         msg: InternalMessage,

@@ -84,9 +84,10 @@ class UnitSpec:
     # microservice worker and fills in `endpoint` (the DCN edge — the
     # reference's engine->microservice pod-network hop)
     remote: bool = False
-    # degraded answer path: an alternate subtree run instead of this
-    # node when its breaker is open or its retries exhaust.  Parsed so
-    # that the executor can refuse it by name (ROADMAP.md §A item 2.2).
+    # degraded answer path: an alternate subtree the executor runs
+    # instead of this node when its breaker is open or its retries
+    # exhaust (502/503); the answer is tagged `degraded` / `fallback_for`
+    # in meta so callers can tell it from a primary answer
     fallback: Optional["UnitSpec"] = None
 
     def node_methods(self) -> List[str]:
@@ -199,8 +200,10 @@ def validate_graph(root: UnitSpec) -> None:
     * COMBINER needs >= 1 child; ROUTER needs >= 1 child
     * every node must be executable: a component, component_class,
       endpoint, or builtin implementation (or be a no-method pass-through)
-    * a fallback subtree's nodes obey the same rules (fallback routes
-      themselves are refused when the executor is built)
+    * a fallback must be able to stand in for its primary: its subtree
+      obeys the same rules, and a fallback node may not declare its own
+      fallback (one degradation step: a chain would hide how degraded an
+      answer is)
     """
     seen = set()
     for unit in root.walk():
@@ -211,6 +214,11 @@ def validate_graph(root: UnitSpec) -> None:
             raise GraphSpecError(f"COMBINER {unit.name!r} has no children")
         if unit.type == ROUTER and not unit.children:
             raise GraphSpecError(f"ROUTER {unit.name!r} has no children")
+        if unit.fallback is not None and unit.fallback.fallback is not None:
+            raise GraphSpecError(
+                f"fallback {unit.fallback.name!r} of {unit.name!r} declares "
+                "its own fallback: only one degradation step is allowed"
+            )
         executable = (
             unit.component is not None
             or unit.component_class

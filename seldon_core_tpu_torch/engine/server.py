@@ -33,7 +33,10 @@ Not ported: the debug endpoints (``ROADMAP.md`` §A item 8.11),
 explanations (§A item 11), token streaming over SSE and
 ``Seldon/GenerateStream`` (§A item 8.6: the RPC answers UNIMPLEMENTED),
 and the ``grpc.aio`` front end: gRPC is served by the sync server of
-``engine/sync_server.py`` alone (§A item 2.2).
+``engine/sync_server.py`` alone (queued in ``ROADMAP.md`` §A until a
+deployment needs it).  Breakers, hedging, fallbacks and replica
+balancing run in the engine (``engine/{transport,executor}.py``) behind
+every listener.
 """
 
 from __future__ import annotations

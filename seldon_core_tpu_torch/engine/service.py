@@ -16,7 +16,7 @@ import asyncio
 import logging
 import threading
 import time
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 from seldon_core_tpu_torch.engine.executor import GraphExecutor, Observer
 from seldon_core_tpu_torch.engine.graph import UnitSpec
@@ -44,9 +44,11 @@ class PredictorService:
     """One deployed predictor: graph executor + lifecycle + bookkeeping."""
 
     def __init__(self, graph: UnitSpec, name: str = "default", annotations: Optional[Dict[str, str]] = None,
-                 observer: Optional[Observer] = None):
+                 observer: Optional[Observer] = None, clients: Optional[Dict[str, Any]] = None):
         self.name = name
-        self.executor = GraphExecutor(graph, annotations=annotations, observer=observer)
+        # `clients`: injected node clients by name (a BalancedClient over
+        # a node's replicas), passed through to the executor
+        self.executor = GraphExecutor(graph, clients=clients, observer=observer, annotations=annotations)
         self.graph = graph
         self._paused = False
         # threading (not asyncio) primitives: predict_sync runs on gRPC
@@ -127,7 +129,10 @@ class PredictorService:
 
     def single_local_model(self):
         """(unit, component) when this predictor is one in-process MODEL
-        node — the shape eligible for the no-event-loop fast path."""
+        node — the shape eligible for the no-event-loop fast path.  A
+        balanced root is not.  As in the JAX package, a ``fallback`` on
+        the node is not looked at, so the fast path never takes it
+        (``ROADMAP.md`` C16)."""
         unit = self.graph
         if unit.children or unit.type != "MODEL":
             return None

@@ -33,6 +33,7 @@ KNOBS: Dict[str, str] = {
     "SELDON_TPU_NATIVE_SO": "path of a prebuilt native front-server library to load instead of the port's own build",
     "SELDON_TPU_TRACE_EXPORT": "per-process JSONL span sink of the microservice CLI's --tracing (unset: the ring only)",
     "SELDON_TPU_TRANSPORT_TELEMETRY": "per-hop transport metrics seldon_tpu_transport_* ('0' = off)",
+    "SELDON_TPU_BREAKER": "per-endpoint circuit breakers of the graph's node clients ('0' = off)",
 }
 
 # flag knobs and their defaults: "1" = on unless set to "0", "0" = off
@@ -42,6 +43,7 @@ _FLAG_DEFAULTS: Dict[str, str] = {
     "SELDON_TPU_PREFIX_CACHE": "0",
     "SELDON_TPU_ZERO_COPY": "1",
     "SELDON_TPU_TRANSPORT_TELEMETRY": "1",
+    "SELDON_TPU_BREAKER": "1",
 }
 
 

@@ -25,11 +25,15 @@ current names: a component's custom metrics (``CudaServer``'s
 ``cudaserver_*`` gauges, ``StreamingLM``'s ``paged_*``) and the
 gateway's per-predictor counts (``engine/server.py``).
 
+The failure-containment series (breaker state and transitions,
+fast-fails, hedges, replica failovers; ``engine/transport.py``) keep the
+JAX module's names, labels and help strings, so the repo's
+``BreakerStuckOpen`` alert and the dashboard's breaker panel read them.
+
 Left out, each with its item: the generation engine and fleet bridges
-(``GenerationPrometheusBridge``, ``FleetPrometheusBridge``; 8.11); the
-breaker, hedge and failover series (A2.2); worker health,
-``api_latency_sampler`` and ``HistogramQuantileSampler`` (A13); trace
-exemplars, which the text format 0.0.4 does not carry (8.11).
+(``GenerationPrometheusBridge``, ``FleetPrometheusBridge``; 8.11); worker
+health, ``api_latency_sampler`` and ``HistogramQuantileSampler`` (A13);
+trace exemplars, which the text format 0.0.4 does not carry (8.11).
 """
 
 from __future__ import annotations
@@ -550,6 +554,20 @@ def record_transport_hop(
         logger.exception("transport telemetry failed for %s/%s", unit, method)
 
 
+def record_transport_failover(unit: str, method: str, transport: str = "balanced",
+                              registry: Optional[Registry] = None) -> None:
+    """One replica failover (``BalancedClient``), counted apart from the
+    requests: the failed call already recorded its own hop."""
+    if not transport_telemetry_enabled():
+        return
+    try:
+        kind, name, doc = TRANSPORT_METRICS["failovers"]
+        _cache_for(registry).get(kind, name, TRANSPORT_LABELS, doc).labels(
+            unit=unit, method=method, transport=transport).inc()
+    except Exception:  # noqa: BLE001 — telemetry never fails the failover
+        logger.exception("transport failover counter failed for %s/%s", unit, method)
+
+
 def transport_inflight(unit: str, method: str, transport: str, registry: Optional[Registry] = None):
     """The in-flight gauge of one (unit, method, transport), or None when
     telemetry is off.  Callers inc() / dec() around the await, so a
@@ -561,3 +579,64 @@ def transport_inflight(unit: str, method: str, transport: str, registry: Optiona
     except Exception:  # noqa: BLE001 — telemetry never fails the hop
         logger.exception("transport inflight gauge failed for %s/%s", unit, method)
         return None
+
+
+# ---------------------------------------------------------------------------
+# failure containment: circuit breakers and hedged requests
+# ---------------------------------------------------------------------------
+
+# the breaker state gauge's encoding (the alert rules key on it)
+BREAKER_STATE_CODES = {"closed": 0, "half_open": 1, "open": 2}
+
+BREAKER_STATE_METRIC = "seldon_tpu_transport_breaker_state"
+BREAKER_TRANSITIONS_METRIC = "seldon_tpu_transport_breaker_transitions_total"
+BREAKER_FASTFAIL_METRIC = "seldon_tpu_transport_breaker_fastfail_total"
+HEDGES_METRIC = "seldon_tpu_transport_hedges_total"
+HEDGE_WINS_METRIC = "seldon_tpu_transport_hedge_wins_total"
+
+
+def record_breaker_state(endpoint: str, state: str, registry: Optional[Registry] = None) -> None:
+    """Set an endpoint's breaker state gauge and count the transition;
+    called on each state change, so its cost follows incidents, not
+    traffic.  Never raises."""
+    if not transport_telemetry_enabled():
+        return
+    try:
+        cache = _cache_for(registry)
+        cache.get("gauge", BREAKER_STATE_METRIC, ("endpoint",),
+                  "circuit-breaker state per endpoint (0 closed, 1 half-open, 2 open)",
+                  ).labels(endpoint=endpoint).set(BREAKER_STATE_CODES.get(state, 0))
+        cache.get("counter", BREAKER_TRANSITIONS_METRIC, ("endpoint", "to"),
+                  "circuit-breaker state transitions").labels(endpoint=endpoint, to=state).inc()
+    except Exception:  # noqa: BLE001 — telemetry never fails the breaker
+        logger.exception("breaker state metric failed for %s", endpoint)
+
+
+def record_breaker_fastfail(unit: str, method: str, transport: str, registry: Optional[Registry] = None) -> None:
+    """One call rejected before dispatch because its endpoint's breaker
+    was open (or half-open past its probes).  Never raises."""
+    if not transport_telemetry_enabled():
+        return
+    try:
+        _cache_for(registry).get(
+            "counter", BREAKER_FASTFAIL_METRIC, TRANSPORT_LABELS,
+            "calls fast-failed by an open circuit breaker before dispatch",
+        ).labels(unit=unit, method=method, transport=transport).inc()
+    except Exception:  # noqa: BLE001 — telemetry never fails the fast-fail
+        logger.exception("breaker fastfail counter failed for %s/%s", unit, method)
+
+
+def record_transport_hedge(unit: str, method: str, transport: str, won: bool = False,
+                           registry: Optional[Registry] = None) -> None:
+    """One hedge duplicate fired (``won=False``) or one hedge that
+    answered first (``won=True``: the win rate is a ratio of two
+    counters).  Never raises."""
+    if not transport_telemetry_enabled():
+        return
+    try:
+        name, doc = ((HEDGE_WINS_METRIC, "hedged duplicates that returned first") if won else
+                     (HEDGES_METRIC, "hedged duplicate requests fired after the per-node hedge delay"))
+        _cache_for(registry).get("counter", name, TRANSPORT_LABELS, doc).labels(
+            unit=unit, method=method, transport=transport).inc()
+    except Exception:  # noqa: BLE001 — telemetry never fails the hedge
+        logger.exception("hedge counter failed for %s/%s", unit, method)

@@ -170,3 +170,22 @@ def test_raw_batch_call_passes_its_bound_to_the_batcher():
         assert out.shape == (2, 4) and calls == [7.5, 3.0]
     finally:
         server.unload()
+
+
+def test_a_cancelled_request_does_not_fail_its_batch():
+    """C17: a request its caller cancelled after the batch was collected
+    (a hedge loser whose RPC was cancelled, a client gone) is dropped
+    when the batch's rows come back; the requests after it in the batch
+    still get their own rows.  The JAX batcher fails them with the
+    cancelled future's InvalidStateError."""
+    model = BlockingModel()
+    with _batcher(model, max_wait_ms=200.0) as b:
+        first, second = np.full((1, 3), 1, np.uint8), np.full((2, 3), 2, np.uint8)
+        cancelled, kept = b.submit_future(first), b.submit_future(second)
+        assert model.entered.wait(5.0)
+        assert cancelled.cancel()
+        model.gate.set()
+        np.testing.assert_array_equal(kept.result(timeout=5.0), second.astype(np.float32) * 2.0)
+    assert cancelled.cancelled()
+    assert len(model.batches) == 1  # one batch held both, padded to its bucket
+    np.testing.assert_array_equal(model.batches[0][:3], np.concatenate([first, second]))

@@ -11,7 +11,8 @@ every response as deterministic proto bytes with the puid cleared
 (payload, ``requestPath``, ``routing``, merged tags, collected metrics),
 the branch sequences, and the routers' state after feedback.  Then the
 remote hops (``GrpcClient``, ``RestClient``) to a port microservice on
-loopback, and the refusals of what the port leaves out.
+loopback, the self-healing annotations and fallback routes, and the
+refusals of what the port leaves out.
 """
 
 import asyncio
@@ -93,6 +94,17 @@ class SumCombiner:
 class Boom:
     def predict(self, X, names, meta=None):
         raise RuntimeError("boom")
+
+
+@pytest.fixture(autouse=True)
+def fresh_breakers():
+    """Breakers are a process-wide registry keyed by endpoint: a breaker
+    one test tripped must not fast-fail the next test's calls."""
+    jax_engine.CircuitBreaker.reset_all()
+    engine.CircuitBreaker.reset_all()
+    yield
+    jax_engine.CircuitBreaker.reset_all()
+    engine.CircuitBreaker.reset_all()
 
 
 def node(name, type_, children=(), **kw):
@@ -460,29 +472,82 @@ def test_backoff_is_full_jitter_and_capped():
             assert 0.0 <= engine.backoff_s(attempt) <= min(2.0, 0.05 * 2 ** attempt)
 
 
-@pytest.mark.parametrize("annotation", ["seldon.io/breaker", "seldon.io/breaker-failures", "seldon.io/hedge-ms"])
+SELF_HEALING = {
+    # annotation -> (value, what the built remote client carries); once
+    # refused by name, each now configures the client as in JAX
+    "seldon.io/breaker": ("off", lambda c: c.breaker is None),
+    "seldon.io/breaker-failures": ("7", lambda c: (c.breaker.failures, c.breaker.reset_s, c.breaker.probes) == (7, 1.0, 2)),
+    "seldon.io/hedge-ms": ("5", lambda c: c.hedge_ms == 5.0 and c.breaker.failures == 5),
+}
+
+
+@pytest.mark.parametrize("annotation", sorted(SELF_HEALING))
 def test_self_healing_annotations_are_refused_by_name(annotation):
-    with pytest.raises(MicroserviceError) as info:
-        service("torch_port", node("m", "MODEL", implementation="SIMPLE_MODEL"), annotations={annotation: "5"})
-    assert info.value.reason == "BAD_PARAMETER" and annotation in info.value.message
-    assert "§A item 2.2" in info.value.message
+    """Each self-healing annotation configures the breaker or the hedge
+    delay on the built client, as JAX's build_client does, and a graph
+    carrying it serves."""
+    value, holds = SELF_HEALING[annotation]
+    ann = {annotation: value}
+    remote = node("g", "MODEL", endpoint={"host": "h", "port": 2, "transport": "GRPC"})
+    built = {}
+    for pkg, (eng, g, _, _) in PACKAGES.items():
+        eng.CircuitBreaker.reset_all()
+        built[pkg] = eng.build_client(g.UnitSpec.from_dict(remote), ann)
+        assert holds(built[pkg]), pkg
+    ours, theirs = built["torch_port"], built["jax"]
+    assert ours.hedge_ms == theirs.hedge_ms
+    assert (ours.breaker is None) == (theirs.breaker is None)
+    if ours.breaker is not None:
+        assert ours.breaker.key == theirs.breaker.key == "h:2"
+        assert ours.breaker is transport.CircuitBreaker.for_endpoint("h:2")
+    svc = service("torch_port", node("m", "MODEL", implementation="SIMPLE_MODEL"), annotations=ann)
+    assert run(svc.predict(request("torch_port", [[1.0]]))).status["status"] == "SUCCESS"
 
 
 FALLBACKS = {
     "one_step": node("m", "MODEL", implementation="SIMPLE_MODEL",
                      fallback=node("f", "MODEL", implementation="SIMPLE_MODEL")),
-    # the JAX package refuses a chain at validation; the port refuses any fallback when it builds the executor
     "fallback_of_a_fallback": node("m", "MODEL", implementation="SIMPLE_MODEL", fallback=node(
         "f", "MODEL", implementation="SIMPLE_MODEL",
         fallback=node("g", "MODEL", implementation="SIMPLE_MODEL"))),
 }
 
 
+def shedding(pkg):
+    """A MODEL that sheds every request with a transient 503 (SHED)."""
+    from seldon_core_tpu.runtime.component import MicroserviceError as JaxError
+
+    error = JaxError if pkg == "jax" else MicroserviceError
+
+    class Shedding:
+        def predict(self, X, names, meta=None):
+            raise error("shed", status_code=503, reason="SHED")
+
+    return Shedding
+
+
 @pytest.mark.parametrize("case", sorted(FALLBACKS))
 def test_fallback_routes_are_refused_by_name(case):
-    with pytest.raises(MicroserviceError) as info:
-        service("torch_port", FALLBACKS[case])
-    assert info.value.reason == "BAD_GRAPH" and "'m'" in info.value.message and "§A item 2.2" in info.value.message
+    """A single fallback is built and answers, degraded, when its primary
+    sheds, as in JAX; a fallback of a fallback is refused at validation
+    with JAX's message."""
+    if case == "fallback_of_a_fallback":
+        errors = {}
+        for pkg, (_, g, _, _) in PACKAGES.items():
+            with pytest.raises(g.GraphSpecError) as info:
+                service(pkg, FALLBACKS[case])
+            errors[pkg] = str(info.value)
+        assert errors["torch_port"] == errors["jax"]
+        assert "only one degradation step is allowed" in errors["torch_port"]
+        return
+    outs = {}
+    for pkg in PACKAGES:
+        svc = service(pkg, FALLBACKS[case], {"m": shedding(pkg)})
+        assert "f" in svc.executor.clients
+        outs[pkg] = run(svc.predict(request(pkg, [[1.0, 2.0]], puid="p")))
+    assert wire(outs["torch_port"]) == wire(outs["jax"])
+    assert outs["torch_port"].meta.tags == {"degraded": True, "fallback_for": "m"}
+    assert outs["torch_port"].meta.request_path == {"m": "SIMPLE_MODEL", "f": "SIMPLE_MODEL"}
 
 
 def test_remote_node_without_endpoint_is_refused():

@@ -36,6 +36,17 @@ from seldon_core_tpu_torch.runtime import grpc_server
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_port_dispatch_roles import Scaler, request_bytes  # noqa: E402
 from test_torch_port_resnet import random_variables  # noqa: E402
+from seldon_core_tpu_torch.engine.transport import CircuitBreaker
+
+
+@pytest.fixture(autouse=True)
+def fresh_breakers():
+    """The breaker registry is process-wide: start and leave every test
+    with every endpoint closed."""
+    CircuitBreaker.reset_all()
+    yield
+    CircuitBreaker.reset_all()
+
 
 NUM_CLASSES = 10
 SHAPE = (32, 32, 3)
@@ -384,3 +395,151 @@ def test_two_process_deployment_stitches_one_trace(tmp_path):
         assert samples[f"seldon_tpu_transport_request_bytes_total{{{labels}}}"] > 0
         assert samples[f"seldon_tpu_transport_response_bytes_total{{{labels}}}"] > 0
         assert samples[f"seldon_tpu_transport_inflight{{{labels}}}"] == 0.0
+
+
+def test_served_resnet_tiny_fallback_matches_jax(servers):
+    """One graph through JAX's executor and the port's: a router whose
+    branch is a primary that sheds (a transient 503) with ResNetTiny of
+    the same f32 parameters as its fallback.  The same tags, routing and
+    requestPath; logits within TOL."""
+    from seldon_core_tpu.engine import PredictorService as JaxPredictorService
+    from seldon_core_tpu.engine import UnitSpec as JaxUnitSpec
+    from seldon_core_tpu.runtime.component import MicroserviceError as JaxMicroserviceError
+    from seldon_core_tpu.runtime.message import InternalMessage as JaxMessage
+    from seldon_core_tpu_torch.engine import PredictorService, UnitSpec
+    from seldon_core_tpu_torch.runtime.component import MicroserviceError
+    from seldon_core_tpu_torch.runtime.message import InternalMessage
+
+    js, cs = servers
+    images = np.random.default_rng(7).integers(0, 256, (2, *SHAPE)).astype(np.uint8)
+    outs = {}
+    for pkg, spec_cls, svc_cls, msg_cls, error, fallback in (
+            ("jax", JaxUnitSpec, JaxPredictorService, JaxMessage, JaxMicroserviceError, js),
+            ("torch_port", UnitSpec, PredictorService, InternalMessage, MicroserviceError, cs)):
+        class Shedding:
+            def predict(self, X, names, meta=None, error=error):
+                raise error("overloaded", status_code=503, reason="SHED")
+
+        primary = spec_cls(name="resnet", type="MODEL", component=Shedding())
+        primary.fallback = spec_cls(name="resnet-small", type="MODEL", component=fallback,
+                                    image="resnet-tiny:fallback")
+        router = spec_cls(name="router", type="ROUTER", implementation="RANDOM_ABTEST",
+                          parameters=[{"name": "ratio_a", "value": "1.0", "type": "FLOAT"}],
+                          children=[primary, spec_cls(name="other", type="MODEL", component=Scaler())])
+        svc = svc_cls(router, name="p")
+        outs[pkg] = asyncio.run(svc.predict(msg_cls(payload=images, kind="rawTensor")))
+    ours, theirs = outs["torch_port"], outs["jax"]
+    assert ours.status == theirs.status and ours.status["code"] == 200
+    assert ours.meta.tags == theirs.meta.tags == {"degraded": True, "fallback_for": "resnet"}
+    assert ours.meta.routing == theirs.meta.routing == {"router": 0}
+    assert ours.meta.request_path == theirs.meta.request_path
+    assert ours.meta.request_path["resnet-small"] == "resnet-tiny:fallback"
+    got, want = np.asarray(ours.host_payload()), np.asarray(theirs.host_payload())
+    assert got.shape == want.shape == (2, NUM_CLASSES)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_balanced_replicas_answer_across_a_killed_replica(tmp_path):
+    """Two port microservice replicas (the CLI with --api GRPC, ResNetTiny
+    on the CPU, one seed) behind a BalancedClient in the graph's root
+    node, as JAX's deployer wires an autoscaled root.  Both serve; after
+    SIGKILL of one, every request is still answered with the in-process
+    rows, the dead replica's breaker opens and failovers are counted."""
+    import json
+    import signal
+    import subprocess
+    import time
+
+    import grpc
+
+    from seldon_core_tpu_torch.engine import BalancedClient, PredictorService, UnitSpec, build_client
+    from seldon_core_tpu_torch.engine.graph import Endpoint
+    from seldon_core_tpu_torch.runtime.message import InternalMessage
+    from seldon_core_tpu_torch.utils import metrics
+
+    params = [{"name": "model", "value": "resnet_tiny", "type": "STRING"},
+              {"name": "num_classes", "value": str(NUM_CLASSES), "type": "INT"},
+              {"name": "dtype", "value": "float32", "type": "STRING"},
+              {"name": "normalize", "value": "true", "type": "BOOL"},
+              {"name": "max_batch_size", "value": "4", "type": "INT"},
+              {"name": "warmup", "value": "false", "type": "BOOL"},
+              {"name": "seed", "value": "5", "type": "INT"},
+              {"name": "input_shape", "value": json.dumps(list(SHAPE)), "type": "JSON"},
+              {"name": "device", "value": "cpu", "type": "STRING"}]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ports = [free_port(), free_port()]
+    procs = []
+    for i, port in enumerate(ports):
+        log = open(tmp_path / f"replica{i}.log", "wb")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice",
+             "seldon_core_tpu_torch.models.cudaserver.CudaServer", "--api", "GRPC", "--host", "127.0.0.1",
+             "--grpc-port", str(port), "--unit-id", f"replica{i}", "--parameters", json.dumps(params)],
+            cwd=root, stdout=log, stderr=subprocess.STDOUT))
+        log.close()
+    local = CudaServer(device="cpu", **{p["name"]: json.loads(p["value"]) if p["type"] in ("INT", "JSON", "BOOL")
+                                         else p["value"] for p in params if p["name"] != "device"})
+    local.load()
+    images = np.random.default_rng(43).integers(0, 256, (12, *SHAPE)).astype(np.uint8)
+    probe = predict_request(images[:1], "rawTensor")
+    ann = {"seldon.io/breaker-failures": "2", "seldon.io/breaker-reset-ms": "60000",
+           "seldon.io/grpc-retries": "2", "seldon.io/grpc-read-timeout": "20000"}
+    failovers = 'seldon_tpu_transport_failovers_total{method="transform_input",transport="balanced",unit="model"}'
+
+    def failover_count() -> float:
+        for line in metrics.generate_latest().decode().splitlines():
+            if line.startswith(failovers + " "):
+                return float(line.rpartition(" ")[2])
+        return 0.0
+
+    try:
+        for i, port in enumerate(ports):  # ready: the replica answers a predict
+            deadline = time.time() + 120
+            with grpc.insecure_channel(f"127.0.0.1:{port}") as channel:
+                predict = services.unary_callable(channel, "Model", "Predict")
+                while True:
+                    assert procs[i].poll() is None, (tmp_path / f"replica{i}.log").read_text()[-4000:]
+                    try:
+                        predict(pb.SeldonMessage.FromString(probe), timeout=5)
+                        break
+                    except grpc.RpcError:
+                        assert time.time() < deadline, f"replica {i} never became ready"
+                        time.sleep(0.2)
+        endpoint = lambda port: UnitSpec(name="model", type="MODEL",  # noqa: E731
+                                         endpoint=Endpoint("127.0.0.1", port, "GRPC"))
+        before = failover_count()
+
+        async def go():
+            replicas = [build_client(endpoint(port), ann) for port in ports]
+            svc = PredictorService(endpoint(ports[0]), name="main", annotations=ann,
+                                   clients={"model": BalancedClient(replicas)})
+            assert svc.single_local_model() is None  # a balanced root is not fast-path eligible
+            outs = []
+            try:
+                for i in range(4):
+                    outs.append(await asyncio.wait_for(
+                        svc.predict(InternalMessage(payload=images[i:i + 1], kind="rawTensor")), 60))
+                procs[1].send_signal(signal.SIGKILL)
+                procs[1].wait(timeout=30)
+                for i in range(4, 12):
+                    outs.append(await asyncio.wait_for(
+                        svc.predict(InternalMessage(payload=images[i:i + 1], kind="rawTensor")), 60))
+                return outs, [r.breaker.state for r in replicas]
+            finally:
+                await svc.close()
+
+        outs, states = asyncio.run(go())
+        after = failover_count()
+    finally:
+        local.unload()
+        for proc in procs:
+            if proc.poll() is None:
+                proc.terminate()
+            proc.wait(timeout=30)
+    want = np.asarray(local.predict(images, []), np.float64)
+    for i, out in enumerate(outs):
+        assert out.status["status"] == "SUCCESS", (i, out.status)
+        got = np.asarray(out.host_payload(), np.float64)[0]
+        assert np.linalg.norm(got - want[i]) / np.linalg.norm(want[i]) <= 2e-2
+    assert states == ["closed", "open"]
+    assert after - before >= 1

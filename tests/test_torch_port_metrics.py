@@ -25,6 +25,17 @@ prom = pytest.importorskip("prometheus_client")
 
 from seldon_core_tpu.utils import metrics as jax_metrics  # noqa: E402
 from seldon_core_tpu_torch.utils import metrics  # noqa: E402
+from seldon_core_tpu_torch.engine.transport import CircuitBreaker  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def fresh_breakers():
+    """The breaker registry is process-wide: start and leave every test
+    with every endpoint closed."""
+    CircuitBreaker.reset_all()
+    yield
+    CircuitBreaker.reset_all()
+
 
 _LINE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)$')
 _LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')

@@ -24,6 +24,17 @@ from seldon_core_tpu.runtime import rest as jax_rest
 from seldon_core_tpu.runtime.component import MicroserviceError as JaxMicroserviceError
 from seldon_core_tpu_torch.runtime import rest
 from seldon_core_tpu_torch.runtime.component import MicroserviceError
+from seldon_core_tpu_torch.engine.transport import CircuitBreaker
+
+
+@pytest.fixture(autouse=True)
+def fresh_breakers():
+    """The breaker registry is process-wide: start and leave every test
+    with every endpoint closed."""
+    CircuitBreaker.reset_all()
+    yield
+    CircuitBreaker.reset_all()
+
 
 DATA = {"ndarray": [[1.0, 2.0], [3.0, 4.0]]}
 META = {"tags": {"adapter": "a1"}, "puid": "p-1"}

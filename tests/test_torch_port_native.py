@@ -46,6 +46,17 @@ from seldon_core_tpu_torch.runtime import grpc_server
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_port_resnet import random_variables  # noqa: E402
+from seldon_core_tpu_torch.engine.transport import CircuitBreaker
+
+
+@pytest.fixture(autouse=True)
+def fresh_breakers():
+    """The breaker registry is process-wide: start and leave every test
+    with every endpoint closed."""
+    CircuitBreaker.reset_all()
+    yield
+    CircuitBreaker.reset_all()
+
 
 NUM_CLASSES = 10
 SHAPE = (32, 32, 3)
