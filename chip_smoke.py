@@ -81,7 +81,7 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    weights, each prompt alone, bit for bit; at least 75% of the
    concurrent rows equal theirs too; a repeated request is identical;
    the server's K4 launches grow by at least 8 layers x the decode
-   steps it took; numbers: REST p50/p99 over 120 sequential requests
+   steps it took; numbers: REST p50/p99 over 60 sequential requests
    (prompt 128, 32 new) and REST tokens/s of 16 closed-loop clients
    over 5 s;
 8. engine numerics in-process: in f32 the kernel lane, the gather lane
@@ -214,7 +214,7 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    with a native port in front, beside 13a's plain gateway child; a
    token from ``/oauth/token``, then 4 TLS sync-gRPC clients of uint8
    rows [1, 150528], each request with ``authorization: Bearer``,
-   ``x-seldon-deadline-ms: 10000`` and a ``traceparent``, for 10 s after
+   ``x-seldon-deadline-ms: 10000`` and a ``traceparent``, for 5 s after
    one client's 3 s of sequential requests, on the two gateways in turns
    (on, off, off, on): p50 / p99 / QPS and the sequential p50 of each
    window and the A4-minus-plain difference of the means; every served
@@ -264,11 +264,44 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    the time to the first degraded answer and the degraded p50; R1
    restarted and warmed as R2, untagged answers again within 3 s;
    (e) hedging on R1, measured only: ``seldon.io/hedge-ms`` at the p90 of
-   a 5 s unhedged window, then 10 s windows off, on, on, off; hedges and
+   a 5 s unhedged window, then 5 s windows off, on, on, off; hedges and
    wins on ``/metrics`` = the client's counters; R1's rows between the
    requests sent and that plus the hedges; a ``SendFeedback`` under
    ``hedge-ms: 1`` fires no hedge.  Every row of (a)-(e) within 2e-2 of
-   its in-process model and nearest its own image.
+   its in-process model and nearest its own image;
+17. A5 and A6 on the card, a user's checkpoint and two resolutions (the
+   three CLI servers start together at the phase's start):
+   (a) ResNet-50 from ``model_uri``: phase 4's seeded weights as flax's
+   ``{"params", "batch_stats"}`` tree (``resnet_flax_variables``; the
+   port's ``resnet_params_from_flax`` gives back every tensor bit for bit)
+   written by the port's ``utils/serialization.to_bytes`` (~102 MB of
+   float32) into a directory, served by the CLI with ``model_uri=file://``
+   that directory: the ``state_dict`` an in-process ``CudaServer`` loads
+   from it equal to the seeded one bit for bit; a batch of 8 and 8
+   concurrent singles within 2e-2 of the in-process model and nearest
+   their own image; K1 launches = batches; the download / decode /
+   convert / pin seconds;
+   (b) ``StreamingLM`` from ``model_uri`` at phase 7's config (bf16) with
+   one rank-8 adapter from ``{"uri": ...}``, both written by the port's
+   ``to_bytes``: greedy tokens of 4 prompts x 16 new, sent one after
+   another, equal an in-process ``PagedEngine`` on the same weights and
+   factors, for the base model and the adapter;
+   (c) the committed orbax fixture (``tests/data/torch_port_orbax``,
+   written by ``StandardCheckpointer``) read through the system's
+   libzstd: every leaf's SHA-256 as orbax restores it (``digest.json``),
+   and an in-process float32 ``CudaServer`` on it (TF32 off) within
+   rtol = atol = 1e-4 of the JAX server's logits for the 4 images;
+   (d) ViT-B/16 (``{"attention": "flash", "pos_grid": 14}``, bf16) served
+   with ``input_shape [224, 224, 3]`` and ``extra_input_shapes [[384,
+   384, 3]]`` from one seeded checkpoint: the first request of each
+   signature after load timed (the first-use stall, ROADMAP S2), then a
+   batch of 8 and 8 concurrent singles at each resolution within 2e-2 of
+   the in-process model at that resolution and nearest their own image;
+   two signature groups; K1 launches = batches summed over the groups
+   and K3 = 12 x batches; a 256x256 request refused with the 400 that
+   lists both shapes; K3 at (32, 577, 12, 64) bf16 against its plain
+   version within one bf16 step (3c's bar) and timed beside
+   ``F.scaled_dot_product_attention`` and its bound.
 
 The first line names the card, torch, CUDA and ``grpc.__version__``.
 Output: the ``nvidia-smi`` line, then one ``{"kernels": [...]}`` line,
@@ -360,7 +393,7 @@ PAGED_REL_TOL = 1e-4            # largest |kernel - plain| over finite entries /
 PAGED_DESIGN = ("one launch: a block a (lane, chunk of pages, head group), cp.async into an mbarrier ring, "
                 "the lane's chunks merged by its last block")
 GEN_MIN_IDENTICAL_SHARE = 0.75  # concurrent served rows equal to the in-process rows
-GEN_LATENCY_REQUESTS = 120
+GEN_LATENCY_REQUESTS = 60       # halved from 120 to keep the whole smoke inside its time limit
 GEN_CLIENTS = 16
 GEN_SECONDS = 5.0
 F32_PEAK_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores (data sheet)
@@ -426,16 +459,31 @@ A4_OAUTH = ("chip-smoke-client", "chip-smoke-secret")  # test-only client creden
 A4_DEADLINE_MS = "10000"
 A4_FEATURES = ("tls", "auth", "tracing", "observer")  # what an A4 gateway child puts on
 A4_WINDOWS = 2                  # windows of each gateway, in turns: on, off, off, on
+A4_SECONDS = 5.0                # 15a's 4-client windows (halved from 10 s for the smoke's time limit)
 A4_TRACED_REQUESTS = 8          # 15b: requests whose spans are followed across the two processes
 # phase 16, A2.2 on the card: breakers, failover, fallback and hedging on replicated ResNet-50
 A22_ANNOTATIONS = {"seldon.io/breaker-failures": "5", "seldon.io/breaker-reset-ms": "1000"}
 A22_RESET_S = 1.0               # the breaker-reset-ms above
 A22_PROBE_SLACK_S = 2.0         # one probe: a fresh channel's connect and a batch-1 forward on a new process
-A22_SECONDS = 10.0              # 16a, 16b and 16e windows of 4 sync-gRPC clients
+A22_SECONDS = 10.0              # 16a and 16b windows of 4 sync-gRPC clients
 A22_CLIENTS = 4
 A22_SPLIT_TOL = 0.05            # each replica serves 50% +- 5% of 16a's requests
 A22_SEQUENTIAL = 50             # 16d: sequential requests healthy, then with the primary killed
 A22_HEDGE_P90_SECONDS = 5.0     # 16e: the unhedged window whose p90 becomes seldon.io/hedge-ms
+A22_HEDGE_SECONDS = 5.0         # 16e's off / on / on / off windows (halved from 10 s for the smoke's time limit)
+# phase 17, A5 and A6 on the card: model_uri checkpoints and a second ViT resolution
+ORBAX_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_orbax")  # resnet_tiny, StandardCheckpointer
+ORBAX_LOGITS_TOL = 1e-4         # float32, TF32 off: rtol = atol against the JAX server's logits
+CKPT_LM_SEED = 7                # 17b's weights (the served StreamingLM's own seed is 0)
+CKPT_ADAPTER_SEED = 5
+CKPT_PROMPTS = (20, 65, 128, 333)  # 17b: prompt lengths, each sent alone
+CKPT_MAX_NEW = 16
+VIT_384 = (384, 384, 3)         # ViT-B/16's second signature: 24 x 24 patches + the class token = 577 tokens
+VIT_MULTI_PARAMS = [p for p in VIT_PARAMS if p["name"] != "model_kwargs"] + [
+    {"name": "model_kwargs", "value": json.dumps({"attention": "flash", "pos_grid": 14}), "type": "JSON"},
+    {"name": "input_shape", "value": json.dumps(list(IMG)), "type": "JSON"},
+    {"name": "extra_input_shapes", "value": json.dumps([list(VIT_384)]), "type": "JSON"},
+]
 INT8W_VS_BF16_REL_L2 = 5e-2     # int8w lane vs the bf16 lane on the same weights
 INT8W_VS_BF16_MIN_COS = 0.99
 W8A8_MIN_TOP1 = 0.8             # w8a8 vs bf16 top-1 agreement (tests/test_w8a8.py's bar)
@@ -767,51 +815,61 @@ def flash_bound(B, L, H, D, causal, elt, mem_bytes_per_s):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
-def flash_kernel_checks(torch, np, kernels, mem_bytes_per_s):
+def flash_check(torch, kernels, q, k, v, causal: bool, dt: str, what: str):
+    """K3 against its plain version on one input (3c's bar) -> (max abs, rel) error."""
+    got = kernels.flash_attention(q, k, v, causal=causal)
+    ref = kernels.flash_attention_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape and got.dtype == ref.dtype, f"{what}: bad output {tuple(got.shape)}")
+    g, r = got.float(), ref.float()
+    check(not bool(torch.isnan(g).any()), f"{what}: NaN in the kernel's output")
+    err = (g - r).abs()
+    peak = r.abs().max().item()
+    rel = err.max().item() / peak
+    if dt == "float32":
+        ok, limit = rel <= FLASH_F32_REL_TOL, f"{FLASH_F32_REL_TOL} of max |plain|"
+    else:
+        step = FLASH_STEP[dt]
+        ok = bool((err <= step * r.abs() + step * 2.0 ** -8 * peak).all())
+        limit = f"one {dt} step, rtol {step}, floor {step * 2.0 ** -8:.3e} x max |plain|"
+    log(f"{what}: max_abs_err={err.max().item():.3e} max|plain|={peak:.3e} rel={rel:.3e} ({limit})")
+    check(ok, f"{what} differs from its plain version")
+    return err.max().item(), rel
+
+
+def flash_timing(torch, np, kernels, B, L, H, D, causal: bool, mem_bytes_per_s):
+    """K3, its plain version and F.scaled_dot_product_attention timed in bf16
+    beside the bound."""
     import torch.nn.functional as F
 
+    q, k, v = flash_inputs(torch, np, B, L, H, D, torch.bfloat16, False, seed=7)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, L, D) views for the library call
+    row = {
+        "ms": time_cuda(torch, lambda: kernels.flash_attention(q, k, v, causal=causal)),
+        "plain_ms": time_cuda(torch, lambda: kernels.flash_attention_reference(q, k, v, causal=causal)),
+        "library_ms": time_cuda(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)),
+        "shape": [B, L, H, D], "causal": causal,
+    }
+    row["bound_ms"], row["bound_by"], row["bytes"], row["flops"] = flash_bound(B, L, H, D, causal, 2,
+                                                                                 mem_bytes_per_s)
+    log(f"flash_attention bf16 {(B, L, H, D)} causal={causal}: kernel {row['ms'] * 1e3:.2f} us, plain "
+        f"{row['plain_ms'] * 1e3:.2f} us, F.scaled_dot_product_attention {row['library_ms'] * 1e3:.2f} us, "
+        f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: {row['bytes']} bytes, "
+        f"{row['flops']} flops; {row['bound_ms'] / row['ms'] * 100:.1f}% of the roofline)")
+    return row
+
+
+def flash_kernel_checks(torch, np, kernels, mem_bytes_per_s):
     worst = {"max_abs_err": 0.0, "max_rel_err": 0.0}
     with no_tf32(torch):
         for case, (B, L, H, D, dt, causal, strided) in enumerate(FLASH_CASES):
             q, k, v = flash_inputs(torch, np, B, L, H, D, getattr(torch, dt), strided, seed=100 + case)
-            got = kernels.flash_attention(q, k, v, causal=causal)
-            ref = kernels.flash_attention_reference(q, k, v, causal=causal)
-            torch.cuda.synchronize()
             what = f"flash_attention {(B, L, H, D)} {dt} causal={causal}{' qkv-split views' if strided else ''}"
-            check(got.shape == ref.shape and got.dtype == ref.dtype, f"{what}: bad output {tuple(got.shape)}")
-            g, r = got.float(), ref.float()
-            check(not bool(torch.isnan(g).any()), f"{what}: NaN in the kernel's output")
-            err = (g - r).abs()
-            peak = r.abs().max().item()
-            rel = err.max().item() / peak
-            if dt == "float32":
-                ok, limit = rel <= FLASH_F32_REL_TOL, f"{FLASH_F32_REL_TOL} of max |plain|"
-            else:
-                step = FLASH_STEP[dt]
-                ok = bool((err <= step * r.abs() + step * 2.0 ** -8 * peak).all())
-                limit = f"one {dt} step, rtol {step}, floor {step * 2.0 ** -8:.3e} x max |plain|"
-            log(f"{what}: max_abs_err={err.max().item():.3e} max|plain|={peak:.3e} rel={rel:.3e} ({limit})")
-            check(ok, f"{what} differs from its plain version")
-            worst["max_abs_err"] = max(worst["max_abs_err"], err.max().item())
+            err_abs, rel = flash_check(torch, kernels, q, k, v, causal, dt, what)
+            worst["max_abs_err"] = max(worst["max_abs_err"], err_abs)
             worst["max_rel_err"] = max(worst["max_rel_err"], rel)
-
-        timings = {}
-        for label, (B, L, H, D, causal) in (("serving", (32, 197, 12, 64, False)), ("causal", (4, 1024, 8, 64, True))):
-            q, k, v = flash_inputs(torch, np, B, L, H, D, torch.bfloat16, False, seed=7)
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, L, D) views for the library call
-            row = {
-                "ms": time_cuda(torch, lambda: kernels.flash_attention(q, k, v, causal=causal)),
-                "plain_ms": time_cuda(torch, lambda: kernels.flash_attention_reference(q, k, v, causal=causal)),
-                "library_ms": time_cuda(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)),
-                "shape": [B, L, H, D], "causal": causal,
-            }
-            row["bound_ms"], row["bound_by"], row["bytes"], row["flops"] = flash_bound(B, L, H, D, causal, 2,
-                                                                                         mem_bytes_per_s)
-            timings[label] = row
-            log(f"flash_attention bf16 {(B, L, H, D)} causal={causal}: kernel {row['ms'] * 1e3:.2f} us, plain "
-                f"{row['plain_ms'] * 1e3:.2f} us, F.scaled_dot_product_attention {row['library_ms'] * 1e3:.2f} us, "
-                f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: {row['bytes']} bytes, "
-                f"{row['flops']} flops; {row['bound_ms'] / row['ms'] * 100:.1f}% of the roofline)")
+        timings = {label: flash_timing(torch, np, kernels, *shape, mem_bytes_per_s)
+                   for label, shape in (("serving", (32, 197, 12, 64, False)), ("causal", (4, 1024, 8, 64, True)))}
     return worst, timings
 
 
@@ -909,12 +967,12 @@ def pct(values, q: float) -> float:
     return v[max(0, math.ceil(q * len(v)) - 1)]
 
 
-def distinct_images(np, rng, n: int):
+def distinct_images(np, rng, n: int, shape=IMG):
     """uint8 images that differ in per-channel level as well as in noise,
     so a random-weight model gives each a clearly different answer and a
     row served to the wrong request cannot pass the per-row check."""
-    level = rng.integers(0, 160, (n, 1, 1, IMG[-1]))
-    noise = rng.integers(0, 96, (n, *IMG))
+    level = rng.integers(0, 160, (n, 1, 1, shape[-1]))
+    noise = rng.integers(0, 96, (n, *shape))
     return (level + noise).astype(np.uint8)
 
 
@@ -3177,15 +3235,15 @@ def a4_grpc_lane(services, grpc_server, port: int, token: str, trace_hex: str):
 
 def a4_window(np, lane, bodies, rows_of, refs, errs, what: str, card):
     """One window of 15a: one client's sequential batch-1 requests for
-    GRPC_SEQUENTIAL_SECONDS, then GRPC_LAT_CLIENTS clients for GRPC_SECONDS."""
+    GRPC_SEQUENTIAL_SECONDS, then GRPC_LAT_CLIENTS clients for A4_SECONDS."""
     seq, answers, _ = load_window(lane, bodies["bodies"], 1, GRPC_SEQUENTIAL_SECONDS)
     served_rows_errors(np, answers, bodies, rows_of, refs, 1, errs)
-    lat, answers, _ = load_window(lane, bodies["bodies"], GRPC_LAT_CLIENTS, GRPC_SECONDS)
+    lat, answers, _ = load_window(lane, bodies["bodies"], GRPC_LAT_CLIENTS, A4_SECONDS)
     served_rows_errors(np, answers, bodies, rows_of, refs, 1, errs)
-    out = window_numbers(np, lat, GRPC_SECONDS, GRPC_LAT_CLIENTS)
+    out = window_numbers(np, lat, A4_SECONDS, GRPC_LAT_CLIENTS)
     out.update(sequential_p50_ms=pct(seq, 0.50), sequential_requests=len(seq))
     log(f"{what}: one client, {len(seq)} sequential batch-1 requests: p50 {out['sequential_p50_ms']:.3f} ms; "
-        f"{GRPC_LAT_CLIENTS} clients, {GRPC_SECONDS:.0f} s, {len(lat)} requests: p50 {out['p50_ms']:.3f} ms, "
+        f"{GRPC_LAT_CLIENTS} clients, {A4_SECONDS:.0f} s, {len(lat)} requests: p50 {out['p50_ms']:.3f} ms, "
         f"p99 {out['p99_ms']:.3f}, {out['qps']:.1f} QPS [{card}]")
     return out
 
@@ -3833,9 +3891,9 @@ def a2_2_paths(torch, np, kernels, resnet, CudaServer, card):
         wait_gateway([replicas[0], off_proc, on_proc], on_base, logpath)
         windows, records = [], list(first)
         for name, p in (("off", off_port), ("on", on_port), ("on", on_port), ("off", off_port)):
-            win = timed_window(lane_of(p), bodies["bodies"], A22_CLIENTS, A22_SECONDS)
+            win = timed_window(lane_of(p), bodies["bodies"], A22_CLIENTS, A22_HEDGE_SECONDS)
             records += win
-            windows.append({"hedge": name, **lat_numbers(win, A22_SECONDS)})
+            windows.append({"hedge": name, **lat_numbers(win, A22_HEDGE_SECONDS)})
         m = metric_samples(http(on_base + "/metrics"))
         fired, wins = metric_sum(m, "seldon_tpu_transport_hedges_total"), metric_sum(m, "seldon_tpu_transport_hedge_wins_total")
         fb_hedge = feedback_never_hedges(np, r_grpc[0])
@@ -3871,6 +3929,302 @@ def a2_2_paths(torch, np, kernels, resnet, CudaServer, card):
         numbers[f"{name}_max_row_rel_l2"] = max(e)
     numbers["seconds"] = time.perf_counter() - t_phase
     log(f"16 A2.2 phase wall time {numbers['seconds']:.1f} s [{card}]")
+    return numbers
+
+
+# ---------------------------------------------------------------- phase 17
+
+def resnet_flax_variables(np, model):
+    """A port ResNet's weights as flax's ``{"params", "batch_stats"}`` tree
+    (float32 numpy): conv OIHW -> HWIO, dense (out, in) -> (in, out),
+    BatchNorm weight / bias / running stats -> scale / bias / mean / var,
+    ``blocks.N.convK`` -> ``<BlockClass>_N/Conv_K``.  The inverse of
+    ``convert.resnet_params_from_flax``: what a user's flax checkpoint of
+    these weights holds."""
+    import re
+
+    tree = {"params": {}, "batch_stats": {}}
+    norm = {"weight": ("params", "scale"), "bias": ("params", "bias"), "running_mean": ("batch_stats", "mean"),
+            "running_var": ("batch_stats", "var")}
+    for key, t in model.state_dict().items():
+        *mods, name = key.split(".")
+        if mods[0] == "blocks":
+            layer = re.match(r"^(conv|bn)(\d+)$", mods[2])
+            part = ({"conv": "Conv_", "bn": "BatchNorm_"}[layer.group(1)] + layer.group(2)) if layer else mods[2]
+            path = [f"{type(model.blocks[int(mods[1])]).__name__}_{mods[1]}", part]
+        else:
+            path = mods
+        arr = t.detach().float().cpu().numpy()
+        if name == "weight" and arr.ndim in (2, 4):  # a conv or the head: a kernel
+            collection, leaf = "params", "kernel"
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        else:
+            collection, leaf = norm[name]
+        node = tree[collection]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree
+
+
+def leaf_digests(torch, np, tree, prefix=""):
+    """{path: {dtype, shape, sha256}} of a restored tree (digest.json's form)."""
+    import hashlib
+
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(leaf_digests(torch, np, v, path + "/"))
+            continue
+        if isinstance(v, torch.Tensor):  # bfloat16: its bits
+            dtype, data = "bfloat16", v.contiguous().view(torch.int16).numpy()
+        else:
+            data = np.ascontiguousarray(v)
+            dtype = str(data.dtype)
+        out[path] = {"dtype": dtype, "shape": list(data.shape), "sha256": hashlib.sha256(data.tobytes()).hexdigest()}
+    return out
+
+
+def a5_a6_paths(torch, np, kernels, resnet, vit, CudaServer, PagedEngine, load_lm_params, WeightRegistry,
+                make_lora_params, mem_bytes_per_s, card):
+    """Phase 17: ROADMAP A5 and A6 on the card.  (a) ResNet-50 from a
+    model_uri msgpack directory; (b) StreamingLM and a {"uri": ...}
+    adapter from model_uri; (c) the committed orbax fixture through
+    libzstd; (d) ViT-B/16 serving 224 and 384 from one server."""
+    import shutil
+
+    from seldon_core_tpu_torch.models import convert
+    from seldon_core_tpu_torch.runtime import MicroserviceError
+    from seldon_core_tpu_torch.utils import orbax, serialization
+
+    t_phase = time.perf_counter()
+    numbers = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_a5_")
+    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_a5_a6_", suffix=".log")
+    logfile = os.fdopen(fd, "w")
+    servers = []
+    try:
+        # the checkpoints a user would hand over, written by the port's own flax writer
+        t0 = time.perf_counter()
+        local = reference_resnet(torch, resnet, SEED)
+        tree = resnet_flax_variables(np, local)
+        back = convert.resnet_params_from_flax(tree)
+        seeded = local.state_dict()
+        check(set(back) == set(seeded) and all(torch.equal(back[k], seeded[k].float().cpu()) for k in seeded),
+              "resnet_params_from_flax(resnet_flax_variables(model)) is not the model's state_dict bit for bit")
+        resnet_dir = os.path.join(tmp, "resnet50")
+        os.makedirs(resnet_dir)
+        data = serialization.to_bytes(tree)
+        with open(os.path.join(resnet_dir, "variables.msgpack"), "wb") as f:
+            f.write(data)
+        resnet_write_s, resnet_bytes = time.perf_counter() - t0, len(data)
+        del tree, back, data
+        t0 = time.perf_counter()
+        lm_state = load_lm_params("", LM_CONFIG, CKPT_LM_SEED)
+        factors = make_lora_params(CKPT_ADAPTER_SEED, num_layers=LM_CONFIG["num_layers"],
+                                   d_model=LM_CONFIG["d_model"], rank=LORA_RANK)
+        lm_path, adapter_path = os.path.join(tmp, "lm.msgpack"), os.path.join(tmp, "adapter.msgpack")
+        with open(lm_path, "wb") as f:
+            f.write(serialization.to_bytes(convert.lm_flax_params(lm_state)))
+        with open(adapter_path, "wb") as f:
+            f.write(serialization.to_bytes(factors))
+        lm_write_s = time.perf_counter() - t0
+        log(f"17 checkpoints written by utils/serialization.to_bytes: ResNet-50 {resnet_bytes} bytes in "
+            f"{resnet_write_s:.2f} s (resnet_params_from_flax gives the seeded state_dict back bit for bit); "
+            f"StreamingLM {os.path.getsize(lm_path)} bytes + rank-{LORA_RANK} adapter "
+            f"{os.path.getsize(adapter_path)} bytes in {lm_write_s:.2f} s")
+
+        # the three servers load together
+        ports = [free_port() for _ in range(3)]
+        bases = [f"http://127.0.0.1:{p}" for p in ports]
+        launched = time.perf_counter()
+        servers.append(start_server(ports[0], logfile, params=MODEL_PARAMS + [
+            {"name": "model_uri", "value": f"file://{resnet_dir}", "type": "STRING"}]))
+        servers.append(start_server(ports[1], logfile, "seldon_core_tpu_torch.models.paged.StreamingLM",
+                                    LM_PARAMS + [
+                                        {"name": "model_uri", "value": f"file://{lm_path}", "type": "STRING"},
+                                        {"name": "adapters", "type": "JSON",
+                                         "value": json.dumps({"ckpt": {"uri": f"file://{adapter_path}"}})},
+                                        {"name": "max_adapters", "value": "1", "type": "INT"},
+                                        {"name": "lora_rank", "value": str(LORA_RANK), "type": "INT"}]))
+        servers.append(start_server(ports[2], logfile, params=VIT_MULTI_PARAMS))
+
+        # 17c meanwhile: the committed orbax fixture, read through libzstd
+        fixture = os.path.join(ORBAX_FIXTURE, "resnet_tiny")
+        if orbax.zstd_available():
+            t0 = time.perf_counter()
+            restored = orbax.restore(fixture)
+            read_s = time.perf_counter() - t0
+            with open(os.path.join(ORBAX_FIXTURE, "digest.json")) as f:
+                want = json.load(f)
+            got = leaf_digests(torch, np, restored)
+            check(got == want, f"17c: the orbax fixture's leaves differ from orbax's restore: "
+                               f"{sorted(k for k in want if got.get(k) != want[k])[:5]}")
+            images = np.load(os.path.join(ORBAX_FIXTURE, "images.npy"))
+            jax_logits = np.load(os.path.join(ORBAX_FIXTURE, "logits.npy"))
+            with no_tf32(torch):
+                cs = CudaServer(model="resnet_tiny", num_classes=10, dtype="float32", normalize=True,
+                                max_batch_size=4, warmup=False, model_uri=fixture)
+                cs.load()
+                try:
+                    logits = np.asarray(cs.predict(images, []))
+                finally:
+                    cs.unload()
+            err = float(np.max(np.abs(logits - jax_logits) / (ORBAX_LOGITS_TOL + np.abs(jax_logits))))
+            ok = bool(np.allclose(logits, jax_logits, rtol=ORBAX_LOGITS_TOL, atol=ORBAX_LOGITS_TOL))
+            log(f"17c orbax fixture ({len(got)} leaves, read in {read_s * 1e3:.1f} ms through libzstd): every leaf's "
+                f"SHA-256 equals orbax's restore; CudaServer float32 logits vs the JAX server's: max |diff| "
+                f"{float(np.max(np.abs(logits - jax_logits))):.3e} (rtol = atol = {ORBAX_LOGITS_TOL})")
+            check(ok, f"17c: the fixture's logits differ from the JAX server's: {err}")
+            numbers["17c"] = {"libzstd": True, "leaves": len(got), "read_ms": read_s * 1e3,
+                              "max_abs_diff": float(np.max(np.abs(logits - jax_logits)))}
+        else:
+            try:
+                CudaServer(model="resnet_tiny", num_classes=10, dtype="float32", warmup=False,
+                           model_uri=fixture).load()
+                check(False, "17c: the orbax fixture loaded without libzstd")
+            except MicroserviceError as e:
+                check(e.reason == "BAD_CHECKPOINT" and "libzstd" in str(e), f"17c: not the named refusal: {e}")
+            log("17c: libzstd.so.1 does not load on this host; the orbax lane refuses with BAD_CHECKPOINT naming "
+                "it (ROADMAP A5.2)")
+            numbers["17c"] = {"libzstd": False}
+
+        # 17a: the loaded weights bit for bit, then the served rows
+        cs = CudaServer(model="resnet50", normalize=True, dtype="bfloat16", max_batch_size=32, warmup=False,
+                        model_uri=f"file://{resnet_dir}")
+        cs.load()
+        loaded = cs.module.state_dict()
+        same = set(loaded) == set(seeded) and all(torch.equal(loaded[k], seeded[k]) for k in seeded)
+        inproc_times = dict(cs.checkpoint_times)
+        cs.unload()
+        del cs, loaded, local, seeded
+        torch.cuda.empty_cache()
+        check(same, "17a: the state_dict loaded from model_uri differs from the seeded one")
+        status, _ = wait_ready(servers[0], bases[0], logpath)
+        ready_s = time.perf_counter() - launched  # the three loaded side by side
+        times = status["checkpoint_times"]
+        rng = np.random.default_rng(SEED + 17)
+        m0 = metrics_values(http(bases[0] + "/metrics"))
+        before = status["kernel_launches"]
+        err = served_rows_check(torch, np, kernels, resnet, bases[0], rng)
+        after = http(bases[0] + "/health/status")["jsonData"]["kernel_launches"]
+        m1 = metrics_values(http(bases[0] + "/metrics"))
+        batches = int(m1["cudaserver_batches_total"] - m0["cudaserver_batches_total"])
+        k1 = after["fused_normalize"] - before.get("fused_normalize", 0)
+        numbers["17a"] = {"bytes": resnet_bytes, "write_s": resnet_write_s, "checkpoint_times": times,
+                          "in_process_checkpoint_times": inproc_times, "load_time_s": status["load_time_s"],
+                          "ready_s": ready_s, "max_row_rel_l2": err, "k1": k1, "batches": batches}
+        log(f"17a ResNet-50 from model_uri (a directory, {resnet_bytes} bytes of float32 msgpack): the CLI server "
+            f"ready {ready_s:.1f} s after its launch (three servers loading at once), load {status['load_time_s']:.2f} s of which download "
+            f"{times['download_s'] * 1e3:.1f} ms, decode {times['decode_s'] * 1e3:.1f} ms, convert "
+            f"{times['convert_s'] * 1e3:.1f} ms, pin {times['pin_s'] * 1e3:.1f} ms (in-process: "
+            + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in inproc_times.items())
+            + f"); state_dict bit for bit the seeded one; rows max rel L2 {err:.3e}; K1 {k1} = batches {batches} "
+            f"[{card}]")
+        check(k1 == batches > 0, f"17a: K1 launches {k1} != batches {batches}")
+
+        # 17b: greedy tokens against an in-process engine on the same weights and factors
+        status, _ = wait_ready(servers[1], bases[1], logpath)
+        ready_s = time.perf_counter() - launched
+        check(status["kernel_active"] and status["device"].startswith("cuda"), f"17b: not on the kernel lane: {status}")
+        rng = np.random.default_rng(SEED + 171)
+        prompts = [rng.integers(0, LM_CONFIG["vocab_size"], n) for n in CKPT_PROMPTS]
+        served = {a: [gen_request(np, bases[1], p, CKPT_MAX_NEW, tag=a) for p in prompts] for a in (None, "ckpt")}
+        reg = WeightRegistry()
+        reg.register("ckpt", lambda: factors)
+        eng = PagedEngine(load_lm_params("", LM_CONFIG, CKPT_LM_SEED, torch.device("cuda")), dtype="bfloat16",
+                          device="cuda", max_adapters=1, lora_rank=LORA_RANK, weight_registry=reg,
+                          **LM_CONFIG, **LM_ENGINE)
+        local_rows = {a: [eng.generate(p, max_new_tokens=CKPT_MAX_NEW, adapter=a) for p in prompts]
+                      for a in (None, "ckpt")}
+        del eng
+        torch.cuda.empty_cache()
+        same = {str(a): [bool((x == y).all()) for x, y in zip(served[a], local_rows[a])] for a in served}
+        differs = sum(not bool((x == y).all()) for x, y in zip(served[None], served["ckpt"]))
+        numbers["17b"] = {"ready_s": ready_s, "load_time_s": status["load_time_s"], "equal": same,
+                          "adapter_rows_that_differ_from_base": differs}
+        log(f"17b StreamingLM from model_uri + a {{'uri': ...}} adapter: server ready {ready_s:.1f} s after launch (load "
+            f"{status['load_time_s']:.2f} s); greedy rows of {len(prompts)} prompts x {CKPT_MAX_NEW} sent one "
+            f"after another equal the in-process engine's: base {same['None']}, adapter {same['ckpt']}; "
+            f"{differs} of {len(prompts)} adapter rows differ from the base rows [{card}]")
+        check(all(same["None"]) and all(same["ckpt"]), f"17b: served tokens differ from the in-process engine: {same}")
+
+        # 17d: ViT-B/16 at 224 and 384 from one server
+        status, _ = wait_ready(servers[2], bases[2], logpath)
+        ready_s = time.perf_counter() - launched
+        base = bases[2]
+        check(status["signatures"] == [list(IMG), list(VIT_384)], f"17d: signatures {status['signatures']}")
+        rng = np.random.default_rng(SEED + 172)
+        first_ms = {}
+        for shape in (IMG, VIT_384):  # the first request of each signature after load (ROADMAP S2)
+            body = raw_request(np, distinct_images(np, rng, 1, shape))
+            t0 = time.perf_counter()
+            decode_logits(np, http(base + "/predict", body), 1)
+            first_ms[f"{shape[0]}"] = (time.perf_counter() - t0) * 1e3
+        m0 = metrics_values(http(base + "/metrics"))
+        before = http(base + "/health/status")["jsonData"]["kernel_launches"]
+        groups = {}
+        for shape in (IMG, VIT_384):
+            eight, singles = distinct_images(np, rng, 8, shape), distinct_images(np, rng, 8, shape)
+            served_eight = decode_logits(np, http(base + "/predict", raw_request(np, eight)), 8)
+            answers = concurrent(lambda i: http(base + "/predict", raw_request(np, singles[i:i + 1])), 8)
+            groups[shape] = (np.concatenate([eight, singles]),
+                             np.concatenate([served_eight] + [decode_logits(np, a, 1) for a in answers]))
+        status = http(base + "/health/status")["jsonData"]
+        after = status["kernel_launches"]
+        m1 = metrics_values(http(base + "/metrics"))
+        bad_status, bad_body = http_status(base + "/predict",
+                                           json.dumps(raw_request(np, distinct_images(np, rng, 1, (256, 256, 3))))
+                                           .encode(), headers={"Content-Type": "application/json"})
+        batches = int(m1["cudaserver_batches_total"] - m0["cudaserver_batches_total"])
+        k1 = after["fused_normalize"] - before.get("fused_normalize", 0)
+        k3 = after["flash_attention"] - before.get("flash_attention", 0)
+        local = vit_model(torch, kernels, vit, torch.bfloat16, True, SEED)
+        scale, shift = (torch.from_numpy(a).cuda() for a in kernels.imagenet_affine())
+        errs, nearest_ok = {}, {}
+        with torch.inference_mode():
+            for shape, (images, served_rows) in groups.items():
+                refs = np.concatenate([local(kernels.fused_normalize(torch.from_numpy(images[i:i + 8]).cuda(), scale,
+                                                                     shift, torch.bfloat16)).double().cpu().numpy()
+                                       for i in (0, 8)])
+                n = len(refs)
+                errs[shape[0]] = max(rel_l2(np, served_rows[i], refs[i]) for i in range(n))
+                nearest = [int(np.argmin([rel_l2(np, served_rows[i], refs[j]) for j in range(n)])) for i in range(n)]
+                nearest_ok[shape[0]] = nearest == list(range(n))
+        del local
+        torch.cuda.empty_cache()
+        refusal = json.dumps(bad_body)
+        log(f"17d ViT-B/16 at 224 + 384 from one server: ready {ready_s:.1f} s after launch (load {status['load_time_s']:.1f} s, "
+            f"warmup over 2 shapes x {len(status['buckets'])} buckets x 2 dtypes); first request after load: 224 "
+            f"{first_ms['224']:.1f} ms, 384 {first_ms['384']:.1f} ms; groups {status['signature_groups']}; rows max "
+            f"rel L2 224 {errs[224]:.3e}, 384 {errs[384]:.3e}, each nearest its own image {nearest_ok}; {batches} "
+            f"batches (summed over the groups): K1 {k1}, K3 {k3}; 256x256 answered {bad_status} [{card}]")
+        check(len(status["signature_groups"]) == 2, f"17d: signature groups {status['signature_groups']}")
+        check(max(errs.values()) <= SERVED_VS_LOCAL_REL_L2, f"17d: served rows disagree with in-process: {errs}")
+        check(all(nearest_ok.values()), f"17d: a served row is nearer another image's answer: {nearest_ok}")
+        check(k1 == batches > 0 and k3 == VIT_LAYERS * batches,
+              f"17d: K1 {k1} / K3 {k3} against {batches} batches (K3 must be {VIT_LAYERS} x batches)")
+        check(bad_status == 400 and "BAD_INPUT_SHAPE" in refusal and "(batch, 224, 224, 3) | (batch, 384, 384, 3)"
+              in refusal, f"17d: a 256x256 request answered {bad_status}: {refusal[:300]}")
+        with no_tf32(torch):
+            B, L, H, D = 32, (VIT_384[0] // 16) ** 2 + 1, 12, 64
+            q, k, v = flash_inputs(torch, np, B, L, H, D, torch.bfloat16, False, seed=577)
+            k3_abs, k3_rel = flash_check(torch, kernels, q, k, v, False, "bfloat16",
+                                         f"flash_attention {(B, L, H, D)} bfloat16 causal=False (ViT-B/16 at 384)")
+            del q, k, v
+            k3_row = flash_timing(torch, np, kernels, B, L, H, D, False, mem_bytes_per_s)
+        numbers["17d"] = {"ready_s": ready_s, "load_time_s": status["load_time_s"], "first_request_ms": first_ms,
+                          "groups": status["signature_groups"], "max_row_rel_l2": errs, "batches": batches,
+                          "k1": k1, "k3": k3, "refusal_status": bad_status,
+                          "k3_577": {**k3_row, "max_abs_err": k3_abs, "max_rel_err": k3_rel, "launches": k3}}
+    finally:
+        for proc in servers:
+            stop_server(proc)
+        logfile.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    numbers["seconds"] = time.perf_counter() - t_phase
+    log(f"17 A5 + A6 phase wall time {numbers['seconds']:.1f} s [{card}]")
     return numbers
 
 
@@ -3958,6 +4312,8 @@ def run() -> int:
         native_numbers = native_paths(torch, np, kernels, resnet, card, gateway_numbers, whole["forward_ms"][1])
         a4_numbers = a4_paths(torch, np, kernels, resnet, card)
         a2_2_numbers = a2_2_paths(torch, np, kernels, resnet, CudaServer, card)
+        a5_a6_numbers = a5_a6_paths(torch, np, kernels, resnet, vit, CudaServer, PagedEngine, load_lm_params,
+                                    WeightRegistry, make_lora_params, mem_bytes_per_s, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3986,9 +4342,11 @@ def run() -> int:
         "native_ingress": native_numbers,
         "a4": a4_numbers,
         "a2_2": a2_2_numbers,
+        "a5_a6": a5_a6_numbers,
         "seconds": time.perf_counter() - t_start,
     }
     log(json.dumps(result))
+    log(f"chip_smoke: every phase passed in {result['seconds']:.1f} s [{card}]")
     kernel_line = {"kernels": [{
         "name": "fused_normalize",
         "route": "cuda",
@@ -4053,6 +4411,11 @@ def run() -> int:
                         "library_ms": causal["library_ms"], "bound_ms": causal["bound_ms"],
                         "bound_by": causal["bound_by"], "launches": tf_numerics["lm_launches"],
                         "launches_on": "in-process CudaServer transformer_lm, attention=flash, f32"},
+        "vit384": {k: a5_a6_numbers["17d"]["k3_577"][k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                                                  "bound_ms", "bound_by", "max_abs_err",
+                                                                  "max_rel_err", "launches")}
+        | {"launches_on": f"served ViT-B/16 at 224 + 384 from one server (phase 17d, {VIT_LAYERS} per batch, "
+                          f"{a5_a6_numbers['17d']['batches']} batches over both signature groups)"},
     })
     for v in PAGED_VARIANTS:
         variant = kernels.paged_launch_name(*v)

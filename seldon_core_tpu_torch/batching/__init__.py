@@ -3,6 +3,7 @@
 from seldon_core_tpu_torch.batching.batcher import (  # noqa: F401
     BatcherStats,
     DynamicBatcher,
+    MultiSignatureBatcher,
     bucket_for,
     default_buckets,
     normalize_buckets,

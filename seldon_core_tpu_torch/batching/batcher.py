@@ -35,6 +35,11 @@ them as soon as the future is done.  ``submit_lent`` bounds that wait
 and keeps the rule on timeout: a request still queued is cancelled
 (``_collect`` skips it and never reads its rows), and one already
 collected is waited out until ``predict_fn`` has returned for its batch.
+
+``MultiSignatureBatcher`` gives each input signature (dtype, trailing
+shape) of a multi-signature model its own ``DynamicBatcher``, so each
+signature coalesces on its own and every group keeps the lent-row and
+cancellation rules above.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ from collections import deque
 from concurrent.futures import Future, InvalidStateError
 from concurrent.futures import TimeoutError as FutureTimeout
 from dataclasses import dataclass
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -289,7 +294,9 @@ class DynamicBatcher:
         batcher may still read ``x``: on timeout a queued request is
         cancelled before the collector takes it, and a collected one is
         waited out until ``predict_fn`` has returned for its batch."""
-        item = self._enqueue(x, released=threading.Event())
+        return self._wait_lent(self._enqueue(x, released=threading.Event()), timeout_s)
+
+    def _wait_lent(self, item: _WorkItem, timeout_s: float):
         try:
             return item.future.result(timeout=timeout_s)
         except FutureTimeout:
@@ -446,6 +453,149 @@ class DynamicBatcher:
                         it.future.set_exception(e)
 
     def __enter__(self) -> "DynamicBatcher":
+        self.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+
+class MultiSignatureBatcher:
+    """Per-(dtype, trailing-shape) dynamic batching for multi-signature models.
+
+    One served model may accept several input signatures: a ViT served
+    at several resolutions, or mixed uint8 / float32 image payloads.
+    cuDNN and the kernels plan per shape anyway, so giving each signature
+    its own queue costs no warmup and lets each one coalesce on its own;
+    mixing them in one queue would flush a small batch at every change of
+    signature in the arrival stream.
+
+    Groups are created on first sight and capped at ``max_signatures``
+    (each owns a collector thread and a finisher pool); an over-cap
+    signature is a ``ValueError`` naming the signatures seen, never an
+    unbounded growth of threads.
+    """
+
+    def __init__(
+        self,
+        predict_fn: Callable[[np.ndarray], Any],
+        max_batch_size: int = 64,
+        max_wait_ms: float = 2.0,
+        buckets: Optional[Sequence[int]] = None,
+        name: str = "batcher",
+        pipeline_depth: int = 16,
+        finisher_threads: int = 4,
+        max_signatures: int = 16,
+    ):
+        self.predict_fn = predict_fn
+        self.max_batch_size = max_batch_size
+        self.max_wait_ms = max_wait_ms
+        # normalized eagerly: a bad max_batch_size fails here, and warmup
+        # reads the canonical list
+        self.buckets = normalize_buckets(buckets, max_batch_size)
+        self.name = name
+        self.pipeline_depth = pipeline_depth
+        self.finisher_threads = finisher_threads
+        self.max_signatures = max_signatures
+        self._groups: Dict[Tuple[str, tuple], DynamicBatcher] = {}
+        self._lock = threading.Lock()
+        self._running = False
+
+    # ---------------------------------------------------------------- public
+
+    def start(self) -> None:
+        with self._lock:
+            self._running = True
+            for g in self._groups.values():
+                g.start()
+
+    def stop(self) -> None:
+        with self._lock:
+            self._running = False
+            groups = list(self._groups.values())
+        for g in groups:
+            g.stop()
+
+    def signature_of(self, x: np.ndarray) -> Tuple[str, tuple]:
+        return (x.dtype.str, tuple(x.shape[1:]))
+
+    def _group_for(self, x: np.ndarray) -> DynamicBatcher:
+        """The signature's group, made on first sight (caller holds the lock)."""
+        if not self._running:
+            raise RuntimeError(f"batcher {self.name!r} not started")
+        key = self.signature_of(x)
+        group = self._groups.get(key)
+        if group is None:
+            if len(self._groups) >= self.max_signatures:
+                raise ValueError(
+                    f"batcher {self.name!r}: signature {key} would exceed "
+                    f"max_signatures={self.max_signatures} (seen: {sorted(self._groups)})"
+                )
+            group = DynamicBatcher(
+                self.predict_fn,
+                max_batch_size=self.max_batch_size,
+                max_wait_ms=self.max_wait_ms,
+                buckets=self.buckets,
+                name=f"{self.name}[{key[0]}{'x'.join(map(str, key[1]))}]",
+                pipeline_depth=self.pipeline_depth,
+                finisher_threads=self.finisher_threads,
+            )
+            group.start()
+            self._groups[key] = group
+        return group
+
+    @staticmethod
+    def _checked(x: np.ndarray) -> np.ndarray:
+        x = np.asarray(x)
+        if x.ndim < 1:
+            raise ValueError("batcher input must have a leading batch dimension")
+        return x
+
+    def submit_future(self, x: np.ndarray) -> Future:
+        x = self._checked(x)
+        # resolve the group AND enqueue under one lock: a stop() between
+        # the two would surface as the group's error, not this batcher's
+        with self._lock:
+            return self._group_for(x).submit_future(x)
+
+    def submit(self, x: np.ndarray, timeout_s: float = 30.0):
+        return self.submit_future(x).result(timeout=timeout_s)
+
+    def submit_lent(self, x: np.ndarray, timeout_s: float = 120.0):
+        """``DynamicBatcher.submit_lent`` in the rows' signature group:
+        never returns while that group may still read ``x``."""
+        x = self._checked(x)
+        with self._lock:
+            group = self._group_for(x)
+            item = group._enqueue(x, released=threading.Event())
+        return group._wait_lent(item, timeout_s)
+
+    @property
+    def signatures(self) -> List[Tuple[str, tuple]]:
+        with self._lock:
+            return sorted(self._groups)
+
+    @property
+    def stats(self) -> BatcherStats:
+        """Stats summed over the signature groups."""
+        with self._lock:
+            groups = list(self._groups.values())
+        # a reservoir that holds every group's samples: N full groups in a
+        # default-size ring would keep only the last group's latencies
+        agg = BatcherStats(reservoir=max(1, len(groups)) * 8192)
+        for g in groups:
+            agg.requests += g.stats.requests
+            agg.batches += g.stats.batches
+            agg.rows += g.stats.rows
+            agg.padded_rows += g.stats.padded_rows
+            agg.collect_ms_total += g.stats.collect_ms_total
+            agg.total_ms_sum += g.stats.total_ms_sum
+            wait, total = g.stats.latency_snapshot()
+            agg.wait_ms.extend(wait)
+            agg.total_ms.extend(total)
+        return agg
+
+    def __enter__(self) -> "MultiSignatureBatcher":
         self.start()
         return self
 

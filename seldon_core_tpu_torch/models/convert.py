@@ -21,7 +21,8 @@ numpy arrays) and returns the ``state_dict`` of
 
 The transformer family maps the same way (dense kernels transposed,
 ``Embed.embedding`` as is, LayerNorm ``scale`` -> ``weight``, the
-TransformerBlock parts of ``_LM_BLOCK_PARTS`` shared by all three).
+TransformerBlock parts of ``_LM_BLOCK_PARTS`` shared by all three);
+:func:`lm_flax_params` maps an LM ``state_dict`` back to flax's tree.
 Every leaf of the tree must be consumed and every leaf a module needs
 must be present: a missing or an extra key is a ``ValueError`` naming
 it.
@@ -200,6 +201,31 @@ def lm_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     tree.norm(("LayerNorm_0",), "ln_f")
     tree.dense(("head",), "head")
     return tree.state_dict()
+
+
+def lm_flax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`lm_params_from_flax`: a ``TransformerLM`` (or
+    ``TransformerEncoder``) ``state_dict`` -> flax's bare params tree, CPU
+    tensors in their own dtype, dense weights back to (in, out).  The
+    template a checkpoint is restored onto, and what a checkpoint of the
+    port's weights is written from."""
+    sd = {k: v.detach().to("cpu") for k, v in state_dict.items()}
+
+    def dense(key: str) -> Dict[str, torch.Tensor]:
+        return {"kernel": sd[f"{key}.weight"].t().contiguous(), "bias": sd[f"{key}.bias"]}
+
+    def norm(key: str) -> Dict[str, torch.Tensor]:
+        return {"scale": sd[f"{key}.weight"], "bias": sd[f"{key}.bias"]}
+
+    tree: Dict[str, Any] = {"tok_embed": {"embedding": sd["tok_embed.weight"]},
+                            "pos_embed": {"embedding": sd["pos_embed.weight"]}}
+    blocks = sorted({int(k.split(".")[1]) for k in sd if k.startswith("blocks.")})
+    for i in blocks:
+        tree[f"block_{i}"] = {flax_name: (norm if flax_name.startswith("LayerNorm") else dense)(f"blocks.{i}.{port}")
+                              for flax_name, port in _LM_BLOCK_PARTS.items()}
+    tree["LayerNorm_0"] = norm("ln_f")
+    tree["head"] = dense("head")
+    return tree
 
 
 def encoder_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

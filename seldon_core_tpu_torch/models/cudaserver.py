@@ -12,11 +12,18 @@ for one NVIDIA GPU:
   kernel (``"plain"`` or no entry: the einsum attention; anything else is
   ``BAD_ATTENTION``); the token families take no default
   ``input_shape`` (``MISSING_INPUT_SHAPE`` without one);
-* parameters come from ``variables=`` (the JAX package's flax tree,
-  converted by ``models/convert.py`` for the model's family) or, without
-  it, a random init from ``seed`` (flax's scheme; for the ResNets each
-  block's last BatchNorm scale is one, not zero, so random weights give
-  answers that depend on every residual branch);
+* parameters come from ``model_uri`` (a checkpoint: fetched by
+  ``utils/storage.py``; an orbax directory, one holding
+  ``_CHECKPOINT_METADATA``, is read by ``utils/orbax.py``; another
+  directory serves its first ``.msgpack`` or ``.bin`` file by name; a
+  file is flax msgpack, read by ``utils/serialization.py``), from
+  ``variables=`` (the JAX package's flax tree in memory), or, with
+  neither, a random init from ``seed`` (flax's scheme; for the ResNets
+  each block's last BatchNorm scale is one, not zero, so random weights
+  give answers that depend on every residual branch).  A flax tree is
+  converted by ``models/convert.py`` for the model's family; a w8a8
+  server calibrates its activation scales at load and never reads them
+  from a checkpoint;
 * compute runs in ``bfloat16`` by default; ResNet convolutions run in
   cuDNN with channels_last activations and BatchNorm in float32; the
   transformers keep LayerNorm in float32;
@@ -36,6 +43,11 @@ for one NVIDIA GPU:
 * requests flow through the dynamic batcher: concurrent requests
   coalesce into padded-bucket device calls, and every bucket is warmed
   at load time so cuDNN has picked its algorithms before traffic;
+* ``extra_input_shapes`` adds input signatures beside ``input_shape``
+  (a ViT with ``pos_grid`` serves one checkpoint at several
+  resolutions): each (dtype, shape) signature then batches in its own
+  group of a ``MultiSignatureBatcher``, and warmup covers every shape,
+  bucket and dtype;
 * the native ingress (``engine/native_ingress.py``) calls
   ``raw_batch_call`` once per batch it coalesced in C++, and the
   zero-copy frame lane calls ``raw_batch_views``; both keep a uint8
@@ -45,9 +57,8 @@ The server runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"`` (the tests do); asking for CUDA on a host without it is
 an error, never a quiet fall back to the CPU.
 
-Not ported yet (each is a ``BAD_PARAMETER`` error when set): ``model_uri``
-checkpoint loading, ``mesh``, and ``extra_input_shapes`` (multi-signature
-batching); nor the detection family (``detector_*``).
+Not ported yet: ``mesh`` (a ``BAD_PARAMETER`` error when set) and the
+detection family (``detector_*``).
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import logging
+import os
 import threading
 import time
 from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
@@ -62,7 +74,7 @@ from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Seq
 import numpy as np
 import torch
 
-from seldon_core_tpu_torch.batching.batcher import DynamicBatcher
+from seldon_core_tpu_torch.batching.batcher import DynamicBatcher, MultiSignatureBatcher
 from seldon_core_tpu_torch.codec.device import to_device
 from seldon_core_tpu_torch.ops import kernels, surgery
 from seldon_core_tpu_torch.runtime.component import MicroserviceError, TPUComponent, gauge_metric
@@ -70,7 +82,7 @@ from seldon_core_tpu_torch.runtime.component import MicroserviceError, TPUCompon
 logger = logging.getLogger(__name__)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
-_LATER = ("model_uri", "mesh", "extra_input_shapes")
+_LATER = ("mesh",)
 
 
 def _compute_dtype(name: str) -> torch.dtype:
@@ -226,6 +238,8 @@ class CudaServer(TPUComponent):
         finisher_threads: int = 12,
         device: str = "cuda",
         variables: Optional[Mapping[str, Any]] = None,
+        model_uri: str = "",
+        extra_input_shapes: Optional[Sequence[Sequence[int]]] = None,
         **kwargs: Any,
     ):
         later = sorted(k for k in _LATER if kwargs.get(k))
@@ -235,6 +249,9 @@ class CudaServer(TPUComponent):
                 status_code=400,
                 reason="BAD_PARAMETER",
             )
+        if model_uri and variables is not None:
+            raise MicroserviceError("give model_uri or variables, not both", status_code=400,
+                                    reason="BAD_PARAMETER")
         super().__init__(**kwargs)
         try:
             surgery.validate_quantize_mode(quantize)
@@ -260,6 +277,9 @@ class CudaServer(TPUComponent):
         self.max_wait_ms = float(max_wait_ms)
         self.buckets = list(buckets) if buckets else None
         self.input_shape = tuple(input_shape) if input_shape else None
+        # extra accepted input signatures (without batch dim), e.g. a ViT
+        # with pos_grid served at several resolutions from one checkpoint
+        self.extra_input_shapes = [tuple(s) for s in (extra_input_shapes or [])]
         self._class_names = class_names_list
         self.softmax_outputs = bool(softmax_outputs)
         # top_k > 0: the output is [batch, 2, k] (row 0: class indices,
@@ -277,9 +297,12 @@ class CudaServer(TPUComponent):
         self.pipeline_depth = int(pipeline_depth)
         self.finisher_threads = int(finisher_threads)
         self.variables = variables
+        self.model_uri = model_uri
+        # model_uri: seconds to fetch, decode, convert into the module and pin on the device
+        self.checkpoint_times: Dict[str, float] = {}
         self._loaded = False
         self.module: Optional[torch.nn.Module] = None
-        self.batcher: Optional[DynamicBatcher] = None
+        self.batcher: Optional[DynamicBatcher | MultiSignatureBatcher] = None
         self._load_time_s: Optional[float] = None
         self._norm_scale: Optional[torch.Tensor] = None
         self._norm_shift: Optional[torch.Tensor] = None
@@ -324,16 +347,56 @@ class CudaServer(TPUComponent):
                     reason="BAD_PRECISION",
                 ) from None
             raise
-        if self.variables is not None:
-            _load_flax_variables(module, entry.family, self.variables)
+        variables = self._checkpoint_variables() if self.model_uri else self.variables
+        t0 = time.perf_counter()
+        if variables is not None:
+            _load_flax_variables(module, entry.family, variables)
         elif entry.family == "resnet":
             module.reset_parameters(torch.Generator().manual_seed(self.seed), zero_init_residual=False)
         else:
             module.reset_parameters(torch.Generator().manual_seed(self.seed))
+        t1 = time.perf_counter()
         module = module.to(self.device).eval()
         if self.device.type == "cuda" and entry.family == "resnet":
             module = module.to(memory_format=torch.channels_last)
+        if self.model_uri:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.checkpoint_times.update(convert_s=t1 - t0, pin_s=time.perf_counter() - t1)
         return module
+
+    def _checkpoint_variables(self) -> Dict[str, Any]:
+        """The flax variables tree at ``model_uri`` (JaxServer's loading
+        branch): an orbax directory, a directory's first ``.msgpack`` /
+        ``.bin`` file by name, or a msgpack file."""
+        from seldon_core_tpu_torch.utils import orbax, serialization, storage
+
+        t0 = time.perf_counter()
+        path = storage.download(self.model_uri)
+        t1 = time.perf_counter()
+        try:
+            if orbax.is_checkpoint(path):
+                variables = orbax.restore(os.path.abspath(path))
+            else:
+                if os.path.isdir(path):
+                    candidates = [f for f in os.listdir(path) if f.endswith((".msgpack", ".bin"))]
+                    if not candidates:
+                        raise MicroserviceError(f"no .msgpack checkpoint under {path}", status_code=500,
+                                                reason="BAD_CHECKPOINT")
+                    path = os.path.join(path, sorted(candidates)[0])
+                with open(path, "rb") as f:
+                    variables = serialization.msgpack_restore(f.read())
+        except (orbax.CheckpointError, ValueError) as e:
+            raise MicroserviceError(f"model_uri {self.model_uri!r}: {e}", status_code=500,
+                                    reason="BAD_CHECKPOINT") from None
+        if not isinstance(variables, dict):
+            raise MicroserviceError(f"model_uri {self.model_uri!r} holds a {type(variables).__name__}, not a "
+                                    "variables tree", status_code=500, reason="BAD_CHECKPOINT")
+        # checkpoints come from precision-less modules: w8a8's activation
+        # scales are calibrated at load, never looked up in the bytes
+        variables = {k: v for k, v in serialization.to_numpy_tree(variables).items() if k != "act_scales"}
+        self.checkpoint_times.update(download_s=t1 - t0, decode_s=time.perf_counter() - t1)
+        return variables
 
     def _normalize_affine(self) -> Tuple[np.ndarray, np.ndarray]:
         if self._norm_mean is not None or self._norm_std is not None:
@@ -435,7 +498,8 @@ class CudaServer(TPUComponent):
             self._quantize()
         else:
             self.param_bytes = surgery.tree_hbm_bytes(self.module.state_dict())
-        self.batcher = DynamicBatcher(
+        batcher_cls = MultiSignatureBatcher if self.extra_input_shapes else DynamicBatcher
+        self.batcher = batcher_cls(
             self.device_call,
             max_batch_size=self.max_batch_size,
             max_wait_ms=self.max_wait_ms,
@@ -446,12 +510,13 @@ class CudaServer(TPUComponent):
         )
         self.batcher.start()
         if self.warmup:
-            # every (bucket, dtype) pair clients may send, over the
-            # batcher's NORMALIZED bucket list (it force-appends
+            # every (shape, bucket, dtype) triple clients may send, over
+            # the batcher's NORMALIZED bucket list (it force-appends
             # max_batch_size), so no request pays an algorithm search
-            for b in self.batcher.buckets:
-                for dt in self.warmup_dtypes:
-                    self.device_call(np.zeros((b, *self.input_shape), np.dtype(dt)))
+            for shape in self.accepted_shapes():
+                for b in self.batcher.buckets:
+                    for dt in self.warmup_dtypes:
+                        self.device_call(np.zeros((b, *shape), np.dtype(dt)))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         self._load_time_s = time.perf_counter() - t0
@@ -469,8 +534,9 @@ class CudaServer(TPUComponent):
     # -------------------------------------------------------------- serving
 
     def accepted_shapes(self) -> List[Tuple[int, ...]]:
-        """Input signatures (without batch dim) this server accepts."""
-        return [tuple(self.input_shape)]
+        """Input signatures (without batch dim) this server accepts: the
+        primary ``input_shape``, then ``extra_input_shapes``."""
+        return [tuple(self.input_shape), *self.extra_input_shapes]
 
     def _prepare(self, X) -> Tuple[np.ndarray, bool]:
         """Canonicalise dtype and shape (as JaxServer._prepare).
@@ -478,9 +544,12 @@ class CudaServer(TPUComponent):
         A dtype outside ``warmup_dtypes`` is cast to the first of them, so
         a JSON ``ndarray`` (float64) reaches the model as float32 and is
         NOT normalized: normalization applies to uint8 payloads only.
-        An array whose trailing dims match the signature is a batch; one
-        that matches it whole is a single example; flat rows
-        [batch, prod(sig)] are reshaped to the signature."""
+        The batch reading wins: an array whose trailing dims match an
+        accepted signature is a batch, even when its whole shape matches
+        another one; then an array that matches a signature whole is a
+        single example; then flat rows [batch, prod(sig)] are reshaped to
+        the first signature of that size; anything else is a 400 listing
+        the accepted shapes."""
         if not self._loaded:
             self.load()
         arr = np.asarray(X)
@@ -618,6 +687,10 @@ class CudaServer(TPUComponent):
             "load_time_s": self._load_time_s,
             "buckets": list(self.batcher.buckets) if self.batcher else [],
             "signatures": [list(s) for s in self.accepted_shapes()] if self._loaded else [],
+            "signature_groups": ([[dt, list(shape)] for dt, shape in self.batcher.signatures]
+                                 if isinstance(self.batcher, MultiSignatureBatcher) else []),
+            "model_uri": self.model_uri,
+            "checkpoint_times": self.checkpoint_times,
             "kernel_launches": kernels.launch_counts(),
         }
 

@@ -12,8 +12,6 @@ from typing import Dict, List
 
 import torch
 
-from seldon_core_tpu_torch.runtime.component import MicroserviceError
-
 
 def _buckets_for(max_len: int) -> List[int]:
     """Prompt length buckets: 16, 32, ... doubling below ``max_len``, then
@@ -29,20 +27,24 @@ def _buckets_for(max_len: int) -> List[int]:
 def load_lm_params(model_uri: str, config: Dict[str, int], seed: int,
                    device: torch.device = torch.device("cpu")) -> Dict[str, torch.Tensor]:
     """A ``TransformerLM`` state_dict (float32, on ``device``): flax's
-    default init drawn from a ``torch.Generator`` seeded with ``seed``.
+    default init drawn from a ``torch.Generator`` seeded with ``seed``;
+    with ``model_uri``, the flax msgpack checkpoint there (fetched by
+    ``utils/storage.py``) restored onto that seeded tree as a template,
+    as the JAX package's loader does, then converted by
+    ``lm_params_from_flax``.
 
     ``config`` holds vocab_size, d_model, num_layers, num_heads and
-    max_len.  Checkpoints (``model_uri``) are not read yet."""
-    if model_uri:
-        raise MicroserviceError(
-            f"model_uri={model_uri!r}: checkpoint loading is not ported yet "
-            "(ROADMAP.md §A item 5, model_uri loading without flax); serve seeded weights "
-            "or pass a state_dict to PagedEngine",
-            status_code=400,
-            reason="BAD_PARAMETER",
-        )
+    max_len."""
     from seldon_core_tpu_torch.models.transformer import TransformerLM
 
     lm = TransformerLM(dtype=torch.float32, **config)
     lm.reset_parameters(torch.Generator().manual_seed(int(seed)))
-    return {k: v.to(device) for k, v in lm.state_dict().items()}
+    state = lm.state_dict()
+    if model_uri:
+        from seldon_core_tpu_torch.models import convert
+        from seldon_core_tpu_torch.utils import serialization, storage
+
+        with open(storage.download(model_uri), "rb") as f:
+            params = serialization.from_bytes(convert.lm_flax_params(state), f.read())
+        state = convert.lm_params_from_flax(serialization.to_numpy_tree(params))
+    return {k: v.to(device) for k, v in state.items()}

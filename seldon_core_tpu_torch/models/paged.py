@@ -50,7 +50,10 @@ Decisions of this slice (the JAX engine has more machinery):
 * the prefix cache, chunked prefill, the steps ladder, the ring chunk,
   speculative decoding, int8 weights, meshes, token streaming, drain
   and migration raise, naming the later slice (``ROADMAP.md`` §A item
-  8); so does a ``{"uri": ...}`` adapter (item 5, checkpoints);
+  8);
+* ``model_uri`` and an adapter's ``{"uri": ...}`` name flax msgpack
+  checkpoints, read without flax (``models/generate.py``,
+  ``utils/serialization.py``);
 * the adapter table keeps its pins in one refcount per slot (the JAX
   engine's temporary pins exist for its allocator audit, which is not
   ported).
@@ -1236,12 +1239,6 @@ class StreamingLM(TPUComponent):
         if isinstance(adapters, str):
             adapters = json.loads(adapters) if adapters else None
         self.adapters: Dict[str, Any] = dict(adapters) if adapters else {}
-        for name, spec in self.adapters.items():
-            if isinstance(spec, dict) and "uri" in spec and not any(t in spec for t in LORA_TARGETS):
-                raise MicroserviceError(
-                    f"adapter {name!r}: {{'uri': ...}} checkpoints are not ported yet (ROADMAP.md §A item 5, "
-                    "model_uri loading without flax); give {'seed': n} or raw factors",
-                    status_code=400, reason="BAD_PARAMETER")
         self.max_adapters = int(max_adapters)
         self.lora_rank = int(lora_rank)
         self.device = resolve_device(device)
@@ -1306,7 +1303,9 @@ class StreamingLM(TPUComponent):
 
     def _adapter_loader(self, spec: Any):
         """One adapter's loader: a raw ``{target: (A, B)}`` dict passes
-        through; ``{"seed": n, "alpha": a}`` (or a bare seed) builds
+        through; ``{"uri": ...}`` restores a flax msgpack checkpoint onto
+        the factor template (``make_lora_params``' structure), as the JAX
+        engine does; ``{"seed": n, "alpha": a}`` (or a bare seed) builds
         deterministic synthetic factors (``alpha`` defaults to the rank),
         the JAX package's for the same seed."""
         cfg = dict(self.config)
@@ -1315,6 +1314,12 @@ class StreamingLM(TPUComponent):
         def loader():
             if isinstance(spec, dict) and any(t in spec for t in LORA_TARGETS):
                 return spec
+            if isinstance(spec, dict) and "uri" in spec:
+                from seldon_core_tpu_torch.utils import serialization, storage
+
+                template = make_lora_params(0, num_layers=cfg["num_layers"], d_model=cfg["d_model"], rank=rank)
+                with open(storage.download(spec["uri"]), "rb") as f:
+                    return serialization.to_numpy_tree(serialization.from_bytes(template, f.read()))
             seed = int(spec.get("seed", 0)) if isinstance(spec, dict) else int(spec)
             alpha = float(spec.get("alpha", rank)) if isinstance(spec, dict) else float(rank)
             return make_lora_params(seed, num_layers=cfg["num_layers"], d_model=cfg["d_model"], rank=rank,

@@ -34,6 +34,9 @@ KNOBS: Dict[str, str] = {
     "SELDON_TPU_TRACE_EXPORT": "per-process JSONL span sink of the microservice CLI's --tracing (unset: the ring only)",
     "SELDON_TPU_TRANSPORT_TELEMETRY": "per-hop transport metrics seldon_tpu_transport_* ('0' = off)",
     "SELDON_TPU_BREAKER": "per-endpoint circuit breakers of the graph's node clients ('0' = off)",
+    "SELDON_TPU_MODEL_CACHE": (
+        "directory remote model_uri downloads land in (unset: seldon-tpu-models under the temp directory)"
+    ),
 }
 
 # flag knobs and their defaults: "1" = on unless set to "0", "0" = off

@@ -1,1 +1,1 @@
-"""Host-side helpers of the port (request carriers)."""
+"""Host-side helpers of the port (request carriers; checkpoint storage and formats)."""

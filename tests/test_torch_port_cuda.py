@@ -398,10 +398,11 @@ def test_paged_engine_launches_the_kernel_every_step_of_every_layer(impl, monkey
     assert all(s.result.shape == (8,) and ((s.result >= 0) & (s.result < 128)).all() for s in streams)
 
 
-# K3 shapes: the ViT-B/16 serving shape, the causal LM check shape, small
+# K3 shapes: the ViT-B/16 serving shapes at 224 and 384, the causal LM check shape, small
 # f32 ones, head_dim 128 and a ragged one in f16; (B, L, H, D, dtype, causal)
 FLASH_CASES = [
     (32, 197, 12, 64, torch.bfloat16, False),
+    (32, 577, 12, 64, torch.bfloat16, False),  # ViT-B/16 at 384 x 384 (A6's second signature)
     (4, 1024, 8, 64, torch.bfloat16, True),
     (2, 50, 2, 16, torch.float32, False),
     (2, 50, 2, 16, torch.float32, True),
@@ -473,6 +474,24 @@ def test_served_vit_launches_the_kernel_in_every_block():
         assert out.shape == (2, 4) and np.isfinite(out).all()
         counts = kernels.launch_counts()
         assert counts["fused_normalize"] == 1 and counts["flash_attention"] == len(cs.module.blocks)
+    finally:
+        cs.unload()
+
+
+def test_served_vit_at_two_resolutions_launches_the_kernels_per_group():
+    _need_card()
+    cs = CudaServer(model="vit_tiny", num_classes=4, normalize=True, max_batch_size=2, input_shape=(32, 32, 3),
+                    extra_input_shapes=[(48, 48, 3)], model_kwargs={"attention": "flash"})
+    cs.load()
+    try:
+        kernels.reset_launch_counts()
+        rng = np.random.default_rng(11)
+        for shape in ((32, 32, 3), (48, 48, 3)):
+            out = cs.predict(rng.integers(0, 256, (2, *shape), dtype=np.uint8), [])
+            assert out.shape == (2, 4) and np.isfinite(out).all()
+        counts = kernels.launch_counts()
+        assert counts["fused_normalize"] == 2 and counts["flash_attention"] == 2 * len(cs.module.blocks)
+        assert len(cs.batcher.signatures) == 2
     finally:
         cs.unload()
 

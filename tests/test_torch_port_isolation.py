@@ -4,7 +4,9 @@ An AST scan of every module of ``seldon_core_tpu_torch`` and of
 ``chip_smoke.py`` finds no import of ``jax``, ``flax``,
 ``seldon_core_tpu`` (the ``seldon_core_tpu_torch`` prefix is the port's
 own), ``ml_dtypes`` or ``prometheus_client`` (the card's machine may have
-neither: the port keeps its own metrics registry), and a fresh
+neither: the port keeps its own metrics registry), ``msgpack``,
+``orbax``, ``tensorstore`` or ``requests`` (the port reads checkpoints
+with its own codec and readers and fetches over ``urllib``), and a fresh
 interpreter that imports the server and the runtime has none of them in
 ``sys.modules``.
 """
@@ -18,7 +20,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "seldon_core_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "seldon_core_tpu", "ml_dtypes", "prometheus_client")
+FORBIDDEN = ("jax", "jaxlib", "flax", "seldon_core_tpu", "ml_dtypes", "prometheus_client", "msgpack", "orbax",
+             "tensorstore", "requests")
 
 
 def _forbidden(module: str) -> bool:
@@ -66,10 +69,13 @@ def test_scan_covers_the_port():
                    "engine/service.py", "engine/server.py", "engine/sync_server.py", "components/routers.py",
                    "components/__init__.py", "models/__init__.py", "codec/bufview.py", "codec/tftensor.py",
                    "native/__init__.py", "native/frontserver.py", "engine/native_ingress.py",
-                   "utils/tracing.py", "utils/tls.py", "utils/auth.py", "utils/metrics.py"):
+                   "utils/tracing.py", "utils/tls.py", "utils/auth.py", "utils/metrics.py",
+                   "utils/credentials.py", "utils/storage.py", "utils/serialization.py", "utils/orbax.py"):
         assert f"seldon_core_tpu_torch/{module}" in names, module
     assert _forbidden("seldon_core_tpu.proto") and _forbidden("jax.numpy") and _forbidden("flax.linen")
     assert _forbidden("seldon_core_tpu.native") and _forbidden("ml_dtypes") and _forbidden("prometheus_client")
+    assert _forbidden("msgpack") and _forbidden("orbax.checkpoint") and _forbidden("tensorstore")
+    assert _forbidden("requests")
     assert not _forbidden("seldon_core_tpu_torch.proto")
 
 
@@ -90,10 +96,13 @@ def test_importing_the_port_loads_no_jax():
         "import seldon_core_tpu_torch.engine.native_ingress\n"
         "import seldon_core_tpu_torch.utils.tracing, seldon_core_tpu_torch.utils.tls\n"
         "import seldon_core_tpu_torch.utils.auth, seldon_core_tpu_torch.utils.metrics\n"
+        "import seldon_core_tpu_torch.utils.credentials, seldon_core_tpu_torch.utils.storage\n"
+        "import seldon_core_tpu_torch.utils.serialization, seldon_core_tpu_torch.utils.orbax\n"
         "from seldon_core_tpu_torch.engine import units\n"
         "[units._lookup_builtin(name) for name in units.PREPACKAGED]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'seldon_core_tpu',\n"
-        "                                                            'ml_dtypes', 'prometheus_client'))\n"
+        "                                                            'ml_dtypes', 'prometheus_client', 'msgpack',\n"
+        "                                                            'orbax', 'tensorstore', 'requests'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )

@@ -506,11 +506,21 @@ def test_streaminglm_adapter_by_tag_and_header(monkeypatch):
         lm.unload()
 
 
-def test_streaminglm_raw_factor_adapters_and_uri_refusal():
+def test_streaminglm_raw_factor_adapters_and_uri_refusal(tmp_path):
     raw = lora.make_lora_params(5, num_layers=1, d_model=CFG["d_model"], rank=RANK)
     lm = StreamingLM(device="cpu", dtype="float32", max_adapters=1, lora_rank=RANK, adapters={"raw-a": raw},
                      **CFG, **ENGINE)
     assert lm._adapter_loader(raw)() is raw
-    with pytest.raises(MicroserviceError, match="ROADMAP.md §A item 5") as err:
-        StreamingLM(device="cpu", adapters={"u": {"uri": "gs://bucket/a.msgpack"}}, **CFG)
-    assert err.value.status_code == 400
+    # {"uri": ...} landed (ROADMAP A5): the catalogue takes it, and its
+    # loader restores flax's msgpack onto the factor template bit for bit
+    StreamingLM(device="cpu", adapters={"u": {"uri": "gs://bucket/a.msgpack"}}, **CFG)
+    from flax import serialization
+
+    path = tmp_path / "a.msgpack"
+    path.write_bytes(serialization.to_bytes(raw))
+    got = lm._adapter_loader({"uri": f"file://{path}"})()
+    assert sorted(got) == sorted(raw)
+    for t, (a, b) in raw.items():
+        assert isinstance(got[t], tuple)
+        np.testing.assert_array_equal(got[t][0], a)
+        np.testing.assert_array_equal(got[t][1], b)

@@ -243,13 +243,23 @@ def test_unknown_knob_values_raise_as_in_jax(params, monkeypatch):
         PagedEngine(params, dtype="float32", device="cpu", **CFG, **ENGINE)
 
 
-def test_component_refusals():
+def test_component_refusals(flax_params, params, tmp_path):
     lm = StreamingLM(device="cpu", **CFG)
     for call in (lambda: lm.predict_stream(np.zeros((1, 4))), lambda: lm.drain()):
         with pytest.raises(MicroserviceError, match="ROADMAP.md"):
             call()
-    with pytest.raises(MicroserviceError, match="item 5"):
-        StreamingLM(device="cpu", adapters={"a": {"uri": "file:///a.msgpack"}}, **CFG)
-    with pytest.raises(MicroserviceError, match="model_uri") as err:
-        StreamingLM(device="cpu", model_uri="file:///x.msgpack", **CFG).load()
-    assert "item 5" in str(err.value)
+    # model_uri and {"uri": ...} adapters landed (ROADMAP A5): a flax
+    # msgpack checkpoint is served, its weights exactly the converted tree's
+    from flax import serialization
+
+    path = tmp_path / "lm.msgpack"
+    path.write_bytes(serialization.to_bytes(flax_params))
+    StreamingLM(device="cpu", adapters={"a": {"uri": "file:///a.msgpack"}}, **CFG)
+    served = StreamingLM(device="cpu", dtype="float32", model_uri=f"file://{path}", **CFG, **ENGINE)
+    served.load()
+    try:
+        got = served.engine.module.state_dict()
+        for k, v in params.items():
+            np.testing.assert_array_equal(got[k].numpy(), v.numpy())
+    finally:
+        served.unload()

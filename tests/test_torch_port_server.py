@@ -243,9 +243,37 @@ class TestDeviceAndParameters:
         assert err.value.reason == "UNKNOWN_MODEL"
 
     @pytest.mark.parametrize("name", ["model_uri", "quantize", "precision", "mesh", "extra_input_shapes"])
-    def test_later_slice_parameters_are_refused(self, name):
+    def test_later_slice_parameters_are_refused(self, name, tmp_path):
         # quantize and precision are ported (the int8 lanes): a value
-        # outside their vocabulary is refused as JaxServer refuses it
+        # outside their vocabulary is refused as JaxServer refuses it.
+        # model_uri and extra_input_shapes landed (ROADMAP A5, A6): the
+        # server takes them and serves; mesh is still a later slice's
+        common = dict(device="cpu", model="resnet_tiny", num_classes=NUM_CLASSES, dtype="float32",
+                      max_batch_size=2, warmup=False)
+        if name == "model_uri":
+            from flax import serialization
+
+            variables = random_variables(FlaxResNetTiny(num_classes=NUM_CLASSES), SHAPE, seed=4)
+            (tmp_path / "w.msgpack").write_bytes(serialization.to_bytes(variables))
+            served, held = CudaServer(model_uri=f"file://{tmp_path}", **common), CudaServer(variables=variables, **common)
+            served.load(), held.load()
+            x = _images(2, seed=5).astype(np.float32)
+            try:  # same module, same batch shape: the same bits
+                np.testing.assert_array_equal(served.predict(x, []), held.predict(x, []))
+            finally:
+                served.unload(), held.unload()
+            return
+        if name == "extra_input_shapes":
+            cs = CudaServer(input_shape=SHAPE, extra_input_shapes=[(48, 48, 3)], **common)
+            cs.load()
+            try:
+                assert cs.accepted_shapes() == [SHAPE, (48, 48, 3)]
+                for shape in (SHAPE, (48, 48, 3)):
+                    out = cs.predict(np.zeros((2, *shape), np.float32), [])
+                    assert out.shape == (2, NUM_CLASSES) and np.isfinite(out).all()
+            finally:
+                cs.unload()
+            return
         with pytest.raises(MicroserviceError, match=name) as err:
             CudaServer(device="cpu", **{name: "x"})
         assert err.value.reason == ("BAD_QUANTIZE" if name in ("quantize", "precision") else "BAD_PARAMETER")
