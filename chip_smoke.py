@@ -353,6 +353,11 @@ LM_ENGINE = dict(page_size=64, max_slots=16, steps_per_call=8)
 LM_MAX_NEW = 64
 LM_PARAMS = [{"name": k, "value": str(v), "type": "INT"}
              for k, v in {**LM_CONFIG, **LM_ENGINE, "max_new_tokens": LM_MAX_NEW}.items()]
+# phases 7-17 measure the engine without the prefix cache (on by default
+# since phase 18's slice, as in the JAX package): phase 7's windows repeat
+# prompts, and a hit would change what they measure
+NO_PREFIX_CACHE = dict(prefix_cache=False)
+NO_PREFIX_CACHE_ENV = {"SELDON_TPU_PREFIX_CACHE": "0"}
 # the ViT cell: the JAX registry's vit_base16 (ViT-Base/16, Dosovitskiy et al.
 # 2020, Table 1) served with flash attention
 VIT_PARAMS = [
@@ -487,6 +492,28 @@ VIT_MULTI_PARAMS = [p for p in VIT_PARAMS if p["name"] != "model_kwargs"] + [
 INT8W_VS_BF16_REL_L2 = 5e-2     # int8w lane vs the bf16 lane on the same weights
 INT8W_VS_BF16_MIN_COS = 0.99
 W8A8_MIN_TOP1 = 0.8             # w8a8 vs bf16 top-1 agreement (tests/test_w8a8.py's bar)
+# phase 18, the generation scheduler and precision lanes at the generation config
+SCHED_DEVICE = "cuda"
+SCHED_PROMPT = 128              # 18a, 18d: prompt tokens (16 prompts, LM_MAX_NEW new)
+SCHED_RATE_REPS = 2             # 18a: decode-rate turns per lane (bf16, int8w, w8a8, then reversed)
+SCHED_REST_PROMPTS = (20, 64, 65, 128, 200, 333, 511, 640)  # 18a: the served w8a8 rows, sent one by one
+SCHED_SYSTEM = 256              # 18b: the shared system prompt (the JAX bench's shared-prefix shape)
+SCHED_SUFFIX = (16, 64)         # 18b: distinct suffix tokens, inclusive
+SCHED_TIGHT_PAGES = 1 + 16 * 3  # 18c: the shrunk pool
+SCHED_TIGHT_PROMPT = (150, 190)  # 18c: 3 pages a prompt, a 4th to grow into
+SCHED_MAX_STEPS = 32            # 18c: max_steps_per_call
+SCHED_QUEUE = 16                # 18d: max_queue
+SCHED_SUBMITS = 48              # 18d: 16 to fill the slots, then 32 of priority 0 and 2
+SCHED_SHORT_DEADLINE_S = 0.05   # 18d: a deadline that runs out in the queue
+SCHED_BUDGET = 512              # 18e: chunk_token_budget
+SCHED_LONG = 900                # 18e: the long prompts' tokens (4 of them beside 12 decoding streams)
+SCHED_LONG_NEW = 16
+SCHED_SHORT_NEW = 128
+W8A8_LM_PARAMS = LM_PARAMS + [
+    {"name": "precision", "value": "w8a8", "type": "STRING"},
+    {"name": "max_queue", "value": "64", "type": "INT"},
+    {"name": "chunk_token_budget", "value": str(SCHED_BUDGET), "type": "INT"},
+]
 
 
 class SmokeFailure(RuntimeError):
@@ -1217,7 +1244,7 @@ def gen_throughput(np, base, prompts, clients: int, seconds: float, max_new: int
 
 
 def lm_engine(PagedEngine, params, dtype):
-    return PagedEngine(params, dtype=dtype, device="cuda", **LM_CONFIG, **LM_ENGINE)
+    return PagedEngine(params, dtype=dtype, device="cuda", **LM_CONFIG, **LM_ENGINE, **NO_PREFIX_CACHE)
 
 
 def generation_path(torch, np, PagedEngine, load_lm_params, card):
@@ -1231,7 +1258,8 @@ def generation_path(torch, np, PagedEngine, load_lm_params, card):
     base = f"http://127.0.0.1:{port}"
     fd, logpath = tempfile.mkstemp(prefix="chip_smoke_lm_server_", suffix=".log")
     logfile = os.fdopen(fd, "w")
-    proc = start_server(port, logfile, "seldon_core_tpu_torch.models.paged.StreamingLM", LM_PARAMS)
+    proc = start_server(port, logfile, "seldon_core_tpu_torch.models.paged.StreamingLM", LM_PARAMS,
+                        env=dict(os.environ, **NO_PREFIX_CACHE_ENV))
     try:
         status, ready_s = wait_ready(proc, base, logpath)
         log(f"StreamingLM ready in {ready_s:.1f}s (load {status['load_time_s']:.1f}s, device "
@@ -1309,13 +1337,13 @@ def first_step_logits(torch, np, eng, prompts, tokens):
     for p in prompts:
         eng.submit(p, max_new_tokens=1)
     with eng._lock:
-        admitted = eng._admit_locked()
+        admitted = [s for s, _ in eng._admit_locked()]
     check(len(admitted) == len(prompts), "not every prompt was admitted")
-    with torch.inference_mode():
-        eng._prefill(admitted)
-        lengths = torch.from_numpy(eng._lengths.copy()).cuda()
+    eng._prefill_streams(admitted)
+    with torch.inference_mode(), eng._materialized():
+        lengths = torch.from_numpy(eng._lengths.copy()).to(eng.device)
         width = eng._pages_horizon(admitted, 1)
-        tables = torch.from_numpy(np.ascontiguousarray(eng._block_tables[:, :width])).cuda()
+        tables = torch.from_numpy(np.ascontiguousarray(eng._block_tables[:, :width])).to(eng.device)
         logits, _, _ = eng.module(tokens[:, None], lengths[:, None], eng.pages_k, eng.pages_v, tables, lengths,
                                   use_kernel=eng._kernel_active, **eng._model_kwargs(eng._adapter_slots.copy()))
     return logits[:, 0].double().cpu()
@@ -1392,11 +1420,10 @@ def engine_numbers(torch, np, PagedEngine, load_lm_params, card, make_engine=Non
         for p, a in zip(prompts, names):
             eng.submit(p, max_new_tokens=1, adapter=a)
         with eng._lock:
-            admitted = eng._admit_locked()
+            admitted = [s for s, _ in eng._admit_locked()]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            eng._prefill(admitted)
+        eng._prefill_streams(admitted)
         torch.cuda.synchronize()
         prefill_ms = min(prefill_ms, (time.perf_counter() - t0) * 1e3)
         eng.run()
@@ -1784,7 +1811,7 @@ def quantized_generation_path(torch, np, PagedEngine, load_lm_params, WeightRegi
     fd, logpath = tempfile.mkstemp(prefix="chip_smoke_qlm_server_", suffix=".log")
     logfile = os.fdopen(fd, "w")
     proc = start_server(port, logfile, "seldon_core_tpu_torch.models.paged.StreamingLM", Q_LM_PARAMS,
-                        env=dict(os.environ, SELDON_TPU_KV_DTYPE="int8"))
+                        env=dict(os.environ, SELDON_TPU_KV_DTYPE="int8", **NO_PREFIX_CACHE_ENV))
     try:
         status, ready_s = wait_ready(proc, base, logpath)
         log(f"int8 + adapters StreamingLM ready in {ready_s:.1f}s (load {status['load_time_s']:.1f}s, kv pool "
@@ -1827,7 +1854,8 @@ def quantized_generation_path(torch, np, PagedEngine, load_lm_params, WeightRegi
     with knob_env(SELDON_TPU_KV_DTYPE="int8"):
         eng = PagedEngine(load_lm_params("", LM_CONFIG, 0, torch.device("cuda")), dtype="bfloat16", device="cuda",
                           max_adapters=2, lora_rank=LORA_RANK,
-                          weight_registry=adapter_registry(WeightRegistry, make_lora_params), **LM_CONFIG, **LM_ENGINE)
+                          weight_registry=adapter_registry(WeightRegistry, make_lora_params), **LM_CONFIG, **LM_ENGINE,
+                          **NO_PREFIX_CACHE)
     check(eng._kv_int8, "the in-process reference engine has no int8 pool")
     local_single = [eng.generate(p, max_new_tokens=LM_MAX_NEW, adapter=a)
                     for p, a in zip(single_prompts, single_adapters)]
@@ -1874,7 +1902,7 @@ def quantized_engine_numerics(torch, np, kernels, PagedEngine, load_lm_params, W
         with knob_env(**env):
             extra = (dict(max_adapters=2, lora_rank=LORA_RANK,
                           weight_registry=adapter_registry(WeightRegistry, make_lora_params)) if with_adapters else {})
-            eng = PagedEngine(params, dtype=dtype, device="cuda", **LM_CONFIG, **LM_ENGINE, **extra)
+            eng = PagedEngine(params, dtype=dtype, device="cuda", **LM_CONFIG, **LM_ENGINE, **NO_PREFIX_CACHE, **extra)
             kernels.reset_launch_counts()
             streams = [eng.submit(p, max_new_tokens=max_new, adapter=a if with_adapters else None)
                        for p, a in zip(prompts, adapters)]
@@ -1926,7 +1954,8 @@ def quantized_engine_numerics(torch, np, kernels, PagedEngine, load_lm_params, W
     # alone against all 16 in one wave, so in mixed-adapter prefill groups
     with knob_env(SELDON_TPU_KV_DTYPE="int8", SELDON_TPU_PAGED_KERNEL=None, SELDON_TPU_PAGED_KERNEL_IMPL="stream"):
         eng = PagedEngine(params, dtype="bfloat16", device="cuda", max_adapters=2, lora_rank=LORA_RANK,
-                          weight_registry=adapter_registry(WeightRegistry, make_lora_params), **LM_CONFIG, **LM_ENGINE)
+                          weight_registry=adapter_registry(WeightRegistry, make_lora_params), **LM_CONFIG, **LM_ENGINE,
+                          **NO_PREFIX_CACHE)
         alone = [eng.generate(p, max_new_tokens=LM_MAX_NEW, adapter=a) for p, a in zip(prompts, adapters)]
         wave = [eng.submit(p, max_new_tokens=LM_MAX_NEW, adapter=a) for p, a in zip(prompts, adapters)]
         eng.run()
@@ -4047,7 +4076,8 @@ def a5_a6_paths(torch, np, kernels, resnet, vit, CudaServer, PagedEngine, load_l
                                         {"name": "adapters", "type": "JSON",
                                          "value": json.dumps({"ckpt": {"uri": f"file://{adapter_path}"}})},
                                         {"name": "max_adapters", "value": "1", "type": "INT"},
-                                        {"name": "lora_rank", "value": str(LORA_RANK), "type": "INT"}]))
+                                        {"name": "lora_rank", "value": str(LORA_RANK), "type": "INT"}],
+                                    env=dict(os.environ, **NO_PREFIX_CACHE_ENV)))
         servers.append(start_server(ports[2], logfile, params=VIT_MULTI_PARAMS))
 
         # 17c meanwhile: the committed orbax fixture, read through libzstd
@@ -4135,7 +4165,7 @@ def a5_a6_paths(torch, np, kernels, resnet, vit, CudaServer, PagedEngine, load_l
         reg.register("ckpt", lambda: factors)
         eng = PagedEngine(load_lm_params("", LM_CONFIG, CKPT_LM_SEED, torch.device("cuda")), dtype="bfloat16",
                           device="cuda", max_adapters=1, lora_rank=LORA_RANK, weight_registry=reg,
-                          **LM_CONFIG, **LM_ENGINE)
+                          **LM_CONFIG, **LM_ENGINE, **NO_PREFIX_CACHE)
         local_rows = {a: [eng.generate(p, max_new_tokens=CKPT_MAX_NEW, adapter=a) for p in prompts]
                       for a in (None, "ckpt")}
         del eng
@@ -4228,6 +4258,350 @@ def a5_a6_paths(torch, np, kernels, resnet, vit, CudaServer, PagedEngine, load_l
     return numbers
 
 
+# ---------------------------------------------------------------- phase 18
+
+def sched_sync(torch):
+    if SCHED_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def engine_steps(eng) -> int:
+    """Decode steps the engine has run (its chunks by their length)."""
+    return sum(k * v for k, v in eng.engine_stats()["chunk_steps"].items())
+
+
+class K4Tally:
+    """Phase 18's K4 accounting: every counted run resets the launch counts
+    just before it and must launch K4 once per layer per decode step."""
+
+    def __init__(self, torch, kernels):
+        self.torch, self.kernels = torch, kernels
+        self.launches = self.steps = 0
+
+    def run(self, eng, fn, what: str):
+        s0 = engine_steps(eng)
+        sched_sync(self.torch)
+        self.kernels.reset_launch_counts()
+        out = fn()
+        sched_sync(self.torch)
+        n = self.kernels.launch_counts().get("paged_decode_stream", 0)
+        steps = engine_steps(eng) - s0
+        check(steps > 0 and n == LM_CONFIG["num_layers"] * steps,
+              f"{what}: K4 launched {n} times over {steps} decode steps ({LM_CONFIG['num_layers']} layers)")
+        self.launches += n
+        self.steps += steps
+        return out
+
+
+def sched_engine(torch, PagedEngine, params, dtype="bfloat16", **kw):
+    return PagedEngine(params, dtype=dtype, device=SCHED_DEVICE, **LM_CONFIG, **{**LM_ENGINE, **kw})
+
+
+def drive(eng, prompts, max_new, **kw):
+    """Submit every prompt, run the engine dry; the (rows, max_new) tokens."""
+    streams = [eng.submit(p, max_new_tokens=max_new, **kw) for p in prompts]
+    eng.run()
+    for st in streams:
+        check(st.error is None and st.result is not None and st.result.shape == (max_new,),
+              f"a stream failed: {st.error}")
+    return [st.result for st in streams]
+
+
+def stat_delta(eng, before, keys=("prefix_hits", "prefix_tokens_saved", "prefill_tokens", "tokens")):
+    after = eng.engine_stats()
+    return {k: after[k] - before[k] for k in keys}
+
+
+def precision_lanes(torch, np, w8a8, PagedEngine, params, tally, card):
+    """18a: bf16, int8w and w8a8 engines; the served w8a8 StreamingLM."""
+    rng = np.random.default_rng(SEED + 180)
+    V = LM_CONFIG["vocab_size"]
+    prompts = list(rng.integers(0, V, (LM_ENGINE["max_slots"], SCHED_PROMPT)))
+    rest_prompts = [rng.integers(0, V, n) for n in SCHED_REST_PROMPTS]
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_w8a8_lm_", suffix=".log")
+    logfile = os.fdopen(fd, "w")
+    params_rest = W8A8_LM_PARAMS + ([{"name": "device", "value": SCHED_DEVICE, "type": "STRING"}]
+                                    if SCHED_DEVICE != "cuda" else [])
+    proc = start_server(port, logfile, "seldon_core_tpu_torch.models.paged.StreamingLM", params_rest)
+    launched = time.perf_counter()
+    try:
+        lanes = {"bf16": {}, "int8w": {"quantize": "int8"}, "w8a8": {"precision": "w8a8"}}
+        engines = {name: sched_engine(torch, PagedEngine, params, prefix_cache=False, **kw)
+                   for name, kw in lanes.items()}
+        wbytes = {name: eng.weight_bytes() for name, eng in engines.items()}
+        status, _ = wait_ready(proc, base, logpath)
+        ready_s = time.perf_counter() - launched
+        check(status["precision"] == "w8a8" and status["quantize"] == "int8" and status["prefix_cache"]
+              and status["chunk_token_budget"] == SCHED_BUDGET and status["max_queue"] == 64,
+              f"the w8a8 server does not report its options: {status}")
+        steps0, before = status["engine"]["chunk_steps"], status["kernel_launches"]
+        served = [gen_request(np, base, p) for p in rest_prompts]
+        after_status = http(base + "/health/status")["jsonData"]
+    finally:
+        stop_server(proc)
+        logfile.close()
+    served_steps = (sum(int(k) * v for k, v in after_status["engine"]["chunk_steps"].items())
+                    - sum(int(k) * v for k, v in steps0.items()))
+    served_k4 = after_status["kernel_launches"].get("paged_decode_stream", 0) - before.get("paged_decode_stream", 0)
+    check(served_k4 == LM_CONFIG["num_layers"] * served_steps,
+          f"the served w8a8 path launched K4 {served_k4} times over {served_steps} steps")
+    ref = sched_engine(torch, PagedEngine, params, precision="w8a8", max_queue=64, chunk_token_budget=SCHED_BUDGET)
+    local = [ref.generate(p, max_new_tokens=LM_MAX_NEW) for p in rest_prompts]
+    del ref
+    same = [bool((a == b).all()) for a, b in zip(served, local)]
+    log(f"18a served w8a8 StreamingLM (cache on, max_queue 64, budget {SCHED_BUDGET}): ready {ready_s:.1f} s after "
+        f"launch, {sum(same)}/{len(same)} sequential rows bit-identical to an in-process w8a8 engine; K4 "
+        f"{served_k4} = {LM_CONFIG['num_layers']} x {served_steps} steps")
+    check(all(same), f"served w8a8 rows differ from the in-process engine: {same}")
+
+    rates = {name: [] for name in lanes}
+    for rep in range(SCHED_RATE_REPS):
+        for name in (list(lanes) if rep % 2 == 0 else list(lanes)[::-1]):
+            eng = engines[name]
+
+            def timed(max_new, eng=eng):
+                sched_sync(torch)
+                t0 = time.perf_counter()
+                drive(eng, prompts, max_new)
+                sched_sync(torch)
+                return time.perf_counter() - t0
+
+            t_full = tally.run(eng, lambda: timed(LM_MAX_NEW), f"18a {name} decode")
+            t_one = timed(1)
+            rates[name].append(len(prompts) * (LM_MAX_NEW - 1) / max(t_full - t_one, 1e-9))
+
+    eng = engines["w8a8"]
+    for p in prompts:
+        eng.submit(p, max_new_tokens=LM_MAX_NEW)
+    eng.step()  # admission, prefill and the first chunk: the next step is one decode chunk alone
+    report = tally.run(eng, lambda: w8a8.int8_lowering_report(eng.step), "18a w8a8 chunk under the profiler")
+    eng.run()
+    log(f"18a int8_lowering_report of one w8a8 decode chunk: verdict {report['verdict']}, int8 {report['int8_ops']}, "
+        f"float {report['float_ops']}, widened {report['int_widened_ops']}, backend {report['backend']}")
+    for line in report["evidence"]:
+        log(f"  {line}")
+    check(report["verdict"] == "int8" and report["int8_majority"], f"the w8a8 chunk is not int8: {report}")
+
+    step_tokens = torch.from_numpy(rng.integers(0, V, len(prompts))).to(SCHED_DEVICE)
+    logits = {}
+    for name, e in engines.items():
+        logits[name] = first_step_logits(torch, np, e, prompts, step_tokens)
+        e.run()
+    ref = logits["bf16"]
+    rel = float((logits["int8w"] - ref).norm() / ref.norm())
+    cos = float(torch.nn.functional.cosine_similarity(logits["int8w"], ref, dim=-1).min())
+    top1 = float((logits["w8a8"].argmax(-1) == ref.argmax(-1)).double().mean())
+    w_rel = float((logits["w8a8"] - ref).norm() / ref.norm())
+    del engines
+    numbers = {
+        "weight_bytes": wbytes, "decode_tokens_per_s": {k: max(v) for k, v in rates.items()},
+        "decode_tokens_per_s_runs": rates, "int8w_rel_l2": rel, "int8w_min_cos": cos, "w8a8_top1": top1,
+        "w8a8_rel_l2": w_rel, "report": report, "served_rows_identical": sum(same), "served_ready_s": ready_s,
+        "served_k4": served_k4, "served_steps": served_steps,
+    }
+    best = numbers["decode_tokens_per_s"]
+    log(f"18a lanes, 16 lanes, prompt {SCHED_PROMPT}, {LM_MAX_NEW} new: weight bytes {wbytes}; decode tokens/s "
+        f"bf16 {best['bf16']:.1f}, int8w {best['int8w']:.1f} ({best['int8w'] / best['bf16']:.3f}x), w8a8 "
+        f"{best['w8a8']:.1f} ({best['w8a8'] / best['bf16']:.3f}x); first step vs bf16: int8w rel L2 {rel:.3e} "
+        f"(limit {INT8W_VS_BF16_REL_L2}), min cosine {cos:.6f} (limit {INT8W_VS_BF16_MIN_COS}); w8a8 top-1 "
+        f"{top1:.4f} (limit {W8A8_MIN_TOP1}), rel L2 {w_rel:.3e} [{card}]")
+    check(rel <= INT8W_VS_BF16_REL_L2 and cos >= INT8W_VS_BF16_MIN_COS, "int8w first-step logits out of tolerance")
+    check(top1 >= W8A8_MIN_TOP1, f"w8a8 argmax agreement with bf16 too low: {top1}")
+    return numbers
+
+
+def prefix_cache_lanes(torch, np, PagedEngine, params, params32, tally, card):
+    """18b: a shared 256-token system prompt, cache on against off."""
+    rng = np.random.default_rng(SEED + 181)
+    V = LM_CONFIG["vocab_size"]
+    system = rng.integers(0, V, SCHED_SYSTEM)
+    prompts = [np.concatenate([system, rng.integers(0, V, int(n))])
+               for n in rng.integers(SCHED_SUFFIX[0], SCHED_SUFFIX[1] + 1, LM_ENGINE["max_slots"])]
+    engines = {True: sched_engine(torch, PagedEngine, params, prefix_cache=True),
+               False: sched_engine(torch, PagedEngine, params, prefix_cache=False)}
+    for eng in (engines[True], engines[True], engines[False]):
+        drive(eng, prompts, LM_MAX_NEW)  # warm: the cache-on engine's second run takes the hit path once
+    runs, tokens = [], {}
+    for on in (True, False, False, True):
+        eng = engines[on]
+        before = eng.engine_stats()
+        sched_sync(torch)
+        t0 = time.perf_counter()
+        tokens[on] = tally.run(eng, lambda eng=eng: drive(eng, prompts, LM_MAX_NEW), f"18b cache {on}")
+        wall = time.perf_counter() - t0
+        d = stat_delta(eng, before)
+        runs.append({"cache": on, "wall_s": wall, "tokens_per_s": len(prompts) * LM_MAX_NEW / wall, **d})
+        log(f"18b cache {'on ' if on else 'off'}: hits {d['prefix_hits']}, tokens saved {d['prefix_tokens_saved']}, "
+            f"prefill tokens computed {d['prefill_tokens']}, wall {wall:.3f} s, {runs[-1]['tokens_per_s']:.1f} tokens/s")
+    on_runs = [r for r in runs if r["cache"]]
+    check(all(r["prefix_hits"] == len(prompts) and r["prefix_tokens_saved"] == len(prompts) * SCHED_SYSTEM
+              for r in on_runs), f"the warm cache did not serve every system prompt: {on_runs}")
+    bf16_same = float(np.mean([bool((a == b).all()) for a, b in zip(tokens[True], tokens[False])]))
+    del engines
+    e32 = {on: sched_engine(torch, PagedEngine, params32, dtype="float32", prefix_cache=on) for on in (True, False)}
+    drive(e32[True], prompts, LM_MAX_NEW)  # warm the cache
+    t32 = {on: tally.run(e, lambda e=e: drive(e, prompts, LM_MAX_NEW), f"18b f32 cache {on}") for on, e in e32.items()}
+    hits32 = e32[True].engine_stats()["prefix_hits"]
+    del e32
+    f32_same = all(bool((a == b).all()) for a, b in zip(t32[True], t32[False]))
+    ratio = (statistics.mean(r["tokens_per_s"] for r in on_runs)
+             / statistics.mean(r["tokens_per_s"] for r in runs if not r["cache"]))
+    log(f"18b f32 greedy tokens cache on == off: {f32_same} ({hits32} hits); bf16 rows equal on vs off "
+        f"{bf16_same:.3f}; tokens/s on / off {ratio:.3f} [{card}]")
+    check(f32_same and hits32 >= len(prompts), "f32 greedy tokens differ with the prefix cache on")
+    return {"runs": runs, "tokens_per_s_ratio": ratio, "bf16_rows_equal": bf16_same, "f32_equal": f32_same}
+
+
+def ladder_and_pressure(torch, np, PagedEngine, params32, tally, card):
+    """18c: the steps ladder with nothing queued; a pool of 1 + 16 x 3 pages."""
+    rng = np.random.default_rng(SEED + 182)
+    prompts = [rng.integers(0, LM_CONFIG["vocab_size"], int(n))
+               for n in rng.integers(SCHED_TIGHT_PROMPT[0], SCHED_TIGHT_PROMPT[1] + 1, LM_ENGINE["max_slots"])]
+    out = {}
+    for name, kw in (("full", {}), ("tight", {"num_pages": SCHED_TIGHT_PAGES})):
+        eng = sched_engine(torch, PagedEngine, params32, dtype="float32", max_steps_per_call=SCHED_MAX_STEPS, **kw)
+        sched_sync(torch)
+        t0 = time.perf_counter()
+        tokens = tally.run(eng, lambda eng=eng: drive(eng, prompts, LM_MAX_NEW), f"18c {name} pool")
+        s = eng.engine_stats()
+        out[name] = {"tokens": tokens, "chunk_steps": s["chunk_steps"], "stalls": s["stalls"],
+                     "evictions": s["evictions"], "wall_s": time.perf_counter() - t0}
+        del eng
+        log(f"18c {name} pool ({kw.get('num_pages', 'default')} pages), max_steps_per_call {SCHED_MAX_STEPS}: chunk "
+            f"lengths {dict(sorted(s['chunk_steps'].items()))}, stalls {s['stalls']}, evictions {s['evictions']}, "
+            f"wall {out[name]['wall_s']:.3f} s")
+    same = all(bool((a == b).all()) for a, b in zip(out["full"]["tokens"], out["tight"]["tokens"]))
+    log(f"18c f32 tokens of the shrunk pool == the full pool's: {same} [{card}]")
+    check(max(out["full"]["chunk_steps"]) > LM_ENGINE["steps_per_call"], "the ladder never doubled the chunk")
+    check(out["tight"]["stalls"] > 0 and out["tight"]["evictions"] > 0, "the shrunk pool neither stalled nor evicted")
+    check(same, "the shrunk pool changed f32 tokens")
+    return {k: {kk: vv for kk, vv in v.items() if kk != "tokens"} for k, v in out.items()}
+
+
+def slo_lanes(torch, np, PagedEngine, params, tally, card):
+    """18d: a bounded queue, priorities 0 and 2, spent and short deadlines."""
+    rng = np.random.default_rng(SEED + 183)
+    prompts = rng.integers(0, LM_CONFIG["vocab_size"], (SCHED_SUBMITS, SCHED_PROMPT))
+    slots = LM_ENGINE["max_slots"]
+    with knob_env(SELDON_TPU_PAGED_DEBUG="1"):
+        eng = sched_engine(torch, PagedEngine, params, max_queue=SCHED_QUEUE)
+    check(eng._debug_invariants, "the allocator audit is off")
+    outcomes = []  # (priority, stream or None, error reason or None)
+
+    def fill_then_burst():
+        for p in prompts[:slots]:
+            outcomes.append((0, eng.submit(p, max_new_tokens=LM_MAX_NEW), None))
+        eng.step()  # every slot taken by priority 0
+        for i, p in enumerate(prompts[slots:]):
+            priority = 2 if i % 2 else 0
+            deadline = (time.monotonic() - 1.0 if i % 8 == 0
+                        else time.monotonic() + SCHED_SHORT_DEADLINE_S if i % 8 == 1 else None)
+            try:
+                outcomes.append((priority, eng.submit(p, max_new_tokens=LM_MAX_NEW, priority=priority,
+                                                      deadline=deadline), None))
+            except Exception as e:  # noqa: BLE001 — each refusal is checked below
+                outcomes.append((priority, None, getattr(e, "reason", repr(e))))
+        time.sleep(2 * SCHED_SHORT_DEADLINE_S)
+        eng.run()
+
+    tally.run(eng, fill_then_burst, "18d SLO")
+    with eng._lock:
+        eng._check_invariants_locked()
+    s = eng.engine_stats()
+    ends = {"result": 0, "SHED": 0, "DEADLINE_EXCEEDED": 0}
+    waits = {0: [], 2: []}
+    for priority, st, reason in outcomes:
+        if st is not None:
+            reason = None if st.error is None else getattr(st.error, "reason", repr(st.error))
+            status = None if st.error is None else getattr(st.error, "status_code", None)
+            check(reason is None or (reason, status) in (("SHED", 503), ("DEADLINE_EXCEEDED", 504)),
+                  f"a stream ended with an unexpected error: {st.error!r}")
+            if reason is None:
+                check(st.result is not None and st.result.shape == (LM_MAX_NEW,), "a stream ended with no result")
+                waits[priority].append((st.t_prefill_start - st.t_submit) * 1e3)
+        check(reason in (None, "SHED", "DEADLINE_EXCEEDED"), f"a submission ended with {reason}")
+        ends["result" if reason is None else reason] += 1
+    counters = {k: s[k] for k in ("shed", "expired", "preempted", "restored")}
+    check(sum(ends.values()) == SCHED_SUBMITS and waits[0] and waits[2], f"submissions without an end: {ends}")
+    p50 = {k: pct(v, 0.5) for k, v in waits.items()}
+    del eng
+    log(f"18d {SCHED_SUBMITS} submissions, max_queue {SCHED_QUEUE}, audit on: ends {ends}; counters {counters}; "
+        f"queue wait p50 priority 2 {p50[2]:.2f} ms, priority 0 {p50[0]:.2f} ms [{card}]")
+    check(all(v > 0 for v in counters.values()), f"an SLO counter stayed 0: {counters}")
+    return {"ends": ends, "counters": counters, "wait_p50_ms": p50}
+
+
+def chunked_prefill_lanes(torch, np, PagedEngine, params, params32, tally, card):
+    """18e: chunk_token_budget=512, 4 prompts of 900 beside 12 decoding streams."""
+    rng = np.random.default_rng(SEED + 184)
+    V = LM_CONFIG["vocab_size"]
+    shorts = list(rng.integers(0, V, (LM_ENGINE["max_slots"] - 4, SCHED_PROMPT)))
+    longs = list(rng.integers(0, V, (4, SCHED_LONG)))
+
+    def budgeted(eng):
+        short = [eng.submit(p, max_new_tokens=SCHED_SHORT_NEW) for p in shorts]
+        while any(st.prefilled < len(st.prompt) for st in short):
+            eng.step()
+        long = [eng.submit(p, max_new_tokens=SCHED_LONG_NEW) for p in longs]
+        waves = []
+        while eng.has_work():
+            before = eng.engine_stats()
+            prefilling = any(st.prefilled < len(st.prompt) for st in long)
+            decoding = [st for st in short if st.result is None]
+            eng.step()
+            d = stat_delta(eng, before, ("prefill_tokens", "tokens"))
+            waves.append((d["prefill_tokens"], d["tokens"], prefilling and bool(decoding)))
+        for st in short + long:
+            check(st.error is None and st.result is not None, f"a stream failed: {st.error}")
+        return [st.result for st in short + long], waves
+
+    eng = sched_engine(torch, PagedEngine, params, chunk_token_budget=SCHED_BUDGET)
+    _, waves = tally.run(eng, lambda: budgeted(eng), "18e budget")
+    del eng
+    biggest = max(p + d for p, d, _ in waves)
+    overlap = [(p, d) for p, d, both in waves if both]
+    log(f"18e budget {SCHED_BUDGET}: {len(waves)} waves, the largest {biggest} tokens; {len(overlap)} waves while "
+        f"the 900-token prompts prefilled, decode tokens in each {[d for _, d in overlap]}, prefill "
+        f"{[p for p, _ in overlap]}")
+    check(biggest <= SCHED_BUDGET, f"a wave carried {biggest} tokens, over the budget {SCHED_BUDGET}")
+    check(overlap and all(d > 0 for _, d in overlap), "the decoding streams stalled while the long prompts prefilled")
+    e32 = sched_engine(torch, PagedEngine, params32, dtype="float32", chunk_token_budget=SCHED_BUDGET)
+    on, _ = tally.run(e32, lambda: budgeted(e32), "18e f32 budget")
+    del e32
+    off = sched_engine(torch, PagedEngine, params32, dtype="float32", chunk_token_budget=0)
+    ref = tally.run(off, lambda: drive(off, shorts, SCHED_SHORT_NEW) + drive(off, longs, SCHED_LONG_NEW),
+                    "18e f32 no budget")
+    del off
+    same = all(bool((a == b).all()) for a, b in zip(on, ref))
+    log(f"18e f32 tokens with the budget == without: {same} [{card}]")
+    check(same, "chunked prefill changed f32 tokens")
+    return {"waves": len(waves), "largest_wave_tokens": biggest, "overlap_waves": len(overlap),
+            "overlap_decode_tokens": [d for _, d in overlap]}
+
+
+def scheduler_paths(torch, np, kernels, w8a8, PagedEngine, load_lm_params, card):
+    """Phase 18: the JAX engine's scheduler and precision lanes on the
+    generation config (18a-e); every counted run launches K4 once per
+    layer per decode step."""
+    t0 = time.perf_counter()
+    tally = K4Tally(torch, kernels)
+    params = load_lm_params("", LM_CONFIG, 0, torch.device(SCHED_DEVICE))
+    params32 = load_lm_params("", LM_CONFIG, SEED + 5, torch.device(SCHED_DEVICE))
+    numbers = {"18a": precision_lanes(torch, np, w8a8, PagedEngine, params, tally, card)}
+    numbers["18b"] = prefix_cache_lanes(torch, np, PagedEngine, params, params32, tally, card)
+    numbers["18c"] = ladder_and_pressure(torch, np, PagedEngine, params32, tally, card)
+    numbers["18d"] = slo_lanes(torch, np, PagedEngine, params, tally, card)
+    numbers["18e"] = chunked_prefill_lanes(torch, np, PagedEngine, params, params32, tally, card)
+    if SCHED_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    numbers.update(k4_launches=tally.launches, decode_steps=tally.steps, seconds=time.perf_counter() - t0)
+    log(f"phase 18: K4 launched {tally.launches} = {LM_CONFIG['num_layers']} x {tally.steps} decode steps over every "
+        f"counted run, {numbers['seconds']:.1f} s [{card}]")
+    return numbers
+
+
 def run() -> int:
     try:
         import torch
@@ -4302,7 +4676,7 @@ def run() -> int:
             with knob_env(SELDON_TPU_KV_DTYPE="int8"):
                 return PagedEngine(params, dtype="bfloat16", device="cuda", max_adapters=2, lora_rank=LORA_RANK,
                                    weight_registry=adapter_registry(WeightRegistry, make_lora_params),
-                                   **LM_CONFIG, **LM_ENGINE)
+                                   **LM_CONFIG, **LM_ENGINE, **NO_PREFIX_CACHE)
 
         q_engine = engine_numbers(torch, np, PagedEngine, load_lm_params, card, make_engine=int8_adapter_engine,
                                   adapters=(None, "a1", "a2"), what="bf16 int8 pool + adapters (base/a1/a2)")
@@ -4314,6 +4688,7 @@ def run() -> int:
         a2_2_numbers = a2_2_paths(torch, np, kernels, resnet, CudaServer, card)
         a5_a6_numbers = a5_a6_paths(torch, np, kernels, resnet, vit, CudaServer, PagedEngine, load_lm_params,
                                     WeightRegistry, make_lora_params, mem_bytes_per_s, card)
+        sched_numbers = scheduler_paths(torch, np, kernels, w8a8, PagedEngine, load_lm_params, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4343,6 +4718,7 @@ def run() -> int:
         "a4": a4_numbers,
         "a2_2": a2_2_numbers,
         "a5_a6": a5_a6_numbers,
+        "scheduler": sched_numbers,
         "seconds": time.perf_counter() - t_start,
     }
     log(json.dumps(result))
@@ -4393,6 +4769,11 @@ def run() -> int:
             "ragged": {"ms": rag[impl], "plain_ms": rag["plain_ms"], "library_ms": rag["library_ms"],
                        "bound_ms": rag["bound_ms"], "lengths": RAGGED_LENGTHS},
         })
+        if impl == "stream":
+            kernel_line["kernels"][-1]["launches_on_phase18"] = {
+                "launches": sched_numbers["k4_launches"], "decode_steps": sched_numbers["decode_steps"],
+                "path": "in-process PagedEngine: bf16 / int8w / w8a8, prefix cache, steps ladder and stall/evict, "
+                        "SLO queue, chunked prefill (phase 18)"}
     serving, causal = flash_timings["serving"], flash_timings["causal"]
     kernel_line["kernels"].append({
         "name": "flash_attention",

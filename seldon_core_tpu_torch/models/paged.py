@@ -39,28 +39,38 @@ decoding.
   decode steps, sampling included, run as device work, and its tokens
   come back in one device-to-host copy.
 
-Decisions of this slice (the JAX engine has more machinery):
+* **Scheduler** — the JAX engine's, under its names: admission with
+  the prompt's pages from a refcounted allocator, growth a chunk at a
+  time, stall and then evict under pool pressure; a prefix index of
+  full prompt pages, hash-chained per weight set, shared by refcount
+  (``SELDON_TPU_PREFIX_CACHE``, on by default); the steps ladder
+  (``max_steps_per_call``); priorities, deadlines and the bounded queue
+  that sheds and preempts (``max_queue``); chunked prefill under a
+  token budget (``chunk_token_budget``).  ``SELDON_TPU_PAGED_DEBUG=1``
+  audits the allocator at every chunk boundary.
+* **Precision lanes** — ``quantize="int8"`` rests the kernels int8 and
+  dequantises them once per device call; ``precision="w8a8"`` makes
+  every projection and the head a ``W8A8Dense`` whose integers and
+  steps are fixed at construction, with dynamic per-token activation
+  scales, so no weight is quantised in a call or a step.
 
-* a stream is admitted only when the pages for its prompt plus
-  ``max_new_tokens`` are free (reserve at admission), so no stream
-  stalls or is evicted mid-decode;
+Decisions of this slice:
+
 * sampling draws from one ``torch.Generator`` per stream, seeded from
-  the stream's seed: greedy tokens equal the JAX engine's, sampled
-  tokens cannot equal ``jax.random``'s;
-* the prefix cache, chunked prefill, the steps ladder, the ring chunk,
-  speculative decoding, int8 weights, meshes, token streaming, drain
-  and migration raise, naming the later slice (``ROADMAP.md`` §A item
-  8);
+  the stream's seed when its prompt is whole (again after an eviction):
+  greedy tokens equal the JAX engine's, sampled tokens cannot equal
+  ``jax.random``'s;
+* the ring chunk, speculative decoding, meshes, token streaming, drain,
+  migration and the KV tier raise, naming the later slice
+  (``ROADMAP.md`` §A item 8);
 * ``model_uri`` and an adapter's ``{"uri": ...}`` name flax msgpack
   checkpoints, read without flax (``models/generate.py``,
-  ``utils/serialization.py``);
-* the adapter table keeps its pins in one refcount per slot (the JAX
-  engine's temporary pins exist for its allocator audit, which is not
-  ported).
+  ``utils/serialization.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import logging
@@ -69,7 +79,7 @@ import threading
 import time
 import zlib
 from collections import OrderedDict, deque
-from typing import Any, Deque, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,9 +89,13 @@ from seldon_core_tpu_torch.models.generate import _buckets_for, load_lm_params
 from seldon_core_tpu_torch.models.transformer import TransformerBlock, TransformerLM
 from seldon_core_tpu_torch.ops import kernels
 from seldon_core_tpu_torch.ops.lora import LORA_TARGETS, LoraPool, make_lora_params, target_dims
+from seldon_core_tpu_torch.ops.surgery import (QuantizedKernel, quantize_mode_for, quantize_params,
+                                               validate_precision, validate_quantize_mode)
+from seldon_core_tpu_torch.ops.w8a8 import W8A8Dense, quantize_weight
 from seldon_core_tpu_torch.runtime import knobs as _knobs
 from seldon_core_tpu_torch.runtime.component import MicroserviceError, TPUComponent, gauge_metric
-from seldon_core_tpu_torch.utils.deadlines import normalize_adapter
+from seldon_core_tpu_torch.utils.deadlines import (clamp_priority, current_deadline, deadline_exceeded,
+                                                   normalize_adapter)
 
 logger = logging.getLogger(__name__)
 
@@ -152,18 +166,12 @@ def paged_kv_int8(mesh_absent: bool, chunk_impl: str) -> bool:
 # later slices
 # ---------------------------------------------------------------------------
 
-# option -> where ROADMAP.md §A item 8 queues it
+# option -> where ROADMAP.md §A queues it
 _LATER_SLICES = {
     "SELDON_TPU_CHUNK_IMPL=ring": "8.1, the ring chunk / ChunkTransformerLM",
-    "prefix_cache": "8.2, the prefix cache",
-    "max_steps_per_call": "8.3, the steps ladder and evict/stall",
-    "chunk_token_budget": "8.4, chunked prefill",
-    "max_queue": "8.5, SLO/deadlines and the bounded queue",
     "predict_stream": "8.6, predict_stream",
     "speculative": "8.9, speculative decoding",
     "drain": "8.10, drain/migration/KV tier",
-    "quantize": "7.1, the generation precision lanes",
-    "precision": "7.1, the generation precision lanes",
     "tp/dp/mesh": "queue item 12, parallel/*",
 }
 
@@ -177,33 +185,52 @@ def _refuse(option: str) -> MicroserviceError:
     )
 
 
-def check_ported_options(*, prefix_cache=None, chunk_token_budget=0, steps_per_call=8,
-                         max_steps_per_call=0, speculative=None, quantize="", precision="", tp=None, dp=None,
-                         mesh=None, max_queue=0) -> None:
+def check_ported_options(*, speculative=None, tp=None, dp=None, mesh=None) -> None:
     """Raise for every option of the JAX engine the port does not run
-    yet, and for the env knobs that select one (the ring chunk, the
-    prefix cache), and for an unknown ``SELDON_TPU_KV_DTYPE``."""
-    if prefix_cache is None:
-        prefix_cache = _knobs.flag("SELDON_TPU_PREFIX_CACHE")
-    checks = (
-        ("prefix_cache", bool(prefix_cache)),
-        ("chunk_token_budget", int(chunk_token_budget or 0) > 0),
-        ("max_steps_per_call", int(max_steps_per_call or 0) > int(steps_per_call)),
-        ("speculative", bool(speculative)),
-        ("quantize", bool(quantize)),
-        ("precision", (precision or "bf16") != "bf16"),
-        ("tp/dp/mesh", int(tp or 0) > 1 or int(dp or 0) > 1 or bool(mesh)),
-        ("max_queue", int(max_queue or 0) > 0),
-    )
-    for option, set_ in checks:
-        if set_:
-            raise _refuse(option)
+    yet (speculative decoding, meshes, the ring chunk) and for an
+    unknown ``SELDON_TPU_KV_DTYPE``."""
+    if speculative:
+        raise _refuse("speculative")
+    if int(tp or 0) > 1 or int(dp or 0) > 1 or bool(mesh):
+        raise _refuse("tp/dp/mesh")
     paged_kv_dtype_mode()
     chunk_impl = _knobs.raw("SELDON_TPU_CHUNK_IMPL", "") or "pool"
     if chunk_impl == "ring":
         raise _refuse("SELDON_TPU_CHUNK_IMPL=ring")
     if chunk_impl != "pool":
         raise ValueError(f"SELDON_TPU_CHUNK_IMPL={chunk_impl!r}: supported values are 'pool' and 'ring'")
+
+
+# ---------------------------------------------------------------------------
+# the prefix index's keys (the JAX package's paged.py:1162-1197)
+# ---------------------------------------------------------------------------
+
+# the chain root of the base model's weights; an adapter chains off a
+# root of its own (PagedEngine._prefix_root_for)
+_PREFIX_ROOT = 0x9E3779B97F4A7C15
+
+
+def prefix_chain_key(parent: int, tokens: Tuple[int, ...]) -> int:
+    """Key of the prefix ending at a full page: ``parent`` is the key of
+    the page before (``_PREFIX_ROOT`` for page 0), ``tokens`` the page's
+    ids.  Module-level so a test can make every key collide: entries
+    compare their tokens before sharing, so a collision degrades to a
+    private prefill, never to another stream's K/V."""
+    return hash((parent, tokens))
+
+
+class _CachedPrefix:
+    """One registered full prompt page of the prefix index: its K/V is a
+    function of the token chain its key encodes, so any stream whose
+    prompt starts with that chain may map the page read-only."""
+
+    __slots__ = ("key", "page", "tokens", "parent")
+
+    def __init__(self, key: int, page: int, tokens: Tuple[int, ...], parent: int):
+        self.key = key
+        self.page = page
+        self.tokens = tokens
+        self.parent = parent
 
 
 # ---------------------------------------------------------------------------
@@ -303,9 +330,26 @@ class PagedTransformerBlock(TransformerBlock):
 
 class PagedTransformerLM(TransformerLM):
     """TransformerLM forward against a paged pool; the same parameters as
-    :class:`TransformerLM` (one ``state_dict`` loads into either)."""
+    :class:`TransformerLM` (one ``state_dict`` loads into either).
+
+    ``precision="w8a8"`` makes every projection (qkv, attn_proj, mlp_in,
+    mlp_out) and the head a :class:`ops.w8a8.W8A8Dense` (the JAX paged
+    LM's ``_dense`` factory); the ``state_dict`` stays the plain one."""
 
     block_cls = PagedTransformerBlock
+
+    def __init__(self, *args, precision: str = "bf16", **kwargs):
+        super().__init__(*args, **kwargs)
+        if precision not in ("bf16", "w8a8"):
+            raise ValueError(f"precision must be 'bf16' or 'w8a8', got {precision!r}")
+        self.precision = precision
+        if precision == "w8a8":
+            dtype = self.head.weight.dtype
+            for block in self.blocks:
+                for name in ("qkv", "attn_proj", "mlp_in", "mlp_out"):
+                    dense = getattr(block, name)
+                    setattr(block, name, W8A8Dense(dense.in_features, dense.out_features, dtype=dtype))
+            self.head = W8A8Dense(self.head.in_features, self.head.out_features, dtype=dtype)
 
     def forward(self, tokens, positions, pages_k, pages_v, block_tables, lengths, *,
                 use_kernel: bool = False, select: Optional[torch.Tensor] = None, kv_scales=None, lora=None,
@@ -463,8 +507,9 @@ class _Stream:
     """One in-flight generation request bound to a slot."""
 
     __slots__ = ("req_id", "prompt", "max_new", "temperature", "top_k", "eos_id", "seed", "tokens",
-                 "event", "result", "error", "slot", "pages", "cancelled", "generator", "adapter_slot",
-                 "adapter_pinned")
+                 "event", "result", "error", "slot", "pages", "cancelled", "generator", "adapter",
+                 "adapter_slot", "adapter_pinned", "cached_len", "prefilled", "priority", "deadline",
+                 "preempted", "t_submit", "t_prefill_start", "t_first_token", "t_finish")
 
     def __init__(self, req_id, prompt, max_new, temperature, top_k, eos_id, seed, adapter_slot=0):
         self.req_id = req_id
@@ -482,11 +527,31 @@ class _Stream:
         self.pages: List[int] = []
         self.cancelled = False
         # the stream's sampler, seeded from `seed` when its prefill ends
+        # (again after an eviction, so a re-derived run draws the same)
         self.generator: Optional[torch.Generator] = None
-        # the adapter pool slot it decodes with (0: the base model), and
-        # whether it still holds its pin on that slot (released once)
+        # the adapter it decodes with (None: the base model), its pool
+        # slot (0: the zero adapter), and whether it still holds its pin
+        # on that slot (released once)
+        self.adapter: Optional[str] = None
         self.adapter_slot = int(adapter_slot)
         self.adapter_pinned = bool(adapter_slot)
+        # prompt tokens resident in shared prefix pages at admission
+        # (page-aligned), and prompt tokens whose K/V is in the pool:
+        # cached_len at admission, advanced by each prefill slice; the
+        # stream decodes once prefilled == len(prompt)
+        self.cached_len = 0
+        self.prefilled = 0
+        # SLO terms: admission / shedding / preemption order (higher
+        # wins), absolute time.monotonic() expiry (None: none), and
+        # whether a preemption evicted it (its re-admission is a restore)
+        self.priority = 0
+        self.deadline: Optional[float] = None
+        self.preempted = False
+        # wall-clock stamps: queue wait = t_prefill_start - t_submit
+        self.t_submit = 0.0
+        self.t_prefill_start = 0.0
+        self.t_first_token = 0.0
+        self.t_finish = 0.0
 
 
 def _resolve_dtype(dtype) -> torch.dtype:
@@ -501,14 +566,55 @@ def _resolve_dtype(dtype) -> torch.dtype:
                                 status_code=400, reason="BAD_DTYPE") from None
 
 
+def _precision_modes(quantize: str, precision: str):
+    """``(precision, quantize)`` as the JAX engine resolves them: both
+    validated, ``precision`` defaulting to ``bf16``, and ``w8a8`` /
+    ``int8w`` implying int8 at rest.  A bad value is 400 ``BAD_QUANTIZE``."""
+    try:
+        precision = validate_precision(precision or "") or "bf16"
+        quantize = validate_quantize_mode(quantize or "") or quantize_mode_for(precision)
+    except ValueError as exc:
+        raise MicroserviceError(str(exc), status_code=400, reason="BAD_QUANTIZE") from exc
+    return precision, quantize
+
+
+@contextlib.contextmanager
+def _swapped_weights(module: torch.nn.Module, tensors: Dict[str, torch.Tensor]):
+    """``module``'s parameters named in ``tensors`` (``state_dict`` keys)
+    replaced by those tensors for the block, then put back."""
+    saved = []
+    for key, t in tensors.items():
+        owner, _, leaf = key.rpartition(".")
+        sub = module.get_submodule(owner)
+        saved.append((sub, leaf, sub._parameters[leaf]))
+        sub._parameters[leaf] = t
+    try:
+        yield
+    finally:
+        for sub, leaf, p in saved:
+            sub._parameters[leaf] = p
+
+
 class PagedEngine:
     """Continuous-batching decode engine over a paged K/V pool.
 
     ``submit()`` from any thread; ``step()`` (or the decode loop of
     :class:`StreamingLM`) admits queued streams, prefills them by prompt
-    bucket, and advances every active stream by ``steps_per_call``
-    tokens in one chunk.  ``params`` is a ``TransformerLM`` state_dict
+    bucket, and advances every decoding stream by ``steps_per_call``
+    tokens in one chunk (doubling up to ``max_steps_per_call`` while
+    nothing waits).  ``params`` is a ``TransformerLM`` state_dict
     (``load_lm_params`` or ``models.convert.lm_params_from_flax``).
+
+    The JAX engine's scheduler, under its names: a refcounted page
+    allocator with a prefix index (``prefix_cache``, default
+    ``SELDON_TPU_PREFIX_CACHE``), admission with the prompt's pages and
+    growth a chunk at a time (stall, then evict, under pool pressure),
+    priorities and deadlines with a bounded queue (``max_queue`` /
+    ``SELDON_TPU_MAX_QUEUE``) that sheds and preempts, and chunked
+    prefill under a token budget (``chunk_token_budget`` /
+    ``SELDON_TPU_CHUNK_TOKEN_BUDGET``).  ``quantize="int8"`` rests the
+    kernels int8 and dequantises them once per device call;
+    ``precision="w8a8"`` runs every projection int8 x int8.
 
     ``max_adapters`` (``SELDON_TPU_MAX_ADAPTERS`` when 0) slots of rank
     ``lora_rank`` serve LoRA adapters, resolved by name through
@@ -545,13 +651,10 @@ class PagedEngine:
         lora_rank: int = 8,
         weight_registry: Any = None,
     ):
-        check_ported_options(
-            prefix_cache=prefix_cache, chunk_token_budget=chunk_token_budget, steps_per_call=steps_per_call,
-            max_steps_per_call=max_steps_per_call, speculative=speculative, quantize=quantize,
-            precision=precision, tp=tp, dp=dp, mesh=mesh, max_queue=max_queue,
-        )
+        check_ported_options(speculative=speculative, tp=tp, dp=dp, mesh=mesh)
         if max_len % page_size:
             raise ValueError(f"max_len {max_len} must be a multiple of page_size {page_size}")
+        self.precision, self.quantize = _precision_modes(quantize, precision)
         self.device = device if isinstance(device, torch.device) else resolve_device(device)
         self.dtype = _resolve_dtype(dtype)
         self.vocab_size = int(vocab_size)
@@ -560,15 +663,19 @@ class PagedEngine:
         self.pages_per_stream = self.max_len // self.page_size
         self.max_slots = int(max_slots)
         self.steps_per_call = int(steps_per_call)
+        # the saturated-decode ladder: with nothing queued, chunks double
+        # up to max_steps (a waiting queue pins the short chunk)
+        self.max_steps = max(self.steps_per_call, int(max_steps_per_call or 0))
         # default pool = worst case (every slot full-length) + trash page
         self.num_pages = int(num_pages or self.max_slots * self.pages_per_stream + 1)
         self.prompt_buckets = _buckets_for(self.max_len)
         self.module = PagedTransformerLM(
             vocab_size=vocab_size, d_model=d_model, num_layers=num_layers, num_heads=num_heads,
-            max_len=max_len, dtype=self.dtype,
+            max_len=max_len, dtype=self.dtype, precision="w8a8" if self.precision == "w8a8" else "bf16",
         )
         self.module.load_state_dict(params)
         self.module = self.module.to(self.device).eval().requires_grad_(False)
+        self._init_precision(params)
         head_dim = d_model // num_heads
         pool_shape = (num_layers, self.num_pages, self.page_size, num_heads, head_dim)
         # int8 pool: pages rest int8 with one float32 scale per page per
@@ -599,20 +706,57 @@ class PagedEngine:
         self._step_lock = threading.Lock()
         # host bookkeeping, guarded by _lock
         self._lock = threading.Lock()
+        # the refcounted page allocator.  A non-trash page is free (on
+        # _free_pages, refcount 0), mapped (refcount = the live block
+        # tables holding it; a shared prefix page counts once per
+        # stream) or cached (refcount 0 but registered in the prefix
+        # index: parked on the _lru, oldest first, and reclaimed by
+        # _alloc_locked under pressure)
         self._free_pages: Deque[int] = deque(range(1, self.num_pages))  # page 0 = trash
+        self._page_ref = np.zeros((self.num_pages,), np.int32)
+        self._prefix_index: Dict[int, _CachedPrefix] = {}
+        self._page_entry: Dict[int, _CachedPrefix] = {}
+        self._lru: "OrderedDict[int, _CachedPrefix]" = OrderedDict()
+        if prefix_cache is None:
+            prefix_cache = _knobs.flag("SELDON_TPU_PREFIX_CACHE")
+        self._prefix_cache_enabled = bool(prefix_cache)
+        # SELDON_TPU_PAGED_DEBUG=1: the allocator audit at every chunk boundary
+        self._debug_invariants = _knobs.flag("SELDON_TPU_PAGED_DEBUG")
+        # run queue (deque + identity set); bounded when max_queue > 0
+        if not max_queue:
+            max_queue = int(_knobs.raw("SELDON_TPU_MAX_QUEUE", "0") or 0)
+        self.max_queue = max(0, int(max_queue))
+        # chunked prefill: each wave carries at most this many tokens,
+        # decode first, then page-aligned prompt slices (0: monolithic)
+        if not chunk_token_budget:
+            chunk_token_budget = int(_knobs.raw("SELDON_TPU_CHUNK_TOKEN_BUDGET", "0") or 0)
+        self.chunk_token_budget = max(0, int(chunk_token_budget))
+        if self.chunk_token_budget:
+            floor = self.page_size + self.steps_per_call
+            if self.chunk_token_budget < floor:
+                logger.warning("SELDON_TPU_CHUNK_TOKEN_BUDGET=%d cannot cover one prefill page plus one decode "
+                               "chunk; clamping to %d", self.chunk_token_budget, floor)
+                self.chunk_token_budget = floor
         self._queue: Deque[_Stream] = deque()
+        self._queued: set = set()
         self._slots: List[Optional[_Stream]] = [None] * self.max_slots
         self._block_tables = np.zeros((self.max_slots, self.pages_per_stream), np.int32)
         self._lengths = np.zeros((self.max_slots,), np.int32)
         self._next_id = 0
         self._closed = False
-        self._counters = {"chunks": 0, "tokens": 0, "prefills": 0, "completed": 0, "adapter_loads": 0,
-                          "adapter_hits": 0, "adapter_misses": 0, "adapter_evictions": 0}
+        self._counters = {"chunks": 0, "tokens": 0, "prefills": 0, "completed": 0, "evictions": 0, "stalls": 0,
+                          "prefix_hits": 0, "prefix_misses": 0, "prefix_evictions": 0, "prefix_tokens_saved": 0,
+                          "shed": 0, "expired": 0, "preempted": 0, "restored": 0,
+                          "prefill_tokens": 0, "prefill_chunks": 0, "weight_materializations": 0,
+                          "adapter_loads": 0, "adapter_hits": 0, "adapter_misses": 0, "adapter_evictions": 0}
+        # decode chunks by their step count (the ladder's trace)
+        self._chunk_steps: Dict[int, int] = {}
 
         # multi-LoRA: a slot-granular factor pool beside the KV pool (slot 0
         # = the zero adapter), and the adapter table, guarded by _lock:
         # name -> slot, per-slot pin counts, an LRU of resident refcount-0
-        # slots (reclaimed when a cold adapter needs one).
+        # slots (reclaimed when a cold adapter needs one), and the pins
+        # and installs of submits in flight (the audit counts them).
         # _adapter_io_lock serialises the slow load/install path so two
         # cold admissions of one adapter never install it twice.
         if not max_adapters:
@@ -627,6 +771,8 @@ class PagedEngine:
         self._adapter_ref = np.zeros((self.max_adapters + 1,), np.int32)
         self._adapter_free: List[int] = list(range(self.max_adapters, 0, -1))
         self._adapter_lru: "OrderedDict[int, str]" = OrderedDict()
+        self._adapter_temp_pins: Dict[int, int] = {}
+        self._adapter_installing: set = set()
         # adapter names whose registry pin this engine holds while they are
         # resident in its pool
         self._adapter_reg_pinned: set = set()
@@ -634,12 +780,83 @@ class PagedEngine:
         # each slot's adapter slot id (slot-major, like _block_tables)
         self._adapter_slots = np.zeros((self.max_slots,), np.int32)
 
+    # ---- precision lanes -----------------------------------------------------
+
+    def _init_precision(self, params: Dict[str, torch.Tensor]) -> None:
+        """Rest the kernels int8 when ``quantize="int8"``: the float32
+        checkpoint quantised per output channel (``ops/surgery.py``), the
+        module's float copies of those kernels dropped.
+
+        * ``int8w`` (``quantize="int8"`` at bf16 / f32 compute): the
+          kernels are dequantised to the compute dtype once per device
+          call (:meth:`_materialized`), as the JAX engine's program entry
+          does;
+        * ``w8a8``: each projection's ``W8A8Dense`` is frozen with the
+          integers and steps its call would compute from the float32
+          dequant (the JAX engine's re-quantisation of its f32
+          materialise, which gives the at-rest integers back), once
+          here, so no call and no step quantises a weight.  Kernels too
+          small to rest int8 are frozen from their float32 values, as
+          JAX quantises its f32 parameters."""
+        self.quantize_manifest: List[Dict[str, Any]] = []
+        self._qkernels: Dict[str, QuantizedKernel] = {}
+        state = {k: v.float() for k, v in params.items()} if self.quantize == "int8" else {}
+        if self.quantize == "int8":
+            qstate, self.quantize_manifest = quantize_params(self.module, state=state)
+            self._qkernels = {k: QuantizedKernel(v.q.to(self.device), v.scale.to(self.device))
+                              for k, v in qstate.items() if isinstance(v, QuantizedKernel)}
+        if self.precision == "w8a8":
+            for name, layer in self.module.named_modules():
+                if not isinstance(layer, W8A8Dense):
+                    continue
+                key = f"{name}.weight"
+                qk = self._qkernels.pop(key, None)
+                w = qk.dequantize(torch.float32) if qk is not None else params[key].float()
+                layer.freeze(*quantize_weight(w.to(self.device).t()))
+        for key in self._qkernels:
+            owner, _, leaf = key.rpartition(".")
+            sub = self.module.get_submodule(owner)
+            sub._parameters[leaf] = torch.nn.Parameter(sub._parameters[leaf].new_empty((0,)), requires_grad=False)
+
+    @contextlib.contextmanager
+    def _materialized(self):
+        """The compute-dtype kernels of an ``int8w`` engine for one device
+        call (a prefill wave or a decode chunk), never one step; a no-op
+        for every other lane."""
+        if not self._qkernels:
+            yield
+            return
+        weights = {k: qk.dequantize(self.dtype) for k, qk in self._qkernels.items()}
+        with self._lock:
+            self._counters["weight_materializations"] += 1
+        with _swapped_weights(self.module, weights):
+            yield
+
+    def weight_bytes(self) -> int:
+        """Bytes of the model's weights as they rest on the device (int8
+        kernels at one byte, their scales and the w8a8 steps included)."""
+        total = sum(t.numel() * t.element_size() for t in self.module.parameters())
+        for qk in self._qkernels.values():
+            total += qk.q.numel() * qk.q.element_size() + qk.scale.numel() * qk.scale.element_size()
+        for layer in self.module.modules():
+            if isinstance(layer, W8A8Dense) and layer.frozen is not None:
+                total += sum(t.numel() * t.element_size() for t in layer.frozen)
+        return total
+
     # ---- submission ------------------------------------------------------
 
     def submit(self, prompt, max_new_tokens: int = 32, temperature: float = 0.0, top_k: int = 0,
-               eos_id: int = -1, seed: int = 0, adapter: Optional[str] = None) -> _Stream:
+               eos_id: int = -1, seed: int = 0, adapter: Optional[str] = None, priority: int = 0,
+               deadline: Optional[float] = None) -> _Stream:
         """Queue one prompt (1-D int array).  Returns a stream handle whose
         ``event`` fires when ``result`` (``(max_new,)`` ids) is ready.
+
+        ``priority`` (higher wins) orders admission, shedding and
+        preemption; ``deadline`` is an absolute ``time.monotonic()``
+        expiry: a spent one fails at once with 504, a queued stream whose
+        budget dies is dropped before it reaches the device, and a
+        decoding one retires at the next chunk boundary.  Both default to
+        every stream equal and none expiring, the engine's FIFO.
 
         ``adapter`` names the LoRA weight set the stream decodes with: a
         resident adapter pins its pool slot for the stream's lifetime, a
@@ -657,26 +874,46 @@ class PagedEngine:
         if bucket is None or plen + max_new_tokens > self.max_len:
             raise MicroserviceError(f"prompt {plen} + max_new {max_new_tokens} exceeds max_len {self.max_len}",
                                     status_code=400, reason="SEQUENCE_TOO_LONG")
-        need = self._pages_for(plen, max_new_tokens)
+        # the ceiling is the whole non-trash pool: cached prefix pages are
+        # reclaimable, so a warm cache never shrinks the admissible size
+        need = -(-(plen + max_new_tokens) // self.page_size)
         if need > self.num_pages - 1:
             raise MicroserviceError(f"request needs {need} pages but the pool holds {self.num_pages - 1}",
                                     status_code=400, reason="SEQUENCE_TOO_LONG")
+        if deadline is not None and time.monotonic() >= deadline:
+            # a spent budget burns no queue place, wave or step
+            raise deadline_exceeded("paged-engine submit")
         adapter = adapter or None
         if adapter is not None:
-            self._check_open()  # a closed engine must not load adapters for requests it refuses
+            # the cheap refusals first: an overload burst about to shed (or
+            # a closed engine) must not thrash warm adapters with cold loads
+            with self._lock:
+                self._check_open_locked()
+                if self.max_queue and len(self._queue) >= self.max_queue:
+                    self._shed_for_admission_locked(int(priority))
         adapter_slot = self._acquire_adapter_slot(adapter) if adapter is not None else 0
         try:
             with self._lock:
                 self._check_open_locked()
+                if self.max_queue and len(self._queue) >= self.max_queue:
+                    self._shed_for_admission_locked(int(priority))
                 stream = _Stream(self._next_id, prompt, max_new_tokens, float(temperature), int(top_k),
                                  int(eos_id), int(seed), adapter_slot=adapter_slot)
+                stream.adapter = adapter
+                stream.priority = int(priority)
+                stream.deadline = float(deadline) if deadline is not None else None
+                stream.t_submit = time.time()
                 if adapter_slot:
+                    # the submit's temporary pin becomes the stream's
+                    self._drop_temp_pin_locked(adapter_slot)
                     self._adapter_requests[adapter] = self._adapter_requests.get(adapter, 0) + 1
                 self._next_id += 1
                 self._queue.append(stream)
+                self._queued.add(stream)
         except BaseException:
             if adapter_slot:
                 with self._lock:
+                    self._drop_temp_pin_locked(adapter_slot)
                     self._unpin_adapter_slot_locked(adapter_slot)
             raise
         return stream
@@ -688,9 +925,6 @@ class PagedEngine:
     def _check_open_locked(self) -> None:
         if self._closed:
             raise MicroserviceError("engine closed", status_code=503, reason="SHUTTING_DOWN")
-
-    def _pages_for(self, plen: int, max_new: int) -> int:
-        return -(-(plen + max_new) // self.page_size)
 
     # ---- multi-LoRA adapter pool: slots, pins, LRU reclaim -----------------
 
@@ -711,12 +945,19 @@ class PagedEngine:
         stream.adapter_pinned = False
         self._unpin_adapter_slot_locked(stream.adapter_slot)
 
+    def _drop_temp_pin_locked(self, slot: int) -> None:
+        n = self._adapter_temp_pins.get(slot, 0) - 1
+        if n > 0:
+            self._adapter_temp_pins[slot] = n
+        else:
+            self._adapter_temp_pins.pop(slot, None)
+
     def _install_adapter(self, name: str, params: Dict[str, Any]) -> int:
         """Place one adapter's factors into a pool slot (under
         ``_adapter_io_lock``, not ``_lock``): a free slot, or the LRU
         refcount-0 one reclaimed; every slot pinned is a clean 503.  A
         wrong-rank or partial adapter is a 400 with the slot returned
-        untouched.  The returned slot carries one pin."""
+        untouched.  The returned slot carries one temporary pin."""
         victim: Optional[str] = None
         with self._lock:
             if self._adapter_free:
@@ -729,6 +970,7 @@ class PagedEngine:
             else:
                 raise MicroserviceError(f"adapter pool exhausted: all {self.max_adapters} slots pinned by live "
                                         "streams", status_code=503, reason="ADAPTERS_EXHAUSTED")
+            self._adapter_installing.add(slot)
         if victim is not None and victim in self._adapter_reg_pinned:
             # the evicted adapter's host copy becomes reclaimable registry capacity
             self._adapter_reg_pinned.discard(victim)
@@ -739,24 +981,29 @@ class PagedEngine:
             self._lora.install(slot, params)
         except ValueError as exc:
             with self._lock:
+                self._adapter_installing.discard(slot)
                 self._adapter_free.append(slot)
             raise MicroserviceError(f"adapter {name!r} does not fit this engine's factor pool: {exc}",
                                     status_code=400, reason="ADAPTER_INCOMPATIBLE") from exc
         except BaseException:
             with self._lock:
+                self._adapter_installing.discard(slot)
                 self._adapter_free.append(slot)
             raise
         with self._lock:
+            self._adapter_installing.discard(slot)
             self._adapter_table[name] = slot
             self._adapter_names[slot] = name
             self._adapter_ref[slot] = 1
+            self._adapter_temp_pins[slot] = self._adapter_temp_pins.get(slot, 0) + 1
             self._counters["adapter_loads"] += 1
         return slot
 
     def _acquire_adapter_slot(self, name: str) -> int:
         """Resolve ``name`` to a pinned pool slot: a resident adapter is a
         hit (its pin count grows), a cold one loads through the weight
-        registry and installs."""
+        registry and installs.  The pin is a temporary one until
+        :meth:`submit` hands it to the stream."""
         if self._lora is None:
             raise MicroserviceError("this engine serves no adapters (max_adapters=0 / SELDON_TPU_MAX_ADAPTERS "
                                     "unset)", status_code=400, reason="ADAPTERS_DISABLED")
@@ -787,12 +1034,14 @@ class PagedEngine:
             return slot
 
     def _pin_resident_adapter_locked(self, name: str) -> Optional[int]:
-        """The hit path: pin ``name``'s slot if it is resident, else None."""
+        """The hit path: pin ``name``'s slot (a temporary pin) if it is
+        resident, else None."""
         slot = self._adapter_table.get(name)
         if slot is None:
             return None
         self._counters["adapter_hits"] += 1
         self._adapter_ref[slot] += 1
+        self._adapter_temp_pins[slot] = self._adapter_temp_pins.get(slot, 0) + 1
         self._adapter_lru.pop(slot, None)
         return slot
 
@@ -813,6 +1062,7 @@ class PagedEngine:
                         return slot
                 slot = self._install_adapter(name, params)
         with self._lock:
+            self._drop_temp_pin_locked(slot)
             self._unpin_adapter_slot_locked(slot)
         return slot
 
@@ -862,38 +1112,342 @@ class PagedEngine:
             kw["adapter_idx"] = torch.from_numpy(np.ascontiguousarray(adapter_ids, np.int32)).to(self.device)
         return kw
 
-    # ---- page allocator + admission (caller holds _lock) -------------------
+    # ---- refcounted page allocator + prefix cache (caller holds _lock) -------
+
+    def _allocatable_locked(self) -> int:
+        """Pages available now: the free list plus the cached set
+        (refcount-0 prefix pages reclaim on demand)."""
+        return len(self._free_pages) + len(self._lru)
+
+    def _evict_cached_locked(self) -> None:
+        """Reclaim the least recently used cached page: unregister it from
+        the prefix index and return it to the free list."""
+        page, entry = self._lru.popitem(last=False)
+        self._prefix_index.pop(entry.key, None)
+        self._page_entry.pop(page, None)
+        self._free_pages.append(page)
+        self._counters["prefix_evictions"] += 1
 
     def _alloc_locked(self, n: int) -> Optional[List[int]]:
-        if len(self._free_pages) < n:
+        """Take ``n`` fresh pages (refcount 1 each), reclaiming cached
+        pages under pressure; None when even that does not cover ``n``."""
+        if self._allocatable_locked() < n:
             return None
-        return [self._free_pages.popleft() for _ in range(n)]
+        while len(self._free_pages) < n:
+            self._evict_cached_locked()
+        out = [self._free_pages.popleft() for _ in range(n)]
+        for p in out:
+            self._page_ref[p] = 1
+        return out
 
     def _free_locked(self, pages: List[int]) -> None:
-        self._free_pages.extend(pages)
+        """Release one stream's mapping of ``pages``.  A page whose
+        refcount drops to 0 parks on the LRU when it is a registered
+        prefix page (its K/V stays valid for a later match), else returns
+        to the free list.  Reversed, so a stream's deepest prefix pages
+        enter the LRU first and are reclaimed before the parents a chain
+        walk passes through."""
+        for p in reversed(pages):
+            r = int(self._page_ref[p]) - 1
+            self._page_ref[p] = max(r, 0)
+            if r > 0:
+                continue
+            entry = self._page_entry.get(p)
+            if entry is not None and self._prefix_cache_enabled:
+                self._lru[p] = entry
+            else:
+                if entry is not None:
+                    self._prefix_index.pop(entry.key, None)
+                    self._page_entry.pop(p, None)
+                self._free_pages.append(p)
 
-    def _admit_locked(self) -> List[_Stream]:
-        """Move queued streams into free slots, FIFO.  A stream is admitted
-        only with the pages for its prompt and all its new tokens; when
-        the head of the queue does not fit, the wave stops (no shorter
-        request overtakes it)."""
-        admitted: List[_Stream] = []
-        free_slots = deque(i for i in range(self.max_slots) if self._slots[i] is None)
-        while self._queue and free_slots:
-            stream = self._queue[0]
-            pages = self._alloc_locked(self._pages_for(len(stream.prompt), stream.max_new))
-            if pages is None:
+    def _prefix_root_for(self, adapter: Optional[str]) -> int:
+        """The chain root of a weight set: an adapter's prefill writes
+        other K/V than the base model's for the same tokens, so each
+        adapter chains off its own root."""
+        if not adapter:
+            return _PREFIX_ROOT
+        return prefix_chain_key(_PREFIX_ROOT, (adapter,))
+
+    def _match_prefix_locked(self, prompt: np.ndarray, root: int) -> List[_CachedPrefix]:
+        """The longest cached chain of full prompt pages, root to leaf.
+        The last prompt page always stays private (the suffix prefill
+        needs one token to give the next-token logits), and a key that
+        collides compares parent and tokens before it is shared."""
+        if not self._prefix_cache_enabled:
+            return []
+        ps = self.page_size
+        matched: List[_CachedPrefix] = []
+        parent = root
+        for i in range((len(prompt) - 1) // ps):
+            toks = tuple(int(t) for t in prompt[i * ps:(i + 1) * ps])
+            key = prefix_chain_key(parent, toks)
+            entry = self._prefix_index.get(key)
+            if entry is None or entry.parent != parent or entry.tokens != toks:
                 break
-            self._queue.popleft()
-            slot = free_slots.popleft()
-            stream.slot, stream.pages = slot, pages
-            self._slots[slot] = stream
+            matched.append(entry)
+            parent = key
+        return matched
+
+    def _register_prefix_locked(self, stream: _Stream) -> None:
+        """Publish a prefilled stream's full prompt pages in the prefix
+        index.  A key already registered keeps its page (the stream's own
+        stays private), and a key that collides with other tokens stops
+        the walk: nothing unverified is shared."""
+        if not self._prefix_cache_enabled or stream.slot is None:
+            return
+        if self._slots[stream.slot] is not stream:
+            # the stream lost its slot since admission (fail_all, cancel):
+            # its pages are already released
+            return
+        ps = self.page_size
+        prompt = stream.prompt
+        parent = self._prefix_root_for(stream.adapter)
+        for i in range((len(prompt) - 1) // ps):
+            toks = tuple(int(t) for t in prompt[i * ps:(i + 1) * ps])
+            key = prefix_chain_key(parent, toks)
+            entry = self._prefix_index.get(key)
+            if entry is None:
+                page = stream.pages[i]
+                if page not in self._page_entry:
+                    e = _CachedPrefix(key, page, toks, parent)
+                    self._prefix_index[key] = e
+                    self._page_entry[page] = e
+            elif entry.parent != parent or entry.tokens != toks:
+                break
+            parent = key
+
+    def _check_invariants_locked(self) -> None:
+        """The ``SELDON_TPU_PAGED_DEBUG=1`` audit: the non-trash pages
+        partition into free, cached and mapped; refcounts equal the live
+        block tables holding each page; every LRU entry agrees with the
+        prefix index; the adapter slots balance."""
+        problems: List[str] = []
+        free = list(self._free_pages)
+        free_set = set(free)
+        if len(free_set) != len(free):
+            problems.append("duplicate pages on the free list")
+        cached = set(self._lru)
+        mapped: Dict[int, int] = {}
+        for s in self._slots:
+            if s is None:
+                continue
+            for i, p in enumerate(s.pages):
+                mapped[p] = mapped.get(p, 0) + 1
+                if int(self._block_tables[s.slot, i]) != p:
+                    problems.append(f"slot {s.slot} block table col {i} != stream page {p}")
+        for a, b, name in ((free_set, cached, "free∩cached"), (free_set, set(mapped), "free∩mapped"),
+                           (cached, set(mapped), "cached∩mapped")):
+            if a & b:
+                problems.append(f"pages simultaneously {name}: {sorted(a & b)}")
+        every = free_set | cached | set(mapped)
+        want = set(range(1, self.num_pages))
+        if every != want:
+            problems.append(f"leaked pages {sorted(want - every)} / phantom {sorted(every - want)}")
+        for p in want:
+            if int(self._page_ref[p]) != mapped.get(p, 0):
+                problems.append(f"page {p} refcount {int(self._page_ref[p])} != {mapped.get(p, 0)} live mappings")
+        for p, entry in self._lru.items():
+            if entry.page != p or self._prefix_index.get(entry.key) is not entry \
+                    or self._page_entry.get(p) is not entry:
+                problems.append(f"LRU entry for page {p} inconsistent with index")
+        problems.extend(self._adapter_problems_locked())
+        if problems:
+            raise RuntimeError("paged allocator invariant violation: " + "; ".join(problems))
+
+    def _adapter_problems_locked(self) -> List[str]:
+        """The audit over the adapter slots: the non-zero slots partition
+        into free, resident and installing; each slot's refcount equals
+        its streams' pins plus in-submit temporary pins; the adapter LRU
+        holds exactly the unpinned residents."""
+        if self._lora is None:
+            return []
+        problems: List[str] = []
+        free = set(self._adapter_free)
+        named = set(self._adapter_names)
+        installing = set(self._adapter_installing)
+        if free & named:
+            problems.append(f"adapter slots simultaneously free and named: {sorted(free & named)}")
+        if (free | named) & installing:
+            problems.append(f"adapter slots simultaneously installing and free/named: "
+                            f"{sorted((free | named) & installing)}")
+        if free | named | installing != set(range(1, self.max_adapters + 1)):
+            problems.append("adapter slots leaked or phantom")
+        pins: Dict[int, int] = dict(self._adapter_temp_pins)
+        for s in list(self._queue) + [s for s in self._slots if s is not None]:
+            if s.adapter_pinned:
+                pins[s.adapter_slot] = pins.get(s.adapter_slot, 0) + 1
+        for slot in range(1, self.max_adapters + 1):
+            want = pins.get(slot, 0)
+            if int(self._adapter_ref[slot]) != want:
+                problems.append(f"adapter slot {slot} refcount {int(self._adapter_ref[slot])} != {want} pins")
+            lru = slot in self._adapter_lru
+            if lru and int(self._adapter_ref[slot]) > 0:
+                problems.append(f"adapter slot {slot} cached while pinned")
+            if slot in named and not lru and int(self._adapter_ref[slot]) == 0:
+                problems.append(f"adapter slot {slot} resident, unpinned, but not on the LRU")
+        for slot, name in self._adapter_lru.items():
+            if self._adapter_table.get(name) != slot:
+                problems.append(f"adapter LRU entry {name!r}@{slot} inconsistent with table")
+        return problems
+
+    # ---- SLO lifecycle: shed / expire / preempt ------------------------------
+
+    def _remove_queued_locked(self, stream: _Stream) -> None:
+        if stream in self._queued:
+            self._queue.remove(stream)
+            self._queued.discard(stream)
+
+    def _release_slot_locked(self, stream: _Stream) -> None:
+        """Give back the stream's slot, its pages and its lane's table."""
+        slot = stream.slot
+        if slot is not None and self._slots[slot] is stream:
+            self._slots[slot] = None
+            self._lengths[slot] = 0
             self._block_tables[slot] = 0
-            self._block_tables[slot, : len(pages)] = pages
-            self._lengths[slot] = len(stream.prompt)
-            # the lane's adapter slot id: every call gathers its factors by it
-            self._adapter_slots[slot] = stream.adapter_slot
-            admitted.append(stream)
+        if stream.pages:
+            self._free_locked(stream.pages)
+            stream.pages = []
+
+    def _fail_stream_locked(self, stream: _Stream, exc: Exception) -> None:
+        """Error-terminate one stream, queued or in a slot (shed, expiry):
+        slot and pages released, the waiter woken with ``exc``."""
+        stream.error = exc
+        self._release_slot_locked(stream)
+        stream.slot = None
+        stream.t_finish = time.time()
+        self._release_adapter_locked(stream)
+        stream.event.set()
+
+    def _shed_expired_queued_locked(self) -> int:
+        """Drop queued streams whose budget is spent: they never reach
+        the device.  Returns the number dropped."""
+        if not self._queue:
+            return 0
+        now = time.monotonic()
+        victims = [s for s in self._queue if s.deadline is not None and now >= s.deadline]
+        for s in victims:
+            self._remove_queued_locked(s)
+            self._counters["expired"] += 1
+            self._fail_stream_locked(s, deadline_exceeded(f"paged-engine queue (req {s.req_id})"))
+        return len(victims)
+
+    def _shed_for_admission_locked(self, priority: int) -> None:
+        """Make room in a full bounded queue for an arriving submit:
+        expired streams go first; then the lowest-priority queued stream
+        (the newest within its class) sheds, but only when it ranks
+        strictly below the newcomer, else the newcomer is refused.  Both
+        are 503 ``SHED``."""
+        self._shed_expired_queued_locked()
+        if len(self._queue) < self.max_queue:
+            return
+        victim = min(self._queue, key=lambda s: (s.priority, -s.req_id))
+        self._counters["shed"] += 1
+        if victim.priority >= priority:
+            raise MicroserviceError(
+                f"queue full ({self.max_queue}) and every queued stream has "
+                f"priority >= {priority}: request shed under overload",
+                status_code=503, reason="SHED",
+            )
+        self._remove_queued_locked(victim)
+        self._fail_stream_locked(
+            victim,
+            MicroserviceError(
+                f"shed under overload: queue full ({self.max_queue}) and a "
+                f"priority-{priority} request arrived "
+                f"(this stream: priority {victim.priority})",
+                status_code=503, reason="SHED",
+            ),
+        )
+
+    def _preempt_victim_locked(self, stream: _Stream) -> Optional[_Stream]:
+        """The in-flight stream ``stream`` may evict: strictly lower
+        priority (least priority, then least progress, ties to the
+        youngest).  Equal classes never preempt each other."""
+        candidates = [s for s in self._slots if s is not None and s.priority < stream.priority]
+        if not candidates:
+            return None
+        return min(candidates, key=lambda s: (s.priority, len(s.tokens), -s.req_id))
+
+    def _preempt_locked(self, stream: _Stream) -> Optional[int]:
+        """Evict the best victim for ``stream``; returns its freed slot, or
+        None when nothing is preemptible.  The victim re-queues at the
+        head and re-derives on restore."""
+        victim = self._preempt_victim_locked(stream)
+        if victim is None:
+            return None
+        slot = victim.slot
+        self._counters["preempted"] += 1
+        victim.preempted = True
+        self._evict_locked(victim)
+        return slot
+
+    def _try_admit_locked(self, slot: int, stream: _Stream) -> bool:
+        """One admission of ``stream`` into ``slot``: the prefix match
+        mapped (refcount + 1), fresh pages for the rest of the prompt;
+        False rolls the match back, deepest page re-parked first."""
+        plen = len(stream.prompt)
+        matched = self._match_prefix_locked(stream.prompt, self._prefix_root_for(stream.adapter))
+        for e in matched:
+            if int(self._page_ref[e.page]) == 0:
+                self._lru.pop(e.page, None)
+            self._page_ref[e.page] += 1
+        fresh = self._alloc_locked(-(-plen // self.page_size) - len(matched))
+        if fresh is None:
+            for e in reversed(matched):
+                self._page_ref[e.page] -= 1
+                if int(self._page_ref[e.page]) == 0:
+                    self._lru[e.page] = e
+            return False
+        self._remove_queued_locked(stream)
+        stream.slot = slot
+        stream.pages = [e.page for e in matched] + fresh
+        stream.cached_len = len(matched) * self.page_size
+        stream.prefilled = stream.cached_len
+        if self._prefix_cache_enabled:
+            if matched:
+                self._counters["prefix_hits"] += 1
+                self._counters["prefix_tokens_saved"] += stream.cached_len
+            else:
+                self._counters["prefix_misses"] += 1
+        if stream.preempted:
+            stream.preempted = False
+            self._counters["restored"] += 1
+        self._slots[slot] = stream
+        self._block_tables[slot] = 0
+        self._block_tables[slot, : len(stream.pages)] = stream.pages
+        self._lengths[slot] = plen
+        # the lane's adapter slot id: every call gathers its factors by it
+        self._adapter_slots[slot] = stream.adapter_slot
+        return True
+
+    def _admit_locked(self) -> List[Tuple[_Stream, int]]:
+        """Move queued streams into slots; returns ``(stream, prompt
+        length)`` per admission.  Expired queued streams drop first; then
+        the highest-priority queued stream takes the next slot, FIFO
+        within a class (with every priority 0, the FIFO).  A stream that
+        finds no slot, or no pages with a slot in hand, may preempt a
+        strictly lower-priority in-flight stream; otherwise the wave
+        stops (no shorter request overtakes the head)."""
+        admitted: List[Tuple[_Stream, int]] = []
+        self._shed_expired_queued_locked()
+        free_slots: Deque[int] = deque(i for i in range(self.max_slots) if self._slots[i] is None)
+        while self._queue:
+            stream = max(self._queue, key=lambda s: s.priority)
+            if not free_slots:
+                slot = self._preempt_locked(stream)
+                if slot is None:
+                    break
+                free_slots.append(slot)
+                continue
+            if self._try_admit_locked(free_slots[0], stream):
+                admitted.append((stream, len(stream.prompt)))
+                free_slots.popleft()
+                continue
+            slot = self._preempt_locked(stream)
+            if slot is None:
+                break
+            free_slots.append(slot)
         return admitted
 
     # ---- prefill -------------------------------------------------------------
@@ -906,49 +1460,133 @@ class PagedEngine:
             p *= 2
         return min(p, self.pages_per_stream)
 
-    def _prefill_group(self, bucket: int, group: List[_Stream]) -> None:
-        """One batched prefill call for same-bucket prompts: ``k`` rows, a
+    def _prefill_streams(self, streams: List[_Stream]) -> List[_Stream]:
+        """Monolithic prefill (no token budget): every admitted stream's
+        uncached suffix in this wave.  Returns the streams now decoding."""
+        return self._run_prefill_slices([(s, s.prefilled, len(s.prompt) - s.prefilled) for s in streams])
+
+    def _plan_prefill_slices_locked(self, prefilling: List[_Stream], budget: int) -> List[Tuple[_Stream, int, int]]:
+        """The wave's prefill slices under ``budget`` tokens: pending
+        prompts priority-first then FIFO, each taking what is left,
+        floored to a page boundary unless the slice ends the prompt (the
+        next slice's start must stay page-aligned)."""
+        slices: List[Tuple[_Stream, int, int]] = []
+        left = int(budget)
+        ps = self.page_size
+        for s in sorted(prefilling, key=lambda s: (-s.priority, s.req_id)):
+            need = len(s.prompt) - s.prefilled
+            if left < ps:
+                continue
+            n = min(left, need)
+            if n < need:
+                n = (n // ps) * ps
+            if n <= 0:
+                continue
+            slices.append((s, s.prefilled, n))
+            left -= n
+        return slices
+
+    def _run_prefill_slices(self, slices: List[Tuple[_Stream, int, int]]) -> List[_Stream]:
+        """One wave's prefill work, ``(stream, start, n)`` slices with
+        ``start`` page-aligned: whole uncached prompts through the
+        from-zero call, everything else (a cached prefix, a later slice)
+        through the cached-suffix call, one call per bucket.  Returns the
+        streams whose prompt is now whole; their full prompt pages enter
+        the prefix index."""
+        if not slices:
+            return []
+        t_admit = time.time()
+        plain: Dict[int, List[Tuple[_Stream, int, int]]] = {}
+        cached: Dict[int, List[Tuple[_Stream, int, int]]] = {}
+        tokens = 0
+        for stream, start, n in slices:
+            if not stream.t_prefill_start:
+                stream.t_prefill_start = t_admit
+            bucket = next(b for b in self.prompt_buckets if b >= n)
+            target = plain if start == 0 and n == len(stream.prompt) else cached
+            target.setdefault(bucket, []).append((stream, start, n))
+            tokens += n
+        completed: List[_Stream] = []
+        with torch.inference_mode(), self._materialized():
+            for bucket, group in plain.items():
+                completed.extend(self._prefill_group(bucket, group, use_cache=False))
+            for bucket, group in cached.items():
+                completed.extend(self._prefill_group(bucket, group, use_cache=True))
+        with self._lock:
+            self._counters["prefill_tokens"] += tokens
+            self._counters["prefill_chunks"] += len(plain) + len(cached)
+            for stream in completed:
+                self._register_prefix_locked(stream)
+        return completed
+
+    def _prefill_group(self, bucket: int, group: List[Tuple[_Stream, int, int]], use_cache: bool) -> List[_Stream]:
+        """One batched prefill call for same-bucket slices: ``k`` rows, a
         power of two; pad rows (one token, table row 0, adapter slot 0)
-        write only the trash page.  Installs each stream's last-token
-        logits."""
+        write only the trash page.
+
+        ``use_cache``: the suffix call, each row attending over its
+        ``start`` resident tokens (shared prefix pages, earlier slices)
+        through a read table, the gather lane's cached attention, and
+        writing through a table shifted to the page after them (``start``
+        is page-aligned, so every write starts at offset 0).  Otherwise
+        the from-zero call.  Installs the last-token logits of the
+        streams whose prompt is now whole, and returns them."""
         k = 1
         while k < len(group):
             k *= 2
-        pages_h = self._pages_pow2(-(-bucket // self.page_size))
+        ps = self.page_size
         padded = np.zeros((k, bucket), np.int64)
-        true_lens = np.ones((k,), np.int64)
-        block_rows = np.zeros((k, pages_h), np.int32)
+        true_lens = np.ones((k,), np.int64)  # pad rows: 1 token -> trash
+        cached_lens = np.zeros((k,), np.int64)
         adapter_rows = np.zeros((k,), np.int32)
-        for i, stream in enumerate(group):
-            padded[i, : len(stream.prompt)] = stream.prompt
-            true_lens[i] = len(stream.prompt)
-            block_rows[i] = self._block_tables[stream.slot, :pages_h]
+        if use_cache:
+            rp = self._pages_pow2(max(1, max(start // ps for _s, start, _n in group)))
+            wp = -(-bucket // ps)
+            read_rows = np.zeros((k, rp), np.int32)
+            write_rows = np.zeros((k, wp), np.int32)
+        else:
+            pages_h = self._pages_pow2(-(-bucket // ps))
+            read_rows = write_rows = np.zeros((k, pages_h), np.int32)
+        for i, (stream, start, n) in enumerate(group):
+            padded[i, :n] = stream.prompt[start:start + n]
+            true_lens[i] = n
+            cached_lens[i] = start
             adapter_rows[i] = stream.adapter_slot
+            if use_cache:
+                read_rows[i] = self._block_tables[stream.slot, :rp]
+                row = self._block_tables[stream.slot, start // ps: start // ps + wp]
+                write_rows[i, : len(row)] = row
+            else:
+                read_rows[i] = self._block_tables[stream.slot, :pages_h]
         dev = self.device
         tokens = torch.from_numpy(padded).to(dev)
-        rows = torch.from_numpy(block_rows).to(dev)
+        cached_t = torch.from_numpy(cached_lens).to(dev)
+        positions = torch.clamp(cached_t[:, None] + torch.arange(bucket, device=dev)[None, :], max=self.max_len - 1)
         last_pos = torch.from_numpy(true_lens - 1).to(dev)
-        positions = torch.arange(bucket, device=dev)[None, :].expand(k, bucket)
-        zeros = torch.zeros((k,), dtype=torch.int32, device=dev)
-        last, nk, nv = self.module(tokens, positions, self.pages_k, self.pages_v, rows, zeros,
+        reads = torch.from_numpy(read_rows).to(dev)
+        writes = reads if not use_cache else torch.from_numpy(write_rows).to(dev)
+        last, nk, nv = self.module(tokens, positions, self.pages_k, self.pages_v, reads, cached_t.int(),
                                    use_kernel=self._kernel_active, select=last_pos,
                                    **self._model_kwargs(adapter_rows))
-        write_kv(kv_join(self.pages_k, self.scales_k), kv_join(self.pages_v, self.scales_v), nk, nv, rows, zeros,
-                 None, page_size=self.page_size, max_len=self.max_len, from_zero=True)
-        slots = torch.tensor([s.slot for s in group], device=dev)
-        self._logits[slots] = last[: len(group), 0]
-        for stream in group:
-            if stream.temperature > 0:
-                stream.generator = torch.Generator(device=dev).manual_seed(stream.seed % (1 << 63))
-
-    def _prefill(self, streams: List[_Stream]) -> None:
-        """Prefill admitted streams, grouped by prompt bucket."""
-        groups: Dict[int, List[_Stream]] = {}
-        for stream in streams:
-            bucket = next(b for b in self.prompt_buckets if b >= len(stream.prompt))
-            groups.setdefault(bucket, []).append(stream)
-        for bucket, group in groups.items():
-            self._prefill_group(bucket, group)
+        zeros = torch.zeros((k,), dtype=torch.int32, device=dev)
+        write_kv(kv_join(self.pages_k, self.scales_k), kv_join(self.pages_v, self.scales_v), nk, nv, writes, zeros,
+                 None, page_size=ps, max_len=self.max_len, from_zero=True)
+        finals = []
+        for i, (stream, start, n) in enumerate(group):
+            stream.prefilled = start + n
+            if stream.prefilled >= len(stream.prompt):
+                finals.append((i, stream))
+        if not finals:
+            return []
+        rows = torch.tensor([i for i, _s in finals], device=dev)
+        slots = torch.tensor([s.slot for _i, s in finals], device=dev)
+        self._logits[slots] = last[rows, 0]
+        for _i, stream in finals:
+            # seeded when the prompt is whole, so an evicted stream's
+            # re-derived run draws the same tokens again
+            stream.generator = (torch.Generator(device=dev).manual_seed(stream.seed % (1 << 63))
+                                if stream.temperature > 0 else None)
+        return [s for _i, s in finals]
 
     # ---- decode chunk ------------------------------------------------------
 
@@ -959,6 +1597,21 @@ class PagedEngine:
             return 1
         need = max(int(self._lengths[s.slot]) for s in runnable) + per_chunk
         return self._pages_pow2(-(-need // self.page_size))
+
+    def _ensure_pages_locked(self, stream: _Stream, per_chunk: int) -> bool:
+        """Grow the stream's block table to cover its next ``per_chunk``
+        tokens (never past its prompt plus ``max_new``); False when the
+        pool cannot back it (the stream stalls this wave)."""
+        slot = stream.slot
+        horizon = min(int(self._lengths[slot]) + per_chunk, len(stream.prompt) + stream.max_new, self.max_len)
+        need = -(-horizon // self.page_size)
+        while len(stream.pages) < need:
+            got = self._alloc_locked(1)
+            if got is None:
+                return False
+            self._block_tables[slot, len(stream.pages)] = got[0]
+            stream.pages.extend(got)
+        return True
 
     def _sample_batch(self, logits: torch.Tensor, samplers) -> torch.Tensor:
         """Every slot's next token: greedy argmax, or, for the slots in
@@ -1014,78 +1667,177 @@ class PagedEngine:
         Returns True while there is (or may be) more work.  Safe from any
         thread: steps never interleave."""
         with self._step_lock:
-            return self._step_locked()
+            return self._step_decode()
 
-    def _step_locked(self) -> bool:
+    def _steps_for_locked(self, decoding: List[_Stream]) -> int:
+        """The chunk length: ``steps_per_call``, doubled toward
+        ``max_steps`` while nothing waits and only as far as the pool can
+        back the doubling for every decoding stream (a shrunk pool would
+        otherwise stall and evict progress the short chunk keeps)."""
+        steps = self.steps_per_call
+        if not decoding or self._queue:
+            return steps
+        most = max(s.max_new - len(s.tokens) for s in decoding)
+        free = self._allocatable_locked()
+        while steps * 2 <= self.max_steps and steps < most:
+            nxt = steps * 2
+            need = 0
+            for s in decoding:
+                horizon = min(int(self._lengths[s.slot]) + nxt, len(s.prompt) + s.max_new, self.max_len)
+                need += max(0, -(-horizon // self.page_size) - len(s.pages))
+            if need > free:
+                break
+            steps = nxt
+        return steps
+
+    def _step_decode(self) -> bool:
         with self._lock:
             admitted = self._admit_locked()
-        if admitted:
-            with torch.inference_mode():
-                self._prefill(admitted)
+        budget = self.chunk_token_budget
+        if admitted and not budget:
+            # monolithic prefill: admitted prompts prefill whole and decode
+            # in this same wave
+            self._prefill_streams([s for s, _ in admitted])
         with self._lock:
             self._counters["prefills"] += len(admitted)
             active = self._retire_cancelled_locked([s for s in self._slots if s is not None])
             if not active:
-                return bool(self._queue)
-            steps = self.steps_per_call
+                return self._wave_end_locked()
+            if budget:
+                # only whole prompts decode: a stream whose last slice runs
+                # this wave decodes from the next one
+                decoding = [s for s in active if s.prefilled >= len(s.prompt)]
+                prefilling = [s for s in active if s.prefilled < len(s.prompt)]
+            else:
+                decoding, prefilling = list(active), []
+            steps = self._steps_for_locked(decoding) if not prefilling else self.steps_per_call
+            stalled = np.zeros((self.max_slots,), bool)
+            for stream in decoding:
+                if not self._ensure_pages_locked(stream, steps):
+                    stalled[stream.slot] = True
+            self._counters["stalls"] += int(stalled.sum())
+            # every decoding stream stalled on the pool: evict the one with
+            # the least progress (ties to the youngest) to the head of the
+            # queue until one can run.  A re-run re-derives its tokens (a
+            # sampled one re-seeds).  A lone stream always fits (submit
+            # refuses more than the pool); a prefill backlog is progress,
+            # so the loop stands down for it.
+            while decoding and not prefilling and all(stalled[s.slot] for s in decoding):
+                victim = min(decoding, key=lambda s: (len(s.tokens), -s.req_id))
+                decoding.remove(victim)
+                self._evict_locked(victim)
+                for stream in decoding:
+                    if stalled[stream.slot] and self._ensure_pages_locked(stream, steps):
+                        stalled[stream.slot] = False
+            if not decoding and not prefilling:
+                return self._wave_end_locked()
+            runnable = [s for s in decoding if not stalled[s.slot]]
+            if budget and runnable:
+                # decode admitted first, never squeezed below one step
+                steps = min(steps, max(1, budget // len(runnable)))
+            slices = self._plan_prefill_slices_locked(prefilling, budget - steps * len(runnable)) if budget else []
             B = self.max_slots
             done = np.ones((B,), bool)
             max_new = np.zeros((B,), np.int32)
             eos_ids = np.full((B,), -1, np.int32)
             samplers = []
-            for stream in active:
+            for stream in runnable:
                 s = stream.slot
                 done[s] = False
                 max_new[s] = stream.max_new - len(stream.tokens)
                 eos_ids[s] = stream.eos_id
                 if stream.temperature > 0:
                     samplers.append((s, stream.generator, stream.temperature, stream.top_k))
-            pages_h = self._pages_horizon(active, steps)
+            pages_h = self._pages_horizon(runnable, steps)
             tables = np.ascontiguousarray(self._block_tables[:, :pages_h])
             lengths = self._lengths.copy()
             adapter_ids = self._adapter_slots.copy()
-        with torch.inference_mode():
+        if slices:
+            # the budget's prefill slices run before the chunk; a stream they
+            # complete stays masked in it
+            self._run_prefill_slices(slices)
+        if not runnable:
+            with self._lock:
+                return self._wave_end_locked()
+        with torch.inference_mode(), self._materialized():
             out = self._chunk(steps, tables, lengths, done, max_new, eos_ids, samplers, adapter_ids)
         toks, emitted, lengths_out = out[:, :steps], out[:, steps], out[:, steps + 1]
+        t_now = time.time()
         with self._lock:
-            self._lengths = lengths_out.astype(np.int32)
             self._counters["chunks"] += 1
-            for stream in active:
-                n = int(emitted[stream.slot])
+            self._chunk_steps[steps] = self._chunk_steps.get(steps, 0) + 1
+            for stream in runnable:
+                s = stream.slot
+                if s is None or self._slots[s] is not stream:
+                    continue  # failed or retired from another thread meanwhile
+                self._lengths[s] = lengths_out[s]
+                n = int(emitted[s])
                 self._counters["tokens"] += n
-                got = toks[stream.slot, :n].tolist()
+                got = toks[s, :n].tolist()
+                if got and not stream.tokens and not stream.t_first_token:
+                    stream.t_first_token = t_now
                 stream.tokens.extend(got)
                 if stream.eos_id in got or len(stream.tokens) >= stream.max_new:
                     self._finish_locked(stream)
-            return bool(self._queue) or any(s is not None for s in self._slots)
+            return self._wave_end_locked()
+
+    def _wave_end_locked(self) -> bool:
+        """The chunk boundary: the allocator audit when asked for, and
+        whether there is more work."""
+        if self._debug_invariants:
+            self._check_invariants_locked()
+        return bool(self._queue) or any(s is not None for s in self._slots)
 
     # ---- retirement ----------------------------------------------------------
 
     def _finish_locked(self, stream: _Stream) -> None:
         """Deliver ``(max_new,)`` ids, cut after the first eos and padded
         with eos, and free the slot and its pages."""
-        slot = stream.slot
         toks = stream.tokens[: stream.max_new]
         if stream.eos_id in toks:
             toks = toks[: toks.index(stream.eos_id) + 1]
         toks = toks + [stream.eos_id] * (stream.max_new - len(toks))
         stream.result = np.asarray(toks, np.int32)
-        self._slots[slot] = None
-        self._free_locked(stream.pages)
-        stream.pages = []
-        self._lengths[slot] = 0
-        self._block_tables[slot] = 0
+        stream.t_finish = time.time()
+        self._release_slot_locked(stream)
         self._release_adapter_locked(stream)
         self._counters["completed"] += 1
         stream.event.set()
 
+    def _evict_locked(self, stream: _Stream) -> None:
+        """Put a stream out of its slot, back at the head of the queue; it
+        re-prefills (re-matching the prefix index) and re-derives its
+        tokens when admitted again."""
+        self._release_slot_locked(stream)
+        stream.slot = None
+        stream.tokens = []
+        stream.generator = None
+        stream.cached_len = 0
+        stream.prefilled = 0
+        stream.t_submit = time.time()
+        stream.t_prefill_start = 0.0
+        stream.t_first_token = 0.0
+        self._counters["evictions"] += 1
+        self._queue.appendleft(stream)
+        self._queued.add(stream)
+
     def _retire_cancelled_locked(self, active: List[_Stream]) -> List[_Stream]:
+        """Finish flagged streams and fail expired ones before the next
+        chunk (never mid-chunk); returns the live rest."""
         live = []
+        now = None
         for stream in active:
             if stream.cancelled:
                 self._finish_locked(stream)
-            else:
-                live.append(stream)
+                continue
+            if stream.deadline is not None:
+                now = time.monotonic() if now is None else now
+                if now >= stream.deadline:
+                    self._counters["expired"] += 1
+                    self._fail_stream_locked(stream, deadline_exceeded(
+                        f"paged-engine decode (req {stream.req_id}, {len(stream.tokens)} tokens in)"))
+                    continue
+            live.append(stream)
         return live
 
     def cancel(self, stream: _Stream) -> None:
@@ -1095,8 +1847,8 @@ class PagedEngine:
         with self._lock:
             if stream.result is not None or stream.error is not None:
                 return
-            if stream in self._queue:
-                self._queue.remove(stream)
+            if stream in self._queued:
+                self._remove_queued_locked(stream)
                 toks = stream.tokens[: stream.max_new]
                 stream.result = np.asarray(toks + [stream.eos_id] * (stream.max_new - len(toks)), np.int32)
                 self._release_adapter_locked(stream)
@@ -1112,20 +1864,18 @@ class PagedEngine:
         with self._lock:
             return {
                 "kernel_active": int(self._kernel_active),
-                "prefills": self._counters["prefills"],
-                "chunks": self._counters["chunks"],
-                "tokens": self._counters["tokens"],
-                "completed": self._counters["completed"],
+                **self._counters,
                 "active": sum(s is not None for s in self._slots),
                 "queued": len(self._queue),
                 "free_pages": len(self._free_pages),
+                # mapped pages only: cached prefix pages are reclaimable
+                "pool_pages_used": self.num_pages - 1 - len(self._free_pages) - len(self._lru),
+                "pool_pages_total": self.num_pages - 1,
+                "prefix_pages_cached": len(self._lru),
+                "chunk_steps": dict(self._chunk_steps),
                 "kv_dtype_int8": int(self._kv_int8),
                 "adapters_resident": len(self._adapter_table),
                 "adapter_slots": self.max_adapters,
-                "adapter_loads": self._counters["adapter_loads"],
-                "adapter_hits": self._counters["adapter_hits"],
-                "adapter_misses": self._counters["adapter_misses"],
-                "adapter_evictions": self._counters["adapter_evictions"],
             }
 
     def close(self, exc: Optional[Exception] = None) -> None:
@@ -1145,12 +1895,14 @@ class PagedEngine:
         with self._lock:
             victims = [s for s in self._slots if s is not None] + list(self._queue)
             self._queue.clear()
+            self._queued.clear()
             self._slots = [None] * self.max_slots
             self._lengths[:] = 0
             self._block_tables[:] = 0
             for stream in victims:
-                self._free_locked(stream.pages)
-                stream.pages = []
+                if stream.pages:
+                    self._free_locked(stream.pages)
+                    stream.pages = []
                 stream.error = exc
                 self._release_adapter_locked(stream)
                 stream.event.set()
@@ -1185,8 +1937,14 @@ class StreamingLM(TPUComponent):
     step lock keeps the two from interleaving.  Per-request overrides via
     ``meta.tags``: ``max_new_tokens``, ``temperature``, ``top_k``,
     ``seed``, ``adapter`` (the ``X-Seldon-Adapter`` header lands there
-    too).  Runs on ``cuda`` unless ``device="cpu"``; ``dtype`` is
-    bfloat16 unless ``float32``.
+    too), ``priority`` (``X-Seldon-Priority``), ``deadline_ms`` and
+    ``deadline_at_monotonic`` (the ``X-Seldon-Deadline-Ms`` budget rides
+    the ambient deadline).  Runs on ``cuda`` unless ``device="cpu"``;
+    ``dtype`` is bfloat16 unless ``float32``.
+
+    The engine options pass through as the JAX component's do:
+    ``quantize``, ``precision``, ``prefix_cache``, ``max_steps_per_call``,
+    ``max_queue`` and ``chunk_token_budget``.
 
     ``adapters`` (a dict, or its JSON) is the deployment's adapter
     catalogue, ``name -> {"seed": n, "alpha": a}`` (deterministic
@@ -1231,11 +1989,8 @@ class StreamingLM(TPUComponent):
         **kwargs: Any,
     ):
         super().__init__(**kwargs)
-        check_ported_options(
-            prefix_cache=prefix_cache, chunk_token_budget=chunk_token_budget, steps_per_call=steps_per_call,
-            max_steps_per_call=max_steps_per_call, speculative=speculative, quantize=quantize,
-            precision=precision, tp=tp, dp=dp, mesh=mesh_axes, max_queue=max_queue,
-        )
+        check_ported_options(speculative=speculative, tp=tp, dp=dp, mesh=mesh_axes)
+        precision, quantize = _precision_modes(quantize, precision)  # fail at construction
         if isinstance(adapters, str):
             adapters = json.loads(adapters) if adapters else None
         self.adapters: Dict[str, Any] = dict(adapters) if adapters else {}
@@ -1247,7 +2002,10 @@ class StreamingLM(TPUComponent):
         self.config = dict(vocab_size=int(vocab_size), d_model=int(d_model), num_layers=int(num_layers),
                            num_heads=int(num_heads), max_len=int(max_len))
         self.engine_config = dict(page_size=int(page_size), num_pages=int(num_pages) or None,
-                                  max_slots=int(max_slots), steps_per_call=int(steps_per_call))
+                                  max_slots=int(max_slots), steps_per_call=int(steps_per_call),
+                                  max_steps_per_call=int(max_steps_per_call), quantize=quantize,
+                                  precision=precision, prefix_cache=prefix_cache, max_queue=int(max_queue),
+                                  chunk_token_budget=int(chunk_token_budget))
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
         self.top_k = int(top_k)
@@ -1281,9 +2039,10 @@ class StreamingLM(TPUComponent):
             self.engine = engine  # published after construction; the loop reads it
             self._loop_thread.start()
             self._load_time_s = time.perf_counter() - t0
-            logger.info("streaminglm loaded on %s in %.2fs (kernel lane %s, kv pool %s, %d adapter slots)",
-                        self.device, self._load_time_s, "on" if engine._kernel_active else "off",
-                        "int8" if engine._kv_int8 else self.dtype_name, engine.max_adapters)
+            logger.info("streaminglm loaded on %s in %.2fs (kernel lane %s, kv pool %s, precision %s, prefix cache "
+                        "%s, %d adapter slots)", self.device, self._load_time_s,
+                        "on" if engine._kernel_active else "off", "int8" if engine._kv_int8 else self.dtype_name,
+                        engine.precision, "on" if engine._prefix_cache_enabled else "off", engine.max_adapters)
 
     def _register_adapters(self):
         """Register the deployment's adapter catalogue in the process
@@ -1334,6 +2093,36 @@ class StreamingLM(TPUComponent):
         empty or absent is the base model."""
         return normalize_adapter(tags.get("adapter"))
 
+    @staticmethod
+    def _slo_terms(tags) -> Tuple[int, Optional[float]]:
+        """Per-request SLO terms: the ``priority`` tag (clamped like the
+        ingress header) and the tightest of the ``deadline_at_monotonic``
+        tag (an absolute expiry), the ``deadline_ms`` tag (relative,
+        minted here) and the ambient request budget, as an absolute
+        ``time.monotonic()`` expiry."""
+        try:
+            priority = clamp_priority(int(float(tags.get("priority", 0))))
+        except (TypeError, ValueError):
+            priority = 0
+        deadline = None
+        raw_abs = tags.get("deadline_at_monotonic")
+        if raw_abs is not None:
+            try:
+                deadline = float(raw_abs)
+            except (TypeError, ValueError):
+                deadline = None
+        raw = tags.get("deadline_ms")
+        if raw is not None:
+            try:
+                rel = time.monotonic() + max(0.0, float(raw)) / 1000.0
+                deadline = rel if deadline is None else min(deadline, rel)
+            except (TypeError, ValueError):
+                pass
+        ambient = current_deadline()
+        if ambient is not None:
+            deadline = ambient.expires_at if deadline is None else min(deadline, ambient.expires_at)
+        return priority, deadline
+
     def _loop(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
@@ -1380,6 +2169,7 @@ class StreamingLM(TPUComponent):
         temperature = float(tags.get("temperature", self.temperature))
         top_k = int(tags.get("top_k", self.top_k))
         request_seed = self._request_seed(tags, meta)
+        priority, deadline = self._slo_terms(tags)
         adapter = self._request_adapter(tags)
         X = np.atleast_2d(np.asarray(X, np.int32))
         streams = []
@@ -1387,7 +2177,8 @@ class StreamingLM(TPUComponent):
             for i, row in enumerate(X):
                 streams.append(self.engine.submit(
                     row, max_new_tokens=max_new, temperature=temperature, top_k=top_k, eos_id=self.eos_id,
-                    seed=self.seed ^ (request_seed * 1000003 + i), adapter=adapter,
+                    seed=self.seed ^ (request_seed * 1000003 + i), adapter=adapter, priority=priority,
+                    deadline=deadline,
                 ))
             self._wake.set()
             for stream in streams:
@@ -1396,7 +2187,8 @@ class StreamingLM(TPUComponent):
                     raise stream.error
             return np.stack([s.result for s in streams])
         except BaseException:
-            # one row failed: its siblings must not keep decoding unread
+            # one row failed (shed, expired): its siblings must not keep
+            # decoding unread
             for s in streams:
                 if s.result is None and s.error is None:
                     self.engine.cancel(s)
@@ -1422,11 +2214,18 @@ class StreamingLM(TPUComponent):
             gauge_metric("paged_tokens_emitted", s["tokens"]),
             gauge_metric("paged_streams_completed", s["completed"]),
             gauge_metric("paged_free_pages", s["free_pages"]),
+            gauge_metric("paged_pool_utilization", s["pool_pages_used"] / max(1, s["pool_pages_total"])),
+            gauge_metric("paged_evictions", s["evictions"]),
+            gauge_metric("paged_stall_events", s["stalls"]),
+            gauge_metric("paged_prefix_hit_rate", s["prefix_hits"] / max(1, s["prefix_hits"] + s["prefix_misses"])),
+            gauge_metric("paged_prefix_pages_cached", s["prefix_pages_cached"]),
+            gauge_metric("paged_prefix_tokens_saved", s["prefix_tokens_saved"]),
             gauge_metric("paged_kernel_active", s["kernel_active"]),
             gauge_metric("paged_kv_dtype_int8", s["kv_dtype_int8"]),
             gauge_metric("paged_adapters_resident", s["adapters_resident"]),
         ]
-        for key in ("adapter_loads", "adapter_hits", "adapter_misses", "adapter_evictions"):
+        for key in ("shed", "expired", "preempted", "restored", "adapter_loads", "adapter_hits", "adapter_misses",
+                    "adapter_evictions"):
             out.append(gauge_metric(f"paged_{key}", s[key]))
         for name, n in self.engine.adapter_stats()["requests"].items():
             out.append(gauge_metric("paged_adapter_requests", n, tags={"adapter": name}))
@@ -1436,6 +2235,7 @@ class StreamingLM(TPUComponent):
 
     def health_status(self):
         engine = self.engine
+        cfg = self.engine_config
         return {
             "model": "streaminglm",
             "loaded": engine is not None,
@@ -1443,6 +2243,12 @@ class StreamingLM(TPUComponent):
             "device_name": torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu",
             "dtype": self.dtype_name,
             "load_time_s": self._load_time_s,
+            "quantize": cfg["quantize"],
+            "precision": cfg["precision"],
+            "prefix_cache": bool(engine._prefix_cache_enabled) if engine is not None else cfg["prefix_cache"],
+            "chunk_token_budget": engine.chunk_token_budget if engine is not None else cfg["chunk_token_budget"],
+            "max_queue": engine.max_queue if engine is not None else cfg["max_queue"],
+            "weight_bytes": engine.weight_bytes() if engine is not None else None,
             "kernel_active": bool(engine is not None and engine._kernel_active),
             "kv_dtype": ("int8" if engine._kv_int8 else self.dtype_name) if engine is not None else None,
             "kernel_launches": kernels.launch_counts(),

@@ -91,6 +91,7 @@ def quantize_params(
     module: nn.Module,
     min_elems: int = 4096,
     predicate: Optional[Callable[[str, torch.Tensor], bool]] = None,
+    state: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> Tuple[Dict[str, Any], List[Dict[str, Any]]]:
     """The module's ``state_dict`` with eligible kernels swapped for
     :class:`QuantizedKernel` entries.
@@ -101,13 +102,17 @@ def quantize_params(
     LayerNorm parameters, biases and embeddings are never touched.
     ``predicate(key, tensor)`` replaces the rule.
 
+    ``state`` (default the module's ``state_dict``) is the tensors to
+    quantise, keyed as the module's: the paged engine passes its float32
+    checkpoint, as the JAX package quantises float32 parameters.
+
     Returns ``(quantized_state, manifest)``; each manifest row has the
     flax ``path`` and ``shape``, ``bytes_fp`` (the tensor as stored) and
     ``bytes_q``, and the port's ``key``.
     """
     from seldon_core_tpu_torch.models.convert import flax_kernel_path
 
-    state: Dict[str, Any] = dict(module.state_dict())
+    state: Dict[str, Any] = dict(module.state_dict() if state is None else state)
     kernels = set(kernel_keys(module))
     manifest: List[Dict[str, Any]] = []
     for key, t in state.items():

@@ -17,6 +17,13 @@ symmetric per-output-channel weight scales.
 * **primitives** ``w8a8_matmul`` / ``w8a8_conv`` — quantise -> integer
   GEMM (``torch._int_mm``, cuBLASLt on the card, int32 out) -> rescale,
   in the JAX package's layouts: (..., K) @ (K, N), NHWC / HWIO.
+* **frozen weights** ``W8A8Dense.freeze`` — a layer handed its int8
+  kernel and steps once (the paged engine does, at construction) reads
+  them on every call instead of re-quantising its float weight;
+  ``weight_quantizations()`` counts every weight quantisation, so a
+  caller can show none happens per step.
+* **audit** ``int8_lowering_report`` — the GEMMs one call runs under
+  ``torch.profiler``, sorted into int8, integer-widened and float.
 
 The convolution is an im2col GEMM: PyTorch has no int8 convolution.  The
 int8 input is zero-padded (flax ``SAME`` pads, asymmetric where flax's
@@ -28,7 +35,9 @@ int path ran (the JAX package audits its HLO for the same purpose).
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
+import re
+import threading
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +56,9 @@ __all__ = [
     "W8A8Conv",
     "calibrate_act_scales",
     "act_scale_table",
+    "quantize_weight",
+    "weight_quantizations",
+    "int8_lowering_report",
 ]
 
 # the flax variable collections these map to: the calibrated scales (the
@@ -57,6 +69,16 @@ ACT_STATS = "act_stats"
 _EPS = 1e-8  # all-zero activations quantise to zeros, not NaNs
 _MM_ROWS_MIN = 17  # torch._int_mm on CUDA takes more than 16 rows
 _MM_ALIGN = 8      # ... and K, N multiples of 8
+
+_WQ_LOCK = threading.Lock()
+_WQ_COUNT = 0  # weight quantisations since import (weight_quantizations())
+
+
+def weight_quantizations() -> int:
+    """Weight quantisations run since import: the evidence that a lane
+    with frozen weights quantises no weight per call."""
+    with _WQ_LOCK:
+        return _WQ_COUNT
 
 
 # ---------------------------------------------------------------------------
@@ -91,6 +113,9 @@ def _quantize_weight_last_axis(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
     as the JAX package does, so a kernel that went through the at-rest
     surgery and an f32 dequant gives the same integers back, and the same
     steps as JAX's to the bit (``127 * s / 127`` need not be ``s``)."""
+    global _WQ_COUNT
+    with _WQ_LOCK:
+        _WQ_COUNT += 1
     wf = w.float()
     absmax = wf.abs().amax(dim=tuple(range(wf.dim() - 1)))
     step = torch.where(absmax > 0, absmax, torch.ones_like(absmax)) / 127.0
@@ -171,9 +196,25 @@ def w8a8_matmul(x: torch.Tensor, w: torch.Tensor, act_scale: Optional[torch.Tens
     then ``acc * (step_x * step_w)`` in f32, cast to ``out_dtype``
     (default x's dtype).
     """
+    wq, sw = _quantize_weight_last_axis(w)
+    return w8a8_matmul_quantized(x, wq, sw, act_scale, out_dtype)
+
+
+def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A (K, N) float kernel as ``w8a8_matmul`` quantises it: ``(w_q,
+    step (N,))``, ``w_q`` laid out column-major, as ``torch._int_mm``
+    takes its second operand, so a frozen layer's calls copy nothing."""
+    wq, sw = _quantize_weight_last_axis(w)
+    return wq.t().contiguous().t(), sw
+
+
+def w8a8_matmul_quantized(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
+                          act_scale: Optional[torch.Tensor] = None,
+                          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``w8a8_matmul`` with the kernel already quantised (``quantize_weight``):
+    the activation quantised, one int8 GEMM, the rescale."""
     out_dtype = out_dtype or x.dtype
     xq, sx = quantize_activation(x, act_scale)
-    wq, sw = _quantize_weight_last_axis(w)
     acc = _int_matmul(xq, wq)
     return (acc.float() * (sx * sw)).to(out_dtype)
 
@@ -230,6 +271,14 @@ class W8A8Dense(nn.Linear, _W8A8Mixin):
         self.requires_grad_(False)
         self.dtype = dtype
         self._init_w8a8(enable, device)
+        self.frozen: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def freeze(self, wq: torch.Tensor, step: torch.Tensor) -> None:
+        """Serve from ``(wq, step)``, ``quantize_weight`` of the (in, out)
+        kernel, from now on: calls quantise no weight, and the float
+        ``weight`` is dropped (an empty tensor stays under its name)."""
+        self.frozen = (wq, step)
+        self.weight = nn.Parameter(self.weight.new_empty((0,)), requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight
@@ -237,7 +286,10 @@ class W8A8Dense(nn.Linear, _W8A8Mixin):
             b = None if self.bias is None else self.bias.to(self.dtype)
             return F.linear(x.to(self.dtype), w.to(self.dtype), b)
         self._observe(x)
-        y = w8a8_matmul(x, w.t(), self.act_scale, self.dtype)
+        if self.frozen is not None:
+            y = w8a8_matmul_quantized(x, *self.frozen, self.act_scale, self.dtype)
+        else:
+            y = w8a8_matmul(x, w.t(), self.act_scale, self.dtype)
         if self.bias is not None:
             y = (y.float() + self.bias.float()).to(self.dtype)
         return y
@@ -305,3 +357,90 @@ def act_scale_table(module: nn.Module) -> Dict[str, float]:
         return {}
     values = torch.stack([m.act_scale.float() for _, m in layers]).cpu().tolist()
     return {name: v for (name, _), v in zip(layers, values)}
+
+
+# ---------------------------------------------------------------------------
+# audit — did the integer path run?
+# ---------------------------------------------------------------------------
+
+# the leaf GEMM / convolution ops of the dispatcher (wrappers such as
+# aten::linear, aten::matmul and aten::einsum reach one of these)
+_GEMM_OPS = frozenset(("aten::_int_mm", "aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm", "aten::mv",
+                       "aten::addmv", "aten::dot", "aten::convolution"))
+_INT8_TYPES = frozenset(("signed char", "char", "int8"))
+_WIDE_INT_TYPES = frozenset(("short", "int", "long", "long int", "int16", "int32", "int64"))
+# device kernels that are GEMMs (cuBLAS / cuBLASLt / CUTLASS names), and
+# which of them take int8 operands
+_GEMM_KERNEL = re.compile(r"gemm|xmma|cutlass|cublas|matmul", re.IGNORECASE)
+_INT8_KERNEL = re.compile(r"i8|s8|int8|imma|igemm", re.IGNORECASE)
+
+
+def int8_lowering_report(fn: Callable, *args) -> Dict[str, Any]:
+    """Run ``fn(*args)`` once under ``torch.profiler`` and sort every
+    GEMM / convolution it ran by operand type: the JAX package's report,
+    read from the profiler instead of optimised HLO.
+
+    On a CUDA card the device kernels decide: a GEMM kernel whose name
+    marks int8 operands (cuBLASLt's ``..._i8...`` / ``imma`` kernels)
+    counts as int8, any other GEMM kernel as float.  Without device
+    kernels the dispatcher's leaf ops decide: ``aten::_int_mm`` (or a
+    GEMM on int8 inputs) is int8, a GEMM on wider integers is
+    integer-widened, the rest float.  Verdicts: ``"int8"`` (at least one
+    int8 GEMM), ``"int-widened"``, ``"float-upcast"`` (only float GEMMs:
+    the quantised lane did not run) or ``"no-ops"``;
+    ``int8_majority`` also asks that the int8 GEMMs outnumber the float
+    ones.  ``evidence`` holds up to 8 of the profiler's own names, int8
+    first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, record_shapes=True) as prof:
+        fn(*args)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    kernels_seen: List[Tuple[str, str]] = []
+    ops_seen: List[Tuple[str, str]] = []
+    for ev in prof.events():
+        name = ev.name
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            if _GEMM_KERNEL.search(name):
+                kernels_seen.append(("s8" if _INT8_KERNEL.search(name) else "float", name))
+            continue
+        if name not in _GEMM_OPS:
+            continue
+        dtypes = set(getattr(ev, "input_dtypes", None) or ())
+        if name == "aten::_int_mm" or dtypes & _INT8_TYPES:
+            kind = "s8"
+        elif dtypes & _WIDE_INT_TYPES:
+            kind = "int_wide"
+        else:
+            kind = "float"
+        ops_seen.append((kind, f"{name} {sorted(d for d in dtypes if d)}"))
+    seen = kernels_seen or ops_seen
+    counts = {"s8": 0, "int_wide": 0, "float": 0}
+    for kind, _ in seen:
+        counts[kind] += 1
+    evidence: List[str] = []
+    for want in ("s8", "int_wide", "float"):
+        for kind, line in seen:
+            if kind == want and line[:160] not in evidence and len(evidence) < 8:
+                evidence.append(line[:160])
+    if counts["s8"]:
+        verdict = "int8"
+    elif counts["int_wide"]:
+        verdict = "int-widened"
+    elif counts["float"]:
+        verdict = "float-upcast"
+    else:
+        verdict = "no-ops"
+    return {
+        "verdict": verdict,
+        "int8_ops": counts["s8"],
+        "int_widened_ops": counts["int_wide"],
+        "float_ops": counts["float"],
+        "int8_majority": counts["s8"] > 0 and counts["s8"] >= counts["float"],
+        "backend": "cuda" if kernels_seen else "cpu",
+        "evidence": evidence,
+    }

@@ -25,7 +25,13 @@ KNOBS: Dict[str, str] = {
     ),
     "SELDON_TPU_MAX_ADAPTERS": "LoRA adapter pool slots of a PagedEngine when max_adapters is 0 (unset/0: adapters off)",
     "SELDON_TPU_WEIGHT_BUDGET_GIB": "weight registry budget in GiB for named weight sets (unset/0: no budget)",
-    "SELDON_TPU_PREFIX_CACHE": "page-granular prefix cache: '1' raises (not ported); off by default here",
+    "SELDON_TPU_PREFIX_CACHE": "page-granular automatic prefix caching ('0' = off; a constructor's prefix_cache wins)",
+    "SELDON_TPU_PAGED_DEBUG": "the paged engine's allocator audit at every chunk boundary ('1' = on)",
+    "SELDON_TPU_MAX_QUEUE": "bounded run-queue depth for priority shedding when max_queue is 0 (0 = unbounded)",
+    "SELDON_TPU_CHUNK_TOKEN_BUDGET": (
+        "chunked-prefill co-scheduling when chunk_token_budget is 0: the most tokens one engine wave may carry, "
+        "filled decode-first then with page-aligned prompt slices (0 = off: monolithic prefill)"
+    ),
     "SELDON_TPU_ZERO_COPY": (
         "buffer-view lane: SRT1 frames decode to zero-copy views from the native ingress to the device "
         "staging buffer ('0' = proto/JSON paths only; frames are refused naming the knob)"
@@ -40,10 +46,10 @@ KNOBS: Dict[str, str] = {
 }
 
 # flag knobs and their defaults: "1" = on unless set to "0", "0" = off
-# unless set to "1".  The JAX package defaults the prefix cache on; the
-# port has no prefix cache yet, so its default is off.
+# unless set to "1" (the JAX package's defaults)
 _FLAG_DEFAULTS: Dict[str, str] = {
-    "SELDON_TPU_PREFIX_CACHE": "0",
+    "SELDON_TPU_PREFIX_CACHE": "1",
+    "SELDON_TPU_PAGED_DEBUG": "0",
     "SELDON_TPU_ZERO_COPY": "1",
     "SELDON_TPU_TRANSPORT_TELEMETRY": "1",
     "SELDON_TPU_BREAKER": "1",

@@ -17,8 +17,8 @@ names and rules.  One **end-to-end budget** rides with the request:
 ``X-Seldon-Priority`` lands in ``meta.tags.priority`` (clamped: the wire
 is unauthenticated), and ``X-Seldon-Adapter`` names the LoRA weight set
 a generation request decodes with; header and body tag normalise
-through one rule.  The generation engine's admission by deadline and
-priority comes with ``ROADMAP.md`` §A item 8.5.
+through one rule.  The paged generation engine admits, sheds, expires
+and preempts by them (``StreamingLM._slo_terms``).
 
 A request with no deadline behaves as before: every helper is a no-op
 returning ``None`` when nothing is active, so the default path costs one

@@ -543,7 +543,8 @@ def test_streaminglm_model_uri_and_uri_adapter_match_the_jax_engine(lm_files, mo
     assert want[None] != want["a"]
 
     lm = StreamingLM(device="cpu", dtype="float32", model_uri=lm_uri, adapters={"a": {"uri": adapter_uri}},
-                     max_adapters=1, lora_rank=RANK, max_new_tokens=MAX_NEW, **LM_CFG, **LM_ENGINE)
+                     max_adapters=1, lora_rank=RANK, max_new_tokens=MAX_NEW, prefix_cache=False, **LM_CFG,
+                     **LM_ENGINE)
     lm.load()
     try:
         for adapter in (None, "a"):

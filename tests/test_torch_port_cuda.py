@@ -398,6 +398,47 @@ def test_paged_engine_launches_the_kernel_every_step_of_every_layer(impl, monkey
     assert all(s.result.shape == (8,) and ((s.result >= 0) & (s.result < 128)).all() for s in streams)
 
 
+
+@pytest.mark.parametrize("case", ["w8a8", "prefix_hit"])
+def test_scheduler_lanes_launch_the_kernel_every_step_and_match_the_gather_lane(case, monkeypatch):
+    """A w8a8 engine, and suffix prefills over prefix-cache hits: K4 once
+    per layer per decode step, and in float32 the greedy tokens of the
+    gather lane."""
+    _need_card()
+    cfg = dict(vocab_size=128, d_model=64, num_layers=2, num_heads=4, max_len=256)
+    params = load_lm_params("", cfg, 0)
+    rng = np.random.default_rng(3)
+    system = rng.integers(0, 128, 48)
+    prompts = [np.concatenate([system, rng.integers(0, 128, n)]) for n in (5, 17, 30)]
+    kw = dict(precision="w8a8", prefix_cache=False) if case == "w8a8" else dict(prefix_cache=True)
+
+    def run(lane):
+        if lane == "auto":
+            monkeypatch.delenv("SELDON_TPU_PAGED_KERNEL", raising=False)
+        else:
+            monkeypatch.setenv("SELDON_TPU_PAGED_KERNEL", lane)
+        eng = PagedEngine(params, dtype="float32", device="cuda", page_size=16, max_slots=4, steps_per_call=4,
+                          **cfg, **kw)
+        first = eng.generate(prompts[0], max_new_tokens=8)  # publishes the system prompt's pages
+        steps0 = sum(k * v for k, v in eng.engine_stats()["chunk_steps"].items())
+        kernels.reset_launch_counts()
+        rest = [eng.submit(p, max_new_tokens=8) for p in prompts[1:]]
+        eng.run()
+        torch.cuda.synchronize()
+        stats = eng.engine_stats()
+        steps = sum(k * v for k, v in stats["chunk_steps"].items()) - steps0
+        return ([first.tolist()] + [s.result.tolist() for s in rest], kernels.launch_counts()["paged_decode_stream"],
+                steps, stats, eng._kernel_active)
+
+    tokens, launches, steps, stats, active = run("auto")
+    gather, gather_launches, _, _, gather_active = run("0")
+    assert active and not gather_active and gather_launches == 0
+    assert steps > 0 and launches == cfg["num_layers"] * steps
+    assert tokens == gather
+    if case == "prefix_hit":
+        assert stats["prefix_hits"] == 2 and stats["prefix_tokens_saved"] == 2 * 48
+
+
 # K3 shapes: the ViT-B/16 serving shapes at 224 and 384, the causal LM check shape, small
 # f32 ones, head_dim 128 and a ragged one in f16; (B, L, H, D, dtype, causal)
 FLASH_CASES = [

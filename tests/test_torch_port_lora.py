@@ -339,7 +339,7 @@ def _engine(params, monkeypatch, lane="force", impl="stream", **kw):
     monkeypatch.setenv("SELDON_TPU_PAGED_KERNEL", lane)
     monkeypatch.setenv("SELDON_TPU_PAGED_KERNEL_IMPL", impl)
     kw = {"max_adapters": 2, "lora_rank": RANK, "weight_registry": _registry(registry, _adapters()), **kw}
-    return PagedEngine(params, dtype="float32", device="cpu", **CFG, **{**ENGINE, **kw})
+    return PagedEngine(params, dtype="float32", device="cpu", **CFG, **{**ENGINE, "prefix_cache": False, **kw})
 
 
 def _mixed(eng, mix=MIX):

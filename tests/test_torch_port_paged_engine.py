@@ -8,8 +8,9 @@ six ragged prompts across page boundaries, four slots (so two prompts
 queue), ten new tokens.  Greedy tokens must be equal, exactly.
 
 The port's own contract: eos padding, cancel, the two lanes agreeing,
-``top_k=1`` equal to greedy, a seed reproducing its sample, and every
-option of the JAX engine that the port does not run yet raising.
+``top_k=1`` equal to greedy, a seed reproducing its sample, admission
+with the prompt's pages and growth a chunk at a time, and every option
+of the JAX engine that the port does not run yet raising.
 """
 
 import sys
@@ -72,7 +73,7 @@ def jax_tokens(flax_params):
 
 def _engine(params, monkeypatch, lane="force", **kw):
     monkeypatch.setenv("SELDON_TPU_PAGED_KERNEL", lane)
-    return PagedEngine(params, dtype="float32", device="cpu", **CFG, **{**ENGINE, **kw})
+    return PagedEngine(params, dtype="float32", device="cpu", **CFG, **{**ENGINE, "prefix_cache": False, **kw})
 
 
 def _decode(eng, prompts, **kw):
@@ -143,15 +144,21 @@ def test_top_k_one_is_greedy_and_a_seed_reproduces_its_sample(params, port_token
     assert ((a >= 0) & (a < CFG["vocab_size"])).all()
 
 
-def test_admission_reserves_pages_and_queues(params, monkeypatch):
-    # 5 usable pages: a 25-token prompt + 10 new needs all 5, so the next
-    # prompt waits for its pages instead of stalling mid-decode
+def test_admission_takes_the_prompt_pages_and_grows_per_chunk(params, port_tokens, monkeypatch):
+    # as the JAX engine admits: the prompt's pages at admission (14 and 17
+    # tokens fill the 5 usable pages of 8), then each chunk's pages as it
+    # comes, stalling and evicting when the pool runs dry; the tokens are
+    # those of the full pool
     eng = _engine(params, monkeypatch, num_pages=6)
-    first, second = (eng.submit(p, max_new_tokens=MAX_NEW) for p in (_prompts()[2], _prompts()[0]))
-    eng.step()
-    assert eng.engine_stats()["active"] == 1 and eng.engine_stats()["queued"] == 1
+    first, second = (eng.submit(_prompts()[i], max_new_tokens=MAX_NEW) for i in (0, 4))
+    with eng._lock:
+        admitted = eng._admit_locked()
+    assert [s for s, _ in admitted] == [first, second]
+    assert len(first.pages) == 2 and len(second.pages) == 3
+    eng._prefill_streams([first, second])
     eng.run()
-    assert first.result.shape == second.result.shape == (MAX_NEW,)
+    np.testing.assert_array_equal(np.stack([first.result, second.result]), port_tokens[[0, 4]])
+    assert eng.engine_stats()["stalls"] > 0
     with pytest.raises(MicroserviceError, match="pages but the pool holds") as err:
         eng.submit(np.zeros(40, np.int32), max_new_tokens=10)
     assert err.value.reason == "SEQUENCE_TOO_LONG"
@@ -209,15 +216,9 @@ def test_lane_resolution_on_the_cpu(params, monkeypatch, lane, expect):
 
 
 UNPORTED = [
-    ("prefix_cache", dict(prefix_cache=True)),
-    ("chunk_token_budget", dict(chunk_token_budget=64)),
-    ("max_steps_per_call", dict(max_steps_per_call=16)),
     ("speculative", dict(speculative={"draft": "ngram", "draft_k": 2})),
-    ("quantize", dict(quantize="int8")),
-    ("precision", dict(precision="w8a8")),
     ("tp/dp/mesh", dict(tp=2)),
     ("tp/dp/mesh", dict(dp=2)),
-    ("max_queue", dict(max_queue=4)),
 ]
 
 
@@ -230,7 +231,7 @@ def test_unported_options_raise_naming_the_slice(params, option, kw):
         StreamingLM(device="cpu", **CFG, **kw)
 
 
-@pytest.mark.parametrize("env,value", [("SELDON_TPU_CHUNK_IMPL", "ring"), ("SELDON_TPU_PREFIX_CACHE", "1")])
+@pytest.mark.parametrize("env,value", [("SELDON_TPU_CHUNK_IMPL", "ring")])
 def test_unported_knobs_raise(params, monkeypatch, env, value):
     monkeypatch.setenv(env, value)
     with pytest.raises(MicroserviceError, match="ROADMAP.md"):
