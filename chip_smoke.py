@@ -69,8 +69,8 @@ JAX or of the JAX package.  Phases, each of which fails the run:
 5. whole-path numerics in-process: bf16 with the kernels against f32
    with the plain versions (TF32 off), relative L2 error <= 5e-2 and
    per-row cosine similarity >= 0.99;
-6. numbers: p50/p99 latency of 600 sequential single-image requests,
-   img/s of batch-32 requests from 4 clients over a 5 s window, device
+6. numbers: p50/p99 latency of 300 sequential single-image requests,
+   img/s of batch-32 requests from 4 clients over a 3 s window, device
    forward time, and a profiler breakdown;
 7. the generation path: the CLI serving ``StreamingLM`` (vocab 16384,
    d_model 512, 8 layers, 8 heads, max_len 1024, pages of 64, 16 slots,
@@ -80,12 +80,15 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    single requests equal an in-process ``PagedEngine`` of the same
    weights, each prompt alone, bit for bit; at least 75% of the
    concurrent rows equal theirs too; a repeated request is identical;
-   the server's K4 launches grow by at least 8 layers x the decode
-   steps it took; numbers: REST p50/p99 over 60 sequential requests
+   the server's K4 launches grow by exactly 8 layers x its decode calls
+   (one a step, two in a chunk split into length buckets); numbers:
+   REST p50 and the largest of 30 sequential requests (too few for a
+   p99; every tail the smoke prints rests on at least 100 samples)
    (prompt 128, 32 new) and REST tokens/s of 16 closed-loop clients
-   over 5 s;
+   over 3 s;
 8. engine numerics in-process: in f32 the kernel lane, the gather lane
-   (``SELDON_TPU_PAGED_KERNEL=0``) and the grid kernel give identical
+   (``SELDON_TPU_PAGED_KERNEL=0`` with ``SELDON_TPU_CHUNK_IMPL=pool``: the
+   kernel off alone would pick the ring chunk) and the grid kernel give identical
    greedy tokens for 16 ragged prompts (K5's launches counted there);
    bf16 kernel lane against f32 gather lane on the first decode step's
    logits, relative L2 <= 5e-2 and per-row cosine >= 0.99; numbers:
@@ -100,9 +103,9 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    within relative L2 2e-2 of an in-process model of the same weights and
    nearer its own image's answer than any other's; the server's
    ``flash_attention`` launches grow by exactly 12 x the batches served
-   and ``fused_normalize``'s by the batch count; numbers: p50/p99 of 500
+   and ``fused_normalize``'s by the batch count; numbers: p50/p99 of 250
    sequential single images, img/s of batch-32 requests from 4 clients
-   over 5 s, and the device time of the in-process forward at batch 1
+   over 3 s, and the device time of the in-process forward at batch 1
    and 32 from the profiler, with K3's share and the idle share;
 10. transformer numerics in-process: ViT-B/16 bf16 with K3 against f32
    with plain attention (TF32 off), relative L2 <= 5e-2 and per-row
@@ -127,14 +130,15 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    same weights, adapters and int8 pool, bit for bit, at least 75% of the
    concurrent rows equal theirs, adapter rows differ from the base row of
    the same prompt, a body tag wins over the header, and the server's
-   K4-int8+LoRA launches grow by at least 8 layers x its decode steps;
-   numbers: REST p50/p99 over 60 sequential requests (prompt 128, 32 new)
-   and tokens/s of 16 closed-loop clients over 5 s;
+   K4-int8+LoRA launches grow by exactly 8 layers x its decode calls;
+   numbers: REST p50 and the largest of 30 sequential requests (prompt
+   128, 32 new) and tokens/s of 16 closed-loop clients over 3 s;
    (c) in-process at the same config: in f32 the int8 kernel lane, the
    int8 gather lane and the int8 grid kernel, and (native pool, adapters)
    the fold and the einsum lane, give identical greedy tokens for 16
-   ragged prompts (each variant's launches counted there, exactly layers x
-   decode steps); bf16 int8 kernel lane against the bf16 native pool on
+   ragged prompts (the gather and einsum lanes on the pool chunk; each
+   variant's launches counted there, exactly layers x decode calls);
+   bf16 int8 kernel lane against the bf16 native pool on
    the first decode step's logits, relative L2 <= 5e-2 and per-row cosine
    >= 0.99; f32 int8 against native greedy tokens, first tokens equal and
    an agreement of at least 0.75; in bf16 with int8 + adapters, 16 prompts
@@ -154,8 +158,8 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    (32 images): int8w relative L2 <= 5e-2 and per-row cosine >= 0.99,
    w8a8 top-1 agreement >= 0.8 (its cosine reported); one w8a8 conv's
    int32 accumulator equal to the float64 product of the same integers;
-   numbers: REST p50/p99 of 300 sequential single images, img/s of
-   batch-32 requests from 4 clients over 5 s, the device time by group
+   numbers: REST p50/p99 of 150 sequential single images, img/s of
+   batch-32 requests from 4 clients over 3 s, the device time by group
    of an in-process forward at batch 32, and the weight bytes on the card;
 13. the ResNet-50 SeldonDeployment over the port's engine (the phase 4
    served parameters with ``max_wait_ms=1.0``; ``BASELINE.json``'s metric):
@@ -164,12 +168,12 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    (``UnitSpec.from_dict`` -> ``PredictorService`` -> ``Gateway`` ->
    ``serve_gateway``, sync gRPC), driven with the JAX headline's method
    (``bench.py:1296-1345``): uint8 ``rawTensor`` flat rows [rows, 150528];
-   4 clients of batch-1 requests for 10 s (p50 / p90 / p99, QPS), then 8
-   clients of batch-32 requests over three windows of 10/3 s (img/s, best
-   and mean), after 3 s of one client's sequential batch-1 requests (the
+   4 clients of batch-1 requests for 5 s (p50 / p90 / p99, QPS), then 8
+   clients of batch-32 requests over three windows of 5/3 s (img/s, best
+   and mean), after 2 s of one client's sequential batch-1 requests (the
    service time without queueing), over gRPC ``Seldon/Predict`` and then REST
-   ``/api/v0.1/predictions`` on the same gateway (REST's windows 5 s and
-   5/3 s); zero failures, and the
+   ``/api/v0.1/predictions`` on the same gateway (the same windows); zero
+   failures, and the
    gateway's K1 launches equal its batches (``/metrics``); the headline
    line prints ``grpc_p50_ms``, ``grpc_p99_ms``, ``grpc_qps``,
    ``grpc_img_s``, the REST numbers and the 10 ms target beside the p50;
@@ -191,7 +195,7 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    ``native/frontserver.cc`` built by g++ with phase 2's builds) in front
    of 13a's gateway child, one port for HTTP/1.1 and h2c gRPC, 4 batch
    threads (the knob's default): (a) 13a's gRPC clients and windows aimed
-   at the native port (``bench.py:1281-1345``, the JAX headline's
+   at the native port, the latency window 10 s (``bench.py:1281-1345``, the JAX headline's
    method), the batcher's mean collection wait over the one-client
    window; (b) SRT1 frames over HTTP/1.1 (one client's sequential p50,
    batch-32 img/s), one multi-frame container of 1, 2 and 5 rows served
@@ -214,8 +218,8 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    with a native port in front, beside 13a's plain gateway child; a
    token from ``/oauth/token``, then 4 TLS sync-gRPC clients of uint8
    rows [1, 150528], each request with ``authorization: Bearer``,
-   ``x-seldon-deadline-ms: 10000`` and a ``traceparent``, for 5 s after
-   one client's 3 s of sequential requests, on the two gateways in turns
+   ``x-seldon-deadline-ms: 10000`` and a ``traceparent``, for 3 s after
+   one client's 2 s of sequential requests, on the two gateways in turns
    (on, off, off, on): p50 / p99 / QPS and the sequential p50 of each
    window and the A4-minus-plain difference of the means; every served
    row against the in-process model; K1 launches equal batches on both;
@@ -243,9 +247,9 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    ``BalancedClient`` of ``build_client`` replica clients
    (``seldon.io/breaker-failures: 5``, ``seldon.io/breaker-reset-ms:
    1000``), sync gRPC; uint8 rows [1, 150528] of 8 distinct images:
-   (a) one client's 3 s, then 4 clients for 10 s: p50 / p99 / QPS, each
+   (a) one client's 2 s, then 4 clients for 5 s: p50 / p99 / QPS, each
    replica 50% +- 5% of the requests, K1 launches = batches on each;
-   (b) SIGKILL of R2 half-way through a 10 s window of 4 clients: zero
+   (b) SIGKILL of R2 half-way through a 5 s window of 4 clients: zero
    client-visible failures; on the gateway's ``/metrics`` R2's
    ``seldon_tpu_transport_breaker_state`` 2, a transition to open,
    fast-fails and failovers; p50 / p99 before and after the kill and the
@@ -264,7 +268,7 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    the time to the first degraded answer and the degraded p50; R1
    restarted and warmed as R2, untagged answers again within 3 s;
    (e) hedging on R1, measured only: ``seldon.io/hedge-ms`` at the p90 of
-   a 5 s unhedged window, then 5 s windows off, on, on, off; hedges and
+   a 3 s unhedged window, then 3 s windows off, on, on, off; hedges and
    wins on ``/metrics`` = the client's counters; R1's rows between the
    requests sent and that plus the hedges; a ``SendFeedback`` under
    ``hedge-ms: 1`` fires no hedge.  Every row of (a)-(e) within 2e-2 of
@@ -301,7 +305,36 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    and K3 = 12 x batches; a 256x256 request refused with the 400 that
    lists both shapes; K3 at (32, 577, 12, 64) bf16 against its plain
    version within one bf16 step (3c's bar) and timed beside
-   ``F.scaled_dot_product_attention`` and its bound.
+   ``F.scaled_dot_product_attention`` and its bound;
+18. the generation scheduler and precision lanes at the generation
+   config, in-process: (a) bf16 / int8w / w8a8 decode rates, a w8a8
+   chunk's ``int8_lowering_report``, a served w8a8 ``StreamingLM``; (b)
+   the prefix cache on / off; (c) the steps ladder and a 49-page pool that
+   stalls and evicts; (d) the SLO queue under the allocator audit; (e)
+   chunked prefill under a 512-token budget; every counted run launches
+   K4 once a layer a decode call;
+19. the ring chunk, the length-bucketed split and token streaming at the
+   generation config: (a) 16 prompts of 128 tokens, 64 new: the chunk
+   ``SELDON_TPU_PAGED_KERNEL=0`` picks with the chunk unset is the ring;
+   in f32 the ring (``SELDON_TPU_CHUNK_IMPL=ring``) and the pool chunk on
+   K4 give equal greedy tokens, plain, with the two adapters of phase 11
+   and with a prefix hit; no K4 launch over the ring's runs; bf16 rows and
+   token agreement of the two, and their decode tokens/s in turns (ring,
+   pool, pool, ring); (b) 8 prompts of 64 beside 8 of 768, 64 new:
+   ``SELDON_TPU_CTX_BUCKETS=2`` against ``1`` on the pool chunk, then on
+   the ring: equal f32 tokens, bucketed chunks under 2 only, K4 exactly
+   layers x steps x buckets, bf16 tokens/s in turns; (c) a served bf16
+   ``StreamingLM`` (cache off, ``max_queue`` 4) behind an in-process
+   gateway: for 8 prompts on REST SSE, sync gRPC ``Seldon/GenerateStream``
+   and the native ingress's, the streamed chunks joined equal the unary
+   row of the same request on that lane, bit for bit; p50 time to the
+   first and the last chunk beside the unary time; 4 concurrent streams
+   a lane (at least 75% equal their rows); a client dropped after its
+   first chunk leaves no slot and no page held within 2 s; SSE answers a
+   spent deadline 504 and a shed 503, not a 200 stream; K4 exactly layers
+   x decode calls; (d) 16 streamed f32 requests on a 49-page pool: an
+   eviction, and every stream's chunks joined equal its result and the
+   full pool's, each token once.
 
 The first line names the card, torch, CUDA and ``grpc.__version__``.
 Output: the ``nvidia-smi`` line, then one ``{"kernels": [...]}`` line,
@@ -338,9 +371,9 @@ MODEL_PARAMS = [
 IMG = (224, 224, 3)
 NUM_CLASSES = 1000
 SEED = 0
-LATENCY_REQUESTS = 600          # p99 rests on the 6 slowest
+LATENCY_REQUESTS = 300          # p99 rests on the 3 slowest (600 before phase 19 joined the time limit)
 THROUGHPUT_CLIENTS = 4
-THROUGHPUT_SECONDS = 5.0
+THROUGHPUT_SECONDS = 3.0       # 5 s until phase 19 joined the time limit
 # tolerances, stated before any run
 SERVED_VS_LOCAL_REL_L2 = 2e-2   # each bf16 served row vs in-process bf16, same weights
 CROSS_ROW_MIN_REL_L2 = 2 * SERVED_VS_LOCAL_REL_L2  # two images' answers must differ by more
@@ -368,7 +401,7 @@ VIT_PARAMS = [
     {"name": "model_kwargs", "value": json.dumps({"attention": "flash"}), "type": "JSON"},
 ]
 VIT_LAYERS = 12
-VIT_LATENCY_REQUESTS = 500
+VIT_LATENCY_REQUESTS = 250       # 500 before phase 19 joined the time limit
 FLASH_CASES = [  # (B, L, H, D, dtype name, causal, strided qkv views)
     (32, 197, 12, 64, "bfloat16", False, False),
     (32, 197, 12, 64, "bfloat16", False, True),
@@ -398,9 +431,9 @@ PAGED_REL_TOL = 1e-4            # largest |kernel - plain| over finite entries /
 PAGED_DESIGN = ("one launch: a block a (lane, chunk of pages, head group), cp.async into an mbarrier ring, "
                 "the lane's chunks merged by its last block")
 GEN_MIN_IDENTICAL_SHARE = 0.75  # concurrent served rows equal to the in-process rows
-GEN_LATENCY_REQUESTS = 60       # halved from 120 to keep the whole smoke inside its time limit
+GEN_LATENCY_REQUESTS = 30       # too few for a p99: the line prints p50 and the largest (MIN_P99_SAMPLES)
 GEN_CLIENTS = 16
-GEN_SECONDS = 5.0
+GEN_SECONDS = 3.0              # 5 s until phase 19 joined the time limit
 F32_PEAK_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores (data sheet)
 # the quantised multi-adapter cell: the generation config with an int8 KV
 # pool and two rank-8 adapters (the JAX package's default rank)
@@ -411,7 +444,7 @@ Q_LM_PARAMS = LM_PARAMS + [
     {"name": "lora_rank", "value": str(LORA_RANK), "type": "INT"},
     {"name": "adapters", "value": json.dumps(LM_ADAPTERS), "type": "JSON"},
 ]
-Q_LATENCY_REQUESTS = 60
+Q_LATENCY_REQUESTS = 30         # p50 and the largest, as GEN_LATENCY_REQUESTS
 # (impl, int8 pages, fold) -> the JAX kernel it replaces
 PAGED_VARIANTS = [("stream", True, False), ("grid", True, False), ("stream", False, True), ("stream", True, True)]
 VARIANT_REPLACES = {
@@ -441,11 +474,14 @@ TIMING_SLEEP_CYCLES = 1_000_000  # GPU spin before each timed call: ~0.5 ms at t
 PRECISIONS = ("int8w", "w8a8")
 PRECISION_KERNELS = 54          # ResNet-50 kernels the surgery quantises (JAX's rule: the stem too)
 W8A8_LAYERS = 52                # block and shortcut convs of ResNet-50: one integer GEMM each a forward
-PRECISION_LATENCY_REQUESTS = 300
+PRECISION_LATENCY_REQUESTS = 150  # 300 before phase 19 joined the time limit
 # phase 13, the gateway: the JAX headline's method (bench.py:1296-1345)
 GRPC_PARAMS = MODEL_PARAMS + [{"name": "max_wait_ms", "value": "1.0", "type": "FLOAT"}]
-GRPC_SECONDS = 10.0             # the latency window; throughput: three windows of a third each
-GRPC_SEQUENTIAL_SECONDS = 3.0   # one client before the windows: service time without queueing
+GRPC_SECONDS = 5.0              # the latency window; throughput: three windows of a third each (10 s until phase 19)
+GRPC_SEQUENTIAL_SECONDS = 2.0   # one client before the windows: service time without queueing (3 s until phase 19)
+NATIVE_GRPC_SECONDS = 10.0      # 14a, the headline: the latency window of 4 clients
+MIN_P99_SAMPLES = 100           # a p99 is printed over at least this many samples; fewer print their largest
+READY_POLL_S = 0.2              # how often a starting server is asked whether it is ready
 GRPC_LAT_CLIENTS = 4            # batch-1 requests
 GRPC_TPUT_CLIENTS = 8           # batch-32 requests
 GRPC_TPUT_WINDOWS = 3
@@ -464,18 +500,18 @@ A4_OAUTH = ("chip-smoke-client", "chip-smoke-secret")  # test-only client creden
 A4_DEADLINE_MS = "10000"
 A4_FEATURES = ("tls", "auth", "tracing", "observer")  # what an A4 gateway child puts on
 A4_WINDOWS = 2                  # windows of each gateway, in turns: on, off, off, on
-A4_SECONDS = 5.0                # 15a's 4-client windows (halved from 10 s for the smoke's time limit)
+A4_SECONDS = 3.0                # 15a's 4-client windows (10 s until PR 13, 5 s until phase 19: the time limit)
 A4_TRACED_REQUESTS = 8          # 15b: requests whose spans are followed across the two processes
 # phase 16, A2.2 on the card: breakers, failover, fallback and hedging on replicated ResNet-50
 A22_ANNOTATIONS = {"seldon.io/breaker-failures": "5", "seldon.io/breaker-reset-ms": "1000"}
 A22_RESET_S = 1.0               # the breaker-reset-ms above
 A22_PROBE_SLACK_S = 2.0         # one probe: a fresh channel's connect and a batch-1 forward on a new process
-A22_SECONDS = 10.0              # 16a and 16b windows of 4 sync-gRPC clients
+A22_SECONDS = 5.0               # 16a and 16b windows of 4 sync-gRPC clients (10 s before phase 19)
 A22_CLIENTS = 4
 A22_SPLIT_TOL = 0.05            # each replica serves 50% +- 5% of 16a's requests
 A22_SEQUENTIAL = 50             # 16d: sequential requests healthy, then with the primary killed
-A22_HEDGE_P90_SECONDS = 5.0     # 16e: the unhedged window whose p90 becomes seldon.io/hedge-ms
-A22_HEDGE_SECONDS = 5.0         # 16e's off / on / on / off windows (halved from 10 s for the smoke's time limit)
+A22_HEDGE_P90_SECONDS = 3.0     # 16e: the unhedged window whose p90 becomes seldon.io/hedge-ms (5 s until phase 19)
+A22_HEDGE_SECONDS = 3.0         # 16e's off / on / on / off windows (10 s until PR 13, 5 s until phase 19)
 # phase 17, A5 and A6 on the card: model_uri checkpoints and a second ViT resolution
 ORBAX_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_orbax")  # resnet_tiny, StandardCheckpointer
 ORBAX_LOGITS_TOL = 1e-4         # float32, TF32 off: rtol = atol against the JAX server's logits
@@ -514,6 +550,16 @@ W8A8_LM_PARAMS = LM_PARAMS + [
     {"name": "max_queue", "value": "64", "type": "INT"},
     {"name": "chunk_token_budget", "value": str(SCHED_BUDGET), "type": "INT"},
 ]
+# phase 19, the ring chunk, the length-bucketed split and token streaming at the generation config
+RING_PROMPT = 128               # 19a: 16 prompts of 128 tokens, LM_MAX_NEW new
+RING_SYSTEM = 128               # 19a: the shared prefix of the prefix-hit run (two pages)
+RING_RATE_REPS = 2              # 19a / 19b: timed turns a lane (a, b, b, a)
+SPLIT_SHORT, SPLIT_LONG = 64, 768  # 19b: 8 prompts of each
+STREAM_PROMPTS = SCHED_REST_PROMPTS  # 19c: the 8 sequential requests a lane
+STREAM_CONCURRENT = 4           # 19c: concurrent streams a lane
+STREAM_DROP_NEW = 512           # 19c: the budget of a stream whose client drops after its first chunk
+STREAM_FREE_S = 2.0             # 19c: the slot and pages of a dropped stream are free within this
+STREAM_QUEUE = 4                # 19c: the served component's max_queue (the shed check fills it)
 
 
 class SmokeFailure(RuntimeError):
@@ -527,6 +573,21 @@ def log(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+class PhaseClock:
+    """Wall seconds of each phase, logged as it ends: where the smoke's
+    time limit goes."""
+
+    def __init__(self):
+        self.seconds = {}
+        self.t = time.perf_counter()
+
+    def mark(self, phase: str) -> None:
+        now = time.perf_counter()
+        self.seconds[phase] = now - self.t
+        self.t = now
+        log(f"{phase}: {self.seconds[phase]:.1f} s of wall time")
 
 
 # ---------------------------------------------------------------- phase 1
@@ -968,7 +1029,7 @@ def wait_ready(proc, base: str, logpath: str, timeout_s: float = 600.0):
                 return status["jsonData"], time.perf_counter() - t0
         except (urllib.error.URLError, ConnectionError, OSError):
             pass
-        time.sleep(1.0)
+        time.sleep(READY_POLL_S)
     raise SmokeFailure(f"server not ready after {timeout_s}s:\n{tail(logpath)}")
 
 
@@ -992,6 +1053,20 @@ def pct(values, q: float) -> float:
 
     v = sorted(values)
     return v[max(0, math.ceil(q * len(v)) - 1)]
+
+
+def p99(values):
+    """The p99 of at least MIN_P99_SAMPLES values, else None: the p99 of a
+    few dozen is only their largest."""
+    return pct(values, 0.99) if len(values) >= MIN_P99_SAMPLES else None
+
+
+def tail_text(values, fmt: str = ".2f") -> str:
+    """The tail of a latency list as a log line says it: its p99, or its
+    largest value where there are too few for a p99."""
+    if len(values) >= MIN_P99_SAMPLES:
+        return f"p99 {pct(values, 0.99):{fmt}} ms"
+    return f"max {max(values):{fmt}} ms ({len(values)} samples, too few for a p99)"
 
 
 def distinct_images(np, rng, n: int, shape=IMG):
@@ -1195,6 +1270,13 @@ def whole_path(torch, np, kernels, resnet, card):
 
 # ---------------------------------------------------------------- phase 7
 
+def decode_calls(stats) -> int:
+    """Paged-decode calls a layer an engine has made, from its
+    ``engine_stats()`` (or a served ``/health/status``'s ``engine``): one a
+    decode step, two in a chunk split into length buckets."""
+    return sum(int(k) * v for k, v in stats["chunk_steps"].items()) + stats["bucketed_steps"]
+
+
 def gen_request(np, base, prompt, max_new: int = LM_MAX_NEW, timeout: float = 300.0, tag=None, header=None):
     """One greedy generation request over REST; returns its (max_new,) ids.
     ``tag`` / ``header``: the adapter named in ``meta.tags.adapter`` / in
@@ -1258,15 +1340,24 @@ def generation_path(torch, np, PagedEngine, load_lm_params, card):
     base = f"http://127.0.0.1:{port}"
     fd, logpath = tempfile.mkstemp(prefix="chip_smoke_lm_server_", suffix=".log")
     logfile = os.fdopen(fd, "w")
+    launched = time.perf_counter()
     proc = start_server(port, logfile, "seldon_core_tpu_torch.models.paged.StreamingLM", LM_PARAMS,
                         env=dict(os.environ, **NO_PREFIX_CACHE_ENV))
     try:
-        status, ready_s = wait_ready(proc, base, logpath)
-        log(f"StreamingLM ready in {ready_s:.1f}s (load {status['load_time_s']:.1f}s, device "
+        # the server's weights in-process (its default seed 0), each prompt
+        # alone, beside the server's load
+        eng = lm_engine(PagedEngine, load_lm_params("", LM_CONFIG, 0, torch.device("cuda")), "bfloat16")
+        local_single = [eng.generate(p, max_new_tokens=LM_MAX_NEW) for p in single_prompts]
+        local_conc = [eng.generate(p, max_new_tokens=LM_MAX_NEW) for p in conc_prompts]
+        del eng
+        torch.cuda.empty_cache()
+        status, _ = wait_ready(proc, base, logpath)
+        ready_s = time.perf_counter() - launched
+        log(f"StreamingLM ready {ready_s:.1f}s after its launch (load {status['load_time_s']:.1f}s, device "
             f"{status['device_name']}, kernel lane {status['kernel_active']})")
         check(status["device"].startswith("cuda") and status["kernel_active"],
               f"the generation server is not on the card's kernel lane: {status}")
-        before, chunks0 = status["kernel_launches"], status["engine"]["chunks"]
+        before, calls0 = status["kernel_launches"], decode_calls(status["engine"])
         served_conc = concurrent(lambda i: gen_request(np, base, conc_prompts[i]), len(conc_prompts))
         served_single = [gen_request(np, base, p) for p in single_prompts]
         repeat = gen_request(np, base, single_prompts[3])
@@ -1278,18 +1369,11 @@ def generation_path(torch, np, PagedEngine, load_lm_params, card):
         logfile.close()
     after = after_status["kernel_launches"]
     launches = {k: after[k] - before.get(k, 0) for k in after}
-    steps = (after_status["engine"]["chunks"] - chunks0) * LM_ENGINE["steps_per_call"]
-    log(f"generation path: {steps} decode steps, kernel launches {launches}")
-    check(steps > 0 and launches["paged_decode_stream"] >= LM_CONFIG["num_layers"] * steps,
-          f"K4 was not launched on every layer of every decode step: {launches}, {steps} steps")
+    steps = decode_calls(after_status["engine"]) - calls0
+    log(f"generation path: {steps} decode calls a layer (steps x buckets), kernel launches {launches}")
+    check(steps > 0 and launches["paged_decode_stream"] == LM_CONFIG["num_layers"] * steps,
+          f"K4 was not launched once a bucket on every layer of every decode step: {launches}, {steps} calls")
     check(bool((repeat == served_single[3]).all()), "a repeated greedy request changed its answer")
-
-    # the server's weights in-process (its default seed 0), each prompt alone
-    eng = lm_engine(PagedEngine, load_lm_params("", LM_CONFIG, 0, torch.device("cuda")), "bfloat16")
-    local_single = [eng.generate(p, max_new_tokens=LM_MAX_NEW) for p in single_prompts]
-    local_conc = [eng.generate(p, max_new_tokens=LM_MAX_NEW) for p in conc_prompts]
-    del eng
-    torch.cuda.empty_cache()
     same_single = [bool((a == b).all()) for a, b in zip(served_single, local_single)]
     share = float(np.mean([bool((a == b).all()) for a, b in zip(served_conc, local_conc)]))
     log(f"served vs in-process engine, each prompt alone: {sum(same_single)}/{len(same_single)} sequential rows "
@@ -1298,12 +1382,12 @@ def generation_path(torch, np, PagedEngine, load_lm_params, card):
     check(share >= GEN_MIN_IDENTICAL_SHARE, f"too few concurrent rows equal the in-process engine: {share}")
     numbers = {
         "decode_steps": steps, "launches": launches, "concurrent_identical_share": share,
-        "rest_p50_ms": pct(lat, 0.50), "rest_p99_ms": pct(lat, 0.99), "n_latency": len(lat),
+        "rest_p50_ms": pct(lat, 0.50), "rest_p99_ms": p99(lat), "rest_max_ms": max(lat), "n_latency": len(lat),
         "rest_tokens_per_s": tok_s, "rest_requests": tp_requests, "rest_wall_s": tp_wall,
         "clients": GEN_CLIENTS,
     }
     log(f"generation REST over {len(lat)} sequential requests (prompt 128, 32 new): p50 "
-        f"{numbers['rest_p50_ms']:.2f} ms, p99 {numbers['rest_p99_ms']:.2f} ms; {GEN_CLIENTS} closed-loop clients: "
+        f"{numbers['rest_p50_ms']:.2f} ms, {tail_text(lat)}; {GEN_CLIENTS} closed-loop clients: "
         f"{tok_s:.1f} tokens/s ({tp_requests} requests in {tp_wall:.2f} s) [{card}]")
     return launches, numbers
 
@@ -1363,7 +1447,7 @@ def engine_numerics(torch, np, kernels, PagedEngine, load_lm_params, card):
         return np.stack([s.result for s in streams]), eng._kernel_active
 
     k_stream, lane = tokens(SELDON_TPU_PAGED_KERNEL=None, SELDON_TPU_PAGED_KERNEL_IMPL="stream")
-    gather, lane0 = tokens(SELDON_TPU_PAGED_KERNEL="0")
+    gather, lane0 = tokens(SELDON_TPU_PAGED_KERNEL="0", SELDON_TPU_CHUNK_IMPL="pool")
     kernels.reset_launch_counts()
     k_grid, lane_grid = tokens(SELDON_TPU_PAGED_KERNEL=None, SELDON_TPU_PAGED_KERNEL_IMPL="grid")
     grid_launches = kernels.launch_counts()["paged_decode_grid"]
@@ -1377,7 +1461,7 @@ def engine_numerics(torch, np, kernels, PagedEngine, load_lm_params, card):
     step_tokens = torch.from_numpy(rng.integers(0, V, len(prompts))).cuda()
     with knob_env(SELDON_TPU_PAGED_KERNEL=None, SELDON_TPU_PAGED_KERNEL_IMPL="stream"):
         got = first_step_logits(torch, np, lm_engine(PagedEngine, params, "bfloat16"), prompts, step_tokens)
-    with knob_env(SELDON_TPU_PAGED_KERNEL="0"):
+    with knob_env(SELDON_TPU_PAGED_KERNEL="0", SELDON_TPU_CHUNK_IMPL="pool"):
         ref = first_step_logits(torch, np, lm_engine(PagedEngine, params, "float32"), prompts, step_tokens)
     torch.cuda.empty_cache()
     rel = float((got - ref).norm() / ref.norm())
@@ -1810,17 +1894,33 @@ def quantized_generation_path(torch, np, PagedEngine, load_lm_params, WeightRegi
     base = f"http://127.0.0.1:{port}"
     fd, logpath = tempfile.mkstemp(prefix="chip_smoke_qlm_server_", suffix=".log")
     logfile = os.fdopen(fd, "w")
+    launched = time.perf_counter()
     proc = start_server(port, logfile, "seldon_core_tpu_torch.models.paged.StreamingLM", Q_LM_PARAMS,
                         env=dict(os.environ, SELDON_TPU_KV_DTYPE="int8", **NO_PREFIX_CACHE_ENV))
     try:
-        status, ready_s = wait_ready(proc, base, logpath)
-        log(f"int8 + adapters StreamingLM ready in {ready_s:.1f}s (load {status['load_time_s']:.1f}s, kv pool "
-            f"{status['kv_dtype']}, adapters {status['adapters']['max_adapters']} slots of rank "
+        # the in-process reference of the same weights, adapters and pool,
+        # each prompt alone, beside the server's load
+        with knob_env(SELDON_TPU_KV_DTYPE="int8"):
+            eng = PagedEngine(load_lm_params("", LM_CONFIG, 0, torch.device("cuda")), dtype="bfloat16",
+                              device="cuda", max_adapters=2, lora_rank=LORA_RANK,
+                              weight_registry=adapter_registry(WeightRegistry, make_lora_params), **LM_CONFIG,
+                              **LM_ENGINE, **NO_PREFIX_CACHE)
+        check(eng._kv_int8, "the in-process reference engine has no int8 pool")
+        local_single = [eng.generate(p, max_new_tokens=LM_MAX_NEW, adapter=a)
+                        for p, a in zip(single_prompts, single_adapters)]
+        local_conc = [eng.generate(p, max_new_tokens=LM_MAX_NEW, adapter=r[0] or r[1])
+                      for p, r in zip(conc_prompts, conc_routes)]
+        del eng
+        torch.cuda.empty_cache()
+        status, _ = wait_ready(proc, base, logpath)
+        ready_s = time.perf_counter() - launched
+        log(f"int8 + adapters StreamingLM ready {ready_s:.1f}s after its launch (load {status['load_time_s']:.1f}s, "
+            f"kv pool {status['kv_dtype']}, adapters {status['adapters']['max_adapters']} slots of rank "
             f"{status['adapters']['rank']}, kernel lane {status['kernel_active']})")
         check(status["device"].startswith("cuda") and status["kernel_active"] and status["kv_dtype"] == "int8"
               and status["adapters"]["max_adapters"] == 2,
               f"the int8 + adapters server is not on the card's kernel lane with its pool and adapters: {status}")
-        before, chunks0 = status["kernel_launches"], status["engine"]["chunks"]
+        before, calls0 = status["kernel_launches"], decode_calls(status["engine"])
         served_conc = concurrent(lambda i: gen_request(np, base, conc_prompts[i], tag=conc_routes[i][0],
                                                        header=conc_routes[i][1]), len(conc_prompts))
         served_single = [gen_request(np, base, p, tag=a) for p, a in zip(single_prompts, single_adapters)]
@@ -1837,12 +1937,13 @@ def quantized_generation_path(torch, np, PagedEngine, load_lm_params, WeightRegi
         logfile.close()
     after = after_status["kernel_launches"]
     launches = {k: after[k] - before.get(k, 0) for k in after}
-    steps = (after_status["engine"]["chunks"] - chunks0) * LM_ENGINE["steps_per_call"]
+    steps = decode_calls(after_status["engine"]) - calls0
     variant = "paged_decode_stream_int8_lora"
-    log(f"int8 + adapters generation path: {steps} decode steps, kernel launches {launches}; adapter stats "
-        f"{ {k: v for k, v in after_status['engine'].items() if k.startswith('adapter')} }")
-    check(steps > 0 and launches[variant] >= LM_CONFIG["num_layers"] * steps,
-          f"K4-int8+LoRA was not launched on every layer of every decode step: {launches}, {steps} steps")
+    log(f"int8 + adapters generation path: {steps} decode calls a layer (steps x buckets), kernel launches "
+        f"{launches}; adapter stats { {k: v for k, v in after_status['engine'].items() if k.startswith('adapter')} }")
+    check(steps > 0 and launches[variant] == LM_CONFIG["num_layers"] * steps,
+          f"K4-int8+LoRA was not launched once a bucket on every layer of every decode step: {launches}, "
+          f"{steps} calls")
     check(same_prompt["a1"].tolist() != same_prompt[None].tolist() != same_prompt["a2"].tolist()
           and same_prompt["a1"].tolist() != same_prompt["a2"].tolist(),
           "adapter rows do not differ from the base row of the same prompt")
@@ -1851,18 +1952,6 @@ def quantized_generation_path(torch, np, PagedEngine, load_lm_params, WeightRegi
     check(bool((same_prompt["a1"] == served_single[3]).all()), "a repeated greedy adapter request changed")
     check(metrics.get("paged_adapter_loads", 0) >= 2, f"/metrics shows no adapter loads: {metrics}")
 
-    with knob_env(SELDON_TPU_KV_DTYPE="int8"):
-        eng = PagedEngine(load_lm_params("", LM_CONFIG, 0, torch.device("cuda")), dtype="bfloat16", device="cuda",
-                          max_adapters=2, lora_rank=LORA_RANK,
-                          weight_registry=adapter_registry(WeightRegistry, make_lora_params), **LM_CONFIG, **LM_ENGINE,
-                          **NO_PREFIX_CACHE)
-    check(eng._kv_int8, "the in-process reference engine has no int8 pool")
-    local_single = [eng.generate(p, max_new_tokens=LM_MAX_NEW, adapter=a)
-                    for p, a in zip(single_prompts, single_adapters)]
-    local_conc = [eng.generate(p, max_new_tokens=LM_MAX_NEW, adapter=r[0] or r[1])
-                  for p, r in zip(conc_prompts, conc_routes)]
-    del eng
-    torch.cuda.empty_cache()
     same_single = [bool((a == b).all()) for a, b in zip(served_single, local_single)]
     share = float(np.mean([bool((a == b).all()) for a, b in zip(served_conc, local_conc)]))
     log(f"int8 + adapters served vs in-process engine, each prompt alone: {sum(same_single)}/{len(same_single)} "
@@ -1872,12 +1961,12 @@ def quantized_generation_path(torch, np, PagedEngine, load_lm_params, WeightRegi
     check(share >= GEN_MIN_IDENTICAL_SHARE, f"too few concurrent rows equal the in-process engine: {share}")
     numbers = {
         "decode_steps": steps, "launches": launches, "concurrent_identical_share": share,
-        "rest_p50_ms": pct(lat, 0.50), "rest_p99_ms": pct(lat, 0.99), "n_latency": len(lat),
+        "rest_p50_ms": pct(lat, 0.50), "rest_p99_ms": p99(lat), "rest_max_ms": max(lat), "n_latency": len(lat),
         "rest_tokens_per_s": tok_s, "rest_requests": tp_requests, "rest_wall_s": tp_wall, "clients": GEN_CLIENTS,
         "adapter_loads": metrics.get("paged_adapter_loads"), "adapter_hits": metrics.get("paged_adapter_hits"),
     }
     log(f"int8 + adapters generation REST over {len(lat)} sequential requests (prompt 128, 32 new, base/a1/a2 in "
-        f"turn): p50 {numbers['rest_p50_ms']:.2f} ms, p99 {numbers['rest_p99_ms']:.2f} ms; {GEN_CLIENTS} "
+        f"turn): p50 {numbers['rest_p50_ms']:.2f} ms, {tail_text(lat)}; {GEN_CLIENTS} "
         f"closed-loop clients: {tok_s:.1f} tokens/s ({tp_requests} requests in {tp_wall:.2f} s) [{card}]")
     return launches, numbers
 
@@ -1908,7 +1997,7 @@ def quantized_engine_numerics(torch, np, kernels, PagedEngine, load_lm_params, W
                        for p, a in zip(prompts, adapters)]
             eng.run()
             counts = {k: n for k, n in kernels.launch_counts().items() if n}
-        steps = eng.engine_stats()["chunks"] * LM_ENGINE["steps_per_call"]
+        steps = decode_calls(eng.engine_stats())
         out = np.stack([s.result for s in streams])
         lane = (eng._kernel_active, eng._kv_int8, steps)
         del eng
@@ -1917,16 +2006,16 @@ def quantized_engine_numerics(torch, np, kernels, PagedEngine, load_lm_params, W
 
     def expect_launches(counts, lane, name):
         kernel_active, _, steps = lane
-        want = LM_CONFIG["num_layers"] * steps  # K4 and K5 alike: one launch a layer-step
+        want = LM_CONFIG["num_layers"] * steps  # K4 and K5 alike: one launch a layer-step a bucket
         check(kernel_active and counts == {name: want},
-              f"{name}: launches {counts} on its path, expected exactly {want} ({steps} decode steps)")
+              f"{name}: launches {counts} on its path, expected exactly {want} ({steps} decode calls a layer)")
         launches[name] = want
 
     k_int8, c, lane = tokens(SELDON_TPU_KV_DTYPE="int8", SELDON_TPU_PAGED_KERNEL=None,
                              SELDON_TPU_PAGED_KERNEL_IMPL="stream")
     check(lane[1], "the int8 engine has no int8 pool")
     expect_launches(c, lane, "paged_decode_stream_int8")
-    g_int8, c, lane = tokens(SELDON_TPU_KV_DTYPE="int8", SELDON_TPU_PAGED_KERNEL="0")
+    g_int8, c, lane = tokens(SELDON_TPU_KV_DTYPE="int8", SELDON_TPU_PAGED_KERNEL="0", SELDON_TPU_CHUNK_IMPL="pool")
     check(not lane[0] and not c, f"the int8 gather lane launched kernels: {c}")
     k5_int8, c, lane = tokens(SELDON_TPU_KV_DTYPE="int8", SELDON_TPU_PAGED_KERNEL=None,
                               SELDON_TPU_PAGED_KERNEL_IMPL="grid")
@@ -1934,7 +2023,8 @@ def quantized_engine_numerics(torch, np, kernels, PagedEngine, load_lm_params, W
     fold, c, lane = tokens(with_adapters=True, SELDON_TPU_KV_DTYPE=None, SELDON_TPU_PAGED_KERNEL=None,
                            SELDON_TPU_PAGED_KERNEL_IMPL="stream")
     expect_launches(c, lane, "paged_decode_stream_lora")
-    einsum, c, lane = tokens(with_adapters=True, SELDON_TPU_KV_DTYPE=None, SELDON_TPU_PAGED_KERNEL="0")
+    einsum, c, lane = tokens(with_adapters=True, SELDON_TPU_KV_DTYPE=None, SELDON_TPU_PAGED_KERNEL="0",
+                             SELDON_TPU_CHUNK_IMPL="pool")
     check(not lane[0] and not c, f"the einsum lane launched kernels: {c}")
     native, _, _ = tokens(SELDON_TPU_KV_DTYPE=None, SELDON_TPU_PAGED_KERNEL=None,
                           SELDON_TPU_PAGED_KERNEL_IMPL="stream")
@@ -2201,101 +2291,119 @@ def precision_path(torch, np, kernels, w8a8, same_pads, CudaServer, card):
     """Phase 12: ResNet-50 served over REST in each int8 lane, held against
     the in-process model of the same lane and against the bf16 lane."""
     rng = np.random.default_rng(SEED + 80)
-    bf16 = precision_server(CudaServer, "")
-    compare = distinct_images(np, rng, 32)
-    ref_bf16 = lane_logits(torch, np, bf16, compare)
-    out = {"bf16_param_bytes": bf16.param_bytes}
-    del bf16
-    torch.cuda.empty_cache()
-    for precision in PRECISIONS:
-        params = MODEL_PARAMS + [{"name": "precision", "value": precision, "type": "STRING"}]
-        port = free_port()
-        base = f"http://127.0.0.1:{port}"
-        fd, logpath = tempfile.mkstemp(prefix=f"chip_smoke_{precision}_server_", suffix=".log")
-        logfile = os.fdopen(fd, "w")
-        proc = start_server(port, logfile, params=params)
-        try:
-            status, ready_s = wait_ready(proc, base, logpath)
-            log(f"ResNet-50 {precision} server ready in {ready_s:.1f}s (load {status['load_time_s']:.1f}s, "
-                f"precision {status['precision']}, quantize {status['quantize']}, {status['quantized_kernels']} "
-                f"int8 kernels, {status['act_scales_calibrated']} activation scales, param bytes "
-                f"{status['param_bytes']})")
-            check(status["device"].startswith("cuda"), f"the {precision} server is not on the card")
-            check((status["precision"], status["quantize"]) == (precision, "int8"), f"bad lane status {status}")
-            check(status["quantized_kernels"] == PRECISION_KERNELS,
-                  f"{precision}: {status['quantized_kernels']} int8 kernels, not {PRECISION_KERNELS}")
-            want_scales = W8A8_LAYERS if precision == "w8a8" else 0
-            check(status["act_scales_calibrated"] == want_scales,
-                  f"{precision}: {status['act_scales_calibrated']} activation scales, not {want_scales}")
-            m0 = metrics_values(http(base + "/metrics"))
-            before = status["kernel_launches"]
-            groups = [distinct_images(np, rng, 8), distinct_images(np, rng, 8)]
-            served = [decode_logits(np, http(base + "/predict", raw_request(np, groups[0])), 8)]
-            m_mid = metrics_values(http(base + "/metrics"))
-            answers = concurrent(lambda i: http(base + "/predict", raw_request(np, groups[1][i:i + 1])), 8)
-            served.append(np.concatenate([decode_logits(np, a, 1) for a in answers]))
-            after = http(base + "/health/status")["jsonData"]["kernel_launches"]
-            m1 = metrics_values(http(base + "/metrics"))
-            lat = latency_window(np, base, rng, PRECISION_LATENCY_REQUESTS)
-            img_s, b32_requests, b32_wall = throughput_window(np, base, rng, THROUGHPUT_CLIENTS, THROUGHPUT_SECONDS)
-        finally:
+    # both lanes' servers load at once, beside the in-process bf16 reference;
+    # both are ready before the first request, so no load runs beside a window
+    servers, launched = {}, time.perf_counter()
+    try:
+        for precision in PRECISIONS:
+            params = MODEL_PARAMS + [{"name": "precision", "value": precision, "type": "STRING"}]
+            port = free_port()
+            fd, logpath = tempfile.mkstemp(prefix=f"chip_smoke_{precision}_server_", suffix=".log")
+            logfile = os.fdopen(fd, "w")
+            servers[precision] = (start_server(port, logfile, params=params), f"http://127.0.0.1:{port}", logfile,
+                                  logpath)
+        bf16 = precision_server(CudaServer, "")
+        compare = distinct_images(np, rng, 32)
+        ref_bf16 = lane_logits(torch, np, bf16, compare)
+        out = {"bf16_param_bytes": bf16.param_bytes}
+        del bf16
+        torch.cuda.empty_cache()
+        statuses = {p: wait_ready(proc, base, logpath)[0] for p, (proc, base, _, logpath) in servers.items()}
+        ready_s = time.perf_counter() - launched
+        return {**out, **{p: precision_lane(torch, np, w8a8, same_pads, CudaServer, card, p, statuses[p],
+                                            servers[p], compare, ref_bf16, ready_s, rng, out)
+                          for p in PRECISIONS}}
+    finally:
+        for proc, _, logfile, _ in servers.values():
             stop_server(proc)
             logfile.close()
-        launches = {k: after[k] - before.get(k, 0) for k in after}
-        batches = int(m1["cudaserver_batches_total"] - m0["cudaserver_batches_total"])
-        int_mm_per_forward = launches["w8a8_int_mm"] / max(batches, 1)
-        log(f"{precision} path: {batches} batches for the 16 checked rows, launches {launches} "
-            f"({int_mm_per_forward:.1f} integer GEMMs a forward)")
-        check(launches["fused_normalize"] == batches, f"{precision}: fused_normalize launches != batches")
-        check(int_mm_per_forward == (W8A8_LAYERS if precision == "w8a8" else 0),
-              f"{precision}: {launches['w8a8_int_mm']} integer GEMMs over {batches} forwards")
 
-        local = precision_server(CudaServer, precision)
-        ref = np.concatenate([lane_logits(torch, np, local, g) for g in groups])
-        served_all = np.concatenate(served)
-        errs = [rel_l2(np, served_all[i], ref[i]) for i in range(len(ref))]
-        log(f"{precision} served vs in-process {precision}, {len(ref)} rows (batch of 8 + 8 concurrent singles): "
-            f"max row rel L2 {max(errs):.3e} (limit {SERVED_VS_LOCAL_REL_L2})")
-        if precision == "w8a8":  # C14: each served row beside its batch and in-process runs at every bucket
-            group_batches = [int(m_mid["cudaserver_batches_total"] - m0["cudaserver_batches_total"]),
-                             int(m1["cudaserver_batches_total"] - m_mid["cudaserver_batches_total"])]
-            row_log = served_row_buckets(torch, np, local, groups, served_all, errs, group_batches,
-                                         [b for b in status["buckets"] if b <= 8])
-            check(len(status["act_scales"]) == W8A8_LAYERS,
-                  f"w8a8: /health/status shows {len(status['act_scales'])} activation scales")
-            scale_gap = act_scale_gap(status["act_scales"], local.act_scales)
-        check(max(errs) <= SERVED_VS_LOCAL_REL_L2, f"{precision}: served rows disagree with in-process: {errs}")
 
-        got = lane_logits(torch, np, local, compare)
-        rel = rel_l2(np, got, ref_bf16)
-        cos = float(torch.nn.functional.cosine_similarity(torch.from_numpy(got), torch.from_numpy(ref_bf16),
-                                                          dim=-1).min())
-        top1 = float((got.argmax(-1) == ref_bf16.argmax(-1)).mean())
-        log(f"{precision} vs bf16 lane, same weights, 32 images: rel L2 {rel:.3e}, min row cosine {cos:.6f}, "
-            f"top-1 agreement {top1:.3f}")
-        if precision == "int8w":
-            check(rel <= INT8W_VS_BF16_REL_L2 and cos >= INT8W_VS_BF16_MIN_COS,
-                  f"int8w drifts from the bf16 lane: rel L2 {rel}, cosine {cos}")
-        else:
-            check(top1 >= W8A8_MIN_TOP1, f"w8a8 top-1 agreement with the bf16 lane {top1} < {W8A8_MIN_TOP1}")
-        row = {"param_bytes": status["param_bytes"], "load_time_s": status["load_time_s"], "batches": batches,
-               "launches": launches, "served_max_row_rel_l2": max(errs), "vs_bf16_rel_l2": rel,
-               "vs_bf16_min_cos": cos, "vs_bf16_top1": top1,
-               "p50_ms": pct(lat, 0.50), "p99_ms": pct(lat, 0.99), "n_latency": len(lat),
-               "batch32_img_s": img_s, "batch32_requests": b32_requests, "batch32_wall_s": b32_wall}
-        if precision == "w8a8":
-            row["exact_int32_conv"] = w8a8_exact_conv(torch, np, w8a8, same_pads, local, compare)
-            row["served_rows"] = row_log
-            row["act_scales_served_vs_local"] = scale_gap
-        row["profile_b32"] = lane_profile(torch, np, local, compare, card)
-        log(f"ResNet-50 {precision} REST single-image latency over {len(lat)} sequential requests: p50 "
-            f"{row['p50_ms']:.2f} ms, p99 {row['p99_ms']:.2f} ms; batch-32 throughput ({THROUGHPUT_CLIENTS} "
-            f"clients, {b32_requests} requests in {b32_wall:.2f} s): {img_s:.1f} img/s; weights on the card "
-            f"{row['param_bytes']} bytes (bf16 lane {out['bf16_param_bytes']}) [{card}]")
-        out[precision] = row
-        del local
-        torch.cuda.empty_cache()
-    return out
+def precision_lane(torch, np, w8a8, same_pads, CudaServer, card, precision, status, server, compare, ref_bf16,
+                   ready_s, rng, out):
+    """One int8 lane of phase 12 on its server, ready since ``ready_s``
+    after both lanes' servers launched."""
+    proc, base, _, _ = server
+    try:
+        log(f"ResNet-50 {precision} server ready {ready_s:.1f}s after both lanes' launch (load "
+            f"{status['load_time_s']:.1f}s, "
+            f"precision {status['precision']}, quantize {status['quantize']}, {status['quantized_kernels']} "
+            f"int8 kernels, {status['act_scales_calibrated']} activation scales, param bytes "
+            f"{status['param_bytes']})")
+        check(status["device"].startswith("cuda"), f"the {precision} server is not on the card")
+        check((status["precision"], status["quantize"]) == (precision, "int8"), f"bad lane status {status}")
+        check(status["quantized_kernels"] == PRECISION_KERNELS,
+              f"{precision}: {status['quantized_kernels']} int8 kernels, not {PRECISION_KERNELS}")
+        want_scales = W8A8_LAYERS if precision == "w8a8" else 0
+        check(status["act_scales_calibrated"] == want_scales,
+              f"{precision}: {status['act_scales_calibrated']} activation scales, not {want_scales}")
+        m0 = metrics_values(http(base + "/metrics"))
+        before = status["kernel_launches"]
+        groups = [distinct_images(np, rng, 8), distinct_images(np, rng, 8)]
+        served = [decode_logits(np, http(base + "/predict", raw_request(np, groups[0])), 8)]
+        m_mid = metrics_values(http(base + "/metrics"))
+        answers = concurrent(lambda i: http(base + "/predict", raw_request(np, groups[1][i:i + 1])), 8)
+        served.append(np.concatenate([decode_logits(np, a, 1) for a in answers]))
+        after = http(base + "/health/status")["jsonData"]["kernel_launches"]
+        m1 = metrics_values(http(base + "/metrics"))
+        lat = latency_window(np, base, rng, PRECISION_LATENCY_REQUESTS)
+        img_s, b32_requests, b32_wall = throughput_window(np, base, rng, THROUGHPUT_CLIENTS, THROUGHPUT_SECONDS)
+    finally:
+        stop_server(proc)
+    launches = {k: after[k] - before.get(k, 0) for k in after}
+    batches = int(m1["cudaserver_batches_total"] - m0["cudaserver_batches_total"])
+    int_mm_per_forward = launches["w8a8_int_mm"] / max(batches, 1)
+    log(f"{precision} path: {batches} batches for the 16 checked rows, launches {launches} "
+        f"({int_mm_per_forward:.1f} integer GEMMs a forward)")
+    check(launches["fused_normalize"] == batches, f"{precision}: fused_normalize launches != batches")
+    check(int_mm_per_forward == (W8A8_LAYERS if precision == "w8a8" else 0),
+          f"{precision}: {launches['w8a8_int_mm']} integer GEMMs over {batches} forwards")
+
+    local = precision_server(CudaServer, precision)
+    ref = np.concatenate([lane_logits(torch, np, local, g) for g in groups])
+    served_all = np.concatenate(served)
+    errs = [rel_l2(np, served_all[i], ref[i]) for i in range(len(ref))]
+    log(f"{precision} served vs in-process {precision}, {len(ref)} rows (batch of 8 + 8 concurrent singles): "
+        f"max row rel L2 {max(errs):.3e} (limit {SERVED_VS_LOCAL_REL_L2})")
+    if precision == "w8a8":  # C14: each served row beside its batch and in-process runs at every bucket
+        group_batches = [int(m_mid["cudaserver_batches_total"] - m0["cudaserver_batches_total"]),
+                         int(m1["cudaserver_batches_total"] - m_mid["cudaserver_batches_total"])]
+        row_log = served_row_buckets(torch, np, local, groups, served_all, errs, group_batches,
+                                     [b for b in status["buckets"] if b <= 8])
+        check(len(status["act_scales"]) == W8A8_LAYERS,
+              f"w8a8: /health/status shows {len(status['act_scales'])} activation scales")
+        scale_gap = act_scale_gap(status["act_scales"], local.act_scales)
+    check(max(errs) <= SERVED_VS_LOCAL_REL_L2, f"{precision}: served rows disagree with in-process: {errs}")
+
+    got = lane_logits(torch, np, local, compare)
+    rel = rel_l2(np, got, ref_bf16)
+    cos = float(torch.nn.functional.cosine_similarity(torch.from_numpy(got), torch.from_numpy(ref_bf16),
+                                                      dim=-1).min())
+    top1 = float((got.argmax(-1) == ref_bf16.argmax(-1)).mean())
+    log(f"{precision} vs bf16 lane, same weights, 32 images: rel L2 {rel:.3e}, min row cosine {cos:.6f}, "
+        f"top-1 agreement {top1:.3f}")
+    if precision == "int8w":
+        check(rel <= INT8W_VS_BF16_REL_L2 and cos >= INT8W_VS_BF16_MIN_COS,
+              f"int8w drifts from the bf16 lane: rel L2 {rel}, cosine {cos}")
+    else:
+        check(top1 >= W8A8_MIN_TOP1, f"w8a8 top-1 agreement with the bf16 lane {top1} < {W8A8_MIN_TOP1}")
+    row = {"param_bytes": status["param_bytes"], "load_time_s": status["load_time_s"], "batches": batches,
+           "launches": launches, "served_max_row_rel_l2": max(errs), "vs_bf16_rel_l2": rel,
+           "vs_bf16_min_cos": cos, "vs_bf16_top1": top1,
+           "p50_ms": pct(lat, 0.50), "p99_ms": pct(lat, 0.99), "n_latency": len(lat),
+           "batch32_img_s": img_s, "batch32_requests": b32_requests, "batch32_wall_s": b32_wall}
+    if precision == "w8a8":
+        row["exact_int32_conv"] = w8a8_exact_conv(torch, np, w8a8, same_pads, local, compare)
+        row["served_rows"] = row_log
+        row["act_scales_served_vs_local"] = scale_gap
+    row["profile_b32"] = lane_profile(torch, np, local, compare, card)
+    log(f"ResNet-50 {precision} REST single-image latency over {len(lat)} sequential requests: p50 "
+        f"{row['p50_ms']:.2f} ms, p99 {row['p99_ms']:.2f} ms; batch-32 throughput ({THROUGHPUT_CLIENTS} "
+        f"clients, {b32_requests} requests in {b32_wall:.2f} s): {img_s:.1f} img/s; weights on the card "
+        f"{row['param_bytes']} bytes (bf16 lane {out['bf16_param_bytes']}) [{card}]")
+    del local
+    torch.cuda.empty_cache()
+    return row
 
 
 # ---------------------------------------------------------------- phase 13
@@ -2443,8 +2551,26 @@ def wait_gateway(procs, base: str, logpath: str, timeout_s: float = 600.0) -> fl
                     return time.perf_counter() - t0
         except (urllib.error.URLError, ConnectionError, OSError):
             pass
-        time.sleep(1.0)
+        time.sleep(READY_POLL_S)
     raise SmokeFailure(f"gateway not ready after {timeout_s}s:\n{tail(logpath)}")
+
+
+def wait_listening(procs, port: int, logpath: str, timeout_s: float = 600.0) -> None:
+    """Until a port on this host takes connections: the CLI listens only
+    after its load and warmup."""
+    import socket
+
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        for proc in procs:
+            if proc.poll() is not None:
+                raise SmokeFailure(f"a process exited with {proc.returncode}:\n{tail(logpath)}")
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1.0).close()
+            return
+        except OSError:
+            time.sleep(READY_POLL_S)
+    raise SmokeFailure(f"nothing listens on port {port} after {timeout_s}s:\n{tail(logpath)}")
 
 
 def grpc_request(pb, images):
@@ -2547,9 +2673,10 @@ def window_numbers(np, lat, seconds: float, clients: int):
             "qps": len(lat) / seconds, "requests": len(lat), "clients": clients, "seconds": seconds}
 
 
-def headline_windows(np, pb, lane, images, rows_of, refs, errs, what: str, card, after_sequential=None):
+def headline_windows(np, pb, lane, images, rows_of, refs, errs, what: str, card, after_sequential=None,
+                     seconds: float = GRPC_SECONDS):
     """The JAX headline's method on one lane (bench.py:1296-1345):
-    latency = 4 clients of batch-1 requests for GRPC_SECONDS; throughput
+    latency = 4 clients of batch-1 requests for ``seconds``; throughput
     = 8 clients of batch-32 requests over three windows of GRPC_SECONDS / 3.
     Every served row is held against its image's in-process answer.
     ``after_sequential()`` runs right after the one-client window."""
@@ -2559,10 +2686,10 @@ def headline_windows(np, pb, lane, images, rows_of, refs, errs, what: str, card,
     if after_sequential is not None:
         after_sequential()
     served_rows_errors(np, answers, lat_bodies, rows_of, refs, 1, errs)
-    lat, answers, _ = load_window(lane, lat_bodies["bodies"], GRPC_LAT_CLIENTS, GRPC_SECONDS)
+    lat, answers, _ = load_window(lane, lat_bodies["bodies"], GRPC_LAT_CLIENTS, seconds)
     served_rows_errors(np, answers, lat_bodies, rows_of, refs, 1, errs)
-    out = window_numbers(np, lat, GRPC_SECONDS, GRPC_LAT_CLIENTS)
-    out.update({"sequential_p50_ms": pct(seq, 0.50), "sequential_p99_ms": pct(seq, 0.99),
+    out = window_numbers(np, lat, seconds, GRPC_LAT_CLIENTS)
+    out.update({"sequential_p50_ms": pct(seq, 0.50), "sequential_p99_ms": p99(seq), "sequential_max_ms": max(seq),
                 "sequential_requests": len(seq)})
     windows, tput_lat = [], []
     for _ in range(GRPC_TPUT_WINDOWS):
@@ -2575,7 +2702,7 @@ def headline_windows(np, pb, lane, images, rows_of, refs, errs, what: str, card,
                 "batch32_p50_ms": pct(tput_lat, 0.50), "batch32_p99_ms": pct(tput_lat, 0.99),
                 "tput_clients": GRPC_TPUT_CLIENTS, "tput_requests": len(tput_lat)})
     log(f"{what}: one client, {len(seq)} sequential batch-1 requests: p50 {out['sequential_p50_ms']:.3f} ms, "
-        f"p99 {out['sequential_p99_ms']:.3f}; batch-1 latency ({GRPC_LAT_CLIENTS} clients, {GRPC_SECONDS:.0f} s, "
+        f"{tail_text(seq, '.3f')}; batch-1 latency ({GRPC_LAT_CLIENTS} clients, {seconds:.0f} s, "
         f"{len(lat)} requests) "
         f"p50 {out['p50_ms']:.3f} ms, p90 {out['p90_ms']:.3f}, p99 {out['p99_ms']:.3f}, {out['qps']:.1f} QPS; "
         f"batch-32 throughput ({GRPC_TPUT_CLIENTS} clients, {GRPC_TPUT_WINDOWS} windows) best "
@@ -2635,10 +2762,6 @@ def gateway_paths(torch, np, kernels, resnet, card):
 
     rng = np.random.default_rng(SEED + 13)
     all_images, grpc_images, rest_images = phase13_images(np, pb, rng)
-    local = reference_resnet(torch, resnet, SEED)
-    refs = reference_logits(torch, np, kernels, local, all_images)
-    del local
-    torch.cuda.empty_cache()
     eight = {"index": [np.arange(8)], "pool": [np.arange(8)]}
     grpc_rows = lambda resp, rows: proto_logits(pb, resp, rows)  # noqa: E731
     rest_rows = lambda body, rows: decode_logits(np, body, rows)  # noqa: E731
@@ -2648,12 +2771,38 @@ def gateway_paths(torch, np, kernels, resnet, card):
     logfile = os.fdopen(fd, "w")
     procs = []
     try:
-        # (a) one process: the gateway's MODEL node is CUDA_SERVER in-process
+        # (a)'s gateway and (b)'s two processes load at once, beside the
+        # in-process reference; all are ready before (a)'s first request,
+        # so no load runs beside a window.  (a) one process: the gateway's
+        # MODEL node is CUDA_SERVER in-process; (b) two processes: the
+        # microservice CLI (--api GRPC) and a gateway whose node is its gRPC
+        # endpoint
+        launched = time.perf_counter()
         graph = {"name": "resnet50", "type": "MODEL", "implementation": "CUDA_SERVER", "parameters": GRPC_PARAMS}
         proc, base, grpc_port = start_gateway("resnet50", graph, logfile)
         procs.append(proc)
-        ready_s = wait_gateway(procs, base, logpath)
-        log(f"13a gateway ready in {ready_s:.1f}s (ResNet-50 CUDA_SERVER, sync gRPC, port {grpc_port})")
+        ms_port = free_port()
+        ms = subprocess.Popen(
+            [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice",
+             "seldon_core_tpu_torch.models.cudaserver.CudaServer", "--api", "GRPC", "--host", "127.0.0.1",
+             "--grpc-port", str(ms_port), "--parameters", json.dumps(GRPC_PARAMS)],
+            cwd=ROOT, stdout=logfile, stderr=subprocess.STDOUT, start_new_session=True)
+        procs.append(ms)
+        remote = {"name": "resnet50", "type": "MODEL",
+                  "endpoint": {"host": "127.0.0.1", "port": ms_port, "transport": "GRPC"}}
+        proc_b, base_b, grpc_port_b = start_gateway("resnet50", remote, logfile)
+        procs.append(proc_b)
+        local = reference_resnet(torch, resnet, SEED)
+        refs = reference_logits(torch, np, kernels, local, all_images)
+        del local
+        torch.cuda.empty_cache()
+        wait_gateway(procs, base, logpath)
+        ready_s = time.perf_counter() - launched
+        log(f"13a gateway ready {ready_s:.1f}s after its launch (ResNet-50 CUDA_SERVER, sync gRPC, port {grpc_port})")
+        wait_gateway(procs, base_b, logpath)
+        wait_listening(procs, ms_port, logpath)
+        log(f"13b microservice (--api GRPC, port {ms_port}) and gateway ready {time.perf_counter() - launched:.1f}s "
+            f"after their launch, beside 13a's")
         m0 = metrics_values(http(base + "/metrics"))
         channel, predict = grpc_callable(services, grpc_server, grpc_port)
         try:
@@ -2680,29 +2829,16 @@ def gateway_paths(torch, np, kernels, resnet, card):
         check(batches > 0 and k1 == batches, f"K1 launches {k1} != {batches} batches on the gateway path")
         numbers["gateway_k1_launches"], numbers["gateway_batches"] = int(k1), int(batches)
         stop_server(proc)
-        procs.clear()
+        procs.remove(proc)
 
-        # (b) two processes: the microservice CLI (--api GRPC) and a gateway whose node is a gRPC endpoint
-        ms_port = free_port()
-        ms = subprocess.Popen(
-            [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice",
-             "seldon_core_tpu_torch.models.cudaserver.CudaServer", "--api", "GRPC", "--host", "127.0.0.1",
-             "--grpc-port", str(ms_port), "--parameters", json.dumps(GRPC_PARAMS)],
-            cwd=ROOT, stdout=logfile, stderr=subprocess.STDOUT, start_new_session=True)
-        procs.append(ms)
-        graph = {"name": "resnet50", "type": "MODEL",
-                 "endpoint": {"host": "127.0.0.1", "port": ms_port, "transport": "GRPC"}}
-        proc, base, grpc_port = start_gateway("resnet50", graph, logfile)
-        procs.append(proc)
-        ready_s = wait_gateway(procs, base, logpath)
-        log(f"13b microservice (--api GRPC, port {ms_port}) and gateway ready in {ready_s:.1f}s")
-        channel, predict = grpc_callable(services, grpc_server, grpc_port)
+        # (b) the two-process deployment, loaded beside (a)
+        channel, predict = grpc_callable(services, grpc_server, grpc_port_b)
         try:
             probe = grpc_request(pb, all_images[:1])
             before = predict(probe, timeout=120)
             answer = predict(grpc_request(pb, all_images[:8]), timeout=120)
             served_rows_errors(np, [(0, answer)], eight, grpc_rows, refs, 8, errs["two_process"])
-            lane = grpc_lane(pb, services, grpc_server, grpc_port)
+            lane = grpc_lane(pb, services, grpc_server, grpc_port_b)
             numbers["two_process_grpc"] = headline_windows(np, pb, lane, grpc_images, grpc_rows, refs,
                                                            errs["two_process"], "13b gRPC, two processes", card)
             after = predict(probe, timeout=120)
@@ -2874,12 +3010,12 @@ def graph_paths(torch, np, kernels, resnet, card):
             channel.close()
             stop_in_process(loop, svc, gateway, runner, handle)
         log(f"13d pipeline (pass-through TRANSFORMER, AVERAGE_COMBINER of two ResNet-50s): {COMBINER_REQUESTS} "
-            f"sequential gRPC requests, p50 {pct(lat, 0.5):.3f} ms, p99 {pct(lat, 0.99):.3f}; max row rel L2 "
+            f"sequential gRPC requests, p50 {pct(lat, 0.5):.3f} ms, {tail_text(lat, '.3f')}; max row rel L2 "
             f"against the mean of the two in-process models {max(errs):.3e} (limit {SERVED_VS_LOCAL_REL_L2}) "
             f"[{card}]")
         check(max(errs) <= SERVED_VS_LOCAL_REL_L2, "combiner answers disagree with the in-process mean")
         out["combiner"] = {"requests": COMBINER_REQUESTS, "grpc_p50_ms": pct(lat, 0.5),
-                           "grpc_p99_ms": pct(lat, 0.99), "max_row_rel_l2": max(errs)}
+                           "grpc_p99_ms": p99(lat), "grpc_max_ms": max(lat), "max_row_rel_l2": max(errs)}
     finally:
         loop.close()
     return out
@@ -2995,10 +3131,6 @@ def native_paths(torch, np, kernels, resnet, card, gateway_numbers, forward_ms_b
                                 "bodies": [codec.pack_frame(flat(singles[i:i + 1])) for i in range(8)]},
                     "throughput": {**grpc_images["throughput"],
                                    "bodies": [codec.pack_frame(flat(b)) for b in batches]}}
-    local = reference_resnet(torch, resnet, SEED)
-    refs = reference_logits(torch, np, kernels, local, all_images)
-    del local
-    torch.cuda.empty_cache()
     grpc_rows = lambda resp, rows: proto_logits(pb, resp, rows)  # noqa: E731
     frame_rows = lambda body, rows: frame_logits(np, body, rows)  # noqa: E731
     numbers, errs = {}, []
@@ -3018,10 +3150,16 @@ def native_paths(torch, np, kernels, resnet, card, gateway_numbers, forward_ms_b
         other_threads = next(t for t in NATIVE_BATCH_THREADS if t != BATCH_THREADS)
         port, other_port = free_port(), free_port()
         graph = {"name": "resnet50", "type": "MODEL", "implementation": "CUDA_SERVER", "parameters": GRPC_PARAMS}
+        launched = time.perf_counter()
         proc, base, _ = start_gateway("resnet50", graph, logfile,
                                       native=((port, BATCH_THREADS), (other_port, other_threads)))
         nbase, other_base = f"http://127.0.0.1:{port}", f"http://127.0.0.1:{other_port}"
-        ready_s = wait_gateway([proc], nbase, logpath)
+        local = reference_resnet(torch, resnet, SEED)  # beside the gateway's load
+        refs = reference_logits(torch, np, kernels, local, all_images)
+        del local
+        torch.cuda.empty_cache()
+        wait_gateway([proc], nbase, logpath)
+        ready_s = time.perf_counter() - launched
         wait_gateway([proc], other_base, logpath)
         log(f"14 native ingress ready in {ready_s:.1f}s (C++ HTTP/1.1 + h2c on port {port} in front of 13a's "
             f"gateway, {BATCH_THREADS} batch threads; a second on port {other_port} with {other_threads}, for 14c)")
@@ -3035,7 +3173,7 @@ def native_paths(torch, np, kernels, resnet, card, gateway_numbers, forward_ms_b
         lane = grpc_lane(pb, services, grpc_server, port)
         numbers["grpc"] = headline_windows(np, pb, lane, grpc_images, grpc_rows, refs, errs,
                                            "14a native gRPC Seldon/Predict (C++ fast lane)", card,
-                                           after_sequential=probe("a_sequential"))
+                                           after_sequential=probe("a_sequential"), seconds=NATIVE_GRPC_SECONDS)
         numbers["grpc"]["sequential_batcher"] = batcher_means(m0, probes["a_sequential"], labels)
         # (b) SRT1 frames over HTTP/1.1 to /api/v0.1/predictions
         flane = frame_lane(port)
@@ -3048,11 +3186,11 @@ def native_paths(torch, np, kernels, resnet, card, gateway_numbers, forward_ms_b
             served_rows_errors(np, w_answers, frame_images["throughput"], frame_rows, refs, 32, errs)
             windows.append(len(w_lat) * 32 / wall)
             tput_n += len(w_lat)
-        numbers["frames"] = {"sequential_p50_ms": pct(seq, 0.5), "sequential_p99_ms": pct(seq, 0.99),
+        numbers["frames"] = {"sequential_p50_ms": pct(seq, 0.5), "sequential_p99_ms": p99(seq),
                              "sequential_requests": len(seq), "img_s_best": max(windows),
                              "img_s_mean": statistics.fmean(windows), "img_s_windows": windows}
         log(f"14b SRT1 frames over HTTP/1.1: one client, {len(seq)} sequential batch-1 frames: p50 "
-            f"{pct(seq, 0.5):.3f} ms, p99 {pct(seq, 0.99):.3f}; batch-32 frames ({GRPC_TPUT_CLIENTS} clients, "
+            f"{pct(seq, 0.5):.3f} ms, {tail_text(seq, '.3f')}; batch-32 frames ({GRPC_TPUT_CLIENTS} clients, "
             f"{GRPC_TPUT_WINDOWS} windows) best {max(windows):.1f} img/s, mean {statistics.fmean(windows):.1f} "
             f"[{card}]")
         m_ab, s_ab = metrics_values(http(nbase + "/metrics")), native_stats(nbase)
@@ -3313,10 +3451,6 @@ def a4_paths(torch, np, kernels, resnet, card):
 
     rng = np.random.default_rng(SEED + 15)
     all_images, grpc_images, _ = phase13_images(np, pb, rng)
-    local = reference_resnet(torch, resnet, SEED)
-    refs = reference_logits(torch, np, kernels, local, all_images)
-    del local
-    torch.cuda.empty_cache()
     grpc_rows = lambda resp, rows: proto_logits(pb, resp, rows)  # noqa: E731
     eight = {"index": [np.arange(8)], "pool": [np.arange(8)]}
     flat = lambda x: np.ascontiguousarray(x.reshape(len(x), -1))  # noqa: E731
@@ -3329,17 +3463,48 @@ def a4_paths(torch, np, kernels, resnet, card):
     with open(os.path.join(TLS_DIR, "ca.crt"), "rb") as f:
         creds = grpc.ssl_channel_credentials(root_certificates=f.read())
     try:
-        # (a) the A4 gateway (with a native port in front, read in (c)) and 13a's plain gateway, both up
+        # (a)'s two gateways and (b)'s two processes load at once, beside the
+        # in-process reference; all are ready before (a)'s first request, so
+        # no load runs beside a window.  (a) the A4 gateway (with a native
+        # port in front, read in (c)) and 13a's plain gateway; (b) the
+        # two-process deployment: the CLI (--api BOTH --tracing) and an A4
+        # gateway whose node is its gRPC endpoint
+        launched = time.perf_counter()
         native_port = free_port()
         a4_proc, a4_base, a4_grpc = start_gateway("resnet50", graph, logfile, native=((native_port, BATCH_THREADS),),
                                                   a4=True)
         plain_proc, plain_base, plain_grpc = start_gateway("resnet50", graph, logfile)
         procs += [a4_proc, plain_proc]
-        ready_s = max(wait_gateway(procs, a4_base, logpath), wait_gateway(procs, plain_base, logpath))
+        ms_http, ms_grpc = free_port(), free_port()
+        ms_spans, gw_spans = os.path.join(trace_dir, "microservice.jsonl"), os.path.join(trace_dir, "gateway.jsonl")
+        ms = subprocess.Popen(
+            [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice",
+             "seldon_core_tpu_torch.models.cudaserver.CudaServer", "--api", "BOTH", "--tracing", "--host",
+             "127.0.0.1", "--http-port", str(ms_http), "--grpc-port", str(ms_grpc), "--unit-id", "resnet50",
+             "--parameters", json.dumps(GRPC_PARAMS)],
+            cwd=ROOT, stdout=logfile, stderr=subprocess.STDOUT, start_new_session=True,
+            env={**os.environ, "SELDON_TPU_TRACE_EXPORT": ms_spans})
+        procs.append(ms)
+        remote = {"name": "resnet50", "type": "MODEL",
+                  "endpoint": {"host": "127.0.0.1", "port": ms_grpc, "transport": "GRPC"}}
+        gw_proc, gw_base, gw_grpc = start_gateway("resnet50", remote, logfile, a4=True,
+                                                  env={**os.environ, "SELDON_TPU_TRACE_EXPORT": gw_spans})
+        procs.append(gw_proc)
+        ms_base = f"http://127.0.0.1:{ms_http}"
+        local = reference_resnet(torch, resnet, SEED)
+        refs = reference_logits(torch, np, kernels, local, all_images)
+        del local
+        torch.cuda.empty_cache()
+        wait_gateway(procs, a4_base, logpath)
+        wait_gateway(procs, plain_base, logpath)
+        ready_s = time.perf_counter() - launched
         wait_gateway(procs, f"http://127.0.0.1:{native_port}", logpath)
+        wait_gateway(procs, gw_base, logpath)
+        wait_ready(ms, ms_base, logpath)
+        ready_b = time.perf_counter() - launched
         token = oauth_token(a4_base)
-        log(f"15a gateways ready in {ready_s:.1f}s: A4 on (TLS and OAuth on REST and sync gRPC, port {a4_grpc}; "
-            f"tracing to the ring, the metrics observer; native port {native_port}) and 13a's plain gateway "
+        log(f"15a gateways ready {ready_s:.1f}s after their launch: A4 on (TLS and OAuth on REST and sync gRPC, "
+            f"port {a4_grpc}; tracing to the ring, the metrics observer; native port {native_port}) and 13a's plain gateway "
             f"(port {plain_grpc}); token from /oauth/token")
         trace_hex = os.urandom(16).hex()
         a4_lane = a4_grpc_lane(services, grpc_server, a4_grpc, token, trace_hex)
@@ -3392,27 +3557,10 @@ def a4_paths(torch, np, kernels, resnet, card):
         log("15a A4 on against off, in turns (" + ", ".join(["on", "off", "off", "on"][:2 * A4_WINDOWS])
             + "): " + json.dumps({"mean": summary, "a4_minus_plain": cost, "launches": launches}) + f" [{card}]")
 
-        # (b) the two-process deployment: the CLI (--api BOTH --tracing) and an A4 gateway whose node is its gRPC
-        ms_http, ms_grpc = free_port(), free_port()
-        ms_spans, gw_spans = os.path.join(trace_dir, "microservice.jsonl"), os.path.join(trace_dir, "gateway.jsonl")
-        ms = subprocess.Popen(
-            [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice",
-             "seldon_core_tpu_torch.models.cudaserver.CudaServer", "--api", "BOTH", "--tracing", "--host",
-             "127.0.0.1", "--http-port", str(ms_http), "--grpc-port", str(ms_grpc), "--unit-id", "resnet50",
-             "--parameters", json.dumps(GRPC_PARAMS)],
-            cwd=ROOT, stdout=logfile, stderr=subprocess.STDOUT, start_new_session=True,
-            env={**os.environ, "SELDON_TPU_TRACE_EXPORT": ms_spans})
-        procs.append(ms)
-        remote = {"name": "resnet50", "type": "MODEL",
-                  "endpoint": {"host": "127.0.0.1", "port": ms_grpc, "transport": "GRPC"}}
-        gw_proc, gw_base, gw_grpc = start_gateway("resnet50", remote, logfile, a4=True,
-                                                  env={**os.environ, "SELDON_TPU_TRACE_EXPORT": gw_spans})
-        procs.append(gw_proc)
-        ms_base = f"http://127.0.0.1:{ms_http}"
-        ready_s = wait_gateway(procs, gw_base, logpath)
-        wait_ready(ms, ms_base, logpath)
+        # (b) the two-process deployment, loaded beside (a)
         token_b = oauth_token(gw_base)
-        log(f"15b microservice (--api BOTH --tracing, gRPC port {ms_grpc}) and A4 gateway ready in {ready_s:.1f}s")
+        log(f"15b microservice (--api BOTH --tracing, gRPC port {ms_grpc}) and A4 gateway ready {ready_b:.1f}s after "
+            f"their launch, beside 15a's")
         ms_m0 = metric_samples(http(ms_base + "/metrics"))
         channel = grpc.secure_channel(f"localhost:{gw_grpc}", creds, options=grpc_server.message_size_options())
         predict = services.unary_callable(channel, "Seldon", "Predict")
@@ -3688,14 +3836,6 @@ def a2_2_paths(torch, np, kernels, resnet, CudaServer, card):
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED + 16)
     images, bodies = single_bodies(np, pb, rng)
-    local = reference_resnet(torch, resnet, SEED)
-    refs = reference_logits(torch, np, kernels, local, images)
-    del local
-    int8w = precision_server(CudaServer, "int8w")
-    int8w_refs = lane_logits(torch, np, int8w, images)
-    int8w.unload()
-    del int8w
-    torch.cuda.empty_cache()
     errs = {"16a": [], "16b": [], "16c": [], "16d": [], "16d_degraded": [], "16e": []}
     numbers = {}
     fd, logpath = tempfile.mkstemp(prefix="chip_smoke_a2_2_", suffix=".log")
@@ -3722,6 +3862,15 @@ def a2_2_paths(torch, np, kernels, resnet, CudaServer, card):
                                                                    "endpoint": on_r1},
                                                      logfile, annotations=A22_ANNOTATIONS)
         gateways += [proc, fb_proc, off_proc]
+        # the in-process references, beside the processes' load
+        local = reference_resnet(torch, resnet, SEED)
+        refs = reference_logits(torch, np, kernels, local, images)
+        del local
+        int8w = precision_server(CudaServer, "int8w")
+        int8w_refs = lane_logits(torch, np, int8w, images)
+        int8w.unload()
+        del int8w
+        torch.cuda.empty_cache()
         for i in range(2):
             wait_ready(replicas[i], f"http://127.0.0.1:{r_http[i]}", logpath)
         ready_s = max(wait_gateway(replicas + gateways, b, logpath) for b in (base, fb_base, off_base))
@@ -3747,7 +3896,7 @@ def a2_2_paths(torch, np, kernels, resnet, CudaServer, card):
                           "replica_k1": [d["k1"] for d in served], "replica_batches": [d["batches"] for d in served]}
         a = numbers["16a"]
         log(f"16a balanced: one client p50 {a['sequential_p50_ms']:.3f} ms; {A22_CLIENTS} clients "
-            f"{A22_SECONDS:.0f} s: p50 {a['p50_ms']:.3f} ms, p99 {a['p99_ms']:.3f}, {a['qps']:.1f} QPS; "
+            f"{A22_SECONDS:.1f} s: p50 {a['p50_ms']:.3f} ms, p99 {a['p99_ms']:.3f}, {a['qps']:.1f} QPS; "
             f"R1 / R2 served {a['replica_requests']} of {total} ({shares[0]:.3f} / {shares[1]:.3f}); K1 "
             f"{a['replica_k1']} = batches {a['replica_batches']} [{card}]")
         check(sum(d["requests"] for d in served) == total, f"replicas counted {served}, the clients sent {total}")
@@ -3785,7 +3934,7 @@ def a2_2_paths(torch, np, kernels, resnet, CudaServer, card):
                           "breaker_state": state, "transitions_to_open": opened, "fastfails": fastfails,
                           "failovers": failovers, "r1_k1": r1["k1"], "r1_batches": r1["batches"]}
         b = numbers["16b"]
-        log(f"16b SIGKILL R2 at {A22_SECONDS / 2:.0f} s of {A22_SECONDS:.0f}: {len(win)} requests, {len(failed)} "
+        log(f"16b SIGKILL R2 at {A22_SECONDS / 2:.1f} s of {A22_SECONDS:.1f}: {len(win)} requests, {len(failed)} "
             f"client-visible failures; p50 / p99 before {b['before']['p50_ms']:.3f} / {b['before']['p99_ms']:.3f} ms, "
             f"after {b['after']['p50_ms']:.3f} / {b['after']['p99_ms']:.3f}; slowest request around the kill "
             f"{slowest:.3f} ms (one failover); gateway /metrics: breaker_state{{R2}} {state:.0f}, transitions to "
@@ -3895,7 +4044,7 @@ def a2_2_paths(torch, np, kernels, resnet, CudaServer, card):
         open_p50 = pct([r[1] for r in degraded[10:]], 0.5)
         numbers["16d"] = {"healthy_p50_ms": pct([r[1] for r in healthy], 0.5), "malformed": malformed.status.code,
                           "spent": spent.status.code, "first_degraded_s": first_s, "degraded_p50_ms": open_p50,
-                          "degraded_p99_ms": pct([r[1] for r in degraded[10:]], 0.99), "fallbacks": fb["fallbacks"],
+                          "degraded_p99_ms": p99([r[1] for r in degraded[10:]]), "fallbacks": fb["fallbacks"],
                           "fallback_k1": fb["k1"], "fallback_batches": fb["batches"], "r1_warm": warm,
                           "resumed_after_ready_s": resumed}
         d = numbers["16d"]
@@ -4265,31 +4414,37 @@ def sched_sync(torch):
         torch.cuda.synchronize()
 
 
-def engine_steps(eng) -> int:
-    """Decode steps the engine has run (its chunks by their length)."""
-    return sum(k * v for k, v in eng.engine_stats()["chunk_steps"].items())
-
-
 class K4Tally:
-    """Phase 18's K4 accounting: every counted run resets the launch counts
-    just before it and must launch K4 once per layer per decode step."""
+    """Phases 18 and 19's K4 accounting: every counted run resets the
+    launch counts just before it.  The caller says which lane it built
+    the engine for: on the kernel lane (the default) the engine must be
+    on it and launch the paged decode kernel once per layer per decode
+    step per length bucket; off it (the ring chunk) never."""
 
     def __init__(self, torch, kernels):
         self.torch, self.kernels = torch, kernels
-        self.launches = self.steps = 0
+        # launches and decode calls on the kernel lane; decode calls off it
+        self.launches = self.steps = self.off_lane_calls = 0
+        self.last = (0, 0)
 
-    def run(self, eng, fn, what: str):
-        s0 = engine_steps(eng)
+    def run(self, eng, fn, what: str, kernel: bool = True):
+        check(eng._kernel_active == kernel, f"{what}: the engine runs chunk {eng._chunk_impl}, kernel lane "
+              f"{eng._kernel_active}; the run expects kernel lane {kernel}")
+        c0 = decode_calls(eng.engine_stats())
         sched_sync(self.torch)
         self.kernels.reset_launch_counts()
         out = fn()
         sched_sync(self.torch)
-        n = self.kernels.launch_counts().get("paged_decode_stream", 0)
-        steps = engine_steps(eng) - s0
-        check(steps > 0 and n == LM_CONFIG["num_layers"] * steps,
-              f"{what}: K4 launched {n} times over {steps} decode steps ({LM_CONFIG['num_layers']} layers)")
+        n = sum(v for k, v in self.kernels.launch_counts().items() if k.startswith("paged_decode"))
+        steps = decode_calls(eng.engine_stats()) - c0
+        want = LM_CONFIG["num_layers"] * steps if kernel else 0
+        check(steps > 0 and n == want,
+              f"{what}: the paged decode kernel launched {n} times over {steps} decode calls a layer (steps x "
+              f"buckets, {LM_CONFIG['num_layers']} layers, chunk {eng._chunk_impl}); expected {want}")
         self.launches += n
-        self.steps += steps
+        self.steps += steps if kernel else 0
+        self.off_lane_calls += 0 if kernel else steps
+        self.last = (n, steps)
         return out
 
 
@@ -4336,14 +4491,13 @@ def precision_lanes(torch, np, w8a8, PagedEngine, params, tally, card):
         check(status["precision"] == "w8a8" and status["quantize"] == "int8" and status["prefix_cache"]
               and status["chunk_token_budget"] == SCHED_BUDGET and status["max_queue"] == 64,
               f"the w8a8 server does not report its options: {status}")
-        steps0, before = status["engine"]["chunk_steps"], status["kernel_launches"]
+        steps0, before = decode_calls(status["engine"]), status["kernel_launches"]
         served = [gen_request(np, base, p) for p in rest_prompts]
         after_status = http(base + "/health/status")["jsonData"]
     finally:
         stop_server(proc)
         logfile.close()
-    served_steps = (sum(int(k) * v for k, v in after_status["engine"]["chunk_steps"].items())
-                    - sum(int(k) * v for k, v in steps0.items()))
+    served_steps = decode_calls(after_status["engine"]) - steps0
     served_k4 = after_status["kernel_launches"].get("paged_decode_stream", 0) - before.get("paged_decode_stream", 0)
     check(served_k4 == LM_CONFIG["num_layers"] * served_steps,
           f"the served w8a8 path launched K4 {served_k4} times over {served_steps} steps")
@@ -4584,7 +4738,7 @@ def chunked_prefill_lanes(torch, np, PagedEngine, params, params32, tally, card)
 def scheduler_paths(torch, np, kernels, w8a8, PagedEngine, load_lm_params, card):
     """Phase 18: the JAX engine's scheduler and precision lanes on the
     generation config (18a-e); every counted run launches K4 once per
-    layer per decode step."""
+    layer per decode step per length bucket."""
     t0 = time.perf_counter()
     tally = K4Tally(torch, kernels)
     params = load_lm_params("", LM_CONFIG, 0, torch.device(SCHED_DEVICE))
@@ -4596,9 +4750,403 @@ def scheduler_paths(torch, np, kernels, w8a8, PagedEngine, load_lm_params, card)
     numbers["18e"] = chunked_prefill_lanes(torch, np, PagedEngine, params, params32, tally, card)
     if SCHED_DEVICE == "cuda":
         torch.cuda.empty_cache()
-    numbers.update(k4_launches=tally.launches, decode_steps=tally.steps, seconds=time.perf_counter() - t0)
-    log(f"phase 18: K4 launched {tally.launches} = {LM_CONFIG['num_layers']} x {tally.steps} decode steps over every "
-        f"counted run, {numbers['seconds']:.1f} s [{card}]")
+    numbers.update(k4_launches=tally.launches, decode_calls=tally.steps, seconds=time.perf_counter() - t0)
+    log(f"phase 18: K4 launched {tally.launches} = {LM_CONFIG['num_layers']} x {tally.steps} decode calls (steps x "
+        f"buckets) over every counted run, {numbers['seconds']:.1f} s [{card}]")
+    return numbers
+
+
+# ---------------------------------------------------------------- phase 19
+
+def impl_engine(torch, PagedEngine, params, impl: str, dtype: str = "bfloat16", buckets=None, **kw):
+    """A phase 19 engine on the chunk asked for (``SELDON_TPU_CTX_BUCKETS``
+    too when given), the prefix cache off unless asked for."""
+    with knob_env(SELDON_TPU_CHUNK_IMPL=impl, SELDON_TPU_CTX_BUCKETS=buckets):
+        eng = sched_engine(torch, PagedEngine, params, dtype=dtype, **{"prefix_cache": False, **kw})
+    check(eng._chunk_impl == impl and eng._kernel_active == (impl == "pool"),
+          f"the {impl} engine runs chunk {eng._chunk_impl}, kernel lane {eng._kernel_active}")
+    return eng
+
+
+def drive_mixed(eng, prompts, adapters, max_new):
+    """``drive`` with prompt i on adapter ``adapters[i]``."""
+    streams = [eng.submit(p, max_new_tokens=max_new, adapter=a) for p, a in zip(prompts, adapters)]
+    eng.run()
+    for st in streams:
+        check(st.error is None and st.result is not None, f"a stream failed: {st.error}")
+    return [st.result for st in streams]
+
+
+def decode_rate(torch, eng, prompts, tally, what: str, kernel: bool = True) -> float:
+    """Decode tokens/s of one turn: a run of LM_MAX_NEW new tokens minus a
+    run of one (prefill and the first chunk), 18a's method."""
+    def timed(max_new):
+        sched_sync(torch)
+        t0 = time.perf_counter()
+        drive(eng, prompts, max_new)
+        sched_sync(torch)
+        return time.perf_counter() - t0
+
+    t_full = tally.run(eng, lambda: timed(LM_MAX_NEW), what, kernel)
+    t_one = timed(1)
+    return len(prompts) * (LM_MAX_NEW - 1) / max(t_full - t_one, 1e-9)
+
+
+def same_rows(a, b) -> bool:
+    return all(bool((x == y).all()) for x, y in zip(a, b))
+
+
+def ring_lanes(torch, np, PagedEngine, params, params32, registry, tally, card):
+    """19a: the ring chunk against the pool chunk on K4."""
+    rng = np.random.default_rng(SEED + 190)
+    V, slots = LM_CONFIG["vocab_size"], LM_ENGINE["max_slots"]
+    prompts = list(rng.integers(0, V, (slots, RING_PROMPT)))
+    system = rng.integers(0, V, RING_SYSTEM)
+    shared = [np.concatenate([system, rng.integers(0, V, int(n))]) for n in rng.integers(16, 65, slots)]
+    names = [(None, "a1", "a2")[i % 3] for i in range(slots)]
+    with knob_env(SELDON_TPU_PAGED_KERNEL="0", SELDON_TPU_CHUNK_IMPL=None):
+        eng = sched_engine(torch, PagedEngine, params, prefix_cache=False)
+    auto = eng._chunk_impl
+    del eng
+    check(auto == "ring", f"SELDON_TPU_PAGED_KERNEL=0 with the chunk unset picked {auto}, not the ring")
+
+    f32, hits = {}, {}
+    for case, kw in (("plain", {}), ("adapters", {"max_adapters": 2, "lora_rank": LORA_RANK}),
+                     ("prefix hit", {"prefix_cache": True})):
+        out = {}
+        for impl in ("ring", "pool"):
+            extra = dict(kw, weight_registry=registry()) if "max_adapters" in kw else kw
+            eng = impl_engine(torch, PagedEngine, params32, impl, "float32", **extra)
+            what = f"19a f32 {case} {impl}"
+            if case == "adapters":
+                out[impl] = tally.run(eng, lambda eng=eng: drive_mixed(eng, prompts, names, LM_MAX_NEW), what,
+                                      impl == "pool")
+            elif case == "prefix hit":
+                drive(eng, shared[:1], LM_MAX_NEW)  # publishes the system prompt's two pages
+                out[impl] = tally.run(eng, lambda eng=eng: drive(eng, shared, LM_MAX_NEW), what, impl == "pool")
+                hits[impl] = eng.engine_stats()["prefix_hits"]
+            else:
+                out[impl] = tally.run(eng, lambda eng=eng: drive(eng, prompts, LM_MAX_NEW), what, impl == "pool")
+            del eng
+        f32[case] = same_rows(out["ring"], out["pool"])
+    if SCHED_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    engines = {impl: impl_engine(torch, PagedEngine, params, impl) for impl in ("ring", "pool")}
+    # the bf16 tokens first: the run also warms each engine before its turns
+    bf = {impl: drive(e, prompts, LM_MAX_NEW) for impl, e in engines.items()}
+    rates = {impl: [] for impl in engines}
+    for rep in range(RING_RATE_REPS):
+        for impl in (("ring", "pool") if rep % 2 == 0 else ("pool", "ring")):
+            rates[impl].append(decode_rate(torch, engines[impl], prompts, tally, f"19a bf16 {impl} decode",
+                                           impl == "pool"))
+    del engines
+    agreement = float(np.mean([np.mean(a == b) for a, b in zip(bf["ring"], bf["pool"])]))
+    rows = sum(bool((a == b).all()) for a, b in zip(bf["ring"], bf["pool"]))
+    best = {k: max(v) for k, v in rates.items()}
+    log(f"19a chunk with SELDON_TPU_PAGED_KERNEL=0 and the chunk unset: {auto}; f32 greedy ring == pool (16 x "
+        f"{LM_MAX_NEW}): {f32}; prefix hits ring / pool {hits.get('ring')} / {hits.get('pool')}; K4 over the ring "
+        f"runs 0 ({tally.off_lane_calls} decode calls off the kernel lane); bf16 ring vs pool: {rows}/{slots} rows "
+        f"equal, token agreement {agreement:.4f}; bf16 decode tokens/s (16 lanes, prompt {RING_PROMPT}, "
+        f"{LM_MAX_NEW} new) ring {best['ring']:.1f}, pool {best['pool']:.1f} ({best['ring'] / best['pool']:.3f}x), "
+        f"turns {rates} [{card}]")
+    check(all(f32.values()), f"f32 ring and pool tokens differ: {f32}")
+    check(hits["ring"] > 0 and hits["ring"] == hits["pool"], f"the prefix-hit runs did not hit alike: {hits}")
+    return {"auto_chunk_k0": auto, "f32_ring_equals_pool": f32, "prefix_hits": hits, "bf16_rows_equal": rows,
+            "bf16_token_agreement": agreement, "decode_tokens_per_s": best, "decode_tokens_per_s_runs": rates}
+
+
+def split_lanes(torch, np, PagedEngine, params, params32, tally, card):
+    """19b: 8 prompts of 64 beside 8 of 768, one bucket against two, on
+    both chunks."""
+    rng = np.random.default_rng(SEED + 191)
+    V, slots = LM_CONFIG["vocab_size"], LM_ENGINE["max_slots"]
+    prompts = [rng.integers(0, V, SPLIT_SHORT if i % 2 == 0 else SPLIT_LONG) for i in range(slots)]
+    out = {}
+    for impl in ("pool", "ring"):
+        tokens, stats, k4 = {}, {}, {}
+        for b in ("2", "1"):
+            eng = impl_engine(torch, PagedEngine, params32, impl, "float32", buckets=b)
+            tokens[b] = tally.run(eng, lambda eng=eng: drive(eng, prompts, LM_MAX_NEW), f"19b f32 {impl} buckets {b}",
+                                  impl == "pool")
+            stats[b], k4[b] = eng.engine_stats(), tally.last
+            del eng
+        check(stats["2"]["bucketed_chunks"] > 0 and stats["1"]["bucketed_chunks"] == 0,
+              f"19b {impl}: bucketed chunks {stats['2']['bucketed_chunks']} / {stats['1']['bucketed_chunks']}")
+        same = same_rows(tokens["2"], tokens["1"])
+        engines = {b: impl_engine(torch, PagedEngine, params, impl, buckets=b) for b in ("2", "1")}
+        for eng in engines.values():
+            drive(eng, prompts, LM_MAX_NEW)  # warm, untimed
+        rates = {b: [] for b in engines}
+        for rep in range(RING_RATE_REPS):
+            for b in (("2", "1") if rep % 2 == 0 else ("1", "2")):
+                rates[b].append(decode_rate(torch, engines[b], prompts, tally, f"19b bf16 {impl} buckets {b}",
+                                            impl == "pool"))
+        del engines
+        best = {k: max(v) for k, v in rates.items()}
+        out[impl] = {"f32_equal": same, "bucketed_chunks": {b: s["bucketed_chunks"] for b, s in stats.items()},
+                     "chunks": {b: s["chunks"] for b, s in stats.items()},
+                     "k4_launches_and_calls": k4, "decode_tokens_per_s": best, "decode_tokens_per_s_runs": rates}
+        log(f"19b {impl} chunk, {slots // 2} x {SPLIT_SHORT} beside {slots // 2} x {SPLIT_LONG} tokens, {LM_MAX_NEW} "
+            f"new: f32 tokens buckets 2 == 1: {same}; bucketed chunks {out[impl]['bucketed_chunks']} of "
+            f"{out[impl]['chunks']}; K4 (launches, calls a layer) {k4}; bf16 decode tokens/s buckets 2 "
+            f"{best['2']:.1f}, 1 {best['1']:.1f} ({best['2'] / best['1']:.3f}x), turns {rates} [{card}]")
+        check(same, f"19b {impl}: f32 tokens differ between one and two buckets")
+    if SCHED_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def sse_stream(base: str, prompt, max_new=None, headers=None, drop_after_first: bool = False):
+    """One REST SSE request: (token chunks, s to the first chunk, s to the
+    end, the end event's payload)."""
+    body = {"data": {"ndarray": [[int(t) for t in prompt]]}}
+    if max_new:
+        body["meta"] = {"tags": {"max_new_tokens": max_new}}
+    req = urllib.request.Request(base + "/api/v0.1/generate/stream", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    chunks, t_first, end, event = [], None, None, None
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        check(resp.status == 200 and resp.headers.get("Content-Type", "").startswith("text/event-stream"),
+              f"the SSE answer is {resp.status} {resp.headers.get('Content-Type')}")
+        for raw in resp:
+            line = raw.decode().rstrip("\r\n")
+            if line.startswith("event: "):
+                event = line[len("event: "):]
+            elif line.startswith("data: "):
+                data = json.loads(line[len("data: "):])
+                check(event != "error", f"an SSE error event: {data}")
+                if event == "end":
+                    end = data
+                    break
+                chunks.append(data["tokens"])
+                t_first = t_first if t_first is not None else time.perf_counter() - t0
+                if drop_after_first:
+                    break
+            elif not line:
+                event = None
+    return chunks, t_first, time.perf_counter() - t0, end
+
+
+def proto_prompt(np, InternalMessage, prompt, max_new=None):
+    msg = InternalMessage(payload=np.asarray([prompt], np.int32), kind="ndarray")
+    if max_new:
+        msg.meta.tags["max_new_tokens"] = max_new
+    return msg.to_proto()
+
+
+def proto_tokens(np, InternalMessage, msg) -> list:
+    return np.asarray(InternalMessage.from_proto(msg).host_payload()).reshape(-1).astype(int).tolist()
+
+
+def grpc_stream(np, pb, InternalMessage, channel, prompt, max_new=None, drop_after_first: bool = False):
+    """One ``Seldon/GenerateStream`` call: (token chunks, s to the first
+    chunk, s to the end, None)."""
+    call = channel.unary_stream("/seldon.protos.Seldon/GenerateStream",
+                                request_serializer=pb.SeldonMessage.SerializeToString,
+                                response_deserializer=pb.SeldonMessage.FromString)
+    chunks, t_first = [], None
+    t0 = time.perf_counter()
+    it = call(proto_prompt(np, InternalMessage, prompt, max_new), timeout=300)
+    for msg in it:
+        chunks.append(proto_tokens(np, InternalMessage, msg))
+        t_first = t_first if t_first is not None else time.perf_counter() - t0
+        if drop_after_first:
+            it.cancel()
+            break
+    return chunks, t_first, time.perf_counter() - t0, None
+
+
+def served_streams(torch, np, kernels, StreamingLM, card):
+    """19c: a served StreamingLM behind the gateway's REST SSE, its sync
+    gRPC and the native ingress's GenerateStream."""
+    import grpc
+
+    from seldon_core_tpu_torch.engine import PredictorService, UnitSpec
+    from seldon_core_tpu_torch.engine.native_ingress import serve_native_ingress
+    from seldon_core_tpu_torch.engine.server import Gateway, serve_gateway
+    from seldon_core_tpu_torch.proto import pb
+    from seldon_core_tpu_torch.runtime.message import InternalMessage
+
+    rng = np.random.default_rng(SEED + 192)
+    V = LM_CONFIG["vocab_size"]
+    prompts = [rng.integers(0, V, n) for n in STREAM_PROMPTS]
+    lm = StreamingLM(device=SCHED_DEVICE, dtype="bfloat16", max_new_tokens=LM_MAX_NEW, max_queue=STREAM_QUEUE,
+                     **LM_CONFIG, **LM_ENGINE, **NO_PREFIX_CACHE)
+    lm.load()
+    check(lm.engine._chunk_impl == "pool" and lm.engine._kernel_active,
+          "the served StreamingLM is not on the pool chunk's kernel lane")
+    loop = LoopThread()
+    http_port, grpc_port = free_port(), free_port()
+
+    async def start():
+        gateway = Gateway([(PredictorService(UnitSpec(name="lm", type="MODEL", component=lm), name="gen"), 1.0)])
+        runner, handle = await serve_gateway(gateway, host="127.0.0.1", http_port=http_port, grpc_port=grpc_port)
+        native = await serve_native_ingress(gateway, host="127.0.0.1", http_port=0)
+        return gateway, runner, handle, native
+
+    gateway, runner, handle, native = loop.run(start())
+    base = f"http://127.0.0.1:{http_port}"
+    channels = {"grpc": grpc.insecure_channel(f"127.0.0.1:{grpc_port}"),
+                "native": grpc.insecure_channel(f"127.0.0.1:{native.port}")}
+    total = lm.engine.engine_stats()["pool_pages_total"]
+
+    def unary(lane, prompt):
+        t0 = time.perf_counter()
+        if lane == "sse":
+            row = http(base + "/api/v0.1/predictions", {"data": {"ndarray": [[int(t) for t in prompt]]}})
+            row = [int(t) for t in row["data"]["ndarray"][0]]
+        else:
+            predict = channels[lane].unary_unary("/seldon.protos.Seldon/Predict",
+                                                 request_serializer=pb.SeldonMessage.SerializeToString,
+                                                 response_deserializer=pb.SeldonMessage.FromString)
+            row = proto_tokens(np, InternalMessage, predict(proto_prompt(np, InternalMessage, prompt), timeout=300))
+        return row, time.perf_counter() - t0
+
+    def stream(lane, prompt, **kw):
+        if lane == "sse":
+            return sse_stream(base, prompt, **kw)
+        return grpc_stream(np, pb, InternalMessage, channels[lane], prompt, **kw)
+
+    def idle_after(t0):
+        """Seconds until the engine holds no slot, no queued stream and
+        every page is free again."""
+        while time.perf_counter() - t0 < 10 * STREAM_FREE_S:
+            s = lm.engine.engine_stats()
+            if s["active"] == 0 and s["queued"] == 0 and s["free_pages"] == total:
+                return time.perf_counter() - t0
+            time.sleep(0.01)
+        return float("inf")
+
+    out = {}
+    try:
+        calls0 = decode_calls(lm.engine.engine_stats())
+        sched_sync(torch)
+        kernels.reset_launch_counts()
+        for lane in ("sse", "grpc", "native"):
+            rows, t_unary, t_first, t_last, chunk_counts = [], [], [], [], []
+            for p in prompts:
+                row, dt = unary(lane, p)
+                chunks, first, last, end = stream(lane, p)
+                joined = [t for c in chunks for t in c]
+                check(joined == row, f"19c {lane}: the streamed tokens differ from the unary row of the same request")
+                check(lane != "sse" or end is not None, "19c sse: no end event")
+                rows.append(row)
+                t_unary.append(dt)
+                t_first.append(first)
+                t_last.append(last)
+                chunk_counts.append(len(chunks))
+            conc = concurrent(lambda i: stream(lane, prompts[i]), STREAM_CONCURRENT)
+            conc_rows = [[t for c in chunks for t in c] for chunks, *_ in conc]
+            check(all(len(r) == LM_MAX_NEW and all(0 <= t < V for t in r) for r in conc_rows),
+                  f"19c {lane}: a concurrent stream came back short or out of the vocabulary")
+            share = float(np.mean([a == b for a, b in zip(conc_rows, rows)]))
+            t0 = time.perf_counter()
+            dropped, *_ = stream(lane, prompts[0], max_new=STREAM_DROP_NEW, drop_after_first=True)
+            freed = idle_after(t0)
+            out[lane] = {"unary_p50_ms": pct(t_unary, 0.5) * 1e3, "first_chunk_p50_ms": pct(t_first, 0.5) * 1e3,
+                         "last_chunk_p50_ms": pct(t_last, 0.5) * 1e3, "chunks": chunk_counts,
+                         "concurrent_identical_share": share, "dropped_freed_s": freed}
+            log(f"19c {lane}: {len(prompts)} streams bit-identical to their unary rows ({chunk_counts} chunks); p50 "
+                f"first chunk {out[lane]['first_chunk_p50_ms']:.2f} ms, last {out[lane]['last_chunk_p50_ms']:.2f} ms, "
+                f"unary {out[lane]['unary_p50_ms']:.2f} ms; {STREAM_CONCURRENT} concurrent: identical share "
+                f"{share:.3f}; a client dropped after its first chunk ({len(dropped)} chunk): slot and pages free "
+                f"after {freed:.3f} s [{card}]")
+            check(len(dropped) == 1 and freed <= STREAM_FREE_S,
+                  f"19c {lane}: a dropped stream still held its slot or pages after {freed:.3f} s")
+            check(share >= GEN_MIN_IDENTICAL_SHARE, f"19c {lane}: too few concurrent streams equal their rows")
+        sched_sync(torch)
+        k4 = sum(v for k, v in kernels.launch_counts().items() if k.startswith("paged_decode"))
+        calls = decode_calls(lm.engine.engine_stats()) - calls0
+        want = LM_CONFIG["num_layers"] * calls
+        check(calls > 0 and k4 == want, f"19c: K4 launched {k4} times over {calls} decode calls a layer")
+        # refusals before any 200: a spent deadline, then a shed (the decode
+        # loop held at its step lock while the queue is full)
+        status, body = http_status(base + "/api/v0.1/generate/stream", json.dumps(
+            {"data": {"ndarray": [[1, 2, 3]]}}).encode(), {"Content-Type": "application/json",
+                                                             "X-Seldon-Deadline-Ms": "0"})
+        check(status == 504 and body["status"]["reason"] == "DEADLINE_EXCEEDED", f"19c spent deadline: {status} {body}")
+        with lm.engine._step_lock:
+            held = [lm.engine.submit(prompts[0], max_new_tokens=4) for _ in range(STREAM_QUEUE)]
+            shed, shed_body = http_status(base + "/api/v0.1/generate/stream", json.dumps(
+                {"data": {"ndarray": [[1, 2, 3]]}}).encode(), {"Content-Type": "application/json"})
+            for st in held:
+                lm.engine.cancel(st)
+        check(shed == 503 and shed_body["status"]["reason"] == "SHED", f"19c shed: {shed} {shed_body}")
+        out.update(k4_launches=k4, decode_calls=calls)
+        log(f"19c K4 launched {k4} = {LM_CONFIG['num_layers']} x {calls} decode calls over every lane's streams; SSE "
+            f"answers a spent deadline {status} and a shed {shed} before any stream [{card}]")
+    finally:
+        for ch in channels.values():
+            ch.close()
+
+        async def stop():
+            await native.stop()
+            await handle.stop(None)
+            await runner.cleanup()
+
+        loop.run(stop())
+        loop.close()
+        lm.unload()
+    return out
+
+
+def stream_eviction(torch, np, PagedEngine, params32, tally, card):
+    """19d: 16 streamed requests on a pool of 1 + 16 x 3 pages."""
+    rng = np.random.default_rng(SEED + 193)
+    prompts = [rng.integers(0, LM_CONFIG["vocab_size"], int(n))
+               for n in rng.integers(SCHED_TIGHT_PROMPT[0], SCHED_TIGHT_PROMPT[1] + 1, LM_ENGINE["max_slots"])]
+    out = {}
+    for name, kw in (("full", {}), ("tight", {"num_pages": SCHED_TIGHT_PAGES})):
+        eng = sched_engine(torch, PagedEngine, params32, dtype="float32", prefix_cache=False, **kw)
+
+        def run(eng=eng):
+            streams = [eng.submit(p, max_new_tokens=LM_MAX_NEW, stream_tokens=True) for p in prompts]
+            eng.run()
+            return streams
+
+        streams = tally.run(eng, run, f"19d f32 {name} pool, streamed")
+        chunks = []
+        for st in streams:
+            check(st.error is None and st.result is not None, f"19d: a stream failed: {st.error}")
+            got = []
+            while (part := st.token_queue.get(timeout=10)) is not None:
+                got.append(part)
+            chunks.append(got)
+        out[name] = (chunks, [st.result for st in streams], eng.engine_stats())
+        del eng
+    (chunks, results, stats), (_, full, _) = out["tight"], out["full"]
+    joined = [[t for part in c for t in part] for c in chunks]
+    same = all(j == r.tolist() == f.tolist() for j, r, f in zip(joined, results, full))
+    log(f"19d f32, 16 streams on {SCHED_TIGHT_PAGES} pages: stalls {stats['stalls']}, evictions {stats['evictions']}; "
+        f"every streamed concatenation == its result == the full pool's, each token once: {same} [{card}]")
+    check(stats["evictions"] > 0, "19d: the shrunk pool evicted no stream")
+    check(same and all(len(j) == LM_MAX_NEW for j in joined), "19d: an evicted stream repeated or lost a token")
+    return {"stalls": stats["stalls"], "evictions": stats["evictions"], "streams_equal": same}
+
+
+def streaming_paths(torch, np, kernels, PagedEngine, StreamingLM, load_lm_params, WeightRegistry, make_lora_params,
+                    card):
+    """Phase 19: the ring chunk (19a), the length-bucketed split (19b),
+    token streaming on every lane (19c) and under eviction (19d)."""
+    t0 = time.perf_counter()
+    tally = K4Tally(torch, kernels)
+    params = load_lm_params("", LM_CONFIG, 0, torch.device(SCHED_DEVICE))
+    params32 = load_lm_params("", LM_CONFIG, SEED + 5, torch.device(SCHED_DEVICE))
+    numbers = {"19a": ring_lanes(torch, np, PagedEngine, params, params32,
+                                 lambda: adapter_registry(WeightRegistry, make_lora_params), tally, card)}
+    numbers["19b"] = split_lanes(torch, np, PagedEngine, params, params32, tally, card)
+    numbers["19d"] = stream_eviction(torch, np, PagedEngine, params32, tally, card)
+    del params, params32
+    if SCHED_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    numbers["19c"] = served_streams(torch, np, kernels, StreamingLM, card)
+    numbers.update(k4_launches=tally.launches + numbers["19c"]["k4_launches"],
+                   decode_calls=tally.steps + numbers["19c"]["decode_calls"], seconds=time.perf_counter() - t0)
+    log(f"phase 19: K4 launched {numbers['k4_launches']} = {LM_CONFIG['num_layers']} x {numbers['decode_calls']} "
+        f"decode calls on the pool chunk, 0 over {tally.off_lane_calls} on the ring, {numbers['seconds']:.1f} s "
+        f"[{card}]")
     return numbers
 
 
@@ -4625,7 +5173,7 @@ def run() -> int:
         from seldon_core_tpu_torch.models import resnet, transformer, vit
         from seldon_core_tpu_torch.models.cudaserver import CudaServer
         from seldon_core_tpu_torch.models.generate import load_lm_params
-        from seldon_core_tpu_torch.models.paged import PagedEngine
+        from seldon_core_tpu_torch.models.paged import PagedEngine, StreamingLM
         from seldon_core_tpu_torch.models.registry import WeightRegistry
         from seldon_core_tpu_torch.models.resnet import same_pads
         from seldon_core_tpu_torch.ops import _build, kernels, w8a8
@@ -4636,6 +5184,7 @@ def run() -> int:
         return 1
 
     t_start = time.perf_counter()
+    clock = PhaseClock()
     try:
         smi_line, device_kind, mem_bytes_per_s = card_report(torch, grpc)
         card = smi_line
@@ -4652,20 +5201,27 @@ def run() -> int:
             launch_only = probe_normalize.Swapped(floor.result()[0]["launch only"])
             log(f"built {', '.join(lib.name for lib in libs)} and K1's launch-only copy in "
                 f"{time.perf_counter() - t0:.1f}s")
+            clock.mark("phases 1-2")
             max_err, timings = kernel_checks(torch, np, kernels, mem_bytes_per_s, launch_only)
         paged_errs, paged_timings = paged_kernel_checks(torch, np, kernels, mem_bytes_per_s)
         flash_errs, flash_timings = flash_kernel_checks(torch, np, kernels, mem_bytes_per_s)
         k2_errs, k2_timings, k2_launches = int8_matmul_checks(torch, np, kernels, mem_bytes_per_s, card)
+        clock.mark("phase 3")
         launches, numbers = main_path(torch, np, kernels, resnet, card)
         whole = whole_path(torch, np, kernels, resnet, card)
+        clock.mark("phases 4-6")
         gen_launches, gen_numbers = generation_path(torch, np, PagedEngine, load_lm_params, card)
+        clock.mark("phase 7")
         grid_launches, gen_numerics = engine_numerics(torch, np, kernels, PagedEngine, load_lm_params, card)
         engine = engine_numbers(torch, np, PagedEngine, load_lm_params, card)
+        clock.mark("phase 8")
         vit_local, vit_numbers = vit_path(torch, np, kernels, vit, card)
         vit_profile = vit_forward_profile(torch, np, kernels, vit_local, card)
         del vit_local
         torch.cuda.empty_cache()
+        clock.mark("phase 9")
         tf_numerics = transformer_numerics(torch, np, kernels, vit, transformer, CudaServer, card)
+        clock.mark("phase 10")
         variant_errs, variant_timings = paged_variant_checks(torch, np, kernels, mem_bytes_per_s)
         q_launches, q_numbers = quantized_generation_path(torch, np, PagedEngine, load_lm_params, WeightRegistry,
                                                           make_lora_params, card)
@@ -4680,15 +5236,26 @@ def run() -> int:
 
         q_engine = engine_numbers(torch, np, PagedEngine, load_lm_params, card, make_engine=int8_adapter_engine,
                                   adapters=(None, "a1", "a2"), what="bf16 int8 pool + adapters (base/a1/a2)")
+        clock.mark("phase 11")
         precision_numbers = precision_path(torch, np, kernels, w8a8, same_pads, CudaServer, card)
+        clock.mark("phase 12")
         gateway_numbers = gateway_paths(torch, np, kernels, resnet, card)
         graph_numbers = graph_paths(torch, np, kernels, resnet, card)
+        clock.mark("phase 13")
         native_numbers = native_paths(torch, np, kernels, resnet, card, gateway_numbers, whole["forward_ms"][1])
+        clock.mark("phase 14")
         a4_numbers = a4_paths(torch, np, kernels, resnet, card)
+        clock.mark("phase 15")
         a2_2_numbers = a2_2_paths(torch, np, kernels, resnet, CudaServer, card)
+        clock.mark("phase 16")
         a5_a6_numbers = a5_a6_paths(torch, np, kernels, resnet, vit, CudaServer, PagedEngine, load_lm_params,
                                     WeightRegistry, make_lora_params, mem_bytes_per_s, card)
+        clock.mark("phase 17")
         sched_numbers = scheduler_paths(torch, np, kernels, w8a8, PagedEngine, load_lm_params, card)
+        clock.mark("phase 18")
+        stream_numbers = streaming_paths(torch, np, kernels, PagedEngine, StreamingLM, load_lm_params, WeightRegistry,
+                                         make_lora_params, card)
+        clock.mark("phase 19")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4719,6 +5286,8 @@ def run() -> int:
         "a2_2": a2_2_numbers,
         "a5_a6": a5_a6_numbers,
         "scheduler": sched_numbers,
+        "streaming": stream_numbers,
+        "phase_seconds": clock.seconds,
         "seconds": time.perf_counter() - t_start,
     }
     log(json.dumps(result))
@@ -4771,9 +5340,15 @@ def run() -> int:
         })
         if impl == "stream":
             kernel_line["kernels"][-1]["launches_on_phase18"] = {
-                "launches": sched_numbers["k4_launches"], "decode_steps": sched_numbers["decode_steps"],
+                "launches": sched_numbers["k4_launches"], "decode_calls": sched_numbers["decode_calls"],
                 "path": "in-process PagedEngine: bf16 / int8w / w8a8, prefix cache, steps ladder and stall/evict, "
                         "SLO queue, chunked prefill (phase 18)"}
+            kernel_line["kernels"][-1]["launches_on_phase19"] = {
+                "launches": stream_numbers["k4_launches"], "decode_calls": stream_numbers["decode_calls"],
+                "served_launches": stream_numbers["19c"]["k4_launches"],
+                "path": "the pool chunk beside the ring (19a), the length-bucketed split (19b), StreamingLM streams "
+                        "over REST SSE, sync gRPC and the native ingress (19c), streams under eviction (19d); one "
+                        "launch a layer-step a bucket, none on the ring (phase 19)"}
     serving, causal = flash_timings["serving"], flash_timings["causal"]
     kernel_line["kernels"].append({
         "name": "flash_attention",

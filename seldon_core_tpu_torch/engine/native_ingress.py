@@ -16,6 +16,10 @@ Lanes:
 * **fallback lane**: everything else (multi-node graphs, traffic splits,
   shadows, other payloads, feedback, ``Seldon/PredictRaw``) bridges into
   the running asyncio engine with full semantics.
+* **stream lane**: ``Seldon/GenerateStream``.  A producer thread a stream
+  drives the single local model's ``predict_stream`` and pushes each
+  chunk as one h2 DATA frame; a predictor that cannot stream answers
+  UNIMPLEMENTED.
 
 Readiness: the C++ server answers ``/ready`` from a flag that a
 background task refreshes from ``gateway.ready()``.  ``/metrics`` is the
@@ -27,9 +31,6 @@ headers or the gRPC metadata, so neither lane reads a deadline, a
 ``traceparent`` or a bearer token, as in the JAX package: put TLS, OAuth
 and deadlines on ``serve_gateway``'s listeners.  The fallback lanes run
 the gateway's engine path, whose spans and metrics see the request.
-
-Not ported: ``Seldon/GenerateStream`` answers UNIMPLEMENTED, naming
-``ROADMAP.md`` §A item 8.6, as the sync gateway does.
 """
 
 from __future__ import annotations
@@ -191,7 +192,6 @@ class _DeploymentGrpcHandler:
             return 3, f"response not frameable ({e}); use Seldon/Predict", b""
 
     def __call__(self, path: str, body: bytes) -> Tuple[int, str, bytes]:
-        from seldon_core_tpu_torch.engine.sync_server import GENERATE_STREAM_LATER
         from seldon_core_tpu_torch.proto import pb
         from seldon_core_tpu_torch.runtime.component import MicroserviceError
         from seldon_core_tpu_torch.runtime.message import InternalFeedback, InternalMessage
@@ -204,8 +204,6 @@ class _DeploymentGrpcHandler:
             elif path == "/seldon.protos.Seldon/SendFeedback":
                 fb = InternalFeedback.from_proto(pb.Feedback.FromString(body))
                 out = self._bridge(self.gateway.send_feedback(fb))
-            elif path == "/seldon.protos.Seldon/GenerateStream":
-                return 12, GENERATE_STREAM_LATER, b""
             else:
                 return 12, f"native ingress: no handler for {path}", b""
             return 0, "", out.to_proto().SerializeToString()
@@ -214,6 +212,69 @@ class _DeploymentGrpcHandler:
         except Exception as e:  # noqa: BLE001 — wire-level INTERNAL
             logger.exception("native grpc fallback failed for %s", path)
             return 13, str(e)[:200], b""
+
+
+class _DeploymentGrpcStreamHandler:
+    """``Seldon/GenerateStream`` on the native lane (JAX
+    ``engine/native_ingress.py:251-332``): the accept callback returns at
+    once, and a daemon producer thread drives the component's blocking
+    ``predict_stream`` generator and pushes each chunk.  A failed push (the
+    client is gone) closes the generator, which cancels the engine stream;
+    the stream is always closed, which releases the C++ handle and the
+    connection's in-flight count."""
+
+    def __init__(self, gateway, server_ref):
+        self.gateway = gateway
+        self._server_ref = server_ref  # callable -> the NativeFrontServer
+
+    def __call__(self, path: str, body: bytes, handle: int) -> int:
+        import threading
+
+        from seldon_core_tpu_torch.proto import pb
+        from seldon_core_tpu_torch.runtime.message import InternalMessage
+
+        if path != "/seldon.protos.Seldon/GenerateStream":
+            return 12
+        server = self._server_ref()
+        if server is None:
+            return 13
+        try:
+            msg = InternalMessage.from_proto(pb.SeldonMessage.FromString(body))
+        except Exception:  # noqa: BLE001 — a malformed request proto
+            server.stream_close(handle, 3, "malformed SeldonMessage")
+            return 0
+        threading.Thread(target=self._produce, args=(server, msg, handle), name=f"native-genstream-{handle}",
+                         daemon=True).start()
+        return 0
+
+    def _produce(self, server, msg, handle: int) -> None:
+        from seldon_core_tpu_torch.engine.sync_server import GENERATE_STREAM_UNSUPPORTED, stream_fn
+        from seldon_core_tpu_torch.runtime.component import MicroserviceError
+        from seldon_core_tpu_torch.runtime.message import InternalMessage
+
+        it = None
+        try:
+            gen_fn = stream_fn(self.gateway.pick())
+            if gen_fn is None:
+                server.stream_close(handle, 12, GENERATE_STREAM_UNSUPPORTED)
+                return
+            it = gen_fn(np.asarray(msg.host_payload()), [], meta={"tags": dict(msg.meta.tags), "puid": msg.meta.puid})
+            dead = False
+            for chunk in it:
+                out = InternalMessage(payload=np.asarray(chunk)[None, :], kind="ndarray")
+                out.meta.puid = msg.meta.puid
+                if server.stream_push(handle, out.to_proto().SerializeToString()) < 0:
+                    dead = True  # the client is gone: stop decoding
+                    break
+            server.stream_close(handle, 1 if dead else 0, "client cancelled" if dead else "")
+        except MicroserviceError as e:
+            server.stream_close(handle, 3 if 400 <= e.status_code < 500 else 13, str(e)[:200])
+        except Exception as e:  # noqa: BLE001 — a mid-stream engine fault
+            logger.exception("native GenerateStream producer failed")
+            server.stream_close(handle, 13, str(e)[:200])
+        finally:
+            if it is not None:
+                it.close()
 
 
 async def serve_native_ingress(
@@ -233,9 +294,11 @@ async def serve_native_ingress(
     from seldon_core_tpu_torch.native.frontserver import NativeFrontServer
 
     loop = asyncio.get_running_loop()
+    server_box: list = [None]
     kwargs = dict(port=http_port, raw_handler=_DeploymentRawHandler(gateway, loop),
-                  grpc_handler=_DeploymentGrpcHandler(gateway, loop), max_wait_ms=max_wait_ms, host=host,
-                  batch_threads=batch_threads, raw_workers=RAW_WORKERS)
+                  grpc_handler=_DeploymentGrpcHandler(gateway, loop),
+                  grpc_stream_handler=_DeploymentGrpcStreamHandler(gateway, lambda: server_box[0]),
+                  max_wait_ms=max_wait_ms, host=host, batch_threads=batch_threads, raw_workers=RAW_WORKERS)
     lane = fast_lane_for(gateway)
     if lane is not None:
         kwargs.update(
@@ -252,6 +315,7 @@ async def serve_native_ingress(
     else:
         logger.info("native ingress: fallback lane only (the graph is not fast-lane eligible)")
     server = NativeFrontServer(**kwargs)
+    server_box[0] = server
     server.start()
 
     async def _refresh_ready():

@@ -5,9 +5,11 @@ engine's controllers (reference: RestClientController.java:127-268,
 SeldonGrpcServer.java:30-60, SeldonService.java:30-67):
 
     POST /api/v0.1/predictions   POST /api/v0.1/feedback
+    POST /api/v0.1/generate/stream
     GET  /ping /ready /live      PUT/POST /pause /unpause
     GET  /metrics /seldon.json
-    gRPC seldon.protos.Seldon/Predict, /SendFeedback, /PredictStream
+    gRPC seldon.protos.Seldon/Predict, /SendFeedback, /PredictStream,
+         /GenerateStream
 
 A ``Gateway`` fronts one *deployment* = several predictors with traffic
 weights (canary / A-B across predictors, the reference's Istio
@@ -29,14 +31,16 @@ is the metrics registry (``utils/metrics.py``: the observer's
 per-predictor counts and, for a predictor without an observer, its
 local components' custom metrics.
 
+Token streaming: ``POST /api/v0.1/generate/stream`` (Server-Sent
+Events) and ``Seldon/GenerateStream`` serve a single-local-model
+predictor's ``predict_stream`` (``StreamingLM``).
+
 Not ported: the debug endpoints (``ROADMAP.md`` §A item 8.11),
-explanations (§A item 11), token streaming over SSE and
-``Seldon/GenerateStream`` (§A item 8.6: the RPC answers UNIMPLEMENTED),
-and the ``grpc.aio`` front end: gRPC is served by the sync server of
-``engine/sync_server.py`` alone (queued in ``ROADMAP.md`` §A until a
-deployment needs it).  Breakers, hedging, fallbacks and replica
-balancing run in the engine (``engine/{transport,executor}.py``) behind
-every listener.
+explanations (§A item 11), and the ``grpc.aio`` front end: gRPC is
+served by the sync server of ``engine/sync_server.py`` alone (queued in
+``ROADMAP.md`` §A until a deployment needs it).  Breakers, hedging,
+fallbacks and replica balancing run in the engine
+(``engine/{transport,executor}.py``) behind every listener.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ import grpc
 from aiohttp import web
 
 from seldon_core_tpu_torch.engine.service import PredictorService
-from seldon_core_tpu_torch.engine.sync_server import build_sync_seldon_server
+from seldon_core_tpu_torch.engine.sync_server import build_sync_seldon_server, stream_fn, stream_tags
 from seldon_core_tpu_torch.runtime import component as comp
 from seldon_core_tpu_torch.runtime.grpc_server import DEFAULT_MAX_MSG_BYTES
 from seldon_core_tpu_torch.runtime.message import InternalFeedback, InternalMessage
@@ -341,6 +345,69 @@ def build_gateway_app(gateway: Gateway, auth=None) -> web.Application:
         except Exception as e:  # noqa: BLE001
             return _error_response(e)
 
+    async def generate_stream_sse(request: web.Request) -> web.StreamResponse:
+        """Token streaming over HTTP: Server-Sent Events, one ``data:
+        {"tokens": [...]}`` event per engine chunk, then ``event: end``
+        with the puid (the REST twin of ``Seldon/GenerateStream``, JAX
+        ``engine/server.py:360-459``).  The first chunk is pulled before
+        the headers go out, so a bad prompt, a shed or a spent deadline
+        answers an HTTP error, not a 200 stream."""
+        import json
+
+        import numpy as np
+
+        try:
+            msg = InternalMessage.from_json(await _request_body(request))
+        except Exception as e:  # noqa: BLE001
+            return _error_response(e)
+        svc = gateway.by_name(request.query.get("predictor", "")) or gateway.pick()
+        gen_fn = stream_fn(svc)
+        if gen_fn is None:
+            return web.json_response(
+                {"status": {"status": "FAILURE", "code": 501,
+                            "info": "token streaming needs a single-local-model predictor whose component "
+                                    "implements predict_stream (e.g. STREAMING_LM)",
+                            "reason": "NOT_IMPLEMENTED"}},
+                status=501,
+            )
+        # the generator runs on executor threads without this context, so
+        # the SLO headers ride meta.tags (a body tag wins), the deadline
+        # minted absolute here: a relative one re-minted at submit would
+        # refund the executor's queueing time
+        meta = {"tags": stream_tags(msg, request.headers), "puid": msg.meta.puid}
+        loop = asyncio.get_running_loop()
+        end = object()
+        try:
+            it = gen_fn(np.asarray(msg.host_payload()), [], meta=meta)
+            first = await loop.run_in_executor(None, next, it, end)
+        except Exception as e:  # noqa: BLE001
+            return _error_response(e)
+        resp = web.StreamResponse(headers={"Content-Type": "text/event-stream", "Cache-Control": "no-cache"})
+        try:
+            await resp.prepare(request)
+            chunk = first
+            while True:
+                if chunk is end:
+                    await resp.write(f"event: end\ndata: {json.dumps({'puid': msg.meta.puid})}\n\n".encode())
+                    break
+                await resp.write(f"data: {json.dumps({'tokens': np.asarray(chunk).tolist()})}\n\n".encode())
+                try:
+                    chunk = await loop.run_in_executor(None, next, it, end)
+                except comp.MicroserviceError as e:
+                    await resp.write(f"event: error\ndata: {json.dumps(e.to_status())}\n\n".encode())
+                    break
+                except Exception as e:  # noqa: BLE001 — a mid-stream engine fault: an error event,
+                    # never a silent truncation that reads as completion
+                    status = {"status": "FAILURE", "code": 500, "info": str(e), "reason": "ENGINE_ERROR"}
+                    await resp.write(f"event: error\ndata: {json.dumps(status)}\n\n".encode())
+                    break
+            await resp.write_eof()
+        except ConnectionError:
+            pass  # the client went away; closing the generator frees its stream
+        finally:
+            await loop.run_in_executor(None, it.close)
+        return resp
+
     async def ping(_r: web.Request) -> web.Response:
         return web.Response(text="pong")
 
@@ -378,6 +445,7 @@ def build_gateway_app(gateway: Gateway, auth=None) -> web.Application:
     app.router.add_get("/api/v0.1/predictions", predictions)
     app.router.add_post("/predict", predictions)  # convenience alias
     app.router.add_post("/api/v0.1/feedback", feedback)
+    app.router.add_post("/api/v0.1/generate/stream", generate_stream_sse)
     app.router.add_get("/ping", ping)
     app.router.add_get("/live", live)
     app.router.add_get("/ready", ready)

@@ -21,17 +21,20 @@ carry the thread's context variables (a deadline re-minted there from a
 duration would refund the queueing time).  With ``auth`` every method
 answers ``UNAUTHENTICATED`` without a valid bearer token.
 
-``GenerateStream`` answers UNIMPLEMENTED: token streaming is not ported
-(``ROADMAP.md`` §A item 8.6).
+``GenerateStream`` streams a single-local-model predictor's
+``predict_stream`` (``StreamingLM``): one SeldonMessage of new token ids
+per engine chunk; any other predictor answers UNIMPLEMENTED.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from concurrent import futures
 
 import grpc
+import numpy as np
 
 from seldon_core_tpu_torch.proto import pb, services
 from seldon_core_tpu_torch.runtime.component import MicroserviceError
@@ -47,9 +50,35 @@ from seldon_core_tpu_torch.utils.tracing import activate_context
 
 logger = logging.getLogger(__name__)
 
-GENERATE_STREAM_LATER = (
-    "Seldon/GenerateStream (token streaming) is not ported yet: it comes with ROADMAP.md §A item 8.6"
-)
+# the answer of every streaming lane to a predictor that cannot stream
+GENERATE_STREAM_UNSUPPORTED = ("GenerateStream needs a single-local-model predictor whose component implements "
+                               "predict_stream (e.g. STREAMING_LM)")
+
+
+def stream_tags(msg: InternalMessage, carrier) -> dict:
+    """A streamed request's tags: its body tags, then the carrier's
+    (HTTP headers or gRPC metadata) deadline, priority and adapter where
+    the body has none.  The generator runs on other threads than the
+    ingress's, so the deadline rides the tags, minted absolute here
+    (``deadline_at_monotonic``): a relative one minted at submit would
+    refund the hand-off's queueing time."""
+    tags = dict(msg.meta.tags)
+    ms = _deadlines.extract_ms(carrier)
+    if ms is not None:
+        tags.setdefault("deadline_at_monotonic", time.monotonic() + ms / 1000.0)
+    prio = _deadlines.extract_priority(carrier)
+    if prio is not None:
+        tags.setdefault("priority", prio)
+    adapter = _deadlines.extract_adapter(carrier)
+    if adapter:
+        tags.setdefault("adapter", adapter)
+    return tags
+
+
+def stream_fn(svc):
+    """The ``predict_stream`` of a single-local-model predictor, or None."""
+    fast = svc.single_local_model()
+    return getattr(fast[1] if fast is not None else None, "predict_stream", None)
 
 
 def _ingress(context):
@@ -126,9 +155,28 @@ class SyncSeldonService:
         return out.to_proto()
 
     def generate_stream(self, request: pb.SeldonMessage, context):
+        """Token streaming (server-streaming ``Seldon/GenerateStream``,
+        JAX ``engine/sync_server.py:131-191``): one prompt in, a
+        SeldonMessage of newly decoded token ids out per engine chunk.
+        A client that cancels closes the generator, which frees the
+        engine stream's slot and pages."""
         self._check_auth(context)
-        context.abort(grpc.StatusCode.UNIMPLEMENTED, GENERATE_STREAM_LATER)
-        yield  # pragma: no cover — a generator, as the RPC is server-streaming
+        msg = InternalMessage.from_proto(request)
+        gen_fn = stream_fn(self.gateway.pick())
+        if gen_fn is None:
+            context.abort(grpc.StatusCode.UNIMPLEMENTED, GENERATE_STREAM_UNSUPPORTED)
+        meta = {"tags": stream_tags(msg, context.invocation_metadata() or ()), "puid": msg.meta.puid}
+        it = gen_fn(np.asarray(msg.host_payload()), [], meta=meta)
+        try:
+            for chunk in it:
+                out = InternalMessage(payload=np.asarray(chunk)[None, :], kind="ndarray")
+                out.meta.puid = msg.meta.puid
+                yield out.to_proto()
+        except MicroserviceError as e:
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT if 400 <= e.status_code < 500
+                          else grpc.StatusCode.INTERNAL, str(e))
+        finally:
+            it.close()
 
     def predict_stream(self, request_iterator, context):
         """Chunked predict: reassemble on the handler thread, run the

@@ -1,10 +1,8 @@
 """Paged KV-cache + continuous batching for autoregressive serving.
 
-The port's counterpart of ``seldon_core_tpu/models/paged.py``, in the
-JAX package's production configuration: the pool chunk
-(``SELDON_TPU_CHUNK_IMPL=pool``), the split pool layout
-``(layers, pages, page_size, heads, head_dim)``, greedy or sampled
-decoding.
+The port's counterpart of ``seldon_core_tpu/models/paged.py``: both
+decode chunks, the split pool layout ``(layers, pages, page_size,
+heads, head_dim)``, greedy or sampled decoding, token streaming.
 
 * **Pool dtype** — pages in the engine's dtype, or int8 under
   ``SELDON_TPU_KV_DTYPE=int8``: one float32 scale per page per K/V in
@@ -35,9 +33,21 @@ decoding.
   scores in the engine dtype, softmax in float32).  The two lanes are
   two numeric regimes, as in the JAX package; their greedy tokens agree
   bit for bit in float32.
+* **Decode chunks** — ``SELDON_TPU_CHUNK_IMPL``, chosen as the JAX
+  engine chooses: the pool chunk (each step attends over the pool: the
+  kernel lane or the gather lane) where the kernel lane can run, the
+  ring chunk elsewhere (the context gathered from the pool once a
+  chunk, the chunk's own K/V in a step-indexed ring, dense products
+  only, one write-back a chunk).  Both split a chunk's lanes into two
+  length buckets (``SELDON_TPU_CTX_BUCKETS``, on by default): the
+  shorter half of the running lanes attends at its own table width.
 * **One host round trip per chunk** — a chunk's ``steps_per_call``
   decode steps, sampling included, run as device work, and its tokens
   come back in one device-to-host copy.
+* **Token streaming** — ``submit(stream_tokens=True)`` pushes each
+  chunk's new tokens on the stream's queue as they land;
+  ``StreamingLM.predict_stream`` serves them, and the gateway streams
+  them over SSE and ``Seldon/GenerateStream`` (``engine/``).
 
 * **Scheduler** — the JAX engine's, under its names: admission with
   the prompt's pages from a refcounted allocator, growth a chunk at a
@@ -60,9 +70,10 @@ Decisions of this slice:
   the stream's seed when its prompt is whole (again after an eviction):
   greedy tokens equal the JAX engine's, sampled tokens cannot equal
   ``jax.random``'s;
-* the ring chunk, speculative decoding, meshes, token streaming, drain,
-  migration and the KV tier raise, naming the later slice
-  (``ROADMAP.md`` §A item 8);
+* speculative decoding, meshes, drain, migration and the KV tier
+  raise, naming the later slice (``ROADMAP.md`` §A item 8);
+* an unknown ``SELDON_TPU_CHUNK_IMPL`` raises, where the JAX engine runs
+  the ring chunk for it;
 * ``model_uri`` and an adapter's ``{"uri": ...}`` name flax msgpack
   checkpoints, read without flax (``models/generate.py``,
   ``utils/serialization.py``).
@@ -75,10 +86,12 @@ import functools
 import json
 import logging
 import math
+import queue
 import threading
 import time
 import zlib
 from collections import OrderedDict, deque
+from dataclasses import dataclass
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -151,8 +164,7 @@ def paged_kv_dtype_mode() -> str:
 def paged_kv_int8(mesh_absent: bool, chunk_impl: str) -> bool:
     """Whether the engine's pool is int8: asked for, and the single-device
     pool chunk (the ring chunk would need a third dequantisation site);
-    otherwise a WARN and the native pool, as in the JAX engine.  Today
-    the ring chunk and meshes refuse before this is asked."""
+    otherwise a WARN and the native pool, as in the JAX engine."""
     if paged_kv_dtype_mode() != "int8":
         return False
     if not mesh_absent or chunk_impl != "pool":
@@ -162,14 +174,50 @@ def paged_kv_int8(mesh_absent: bool, chunk_impl: str) -> bool:
     return True
 
 
+def paged_chunk_impl_env() -> str:
+    """``SELDON_TPU_CHUNK_IMPL``: "" (unset: the engine picks), "pool" or
+    "ring"; anything else raises (the JAX engine runs the ring body for
+    any value but "pool")."""
+    impl = _knobs.raw("SELDON_TPU_CHUNK_IMPL", "") or ""
+    if impl not in ("", "pool", "ring"):
+        raise ValueError(f"SELDON_TPU_CHUNK_IMPL={impl!r}: supported values are 'pool' and 'ring'")
+    return impl
+
+
+def resolve_chunk_impl(kernel_mode: str, kernel_eligible: bool) -> str:
+    """The decode chunk an engine runs (the JAX engine's rule, its
+    ``paged.py:1552-1583``): unset means the pool chunk where the kernel
+    lane can run and the ring chunk elsewhere; an explicit choice wins.
+    An explicit kernel opt-in that the chosen chunk never reaches WARNs."""
+    asked = paged_chunk_impl_env()
+    impl = asked or ("pool" if kernel_eligible else "ring")
+    if not paged_kernel_explicit(kernel_mode):
+        return impl
+    if asked == "ring":
+        logger.warning("SELDON_TPU_PAGED_KERNEL is set but SELDON_TPU_CHUNK_IMPL=ring: the ring chunk never "
+                       "launches the paged decode kernel; set SELDON_TPU_CHUNK_IMPL=pool to run it")
+    elif not kernel_eligible:
+        logger.warning("SELDON_TPU_PAGED_KERNEL=%s requested but the kernel lane cannot run here (it needs a "
+                       "CUDA device unless 'force', and bf16/f32 pages): keeping the %s", kernel_mode,
+                       "gather lane" if impl == "pool" else "ring chunk")
+    return impl
+
+
+def paged_ctx_buckets() -> int:
+    """``SELDON_TPU_CTX_BUCKETS``: 2 (default) or 1; anything else raises
+    with the JAX engine's message."""
+    val = _knobs.raw("SELDON_TPU_CTX_BUCKETS", "") or "2"
+    if val not in ("1", "2"):
+        raise ValueError(f"SELDON_TPU_CTX_BUCKETS={val!r}: supported values are '1' (disable) and '2' (default)")
+    return int(val)
+
+
 # ---------------------------------------------------------------------------
 # later slices
 # ---------------------------------------------------------------------------
 
 # option -> where ROADMAP.md §A queues it
 _LATER_SLICES = {
-    "SELDON_TPU_CHUNK_IMPL=ring": "8.1, the ring chunk / ChunkTransformerLM",
-    "predict_stream": "8.6, predict_stream",
     "speculative": "8.9, speculative decoding",
     "drain": "8.10, drain/migration/KV tier",
     "tp/dp/mesh": "queue item 12, parallel/*",
@@ -187,18 +235,13 @@ def _refuse(option: str) -> MicroserviceError:
 
 def check_ported_options(*, speculative=None, tp=None, dp=None, mesh=None) -> None:
     """Raise for every option of the JAX engine the port does not run
-    yet (speculative decoding, meshes, the ring chunk) and for an
-    unknown ``SELDON_TPU_KV_DTYPE``."""
+    yet (speculative decoding, meshes) and for an unknown
+    ``SELDON_TPU_KV_DTYPE``."""
     if speculative:
         raise _refuse("speculative")
     if int(tp or 0) > 1 or int(dp or 0) > 1 or bool(mesh):
         raise _refuse("tp/dp/mesh")
     paged_kv_dtype_mode()
-    chunk_impl = _knobs.raw("SELDON_TPU_CHUNK_IMPL", "") or "pool"
-    if chunk_impl == "ring":
-        raise _refuse("SELDON_TPU_CHUNK_IMPL=ring")
-    if chunk_impl != "pool":
-        raise ValueError(f"SELDON_TPU_CHUNK_IMPL={chunk_impl!r}: supported values are 'pool' and 'ring'")
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +290,23 @@ def _head_scale(head_dim: int, dtype: torch.dtype) -> float:
     return float(1.0 / torch.tensor(math.sqrt(head_dim), dtype=torch.float32).to(dtype))
 
 
+def _bucket_slices(tables):
+    """``(table, lane slice)`` of each length bucket: ``tables`` is one
+    (B, P) table or a tuple of per-bucket tables whose lanes arrive
+    bucket-sorted, ``sum(Bb) == B``."""
+    if not isinstance(tables, (tuple, list)):
+        tables = (tables,)
+    out, off = [], 0
+    for tb in tables:
+        out.append((tb, slice(off, off + tb.shape[0])))
+        off += tb.shape[0]
+    return out
+
+
+def _cat(parts):
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
 class PagedTransformerBlock(TransformerBlock):
     """TransformerBlock whose attention reads a paged K/V pool.
 
@@ -254,12 +314,21 @@ class PagedTransformerBlock(TransformerBlock):
     pool write (:func:`write_kv`).  ``kv_scales=(sk, sv)`` (this layer's
     (num_pages,) float32 scales) marks an int8 pool; ``lora`` (target ->
     (A, B) of this layer) with ``adapter_idx`` (B,) adds each lane's
-    adapter delta to every projection."""
+    adapter delta to every projection.
+
+    ``block_tables`` may be a tuple of per-bucket tables (the
+    length-bucketed split, JAX ``paged.py:170-189``): each bucket's lanes
+    attend at its own table width, one kernel call per bucket on the
+    kernel lane; the projections and the MLP stay full-batch.
+
+    :meth:`forward_ring` is the ring chunk's attention on the same
+    weights (the JAX package's ``ChunkTransformerBlock``)."""
 
     def forward(self, x, pk, pv, block_tables, lengths, use_kernel: bool = False, kv_scales=None, lora=None,
                 adapter_idx=None):
         # x (B, L, d); pk/pv (num_pages, ps, h, hd); block_tables (B, P)
-        # int32; lengths (B,) int32 tokens already in the pool
+        # int32 or per-bucket tables; lengths (B,) int32 tokens already
+        # in the pool
         batch, seg_len, d_model = x.shape
         heads = self.num_heads
         head_dim = d_model // heads
@@ -272,59 +341,108 @@ class PagedTransformerBlock(TransformerBlock):
         y = self.ln0(x)
         q, k, v = self.split_heads(self.project("qkv", y, None if fold else lora, adapter_idx))
         scale = _head_scale(head_dim, q.dtype)
+        buckets = _bucket_slices(block_tables)
         if kernel_lane:
-            # kernel lane: K4/K5 over the pool, then the current token
-            # merged by the flash rule in float32
-            q1 = (q * scale)[:, 0]  # (B, h, hd), in the model dtype
-            q_self, k_self, v_self = q1.float(), k[:, 0].float(), v[:, 0].float()
+            # kernel lane: K4/K5 over the pool, one call per bucket, then
+            # the current token merged by the flash rule in float32
+            outs, ks, vs = [], [], []
+            for tb, sl in buckets:
+                nb = tb.shape[0]
+                q1 = (q[sl] * scale)[:, 0]  # (nb, h, hd), in the model dtype
+                q_self, k_self, v_self = q1.float(), k[sl, 0].float(), v[sl, 0].float()
+                if fold:
+                    q_scale = float(head_dim) ** -0.5
+                    a, b = lora["qkv"]
+                    acc, m, l, delta = kernels.paged_attention_decode(
+                        q1, pk, pv, tb, lengths[sl], page_size=pk.shape[1], kv_scales=kv_scales,
+                        lora=(y[sl, 0], a, b, adapter_idx[sl], q_scale))
+                    dq, dk, dv = (t.reshape(nb, heads, head_dim) for t in delta.split(d_model, dim=-1))
+                    q_self = q_self + q_scale * dq
+                    k_self = k_self + dk
+                    v_self = v_self + dv
+                    # the pool write stores the adapted keys and values
+                    ks.append(k_self[:, None].to(k.dtype))
+                    vs.append(v_self[:, None].to(v.dtype))
+                else:
+                    acc, m, l = kernels.paged_attention_decode(q1, pk, pv, tb, lengths[sl],
+                                                               page_size=pk.shape[1], kv_scales=kv_scales)
+                s_self = torch.einsum("bhd,bhd->bh", q_self, k_self)
+                m2 = torch.maximum(m, s_self)
+                alpha = torch.exp(m - m2)
+                w_self = torch.exp(s_self - m2)
+                l2 = l * alpha + w_self
+                outs.append((acc * alpha[..., None] + v_self * w_self[..., None]) / l2[..., None])
+            attn = _cat(outs)[:, None].to(x.dtype).reshape(batch, seg_len, d_model)
             if fold:
-                q_scale = float(head_dim) ** -0.5
-                a, b = lora["qkv"]
-                acc, m, l, delta = kernels.paged_attention_decode(
-                    q1, pk, pv, block_tables, lengths, page_size=pk.shape[1], kv_scales=kv_scales,
-                    lora=(y[:, 0], a, b, adapter_idx, q_scale))
-                dq, dk, dv = (t.reshape(batch, heads, head_dim) for t in delta.split(d_model, dim=-1))
-                q_self = q_self + q_scale * dq
-                k_self = k_self + dk
-                v_self = v_self + dv
-                # the pool write stores the adapted keys and values
-                k, v = k_self[:, None].to(k.dtype), v_self[:, None].to(v.dtype)
-            else:
-                acc, m, l = kernels.paged_attention_decode(q1, pk, pv, block_tables, lengths,
-                                                           page_size=pk.shape[1], kv_scales=kv_scales)
-            s_self = torch.einsum("bhd,bhd->bh", q_self, k_self)
-            m2 = torch.maximum(m, s_self)
-            alpha = torch.exp(m - m2)
-            w_self = torch.exp(s_self - m2)
-            l2 = l * alpha + w_self
-            out = (acc * alpha[..., None] + v_self * w_self[..., None]) / l2[..., None]
-            attn = out[:, None].to(x.dtype).reshape(batch, seg_len, d_model)
+                k, v = _cat(ks), _cat(vs)
         else:
             # gather lane: scores in the model dtype masked with its
             # finfo.min, softmax in float32, weights cast back; int8
             # pages dequantised right after the fetch, one scale per page
-            gk = pk[block_tables]  # (B, P, ps, h, hd)
-            gv = pv[block_tables]
-            if kv_scales is not None:
-                sk, sv = kv_scales
-                bshape = (batch, gk.shape[1], 1, 1, 1)
-                gk = (gk.float() * sk[block_tables].reshape(bshape)).to(q.dtype)
-                gv = (gv.float() * sv[block_tables].reshape(bshape)).to(q.dtype)
-            cache_len = gk.shape[1] * gk.shape[2]
-            gk = gk.reshape(batch, cache_len, heads, head_dim)
-            gv = gv.reshape(batch, cache_len, heads, head_dim)
-            qs = q * scale
-            sc = torch.einsum("bqhd,bkhd->bhqk", qs, gk)
-            ss = torch.einsum("bqhd,bkhd->bhqk", qs, k)
-            neg = torch.finfo(sc.dtype).min
-            cache_mask = torch.arange(cache_len, device=x.device)[None, :] < lengths[:, None]
-            sc = torch.where(cache_mask[:, None, None, :], sc, neg)
-            pos = torch.arange(seg_len, device=x.device)
-            ss = torch.where((pos[None, :] <= pos[:, None])[None, None], ss, neg)
-            weights = torch.softmax(torch.cat([sc, ss], dim=-1).float(), dim=-1).to(q.dtype)
-            wc, ws = weights[..., :cache_len], weights[..., cache_len:]
-            attn = (torch.einsum("bhqk,bkhd->bqhd", wc, gv) + torch.einsum("bhqk,bkhd->bqhd", ws, v))
-            attn = attn.reshape(batch, seg_len, d_model)
+            outs = []
+            for tb, sl in buckets:
+                nb = tb.shape[0]
+                gk = pk[tb]  # (nb, P, ps, h, hd)
+                gv = pv[tb]
+                if kv_scales is not None:
+                    sk, sv = kv_scales
+                    bshape = (nb, gk.shape[1], 1, 1, 1)
+                    gk = (gk.float() * sk[tb].reshape(bshape)).to(q.dtype)
+                    gv = (gv.float() * sv[tb].reshape(bshape)).to(q.dtype)
+                cache_len = gk.shape[1] * gk.shape[2]
+                gk = gk.reshape(nb, cache_len, heads, head_dim)
+                gv = gv.reshape(nb, cache_len, heads, head_dim)
+                qs = q[sl] * scale
+                sc = torch.einsum("bqhd,bkhd->bhqk", qs, gk)
+                ss = torch.einsum("bqhd,bkhd->bhqk", qs, k[sl])
+                neg = torch.finfo(sc.dtype).min
+                cache_mask = torch.arange(cache_len, device=x.device)[None, :] < lengths[sl][:, None]
+                sc = torch.where(cache_mask[:, None, None, :], sc, neg)
+                pos = torch.arange(seg_len, device=x.device)
+                ss = torch.where((pos[None, :] <= pos[:, None])[None, None], ss, neg)
+                weights = torch.softmax(torch.cat([sc, ss], dim=-1).float(), dim=-1).to(q.dtype)
+                wc, ws = weights[..., :cache_len], weights[..., cache_len:]
+                outs.append(torch.einsum("bhqk,bkhd->bqhd", wc, gv) + torch.einsum("bhqk,bkhd->bqhd", ws, v[sl]))
+            attn = _cat(outs).reshape(batch, seg_len, d_model)
+        return self.mlp_tail(x, attn, lora, adapter_idx), k, v
+
+    def forward_ring(self, x, ctx_k, ctx_v, ring_k, ring_v, step: int, len0, lora=None, adapter_idx=None):
+        """One decode step of the ring chunk: attention over the context
+        gathered at the chunk's start (``ctx_k`` / ``ctx_v`` (B, C, h,
+        hd), or per-bucket tuples of (Bb, Cb, h, hd) with the lanes
+        bucket-sorted), the chunk's own K/V in the ring (``ring_k`` /
+        ``ring_v`` (B, S, h, hd), columns below ``step`` written) and the
+        current token: three score products a bucket, context columns at
+        or past ``len0`` (B,) and ring columns at or past ``step``
+        masked, one float32 softmax over the three, the weights cast
+        back and the three weighted sums added (JAX ``paged.py:432-512``).
+        Dense products only, no kernel; returns ``(x, k, v)`` as
+        :meth:`forward` does."""
+        if not isinstance(ctx_k, (tuple, list)):
+            ctx_k, ctx_v = (ctx_k,), (ctx_v,)
+        batch, seg_len, d_model = x.shape
+        q, k, v = self.split_heads(self.project("qkv", self.ln0(x), lora, adapter_idx))
+        scale = _head_scale(d_model // self.num_heads, q.dtype)
+        S = ring_k.shape[1]
+        neg = torch.finfo(q.dtype).min
+        ring_mask = (torch.arange(S, device=x.device) < step)[None, None, None, :]
+        outs, off = [], 0
+        for ck, cv in zip(ctx_k, ctx_v):
+            nb, C = ck.shape[0], ck.shape[1]
+            sl = slice(off, off + nb)
+            off += nb
+            qb = q[sl] * scale
+            sc = torch.einsum("bqhd,bkhd->bhqk", qb, ck)
+            sr = torch.einsum("bqhd,bkhd->bhqk", qb, ring_k[sl])
+            ss = torch.einsum("bqhd,bkhd->bhqk", qb, k[sl])
+            ctx_mask = torch.arange(C, device=x.device)[None, :] < len0[sl][:, None]
+            sc = torch.where(ctx_mask[:, None, None, :], sc, neg)
+            sr = torch.where(ring_mask, sr, neg)
+            weights = torch.softmax(torch.cat([sc, sr, ss], dim=-1).float(), dim=-1).to(q.dtype)
+            wc, wr, ws = weights[..., :C], weights[..., C:C + S], weights[..., C + S:]
+            outs.append(torch.einsum("bhqk,bkhd->bqhd", wc, cv) + torch.einsum("bhqk,bkhd->bqhd", wr, ring_v[sl])
+                        + torch.einsum("bhqk,bkhd->bqhd", ws, v[sl]))
+        attn = _cat(outs).reshape(batch, seg_len, d_model)
         return self.mlp_tail(x, attn, lora, adapter_idx), k, v
 
 
@@ -375,6 +493,27 @@ class PagedTransformerLM(TransformerLM):
             new_v.append(v)
         if select is not None:
             x = x[torch.arange(x.shape[0], device=x.device), select.long()][:, None]
+        return self.logits(x), torch.stack(new_k), torch.stack(new_v)
+
+    def forward_ring(self, tokens, positions, ctx_k, ctx_v, ring_k, ring_v, step: int, len0, *, lora=None,
+                     adapter_idx=None):
+        """The ring chunk's decode step on these weights (the JAX
+        package's ``ChunkTransformerLM``, one parameter tree with this
+        module): ``ctx_k`` / ``ctx_v`` (layers, B, C, h, hd), or tuples of
+        per-bucket (layers, Bb, Cb, h, hd); ``ring_k`` / ``ring_v``
+        (layers, B, S, h, hd).  -> ``(logits, new_k, new_v)`` as
+        :meth:`forward`."""
+        x = self.embed(torch.remainder(tokens.long(), self.vocab_size), positions)
+        bucketed = isinstance(ctx_k, (tuple, list))
+        new_k, new_v = [], []
+        for i, block in enumerate(self.blocks):
+            ck = tuple(c[i] for c in ctx_k) if bucketed else ctx_k[i]
+            cv = tuple(c[i] for c in ctx_v) if bucketed else ctx_v[i]
+            lora_i = {t: (ab[0][i], ab[1][i]) for t, ab in lora.items()} if lora is not None else None
+            x, k, v = block.forward_ring(x, ck, cv, ring_k[i], ring_v[i], step, len0, lora=lora_i,
+                                         adapter_idx=adapter_idx)
+            new_k.append(k)
+            new_v.append(v)
         return self.logits(x), torch.stack(new_k), torch.stack(new_v)
 
 
@@ -509,7 +648,8 @@ class _Stream:
     __slots__ = ("req_id", "prompt", "max_new", "temperature", "top_k", "eos_id", "seed", "tokens",
                  "event", "result", "error", "slot", "pages", "cancelled", "generator", "adapter",
                  "adapter_slot", "adapter_pinned", "cached_len", "prefilled", "priority", "deadline",
-                 "preempted", "t_submit", "t_prefill_start", "t_first_token", "t_finish")
+                 "preempted", "t_submit", "t_prefill_start", "t_first_token", "t_finish", "token_queue",
+                 "streamed")
 
     def __init__(self, req_id, prompt, max_new, temperature, top_k, eos_id, seed, adapter_slot=0):
         self.req_id = req_id
@@ -552,6 +692,28 @@ class _Stream:
         self.t_prefill_start = 0.0
         self.t_first_token = 0.0
         self.t_finish = 0.0
+        # token streaming: each chunk's new tokens go on the queue as they
+        # land, None ends it; `streamed` counts the tokens pushed, and an
+        # eviction resets the tokens but not it, so the re-derived run
+        # pushes from where the consumer left off
+        self.token_queue: Optional[queue.Queue] = None
+        self.streamed = 0
+
+
+@dataclass(slots=True)
+class _ChunkState:
+    """One decode chunk's device carries, lanes in the chunk's order."""
+
+    tables: torch.Tensor  # (B, pages) full-width block tables: every write goes through them
+    split: Tuple[torch.Tensor, ...]  # one table per length bucket, each at its own width
+    lengths: torch.Tensor  # (B,) tokens in the cache
+    done: torch.Tensor  # (B,) bool
+    emitted: torch.Tensor  # (B,) tokens this chunk emitted
+    max_new: torch.Tensor  # (B,) budgets left
+    eos: torch.Tensor  # (B,) eos ids
+    model_kw: Dict[str, Any]  # the model's keyword inputs (adapter ids)
+    logits: torch.Tensor  # (B, vocab) float32: the next step samples from them
+    samplers: list  # (lane, generator, temperature, top_k) of every sampled lane
 
 
 def _resolve_dtype(dtype) -> torch.dtype:
@@ -614,7 +776,10 @@ class PagedEngine:
     prefill under a token budget (``chunk_token_budget`` /
     ``SELDON_TPU_CHUNK_TOKEN_BUDGET``).  ``quantize="int8"`` rests the
     kernels int8 and dequantises them once per device call;
-    ``precision="w8a8"`` runs every projection int8 x int8.
+    ``precision="w8a8"`` runs every projection int8 x int8.  A chunk runs
+    on the pool chunk or the ring chunk (``SELDON_TPU_CHUNK_IMPL``), its
+    lanes split into length buckets (``SELDON_TPU_CTX_BUCKETS``);
+    ``submit(stream_tokens=True)`` streams a request's tokens.
 
     ``max_adapters`` (``SELDON_TPU_MAX_ADAPTERS`` when 0) slots of rank
     ``lora_rank`` serve LoRA adapters, resolved by name through
@@ -677,10 +842,18 @@ class PagedEngine:
         self.module = self.module.to(self.device).eval().requires_grad_(False)
         self._init_precision(params)
         head_dim = d_model // num_heads
+        self.num_layers, self.num_heads, self.head_dim = int(num_layers), int(num_heads), head_dim
         pool_shape = (num_layers, self.num_pages, self.page_size, num_heads, head_dim)
+        # the decode chunk: the pool chunk (per-step attention over the
+        # pool, where the kernel lane lives) or the ring chunk
+        mode = paged_kernel_mode()
+        eligible = paged_kernel_static_eligible(mode, True, self.dtype, self.device)
+        self._chunk_impl = resolve_chunk_impl(mode, eligible)
+        # the length-bucketed split of each chunk's lanes (1 or 2 buckets)
+        self._ctx_buckets = paged_ctx_buckets()
         # int8 pool: pages rest int8 with one float32 scale per page per
         # K/V in the sibling (layers, num_pages) tables
-        self._kv_int8 = paged_kv_int8(True, _knobs.raw("SELDON_TPU_CHUNK_IMPL", "") or "pool")
+        self._kv_int8 = paged_kv_int8(True, self._chunk_impl)
         pool_dtype = torch.int8 if self._kv_int8 else self.dtype
         self.pages_k = torch.zeros(pool_shape, dtype=pool_dtype, device=self.device)
         self.pages_v = torch.zeros(pool_shape, dtype=pool_dtype, device=self.device)
@@ -689,12 +862,9 @@ class PagedEngine:
             self.scales_v = torch.zeros((num_layers, self.num_pages), dtype=torch.float32, device=self.device)
         else:
             self.scales_k = self.scales_v = None
-        # which decode lane this engine runs (the `kernel_active` gauge)
-        mode = paged_kernel_mode()
-        self._kernel_active = paged_kernel_static_eligible(mode, True, self.dtype, self.device)
-        if paged_kernel_explicit(mode) and not self._kernel_active:
-            logger.warning("SELDON_TPU_PAGED_KERNEL=%s requested but the kernel lane cannot run here (it needs "
-                           "a CUDA device unless 'force', and bf16/f32 pages): keeping the gather lane", mode)
+        # which decode lane this engine runs (the `kernel_active` gauge):
+        # the kernel fires only in the pool chunk's per-step attention
+        self._kernel_active = self._chunk_impl == "pool" and eligible
         if self._kernel_active:
             kernels.paged_kernel_impl(num_heads, head_dim)  # a bad IMPL knob fails here, not mid-chunk
         # last logits of every slot: the next chunk samples from them
@@ -748,7 +918,11 @@ class PagedEngine:
                           "prefix_hits": 0, "prefix_misses": 0, "prefix_evictions": 0, "prefix_tokens_saved": 0,
                           "shed": 0, "expired": 0, "preempted": 0, "restored": 0,
                           "prefill_tokens": 0, "prefill_chunks": 0, "weight_materializations": 0,
-                          "adapter_loads": 0, "adapter_hits": 0, "adapter_misses": 0, "adapter_evictions": 0}
+                          "adapter_loads": 0, "adapter_hits": 0, "adapter_misses": 0, "adapter_evictions": 0,
+                          # chunks split into two length buckets, and their
+                          # decode steps (a kernel call per bucket per
+                          # layer-step: layers x (steps + bucketed_steps))
+                          "bucketed_chunks": 0, "bucketed_steps": 0}
         # decode chunks by their step count (the ladder's trace)
         self._chunk_steps: Dict[int, int] = {}
 
@@ -847,9 +1021,12 @@ class PagedEngine:
 
     def submit(self, prompt, max_new_tokens: int = 32, temperature: float = 0.0, top_k: int = 0,
                eos_id: int = -1, seed: int = 0, adapter: Optional[str] = None, priority: int = 0,
-               deadline: Optional[float] = None) -> _Stream:
+               deadline: Optional[float] = None, stream_tokens: bool = False) -> _Stream:
         """Queue one prompt (1-D int array).  Returns a stream handle whose
         ``event`` fires when ``result`` (``(max_new,)`` ids) is ready.
+        ``stream_tokens`` gives it a ``token_queue``: each decode chunk's
+        new tokens (cut at eos and at ``max_new``, as ``result`` is) go on
+        it as lists as they land, and None ends it on every way out.
 
         ``priority`` (higher wins) orders admission, shedding and
         preemption; ``deadline`` is an absolute ``time.monotonic()``
@@ -903,6 +1080,8 @@ class PagedEngine:
                 stream.priority = int(priority)
                 stream.deadline = float(deadline) if deadline is not None else None
                 stream.t_submit = time.time()
+                if stream_tokens:
+                    stream.token_queue = queue.Queue()
                 if adapter_slot:
                     # the submit's temporary pin becomes the stream's
                     self._drop_temp_pin_locked(adapter_slot)
@@ -1317,6 +1496,7 @@ class PagedEngine:
         stream.slot = None
         stream.t_finish = time.time()
         self._release_adapter_locked(stream)
+        self._end_stream_locked(stream)
         stream.event.set()
 
     def _shed_expired_queued_locked(self) -> int:
@@ -1629,38 +1809,155 @@ class PagedEngine:
             token[slot] = torch.argmax(scaled + gumbel)
         return token
 
-    def _chunk(self, steps: int, tables: np.ndarray, lengths: np.ndarray, done: np.ndarray,
-               max_new: np.ndarray, eos_ids: np.ndarray, samplers, adapter_ids: np.ndarray) -> np.ndarray:
+    def _plan_buckets(self, runnable: List[_Stream], steps: int,
+                      pages_h: int) -> Tuple[Tuple[Tuple[int, int], ...], np.ndarray]:
+        """The next chunk's length buckets, ``((lanes, pages), ...)``
+        summing to ``max_slots`` lanes, and the slot permutation that
+        sorts the lanes into them (the JAX engine's ``_plan_buckets``).
+
+        Two halves of ``max_slots // 2`` lanes: the shorter half of the
+        runnable lanes anchors bucket 0, the longer half bucket 1, and
+        idle or stalled lanes (whose compute is discarded) fill what is
+        left of each.  A bucket's width is the power-of-two page count of
+        its longest runnable lane: the pages at the chunk's start for the
+        ring chunk, plus this chunk's growth for the pool chunk (its
+        in-chunk tokens are read back from the pool).  One bucket of
+        ``pages_h`` whenever the two widths agree, fewer than 2 lanes run
+        or ``SELDON_TPU_CTX_BUCKETS=1``."""
+        B = self.max_slots
+        ident = np.arange(B, dtype=np.int32)
+        grow = steps if self._chunk_impl == "pool" else 0
+
+        def h_of(ctx_tokens: int) -> int:
+            return min(self._pages_pow2(max(1, -(-(ctx_tokens + grow) // self.page_size))), pages_h)
+
+        if not runnable:
+            return ((B, 1),), ident
+        h_all = h_of(max(int(self._lengths[s.slot]) for s in runnable))
+        if self._ctx_buckets < 2 or B < 2 or len(runnable) < 2:
+            return ((B, h_all),), ident
+        B0 = B // 2
+        run_lanes = sorted((int(self._lengths[s.slot]), s.slot) for s in runnable)
+        k0 = min(len(run_lanes) // 2, B0)
+        h0 = h_of(run_lanes[k0 - 1][0]) if k0 else 1
+        h1 = h_of(run_lanes[-1][0])
+        if h0 == h1:
+            return ((B, h_all),), ident
+        live = {g for _, g in run_lanes}
+        idle = [g for g in range(B) if g not in live]
+        fill0 = B0 - k0
+        order = np.asarray([g for _, g in run_lanes[:k0]] + idle[:fill0]
+                           + [g for _, g in run_lanes[k0:]] + idle[fill0:], np.int32)
+        return ((B0, h0), (B - B0, h1)), order
+
+    def _chunk(self, steps: int, buckets, perm: np.ndarray, tables: np.ndarray, lengths: np.ndarray,
+               done: np.ndarray, max_new: np.ndarray, eos_ids: np.ndarray, samplers,
+               adapter_ids: np.ndarray) -> np.ndarray:
         """``steps`` decode steps of every slot as device work; one
         device-to-host copy at the end returns ``(B, steps + 2)``: the
-        tokens, then each slot's emitted count and new length."""
+        tokens, then each slot's emitted count and new length.
+
+        With two buckets every per-slot input is permuted bucket-sorted
+        here and every output back, so the engine's state stays
+        slot-major.  The pool chunk or the ring chunk runs the steps, as
+        the engine's ``chunk_impl`` says."""
+        multi = len(buckets) > 1
+        if multi:
+            inv = np.argsort(perm)
+            tables, lengths, done, max_new, eos_ids, adapter_ids = (
+                a[perm] for a in (tables, lengths, done, max_new, eos_ids, adapter_ids))
+            samplers = [(int(inv[slot]), g, temp, k) for slot, g, temp, k in samplers]
         dev = self.device
+        perm_t = torch.from_numpy(perm.astype(np.int64)).to(dev) if multi else None
         tables_t = torch.from_numpy(tables).to(dev)
+        # per-bucket tables, each contiguous at its own width (the pool
+        # chunk's one bucket is the whole table, no copy)
+        split, off = [], 0
+        for nb, hb in buckets:
+            split.append(tables_t[off:off + nb, :hb].contiguous())
+            off += nb
         lengths_t = torch.from_numpy(lengths).to(dev)
-        done_t = torch.from_numpy(done).to(dev)
-        max_new_t = torch.from_numpy(max_new).to(dev)
-        eos_t = torch.from_numpy(eos_ids.astype(np.int64)).to(dev)
-        emitted = torch.zeros_like(lengths_t)
-        model_kw = self._model_kwargs(adapter_ids)
-        logits = self._logits
+        st = _ChunkState(
+            tables=tables_t, split=tuple(split), lengths=lengths_t, done=torch.from_numpy(done).to(dev),
+            emitted=torch.zeros_like(lengths_t), max_new=torch.from_numpy(max_new).to(dev),
+            eos=torch.from_numpy(eos_ids.astype(np.int64)).to(dev), model_kw=self._model_kwargs(adapter_ids),
+            logits=self._logits[perm_t] if multi else self._logits, samplers=samplers)
+        toks = (self._chunk_pool if self._chunk_impl == "pool" else self._chunk_ring)(steps, st)
+        self._logits = st.logits[torch.from_numpy(inv).to(dev)] if multi else st.logits
+        out = torch.cat([torch.stack(toks, dim=1), st.emitted[:, None].long(), st.lengths[:, None].long()], dim=1)
+        out = out.cpu().numpy()
+        return out[inv] if multi else out
+
+    def _decode_step(self, st: _ChunkState) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One step's sampling and bookkeeping, shared by both chunks:
+        each lane's token (eos for an inactive lane), and the lanes that
+        were active for it.  Every sampler draws its generator once a
+        step on either chunk."""
+        token = self._sample_batch(st.logits, st.samplers)
+        active = ~st.done
+        token = torch.where(active, token, st.eos)
+        st.emitted = st.emitted + active.int()
+        st.done = st.done | (token == st.eos) | (st.emitted >= st.max_new)
+        return token, active
+
+    def _chunk_pool(self, steps: int, st: _ChunkState) -> List[torch.Tensor]:
+        """The pool chunk (JAX ``_chunk_fn_pool``): every step attends
+        over the pool, one kernel call per bucket per layer on the kernel
+        lane, and writes its token's K/V back through the full tables."""
+        attn_tables = st.split if len(st.split) > 1 else st.tables
         toks = []
         for _ in range(steps):
-            token = self._sample_batch(logits, samplers)
-            active = ~done_t
-            token = torch.where(active, token, eos_t)
-            emitted = emitted + active.int()
-            done_t = done_t | (token == eos_t) | (emitted >= max_new_t)
-            positions = torch.clamp(lengths_t, max=self.max_len - 1)[:, None]
-            new_logits, nk, nv = self.module(token[:, None], positions, self.pages_k, self.pages_v, tables_t,
-                                             lengths_t, use_kernel=self._kernel_active, **model_kw)
-            write_kv(kv_join(self.pages_k, self.scales_k), kv_join(self.pages_v, self.scales_v), nk, nv, tables_t,
-                     lengths_t, active[:, None], page_size=self.page_size, max_len=self.max_len)
-            logits = torch.where(active[:, None], new_logits[:, 0], logits)
-            lengths_t = lengths_t + active.int()
+            token, active = self._decode_step(st)
+            positions = torch.clamp(st.lengths, max=self.max_len - 1)[:, None]
+            new_logits, nk, nv = self.module(token[:, None], positions, self.pages_k, self.pages_v, attn_tables,
+                                             st.lengths, use_kernel=self._kernel_active, **st.model_kw)
+            write_kv(kv_join(self.pages_k, self.scales_k), kv_join(self.pages_v, self.scales_v), nk, nv, st.tables,
+                     st.lengths, active[:, None], page_size=self.page_size, max_len=self.max_len)
+            st.logits = torch.where(active[:, None], new_logits[:, 0], st.logits)
+            st.lengths = st.lengths + active.int()
             toks.append(token)
-        self._logits = logits
-        out = torch.cat([torch.stack(toks, dim=1), emitted[:, None].long(), lengths_t[:, None].long()], dim=1)
-        return out.cpu().numpy()
+        return toks
+
+    def _chunk_ring(self, steps: int, st: _ChunkState) -> List[torch.Tensor]:
+        """The ring chunk (JAX ``_chunk_fn``): each bucket's context is
+        gathered from the pool once, through its table's first columns;
+        the chunk's own K/V accumulate in a ``(layers, B, steps, h, hd)``
+        ring, column ``t`` at step ``t``; each step attends with dense
+        products only.  At the end each lane's accepted columns
+        ``0..emitted-1`` are written to its positions ``len0..`` in one
+        write: the columns an inactive lane wrote never reach the pool,
+        and a lane that emitted nothing writes nothing (its pages are
+        never a shared prefix page: a lane writes at or past its prompt's
+        length, and the last prompt page is always private)."""
+        L, B, ps = self.num_layers, self.max_slots, self.page_size
+        h, hd = self.num_heads, self.head_dim
+        ctx_k, ctx_v = [], []
+        for tb in st.split:
+            nb, cb = tb.shape[0], tb.shape[1] * ps
+            ctx_k.append(self.pages_k[:, tb].reshape(L, nb, cb, h, hd))
+            ctx_v.append(self.pages_v[:, tb].reshape(L, nb, cb, h, hd))
+        if len(ctx_k) == 1:
+            ctx_k, ctx_v = ctx_k[0], ctx_v[0]
+        else:
+            ctx_k, ctx_v = tuple(ctx_k), tuple(ctx_v)
+        ring_k = torch.zeros((L, B, steps, h, hd), dtype=self.pages_k.dtype, device=self.device)
+        ring_v = torch.zeros_like(ring_k)
+        len0 = st.lengths
+        toks = []
+        for t in range(steps):
+            token, active = self._decode_step(st)
+            positions = torch.clamp(st.lengths, max=self.max_len - 1)[:, None]
+            new_logits, nk, nv = self.module.forward_ring(token[:, None], positions, ctx_k, ctx_v, ring_k, ring_v,
+                                                          t, len0, **st.model_kw)
+            ring_k[:, :, t] = nk[:, :, 0]
+            ring_v[:, :, t] = nv[:, :, 0]
+            st.logits = torch.where(active[:, None], new_logits[:, 0], st.logits)
+            st.lengths = st.lengths + active.int()
+            toks.append(token)
+        accepted = torch.arange(steps, device=self.device)[None, :] < st.emitted[:, None]
+        write_kv(self.pages_k, self.pages_v, ring_k, ring_v, st.tables, len0, accepted, page_size=ps,
+                 max_len=self.max_len)
+        return toks
 
     def step(self) -> bool:
         """Admit + prefill joiners, run one decode chunk, retire finished.
@@ -1749,6 +2046,9 @@ class PagedEngine:
                 if stream.temperature > 0:
                     samplers.append((s, stream.generator, stream.temperature, stream.top_k))
             pages_h = self._pages_horizon(runnable, steps)
+            # the lanes' length buckets: the pool chunk's per-step table
+            # widths, or the ring chunk's gathered context widths
+            buckets, perm = self._plan_buckets(runnable, steps, pages_h)
             tables = np.ascontiguousarray(self._block_tables[:, :pages_h])
             lengths = self._lengths.copy()
             adapter_ids = self._adapter_slots.copy()
@@ -1760,12 +2060,15 @@ class PagedEngine:
             with self._lock:
                 return self._wave_end_locked()
         with torch.inference_mode(), self._materialized():
-            out = self._chunk(steps, tables, lengths, done, max_new, eos_ids, samplers, adapter_ids)
+            out = self._chunk(steps, buckets, perm, tables, lengths, done, max_new, eos_ids, samplers, adapter_ids)
         toks, emitted, lengths_out = out[:, :steps], out[:, steps], out[:, steps + 1]
         t_now = time.time()
         with self._lock:
             self._counters["chunks"] += 1
             self._chunk_steps[steps] = self._chunk_steps.get(steps, 0) + 1
+            if len(buckets) > 1:
+                self._counters["bucketed_chunks"] += 1
+                self._counters["bucketed_steps"] += steps
             for stream in runnable:
                 s = stream.slot
                 if s is None or self._slots[s] is not stream:
@@ -1779,6 +2082,8 @@ class PagedEngine:
                 stream.tokens.extend(got)
                 if stream.eos_id in got or len(stream.tokens) >= stream.max_new:
                     self._finish_locked(stream)
+                else:
+                    self._stream_push(stream)
             return self._wave_end_locked()
 
     def _wave_end_locked(self) -> bool:
@@ -1790,18 +2095,42 @@ class PagedEngine:
 
     # ---- retirement ----------------------------------------------------------
 
-    def _finish_locked(self, stream: _Stream) -> None:
-        """Deliver ``(max_new,)`` ids, cut after the first eos and padded
-        with eos, and free the slot and its pages."""
+    @staticmethod
+    def _delivered(stream: _Stream) -> List[int]:
+        """The stream's tokens as it delivers them: clamped to its budget
+        and cut after the first eos."""
         toks = stream.tokens[: stream.max_new]
         if stream.eos_id in toks:
             toks = toks[: toks.index(stream.eos_id) + 1]
-        toks = toks + [stream.eos_id] * (stream.max_new - len(toks))
-        stream.result = np.asarray(toks, np.int32)
+        return toks
+
+    def _stream_push(self, stream: _Stream) -> None:
+        """Push the delivered tokens the consumer has not seen yet."""
+        if stream.token_queue is None:
+            return
+        new = self._delivered(stream)[stream.streamed:]
+        if new:
+            stream.streamed += len(new)
+            stream.token_queue.put([int(t) for t in new])
+
+    @staticmethod
+    def _end_stream_locked(stream: _Stream) -> None:
+        """The end marker of a streamed request, on every way out."""
+        if stream.token_queue is not None:
+            stream.token_queue.put(None)
+
+    def _finish_locked(self, stream: _Stream) -> None:
+        """Deliver ``(max_new,)`` ids, cut after the first eos and padded
+        with eos, push a stream's last tokens and its end, and free the
+        slot and its pages."""
+        toks = self._delivered(stream)
+        stream.result = np.asarray(toks + [stream.eos_id] * (stream.max_new - len(toks)), np.int32)
         stream.t_finish = time.time()
         self._release_slot_locked(stream)
         self._release_adapter_locked(stream)
         self._counters["completed"] += 1
+        self._stream_push(stream)
+        self._end_stream_locked(stream)
         stream.event.set()
 
     def _evict_locked(self, stream: _Stream) -> None:
@@ -1852,6 +2181,7 @@ class PagedEngine:
                 toks = stream.tokens[: stream.max_new]
                 stream.result = np.asarray(toks + [stream.eos_id] * (stream.max_new - len(toks)), np.int32)
                 self._release_adapter_locked(stream)
+                self._end_stream_locked(stream)
                 stream.event.set()
                 return
             stream.cancelled = True
@@ -1864,6 +2194,8 @@ class PagedEngine:
         with self._lock:
             return {
                 "kernel_active": int(self._kernel_active),
+                "chunk_impl": self._chunk_impl,
+                "ctx_buckets": self._ctx_buckets,
                 **self._counters,
                 "active": sum(s is not None for s in self._slots),
                 "queued": len(self._queue),
@@ -1905,6 +2237,7 @@ class PagedEngine:
                     stream.pages = []
                 stream.error = exc
                 self._release_adapter_locked(stream)
+                self._end_stream_locked(stream)
                 stream.event.set()
 
     def run(self) -> None:
@@ -2195,7 +2528,45 @@ class StreamingLM(TPUComponent):
             raise
 
     def predict_stream(self, X, names=None, meta=None):
-        raise _refuse("predict_stream")
+        """Token streaming for ONE prompt: a generator of int32 arrays of
+        newly decoded tokens as the engine's chunks land (JAX
+        ``paged.py:7355-7415``).  The tag overrides, the seed rule, the
+        SLO terms and the adapter are ``predict``'s, so a streamed request
+        samples the tokens the unary ``predict`` of the same request
+        does, and the chunks joined are its row cut at eos.  An eviction
+        re-derives the stream's tokens and pushes on from the last one
+        sent.  The stream's error is raised after its end marker; closing
+        the generator (a consumer gone) cancels the stream, which frees
+        its slot and pages.  Requests are not captured for replay: the
+        capture store comes with ``ROADMAP.md`` §A item 8.11."""
+        if self.engine is None:
+            self.load()
+        meta = meta or {}
+        tags = meta.get("tags", {})
+        max_new = int(tags.get("max_new_tokens", self.max_new_tokens))
+        temperature = float(tags.get("temperature", self.temperature))
+        top_k = int(tags.get("top_k", self.top_k))
+        request_seed = self._request_seed(tags, meta)
+        X = np.atleast_2d(np.asarray(X, np.int32))
+        if X.shape[0] != 1:
+            raise MicroserviceError("token streaming serves one prompt per stream; send rows separately "
+                                    "(predict() batches them)", status_code=400, reason="BAD_REQUEST")
+        priority, deadline = self._slo_terms(tags)
+        stream = self.engine.submit(X[0], max_new_tokens=max_new, temperature=temperature, top_k=top_k,
+                                    eos_id=self.eos_id, seed=self.seed ^ (request_seed * 1000003),
+                                    stream_tokens=True, priority=priority, deadline=deadline,
+                                    adapter=self._request_adapter(tags))
+        self._wake.set()
+        try:
+            while True:
+                got = stream.token_queue.get()
+                if got is None:
+                    break
+                yield np.asarray(got, np.int32)
+            if stream.error:
+                raise stream.error
+        finally:
+            self.engine.cancel(stream)
 
     def drain(self, *args, **kwargs):
         raise _refuse("drain")
@@ -2223,6 +2594,7 @@ class StreamingLM(TPUComponent):
             gauge_metric("paged_kernel_active", s["kernel_active"]),
             gauge_metric("paged_kv_dtype_int8", s["kv_dtype_int8"]),
             gauge_metric("paged_adapters_resident", s["adapters_resident"]),
+            gauge_metric("paged_bucketed_chunks", s["bucketed_chunks"]),
         ]
         for key in ("shed", "expired", "preempted", "restored", "adapter_loads", "adapter_hits", "adapter_misses",
                     "adapter_evictions"):
@@ -2250,6 +2622,7 @@ class StreamingLM(TPUComponent):
             "max_queue": engine.max_queue if engine is not None else cfg["max_queue"],
             "weight_bytes": engine.weight_bytes() if engine is not None else None,
             "kernel_active": bool(engine is not None and engine._kernel_active),
+            "chunk_impl": engine._chunk_impl if engine is not None else None,
             "kv_dtype": ("int8" if engine._kv_int8 else self.dtype_name) if engine is not None else None,
             "kernel_launches": kernels.launch_counts(),
             "engine": engine.engine_stats() if engine is not None else {},

@@ -17,8 +17,12 @@ Callback surfaces:
   the HTTP fallback lane, typically :class:`GatewayRawHandler`.
 * ``grpc_handler(path, message) -> (grpc_status, grpc_message, reply)``:
   the unary gRPC fallback lane (``SendFeedback``, ``Predict`` with
-  payloads the fast lane does not take, ``PredictRaw``, and
-  ``GenerateStream``, which the port answers UNIMPLEMENTED).
+  payloads the fast lane does not take, ``PredictRaw``).
+* ``grpc_stream_handler(path, message, handle) -> int``: the
+  server-streaming lane (``Seldon/GenerateStream``).  It accepts the
+  stream and returns at once; a producer thread then sends each message
+  with :meth:`NativeFrontServer.stream_push` and ends the stream with
+  :meth:`NativeFrontServer.stream_close`, which it must always call.
 """
 
 from __future__ import annotations
@@ -72,6 +76,15 @@ _GRPC_CB = ctypes.CFUNCTYPE(
     ctypes.POINTER(ctypes.c_char),            # grpc_msg[256] (writable)
 )
 
+_GRPC_STREAM_CB = ctypes.CFUNCTYPE(
+    ctypes.c_int32,
+    ctypes.c_void_p,                          # ctx
+    ctypes.c_char_p,                          # path
+    ctypes.POINTER(ctypes.c_uint8),           # msg
+    ctypes.c_int64,                           # msg_len
+    ctypes.c_uint64,                          # stream handle
+)
+
 
 class _FsConfig(ctypes.Structure):
     _fields_ = [
@@ -114,6 +127,10 @@ def _bind(lib) -> None:
     lib.fs_set_batch_handler.argtypes = [ctypes.c_void_p, _BATCH_CB, ctypes.c_void_p]
     lib.fs_set_raw_handler.argtypes = [ctypes.c_void_p, _RAW_CB, ctypes.c_void_p]
     lib.fs_set_grpc_handler.argtypes = [ctypes.c_void_p, _GRPC_CB, ctypes.c_void_p]
+    lib.fs_set_grpc_stream_handler.argtypes = [ctypes.c_void_p, _GRPC_STREAM_CB, ctypes.c_void_p]
+    lib.fs_stream_push.restype = ctypes.c_int64
+    lib.fs_stream_push.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
+    lib.fs_stream_close.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int32, ctypes.c_char_p]
     lib.fs_start.restype = ctypes.c_int32
     lib.fs_start.argtypes = [ctypes.c_void_p]
     lib.fs_stop.argtypes = [ctypes.c_void_p]
@@ -133,6 +150,8 @@ def available() -> bool:
 RawHandler = Callable[[str, str, bytes], Tuple[int, str, bytes]]
 # (path, request message bytes) -> (grpc_status, grpc_message, reply bytes)
 GrpcHandler = Callable[[str, bytes], Tuple[int, str, bytes]]
+# (path, request message bytes, stream handle) -> 0 once accepted
+GrpcStreamHandler = Callable[[str, bytes, int], int]
 
 
 class NativeFrontServer:
@@ -154,6 +173,7 @@ class NativeFrontServer:
         names: Optional[Sequence[str]] = None,
         raw_handler: Optional[RawHandler] = None,
         grpc_handler: Optional[GrpcHandler] = None,
+        grpc_stream_handler: Optional[GrpcStreamHandler] = None,
         raw_workers: int = 2,
         buckets: Optional[Sequence[int]] = None,
         host: str = "0.0.0.0",
@@ -170,6 +190,7 @@ class NativeFrontServer:
         self.model_fn = model_fn
         self.raw_handler = raw_handler
         self.grpc_handler = grpc_handler
+        self.grpc_stream_handler = grpc_stream_handler
         cfg = _FsConfig(
             port=port,
             max_batch=max_batch,
@@ -191,7 +212,7 @@ class NativeFrontServer:
         self._cfg = cfg  # keeps the char pointers alive
         self._handle = lib.fs_create(ctypes.byref(cfg))
         # the CFUNCTYPE objects must outlive the server: C++ holds their pointers
-        self._batch_cb = self._raw_cb = self._grpc_cb = None
+        self._batch_cb = self._raw_cb = self._grpc_cb = self._grpc_stream_cb = None
         if model_fn is not None:
             self._batch_cb = _BATCH_CB(self._on_batch)
             lib.fs_set_batch_handler(self._handle, self._batch_cb, None)
@@ -201,6 +222,9 @@ class NativeFrontServer:
         if grpc_handler is not None:
             self._grpc_cb = _GRPC_CB(self._on_grpc)
             lib.fs_set_grpc_handler(self._handle, self._grpc_cb, None)
+        if grpc_stream_handler is not None:
+            self._grpc_stream_cb = _GRPC_STREAM_CB(self._on_grpc_stream)
+            lib.fs_set_grpc_stream_handler(self._handle, self._grpc_stream_cb, None)
         self.port = 0
         # serialises stop() against set_ready() / stats(): the C++ object
         # must not be destroyed while another thread is inside a call
@@ -260,6 +284,34 @@ class NativeFrontServer:
         except Exception:  # noqa: BLE001 — a raised callback would abort the C++ worker
             logger.exception("native front server grpc callback failed")
             return 1
+
+    def _on_grpc_stream(self, _ctx, path, msg_ptr, msg_len, handle) -> int:
+        try:
+            body = ctypes.string_at(msg_ptr, msg_len) if msg_len else b""
+            return int(self.grpc_stream_handler(path.decode(), body, int(handle)))
+        except Exception:  # noqa: BLE001 — a raised callback would abort the C++ worker
+            logger.exception("native front server grpc stream callback failed")
+            return 1
+
+    # ------------------------------------------------------------ streams
+
+    def stream_push(self, handle: int, payload: bytes) -> int:
+        """Queue one gRPC message on an open server stream: 0, or -1 once
+        the stream is dead (the client went away): the producer stops."""
+        with self._handle_lock:
+            if not self._handle:
+                return -1
+            buf = (ctypes.c_uint8 * len(payload)).from_buffer_copy(payload)
+            return int(self._lib.fs_stream_push(self._handle, ctypes.c_uint64(handle), buf, len(payload)))
+
+    def stream_close(self, handle: int, grpc_status: int = 0, grpc_message: str = "") -> None:
+        """End a server stream with its grpc-status.  Always called, dead
+        stream or not: the close releases the C++ handle and the
+        connection's in-flight count."""
+        with self._handle_lock:
+            if self._handle:
+                self._lib.fs_stream_close(self._handle, ctypes.c_uint64(handle), ctypes.c_int32(grpc_status),
+                                          grpc_message.encode()[:255])
 
     # ------------------------------------------------------------ lifecycle
 

@@ -18,7 +18,15 @@ KNOBS: Dict[str, str] = {
         "'0' (the gather lane)"
     ),
     "SELDON_TPU_PAGED_KERNEL_IMPL": "paged decode kernel: 'stream' (K4, default) or 'grid' (K5)",
-    "SELDON_TPU_CHUNK_IMPL": "decode chunk: 'pool' (the only one ported; unset means pool), 'ring' raises",
+    "SELDON_TPU_CHUNK_IMPL": (
+        "decode chunk: unset = 'pool' where the kernel lane can run, else 'ring'; 'pool' (per-step attention "
+        "over the pool, the kernel lane's home) or 'ring' (the context gathered once a chunk plus an in-chunk "
+        "ring, dense products only); anything else raises"
+    ),
+    "SELDON_TPU_CTX_BUCKETS": (
+        "length buckets of a decode chunk: '2' (default: the shorter half of the running lanes attends at its "
+        "own table width) or '1' (one width for every lane)"
+    ),
     "SELDON_TPU_KV_DTYPE": (
         "KV pool dtype: 'bf16' (default: the engine dtype, natively) or 'int8' (int8 pages with one float32 "
         "scale per page for K and for V: half the pool bytes; the pool chunk only)"

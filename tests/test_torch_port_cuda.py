@@ -364,11 +364,11 @@ def test_int8_adapter_streaminglm_round_trip(monkeypatch):
     try:
         assert lm.engine._kv_int8 and lm.engine._kernel_active
         kernels.reset_launch_counts()
-        chunks0 = lm.engine.engine_stats()["chunks"]
+        calls0 = _decode_calls(lm.engine.engine_stats())
         served = [lm.predict(np.asarray([p]), [], meta={"tags": {"adapter": a} if a else {}})[0]
                   for p, a in zip(prompts, (None, "cuda-a1", "cuda-a2"))]
-        steps = (lm.engine.engine_stats()["chunks"] - chunks0) * engine["steps_per_call"]
-        assert kernels.launch_counts()["paged_decode_stream_int8_lora"] == cfg["num_layers"] * steps
+        calls = _decode_calls(lm.engine.engine_stats()) - calls0
+        assert calls > 0 and kernels.launch_counts()["paged_decode_stream_int8_lora"] == cfg["num_layers"] * calls
     finally:
         lm.unload()
     reg = WeightRegistry()
@@ -378,6 +378,12 @@ def test_int8_adapter_streaminglm_round_trip(monkeypatch):
                       max_adapters=2, lora_rank=4, weight_registry=reg, **cfg, **engine)
     for p, a, row in zip(prompts, (None, "cuda-a1", "cuda-a2"), served):
         np.testing.assert_array_equal(eng.generate(p, max_new_tokens=8, adapter=a), row)
+
+
+def _decode_calls(stats) -> int:
+    """Decode kernel calls a layer over an engine's life: one per step
+    per length bucket (a bucketed chunk splits its lanes in two)."""
+    return sum(int(k) * v for k, v in stats["chunk_steps"].items()) + stats["bucketed_steps"]
 
 
 @pytest.mark.parametrize("impl", ["stream", "grid"])
@@ -393,8 +399,9 @@ def test_paged_engine_launches_the_kernel_every_step_of_every_layer(impl, monkey
     rng = np.random.default_rng(0)
     streams = [eng.submit(rng.integers(0, 128, n), max_new_tokens=8) for n in (5, 17, 40)]
     eng.run()
-    steps = eng.engine_stats()["chunks"] * 4
-    assert kernels.launch_counts()[f"paged_decode_{impl}"] == cfg["num_layers"] * steps
+    calls = _decode_calls(eng.engine_stats())
+    assert calls > eng.engine_stats()["chunks"] * 4  # the three lanes split into two length buckets
+    assert kernels.launch_counts()[f"paged_decode_{impl}"] == cfg["num_layers"] * calls
     assert all(s.result.shape == (8,) and ((s.result >= 0) & (s.result < 128)).all() for s in streams)
 
 
@@ -417,16 +424,17 @@ def test_scheduler_lanes_launch_the_kernel_every_step_and_match_the_gather_lane(
             monkeypatch.delenv("SELDON_TPU_PAGED_KERNEL", raising=False)
         else:
             monkeypatch.setenv("SELDON_TPU_PAGED_KERNEL", lane)
+        monkeypatch.setenv("SELDON_TPU_CHUNK_IMPL", "pool")  # the gather lane, not the ring, with the kernel off
         eng = PagedEngine(params, dtype="float32", device="cuda", page_size=16, max_slots=4, steps_per_call=4,
                           **cfg, **kw)
         first = eng.generate(prompts[0], max_new_tokens=8)  # publishes the system prompt's pages
-        steps0 = sum(k * v for k, v in eng.engine_stats()["chunk_steps"].items())
+        calls0 = _decode_calls(eng.engine_stats())
         kernels.reset_launch_counts()
         rest = [eng.submit(p, max_new_tokens=8) for p in prompts[1:]]
         eng.run()
         torch.cuda.synchronize()
         stats = eng.engine_stats()
-        steps = sum(k * v for k, v in stats["chunk_steps"].items()) - steps0
+        steps = _decode_calls(stats) - calls0
         return ([first.tolist()] + [s.result.tolist() for s in rest], kernels.launch_counts()["paged_decode_stream"],
                 steps, stats, eng._kernel_active)
 
@@ -437,6 +445,38 @@ def test_scheduler_lanes_launch_the_kernel_every_step_and_match_the_gather_lane(
     assert tokens == gather
     if case == "prefix_hit":
         assert stats["prefix_hits"] == 2 and stats["prefix_tokens_saved"] == 2 * 48
+
+
+def test_ring_chunk_and_the_length_buckets_on_the_card(monkeypatch):
+    """In float32: a ring engine (``SELDON_TPU_CHUNK_IMPL=ring``) gives a
+    K4 pool engine's greedy tokens and launches no K4; on a bimodal batch
+    every pool chunk splits into two buckets and launches K4 once per
+    layer per step per bucket."""
+    _need_card()
+    cfg = dict(vocab_size=128, d_model=64, num_layers=2, num_heads=4, max_len=512)
+    params = load_lm_params("", cfg, 0)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 128, n) for n in (6, 9, 300, 330)]
+    monkeypatch.delenv("SELDON_TPU_PAGED_KERNEL", raising=False)
+    monkeypatch.delenv("SELDON_TPU_CTX_BUCKETS", raising=False)
+    runs = {}
+    for impl in ("ring", "pool"):
+        monkeypatch.setenv("SELDON_TPU_CHUNK_IMPL", impl)
+        eng = PagedEngine(params, dtype="float32", device="cuda", page_size=16, max_slots=4, steps_per_call=4,
+                          prefix_cache=False, **cfg)
+        assert eng._chunk_impl == impl and eng._kernel_active == (impl == "pool")
+        kernels.reset_launch_counts()
+        streams = [eng.submit(p, max_new_tokens=16) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        runs[impl] = ([s.result.tolist() for s in streams], kernels.launch_counts().get("paged_decode_stream", 0),
+                      eng.engine_stats())
+    (ring, ring_k4, ring_stats), (pool, pool_k4, pool_stats) = runs["ring"], runs["pool"]
+    assert ring == pool and ring_k4 == 0
+    assert ring_stats["bucketed_chunks"] == ring_stats["chunks"] > 0
+    steps = sum(int(k) * v for k, v in pool_stats["chunk_steps"].items())
+    assert pool_stats["bucketed_chunks"] == pool_stats["chunks"] and pool_stats["bucketed_steps"] == steps
+    assert pool_k4 == cfg["num_layers"] * steps * 2
 
 
 # K3 shapes: the ViT-B/16 serving shapes at 224 and 384, the causal LM check shape, small

@@ -9,7 +9,7 @@ differ between calls, so never bit-equality).  Then the gateway's own
 semantics on toy models: traffic weights (the same seeded pick
 sequence as JAX), shadows on isolated copies, feedback routed to the
 predictor that served the puid, pause → not ready, ``/seldon.json``, and
-the left-out ``GenerateStream``.
+``GenerateStream``'s answer to a predictor that cannot stream.
 """
 
 import asyncio
@@ -308,7 +308,10 @@ def test_grpc_feedback_stream_and_generate_stream():
     assert out.meta.tags["predictor"].string_value == "main"
     assert ack.status.status == pb.Status.SUCCESS and model.rewards == [0.5]
     assert list(streamed.data.tensor.values) == [2.0] or from_proto(streamed).tolist() == [[2.0]]
-    assert err.code() == grpc.StatusCode.UNIMPLEMENTED and "8.6" in err.details()
+    # FixedModel has no predict_stream: the JAX sync server's answer, word for word
+    assert err.code() == grpc.StatusCode.UNIMPLEMENTED
+    assert err.details() == ("GenerateStream needs a single-local-model predictor whose component implements "
+                             "predict_stream (e.g. STREAMING_LM)")
 
 
 def test_multi_node_graph_bridges_to_the_loop_over_sync_grpc():

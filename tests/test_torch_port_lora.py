@@ -337,6 +337,7 @@ def jax_mixed_tokens(flax_params):
 
 def _engine(params, monkeypatch, lane="force", impl="stream", **kw):
     monkeypatch.setenv("SELDON_TPU_PAGED_KERNEL", lane)
+    monkeypatch.setenv("SELDON_TPU_CHUNK_IMPL", "pool")  # the JAX engines' chunk, on either lane
     monkeypatch.setenv("SELDON_TPU_PAGED_KERNEL_IMPL", impl)
     kw = {"max_adapters": 2, "lora_rank": RANK, "weight_registry": _registry(registry, _adapters()), **kw}
     return PagedEngine(params, dtype="float32", device="cpu", **CFG, **{**ENGINE, "prefix_cache": False, **kw})

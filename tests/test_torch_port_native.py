@@ -11,7 +11,8 @@ fast lane, an HTTP SRT1 frame, a multi-frame container through
 ``rtol = atol = 1e-4`` (batch shapes differ between the lanes, so never
 bit-equality), and each against the in-process model.  The fallback
 lane (JSON, ``SendFeedback``, a two-node graph), the zero-copy knob and
-``GenerateStream``'s refusal are held against JAX's answers.
+``GenerateStream``'s answer to a predictor that cannot stream are held
+against JAX's answers.
 """
 
 import asyncio
@@ -437,12 +438,19 @@ def test_metrics_and_openapi_on_the_native_port(deployments):
 
 
 def test_generate_stream_is_unimplemented_naming_its_item(deployments):
-    with _grpc(deployments["torch_port", False]["port"]) as channel:
-        call = channel.unary_stream("/seldon.protos.Seldon/GenerateStream", request_serializer=lambda b: b,
-                                    response_deserializer=lambda b: b)
-        with pytest.raises(grpc.RpcError) as e:
-            list(call(pb.SeldonMessage().SerializeToString(), timeout=60))
-    assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED and "8.6" in e.value.details()
+    # a ResNet predictor cannot stream: both packages answer UNIMPLEMENTED
+    # in the same words, naming what would serve it
+    errors = {}
+    for pkg in ("torch_port", "jax"):
+        with _grpc(deployments[pkg, False]["port"]) as channel:
+            call = channel.unary_stream("/seldon.protos.Seldon/GenerateStream", request_serializer=lambda b: b,
+                                        response_deserializer=lambda b: b)
+            with pytest.raises(grpc.RpcError) as e:
+                list(call(pb.SeldonMessage().SerializeToString(), timeout=60))
+        errors[pkg] = e.value
+    got, want = errors["torch_port"], errors["jax"]
+    assert got.code() == want.code() == grpc.StatusCode.UNIMPLEMENTED
+    assert got.details() == want.details() and "predict_stream" in got.details()
 
 
 def test_zero_copy_off_refuses_frames_as_jax_does(deployments, monkeypatch):

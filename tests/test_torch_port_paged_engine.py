@@ -7,10 +7,11 @@ no prefix cache, on the config of ``tests/test_paged_kernel_lane.py``:
 six ragged prompts across page boundaries, four slots (so two prompts
 queue), ten new tokens.  Greedy tokens must be equal, exactly.
 
-The port's own contract: eos padding, cancel, the two lanes agreeing,
-``top_k=1`` equal to greedy, a seed reproducing its sample, admission
-with the prompt's pages and growth a chunk at a time, and every option
-of the JAX engine that the port does not run yet raising.
+The port's own contract: eos padding, cancel, the two lanes of the pool
+chunk agreeing, ``top_k=1`` equal to greedy, a seed reproducing its
+sample, admission with the prompt's pages and growth a chunk at a time,
+every option of the JAX engine that the port does not run yet raising,
+and an unknown knob value raising.
 """
 
 import sys
@@ -72,7 +73,10 @@ def jax_tokens(flax_params):
 
 
 def _engine(params, monkeypatch, lane="force", **kw):
+    # the pool chunk on either lane: with the kernel off the engine would
+    # pick the ring chunk (tests/test_torch_port_ring_chunk.py)
     monkeypatch.setenv("SELDON_TPU_PAGED_KERNEL", lane)
+    monkeypatch.setenv("SELDON_TPU_CHUNK_IMPL", "pool")
     return PagedEngine(params, dtype="float32", device="cpu", **CFG, **{**ENGINE, "prefix_cache": False, **kw})
 
 
@@ -231,11 +235,15 @@ def test_unported_options_raise_naming_the_slice(params, option, kw):
         StreamingLM(device="cpu", **CFG, **kw)
 
 
-@pytest.mark.parametrize("env,value", [("SELDON_TPU_CHUNK_IMPL", "ring")])
+@pytest.mark.parametrize("env,value", [("SELDON_TPU_CHUNK_IMPL", "lanes")])
 def test_unported_knobs_raise(params, monkeypatch, env, value):
+    # the ring chunk landed; a value that is neither chunk raises naming
+    # the knob (the JAX engine would run the ring body for it)
     monkeypatch.setenv(env, value)
-    with pytest.raises(MicroserviceError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match=env):
         PagedEngine(params, dtype="float32", device="cpu", **CFG, **ENGINE)
+    with pytest.raises(ValueError, match=env):
+        StreamingLM(device="cpu", **CFG).load()  # the component refuses as it builds its engine
 
 
 def test_unknown_knob_values_raise_as_in_jax(params, monkeypatch):
@@ -246,7 +254,7 @@ def test_unknown_knob_values_raise_as_in_jax(params, monkeypatch):
 
 def test_component_refusals(flax_params, params, tmp_path):
     lm = StreamingLM(device="cpu", **CFG)
-    for call in (lambda: lm.predict_stream(np.zeros((1, 4))), lambda: lm.drain()):
+    for call in (lambda: lm.drain(),):
         with pytest.raises(MicroserviceError, match="ROADMAP.md"):
             call()
     # model_uri and {"uri": ...} adapters landed (ROADMAP A5): a flax

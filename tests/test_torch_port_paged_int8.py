@@ -266,6 +266,7 @@ def jax_int8_tokens(flax_params):
 
 def _port_engine(flax_params, monkeypatch, lane, **kw):
     monkeypatch.setenv("SELDON_TPU_PAGED_KERNEL", lane)
+    monkeypatch.setenv("SELDON_TPU_CHUNK_IMPL", "pool")  # the int8 pool is the pool chunk's, as in JAX
     monkeypatch.setenv("SELDON_TPU_KV_DTYPE", "int8")
     return PagedEngine(lm_params_from_flax(flax_params), dtype="float32", device="cpu", **CFG,
                        **{**ENGINE, "prefix_cache": False, **kw})

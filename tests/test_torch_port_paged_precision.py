@@ -132,6 +132,7 @@ def jax_runs(flax_params):
 
 def _port(params, monkeypatch, case, lane="force"):
     monkeypatch.setenv("SELDON_TPU_PAGED_KERNEL", lane)
+    monkeypatch.setenv("SELDON_TPU_CHUNK_IMPL", "pool")  # the JAX engines' chunk, on either lane
     kw, mix = _engine_kw(case, registry)
     eng = PagedEngine(params, dtype="float32", device="cpu", prefix_cache=False, **CFG, **ENGINE, **kw)
     return eng, mix
