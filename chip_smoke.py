@@ -323,7 +323,9 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    pool, pool, ring); (b) 8 prompts of 64 beside 8 of 768, 64 new:
    ``SELDON_TPU_CTX_BUCKETS=2`` against ``1`` on the pool chunk, then on
    the ring: equal f32 tokens, bucketed chunks under 2 only, K4 exactly
-   layers x steps x buckets, bf16 tokens/s in turns; (c) a served bf16
+   layers x steps x buckets, bf16 tokens/s in turns; a pool engine with
+   the knob unset runs one bucket (the CUDA default) and the tokens of
+   ``1``; (c) a served bf16
    ``StreamingLM`` (cache off, ``max_queue`` 4) behind an in-process
    gateway: for 8 prompts on REST SSE, sync gRPC ``Seldon/GenerateStream``
    and the native ingress's, the streamed chunks joined equal the unary
@@ -334,7 +336,19 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    spent deadline 504 and a shed 503, not a 200 stream; K4 exactly layers
    x decode calls; (d) 16 streamed f32 requests on a 49-page pool: an
    eviction, and every stream's chunks joined equal its result and the
-   full pool's, each token once.
+   full pool's, each token once;
+20. speculative decoding at the generation config, the JAX bench's
+   method (``bench.py:2391-2500``): (a) float32 with TF32 off, 4 echo
+   prompts of up to 160 tokens, 64 new: plain decode (8 steps a chunk),
+   token-wise (1), oracle drafts (the plain tokens as hints) and ngram
+   drafts, ``draft_k`` 4, give equal greedy tokens; tokens/s, acceptance
+   and verify rounds of each; K4 exactly layers x decode calls on the
+   plain lanes and none over the verify rounds; (b)
+   ``SpeculativeGenerator`` with a seeded 2-layer d512 draft model, one
+   prompt of 128, 64 new, f32: the plain engine's greedy tokens, and K4
+   exactly 2 x the draft's one-token forwards; (c) bf16 at 16 lanes,
+   16 echo prompts: ngram against plain, token agreement and decode
+   tokens/s in turns.
 
 The first line names the card, torch, CUDA and ``grpc.__version__``.
 Output: the ``nvidia-smi`` line, then one ``{"kernels": [...]}`` line,
@@ -560,6 +574,15 @@ STREAM_CONCURRENT = 4           # 19c: concurrent streams a lane
 STREAM_DROP_NEW = 512           # 19c: the budget of a stream whose client drops after its first chunk
 STREAM_FREE_S = 2.0             # 19c: the slot and pages of a dropped stream are free within this
 STREAM_QUEUE = 4                # 19c: the served component's max_queue (the shed check fills it)
+# phase 20, speculative decoding at the generation config (the JAX bench's
+# method, bench.py:2391-2500)
+SPEC_SLOTS = 4                  # 20a: the bench's spec_batch
+SPEC_NEW = 64                   # 20a-c: new tokens a stream (the bench's spec_new)
+SPEC_ECHO = 160                 # 20a, 20c: echo prompts cut to their last 160 tokens
+SPEC_DRAFT_K = 4                # 20a-c: drafts a round (the bench's draft_k)
+SPEC_DRAFT_LAYERS = 2           # 20b: the draft model's depth (d512, 8 heads, the target's vocabulary)
+SPEC_GEN_PROMPT = 128           # 20b: the one echo prompt's tokens (a 64-token ramp and its continuation)
+SPEC_RATE_REPS = 2              # 20c: timed turns a lane (plain, ngram, ngram, plain)
 
 
 class SmokeFailure(RuntimeError):
@@ -4892,6 +4915,19 @@ def split_lanes(torch, np, PagedEngine, params, params32, tally, card):
             f"{out[impl]['chunks']}; K4 (launches, calls a layer) {k4}; bf16 decode tokens/s buckets 2 "
             f"{best['2']:.1f}, 1 {best['1']:.1f} ({best['2'] / best['1']:.3f}x), turns {rates} [{card}]")
         check(same, f"19b {impl}: f32 tokens differ between one and two buckets")
+        if impl == "pool":
+            # the knob unset: a CUDA engine's default is one bucket (C19)
+            eng = impl_engine(torch, PagedEngine, params32, impl, "float32", buckets=None)
+            unset = tally.run(eng, lambda eng=eng: drive(eng, prompts, LM_MAX_NEW), "19b f32 pool, buckets unset")
+            st = eng.engine_stats()
+            del eng
+            out["unset"] = {"ctx_buckets": st["ctx_buckets"], "bucketed_chunks": st["bucketed_chunks"],
+                            "chunks": st["chunks"], "f32_equal_to_1": same_rows(unset, tokens["1"])}
+            log(f"19b pool chunk with SELDON_TPU_CTX_BUCKETS unset: ctx_buckets {st['ctx_buckets']}, bucketed chunks "
+                f"{st['bucketed_chunks']} of {st['chunks']}, f32 tokens == buckets 1: "
+                f"{out['unset']['f32_equal_to_1']} [{card}]")
+            check(st["ctx_buckets"] == 1 and st["bucketed_chunks"] == 0 and out["unset"]["f32_equal_to_1"],
+                  f"19b: the engine with the knob unset ran {out['unset']} (one bucket expected on a CUDA device)")
     if SCHED_DEVICE == "cuda":
         torch.cuda.empty_cache()
     return out
@@ -5150,6 +5186,202 @@ def streaming_paths(torch, np, kernels, PagedEngine, StreamingLM, load_lm_params
     return numbers
 
 
+# ---------------------------------------------------------------- phase 20
+
+def echo_prompts(np, eng, n: int):
+    """The JAX bench's echo workload (``bench.py:2412-2430``): ramps of
+    eight tokens repeated, 32 + 8 i tokens long, each followed by the
+    engine's own greedy continuation and cut to the last SPEC_ECHO tokens,
+    so the context holds what the model goes on to say."""
+    base = np.tile(np.arange(8, dtype=np.int32) + 3, 32)
+    seeds = [base[: 32 + 8 * i] % LM_CONFIG["vocab_size"] for i in range(n)]
+    prior = drive(eng, seeds, SPEC_NEW)
+    return [np.concatenate([p, g[g >= 0]])[-SPEC_ECHO:].astype(np.int32) for p, g in zip(seeds, prior)]
+
+
+def counted_run(torch, kernels, eng, prompts, max_new: int, hints=None):
+    """One run of every prompt with the launch counts set to 0 just
+    before it: (tokens, seconds, K4 launches, decode calls a layer,
+    verify rounds, drafts, accepted drafts)."""
+    st0 = eng.engine_stats()
+    sched_sync(torch)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    streams = [eng.submit(p, max_new_tokens=max_new, draft_hint=None if hints is None else hints[i])
+               for i, p in enumerate(prompts)]
+    eng.run()
+    sched_sync(torch)
+    dt = time.perf_counter() - t0
+    k4 = sum(v for k, v in kernels.launch_counts().items() if k.startswith("paged_decode"))
+    st1 = eng.engine_stats()
+    for st in streams:
+        check(st.error is None and st.result is not None and st.result.shape == (max_new,),
+              f"a stream failed: {st.error}")
+    rounds = st1["chunks"] - st0["chunks"] if eng.speculative is not None else 0
+    return ([st.result for st in streams], dt, k4, decode_calls(st1) - decode_calls(st0), rounds,
+            st1["spec_drafted"] - st0["spec_drafted"], st1["spec_accepted"] - st0["spec_accepted"])
+
+
+def check_k4(eng, k4: int, calls: int, rounds: int, what: str) -> None:
+    """A plain lane launches K4 once a layer a decode call; a speculative
+    one launches none over its verify rounds."""
+    if eng.speculative is None:
+        check(calls > 0 and k4 == LM_CONFIG["num_layers"] * calls,
+              f"{what}: K4 launched {k4} times over {calls} decode calls a layer; expected "
+              f"{LM_CONFIG['num_layers'] * calls}")
+    else:
+        check(rounds > 0 and k4 == 0 and calls == 0,
+              f"{what}: {k4} K4 launches and {calls} decode calls over {rounds} verify rounds; expected none")
+
+
+def spec_engines_f32(torch, np, kernels, PagedEngine, params32, card):
+    """20a: the JAX bench's comparison in float32 with TF32 off: plain (8
+    steps a chunk), token-wise (1), oracle drafts (the plain tokens as
+    hints) and ngram drafts, 4 echo prompts, 64 new; a warm run, then the
+    timed one."""
+    def make(**kw):
+        return PagedEngine(params32, dtype="float32", device=SCHED_DEVICE, **LM_CONFIG,
+                           **{**LM_ENGINE, "max_slots": SPEC_SLOTS, "prefix_cache": False, **kw})
+
+    out, tokens = {}, {}
+    with no_tf32(torch):
+        plain = make()
+        prompts = echo_prompts(np, plain, SPEC_SLOTS)  # warms the plain lane too
+        lanes = {"plain": plain, "tokenwise": make(steps_per_call=1),
+                 "oracle": make(speculative={"draft": "oracle", "draft_k": SPEC_DRAFT_K}),
+                 "ngram": make(speculative={"draft": "ngram", "draft_k": SPEC_DRAFT_K})}
+        for name, eng in lanes.items():
+            hints = tokens["plain"] if name == "oracle" else None
+            if name != "plain":
+                counted_run(torch, kernels, eng, prompts, SPEC_NEW, hints)  # first calls pay here
+            toks, dt, k4, calls, rounds, drafted, accepted = counted_run(torch, kernels, eng, prompts, SPEC_NEW,
+                                                                         hints)
+            check_k4(eng, k4, calls, rounds, f"20a f32 {name}")
+            tokens[name] = toks
+            out[name] = {"tokens_per_s": SPEC_SLOTS * SPEC_NEW / dt, "seconds": dt, "k4_launches": k4,
+                         "decode_calls": calls, "verify_rounds": rounds, "drafted": drafted, "accepted": accepted,
+                         "acceptance": accepted / max(1, drafted), "chunks": eng.engine_stats()["chunks"]}
+        del lanes, plain
+    equal = {name: same_rows(tokens[name], tokens["plain"]) for name in tokens}
+    log(f"20a f32 (TF32 off), {SPEC_SLOTS} echo prompts of <= {SPEC_ECHO}, {SPEC_NEW} new, draft_k {SPEC_DRAFT_K}: "
+        f"tokens == plain {equal}; tokens/s " + ", ".join(f"{k} {v['tokens_per_s']:.1f}" for k, v in out.items())
+        + f"; acceptance oracle {out['oracle']['acceptance']:.3f}, ngram {out['ngram']['acceptance']:.3f}; verify "
+        f"rounds oracle {out['oracle']['verify_rounds']}, ngram {out['ngram']['verify_rounds']}; K4 plain "
+        f"{out['plain']['k4_launches']} = {LM_CONFIG['num_layers']} x {out['plain']['decode_calls']}, token-wise "
+        f"{out['tokenwise']['k4_launches']} = {LM_CONFIG['num_layers']} x {out['tokenwise']['decode_calls']}, 0 over "
+        f"the verify rounds [{card}]")
+    check(all(equal.values()), f"20a: f32 greedy tokens differ between the lanes: {equal}")
+    check(out["oracle"]["accepted"] == out["oracle"]["drafted"] > 0,
+          f"20a: the oracle accepted {out['oracle']['accepted']} of {out['oracle']['drafted']} drafts")
+    return {"lanes": out, "tokens_equal": equal}
+
+
+def spec_generator_path(torch, np, kernels, PagedEngine, SpeculativeGenerator, load_lm_params, params32, card):
+    """20b: ``SpeculativeGenerator`` with a seeded 2-layer d512 draft model,
+    one echo prompt of 128 tokens, 64 new, float32 with TF32 off: the
+    plain engine's greedy tokens, and K4 once a draft layer a one-token
+    forward."""
+    draft_cfg = dict(LM_CONFIG, num_layers=SPEC_DRAFT_LAYERS)
+    draft = load_lm_params("", draft_cfg, SEED + 20, torch.device(SCHED_DEVICE))
+    with no_tf32(torch):
+        plain = PagedEngine(params32, dtype="float32", device=SCHED_DEVICE, **LM_CONFIG,
+                            **{**LM_ENGINE, "max_slots": 1, "prefix_cache": False})
+        seed = (np.arange(SPEC_GEN_PROMPT - SPEC_NEW, dtype=np.int32) % 8 + 3) % LM_CONFIG["vocab_size"]
+        prompt = np.concatenate([seed, plain.generate(seed, max_new_tokens=SPEC_NEW)]).astype(np.int32)
+        check(len(prompt) == SPEC_GEN_PROMPT, f"20b: the echo prompt has {len(prompt)} tokens")
+        want = plain.generate(prompt, max_new_tokens=SPEC_NEW)
+        del plain
+        gen = SpeculativeGenerator(params32, dtype="float32", device=SCHED_DEVICE, page_size=LM_ENGINE["page_size"],
+                                   draft="model", draft_k=SPEC_DRAFT_K, draft_params=draft, draft_config=draft_cfg,
+                                   **LM_CONFIG)
+        check(gen._use_kernel, "20b: the generator's one-token forwards are not on the kernel lane")
+        gen.generate(prompt, SPEC_NEW)  # first calls pay here
+        f0, s0 = gen.single_token_forwards, dict(gen.stats)
+        sched_sync(torch)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = gen.generate(prompt, SPEC_NEW)
+        sched_sync(torch)
+        dt = time.perf_counter() - t0
+        k4 = kernels.launch_counts().get("paged_decode_stream", 0)
+        others = sum(v for k, v in kernels.launch_counts().items() if k != "paged_decode_stream")
+    forwards = gen.single_token_forwards - f0
+    stats = {k: gen.stats[k] - s0[k] for k in s0}
+    equal = bool((got == want).all())
+    out = {"tokens_equal": equal, "k4_launches": k4, "single_token_forwards": forwards,
+           "draft_layers": SPEC_DRAFT_LAYERS, "stats": stats, "seconds": dt, "tokens_per_s": SPEC_NEW / dt,
+           "acceptance": stats["accepted"] / max(1, stats["drafted"])}
+    log(f"20b SpeculativeGenerator, a {SPEC_DRAFT_LAYERS}-layer d512 draft, prompt {len(prompt)}, {SPEC_NEW} new, "
+        f"f32: tokens == the plain engine's {equal}; {stats['rounds']} rounds, acceptance {out['acceptance']:.3f}, "
+        f"{out['tokens_per_s']:.1f} tokens/s; K4 {k4} = {SPEC_DRAFT_LAYERS} x {forwards} one-token draft forwards "
+        f"[{card}]")
+    check(equal, "20b: the generator's f32 tokens differ from the plain engine's")
+    check(forwards > 0 and k4 == SPEC_DRAFT_LAYERS * forwards and others == 0,
+          f"20b: K4 launched {k4} (other paged launches {others}) over {forwards} one-token draft forwards; "
+          f"expected {SPEC_DRAFT_LAYERS * forwards}")
+    return out
+
+
+def spec_engines_bf16(torch, np, kernels, PagedEngine, params, card):
+    """20c: bf16 at 16 lanes, 16 echo prompts, 64 new: ngram drafts against
+    plain decode, token agreement, decode tokens/s in turns (18a's method:
+    a run of 64 new minus a run of one)."""
+    def make(**kw):
+        return PagedEngine(params, dtype="bfloat16", device=SCHED_DEVICE, **LM_CONFIG,
+                           **{**LM_ENGINE, "prefix_cache": False, **kw})
+
+    slots = LM_ENGINE["max_slots"]
+    plain = make()
+    prompts = echo_prompts(np, plain, slots)
+    engines = {"plain": plain, "ngram": make(speculative={"draft": "ngram", "draft_k": SPEC_DRAFT_K})}
+    tokens, counted = {}, {}
+    for name, eng in engines.items():
+        counted_run(torch, kernels, eng, prompts, SPEC_NEW)  # warm
+        toks, _dt, k4, calls, rounds, drafted, accepted = counted_run(torch, kernels, eng, prompts, SPEC_NEW)
+        check_k4(eng, k4, calls, rounds, f"20c bf16 {name}")
+        tokens[name] = toks
+        counted[name] = {"k4_launches": k4, "decode_calls": calls, "verify_rounds": rounds,
+                         "acceptance": accepted / max(1, drafted)}
+    rates = {name: [] for name in engines}
+    for rep in range(SPEC_RATE_REPS):
+        for name in (("plain", "ngram") if rep % 2 == 0 else ("ngram", "plain")):
+            full = counted_run(torch, kernels, engines[name], prompts, SPEC_NEW)[1]
+            one = counted_run(torch, kernels, engines[name], prompts, 1)[1]
+            rates[name].append(slots * (SPEC_NEW - 1) / max(full - one, 1e-9))
+    del engines, plain
+    agreement = float(np.mean([np.mean(a == b) for a, b in zip(tokens["plain"], tokens["ngram"])]))
+    rows = sum(bool((a == b).all()) for a, b in zip(tokens["plain"], tokens["ngram"]))
+    best = {k: max(v) for k, v in rates.items()}
+    log(f"20c bf16, {slots} echo prompts, {SPEC_NEW} new: ngram vs plain {rows}/{slots} rows equal, token agreement "
+        f"{agreement:.4f}; ngram acceptance {counted['ngram']['acceptance']:.3f} over "
+        f"{counted['ngram']['verify_rounds']} rounds; decode tokens/s plain {best['plain']:.1f}, ngram "
+        f"{best['ngram']:.1f} ({best['ngram'] / best['plain']:.3f}x), turns {rates} [{card}]")
+    if SCHED_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return {"rows_equal": rows, "token_agreement": agreement, "decode_tokens_per_s": best,
+            "decode_tokens_per_s_runs": rates, "counted": counted}
+
+
+def speculative_paths(torch, np, kernels, PagedEngine, SpeculativeGenerator, load_lm_params, card):
+    """Phase 20: speculative decoding at the generation config: the engine's
+    lanes in f32 (20a), the generator's draft model on K4 (20b), ngram
+    against plain in bf16 at 16 lanes (20c)."""
+    t0 = time.perf_counter()
+    params = load_lm_params("", LM_CONFIG, 0, torch.device(SCHED_DEVICE))
+    params32 = load_lm_params("", LM_CONFIG, SEED + 5, torch.device(SCHED_DEVICE))
+    numbers = {}
+    numbers["20a"] = spec_engines_f32(torch, np, kernels, PagedEngine, params32, card)
+    numbers["20b"] = spec_generator_path(torch, np, kernels, PagedEngine, SpeculativeGenerator, load_lm_params,
+                                         params32, card)
+    del params32
+    numbers["20c"] = spec_engines_bf16(torch, np, kernels, PagedEngine, params, card)
+    numbers["seconds"] = time.perf_counter() - t0
+    log(f"phase 20: K4 launched {numbers['20b']['k4_launches']} = {SPEC_DRAFT_LAYERS} x "
+        f"{numbers['20b']['single_token_forwards']} draft forwards in 20b, none over the verify rounds, "
+        f"{numbers['seconds']:.1f} s [{card}]")
+    return numbers
+
+
 def run() -> int:
     try:
         import torch
@@ -5176,6 +5408,7 @@ def run() -> int:
         from seldon_core_tpu_torch.models.paged import PagedEngine, StreamingLM
         from seldon_core_tpu_torch.models.registry import WeightRegistry
         from seldon_core_tpu_torch.models.resnet import same_pads
+        from seldon_core_tpu_torch.models.speculative import SpeculativeGenerator
         from seldon_core_tpu_torch.ops import _build, kernels, w8a8
         from seldon_core_tpu_torch.ops.lora import make_lora_params
         from seldon_core_tpu_torch.tools import probe_normalize
@@ -5256,6 +5489,8 @@ def run() -> int:
         stream_numbers = streaming_paths(torch, np, kernels, PagedEngine, StreamingLM, load_lm_params, WeightRegistry,
                                          make_lora_params, card)
         clock.mark("phase 19")
+        spec_numbers = speculative_paths(torch, np, kernels, PagedEngine, SpeculativeGenerator, load_lm_params, card)
+        clock.mark("phase 20")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -5287,6 +5522,7 @@ def run() -> int:
         "a5_a6": a5_a6_numbers,
         "scheduler": sched_numbers,
         "streaming": stream_numbers,
+        "speculative": spec_numbers,
         "phase_seconds": clock.seconds,
         "seconds": time.perf_counter() - t_start,
     }
@@ -5349,6 +5585,16 @@ def run() -> int:
                 "path": "the pool chunk beside the ring (19a), the length-bucketed split (19b), StreamingLM streams "
                         "over REST SSE, sync gRPC and the native ingress (19c), streams under eviction (19d); one "
                         "launch a layer-step a bucket, none on the ring (phase 19)"}
+            g = spec_numbers["20b"]
+            kernel_line["kernels"][-1]["launches_on_phase20"] = {
+                "launches": g["k4_launches"], "draft_forwards": g["single_token_forwards"],
+                "draft_layers": g["draft_layers"],
+                "plain_lane_launches": {k: spec_numbers["20a"]["lanes"][k]["k4_launches"]
+                                        for k in ("plain", "tokenwise")},
+                "verify_rounds": {k: spec_numbers["20a"]["lanes"][k]["verify_rounds"] for k in ("oracle", "ngram")},
+                "verify_launches": 0,
+                "path": "SpeculativeGenerator's draft model: one launch a draft layer a one-token forward (20b); "
+                        "the engine's verify rounds on the gather lane launch none (20a, 20c)"}
     serving, causal = flash_timings["serving"], flash_timings["causal"]
     kernel_line["kernels"].append({
         "name": "flash_attention",

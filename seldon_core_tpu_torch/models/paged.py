@@ -38,9 +38,10 @@ heads, head_dim)``, greedy or sampled decoding, token streaming.
   kernel lane or the gather lane) where the kernel lane can run, the
   ring chunk elsewhere (the context gathered from the pool once a
   chunk, the chunk's own K/V in a step-indexed ring, dense products
-  only, one write-back a chunk).  Both split a chunk's lanes into two
-  length buckets (``SELDON_TPU_CTX_BUCKETS``, on by default): the
-  shorter half of the running lanes attends at its own table width.
+  only, one write-back a chunk).  Both can split a chunk's lanes into
+  two length buckets (``SELDON_TPU_CTX_BUCKETS``; unset, on off CUDA and
+  off on a CUDA device, where each bucket costs a launch a layer-step):
+  the shorter half of the running lanes attends at its own table width.
 * **One host round trip per chunk** — a chunk's ``steps_per_call``
   decode steps, sampling included, run as device work, and its tokens
   come back in one device-to-host copy.
@@ -63,6 +64,13 @@ heads, head_dim)``, greedy or sampled decoding, token streaming.
   every projection and the head a ``W8A8Dense`` whose integers and
   steps are fixed at construction, with dynamic per-token activation
   scales, so no weight is quantised in a call or a step.
+* **Speculative decoding** — ``speculative={"draft": "ngram" | "oracle"
+  | "model", "draft_k": k, ...}``: each wave drafts up to ``k`` tokens a
+  stream (prompt lookup, the caller's ``draft_hint``, or a small draft
+  ``TransformerLM`` over a sliding window) and verifies every stream's
+  drafts in one forward of ``k + 1`` positions on the gather lane.
+  Every emitted token is the target's own argmax, so greedy tokens
+  equal plain decode's; sampling is refused.
 
 Decisions of this slice:
 
@@ -70,8 +78,8 @@ Decisions of this slice:
   the stream's seed when its prompt is whole (again after an eviction):
   greedy tokens equal the JAX engine's, sampled tokens cannot equal
   ``jax.random``'s;
-* speculative decoding, meshes, drain, migration and the KV tier
-  raise, naming the later slice (``ROADMAP.md`` §A item 8);
+* meshes, drain, migration and the KV tier raise, naming the later
+  slice (``ROADMAP.md`` §A items 8 and 12);
 * an unknown ``SELDON_TPU_CHUNK_IMPL`` raises, where the JAX engine runs
   the ring chunk for it;
 * ``model_uri`` and an adapter's ``{"uri": ...}`` name flax msgpack
@@ -203,10 +211,14 @@ def resolve_chunk_impl(kernel_mode: str, kernel_eligible: bool) -> str:
     return impl
 
 
-def paged_ctx_buckets() -> int:
-    """``SELDON_TPU_CTX_BUCKETS``: 2 (default) or 1; anything else raises
-    with the JAX engine's message."""
-    val = _knobs.raw("SELDON_TPU_CTX_BUCKETS", "") or "2"
+def paged_ctx_buckets(device: torch.device) -> int:
+    """``SELDON_TPU_CTX_BUCKETS``: 1 or 2; anything else raises with the
+    JAX engine's message.  Unset, the default follows the engine's
+    device: 1 on a CUDA device, where each bucket is one more K4 launch
+    a layer-step on a host-paced loop and two buckets decoded slower
+    than one in every card run (``ROADMAP.md`` C19), and 2, the JAX
+    engine's default, elsewhere."""
+    val = _knobs.raw("SELDON_TPU_CTX_BUCKETS", "") or ("1" if device.type == "cuda" else "2")
     if val not in ("1", "2"):
         raise ValueError(f"SELDON_TPU_CTX_BUCKETS={val!r}: supported values are '1' (disable) and '2' (default)")
     return int(val)
@@ -218,7 +230,6 @@ def paged_ctx_buckets() -> int:
 
 # option -> where ROADMAP.md §A queues it
 _LATER_SLICES = {
-    "speculative": "8.9, speculative decoding",
     "drain": "8.10, drain/migration/KV tier",
     "tp/dp/mesh": "queue item 12, parallel/*",
 }
@@ -233,12 +244,9 @@ def _refuse(option: str) -> MicroserviceError:
     )
 
 
-def check_ported_options(*, speculative=None, tp=None, dp=None, mesh=None) -> None:
+def check_ported_options(*, tp=None, dp=None, mesh=None) -> None:
     """Raise for every option of the JAX engine the port does not run
-    yet (speculative decoding, meshes) and for an unknown
-    ``SELDON_TPU_KV_DTYPE``."""
-    if speculative:
-        raise _refuse("speculative")
+    yet (meshes) and for an unknown ``SELDON_TPU_KV_DTYPE``."""
     if int(tp or 0) > 1 or int(dp or 0) > 1 or bool(mesh):
         raise _refuse("tp/dp/mesh")
     paged_kv_dtype_mode()
@@ -649,7 +657,7 @@ class _Stream:
                  "event", "result", "error", "slot", "pages", "cancelled", "generator", "adapter",
                  "adapter_slot", "adapter_pinned", "cached_len", "prefilled", "priority", "deadline",
                  "preempted", "t_submit", "t_prefill_start", "t_first_token", "t_finish", "token_queue",
-                 "streamed")
+                 "streamed", "pending", "draft_hint")
 
     def __init__(self, req_id, prompt, max_new, temperature, top_k, eos_id, seed, adapter_slot=0):
         self.req_id = req_id
@@ -698,6 +706,11 @@ class _Stream:
         # pushes from where the consumer left off
         self.token_queue: Optional[queue.Queue] = None
         self.streamed = 0
+        # speculative engine: the next token to verify from (the argmax of
+        # the last logits; tokens[-1] once the prefill's token is emitted),
+        # and an oracle draft's expected continuation
+        self.pending: Optional[int] = None
+        self.draft_hint: Optional[np.ndarray] = None
 
 
 @dataclass(slots=True)
@@ -714,6 +727,11 @@ class _ChunkState:
     model_kw: Dict[str, Any]  # the model's keyword inputs (adapter ids)
     logits: torch.Tensor  # (B, vocab) float32: the next step samples from them
     samplers: list  # (lane, generator, temperature, top_k) of every sampled lane
+
+
+def _reported_speculative(spec: Optional[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
+    """Speculative options as reported: the draft's weights left out."""
+    return None if spec is None else {k: v for k, v in spec.items() if k != "draft_params"}
 
 
 def _resolve_dtype(dtype) -> torch.dtype:
@@ -757,6 +775,32 @@ def _swapped_weights(module: torch.nn.Module, tensors: Dict[str, torch.Tensor]):
             sub._parameters[leaf] = p
 
 
+def rest_kernels_int8(module: torch.nn.Module, params: Dict[str, torch.Tensor],
+                      device: torch.device) -> Tuple[Dict[str, QuantizedKernel], List[Dict[str, Any]]]:
+    """``module``'s kernels quantised per output channel from the float32
+    checkpoint ``params`` (``ops/surgery.py``, as the JAX package
+    quantises float32 parameters): ``({key: QuantizedKernel on device},
+    manifest)``."""
+    qstate, manifest = quantize_params(module, state={k: v.float() for k, v in params.items()})
+    return ({k: QuantizedKernel(v.q.to(device), v.scale.to(device)) for k, v in qstate.items()
+             if isinstance(v, QuantizedKernel)}, manifest)
+
+
+def drop_float_kernels(module: torch.nn.Module, keys) -> None:
+    """Drop ``module``'s float copies of the kernels named by ``keys``
+    (they rest int8 and are swapped in per call by :func:`materialized`)."""
+    for key in keys:
+        owner, _, leaf = key.rpartition(".")
+        sub = module.get_submodule(owner)
+        sub._parameters[leaf] = torch.nn.Parameter(sub._parameters[leaf].new_empty((0,)), requires_grad=False)
+
+
+def materialized(module: torch.nn.Module, qkernels: Dict[str, QuantizedKernel], dtype: torch.dtype):
+    """``module`` with its int8 kernels dequantised to ``dtype`` for the
+    block (one device call, never one step)."""
+    return _swapped_weights(module, {k: qk.dequantize(dtype) for k, qk in qkernels.items()})
+
+
 class PagedEngine:
     """Continuous-batching decode engine over a paged K/V pool.
 
@@ -780,6 +824,8 @@ class PagedEngine:
     on the pool chunk or the ring chunk (``SELDON_TPU_CHUNK_IMPL``), its
     lanes split into length buckets (``SELDON_TPU_CTX_BUCKETS``);
     ``submit(stream_tokens=True)`` streams a request's tokens.
+    ``speculative`` (see :meth:`_init_speculative`) runs a draft/verify
+    round a wave in place of the decode chunk.
 
     ``max_adapters`` (``SELDON_TPU_MAX_ADAPTERS`` when 0) slots of rank
     ``lora_rank`` serve LoRA adapters, resolved by name through
@@ -816,7 +862,7 @@ class PagedEngine:
         lora_rank: int = 8,
         weight_registry: Any = None,
     ):
-        check_ported_options(speculative=speculative, tp=tp, dp=dp, mesh=mesh)
+        check_ported_options(tp=tp, dp=dp, mesh=mesh)
         if max_len % page_size:
             raise ValueError(f"max_len {max_len} must be a multiple of page_size {page_size}")
         self.precision, self.quantize = _precision_modes(quantize, precision)
@@ -850,7 +896,7 @@ class PagedEngine:
         eligible = paged_kernel_static_eligible(mode, True, self.dtype, self.device)
         self._chunk_impl = resolve_chunk_impl(mode, eligible)
         # the length-bucketed split of each chunk's lanes (1 or 2 buckets)
-        self._ctx_buckets = paged_ctx_buckets()
+        self._ctx_buckets = paged_ctx_buckets(self.device)
         # int8 pool: pages rest int8 with one float32 scale per page per
         # K/V in the sibling (layers, num_pages) tables
         self._kv_int8 = paged_kv_int8(True, self._chunk_impl)
@@ -869,6 +915,7 @@ class PagedEngine:
             kernels.paged_kernel_impl(num_heads, head_dim)  # a bad IMPL knob fails here, not mid-chunk
         # last logits of every slot: the next chunk samples from them
         self._logits = torch.zeros((self.max_slots, self.vocab_size), dtype=torch.float32, device=self.device)
+        self._init_speculative(speculative)
 
         # one step at a time: the StreamingLM decode loop and a caller's
         # run()/generate() both step the engine, and two interleaved
@@ -922,7 +969,9 @@ class PagedEngine:
                           # chunks split into two length buckets, and their
                           # decode steps (a kernel call per bucket per
                           # layer-step: layers x (steps + bucketed_steps))
-                          "bucketed_chunks": 0, "bucketed_steps": 0}
+                          "bucketed_chunks": 0, "bucketed_steps": 0,
+                          # speculative engine: drafts proposed and accepted
+                          "spec_drafted": 0, "spec_accepted": 0}
         # decode chunks by their step count (the ladder's trace)
         self._chunk_steps: Dict[int, int] = {}
 
@@ -974,11 +1023,8 @@ class PagedEngine:
           JAX quantises its f32 parameters."""
         self.quantize_manifest: List[Dict[str, Any]] = []
         self._qkernels: Dict[str, QuantizedKernel] = {}
-        state = {k: v.float() for k, v in params.items()} if self.quantize == "int8" else {}
         if self.quantize == "int8":
-            qstate, self.quantize_manifest = quantize_params(self.module, state=state)
-            self._qkernels = {k: QuantizedKernel(v.q.to(self.device), v.scale.to(self.device))
-                              for k, v in qstate.items() if isinstance(v, QuantizedKernel)}
+            self._qkernels, self.quantize_manifest = rest_kernels_int8(self.module, params, self.device)
         if self.precision == "w8a8":
             for name, layer in self.module.named_modules():
                 if not isinstance(layer, W8A8Dense):
@@ -987,10 +1033,7 @@ class PagedEngine:
                 qk = self._qkernels.pop(key, None)
                 w = qk.dequantize(torch.float32) if qk is not None else params[key].float()
                 layer.freeze(*quantize_weight(w.to(self.device).t()))
-        for key in self._qkernels:
-            owner, _, leaf = key.rpartition(".")
-            sub = self.module.get_submodule(owner)
-            sub._parameters[leaf] = torch.nn.Parameter(sub._parameters[leaf].new_empty((0,)), requires_grad=False)
+        drop_float_kernels(self.module, self._qkernels)
 
     @contextlib.contextmanager
     def _materialized(self):
@@ -1000,10 +1043,9 @@ class PagedEngine:
         if not self._qkernels:
             yield
             return
-        weights = {k: qk.dequantize(self.dtype) for k, qk in self._qkernels.items()}
         with self._lock:
             self._counters["weight_materializations"] += 1
-        with _swapped_weights(self.module, weights):
+        with materialized(self.module, self._qkernels, self.dtype):
             yield
 
     def weight_bytes(self) -> int:
@@ -1017,11 +1059,116 @@ class PagedEngine:
                 total += sum(t.numel() * t.element_size() for t in layer.frozen)
         return total
 
+    # ---- speculative decoding --------------------------------------------------
+
+    def _init_speculative(self, speculative: Optional[Dict[str, Any]]) -> None:
+        """The speculative options, checked as the JAX engine checks them
+        (its ``paged.py:2041-2093``): ``draft`` "ngram" (default),
+        "oracle" (the ``draft_hint`` a caller submits) or "model";
+        ``draft_k`` (default 4) drafts a round; ``ngram`` (default 2).
+        ``draft="model"`` takes ``draft_params`` (a ``TransformerLM``
+        state_dict) and ``draft_config`` (its sizes, the target's
+        vocabulary), and drafts from each stream's last ``draft_window``
+        (default 64) tokens."""
+        self.speculative = dict(speculative) if speculative else None
+        self.draft_k = 0
+        self.draft_window = 0
+        self._draft_module: Optional[TransformerLM] = None
+        if self.speculative is None:
+            return
+        draft = self.speculative.setdefault("draft", "ngram")
+        if draft not in ("ngram", "oracle", "model"):
+            raise ValueError("PagedEngine speculative mode supports draft='ngram', draft='oracle' or draft='model'")
+        self.speculative.setdefault("draft_k", 4)
+        self.speculative.setdefault("ngram", 2)
+        self.draft_k = int(self.speculative["draft_k"])
+        if self.draft_k < 1:
+            raise ValueError("speculative draft_k must be >= 1")
+        if draft != "model":
+            return
+        draft_params = self.speculative.get("draft_params")
+        if draft_params is None:
+            raise ValueError("draft='model' needs draft_params (and usually "
+                             "draft_config={vocab_size,d_model,num_layers,...})")
+        dc = dict(self.speculative.get("draft_config") or {})
+        dc.setdefault("vocab_size", self.vocab_size)
+        if int(dc["vocab_size"]) != self.vocab_size:
+            raise ValueError("draft model must share the target's vocab_size")
+        self.draft_window = int(self.speculative.get("draft_window", 64))
+        dc.setdefault("max_len", self.draft_window)
+        if int(dc["max_len"]) < self.draft_window:
+            raise ValueError("draft_config.max_len must cover draft_window")
+        module = TransformerLM(dtype=self.dtype, **{k: int(v) for k, v in dc.items()})
+        module.load_state_dict({k: torch.as_tensor(v) for k, v in draft_params.items()})
+        self._draft_module = module.to(self.device).eval().requires_grad_(False)
+
+    def _draft_rollout(self, windows: np.ndarray, lens: np.ndarray) -> np.ndarray:
+        """``draft_k`` greedy steps of the draft model for every slot in
+        one batched call a step (JAX ``_draft_rollout_fn``): ``windows``
+        (slots, W) holds each context's last <= W tokens left-aligned,
+        ``lens`` (slots,) their counts; a full window drops its oldest
+        token for each new one.  Plain causal attention over the whole
+        window; the zeros past ``lens`` are invisible to the positions
+        read.  -> (slots, draft_k) int32."""
+        W = self.draft_window
+        dev = self.device
+        win = torch.from_numpy(windows.astype(np.int64)).to(dev)
+        ln = torch.from_numpy(lens.astype(np.int64)).to(dev)
+        rows = torch.arange(win.shape[0], device=dev)
+        toks = []
+        for _ in range(self.draft_k):
+            logits = self._draft_module(win)
+            tok = torch.argmax(logits[rows, torch.clamp(ln - 1, min=0)], dim=-1)
+            full = ln >= W
+            win = torch.where(full[:, None], torch.cat([win[:, 1:], torch.zeros_like(win[:, :1])], dim=1), win)
+            win[rows, torch.where(full, W - 1, ln)] = tok
+            ln = torch.clamp(ln + 1, max=W)
+            toks.append(tok)
+        return torch.stack(toks, dim=1).cpu().numpy().astype(np.int32)
+
+    def _spec_chunk(self, segs: np.ndarray, n_drafts: np.ndarray, active: np.ndarray, tables: np.ndarray,
+                    lengths: np.ndarray, adapter_ids: np.ndarray) -> np.ndarray:
+        """One verify forward for every slot (JAX ``_spec_chunk_fn``):
+        ``segs[i]`` = [pending, d_1..d_k], pads past ``n_drafts[i]``
+        never accepted.  The forward scores the ``k + 1`` positions on the
+        gather lane, accepts the longest run of drafts equal to the
+        target's argmax, and adds the argmax after it (the bonus token).
+        K/V of all ``k + 1`` positions of every active lane are written
+        (their pages are the stream's own: the last prompt page and every
+        page after it are private), but only ``accepted + 1`` become
+        visible: the length advances by that, and the next round
+        overwrites the rest.  One device-to-host copy returns
+        ``(B, k + 3)``: the emitted tokens, then each slot's count and
+        new length."""
+        dev = self.device
+        L = self.draft_k + 1
+        segs_t = torch.from_numpy(segs.astype(np.int64)).to(dev)
+        lengths_t = torch.from_numpy(lengths).to(dev)
+        active_t = torch.from_numpy(active).to(dev)
+        tables_t = torch.from_numpy(tables).to(dev)
+        offs = torch.arange(L, device=dev)
+        positions = torch.clamp(lengths_t.long()[:, None] + offs[None, :], max=self.max_len - 1)
+        logits, nk, nv = self.module(segs_t, positions, self.pages_k, self.pages_v, tables_t, lengths_t,
+                                     use_kernel=False, **self._model_kwargs(adapter_ids))
+        greedy = torch.argmax(logits, dim=-1)  # (B, L)
+        n_t = torch.from_numpy(n_drafts.astype(np.int64)).to(dev)
+        match = (greedy[:, : L - 1] == segs_t[:, 1:]) & (offs[None, : L - 1] < n_t[:, None])
+        accepted = torch.cumprod(match.long(), dim=1).sum(dim=1)
+        shifted = torch.cat([segs_t[:, 1:], torch.zeros_like(segs_t[:, :1])], dim=1)
+        bonus = greedy.gather(1, accepted[:, None])
+        out = torch.where(offs[None, :] < accepted[:, None], shifted,
+                          torch.where(offs[None, :] == accepted[:, None], bonus, 0))
+        counts = (accepted + 1) * active_t.long()
+        write_kv(kv_join(self.pages_k, self.scales_k), kv_join(self.pages_v, self.scales_v), nk, nv, tables_t,
+                 lengths_t, active_t[:, None].expand(-1, L), page_size=self.page_size, max_len=self.max_len)
+        return torch.cat([out, counts[:, None], lengths_t.long()[:, None] + counts[:, None]], dim=1).cpu().numpy()
+
     # ---- submission ------------------------------------------------------
 
     def submit(self, prompt, max_new_tokens: int = 32, temperature: float = 0.0, top_k: int = 0,
                eos_id: int = -1, seed: int = 0, adapter: Optional[str] = None, priority: int = 0,
-               deadline: Optional[float] = None, stream_tokens: bool = False) -> _Stream:
+               deadline: Optional[float] = None, stream_tokens: bool = False,
+               draft_hint: Optional[np.ndarray] = None) -> _Stream:
         """Queue one prompt (1-D int array).  Returns a stream handle whose
         ``event`` fires when ``result`` (``(max_new,)`` ids) is ready.
         ``stream_tokens`` gives it a ``token_queue``: each decode chunk's
@@ -1039,7 +1186,12 @@ class PagedEngine:
         resident adapter pins its pool slot for the stream's lifetime, a
         cold one loads through the weight registry first, on this thread
         (load -> pin -> serve -> unpin).  ``None`` is the base model:
-        slot 0, no lookup, no pin."""
+        slot 0, no lookup, no pin.
+
+        ``draft_hint`` (a speculative engine with ``draft="oracle"``): the
+        continuation the caller expects, drafted from in place of a
+        lookup.  A speculative engine refuses ``temperature > 0`` and
+        keeps ``draft_k + 1`` positions of headroom past ``max_new``."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         plen = len(prompt)
         if plen < 1:
@@ -1047,13 +1199,21 @@ class PagedEngine:
         max_new_tokens = int(max_new_tokens)
         if max_new_tokens < 1:
             raise MicroserviceError("max_new_tokens must be >= 1", status_code=400, reason="BAD_REQUEST")
+        if self.speculative is not None and temperature > 0:
+            raise MicroserviceError(
+                "the speculative engine is greedy-exact only: verification compares the model's argmax against "
+                "drafts, which has no meaning under sampling — deploy without speculative (or send "
+                "temperature=0) for this request", status_code=400, reason="BAD_REQUEST")
+        # the verify segment writes up to draft_k + 1 positions past the
+        # accepted length
+        headroom = self.draft_k + 1 if self.speculative is not None else 0
         bucket = next((b for b in self.prompt_buckets if b >= plen), None)
-        if bucket is None or plen + max_new_tokens > self.max_len:
+        if bucket is None or plen + max_new_tokens + headroom > self.max_len:
             raise MicroserviceError(f"prompt {plen} + max_new {max_new_tokens} exceeds max_len {self.max_len}",
                                     status_code=400, reason="SEQUENCE_TOO_LONG")
         # the ceiling is the whole non-trash pool: cached prefix pages are
         # reclaimable, so a warm cache never shrinks the admissible size
-        need = -(-(plen + max_new_tokens) // self.page_size)
+        need = -(-(plen + max_new_tokens + headroom) // self.page_size)
         if need > self.num_pages - 1:
             raise MicroserviceError(f"request needs {need} pages but the pool holds {self.num_pages - 1}",
                                     status_code=400, reason="SEQUENCE_TOO_LONG")
@@ -1082,6 +1242,8 @@ class PagedEngine:
                 stream.t_submit = time.time()
                 if stream_tokens:
                     stream.token_queue = queue.Queue()
+                if draft_hint is not None:
+                    stream.draft_hint = np.asarray(draft_hint, np.int32).reshape(-1)
                 if adapter_slot:
                     # the submit's temporary pin becomes the stream's
                     self._drop_temp_pin_locked(adapter_slot)
@@ -1760,7 +1922,13 @@ class PagedEngine:
             return []
         rows = torch.tensor([i for i, _s in finals], device=dev)
         slots = torch.tensor([s.slot for _i, s in finals], device=dev)
-        self._logits[slots] = last[rows, 0]
+        final_logits = last[rows, 0]
+        self._logits[slots] = final_logits
+        if self.speculative is not None:
+            # the verify rounds start from each prompt's greedy token: one
+            # readback for the group
+            for (_i, stream), tok in zip(finals, torch.argmax(final_logits, dim=-1).tolist()):
+                stream.pending = int(tok)
         for _i, stream in finals:
             # seeded when the prompt is whole, so an evicted stream's
             # re-derived run draws the same tokens again
@@ -1780,10 +1948,13 @@ class PagedEngine:
 
     def _ensure_pages_locked(self, stream: _Stream, per_chunk: int) -> bool:
         """Grow the stream's block table to cover its next ``per_chunk``
-        tokens (never past its prompt plus ``max_new``); False when the
-        pool cannot back it (the stream stalls this wave)."""
+        tokens (never past its prompt plus ``max_new``, plus a speculative
+        engine's ``draft_k + 1``: the verify segment writes past the
+        accepted length); False when the pool cannot back it (the stream
+        stalls this wave)."""
         slot = stream.slot
-        horizon = min(int(self._lengths[slot]) + per_chunk, len(stream.prompt) + stream.max_new, self.max_len)
+        cap = len(stream.prompt) + stream.max_new + (self.draft_k + 1 if self.speculative is not None else 0)
+        horizon = min(int(self._lengths[slot]) + per_chunk, cap, self.max_len)
         need = -(-horizon // self.page_size)
         while len(stream.pages) < need:
             got = self._alloc_locked(1)
@@ -1964,6 +2135,8 @@ class PagedEngine:
         Returns True while there is (or may be) more work.  Safe from any
         thread: steps never interleave."""
         with self._step_lock:
+            if self.speculative is not None:
+                return self._step_speculative()
             return self._step_decode()
 
     def _steps_for_locked(self, decoding: List[_Stream]) -> int:
@@ -2080,6 +2253,148 @@ class PagedEngine:
                 if got and not stream.tokens and not stream.t_first_token:
                     stream.t_first_token = t_now
                 stream.tokens.extend(got)
+                if stream.eos_id in got or len(stream.tokens) >= stream.max_new:
+                    self._finish_locked(stream)
+                else:
+                    self._stream_push(stream)
+            return self._wave_end_locked()
+
+    def _step_speculative(self) -> bool:
+        """One draft/verify round for every decoding stream (JAX
+        ``_step_speculative``): admission and prefill as the plain step
+        does them (under a token budget, verify first: each verifying
+        stream is priced at ``draft_k + 1`` tokens and prompt slices take
+        the rest); a prompt made whole emits its greedy token at once;
+        page growth of ``draft_k + 1`` a stream, with stall and evict;
+        drafts by mode, never past a stream's budget; one verify forward
+        of every lane."""
+        from seldon_core_tpu_torch.models.speculative import ngram_draft
+
+        with self._lock:
+            admitted = self._admit_locked()
+        budget = self.chunk_token_budget
+        fresh: List[_Stream] = []
+        slices: List[Tuple[_Stream, int, int]] = []
+        L = self.draft_k + 1
+        if not budget:
+            fresh = self._prefill_streams([s for s, _ in admitted])
+        else:
+            with self._lock:
+                live = [s for s in self._slots if s is not None]
+                verify_lanes = sum(1 for s in live if s.prefilled >= len(s.prompt))
+                slices = self._plan_prefill_slices_locked([s for s in live if s.prefilled < len(s.prompt)],
+                                                          budget - verify_lanes * L)
+            if slices:
+                fresh = self._run_prefill_slices(slices)
+        with self._lock:
+            self._counters["prefills"] += len(admitted)
+            t_now = time.time()
+            for stream in fresh:
+                # the prefill's argmax is the first generated token: emitted
+                # now, so every round verifies continuations of tokens[-1]
+                if stream.result is not None or stream.error is not None:
+                    continue
+                if not stream.t_first_token:
+                    stream.t_first_token = t_now
+                stream.tokens.append(int(stream.pending))
+                self._counters["tokens"] += 1
+                if stream.pending == stream.eos_id or len(stream.tokens) >= stream.max_new:
+                    self._finish_locked(stream)
+                else:
+                    self._stream_push(stream)
+            active = self._retire_cancelled_locked([s for s in self._slots if s is not None])
+            if not active:
+                return self._wave_end_locked()
+            # under a budget a stream whose last slice ran this wave
+            # verifies from the next one (the wave keeps its planned size)
+            fresh_ids = {id(s) for s in fresh} if budget else set()
+            verify_set = [s for s in active if s.prefilled >= len(s.prompt) and id(s) not in fresh_ids]
+            stalled = np.zeros((self.max_slots,), bool)
+            for stream in verify_set:
+                if not self._ensure_pages_locked(stream, L):
+                    stalled[stream.slot] = True
+            self._counters["stalls"] += int(stalled.sum())
+            # eviction stands down only when this wave's prefill slices
+            # made progress: a backlog alone would livelock when every
+            # verifying lane is page-starved and the verify-first pricing
+            # left the planner under one page
+            while verify_set and not slices and all(stalled[s.slot] for s in verify_set):
+                victim = min(verify_set, key=lambda s: (len(s.tokens), -s.req_id))
+                verify_set.remove(victim)
+                active.remove(victim)
+                self._evict_locked(victim)
+                for stream in verify_set:
+                    if stalled[stream.slot] and self._ensure_pages_locked(stream, L):
+                        stalled[stream.slot] = False
+            if not active:
+                return self._wave_end_locked()
+            runnable = [s for s in verify_set if not stalled[s.slot]]
+            # each stream's context, draft count and start token, read
+            # while its tokens cannot move
+            work = []
+            for stream in runnable:
+                # only remaining - 1 drafts can ever be emitted: more would
+                # burn verify width and count acceptances finish discards
+                k_eff = max(0, min(self.draft_k, stream.max_new - len(stream.tokens) - 1))
+                context = np.concatenate([stream.prompt, np.asarray(stream.tokens, np.int32)])
+                work.append((stream, k_eff, context, int(stream.pending), len(stream.tokens)))
+            pages_h = self._pages_horizon(runnable, L)
+            tables = np.ascontiguousarray(self._block_tables[:, :pages_h])
+            lengths = self._lengths.copy()
+            adapter_ids = self._adapter_slots.copy()
+        if not runnable:
+            # prefill slices, or streams made whole this wave, were the progress
+            with self._lock:
+                return self._wave_end_locked()
+        mode = self.speculative["draft"]
+        with torch.inference_mode():
+            model_drafts = None
+            if mode == "model":
+                # windows end at each stream's pending token, so the drafts
+                # continue the sequence the verify checks
+                W = self.draft_window
+                windows = np.zeros((self.max_slots, W), np.int32)
+                lens = np.zeros((self.max_slots,), np.int32)
+                for stream, _k, context, _p, _n in work:
+                    tail = context[-W:]
+                    windows[stream.slot, : len(tail)] = tail
+                    lens[stream.slot] = len(tail)
+                model_drafts = self._draft_rollout(windows, lens)
+            segs = np.zeros((self.max_slots, L), np.int32)
+            n_drafts = np.zeros((self.max_slots,), np.int32)
+            active_mask = np.zeros((self.max_slots,), bool)
+            for stream, k_eff, context, pending, done in work:
+                slot = stream.slot
+                if k_eff == 0:
+                    drafted = np.zeros((0,), np.int32)
+                elif mode == "oracle" and stream.draft_hint is not None:
+                    drafted = stream.draft_hint[done: done + k_eff]
+                elif mode == "model":
+                    drafted = model_drafts[slot, :k_eff]
+                else:
+                    drafted = ngram_draft(context, k_eff, ngram=int(self.speculative["ngram"]))[:k_eff]
+                segs[slot, 0] = pending
+                segs[slot, 1: 1 + len(drafted)] = drafted
+                n_drafts[slot] = len(drafted)
+                active_mask[slot] = True
+            with self._materialized():
+                out = self._spec_chunk(segs, n_drafts, active_mask, tables, lengths, adapter_ids)
+        toks, counts, lengths_out = out[:, :L], out[:, L], out[:, L + 1]
+        with self._lock:
+            self._counters["chunks"] += 1
+            self._counters["spec_drafted"] += int(n_drafts.sum())
+            for stream in runnable:
+                s = stream.slot
+                if s is None or self._slots[s] is not stream:
+                    continue  # failed or retired from another thread meanwhile
+                self._lengths[s] = lengths_out[s]
+                n = int(counts[s])
+                got = toks[s, :n].tolist()
+                self._counters["tokens"] += n
+                self._counters["spec_accepted"] += max(0, n - 1)
+                stream.tokens.extend(got)
+                if got:
+                    stream.pending = int(got[-1])
                 if stream.eos_id in got or len(stream.tokens) >= stream.max_new:
                     self._finish_locked(stream)
                 else:
@@ -2277,7 +2592,9 @@ class StreamingLM(TPUComponent):
 
     The engine options pass through as the JAX component's do:
     ``quantize``, ``precision``, ``prefix_cache``, ``max_steps_per_call``,
-    ``max_queue`` and ``chunk_token_budget``.
+    ``max_queue``, ``chunk_token_budget`` and ``speculative`` (per-slot
+    draft/verify inside the engine, greedy only; ``metrics()`` then adds
+    ``speculative_acceptance_rate`` and ``speculative_rounds``).
 
     ``adapters`` (a dict, or its JSON) is the deployment's adapter
     catalogue, ``name -> {"seed": n, "alpha": a}`` (deterministic
@@ -2322,7 +2639,7 @@ class StreamingLM(TPUComponent):
         **kwargs: Any,
     ):
         super().__init__(**kwargs)
-        check_ported_options(speculative=speculative, tp=tp, dp=dp, mesh=mesh_axes)
+        check_ported_options(tp=tp, dp=dp, mesh=mesh_axes)
         precision, quantize = _precision_modes(quantize, precision)  # fail at construction
         if isinstance(adapters, str):
             adapters = json.loads(adapters) if adapters else None
@@ -2338,7 +2655,8 @@ class StreamingLM(TPUComponent):
                                   max_slots=int(max_slots), steps_per_call=int(steps_per_call),
                                   max_steps_per_call=int(max_steps_per_call), quantize=quantize,
                                   precision=precision, prefix_cache=prefix_cache, max_queue=int(max_queue),
-                                  chunk_token_budget=int(chunk_token_budget))
+                                  chunk_token_budget=int(chunk_token_budget),
+                                  speculative=dict(speculative) if speculative else None)
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
         self.top_k = int(top_k)
@@ -2603,6 +2921,9 @@ class StreamingLM(TPUComponent):
             out.append(gauge_metric("paged_adapter_requests", n, tags={"adapter": name}))
         for name, n in kernels.launch_counts().items():
             out.append(gauge_metric("streaminglm_kernel_launches", float(n), tags={"kernel": name}))
+        if self.engine.speculative is not None:
+            out.append(gauge_metric("speculative_acceptance_rate", s["spec_accepted"] / max(1, s["spec_drafted"])))
+            out.append(gauge_metric("speculative_rounds", s["chunks"]))
         return out
 
     def health_status(self):
@@ -2620,6 +2941,7 @@ class StreamingLM(TPUComponent):
             "prefix_cache": bool(engine._prefix_cache_enabled) if engine is not None else cfg["prefix_cache"],
             "chunk_token_budget": engine.chunk_token_budget if engine is not None else cfg["chunk_token_budget"],
             "max_queue": engine.max_queue if engine is not None else cfg["max_queue"],
+            "speculative": _reported_speculative(engine.speculative if engine is not None else cfg["speculative"]),
             "weight_bytes": engine.weight_bytes() if engine is not None else None,
             "kernel_active": bool(engine is not None and engine._kernel_active),
             "chunk_impl": engine._chunk_impl if engine is not None else None,

@@ -24,8 +24,8 @@ KNOBS: Dict[str, str] = {
         "ring, dense products only); anything else raises"
     ),
     "SELDON_TPU_CTX_BUCKETS": (
-        "length buckets of a decode chunk: '2' (default: the shorter half of the running lanes attends at its "
-        "own table width) or '1' (one width for every lane)"
+        "length buckets of a decode chunk: '2' (the shorter half of the running lanes attends at its own table "
+        "width) or '1' (one width for every lane); unset, 1 on a CUDA device and 2 elsewhere"
     ),
     "SELDON_TPU_KV_DTYPE": (
         "KV pool dtype: 'bf16' (default: the engine dtype, natively) or 'int8' (int8 pages with one float32 "

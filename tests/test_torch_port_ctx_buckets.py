@@ -13,6 +13,11 @@ on its co-batch's bucket; a bad value raises.  Around them: one kernel
 call a layer-step a bucket on the kernel lane, sampled streams drawing
 the same tokens under either split, and the ``paged_bucketed_chunks``
 gauge.
+
+The default follows the engine's device (``ROADMAP.md`` C19): unset, one
+bucket on a CUDA device and two elsewhere; an explicit value wins on
+either.  The parity cases above set the knob, so they hold the JAX
+engine's default wherever they run.
 """
 
 import contextlib
@@ -23,11 +28,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from seldon_core_tpu.models import paged as jax_paged
 from seldon_core_tpu.models.transformer import TransformerLM as FlaxTransformerLM
+from seldon_core_tpu_torch.models import paged
 from seldon_core_tpu_torch.models.convert import lm_params_from_flax
-from seldon_core_tpu_torch.models.paged import PagedEngine, StreamingLM
+from seldon_core_tpu_torch.models.paged import PagedEngine, StreamingLM, paged_ctx_buckets
 from seldon_core_tpu_torch.ops import kernels
 
 CFG = dict(vocab_size=64, d_model=32, num_layers=2, num_heads=4, max_len=128)
@@ -213,5 +220,75 @@ def test_streaminglm_reports_bucketed_chunks(monkeypatch):
         assert all(s.event.wait(60) and s.result.shape == (6,) for s in streams)
         gauges = {m["key"]: m["value"] for m in lm.metrics() if not m.get("tags")}
         assert gauges["paged_bucketed_chunks"] == lm.engine.engine_stats()["bucketed_chunks"] > 0
+    finally:
+        lm.unload()
+
+
+# ---------------------------------------------------------------- C19: the default per device
+
+
+@pytest.mark.parametrize("device,value,want", [
+    ("cuda", None, 1), ("cpu", None, 2),  # unset: one bucket on CUDA, JAX's two elsewhere
+    ("cuda", "2", 2), ("cuda", "1", 1), ("cpu", "1", 1), ("cpu", "2", 2),  # an explicit value wins
+])
+def test_the_default_follows_the_device(monkeypatch, device, value, want):
+    if value is None:
+        monkeypatch.delenv("SELDON_TPU_CTX_BUCKETS", raising=False)
+    else:
+        monkeypatch.setenv("SELDON_TPU_CTX_BUCKETS", value)
+    assert paged_ctx_buckets(torch.device(device)) == want  # a device object needs no card
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_a_bad_value_raises_on_either_device(monkeypatch, device):
+    monkeypatch.setenv("SELDON_TPU_CTX_BUCKETS", "3")
+    with pytest.raises(ValueError, match="SELDON_TPU_CTX_BUCKETS='3'"):
+        paged_ctx_buckets(torch.device(device))
+
+
+def test_the_cpu_engine_keeps_two_buckets_unset(params, monkeypatch):
+    monkeypatch.delenv("SELDON_TPU_CTX_BUCKETS", raising=False)
+    eng = PagedEngine(params, dtype="float32", device="cpu", max_slots=4, **CFG, **ENGINE)
+    _serve(eng, _bimodal_prompts(4, 40, 4))
+    assert eng.engine_stats()["ctx_buckets"] == 2 and eng.engine_stats()["bucketed_chunks"] > 0
+
+
+def _as_if_cuda(monkeypatch):
+    """The engine asks the rule with its own device; on this host the rule
+    is asked as for a CUDA engine, and the devices it was asked with are
+    returned for the test to read."""
+    asked = []
+    real = paged.paged_ctx_buckets
+    monkeypatch.setattr(paged, "paged_ctx_buckets", lambda device: asked.append(device) or real(torch.device("cuda")))
+    return asked
+
+
+@pytest.mark.parametrize("lane", ["ring", "pool-kernel"])
+def test_an_engine_run_as_on_cuda_runs_one_bucket(params, monkeypatch, lane):
+    monkeypatch.delenv("SELDON_TPU_CTX_BUCKETS", raising=False)
+    asked = _as_if_cuda(monkeypatch)
+    impl, kernel = LANES[lane]
+    with _env(SELDON_TPU_CHUNK_IMPL=impl, SELDON_TPU_PAGED_KERNEL=kernel):
+        eng = PagedEngine(params, dtype="float32", device="cpu", max_slots=4, **CFG, **ENGINE)
+    assert asked == [eng.device]
+    toks = _serve(eng, _bimodal_prompts(4, 40, 4))
+    s = eng.engine_stats()
+    assert s["ctx_buckets"] == 1 and s["bucketed_chunks"] == 0 and s["chunks"] > 0
+    np.testing.assert_array_equal(toks, _serve(_port(params, lane, "1"), _bimodal_prompts(4, 40, 4)))
+
+
+def test_a_streaminglm_run_as_on_cuda_reports_one_bucket(monkeypatch):
+    monkeypatch.delenv("SELDON_TPU_CTX_BUCKETS", raising=False)
+    asked = _as_if_cuda(monkeypatch)
+    lm = StreamingLM(device="cpu", dtype="float32", max_new_tokens=6, max_slots=4, **CFG, **ENGINE)
+    lm.load()
+    try:
+        streams = [lm.engine.submit(p, max_new_tokens=6) for p in _bimodal_prompts(4, 40, 2)]
+        lm._wake.set()
+        assert all(s.event.wait(60) and s.result.shape == (6,) for s in streams)
+        health = lm.health_status()["engine"]
+        assert asked == [lm.device] and health["ctx_buckets"] == 1 and health["bucketed_chunks"] == 0
+        gauges = {m["key"]: m["value"] for m in lm.metrics() if not m.get("tags")}
+        assert gauges["paged_bucketed_chunks"] == 0
     finally:
         lm.unload()

@@ -391,6 +391,7 @@ def test_paged_engine_launches_the_kernel_every_step_of_every_layer(impl, monkey
     _need_card()
     monkeypatch.setenv("SELDON_TPU_PAGED_KERNEL_IMPL", impl)
     monkeypatch.delenv("SELDON_TPU_PAGED_KERNEL", raising=False)  # auto: the kernel lane on a CUDA engine
+    monkeypatch.setenv("SELDON_TPU_CTX_BUCKETS", "2")  # the split asked for: one bucket is the CUDA default
     cfg = dict(vocab_size=128, d_model=64, num_layers=2, num_heads=4, max_len=128)
     eng = PagedEngine(load_lm_params("", cfg, 0), dtype="bfloat16", device="cuda", page_size=16, max_slots=4,
                       steps_per_call=4, **cfg)
@@ -458,7 +459,7 @@ def test_ring_chunk_and_the_length_buckets_on_the_card(monkeypatch):
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, 128, n) for n in (6, 9, 300, 330)]
     monkeypatch.delenv("SELDON_TPU_PAGED_KERNEL", raising=False)
-    monkeypatch.delenv("SELDON_TPU_CTX_BUCKETS", raising=False)
+    monkeypatch.setenv("SELDON_TPU_CTX_BUCKETS", "2")  # the split asked for: one bucket is the CUDA default
     runs = {}
     for impl in ("ring", "pool"):
         monkeypatch.setenv("SELDON_TPU_CHUNK_IMPL", impl)
@@ -820,3 +821,66 @@ def test_int8_matmul_tensor_core_misaligned_x_and_split_k(dtype):
         got = kernels.int8_matmul(view, w_q, scale, out_dtype=out_dtype)
         assert got.dtype == out_dtype
         assert_k2_close(got, kernels.int8_matmul_reference(x, w_q, scale, out_dtype))
+
+
+def test_one_length_bucket_by_default_on_the_card(monkeypatch):
+    """With ``SELDON_TPU_CTX_BUCKETS`` unset a CUDA engine runs one bucket
+    (``ROADMAP.md`` C19): no bucketed chunk on a bimodal batch, K4 once
+    per layer per step."""
+    _need_card()
+    monkeypatch.delenv("SELDON_TPU_CTX_BUCKETS", raising=False)
+    monkeypatch.delenv("SELDON_TPU_PAGED_KERNEL", raising=False)
+    monkeypatch.delenv("SELDON_TPU_CHUNK_IMPL", raising=False)
+    cfg = dict(vocab_size=128, d_model=64, num_layers=2, num_heads=4, max_len=512)
+    eng = PagedEngine(load_lm_params("", cfg, 0), dtype="bfloat16", device="cuda", page_size=16, max_slots=4,
+                      steps_per_call=4, prefix_cache=False, **cfg)
+    rng = np.random.default_rng(4)
+    kernels.reset_launch_counts()
+    for p in (6, 9, 300, 330):
+        eng.submit(rng.integers(0, 128, p), max_new_tokens=16)
+    eng.run()
+    torch.cuda.synchronize()
+    stats = eng.engine_stats()
+    steps = sum(int(k) * v for k, v in stats["chunk_steps"].items())
+    assert stats["ctx_buckets"] == 1 and stats["bucketed_chunks"] == 0 and steps > 0
+    assert kernels.launch_counts()["paged_decode_stream"] == cfg["num_layers"] * steps
+
+
+def test_speculative_decoding_on_the_card(monkeypatch):
+    """In float32 with TF32 off: the speculative engine and the generator
+    give the plain engine's greedy tokens; the engine's verify rounds
+    launch no K4, the generator's draft model K4 once per draft layer per
+    one-token forward."""
+    from seldon_core_tpu_torch.models.speculative import SpeculativeGenerator
+
+    _need_card()
+    monkeypatch.delenv("SELDON_TPU_PAGED_KERNEL", raising=False)
+    cfg = dict(vocab_size=128, d_model=64, num_layers=2, num_heads=4, max_len=256)
+    draft_cfg = dict(cfg, num_layers=1)
+    params = load_lm_params("", cfg, 0, torch.device("cuda"))
+    draft = load_lm_params("", draft_cfg, 1, torch.device("cuda"))
+    base = np.tile(np.arange(8) + 3, 8)
+    prompts = [base[: 20 + 7 * i] for i in range(3)]
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        plain = PagedEngine(params, dtype="float32", device="cuda", page_size=16, max_slots=4, **cfg)
+        want = [plain.generate(p, max_new_tokens=24).tolist() for p in prompts]
+        spec = PagedEngine(params, dtype="float32", device="cuda", page_size=16, max_slots=4,
+                           speculative={"draft": "ngram", "draft_k": 4}, **cfg)
+        kernels.reset_launch_counts()
+        streams = [spec.submit(p, max_new_tokens=24) for p in prompts]
+        spec.run()
+        torch.cuda.synchronize()
+        assert [s.result.tolist() for s in streams] == want
+        assert sum(kernels.launch_counts().values()) == 0 and spec.engine_stats()["spec_accepted"] > 0
+        gen = SpeculativeGenerator(params, dtype="float32", device="cuda", page_size=16, draft="model",
+                                   draft_params=draft, draft_config=draft_cfg, **cfg)
+        assert gen._use_kernel
+        kernels.reset_launch_counts()
+        got = [gen.generate(p, 24).tolist() for p in prompts]
+        torch.cuda.synchronize()
+        assert got == want
+        assert kernels.launch_counts()["paged_decode_stream"] == draft_cfg["num_layers"] * gen.single_token_forwards > 0
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -220,7 +220,6 @@ def test_lane_resolution_on_the_cpu(params, monkeypatch, lane, expect):
 
 
 UNPORTED = [
-    ("speculative", dict(speculative={"draft": "ngram", "draft_k": 2})),
     ("tp/dp/mesh", dict(tp=2)),
     ("tp/dp/mesh", dict(dp=2)),
 ]
@@ -233,6 +232,15 @@ def test_unported_options_raise_naming_the_slice(params, option, kw):
     assert option in str(err.value) and err.value.reason == "BAD_PARAMETER"
     with pytest.raises(MicroserviceError, match=option):
         StreamingLM(device="cpu", **CFG, **kw)
+
+
+def test_a_speculative_engine_still_refuses_tp_naming_a12(params):
+    spec = dict(speculative={"draft": "ngram", "draft_k": 2}, tp=2)
+    with pytest.raises(MicroserviceError, match="queue item 12") as err:
+        PagedEngine(params, dtype="float32", device="cpu", **CFG, **{**ENGINE, **spec})
+    assert err.value.reason == "BAD_PARAMETER"
+    with pytest.raises(MicroserviceError, match="queue item 12"):
+        StreamingLM(device="cpu", **CFG, **spec)
 
 
 @pytest.mark.parametrize("env,value", [("SELDON_TPU_CHUNK_IMPL", "lanes")])
