@@ -348,7 +348,26 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    prompt of 128, 64 new, f32: the plain engine's greedy tokens, and K4
    exactly 2 x the draft's one-token forwards; (c) bf16 at 16 lanes,
    16 echo prompts: ngram against plain, token agreement and decode
-   tokens/s in turns.
+   tokens/s in turns;
+21. drain and replay, live migration and the KV tier at the generation
+   config, the JAX bench's methods (``bench.py:2129-2265``, ``:2884-2960``):
+   (a) float32 with TF32 off, 16 streamed prompts of 128 tokens, 64 new,
+   three waves on engine A, then ``evacuate_streams`` to engine B on the
+   card: token loss 0 and every stream's tokens equal an uninterrupted
+   control, ``migrate_ttr_ms``; again on an int8 pool; then ``drain()`` +
+   ``replay()`` on a fresh engine: equal tokens, ``replay_ttr_ms``; K4
+   exactly layers x decode calls on B and on the replay engine; (b) two
+   returning sessions of 512 tokens, 4 new a revisit, 4 rounds, through
+   a pool that holds one, ``SELDON_TPU_KV_OFFLOAD`` on and off in turns:
+   equal tokens, host hits, promote x, hit % and revisit ms; a run with a
+   host budget under one page and a spill directory: disk hits, equal
+   tokens; a run with ``SELDON_TPU_KV_CHECKSUM=0`` and the CRC32C rate on
+   the host (where a promotion's time goes); (c) two CLI ``StreamingLM`` processes: A, with
+   ``SELDON_TPU_EVACUATE_TO`` naming B's gRPC port and a journal path, is
+   SIGTERMed with 16 requests decoding and 8 queued: B imports the live
+   streams and finishes them, A's clients get 503 ``MIGRATING`` or
+   ``DRAINING``, and a process started on A's journal path replays as
+   many streams as the journal has lines.
 
 The first line names the card, torch, CUDA and ``grpc.__version__``.
 Output: the ``nvidia-smi`` line, then one ``{"kernels": [...]}`` line,
@@ -583,6 +602,17 @@ SPEC_DRAFT_K = 4                # 20a-c: drafts a round (the bench's draft_k)
 SPEC_DRAFT_LAYERS = 2           # 20b: the draft model's depth (d512, 8 heads, the target's vocabulary)
 SPEC_GEN_PROMPT = 128           # 20b: the one echo prompt's tokens (a 64-token ramp and its continuation)
 SPEC_RATE_REPS = 2              # 20c: timed turns a lane (plain, ngram, ngram, plain)
+# phase 21, drain, migration and the KV tier (the JAX bench's methods,
+# bench.py:2129-2265 and 2884-2960)
+MIG_STREAMS = 16                # 21a: streamed requests (the generation config's slots)
+MIG_PROMPT = 128                # 21a, 21c: prompt tokens
+MIG_NEW = 64                    # 21a: new tokens a stream
+MIG_WAVES = 3                   # 21a: waves on engine A before the evacuation or the drain
+TIER_HIST = 512                 # 21b: a returning session's tokens
+TIER_NEW = 4                    # 21b: new tokens a revisit
+TIER_ROUNDS = 4                 # 21b: revisits of both sessions; the walls of rounds 2 on are timed
+SERVED_REQUESTS = 24            # 21c: 16 decoding and 8 queued when A is SIGTERMed
+SERVED_NEW = 512                # 21c: new tokens a request (still decoding at the signal)
 
 
 class SmokeFailure(RuntimeError):
@@ -5382,6 +5412,358 @@ def speculative_paths(torch, np, kernels, PagedEngine, SpeculativeGenerator, loa
     return numbers
 
 
+def queued_tokens(streams):
+    """Pop every token the streams' queues hold now: {index: [tokens]}, and
+    whether a queue ended."""
+    got, ended = {}, False
+    for i, s in enumerate(streams):
+        while s.token_queue.qsize():
+            item = s.token_queue.get()
+            if item is None:
+                ended = True
+            else:
+                got.setdefault(i, []).extend(item)
+    return got, ended
+
+
+def resumed_run(torch, kernels, eng, streams, t0):
+    """Step ``eng`` dry with the launch counts set to 0 just before it:
+    ms from ``t0`` to the first token a queue received (the time to
+    resume), the tokens the queues received, K4 launches and decode calls
+    a layer."""
+    c0 = decode_calls(eng.engine_stats())
+    sched_sync(torch)
+    kernels.reset_launch_counts()
+    got, ttr_ms = {}, None
+    while eng.has_work():
+        eng.step()
+        new, _ = queued_tokens(streams)
+        for i, toks in new.items():
+            got.setdefault(i, []).extend(toks)
+        if ttr_ms is None and new:
+            ttr_ms = (time.perf_counter() - t0) * 1e3
+    sched_sync(torch)
+    k4 = sum(v for k, v in kernels.launch_counts().items() if k.startswith("paged_decode"))
+    new, _ = queued_tokens(streams)
+    for i, toks in new.items():
+        got.setdefault(i, []).extend(toks)
+    return ttr_ms, got, k4, decode_calls(eng.engine_stats()) - c0
+
+
+def migration_lane(torch, np, kernels, PagedEngine, evacuate_streams, params32, prompts, pool: str, card):
+    """21a on one pool: an uninterrupted control, then the same streamed
+    requests evacuated from engine A to engine B after MIG_WAVES waves."""
+    def make():
+        with knob_env(SELDON_TPU_KV_DTYPE="int8" if pool == "int8" else None):
+            eng = sched_engine(torch, PagedEngine, params32, dtype="float32", **NO_PREFIX_CACHE)
+        check(eng._kernel_active and eng._kv_int8 == (pool == "int8"),
+              f"21a {pool}: the engine is off the kernel lane or on the wrong pool")
+        return eng
+
+    ref = make()
+    want = drive(ref, prompts, MIG_NEW, seed=0)  # also warms every call the lanes below make
+    del ref
+    a, b = make(), make()
+    drive(b, prompts[:1], 8)  # B's first calls pay here, not in the window
+    streams = [a.submit(p, max_new_tokens=MIG_NEW, seed=0, stream_tokens=True) for p in prompts]
+    for _ in range(MIG_WAVES):
+        a.step()
+    got, ended = queued_tokens(streams)
+    check(not ended and all(0 < len(got.get(i, [])) < MIG_NEW for i in range(len(prompts))),
+          f"21a {pool}: the streams are not mid-decode after {MIG_WAVES} waves")
+    p0 = b.engine_stats()["prefill_tokens"]
+    t0 = time.perf_counter()
+    summary = evacuate_streams(a, [b])
+    check(summary["migrated"] == len(prompts) and summary["failed"] == 0,
+          f"21a {pool}: evacuation moved {summary['migrated']} of {len(prompts)} streams ({summary['failed']} failed)")
+    ttr_ms, more, k4, calls = resumed_run(torch, kernels, b, streams, t0)
+    for i, toks in more.items():
+        got.setdefault(i, []).extend(toks)
+    loss = sum(max(0, len(w) - len(got.get(i, []))) for i, w in enumerate(want))
+    equal = all(got.get(i, []) == w.tolist() for i, w in enumerate(want))
+    check(all(s.error is None for s in streams), f"21a {pool}: a migrated stream failed")
+    check(loss == 0 and equal, f"21a {pool}: token loss {loss}, tokens equal to the control {equal}")
+    check(calls > 0 and k4 == LM_CONFIG["num_layers"] * calls,
+          f"21a {pool}: K4 launched {k4} times over {calls} decode calls a layer on B; expected "
+          f"{LM_CONFIG['num_layers'] * calls}")
+    stats = b.engine_stats()
+    check(stats["prefill_tokens"] == p0, f"21a {pool}: B prefilled {stats['prefill_tokens'] - p0} tokens of the "
+          "migrated streams; their pages arrive computed")
+    return {"migrate_ttr_ms": ttr_ms, "migrate_token_loss": loss, "tokens_equal": equal,
+            "migrated": summary["migrated"], "migrated_in": stats["migrated_in"], "k4_launches": k4,
+            "decode_calls": calls}, want
+
+
+def replay_lane(torch, np, kernels, PagedEngine, params32, prompts, want, card):
+    """21a's journal contrast: the same streams drained after MIG_WAVES
+    waves and re-derived by ``replay`` on a fresh engine."""
+    def make():
+        return sched_engine(torch, PagedEngine, params32, dtype="float32", **NO_PREFIX_CACHE)
+
+    c, d = make(), make()
+    drive(d, prompts[:1], 8)
+    for p in prompts:
+        c.submit(p, max_new_tokens=MIG_NEW, seed=0, stream_tokens=True)
+    for _ in range(MIG_WAVES):
+        c.step()
+    t0 = time.perf_counter()
+    entries = c.drain()
+    replayed = d.replay(entries, stream_tokens=True)
+    check(len(replayed) == len(prompts), f"21a replay: {len(replayed)} of {len(prompts)} journal entries replayed")
+    ttr_ms, _got, k4, calls = resumed_run(torch, kernels, d, replayed, t0)
+    equal = all(s.error is None and bool((s.result == w).all()) for s, w in zip(replayed, want))
+    check(equal, "21a replay: the replayed streams' tokens differ from the uninterrupted control")
+    check(calls > 0 and k4 == LM_CONFIG["num_layers"] * calls,
+          f"21a replay: K4 launched {k4} times over {calls} decode calls a layer; expected "
+          f"{LM_CONFIG['num_layers'] * calls}")
+    return {"replay_ttr_ms": ttr_ms, "tokens_equal": equal, "replayed": d.engine_stats()["replayed"],
+            "drained": c.engine_stats()["drained"], "k4_launches": k4, "decode_calls": calls}
+
+
+def migration_paths(torch, np, kernels, PagedEngine, evacuate_streams, params32, card):
+    """21a: live migration and journal replay at the generation config, the
+    JAX bench's method (``bench.py:2129-2265``), float32 with TF32 off."""
+    rng = np.random.default_rng(SEED + 210)
+    prompts = [rng.integers(0, LM_CONFIG["vocab_size"], MIG_PROMPT).astype(np.int32) for _ in range(MIG_STREAMS)]
+    out = {}
+    with no_tf32(torch):
+        out["native"], want = migration_lane(torch, np, kernels, PagedEngine, evacuate_streams, params32, prompts,
+                                             "native", card)
+        out["int8"], _ = migration_lane(torch, np, kernels, PagedEngine, evacuate_streams, params32, prompts,
+                                        "int8", card)
+        out["replay"] = replay_lane(torch, np, kernels, PagedEngine, params32, prompts, want, card)
+    n, q, r = out["native"], out["int8"], out["replay"]
+    log(f"21a f32 (TF32 off), {MIG_STREAMS} streamed prompts of {MIG_PROMPT}, {MIG_NEW} new, evacuated after "
+        f"{MIG_WAVES} waves: native pool migrate_ttr_ms {n['migrate_ttr_ms']:.2f}, token loss "
+        f"{n['migrate_token_loss']}, tokens == control {n['tokens_equal']}; int8 pool migrate_ttr_ms "
+        f"{q['migrate_ttr_ms']:.2f}, loss {q['migrate_token_loss']}, equal {q['tokens_equal']}; drain + replay "
+        f"replay_ttr_ms {r['replay_ttr_ms']:.2f}, equal {r['tokens_equal']}; K4 on B {n['k4_launches']} = "
+        f"{LM_CONFIG['num_layers']} x {n['decode_calls']} (int8 {q['k4_launches']} = {LM_CONFIG['num_layers']} x "
+        f"{q['decode_calls']}), on the replay engine {r['k4_launches']} = {LM_CONFIG['num_layers']} x "
+        f"{r['decode_calls']} [{card}]")
+    if SCHED_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def tier_point(torch, np, kernels, PagedEngine, params32, sessions, offload: bool, spill_dir=None,
+               checksum: str = "1"):
+    """21b: revisit both sessions TIER_ROUNDS times through a pool that
+    holds one: the outputs, the least wall of the warm rounds (2 on), the
+    tier counters over them, K4 launches and decode calls."""
+    pages = -(-(TIER_HIST + TIER_NEW) // LM_ENGINE["page_size"]) + 1
+    budget = "1e-9" if spill_dir else "2"
+    with knob_env(SELDON_TPU_KV_OFFLOAD="1" if offload else "0", SELDON_TPU_KV_HOST_BUDGET_GIB=budget,
+                  SELDON_TPU_KV_SPILL_DIR=spill_dir):
+        eng = sched_engine(torch, PagedEngine, params32, dtype="float32", max_slots=1, steps_per_call=4,
+                           max_steps_per_call=8, num_pages=pages)
+    outs, walls, warm0 = [], [], None
+    k4 = calls = 0
+    with knob_env(SELDON_TPU_KV_CHECKSUM=checksum):
+        for r in range(TIER_ROUNDS):
+            if r == 2:
+                warm0 = eng.engine_stats()
+            c0 = decode_calls(eng.engine_stats())
+            sched_sync(torch)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            for p in sessions:
+                outs.append(eng.generate(p, max_new_tokens=TIER_NEW))
+            sched_sync(torch)
+            walls.append(time.perf_counter() - t0)
+            k4 += sum(v for k, v in kernels.launch_counts().items() if k.startswith("paged_decode"))
+            calls += decode_calls(eng.engine_stats()) - c0
+    stats = eng.engine_stats()
+    tier = {k: stats[k] - warm0[k] for k in stats if k.startswith("kv_tier_") and not k.endswith("_bytes")}
+    return outs, min(walls[2:]), tier, stats, k4, calls
+
+
+def tier_paths(torch, np, kernels, PagedEngine, params32, card):
+    """21b: the KV tier, the JAX bench's method (``bench.py:2884-2960``):
+    two returning sessions of TIER_HIST tokens, TIER_NEW new a revisit,
+    float32, offload on and off in turns (on, off, off, on); then one run
+    with a host budget under one page and a spill directory."""
+    from seldon_core_tpu_torch.codec.bufview import crc32c, crc32c_impl
+
+    rng = np.random.default_rng(SEED + 211)
+    sessions = [rng.integers(0, LM_CONFIG["vocab_size"], TIER_HIST).astype(np.int32) for _ in range(2)]
+    runs = {True: [], False: []}
+    with no_tf32(torch):
+        for offload in (True, False, False, True):
+            runs[offload].append(tier_point(torch, np, kernels, PagedEngine, params32, sessions, offload))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_kv_spill_") as spill:
+            disk = tier_point(torch, np, kernels, PagedEngine, params32, sessions, True, spill_dir=spill)
+            spilled = len([n for n in os.listdir(spill) if n.endswith(".srt1")])
+        # where a promotion's time goes: the same run with the CRC32C trailer off
+        no_crc = tier_point(torch, np, kernels, PagedEngine, params32, sessions, True, checksum="0")
+    blob = bytes(64 << 20)
+    t_crc = time.perf_counter()
+    crc32c(blob)
+    crc_mb_s = len(blob) / 1e6 / (time.perf_counter() - t_crc)
+    off_outs = runs[False][0][0]
+    equal = all(same_rows(r[0], off_outs) for r in runs[True] + runs[False] + [disk, no_crc])
+    on_wall = min(r[1] for r in runs[True])
+    off_wall = min(r[1] for r in runs[False])
+    on = runs[True][0][2]
+    hits = on["kv_tier_host_hits"] + on["kv_tier_disk_hits"]
+    hit_pct = 100.0 * hits / max(1, hits + on["kv_tier_misses"])
+    k4 = sum(r[4] for r in runs[True] + runs[False] + [disk, no_crc])
+    calls = sum(r[5] for r in runs[True] + runs[False] + [disk, no_crc])
+    out = {"kv_tier_promote_x": off_wall / max(on_wall, 1e-9), "kv_tier_hit_pct": hit_pct,
+           "kv_tier_on_revisit_ms": on_wall * 1e3, "kv_tier_off_revisit_ms": off_wall * 1e3,
+           "on_walls_ms": [r[1] * 1e3 for r in runs[True]], "off_walls_ms": [r[1] * 1e3 for r in runs[False]],
+           "warm_counters": on, "totals": {k: v for k, v in runs[True][0][3].items() if k.startswith("kv_tier_")},
+           "disk": {"counters": disk[2], "totals": {k: v for k, v in disk[3].items() if k.startswith("kv_tier_")},
+                    "files_left": spilled},
+           "on_no_checksum_revisit_ms": no_crc[1] * 1e3, "crc32c": crc32c_impl(), "crc32c_mb_per_s": crc_mb_s,
+           "tokens_equal": equal, "k4_launches": k4, "decode_calls": calls}
+    log(f"21b KV tier, 2 sessions of {TIER_HIST} tokens, {TIER_NEW} new a revisit, {TIER_ROUNDS} rounds, a "
+        f"one-session pool, f32: tokens equal on and off {equal}; promote {out['kv_tier_promote_x']:.3f}x, hit "
+        f"{hit_pct:.1f}%, revisit {on_wall * 1e3:.2f} ms on / {off_wall * 1e3:.2f} ms off (turns on "
+        f"{out['on_walls_ms']}, off {out['off_walls_ms']}); host hits {on['kv_tier_host_hits']}, disk run: disk hits "
+        f"{disk[2]['kv_tier_disk_hits']}, host hits {disk[2]['kv_tier_host_hits']}; on with the checksum off "
+        f"{no_crc[1] * 1e3:.2f} ms; K4 {k4} = {LM_CONFIG['num_layers']} x {calls}; CRC32C {out['crc32c']} at "
+        f"{crc_mb_s:.0f} MB/s on the host [{card}]")
+    check(equal, "21b: the tokens differ with the KV tier on and off")
+    check(on["kv_tier_host_hits"] > 0, f"21b: no host-tier hit with offload on: {on}")
+    check(disk[2]["kv_tier_disk_hits"] > 0, f"21b: no disk-tier hit with a spill directory: {disk[2]}")
+    check(calls > 0 and k4 == LM_CONFIG["num_layers"] * calls,
+          f"21b: K4 launched {k4} times over {calls} decode calls a layer; expected {LM_CONFIG['num_layers'] * calls}")
+    if SCHED_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def start_lm_worker(http_port: int, grpc_port: int, logfile, env):
+    """A served StreamingLM at the generation config with ``--api BOTH``."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice",
+         "seldon_core_tpu_torch.models.paged.StreamingLM", "--api", "BOTH", "--host", "127.0.0.1",
+         "--http-port", str(http_port), "--grpc-port", str(grpc_port), "--parameters", json.dumps(LM_PARAMS)],
+        cwd=ROOT, stdout=logfile, stderr=subprocess.STDOUT, start_new_session=True, env=env)
+
+
+def failed_reason(base: str, prompt, max_new: int):
+    """One unary request that the server is expected to fail: its HTTP
+    status and ``status.reason``, or the error that ended it."""
+    body = {"data": {"ndarray": [[int(t) for t in prompt]]}, "meta": {"tags": {"max_new_tokens": max_new}}}
+    try:
+        resp = http(base + "/predict", body, timeout=300)
+        return 200, resp.get("status", {}).get("reason", "")
+    except urllib.error.HTTPError as e:
+        try:
+            return e.code, json.loads(e.read()).get("status", {}).get("reason", "")
+        except ValueError:
+            return e.code, ""
+    except (urllib.error.URLError, ConnectionError, OSError) as e:
+        return 0, type(e).__name__
+
+
+class ServedPair:
+    """21c's two CLI StreamingLM processes, started before 21a so their
+    loads overlap the in-process work: A (``SELDON_TPU_EVACUATE_TO`` = B's
+    gRPC port, a journal path) and B."""
+
+    def __init__(self):
+        (self.a_http, a_grpc), (self.b_http, self.b_grpc) = [(free_port(), free_port()) for _ in range(2)]
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_evacuate_")
+        self.journal = os.path.join(self.tmp, "journal.jsonl")
+        self.env = dict(os.environ, **NO_PREFIX_CACHE_ENV)
+        self.logs = {name: os.path.join(self.tmp, f"{name}.log") for name in ("a", "b", "c")}
+        self.files = {name: open(path, "w") for name, path in self.logs.items()}
+        self.procs = {"b": start_lm_worker(self.b_http, self.b_grpc, self.files["b"], self.env),
+                      "a": start_lm_worker(self.a_http, a_grpc, self.files["a"], dict(
+                          self.env, SELDON_TPU_EVACUATE_TO=f"grpc://127.0.0.1:{self.b_grpc}",
+                          SELDON_TPU_DRAIN_JOURNAL=self.journal))}
+
+    def close(self) -> None:
+        for proc in self.procs.values():
+            stop_server(proc)
+        for f in self.files.values():
+            f.close()
+
+
+def served_evacuation(np, pair: ServedPair, card):
+    """21c: A is SIGTERMed with requests decoding and queued: B imports the
+    live ones and finishes them, A's clients get 503 MIGRATING or
+    DRAINING, and a process started on A's journal path replays it."""
+    rng = np.random.default_rng(SEED + 212)
+    prompts = [rng.integers(0, LM_CONFIG["vocab_size"], MIG_PROMPT) for _ in range(SERVED_REQUESTS)]
+    base_a, base_b = f"http://127.0.0.1:{pair.a_http}", f"http://127.0.0.1:{pair.b_http}"
+    procs, logs, journal = pair.procs, pair.logs, pair.journal
+    wait_ready(procs["b"], base_b, logs["b"])
+    wait_ready(procs["a"], base_a, logs["a"])
+    b0 = http(base_b + "/health/status")["jsonData"]["engine"]
+    with ThreadPoolExecutor(SERVED_REQUESTS) as pool:
+        futures = [pool.submit(failed_reason, base_a, p, SERVED_NEW) for p in prompts]
+        deadline = time.perf_counter() + 120
+        while time.perf_counter() < deadline:
+            eng = http(base_a + "/health/status")["jsonData"]["engine"]
+            if eng["active"] == LM_ENGINE["max_slots"] and eng["queued"] > 0 and eng["tokens"] > 64:
+                break
+            time.sleep(0.05)
+        check(eng["active"] == LM_ENGINE["max_slots"] and eng["queued"] > 0,
+              f"21c: A never held full slots and a queue before the SIGTERM: {eng}")
+        t_term = time.perf_counter()
+        os.killpg(procs["a"].pid, signal.SIGTERM)
+        answers = [f.result() for f in futures]
+        procs["a"].wait(timeout=120)
+        exit_s = time.perf_counter() - t_term
+    reasons = sorted({r for _c, r in answers})
+    check(all(code == 503 and reason in ("MIGRATING", "DRAINING") for code, reason in answers),
+          f"21c: A's clients did not all get 503 MIGRATING / DRAINING: {answers}")
+    lines = [json.loads(line) for line in open(journal)] if os.path.exists(journal) else []
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 120:
+        b1 = http(base_b + "/health/status")["jsonData"]["engine"]
+        if b1["completed"] - b0["completed"] >= b1["migrated_in"] - b0["migrated_in"] > 0 and b1["active"] == 0:
+            break
+        time.sleep(0.1)
+    migrated = b1["migrated_in"] - b0["migrated_in"]
+    check(migrated > 0, f"21c: B imported no migrated stream: {b1}")
+    check(b1["completed"] - b0["completed"] >= migrated, f"21c: B did not finish the streams it imported: {b1}")
+    check(len(lines) > 0, "21c: A journaled nothing (its queued streams cannot migrate)")
+    c_http, c_grpc = free_port(), free_port()
+    procs["c"] = start_lm_worker(c_http, c_grpc, pair.files["c"], dict(pair.env, SELDON_TPU_DRAIN_JOURNAL=journal))
+    status_c, _ = wait_ready(procs["c"], f"http://127.0.0.1:{c_http}", logs["c"])
+    replayed = status_c["engine"]["replayed"]
+    check(replayed == len(lines) and not os.path.exists(journal),
+          f"21c: the respawned process replayed {replayed} of {len(lines)} journal lines")
+    a_log = open(logs["a"], errors="replace").read()
+    out = {"requests": SERVED_REQUESTS, "reasons": reasons, "migrated_in": migrated, "journal_lines": len(lines),
+           "replayed": replayed, "sigterm_to_exit_s": exit_s,
+           "evacuation_log": [line for line in a_log.splitlines() if "remote evacuation" in line][-1:]}
+    log(f"21c served: A SIGTERMed with {LM_ENGINE['max_slots']} streams decoding and "
+        f"{SERVED_REQUESTS - LM_ENGINE['max_slots']} queued: B imported {migrated}, A journaled {len(lines)}, its "
+        f"clients got 503 {reasons}, A exited {exit_s:.2f} s after the signal; a process on A's journal path "
+        f"replayed {replayed} [{card}]")
+    return out
+
+
+def evacuation_paths(torch, np, kernels, PagedEngine, evacuate_streams, load_lm_params, card):
+    """Phase 21: drain and replay, live migration and the KV tier at the
+    generation config (21a, 21b in process; 21c served)."""
+    t0 = time.perf_counter()
+    pair = ServedPair()
+    try:
+        params32 = load_lm_params("", LM_CONFIG, SEED + 21, torch.device(SCHED_DEVICE))
+        numbers = {"21a": migration_paths(torch, np, kernels, PagedEngine, evacuate_streams, params32, card),
+                   "21b": tier_paths(torch, np, kernels, PagedEngine, params32, card)}
+        del params32
+        numbers["21c"] = served_evacuation(np, pair, card)
+    finally:
+        pair.close()
+    a = numbers["21a"]
+    numbers["k4_launches"] = (a["native"]["k4_launches"] + a["int8"]["k4_launches"] + a["replay"]["k4_launches"]
+                              + numbers["21b"]["k4_launches"])
+    numbers["decode_calls"] = (a["native"]["decode_calls"] + a["int8"]["decode_calls"] + a["replay"]["decode_calls"]
+                               + numbers["21b"]["decode_calls"])
+    numbers["seconds"] = time.perf_counter() - t0
+    log(f"phase 21: K4 launched {numbers['k4_launches']} = {LM_CONFIG['num_layers']} x {numbers['decode_calls']} "
+        f"decode calls on the resumed, replayed and promoted streams, {numbers['seconds']:.1f} s [{card}]")
+    return numbers
+
+
 def run() -> int:
     try:
         import torch
@@ -5404,6 +5786,7 @@ def run() -> int:
         from seldon_core_tpu_torch import native
         from seldon_core_tpu_torch.models import resnet, transformer, vit
         from seldon_core_tpu_torch.models.cudaserver import CudaServer
+        from seldon_core_tpu_torch.models.disagg import evacuate_streams
         from seldon_core_tpu_torch.models.generate import load_lm_params
         from seldon_core_tpu_torch.models.paged import PagedEngine, StreamingLM
         from seldon_core_tpu_torch.models.registry import WeightRegistry
@@ -5491,6 +5874,8 @@ def run() -> int:
         clock.mark("phase 19")
         spec_numbers = speculative_paths(torch, np, kernels, PagedEngine, SpeculativeGenerator, load_lm_params, card)
         clock.mark("phase 20")
+        evac_numbers = evacuation_paths(torch, np, kernels, PagedEngine, evacuate_streams, load_lm_params, card)
+        clock.mark("phase 21")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -5523,6 +5908,7 @@ def run() -> int:
         "scheduler": sched_numbers,
         "streaming": stream_numbers,
         "speculative": spec_numbers,
+        "evacuation": evac_numbers,
         "phase_seconds": clock.seconds,
         "seconds": time.perf_counter() - t_start,
     }
@@ -5595,6 +5981,13 @@ def run() -> int:
                 "verify_launches": 0,
                 "path": "SpeculativeGenerator's draft model: one launch a draft layer a one-token forward (20b); "
                         "the engine's verify rounds on the gather lane launch none (20a, 20c)"}
+            kernel_line["kernels"][-1]["launches_on_phase21"] = {
+                "launches": evac_numbers["k4_launches"], "decode_calls": evac_numbers["decode_calls"],
+                "by_run": {k: evac_numbers["21a"][k]["k4_launches"] for k in ("native", "int8", "replay")}
+                | {"tier": evac_numbers["21b"]["k4_launches"]},
+                "path": "streams resumed on engine B after an evacuation (native and int8 pools), re-derived by "
+                        "replay after a drain (21a), and continuing from promoted KV-tier chains (21b); one launch "
+                        "a layer a decode call (phase 21)"}
     serving, causal = flash_timings["serving"], flash_timings["causal"]
     kernel_line["kernels"].append({
         "name": "flash_attention",

@@ -129,6 +129,38 @@ class _Hop:
                 span.tags["error"] = True
 
 
+@contextmanager
+def _metered_hop(unit: str, method: str, transport: str):
+    if not _metrics.transport_telemetry_enabled():
+        yield None
+        return
+    hop = _Hop(unit, method, transport)
+    try:
+        yield hop
+    except BaseException:
+        hop.finish(error=True)
+        raise
+    hop.finish()
+
+
+def kv_handoff_hop(unit: str, transport: str = "local"):
+    """Meter one KV-page handoff (prefill worker -> decode pool) on the
+    ``seldon_tpu_transport_*`` series under ``method="kv_handoff"``.  The
+    caller sets the byte counts on the yielded hop: ``zero_copy_bytes``
+    for the in-process lane (the payload passes by reference),
+    ``request_bytes`` for a container shipped over the network.  Yields
+    None when transport telemetry is off."""
+    return _metered_hop(unit, "kv_handoff", transport)
+
+
+def migration_hop(unit: str, transport: str = "local"):
+    """Meter one live-stream migration (evacuating engine -> peer) under
+    ``method="migrate"``, with the byte counts as
+    :func:`kv_handoff_hop`'s.  Yields None when transport telemetry is
+    off."""
+    return _metered_hop(unit, "migrate", transport)
+
+
 def backoff_s(attempt: int, base_s: float = 0.05, cap_s: float = 2.0) -> float:
     """Full-jitter exponential backoff for attempt ``attempt`` (0-based
     retry index): uniform over [0, min(cap, base * 2^attempt)].

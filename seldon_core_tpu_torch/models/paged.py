@@ -72,14 +72,34 @@ heads, head_dim)``, greedy or sampled decoding, token streaming.
   Every emitted token is the target's own argmax, so greedy tokens
   equal plain decode's; sampling is refused.
 
+* **Drain, migration and the KV tier** — ``drain()`` journals every
+  live stream's re-derivation recipe (:func:`journal_entry`) and
+  ``replay()`` re-submits it, so a respawned process re-derives them
+  (``StreamingLM`` writes the journal on SIGTERM to
+  ``SELDON_TPU_DRAIN_JOURNAL`` and replays it on load);
+  ``migrate_export`` / ``migrate_import`` move mid-decode streams to a
+  peer engine with their K/V pages, decode cursor and sampler state, in
+  process (``models/disagg.evacuate_streams``) or as a migration
+  container (``SELDON_TPU_EVACUATE_TO``); ``prefill_export`` /
+  ``submit_prefilled`` hand a prefilled prompt's pages over; and
+  ``SELDON_TPU_KV_OFFLOAD=1`` demotes reclaimed prefix pages to a host /
+  disk tier (``models/kvtier.py``) and promotes them back on a chain hit.
+  Pages move with plain tensor indexing (the JAX engine's ``.at[].set``
+  and gathers are XLA ops, not kernels); a resumed stream decodes on K4.
+
 Decisions of this slice:
 
 * sampling draws from one ``torch.Generator`` per stream, seeded from
   the stream's seed when its prompt is whole (again after an eviction):
   greedy tokens equal the JAX engine's, sampled tokens cannot equal
-  ``jax.random``'s;
-* meshes, drain, migration and the KV tier raise, naming the later
-  slice (``ROADMAP.md`` §A items 8 and 12);
+  ``jax.random``'s.  A migration carries the generator's state in the
+  container's ``key_data`` frame (uint32 words of ``get_state()``); a
+  sampled stream whose state is not one of the engine's generator kind
+  (a JAX key, a CPU state sent to a CUDA engine) is refused with 400
+  ``RNG_STATE_MISMATCH``, and the evacuation journals it;
+* the pool is always the split layout: a flat (rank-4) container is
+  refused with the JAX engine's geometry message, never reshaped;
+* meshes raise, naming the later slice (``ROADMAP.md`` §A item 12);
 * an unknown ``SELDON_TPU_CHUNK_IMPL`` raises, where the JAX engine runs
   the ring chunk for it;
 * ``model_uri`` and an adapter's ``{"uri": ...}`` name flax msgpack
@@ -94,6 +114,7 @@ import functools
 import json
 import logging
 import math
+import os
 import queue
 import threading
 import time
@@ -230,7 +251,6 @@ def paged_ctx_buckets(device: torch.device) -> int:
 
 # option -> where ROADMAP.md §A queues it
 _LATER_SLICES = {
-    "drain": "8.10, drain/migration/KV tier",
     "tp/dp/mesh": "queue item 12, parallel/*",
 }
 
@@ -250,6 +270,57 @@ def check_ported_options(*, tp=None, dp=None, mesh=None) -> None:
     if int(tp or 0) > 1 or int(dp or 0) > 1 or bool(mesh):
         raise _refuse("tp/dp/mesh")
     paged_kv_dtype_mode()
+
+
+# the KV tier's counters: engine_stats sheds them with the tier off
+_TIER_COUNTER_KEYS = (
+    "kv_tier_demotions", "kv_tier_promotions", "kv_tier_host_hits",
+    "kv_tier_disk_hits", "kv_tier_misses", "kv_tier_evictions",
+    "kv_tier_bytes_demoted", "kv_tier_bytes_promoted",
+)
+
+
+def journal_entry(*, req_id: Any, prompt: List[int], max_new_tokens: int, temperature: float = 0.0, top_k: int = 0,
+                  eos_id: int = -1, seed: int = 0, priority: int = 0, deadline_remaining_ms: Optional[float] = None,
+                  streamed: int = 0, stream_tokens: bool = False, tokens_decoded: int = 0,
+                  adapter: Optional[str] = None) -> Dict[str, Any]:
+    """The drain journal's entry, the one key set :meth:`PagedEngine.replay`
+    reads (the JAX package's ``paged.py:1343``): a live stream's
+    (:meth:`PagedEngine._journal_entry`) and a migration payload's
+    (``models/disagg.migration_journal_entry``) both go through here."""
+    return {
+        "req_id": req_id,
+        "prompt": prompt,
+        "max_new_tokens": int(max_new_tokens),
+        "temperature": float(temperature),
+        "top_k": int(top_k),
+        "eos_id": int(eos_id),
+        "seed": int(seed),
+        "priority": int(priority),
+        "deadline_remaining_ms": deadline_remaining_ms,
+        "streamed": int(streamed),
+        "stream_tokens": bool(stream_tokens),
+        "tokens_decoded": int(tokens_decoded),
+        "adapter": adapter,
+    }
+
+
+def _host_tensor(x) -> torch.Tensor:
+    """A payload's page stack or scale table as a CPU tensor: a tensor
+    as it is, a numpy array as one (a bfloat16 array of the JAX package,
+    ``ml_dtypes``, through its 16-bit words)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(torch.bfloat16)
+    if not (a.flags.writeable and a.flags.c_contiguous):
+        a = np.array(a)
+    return torch.from_numpy(a)
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).removeprefix("torch.")
 
 
 # ---------------------------------------------------------------------------
@@ -657,7 +728,8 @@ class _Stream:
                  "event", "result", "error", "slot", "pages", "cancelled", "generator", "adapter",
                  "adapter_slot", "adapter_pinned", "cached_len", "prefilled", "priority", "deadline",
                  "preempted", "t_submit", "t_prefill_start", "t_first_token", "t_finish", "token_queue",
-                 "streamed", "pending", "draft_hint")
+                 "streamed", "pending", "draft_hint", "kv_export", "kv_import", "kv_payload", "kv_imported",
+                 "tier_promote")
 
     def __init__(self, req_id, prompt, max_new, temperature, top_k, eos_id, seed, adapter_slot=0):
         self.req_id = req_id
@@ -711,6 +783,20 @@ class _Stream:
         # and an oracle draft's expected continuation
         self.pending: Optional[int] = None
         self.draft_hint: Optional[np.ndarray] = None
+        # KV handoff and migration: a kv_export stream finishes at the end
+        # of its prefill with its pages read back into kv_payload; a
+        # kv_import stream carries a payload whose pages are written at
+        # admission in place of a prefill, and is kv_imported once they
+        # are (drain does not journal either)
+        self.kv_export = False
+        self.kv_import: Optional[Dict[str, Any]] = None
+        self.kv_payload: Optional[Dict[str, Any]] = None
+        self.kv_imported = False
+        # the KV tier: admission's chain walk hit the tier,
+        # {"pages": fresh pool pages, "entries": the popped entries},
+        # written into the pool before the stream's first device work (or
+        # put back into the tier if the stream dies first)
+        self.tier_promote: Optional[Dict[str, Any]] = None
 
 
 @dataclass(slots=True)
@@ -971,9 +1057,39 @@ class PagedEngine:
                           # layer-step: layers x (steps + bucketed_steps))
                           "bucketed_chunks": 0, "bucketed_steps": 0,
                           # speculative engine: drafts proposed and accepted
-                          "spec_drafted": 0, "spec_accepted": 0}
+                          "spec_drafted": 0, "spec_accepted": 0,
+                          # drain: live streams journaled, journal entries
+                          # re-submitted here
+                          "drained": 0, "replayed": 0,
+                          # KV handoff: prefills exported as page payloads,
+                          # payloads written into this pool; live migration:
+                          # mid-decode streams exported to / imported from
+                          # a peer
+                          "kv_exports": 0, "kv_imports": 0, "migrated_out": 0, "migrated_in": 0,
+                          # wall seconds in decode chunks and prefill
+                          # waves (predict_cost_s prices a request by them)
+                          "chunk_wall_s": 0.0, "prefill_wall_s": 0.0,
+                          # the KV tier (shed from engine_stats when off):
+                          # pages demoted, chains promoted, promoted pages
+                          # per level, uncached full pages the tier also
+                          # missed, entries its budgets dropped, and the
+                          # container bytes each way
+                          **{k: 0 for k in _TIER_COUNTER_KEYS}}
         # decode chunks by their step count (the ladder's trace)
         self._chunk_steps: Dict[int, int] = {}
+        # the KV tier (SELDON_TPU_KV_OFFLOAD=1): a reclaimed prefix page is
+        # staged here as (key, parent, tokens, page) and gathered to the
+        # host by the next _tier_flush, before any write can reach it
+        self._kv_tier = None
+        self._tier_pending: List[Tuple[int, int, Tuple[int, ...], int]] = []
+        if _knobs.flag("SELDON_TPU_KV_OFFLOAD"):
+            from seldon_core_tpu_torch.models.kvtier import HostKvTier
+
+            self._kv_tier = HostKvTier(
+                budget_bytes=int(float(_knobs.raw("SELDON_TPU_KV_HOST_BUDGET_GIB", "4") or 4) * (1 << 30)),
+                spill_dir=_knobs.raw("SELDON_TPU_KV_SPILL_DIR") or None,
+                spill_budget_bytes=int(float(_knobs.raw("SELDON_TPU_KV_SPILL_GIB", "16") or 16) * (1 << 30)),
+            )
 
         # multi-LoRA: a slot-granular factor pool beside the KV pool (slot 0
         # = the zero adapter), and the adapter table, guarded by _lock:
@@ -1168,7 +1284,8 @@ class PagedEngine:
     def submit(self, prompt, max_new_tokens: int = 32, temperature: float = 0.0, top_k: int = 0,
                eos_id: int = -1, seed: int = 0, adapter: Optional[str] = None, priority: int = 0,
                deadline: Optional[float] = None, stream_tokens: bool = False,
-               draft_hint: Optional[np.ndarray] = None) -> _Stream:
+               draft_hint: Optional[np.ndarray] = None, kv_export: bool = False,
+               kv_import: Optional[Dict[str, Any]] = None) -> _Stream:
         """Queue one prompt (1-D int array).  Returns a stream handle whose
         ``event`` fires when ``result`` (``(max_new,)`` ids) is ready.
         ``stream_tokens`` gives it a ``token_queue``: each decode chunk's
@@ -1191,7 +1308,14 @@ class PagedEngine:
         ``draft_hint`` (a speculative engine with ``draft="oracle"``): the
         continuation the caller expects, drafted from in place of a
         lookup.  A speculative engine refuses ``temperature > 0`` and
-        keeps ``draft_k + 1`` positions of headroom past ``max_new``."""
+        keeps ``draft_k + 1`` positions of headroom past ``max_new``.
+
+        ``kv_export``: the stream finishes at the end of its prefill with
+        its pages read back into ``stream.kv_payload`` (no decode);
+        ``kv_import``: a checked page payload written into the pool at
+        admission in place of a prefill.  :meth:`prefill_export`,
+        :meth:`submit_prefilled` and :meth:`migrate_import` are the
+        fronts that check payloads."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         plen = len(prompt)
         if plen < 1:
@@ -1240,6 +1364,8 @@ class PagedEngine:
                 stream.priority = int(priority)
                 stream.deadline = float(deadline) if deadline is not None else None
                 stream.t_submit = time.time()
+                stream.kv_export = bool(kv_export)
+                stream.kv_import = kv_import
                 if stream_tokens:
                     stream.token_queue = queue.Queue()
                 if draft_hint is not None:
@@ -1462,10 +1588,15 @@ class PagedEngine:
 
     def _evict_cached_locked(self) -> None:
         """Reclaim the least recently used cached page: unregister it from
-        the prefix index and return it to the free list."""
+        the prefix index and return it to the free list (staged for the
+        KV tier first when it is on)."""
         page, entry = self._lru.popitem(last=False)
         self._prefix_index.pop(entry.key, None)
         self._page_entry.pop(page, None)
+        if self._kv_tier is not None:
+            # demoted, not discarded: its K/V stays valid until the next
+            # pool write, and _tier_flush runs before every one
+            self._tier_pending.append((entry.key, entry.parent, entry.tokens, page))
         self._free_pages.append(page)
         self._counters["prefix_evictions"] += 1
 
@@ -1554,6 +1685,10 @@ class PagedEngine:
                     e = _CachedPrefix(key, page, toks, parent)
                     self._prefix_index[key] = e
                     self._page_entry[page] = e
+                    if self._kv_tier is not None:
+                        # one residency a key: the pool's copy supersedes
+                        # a demoted one
+                        self._kv_tier.discard(key)
             elif entry.parent != parent or entry.tokens != toks:
                 break
             parent = key
@@ -1562,7 +1697,8 @@ class PagedEngine:
         """The ``SELDON_TPU_PAGED_DEBUG=1`` audit: the non-trash pages
         partition into free, cached and mapped; refcounts equal the live
         block tables holding each page; every LRU entry agrees with the
-        prefix index; the adapter slots balance."""
+        prefix index; the adapter slots balance; the KV tier is sound and
+        shares no key with the prefix index."""
         problems: List[str] = []
         free = list(self._free_pages)
         free_set = set(free)
@@ -1593,6 +1729,13 @@ class PagedEngine:
                     or self._page_entry.get(p) is not entry:
                 problems.append(f"LRU entry for page {p} inconsistent with index")
         problems.extend(self._adapter_problems_locked())
+        if self._kv_tier is not None:
+            # the tier's own levels and bytes, and no key both in the pool
+            # and in the tier (registration discards, promotion pops)
+            problems.extend(self._kv_tier.audit())
+            dual = self._kv_tier.keys() & set(self._prefix_index)
+            if dual:
+                problems.append(f"prefix keys resident in HBM AND the KV tier: {sorted(dual)}")
         if problems:
             raise RuntimeError("paged allocator invariant violation: " + "; ".join(problems))
 
@@ -1654,6 +1797,7 @@ class PagedEngine:
         """Error-terminate one stream, queued or in a slot (shed, expiry):
         slot and pages released, the waiter woken with ``exc``."""
         stream.error = exc
+        self._tier_putback_locked(stream)
         self._release_slot_locked(stream)
         stream.slot = None
         stream.t_finish = time.time()
@@ -1726,16 +1870,27 @@ class PagedEngine:
 
     def _try_admit_locked(self, slot: int, stream: _Stream) -> bool:
         """One admission of ``stream`` into ``slot``: the prefix match
-        mapped (refcount + 1), fresh pages for the rest of the prompt;
-        False rolls the match back, deepest page re-parked first."""
+        mapped (refcount + 1), the chain walked on into the KV tier when
+        it is on (each popped page is promoted in place of its prefill),
+        fresh pages for the rest of the prompt and, for a migration, its
+        decoded tokens; False rolls the match back (deepest page re-parked
+        first) and puts the tier entries back.  A KV import maps no shared
+        page: its write would land in pages other streams read."""
         plen = len(stream.prompt)
-        matched = self._match_prefix_locked(stream.prompt, self._prefix_root_for(stream.adapter))
+        matched = ([] if stream.kv_import is not None
+                   else self._match_prefix_locked(stream.prompt, self._prefix_root_for(stream.adapter)))
         for e in matched:
             if int(self._page_ref[e.page]) == 0:
                 self._lru.pop(e.page, None)
             self._page_ref[e.page] += 1
-        fresh = self._alloc_locked(-(-plen // self.page_size) - len(matched))
+        tier_hits = self._tier_walk_locked(stream, matched)
+        extra = 0
+        if stream.kv_import is not None and stream.kv_import.get("tokens") is not None:
+            extra = len(stream.kv_import["tokens"])
+        fresh = self._alloc_locked(-(-(plen + extra) // self.page_size) - len(matched))
         if fresh is None:
+            for key, parent, toks, _payload, blob, _level in reversed(tier_hits):
+                self._kv_tier.put(key, parent, toks, blob)
             for e in reversed(matched):
                 self._page_ref[e.page] -= 1
                 if int(self._page_ref[e.page]) == 0:
@@ -1752,6 +1907,18 @@ class PagedEngine:
                 self._counters["prefix_tokens_saved"] += stream.cached_len
             else:
                 self._counters["prefix_misses"] += 1
+        if tier_hits:
+            # the tier's pages land in the first fresh pages (they continue
+            # the matched chain in table order) and the prefill cursor jumps
+            # past them; the prefix counters above keep counting the pool
+            n_t = len(tier_hits)
+            stream.tier_promote = {"pages": fresh[:n_t], "entries": tier_hits}
+            stream.cached_len = (len(matched) + n_t) * self.page_size
+            stream.prefilled = stream.cached_len
+            self._counters["kv_tier_promotions"] += 1
+            for _key, _par, _toks, _payload, blob, level in tier_hits:
+                self._counters["kv_tier_host_hits" if level == "host" else "kv_tier_disk_hits"] += 1
+                self._counters["kv_tier_bytes_promoted"] += len(blob)
         if stream.preempted:
             stream.preempted = False
             self._counters["restored"] += 1
@@ -1762,6 +1929,37 @@ class PagedEngine:
         # the lane's adapter slot id: every call gathers its factors by it
         self._adapter_slots[slot] = stream.adapter_slot
         return True
+
+    def _tier_walk_locked(self, stream: _Stream, matched: List[_CachedPrefix]) -> list:
+        """The chain walk past the pool's match into the KV tier: each
+        full prompt page the tier holds is popped (the admission owns
+        it), up to the first miss; the uncached full pages from there
+        count as ``kv_tier_misses``.  A container whose CRC fails is a
+        miss (the tier has dropped it)."""
+        tier = self._kv_tier
+        if tier is None or stream.kv_import is not None or not self._prefix_cache_enabled:
+            return []
+        from seldon_core_tpu_torch.codec.tensor import PayloadError
+
+        ps = self.page_size
+        n_full = (len(stream.prompt) - 1) // ps
+        parent = matched[-1].key if matched else self._prefix_root_for(stream.adapter)
+        hits = []
+        for i in range(len(matched), n_full):
+            toks = tuple(int(t) for t in stream.prompt[i * ps:(i + 1) * ps])
+            key = prefix_chain_key(parent, toks)
+            try:
+                got = tier.pop(key, parent, toks)
+            except PayloadError as exc:
+                logger.warning("KV tier container for chain key %d rejected: %s", key, exc)
+                got = None
+            if got is None:
+                self._counters["kv_tier_misses"] += n_full - i
+                break
+            payload, blob, level = got
+            hits.append((key, parent, toks, payload, blob, level))
+            parent = key
+        return hits
 
     def _admit_locked(self) -> List[Tuple[_Stream, int]]:
         """Move queued streams into slots; returns ``(stream, prompt
@@ -1832,33 +2030,49 @@ class PagedEngine:
         """One wave's prefill work, ``(stream, start, n)`` slices with
         ``start`` page-aligned: whole uncached prompts through the
         from-zero call, everything else (a cached prefix, a later slice)
-        through the cached-suffix call, one call per bucket.  Returns the
+        through the cached-suffix call, one call per bucket; a KV import's
+        pages are written first, in place of its prefill.  Returns the
         streams whose prompt is now whole; their full prompt pages enter
-        the prefix index."""
+        the prefix index, and a ``kv_export`` stream resolves with its
+        payload instead of decoding."""
         if not slices:
             return []
+        # staged demotions are gathered before this wave can overwrite them
+        self._tier_flush()
+        t0 = time.perf_counter()
         t_admit = time.time()
         plain: Dict[int, List[Tuple[_Stream, int, int]]] = {}
         cached: Dict[int, List[Tuple[_Stream, int, int]]] = {}
         tokens = 0
+        completed: List[_Stream] = []
         for stream, start, n in slices:
             if not stream.t_prefill_start:
                 stream.t_prefill_start = t_admit
+            if stream.kv_import is not None:
+                self._import_kv_stream(stream)
+                completed.append(stream)
+                continue
             bucket = next(b for b in self.prompt_buckets if b >= n)
             target = plain if start == 0 and n == len(stream.prompt) else cached
             target.setdefault(bucket, []).append((stream, start, n))
             tokens += n
-        completed: List[_Stream] = []
         with torch.inference_mode(), self._materialized():
             for bucket, group in plain.items():
                 completed.extend(self._prefill_group(bucket, group, use_cache=False))
             for bucket, group in cached.items():
                 completed.extend(self._prefill_group(bucket, group, use_cache=True))
+        calls = len(plain) + len(cached)
         with self._lock:
-            self._counters["prefill_tokens"] += tokens
-            self._counters["prefill_chunks"] += len(plain) + len(cached)
+            if calls:
+                self._counters["prefill_wall_s"] += time.perf_counter() - t0
+                self._counters["prefill_tokens"] += tokens
+                self._counters["prefill_chunks"] += calls
             for stream in completed:
                 self._register_prefix_locked(stream)
+        exports = [s for s in completed if s.kv_export]
+        if exports:
+            self._export_streams(exports)
+            completed = [s for s in completed if not s.kv_export]
         return completed
 
     def _prefill_group(self, bucket: int, group: List[Tuple[_Stream, int, int]], use_cache: bool) -> List[_Stream]:
@@ -1929,12 +2143,452 @@ class PagedEngine:
             # readback for the group
             for (_i, stream), tok in zip(finals, torch.argmax(final_logits, dim=-1).tolist()):
                 stream.pending = int(tok)
+        exports = [(j, stream) for j, (_i, stream) in enumerate(finals) if stream.kv_export]
+        if exports:
+            # the handoff carries the last-token logits: the decode engine
+            # samples without a forward of its own
+            last_np = final_logits.float().cpu().numpy()
+            for j, stream in exports:
+                stream.kv_payload = {"last_logits": last_np[j]}
         for _i, stream in finals:
             # seeded when the prompt is whole, so an evicted stream's
             # re-derived run draws the same tokens again
             stream.generator = (torch.Generator(device=dev).manual_seed(stream.seed % (1 << 63))
                                 if stream.temperature > 0 else None)
         return [s for _i, s in finals]
+
+    # ---- KV handoff, live migration and the KV tier ------------------------
+
+    def _import_kv_stream(self, stream: _Stream) -> None:
+        """Write an imported payload's pages into this pool (plain tensor
+        indexing, the JAX engine's ``.at[:, pages].set``) and install the
+        stream's decode state: its last logits, its sampler, and for a
+        migration its decoded tokens and streaming cursor.  Afterwards it
+        decodes as a stream that prefilled here."""
+        self._tier_flush()
+        payload = stream.kv_import
+        plen = len(stream.prompt)
+        mig_tokens = payload.get("tokens")
+        extra = 0 if mig_tokens is None else len(mig_tokens)
+        total = plen + extra
+        slot = stream.slot
+        dev = self.device
+        last = np.asarray(payload["last_logits"], np.float32).reshape(-1)
+        with torch.inference_mode():
+            pages = torch.tensor(stream.pages[: -(-total // self.page_size)], dtype=torch.long, device=dev)
+            for pool, name in ((self.pages_k, "k"), (self.pages_v, "v"), (self.scales_k, "k_scales"),
+                               (self.scales_v, "v_scales")):
+                if pool is not None:
+                    pool[:, pages] = _host_tensor(payload[name]).to(dev)
+            self._logits[slot] = torch.tensor(last, device=dev)
+        stream.generator = self._import_sampler(stream, payload.get("key_data"))
+        if self.speculative is not None:
+            pending = payload.get("pending")
+            stream.pending = int(pending) if pending is not None else int(np.argmax(last))
+        stream.prefilled = plen
+        migration = bool(payload.get("migration"))
+        if extra:
+            stream.tokens = [int(t) for t in np.asarray(mig_tokens).reshape(-1)]
+        if migration:
+            stream.streamed = int(payload.get("streamed") or 0)
+        with self._lock:
+            if extra:
+                # decode resumes mid-sequence, over the decoded tokens' K/V too
+                self._lengths[slot] = total
+            stream.kv_import = None  # consumed: the host copy goes
+            stream.kv_imported = True
+            self._counters["migrated_in" if migration else "kv_imports"] += 1
+
+    def _import_sampler(self, stream: _Stream, key_data) -> Optional[torch.Generator]:
+        """A sampled stream's generator on this engine's device: the
+        source's state when the payload carries one (the same sample path
+        goes on), else seeded from the stream's seed as a prefill does."""
+        if stream.temperature <= 0:
+            return None
+        gen = torch.Generator(device=self.device)
+        words = np.asarray(key_data if key_data is not None else [], np.uint32).reshape(-1)
+        if words.size:
+            gen.set_state(torch.from_numpy(words.view(np.uint8).copy()))
+        else:
+            gen.manual_seed(stream.seed % (1 << 63))
+        return gen
+
+    def _check_sampler_state(self, temperature: float, key_data, kind: str) -> None:
+        """A sampled stream resumes only from a state of this engine's
+        generator kind: a JAX key or another device's state is a 400."""
+        words = np.asarray(key_data if key_data is not None else [], np.uint32).reshape(-1)
+        if temperature <= 0 or not words.size:
+            return
+        want = torch.Generator(device=self.device).get_state().numel()
+        if words.size * 4 != want:
+            raise MicroserviceError(
+                f"{kind} key_data carries {words.size * 4} bytes of sampler state, but this engine's "
+                f"{self.device.type} torch.Generator state is {want} bytes: a sampled stream resumes only from a "
+                "state of its engine's generator kind", status_code=400, reason="RNG_STATE_MISMATCH")
+
+    def _tier_flush(self) -> None:
+        """Gather every staged demotion to the host as one-page handoff
+        containers and hand them to the KV tier.  It runs before every
+        pool write (a prefill wave, an import, a promotion, a decode
+        chunk): a staged page sits on the free list with its K/V valid
+        only until the next write, and the gather is ordered before that
+        write on the device and finished (read back) before it is
+        enqueued.  A chain demoted in this wave promotes from the next."""
+        tier = self._kv_tier
+        if tier is None:
+            return
+        with self._lock:
+            if not self._tier_pending:
+                return
+            pending, self._tier_pending = self._tier_pending, []
+            # a key registered again since it was staged is in the pool
+            pending = [e for e in pending if e[0] not in self._prefix_index]
+        if not pending:
+            return
+        from seldon_core_tpu_torch.codec.bufview import pack_kv_handoff
+
+        host = self._gather_pages([e[3] for e in pending])
+        demoted = bytes_demoted = evicted = 0
+        for i, (key, parent, toks, _page) in enumerate(pending):
+            payload = {
+                "prompt": np.asarray(toks, np.int32),
+                # a demoted page has no next-token logits; promotion never reads the frame
+                "last_logits": np.zeros((1,), np.float32),
+                **{name: t[:, i:i + 1] for name, t in host.items()},
+                "page_size": self.page_size,
+                "layout": "split",
+            }
+            blob = pack_kv_handoff(payload)
+            evicted += tier.put(key, parent, toks, blob)
+            demoted += 1
+            bytes_demoted += len(blob)
+        with self._lock:
+            self._counters["kv_tier_demotions"] += demoted
+            self._counters["kv_tier_bytes_demoted"] += bytes_demoted
+            self._counters["kv_tier_evictions"] += evicted
+
+    def _tier_promote_ready(self) -> None:
+        """Write every newly admitted stream's promoted tier chain into its
+        fresh pages, right after the admission wave and before any prefill
+        or decode touches the streams (staged demotions gathered first)."""
+        if self._kv_tier is None:
+            return
+        self._tier_flush()
+        with self._lock:
+            todo = []
+            for s in self._slots:
+                if s is not None and s.tier_promote is not None:
+                    todo.append(s.tier_promote)
+                    s.tier_promote = None
+        if not todo:
+            return
+        with torch.inference_mode():
+            for tp in todo:
+                pages = torch.tensor(tp["pages"], dtype=torch.long, device=self.device)
+                for pool, name in ((self.pages_k, "k"), (self.pages_v, "v"), (self.scales_k, "k_scales"),
+                                   (self.scales_v, "v_scales")):
+                    if pool is not None:
+                        pool[:, pages] = torch.cat([_host_tensor(e[3][name]) for e in tp["entries"]],
+                                                   dim=1).to(self.device)
+
+    def _tier_putback_locked(self, stream: _Stream) -> None:
+        """Return a promotion the stream never consumed to the tier (it
+        died between admission and its promotion): its pages landed
+        nowhere, and dropping them would lose them."""
+        tp = stream.tier_promote
+        if tp is None:
+            return
+        stream.tier_promote = None
+        if self._kv_tier is None:
+            return
+        for key, parent, toks, _payload, blob, _level in reversed(tp["entries"]):
+            self._kv_tier.put(key, parent, toks, blob)
+
+    def _gather_pages(self, pages: List[int]) -> Dict[str, Any]:
+        """The K/V of ``pages`` on the host: CPU tensors of the pool's
+        dtype, and an int8 pool's float32 scale tables."""
+        with torch.inference_mode():
+            idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+            out: Dict[str, Any] = {"k": self.pages_k[:, idx].cpu(), "v": self.pages_v[:, idx].cpu()}
+            if self._kv_int8:
+                out["k_scales"] = self.scales_k[:, idx].cpu().numpy()
+                out["v_scales"] = self.scales_v[:, idx].cpu().numpy()
+        return out
+
+    def _export_streams(self, streams: List[_Stream]) -> None:
+        """Resolve ``kv_export`` streams with their handoff payload
+        (prompt, the prompt's pages, last-token logits), then free their
+        pages the usual way (the full prompt pages stay in the prefix
+        index)."""
+        for stream in streams:
+            P = -(-len(stream.prompt) // self.page_size)
+            payload = {
+                "prompt": np.asarray(stream.prompt, np.int32),
+                **self._gather_pages(stream.pages[:P]),
+                "last_logits": np.asarray((stream.kv_payload or {}).get("last_logits"), np.float32).reshape(-1),
+                "page_size": self.page_size,
+                "layout": "split",
+            }
+            with self._lock:
+                stream.kv_payload = payload
+                self._release_slot_locked(stream)
+                stream.slot = None
+                self._release_adapter_locked(stream)
+                self._counters["kv_exports"] += 1
+                self._counters["completed"] += 1
+                stream.event.set()
+
+    def prefill_export(self, prompt, *, seed: int = 0, priority: int = 0, deadline: Optional[float] = None,
+                       drive: bool = True, adapter: Optional[str] = None) -> Dict[str, Any]:
+        """Prefill ``prompt`` and return its KV-page handoff payload for
+        :meth:`submit_prefilled` on a decode engine.  ``drive=False`` when
+        another thread steps this engine."""
+        stream = self.submit(np.asarray(prompt), max_new_tokens=1, seed=seed, priority=priority, deadline=deadline,
+                             kv_export=True, adapter=adapter)
+        if drive:
+            while not stream.event.is_set() and self.has_work():
+                self.step()
+        stream.event.wait()
+        if stream.error is not None:
+            raise stream.error
+        return stream.kv_payload
+
+    def _check_pages(self, k: torch.Tensor, v: torch.Tensor, P: int, kind: str, what: str) -> None:
+        """Payload pages must fit this pool: ``(layers, P, page_size,
+        heads, head_dim)`` in the pool's dtype (a flat, rank-4 stack of a
+        JAX flat pool fails here), or their write would serve garbage."""
+        want = (self.num_layers, P) + tuple(self.pages_k.shape[2:])
+        for name, arr in (("k", k), ("v", v)):
+            if tuple(arr.shape) != want:
+                raise MicroserviceError(
+                    f"{kind} {name} shape {tuple(arr.shape)} does not fit this engine's pool geometry {want} "
+                    f"({what}, page tail)", status_code=400, reason="KV_LAYOUT_MISMATCH")
+            if arr.dtype != self.pages_k.dtype:
+                raise MicroserviceError(f"{kind} {name} dtype {_dtype_name(arr)} != pool dtype "
+                                        f"{_dtype_name(self.pages_k)}", status_code=400, reason="KV_LAYOUT_MISMATCH")
+
+    def _check_page_size(self, payload: Dict[str, Any], kind: str, who: str) -> None:
+        ps = int(payload.get("page_size", self.page_size))
+        if ps != self.page_size:
+            raise MicroserviceError(f"{kind} page_size {ps} != engine page_size {self.page_size}: {who} must share "
+                                    "one pool configuration", status_code=400, reason="KV_LAYOUT_MISMATCH")
+
+    def _check_last_logits(self, last: np.ndarray, kind: str) -> None:
+        if last.shape[0] != self.vocab_size:
+            raise MicroserviceError(f"{kind} last_logits carries {last.shape[0]} entries, engine vocab is "
+                                    f"{self.vocab_size}", status_code=400, reason="KV_LAYOUT_MISMATCH")
+
+    def submit_prefilled(self, payload: Dict[str, Any], **kw) -> _Stream:
+        """Admit a prefill worker's KV-page payload for decode; ``kw``
+        goes to :meth:`submit`.  The payload is checked against this
+        pool's geometry first: a write of mismatched pages would serve
+        garbage rather than raise."""
+        prompt = np.asarray(payload["prompt"], np.int32).reshape(-1)
+        k, v = _host_tensor(payload["k"]), _host_tensor(payload["v"])
+        last = np.asarray(payload["last_logits"], np.float32).reshape(-1)
+        self._check_page_size(payload, "KV payload", "prefill and decode workers")
+        P = -(-len(prompt) // self.page_size)
+        self._check_pages(k, v, P, "KV payload", "layers, prompt pages")
+        self._check_last_logits(last, "KV payload")
+        kv = {"k": k, "v": v, "last_logits": last}
+        if self._kv_int8:
+            kv["k_scales"], kv["v_scales"] = self._validate_kv_scales(payload, P, "KV payload")
+        return self.submit(prompt, kv_import=kv, **kw)
+
+    def _validate_kv_scales(self, payload: Dict[str, Any], P: int, kind: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        """An int8 payload's per-page scale tables against this pool: an
+        int8 page without its scale would serve garbage rather than raise."""
+        out = []
+        for name in ("k_scales", "v_scales"):
+            arr = payload.get(name)
+            if arr is None:
+                raise MicroserviceError(
+                    f"{kind} carries int8 pages but no {name} frame — int8 KV containers must carry one f32 "
+                    "scale per page per k/v", status_code=400, reason="KV_LAYOUT_MISMATCH")
+            arr = _host_tensor(arr)
+            want = (self.num_layers, P)
+            if tuple(arr.shape) != want:
+                raise MicroserviceError(f"{kind} {name} shape {tuple(arr.shape)} does not fit the scale-table "
+                                        f"geometry {want} (layers, pages)", status_code=400,
+                                        reason="KV_LAYOUT_MISMATCH")
+            if arr.dtype != torch.float32:
+                raise MicroserviceError(f"{kind} {name} dtype {_dtype_name(arr)} != float32", status_code=400,
+                                        reason="KV_LAYOUT_MISMATCH")
+            out.append(arr)
+        return out[0], out[1]
+
+    def migrate_export(self, streams=None) -> List[Tuple[Dict[str, Any], _Stream]]:
+        """Snapshot mid-decode streams for live migration to a peer: the
+        K/V pages of the prompt and the decoded tokens, the decode cursor
+        (the tokens so far), the last logits, the sampler's state, the
+        sampling terms, the deadline left, the priority, the adapter and
+        the streaming cursor: what :meth:`migrate_import` needs to resume
+        at the exact next token.  Call with the step loop quiesced.
+
+        Exports those of ``streams`` (default: every stream in a slot)
+        that are whole (prefill done, not an export or an import), not on
+        a speculative engine (their draft state stays here: they fall
+        back to the drain journal), and whose cache length is their
+        prompt plus their tokens.  An exported stream leaves this engine
+        (slot and pages released, ``migrated_out`` counted) with its
+        waiter unresolved: the caller adopts it on a peer
+        (``migrate_import(payload, stream=s)``) or fails it and journals
+        its recipe."""
+        now = time.monotonic()
+        with self._lock:
+            candidates = list(streams) if streams is not None else [s for s in self._slots if s is not None]
+            exportable = [s for s in candidates
+                          if s.slot is not None and self._slots[s.slot] is s and not s.cancelled
+                          and not s.kv_export and s.kv_import is None and s.prefilled >= len(s.prompt)
+                          and self.speculative is None]
+        out: List[Tuple[Dict[str, Any], _Stream]] = []
+        for s in exportable:
+            slot = s.slot
+            total = len(s.prompt) + len(s.tokens)
+            if int(self._lengths[slot]) != total:
+                # cursor and cache disagree: no inconsistent snapshot
+                logger.warning("migrate_export skipping req %d: cache length %d != prompt+decoded %d", s.req_id,
+                               int(self._lengths[slot]), total)
+                continue
+            state = (np.frombuffer(s.generator.get_state().numpy().tobytes(), np.uint32).copy()
+                     if s.generator is not None else np.zeros((0,), np.uint32))
+            payload = {
+                "req_id": s.req_id,
+                "prompt": np.asarray(s.prompt, np.int32),
+                "tokens": np.asarray(s.tokens, np.int32),
+                **self._gather_pages(s.pages[: -(-total // self.page_size)]),
+                "last_logits": self._logits[slot].float().cpu().numpy(),
+                "key_data": state,
+                "max_new_tokens": int(s.max_new),
+                "temperature": float(s.temperature),
+                "top_k": int(s.top_k),
+                "eos_id": int(s.eos_id),
+                "seed": int(s.seed),
+                "priority": int(s.priority),
+                "deadline_remaining_ms": max(0.0, (s.deadline - now) * 1000.0) if s.deadline is not None else None,
+                "streamed": int(s.streamed),
+                "stream_tokens": s.token_queue is not None,
+                "adapter": s.adapter,
+                "pending": s.pending,
+                "page_size": self.page_size,
+                "layout": "split",
+            }
+            with self._lock:
+                if self._slots[slot] is not s:
+                    continue  # retired meanwhile
+                self._release_slot_locked(s)
+                s.slot = None
+                self._release_adapter_locked(s)
+                self._counters["migrated_out"] += 1
+            out.append((payload, s))
+        return out
+
+    def migrate_import(self, payload: Dict[str, Any], *, stream: Optional[_Stream] = None,
+                       stream_tokens: Optional[bool] = None) -> _Stream:
+        """Admit a :meth:`migrate_export` payload: its pages are written
+        at admission, its cursor, sampler and logits installed as the
+        source held them, and decode resumes at the exact next token.
+
+        ``stream`` (in-process evacuation) adopts the source engine's
+        stream object, so its waiter and token queue carry on; without
+        it (a container from another process) a fresh stream is built
+        from the payload's recipe, streaming as ``stream_tokens`` says
+        (default: as the payload says)."""
+        prompt = np.asarray(payload["prompt"], np.int32).reshape(-1)
+        tokens = np.asarray(payload.get("tokens", []), np.int32).reshape(-1)
+        k, v = _host_tensor(payload["k"]), _host_tensor(payload["v"])
+        last = np.asarray(payload["last_logits"], np.float32).reshape(-1)
+        self._check_page_size(payload, "migration payload", "source and target engines")
+        P = -(-(len(prompt) + len(tokens)) // self.page_size)
+        self._check_pages(k, v, P, "migration payload", "layers, prompt+decoded pages")
+        self._check_last_logits(last, "migration payload")
+        key_data = np.asarray(payload.get("key_data", []), np.uint32).reshape(-1)
+        kv = {"k": k, "v": v, "last_logits": last, "tokens": tokens, "key_data": key_data,
+              "streamed": int(payload.get("streamed") or 0), "pending": payload.get("pending"), "migration": True}
+        if self._kv_int8:
+            kv["k_scales"], kv["v_scales"] = self._validate_kv_scales(payload, P, "migration payload")
+        self._check_sampler_state(float(payload.get("temperature", 0.0)), key_data, "migration payload")
+        rem = payload.get("deadline_remaining_ms")
+        deadline = time.monotonic() + max(0.0, float(rem)) / 1000.0 if rem is not None else None
+        if stream is None:
+            want_stream = bool(payload.get("stream_tokens")) if stream_tokens is None else bool(stream_tokens)
+            return self.submit(prompt, max_new_tokens=int(payload.get("max_new_tokens", 32)),
+                               temperature=float(payload.get("temperature", 0.0)), top_k=int(payload.get("top_k", 0)),
+                               eos_id=int(payload.get("eos_id", -1)), seed=int(payload.get("seed", 0)),
+                               priority=int(payload.get("priority", 0)), deadline=deadline, stream_tokens=want_stream,
+                               adapter=payload.get("adapter") or None, kv_import=kv)
+        # in-process adoption: the source's stream object joins this
+        # engine's queue with its waiter, token queue and cursor
+        plen, max_new = len(prompt), int(stream.max_new)
+        bucket = next((b for b in self.prompt_buckets if b >= plen), None)
+        if bucket is None or plen + max_new > self.max_len:
+            raise MicroserviceError(f"prompt {plen} + max_new {max_new} exceeds max_len {self.max_len}",
+                                    status_code=400, reason="SEQUENCE_TOO_LONG")
+        need = -(-(plen + max_new) // self.page_size)
+        if need > self.num_pages - 1:
+            raise MicroserviceError(f"request needs {need} pages but the pool holds {self.num_pages - 1}",
+                                    status_code=400, reason="SEQUENCE_TOO_LONG")
+        adapter = stream.adapter or None
+        if adapter is not None:
+            with self._lock:
+                self._check_open_locked()
+                if self.max_queue and len(self._queue) >= self.max_queue:
+                    self._shed_for_admission_locked(int(stream.priority))
+        adapter_slot = self._acquire_adapter_slot(adapter) if adapter is not None else 0
+        try:
+            with self._lock:
+                self._check_open_locked()
+                if self.max_queue and len(self._queue) >= self.max_queue:
+                    self._shed_for_admission_locked(int(stream.priority))
+                stream.slot = None
+                stream.pages = []
+                stream.cached_len = 0
+                stream.prefilled = 0
+                stream.tokens = []
+                stream.generator = None
+                stream.kv_import = kv
+                stream.kv_imported = False
+                stream.kv_export = False
+                stream.kv_payload = None
+                stream.tier_promote = None
+                stream.cancelled = False
+                stream.preempted = False
+                stream.error = None
+                stream.result = None
+                stream.deadline = deadline
+                stream.adapter_slot = int(adapter_slot)
+                if adapter_slot:
+                    stream.adapter_pinned = True
+                    self._drop_temp_pin_locked(adapter_slot)
+                    self._adapter_requests[adapter] = self._adapter_requests.get(adapter, 0) + 1
+                self._queue.append(stream)
+                self._queued.add(stream)
+            return stream
+        except BaseException:
+            if adapter_slot:
+                with self._lock:
+                    self._drop_temp_pin_locked(adapter_slot)
+                    self._unpin_adapter_slot_locked(adapter_slot)
+            raise
+
+    def fail_stream(self, stream: _Stream, exc: Exception) -> None:
+        """Error-terminate one detached stream (a migration no peer took:
+        its waiter resolves, the journal covers the re-derivation)."""
+        with self._lock:
+            if stream.result is not None or stream.error is not None:
+                return
+            self._fail_stream_locked(stream, exc)
+
+    def predict_cost_s(self, prompt_len: int, max_new: int) -> Optional[float]:
+        """Predicted service seconds of one request from this engine's
+        measured rates (wall over tokens, prefill and decode); None while
+        nothing is measured."""
+        with self._lock:
+            ptok, pwall = self._counters["prefill_tokens"], self._counters["prefill_wall_s"]
+            dtok, dwall = self._counters["tokens"], self._counters["chunk_wall_s"]
+        if ptok <= 0 or pwall <= 0 or dtok <= 0 or dwall <= 0:
+            return None
+        return float(prompt_len) * (pwall / ptok) + float(max_new) * (dwall / dtok)
 
     # ---- decode chunk ------------------------------------------------------
 
@@ -2163,6 +2817,8 @@ class PagedEngine:
     def _step_decode(self) -> bool:
         with self._lock:
             admitted = self._admit_locked()
+        # promoted tier chains land before any prefill or decode of the wave
+        self._tier_promote_ready()
         budget = self.chunk_token_budget
         if admitted and not budget:
             # monolithic prefill: admitted prompts prefill whole and decode
@@ -2232,12 +2888,16 @@ class PagedEngine:
         if not runnable:
             with self._lock:
                 return self._wave_end_locked()
+        # page growth above may have staged demotions: gathered before the chunk writes
+        self._tier_flush()
+        t_chunk = time.perf_counter()
         with torch.inference_mode(), self._materialized():
             out = self._chunk(steps, buckets, perm, tables, lengths, done, max_new, eos_ids, samplers, adapter_ids)
         toks, emitted, lengths_out = out[:, :steps], out[:, steps], out[:, steps + 1]
         t_now = time.time()
         with self._lock:
             self._counters["chunks"] += 1
+            self._counters["chunk_wall_s"] += time.perf_counter() - t_chunk
             self._chunk_steps[steps] = self._chunk_steps.get(steps, 0) + 1
             if len(buckets) > 1:
                 self._counters["bucketed_chunks"] += 1
@@ -2272,6 +2932,7 @@ class PagedEngine:
 
         with self._lock:
             admitted = self._admit_locked()
+        self._tier_promote_ready()
         budget = self.chunk_token_budget
         fresh: List[_Stream] = []
         slices: List[Tuple[_Stream, int, int]] = []
@@ -2377,11 +3038,15 @@ class PagedEngine:
                 segs[slot, 1: 1 + len(drafted)] = drafted
                 n_drafts[slot] = len(drafted)
                 active_mask[slot] = True
+            # verify-lane page growth may have staged demotions
+            self._tier_flush()
+            t_chunk = time.perf_counter()
             with self._materialized():
                 out = self._spec_chunk(segs, n_drafts, active_mask, tables, lengths, adapter_ids)
         toks, counts, lengths_out = out[:, :L], out[:, L], out[:, L + 1]
         with self._lock:
             self._counters["chunks"] += 1
+            self._counters["chunk_wall_s"] += time.perf_counter() - t_chunk
             self._counters["spec_drafted"] += int(n_drafts.sum())
             for stream in runnable:
                 s = stream.slot
@@ -2441,6 +3106,7 @@ class PagedEngine:
         toks = self._delivered(stream)
         stream.result = np.asarray(toks + [stream.eos_id] * (stream.max_new - len(toks)), np.int32)
         stream.t_finish = time.time()
+        self._tier_putback_locked(stream)
         self._release_slot_locked(stream)
         self._release_adapter_locked(stream)
         self._counters["completed"] += 1
@@ -2452,6 +3118,7 @@ class PagedEngine:
         """Put a stream out of its slot, back at the head of the queue; it
         re-prefills (re-matching the prefix index) and re-derives its
         tokens when admitted again."""
+        self._tier_putback_locked(stream)
         self._release_slot_locked(stream)
         stream.slot = None
         stream.tokens = []
@@ -2506,8 +3173,12 @@ class PagedEngine:
             return bool(self._queue) or any(s is not None for s in self._slots)
 
     def engine_stats(self) -> Dict[str, Any]:
+        """Counters and live occupancy.  The ``kv_tier_*`` keys are there
+        only with the KV tier on; ``health`` is the engine's state for an
+        evacuation to read ("healthy": the watchdog that would move it is
+        ``ROADMAP.md`` §A item 8.11)."""
         with self._lock:
-            return {
+            out = {
                 "kernel_active": int(self._kernel_active),
                 "chunk_impl": self._chunk_impl,
                 "ctx_buckets": self._ctx_buckets,
@@ -2523,7 +3194,102 @@ class PagedEngine:
                 "kv_dtype_int8": int(self._kv_int8),
                 "adapters_resident": len(self._adapter_table),
                 "adapter_slots": self.max_adapters,
+                "health": "healthy",
             }
+        if self._kv_tier is not None:
+            tier = self._kv_tier.stats()
+            out["kv_tier_host_bytes"] = tier["host_bytes"]
+            out["kv_tier_disk_bytes"] = tier["disk_bytes"]
+        else:
+            for k in _TIER_COUNTER_KEYS:
+                out.pop(k)
+        return out
+
+    # ---- drain and replay ----------------------------------------------------
+
+    @staticmethod
+    def _journal_entry(s: _Stream, now: float) -> Dict[str, Any]:
+        """One live stream's re-derivation recipe as a journal entry.  An
+        absolute monotonic deadline does not survive a process: the budget
+        left is written and re-minted on replay."""
+        return journal_entry(
+            req_id=s.req_id,
+            prompt=[int(t) for t in s.prompt],
+            max_new_tokens=int(s.max_new),
+            temperature=float(s.temperature),
+            top_k=int(s.top_k),
+            eos_id=int(s.eos_id),
+            seed=int(s.seed),
+            priority=int(s.priority),
+            deadline_remaining_ms=max(0.0, (s.deadline - now) * 1000.0) if s.deadline is not None else None,
+            # the tokens the consumer has seen: a replay pushes only past them
+            streamed=int(s.streamed),
+            stream_tokens=s.token_queue is not None,
+            tokens_decoded=len(s.tokens),
+            adapter=s.adapter,
+        )
+
+    def drain(self) -> List[Dict[str, Any]]:
+        """Drain for handoff: stop admission, then journal every live
+        stream's recipe (prompt, sampling terms, seed, priority, deadline
+        left, streaming cursor) for a respawned engine's :meth:`replay`.
+        Decoded tokens are not journaled: a stream's seed makes its
+        re-derivation draw the same tokens, as after an eviction.  Each
+        journaled stream's waiter fails with 503 ``DRAINING``; handoff
+        and migration imports are not journaled (their coordinator
+        retries them).  Call with the step loop quiesced; the engine
+        stays closed."""
+        with self._lock:
+            self._closed = True
+            victims = [s for s in self._slots if s is not None] + list(self._queue)
+            now = time.monotonic()
+            entries = [self._journal_entry(s, now) for s in victims
+                       if not (s.kv_export or s.kv_import is not None or s.kv_imported)]
+            self._queue.clear()
+            self._queued.clear()
+            err = MicroserviceError("engine draining: stream journaled for handoff to the respawned engine",
+                                    status_code=503, reason="DRAINING")
+            for s in victims:
+                self._fail_stream_locked(s, err)
+            self._counters["drained"] += len(victims)
+        return entries
+
+    def replay(self, entries, stream_tokens: Optional[bool] = None) -> List[_Stream]:
+        """Re-submit journaled streams (the restore half of drain).
+        ``stream_tokens=None`` keeps each entry's streaming mode and
+        resumes its cursor; ``False`` replays unary (a respawned process:
+        the original consumers are gone).  An entry whose deadline was
+        spent before the replay is skipped and counted ``expired``; one
+        this engine refuses is skipped with a warning.  Call before the
+        step loop consumes (the cursor must be in place first)."""
+        out: List[_Stream] = []
+        for e in entries:
+            deadline = None
+            rem = e.get("deadline_remaining_ms")
+            if rem is not None:
+                if float(rem) <= 0.0:
+                    with self._lock:
+                        self._counters["expired"] += 1
+                    logger.warning("journal replay skipped req %s: deadline expired between journal write and "
+                                   "replay", e.get("req_id"))
+                    continue
+                deadline = time.monotonic() + float(rem) / 1000.0
+            want_stream = bool(e.get("stream_tokens")) if stream_tokens is None else bool(stream_tokens)
+            try:
+                s = self.submit(np.asarray(e["prompt"], np.int32), max_new_tokens=int(e.get("max_new_tokens", 32)),
+                                temperature=float(e.get("temperature", 0.0)), top_k=int(e.get("top_k", 0)),
+                                eos_id=int(e.get("eos_id", -1)), seed=int(e.get("seed", 0)),
+                                priority=int(e.get("priority", 0)), deadline=deadline, stream_tokens=want_stream,
+                                adapter=e.get("adapter") or None)
+            except MicroserviceError as exc:
+                logger.warning("journal replay skipped req %s: %s", e.get("req_id"), exc)
+                continue
+            if want_stream and e.get("streamed"):
+                s.streamed = int(e["streamed"])
+            with self._lock:
+                self._counters["replayed"] += 1
+            out.append(s)
+        return out
 
     def close(self, exc: Optional[Exception] = None) -> None:
         """Shut the engine: later submits get 503, pending streams fail."""
@@ -2547,6 +3313,7 @@ class PagedEngine:
             self._lengths[:] = 0
             self._block_tables[:] = 0
             for stream in victims:
+                self._tier_putback_locked(stream)
                 if stream.pages:
                     self._free_locked(stream.pages)
                     stream.pages = []
@@ -2667,6 +3434,9 @@ class StreamingLM(TPUComponent):
         self._loop_thread: Optional[threading.Thread] = None
         self._wake = threading.Event()
         self._stop = False
+        # set by drain / evacuate: the stopped loop leaves the engine's
+        # streams to them instead of closing it
+        self._draining = False
         self._load_lock = threading.Lock()
         self._counter = 0
         self._counter_lock = threading.Lock()
@@ -2686,6 +3456,7 @@ class StreamingLM(TPUComponent):
                                  **self.config, **self.engine_config)
             # first CUDA calls (library handles, the kernel build) pay here, not in a request
             engine.generate(np.zeros((1,), np.int32), max_new_tokens=2)
+            self._replay_journal(engine)
             self._loop_thread = threading.Thread(target=self._loop, name="streaminglm-decode", daemon=True)
             self.engine = engine  # published after construction; the loop reads it
             self._loop_thread.start()
@@ -2694,6 +3465,26 @@ class StreamingLM(TPUComponent):
                         "%s, %d adapter slots)", self.device, self._load_time_s,
                         "on" if engine._kernel_active else "off", "int8" if engine._kv_int8 else self.dtype_name,
                         engine.precision, "on" if engine._prefix_cache_enabled else "off", engine.max_adapters)
+
+    @staticmethod
+    def _replay_journal(engine: PagedEngine) -> None:
+        """Re-submit the streams a drained predecessor journaled at
+        ``SELDON_TPU_DRAIN_JOURNAL`` before the decode loop starts, unary
+        (their consumers died with the old process), and unlink the
+        journal so it never replays twice.  A corrupt journal is logged
+        and never blocks serving."""
+        path = _knobs.raw("SELDON_TPU_DRAIN_JOURNAL", "")
+        if not path or not os.path.exists(path):
+            return
+        try:
+            with open(path) as f:
+                entries = [json.loads(line) for line in f if line.strip()]
+            os.unlink(path)
+            if entries:
+                replayed = engine.replay(entries, stream_tokens=False)
+                logger.info("drain journal %s: replayed %d/%d streams", path, len(replayed), len(entries))
+        except Exception:  # noqa: BLE001 — callers' retries re-derive what it described
+            logger.exception("drain-journal replay failed (%s)", path)
 
     def _register_adapters(self):
         """Register the deployment's adapter catalogue in the process
@@ -2788,7 +3579,10 @@ class StreamingLM(TPUComponent):
             except Exception as exc:  # noqa: BLE001 — surfaced to every waiter
                 logger.exception("decode loop failed")
                 self.engine.fail_all(exc)
-        self.engine.close(MicroserviceError("component shut down", status_code=503, reason="SHUTTING_DOWN"))
+        # nothing steps the streams again: close the engine, unless a drain
+        # or an evacuation owns them (it journals or migrates them first)
+        if not self._draining:
+            self.engine.close(MicroserviceError("component shut down", status_code=503, reason="SHUTTING_DOWN"))
 
     def shutdown(self) -> None:
         self._stop = True
@@ -2816,6 +3610,8 @@ class StreamingLM(TPUComponent):
             self.load()
         meta = meta or {}
         tags = meta.get("tags", {})
+        if tags.get("kv_migration"):
+            return self._accept_migration(X)
         max_new = int(tags.get("max_new_tokens", self.max_new_tokens))
         temperature = float(tags.get("temperature", self.temperature))
         top_k = int(tags.get("top_k", self.top_k))
@@ -2886,8 +3682,161 @@ class StreamingLM(TPUComponent):
         finally:
             self.engine.cancel(stream)
 
-    def drain(self, *args, **kwargs):
-        raise _refuse("drain")
+    def drain(self, journal_path: Optional[str] = None, timeout_s: float = 30.0) -> List[Dict[str, Any]]:
+        """Drain, then exit: stop the decode loop at the next chunk
+        boundary, live-migrate the mid-decode streams to
+        ``SELDON_TPU_EVACUATE_TO`` when it names a peer (a stream that
+        cannot ship is journaled instead), journal every other live
+        stream, and fail their waiters with 503 (``MIGRATING`` /
+        ``DRAINING``).  The journal is JSONL written to ``journal_path``
+        or ``SELDON_TPU_DRAIN_JOURNAL`` by tmp + rename, so a respawned
+        process never reads half of it; :meth:`load` replays it.  The
+        microservice calls this on SIGTERM; a never-loaded component
+        returns []."""
+        path = journal_path if journal_path is not None else _knobs.raw("SELDON_TPU_DRAIN_JOURNAL", "")
+        if self.engine is None:
+            return []
+        self._quiesce_loop(timeout_s)
+        entries: List[Dict[str, Any]] = []
+        peer = _knobs.raw("SELDON_TPU_EVACUATE_TO", "") or ""
+        if peer:
+            entries.extend(self._evacuate_remote(peer))
+        entries.extend(self.engine.drain())
+        if path and entries:
+            self._write_journal(path, entries)
+            logger.info("drained %d live streams to %s", len(entries), path)
+        return entries
+
+    @staticmethod
+    def _write_journal(path: str, entries: List[Dict[str, Any]]) -> None:
+        try:
+            tmp = f"{path}.tmp"
+            with open(tmp, "w") as f:
+                for e in entries:
+                    f.write(json.dumps(e) + "\n")
+            os.replace(tmp, path)
+        except OSError:
+            logger.exception("drain journal write failed (%s)", path)
+
+    def _quiesce_loop(self, timeout_s: float = 30.0) -> None:
+        """Stop the decode loop at the next chunk boundary: neither a
+        drain nor an evacuation may snapshot state a chunk still writes."""
+        self._draining = True
+        self._stop = True
+        self._wake.set()
+        if self._loop_thread is not None and self._loop_thread.is_alive():
+            self._loop_thread.join(timeout=timeout_s)
+            if self._loop_thread.is_alive():
+                logger.error("decode loop still running after %.0fs drain wait — journaling anyway (the wave's "
+                             "chunk results may be lost; re-derivation covers them)", timeout_s)
+
+    def evacuate(self, peers, journal_path: Optional[str] = None, timeout_s: float = 30.0) -> Dict[str, Any]:
+        """In-process live evacuation: quiesce the decode loop, migrate
+        every exportable stream to a healthy peer
+        (``models/disagg.evacuate_streams``: highest priority first, to
+        the cheapest peer), journal the rest, close this engine.
+        ``peers`` are :class:`PagedEngine` s or components with an
+        ``.engine``.  Streaming consumers keep their token queues: no
+        token is lost."""
+        if self.engine is None:
+            return {"migrated": 0, "journaled": 0, "failed": 0}
+        from seldon_core_tpu_torch.models.disagg import evacuate_streams
+
+        self._quiesce_loop(timeout_s)
+        engines = [getattr(p, "engine", None) or p for p in peers]
+        summary = evacuate_streams(self.engine, engines)
+        for p in peers:
+            wake = getattr(p, "_wake", None)
+            if wake is not None:
+                wake.set()  # adopted streams resume without the loop's poll
+        entries = list(summary.pop("journal", []))
+        entries.extend(self.engine.drain())
+        path = journal_path if journal_path is not None else _knobs.raw("SELDON_TPU_DRAIN_JOURNAL", "")
+        if path and entries:
+            self._write_journal(path, entries)
+        summary["journaled"] = len(entries)
+        logger.info("evacuation: %d stream(s) live-migrated, %d journaled, %d failed", summary.get("migrated", 0),
+                    len(entries), summary.get("failed", 0))
+        return summary
+
+    def _evacuate_remote(self, endpoint: str) -> List[Dict[str, Any]]:
+        """Ship this engine's exportable streams to ``endpoint``
+        (``grpc://host:port`` or ``rest://host:port``) as migration
+        containers, one predict call each on the port's transport clients
+        (tag ``kv_migration``, the container as a uint8 ``rawTensor``),
+        metered as ``method="migrate"`` hops.  A shipped stream's waiter
+        fails 503 ``MIGRATING`` (its state lives on the peer; a retry
+        lands there); a stream that cannot ship comes back as a journal
+        entry.  Across processes the consumer's connection dies with this
+        one: shipping the K/V lets the stream finish on the peer and
+        registers its prompt pages in the peer's prefix cache."""
+        import asyncio
+
+        from seldon_core_tpu_torch.codec.bufview import pack_kv_migration
+        from seldon_core_tpu_torch.engine.graph import Endpoint, UnitSpec
+        from seldon_core_tpu_torch.engine.transport import GrpcClient, RestClient, migration_hop
+        from seldon_core_tpu_torch.models.disagg import migration_journal_entry
+        from seldon_core_tpu_torch.runtime.message import InternalMessage
+
+        exported = self.engine.migrate_export()
+        if not exported:
+            return []
+        scheme, sep, rest = endpoint.partition("://")
+        if not sep:
+            scheme, rest = "grpc", endpoint
+        host, _, port = rest.partition(":")
+        spec = UnitSpec(name=f"evacuate@{rest}", endpoint=Endpoint(
+            host=host or "localhost", port=int(port or 9000), transport="REST" if scheme == "rest" else "GRPC"))
+        client = RestClient(spec) if scheme == "rest" else GrpcClient(spec)
+        loop = asyncio.new_event_loop()
+        fallback: List[Dict[str, Any]] = []
+        migrated = 0
+        err = MicroserviceError("stream live-migrated to a peer engine during evacuation", status_code=503,
+                                reason="MIGRATING")
+        try:
+            for payload, stream in sorted(exported, key=lambda ps: -ps[0]["priority"]):
+                try:
+                    buf = pack_kv_migration(payload)
+                    with migration_hop("streaminglm-evacuate", "dcn") as hop:
+                        if hop is not None:
+                            hop.request_bytes = len(buf)
+                        msg = InternalMessage(payload=np.frombuffer(buf, np.uint8)[None, :], kind="rawTensor")
+                        msg.meta.tags["kv_migration"] = 1
+                        loop.run_until_complete(client.transform_input(msg))
+                    migrated += 1
+                except Exception:  # noqa: BLE001 — the recipe is journaled instead
+                    logger.exception("migration ship failed for req %s — journaling", payload.get("req_id"))
+                    fallback.append(migration_journal_entry(payload))
+                self.engine.fail_stream(stream, err)
+        finally:
+            try:
+                loop.run_until_complete(client.close())
+            except Exception:  # noqa: BLE001 — client teardown is best-effort at exit
+                pass
+            loop.close()
+        logger.info("remote evacuation to %s: %d migrated, %d journaled", endpoint, migrated, len(fallback))
+        return fallback
+
+    def _accept_migration(self, X) -> np.ndarray:
+        """The migration ingress: a peer evacuating its streams sends each
+        as a uint8 migration container (CRC-checked); the stream resumes
+        here at the exact next token.  Returns a 1x1 acknowledgement with
+        the resumed stream's request id."""
+        from seldon_core_tpu_torch.codec.bufview import unpack_kv_migration
+        from seldon_core_tpu_torch.engine.transport import migration_hop
+
+        buf = np.ascontiguousarray(np.asarray(X, np.uint8).reshape(-1)).tobytes()
+        with migration_hop("streaminglm-ingress", "dcn") as hop:
+            if hop is not None:
+                hop.request_bytes = len(buf)
+            try:
+                payload = unpack_kv_migration(buf)
+            except Exception as exc:
+                raise MicroserviceError(f"malformed migration container: {exc}", status_code=400,
+                                        reason="BAD_MIGRATION_PAYLOAD") from exc
+            stream = self.engine.migrate_import(payload, stream_tokens=False)
+        self._wake.set()
+        return np.asarray([[stream.req_id]], np.int32)
 
     def class_names(self):
         return []
@@ -2915,7 +3864,8 @@ class StreamingLM(TPUComponent):
             gauge_metric("paged_bucketed_chunks", s["bucketed_chunks"]),
         ]
         for key in ("shed", "expired", "preempted", "restored", "adapter_loads", "adapter_hits", "adapter_misses",
-                    "adapter_evictions"):
+                    "adapter_evictions", "drained", "replayed", "kv_exports", "kv_imports", "migrated_out",
+                    "migrated_in", *(k for k in s if k.startswith("kv_tier_"))):
             out.append(gauge_metric(f"paged_{key}", s[key]))
         for name, n in self.engine.adapter_stats()["requests"].items():
             out.append(gauge_metric("paged_adapter_requests", n, tags={"adapter": name}))

@@ -15,11 +15,13 @@ machine is loaded, and a file lock lets concurrent processes share one
 build.  Nothing is written into ``native/``.
 ``SELDON_TPU_NATIVE_SO`` names a prebuilt library to load instead.
 
-Only the native ingress and the C++ load clients use the library; the
-codec and the batcher stay on stdlib ``base64`` and numpy.  Nothing
-builds it until one of them asks, and a failed build is logged and makes
-``get_lib()`` return None (``available()`` is then False), so the
-ingress raises while every other lane serves as before.
+The native ingress and the C++ load clients use the library, and the
+KV containers' CRC32C trailer (``codec/bufview.crc32c``) takes its
+``srt1_crc32c`` when it loads; the rest of the codec and the batcher
+stay on stdlib ``base64`` and numpy.  Nothing builds it until one of
+them asks, and a failed build is logged and makes ``get_lib()`` return
+None (``available()`` is then False), so the ingress raises and the
+CRC runs its table loop, while every other lane serves as before.
 """
 
 from __future__ import annotations
@@ -117,8 +119,8 @@ def build() -> Path:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Check the ABI version and declare the SRT1 framing symbols (the
-    front server and load clients declare their own)."""
+    """Check the ABI version and declare the SRT1 framing and CRC32C
+    symbols (the front server and load clients declare their own)."""
     lib.native_abi_version.restype = ctypes.c_int32
     version = lib.native_abi_version()
     if version != ABI_VERSION:  # not assert: must survive python -O
@@ -130,6 +132,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.srt1_magic.restype = ctypes.c_uint32
     lib.srt1_payload_bytes.restype = ctypes.c_int64
     lib.srt1_payload_bytes.argtypes = [ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
+    lib.srt1_crc_magic.restype = ctypes.c_uint32
+    lib.srt1_crc32c.restype = ctypes.c_uint32
+    # c_char_p: bytes pass by pointer, no staging copy of a multi-MB container
+    lib.srt1_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_uint32]
     return lib
 
 

@@ -51,6 +51,29 @@ KNOBS: Dict[str, str] = {
     "SELDON_TPU_MODEL_CACHE": (
         "directory remote model_uri downloads land in (unset: seldon-tpu-models under the temp directory)"
     ),
+    "SELDON_TPU_DRAIN_JOURNAL": "drain/handoff journal path (pinned per worker by the supervisor)",
+    "SELDON_TPU_KV_CHECKSUM": (
+        "CRC32C integrity trailer on KV handoff/migration containers (0 = off; default on: a flipped byte "
+        "rejects as a named PayloadError instead of decoding as garbage KV)"
+    ),
+    "SELDON_TPU_KV_OFFLOAD": (
+        "hierarchical KV tier: demote LRU-reclaimed prefix/session pages into a budgeted host-RAM store "
+        "(optionally spilling to disk) and promote them back through the page import on the next chain hit "
+        "(0 = off, discard-on-reclaim as before)"
+    ),
+    "SELDON_TPU_KV_HOST_BUDGET_GIB": (
+        "host-RAM byte budget for the KV tier's container store (oldest entries spill to disk or drop when "
+        "exceeded; default 4)"
+    ),
+    "SELDON_TPU_KV_SPILL_DIR": (
+        "disk level below the host KV tier: CRC-trailered containers written atomic tmp+rename, LRU-evicted "
+        "to the spill budget (empty = no disk level, host-budget overflow drops)"
+    ),
+    "SELDON_TPU_KV_SPILL_GIB": "disk byte budget for the KV tier's spill directory (default 16)",
+    "SELDON_TPU_EVACUATE_TO": (
+        "peer endpoint ('grpc://host:port' | 'rest://host:port') that drain() live-migrates streams to before "
+        "exiting; failures fall back to the drain journal (empty = journal only)"
+    ),
 }
 
 # flag knobs and their defaults: "1" = on unless set to "0", "0" = off
@@ -61,6 +84,8 @@ _FLAG_DEFAULTS: Dict[str, str] = {
     "SELDON_TPU_ZERO_COPY": "1",
     "SELDON_TPU_TRANSPORT_TELEMETRY": "1",
     "SELDON_TPU_BREAKER": "1",
+    "SELDON_TPU_KV_CHECKSUM": "1",
+    "SELDON_TPU_KV_OFFLOAD": "0",
 }
 
 

@@ -884,3 +884,59 @@ def test_speculative_decoding_on_the_card(monkeypatch):
         assert kernels.launch_counts()["paged_decode_stream"] == draft_cfg["num_layers"] * gen.single_token_forwards > 0
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_migration_and_the_kv_tier_on_the_card(monkeypatch, tmp_path):
+    """In float32 with TF32 off, on the kernel lane: a sampled stream moved
+    mid-decode between two CUDA engines (its CUDA generator's state in
+    the payload) finishes with the uninterrupted run's tokens, and its
+    resumed decode launches K4 once a layer a decode call; a CPU
+    generator's state sent to a CUDA engine is a 400; a promoted tier
+    chain decodes the tokens of a full prefill."""
+    from seldon_core_tpu_torch.codec.bufview import pack_kv_migration, unpack_kv_migration
+    from seldon_core_tpu_torch.runtime import MicroserviceError
+
+    _need_card()
+    monkeypatch.delenv("SELDON_TPU_PAGED_KERNEL", raising=False)
+    cfg = dict(vocab_size=128, d_model=64, num_layers=2, num_heads=4, max_len=256)
+    params = load_lm_params("", cfg, 0, torch.device("cuda"))
+    prompt = np.arange(40) % 128
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        def make(**kw):
+            return PagedEngine(params, dtype="float32", device="cuda", page_size=16, max_slots=4, **cfg, **kw)
+
+        sampling = dict(seed=3, temperature=0.9, top_k=8)
+        want = make().generate(prompt, max_new_tokens=24, **sampling)
+        a, b = make(), make()
+        s = a.submit(prompt, max_new_tokens=24, **sampling)
+        for _ in range(2):
+            a.step()
+        assert 0 < len(s.tokens) < 24
+        (payload, stream), = a.migrate_export()
+        assert payload["key_data"].size * 4 == torch.cuda.default_generators[0].get_state().numel()
+        b.migrate_import(payload, stream=stream)
+        calls0 = sum(int(k) * v for k, v in b.engine_stats()["chunk_steps"].items())
+        kernels.reset_launch_counts()
+        b.run()
+        torch.cuda.synchronize()
+        calls = sum(int(k) * v for k, v in b.engine_stats()["chunk_steps"].items()) - calls0
+        assert s.result.tolist() == want.tolist()
+        assert kernels.launch_counts()["paged_decode_stream"] == cfg["num_layers"] * calls > 0
+        cpu_state = torch.Generator().manual_seed(3).get_state().numpy()
+        bad = dict(unpack_kv_migration(pack_kv_migration(payload)), key_data=cpu_state.view(np.uint32))
+        with pytest.raises(MicroserviceError) as err:
+            make().migrate_import(bad)
+        assert err.value.status_code == 400 and err.value.reason == "RNG_STATE_MISMATCH"
+        monkeypatch.setenv("SELDON_TPU_KV_OFFLOAD", "1")
+        tier = make(num_pages=6, max_steps_per_call=4)
+        monkeypatch.setenv("SELDON_TPU_KV_OFFLOAD", "0")
+        full = make()
+        sessions = [np.arange(70) % 128, (np.arange(70) * 7 + 1) % 128]
+        for _round in range(2):
+            for p in sessions:
+                assert tier.generate(p, max_new_tokens=4).tolist() == full.generate(p, max_new_tokens=4).tolist()
+        assert tier.engine_stats()["kv_tier_host_hits"] > 0
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
