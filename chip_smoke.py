@@ -8,7 +8,12 @@ JAX or of the JAX package.  Phases, each of which fails the run:
 
 1. card report (``nvidia-smi`` name and power limit);
 2. build every CUDA kernel of the main paths from ``ops/csrc``, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, all started together; the server processes of
+   phases 4, 7, 9, 11-17 and 18a launch beside the build (each waits on the
+   build's lock for a kernel it loads) and are awaited before phase 3, so
+   no phase waits on a load and no load runs beside a timed window (the
+   line ``early servers`` gives their ready times, the card memory in use
+   and the host memory available);
 3. ``fused_normalize`` (K1) against its plain PyTorch version on the
    card, bit for bit, for bf16, f16 and f32 out: the main path's shapes
    (32 and 1 images of 224x224x3), C = 3 with a byte count that is not a
@@ -69,8 +74,8 @@ JAX or of the JAX package.  Phases, each of which fails the run:
 5. whole-path numerics in-process: bf16 with the kernels against f32
    with the plain versions (TF32 off), relative L2 error <= 5e-2 and
    per-row cosine similarity >= 0.99;
-6. numbers: p50/p99 latency of 300 sequential single-image requests,
-   img/s of batch-32 requests from 4 clients over a 3 s window, device
+6. numbers: p50/p99 latency of 200 sequential single-image requests,
+   img/s of batch-32 requests from 4 clients over a 2 s window, device
    forward time, and a profiler breakdown;
 7. the generation path: the CLI serving ``StreamingLM`` (vocab 16384,
    d_model 512, 8 layers, 8 heads, max_len 1024, pages of 64, 16 slots,
@@ -82,10 +87,10 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    concurrent rows equal theirs too; a repeated request is identical;
    the server's K4 launches grow by exactly 8 layers x its decode calls
    (one a step, two in a chunk split into length buckets); numbers:
-   REST p50 and the largest of 30 sequential requests (too few for a
+   REST p50 and the largest of 16 sequential requests (too few for a
    p99; every tail the smoke prints rests on at least 100 samples)
    (prompt 128, 32 new) and REST tokens/s of 16 closed-loop clients
-   over 3 s;
+   over 2 s;
 8. engine numerics in-process: in f32 the kernel lane, the gather lane
    (``SELDON_TPU_PAGED_KERNEL=0`` with ``SELDON_TPU_CHUNK_IMPL=pool``: the
    kernel off alone would pick the ring chunk) and the grid kernel give identical
@@ -103,9 +108,9 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    within relative L2 2e-2 of an in-process model of the same weights and
    nearer its own image's answer than any other's; the server's
    ``flash_attention`` launches grow by exactly 12 x the batches served
-   and ``fused_normalize``'s by the batch count; numbers: p50/p99 of 250
+   and ``fused_normalize``'s by the batch count; numbers: p50/p99 of 150
    sequential single images, img/s of batch-32 requests from 4 clients
-   over 3 s, and the device time of the in-process forward at batch 1
+   over 2 s, and the device time of the in-process forward at batch 1
    and 32 from the profiler, with K3's share and the idle share;
 10. transformer numerics in-process: ViT-B/16 bf16 with K3 against f32
    with plain attention (TF32 off), relative L2 <= 5e-2 and per-row
@@ -131,8 +136,8 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    concurrent rows equal theirs, adapter rows differ from the base row of
    the same prompt, a body tag wins over the header, and the server's
    K4-int8+LoRA launches grow by exactly 8 layers x its decode calls;
-   numbers: REST p50 and the largest of 30 sequential requests (prompt
-   128, 32 new) and tokens/s of 16 closed-loop clients over 3 s;
+   numbers: REST p50 and the largest of 16 sequential requests (prompt
+   128, 32 new) and tokens/s of 16 closed-loop clients over 2 s;
    (c) in-process at the same config: in f32 the int8 kernel lane, the
    int8 gather lane and the int8 grid kernel, and (native pool, adapters)
    the fold and the einsum lane, give identical greedy tokens for 16
@@ -143,7 +148,7 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    >= 0.99; f32 int8 against native greedy tokens, first tokens equal and
    an agreement of at least 0.75; in bf16 with int8 + adapters, 16 prompts
    in one wave (mixed-adapter prefill groups) give each prompt's tokens
-   alone, all 16; decode tokens/s with int8 + adapters and a profile of
+   alone, all 16 (32 new tokens); decode tokens/s with int8 + adapters and a profile of
    one decode chunk (the variant's share, the idle share);
 12. the int8 precision lanes: the CLI serving ResNet-50 in the phase 4
    configuration with ``precision`` ``int8w`` and then ``w8a8`` over REST;
@@ -158,8 +163,8 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    (32 images): int8w relative L2 <= 5e-2 and per-row cosine >= 0.99,
    w8a8 top-1 agreement >= 0.8 (its cosine reported); one w8a8 conv's
    int32 accumulator equal to the float64 product of the same integers;
-   numbers: REST p50/p99 of 150 sequential single images, img/s of
-   batch-32 requests from 4 clients over 3 s, the device time by group
+   numbers: REST p50/p99 of 100 sequential single images, img/s of
+   batch-32 requests from 4 clients over 2 s, the device time by group
    of an in-process forward at batch 32, and the weight bytes on the card;
 13. the ResNet-50 SeldonDeployment over the port's engine (the phase 4
    served parameters with ``max_wait_ms=1.0``; ``BASELINE.json``'s metric):
@@ -168,8 +173,8 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    (``UnitSpec.from_dict`` -> ``PredictorService`` -> ``Gateway`` ->
    ``serve_gateway``, sync gRPC), driven with the JAX headline's method
    (``bench.py:1296-1345``): uint8 ``rawTensor`` flat rows [rows, 150528];
-   4 clients of batch-1 requests for 5 s (p50 / p90 / p99, QPS), then 8
-   clients of batch-32 requests over three windows of 5/3 s (img/s, best
+   4 clients of batch-1 requests for 3 s (p50 / p90 / p99, QPS), then 8
+   clients of batch-32 requests over three windows of 1 s (img/s, best
    and mean), after 2 s of one client's sequential batch-1 requests (the
    service time without queueing), over gRPC ``Seldon/Predict`` and then REST
    ``/api/v0.1/predictions`` on the same gateway (the same windows); zero
@@ -178,7 +183,7 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    line prints ``grpc_p50_ms``, ``grpc_p99_ms``, ``grpc_qps``,
    ``grpc_img_s``, the REST numbers and the 10 ms target beside the p50;
    (b) the two-process deployment: the microservice CLI with ``--api
-   GRPC`` and a gateway whose node is its gRPC endpoint, the windows of 5 s,
+   GRPC`` and a gateway whose node is its gRPC endpoint, the windows of 3 s,
    the hop (p50 minus (a)'s), K1 launches equal to batches (from the
    answers' metrics); (c) every row served in (a) and (b) within relative
    L2 2e-2 of an in-process model of the same weights and nearer its own
@@ -195,7 +200,7 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    ``native/frontserver.cc`` built by g++ with phase 2's builds) in front
    of 13a's gateway child, one port for HTTP/1.1 and h2c gRPC, 4 batch
    threads (the knob's default): (a) 13a's gRPC clients and windows aimed
-   at the native port, the latency window 10 s (``bench.py:1281-1345``, the JAX headline's
+   at the native port, the latency window 5 s (``bench.py:1281-1345``, the JAX headline's
    method), the batcher's mean collection wait over the one-client
    window; (b) SRT1 frames over HTTP/1.1 (one client's sequential p50,
    batch-32 img/s), one multi-frame container of 1, 2 and 5 rows served
@@ -218,7 +223,7 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    with a native port in front, beside 13a's plain gateway child; a
    token from ``/oauth/token``, then 4 TLS sync-gRPC clients of uint8
    rows [1, 150528], each request with ``authorization: Bearer``,
-   ``x-seldon-deadline-ms: 10000`` and a ``traceparent``, for 3 s after
+   ``x-seldon-deadline-ms: 10000`` and a ``traceparent``, for 2 s after
    one client's 2 s of sequential requests, on the two gateways in turns
    (on, off, off, on): p50 / p99 / QPS and the sequential p50 of each
    window and the A4-minus-plain difference of the means; every served
@@ -247,9 +252,9 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    ``BalancedClient`` of ``build_client`` replica clients
    (``seldon.io/breaker-failures: 5``, ``seldon.io/breaker-reset-ms:
    1000``), sync gRPC; uint8 rows [1, 150528] of 8 distinct images:
-   (a) one client's 2 s, then 4 clients for 5 s: p50 / p99 / QPS, each
+   (a) one client's 2 s, then 4 clients for 4 s: p50 / p99 / QPS, each
    replica 50% +- 5% of the requests, K1 launches = batches on each;
-   (b) SIGKILL of R2 half-way through a 5 s window of 4 clients: zero
+   (b) SIGKILL of R2 half-way through a 4 s window of 4 clients: zero
    client-visible failures; on the gateway's ``/metrics`` R2's
    ``seldon_tpu_transport_breaker_state`` 2, a transition to open,
    fast-fails and failovers; p50 / p99 before and after the kill and the
@@ -268,7 +273,7 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    the time to the first degraded answer and the degraded p50; R1
    restarted and warmed as R2, untagged answers again within 3 s;
    (e) hedging on R1, measured only: ``seldon.io/hedge-ms`` at the p90 of
-   a 3 s unhedged window, then 3 s windows off, on, on, off; hedges and
+   a 2 s unhedged window, then 1.5 s windows off, on, on, off; hedges and
    wins on ``/metrics`` = the client's counters; R1's rows between the
    requests sent and that plus the hedges; a ``SendFeedback`` under
    ``hedge-ms: 1`` fires no hedge.  Every row of (a)-(e) within 2e-2 of
@@ -367,7 +372,31 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    SIGTERMed with 16 requests decoding and 8 queued: B imports the live
    streams and finishes them, A's clients get 503 ``MIGRATING`` or
    ``DRAINING``, and a process started on A's journal path replays as
-   many streams as the journal has lines.
+   many streams as the journal has lines;
+22. generation telemetry and chaos at the generation config (ROADMAP
+   A8.11): (a) bf16 at 16 lanes, prompt 128, 64 new: the telemetry plane
+   (flight recorder, telemetry ring, NaN guard, watchdog, bridge, every
+   request captured) on and off in turns, decode tokens/s of each turn
+   and the ratio (no limit, no gain claimed); (b) float32 with TF32 off:
+   tokens equal on and off; ``paged.nan`` once on 16 lanes retires one
+   stream 500 ``NUMERIC_POISON`` and the other 15 equal an uninjected
+   run; ``paged.chunk`` once fails only that chunk's 16 streams while the
+   8 queued serve on and the allocator audit stays clean;
+   ``paged.alloc:times=3`` stalls and leaves the tokens equal;
+   ``transport.corrupt`` on a migration container is the named CRC32C
+   rejection with nothing imported; (c) a cold engine whose first wave
+   builds K4 anew with ``nvcc`` stays healthy under a 200 ms ceiling; a
+   ceiling under the chunk wall drives an engine to degraded and then
+   evacuating, ``evacuate_streams`` skips a degraded peer and moves its
+   16 streams to the healthy one with no token lost; the force knob
+   forces evacuating and clearing it recovers; (d) a served StreamingLM
+   behind the gateway: ``/debug/engine?detail=1`` (one record a chunk,
+   ``kernel_active`` 1), ``/debug/traces`` (the gen.* spans under the
+   request span), ``/debug/knobs``, ``/debug/telemetry``, ``/metrics``
+   (``seldon_tpu_engine_*``, the chunk histogram's ``_count`` = chunks),
+   an OpenMetrics scrape with a trace exemplar, ``/debug/request/{puid}``
+   (the capture's tokens = the served row), ``tools/replay.py`` bit for
+   bit, the cost tags; K4 exactly layers x decode calls on every engine.
 
 The first line names the card, torch, CUDA and ``grpc.__version__``.
 Output: the ``nvidia-smi`` line, then one ``{"kernels": [...]}`` line,
@@ -382,6 +411,8 @@ import base64
 import contextlib
 import json
 import os
+import random
+import shutil
 import signal
 import socket
 import statistics
@@ -404,9 +435,9 @@ MODEL_PARAMS = [
 IMG = (224, 224, 3)
 NUM_CLASSES = 1000
 SEED = 0
-LATENCY_REQUESTS = 300          # p99 rests on the 3 slowest (600 before phase 19 joined the time limit)
+LATENCY_REQUESTS = 200          # p99 rests on the 2 slowest (600 before phase 19, 300 before PR 18's cut)
 THROUGHPUT_CLIENTS = 4
-THROUGHPUT_SECONDS = 3.0       # 5 s until phase 19 joined the time limit
+THROUGHPUT_SECONDS = 2.0       # 5 s until phase 19 joined the time limit, 3 s until phase 22
 # tolerances, stated before any run
 SERVED_VS_LOCAL_REL_L2 = 2e-2   # each bf16 served row vs in-process bf16, same weights
 CROSS_ROW_MIN_REL_L2 = 2 * SERVED_VS_LOCAL_REL_L2  # two images' answers must differ by more
@@ -434,7 +465,7 @@ VIT_PARAMS = [
     {"name": "model_kwargs", "value": json.dumps({"attention": "flash"}), "type": "JSON"},
 ]
 VIT_LAYERS = 12
-VIT_LATENCY_REQUESTS = 250       # 500 before phase 19 joined the time limit
+VIT_LATENCY_REQUESTS = 150       # 500 before phase 19 joined the time limit, 250 before phase 22
 FLASH_CASES = [  # (B, L, H, D, dtype name, causal, strided qkv views)
     (32, 197, 12, 64, "bfloat16", False, False),
     (32, 197, 12, 64, "bfloat16", False, True),
@@ -464,9 +495,9 @@ PAGED_REL_TOL = 1e-4            # largest |kernel - plain| over finite entries /
 PAGED_DESIGN = ("one launch: a block a (lane, chunk of pages, head group), cp.async into an mbarrier ring, "
                 "the lane's chunks merged by its last block")
 GEN_MIN_IDENTICAL_SHARE = 0.75  # concurrent served rows equal to the in-process rows
-GEN_LATENCY_REQUESTS = 30       # too few for a p99: the line prints p50 and the largest (MIN_P99_SAMPLES)
+GEN_LATENCY_REQUESTS = 16       # too few for a p99: the line prints p50 and the largest (MIN_P99_SAMPLES)
 GEN_CLIENTS = 16
-GEN_SECONDS = 3.0              # 5 s until phase 19 joined the time limit
+GEN_SECONDS = 2.0              # 5 s until phase 19 joined the time limit, 3 s until phase 22
 F32_PEAK_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores (data sheet)
 # the quantised multi-adapter cell: the generation config with an int8 KV
 # pool and two rank-8 adapters (the JAX package's default rank)
@@ -477,7 +508,8 @@ Q_LM_PARAMS = LM_PARAMS + [
     {"name": "lora_rank", "value": str(LORA_RANK), "type": "INT"},
     {"name": "adapters", "value": json.dumps(LM_ADAPTERS), "type": "JSON"},
 ]
-Q_LATENCY_REQUESTS = 30         # p50 and the largest, as GEN_LATENCY_REQUESTS
+Q_WAVE_NEW = 32                 # phase 11: new tokens of the one-wave == alone check (LM_MAX_NEW until phase 22)
+Q_LATENCY_REQUESTS = 16         # p50 and the largest, as GEN_LATENCY_REQUESTS
 # (impl, int8 pages, fold) -> the JAX kernel it replaces
 PAGED_VARIANTS = [("stream", True, False), ("grid", True, False), ("stream", False, True), ("stream", True, True)]
 VARIANT_REPLACES = {
@@ -507,12 +539,12 @@ TIMING_SLEEP_CYCLES = 1_000_000  # GPU spin before each timed call: ~0.5 ms at t
 PRECISIONS = ("int8w", "w8a8")
 PRECISION_KERNELS = 54          # ResNet-50 kernels the surgery quantises (JAX's rule: the stem too)
 W8A8_LAYERS = 52                # block and shortcut convs of ResNet-50: one integer GEMM each a forward
-PRECISION_LATENCY_REQUESTS = 150  # 300 before phase 19 joined the time limit
+PRECISION_LATENCY_REQUESTS = 100  # 300 before phase 19 joined the time limit, 150 before phase 22
 # phase 13, the gateway: the JAX headline's method (bench.py:1296-1345)
 GRPC_PARAMS = MODEL_PARAMS + [{"name": "max_wait_ms", "value": "1.0", "type": "FLOAT"}]
-GRPC_SECONDS = 5.0              # the latency window; throughput: three windows of a third each (10 s until phase 19)
+GRPC_SECONDS = 3.0              # the latency window; throughput: three windows of a third (10 s to phase 19, 5 to 22)
 GRPC_SEQUENTIAL_SECONDS = 2.0   # one client before the windows: service time without queueing (3 s until phase 19)
-NATIVE_GRPC_SECONDS = 10.0      # 14a, the headline: the latency window of 4 clients
+NATIVE_GRPC_SECONDS = 5.0       # 14a, the headline: the latency window of 4 clients (10 s until phase 22)
 MIN_P99_SAMPLES = 100           # a p99 is printed over at least this many samples; fewer print their largest
 READY_POLL_S = 0.2              # how often a starting server is asked whether it is ready
 GRPC_LAT_CLIENTS = 4            # batch-1 requests
@@ -523,7 +555,8 @@ MAB_REQUESTS = 50
 COMBINER_REQUESTS = 50
 # phase 14, the native ingress: the JAX headline's own method (bench.py:1281-1345), then bench.py's C++
 # clients (native_model_phase, bench.py:835-960)
-NATIVE_LOAD_SECONDS = 3.0       # half bench.py's 6 s default: three windows of a third at (8, 1), one each deeper
+NATIVE_LOAD_SECONDS = 1.5       # bench.py's 6 s / 4: three windows of a third at (8, 1), one each deeper (3 s to 22)
+NATIVE_SEQUENTIAL_SECONDS = 1.5  # 14c: one connection, batch 1, before the windows (3 s until phase 22)
 NATIVE_LOAD_DEPTHS = ((8, 4), (8, 8), (8, 12))  # (connections, requests in flight on each)
 NATIVE_BATCH_THREADS = (4, 48)  # 14c at each: the ingress default is one, bench.py's BENCH_NATIVE_BATCH_THREADS 48
 NATIVE_CONTAINER_ROWS = (1, 2, 5)  # one multi-frame container, one micro-batch
@@ -533,18 +566,18 @@ A4_OAUTH = ("chip-smoke-client", "chip-smoke-secret")  # test-only client creden
 A4_DEADLINE_MS = "10000"
 A4_FEATURES = ("tls", "auth", "tracing", "observer")  # what an A4 gateway child puts on
 A4_WINDOWS = 2                  # windows of each gateway, in turns: on, off, off, on
-A4_SECONDS = 3.0                # 15a's 4-client windows (10 s until PR 13, 5 s until phase 19: the time limit)
+A4_SECONDS = 2.0                # 15a's 4-client windows (10 s until PR 13, 5 s until phase 19, 3 s until phase 22)
 A4_TRACED_REQUESTS = 8          # 15b: requests whose spans are followed across the two processes
 # phase 16, A2.2 on the card: breakers, failover, fallback and hedging on replicated ResNet-50
 A22_ANNOTATIONS = {"seldon.io/breaker-failures": "5", "seldon.io/breaker-reset-ms": "1000"}
 A22_RESET_S = 1.0               # the breaker-reset-ms above
 A22_PROBE_SLACK_S = 2.0         # one probe: a fresh channel's connect and a batch-1 forward on a new process
-A22_SECONDS = 5.0               # 16a and 16b windows of 4 sync-gRPC clients (10 s before phase 19)
+A22_SECONDS = 4.0               # 16a and 16b windows of 4 sync-gRPC clients (10 s before phase 19, 5 s before 22)
 A22_CLIENTS = 4
 A22_SPLIT_TOL = 0.05            # each replica serves 50% +- 5% of 16a's requests
 A22_SEQUENTIAL = 50             # 16d: sequential requests healthy, then with the primary killed
-A22_HEDGE_P90_SECONDS = 3.0     # 16e: the unhedged window whose p90 becomes seldon.io/hedge-ms (5 s until phase 19)
-A22_HEDGE_SECONDS = 3.0         # 16e's off / on / on / off windows (10 s until PR 13, 5 s until phase 19)
+A22_HEDGE_P90_SECONDS = 2.0     # 16e: the unhedged window whose p90 is seldon.io/hedge-ms (5 s to phase 19, 3 to 22)
+A22_HEDGE_SECONDS = 1.5         # 16e's off / on / on / off windows (10 s to PR 13, 5 s to phase 19, 3 to 22)
 # phase 17, A5 and A6 on the card: model_uri checkpoints and a second ViT resolution
 ORBAX_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_orbax")  # resnet_tiny, StandardCheckpointer
 ORBAX_LOGITS_TOL = 1e-4         # float32, TF32 off: rtol = atol against the JAX server's logits
@@ -613,6 +646,17 @@ TIER_NEW = 4                    # 21b: new tokens a revisit
 TIER_ROUNDS = 4                 # 21b: revisits of both sessions; the walls of rounds 2 on are timed
 SERVED_REQUESTS = 24            # 21c: 16 decoding and 8 queued when A is SIGTERMed
 SERVED_NEW = 512                # 21c: new tokens a request (still decoding at the signal)
+# phase 22, generation telemetry and chaos (ROADMAP A8.11)
+TELE_STREAMS = 16               # 22a-c: lanes (the generation config's slots)
+TELE_PROMPT = 128               # 22a-d: prompt tokens
+TELE_NEW = 64                   # 22a, 22b: new tokens a stream
+TELE_LONG_NEW = 128             # 22b alloc, 22c: new tokens a stream (page growth past the prompt's third page)
+TELE_QUEUED = 8                 # 22b chunk fault: streams queued behind the faulted chunk's 16
+TELE_RATE_REPS = 2              # 22a: timed turns a lane (on, off, off, on)
+WD_WINDOW = 4                   # 22c: SELDON_TPU_WATCHDOG_WINDOW (waves)
+WD_BREACHES = 2                 # 22c: SELDON_TPU_WATCHDOG_BREACHES
+WD_COLD_CEILING_MS = 200.0      # 22c: the cold engine's ceiling (below a first-use nvcc build, above a warm chunk)
+TELE_SERVED_REQUESTS = 4        # 22d: sequential requests through the gateway
 
 
 class SmokeFailure(RuntimeError):
@@ -641,6 +685,95 @@ class PhaseClock:
         self.seconds[phase] = now - self.t
         self.t = now
         log(f"{phase}: {self.seconds[phase]:.1f} s of wall time")
+
+
+class EarlyServers:
+    """The server processes of later phases, launched together while the
+    kernels build and awaited before the first timed phase: no phase then
+    waits on a load, and no load runs beside a timed window.  A launch
+    function returns its phase's context: ``procs``, ``logfile``,
+    ``logpath``, ``launched`` and ``ready()``, which blocks until every
+    process answers; the phase takes it by name, or launches anew when it
+    is not there.  ``stop()`` ends what no phase took (one failed first)."""
+
+    def __init__(self):
+        self.slots = {}
+
+    def launch(self, name: str, launch) -> None:
+        self.slots[name] = dict(launch(), early=True)
+
+    def ready(self, torch, card) -> None:
+        t0 = time.perf_counter()
+        for ctx in self.slots.values():
+            ctx["ready"]()
+            ctx["ready_s"] = time.perf_counter() - ctx["launched"]
+        for ctx in self.slots.values():
+            ctx["idle_from"] = (time.perf_counter(), cpu_seconds(ctx["procs"]))
+        free, total = torch.cuda.mem_get_info()
+        with open("/proc/meminfo") as f:
+            avail = next(int(line.split()[1]) for line in f if line.startswith("MemAvailable:")) / 2 ** 20
+        procs = sum(len(ctx["procs"]) for ctx in self.slots.values())
+        each = ", ".join("%s %.1f s" % (name, ctx["ready_s"]) for name, ctx in self.slots.items())
+        log(f"early servers: {procs} processes of {len(self.slots)} phases ({each} after their launch), "
+            f"awaited {time.perf_counter() - t0:.1f} s past the build; card memory in use "
+            f"{(total - free) / 2 ** 30:.1f} of {total / 2 ** 30:.1f} GiB, host memory available {avail:.1f} GiB "
+            f"[{card}]")
+
+    def take(self, name: str, launch) -> dict:
+        ctx = self.slots.pop(name, None)
+        if ctx is None:
+            return launch()
+        if "idle_from" in ctx:  # what the waiting processes cost the phases before this one
+            t, cpu = ctx["idle_from"]
+            log(f"early servers of {name}: {len(ctx['procs'])} processes idle {time.perf_counter() - t:.1f} s "
+                f"since ready used {cpu_seconds(ctx['procs']) - cpu:.2f} CPU s")
+        return ctx
+
+    def stop(self) -> None:
+        for ctx in self.slots.values():
+            for proc in ctx["procs"]:
+                stop_server(proc)
+            ctx["logfile"].close()
+            ctx.get("cleanup", lambda: None)()
+        self.slots.clear()
+
+
+EARLY = EarlyServers()
+
+
+def cpu_seconds(procs) -> float:
+    """User + system CPU seconds the processes have used (``/proc``)."""
+    total = 0.0
+    for proc in procs:
+        try:
+            with open(f"/proc/{proc.pid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            total += (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+        except (OSError, IndexError, ValueError):
+            pass
+    return total
+
+
+def ready_since(ctx) -> float:
+    """Seconds from a context's launch to its readiness: as awaited before
+    the first timed phase when it launched early, else until now."""
+    return ctx.get("ready_s", time.perf_counter() - ctx["launched"])
+
+
+def early_note(ctx) -> str:
+    return " (launched early with the other phases' servers)" if ctx.get("early") else ""
+
+
+def server_context(prefix: str, **start):
+    """One microservice CLI on a free port (``start_server``'s arguments)."""
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    fd, logpath = tempfile.mkstemp(prefix=prefix, suffix=".log")
+    logfile = os.fdopen(fd, "w")
+    launched = time.perf_counter()
+    proc = start_server(port, logfile, **start)
+    return {"procs": [proc], "logfile": logfile, "logpath": logpath, "launched": launched, "port": port,
+            "base": base, "ready": lambda: wait_ready(proc, base, logpath)}
 
 
 # ---------------------------------------------------------------- phase 1
@@ -1219,17 +1352,18 @@ def throughput_window(np, base, rng, clients: int, seconds: float):
     return requests * 32 / wall, requests, wall
 
 
+def launch_main():
+    return server_context("chip_smoke_server_")
+
+
 def main_path(torch, np, kernels, resnet, card):
     rng = np.random.default_rng(SEED + 1)
-    port = free_port()
-    base = f"http://127.0.0.1:{port}"
-    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_server_", suffix=".log")
-    logfile = os.fdopen(fd, "w")
-    proc = start_server(port, logfile)
+    ctx = EARLY.take("main", launch_main)
+    (proc,), base, logpath, logfile = ctx["procs"], ctx["base"], ctx["logpath"], ctx["logfile"]
     try:
-        status, ready_s = wait_ready(proc, base, logpath)
-        log(f"server ready in {ready_s:.1f}s (load {status['load_time_s']:.1f}s, buckets {status['buckets']}, "
-            f"device {status['device_name']})")
+        status, _ = wait_ready(proc, base, logpath)
+        log(f"server ready in {ready_since(ctx):.1f}s{early_note(ctx)} (load {status['load_time_s']:.1f}s, buckets "
+            f"{status['buckets']}, device {status['device_name']})")
         check(status["device"].startswith("cuda"), f"server is not on the card: {status['device']}")
         m0 = metrics_values(http(base + "/metrics"))
         before = status["kernel_launches"]
@@ -1382,6 +1516,11 @@ def lm_engine(PagedEngine, params, dtype):
     return PagedEngine(params, dtype=dtype, device="cuda", **LM_CONFIG, **LM_ENGINE, **NO_PREFIX_CACHE)
 
 
+def launch_lm():
+    return server_context("chip_smoke_lm_server_", component="seldon_core_tpu_torch.models.paged.StreamingLM",
+                          params=LM_PARAMS, env=dict(os.environ, **NO_PREFIX_CACHE_ENV))
+
+
 def generation_path(torch, np, PagedEngine, load_lm_params, card):
     """The served generation path, rows held against an in-process engine."""
     rng = np.random.default_rng(SEED + 20)
@@ -1389,24 +1528,19 @@ def generation_path(torch, np, PagedEngine, load_lm_params, card):
     conc_prompts = [rng.integers(0, V, int(n)) for n in np.linspace(16, 700, 16)]
     single_prompts = [rng.integers(0, V, n) for n in (20, 64, 65, 128, 200, 333, 511, 640)]
     bench_prompts = [rng.integers(0, V, 128) for _ in range(16)]
-    port = free_port()
-    base = f"http://127.0.0.1:{port}"
-    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_lm_server_", suffix=".log")
-    logfile = os.fdopen(fd, "w")
-    launched = time.perf_counter()
-    proc = start_server(port, logfile, "seldon_core_tpu_torch.models.paged.StreamingLM", LM_PARAMS,
-                        env=dict(os.environ, **NO_PREFIX_CACHE_ENV))
+    ctx = EARLY.take("lm", launch_lm)
+    (proc,), base, logpath, logfile = ctx["procs"], ctx["base"], ctx["logpath"], ctx["logfile"]
     try:
         # the server's weights in-process (its default seed 0), each prompt
-        # alone, beside the server's load
+        # alone, beside the server's load unless it launched early
         eng = lm_engine(PagedEngine, load_lm_params("", LM_CONFIG, 0, torch.device("cuda")), "bfloat16")
         local_single = [eng.generate(p, max_new_tokens=LM_MAX_NEW) for p in single_prompts]
         local_conc = [eng.generate(p, max_new_tokens=LM_MAX_NEW) for p in conc_prompts]
         del eng
         torch.cuda.empty_cache()
         status, _ = wait_ready(proc, base, logpath)
-        ready_s = time.perf_counter() - launched
-        log(f"StreamingLM ready {ready_s:.1f}s after its launch (load {status['load_time_s']:.1f}s, device "
+        log(f"StreamingLM ready {ready_since(ctx):.1f}s after its launch{early_note(ctx)} (load "
+            f"{status['load_time_s']:.1f}s, device "
             f"{status['device_name']}, kernel lane {status['kernel_active']})")
         check(status["device"].startswith("cuda") and status["kernel_active"],
               f"the generation server is not on the card's kernel lane: {status}")
@@ -1609,18 +1743,19 @@ def vit_model(torch, kernels, vit, dtype, flash: bool, seed: int):
     return model.reset_parameters(torch.Generator().manual_seed(seed)).cuda().eval()
 
 
+def launch_vit():
+    return server_context("chip_smoke_vit_server_", params=VIT_PARAMS)
+
+
 def vit_path(torch, np, kernels, vit, card):
     """The served ViT-B/16 path, rows held against an in-process model."""
     rng = np.random.default_rng(SEED + 50)
-    port = free_port()
-    base = f"http://127.0.0.1:{port}"
-    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_vit_server_", suffix=".log")
-    logfile = os.fdopen(fd, "w")
-    proc = start_server(port, logfile, params=VIT_PARAMS)
+    ctx = EARLY.take("vit", launch_vit)
+    (proc,), base, logpath, logfile = ctx["procs"], ctx["base"], ctx["logpath"], ctx["logfile"]
     try:
-        status, ready_s = wait_ready(proc, base, logpath)
-        log(f"ViT-B/16 server ready in {ready_s:.1f}s (load {status['load_time_s']:.1f}s, buckets "
-            f"{status['buckets']}, device {status['device_name']})")
+        status, _ = wait_ready(proc, base, logpath)
+        log(f"ViT-B/16 server ready in {ready_since(ctx):.1f}s{early_note(ctx)} (load {status['load_time_s']:.1f}s, "
+            f"buckets {status['buckets']}, device {status['device_name']})")
         check(status["device"].startswith("cuda"), f"the ViT server is not on the card: {status['device']}")
         m0 = metrics_values(http(base + "/metrics"))
         before = status["kernel_launches"]
@@ -1932,6 +2067,11 @@ def adapter_registry(WeightRegistry, make_lora_params):
     return reg
 
 
+def launch_qlm():
+    return server_context("chip_smoke_qlm_server_", component="seldon_core_tpu_torch.models.paged.StreamingLM",
+                          params=Q_LM_PARAMS, env=dict(os.environ, SELDON_TPU_KV_DTYPE="int8", **NO_PREFIX_CACHE_ENV))
+
+
 def quantized_generation_path(torch, np, PagedEngine, load_lm_params, WeightRegistry, make_lora_params, card):
     """The served int8 + multi-adapter generation path, rows held against
     an in-process engine of the same weights, adapters and pool."""
@@ -1943,16 +2083,11 @@ def quantized_generation_path(torch, np, PagedEngine, load_lm_params, WeightRegi
     single_prompts = [rng.integers(0, V, n) for n in (20, 64, 65, 128, 200, 333, 511, 640)]
     single_adapters = [None, "a1", "a2", "a1", None, "a2", "a1", "a2"]
     bench_prompts = [rng.integers(0, V, 128) for _ in range(16)]
-    port = free_port()
-    base = f"http://127.0.0.1:{port}"
-    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_qlm_server_", suffix=".log")
-    logfile = os.fdopen(fd, "w")
-    launched = time.perf_counter()
-    proc = start_server(port, logfile, "seldon_core_tpu_torch.models.paged.StreamingLM", Q_LM_PARAMS,
-                        env=dict(os.environ, SELDON_TPU_KV_DTYPE="int8", **NO_PREFIX_CACHE_ENV))
+    ctx = EARLY.take("qlm", launch_qlm)
+    (proc,), base, logpath, logfile = ctx["procs"], ctx["base"], ctx["logpath"], ctx["logfile"]
     try:
         # the in-process reference of the same weights, adapters and pool,
-        # each prompt alone, beside the server's load
+        # each prompt alone, beside the server's load unless it launched early
         with knob_env(SELDON_TPU_KV_DTYPE="int8"):
             eng = PagedEngine(load_lm_params("", LM_CONFIG, 0, torch.device("cuda")), dtype="bfloat16",
                               device="cuda", max_adapters=2, lora_rank=LORA_RANK,
@@ -1966,8 +2101,8 @@ def quantized_generation_path(torch, np, PagedEngine, load_lm_params, WeightRegi
         del eng
         torch.cuda.empty_cache()
         status, _ = wait_ready(proc, base, logpath)
-        ready_s = time.perf_counter() - launched
-        log(f"int8 + adapters StreamingLM ready {ready_s:.1f}s after its launch (load {status['load_time_s']:.1f}s, "
+        log(f"int8 + adapters StreamingLM ready {ready_since(ctx):.1f}s after its launch{early_note(ctx)} (load "
+            f"{status['load_time_s']:.1f}s, "
             f"kv pool {status['kv_dtype']}, adapters {status['adapters']['max_adapters']} slots of rank "
             f"{status['adapters']['rank']}, kernel lane {status['kernel_active']})")
         check(status["device"].startswith("cuda") and status["kernel_active"] and status["kv_dtype"] == "int8"
@@ -2099,13 +2234,13 @@ def quantized_engine_numerics(torch, np, kernels, PagedEngine, load_lm_params, W
         eng = PagedEngine(params, dtype="bfloat16", device="cuda", max_adapters=2, lora_rank=LORA_RANK,
                           weight_registry=adapter_registry(WeightRegistry, make_lora_params), **LM_CONFIG, **LM_ENGINE,
                           **NO_PREFIX_CACHE)
-        alone = [eng.generate(p, max_new_tokens=LM_MAX_NEW, adapter=a) for p, a in zip(prompts, adapters)]
-        wave = [eng.submit(p, max_new_tokens=LM_MAX_NEW, adapter=a) for p, a in zip(prompts, adapters)]
+        alone = [eng.generate(p, max_new_tokens=Q_WAVE_NEW, adapter=a) for p, a in zip(prompts, adapters)]
+        wave = [eng.submit(p, max_new_tokens=Q_WAVE_NEW, adapter=a) for p, a in zip(prompts, adapters)]
         eng.run()
     del eng
     torch.cuda.empty_cache()
     wave_same = sum(bool((s.result == r).all()) for s, r in zip(wave, alone))
-    log(f"bf16 int8 + adapters, 16 ragged prompts x {LM_MAX_NEW} tokens: one wave (mixed-adapter prefill groups) "
+    log(f"bf16 int8 + adapters, 16 ragged prompts x {Q_WAVE_NEW} tokens: one wave (mixed-adapter prefill groups) "
         f"== each prompt alone for {wave_same}/16 rows")
     check(wave_same == len(prompts), f"a stream's tokens depend on its prefill group: {wave_same}/16")
 
@@ -2344,17 +2479,12 @@ def precision_path(torch, np, kernels, w8a8, same_pads, CudaServer, card):
     """Phase 12: ResNet-50 served over REST in each int8 lane, held against
     the in-process model of the same lane and against the bf16 lane."""
     rng = np.random.default_rng(SEED + 80)
-    # both lanes' servers load at once, beside the in-process bf16 reference;
-    # both are ready before the first request, so no load runs beside a window
-    servers, launched = {}, time.perf_counter()
+    # both lanes' servers load at once (beside the in-process bf16 reference
+    # unless they launched early); both are ready before the first request,
+    # so no load runs beside a window
+    ctx = EARLY.take("precision", launch_precision)
+    servers = ctx["servers"]
     try:
-        for precision in PRECISIONS:
-            params = MODEL_PARAMS + [{"name": "precision", "value": precision, "type": "STRING"}]
-            port = free_port()
-            fd, logpath = tempfile.mkstemp(prefix=f"chip_smoke_{precision}_server_", suffix=".log")
-            logfile = os.fdopen(fd, "w")
-            servers[precision] = (start_server(port, logfile, params=params), f"http://127.0.0.1:{port}", logfile,
-                                  logpath)
         bf16 = precision_server(CudaServer, "")
         compare = distinct_images(np, rng, 32)
         ref_bf16 = lane_logits(torch, np, bf16, compare)
@@ -2362,9 +2492,9 @@ def precision_path(torch, np, kernels, w8a8, same_pads, CudaServer, card):
         del bf16
         torch.cuda.empty_cache()
         statuses = {p: wait_ready(proc, base, logpath)[0] for p, (proc, base, _, logpath) in servers.items()}
-        ready_s = time.perf_counter() - launched
+        ready_s = ready_since(ctx)
         return {**out, **{p: precision_lane(torch, np, w8a8, same_pads, CudaServer, card, p, statuses[p],
-                                            servers[p], compare, ref_bf16, ready_s, rng, out)
+                                            servers[p], compare, ref_bf16, ready_s, rng, out, early_note(ctx))
                           for p in PRECISIONS}}
     finally:
         for proc, _, logfile, _ in servers.values():
@@ -2372,13 +2502,44 @@ def precision_path(torch, np, kernels, w8a8, same_pads, CudaServer, card):
             logfile.close()
 
 
+def launch_precision():
+    """Phase 12's two servers, one a lane; ``logfile`` is the first's."""
+    servers, launched = {}, time.perf_counter()
+    for precision in PRECISIONS:
+        params = MODEL_PARAMS + [{"name": "precision", "value": precision, "type": "STRING"}]
+        port = free_port()
+        fd, logpath = tempfile.mkstemp(prefix=f"chip_smoke_{precision}_server_", suffix=".log")
+        logfile = os.fdopen(fd, "w")
+        servers[precision] = (start_server(port, logfile, params=params), f"http://127.0.0.1:{port}", logfile,
+                              logpath)
+
+    def ready():
+        for proc, base, _, logpath in servers.values():
+            wait_ready(proc, base, logpath)
+
+    first = servers[PRECISIONS[0]]
+    return {"procs": [v[0] for v in servers.values()], "logfile": _Files([v[2] for v in servers.values()]),
+            "logpath": first[3], "launched": launched, "servers": servers, "ready": ready}
+
+
+class _Files:
+    """Several log files closed as one."""
+
+    def __init__(self, files):
+        self.files = files
+
+    def close(self):
+        for f in self.files:
+            f.close()
+
+
 def precision_lane(torch, np, w8a8, same_pads, CudaServer, card, precision, status, server, compare, ref_bf16,
-                   ready_s, rng, out):
+                   ready_s, rng, out, note=""):
     """One int8 lane of phase 12 on its server, ready since ``ready_s``
     after both lanes' servers launched."""
     proc, base, _, _ = server
     try:
-        log(f"ResNet-50 {precision} server ready {ready_s:.1f}s after both lanes' launch (load "
+        log(f"ResNet-50 {precision} server ready {ready_s:.1f}s after both lanes' launch{note} (load "
             f"{status['load_time_s']:.1f}s, "
             f"precision {status['precision']}, quantize {status['quantize']}, {status['quantized_kernels']} "
             f"int8 kernels, {status['act_scales_calibrated']} activation scales, param bytes "
@@ -2807,6 +2968,35 @@ def response_metric(resp, key: str, **tags) -> float:
     raise SmokeFailure(f"answer carries no metric {key} {tags}")
 
 
+def launch_gateway():
+    """Phase 13's processes.  (a) one process: the gateway's MODEL node is
+    CUDA_SERVER in-process; (b) two processes: the microservice CLI (--api
+    GRPC) and a gateway whose node is its gRPC endpoint."""
+    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_gateway_", suffix=".log")
+    logfile = os.fdopen(fd, "w")
+    launched = time.perf_counter()
+    graph = {"name": "resnet50", "type": "MODEL", "implementation": "CUDA_SERVER", "parameters": GRPC_PARAMS}
+    a = start_gateway("resnet50", graph, logfile)
+    ms_port = free_port()
+    ms = subprocess.Popen(
+        [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice",
+         "seldon_core_tpu_torch.models.cudaserver.CudaServer", "--api", "GRPC", "--host", "127.0.0.1",
+         "--grpc-port", str(ms_port), "--parameters", json.dumps(GRPC_PARAMS)],
+        cwd=ROOT, stdout=logfile, stderr=subprocess.STDOUT, start_new_session=True)
+    remote = {"name": "resnet50", "type": "MODEL",
+              "endpoint": {"host": "127.0.0.1", "port": ms_port, "transport": "GRPC"}}
+    b = start_gateway("resnet50", remote, logfile)
+    procs = [a[0], ms, b[0]]
+
+    def ready():
+        wait_gateway(procs, a[1], logpath)
+        wait_gateway(procs, b[1], logpath)
+        wait_listening(procs, ms_port, logpath)
+
+    return {"procs": procs, "logfile": logfile, "logpath": logpath, "launched": launched, "a": a, "b": b,
+            "ms_port": ms_port, "ready": ready}
+
+
 def gateway_paths(torch, np, kernels, resnet, card):
     """Phases 13a-13c: the ResNet-50 SeldonDeployment over gRPC and REST,
     one process and two."""
@@ -2820,41 +3010,25 @@ def gateway_paths(torch, np, kernels, resnet, card):
     rest_rows = lambda body, rows: decode_logits(np, body, rows)  # noqa: E731
     numbers, errs = {}, {"one_process": [], "two_process": []}
 
-    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_gateway_", suffix=".log")
-    logfile = os.fdopen(fd, "w")
-    procs = []
+    # (a)'s gateway and (b)'s two processes load at once (beside the
+    # in-process reference unless they launched early); all are ready
+    # before (a)'s first request, so no load runs beside a window
+    ctx = EARLY.take("gateway", launch_gateway)
+    procs, logfile, logpath = ctx["procs"], ctx["logfile"], ctx["logpath"]
+    proc, base, grpc_port = ctx["a"]
+    proc_b, base_b, grpc_port_b = ctx["b"]
+    ms_port = ctx["ms_port"]
     try:
-        # (a)'s gateway and (b)'s two processes load at once, beside the
-        # in-process reference; all are ready before (a)'s first request,
-        # so no load runs beside a window.  (a) one process: the gateway's
-        # MODEL node is CUDA_SERVER in-process; (b) two processes: the
-        # microservice CLI (--api GRPC) and a gateway whose node is its gRPC
-        # endpoint
-        launched = time.perf_counter()
-        graph = {"name": "resnet50", "type": "MODEL", "implementation": "CUDA_SERVER", "parameters": GRPC_PARAMS}
-        proc, base, grpc_port = start_gateway("resnet50", graph, logfile)
-        procs.append(proc)
-        ms_port = free_port()
-        ms = subprocess.Popen(
-            [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice",
-             "seldon_core_tpu_torch.models.cudaserver.CudaServer", "--api", "GRPC", "--host", "127.0.0.1",
-             "--grpc-port", str(ms_port), "--parameters", json.dumps(GRPC_PARAMS)],
-            cwd=ROOT, stdout=logfile, stderr=subprocess.STDOUT, start_new_session=True)
-        procs.append(ms)
-        remote = {"name": "resnet50", "type": "MODEL",
-                  "endpoint": {"host": "127.0.0.1", "port": ms_port, "transport": "GRPC"}}
-        proc_b, base_b, grpc_port_b = start_gateway("resnet50", remote, logfile)
-        procs.append(proc_b)
         local = reference_resnet(torch, resnet, SEED)
         refs = reference_logits(torch, np, kernels, local, all_images)
         del local
         torch.cuda.empty_cache()
         wait_gateway(procs, base, logpath)
-        ready_s = time.perf_counter() - launched
-        log(f"13a gateway ready {ready_s:.1f}s after its launch (ResNet-50 CUDA_SERVER, sync gRPC, port {grpc_port})")
+        log(f"13a gateway ready {ready_since(ctx):.1f}s after its launch{early_note(ctx)} (ResNet-50 CUDA_SERVER, "
+            f"sync gRPC, port {grpc_port})")
         wait_gateway(procs, base_b, logpath)
         wait_listening(procs, ms_port, logpath)
-        log(f"13b microservice (--api GRPC, port {ms_port}) and gateway ready {time.perf_counter() - launched:.1f}s "
+        log(f"13b microservice (--api GRPC, port {ms_port}) and gateway ready {ready_since(ctx):.1f}s "
             f"after their launch, beside 13a's")
         m0 = metrics_values(http(base + "/metrics"))
         channel, predict = grpc_callable(services, grpc_server, grpc_port)
@@ -3120,7 +3294,7 @@ def quiesce(base: str, max_wait_s: float = 8.0) -> None:
         if now == last:
             return
         last = now
-        time.sleep(0.5)
+        time.sleep(0.2)
 
 
 def batcher_means(m0, m1, labels: str):
@@ -3135,12 +3309,12 @@ def batcher_means(m0, m1, labels: str):
 
 def cpp_client_windows(load, base: str, what: str, card, after_first=None):
     """bench.py's native_model_phase schedule for one C++ client: one
-    connection sequential (3 s), then (8 connections, depth 1) best of
+    connection sequential (NATIVE_SEQUENTIAL_SECONDS), then (8 connections, depth 1) best of
     three windows of NATIVE_LOAD_SECONDS / 3, then one window at each of
     NATIVE_LOAD_DEPTHS; every answer a 2xx / grpc-status 0.
     ``after_first()`` runs once the one-connection run has drained."""
     window = NATIVE_LOAD_SECONDS / 3
-    runs = [dict(load("one", 3.0, 1, 1), connections=1, depth=1, rows=1)]
+    runs = [dict(load("one", NATIVE_SEQUENTIAL_SECONDS, 1, 1), connections=1, depth=1, rows=1)]
     quiesce(base)
     if after_first is not None:
         after_first()
@@ -3163,6 +3337,28 @@ def cpp_client_windows(load, base: str, what: str, card, after_first=None):
         + ", ".join(f"({r['connections']}, {r['depth']}) {r['img_s']:.1f}" for r in runs[4:])
         + f" img/s; best {best['img_s']:.1f} at ({best['connections']}, {best['depth']}) [{card}]")
     return out
+
+
+def launch_native():
+    """Phase 14's gateway child (13a's graph) with two native ingress
+    servers in front: the default batch threads, and the other count 14c
+    compares."""
+    from seldon_core_tpu_torch.engine.native_ingress import BATCH_THREADS
+
+    other_threads = next(t for t in NATIVE_BATCH_THREADS if t != BATCH_THREADS)
+    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_native_", suffix=".log")
+    logfile = os.fdopen(fd, "w")
+    port, other_port = free_port(), free_port()
+    graph = {"name": "resnet50", "type": "MODEL", "implementation": "CUDA_SERVER", "parameters": GRPC_PARAMS}
+    launched = time.perf_counter()
+    proc, _, _ = start_gateway("resnet50", graph, logfile, native=((port, BATCH_THREADS), (other_port, other_threads)))
+
+    def ready():
+        wait_gateway([proc], f"http://127.0.0.1:{port}", logpath)
+        wait_gateway([proc], f"http://127.0.0.1:{other_port}", logpath)
+
+    return {"procs": [proc], "logfile": logfile, "logpath": logpath, "launched": launched, "ports": (port, other_port),
+            "ready": ready}
 
 
 def native_paths(torch, np, kernels, resnet, card, gateway_numbers, forward_ms_b1: float):
@@ -3194,27 +3390,23 @@ def native_paths(torch, np, kernels, resnet, card, gateway_numbers, forward_ms_b
     def metric_delta(m0, m1, key):
         return m1[key] - m0[key]
 
-    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_native_", suffix=".log")
-    logfile = os.fdopen(fd, "w")
-    proc = None
+    check(BATCH_THREADS in NATIVE_BATCH_THREADS, f"the ingress default of {BATCH_THREADS} batch threads is not "
+          f"one of the counts 14c compares, {NATIVE_BATCH_THREADS}")
+    other_threads = next(t for t in NATIVE_BATCH_THREADS if t != BATCH_THREADS)
+    ctx = EARLY.take("native", launch_native)
+    (proc,), logfile, logpath = ctx["procs"], ctx["logfile"], ctx["logpath"]
+    port, other_port = ctx["ports"]
     try:
-        check(BATCH_THREADS in NATIVE_BATCH_THREADS, f"the ingress default of {BATCH_THREADS} batch threads is not "
-              f"one of the counts 14c compares, {NATIVE_BATCH_THREADS}")
-        other_threads = next(t for t in NATIVE_BATCH_THREADS if t != BATCH_THREADS)
-        port, other_port = free_port(), free_port()
-        graph = {"name": "resnet50", "type": "MODEL", "implementation": "CUDA_SERVER", "parameters": GRPC_PARAMS}
-        launched = time.perf_counter()
-        proc, base, _ = start_gateway("resnet50", graph, logfile,
-                                      native=((port, BATCH_THREADS), (other_port, other_threads)))
         nbase, other_base = f"http://127.0.0.1:{port}", f"http://127.0.0.1:{other_port}"
-        local = reference_resnet(torch, resnet, SEED)  # beside the gateway's load
+        local = reference_resnet(torch, resnet, SEED)  # beside the gateway's load unless it launched early
         refs = reference_logits(torch, np, kernels, local, all_images)
         del local
         torch.cuda.empty_cache()
         wait_gateway([proc], nbase, logpath)
-        ready_s = time.perf_counter() - launched
+        ready_s = ready_since(ctx)
         wait_gateway([proc], other_base, logpath)
-        log(f"14 native ingress ready in {ready_s:.1f}s (C++ HTTP/1.1 + h2c on port {port} in front of 13a's "
+        log(f"14 native ingress ready in {ready_s:.1f}s{early_note(ctx)} (C++ HTTP/1.1 + h2c on port {port} in "
+            f"front of 13a's "
             f"gateway, {BATCH_THREADS} batch threads; a second on port {other_port} with {other_threads}, for 14c)")
         m0, s0 = metrics_values(http(nbase + "/metrics")), native_stats(nbase)
         probes = {}
@@ -3357,8 +3549,7 @@ def native_paths(torch, np, kernels, resnet, card, gateway_numbers, forward_ms_b
         log(f"14c batch threads: {BATCH_THREADS} (the default) against {other_threads}, the same gateway and clients: "
             + json.dumps(by_threads) + f"; {int(batches_t)} batches = K1 launches behind the second server [{card}]")
     finally:
-        if proc is not None:
-            stop_server(proc)
+        stop_server(proc)
         logfile.close()
     log(f"14d {len(errs)} served rows, max rel L2 {max(errs):.3e} against the in-process model "
         f"(limit {SERVED_VS_LOCAL_REL_L2})")
@@ -3490,6 +3681,45 @@ def read_spans(path: str, want: int, timeout_s: float = 20.0):
     return spans
 
 
+def launch_a4():
+    """Phase 15's processes.  (a) the A4 gateway (with a native port in
+    front, read in (c)) and 13a's plain gateway; (b) the two-process
+    deployment: the CLI (--api BOTH --tracing) and an A4 gateway whose
+    node is its gRPC endpoint."""
+    from seldon_core_tpu_torch.engine.native_ingress import BATCH_THREADS
+
+    graph = {"name": "resnet50", "type": "MODEL", "implementation": "CUDA_SERVER", "parameters": GRPC_PARAMS}
+    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_a4_", suffix=".log")
+    logfile = os.fdopen(fd, "w")
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_traces_")
+    launched = time.perf_counter()
+    native_port = free_port()
+    a4 = start_gateway("resnet50", graph, logfile, native=((native_port, BATCH_THREADS),), a4=True)
+    plain = start_gateway("resnet50", graph, logfile)
+    ms_http, ms_grpc = free_port(), free_port()
+    ms_spans, gw_spans = os.path.join(trace_dir, "microservice.jsonl"), os.path.join(trace_dir, "gateway.jsonl")
+    ms = subprocess.Popen(
+        [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice",
+         "seldon_core_tpu_torch.models.cudaserver.CudaServer", "--api", "BOTH", "--tracing", "--host",
+         "127.0.0.1", "--http-port", str(ms_http), "--grpc-port", str(ms_grpc), "--unit-id", "resnet50",
+         "--parameters", json.dumps(GRPC_PARAMS)],
+        cwd=ROOT, stdout=logfile, stderr=subprocess.STDOUT, start_new_session=True,
+        env={**os.environ, "SELDON_TPU_TRACE_EXPORT": ms_spans})
+    remote = {"name": "resnet50", "type": "MODEL",
+              "endpoint": {"host": "127.0.0.1", "port": ms_grpc, "transport": "GRPC"}}
+    gw = start_gateway("resnet50", remote, logfile, a4=True, env={**os.environ, "SELDON_TPU_TRACE_EXPORT": gw_spans})
+    procs = [a4[0], plain[0], ms, gw[0]]
+
+    def ready():
+        for url in (a4[1], plain[1], f"http://127.0.0.1:{native_port}", gw[1]):
+            wait_gateway(procs, url, logpath)
+        wait_ready(ms, f"http://127.0.0.1:{ms_http}", logpath)
+
+    return {"procs": procs, "logfile": logfile, "logpath": logpath, "launched": launched, "native_port": native_port,
+            "a4": a4, "plain": plain, "gw": gw, "ms": ms, "ms_http": ms_http, "ms_grpc": ms_grpc,
+            "ms_spans": ms_spans, "gw_spans": gw_spans, "ready": ready}
+
+
 def a4_paths(torch, np, kernels, resnet, card):
     """Phase 15: A4 on the card, on ResNet-50 at full width.  (a) the
     gateway with TLS, OAuth, deadlines, tracing and the metrics observer
@@ -3498,7 +3728,6 @@ def a4_paths(torch, np, kernels, resnet, card):
     microservice and the native port."""
     import grpc
 
-    from seldon_core_tpu_torch.engine.native_ingress import BATCH_THREADS
     from seldon_core_tpu_torch.proto import pb, services
     from seldon_core_tpu_torch.runtime import grpc_server
 
@@ -3508,55 +3737,32 @@ def a4_paths(torch, np, kernels, resnet, card):
     eight = {"index": [np.arange(8)], "pool": [np.arange(8)]}
     flat = lambda x: np.ascontiguousarray(x.reshape(len(x), -1))  # noqa: E731
     numbers, errs = {}, {"15a": [], "15b": []}
-    graph = {"name": "resnet50", "type": "MODEL", "implementation": "CUDA_SERVER", "parameters": GRPC_PARAMS}
-    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_a4_", suffix=".log")
-    logfile = os.fdopen(fd, "w")
-    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_traces_")
-    procs = []
     with open(os.path.join(TLS_DIR, "ca.crt"), "rb") as f:
         creds = grpc.ssl_channel_credentials(root_certificates=f.read())
+    # (a)'s two gateways and (b)'s two processes load at once (beside the
+    # in-process reference unless they launched early); all are ready
+    # before (a)'s first request, so no load runs beside a window
+    ctx = EARLY.take("a4", launch_a4)
+    procs, logfile, logpath, native_port = ctx["procs"], ctx["logfile"], ctx["logpath"], ctx["native_port"]
+    (a4_proc, a4_base, a4_grpc), (plain_proc, plain_base, plain_grpc) = ctx["a4"], ctx["plain"]
+    (gw_proc, gw_base, gw_grpc), ms = ctx["gw"], ctx["ms"]
+    ms_http, ms_grpc, ms_spans, gw_spans = ctx["ms_http"], ctx["ms_grpc"], ctx["ms_spans"], ctx["gw_spans"]
+    ms_base = f"http://127.0.0.1:{ms_http}"
     try:
-        # (a)'s two gateways and (b)'s two processes load at once, beside the
-        # in-process reference; all are ready before (a)'s first request, so
-        # no load runs beside a window.  (a) the A4 gateway (with a native
-        # port in front, read in (c)) and 13a's plain gateway; (b) the
-        # two-process deployment: the CLI (--api BOTH --tracing) and an A4
-        # gateway whose node is its gRPC endpoint
-        launched = time.perf_counter()
-        native_port = free_port()
-        a4_proc, a4_base, a4_grpc = start_gateway("resnet50", graph, logfile, native=((native_port, BATCH_THREADS),),
-                                                  a4=True)
-        plain_proc, plain_base, plain_grpc = start_gateway("resnet50", graph, logfile)
-        procs += [a4_proc, plain_proc]
-        ms_http, ms_grpc = free_port(), free_port()
-        ms_spans, gw_spans = os.path.join(trace_dir, "microservice.jsonl"), os.path.join(trace_dir, "gateway.jsonl")
-        ms = subprocess.Popen(
-            [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice",
-             "seldon_core_tpu_torch.models.cudaserver.CudaServer", "--api", "BOTH", "--tracing", "--host",
-             "127.0.0.1", "--http-port", str(ms_http), "--grpc-port", str(ms_grpc), "--unit-id", "resnet50",
-             "--parameters", json.dumps(GRPC_PARAMS)],
-            cwd=ROOT, stdout=logfile, stderr=subprocess.STDOUT, start_new_session=True,
-            env={**os.environ, "SELDON_TPU_TRACE_EXPORT": ms_spans})
-        procs.append(ms)
-        remote = {"name": "resnet50", "type": "MODEL",
-                  "endpoint": {"host": "127.0.0.1", "port": ms_grpc, "transport": "GRPC"}}
-        gw_proc, gw_base, gw_grpc = start_gateway("resnet50", remote, logfile, a4=True,
-                                                  env={**os.environ, "SELDON_TPU_TRACE_EXPORT": gw_spans})
-        procs.append(gw_proc)
-        ms_base = f"http://127.0.0.1:{ms_http}"
         local = reference_resnet(torch, resnet, SEED)
         refs = reference_logits(torch, np, kernels, local, all_images)
         del local
         torch.cuda.empty_cache()
         wait_gateway(procs, a4_base, logpath)
         wait_gateway(procs, plain_base, logpath)
-        ready_s = time.perf_counter() - launched
+        ready_s = ready_since(ctx)
         wait_gateway(procs, f"http://127.0.0.1:{native_port}", logpath)
         wait_gateway(procs, gw_base, logpath)
         wait_ready(ms, ms_base, logpath)
-        ready_b = time.perf_counter() - launched
+        ready_b = ready_since(ctx)
         token = oauth_token(a4_base)
-        log(f"15a gateways ready {ready_s:.1f}s after their launch: A4 on (TLS and OAuth on REST and sync gRPC, "
+        log(f"15a gateways ready {ready_s:.1f}s after their launch{early_note(ctx)}: A4 on (TLS and OAuth on REST "
+            f"and sync gRPC, "
             f"port {a4_grpc}; tracing to the ring, the metrics observer; native port {native_port}) and 13a's plain gateway "
             f"(port {plain_grpc}); token from /oauth/token")
         trace_hex = os.urandom(16).hex()
@@ -3877,6 +4083,40 @@ def feedback_never_hedges(np, grpc_port: int) -> dict:
     return {"hedge_ms": client.hedge_ms, "hedges_fired": client.hedges_fired, "hedges_metric_delta": after - before}
 
 
+def launch_a2_2():
+    """Every process of phase 16 but 16e's hedged gateway (it needs 16e's
+    first window), together: the two replicas (same seed, same weights),
+    the balanced gateway (a), the fallback gateway (d) and the unhedged
+    one (e).  ``procs`` is the list of both, ``replicas`` and
+    ``gateways`` the lists the phase restarts and adds to."""
+    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_a2_2_", suffix=".log")
+    logfile = os.fdopen(fd, "w")
+    r_http, r_grpc = [free_port(), free_port()], [free_port(), free_port()]
+    on_r1 = {"host": "127.0.0.1", "port": r_grpc[0], "transport": "GRPC"}
+    fb_unit = "model-int8w"
+    fb_graph = {"name": "model", "type": "MODEL", "endpoint": on_r1,
+                "fallback": {"name": fb_unit, "type": "MODEL", "implementation": "CUDA_SERVER",
+                             "parameters": GRPC_PARAMS + [{"name": "precision", "value": "int8w", "type": "STRING"}]}}
+    launched = time.perf_counter()
+    replicas = [start_replica(r_http[i], r_grpc[i], logfile) for i in range(2)]
+    graph = {"name": "model", "type": "MODEL", "remote": True, "endpoint": on_r1}
+    balanced = start_gateway("balanced", graph, logfile, annotations=A22_ANNOTATIONS, replicas=r_grpc)
+    fallback = start_gateway("fallback", fb_graph, logfile, annotations=A22_ANNOTATIONS)
+    off = start_gateway("hedge-off", {"name": "model", "type": "MODEL", "endpoint": on_r1}, logfile,
+                        annotations=A22_ANNOTATIONS)
+    gateways = [balanced[0], fallback[0], off[0]]
+
+    def ready():
+        for i in range(2):
+            wait_ready(replicas[i], f"http://127.0.0.1:{r_http[i]}", logpath)
+        for b in (balanced[1], fallback[1], off[1]):
+            wait_gateway(replicas + gateways, b, logpath)
+
+    return {"procs": replicas + gateways, "logfile": logfile, "logpath": logpath, "launched": launched,
+            "r_http": r_http, "r_grpc": r_grpc, "replicas": replicas, "gateways": gateways, "balanced": balanced,
+            "fallback": fallback, "off": off, "on_r1": on_r1, "fb_unit": fb_unit, "ready": ready}
+
+
 def a2_2_paths(torch, np, kernels, resnet, CudaServer, card):
     """Phase 16: ROADMAP A2.2 on the card.  ResNet-50 (13a's served
     parameters) on two replicas behind a BalancedClient: (a) balanced
@@ -3891,31 +4131,17 @@ def a2_2_paths(torch, np, kernels, resnet, CudaServer, card):
     images, bodies = single_bodies(np, pb, rng)
     errs = {"16a": [], "16b": [], "16c": [], "16d": [], "16d_degraded": [], "16e": []}
     numbers = {}
-    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_a2_2_", suffix=".log")
-    logfile = os.fdopen(fd, "w")
-    r_http, r_grpc = [free_port(), free_port()], [free_port(), free_port()]
-    replicas, gateways = [None, None], []
     lane_of = lambda port: grpc_lane(pb, services, grpc_server, port)  # noqa: E731
     gauge = lambda s, port: metric_value(s, "seldon_tpu_transport_breaker_state",  # noqa: E731
                                          endpoint=f"127.0.0.1:{port}")
-    on_r1 = {"host": "127.0.0.1", "port": r_grpc[0], "transport": "GRPC"}
-    fb_unit = "model-int8w"
-    fb_graph = {"name": "model", "type": "MODEL", "endpoint": on_r1,
-                "fallback": {"name": fb_unit, "type": "MODEL", "implementation": "CUDA_SERVER",
-                             "parameters": GRPC_PARAMS + [{"name": "precision", "value": "int8w", "type": "STRING"}]}}
+    ctx = EARLY.take("a2_2", launch_a2_2)
+    logfile, logpath, r_http, r_grpc = ctx["logfile"], ctx["logpath"], ctx["r_http"], ctx["r_grpc"]
+    replicas, gateways = ctx["replicas"], ctx["gateways"]
+    (proc, base, port), (fb_proc, fb_base, fb_port), (off_proc, off_base, off_port) = ctx["balanced"], \
+        ctx["fallback"], ctx["off"]
+    on_r1, fb_unit = ctx["on_r1"], ctx["fb_unit"]
     try:
-        # every process but 16e's hedged gateway (it needs 16e's first window) starts here, together:
-        # the two replicas (same seed, same weights), the balanced gateway (a), the fallback gateway (d)
-        # and the unhedged one (e)
-        replicas = [start_replica(r_http[i], r_grpc[i], logfile) for i in range(2)]
-        graph = {"name": "model", "type": "MODEL", "remote": True, "endpoint": on_r1}
-        proc, base, port = start_gateway("balanced", graph, logfile, annotations=A22_ANNOTATIONS, replicas=r_grpc)
-        fb_proc, fb_base, fb_port = start_gateway("fallback", fb_graph, logfile, annotations=A22_ANNOTATIONS)
-        off_proc, off_base, off_port = start_gateway("hedge-off", {"name": "model", "type": "MODEL",
-                                                                   "endpoint": on_r1},
-                                                     logfile, annotations=A22_ANNOTATIONS)
-        gateways += [proc, fb_proc, off_proc]
-        # the in-process references, beside the processes' load
+        # the in-process references, beside the processes' load unless they launched early
         local = reference_resnet(torch, resnet, SEED)
         refs = reference_logits(torch, np, kernels, local, images)
         del local
@@ -3928,7 +4154,7 @@ def a2_2_paths(torch, np, kernels, resnet, CudaServer, card):
             wait_ready(replicas[i], f"http://127.0.0.1:{r_http[i]}", logpath)
         ready_s = max(wait_gateway(replicas + gateways, b, logpath) for b in (base, fb_base, off_base))
         log(f"16 replicas R1 / R2 (CLI --api BOTH, gRPC ports {r_grpc}) and the balanced, fallback and unhedged "
-            f"gateways ready in {time.perf_counter() - t_phase:.1f}s (gateways {ready_s:.1f}s)")
+            f"gateways ready in {ready_since(ctx):.1f}s{early_note(ctx)} (gateways {ready_s:.1f}s)")
         lane = lane_of(port)
         send, close = lane()
         try:  # untimed: each replica's first requests
@@ -4217,71 +4443,98 @@ def leaf_digests(torch, np, tree, prefix=""):
     return out
 
 
+def launch_a5(torch, np, resnet, load_lm_params, make_lora_params):
+    """Phase 17's checkpoints, the ones a user would hand over, written by
+    the port's own flax writer, and its three servers, loading together
+    from them."""
+    from seldon_core_tpu_torch.models import convert
+    from seldon_core_tpu_torch.utils import serialization
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_a5_")
+    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_a5_a6_", suffix=".log")
+    logfile = os.fdopen(fd, "w")
+    t0 = time.perf_counter()
+    local = reference_resnet(torch, resnet, SEED)
+    tree = resnet_flax_variables(np, local)
+    back = convert.resnet_params_from_flax(tree)
+    seeded = local.state_dict()
+    check(set(back) == set(seeded) and all(torch.equal(back[k], seeded[k].float().cpu()) for k in seeded),
+          "resnet_params_from_flax(resnet_flax_variables(model)) is not the model's state_dict bit for bit")
+    resnet_dir = os.path.join(tmp, "resnet50")
+    os.makedirs(resnet_dir)
+    data = serialization.to_bytes(tree)
+    with open(os.path.join(resnet_dir, "variables.msgpack"), "wb") as f:
+        f.write(data)
+    resnet_write_s, resnet_bytes = time.perf_counter() - t0, len(data)
+    del tree, back, data
+    t0 = time.perf_counter()
+    lm_state = load_lm_params("", LM_CONFIG, CKPT_LM_SEED)
+    factors = make_lora_params(CKPT_ADAPTER_SEED, num_layers=LM_CONFIG["num_layers"],
+                               d_model=LM_CONFIG["d_model"], rank=LORA_RANK)
+    lm_path, adapter_path = os.path.join(tmp, "lm.msgpack"), os.path.join(tmp, "adapter.msgpack")
+    with open(lm_path, "wb") as f:
+        f.write(serialization.to_bytes(convert.lm_flax_params(lm_state)))
+    with open(adapter_path, "wb") as f:
+        f.write(serialization.to_bytes(factors))
+    lm_write_s = time.perf_counter() - t0
+    log(f"17 checkpoints written by utils/serialization.to_bytes: ResNet-50 {resnet_bytes} bytes in "
+        f"{resnet_write_s:.2f} s (resnet_params_from_flax gives the seeded state_dict back bit for bit); "
+        f"StreamingLM {os.path.getsize(lm_path)} bytes + rank-{LORA_RANK} adapter "
+        f"{os.path.getsize(adapter_path)} bytes in {lm_write_s:.2f} s")
+
+    # the three servers load together
+    ports = [free_port() for _ in range(3)]
+    bases = [f"http://127.0.0.1:{p}" for p in ports]
+    launched = time.perf_counter()
+    servers = [
+        start_server(ports[0], logfile, params=MODEL_PARAMS + [
+            {"name": "model_uri", "value": f"file://{resnet_dir}", "type": "STRING"}]),
+        start_server(ports[1], logfile, "seldon_core_tpu_torch.models.paged.StreamingLM",
+                     LM_PARAMS + [
+                         {"name": "model_uri", "value": f"file://{lm_path}", "type": "STRING"},
+                         {"name": "adapters", "type": "JSON",
+                          "value": json.dumps({"ckpt": {"uri": f"file://{adapter_path}"}})},
+                         {"name": "max_adapters", "value": "1", "type": "INT"},
+                         {"name": "lora_rank", "value": str(LORA_RANK), "type": "INT"}],
+                     env=dict(os.environ, **NO_PREFIX_CACHE_ENV)),
+        start_server(ports[2], logfile, params=VIT_MULTI_PARAMS)]
+    ctx = {"procs": servers, "logfile": logfile, "logpath": logpath, "launched": launched, "bases": bases,
+           "tmp": tmp, "local": local, "seeded": seeded, "factors": factors, "resnet_dir": resnet_dir,
+           "resnet_bytes": resnet_bytes, "resnet_write_s": resnet_write_s, "ready_each": [None] * 3}
+
+    def ready():
+        for i, (proc, base) in enumerate(zip(servers, bases)):
+            wait_ready(proc, base, logpath)
+            ctx["ready_each"][i] = time.perf_counter() - launched
+
+    ctx.update(ready=ready, cleanup=lambda: shutil.rmtree(tmp, ignore_errors=True))
+    return ctx
+
+
 def a5_a6_paths(torch, np, kernels, resnet, vit, CudaServer, PagedEngine, load_lm_params, WeightRegistry,
                 make_lora_params, mem_bytes_per_s, card):
     """Phase 17: ROADMAP A5 and A6 on the card.  (a) ResNet-50 from a
     model_uri msgpack directory; (b) StreamingLM and a {"uri": ...}
     adapter from model_uri; (c) the committed orbax fixture through
     libzstd; (d) ViT-B/16 serving 224 and 384 from one server."""
-    import shutil
-
-    from seldon_core_tpu_torch.models import convert
     from seldon_core_tpu_torch.runtime import MicroserviceError
-    from seldon_core_tpu_torch.utils import orbax, serialization
+    from seldon_core_tpu_torch.utils import orbax
 
     t_phase = time.perf_counter()
     numbers = {}
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_a5_")
-    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_a5_a6_", suffix=".log")
-    logfile = os.fdopen(fd, "w")
-    servers = []
+    ctx = EARLY.take("a5", lambda: launch_a5(torch, np, resnet, load_lm_params, make_lora_params))
+    servers, bases, logfile, logpath, launched = (ctx[k] for k in ("procs", "bases", "logfile", "logpath",
+                                                                   "launched"))
+    local, seeded, factors, resnet_dir = ctx["local"], ctx["seeded"], ctx["factors"], ctx["resnet_dir"]
+    resnet_bytes, resnet_write_s = ctx["resnet_bytes"], ctx["resnet_write_s"]
+    del ctx["local"], ctx["seeded"]
+
+    note = early_note(ctx).replace(" (", ", ").rstrip(")")
+
+    def ready_since_each(i):  # the three loaded side by side
+        return ctx["ready_each"][i] if ctx["ready_each"][i] is not None else time.perf_counter() - launched
+
     try:
-        # the checkpoints a user would hand over, written by the port's own flax writer
-        t0 = time.perf_counter()
-        local = reference_resnet(torch, resnet, SEED)
-        tree = resnet_flax_variables(np, local)
-        back = convert.resnet_params_from_flax(tree)
-        seeded = local.state_dict()
-        check(set(back) == set(seeded) and all(torch.equal(back[k], seeded[k].float().cpu()) for k in seeded),
-              "resnet_params_from_flax(resnet_flax_variables(model)) is not the model's state_dict bit for bit")
-        resnet_dir = os.path.join(tmp, "resnet50")
-        os.makedirs(resnet_dir)
-        data = serialization.to_bytes(tree)
-        with open(os.path.join(resnet_dir, "variables.msgpack"), "wb") as f:
-            f.write(data)
-        resnet_write_s, resnet_bytes = time.perf_counter() - t0, len(data)
-        del tree, back, data
-        t0 = time.perf_counter()
-        lm_state = load_lm_params("", LM_CONFIG, CKPT_LM_SEED)
-        factors = make_lora_params(CKPT_ADAPTER_SEED, num_layers=LM_CONFIG["num_layers"],
-                                   d_model=LM_CONFIG["d_model"], rank=LORA_RANK)
-        lm_path, adapter_path = os.path.join(tmp, "lm.msgpack"), os.path.join(tmp, "adapter.msgpack")
-        with open(lm_path, "wb") as f:
-            f.write(serialization.to_bytes(convert.lm_flax_params(lm_state)))
-        with open(adapter_path, "wb") as f:
-            f.write(serialization.to_bytes(factors))
-        lm_write_s = time.perf_counter() - t0
-        log(f"17 checkpoints written by utils/serialization.to_bytes: ResNet-50 {resnet_bytes} bytes in "
-            f"{resnet_write_s:.2f} s (resnet_params_from_flax gives the seeded state_dict back bit for bit); "
-            f"StreamingLM {os.path.getsize(lm_path)} bytes + rank-{LORA_RANK} adapter "
-            f"{os.path.getsize(adapter_path)} bytes in {lm_write_s:.2f} s")
-
-        # the three servers load together
-        ports = [free_port() for _ in range(3)]
-        bases = [f"http://127.0.0.1:{p}" for p in ports]
-        launched = time.perf_counter()
-        servers.append(start_server(ports[0], logfile, params=MODEL_PARAMS + [
-            {"name": "model_uri", "value": f"file://{resnet_dir}", "type": "STRING"}]))
-        servers.append(start_server(ports[1], logfile, "seldon_core_tpu_torch.models.paged.StreamingLM",
-                                    LM_PARAMS + [
-                                        {"name": "model_uri", "value": f"file://{lm_path}", "type": "STRING"},
-                                        {"name": "adapters", "type": "JSON",
-                                         "value": json.dumps({"ckpt": {"uri": f"file://{adapter_path}"}})},
-                                        {"name": "max_adapters", "value": "1", "type": "INT"},
-                                        {"name": "lora_rank", "value": str(LORA_RANK), "type": "INT"}],
-                                    env=dict(os.environ, **NO_PREFIX_CACHE_ENV)))
-        servers.append(start_server(ports[2], logfile, params=VIT_MULTI_PARAMS))
-
         # 17c meanwhile: the committed orbax fixture, read through libzstd
         fixture = os.path.join(ORBAX_FIXTURE, "resnet_tiny")
         if orbax.zstd_available():
@@ -4334,7 +4587,7 @@ def a5_a6_paths(torch, np, kernels, resnet, vit, CudaServer, PagedEngine, load_l
         torch.cuda.empty_cache()
         check(same, "17a: the state_dict loaded from model_uri differs from the seeded one")
         status, _ = wait_ready(servers[0], bases[0], logpath)
-        ready_s = time.perf_counter() - launched  # the three loaded side by side
+        ready_s = ready_since_each(0)
         times = status["checkpoint_times"]
         rng = np.random.default_rng(SEED + 17)
         m0 = metrics_values(http(bases[0] + "/metrics"))
@@ -4348,7 +4601,7 @@ def a5_a6_paths(torch, np, kernels, resnet, vit, CudaServer, PagedEngine, load_l
                           "in_process_checkpoint_times": inproc_times, "load_time_s": status["load_time_s"],
                           "ready_s": ready_s, "max_row_rel_l2": err, "k1": k1, "batches": batches}
         log(f"17a ResNet-50 from model_uri (a directory, {resnet_bytes} bytes of float32 msgpack): the CLI server "
-            f"ready {ready_s:.1f} s after its launch (three servers loading at once), load {status['load_time_s']:.2f} s of which download "
+            f"ready {ready_s:.1f} s after its launch (three servers loading at once{note}), load {status['load_time_s']:.2f} s of which download "
             f"{times['download_s'] * 1e3:.1f} ms, decode {times['decode_s'] * 1e3:.1f} ms, convert "
             f"{times['convert_s'] * 1e3:.1f} ms, pin {times['pin_s'] * 1e3:.1f} ms (in-process: "
             + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in inproc_times.items())
@@ -4358,7 +4611,7 @@ def a5_a6_paths(torch, np, kernels, resnet, vit, CudaServer, PagedEngine, load_l
 
         # 17b: greedy tokens against an in-process engine on the same weights and factors
         status, _ = wait_ready(servers[1], bases[1], logpath)
-        ready_s = time.perf_counter() - launched
+        ready_s = ready_since_each(1)
         check(status["kernel_active"] and status["device"].startswith("cuda"), f"17b: not on the kernel lane: {status}")
         rng = np.random.default_rng(SEED + 171)
         prompts = [rng.integers(0, LM_CONFIG["vocab_size"], n) for n in CKPT_PROMPTS]
@@ -4376,7 +4629,7 @@ def a5_a6_paths(torch, np, kernels, resnet, vit, CudaServer, PagedEngine, load_l
         differs = sum(not bool((x == y).all()) for x, y in zip(served[None], served["ckpt"]))
         numbers["17b"] = {"ready_s": ready_s, "load_time_s": status["load_time_s"], "equal": same,
                           "adapter_rows_that_differ_from_base": differs}
-        log(f"17b StreamingLM from model_uri + a {{'uri': ...}} adapter: server ready {ready_s:.1f} s after launch (load "
+        log(f"17b StreamingLM from model_uri + a {{'uri': ...}} adapter: server ready {ready_s:.1f} s after launch{note} (load "
             f"{status['load_time_s']:.2f} s); greedy rows of {len(prompts)} prompts x {CKPT_MAX_NEW} sent one "
             f"after another equal the in-process engine's: base {same['None']}, adapter {same['ckpt']}; "
             f"{differs} of {len(prompts)} adapter rows differ from the base rows [{card}]")
@@ -4384,7 +4637,7 @@ def a5_a6_paths(torch, np, kernels, resnet, vit, CudaServer, PagedEngine, load_l
 
         # 17d: ViT-B/16 at 224 and 384 from one server
         status, _ = wait_ready(servers[2], bases[2], logpath)
-        ready_s = time.perf_counter() - launched
+        ready_s = ready_since_each(2)
         base = bases[2]
         check(status["signatures"] == [list(IMG), list(VIT_384)], f"17d: signatures {status['signatures']}")
         rng = np.random.default_rng(SEED + 172)
@@ -4427,7 +4680,7 @@ def a5_a6_paths(torch, np, kernels, resnet, vit, CudaServer, PagedEngine, load_l
         del local
         torch.cuda.empty_cache()
         refusal = json.dumps(bad_body)
-        log(f"17d ViT-B/16 at 224 + 384 from one server: ready {ready_s:.1f} s after launch (load {status['load_time_s']:.1f} s, "
+        log(f"17d ViT-B/16 at 224 + 384 from one server: ready {ready_s:.1f} s after launch{note} (load {status['load_time_s']:.1f} s, "
             f"warmup over 2 shapes x {len(status['buckets'])} buckets x 2 dtypes); first request after load: 224 "
             f"{first_ms['224']:.1f} ms, 384 {first_ms['384']:.1f} ms; groups {status['signature_groups']}; rows max "
             f"rel L2 224 {errs[224]:.3e}, 384 {errs[384]:.3e}, each nearest its own image {nearest_ok}; {batches} "
@@ -4454,7 +4707,7 @@ def a5_a6_paths(torch, np, kernels, resnet, vit, CudaServer, PagedEngine, load_l
         for proc in servers:
             stop_server(proc)
         logfile.close()
-        shutil.rmtree(tmp, ignore_errors=True)
+        ctx["cleanup"]()
     numbers["seconds"] = time.perf_counter() - t_phase
     log(f"17 A5 + A6 phase wall time {numbers['seconds']:.1f} s [{card}]")
     return numbers
@@ -4520,27 +4773,28 @@ def stat_delta(eng, before, keys=("prefix_hits", "prefix_tokens_saved", "prefill
     return {k: after[k] - before[k] for k in keys}
 
 
+def launch_w8a8_lm():
+    params = W8A8_LM_PARAMS + ([{"name": "device", "value": SCHED_DEVICE, "type": "STRING"}]
+                               if SCHED_DEVICE != "cuda" else [])
+    return server_context("chip_smoke_w8a8_lm_", component="seldon_core_tpu_torch.models.paged.StreamingLM",
+                          params=params)
+
+
 def precision_lanes(torch, np, w8a8, PagedEngine, params, tally, card):
     """18a: bf16, int8w and w8a8 engines; the served w8a8 StreamingLM."""
     rng = np.random.default_rng(SEED + 180)
     V = LM_CONFIG["vocab_size"]
     prompts = list(rng.integers(0, V, (LM_ENGINE["max_slots"], SCHED_PROMPT)))
     rest_prompts = [rng.integers(0, V, n) for n in SCHED_REST_PROMPTS]
-    port = free_port()
-    base = f"http://127.0.0.1:{port}"
-    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_w8a8_lm_", suffix=".log")
-    logfile = os.fdopen(fd, "w")
-    params_rest = W8A8_LM_PARAMS + ([{"name": "device", "value": SCHED_DEVICE, "type": "STRING"}]
-                                    if SCHED_DEVICE != "cuda" else [])
-    proc = start_server(port, logfile, "seldon_core_tpu_torch.models.paged.StreamingLM", params_rest)
-    launched = time.perf_counter()
+    ctx = EARLY.take("w8a8_lm", launch_w8a8_lm)
+    (proc,), base, logpath, logfile = ctx["procs"], ctx["base"], ctx["logpath"], ctx["logfile"]
     try:
         lanes = {"bf16": {}, "int8w": {"quantize": "int8"}, "w8a8": {"precision": "w8a8"}}
         engines = {name: sched_engine(torch, PagedEngine, params, prefix_cache=False, **kw)
                    for name, kw in lanes.items()}
         wbytes = {name: eng.weight_bytes() for name, eng in engines.items()}
         status, _ = wait_ready(proc, base, logpath)
-        ready_s = time.perf_counter() - launched
+        ready_s = ready_since(ctx)
         check(status["precision"] == "w8a8" and status["quantize"] == "int8" and status["prefix_cache"]
               and status["chunk_token_budget"] == SCHED_BUDGET and status["max_queue"] == 64,
               f"the w8a8 server does not report its options: {status}")
@@ -4559,7 +4813,7 @@ def precision_lanes(torch, np, w8a8, PagedEngine, params, tally, card):
     del ref
     same = [bool((a == b).all()) for a, b in zip(served, local)]
     log(f"18a served w8a8 StreamingLM (cache on, max_queue 64, budget {SCHED_BUDGET}): ready {ready_s:.1f} s after "
-        f"launch, {sum(same)}/{len(same)} sequential rows bit-identical to an in-process w8a8 engine; K4 "
+        f"launch{early_note(ctx)}, {sum(same)}/{len(same)} sequential rows bit-identical to an in-process w8a8 engine; K4 "
         f"{served_k4} = {LM_CONFIG['num_layers']} x {served_steps} steps")
     check(all(same), f"served w8a8 rows differ from the in-process engine: {same}")
 
@@ -5763,6 +6017,500 @@ def evacuation_paths(torch, np, kernels, PagedEngine, evacuate_streams, load_lm_
         f"decode calls on the resumed, replayed and promoted streams, {numbers['seconds']:.1f} s [{card}]")
     return numbers
 
+# ---------------------------------------------------------------------------
+# phase 22: generation telemetry and chaos
+# ---------------------------------------------------------------------------
+
+def telemetry_lane_env(on: bool, capture_dir: str = ""):
+    """The telemetry plane's knobs: ``on`` = recorder, telemetry, NaN guard,
+    watchdog (and the bridge) at their defaults with every request
+    captured; off = the off lane (each plane off, capture unset)."""
+    if on:
+        return knob_env(SELDON_TPU_TELEMETRY=None, SELDON_TPU_FLIGHT_RECORDER=None, SELDON_TPU_NAN_GUARD=None,
+                        SELDON_TPU_WATCHDOG=None, SELDON_TPU_CAPTURE="1", SELDON_TPU_CAPTURE_SAMPLE="1",
+                        SELDON_TPU_CAPTURE_DIR=capture_dir or None)
+    return knob_env(SELDON_TPU_TELEMETRY="0", SELDON_TPU_FLIGHT_RECORDER="0", SELDON_TPU_NAN_GUARD="0",
+                    SELDON_TPU_WATCHDOG="0", SELDON_TPU_CAPTURE=None, SELDON_TPU_CAPTURE_SAMPLE=None,
+                    SELDON_TPU_CAPTURE_DIR=None)
+
+
+def telemetry_drive(eng, prompts, max_new: int, extras=None, check_ok: bool = True):
+    """Submit every prompt (seed 0, puid ``smoke22-<i>``) and step the
+    engine dry; ``extras`` = (bridge, ring): one bridge collect and one
+    telemetry sample a wave, and every stream captured at its end (the on
+    lane's work).  Returns the streams."""
+    streams = [eng.submit(p, max_new_tokens=max_new, seed=0, puid=f"smoke22-{i}") for i, p in enumerate(prompts)]
+    while eng.has_work():
+        eng.step()
+        if extras is not None:
+            extras[0].collect()
+            extras[1].sample_engine(eng)
+    if extras is not None:
+        for st in streams:
+            trigger = eng.capture_trigger(st.puid, st.error)
+            if trigger is not None:
+                eng.capture_request(st, puid=st.puid, trigger=trigger, extra={"request_seed": 0})
+    if check_ok:
+        for st in streams:
+            check(st.error is None and st.result is not None and st.result.shape == (max_new,),
+                  f"a stream failed: {st.error}")
+    return streams
+
+
+def telemetry_rate(torch, eng, prompts, tally, what: str, extras=None) -> float:
+    """22a: decode tokens/s of one turn, 18a's method (a run of TELE_NEW
+    new tokens minus a run of one), the on lane's work inside both."""
+    def timed(max_new):
+        sched_sync(torch)
+        t0 = time.perf_counter()
+        telemetry_drive(eng, prompts, max_new, extras)
+        sched_sync(torch)
+        return time.perf_counter() - t0
+
+    t_full = tally.run(eng, lambda: timed(TELE_NEW), what)
+    t_one = timed(1)
+    return len(prompts) * (TELE_NEW - 1) / max(t_full - t_one, 1e-9)
+
+
+def telemetry_overhead(torch, np, PagedEngine, params, tally, card):
+    """22a: bf16 at 16 lanes, the telemetry plane on and off in turns."""
+    from seldon_core_tpu_torch.utils.metrics import GenerationPrometheusBridge, Registry
+    from seldon_core_tpu_torch.utils.telemetry import TelemetryRing
+
+    rng = np.random.default_rng(SEED + 220)
+    prompts = [rng.integers(0, LM_CONFIG["vocab_size"], TELE_PROMPT).astype(np.int32) for _ in range(TELE_STREAMS)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_capture_") as capdir:
+        with telemetry_lane_env(True, capdir):
+            on = sched_engine(torch, PagedEngine, params, **NO_PREFIX_CACHE)
+        with telemetry_lane_env(False):
+            off = sched_engine(torch, PagedEngine, params, **NO_PREFIX_CACHE)
+        check(on.recorder is not None and on._watchdog is not None and on._nan_guard and on._capture_enabled
+              and off.recorder is None and off._watchdog is None and not off._nan_guard
+              and not off._capture_enabled and not off._telemetry_enabled,
+              "22a: the on and off engines do not carry the planes they were built for")
+        extras = (GenerationPrometheusBridge(on, model_name="smoke22a", registry=Registry()), TelemetryRing())
+        with telemetry_lane_env(True, capdir):
+            telemetry_drive(on, prompts[:2], 8, extras)  # first calls pay outside the turns
+            telemetry_drive(off, prompts[:2], 8)
+            rates = {"on": [], "off": []}
+            for lane in ("on", "off", "off", "on")[: 2 * TELE_RATE_REPS]:
+                eng = on if lane == "on" else off
+                rates[lane].append(telemetry_rate(torch, eng, prompts, tally, f"22a {lane}",
+                                                  extras if lane == "on" else None))
+            captures = on.engine_stats()["captures"]
+            stats_keys = set(off.engine_stats())
+    ratio = statistics.mean(rates["on"]) / statistics.mean(rates["off"])
+    check(captures > 0, "22a: the on lane captured no request")
+    check(not any(k.startswith(("cost_", "capture")) for k in stats_keys),
+          f"22a: the off lane's engine_stats carries a telemetry key: {sorted(stats_keys)}")
+    log(f"22a bf16, {TELE_STREAMS} lanes, prompt {TELE_PROMPT}, {TELE_NEW} new, telemetry plane in turns (on, off, "
+        f"off, on): decode tok/s on {[round(r, 1) for r in rates['on']]}, off {[round(r, 1) for r in rates['off']]}, "
+        f"on/off {ratio:.4f}; {captures} captures [{card}]")
+    return {"decode_tok_s_on": rates["on"], "decode_tok_s_off": rates["off"], "on_off_ratio": ratio,
+            "captures": captures}
+
+
+def chaos_paths(torch, np, PagedEngine, params32, tally, card):
+    """22b: float32 with TF32 off: one paged.nan on 16 lanes, one
+    contained paged.chunk, paged.alloc:times=3; against uninjected runs on
+    an off-lane engine (which are also the on/off token check)."""
+    from seldon_core_tpu_torch.utils import faults
+
+    rng = np.random.default_rng(SEED + 221)
+    V = LM_CONFIG["vocab_size"]
+    prompts = [rng.integers(0, V, TELE_PROMPT).astype(np.int32) for _ in range(TELE_STREAMS + TELE_QUEUED)]
+    main = prompts[:TELE_STREAMS]
+    out = {}
+    with no_tf32(torch):
+        with telemetry_lane_env(False):
+            off = sched_engine(torch, PagedEngine, params32, dtype="float32", **NO_PREFIX_CACHE)
+        with telemetry_lane_env(True), knob_env(SELDON_TPU_PAGED_DEBUG="1"):
+            on = sched_engine(torch, PagedEngine, params32, dtype="float32", **NO_PREFIX_CACHE)
+        check(on._debug_invariants, "22b: the on engine does not audit its allocator")
+        ctrl24 = [st.result for st in tally.run(off, lambda: telemetry_drive(off, prompts, TELE_NEW), "22b control")]
+        ctrl_long = [st.result for st in tally.run(off, lambda: telemetry_drive(off, main, TELE_LONG_NEW),
+                                                   "22b long control")]
+        plain = [st.result for st in tally.run(on, lambda: telemetry_drive(on, main, TELE_NEW), "22b on lane")]
+        out["on_off_equal"] = same_rows(plain, ctrl24[:TELE_STREAMS])
+        check(out["on_off_equal"], "22b: f32 tokens differ between the telemetry plane on and off")
+        # paged.nan: the first decode chunk's lowest slot goes non-finite
+        faults.configure("paged.nan:times=1")
+        try:
+            streams = tally.run(on, lambda: telemetry_drive(on, main, TELE_NEW, check_ok=False), "22b paged.nan")
+        finally:
+            faults.clear()
+        poisoned = [i for i, st in enumerate(streams) if st.error is not None]
+        reasons = {getattr(streams[i].error, "reason", "") for i in poisoned}
+        mates = [i for i in range(TELE_STREAMS) if i not in poisoned]
+        mates_equal = all(streams[i].result is not None and (streams[i].result == ctrl24[i]).all() for i in mates)
+        q = on.engine_stats()["quarantined"]
+        out["nan"] = {"poisoned": len(poisoned), "reasons": sorted(reasons), "quarantined": q,
+                      "mates_equal": mates_equal}
+        check(len(poisoned) == 1 and reasons == {"NUMERIC_POISON"} and q == 1 and mates_equal,
+              f"22b paged.nan: {out['nan']}")
+        # paged.chunk: the first chunk of 16 fails, the 8 queued serve on
+        faults.configure("paged.chunk:times=1")
+        try:
+            streams = tally.run(on, lambda: telemetry_drive(on, prompts, TELE_NEW, check_ok=False), "22b paged.chunk")
+        finally:
+            faults.clear()
+        failed = [i for i, st in enumerate(streams) if st.error is not None]
+        served_equal = all(streams[i].result is not None and (streams[i].result == ctrl24[i]).all()
+                           for i in range(len(prompts)) if i not in failed)
+        stats = on.engine_stats()
+        out["chunk"] = {"failed": len(failed), "reasons": sorted({streams[i].error.reason for i in failed}),
+                        "served": len(prompts) - len(failed), "served_equal": served_equal,
+                        "chunk_faults": stats["chunk_faults"], "pages_in_use_after": stats["pool_pages_used"]}
+        check(len(failed) == TELE_STREAMS and out["chunk"]["reasons"] == ["ENGINE_CHUNK_FAULT"] and served_equal
+              and stats["chunk_faults"] == 1 and stats["pool_pages_used"] == 0,
+              f"22b paged.chunk: {out['chunk']}")
+        # paged.alloc:times=3, armed after the first wave: three growths fail
+        def alloc_run():
+            streams = [on.submit(p, max_new_tokens=TELE_LONG_NEW, seed=0) for p in main]
+            on.step()
+            faults.configure("paged.alloc:times=3")
+            try:
+                on.run()
+            finally:
+                faults.clear()
+            return streams
+
+        s0 = on.engine_stats()["stalls"]
+        streams = tally.run(on, alloc_run, "22b paged.alloc")
+        stalls = on.engine_stats()["stalls"] - s0
+        alloc_equal = all(st.error is None and (st.result == w).all() for st, w in zip(streams, ctrl_long))
+        out["alloc"] = {"stalls": stalls, "tokens_equal": alloc_equal, "fired": faults.stats().get("paged.alloc", 0)}
+        check(stalls > 0 and alloc_equal, f"22b paged.alloc:times=3: {out['alloc']}")
+    out["ctrl_long"] = ctrl_long
+    out["prompts"] = main
+    del on, off
+    log(f"22b f32 (TF32 off), {TELE_STREAMS} lanes, prompt {TELE_PROMPT}: tokens on == off {out['on_off_equal']}; "
+        f"paged.nan: {out['nan']['poisoned']} stream 500 {out['nan']['reasons']}, quarantined "
+        f"{out['nan']['quarantined']}, the other {len(mates)} equal {mates_equal}; paged.chunk: "
+        f"{out['chunk']['failed']} failed {out['chunk']['reasons']}, {out['chunk']['served']} queued served equal "
+        f"{served_equal}, audit clean, pages in use after {stats['pool_pages_used']}; paged.alloc:times=3: stalls "
+        f"{stalls}, tokens equal {alloc_equal} [{card}]")
+    return out
+
+
+def watchdog_paths(torch, np, kernels, PagedEngine, evacuate_streams, params, params32, chaos, tally, card):
+    """22c: a cold engine's first waves (a first-use nvcc build of K4 among
+    them) stay healthy; a ceiling under the chunk wall drives an engine to
+    degraded and then evacuating; evacuate_streams skips a degraded peer
+    and moves the streams to the healthy one with no token lost; the force
+    knob forces the state and clearing it recovers."""
+    from seldon_core_tpu_torch.ops import _build
+
+    wd = dict(SELDON_TPU_WATCHDOG_WINDOW=str(WD_WINDOW), SELDON_TPU_WATCHDOG_BREACHES=str(WD_BREACHES))
+    prompts, ctrl_long = chaos["prompts"], chaos["ctrl_long"]
+    out = {}
+    # the cold engine: K4 built anew by nvcc inside its first wave
+    built_before = _build.build_events()
+    saved_dir, saved_lib = _build.BUILD_DIR, _build._LIBS.pop("paged_decode", None)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cold_build_") as cold_dir:
+        _build.BUILD_DIR = type(saved_dir)(cold_dir)
+        try:
+            with knob_env(SELDON_TPU_WATCHDOG_CHUNK_MS=str(WD_COLD_CEILING_MS), **wd):
+                cold = sched_engine(torch, PagedEngine, params, **NO_PREFIX_CACHE)
+            tally.run(cold, lambda: telemetry_drive(cold, prompts, TELE_NEW), "22c cold engine")
+        finally:
+            _build.BUILD_DIR = saved_dir
+            if saved_lib is not None:
+                _build._LIBS["paged_decode"] = saved_lib
+    stats = cold.engine_stats(detail=True)
+    first = stats["recorder"][0]
+    warm_walls = [r["wall_ms"] for r in stats["recorder"][1:]]
+    out["cold"] = {"health": stats["health"], "trips": stats["watchdog_trips"],
+                   "builds": _build.build_events() - built_before,
+                   "first_wave_ms": first["wall_ms"] + first["prefill_wall_ms"], "warm_chunk_ms": min(warm_walls),
+                   "ceiling_ms": WD_COLD_CEILING_MS, "window_compiles": stats["watchdog"]["window_compiles"]}
+    check(stats["health"] == "healthy" and stats["watchdog_trips"] == 0 and out["cold"]["builds"] >= 1,
+          f"22c: a cold engine's first waves left it {stats['health']}: {out['cold']}")
+    del cold
+    with no_tf32(torch):
+        # the source: a ceiling under a quarter of the warm bf16 chunk wall
+        ceiling = out["cold"]["warm_chunk_ms"] / 4
+        with knob_env(SELDON_TPU_WATCHDOG_CHUNK_MS=f"{ceiling:.4f}", **wd):
+            src = sched_engine(torch, PagedEngine, params32, dtype="float32", **NO_PREFIX_CACHE)
+            deg = sched_engine(torch, PagedEngine, params32, dtype="float32", **NO_PREFIX_CACHE)
+        with knob_env(**wd):
+            healthy = sched_engine(torch, PagedEngine, params32, dtype="float32", **NO_PREFIX_CACHE)
+        tally.run(deg, lambda: telemetry_drive(deg, prompts[:1], 4 * LM_ENGINE["steps_per_call"]), "22c peer")
+        telemetry_drive(healthy, prompts[:1], 8)
+        check(deg.engine_stats()["health"] == "degraded" and healthy.engine_stats()["health"] == "healthy",
+              f"22c: the peers are {deg.engine_stats()['health']} / {healthy.engine_stats()['health']}, expected "
+              "degraded / healthy")
+        streams = [src.submit(p, max_new_tokens=TELE_LONG_NEW, seed=0, stream_tokens=True) for p in prompts]
+        states, t_breach, t_evac = [], None, None
+
+        def degrade():
+            nonlocal t_breach, t_evac
+            while src.has_work() and t_evac is None:
+                src.step()
+                st = src.engine_stats(detail=True)
+                states.append(st["health"])
+                if t_breach is None and st["watchdog"]["wall_breaches"] > 0:
+                    t_breach = time.perf_counter()
+                if st["health"] == "evacuating":
+                    t_evac = time.perf_counter()
+
+        tally.run(src, degrade, "22c source")
+        got, _ended = queued_tokens(streams)
+        check(t_evac is not None and "degraded" in states,
+              f"22c: the source went {states}, never degraded then evacuating under a {ceiling:.3f} ms ceiling")
+        out["degrade"] = {"ceiling_ms": ceiling, "states": states, "waves_to_evacuating": len(states),
+                          "breach_to_evacuating_ms": (t_evac - t_breach) * 1e3}
+        t0 = time.perf_counter()
+        summary = evacuate_streams(src, [deg, healthy])
+        ttr_ms, more, k4, calls = resumed_run(torch, kernels, healthy, streams, t0)
+        for i, toks in more.items():
+            got.setdefault(i, []).extend(toks)
+        loss = sum(max(0, len(w) - len(got.get(i, []))) for i, w in enumerate(ctrl_long))
+        equal = all(got.get(i, []) == w.tolist() for i, w in enumerate(ctrl_long))
+        mig = {"migrated": summary["migrated"], "failed": summary["failed"],
+               "degraded_peer_in": deg.engine_stats()["migrated_in"],
+               "healthy_peer_in": healthy.engine_stats()["migrated_in"], "token_loss": loss, "tokens_equal": equal,
+               "ttr_ms": ttr_ms, "k4_launches": k4, "decode_calls": calls}
+        out["evacuate"] = mig
+        check(mig["migrated"] == TELE_STREAMS and mig["degraded_peer_in"] == 0
+              and mig["healthy_peer_in"] == TELE_STREAMS and loss == 0 and equal,
+              f"22c: evacuate_streams did not move every stream to the healthy peer, losslessly: {mig}")
+        check(calls > 0 and k4 == LM_CONFIG["num_layers"] * calls,
+              f"22c: K4 launched {k4} times over {calls} decode calls a layer on the healthy peer")
+        tally.launches += k4
+        tally.steps += calls
+        # the operator's switch on the healthy peer, then cleared
+        with knob_env(SELDON_TPU_FORCE_EVACUATE="1"):
+            tally.run(healthy, lambda: telemetry_drive(healthy, prompts[:1], 8), "22c forced")
+            forced = healthy.engine_stats()["health"]
+        tally.run(healthy, lambda: telemetry_drive(healthy, prompts[:1], 8), "22c cleared")
+        cleared = healthy.engine_stats()["health"]
+        out["force"] = {"forced": forced, "cleared": cleared}
+        check(forced == "evacuating" and cleared == "healthy",
+              f"22c: SELDON_TPU_FORCE_EVACUATE gave {forced}, clearing it {cleared}")
+    del src, deg, healthy
+    log(f"22c watchdog (window {WD_WINDOW}, {WD_BREACHES} breaches): a cold engine with K4 built anew "
+        f"({out['cold']['builds']} build/load events, first wave {out['cold']['first_wave_ms']:.1f} ms over a "
+        f"{WD_COLD_CEILING_MS:.0f} ms ceiling) stays {out['cold']['health']}; under a {ceiling:.3f} ms ceiling the "
+        f"source went {'/'.join(dict.fromkeys(states))} in {len(states)} waves, "
+        f"{out['degrade']['breach_to_evacuating_ms']:.1f} ms from its first breach to evacuating; evacuate_streams "
+        f"moved {mig['migrated']} streams to the healthy peer ({mig['degraded_peer_in']} to the degraded one), "
+        f"token loss {loss}, equal {equal}, ttr {ttr_ms:.2f} ms; forced {forced}, cleared {cleared} [{card}]")
+    return out
+
+
+def served_telemetry(torch, np, kernels, StreamingLM, PagedEngine, params, tally, card):
+    """22d: a served StreamingLM behind the gateway with every plane on and
+    tracing: the debug endpoints, the bridge's series, an OpenMetrics
+    scrape with a trace exemplar, the capture of a request and its replay
+    bit for bit, the cost tags; then a corrupted migration container at
+    the ingress (22b's transport.corrupt)."""
+    from seldon_core_tpu_torch.codec.bufview import pack_kv_migration
+    from seldon_core_tpu_torch.engine import PredictorService, UnitSpec
+    from seldon_core_tpu_torch.engine.server import Gateway, serve_gateway
+    from seldon_core_tpu_torch.runtime.component import MicroserviceError
+    from seldon_core_tpu_torch.tools.replay import replay_capture
+    from seldon_core_tpu_torch.utils import capture, faults, tracing
+    from seldon_core_tpu_torch.utils.telemetry import validate_snapshot
+
+    rng = np.random.default_rng(SEED + 223)
+    prompts = [rng.integers(0, LM_CONFIG["vocab_size"], TELE_PROMPT) for _ in range(TELE_SERVED_REQUESTS)]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_capture_") as capdir, telemetry_lane_env(True, capdir):
+        capture.reset_default_store()
+        tracing.setup_tracing(service_name="chip-smoke-22d")
+        lm = StreamingLM(device=SCHED_DEVICE, dtype="bfloat16", max_new_tokens=TELE_NEW, **LM_CONFIG, **LM_ENGINE,
+                         **NO_PREFIX_CACHE)
+        lm.load()
+        loop = LoopThread()
+        http_port = free_port()
+
+        async def start():
+            gateway = Gateway([(PredictorService(UnitSpec(name="lm", type="MODEL", component=lm), name="gen"), 1.0)])
+            runner, handle = await serve_gateway(gateway, host="127.0.0.1", http_port=http_port,
+                                                 grpc_port=free_port())
+            return gateway, runner, handle
+
+        gateway, runner, handle = loop.run(start())
+        base = f"http://127.0.0.1:{http_port}"
+        try:
+            before = lm.engine.engine_stats()
+            sched_sync(torch)
+            kernels.reset_launch_counts()
+            answers = [http(base + "/api/v0.1/predictions", {"data": {"ndarray": [[int(t) for t in p]]}})
+                       for p in prompts]
+            sched_sync(torch)
+            k4 = sum(v for k, v in kernels.launch_counts().items() if k.startswith("paged_decode"))
+            engine = http(base + "/debug/engine?detail=1")["gen"]["lm"]
+            calls = decode_calls(engine) - decode_calls(before)
+            check(calls > 0 and k4 == LM_CONFIG["num_layers"] * calls,
+                  f"22d: K4 launched {k4} times over {calls} decode calls a layer on the served engine")
+            tally.launches += k4
+            tally.steps += calls
+            puid = answers[-1]["meta"]["puid"]
+            row = [int(t) for t in answers[-1]["data"]["ndarray"][0]]
+            cost = answers[-1]["meta"]["tags"].get("cost") or {}
+            decode_recs = [r for r in engine["recorder"] if r["phase"] == "decode"]
+            spans = http(base + f"/debug/traces?trace_id={puid}")["spans"]
+            request_ids = {sp["spanId"] for sp in spans if sp["name"] == "microservice.predict"}
+            gen = [sp for sp in spans if sp["name"].startswith("gen.")]
+            knobs_set = http(base + "/debug/knobs")["set"]
+            snap = http(base + "/debug/telemetry")
+            validate_snapshot(snap)
+            # the bridge collects from the idle decode loop every ~0.5 s
+            want_chunks, count = engine["chunks"], None
+            model = lm._prom_bridge._labels["model_name"]
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 10:
+                samples = metric_samples(http(base + "/metrics"))
+                hits = [v for n, lab, v in samples
+                        if n == "seldon_tpu_engine_chunk_duration_seconds_count" and lab.get("model_name") == model]
+                count = hits[0] if len(hits) == 1 else None
+                if count == want_chunks:
+                    break
+                time.sleep(0.25)
+            series = sorted({n for n, lab, _v in samples
+                             if n.startswith("seldon_tpu_engine_") and lab.get("model_name") == model})
+            req = urllib.request.Request(base + "/metrics", headers={"Accept": "application/openmetrics-text"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                om_type, om = r.headers.get("Content-Type", ""), r.read().decode()
+            exemplars = om.count('# {trace_id="')
+            doc = http(base + f"/debug/request/{puid}")
+            cap_tokens = doc["capture"]["tokens"] if doc.get("capture") else None
+            stats = lm.engine.engine_stats()
+            split = {f: sum(v[f] for v in stats["cost_by_adapter"].values())
+                     for f in ("page_seconds", "prefill_tokens", "decode_tokens")}
+            totals = {"page_seconds": stats["cost_page_seconds"], "prefill_tokens": stats["cost_prefill_tokens"],
+                      "decode_tokens": stats["cost_decode_tokens"]}
+            out.update({
+                "chunks": want_chunks, "records": len(engine["recorder"]), "decode_records": len(decode_recs),
+                "records_kernel_active": all(r["kernel_active"] == 1 for r in decode_recs),
+                "gen_spans": sorted({sp["name"] for sp in gen}),
+                "gen_spans_under_request": bool(gen) and all(sp["parentSpanId"] in request_ids for sp in gen),
+                "knobs_set": knobs_set, "telemetry_points": len(snap["points"]), "engine_series": len(series),
+                "histogram_count": count, "openmetrics_type": om_type, "openmetrics_exemplars": exemplars,
+                "captures": stats["captures"], "capture_tokens_equal": cap_tokens == row, "cost": cost,
+                "cost_split_equal": split == totals, "k4_launches": k4, "decode_calls": calls,
+            })
+            check(len(decode_recs) == want_chunks and out["records_kernel_active"],
+                  f"22d: /debug/engine?detail=1 has {len(decode_recs)} decode records for {want_chunks} chunks, "
+                  f"kernel_active all 1 {out['records_kernel_active']}")
+            check({"gen.queued", "gen.prefill", "gen.decode", "gen.finish"} <= set(out["gen_spans"])
+                  and out["gen_spans_under_request"], f"22d: the gen.* spans of {puid}: {spans}")
+            check("SELDON_TPU_CAPTURE" in knobs_set and "SELDON_TPU_CAPTURE_SAMPLE" in knobs_set,
+                  f"22d: /debug/knobs lists {knobs_set}")
+            check(count == want_chunks and "seldon_tpu_engine_chunks_total" in series,
+                  f"22d: the chunk-duration histogram counts {count} for {want_chunks} chunks; series {series}")
+            check(om_type.startswith("application/openmetrics-text") and exemplars > 0 and om.endswith("# EOF\n"),
+                  f"22d: the OpenMetrics scrape ({om_type}) carries {exemplars} exemplars")
+            check(stats["captures"] > 0 and out["capture_tokens_equal"],
+                  f"22d: /debug/request/{puid} capture tokens {cap_tokens} vs served {row}")
+            check(cost.get("page_seconds", 0) > 0 and out["cost_split_equal"],
+                  f"22d: cost tags {cost}, per-adapter split {split} vs totals {totals}")
+            # the replay tool on the captured request, on the card
+            cap = capture.default_store().get(puid)
+            sched_sync(torch)
+            kernels.reset_launch_counts()
+            t_replay = time.perf_counter()
+            report = replay_capture(cap, strict=False, device=SCHED_DEVICE)
+            sched_sync(torch)
+            replay_s = time.perf_counter() - t_replay
+            rk4 = sum(v for k, v in kernels.launch_counts().items() if k.startswith("paged_decode"))
+            rcalls = decode_calls(report["engine"])
+            out["replay"] = {"bit_exact": report["bit_exact"], "first_divergence": report["first_divergence"],
+                             "device": report["device"], "dtype": report["dtype"], "latency": report["latency"],
+                             "seconds": replay_s, "k4_launches": rk4, "decode_calls": rcalls}
+            check(report["bit_exact"] and report["engine"]["kernel_active"] == 1,
+                  f"22d: the replay of {puid} is not bit for bit: {report}")
+            check(rcalls > 0 and rk4 == LM_CONFIG["num_layers"] * rcalls,
+                  f"22d: K4 launched {rk4} times over {rcalls} decode calls a layer on the replay engine")
+            tally.launches += rk4
+            tally.steps += rcalls
+            # transport.corrupt at the migration ingress: a mid-decode stream
+            # of a bf16 engine of the same geometry, its container corrupted
+            src = sched_engine(torch, PagedEngine, params, **NO_PREFIX_CACHE)
+            src.submit(prompts[0], max_new_tokens=TELE_NEW, seed=0)
+            src.step()
+            src.step()
+            (payload, _stream), = src.migrate_export()
+            blob = pack_kv_migration(payload)
+            before = lm.engine.engine_stats()
+            faults.configure("transport.corrupt:times=1")
+            random.seed(SEED + 222)  # the flipped byte's place, fixed
+            try:
+                lm.predict(np.frombuffer(blob, np.uint8)[None, :], [], meta={"tags": {"kv_migration": 1}})
+                reason, info = "accepted", ""
+            except MicroserviceError as exc:
+                reason, info = exc.reason, str(exc)
+            finally:
+                faults.clear()
+            after = lm.engine.engine_stats()
+            out["corrupt"] = {"reason": reason, "info": info[:200], "container_bytes": len(blob),
+                              "migrated_in": after["migrated_in"] - before["migrated_in"],
+                              "pages_in_use": after["pool_pages_used"],
+                              "fired": faults.stats().get("transport.corrupt")}
+            check(reason == "BAD_MIGRATION_PAYLOAD" and "CRC32C" in info and out["corrupt"]["migrated_in"] == 0
+                  and after["pool_pages_used"] == before["pool_pages_used"],
+                  f"22b transport.corrupt: {out['corrupt']}")
+            del src
+        finally:
+            async def stop():
+                await handle.stop(None)
+                await runner.cleanup()
+                await gateway.close()
+
+            loop.run(stop())
+            loop.close()
+            lm.unload()
+            tracing.get_tracer().close()
+            tracing._tracer = None
+            capture.reset_default_store()
+    log(f"22d served (gateway, bf16, {TELE_SERVED_REQUESTS} requests of {TELE_PROMPT}, {TELE_NEW} new): "
+        f"/debug/engine?detail=1 {out['decode_records']} decode records for {out['chunks']} chunks, kernel_active 1; "
+        f"/debug/traces {out['gen_spans']} under the request span; /debug/knobs set {out['knobs_set']}; "
+        f"/debug/telemetry valid, {out['telemetry_points']} points; /metrics {out['engine_series']} "
+        f"seldon_tpu_engine_* series, chunk histogram _count {out['histogram_count']:.0f}; OpenMetrics "
+        f"{out['openmetrics_exemplars']} exemplars; capture tokens == served {out['capture_tokens_equal']}, replay "
+        f"bit-exact {out['replay']['bit_exact']} on {out['replay']['device']} in "
+        f"{out['replay']['seconds']:.2f} s; cost "
+        f"page_seconds {cost.get('page_seconds')}, split == totals {out['cost_split_equal']}; transport.corrupt: "
+        f"{out['corrupt']['reason']} ({out['corrupt']['container_bytes']} bytes, {out['corrupt']['migrated_in']} "
+        f"imported) [{card}]")
+    return out
+
+
+def telemetry_paths(torch, np, kernels, PagedEngine, StreamingLM, evacuate_streams, load_lm_params, card):
+    """Phase 22: generation telemetry and chaos at the generation config
+    (22a-c in process, 22d served); K4 = layers x decode calls on every
+    engine."""
+    t0 = time.perf_counter()
+    tally = K4Tally(torch, kernels)
+    # one float32 weight set: the bf16 engines cast it, the f32 ones take it as is
+    params = load_lm_params("", LM_CONFIG, SEED + 22, torch.device(SCHED_DEVICE))
+    marks = [time.perf_counter()]
+    numbers = {"22a": telemetry_overhead(torch, np, PagedEngine, params, tally, card)}
+    marks.append(time.perf_counter())
+    chaos = chaos_paths(torch, np, PagedEngine, params, tally, card)
+    marks.append(time.perf_counter())
+    numbers["22c"] = watchdog_paths(torch, np, kernels, PagedEngine, evacuate_streams, params, params, chaos,
+                                    tally, card)
+    marks.append(time.perf_counter())
+    numbers["22b"] = {k: v for k, v in chaos.items() if k not in ("ctrl_long", "prompts")}
+    del chaos
+    numbers["22d"] = served_telemetry(torch, np, kernels, StreamingLM, PagedEngine, params, tally, card)
+    marks.append(time.perf_counter())
+    del params
+    numbers["part_seconds"] = {part: marks[i + 1] - marks[i] for i, part in enumerate(("22a", "22b", "22c", "22d"))}
+    numbers["k4_launches"], numbers["decode_calls"] = tally.launches, tally.steps
+    numbers["seconds"] = time.perf_counter() - t0
+    log(f"phase 22: K4 launched {tally.launches} = {LM_CONFIG['num_layers']} x {tally.steps} decode calls over "
+        f"every engine of the phase, {numbers['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in numbers["part_seconds"].items()) + f") [{card}]")
+    if SCHED_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return numbers
+
+
 
 def run() -> int:
     try:
@@ -5804,6 +6552,14 @@ def run() -> int:
     try:
         smi_line, device_kind, mem_bytes_per_s = card_report(torch, grpc)
         card = smi_line
+        # the servers of phases 4-18a load while the kernels build (each waits
+        # on the build's lock for the kernels it loads) and are ready before phase 3
+        for name, launch in (("main", launch_main), ("lm", launch_lm), ("vit", launch_vit), ("qlm", launch_qlm),
+                             ("precision", launch_precision),
+                             ("gateway", launch_gateway), ("native", launch_native), ("a4", launch_a4),
+                             ("a2_2", launch_a2_2), ("w8a8_lm", launch_w8a8_lm),
+                             ("a5", lambda: launch_a5(torch, np, resnet, load_lm_params, make_lora_params))):
+            EARLY.launch(name, launch)
         t0 = time.perf_counter()
         sources = ("fused_normalize", "paged_decode", "flash_attention", "int8_matmul")
         with tempfile.TemporaryDirectory() as variant_dir, ThreadPoolExecutor(len(sources) + 2) as pool:
@@ -5818,6 +6574,8 @@ def run() -> int:
             log(f"built {', '.join(lib.name for lib in libs)} and K1's launch-only copy in "
                 f"{time.perf_counter() - t0:.1f}s")
             clock.mark("phases 1-2")
+            EARLY.ready(torch, card)
+            clock.mark("early servers")
             max_err, timings = kernel_checks(torch, np, kernels, mem_bytes_per_s, launch_only)
         paged_errs, paged_timings = paged_kernel_checks(torch, np, kernels, mem_bytes_per_s)
         flash_errs, flash_timings = flash_kernel_checks(torch, np, kernels, mem_bytes_per_s)
@@ -5876,9 +6634,14 @@ def run() -> int:
         clock.mark("phase 20")
         evac_numbers = evacuation_paths(torch, np, kernels, PagedEngine, evacuate_streams, load_lm_params, card)
         clock.mark("phase 21")
+        tele_numbers = telemetry_paths(torch, np, kernels, PagedEngine, StreamingLM, evacuate_streams, load_lm_params,
+                                       card)
+        clock.mark("phase 22")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    finally:
+        EARLY.stop()
     t32, t1 = timings[32], timings[1]
     result = {
         "numbers": numbers,
@@ -5909,6 +6672,7 @@ def run() -> int:
         "streaming": stream_numbers,
         "speculative": spec_numbers,
         "evacuation": evac_numbers,
+        "telemetry": tele_numbers,
         "phase_seconds": clock.seconds,
         "seconds": time.perf_counter() - t_start,
     }
@@ -5988,6 +6752,14 @@ def run() -> int:
                 "path": "streams resumed on engine B after an evacuation (native and int8 pools), re-derived by "
                         "replay after a drain (21a), and continuing from promoted KV-tier chains (21b); one launch "
                         "a layer a decode call (phase 21)"}
+            kernel_line["kernels"][-1]["launches_on_phase22"] = {
+                "launches": tele_numbers["k4_launches"], "decode_calls": tele_numbers["decode_calls"],
+                "served_launches": tele_numbers["22d"]["k4_launches"],
+                "replay_launches": tele_numbers["22d"]["replay"]["k4_launches"],
+                "path": "the telemetry plane on and off (22a), chaos runs under paged.nan / paged.chunk / "
+                        "paged.alloc (22b), a cold engine, a degraded source and the healthy peer its streams "
+                        "moved to (22c), a served StreamingLM behind the gateway and the replay of its capture "
+                        "(22d); one launch a layer a decode call (phase 22)"}
     serving, causal = flash_timings["serving"], flash_timings["causal"]
     kernel_line["kernels"].append({
         "name": "flash_attention",

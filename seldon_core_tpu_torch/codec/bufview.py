@@ -36,7 +36,9 @@ byte for byte the JAX package's, so a container one package writes the
 other reads.  Their bfloat16 pages travel as code-5 frames of the pool's
 own words and come back as ``torch.bfloat16`` tensors.
 
-Not ported yet: the capture container (``ROADMAP.md`` §A item 8.11).
+The request-capture container (:func:`pack_capture`, a prompt frame, an
+output-token frame and a JSON meta frame under the same trailer) is byte
+for byte the JAX package's too.
 """
 
 from __future__ import annotations
@@ -72,6 +74,8 @@ __all__ = [
     "unpack_kv_handoff",
     "pack_kv_migration",
     "unpack_kv_migration",
+    "pack_capture",
+    "unpack_capture",
 ]
 
 SRT1_MAGIC = 0x31545253  # "SRT1" little-endian
@@ -867,3 +871,58 @@ def unpack_kv_migration(data) -> dict:
         out["k_scales"], out["v_scales"] = sk, sv
     out.update({f: meta.get(f) for f in _MIGRATION_META_FIELDS if f not in ("page_size", "layout")})
     return out
+
+
+# ---------------------------------------------------------------------------
+# the request-capture container
+# ---------------------------------------------------------------------------
+
+# frame order of one capture container: the prompt token ids, the emitted
+# tokens, and a uint8 JSON meta frame with everything scalar (identity,
+# knob snapshot, sampling recipe and seed, phase stamps, the request's
+# flight-recorder records, cost totals).  Unlike migration, empty prompt
+# and token frames are legal: redaction drops them and keeps the meta.
+_CAPTURE_FRAMES = ("prompt", "tokens", "meta")
+
+
+def pack_capture(payload: dict) -> bytes:
+    """Encode a ``utils/capture`` payload (``{"prompt", "tokens",
+    "meta"}``, as ``RequestCapture.to_payload`` builds it) as one SRT1
+    container with the CRC32C trailer: the on-disk form of a request's
+    black box."""
+    import json
+
+    meta = payload.get("meta")
+    if not isinstance(meta, dict):
+        raise PayloadError(f"capture payload needs a 'meta' dict (needs {', '.join(_CAPTURE_FRAMES)})")
+    prompt = np.asarray(payload.get("prompt", []), np.int32).reshape(-1)
+    tokens = np.asarray(payload.get("tokens", []), np.int32).reshape(-1)
+    try:
+        meta_frame = np.frombuffer(json.dumps(meta, sort_keys=True).encode("utf-8"), np.uint8)
+    except (TypeError, ValueError) as exc:
+        raise PayloadError(f"capture meta is not JSON-serializable: {exc}") from exc
+    return _seal([pack_frame(prompt), pack_frame(tokens), pack_frame(meta_frame)])
+
+
+def unpack_capture(data) -> dict:
+    """Decode one capture container (the CRC32C trailer verified first)
+    into its payload dict; a malformed one raises :class:`PayloadError`
+    naming the defect."""
+    import json
+
+    body, _ = _split_crc_trailer(data)
+    views = unpack_frames(body)
+    if len(views) != len(_CAPTURE_FRAMES):
+        raise PayloadError(f"capture container carries {len(views)} frames, expected {len(_CAPTURE_FRAMES)} "
+                           f"({', '.join(_CAPTURE_FRAMES)})")
+    prompt, tokens, meta_v = views
+    for name, view in (("prompt", prompt), ("tokens", tokens)):
+        if view.wire != "int32" or view.ndim != 1:
+            raise PayloadError(f"capture {name} frame must be 1-D int32, got {view.wire}{view.shape}")
+    try:
+        meta = json.loads(bytes(meta_v.array()).decode("utf-8"))
+    except (UnicodeDecodeError, ValueError) as exc:
+        raise PayloadError(f"capture meta frame is not JSON: {exc}") from exc
+    if not isinstance(meta, dict):
+        raise PayloadError("capture meta frame must decode to a JSON object")
+    return {"prompt": prompt.array(), "tokens": tokens.array(), "meta": meta}

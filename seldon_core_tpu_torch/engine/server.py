@@ -8,6 +8,8 @@ SeldonGrpcServer.java:30-60, SeldonService.java:30-67):
     POST /api/v0.1/generate/stream
     GET  /ping /ready /live      PUT/POST /pause /unpause
     GET  /metrics /seldon.json
+    GET  /debug/engine /debug/traces /debug/knobs /debug/weights
+         /debug/telemetry /debug/request/{puid}
     gRPC seldon.protos.Seldon/Predict, /SendFeedback, /PredictStream,
          /GenerateStream
 
@@ -35,8 +37,18 @@ Token streaming: ``POST /api/v0.1/generate/stream`` (Server-Sent
 Events) and ``Seldon/GenerateStream`` serve a single-local-model
 predictor's ``predict_stream`` (``StreamingLM``).
 
-Not ported: the debug endpoints (``ROADMAP.md`` §A item 8.11),
-explanations (§A item 11), and the ``grpc.aio`` front end: gRPC is
+The debug endpoints answer in the JAX gateway's payload shapes: each
+local generation engine's ``engine_stats`` (``?detail=1`` adds the
+watchdog window and the flight recorder's per-chunk records), the tracer
+ring's spans (``?trace_id=<puid>``), the knob registry with this
+process's values, the weight registry and adapter pools, the telemetry
+snapshot, and one request's capture stitched with its spans.  A scrape of
+``/metrics`` whose ``Accept`` asks for ``application/openmetrics-text``
+gets OpenMetrics 1.0 with the histograms' trace exemplars.
+
+Not ported: ``/debug/workers`` and ``/debug/fleet``, which read the
+supervisor and the fleet view (``ROADMAP.md`` §A item 13), explanations
+(§A item 11), and the ``grpc.aio`` front end: gRPC is
 served by the sync server of ``engine/sync_server.py`` alone (queued in
 ``ROADMAP.md`` §A until a deployment needs it).  Breakers, hedging,
 fallbacks and replica balancing run in the engine
@@ -50,7 +62,7 @@ import logging
 import random
 import threading
 from collections import OrderedDict
-from typing import List, Optional, Sequence, Set, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import grpc
 from aiohttp import web
@@ -251,9 +263,20 @@ class Gateway:
                     merged.setdefault(name, (name, kind, doc, []))[3].extend(samples)
         return list(merged.values())
 
-    def metrics_exposition(self) -> bytes:
-        """The ``/metrics`` body of this gateway, on every listener."""
-        return _metrics.generate_latest(collectors=(self._stats_families, self._component_families))
+    def metrics_exposition(self, openmetrics: bool = False) -> bytes:
+        """The ``/metrics`` body of this gateway, on every listener (the
+        text format 0.0.4, or OpenMetrics 1.0 with exemplars)."""
+        return _metrics.generate_latest(collectors=(self._stats_families, self._component_families),
+                                        openmetrics=openmetrics)
+
+    def local_components(self):
+        """``(predictor name, unit name, component)`` of every local
+        component of every predictor."""
+        for svc in self.predictors:
+            for unit in svc.graph.walk():
+                component = svc.executor.component(unit.name)
+                if component is not None:
+                    yield svc.name, unit.name, component
 
 
 def _http_status(out: InternalMessage) -> int:
@@ -426,14 +449,142 @@ def build_gateway_app(gateway: Gateway, auth=None) -> web.Application:
         gateway.unpause()
         return web.Response(text="unpaused")
 
-    async def metrics_endpoint(_r: web.Request) -> web.Response:
+    async def metrics_endpoint(request: web.Request) -> web.Response:
         from seldon_core_tpu_torch.runtime.executor_pool import run_dispatch
 
+        om = _metrics.wants_openmetrics(request.headers.get("Accept"))
         try:
-            body = await run_dispatch(gateway.metrics_exposition)
+            body = await run_dispatch(gateway.metrics_exposition, om)
         except Exception as e:  # noqa: BLE001
             return _error_response(e)
+        if om:
+            return web.Response(body=body, headers={"Content-Type": _metrics.CONTENT_TYPE_OPENMETRICS})
         return web.Response(body=body, content_type=_metrics.CONTENT_TYPE_LATEST.split(";")[0])
+
+    def _engines(attr: str):
+        """``(predictor, node, bound method)`` of every local component
+        whose engine has ``attr``."""
+        for pred, node, component in gateway.local_components():
+            fn = getattr(getattr(component, "engine", None), attr, None)
+            if fn is not None:
+                yield pred, node, fn
+
+    async def debug_engine(request: web.Request) -> web.Response:
+        """Generation-engine stats of every local component that runs a
+        paged engine, keyed predictor -> node; ``?detail=1`` adds the
+        watchdog's window and the flight recorder's per-chunk ring."""
+        detail = request.query.get("detail", "") in ("1", "true", "yes")
+        out: Dict[str, Dict[str, object]] = {}
+        for pred, node, stats_fn in _engines("engine_stats"):
+            out.setdefault(pred, {})[node] = stats_fn(detail=detail)
+        return web.json_response(out)
+
+    async def debug_traces(request: web.Request) -> web.Response:
+        """Spans of the in-process tracer ring: ``?trace_id=<puid>`` for
+        one trace (the request's spans and its gen.* lifecycle spans),
+        else the newest ``?limit=`` spans."""
+        from seldon_core_tpu_torch.utils.tracing import get_tracer
+
+        tracer = get_tracer()
+        if tracer is None:
+            return web.json_response({"enabled": False, "spans": [],
+                                      "info": "tracing not set up (call setup_tracing / set "
+                                              "OTEL_EXPORTER_OTLP_ENDPOINT)"})
+        trace_id = request.query.get("trace_id", "")
+        try:
+            limit = max(1, min(int(request.query.get("limit", "256")), 4096))
+        except ValueError:
+            limit = 256
+        if trace_id:
+            spans = tracer.find(trace_id)
+        else:
+            with tracer._lock:  # noqa: SLF001 — same package, a read-only copy
+                spans = list(tracer.spans)
+        return web.json_response({"enabled": True, "spans": [s.to_dict() for s in spans[-limit:]]})
+
+    async def debug_weights(_r: web.Request) -> web.Response:
+        """The process weight registry (null when this process never
+        touched it) and every local engine's adapter pool, keyed
+        predictor -> node."""
+        from seldon_core_tpu_torch.models.registry import registry_snapshot
+
+        engines: Dict[str, Dict[str, object]] = {}
+        for pred, node, stats_fn in _engines("adapter_stats"):
+            engines.setdefault(pred, {})[node] = stats_fn()
+        return web.json_response({"registry": registry_snapshot(), "engines": engines})
+
+    async def debug_telemetry(request: web.Request) -> web.Response:
+        """This process's telemetry snapshot, ``?window=<s>`` bounded: one
+        engine-bearing component serves its snapshot as is (the shape a
+        fleet aggregator polls), several nest under ``components``."""
+        from seldon_core_tpu_torch.utils import telemetry as _telemetry
+
+        try:
+            window_s = float(request.query.get("window", "0") or 0.0)
+        except ValueError:
+            window_s = 0.0
+        snaps: Dict[str, object] = {}
+        for pred, node, component in gateway.local_components():
+            snap_fn = getattr(component, "telemetry_snapshot", None)
+            snap = snap_fn(window_s) if snap_fn is not None else None
+            if snap is not None:
+                snaps[f"{pred}/{node}"] = snap
+        if not snaps:
+            return web.json_response({"enabled": _telemetry.telemetry_enabled(), "components": {},
+                                      "info": "no telemetry ring in this process "
+                                              "(SELDON_TPU_TELEMETRY=0 or no generation engine)"})
+        if len(snaps) == 1:
+            return web.json_response(next(iter(snaps.values())))
+        return web.json_response({"schema_version": _telemetry.TELEMETRY_SCHEMA_VERSION, "components": snaps})
+
+    async def debug_request(request: web.Request) -> web.Response:
+        """One request's timeline: its stored capture (knob snapshot,
+        sampling recipe, phase terms, the records of its waves, cost
+        totals, payload frames unless redacted) merged with its spans.
+        404 only when neither knows the puid."""
+        import dataclasses
+
+        import numpy as np
+
+        from seldon_core_tpu_torch.utils import capture as _capture
+        from seldon_core_tpu_torch.utils.tracing import get_tracer
+
+        puid = request.match_info["puid"]
+        cap = None
+        if _capture.capture_enabled():
+            try:
+                cap = await asyncio.get_running_loop().run_in_executor(None, _capture.default_store().get, puid)
+            except Exception:  # noqa: BLE001 — a corrupt container must not take the surface down
+                logger.exception("capture load failed (puid=%s)", puid)
+        tracer = get_tracer()
+        spans = [s.to_dict() for s in tracer.find(puid)] if tracer else []
+        if cap is None and not spans:
+            return web.json_response({"puid": puid, "found": False,
+                                      "info": "no capture container and no spans for this puid "
+                                              "(capture off, not triggered, or evicted)"}, status=404)
+        capture_doc = None
+        timeline = []
+        if cap is not None:
+            capture_doc = dataclasses.asdict(cap)
+            capture_doc["prompt"] = np.asarray(cap.prompt).reshape(-1).tolist() if cap.prompt is not None else []
+            capture_doc["tokens"] = np.asarray(cap.tokens).reshape(-1).tolist() if cap.tokens is not None else []
+            for name, t in ((cap.phases or {}).get("stamps") or {}).items():
+                if t:
+                    timeline.append({"t": float(t), "event": name, "source": "stream"})
+        for sp in spans:
+            timeline.append({"t": sp["startTimeUnixNano"] / 1e9, "event": f"span:{sp['name']}",
+                             "duration_ms": round(sp["durationNano"] / 1e6, 3), "source": "tracer"})
+        timeline.sort(key=lambda e: e["t"])
+        return web.json_response({"puid": puid, "found": True, "capture": capture_doc, "spans": spans,
+                                  "timeline": timeline})
+
+    async def debug_knobs(_r: web.Request) -> web.Response:
+        """The knob registry with this process's values, and the names
+        that are set."""
+        from seldon_core_tpu_torch.runtime import knobs as _knobs
+
+        snap = _knobs.snapshot()
+        return web.json_response({"knobs": snap, "set": sorted(k["name"] for k in snap if k["set"])})
 
     async def openapi_endpoint(_r: web.Request) -> web.Response:
         from seldon_core_tpu_torch.runtime.openapi import gateway_openapi
@@ -452,6 +603,12 @@ def build_gateway_app(gateway: Gateway, auth=None) -> web.Application:
     app.router.add_route("*", "/pause", pause)
     app.router.add_route("*", "/unpause", unpause)
     app.router.add_get("/metrics", metrics_endpoint)
+    app.router.add_get("/debug/engine", debug_engine)
+    app.router.add_get("/debug/traces", debug_traces)
+    app.router.add_get("/debug/knobs", debug_knobs)
+    app.router.add_get("/debug/weights", debug_weights)
+    app.router.add_get("/debug/telemetry", debug_telemetry)
+    app.router.add_get("/debug/request/{puid}", debug_request)
     return app
 
 

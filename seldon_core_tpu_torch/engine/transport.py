@@ -43,7 +43,9 @@ deadline budget cannot cover a second attempt.  :class:`BalancedClient`
 balances round-robin over the replica clients of one node and fails over
 between them.  ``SELDON_TPU_BREAKER=0`` disables breaking globally; with
 breakers off, hedging unset and no fallback routes the transport behaves
-as it did without them.
+as it did without them.  Every REST and gRPC attempt passes the chaos
+points ``transport.delay`` / ``.slow`` / ``.drop`` (``utils/faults.py``,
+armed by ``SELDON_TPU_FAULT``; one flag read when disarmed).
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ from seldon_core_tpu_torch.runtime.component import MicroserviceError
 from seldon_core_tpu_torch.runtime.executor_pool import run_dispatch
 from seldon_core_tpu_torch.runtime.message import InternalFeedback, InternalMessage
 from seldon_core_tpu_torch.utils import deadlines as _deadlines
+from seldon_core_tpu_torch.utils import faults as _faults
 from seldon_core_tpu_torch.utils import metrics as _metrics
 from seldon_core_tpu_torch.utils import tracing as _tracing
 
@@ -563,6 +566,19 @@ _METHOD_TO_SERVICE = {
 }
 
 
+async def _inject_attempt_faults() -> None:
+    """The transport chaos points, on every REST and gRPC attempt:
+    ``transport.delay`` / ``transport.slow`` sleep first, then
+    ``transport.drop`` raises a transient connection error that reads as
+    UNAVAILABLE (``utils/faults.py``; one flag read when disarmed)."""
+    if not _faults.enabled():
+        return
+    delay = _faults.delay_s("transport.delay") + _faults.delay_s("transport.slow")
+    if delay:
+        await asyncio.sleep(delay)
+    _faults.raise_if("transport.drop")
+
+
 def _grpc_status_name(e: Exception) -> Optional[str]:
     """The status-code name of a grpc error, or None for non-grpc."""
     code = getattr(e, "code", None)
@@ -689,6 +705,7 @@ class GrpcClient(NodeClient):
                 callable_ = services.unary_callable(self._channel(), service, rpc)
                 t_attempt = time.perf_counter()
                 try:
+                    await _inject_attempt_faults()
                     resp = await callable_(request_proto, timeout=timeout_s, metadata=metadata)
                     hop.response_bytes = resp.ByteSize()
                     with hop.codec():
@@ -832,6 +849,7 @@ class RestClient(NodeClient):
                 headers = _deadlines.inject(dict(base_headers))
                 t_attempt = time.perf_counter()
                 try:
+                    await _inject_attempt_faults()
                     async with self._get_session().post(self.base + path, data=data, headers=headers) as resp:
                         raw = await resp.read()
                         hop.response_bytes = len(raw)

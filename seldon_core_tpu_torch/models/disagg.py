@@ -66,8 +66,9 @@ def _peer_cost_s(engine: PagedEngine, payload: Dict[str, Any]) -> float:
 def evacuate_streams(src_engine: PagedEngine, peers: List[PagedEngine], *,
                      transport: str = "local") -> Dict[str, Any]:
     """Live-migrate ``src_engine``'s exportable streams onto the healthy
-    ``peers``, highest priority first, each to the peer whose predicted
-    remaining cost is lowest.  The peer adopts the source's stream
+    ``peers`` (``engine_stats()["health"]``, the watchdog's state: a
+    degraded or evacuating peer takes none), highest priority first, each
+    to the peer whose predicted remaining cost is lowest.  The peer adopts the source's stream
     object, so waiters and token queues carry on: no token is lost.  A
     stream every peer refuses (pool too small, engine closed, shed, a
     sampler state of another kind) resolves 503 ``MIGRATING`` and its

@@ -87,6 +87,17 @@ heads, head_dim)``, greedy or sampled decoding, token streaming.
   Pages move with plain tensor indexing (the JAX engine's ``.at[].set``
   and gathers are XLA ops, not kernels); a resumed stream decodes on K4.
 
+* **Telemetry and chaos** — a per-wave flight recorder (the JAX
+  engine's record keys, ``engine_stats(detail=True)``), gen.* lifecycle
+  spans through the tracer ring, the cost ledger (page-seconds, tokens,
+  preemptions by stream and by adapter), the NaN screen (one more column
+  of the chunk's one device-to-host copy; a non-finite lane's stream
+  retires 500 ``NUMERIC_POISON``), the health watchdog
+  (``engine_stats()["health"]``, which ``models/disagg.evacuate_streams``
+  reads), request capture (``capture_trigger`` / ``capture_request``),
+  and the fault points ``paged.alloc`` / ``paged.chunk`` / ``paged.nan``
+  (``utils/faults.py``).  Each has its knob and its off lane, as in JAX.
+
 Decisions of this slice:
 
 * sampling draws from one ``torch.Generator`` per stream, seeded from
@@ -136,6 +147,8 @@ from seldon_core_tpu_torch.ops.surgery import (QuantizedKernel, quantize_mode_fo
 from seldon_core_tpu_torch.ops.w8a8 import W8A8Dense, quantize_weight
 from seldon_core_tpu_torch.runtime import knobs as _knobs
 from seldon_core_tpu_torch.runtime.component import MicroserviceError, TPUComponent, gauge_metric
+from seldon_core_tpu_torch.utils import faults as _faults
+from seldon_core_tpu_torch.utils import telemetry as _telemetry
 from seldon_core_tpu_torch.utils.deadlines import (clamp_priority, current_deadline, deadline_exceeded,
                                                    normalize_adapter)
 
@@ -272,12 +285,22 @@ def check_ported_options(*, tp=None, dp=None, mesh=None) -> None:
     paged_kv_dtype_mode()
 
 
-# the KV tier's counters: engine_stats sheds them with the tier off
+# the KV tier's counters: engine_stats sheds them with the tier off; a
+# flight-recorder record carries the wave's delta of the second tuple
+# when the tier is on
 _TIER_COUNTER_KEYS = (
     "kv_tier_demotions", "kv_tier_promotions", "kv_tier_host_hits",
     "kv_tier_disk_hits", "kv_tier_misses", "kv_tier_evictions",
     "kv_tier_bytes_demoted", "kv_tier_bytes_promoted",
 )
+_TIER_DELTA_KEYS = ("kv_tier_demotions", "kv_tier_promotions", "kv_tier_host_hits", "kv_tier_disk_hits")
+
+# the lifecycle counters whose per-wave deltas every record carries
+_SLO_COUNTER_KEYS = ("shed", "expired", "preempted", "restored", "drained", "replayed", "quarantined")
+
+# process-wide sequence of StreamingLM bridges: one model_name per engine
+_BRIDGE_SEQ = 0
+_BRIDGE_SEQ_LOCK = threading.Lock()
 
 
 def journal_entry(*, req_id: Any, prompt: List[int], max_new_tokens: int, temperature: float = 0.0, top_k: int = 0,
@@ -727,9 +750,11 @@ class _Stream:
     __slots__ = ("req_id", "prompt", "max_new", "temperature", "top_k", "eos_id", "seed", "tokens",
                  "event", "result", "error", "slot", "pages", "cancelled", "generator", "adapter",
                  "adapter_slot", "adapter_pinned", "cached_len", "prefilled", "priority", "deadline",
-                 "preempted", "t_submit", "t_prefill_start", "t_first_token", "t_finish", "token_queue",
-                 "streamed", "pending", "draft_hint", "kv_export", "kv_import", "kv_payload", "kv_imported",
-                 "tier_promote")
+                 "preempted", "t_submit", "t_prefill_start", "t_decode_start", "t_first_token", "t_finish",
+                 "queue_depth_at_submit", "token_queue", "streamed", "pending", "draft_hint", "kv_export",
+                 "kv_import", "kv_payload", "kv_imported", "tier_promote", "trace_id", "parent_span_id", "puid",
+                 "cost_page_s", "cost_t", "cost_prefill_tokens", "cost_decode_tokens", "cost_preempts",
+                 "cost_restores", "cost_closed")
 
     def __init__(self, req_id, prompt, max_new, temperature, top_k, eos_id, seed, adapter_slot=0):
         self.req_id = req_id
@@ -767,11 +792,37 @@ class _Stream:
         self.priority = 0
         self.deadline: Optional[float] = None
         self.preempted = False
-        # wall-clock stamps: queue wait = t_prefill_start - t_submit
+        # wall-clock stamps: queue wait = t_prefill_start - t_submit,
+        # prefill = t_decode_start - t_prefill_start, TTFT =
+        # t_first_token - t_submit (tracer or not: a capture's phase
+        # terms and the profile tools read them)
         self.t_submit = 0.0
         self.t_prefill_start = 0.0
+        self.t_decode_start = 0.0
         self.t_first_token = 0.0
         self.t_finish = 0.0
+        self.queue_depth_at_submit = 0
+        # lifecycle-span linkage, set at submit when a tracer is
+        # installed: the decode loop runs on another thread, so gen.*
+        # spans link by (trace_id, parent_span_id) explicitly; and the
+        # request's puid (tracer or not), which flight-recorder records
+        # and capture containers key on
+        self.trace_id = ""
+        self.parent_span_id: Optional[str] = None
+        self.puid = ""
+        # the cost ledger: KV page-seconds so far (the integral of pages
+        # held over wall time, stamped at every page-count change), the
+        # stamp of the last accrual (0.0: holding no pages), prompt and
+        # decode tokens computed for the stream (a re-derivation after an
+        # eviction is more cost), preemptions and restores, and the guard
+        # that folds it into the engine totals once
+        self.cost_page_s = 0.0
+        self.cost_t = 0.0
+        self.cost_prefill_tokens = 0
+        self.cost_decode_tokens = 0
+        self.cost_preempts = 0
+        self.cost_restores = 0
+        self.cost_closed = False
         # token streaming: each chunk's new tokens go on the queue as they
         # land, None ends it; `streamed` counts the tokens pushed, and an
         # eviction resets the tokens but not it, so the re-derived run
@@ -1069,6 +1120,16 @@ class PagedEngine:
                           # wall seconds in decode chunks and prefill
                           # waves (predict_cost_s prices a request by them)
                           "chunk_wall_s": 0.0, "prefill_wall_s": 0.0,
+                          # chunk failures contained to their streams, and
+                          # streams the NaN screen retired
+                          "chunk_faults": 0, "quarantined": 0,
+                          # the cost ledger's totals, folded in once a
+                          # stream at termination (shed from engine_stats
+                          # with SELDON_TPU_TELEMETRY=0), and capture
+                          # containers written (shed with the capture
+                          # plane off)
+                          "cost_page_seconds": 0.0, "cost_prefill_tokens": 0, "cost_decode_tokens": 0,
+                          "captures": 0,
                           # the KV tier (shed from engine_stats when off):
                           # pages demoted, chains promoted, promoted pages
                           # per level, uncached full pages the tier also
@@ -1090,6 +1151,8 @@ class PagedEngine:
                 spill_dir=_knobs.raw("SELDON_TPU_KV_SPILL_DIR") or None,
                 spill_budget_bytes=int(float(_knobs.raw("SELDON_TPU_KV_SPILL_GIB", "16") or 16) * (1 << 30)),
             )
+
+        self._init_observability()
 
         # multi-LoRA: a slot-granular factor pool beside the KV pool (slot 0
         # = the zero adapter), and the adapter table, guarded by _lock:
@@ -1118,6 +1181,61 @@ class PagedEngine:
         self._adapter_requests: Dict[str, int] = {}
         # each slot's adapter slot id (slot-major, like _block_tables)
         self._adapter_slots = np.zeros((self.max_slots,), np.int32)
+
+    def _init_observability(self) -> None:
+        """The engine's telemetry and chaos state, each part behind its
+        knob as in the JAX engine:
+
+        * the cost ledger (``SELDON_TPU_TELEMETRY``): a per-adapter split
+          of the ``cost_*`` totals, and ``_cost_clock``, the monotonic
+          clock the occupancy integral reads (a test may script it);
+        * the flight recorder (``SELDON_TPU_FLIGHT_RECORDER``: ``0`` off,
+          digits the ring's size), its p99-breach dump
+          (``SELDON_TPU_DUMP_P99_MS`` / ``_DUMP_DIR``);
+        * the capture plane (``SELDON_TPU_CAPTURE``,
+          ``SELDON_TPU_CAPTURE_SAMPLE``) and the breach-puid hook;
+        * the profiler hook (``SELDON_TPU_PROFILE_DIR``: the first
+          ``SELDON_TPU_PROFILE_CHUNKS`` decode chunks under
+          ``torch.profiler``, written as a Chrome trace);
+        * the NaN screen (``SELDON_TPU_NAN_GUARD``) and the watchdog
+          (``SELDON_TPU_WATCHDOG``), whose compile signal is a chunk
+          signature the engine has not run before or a kernel library
+          built or loaded during the wave;
+        * the deferred gen.* spans, emitted by :meth:`step` after the
+          engine lock drops."""
+        from seldon_core_tpu_torch.ops import _build
+        from seldon_core_tpu_torch.utils import capture as _capture
+        from seldon_core_tpu_torch.utils.watchdog import EngineWatchdog, watchdog_enabled
+
+        self._cost_by_adapter: Dict[str, Dict[str, Any]] = {}
+        self._cost_clock = time.monotonic
+        self._telemetry_enabled = _telemetry.telemetry_enabled()
+        rec_env = _knobs.raw("SELDON_TPU_FLIGHT_RECORDER", "") or ""
+        self.recorder = None
+        if rec_env != "0":
+            from seldon_core_tpu_torch.utils.flightrec import FlightRecorder
+
+            self.recorder = FlightRecorder(
+                capacity=int(rec_env) if rec_env.isdigit() else 512,
+                dump_p99_ms=float(_knobs.raw("SELDON_TPU_DUMP_P99_MS", "0") or 0),
+                dump_dir=_knobs.raw("SELDON_TPU_DUMP_DIR") or None,
+            )
+        self._capture_enabled = _capture.capture_enabled()
+        self._capture_sample = _capture.sample_every() if self._capture_enabled else 0
+        self._capture_seen = 0
+        self._capture_lock = threading.Lock()
+        # puids of breach-dump windows, captured when their stream ends
+        self._breach_puids: "OrderedDict[str, float]" = OrderedDict()
+        if self._capture_enabled and self.recorder is not None:
+            self.recorder.on_dump = self._note_breach_puids
+        self._profile_dir = _knobs.raw("SELDON_TPU_PROFILE_DIR") or None
+        self._profile_chunks_left = int(_knobs.raw("SELDON_TPU_PROFILE_CHUNKS", "4") or 4) if self._profile_dir else 0
+        self._profiler = None
+        self._nan_guard = _knobs.flag("SELDON_TPU_NAN_GUARD")
+        self._watchdog = EngineWatchdog() if watchdog_enabled() else None
+        self._chunk_sigs: set = set()
+        self._wd_builds = _build.build_events()
+        self._pending_spans: list = []
 
     # ---- precision lanes -----------------------------------------------------
 
@@ -1281,11 +1399,223 @@ class PagedEngine:
 
     # ---- submission ------------------------------------------------------
 
+    # ---- observability: spans, flight recorder, capture, watchdog ----------
+
+    def _gen_span(self, stream: _Stream, name: str, start_s: float, duration_s: float, **tags: Any) -> None:
+        """One gen.* lifecycle span of a stream, linked to the submitter's
+        request span by the (trace_id, parent_span_id) pair taken at
+        submit.  An untraced stream costs one attribute read."""
+        if not stream.trace_id:
+            return
+        from seldon_core_tpu_torch.utils.tracing import record_span
+
+        record_span(name, stream.trace_id, start_s, duration_s, parent_span_id=stream.parent_span_id,
+                    puid=stream.trace_id, req_id=stream.req_id, **tags)
+
+    def _gen_span_deferred(self, stream: _Stream, name: str, start_s: float, duration_s: float,
+                           **tags: Any) -> None:
+        """Queue a span from code that holds ``_lock``; :meth:`step` emits
+        it after the lock drops (a tracer may write to disk)."""
+        if stream.trace_id:
+            self._pending_spans.append((stream, name, start_s, duration_s, tags))
+
+    def _flush_spans(self) -> None:
+        if not self._pending_spans:  # a benign unlocked read: every step flushes again
+            return
+        with self._lock:
+            pending, self._pending_spans = self._pending_spans, []
+        for stream, name, start_s, duration_s, tags in pending:
+            self._gen_span(stream, name, start_s, duration_s, **tags)
+
+    def _record_chunk(self, rec: Dict[str, Any], compiled: bool = False) -> None:
+        """One wave's record into the flight recorder (naming the decode
+        lane it ran), and its wall time into the watchdog.  Host
+        bookkeeping only: ``wall_ms`` is the wall time around work that
+        already ended in a device-to-host copy."""
+        rec.setdefault("kernel_active", int(self._kernel_active))
+        if self.recorder is not None:
+            self.recorder.record(rec)
+        self._feed_watchdog(float(rec.get("wall_ms", 0.0)), fault=False, compiles=int(compiled))
+
+    def _wave_compiled(self, sig: Tuple) -> bool:
+        """Whether a chunk of signature ``sig`` (steps, bucket spec,
+        chunk impl, KV dtype, verify width) is this engine's first: the
+        port's counterpart of a first-seen jit shape."""
+        if sig in self._chunk_sigs:
+            return False
+        self._chunk_sigs.add(sig)
+        return True
+
+    def _note_breach_puids(self, records, path) -> None:
+        """The recorder's dump hook: every puid of a breached window is
+        captured when its stream ends.  Runs outside the ring lock and
+        never takes the engine lock."""
+        puids = {p for rec in records for p in rec.get("puids", ()) if p}
+        if not puids:
+            return
+        with self._capture_lock:
+            now = self._cost_clock()
+            for p in puids:
+                self._breach_puids[p] = now
+            while len(self._breach_puids) > 1024:
+                self._breach_puids.popitem(last=False)
+
+    def capture_trigger(self, puid: str, error: Optional[BaseException]) -> Optional[str]:
+        """The trigger of a terminating request, in order: an error, then
+        membership of a p99-breach window, then head sampling (every Nth
+        completed request).  None: no capture."""
+        if not self._capture_enabled:
+            return None
+        if error is not None:
+            return "error"
+        with self._capture_lock:
+            if puid and self._breach_puids.pop(puid, None) is not None:
+                return "breach"
+            self._capture_seen += 1
+            if self._capture_sample > 0 and self._capture_seen % self._capture_sample == 0:
+                return "sample"
+        return None
+
+    def capture_request(self, stream: _Stream, *, puid: str, trigger: str, status: str = "ok", reason: str = "",
+                        tokens=None, extra: Optional[Dict[str, Any]] = None) -> Optional[str]:
+        """Store one request's black box: its phase terms, the recorder's
+        records of its waves, its cost totals, the sampling recipe and
+        seed, and the knob snapshot a replay rebuilds from.  Runs outside
+        the engine lock; a failure is logged and never reaches serving.
+        Returns the container's path."""
+        if not self._capture_enabled:
+            return None
+        from seldon_core_tpu_torch.utils import capture as _capture
+
+        try:
+            waves = []
+            if self.recorder is not None:
+                waves = [r for r in self.recorder.snapshot() if puid in r.get("puids", ())]
+            extra = extra or {}
+            cap = _capture.RequestCapture(
+                puid=puid, trace_id=stream.trace_id, status=status, reason=reason, trigger=trigger,
+                seed=extra.get("request_seed"), max_new_tokens=stream.max_new,
+                temperature=float(stream.temperature), top_k=int(stream.top_k), eos_id=stream.eos_id,
+                adapter=stream.adapter, priority=int(stream.priority),
+                deadline_remaining_ms=extra.get("deadline_remaining_ms"), rows=int(extra.get("rows", 1)),
+                phases=_capture.phase_terms(stream.t_submit, stream.t_prefill_start, stream.t_decode_start,
+                                            stream.t_first_token, stream.t_finish),
+                waves=waves,
+                cost={"page_seconds": stream.cost_page_s, "prefill_tokens": stream.cost_prefill_tokens,
+                      "decode_tokens": stream.cost_decode_tokens, "preemptions": stream.cost_preempts,
+                      "restores": stream.cost_restores, "adapter": stream.adapter or "base"},
+                knobs=_capture.knob_snapshot(),
+                model=dict(extra.get("model") or {}),
+                tags=dict(extra.get("tags") or {}),
+                time=_capture.now(),
+                prompt=np.asarray(stream.prompt, np.int32).reshape(-1),
+                tokens=(np.asarray(tokens, np.int32).reshape(-1) if tokens is not None
+                        else np.asarray(stream.tokens, np.int32)),
+            )
+            path = _capture.default_store().put(cap)
+        except Exception:  # noqa: BLE001 — forensics never breaks serving
+            logger.exception("request capture failed (puid=%s)", puid)
+            return None
+        if path is not None:
+            with self._lock:
+                self._counters["captures"] += 1
+        return path
+
+    def _feed_watchdog(self, wall_ms: float, fault: bool, compiles: int = 0) -> None:
+        """One wave into the health watchdog: its wall time, whether it
+        faulted, the pool's occupancy, and its compile events (a
+        first-seen chunk signature, kernel libraries built or loaded
+        meanwhile), which exempt it from the wall ceiling."""
+        wd = self._watchdog
+        if wd is None:
+            return
+        from seldon_core_tpu_torch.ops import _build
+
+        built = _build.build_events()
+        compiles += built - self._wd_builds
+        self._wd_builds = built
+        with self._lock:
+            used = self.num_pages - 1 - len(self._free_pages) - len(self._lru)
+        wd.observe(wall_ms=wall_ms, compiled=compiles > 0, fault=fault,
+                   pool_used_pct=100.0 * used / max(1, self.num_pages - 1), compiles_delta=compiles)
+
+    def _quarantine_poisoned(self, runnable: List[_Stream], finite: Optional[np.ndarray]) -> List[_Stream]:
+        """Retire every runnable stream whose lane's logits went
+        non-finite (``finite``: the NaN screen's column of the chunk's one
+        device-to-host copy, slot-major) with 500 ``NUMERIC_POISON`` and a
+        ``quarantined`` count, before the harvest delivers its tokens.
+        Its wave-mates are untouched: lanes are independent.  The
+        speculative verify lane is not screened (its logits never reach
+        the host)."""
+        if finite is None or not runnable:
+            return []
+        poisoned = [s for s in runnable if not finite[s.slot]]
+        if not poisoned:
+            return []
+        with self._lock:
+            for s in poisoned:
+                self._counters["quarantined"] += 1
+                self._fail_stream_locked(s, MicroserviceError(
+                    f"stream req {s.req_id} quarantined: served logits went non-finite after {len(s.tokens)} "
+                    "tokens (numeric poison contained to this stream; its wave-mates are unaffected)",
+                    status_code=500, reason="NUMERIC_POISON"))
+        logger.error("NaN guard quarantined %d stream(s): %s", len(poisoned), [s.req_id for s in poisoned])
+        return poisoned
+
+    def _contain_chunk_fault(self, streams: List[_Stream], exc: Exception) -> bool:
+        """A chunk that failed before its device work: only the streams
+        that would have run it fail (503 ``ENGINE_CHUNK_FAULT``), every
+        other slot and the queue stay, the allocator stays consistent,
+        and the watchdog counts a fault.  Returns step()'s value."""
+        err = MicroserviceError(f"decode chunk failed: {exc}", status_code=503, reason="ENGINE_CHUNK_FAULT")
+        with self._lock:
+            self._counters["chunk_faults"] += 1
+            for stream in streams:
+                self._fail_stream_locked(stream, err)
+            more = self._wave_end_locked()
+        self._feed_watchdog(0.0, fault=True)
+        return more
+
+    def _profile_before_chunk(self) -> None:
+        """``SELDON_TPU_PROFILE_DIR``: the first N decode chunks run under
+        one ``torch.profiler`` session; a profiler failure turns the hook
+        off, never decoding."""
+        if self._profile_chunks_left <= 0 or self._profiler is not None:
+            return
+        try:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler.__enter__()
+            logger.info("profiling the next %d decode chunks to %s", self._profile_chunks_left, self._profile_dir)
+        except Exception:  # noqa: BLE001 — the hook goes off, decoding goes on
+            logger.exception("torch profiler start failed; hook disabled")
+            self._profiler = None
+            self._profile_chunks_left = 0
+
+    def _profile_after_chunk(self) -> None:
+        if self._profiler is None:
+            return
+        self._profile_chunks_left -= 1
+        if self._profile_chunks_left > 0:
+            return
+        prof, self._profiler = self._profiler, None
+        try:
+            prof.__exit__(None, None, None)
+            os.makedirs(self._profile_dir, exist_ok=True)
+            path = os.path.join(self._profile_dir, f"paged-chunks-{os.getpid()}-{int(time.time() * 1000)}.json")
+            prof.export_chrome_trace(path)
+            logger.info("decode-chunk profile written to %s", path)
+        except Exception:  # noqa: BLE001 — a profiler failure never stops decoding
+            logger.exception("torch profiler stop failed")
+
     def submit(self, prompt, max_new_tokens: int = 32, temperature: float = 0.0, top_k: int = 0,
                eos_id: int = -1, seed: int = 0, adapter: Optional[str] = None, priority: int = 0,
                deadline: Optional[float] = None, stream_tokens: bool = False,
                draft_hint: Optional[np.ndarray] = None, kv_export: bool = False,
-               kv_import: Optional[Dict[str, Any]] = None) -> _Stream:
+               kv_import: Optional[Dict[str, Any]] = None, trace_id: str = "",
+               parent_span_id: Optional[str] = None, puid: str = "") -> _Stream:
         """Queue one prompt (1-D int array).  Returns a stream handle whose
         ``event`` fires when ``result`` (``(max_new,)`` ids) is ready.
         ``stream_tokens`` gives it a ``token_queue``: each decode chunk's
@@ -1315,7 +1645,14 @@ class PagedEngine:
         ``kv_import``: a checked page payload written into the pool at
         admission in place of a prefill.  :meth:`prefill_export`,
         :meth:`submit_prefilled` and :meth:`migrate_import` are the
-        fronts that check payloads."""
+        fronts that check payloads.
+
+        ``puid`` names the request in flight-recorder records and capture
+        containers (tracer or not).  With a tracer installed the stream's
+        gen.* spans join ``trace_id`` under ``parent_span_id``, by default
+        the caller's active span's (the decode loop runs on another
+        thread, so the link is taken here); an explicit ``trace_id``
+        wins."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         plen = len(prompt)
         if plen < 1:
@@ -1364,6 +1701,16 @@ class PagedEngine:
                 stream.priority = int(priority)
                 stream.deadline = float(deadline) if deadline is not None else None
                 stream.t_submit = time.time()
+                stream.queue_depth_at_submit = len(self._queue)
+                stream.puid = str(puid or trace_id or "")
+                from seldon_core_tpu_torch.utils import tracing as _tracing
+
+                if _tracing.get_tracer() is not None:  # one global read when tracing is off
+                    enclosing = _tracing.current_span()
+                    stream.trace_id = trace_id or (enclosing.trace_id if enclosing is not None
+                                                   else f"gen-{stream.req_id}")
+                    stream.parent_span_id = parent_span_id or (enclosing.span_id if enclosing is not None
+                                                               else None)
                 stream.kv_export = bool(kv_export)
                 stream.kv_import = kv_import
                 if stream_tokens:
@@ -1602,7 +1949,11 @@ class PagedEngine:
 
     def _alloc_locked(self, n: int) -> Optional[List[int]]:
         """Take ``n`` fresh pages (refcount 1 each), reclaiming cached
-        pages under pressure; None when even that does not cover ``n``."""
+        pages under pressure; None when even that does not cover ``n``,
+        or when the ``paged.alloc`` fault point fires (it reports
+        exhaustion as a full pool would)."""
+        if _faults.fire("paged.alloc"):
+            return None
         if self._allocatable_locked() < n:
             return None
         while len(self._free_pages) < n:
@@ -1632,6 +1983,39 @@ class PagedEngine:
                     self._prefix_index.pop(entry.key, None)
                     self._page_entry.pop(p, None)
                 self._free_pages.append(p)
+
+    # ---- the cost ledger ------------------------------------------------------
+
+    def _cost_touch_locked(self, stream: _Stream) -> None:
+        """Accrue the stream's KV occupancy integral up to now: called
+        just before every change to ``len(stream.pages)`` (growth, free,
+        eviction), so ``cost_page_s`` is exact at page-count granularity.
+        No clock read with the telemetry plane off."""
+        if not self._telemetry_enabled:
+            return
+        now = self._cost_clock()
+        if stream.cost_t:
+            stream.cost_page_s += (now - stream.cost_t) * len(stream.pages)
+        stream.cost_t = now
+
+    def _cost_close_locked(self, stream: _Stream) -> None:
+        """Fold one terminating stream's ledger into the engine totals and
+        the per-adapter split, once a stream (``cost_closed``): both from
+        the same event, so the split sums to the totals exactly."""
+        if not self._telemetry_enabled or stream.cost_closed:
+            return
+        self._cost_touch_locked(stream)
+        stream.cost_t = 0.0
+        stream.cost_closed = True
+        self._counters["cost_page_seconds"] += stream.cost_page_s
+        self._counters["cost_prefill_tokens"] += stream.cost_prefill_tokens
+        self._counters["cost_decode_tokens"] += stream.cost_decode_tokens
+        entry = self._cost_by_adapter.setdefault(
+            stream.adapter or "base", {"page_seconds": 0.0, "prefill_tokens": 0, "decode_tokens": 0, "streams": 0})
+        entry["page_seconds"] += stream.cost_page_s
+        entry["prefill_tokens"] += stream.cost_prefill_tokens
+        entry["decode_tokens"] += stream.cost_decode_tokens
+        entry["streams"] += 1
 
     def _prefix_root_for(self, adapter: Optional[str]) -> int:
         """The chain root of a weight set: an adapter's prefill writes
@@ -1797,10 +2181,15 @@ class PagedEngine:
         """Error-terminate one stream, queued or in a slot (shed, expiry):
         slot and pages released, the waiter woken with ``exc``."""
         stream.error = exc
+        stream.t_finish = time.time()
+        if stream.trace_id:
+            self._gen_span_deferred(stream, "gen.finish", stream.t_finish, 0.0, slot=stream.slot,
+                                    tokens=len(stream.tokens), error=True,
+                                    reason=getattr(exc, "reason", type(exc).__name__))
+        self._cost_close_locked(stream)
         self._tier_putback_locked(stream)
         self._release_slot_locked(stream)
         stream.slot = None
-        stream.t_finish = time.time()
         self._release_adapter_locked(stream)
         self._end_stream_locked(stream)
         stream.event.set()
@@ -1865,6 +2254,7 @@ class PagedEngine:
         slot = victim.slot
         self._counters["preempted"] += 1
         victim.preempted = True
+        victim.cost_preempts += 1
         self._evict_locked(victim)
         return slot
 
@@ -1899,6 +2289,9 @@ class PagedEngine:
         self._remove_queued_locked(stream)
         stream.slot = slot
         stream.pages = [e.page for e in matched] + fresh
+        if self._telemetry_enabled:
+            # the occupancy integral starts (or restarts) here
+            stream.cost_t = self._cost_clock()
         stream.cached_len = len(matched) * self.page_size
         stream.prefilled = stream.cached_len
         if self._prefix_cache_enabled:
@@ -1921,6 +2314,7 @@ class PagedEngine:
                 self._counters["kv_tier_bytes_promoted"] += len(blob)
         if stream.preempted:
             stream.preempted = False
+            stream.cost_restores += 1
             self._counters["restored"] += 1
         self._slots[slot] = stream
         self._block_tables[slot] = 0
@@ -2000,9 +2394,10 @@ class PagedEngine:
             p *= 2
         return min(p, self.pages_per_stream)
 
-    def _prefill_streams(self, streams: List[_Stream]) -> List[_Stream]:
+    def _prefill_streams(self, streams: List[_Stream]) -> Tuple[List[_Stream], int, float]:
         """Monolithic prefill (no token budget): every admitted stream's
-        uncached suffix in this wave.  Returns the streams now decoding."""
+        uncached suffix in this wave.  Returns what
+        :meth:`_run_prefill_slices` does."""
         return self._run_prefill_slices([(s, s.prefilled, len(s.prompt) - s.prefilled) for s in streams])
 
     def _plan_prefill_slices_locked(self, prefilling: List[_Stream], budget: int) -> List[Tuple[_Stream, int, int]]:
@@ -2026,17 +2421,18 @@ class PagedEngine:
             left -= n
         return slices
 
-    def _run_prefill_slices(self, slices: List[Tuple[_Stream, int, int]]) -> List[_Stream]:
+    def _run_prefill_slices(self, slices: List[Tuple[_Stream, int, int]]) -> Tuple[List[_Stream], int, float]:
         """One wave's prefill work, ``(stream, start, n)`` slices with
         ``start`` page-aligned: whole uncached prompts through the
         from-zero call, everything else (a cached prefix, a later slice)
         through the cached-suffix call, one call per bucket; a KV import's
         pages are written first, in place of its prefill.  Returns the
-        streams whose prompt is now whole; their full prompt pages enter
+        streams whose prompt is now whole (their full prompt pages enter
         the prefix index, and a ``kv_export`` stream resolves with its
-        payload instead of decoding."""
+        payload instead of decoding), the prompt tokens computed and the
+        wave's prefill wall seconds."""
         if not slices:
-            return []
+            return [], 0, 0.0
         # staged demotions are gathered before this wave can overwrite them
         self._tier_flush()
         t0 = time.perf_counter()
@@ -2045,9 +2441,15 @@ class PagedEngine:
         cached: Dict[int, List[Tuple[_Stream, int, int]]] = {}
         tokens = 0
         completed: List[_Stream] = []
-        for stream, start, n in slices:
+        for stream, start, _n in slices:
             if not stream.t_prefill_start:
                 stream.t_prefill_start = t_admit
+            # the queue wait: one span a stream, on its first slice
+            if stream.trace_id and start == stream.cached_len:
+                self._gen_span(stream, "gen.queued", stream.t_submit or t_admit,
+                               max(0.0, t_admit - stream.t_submit) if stream.t_submit else 0.0,
+                               slot=stream.slot, queue_depth=stream.queue_depth_at_submit)
+        for stream, start, n in slices:
             if stream.kv_import is not None:
                 self._import_kv_stream(stream)
                 completed.append(stream)
@@ -2062,9 +2464,10 @@ class PagedEngine:
             for bucket, group in cached.items():
                 completed.extend(self._prefill_group(bucket, group, use_cache=True))
         calls = len(plain) + len(cached)
+        wall = time.perf_counter() - t0
         with self._lock:
             if calls:
-                self._counters["prefill_wall_s"] += time.perf_counter() - t0
+                self._counters["prefill_wall_s"] += wall
                 self._counters["prefill_tokens"] += tokens
                 self._counters["prefill_chunks"] += calls
             for stream in completed:
@@ -2073,7 +2476,7 @@ class PagedEngine:
         if exports:
             self._export_streams(exports)
             completed = [s for s in completed if not s.kv_export]
-        return completed
+        return completed, tokens, wall
 
     def _prefill_group(self, bucket: int, group: List[Tuple[_Stream, int, int]], use_cache: bool) -> List[_Stream]:
         """One batched prefill call for same-bucket slices: ``k`` rows, a
@@ -2087,6 +2490,7 @@ class PagedEngine:
         is page-aligned, so every write starts at offset 0).  Otherwise
         the from-zero call.  Installs the last-token logits of the
         streams whose prompt is now whole, and returns them."""
+        t_group = time.time()
         k = 1
         while k < len(group):
             k *= 2
@@ -2130,6 +2534,7 @@ class PagedEngine:
         finals = []
         for i, (stream, start, n) in enumerate(group):
             stream.prefilled = start + n
+            stream.cost_prefill_tokens += n
             if stream.prefilled >= len(stream.prompt):
                 finals.append((i, stream))
         if not finals:
@@ -2150,11 +2555,18 @@ class PagedEngine:
             last_np = final_logits.float().cpu().numpy()
             for j, stream in exports:
                 stream.kv_payload = {"last_logits": last_np[j]}
+        t_done = time.time()
         for _i, stream in finals:
             # seeded when the prompt is whole, so an evicted stream's
             # re-derived run draws the same tokens again
             stream.generator = (torch.Generator(device=dev).manual_seed(stream.seed % (1 << 63))
                                 if stream.temperature > 0 else None)
+            stream.t_decode_start = t_done
+            # the group prefills in one call: each member's span carries
+            # the group's wall, tagged with the group's size
+            self._gen_span(stream, "gen.prefill", t_group, t_done - t_group, slot=stream.slot, bucket=bucket,
+                           prompt_len=len(stream.prompt), cached_tokens=stream.cached_len,
+                           pages_held=len(stream.pages), group_size=len(group))
         return [s for _i, s in finals]
 
     # ---- KV handoff, live migration and the KV tier ------------------------
@@ -2166,6 +2578,7 @@ class PagedEngine:
         migration its decoded tokens and streaming cursor.  Afterwards it
         decodes as a stream that prefilled here."""
         self._tier_flush()
+        t0 = time.time()
         payload = stream.kv_import
         plen = len(stream.prompt)
         mig_tokens = payload.get("tokens")
@@ -2191,6 +2604,7 @@ class PagedEngine:
             stream.tokens = [int(t) for t in np.asarray(mig_tokens).reshape(-1)]
         if migration:
             stream.streamed = int(payload.get("streamed") or 0)
+        stream.t_decode_start = time.time()
         with self._lock:
             if extra:
                 # decode resumes mid-sequence, over the decoded tokens' K/V too
@@ -2198,6 +2612,9 @@ class PagedEngine:
             stream.kv_import = None  # consumed: the host copy goes
             stream.kv_imported = True
             self._counters["migrated_in" if migration else "kv_imports"] += 1
+        self._gen_span(stream, "gen.prefill", t0, stream.t_decode_start - t0, slot=slot, bucket=0, prompt_len=plen,
+                       cached_tokens=0, pages_held=len(stream.pages), group_size=1, imported=True,
+                       migrated=migration)
 
     def _import_sampler(self, stream: _Stream, key_data) -> Optional[torch.Generator]:
         """A sampled stream's generator on this engine's device: the
@@ -2331,11 +2748,16 @@ class PagedEngine:
             }
             with self._lock:
                 stream.kv_payload = payload
+                slot = stream.slot
+                self._cost_close_locked(stream)
                 self._release_slot_locked(stream)
                 stream.slot = None
                 self._release_adapter_locked(stream)
                 self._counters["kv_exports"] += 1
                 self._counters["completed"] += 1
+                if stream.trace_id:
+                    self._gen_span_deferred(stream, "gen.finish", time.time(), 0.0, slot=slot, tokens=0,
+                                            kv_export=True)
                 stream.event.set()
 
     def prefill_export(self, prompt, *, seed: int = 0, priority: int = 0, deadline: Optional[float] = None,
@@ -2476,11 +2898,14 @@ class PagedEngine:
             with self._lock:
                 if self._slots[slot] is not s:
                     continue  # retired meanwhile
+                # the work this engine spent stays attributed here
+                self._cost_close_locked(s)
                 self._release_slot_locked(s)
                 s.slot = None
                 self._release_adapter_locked(s)
                 self._counters["migrated_out"] += 1
             out.append((payload, s))
+        self._flush_spans()
         return out
 
     def migrate_import(self, payload: Dict[str, Any], *, stream: Optional[_Stream] = None,
@@ -2561,6 +2986,7 @@ class PagedEngine:
                     stream.adapter_pinned = True
                     self._drop_temp_pin_locked(adapter_slot)
                     self._adapter_requests[adapter] = self._adapter_requests.get(adapter, 0) + 1
+                stream.queue_depth_at_submit = len(self._queue)
                 self._queue.append(stream)
                 self._queued.add(stream)
             return stream
@@ -2610,6 +3036,8 @@ class PagedEngine:
         cap = len(stream.prompt) + stream.max_new + (self.draft_k + 1 if self.speculative is not None else 0)
         horizon = min(int(self._lengths[slot]) + per_chunk, cap, self.max_len)
         need = -(-horizon // self.page_size)
+        if len(stream.pages) < need:
+            self._cost_touch_locked(stream)
         while len(stream.pages) < need:
             got = self._alloc_locked(1)
             if got is None:
@@ -2677,15 +3105,18 @@ class PagedEngine:
 
     def _chunk(self, steps: int, buckets, perm: np.ndarray, tables: np.ndarray, lengths: np.ndarray,
                done: np.ndarray, max_new: np.ndarray, eos_ids: np.ndarray, samplers,
-               adapter_ids: np.ndarray) -> np.ndarray:
+               adapter_ids: np.ndarray, nan_victim: Optional[int] = None) -> np.ndarray:
         """``steps`` decode steps of every slot as device work; one
         device-to-host copy at the end returns ``(B, steps + 2)``: the
-        tokens, then each slot's emitted count and new length.
+        tokens, then each slot's emitted count and new length, and with
+        the NaN guard on one more column, whether each slot's logits are
+        all finite (the screen rides the same copy: no second sync).
 
         With two buckets every per-slot input is permuted bucket-sorted
         here and every output back, so the engine's state stays
         slot-major.  The pool chunk or the ring chunk runs the steps, as
-        the engine's ``chunk_impl`` says."""
+        the engine's ``chunk_impl`` says.  ``nan_victim``: the slot the
+        ``paged.nan`` fault point poisons when it fires after the steps."""
         multi = len(buckets) > 1
         if multi:
             inv = np.argsort(perm)
@@ -2708,9 +3139,14 @@ class PagedEngine:
             eos=torch.from_numpy(eos_ids.astype(np.int64)).to(dev), model_kw=self._model_kwargs(adapter_ids),
             logits=self._logits[perm_t] if multi else self._logits, samplers=samplers)
         toks = (self._chunk_pool if self._chunk_impl == "pool" else self._chunk_ring)(steps, st)
+        if nan_victim is not None and _faults.enabled() and _faults.fire("paged.nan"):
+            st.logits[int(inv[nan_victim]) if multi else nan_victim] = float("nan")
+            logger.warning("injected paged.nan into slot %d", nan_victim)
         self._logits = st.logits[torch.from_numpy(inv).to(dev)] if multi else st.logits
-        out = torch.cat([torch.stack(toks, dim=1), st.emitted[:, None].long(), st.lengths[:, None].long()], dim=1)
-        out = out.cpu().numpy()
+        cols = [torch.stack(toks, dim=1), st.emitted[:, None].long(), st.lengths[:, None].long()]
+        if self._nan_guard:
+            cols.append(torch.isfinite(st.logits).all(-1)[:, None].long())
+        out = torch.cat(cols, dim=1).cpu().numpy()
         return out[inv] if multi else out
 
     def _decode_step(self, st: _ChunkState) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -2787,11 +3223,84 @@ class PagedEngine:
     def step(self) -> bool:
         """Admit + prefill joiners, run one decode chunk, retire finished.
         Returns True while there is (or may be) more work.  Safe from any
-        thread: steps never interleave."""
+        thread: steps never interleave.  The gen.* spans queued under the
+        engine lock are emitted here, after it drops, on every way out."""
         with self._step_lock:
-            if self.speculative is not None:
-                return self._step_speculative()
-            return self._step_decode()
+            try:
+                if self.speculative is not None:
+                    return self._step_speculative()
+                return self._step_decode()
+            finally:
+                self._flush_spans()
+
+    def _wave_start_locked(self) -> Dict[str, Any]:
+        """The counters a wave's flight-recorder record carries deltas of."""
+        pre = {k: self._counters[k] for k in ("prefix_hits", "prefix_tokens_saved") + _SLO_COUNTER_KEYS}
+        if self._kv_tier is not None:
+            pre.update({k: self._counters[k] for k in _TIER_DELTA_KEYS})
+        return pre
+
+    def _wave_record_locked(self, pre: Dict[str, Any]) -> Dict[str, Any]:
+        """The part of a wave's record read under the engine lock: queue
+        depth and the counter deltas since :meth:`_wave_start_locked`
+        (the KV tier's only with the tier on, so the off lane's records
+        keep their keys)."""
+        keys = _SLO_COUNTER_KEYS + (_TIER_DELTA_KEYS if self._kv_tier is not None else ())
+        return {
+            "queue_depth": len(self._queue),
+            "prefix_hits": self._counters["prefix_hits"] - pre["prefix_hits"],
+            "prefix_tokens_saved": self._counters["prefix_tokens_saved"] - pre["prefix_tokens_saved"],
+            "prefix_pages_cached": len(self._lru),
+            "deltas": {k: self._counters[k] - pre[k] for k in keys},
+        }
+
+    def _wave_record(self, phase: str, *, wall_s: float, prefill_wall_s: float, steps: int, buckets,
+                     occupancy: int, admissions: int, stalls: int, decode_tokens: int, prefill_tokens: int,
+                     puids, trace_id: str, locked: Dict[str, Any], compiled: bool = False) -> None:
+        """Write one wave's record (the JAX engine's record keys); with
+        neither the recorder nor the watchdog on, nothing."""
+        if self.recorder is None and self._watchdog is None:
+            return
+        rec = {"phase": phase, "puids": list(puids)}
+        if phase != "prefill":
+            rec["trace_id"] = trace_id
+        rec.update({
+            "wall_ms": round(wall_s * 1000.0, 3),
+            "prefill_wall_ms": round(prefill_wall_s * 1000.0, 3),
+            "tp_degree": 1,
+            "dp_degree": 1,
+            "steps": steps,
+            "buckets": [list(b) for b in buckets],
+            "occupancy": occupancy,
+            "admissions": admissions,
+            "stalls": stalls,
+            "queue_depth": locked["queue_depth"],
+            "tokens": decode_tokens + prefill_tokens,
+            "prefill_tokens": prefill_tokens,
+            "decode_tokens": decode_tokens,
+            "prefix_hits": locked["prefix_hits"],
+            "prefix_tokens_saved": locked["prefix_tokens_saved"],
+            "prefix_pages_cached": locked["prefix_pages_cached"],
+            **locked["deltas"],
+        })
+        self._record_chunk(rec, compiled=compiled)
+
+    def _record_prefill_wave(self, pre: Dict[str, Any], *, wall_s: float, tokens: int, occupancy: int,
+                             admissions: int, stalls: int, puids) -> bool:
+        """Record a wave that carried prefill work only (a budgeted
+        prefill-only wave, or one whose streams all ended at prefill), so
+        the recorder's token mix does not undercount against
+        ``prefill_tokens``.  Returns step()'s value."""
+        with self._lock:
+            more = self._wave_end_locked()
+            locked = self._wave_record_locked(pre)
+        self._wave_record("prefill", wall_s=wall_s, prefill_wall_s=wall_s, steps=0, buckets=[],
+                          occupancy=occupancy, admissions=admissions, stalls=stalls, decode_tokens=0,
+                          prefill_tokens=tokens, puids=puids, trace_id="", locked=locked)
+        return more
+
+    def _kv_dtype_name(self) -> str:
+        return "int8" if self._kv_int8 else _dtype_name(self.pages_k)
 
     def _steps_for_locked(self, decoding: List[_Stream]) -> int:
         """The chunk length: ``steps_per_call``, doubled toward
@@ -2816,19 +3325,29 @@ class PagedEngine:
 
     def _step_decode(self) -> bool:
         with self._lock:
+            pre = self._wave_start_locked()
             admitted = self._admit_locked()
         # promoted tier chains land before any prefill or decode of the wave
         self._tier_promote_ready()
         budget = self.chunk_token_budget
+        wave_ptok, wave_pwall = 0, 0.0
         if admitted and not budget:
             # monolithic prefill: admitted prompts prefill whole and decode
             # in this same wave
-            self._prefill_streams([s for s, _ in admitted])
+            _done, wave_ptok, wave_pwall = self._prefill_streams([s for s, _ in admitted])
         with self._lock:
             self._counters["prefills"] += len(admitted)
             active = self._retire_cancelled_locked([s for s in self._slots if s is not None])
-            if not active:
+        if not active:
+            # every admitted stream ended at its prefill (a KV export, a
+            # cancellation): the wave still carried prefill work
+            if wave_ptok:
+                return self._record_prefill_wave(pre, wall_s=wave_pwall, tokens=wave_ptok, occupancy=0,
+                                                 admissions=len(admitted), stalls=0,
+                                                 puids=[s.puid for s, _ in admitted if s.puid])
+            with self._lock:
                 return self._wave_end_locked()
+        with self._lock:
             if budget:
                 # only whole prompts decode: a stream whose last slice runs
                 # this wave decodes from the next one
@@ -2884,31 +3403,55 @@ class PagedEngine:
         if slices:
             # the budget's prefill slices run before the chunk; a stream they
             # complete stays masked in it
-            self._run_prefill_slices(slices)
+            _done, ptok, pwall = self._run_prefill_slices(slices)
+            wave_ptok += ptok
+            wave_pwall += pwall
         if not runnable:
+            if wave_ptok:
+                return self._record_prefill_wave(pre, wall_s=wave_pwall, tokens=wave_ptok, occupancy=len(active),
+                                                 admissions=len(admitted), stalls=int(stalled.sum()),
+                                                 puids=[s.puid for s in active if s.puid])
             with self._lock:
                 return self._wave_end_locked()
+        try:
+            # the paged.chunk fault point fires before any device work, so
+            # only this chunk's streams fail; a real device error later
+            # still escalates through the decode loop's fail_all
+            _faults.raise_if("paged.chunk")
+        except _faults.InjectedFault as exc:
+            return self._contain_chunk_fault(runnable, exc)
+        compiled = self._wave_compiled((steps, tuple(buckets), self._chunk_impl, self._kv_dtype_name(), 0))
         # page growth above may have staged demotions: gathered before the chunk writes
         self._tier_flush()
+        self._profile_before_chunk()
         t_chunk = time.perf_counter()
         with torch.inference_mode(), self._materialized():
-            out = self._chunk(steps, buckets, perm, tables, lengths, done, max_new, eos_ids, samplers, adapter_ids)
+            out = self._chunk(steps, buckets, perm, tables, lengths, done, max_new, eos_ids, samplers, adapter_ids,
+                              nan_victim=min(s.slot for s in runnable))
+        chunk_wall = time.perf_counter() - t_chunk
+        self._profile_after_chunk()
         toks, emitted, lengths_out = out[:, :steps], out[:, steps], out[:, steps + 1]
+        # the NaN screen before the harvest: a poisoned lane's tokens of
+        # this chunk are never delivered
+        self._quarantine_poisoned(runnable, out[:, steps + 2] if self._nan_guard else None)
         t_now = time.time()
         with self._lock:
             self._counters["chunks"] += 1
-            self._counters["chunk_wall_s"] += time.perf_counter() - t_chunk
+            self._counters["chunk_wall_s"] += chunk_wall
             self._chunk_steps[steps] = self._chunk_steps.get(steps, 0) + 1
             if len(buckets) > 1:
                 self._counters["bucketed_chunks"] += 1
                 self._counters["bucketed_steps"] += steps
+            chunk_tokens = 0
             for stream in runnable:
                 s = stream.slot
                 if s is None or self._slots[s] is not stream:
-                    continue  # failed or retired from another thread meanwhile
+                    continue  # quarantined, or failed or retired from another thread meanwhile
                 self._lengths[s] = lengths_out[s]
                 n = int(emitted[s])
                 self._counters["tokens"] += n
+                chunk_tokens += n
+                stream.cost_decode_tokens += n
                 got = toks[s, :n].tolist()
                 if got and not stream.tokens and not stream.t_first_token:
                     stream.t_first_token = t_now
@@ -2917,7 +3460,17 @@ class PagedEngine:
                     self._finish_locked(stream)
                 else:
                     self._stream_push(stream)
-            return self._wave_end_locked()
+            more = self._wave_end_locked()
+            locked = self._wave_record_locked(pre)
+            # an exemplar's trace: any traced stream of the wave links the
+            # chunk's duration to one real request
+            trace = next((s.trace_id for s in decoding if s.trace_id), "") if self._telemetry_enabled else ""
+            puids = sorted({s.puid for s in active if s.puid})
+        self._wave_record("decode", wall_s=chunk_wall, prefill_wall_s=wave_pwall, steps=steps, buckets=buckets,
+                          occupancy=len(active), admissions=len(admitted), stalls=int(stalled.sum()),
+                          decode_tokens=chunk_tokens, prefill_tokens=wave_ptok, puids=puids, trace_id=trace,
+                          locked=locked, compiled=compiled)
+        return more
 
     def _step_speculative(self) -> bool:
         """One draft/verify round for every decoding stream (JAX
@@ -2931,14 +3484,16 @@ class PagedEngine:
         from seldon_core_tpu_torch.models.speculative import ngram_draft
 
         with self._lock:
+            pre = self._wave_start_locked()
             admitted = self._admit_locked()
         self._tier_promote_ready()
         budget = self.chunk_token_budget
         fresh: List[_Stream] = []
         slices: List[Tuple[_Stream, int, int]] = []
         L = self.draft_k + 1
+        wave_ptok, wave_pwall = 0, 0.0
         if not budget:
-            fresh = self._prefill_streams([s for s, _ in admitted])
+            fresh, wave_ptok, wave_pwall = self._prefill_streams([s for s, _ in admitted])
         else:
             with self._lock:
                 live = [s for s in self._slots if s is not None]
@@ -2946,7 +3501,7 @@ class PagedEngine:
                 slices = self._plan_prefill_slices_locked([s for s in live if s.prefilled < len(s.prompt)],
                                                           budget - verify_lanes * L)
             if slices:
-                fresh = self._run_prefill_slices(slices)
+                fresh, wave_ptok, wave_pwall = self._run_prefill_slices(slices)
         with self._lock:
             self._counters["prefills"] += len(admitted)
             t_now = time.time()
@@ -2964,8 +3519,16 @@ class PagedEngine:
                 else:
                     self._stream_push(stream)
             active = self._retire_cancelled_locked([s for s in self._slots if s is not None])
-            if not active:
+        if not active:
+            # every stream ended at its prefill or its first token: the
+            # wave still carried prefill work
+            if wave_ptok:
+                return self._record_prefill_wave(pre, wall_s=wave_pwall, tokens=wave_ptok, occupancy=0,
+                                                 admissions=len(admitted), stalls=0,
+                                                 puids=[s.puid for s, _ in admitted if s.puid])
+            with self._lock:
                 return self._wave_end_locked()
+        with self._lock:
             # under a budget a stream whose last slice ran this wave
             # verifies from the next one (the wave keeps its planned size)
             fresh_ids = {id(s) for s in fresh} if budget else set()
@@ -3005,8 +3568,17 @@ class PagedEngine:
             adapter_ids = self._adapter_slots.copy()
         if not runnable:
             # prefill slices, or streams made whole this wave, were the progress
+            if wave_ptok:
+                return self._record_prefill_wave(pre, wall_s=wave_pwall, tokens=wave_ptok, occupancy=len(active),
+                                                 admissions=len(admitted), stalls=int(stalled.sum()),
+                                                 puids=[s.puid for s in active if s.puid])
             with self._lock:
                 return self._wave_end_locked()
+        try:  # the decode chunk's containment, before any device work
+            _faults.raise_if("paged.chunk")
+        except _faults.InjectedFault as exc:
+            return self._contain_chunk_fault(runnable, exc)
+        compiled = self._wave_compiled((1, ((self.max_slots, pages_h),), "verify", self._kv_dtype_name(), L))
         mode = self.speculative["draft"]
         with torch.inference_mode():
             model_drafts = None
@@ -3040,14 +3612,18 @@ class PagedEngine:
                 active_mask[slot] = True
             # verify-lane page growth may have staged demotions
             self._tier_flush()
+            self._profile_before_chunk()
             t_chunk = time.perf_counter()
             with self._materialized():
                 out = self._spec_chunk(segs, n_drafts, active_mask, tables, lengths, adapter_ids)
+            chunk_wall = time.perf_counter() - t_chunk
+            self._profile_after_chunk()
         toks, counts, lengths_out = out[:, :L], out[:, L], out[:, L + 1]
         with self._lock:
             self._counters["chunks"] += 1
-            self._counters["chunk_wall_s"] += time.perf_counter() - t_chunk
+            self._counters["chunk_wall_s"] += chunk_wall
             self._counters["spec_drafted"] += int(n_drafts.sum())
+            chunk_tokens = 0
             for stream in runnable:
                 s = stream.slot
                 if s is None or self._slots[s] is not stream:
@@ -3056,6 +3632,8 @@ class PagedEngine:
                 n = int(counts[s])
                 got = toks[s, :n].tolist()
                 self._counters["tokens"] += n
+                chunk_tokens += n
+                stream.cost_decode_tokens += n
                 self._counters["spec_accepted"] += max(0, n - 1)
                 stream.tokens.extend(got)
                 if got:
@@ -3064,7 +3642,15 @@ class PagedEngine:
                     self._finish_locked(stream)
                 else:
                     self._stream_push(stream)
-            return self._wave_end_locked()
+            more = self._wave_end_locked()
+            locked = self._wave_record_locked(pre)
+            trace = next((s.trace_id for s in runnable if s.trace_id), "") if self._telemetry_enabled else ""
+            puids = sorted({s.puid for s in active if s.puid})
+        self._wave_record("spec_verify", wall_s=chunk_wall, prefill_wall_s=wave_pwall, steps=L, buckets=[],
+                          occupancy=len(active), admissions=len(admitted), stalls=int(stalled.sum()),
+                          decode_tokens=chunk_tokens, prefill_tokens=wave_ptok, puids=puids, trace_id=trace,
+                          locked=locked, compiled=compiled)
+        return more
 
     def _wave_end_locked(self) -> bool:
         """The chunk boundary: the allocator audit when asked for, and
@@ -3105,7 +3691,29 @@ class PagedEngine:
         slot and its pages."""
         toks = self._delivered(stream)
         stream.result = np.asarray(toks + [stream.eos_id] * (stream.max_new - len(toks)), np.int32)
-        stream.t_finish = time.time()
+        stream.t_finish = now = time.time()
+        if stream.trace_id:
+            emitted = len(stream.tokens[: stream.max_new])
+            if stream.t_decode_start:
+                self._gen_span_deferred(stream, "gen.decode", stream.t_decode_start,
+                                        max(0.0, now - stream.t_decode_start), slot=stream.slot, tokens=emitted)
+            finish_tags: Dict[str, Any] = dict(slot=stream.slot, tokens=emitted, pages_held=len(stream.pages),
+                                               cancelled=stream.cancelled)
+            if self._telemetry_enabled:
+                # the cost ledger as span tags: the trace's view of the
+                # numbers the response's meta.tags.cost carries
+                self._cost_close_locked(stream)
+                finish_tags["cost_page_s"] = round(stream.cost_page_s, 6)
+                finish_tags["cost_prefill_tokens"] = stream.cost_prefill_tokens
+                finish_tags["cost_decode_tokens"] = stream.cost_decode_tokens
+                if stream.adapter:
+                    finish_tags["cost_adapter"] = stream.adapter
+            if self.speculative is not None:
+                drafted = self._counters["spec_drafted"]
+                finish_tags["spec_accept_rate"] = (round(self._counters["spec_accepted"] / drafted, 3)
+                                                   if drafted else 0.0)
+            self._gen_span_deferred(stream, "gen.finish", now, 0.0, **finish_tags)
+        self._cost_close_locked(stream)  # once: a traced close above makes this a no-op
         self._tier_putback_locked(stream)
         self._release_slot_locked(stream)
         self._release_adapter_locked(stream)
@@ -3117,7 +3725,15 @@ class PagedEngine:
     def _evict_locked(self, stream: _Stream) -> None:
         """Put a stream out of its slot, back at the head of the queue; it
         re-prefills (re-matching the prefix index) and re-derives its
-        tokens when admitted again."""
+        tokens when admitted again.  Its lifecycle clock restarts (the
+        re-queue wait is a new queue term), and its page-seconds accrue
+        up to the free, then pause while it is queued."""
+        now = time.time()
+        if stream.trace_id:
+            self._gen_span_deferred(stream, "gen.evict", now, 0.0, slot=stream.slot,
+                                    tokens_discarded=len(stream.tokens), pages_freed=len(stream.pages))
+        self._cost_touch_locked(stream)
+        stream.cost_t = 0.0
         self._tier_putback_locked(stream)
         self._release_slot_locked(stream)
         stream.slot = None
@@ -3125,9 +3741,11 @@ class PagedEngine:
         stream.generator = None
         stream.cached_len = 0
         stream.prefilled = 0
-        stream.t_submit = time.time()
+        stream.t_submit = now
         stream.t_prefill_start = 0.0
+        stream.t_decode_start = 0.0
         stream.t_first_token = 0.0
+        stream.queue_depth_at_submit = len(self._queue)
         self._counters["evictions"] += 1
         self._queue.appendleft(stream)
         self._queued.add(stream)
@@ -3172,11 +3790,25 @@ class PagedEngine:
         with self._lock:
             return bool(self._queue) or any(s is not None for s in self._slots)
 
-    def engine_stats(self) -> Dict[str, Any]:
-        """Counters and live occupancy.  The ``kv_tier_*`` keys are there
-        only with the KV tier on; ``health`` is the engine's state for an
-        evacuation to read ("healthy": the watchdog that would move it is
-        ``ROADMAP.md`` §A item 8.11)."""
+    def engine_stats(self, detail: bool = False) -> Dict[str, Any]:
+        """Counters and live occupancy.  Keys that belong to an optional
+        plane are there only with it on, as in the JAX engine: the
+        ``kv_tier_*`` keys with the KV tier, ``captures`` and
+        ``capture_store_bytes`` with the capture plane, the ``cost_*``
+        keys with ``SELDON_TPU_TELEMETRY``.  ``health`` is the watchdog's
+        state (``health_state`` its code: 0 healthy, 1 degraded, 2
+        evacuating; always "healthy" with the watchdog off), which
+        ``models/disagg.evacuate_streams`` reads.  Every key is exported
+        by ``utils/metrics.GenerationPrometheusBridge`` or excluded there
+        by name.  ``detail=True`` adds the watchdog's window and the
+        flight recorder's ring and aggregates (``/debug/engine?detail=1``)."""
+        if self._watchdog is not None:
+            from seldon_core_tpu_torch.utils.watchdog import STATE_CODES
+
+            health = self._watchdog.state
+            health_code, trips = STATE_CODES[health], self._watchdog.trips
+        else:
+            health, health_code, trips = "healthy", 0, 0
         with self._lock:
             out = {
                 "kernel_active": int(self._kernel_active),
@@ -3194,8 +3826,20 @@ class PagedEngine:
                 "kv_dtype_int8": int(self._kv_int8),
                 "adapters_resident": len(self._adapter_table),
                 "adapter_slots": self.max_adapters,
-                "health": "healthy",
+                "health": health,
+                "health_state": health_code,
+                "watchdog_trips": trips,
+                "cost_by_adapter": {k: dict(v) for k, v in self._cost_by_adapter.items()},
             }
+        if self._capture_enabled:
+            try:
+                from seldon_core_tpu_torch.utils import capture as _capture
+
+                out["capture_store_bytes"] = _capture.default_store().total_bytes()
+            except Exception:  # noqa: BLE001 — stats never break serving
+                out["capture_store_bytes"] = 0
+        else:
+            out.pop("captures")
         if self._kv_tier is not None:
             tier = self._kv_tier.stats()
             out["kv_tier_host_bytes"] = tier["host_bytes"]
@@ -3203,6 +3847,18 @@ class PagedEngine:
         else:
             for k in _TIER_COUNTER_KEYS:
                 out.pop(k)
+        if not self._telemetry_enabled:
+            for k in ("cost_page_seconds", "cost_prefill_tokens", "cost_decode_tokens", "cost_by_adapter"):
+                out.pop(k)
+        if detail:
+            if self._watchdog is not None:
+                out["watchdog"] = self._watchdog.stats()
+            if self.recorder is not None:
+                out["recorder"] = self.recorder.snapshot()
+                out["recorder_stats"] = self.recorder.stats()
+            else:
+                out["recorder"] = []
+                out["recorder_stats"] = {"records": 0, "seq": 0}
         return out
 
     # ---- drain and replay ----------------------------------------------------
@@ -3252,6 +3908,7 @@ class PagedEngine:
             for s in victims:
                 self._fail_stream_locked(s, err)
             self._counters["drained"] += len(victims)
+        self._flush_spans()
         return entries
 
     def replay(self, entries, stream_tokens: Optional[bool] = None) -> List[_Stream]:
@@ -3313,6 +3970,7 @@ class PagedEngine:
             self._lengths[:] = 0
             self._block_tables[:] = 0
             for stream in victims:
+                self._cost_close_locked(stream)
                 self._tier_putback_locked(stream)
                 if stream.pages:
                     self._free_locked(stream.pages)
@@ -3369,6 +4027,13 @@ class StreamingLM(TPUComponent):
     each registers in the process weight registry at load and
     materialises when a request first selects it, into one of
     ``max_adapters`` pool slots of rank ``lora_rank``.
+
+    The telemetry plane, wired at load: a ``GenerationPrometheusBridge``
+    (``SELDON_TPU_PROM_BRIDGE``) and a telemetry ring
+    (``SELDON_TPU_TELEMETRY``, served at ``GET /debug/telemetry``)
+    collected from the decode loop, each request's cost totals in
+    ``meta.tags.cost``, and with ``SELDON_TPU_CAPTURE=1`` a capture of
+    the requests its triggers pick (``tools/replay.py`` replays one).
     """
 
     def __init__(
@@ -3441,6 +4106,12 @@ class StreamingLM(TPUComponent):
         self._counter = 0
         self._counter_lock = threading.Lock()
         self._load_time_s: Optional[float] = None
+        # the telemetry plane, wired at load: the Prometheus bridge
+        # (SELDON_TPU_PROM_BRIDGE), the telemetry ring (SELDON_TPU_TELEMETRY)
+        # and the last predict's cost totals on its dispatch thread
+        self._prom_bridge = None
+        self._telemetry_ring = None
+        self._request_cost = threading.local()
 
     def load(self) -> None:
         """Build the engine (seeded weights), warm it with one short
@@ -3456,6 +4127,7 @@ class StreamingLM(TPUComponent):
                                  **self.config, **self.engine_config)
             # first CUDA calls (library handles, the kernel build) pay here, not in a request
             engine.generate(np.zeros((1,), np.int32), max_new_tokens=2)
+            self._wire_telemetry(engine)
             self._replay_journal(engine)
             self._loop_thread = threading.Thread(target=self._loop, name="streaminglm-decode", daemon=True)
             self.engine = engine  # published after construction; the loop reads it
@@ -3465,6 +4137,39 @@ class StreamingLM(TPUComponent):
                         "%s, %d adapter slots)", self.device, self._load_time_s,
                         "on" if engine._kernel_active else "off", "int8" if engine._kv_int8 else self.dtype_name,
                         engine.precision, "on" if engine._prefix_cache_enabled else "off", engine.max_adapters)
+
+    def _wire_telemetry(self, engine: PagedEngine) -> None:
+        """The engine's canonical ``seldon_tpu_engine_*`` series on the
+        process registry (``SELDON_TPU_PROM_BRIDGE``; one ``model_name``
+        an engine, so two StreamingLMs of one process never share a
+        series) and the telemetry ring (``SELDON_TPU_TELEMETRY``), both
+        collected from the decode loop.  A failure here is logged: the
+        metrics never block serving."""
+        if _knobs.flag("SELDON_TPU_PROM_BRIDGE"):
+            try:
+                from seldon_core_tpu_torch.utils.metrics import GenerationPrometheusBridge
+
+                global _BRIDGE_SEQ
+                with _BRIDGE_SEQ_LOCK:
+                    seq = _BRIDGE_SEQ
+                    _BRIDGE_SEQ += 1
+                self._prom_bridge = GenerationPrometheusBridge(engine, model_name=f"streaminglm-{seq}")
+            except Exception:  # noqa: BLE001 — metrics never block serving
+                logger.exception("prometheus bridge unavailable")
+        if _telemetry.telemetry_enabled():
+            self._telemetry_ring = _telemetry.TelemetryRing(
+                capacity=int(_knobs.raw("SELDON_TPU_TELEMETRY_RING", "256") or 256))
+
+    def _collect(self) -> None:
+        """One collect of the bridge and one telemetry sample; both
+        contain their own failures."""
+        if self._prom_bridge is not None:
+            self._prom_bridge.collect()
+        if self._telemetry_ring is not None:
+            try:
+                self._telemetry_ring.sample_engine(self.engine)
+            except Exception:  # noqa: BLE001 — telemetry never blocks serving
+                logger.exception("telemetry sample failed")
 
     @staticmethod
     def _replay_journal(engine: PagedEngine) -> None:
@@ -3568,6 +4273,19 @@ class StreamingLM(TPUComponent):
     def _loop(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
+        last_collect = 0.0
+
+        def collect(min_interval_s: float) -> None:
+            # throttled inside the busy loop too: under sustained load the
+            # series must not freeze during the backlog they watch
+            nonlocal last_collect
+            if self._prom_bridge is None and self._telemetry_ring is None:
+                return
+            now = time.monotonic()
+            if now - last_collect >= min_interval_s:
+                last_collect = now
+                self._collect()
+
         while not self._stop:
             self._wake.wait(timeout=0.5)
             self._wake.clear()
@@ -3576,9 +4294,11 @@ class StreamingLM(TPUComponent):
                     if self._stop:
                         break
                     self.engine.step()
+                    collect(2.0)
             except Exception as exc:  # noqa: BLE001 — surfaced to every waiter
                 logger.exception("decode loop failed")
                 self.engine.fail_all(exc)
+            collect(0.5)
         # nothing steps the streams again: close the engine, unless a drain
         # or an evacuation owns them (it journals or migrates them first)
         if not self._draining:
@@ -3625,20 +4345,36 @@ class StreamingLM(TPUComponent):
                 streams.append(self.engine.submit(
                     row, max_new_tokens=max_new, temperature=temperature, top_k=top_k, eos_id=self.eos_id,
                     seed=self.seed ^ (request_seed * 1000003 + i), adapter=adapter, priority=priority,
-                    deadline=deadline,
+                    deadline=deadline, puid=str(meta.get("puid", "")),
                 ))
             self._wake.set()
             for stream in streams:
                 stream.event.wait()
                 if stream.error:
                     raise stream.error
-            return np.stack([s.result for s in streams])
-        except BaseException:
+            if self.engine._telemetry_enabled:
+                # the request's cost rides meta.tags.cost: the dispatcher
+                # reads tags() on this thread right after predict
+                self._request_cost.value = {
+                    "page_seconds": round(sum(s.cost_page_s for s in streams), 6),
+                    "prefill_tokens": sum(s.cost_prefill_tokens for s in streams),
+                    "decode_tokens": sum(s.cost_decode_tokens for s in streams),
+                    "preemptions": sum(s.cost_preempts for s in streams),
+                    "restores": sum(s.cost_restores for s in streams),
+                    "adapter": adapter or "base",
+                }
+            result = np.stack([s.result for s in streams])
+            self._maybe_capture(streams, tags=tags, meta=meta, request_seed=request_seed, status="ok",
+                                tokens=streams[0].result)
+            return result
+        except BaseException as exc:
             # one row failed (shed, expired): its siblings must not keep
             # decoding unread
             for s in streams:
                 if s.result is None and s.error is None:
                     self.engine.cancel(s)
+            self._maybe_capture(streams, tags=tags, meta=meta, request_seed=request_seed, status="error",
+                                reason=repr(exc))
             raise
 
     def predict_stream(self, X, names=None, meta=None):
@@ -3651,8 +4387,9 @@ class StreamingLM(TPUComponent):
         re-derives the stream's tokens and pushes on from the last one
         sent.  The stream's error is raised after its end marker; closing
         the generator (a consumer gone) cancels the stream, which frees
-        its slot and pages.  Requests are not captured for replay: the
-        capture store comes with ``ROADMAP.md`` §A item 8.11."""
+        its slot and pages.  A stream that ends (or fails) is captured as
+        ``predict``'s requests are; a consumer leaving mid-stream is not
+        a serving incident and is not captured."""
         if self.engine is None:
             self.load()
         meta = meta or {}
@@ -3669,7 +4406,7 @@ class StreamingLM(TPUComponent):
         stream = self.engine.submit(X[0], max_new_tokens=max_new, temperature=temperature, top_k=top_k,
                                     eos_id=self.eos_id, seed=self.seed ^ (request_seed * 1000003),
                                     stream_tokens=True, priority=priority, deadline=deadline,
-                                    adapter=self._request_adapter(tags))
+                                    adapter=self._request_adapter(tags), puid=str(meta.get("puid", "")))
         self._wake.set()
         try:
             while True:
@@ -3678,7 +4415,11 @@ class StreamingLM(TPUComponent):
                     break
                 yield np.asarray(got, np.int32)
             if stream.error:
-                raise stream.error
+                err = stream.error
+                self._maybe_capture([stream], tags=tags, meta=meta, request_seed=request_seed, status="error",
+                                    reason=repr(err))
+                raise err
+            self._maybe_capture([stream], tags=tags, meta=meta, request_seed=request_seed, status="ok")
         finally:
             self.engine.cancel(stream)
 
@@ -3826,6 +4567,9 @@ class StreamingLM(TPUComponent):
         from seldon_core_tpu_torch.engine.transport import migration_hop
 
         buf = np.ascontiguousarray(np.asarray(X, np.uint8).reshape(-1)).tobytes()
+        # the transport.corrupt chaos point: the CRC32C trailer must turn a
+        # flipped byte into the named rejection below, never into K/V
+        buf = _faults.corrupt_bytes("transport.corrupt", buf)
         with migration_hop("streaminglm-ingress", "dcn") as hop:
             if hop is not None:
                 hop.request_bytes = len(buf)
@@ -3837,6 +4581,97 @@ class StreamingLM(TPUComponent):
             stream = self.engine.migrate_import(payload, stream_tokens=False)
         self._wake.set()
         return np.asarray([[stream.req_id]], np.int32)
+
+    def _capture_model_config(self) -> Dict[str, Any]:
+        """The constructor arguments a replay rebuilds this model from
+        (``tools/replay.py``): architecture, engine shape, numeric regime,
+        device and dtype.  Runtime knobs travel in the capture's knob
+        snapshot.  Values that JSON cannot hold are left out."""
+        eng = self.engine_config
+        cfg = {
+            **self.config,
+            "max_new_tokens": self.max_new_tokens, "temperature": self.temperature, "top_k": self.top_k,
+            "eos_id": self.eos_id, "model_uri": self.model_uri, "seed": self.seed,
+            "page_size": eng["page_size"], "num_pages": int(eng["num_pages"] or 0), "max_slots": eng["max_slots"],
+            "steps_per_call": eng["steps_per_call"], "max_steps_per_call": eng["max_steps_per_call"],
+            "quantize": eng["quantize"] or "", "precision": eng["precision"] or "", "speculative": eng["speculative"],
+            "prefix_cache": eng["prefix_cache"], "max_queue": eng["max_queue"],
+            "chunk_token_budget": eng["chunk_token_budget"], "max_adapters": self.max_adapters,
+            "lora_rank": self.lora_rank, "adapters": self.adapters, "device": str(self.device),
+            "dtype": self.dtype_name,
+        }
+        out = {}
+        for k, v in cfg.items():
+            try:
+                json.dumps(v)
+            except (TypeError, ValueError):
+                continue
+            out[k] = v
+        return out
+
+    def _maybe_capture(self, streams, *, tags, meta, request_seed, status="ok", reason="", tokens=None) -> None:
+        """Evaluate the capture triggers for a finished request (its first
+        row: a replay re-submits the whole request) and store the capture
+        when one fires.  Contained: forensics never breaks serving."""
+        engine = self.engine
+        if engine is None or not engine._capture_enabled or not streams:
+            return
+        try:
+            stream = streams[0]
+            puid = str(meta.get("puid", "") or stream.puid or stream.trace_id or f"req-{stream.req_id}")
+            trigger = engine.capture_trigger(puid, stream.error if status != "ok" else None)
+            if trigger is None and status != "ok":
+                trigger = "error"  # raised before or around the submit
+            if trigger is None:
+                return
+            remaining = None
+            if stream.deadline is not None:
+                remaining = max(0.0, (stream.deadline - time.monotonic()) * 1000.0)
+            engine.capture_request(stream, puid=puid, trigger=trigger, status=status, reason=reason, tokens=tokens,
+                                   extra={"request_seed": int(request_seed), "model": self._capture_model_config(),
+                                          "tags": {k: v for k, v in tags.items()
+                                                   if isinstance(v, (str, int, float, bool))},
+                                          "rows": len(streams), "deadline_remaining_ms": remaining})
+        except Exception:  # noqa: BLE001 — forensics never breaks serving
+            logger.exception("request capture failed")
+
+    def tags(self):
+        """Response meta tags: the last predict's cost totals on this
+        dispatch thread (read right after predict), popped once so a later
+        request that fails before its submit inherits nothing."""
+        cost = getattr(self._request_cost, "value", None)
+        self._request_cost.value = None
+        return {"cost": cost} if cost else {}
+
+    def telemetry_snapshot(self, window_s: float = 0.0):
+        """The versioned per-replica telemetry payload
+        (``utils/telemetry.TelemetryRing.snapshot``), after one fresh
+        sample, so a poll between the loop's samples still sees the
+        current queue and residency.  None with the plane off."""
+        if self._telemetry_ring is None:
+            return None
+        if self.engine is not None:
+            try:
+                self._telemetry_ring.sample_engine(self.engine)
+            except Exception:  # noqa: BLE001 — serve what the ring has
+                logger.exception("telemetry sample failed")
+        return self._telemetry_ring.snapshot(window_s)
+
+    def custom_routes(self):
+        """``GET /debug/telemetry?window=<s>`` on the component's own REST
+        surface.  With the telemetry plane off there is no ring and no
+        route."""
+        if self._telemetry_ring is None:
+            return {}
+
+        def debug_telemetry(request):
+            try:
+                window_s = float(request.query.get("window", "0") or 0.0)
+            except (ValueError, AttributeError):
+                window_s = 0.0
+            return self.telemetry_snapshot(window_s)
+
+        return {"/debug/telemetry": debug_telemetry}
 
     def class_names(self):
         return []
@@ -3865,7 +4700,8 @@ class StreamingLM(TPUComponent):
         ]
         for key in ("shed", "expired", "preempted", "restored", "adapter_loads", "adapter_hits", "adapter_misses",
                     "adapter_evictions", "drained", "replayed", "kv_exports", "kv_imports", "migrated_out",
-                    "migrated_in", *(k for k in s if k.startswith("kv_tier_"))):
+                    "migrated_in", "quarantined", "chunk_faults", "health_state",
+                    *(k for k in s if k.startswith("kv_tier_"))):
             out.append(gauge_metric(f"paged_{key}", s[key]))
         for name, n in self.engine.adapter_stats()["requests"].items():
             out.append(gauge_metric("paged_adapter_requests", n, tags={"adapter": name}))

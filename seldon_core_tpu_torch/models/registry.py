@@ -37,7 +37,7 @@ from seldon_core_tpu_torch.runtime.component import MicroserviceError
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["WeightRegistry", "WeightEntry", "get_registry"]
+__all__ = ["WeightRegistry", "WeightEntry", "get_registry", "registry_snapshot"]
 
 
 def _tree_bytes(value: Any) -> int:
@@ -262,3 +262,11 @@ def get_registry() -> WeightRegistry:
             gib = float(_knobs.raw("SELDON_TPU_WEIGHT_BUDGET_GIB", "0") or 0)
             _GLOBAL = WeightRegistry(budget_bytes=int(gib * (1 << 30)), name="process")
         return _GLOBAL
+
+
+def registry_snapshot() -> Optional[Dict[str, Any]]:
+    """The process registry's stats without creating it: ``/debug/weights``
+    on a process that never touched a weight set reports null, not an
+    empty registry it just made."""
+    with _GLOBAL_LOCK:
+        return None if _GLOBAL is None else _GLOBAL.stats()

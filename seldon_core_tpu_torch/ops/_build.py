@@ -36,6 +36,11 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+# libraries compiled or loaded by this process so far: a generation
+# engine's watchdog exempts a wave during which this moved (one-time
+# work, not a slow card)
+_EVENTS = 0
+_EVENTS_LOCK = threading.Lock()
 
 
 class KernelBuildError(RuntimeError):
@@ -101,6 +106,7 @@ def build(name: str) -> Path:
                     f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
                 )
             os.replace(tmp, lib)
+            _count_event()
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     return lib
@@ -117,4 +123,16 @@ def load(name: str) -> ctypes.CDLL:
             except OSError as e:
                 raise KernelBuildError(f"cannot load {path}: {e}") from e
             _LIBS[name] = lib
+            _count_event()
         return lib
+
+
+def _count_event() -> None:
+    global _EVENTS
+    with _EVENTS_LOCK:  # parallel builds count from several threads
+        _EVENTS += 1
+
+
+def build_events() -> int:
+    """Kernel libraries this process has compiled or loaded so far."""
+    return _EVENTS

@@ -256,11 +256,14 @@ def build_app(user_model: Any, unit_id: str = "") -> web.Application:
 
     collectors = (component_collector(user_model),)
 
-    async def metrics_endpoint(_request: web.Request) -> web.Response:
+    async def metrics_endpoint(request: web.Request) -> web.Response:
+        om = _metrics.wants_openmetrics(request.headers.get("Accept"))
         try:
-            body = await run_dispatch(_metrics.generate_latest, None, collectors)
+            body = await run_dispatch(_metrics.generate_latest, None, collectors, om)
         except Exception as e:  # noqa: BLE001
             return _error_response(e)
+        if om:  # OpenMetrics 1.0: the histograms' trace exemplars ride it
+            return web.Response(body=body, headers={"Content-Type": _metrics.CONTENT_TYPE_OPENMETRICS})
         return web.Response(body=body, content_type=_metrics.CONTENT_TYPE_LATEST.split(";")[0])
 
     async def openapi_endpoint(_request: web.Request) -> web.Response:

@@ -940,3 +940,45 @@ def test_migration_and_the_kv_tier_on_the_card(monkeypatch, tmp_path):
         assert tier.engine_stats()["kv_tier_host_hits"] > 0
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_nan_screen_and_records_on_the_card(monkeypatch):
+    """In float32 with TF32 off, on the kernel lane: one ``paged.nan``
+    retires one stream 500 ``NUMERIC_POISON`` through the chunk's NaN
+    column and leaves the others' tokens equal to an uninjected run;
+    every flight-recorder record names the kernel lane, and K4 launches
+    once a layer a decode call."""
+    from seldon_core_tpu_torch.utils import faults
+
+    _need_card()
+    monkeypatch.delenv("SELDON_TPU_PAGED_KERNEL", raising=False)
+    cfg = dict(vocab_size=128, d_model=64, num_layers=2, num_heads=4, max_len=256)
+    params = load_lm_params("", cfg, 0, torch.device("cuda"))
+    prompts = [np.arange(20 + 7 * i) % 128 for i in range(4)]
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        def run(eng):
+            streams = [eng.submit(p, max_new_tokens=16) for p in prompts]
+            eng.run()
+            return streams
+
+        want = [s.result.tolist() for s in run(PagedEngine(params, dtype="float32", device="cuda", page_size=16,
+                                                           max_slots=4, **cfg))]
+        eng = PagedEngine(params, dtype="float32", device="cuda", page_size=16, max_slots=4, **cfg)
+        kernels.reset_launch_counts()
+        faults.configure("paged.nan:times=1")
+        try:
+            streams = run(eng)
+        finally:
+            faults.clear()
+        torch.cuda.synchronize()
+        stats = eng.engine_stats(detail=True)
+        hit = [i for i, s in enumerate(streams) if s.error is not None]
+        assert len(hit) == 1 and streams[hit[0]].error.reason == "NUMERIC_POISON" and stats["quarantined"] == 1
+        assert all(streams[i].result.tolist() == want[i] for i in range(4) if i not in hit)
+        assert stats["recorder"] and all(r["kernel_active"] == 1 for r in stats["recorder"])
+        calls = sum(int(k) * v for k, v in stats["chunk_steps"].items()) + stats["bucketed_steps"]
+        assert kernels.launch_counts()["paged_decode_stream"] == cfg["num_layers"] * calls > 0
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
