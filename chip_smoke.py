@@ -10,7 +10,8 @@ JAX or of the JAX package.  Phases, each of which fails the run:
 2. build every CUDA kernel of the main paths from ``ops/csrc``, one
    ``nvcc`` per source, all started together; the server processes of
    phases 4, 7, 9, 11-17 and 18a launch beside the build (each waits on the
-   build's lock for a kernel it loads) and are awaited before phase 3, so
+   build's lock for a kernel it loads), with those of phases 23 and 24,
+   and are awaited before phase 3, so
    no phase waits on a load and no load runs beside a timed window (the
    line ``early servers`` gives their ready times, the card memory in use
    and the host memory available);
@@ -396,7 +397,31 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    (``seldon_tpu_engine_*``, the chunk histogram's ``_count`` = chunks),
    an OpenMetrics scrape with a trace exemplar, ``/debug/request/{puid}``
    (the capture's tokens = the served row), ``tools/replay.py`` bit for
-   bit, the cost tags; K4 exactly layers x decode calls on every engine.
+   bit, the cost tags; K4 exactly layers x decode calls on every engine;
+23. the non-paged generation lane at the generation config (ROADMAP
+   A8.12): (a) float32 with TF32 off, 16 prompts of 128 tokens, 64 new:
+   the ``Generator``'s greedy ids equal the ``PagedEngine``'s on the same
+   weights (K4 exactly layers x decode calls); (b) ``GENERATIVE_LM``
+   served over REST in bf16 and int8 on the weights of
+   ``load_lm_params("", LM_CONFIG, 0)``: one 16x128 request returns 16x64
+   ids in the vocabulary, at least 75% of rows equal to an in-process
+   ``Generator`` of the same weights, and a seeded sampled request
+   repeats its ids; (c) decode tokens/s of the ``Generator`` and the
+   pool-chunk ``PagedEngine`` in turns (3 pairs), the bf16 cache's bytes
+   and a profile of one decode step (device time, idle share, device
+   events a step);
+24. the MLP and detection families and the pool's capacity accounting
+   (A9, A8.13): (a) ``detector_resnet50`` at 512x512 served in bf16 with
+   ``normalize``: a uint8 batch of 8 and 8 concurrent singles answer
+   (B, 50, 6) finite rows whose scores are within 2e-2 of an in-process
+   server of the same weights, the server's K1 launches equal its
+   batches, K1 bit for bit and timed at (8, 512, 512, 3) and (1, 512,
+   512, 3) beside its bound and ``torch.addcmul``; ``mlp`` served in
+   float32 within 1e-6 of in-process; (b) a bf16 and an int8
+   ``PagedEngine``'s pool bytes (K/V pools and scale tables) equal
+   ``paged_hbm_accounting`` at ``split_tile_pad=1.0`` plus the trash
+   page; the peak memory of one ring chunk beside the accounting's
+   working set (recorded).
 
 The first line names the card, torch, CUDA and ``grpc.__version__``.
 Output: the ``nvidia-smi`` line, then one ``{"kernels": [...]}`` line,
@@ -657,6 +682,24 @@ WD_WINDOW = 4                   # 22c: SELDON_TPU_WATCHDOG_WINDOW (waves)
 WD_BREACHES = 2                 # 22c: SELDON_TPU_WATCHDOG_BREACHES
 WD_COLD_CEILING_MS = 200.0      # 22c: the cold engine's ceiling (below a first-use nvcc build, above a warm chunk)
 TELE_SERVED_REQUESTS = 4        # 22d: sequential requests through the gateway
+# phase 23, the non-paged generation lane (ROADMAP A8.12)
+GLM_COMPONENT = "seldon_core_tpu_torch.models.generate.GenerativeLM"
+GLM_ROWS = 16                   # 23a-c: one request of 16 equal-length prompts
+GLM_PROMPT = 128                # 23a-c: prompt tokens
+GLM_NEW = LM_MAX_NEW            # 23a-c: new tokens
+GLM_RATE_PAIRS = 3              # 23c: Generator / PagedEngine (pool chunk) turns: g e, e g, g e
+GLM_SAMPLE_TAGS = {"seed": 23, "temperature": 0.8, "top_k": 40}  # 23b: the repeated sampled request
+GLM_PROFILE_NEW = 17            # 23c: the profiled run's new tokens (16 steps past the first)
+# phase 24, the MLP and detection families (A9) and the pool's capacity accounting (A8.13)
+CUDA_COMPONENT = "seldon_core_tpu_torch.models.cudaserver.CudaServer"
+DET_MODEL = "detector_resnet50"
+DET_SIZE = 512                  # 24a: the registry's default input, 512 x 512 x 3
+DET_BATCH = 8                   # 24a: a batch of 8, then 8 concurrent singles
+DET_TOP_K = 50                  # 24a: rows a detector answers (the registry's default top_k)
+DET_SCORE_TOL = 2e-2            # 24a: |served - in-process| of each row's score, bf16 (a k-th largest moves by
+#                                 no more than the map does, so the sorted scores are continuous in the map)
+MLP_ROWS = 8                    # 24a: one float32 request of 8 rows
+MLP_TOL = 1e-6                  # 24a: served mlp rows vs in-process, float32, the same bucket
 
 
 class SmokeFailure(RuntimeError):
@@ -859,38 +902,46 @@ def kernel_checks(torch, np, kernels, mem_bytes_per_s, launch_only):
 
     timings = {}
     for batch in (32, 1):
-        x, s, b = inputs[(batch, *IMG)]
-        lib_out = torch.empty(x.shape, dtype=torch.bfloat16, device="cuda")
+        timings[batch] = k1_timing(torch, kernels, *inputs[(batch, *IMG)], mem_bytes_per_s, launch_only)
+    return max_err, timings
 
-        def library():
-            # one PyTorch call for the same function: shift + x * scale,
-            # u8 promoted to f32, cast to bf16 on store
-            torch.addcmul(b, x, s, out=lib_out)
 
-        library()
-        lib_err = (lib_out.float() - kernels.fused_normalize_reference(x, s, b, torch.bfloat16).float()
-                   ).abs().max().item()
-        ms = time_cuda(torch, lambda: kernels.fused_normalize(x, s, b, torch.bfloat16))
-        plain_ms = time_cuda(torch, lambda: kernels.fused_normalize_reference(x, s, b, torch.bfloat16))
-        library_ms = time_cuda(torch, library)
-        copy_ms = time_cuda(torch, lambda: lib_out.copy_(x))  # reads 1, writes 2 bytes an element
+def k1_timing(torch, kernels, x, s, b, mem_bytes_per_s, launch_only=None):
+    """K1 on uint8 ``x`` -> bf16: kernel, plain chain, ``torch.addcmul``
+    and cast-copy times (``time_cuda``) beside the bound; the launch floor
+    of K1's own grid when the ``launch only`` copy is given."""
+    lib_out = torch.empty(x.shape, dtype=torch.bfloat16, device="cuda")
+
+    def library():
+        # one PyTorch call for the same function: shift + x * scale,
+        # u8 promoted to f32, cast to bf16 on store
+        torch.addcmul(b, x, s, out=lib_out)
+
+    library()
+    lib_err = (lib_out.float() - kernels.fused_normalize_reference(x, s, b, torch.bfloat16).float()
+               ).abs().max().item()
+    ms = time_cuda(torch, lambda: kernels.fused_normalize(x, s, b, torch.bfloat16))
+    plain_ms = time_cuda(torch, lambda: kernels.fused_normalize_reference(x, s, b, torch.bfloat16))
+    library_ms = time_cuda(torch, library)
+    copy_ms = time_cuda(torch, lambda: lib_out.copy_(x))  # reads 1, writes 2 bytes an element
+    launch_floor_ms = None
+    if launch_only is not None:
         with launch_only:
             launch_floor_ms = time_cuda(torch, lambda: kernels.fused_normalize(x, s, b, torch.bfloat16))
-        n = x.numel()
-        bound_bytes = n * (1 + 2) + 2 * s.numel() * 4  # u8 in, bf16 out, scale+shift
-        # 2 f32 flops per element; 67 TFLOP/s f32 (non-tensor-core) peak
-        bound_ms = max(bound_bytes / mem_bytes_per_s, 2 * n / F32_PEAK_FLOPS) * 1e3
-        geo = kernels.fused_normalize_grid(x, torch.bfloat16)
-        timings[batch] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                          "launch_floor_ms": launch_floor_ms, "copy_ms": copy_ms, "bytes": bound_bytes,
-                          "grid": [geo.blocks, geo.threads]}
-        log(f"fused_normalize ({batch},224,224,3) u8->bf16: kernel {ms * 1e3:.2f} us on {geo.blocks} blocks of "
-            f"{geo.threads}, launch floor (same grid, kernels return at once) {launch_floor_ms * 1e3:.2f} us, "
-            f"out_bf16.copy_(x_u8) {copy_ms * 1e3:.2f} us, plain chain {plain_ms * 1e3:.2f} us, "
-            f"torch.addcmul(out=bf16) {library_ms * 1e3:.2f} us "
-            f"(max abs diff from the plain version {lib_err}), bound {bound_ms * 1e3:.2f} us "
-            f"({bound_bytes} bytes; {bound_ms / ms * 100:.1f}% of the memory roofline)")
-    return max_err, timings
+    n = x.numel()
+    bound_bytes = n * (1 + 2) + 2 * s.numel() * 4  # u8 in, bf16 out, scale+shift
+    # 2 f32 flops per element; 67 TFLOP/s f32 (non-tensor-core) peak
+    bound_ms = max(bound_bytes / mem_bytes_per_s, 2 * n / F32_PEAK_FLOPS) * 1e3
+    geo = kernels.fused_normalize_grid(x, torch.bfloat16)
+    floor = "" if launch_floor_ms is None else f"launch floor (same grid, kernels return at once) " \
+                                              f"{launch_floor_ms * 1e3:.2f} us, "
+    log(f"fused_normalize {tuple(x.shape)} u8->bf16: kernel {ms * 1e3:.2f} us on {geo.blocks} blocks of "
+        f"{geo.threads}, {floor}out_bf16.copy_(x_u8) {copy_ms * 1e3:.2f} us, plain chain {plain_ms * 1e3:.2f} us, "
+        f"torch.addcmul(out=bf16) {library_ms * 1e3:.2f} us (max abs diff from the plain version {lib_err}), bound "
+        f"{bound_ms * 1e3:.2f} us ({bound_bytes} bytes; {bound_ms / ms * 100:.1f}% of the memory roofline)")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "launch_floor_ms": launch_floor_ms, "copy_ms": copy_ms, "bytes": bound_bytes,
+            "grid": [geo.blocks, geo.threads]}
 
 
 # ---------------------------------------------------------------- phase 3b
@@ -2502,24 +2553,31 @@ def precision_path(torch, np, kernels, w8a8, same_pads, CudaServer, card):
             logfile.close()
 
 
-def launch_precision():
-    """Phase 12's two servers, one a lane; ``logfile`` is the first's."""
+def launch_servers(specs):
+    """Several CLI servers at once, ``specs``: name -> (component,
+    parameters).  ``servers``: name -> (process, base URL, log file, log
+    path); ``logfile`` closes every log, ``logpath`` is the first's."""
     servers, launched = {}, time.perf_counter()
-    for precision in PRECISIONS:
-        params = MODEL_PARAMS + [{"name": "precision", "value": precision, "type": "STRING"}]
+    for name, (component, params) in specs.items():
         port = free_port()
-        fd, logpath = tempfile.mkstemp(prefix=f"chip_smoke_{precision}_server_", suffix=".log")
+        fd, logpath = tempfile.mkstemp(prefix=f"chip_smoke_{name}_server_", suffix=".log")
         logfile = os.fdopen(fd, "w")
-        servers[precision] = (start_server(port, logfile, params=params), f"http://127.0.0.1:{port}", logfile,
-                              logpath)
+        servers[name] = (start_server(port, logfile, component=component, params=params),
+                         f"http://127.0.0.1:{port}", logfile, logpath)
 
     def ready():
         for proc, base, _, logpath in servers.values():
             wait_ready(proc, base, logpath)
 
-    first = servers[PRECISIONS[0]]
+    first = next(iter(servers.values()))
     return {"procs": [v[0] for v in servers.values()], "logfile": _Files([v[2] for v in servers.values()]),
             "logpath": first[3], "launched": launched, "servers": servers, "ready": ready}
+
+
+def launch_precision():
+    """Phase 12's two servers, one a lane."""
+    return launch_servers({precision: (CUDA_COMPONENT, MODEL_PARAMS + [
+        {"name": "precision", "value": precision, "type": "STRING"}]) for precision in PRECISIONS})
 
 
 class _Files:
@@ -6512,6 +6570,373 @@ def telemetry_paths(torch, np, kernels, PagedEngine, StreamingLM, evacuate_strea
 
 
 
+# ---------------------------------------------------------------- phase 23
+
+def device_param():
+    """The CLI parameter that moves a server to ``SCHED_DEVICE`` (none on the card)."""
+    return [] if SCHED_DEVICE == "cuda" else [{"name": "device", "value": SCHED_DEVICE, "type": "STRING"}]
+
+
+def glm_params(quantize: str = ""):
+    """A served ``GENERATIVE_LM`` at the generation config, on the weights
+    of ``load_lm_params("", LM_CONFIG, SEED)``."""
+    params = [{"name": k, "value": str(v), "type": "INT"} for k, v in LM_CONFIG.items()]
+    params += [{"name": "max_new_tokens", "value": str(GLM_NEW), "type": "INT"},
+               {"name": "seed", "value": str(SEED), "type": "INT"}]
+    if quantize:
+        params.append({"name": "quantize", "value": quantize, "type": "STRING"})
+    return params + device_param()
+
+
+def launch_a8_12():
+    return launch_servers({"glm_bf16": (GLM_COMPONENT, glm_params()), "glm_int8": (GLM_COMPONENT, glm_params("int8"))})
+
+
+def glm_request(np, base, prompts, tags=None):
+    """One generation request of every row of ``prompts``; its (rows,
+    GLM_NEW) ids."""
+    body = {"data": {"ndarray": np.asarray(prompts).tolist()}}
+    if tags:
+        body["meta"] = {"tags": tags}
+    resp = http(base + "/predict", body, timeout=300.0)
+    check("data" in resp and "ndarray" in resp["data"], f"response carries no ndarray: {str(resp)[:300]}")
+    ids = np.asarray(resp["data"]["ndarray"], np.int64)
+    check(ids.shape == (len(prompts), GLM_NEW), f"expected ({len(prompts)}, {GLM_NEW}) ids, got {ids.shape}")
+    check(bool(((ids >= 0) & (ids < LM_CONFIG["vocab_size"])).all()), "served ids outside the vocabulary")
+    return ids
+
+
+def generator_rate(torch, gen, prompts) -> float:
+    """Decode tokens/s of one Generator turn: a run of GLM_NEW new tokens
+    minus a run of one (prefill and the first token), as ``decode_rate``."""
+    def timed(n):
+        sched_sync(torch)
+        t0 = time.perf_counter()
+        gen.generate(prompts, max_new_tokens=n)  # the ids' readback synchronises
+        return time.perf_counter() - t0
+
+    t_full = timed(GLM_NEW)
+    t_one = timed(1)
+    return len(prompts) * (GLM_NEW - 1) / max(t_full - t_one, 1e-9)
+
+
+def generator_step_profile(torch, gen, prompts, card):
+    """One decode step of the Generator under the profiler: the runs of
+    GLM_PROFILE_NEW and of one new token, their difference over
+    GLM_PROFILE_NEW - 1 steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    runs = {}
+    for n in (1, GLM_PROFILE_NEW):
+        sched_sync(torch)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            gen.generate(prompts, max_new_tokens=n)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_name, busy_us = device_time_by_name(prof)
+        runs[n] = (wall_ms, busy_us / 1e3, sum(c for _, c in by_name.values()), by_name)
+    # the host ops that launched the device time, by their own device time
+    ops = sorted(((getattr(e, "self_device_time_total", 0.0), e.count, e.key) for e in prof.key_averages()
+                  if e.key.startswith("aten::")), reverse=True)[:6]
+    steps = GLM_PROFILE_NEW - 1
+    wall = (runs[GLM_PROFILE_NEW][0] - runs[1][0]) / steps
+    busy = (runs[GLM_PROFILE_NEW][1] - runs[1][1]) / steps
+    launches = (runs[GLM_PROFILE_NEW][2] - runs[1][2]) / steps
+    log(f"23c profile of a Generator decode step (bf16, {len(prompts)} rows, prompt {GLM_PROMPT}; the runs of "
+        f"{GLM_PROFILE_NEW} and 1 new tokens, differenced): wall {wall:.3f} ms under the profiler, device busy "
+        f"{busy:.3f} ms, idle share {1 - busy / max(wall, 1e-9):.3f}, {launches:.1f} device events a step [{card}]")
+    by_name = runs[GLM_PROFILE_NEW][3]
+    total = sum(us for us, _ in by_name.values())
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"  {us / 1e3:9.3f} ms  {n:6d}x  {us / max(total, 1e-9):6.3f}  {name[:90]}")
+    log("  by host op: " + ", ".join(f"{key} {us / 1e3:.3f} ms / {n}" for us, n, key in ops))
+    if SCHED_DEVICE == "cuda":
+        check(runs[GLM_PROFILE_NEW][2] > runs[1][2], "the profiler recorded no device event in the Generator's decode")
+    return {"step_wall_ms": wall, "step_device_busy_ms": busy, "step_idle_share": 1 - busy / max(wall, 1e-9),
+            "device_events_per_step": launches,
+            "host_ops_device_ms": {key: us / 1e3 for us, _, key in ops}}
+
+
+def generative_paths(torch, np, kernels, Generator, PagedEngine, load_lm_params, card):
+    """Phase 23: the non-paged generation lane at the generation config.
+    (a) f32, TF32 off: the Generator's greedy ids are the paged engine's;
+    (b) GENERATIVE_LM served in bf16 and int8 over REST against in-process
+    Generators of the same weights, a seeded sampled request repeated;
+    (c) decode tokens/s of the Generator and the pool-chunk PagedEngine in
+    turns, the bf16 cache's bytes and a profile of one decode step."""
+    t0 = time.perf_counter()
+    dev = torch.device(SCHED_DEVICE)
+    kernel_lane = SCHED_DEVICE == "cuda"
+    tally = K4Tally(torch, kernels)
+    rng = np.random.default_rng(SEED + 23)
+    prompts = rng.integers(0, LM_CONFIG["vocab_size"], (GLM_ROWS, GLM_PROMPT)).astype(np.int32)
+    out = {}
+
+    params32 = load_lm_params("", LM_CONFIG, SEED + 23, dev)
+    with no_tf32(torch):
+        got = Generator(params32, dtype="float32", device=dev, **LM_CONFIG).generate(prompts, max_new_tokens=GLM_NEW)
+        eng = sched_engine(torch, PagedEngine, params32, dtype="float32", **NO_PREFIX_CACHE)
+        want = np.stack(tally.run(eng, lambda: drive(eng, list(prompts), GLM_NEW), "23a f32 engine", kernel_lane))
+    rows = (got == want).all(axis=1)
+    log(f"23a f32, TF32 off, {GLM_ROWS} prompts of {GLM_PROMPT}, {GLM_NEW} new: Generator rows equal to the "
+        f"PagedEngine's (chunk {eng._chunk_impl}, kernel lane {eng._kernel_active}) {int(rows.sum())}/{len(rows)}")
+    check(bool(rows.all()), "23a: the f32 Generator's greedy ids differ from the paged engine's")
+    out["23a"] = {"rows_equal": int(rows.sum()), "engine_chunk": eng._chunk_impl, "k4_launches": tally.last[0]}
+    del eng, params32
+
+    params = load_lm_params("", LM_CONFIG, SEED, dev)
+    local = {"bf16": Generator(params, dtype="bfloat16", device=dev, **LM_CONFIG),
+             "int8": Generator(params, dtype="bfloat16", device=dev, quantize="int8", **LM_CONFIG)}
+    ctx = EARLY.take("a8_12", launch_a8_12)
+    servers, served = ctx["servers"], {}
+    try:
+        for proc, base, _, logpath in servers.values():
+            wait_ready(proc, base, logpath)
+        log(f"23b GENERATIVE_LM servers (bf16, int8) ready {ready_since(ctx):.1f}s after their launch{early_note(ctx)}")
+        for lane in ("bf16", "int8"):
+            base = servers[f"glm_{lane}"][1]
+            t1 = time.perf_counter()
+            served[lane] = glm_request(np, base, prompts)
+            request_ms = (time.perf_counter() - t1) * 1e3
+            mine = local[lane].generate(prompts, max_new_tokens=GLM_NEW)
+            share = float((served[lane] == mine).all(axis=1).mean())
+            log(f"23b served {lane} {GLM_ROWS}x{GLM_PROMPT} -> {GLM_ROWS}x{GLM_NEW} in {request_ms:.1f} ms: rows equal "
+                f"to the in-process Generator {share:.3f} (limit {GEN_MIN_IDENTICAL_SHARE})")
+            check(share >= GEN_MIN_IDENTICAL_SHARE, f"23b: served {lane} rows disagree with the in-process Generator")
+            out[f"23b_{lane}"] = {"rows_equal_share": share, "request_ms": request_ms}
+        base = servers["glm_bf16"][1]
+        sampled = [glm_request(np, base, prompts[:4], GLM_SAMPLE_TAGS) for _ in range(2)]
+        check(bool((sampled[0] == sampled[1]).all()), "23b: a repeated seeded sampled request gave other ids")
+        out["23b_sampled"] = {"repeat_equal": True,
+                              "tokens_equal_greedy": float((sampled[0] == served["bf16"][:4]).mean())}
+        out["23b_int8_vs_bf16_tokens"] = float((served["int8"] == served["bf16"]).mean())
+        log(f"23b a seeded sampled request ({GLM_SAMPLE_TAGS}) repeated: equal; its tokens equal greedy's "
+            f"{out['23b_sampled']['tokens_equal_greedy']:.3f}; int8 tokens equal bf16's "
+            f"{out['23b_int8_vs_bf16_tokens']:.3f} (recorded)")
+    finally:
+        for proc in ctx["procs"]:
+            stop_server(proc)
+        ctx["logfile"].close()
+
+    gen = local["bf16"]
+    del local
+    with knob_env(SELDON_TPU_CHUNK_IMPL="pool"):
+        eng = sched_engine(torch, PagedEngine, params, dtype="bfloat16", **NO_PREFIX_CACHE)
+    gen.generate(prompts, max_new_tokens=2)
+    drive(eng, list(prompts), 2)
+    rates = {"generator": [], "engine": []}
+    for i in range(GLM_RATE_PAIRS):
+        for lane in (("generator", "engine") if i % 2 == 0 else ("engine", "generator")):
+            rates[lane].append(generator_rate(torch, gen, prompts) if lane == "generator" else
+                               decode_rate(torch, eng, list(prompts), tally, "23c bf16 pool engine", kernel_lane))
+    ratio = statistics.median(rates["generator"]) / statistics.median(rates["engine"])
+    cache = gen.module.init_cache(GLM_ROWS)
+    out["23c"] = {"generator_tok_s": rates["generator"], "engine_tok_s": rates["engine"],
+                  "generator_over_engine": ratio, "cache_bytes_bf16": cache.nbytes,
+                  "engine_pool_bytes_bf16": sum(t.numel() * t.element_size() for t in (eng.pages_k, eng.pages_v))}
+    del cache, eng
+    log(f"23c decode tokens/s, bf16, {GLM_ROWS} rows, prompt {GLM_PROMPT}, {GLM_NEW} new, in turns: Generator "
+        + ", ".join(f"{r:.1f}" for r in rates["generator"]) + "; PagedEngine (pool chunk) "
+        + ", ".join(f"{r:.1f}" for r in rates["engine"]) + f"; median ratio {ratio:.3f} (recorded); the Generator's "
+        f"bf16 cache {out['23c']['cache_bytes_bf16']} bytes ({GLM_ROWS} x {LM_CONFIG['max_len']} slots), the "
+        f"engine's pool {out['23c']['engine_pool_bytes_bf16']} bytes [{card}]")
+    out["23c"]["profile"] = generator_step_profile(torch, gen, prompts, card)
+    del gen, params
+    out["k4_launches"], out["decode_calls"] = tally.launches, tally.steps
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 23: K4 launched {tally.launches} = {LM_CONFIG['num_layers']} x {tally.steps} decode calls over "
+        f"the phase's engines, {out['seconds']:.1f} s [{card}]")
+    if SCHED_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- phase 24
+
+def det_params():
+    return [{"name": "model", "value": DET_MODEL, "type": "STRING"},
+            {"name": "normalize", "value": "true", "type": "BOOL"},
+            {"name": "dtype", "value": "bfloat16", "type": "STRING"},
+            {"name": "max_batch_size", "value": str(DET_BATCH), "type": "INT"}] + device_param()
+
+
+def mlp_params():
+    return [{"name": "model", "value": "mlp", "type": "STRING"},
+            {"name": "dtype", "value": "float32", "type": "STRING"},
+            {"name": "max_batch_size", "value": str(MLP_ROWS), "type": "INT"}] + device_param()
+
+
+def launch_a9():
+    return launch_servers({"detector": (CUDA_COMPONENT, det_params()), "mlp": (CUDA_COMPONENT, mlp_params())})
+
+
+def decode_boxes(np, resp, rows: int):
+    check("data" in resp and "rawTensor" in resp["data"], f"response carries no rawTensor: {str(resp)[:300]}")
+    r = resp["data"]["rawTensor"]
+    arr = np.frombuffer(base64.b64decode(r["data"]), dtype=np.dtype(r["dtype"])).reshape(r["shape"])
+    check(arr.shape == (rows, DET_TOP_K, 6), f"expected ({rows}, {DET_TOP_K}, 6) boxes, got {arr.shape}")
+    check(bool(np.isfinite(arr).all()), "non-finite boxes in a served answer")
+    check(bool(((arr[..., 5] >= 0) & (arr[..., 5] < NUM_CLASSES)).all()), "a served class outside the classes")
+    return arr
+
+
+def box_rows_equal(np, a, b) -> float:
+    """Share of rows with the same class and box within a pixel."""
+    return float(((a[..., 5] == b[..., 5]) & (np.abs(a[..., :4] - b[..., :4]).max(axis=-1) <= 1.0)).mean())
+
+
+def capacity_checks(torch, np, PagedEngine, paged_hbm_accounting, params, card):
+    """A8.13 on the card: the bf16 and int8 pools' real bytes against the
+    accounting at pad 1.0 plus the trash page; the peak memory of one ring
+    chunk against the working set (recorded)."""
+    cfg = dict(d_model=LM_CONFIG["d_model"], num_layers=LM_CONFIG["num_layers"], page_size=LM_ENGINE["page_size"],
+               steps_per_call=LM_ENGINE["steps_per_call"], dtype_bytes=2, flat_pool=False, split_tile_pad=1.0)
+    slots = LM_ENGINE["max_slots"]
+    out = {}
+    for kv in ("bf16", "int8"):
+        with knob_env(SELDON_TPU_CHUNK_IMPL="pool", SELDON_TPU_KV_DTYPE=kv):
+            eng = sched_engine(torch, PagedEngine, params, dtype="bfloat16", **NO_PREFIX_CACHE)
+        pools = [eng.pages_k, eng.pages_v] + ([eng.scales_k, eng.scales_v] if kv == "int8" else [])
+        real = sum(t.numel() * t.element_size() for t in pools)
+        acct = paged_hbm_accounting(streams=slots, ctx_len=LM_CONFIG["max_len"], chunk_impl="pool", kv_dtype=kv,
+                                    **cfg)["pool_bytes"]
+        page = paged_hbm_accounting(streams=1, ctx_len=LM_ENGINE["page_size"], chunk_impl="pool", kv_dtype=kv,
+                                    **cfg)["pool_bytes"]
+        logical = paged_hbm_accounting(streams=slots, ctx_len=LM_CONFIG["max_len"], chunk_impl="pool", kv_dtype=kv,
+                                       **{**cfg, "flat_pool": True})["pool_bytes"]
+        allocated = None
+        if SCHED_DEVICE == "cuda":  # what the caching allocator hands out for a tensor of the pool's shape
+            sched_sync(torch)
+            before = torch.cuda.memory_allocated()
+            probe = torch.empty_like(eng.pages_k)
+            allocated = (torch.cuda.memory_allocated() - before) / (probe.numel() * probe.element_size())
+            del probe
+        pad = (real - page) / logical
+        log(f"24b {kv} pool ({eng.num_pages} pages of {LM_ENGINE['page_size']}, {slots} slots x {LM_CONFIG['max_len']}): "
+            f"real {real} bytes, accounting at pad 1.0 {acct} + trash page {page} = {acct + page}; the split pool's "
+            f"pad as read {pad:.6f}, allocator bytes / tensor bytes of one pool {allocated} [{card}]")
+        check(real == acct + page, f"24b: the {kv} pool's real bytes {real} != the accounting's {acct} + {page}")
+        out[kv] = {"real_bytes": real, "accounting_bytes": acct, "trash_page_bytes": page, "split_pad": pad,
+                   "allocator_over_tensor": allocated}
+        eng.close()
+        del eng, pools
+    with knob_env(SELDON_TPU_CHUNK_IMPL="ring"):
+        eng = sched_engine(torch, PagedEngine, params, dtype="bfloat16", **NO_PREFIX_CACHE)
+    rng = np.random.default_rng(SEED + 241)
+    for p in rng.integers(0, LM_CONFIG["vocab_size"], (slots, GLM_PROMPT)):
+        eng.submit(p, max_new_tokens=GLM_NEW)
+    eng.step()  # admission, prefill and the first chunk
+    peak = None
+    if SCHED_DEVICE == "cuda":
+        sched_sync(torch)
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    eng.step()  # one ring chunk
+    if SCHED_DEVICE == "cuda":
+        sched_sync(torch)
+        peak = torch.cuda.max_memory_allocated() - before
+    chunk = eng._chunk_impl
+    eng.run()
+    eng.close()
+    ctx_len = GLM_PROMPT + 2 * LM_ENGINE["steps_per_call"]
+    ws = paged_hbm_accounting(streams=slots, ctx_len=ctx_len, chunk_impl="ring", **cfg)["working_set_bytes"]
+    log(f"24b peak memory over one {chunk} chunk ({slots} lanes at {ctx_len} tokens): {peak} bytes above the "
+        f"allocated; accounting working set at pad 1.0 {ws} bytes (recorded, not checked) [{card}]")
+    check(chunk == "ring", f"24b: the ring engine ran chunk {chunk}")
+    out["ring_chunk"] = {"peak_delta_bytes": peak, "working_set_bytes": ws, "ctx_len": ctx_len}
+    return out
+
+
+def detection_paths(torch, np, kernels, CudaServer, PagedEngine, load_lm_params, paged_hbm_accounting,
+                    mem_bytes_per_s, card):
+    """Phase 24: (a) detector_resnet50 at 512x512 served in bf16 from
+    uint8 with normalize, a batch and concurrent singles against an
+    in-process server of the same weights, K1 once a served batch and K1
+    timed at the detector's shapes; mlp served in float32 against
+    in-process; (b) the pool's real bytes against the capacity
+    accounting."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 24)
+    shape = (DET_SIZE, DET_SIZE, 3)
+    eight, singles = distinct_images(np, rng, DET_BATCH, shape), distinct_images(np, rng, DET_BATCH, shape)
+    x_mlp = rng.normal(size=(MLP_ROWS, 4)).astype(np.float32)
+    out = {}
+    ctx = EARLY.take("a9", launch_a9)
+    servers = ctx["servers"]
+    try:
+        for proc, base, _, logpath in servers.values():
+            wait_ready(proc, base, logpath)
+        det_base, mlp_base = servers["detector"][1], servers["mlp"][1]
+        status = http(det_base + "/health/status")["jsonData"]
+        log(f"24a detector and mlp servers ready {ready_since(ctx):.1f}s after their launch{early_note(ctx)} "
+            f"({DET_MODEL} signatures {status['signatures']}, buckets {status['buckets']})")
+        check(status["device"].startswith(SCHED_DEVICE), f"the detector server is not on {SCHED_DEVICE}")
+        k1_0, m0 = status["kernel_launches"].get("fused_normalize", 0), metrics_values(http(det_base + "/metrics"))
+        t1 = time.perf_counter()
+        served_eight = decode_boxes(np, http(det_base + "/predict", raw_request(np, eight)), DET_BATCH)
+        batch_ms = (time.perf_counter() - t1) * 1e3
+        answers = concurrent(lambda i: http(det_base + "/predict", raw_request(np, singles[i:i + 1])), DET_BATCH)
+        served_singles = np.concatenate([decode_boxes(np, a, 1) for a in answers])
+        k1_1 = http(det_base + "/health/status")["jsonData"]["kernel_launches"].get("fused_normalize", 0)
+        m1 = metrics_values(http(det_base + "/metrics"))
+        resp = http(mlp_base + "/predict", {"data": {"ndarray": x_mlp.tolist()}})
+        served_mlp = np.asarray(resp["data"]["ndarray"], np.float32)
+    finally:
+        for proc in ctx["procs"]:
+            stop_server(proc)
+        ctx["logfile"].close()
+    k1, batches = k1_1 - k1_0, m1["cudaserver_batches_total"] - m0["cudaserver_batches_total"]
+    log(f"24a served detector: {int(batches)} batches (a batch of {DET_BATCH} in {batch_ms:.1f} ms, then "
+        f"{DET_BATCH} concurrent singles), K1 launches {int(k1)}")
+    check(k1_equals_batches(k1, batches), f"24a: K1 launched {k1} times for {batches} served batches")
+
+    local = CudaServer(model=DET_MODEL, normalize=True, dtype="bfloat16", max_batch_size=DET_BATCH, warmup=False,
+                       device=SCHED_DEVICE)
+    local.load()
+    ref = np.concatenate([np.asarray(local.predict(eight, []))]
+                         + [np.asarray(local.predict(singles[i:i + 1], [])) for i in range(DET_BATCH)])
+    local.unload()
+    del local
+    got = np.concatenate([served_eight, served_singles])
+    score_err = float(np.abs(got[..., 4] - ref[..., 4]).max())
+    rows_equal = box_rows_equal(np, got, ref)
+    log(f"24a served boxes vs in-process ({2 * DET_BATCH} images x {DET_TOP_K} rows): largest score difference "
+        f"{score_err:.3e} (limit {DET_SCORE_TOL}), rows with the same class and box within a pixel {rows_equal:.3f} "
+        f"(recorded); top score range {float(got[:, 0, 4].min()):.4f}-{float(got[:, 0, 4].max()):.4f}")
+    check(score_err <= DET_SCORE_TOL, f"24a: served scores differ from the in-process server's by {score_err}")
+    out["24a"] = {"batches": batches, "k1_launches": k1, "batch_ms": batch_ms, "score_max_abs_err": score_err,
+                  "rows_equal_share": rows_equal}
+
+    mlp = CudaServer(model="mlp", dtype="float32", max_batch_size=MLP_ROWS, warmup=False, device=SCHED_DEVICE)
+    mlp.load()
+    with no_tf32(torch):
+        mlp_ref = np.asarray(mlp.predict(x_mlp, []))
+    mlp.unload()
+    mlp_err = float(np.abs(served_mlp - mlp_ref).max())
+    log(f"24a served mlp (float32, {MLP_ROWS} rows x {mlp_ref.shape[-1]} classes) vs in-process: largest difference "
+        f"{mlp_err:.3e} (limit {MLP_TOL})")
+    check(served_mlp.shape == mlp_ref.shape and mlp_err <= MLP_TOL, "24a: served mlp rows differ from in-process")
+    out["24a"]["mlp_max_abs_err"] = mlp_err
+
+    if SCHED_DEVICE == "cuda":
+        scale, shift = (torch.from_numpy(a).cuda() for a in kernels.imagenet_affine())
+        out["k1_512"] = {}
+        for batch in (DET_BATCH, 1):
+            x = torch.from_numpy(distinct_images(np, rng, batch, shape)).cuda()
+            same = torch.equal(kernels.fused_normalize(x, scale, shift, torch.bfloat16).view(torch.int16),
+                               kernels.fused_normalize_reference(x, scale, shift, torch.bfloat16).view(torch.int16))
+            check(same, f"24a: K1 at {tuple(x.shape)} differs from its plain version")
+            out["k1_512"][batch] = k1_timing(torch, kernels, x, scale, shift, mem_bytes_per_s)
+
+    params = load_lm_params("", LM_CONFIG, SEED, torch.device(SCHED_DEVICE))
+    out["24b"] = capacity_checks(torch, np, PagedEngine, paged_hbm_accounting, params, card)
+    del params
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 24: {out['seconds']:.1f} s [{card}]")
+    if SCHED_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
 def run() -> int:
     try:
         import torch
@@ -6535,8 +6960,8 @@ def run() -> int:
         from seldon_core_tpu_torch.models import resnet, transformer, vit
         from seldon_core_tpu_torch.models.cudaserver import CudaServer
         from seldon_core_tpu_torch.models.disagg import evacuate_streams
-        from seldon_core_tpu_torch.models.generate import load_lm_params
-        from seldon_core_tpu_torch.models.paged import PagedEngine, StreamingLM
+        from seldon_core_tpu_torch.models.generate import Generator, load_lm_params
+        from seldon_core_tpu_torch.models.paged import PagedEngine, StreamingLM, paged_hbm_accounting
         from seldon_core_tpu_torch.models.registry import WeightRegistry
         from seldon_core_tpu_torch.models.resnet import same_pads
         from seldon_core_tpu_torch.models.speculative import SpeculativeGenerator
@@ -6558,7 +6983,8 @@ def run() -> int:
                              ("precision", launch_precision),
                              ("gateway", launch_gateway), ("native", launch_native), ("a4", launch_a4),
                              ("a2_2", launch_a2_2), ("w8a8_lm", launch_w8a8_lm),
-                             ("a5", lambda: launch_a5(torch, np, resnet, load_lm_params, make_lora_params))):
+                             ("a5", lambda: launch_a5(torch, np, resnet, load_lm_params, make_lora_params)),
+                             ("a8_12", launch_a8_12), ("a9", launch_a9)):
             EARLY.launch(name, launch)
         t0 = time.perf_counter()
         sources = ("fused_normalize", "paged_decode", "flash_attention", "int8_matmul")
@@ -6637,6 +7063,11 @@ def run() -> int:
         tele_numbers = telemetry_paths(torch, np, kernels, PagedEngine, StreamingLM, evacuate_streams, load_lm_params,
                                        card)
         clock.mark("phase 22")
+        glm_numbers = generative_paths(torch, np, kernels, Generator, PagedEngine, load_lm_params, card)
+        clock.mark("phase 23")
+        det_numbers = detection_paths(torch, np, kernels, CudaServer, PagedEngine, load_lm_params,
+                                      paged_hbm_accounting, mem_bytes_per_s, card)
+        clock.mark("phase 24")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -6673,6 +7104,8 @@ def run() -> int:
         "speculative": spec_numbers,
         "evacuation": evac_numbers,
         "telemetry": tele_numbers,
+        "generative": glm_numbers,
+        "detection": det_numbers,
         "phase_seconds": clock.seconds,
         "seconds": time.perf_counter() - t_start,
     }
@@ -6698,6 +7131,12 @@ def run() -> int:
             "a4_gateway": a4_numbers["15a"]["launches"]["a4"], "plain_gateway": a4_numbers["15a"]["launches"]["plain"],
             "two_process": {"k1": a4_numbers["15b"]["k1_launches"], "batches": a4_numbers["15b"]["batches"]},
             "path": "ResNet-50 SeldonDeployment with TLS, OAuth, deadlines and tracing (phase 15)"},
+        "launches_on_phase24": {"launches": det_numbers["24a"]["k1_launches"],
+                                "batches": det_numbers["24a"]["batches"],
+                                "path": f"served {DET_MODEL} at {DET_SIZE}x{DET_SIZE}, uint8 rawTensor with normalize "
+                                        "(phase 24a)"},
+        "shape_512": {f"{b}x{DET_SIZE}x{DET_SIZE}x3": {k: det_numbers["k1_512"][b][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "copy_ms", "grid")} for b in (DET_BATCH, 1)},
         "launch_floor_ms": t32["launch_floor_ms"], "copy_ms": t32["copy_ms"],
         "design": K1_DESIGN, "grid": t32["grid"],
         "shape": [32, *IMG], "out_dtype": "bfloat16",

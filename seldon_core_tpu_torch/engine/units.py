@@ -100,6 +100,7 @@ BUILTIN_IMPLEMENTATIONS: Dict[str, Callable[..., Any]] = {
 PREPACKAGED: Dict[str, str] = {
     "CUDA_SERVER": "seldon_core_tpu_torch.models.cudaserver:CudaServer",
     "STREAMING_LM": "seldon_core_tpu_torch.models.paged:StreamingLM",
+    "GENERATIVE_LM": "seldon_core_tpu_torch.models.generate:GenerativeLM",
     "SPECULATIVE_LM": "seldon_core_tpu_torch.models.speculative:SpeculativeLM",
     "EPSILON_GREEDY": "seldon_core_tpu_torch.components.routers:EpsilonGreedy",
     "THOMPSON_SAMPLING": "seldon_core_tpu_torch.components.routers:ThompsonSampling",

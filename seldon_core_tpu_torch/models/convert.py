@@ -1,7 +1,8 @@
 """Flax variables -> the port's ``state_dict``: ResNet
 (``resnet_params_from_flax``), TransformerLM (``lm_params_from_flax``),
-TransformerEncoder (``encoder_params_from_flax``) and VisionTransformer
-(``vit_params_from_flax``).
+TransformerEncoder (``encoder_params_from_flax``), VisionTransformer
+(``vit_params_from_flax``), MLPClassifier (``mlp_params_from_flax``) and
+the served detector (``detector_params_from_flax``).
 
 The inverse of the JAX package's torch->flax converter.  For ResNet it
 takes the ``{"params": ..., "batch_stats": ...}`` tree that
@@ -250,6 +251,55 @@ def vit_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     tree.norm(("LayerNorm_0",), "ln_f")
     tree.dense(("head",), "head")
     return tree.state_dict()
+
+
+_MLP_DENSE = re.compile(r"^dense_(\d+)$")
+
+
+def mlp_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``MLPClassifier`` params (bare, or ``{"params": tree}``) -> the
+    port's ``MLPClassifier`` ``state_dict``: ``dense_{i}`` and ``head``
+    keep their names, kernels (in, out) become weights (out, in).  Every
+    leaf must be consumed."""
+    tree = _FlaxParams(params)
+    dense = sorted(int(m.group(1)) for m in map(_MLP_DENSE.match, tree.params) if m)
+    if dense != list(range(len(dense))):
+        raise ValueError(f"flax dense names are not numbered 0..N-1: {dense}")
+    for i in dense:
+        tree.dense((f"dense_{i}",), f"dense_{i}")
+    tree.dense(("head",), "head")
+    return tree.state_dict()
+
+
+_DET_HEAD_CONVS = ("neck_conv", "refine_conv", "heatmap", "size", "offset")
+
+
+def detector_params_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The variables of the JAX package's served detector
+    (``make_detector``: ``params/detector/{backbone,det_head}`` and
+    ``batch_stats/detector/backbone``) -> the port's ``ServedDetector``
+    ``state_dict``.  The backbone converts as a ResNet classifier does
+    (:func:`resnet_params_from_flax`), so a classifier's tree seeds it
+    unchanged; the head's convs keep their names (kernel HWIO -> OIHW,
+    bias).  Every leaf must be consumed."""
+    extra_top = sorted(set(variables) - {"params", "batch_stats"})
+    if extra_top:
+        raise ValueError(f"extra flax collections {extra_top} (expected params and batch_stats)")
+    params, stats = dict(variables.get("params", {})), dict(variables.get("batch_stats", {}))
+    if set(params) != {"detector"} or set(stats) - {"detector"}:
+        raise ValueError(f"expected one 'detector' module, got params {sorted(params)} and batch_stats "
+                         f"{sorted(stats)}")
+    det, det_stats = dict(params["detector"]), dict(stats.get("detector", {}))
+    if set(det) != {"backbone", "det_head"} or set(det_stats) - {"backbone"}:
+        raise ValueError(f"expected detector/backbone and detector/det_head, got {sorted(det)} and batch_stats "
+                         f"{sorted(det_stats)}")
+    out = {f"detector.backbone.{k}": v for k, v in resnet_params_from_flax(
+        {"params": det["backbone"], "batch_stats": det_stats.get("backbone", {})}).items()}
+    head = _FlaxParams({"det_head": det["det_head"]})
+    for name in _DET_HEAD_CONVS:
+        head.conv(("det_head", name), f"detector.det_head.{name}")
+    out.update(head.state_dict())
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,13 @@
 The counterpart of ``seldon_core_tpu/models/jaxserver.py`` (``JaxServer``)
 for one NVIDIA GPU:
 
-* the model comes from the port's registry: the ResNets
-  (resnet18/34/50/101/152, resnet_tiny), the ViTs (vit_tiny, vit_base16,
-  vit_large16), ``transformer_encoder`` and ``transformer_lm``; its
+* the model comes from the port's registry (``mlp`` by default, as in
+  ``JaxServer``): ``mlp``, the ResNets (resnet18/34/50/101/152,
+  resnet_tiny), the ViTs (vit_tiny, vit_base16, vit_large16),
+  ``transformer_encoder``, ``transformer_lm`` and the detectors
+  (``detector_tiny``, ``detector_resnet18``, ``detector_resnet50``: a
+  (batch, top_k, 6) box answer; ``model_kwargs`` ``backbone``, ``top_k``,
+  ``score_threshold``, ``input_size``, ``head_dim``, ``num_filters``); its
   weights are held in device memory once;
 * ``model_kwargs`` go to the model, and for the transformer families
   ``{"attention": "flash"}`` selects the hand-written CUDA flash-attention
@@ -57,8 +61,7 @@ The server runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"`` (the tests do); asking for CUDA on a host without it is
 an error, never a quiet fall back to the CPU.
 
-Not ported yet: ``mesh`` (a ``BAD_PARAMETER`` error when set) and the
-detection family (``detector_*``).
+Not ported yet: ``mesh`` (a ``BAD_PARAMETER`` error when set).
 """
 
 from __future__ import annotations
@@ -98,14 +101,15 @@ def _compute_dtype(name: str) -> torch.dtype:
 
 class _Entry(NamedTuple):
     factory: Callable[..., torch.nn.Module]  # (num_classes, dtype, input_shape, **model_kwargs) -> module
-    input_shape: Optional[Tuple[int, ...]]   # the default served shape; None: the caller must give one
-    family: str                              # "resnet", "vit", "encoder" or "lm": weights and memory format
+    # the default served shape, or a function of model_kwargs giving it;
+    # None: the caller must give one
+    input_shape: Any
+    family: str  # "resnet", "vit", "encoder", "lm", "mlp" or "detector": weights and memory format
 
 
 def _model_registry() -> Dict[str, _Entry]:
-    """name -> registry entry (the JAX package's registry, less ``mlp``
-    and the detection family)."""
-    from seldon_core_tpu_torch.models import resnet, transformer, vit
+    """name -> registry entry (the JAX package's registry)."""
+    from seldon_core_tpu_torch.models import detection, mlp, resnet, transformer, vit
 
     def image(cls):
         def make(num_classes, dtype, input_shape, **kw):
@@ -126,8 +130,24 @@ def _model_registry() -> Dict[str, _Entry]:
     def lm(num_classes, dtype, input_shape, **kw):
         return transformer.TransformerLM(dtype=dtype, **_resolve_attention(kw))
 
+    def tabular(num_classes, dtype, input_shape, **kw):
+        return mlp.MLPClassifier(num_classes=num_classes, dtype=dtype, in_features=input_shape[-1], **kw)
+
+    def detector(backbone: str, default_size: int) -> _Entry:
+        def make(num_classes, dtype, input_shape, **kw):
+            kw.setdefault("backbone", backbone)
+            kw.setdefault("input_size", default_size)
+            return detection.make_detector(num_classes, dtype, **kw)[0]
+
+        def shape(kw):
+            size = kw.get("input_size", default_size)
+            return (size, size, 3)
+
+        return _Entry(make, shape, "detector")
+
     img = resnet.IMAGENET_INPUT_SHAPE
     return {
+        "mlp": _Entry(tabular, (4,), "mlp"),
         "resnet18": _Entry(image(resnet.ResNet18), img, "resnet"),
         "resnet34": _Entry(image(resnet.ResNet34), img, "resnet"),
         "resnet50": _Entry(image(resnet.ResNet50), img, "resnet"),
@@ -140,6 +160,10 @@ def _model_registry() -> Dict[str, _Entry]:
         # token-id sequences: input_shape is the served context length
         "transformer_encoder": _Entry(encoder, None, "encoder"),
         "transformer_lm": _Entry(lm, None, "lm"),
+        # boxes (batch, top_k, 6): [x1, y1, x2, y2, score, class]
+        "detector_tiny": detector("resnet_tiny", 64),
+        "detector_resnet18": detector("resnet18", 512),
+        "detector_resnet50": detector("resnet50", 512),
     }
 
 
@@ -166,6 +190,8 @@ def _load_flax_variables(module: torch.nn.Module, family: str, variables: Mappin
         "vit": convert.vit_params_from_flax,
         "encoder": convert.encoder_params_from_flax,
         "lm": convert.lm_params_from_flax,
+        "mlp": convert.mlp_params_from_flax,
+        "detector": convert.detector_params_from_flax,
     }[family]
     module.load_state_dict(to_state_dict(variables))
     if family == "resnet":
@@ -214,7 +240,7 @@ class CudaServer(TPUComponent):
 
     def __init__(
         self,
-        model: str = "resnet50",
+        model: str = "mlp",
         num_classes: int = 1000,
         dtype: str = "bfloat16",
         max_batch_size: int = 64,
@@ -329,13 +355,14 @@ class CudaServer(TPUComponent):
                 )
             model_kwargs["precision"] = "w8a8"
         if self.input_shape is None:
-            if entry.input_shape is None:
+            default_shape = entry.input_shape(model_kwargs) if callable(entry.input_shape) else entry.input_shape
+            if default_shape is None:
                 raise MicroserviceError(
                     f"model {self.model_name!r} needs an explicit input_shape",
                     status_code=400,
                     reason="MISSING_INPUT_SHAPE",
                 )
-            self.input_shape = tuple(entry.input_shape)
+            self.input_shape = tuple(default_shape)
         try:
             module = entry.factory(self.num_classes, self.compute_dtype, self.input_shape, **model_kwargs)
         except TypeError as e:
@@ -357,7 +384,7 @@ class CudaServer(TPUComponent):
             module.reset_parameters(torch.Generator().manual_seed(self.seed))
         t1 = time.perf_counter()
         module = module.to(self.device).eval()
-        if self.device.type == "cuda" and entry.family == "resnet":
+        if self.device.type == "cuda" and entry.family in ("resnet", "detector"):
             module = module.to(memory_format=torch.channels_last)
         if self.model_uri:
             if self.device.type == "cuda":

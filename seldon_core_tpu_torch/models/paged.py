@@ -121,15 +121,12 @@ Decisions of this slice:
 from __future__ import annotations
 
 import contextlib
-import functools
 import json
 import logging
-import math
 import os
 import queue
 import threading
 import time
-import zlib
 from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import Any, Deque, Dict, List, Optional, Tuple
@@ -138,8 +135,9 @@ import numpy as np
 import torch
 
 from seldon_core_tpu_torch.models.cudaserver import resolve_device
-from seldon_core_tpu_torch.models.generate import _buckets_for, load_lm_params
+from seldon_core_tpu_torch.models.generate import RequestSeeds, _buckets_for, load_lm_params
 from seldon_core_tpu_torch.models.transformer import TransformerBlock, TransformerLM
+from seldon_core_tpu_torch.models.transformer import head_scale as _head_scale
 from seldon_core_tpu_torch.ops import kernels
 from seldon_core_tpu_torch.ops.lora import LORA_TARGETS, LoraPool, make_lora_params, target_dims
 from seldon_core_tpu_torch.ops.surgery import (QuantizedKernel, quantize_mode_for, quantize_params,
@@ -277,11 +275,17 @@ def _refuse(option: str) -> MicroserviceError:
     )
 
 
+def check_mesh_options(*, tp=None, dp=None, mesh=None) -> None:
+    """Raise for a serving mesh (``tp`` or ``dp`` above 1, or a mesh): the
+    port does not run one yet."""
+    if int(tp or 0) > 1 or int(dp or 0) > 1 or bool(mesh):
+        raise _refuse("tp/dp/mesh")
+
+
 def check_ported_options(*, tp=None, dp=None, mesh=None) -> None:
     """Raise for every option of the JAX engine the port does not run
     yet (meshes) and for an unknown ``SELDON_TPU_KV_DTYPE``."""
-    if int(tp or 0) > 1 or int(dp or 0) > 1 or bool(mesh):
-        raise _refuse("tp/dp/mesh")
+    check_mesh_options(tp=tp, dp=dp, mesh=mesh)
     paged_kv_dtype_mode()
 
 
@@ -381,16 +385,6 @@ class _CachedPrefix:
 # ---------------------------------------------------------------------------
 # device half: the paged model and the pool write
 # ---------------------------------------------------------------------------
-
-@functools.lru_cache(maxsize=None)
-def _head_scale(head_dim: int, dtype: torch.dtype) -> float:
-    """``1 / sqrt(head_dim)`` the way the JAX block forms it: the root in
-    float32, cast to the model dtype, inverted in the model dtype.  The
-    value is exact in the model dtype, so multiplying by it as a Python
-    float rounds as multiplying by the dtype's scalar does, and no
-    host-to-device copy (a stream synchronisation) happens per layer."""
-    return float(1.0 / torch.tensor(math.sqrt(head_dim), dtype=torch.float32).to(dtype))
-
 
 def _bucket_slices(tables):
     """``(table, lane slice)`` of each length bucket: ``tables`` is one
@@ -738,6 +732,152 @@ def _write_kv_int8(pk, sk, pv, sv, new_k, new_v, block_tables, start, valid, *, 
             q, s = _quantize_pages(pagef)
             pool[:, p] = q
             scales[:, p] = s
+
+
+# ---------------------------------------------------------------------------
+# capacity accounting (pure arithmetic)
+# ---------------------------------------------------------------------------
+
+def paged_hbm_accounting(
+    *,
+    streams: int,
+    ctx_len: int,
+    d_model: int,
+    num_layers: int,
+    page_size: int = 64,
+    steps_per_call: int = 8,
+    dtype_bytes: int = 2,
+    flat_pool: bool = True,
+    chunk_impl: str = "ring",
+    donated: bool = True,
+    split_tile_pad: float = 2.0,
+    cached_prefix_pages: int = 0,
+    tp_degree: int = 1,
+    dp_degree: int = 1,
+    num_pool_pages: Optional[int] = None,
+    num_heads: Optional[int] = None,
+    inflight_prefill_tokens: int = 0,
+    adapter_bytes: int = 0,
+    reclaimable_weight_bytes: int = 0,
+    kv_dtype: str = "bf16",
+    host_tier_gib: float = 0.0,
+) -> Dict[str, int]:
+    """Pool bytes on one device for ``streams`` concurrent streams at
+    ``ctx_len`` tokens: the JAX package's capacity model, same arguments,
+    defaults and returned dict (equal answers for equal arguments).
+
+    * **pool (at rest)**: pages x page_size x d_model x 2 (K+V) x layers
+      x the element's bytes.  The flat layout stores logical bytes; the
+      split (heads, head_dim) layout pads by ``split_tile_pad``.  The
+      default 2.0 is the JAX package's reading under the TPU's (8, 128)
+      tile.  The port's pool is always split and unpadded, so its real
+      bytes are this term at ``flat_pool=False, split_tile_pad=1.0`` plus
+      the trash page 0 (``chip_smoke.py`` phase 24 reads them on the
+      card).
+    * **donated vs copied**: ``donated=False`` doubles the at-rest pool
+      (input and output pools both live during a chunk).
+    * **working set** (``chunk_impl="ring"`` only): the context gathered
+      once a chunk plus the step ring, in the compute dtype, times
+      ``split_tile_pad``; the pool chunk carries none.
+    * **cached prefix pages**: reclaimable, so ``reclaimable_bytes``
+      only, never ``peak_bytes``.
+    * **tp / dp degrees**: per-shard bytes; an indivisible ``num_heads``
+      or ``num_pool_pages`` replicates the pool, so full bytes.
+    * **in-flight prefill**: pages mapped by prompts still chunking
+      (``inflight_prefill_tokens``) count into ``peak_bytes``.
+    * **adapters**: ``adapter_bytes`` (the LoRA pool) counts into
+      ``peak_bytes``; ``reclaimable_weight_bytes`` (cached weight sets)
+      into ``reclaimable_bytes``.
+    * **int8 KV** (``kv_dtype="int8"``): one byte an element plus the
+      scale tables' 8 bytes a page a layer; the ring working set stays in
+      the compute dtype.
+    * **host KV tier**: ``host_tier_gib`` is host memory, reported as
+      ``host_tier_bytes`` and ``host_reclaimable_bytes``, never in
+      ``peak_bytes``.
+
+    Base weights, activations and the host runtime are out of scope."""
+    shard = max(1, int(tp_degree))
+    if num_heads is not None and num_heads % shard:
+        shard = 1
+    dshard = max(1, int(dp_degree))
+    if num_pool_pages is not None and num_pool_pages % dshard:
+        dshard = 1
+    kv_shard = shard * dshard
+    pages = -(-ctx_len // page_size)
+    kv_int8 = kv_dtype == "int8"
+    pool_elt_bytes = 1 if kv_int8 else dtype_bytes
+    tok_bytes = num_layers * d_model * 2 * pool_elt_bytes
+    page_scale_bytes = num_layers * 2 * 4 if kv_int8 else 0
+    pool_pad = 1.0 if flat_pool else split_tile_pad
+    page_bytes = page_size * tok_bytes * pool_pad + page_scale_bytes
+    pool = int(streams * pages * page_bytes) // kv_shard
+    ws = 0
+    if chunk_impl == "ring":
+        ws = int(
+            streams * (pages * page_size + steps_per_call)
+            * num_layers * d_model * 2 * dtype_bytes * split_tile_pad
+        ) // kv_shard
+    at_rest = pool if donated else 2 * pool
+    inflight_pages = -(-int(inflight_prefill_tokens) // page_size)
+    inflight = int(inflight_pages * page_bytes) // kv_shard
+    return {
+        "pool_bytes": pool,
+        "working_set_bytes": ws,
+        "peak_bytes": at_rest + ws + inflight + int(adapter_bytes),
+        "per_stream_bytes": (at_rest + ws) // max(1, streams),
+        "reclaimable_bytes": int(cached_prefix_pages * page_bytes) // kv_shard + int(reclaimable_weight_bytes),
+        "inflight_prefill_bytes": inflight,
+        "adapter_bytes": int(adapter_bytes),
+        "reclaimable_weight_bytes": int(reclaimable_weight_bytes),
+        "tp_degree": shard,
+        "dp_degree": dshard,
+        "host_tier_bytes": int(float(host_tier_gib) * (1 << 30)),
+        "host_reclaimable_bytes": int(float(host_tier_gib) * (1 << 30)),
+    }
+
+
+def paged_capacity_streams(
+    budget_bytes: int, ctx_len: int, *, donated: bool = True,
+    inflight_prefill_tokens: int = 0, adapter_bytes: int = 0, **model_kw
+) -> int:
+    """Most concurrent streams whose peak bytes fit ``budget_bytes`` at
+    ``ctx_len`` tokens each: one division over the one-stream accounting,
+    after the in-flight prefill pages and the adapter pool come off the
+    top (they are resident whatever the stream count).  Reclaimable
+    prefix pages never count against it."""
+    one = paged_hbm_accounting(
+        streams=1, ctx_len=ctx_len, donated=donated,
+        inflight_prefill_tokens=inflight_prefill_tokens,
+        adapter_bytes=adapter_bytes, **model_kw
+    )
+    fixed = one["inflight_prefill_bytes"] + one["adapter_bytes"]
+    per_stream = max(1, one["peak_bytes"] - fixed)
+    usable = max(0, int(budget_bytes) - fixed)
+    return int(usable // per_stream)
+
+
+def paged_max_context(
+    budget_bytes: int, *, page_size: int = 64, max_len_cap: int = 1 << 20,
+    **model_kw,
+) -> int:
+    """Largest page-aligned context one stream can hold under
+    ``budget_bytes``: :func:`paged_capacity_streams` inverted over
+    ``ctx_len`` by a binary search over page counts (the peak grows with
+    the context).  0 when not even one page fits."""
+    def fits(ctx_len: int) -> bool:
+        one = paged_hbm_accounting(streams=1, ctx_len=ctx_len, page_size=page_size, **model_kw)
+        return one["peak_bytes"] <= int(budget_bytes)
+
+    lo, hi = 0, max_len_cap // page_size
+    if not fits(page_size):
+        return 0
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if fits(mid * page_size):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo * page_size
 
 
 # ---------------------------------------------------------------------------
@@ -4103,8 +4243,7 @@ class StreamingLM(TPUComponent):
         # streams to them instead of closing it
         self._draining = False
         self._load_lock = threading.Lock()
-        self._counter = 0
-        self._counter_lock = threading.Lock()
+        self._request_seed = RequestSeeds()
         self._load_time_s: Optional[float] = None
         # the telemetry plane, wired at load: the Prometheus bridge
         # (SELDON_TPU_PROM_BRIDGE), the telemetry ring (SELDON_TPU_TELEMETRY)
@@ -4312,18 +4451,6 @@ class StreamingLM(TPUComponent):
         self.shutdown()
         if self._loop_thread is not None:
             self._loop_thread.join(timeout=30)
-
-    def _request_seed(self, tags, meta) -> int:
-        """Explicit ``seed`` tag, else a hash of the request puid, else a
-        per-process counter."""
-        if "seed" in tags:
-            return int(tags["seed"])
-        puid = meta.get("puid", "")
-        if puid:
-            return zlib.crc32(puid.encode())
-        with self._counter_lock:
-            self._counter += 1
-            return self._counter
 
     def predict(self, X, names, meta=None):
         if self.engine is None:

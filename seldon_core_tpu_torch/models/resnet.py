@@ -204,8 +204,12 @@ class ResNet(nn.Module):
                 getattr(b, f"bn{b.n_convs - 1}").weight.zero_()
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, C) images -> (B, num_classes) float32 logits."""
+    def forward(self, x: torch.Tensor, capture_features: bool = False):
+        """(B, H, W, C) images -> (B, num_classes) float32 logits; with
+        ``capture_features``, ``(logits, features)``: the final stage map
+        as an NHWC view (B, H/32, W/32, C), float32 (the JAX package's
+        ``capture_features``; the head runs either way, so a classifier's
+        weights seed a detector backbone unchanged)."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
@@ -213,9 +217,13 @@ class ResNet(nn.Module):
         x = max_pool_same(x)
         for block in self.blocks:
             x = block(x)
+        features = x
         x = x.mean(dim=(2, 3))
         h = self.head
-        return F.linear(x.to(self.dtype), h.weight.to(self.dtype), h.bias.to(self.dtype)).float()
+        logits = F.linear(x.to(self.dtype), h.weight.to(self.dtype), h.bias.to(self.dtype)).float()
+        if capture_features:
+            return logits, features.permute(0, 2, 3, 1)
+        return logits
 
 
 ResNet18 = partial(ResNet, stage_sizes=[2, 2, 2, 2], block_cls=BasicBlock)

@@ -1,8 +1,9 @@
 """Transformer family in PyTorch: the encoder and the causal decoder LM.
 
 The port's counterpart of ``seldon_core_tpu/models/transformer.py``
-``TransformerBlock``, ``TransformerEncoder`` and ``TransformerLM`` (the
-``decode=True`` cache and ``ring_attn_fn`` come with later slices).
+``TransformerBlock``, ``TransformerEncoder`` and ``TransformerLM``, with
+the LM's ``decode=True`` cache as :class:`DecodeCache` (``ring_attn_fn``
+comes with a later slice).
 Attention is pluggable as in the JAX package: ``attn_fn`` is
 :func:`plain_attention` by default, ``ops.kernels.flash_attn_fn()`` for
 the CUDA flash kernel.  The parameter trees are the flax modules', name
@@ -18,6 +19,13 @@ arithmetic follows flax's defaults, which differ from PyTorch's:
 * ``nn.gelu``: the tanh approximation;
 * the head's logits are cast to float32.
 
+The cached forward (``TransformerLM.forward(..., cache=DecodeCache)``)
+rounds as the JAX block's ``_cached_attention``: ``q`` scaled in the
+compute dtype before the product, scores in the compute dtype masked with
+its ``finfo.min``, softmax in float32 and the weights cast back.  The
+cache is an object the caller owns, not module state, so concurrent
+callers each hold their own.
+
 Weights of the dense and embedding layers are held in the compute dtype
 (flax keeps float32 parameters and casts them at every call, which
 rounds them the same way once); LayerNorm parameters stay float32.
@@ -26,7 +34,8 @@ rounds them the same way once); LayerNorm parameters stay float32.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+import functools
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -73,6 +82,40 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
 
 
 AttnFn = Callable[..., torch.Tensor]
+
+
+@functools.lru_cache(maxsize=None)
+def head_scale(head_dim: int, dtype: torch.dtype) -> float:
+    """``1 / sqrt(head_dim)`` the way the JAX block forms it: the root in
+    float32, cast to the model dtype, inverted in the model dtype.  The
+    value is exact in the model dtype, so multiplying by it as a Python
+    float rounds as multiplying by the dtype's scalar does, and no
+    host-to-device copy (a stream synchronisation) happens per layer."""
+    return float(1.0 / torch.tensor(math.sqrt(head_dim), dtype=torch.float32).to(dtype))
+
+
+class DecodeCache:
+    """The K/V cache of one cached generation: per layer one K and one V
+    tensor of shape (B, max_len, heads, head_dim) in the compute dtype,
+    and the running ``index`` (a host int: the slot the next call writes
+    first, one for every row, as the JAX cache's scalar ``cache_index``).
+    ``TransformerLM.forward(..., cache=)`` writes into it in place and
+    advances ``index``; the caller may set ``index`` (the prefill of a
+    padded prompt sets it to the true length)."""
+
+    def __init__(self, keys: List[torch.Tensor], values: List[torch.Tensor], index: int = 0):
+        self.keys, self.values, self.index = keys, values, int(index)
+
+    @classmethod
+    def zeros(cls, batch: int, *, num_layers: int, max_len: int, num_heads: int, head_dim: int,
+              dtype: torch.dtype, device) -> "DecodeCache":
+        shape = (batch, max_len, num_heads, head_dim)
+        return cls([torch.zeros(shape, dtype=dtype, device=device) for _ in range(num_layers)],
+                   [torch.zeros(shape, dtype=dtype, device=device) for _ in range(num_layers)])
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (*self.keys, *self.values))
 
 
 class TransformerBlock(nn.Module):
@@ -124,6 +167,22 @@ class TransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = self.qkv_heads(x)
         return self.mlp_tail(x, self.attn_fn(q, k, v, causal=self.causal).reshape(x.shape))
+
+    def forward_cached(self, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, index: int,
+                       mask: torch.Tensor) -> torch.Tensor:
+        """The block on ``x`` (B, L, d) at cache slots ``index``..``index+L-1``:
+        this call's K/V written into ``ck`` / ``cv`` (B, max_len, h, hd)
+        there, then attention over all ``max_len`` slots under ``mask``
+        (L, max_len), true where slot <= index + i (JAX
+        ``_cached_attention``)."""
+        q, k, v = self.qkv_heads(x)
+        seg_len = x.shape[1]
+        ck[:, index:index + seg_len] = k
+        cv[:, index:index + seg_len] = v
+        scores = torch.einsum("bqhd,bkhd->bhqk", q * head_scale(q.shape[-1], q.dtype), ck)
+        scores = torch.where(mask[None, None], scores, torch.finfo(scores.dtype).min)
+        weights = torch.softmax(scores.float(), dim=-1).to(ck.dtype)
+        return self.mlp_tail(x, torch.einsum("bhqk,bkhd->bqhd", weights, cv).reshape(x.shape))
 
 
 @torch.no_grad()
@@ -189,7 +248,10 @@ class TransformerEncoder(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """Causal decoder: next-token logits over a whole sequence."""
+    """Causal decoder: next-token logits over a whole sequence, or, with
+    ``cache=``, the kv-cached forward on the same parameters (a
+    :class:`DecodeCache` from :meth:`init_cache`; ``positions`` are then
+    absolute)."""
 
     block_cls = TransformerBlock
 
@@ -197,7 +259,7 @@ class TransformerLM(nn.Module):
                  num_heads: int = 8, max_len: int = 2048, dtype: torch.dtype = torch.bfloat16,
                  attn_fn: AttnFn = plain_attention):
         super().__init__()
-        self.vocab_size = vocab_size
+        self.vocab_size, self.d_model, self.num_heads, self.dtype = vocab_size, d_model, num_heads, dtype
         self.tok_embed = nn.Embedding(vocab_size, d_model, dtype=dtype)
         self.pos_embed = nn.Embedding(max_len, d_model, dtype=dtype)
         self.blocks = nn.ModuleList(self.block_cls(d_model, num_heads, dtype=dtype, attn_fn=attn_fn, causal=True)
@@ -211,12 +273,28 @@ class TransformerLM(nn.Module):
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.ln_f(x)).float()
 
-    def forward(self, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def init_cache(self, batch: int) -> DecodeCache:
+        """A zero :class:`DecodeCache` for ``batch`` rows, in the compute
+        dtype, on the module's device."""
+        return DecodeCache.zeros(batch, num_layers=len(self.blocks), max_len=self.pos_embed.num_embeddings,
+                                 num_heads=self.num_heads, head_dim=self.d_model // self.num_heads,
+                                 dtype=self.dtype, device=self.ln_f.weight.device)
+
+    def forward(self, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
+                cache: Optional[DecodeCache] = None) -> torch.Tensor:
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = self.embed(tokens, positions)
-        for block in self.blocks:
-            x = block(x)
+        if cache is None:
+            for block in self.blocks:
+                x = block(x)
+            return self.logits(x)
+        seg_len, max_len = tokens.shape[1], cache.keys[0].shape[1]
+        q_pos = cache.index + torch.arange(seg_len, device=x.device)
+        mask = torch.arange(max_len, device=x.device)[None, :] <= q_pos[:, None]
+        for block, ck, cv in zip(self.blocks, cache.keys, cache.values):
+            x = block.forward_cached(x, ck, cv, cache.index, mask)
+        cache.index += seg_len
         return self.logits(x)
 
     def reset_parameters(self, generator: torch.Generator) -> "TransformerLM":

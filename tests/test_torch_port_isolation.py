@@ -61,6 +61,9 @@ def test_scan_covers_the_port():
     assert "seldon_core_tpu_torch/models/vit.py" in names
     assert "seldon_core_tpu_torch/ops/lora.py" in names
     assert "seldon_core_tpu_torch/models/registry.py" in names
+    assert "seldon_core_tpu_torch/models/generate.py" in names
+    assert "seldon_core_tpu_torch/models/mlp.py" in names
+    assert "seldon_core_tpu_torch/models/detection.py" in names
     assert "seldon_core_tpu_torch/utils/deadlines.py" in names
     assert "seldon_core_tpu_torch/ops/surgery.py" in names
     assert "seldon_core_tpu_torch/ops/w8a8.py" in names
@@ -86,6 +89,7 @@ def test_importing_the_port_loads_no_jax():
         "import seldon_core_tpu_torch.runtime.rest, seldon_core_tpu_torch.models.convert\n"
         "import seldon_core_tpu_torch.models.paged, seldon_core_tpu_torch.models.generate\n"
         "import seldon_core_tpu_torch.models.vit, seldon_core_tpu_torch.ops.lora\n"
+        "import seldon_core_tpu_torch.models.mlp, seldon_core_tpu_torch.models.detection\n"
         "import seldon_core_tpu_torch.models.registry, seldon_core_tpu_torch.utils.deadlines\n"
         "import seldon_core_tpu_torch.ops.surgery, seldon_core_tpu_torch.ops.w8a8\n"
         "import seldon_core_tpu_torch.engine.server, seldon_core_tpu_torch.engine.sync_server\n"
