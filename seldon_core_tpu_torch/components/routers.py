@@ -8,9 +8,9 @@ from the reward signal the engine propagates back along the served
 branch (reference call stack: SURVEY §3.3).
 
 State is a small set of arrays (counts / reward sums / Beta
-posteriors).  Its ``checkpoint_state`` / ``restore_state`` hooks come
-with the persistence subsystem that calls them (``ROADMAP.md`` §A
-item 11).
+posteriors), snapshot and restored through ``checkpoint_state`` /
+``restore_state`` by the persistence subsystem
+(``utils/persistence.py``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -81,6 +81,16 @@ class EpsilonGreedy(TPUComponent):
             out.append(gauge_metric("mab_branch_value", float(v), tags={"branch": str(i)}))
         return out
 
+    def checkpoint_state(self) -> Dict[str, Any]:
+        with self._lock:
+            return {"counts": self.counts.copy(), "reward_sums": self.reward_sums.copy(), "epsilon": self.epsilon}
+
+    def restore_state(self, state: Dict[str, Any]) -> None:
+        with self._lock:
+            self.counts = np.asarray(state["counts"], dtype=np.int64)
+            self.reward_sums = np.asarray(state["reward_sums"], dtype=np.float64)
+            self.epsilon = float(state.get("epsilon", self.epsilon))
+
 
 class ThompsonSampling(TPUComponent):
     """Beta-Bernoulli posterior sampling per branch.
@@ -121,3 +131,12 @@ class ThompsonSampling(TPUComponent):
             gauge_metric("mab_branch_posterior_mean", float(m), tags={"branch": str(i)})
             for i, m in enumerate(means)
         ]
+
+    def checkpoint_state(self) -> Dict[str, Any]:
+        with self._lock:
+            return {"alpha": self.alpha.copy(), "beta": self.beta.copy()}
+
+    def restore_state(self, state: Dict[str, Any]) -> None:
+        with self._lock:
+            self.alpha = np.asarray(state["alpha"], dtype=np.float64)
+            self.beta = np.asarray(state["beta"], dtype=np.float64)

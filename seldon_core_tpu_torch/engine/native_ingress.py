@@ -14,7 +14,7 @@ Lanes:
   Python is entered once per batch: ``raw_batch_call`` ->
   ``DynamicBatcher`` -> ``fused_normalize`` -> the model.
 * **fallback lane**: everything else (multi-node graphs, traffic splits,
-  shadows, other payloads, feedback, ``Seldon/PredictRaw``) bridges into
+  shadows, other payloads, feedback, explanations, ``Seldon/PredictRaw``) bridges into
   the running asyncio engine with full semantics.
 * **stream lane**: ``Seldon/GenerateStream``.  A producer thread a stream
   drives the single local model's ``predict_stream`` and pushes each

@@ -5,7 +5,7 @@ engine's controllers (reference: RestClientController.java:127-268,
 SeldonGrpcServer.java:30-60, SeldonService.java:30-67):
 
     POST /api/v0.1/predictions   POST /api/v0.1/feedback
-    POST /api/v0.1/generate/stream
+    POST /api/v0.1/explanations  POST /api/v0.1/generate/stream
     GET  /ping /ready /live      PUT/POST /pause /unpause
     GET  /metrics /seldon.json
     GET  /debug/engine /debug/traces /debug/knobs /debug/weights
@@ -47,8 +47,8 @@ snapshot, and one request's capture stitched with its spans.  A scrape of
 gets OpenMetrics 1.0 with the histograms' trace exemplars.
 
 Not ported: ``/debug/workers`` and ``/debug/fleet``, which read the
-supervisor and the fleet view (``ROADMAP.md`` §A item 13), explanations
-(§A item 11), and the ``grpc.aio`` front end: gRPC is
+supervisor and the fleet view (``ROADMAP.md`` §A item 13), and the
+``grpc.aio`` front end: gRPC is
 served by the sync server of ``engine/sync_server.py`` alone (queued in
 ``ROADMAP.md`` §A until a deployment needs it).  Breakers, hedging,
 fallbacks and replica balancing run in the engine
@@ -86,9 +86,14 @@ class Gateway:
         predictors: Sequence[Tuple[PredictorService, float]],
         shadows: Sequence[PredictorService] = (),
         seed: Optional[int] = None,
+        request_logger=None,
     ):
         if not predictors:
             raise ValueError("gateway needs at least one predictor")
+        # the deployment's pair sink (utils/reqlogger.py): it sees every
+        # finalized pair of the async ingress, whichever predictor served
+        # it; a predictor's own logger sees its graph's pairs instead
+        self.request_logger = request_logger
         self.entries: List[Tuple[PredictorService, float]] = list(predictors)
         total = sum(w for _, w in self.entries)
         if total <= 0:  # all-zero weights -> uniform
@@ -182,7 +187,13 @@ class Gateway:
             svc = self.pick()
         self.shadow(request)
         response = await svc.predict(request)
-        return self.finalize_response(response, request, svc)
+        response = self.finalize_response(response, request, svc)
+        if self.request_logger is not None:
+            try:
+                self.request_logger(request, response)
+            except Exception:  # noqa: BLE001 — lose a pair, never a request
+                logger.exception("gateway request logger failed")
+        return response
 
     async def send_feedback(self, feedback: InternalFeedback) -> InternalMessage:
         # feedback goes ONLY to the predictor that served the request
@@ -236,6 +247,11 @@ class Gateway:
 
     async def close(self) -> None:
         await asyncio.gather(*(p.close() for p in self.predictors))
+        if self.request_logger is not None and hasattr(self.request_logger, "close"):
+            try:
+                self.request_logger.close()
+            except Exception:  # noqa: BLE001 — shutdown must finish
+                logger.exception("gateway request logger close failed")
 
     def _stats_families(self) -> List[_metrics.FamilySnapshot]:
         """Per-predictor request / failure / feedback counts."""
@@ -364,6 +380,18 @@ def build_gateway_app(gateway: Gateway, auth=None) -> web.Application:
             with _ingress(request):
                 _deadlines.check("gateway ingress /api/v0.1/feedback")
                 out = await gateway.send_feedback(fb)
+            return web.json_response(out.to_json(), status=_http_status(out))
+        except Exception as e:  # noqa: BLE001
+            return _error_response(e)
+
+    async def explanations(request: web.Request) -> web.Response:
+        try:
+            msg = InternalMessage.from_json(await _request_body(request))
+            svc = gateway.by_name(request.query.get("predictor", "")) or gateway.pick()
+            # the deadline and the caller's trace, as on every ingress
+            with _ingress(request):
+                _deadlines.check("gateway ingress /api/v0.1/explanations")
+                out = await svc.explain(msg)
             return web.json_response(out.to_json(), status=_http_status(out))
         except Exception as e:  # noqa: BLE001
             return _error_response(e)
@@ -596,6 +624,7 @@ def build_gateway_app(gateway: Gateway, auth=None) -> web.Application:
     app.router.add_get("/api/v0.1/predictions", predictions)
     app.router.add_post("/predict", predictions)  # convenience alias
     app.router.add_post("/api/v0.1/feedback", feedback)
+    app.router.add_post("/api/v0.1/explanations", explanations)
     app.router.add_post("/api/v0.1/generate/stream", generate_stream_sse)
     app.router.add_get("/ping", ping)
     app.router.add_get("/live", live)

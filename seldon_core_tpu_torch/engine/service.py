@@ -6,8 +6,10 @@ dispatch, response status; RestClientController.java:73-118 —
 /ping /ready /live /pause /unpause semantics; App.java:60-97 —
 graceful drain).  A request is a ``predictor.predict`` span and a
 ``predict_done`` event to the executor's observer (the reference's
-server request histogram).  Explanations are not ported (``ROADMAP.md``
-§A item 11), nor the request logger.
+server request histogram).  ``request_logger`` (a pair sink of
+``utils/reqlogger.py``) sees every answered pair on both the async and
+the sync path; ``explainer`` (set by whoever builds the deployment)
+answers :meth:`PredictorService.explain`.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import asyncio
 import logging
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 from seldon_core_tpu_torch.engine.executor import GraphExecutor, Observer
 from seldon_core_tpu_torch.engine.graph import UnitSpec
@@ -44,7 +46,9 @@ class PredictorService:
     """One deployed predictor: graph executor + lifecycle + bookkeeping."""
 
     def __init__(self, graph: UnitSpec, name: str = "default", annotations: Optional[Dict[str, str]] = None,
-                 observer: Optional[Observer] = None, clients: Optional[Dict[str, Any]] = None):
+                 observer: Optional[Observer] = None, clients: Optional[Dict[str, Any]] = None,
+                 request_logger: Optional[Callable[[InternalMessage, InternalMessage], None]] = None,
+                 explainer: Any = None):
         self.name = name
         # `clients`: injected node clients by name (a BalancedClient over
         # a node's replicas), passed through to the executor
@@ -60,6 +64,31 @@ class PredictorService:
         self._inflight_zero = threading.Event()
         self._inflight_zero.set()
         self.stats = {"requests": 0, "failures": 0, "feedback": 0}
+        self.request_logger = request_logger
+        self.explainer = explainer
+
+    def _log_pair(self, request: InternalMessage, response: InternalMessage) -> None:
+        if self.request_logger is not None:
+            try:
+                self.request_logger(request, response)
+            except Exception:  # noqa: BLE001 — logging loses a pair, never a request
+                logger.exception("request logger failed")
+
+    async def explain(self, request: InternalMessage) -> InternalMessage:
+        """Run the predictor's explainer in-process (the reference's
+        ``:explain`` URL of a deployed alibi explainer)."""
+        if self.explainer is None:
+            return failure_message(MicroserviceError("predictor has no explainer configured", status_code=404,
+                                                     reason="NO_EXPLAINER"))
+        from seldon_core_tpu_torch.runtime.executor_pool import run_dispatch
+
+        try:
+            result = await run_dispatch(self.explainer.explain, request.host_payload(), request.names)
+            out = InternalMessage(payload=result, kind="jsonData", status={"status": "SUCCESS", "code": 200})
+            out.meta.puid = request.meta.puid or new_puid()
+            return out
+        except Exception as e:  # noqa: BLE001 — every failure answers as a Status
+            return failure_message(e)
 
     def _enter_request(self) -> None:
         with self._stats_lock:
@@ -116,6 +145,7 @@ class PredictorService:
                 response = await self.executor.predict(request)
             if response.status is None:
                 response.status = {"status": "SUCCESS", "code": 200}
+            self._log_pair(request, response)
             return response
         except Exception as e:  # noqa: BLE001 — every failure answers as a Status
             failed = True
@@ -167,6 +197,7 @@ class PredictorService:
             response.meta.puid = puid
             if response.status is None:
                 response.status = {"status": "SUCCESS", "code": 200}
+            self._log_pair(request, response)
             return response
         except Exception as e:  # noqa: BLE001 — every failure answers as a Status
             failed = True
@@ -188,3 +219,9 @@ class PredictorService:
 
     async def close(self) -> None:
         await self.executor.close()
+        # the pair logger is this service's for its lifetime: an HTTP
+        # logger's drain thread is joined here, or every rolling update
+        # leaks one
+        logger_close = getattr(self.request_logger, "close", None)
+        if callable(logger_close):
+            await asyncio.get_running_loop().run_in_executor(None, logger_close)

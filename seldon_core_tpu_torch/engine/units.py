@@ -13,6 +13,8 @@ test for data-plane benchmarks too.
 
 from __future__ import annotations
 
+import importlib
+import importlib.util
 import random
 import threading
 from typing import Any, Callable, Dict, Optional
@@ -83,6 +85,15 @@ class RandomABTest(TPUComponent):
                 self.branch_reward[routing] += reward
         return None
 
+    def checkpoint_state(self):
+        with self._lock:
+            return {"branch_requests": list(self.branch_requests), "branch_reward": list(self.branch_reward)}
+
+    def restore_state(self, state):
+        with self._lock:
+            self.branch_requests = list(state["branch_requests"])
+            self.branch_reward = list(state["branch_reward"])
+
 
 # registry: implementation name -> factory(parameters_kwargs) -> component
 BUILTIN_IMPLEMENTATIONS: Dict[str, Callable[..., Any]] = {
@@ -102,9 +113,25 @@ PREPACKAGED: Dict[str, str] = {
     "STREAMING_LM": "seldon_core_tpu_torch.models.paged:StreamingLM",
     "GENERATIVE_LM": "seldon_core_tpu_torch.models.generate:GenerativeLM",
     "SPECULATIVE_LM": "seldon_core_tpu_torch.models.speculative:SpeculativeLM",
+    "DISAGGREGATED_LM": "seldon_core_tpu_torch.models.disagg:DisaggregatedLM",
+    "PREFILL_LM": "seldon_core_tpu_torch.models.disagg:PrefillLM",
     "EPSILON_GREEDY": "seldon_core_tpu_torch.components.routers:EpsilonGreedy",
     "THOMPSON_SAMPLING": "seldon_core_tpu_torch.components.routers:ThompsonSampling",
+    "OUTLIER_MAHALANOBIS": "seldon_core_tpu_torch.components.outliers:MahalanobisDetector",
+    "OUTLIER_VAE": "seldon_core_tpu_torch.components.outliers:VAEOutlierDetector",
+    "OUTLIER_ISOLATION_FOREST": "seldon_core_tpu_torch.components.outliers:IsolationForestDetector",
+    "OUTLIER_SEQ2SEQ": "seldon_core_tpu_torch.components.outliers:Seq2SeqOutlierDetector",
+    "XGBOOST_SERVER": "seldon_core_tpu_torch.models.xgboostserver:XGBoostServer",
+    "TORCH_SERVER": "seldon_core_tpu_torch.models.torchserver:TorchServer",
+    "MLFLOW_SERVER": "seldon_core_tpu_torch.models.mlflowserver:MLFlowServer",
+    "REST_PROXY": "seldon_core_tpu_torch.models.proxyserver:RestProxyServer",
+    "SAGEMAKER_PROXY": "seldon_core_tpu_torch.models.proxyserver:SageMakerProxy",
+    # the reference's TENSORFLOW_SERVER prepackaged proxy
+    "TENSORFLOW_SERVER": "seldon_core_tpu_torch.models.proxyserver:TFServingGrpcProxy",
 }
+# gated on the optional toolkit, as the JAX package registers it
+if importlib.util.find_spec("sklearn") is not None:
+    PREPACKAGED["SKLEARN_SERVER"] = "seldon_core_tpu_torch.models.sklearnserver:SKLearnServer"
 
 
 def register_implementation(name: str, factory: Callable[..., Any]) -> None:
@@ -115,8 +142,6 @@ def _lookup_builtin(name: str) -> Callable[..., Any]:
     key = name.upper()
     factory = BUILTIN_IMPLEMENTATIONS.get(key)
     if factory is None and key in PREPACKAGED:
-        import importlib
-
         module, attr = PREPACKAGED[key].split(":")
         factory = getattr(importlib.import_module(module), attr)
     if factory is None:

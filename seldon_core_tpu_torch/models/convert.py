@@ -1,8 +1,10 @@
 """Flax variables -> the port's ``state_dict``: ResNet
 (``resnet_params_from_flax``), TransformerLM (``lm_params_from_flax``),
 TransformerEncoder (``encoder_params_from_flax``), VisionTransformer
-(``vit_params_from_flax``), MLPClassifier (``mlp_params_from_flax``) and
-the served detector (``detector_params_from_flax``).
+(``vit_params_from_flax``), MLPClassifier (``mlp_params_from_flax``),
+the served detector (``detector_params_from_flax``) and the learned
+outlier detectors' networks (``vae_params_from_flax``,
+``seq2seq_params_from_flax``).
 
 The inverse of the JAX package's torch->flax converter.  For ResNet it
 takes the ``{"params": ..., "batch_stats": ...}`` tree that
@@ -268,6 +270,44 @@ def mlp_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for i in dense:
         tree.dense((f"dense_{i}",), f"dense_{i}")
     tree.dense(("head",), "head")
+    return tree.state_dict()
+
+
+_VAE_DENSE = ("enc1", "mu", "logvar", "dec1", "out")
+
+
+def vae_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``VAEOutlierDetector``'s variables (``{"params": tree}`` or
+    bare) -> the port's ``VAE`` ``state_dict``: the five ``Dense`` layers
+    keep their names, kernels (in, out) become weights (out, in)."""
+    tree = _FlaxParams(params)
+    for name in _VAE_DENSE:
+        tree.dense((name,), name)
+    return tree.state_dict()
+
+
+_LSTM_GATES = ("i", "f", "g", "o")  # torch's order of the four gate blocks
+
+
+def seq2seq_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``Seq2SeqOutlierDetector``'s variables -> the port's
+    ``Seq2Seq`` ``state_dict``.  The encoder's and the decoder's flax
+    ``OptimizedLSTMCell`` (``OptimizedLSTMCell_0`` / ``_1``) become
+    ``nn.LSTM``s: the input kernels ``i{i,f,g,o}`` (in, H) stack into
+    ``weight_ih_l0`` (4H, in) and the hidden kernels ``h{i,f,g,o}`` into
+    ``weight_hh_l0``, in torch's i, f, g, o order; the hidden biases are
+    ``bias_hh_l0``, and ``bias_ih_l0`` is zero (flax's input kernels have
+    no bias).  ``out`` is a dense layer."""
+    tree = _FlaxParams(params)
+    for cell, key in (("OptimizedLSTMCell_0", "encoder"), ("OptimizedLSTMCell_1", "decoder")):
+        w_ih = [_linear(tree.take((cell, f"i{g}", "kernel"))) for g in _LSTM_GATES]
+        w_hh = [_linear(tree.take((cell, f"h{g}", "kernel"))) for g in _LSTM_GATES]
+        b_hh = [tree.take((cell, f"h{g}", "bias")) for g in _LSTM_GATES]
+        tree.out[f"{key}.weight_ih_l0"] = np.concatenate(w_ih, axis=0)
+        tree.out[f"{key}.weight_hh_l0"] = np.concatenate(w_hh, axis=0)
+        tree.out[f"{key}.bias_hh_l0"] = np.concatenate(b_hh, axis=0)
+        tree.out[f"{key}.bias_ih_l0"] = np.zeros_like(tree.out[f"{key}.bias_hh_l0"])
+    tree.dense(("out",), "out")
     return tree.state_dict()
 
 

@@ -358,9 +358,8 @@ def _failure(code: int, info: str, reason: str) -> Tuple[int, str, bytes]:
 class GatewayRawHandler:
     """The HTTP fallback lane with full engine semantics: bridges the C++
     server's raw lane into a running Gateway's asyncio loop (JSON
-    predictions, feedback, pause / unpause, SRT1 frames the fast lane
-    does not take).  Explanations are not ported (``ROADMAP.md`` §A
-    item 11): their route answers 404, as on the gateway's REST app."""
+    predictions, feedback, explanations, pause / unpause, SRT1 frames
+    the fast lane does not take)."""
 
     # request targets of the buffer-view (SRT1) lane
     _PREDICT_PATHS = ("/api/v0.1/predictions", "/api/v1.0/predictions", "/predict")
@@ -461,6 +460,10 @@ class GatewayRawHandler:
             elif path == "/api/v0.1/feedback":
                 fb = InternalFeedback.from_json(self._payload(body, query))
                 out = self._bridge(self.gateway.send_feedback(fb))
+            elif path == "/api/v0.1/explanations":
+                msg = InternalMessage.from_json(self._payload(body, query))
+                svc = (self.gateway.by_name(predictor) if predictor else None) or self.gateway.pick()
+                out = self._bridge(svc.explain(msg))
             else:
                 return _failure(404, f"no route {path}", "NOT_FOUND")
             return _http_status(out), "application/json", json.dumps(out.to_json()).encode()

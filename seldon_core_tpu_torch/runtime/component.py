@@ -5,7 +5,10 @@ the same surface as the reference's ``SeldonComponent``
 (reference: python/seldon_core/user_model.py:20-104): ``predict``,
 ``transform_input``, ``transform_output``, ``route``, ``aggregate``,
 ``send_feedback``, plus ``tags``/``metrics``/``class_names`` metadata
-hooks and proto-level ``*_raw`` overrides.
+hooks and proto-level ``*_raw`` overrides, and the pickle-free state
+hooks ``checkpoint_state()`` / ``restore_state(state)`` the persistence
+subsystem calls (``utils/persistence.py``; the reference pickles the
+whole object to Redis, reference: persistence.py:21-84).
 Subclassing is optional; any object with the right methods works (duck
 typing, like the reference).  The class keeps the JAX package's name so
 that the two packages' components read alike; nothing in it is
@@ -72,6 +75,9 @@ class TPUComponent:
     def class_names(self) -> Iterable[str]:
         raise NotImplementedByUser("class_names not implemented")
 
+    def feature_names(self) -> Iterable[str]:
+        raise NotImplementedByUser("feature_names not implemented")
+
     # ---- node-role methods ------------------------------------------------
 
     def predict(self, X: np.ndarray, names: Iterable[str], meta: Optional[Dict] = None):
@@ -98,6 +104,15 @@ class TPUComponent:
         routing: Optional[int],
     ):
         raise NotImplementedByUser("send_feedback not implemented")
+
+    # ---- state hooks (persistence subsystem) ------------------------------
+
+    def checkpoint_state(self) -> Optional[Dict[str, Any]]:
+        """Return a JSON/array tree snapshot of mutable state, or None."""
+        return None
+
+    def restore_state(self, state: Dict[str, Any]) -> None:
+        pass
 
     # ---- custom serving surface (optional) --------------------------------
 
@@ -144,6 +159,11 @@ def get_class_names(user_model: Any) -> List[str]:
     if names is not None:
         return list(names)
     return []
+
+
+def get_feature_names(user_model: Any) -> List[str]:
+    names = _call_optional(user_model, "feature_names")
+    return list(names) if names is not None else []
 
 
 # ---------------------------------------------------------------------------

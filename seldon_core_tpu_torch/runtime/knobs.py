@@ -166,6 +166,20 @@ ENV_KNOBS: Dict[str, Knob] = _knobs(
          "most tokens one engine wave may carry, filled decode-first then "
          "with page-aligned prompt slices (0 = off: monolithic prefill)",
          "architecture.md §5b-quater"),
+    Knob("SELDON_TPU_PREFILL_WORKERS", "int", "0", True,
+         "disaggregated serving when prefill_workers is 0: in-process prefill "
+         "engines handing finished KV pages to the decode engine's pool "
+         "(0 = off: one engine prefills and decodes)",
+         "architecture.md §5b-quater"),
+    Knob("SELDON_TPU_DISAGG_ROLE", "str", "", False,
+         "role pin of a disaggregated worker, logged at load ('prefill' | "
+         "'decode'; empty = unified engine)",
+         "architecture.md §5b-quater"),
+    Knob("SELDON_TPU_ADMISSION_PRICING", "flag", "1", True,
+         "disaggregated admission prices a request by its predicted "
+         "prefill+decode cost and refuses deadlines it cannot meet (0 = "
+         "admit everything unpriced)",
+         "architecture.md §5b-quater"),
     Knob("SELDON_TPU_MAX_ADAPTERS", "int", "0", True,
          "LoRA adapter pool slots of a PagedEngine when max_adapters is 0 "
          "(0 = adapters off)",

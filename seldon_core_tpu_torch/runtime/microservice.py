@@ -16,8 +16,11 @@ no ``--platform`` flag.  ``--ssl-cert`` / ``--ssl-key`` (with
 ``SELDON_TLS_*`` env) put TLS on both listeners; ``--tracing`` (or
 ``TRACING=1``) installs the tracer, with a JSONL span sink at
 ``SELDON_TPU_TRACE_EXPORT`` and OTLP export at
-``OTEL_EXPORTER_OTLP_ENDPOINT``.  Not ported: persistence (``ROADMAP.md``
-§A item 11) and the component ``custom_service`` side loop.
+``OTEL_EXPORTER_OTLP_ENDPOINT``.  ``--persistence`` restores the
+component's ``checkpoint_state`` tree from ``--persistence-dir`` (or
+``PERSISTENCE_DIR``) before load and snapshots it every
+``--persistence-period-s`` and at exit (``utils/persistence.py``).  Not
+ported: the component ``custom_service`` side loop.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import logging
 import os
 import signal
 import sys
+import tempfile
 from typing import Any, List, Optional
 
 from seldon_core_tpu_torch.runtime import knobs
@@ -67,6 +71,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         help="typed parameter list JSON",
     )
     parser.add_argument("--unit-id", default=os.environ.get(UNIT_ID_ENV_NAME, ""))
+    parser.add_argument("--persistence", action="store_true", help="periodically checkpoint component state")
+    parser.add_argument("--persistence-dir", default=os.environ.get("PERSISTENCE_DIR", os.path.join(tempfile.gettempdir(), "seldon-tpu-state")))
+    parser.add_argument("--persistence-period-s", type=float, default=60.0)
     parser.add_argument("--ssl-cert", default=os.environ.get("SELDON_TLS_CERT", ""),
                         help="PEM certificate; enables TLS on REST and gRPC")
     parser.add_argument("--ssl-key", default=os.environ.get("SELDON_TLS_KEY", ""))
@@ -144,12 +151,21 @@ def main(argv: Optional[List[str]] = None) -> None:
 
         setup_tracing(service_name=args.unit_id or args.component,
                       export_path=knobs.raw("SELDON_TPU_TRACE_EXPORT") or None)
+    persistence_thread = None
+    if args.persistence:
+        from seldon_core_tpu_torch.utils.persistence import PersistenceManager
+
+        manager = PersistenceManager(args.persistence_dir, args.unit_id or args.component)
+        manager.restore(user_model)
+        persistence_thread = manager.start_background(user_model, period_s=args.persistence_period_s)
     if hasattr(user_model, "load"):
         user_model.load()
     try:
         asyncio.run(run_servers(user_model, api=args.api, host=args.host, http_port=args.http_port,
                                 grpc_port=args.grpc_port, unit_id=args.unit_id, tls=tls))
     finally:
+        if persistence_thread is not None:
+            persistence_thread.stop()
         if hasattr(user_model, "unload"):
             user_model.unload()
 

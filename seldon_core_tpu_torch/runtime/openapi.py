@@ -4,9 +4,8 @@ The reference ships hand-maintained OAS3 JSON for the engine and
 wrapper APIs, served by the wrapper at ``/seldon.json``
 (reference: openapi/engine.oas3.json, openapi/wrapper.oas3.json,
 python/seldon_core/wrapper.py:36-38).  Here the documents are generated
-from one schema source so they can't drift from the code.  The gateway
-document lists no ``/api/v0.1/explanations``: explainers are not ported
-(``ROADMAP.md`` §A item 11).
+from one schema source so they can't drift from the code.  The
+documents are the JAX package's.
 """
 
 from __future__ import annotations
@@ -157,6 +156,7 @@ def gateway_openapi() -> Dict[str, Any]:
         "paths": {
             "/api/v0.1/predictions": _message_op("graph prediction"),
             "/api/v0.1/feedback": _message_op("reward feedback", "Feedback"),
+            "/api/v0.1/explanations": _message_op("model explanation"),
             "/ping": {"get": {"summary": "liveness", "responses": {"200": {"description": "pong"}}}},
             "/ready": {"get": {"summary": "graph readiness", "responses": {"200": {"description": "ready"}, "503": {"description": "not ready"}}}},
             "/metrics": {"get": {"summary": "prometheus metrics", "responses": {"200": {"description": "text exposition"}}}},

@@ -214,7 +214,12 @@ def test_feature_names_and_class_names_hooks():
     assert comp.get_class_names(Named()) == ["x", "y"]
     assert comp.get_class_names(comp.TPUComponent()) == []
     assert comp.get_class_names(Scaler()) == ["a", "b", "c"]
-    assert not hasattr(comp, "get_feature_names")  # its first caller is not ported
+    class Featured(comp.TPUComponent):
+        def feature_names(self):
+            return ("f0", "f1")
+
+    # the JAX accessor: the hook's names, or none where it is not implemented
+    assert comp.get_feature_names(Featured()) == ["f0", "f1"] and comp.get_feature_names(Named()) == []
     assert comp.TPUComponent().custom_routes() == {}
 
 

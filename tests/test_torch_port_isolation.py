@@ -73,7 +73,11 @@ def test_scan_covers_the_port():
                    "components/__init__.py", "models/__init__.py", "codec/bufview.py", "codec/tftensor.py",
                    "native/__init__.py", "native/frontserver.py", "engine/native_ingress.py",
                    "utils/tracing.py", "utils/tls.py", "utils/auth.py", "utils/metrics.py",
-                   "utils/credentials.py", "utils/storage.py", "utils/serialization.py", "utils/orbax.py"):
+                   "utils/credentials.py", "utils/storage.py", "utils/serialization.py", "utils/orbax.py",
+                   "models/disagg.py", "components/outliers.py", "components/explainers.py",
+                   "models/sklearnserver.py", "models/xgboostserver.py", "models/mlflowserver.py",
+                   "models/proxyserver.py", "models/torchserver.py", "proto/tfserving_compat_pb2.py",
+                   "utils/reqlogger.py", "utils/kafka.py", "utils/reqconsumer.py", "utils/persistence.py"):
         assert f"seldon_core_tpu_torch/{module}" in names, module
     assert _forbidden("seldon_core_tpu.proto") and _forbidden("jax.numpy") and _forbidden("flax.linen")
     assert _forbidden("seldon_core_tpu.native") and _forbidden("ml_dtypes") and _forbidden("prometheus_client")
@@ -98,6 +102,12 @@ def test_importing_the_port_loads_no_jax():
         "import seldon_core_tpu_torch.codec.bufview, seldon_core_tpu_torch.codec.tftensor\n"
         "import seldon_core_tpu_torch.native, seldon_core_tpu_torch.native.frontserver\n"
         "import seldon_core_tpu_torch.engine.native_ingress\n"
+        "import seldon_core_tpu_torch.models.disagg, seldon_core_tpu_torch.components.outliers\n"
+        "import seldon_core_tpu_torch.components.explainers, seldon_core_tpu_torch.models.proxyserver\n"
+        "import seldon_core_tpu_torch.models.xgboostserver, seldon_core_tpu_torch.models.mlflowserver\n"
+        "import seldon_core_tpu_torch.models.torchserver, seldon_core_tpu_torch.proto.tfserving_compat_pb2\n"
+        "import seldon_core_tpu_torch.utils.reqlogger, seldon_core_tpu_torch.utils.kafka\n"
+        "import seldon_core_tpu_torch.utils.reqconsumer, seldon_core_tpu_torch.utils.persistence\n"
         "import seldon_core_tpu_torch.utils.tracing, seldon_core_tpu_torch.utils.tls\n"
         "import seldon_core_tpu_torch.utils.auth, seldon_core_tpu_torch.utils.metrics\n"
         "import seldon_core_tpu_torch.utils.credentials, seldon_core_tpu_torch.utils.storage\n"

@@ -433,8 +433,11 @@ def test_metrics_and_openapi_on_the_native_port(deployments):
     status, spec = _http(port, "GET", "/seldon.json")
     assert status == 200 and "paths" in json.loads(spec)
     assert _http(port, "GET", "/ready")[0] == 200
-    status, body = _http(port, "POST", "/api/v0.1/explanations", b"{}")
-    assert status == 404 and json.loads(body)["status"]["reason"] == "NOT_FOUND"
+    # bridged to the predictor's explain, as in JAX: neither predictor has an explainer
+    body = json.dumps({"data": {"ndarray": [[1.0]]}}).encode()
+    for pkg in ("torch_port", "jax"):
+        status, answer = _http(deployments[pkg, False]["port"], "POST", "/api/v0.1/explanations", body)
+        assert status == 404 and json.loads(answer)["status"]["reason"] == "NO_EXPLAINER", (pkg, answer)
 
 
 def test_generate_stream_is_unimplemented_naming_its_item(deployments):
