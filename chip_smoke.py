@@ -422,6 +422,26 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    ``paged_hbm_accounting`` at ``split_tile_pad=1.0`` plus the trash
    page; the peak memory of one ring chunk beside the accounting's
    working set (recorded).
+27. the control plane, the clients and the tools (ROADMAP A13): (a)
+   ``examples/native_frontend.yaml`` loaded by ``TpuDeployment.load``
+   (C26 rewrites its ``JAX_SERVER``; the smoke adds ``normalize``, which
+   the spec does not name), applied by ``Deployer(device_ids=[0])`` and
+   served by ``serve_deployment`` behind the C++ ingress in a process of
+   its own: ``Available`` on device [0], 14a's method (4 clients, 5 s)
+   printed beside 14a's, every row within 2e-2 of the in-process model and
+   nearest its own image, also through ``RawFrameClient``, K1 launches =
+   batches; (b) a rolling re-apply with another ``max_wait_ms`` under 2
+   clients: none fails, generation 2 serves, the old one is drained and
+   unloaded, and card memory is back within 64 MB; (c) a ``CUDA_SERVER``
+   ResNet-50 hpa root (1-2 replicas) that 4 clients scale out on one card:
+   the time from the decision to the second replica serving, its memory,
+   each replica's share, K1 = batches + warmup in each process,
+   ``/debug/workers`` and ``/debug/fleet``; a ``GENERATIVE_LM`` hpa spec
+   refused with C27; (d) ``templates.render("generation")`` at the
+   generation config in f32 (TF32 off) applied and served on the Python
+   front end: ``SeldonTpuClient`` over gRPC and REST gives an in-process
+   ``StreamingLM``'s tokens, the contract tester passes, K4 = layers x
+   decode calls; every ``Deployer.delete`` leaves no worker alive.
 
 The first line names the card, torch, CUDA and ``grpc.__version__``.
 Output: the ``nvidia-smi`` line, then one ``{"kernels": [...]}`` line,
@@ -7588,6 +7608,613 @@ def component_paths(torch, np, resnet, CudaServer, components, card):
     return out
 
 
+# ---------------------------------------------------------------- phase 27
+
+DEPLOY_SPEC = os.path.join(ROOT, "examples", "native_frontend.yaml")
+# the spec names no normalize: its uint8 rows would reach the model as raw
+# levels and K1 would never run (the same in the JAX package); the smoke
+# adds it to the loaded spec, the file on disk stays as it is
+DEPLOY_EXTRA_PARAMS = [{"name": "normalize", "value": "true", "type": "BOOL"}]
+DEPLOY_ROLL_WAIT_MS = 2.0       # 27b: generation 2's max_wait_ms (generation 1 has CudaServer's 1.0)
+DEPLOY_ROLL_CLIENTS = 2         # 27b: clients sending across the cutover
+DEPLOY_ROLL_WARM = 5            # 27b: answers each client has before the re-apply (a new channel's first is slow)
+DEPLOY_ROLL_AFTER_S = 1.0       # 27b: they keep sending this long after generation 2 took over
+DEPLOY_MEM_TOL = 64 * 2 ** 20   # 27b: card memory after the drain may exceed that before the re-apply by this
+DEPLOY_CMD_TIMEOUT_S = 600.0
+HPA_PARAMS = [p for p in MODEL_PARAMS if p["name"] != "max_batch_size"] + [
+    {"name": "max_batch_size", "value": "8", "type": "INT"}]
+HPA_QPS_TARGET = 4.0            # 27c: requests/s a replica; 4 closed-loop clients send far more
+HPA_CLIENTS = 4
+HPA_SCALE_TIMEOUT_S = 240.0     # 27c: the decision and the second replica's load
+HPA_SHARE_SECONDS = 2.0         # 27c: the window whose requests each replica's share counts
+HPA_SETTLE_POLL_S = 0.5         # 27c: the share window opens once both replicas answer within one such poll
+GEN_TEMPLATE = dict(vocab_size=LM_CONFIG["vocab_size"], d_model=LM_CONFIG["d_model"],
+                    num_layers=LM_CONFIG["num_layers"], num_heads=LM_CONFIG["num_heads"],
+                    max_len=LM_CONFIG["max_len"])
+GEN_TEMPLATE_NEW = 16           # 27d: new tokens a prompt
+GEN_CONTRACT_REQUESTS = 4       # 27d: the contract tester's requests
+GEN_CONTRACT_TOKENS = 32        # 27d: prompt tokens a contract request
+
+
+def deployment_child(cfg_json: str) -> None:
+    """Phase 27a-b's deployer process: ``TpuDeployment.load`` of the spec
+    (plus ``extra_params`` on its root), ``Deployer(device_ids=[0]).apply``
+    and ``serve_deployment`` on the given ports; then it answers commands
+    the smoke writes to ``ctl/cmd.json`` in ``ctl/ans-<n>.json``:
+    ``report`` (status, K1 launches, batches of every CudaServer the
+    process has served with, card memory), ``reapply`` (a rolling
+    re-apply with another ``max_wait_ms``, answered once the old
+    generation is drained, closed and unloaded) and ``delete``."""
+    import asyncio
+
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from seldon_core_tpu_torch.controlplane import Deployer, TpuDeployment, serve_deployment
+    from seldon_core_tpu_torch.ops import kernels
+
+    cfg = json.loads(cfg_json)
+    ctl = cfg["ctl"]
+    servers = []  # every generation's CudaServer: batches are counted over all of them
+
+    def load_spec(max_wait_ms=None):
+        spec = TpuDeployment.load(cfg["spec_path"])
+        root = spec.predictors[0].graph
+        extra = list(cfg["extra_params"])
+        if max_wait_ms is not None:
+            extra.append({"name": "max_wait_ms", "value": str(max_wait_ms), "type": "FLOAT"})
+        root.parameters = list(root.parameters or []) + extra
+        return spec
+
+    def components(gen):
+        return [svc.executor.component(u.name) for svc in gen.gateway.predictors for u in svc.graph.walk()]
+
+    def card_used():
+        free, total = torch.cuda.mem_get_info() if torch.cuda.is_available() else (0, 0)
+        return total - free
+
+    async def report(deployer, name):
+        gen = deployer.deployments[name].current
+        for c in components(gen):
+            if c not in servers:
+                servers.append(c)
+        return {"status": await deployer.status(name), "k1": kernels.launch_counts()["fused_normalize"],
+                "batches": sum(int(c.batcher.stats.batches) for c in servers if c.batcher is not None),
+                "card_used": card_used(),
+                "reserved": torch.cuda.memory_reserved() if torch.cuda.is_available() else 0,
+                "max_wait_ms": [c.max_wait_ms for c in components(gen)]}
+
+    async def main():
+        deployer = Deployer(device_ids=[0])
+        spec = load_spec()
+        t0 = time.perf_counter()
+        await deployer.apply(spec, ready_timeout_s=DEPLOY_CMD_TIMEOUT_S)
+        handles = await serve_deployment(deployer, spec.name, host="127.0.0.1", http_port=cfg["http_port"],
+                                         grpc_port=cfg["grpc_port"])
+        first = await report(deployer, spec.name)
+        first["apply_s"] = time.perf_counter() - t0
+        write_json(os.path.join(ctl, "ans-0.json"), first)
+        seen = 0
+        while True:
+            await asyncio.sleep(0.1)
+            path = os.path.join(ctl, "cmd.json")
+            try:
+                with open(path) as f:
+                    cmd = json.load(f)
+            except (OSError, ValueError):
+                continue
+            if cmd["n"] <= seen:
+                continue
+            seen = cmd["n"]
+            if cmd["op"] == "report":
+                ans = await report(deployer, spec.name)
+            elif cmd["op"] == "reapply":
+                old = deployer.deployments[spec.name].current
+                t0 = time.perf_counter()
+                await deployer.apply(load_spec(cmd["max_wait_ms"]), ready_timeout_s=DEPLOY_CMD_TIMEOUT_S)
+                live_s = time.perf_counter() - t0
+                drained = await asyncio.to_thread(old.drained.wait, DEPLOY_CMD_TIMEOUT_S)
+                ans = await report(deployer, spec.name)
+                ans.update(live_s=live_s, drained=drained, drain_s=time.perf_counter() - t0 - live_s,
+                           old_loaded=[getattr(c, "_loaded", None) for c in components(old)],
+                           old_module=[getattr(c, "module", None) is not None for c in components(old)])
+            else:  # delete
+                ok = await deployer.delete(spec.name)
+                for handle in handles:
+                    await (handle.stop() if hasattr(handle, "stop") else handle.cleanup())
+                write_json(os.path.join(ctl, f"ans-{seen}.json"), {"deleted": ok})
+                return
+            write_json(os.path.join(ctl, f"ans-{seen}.json"), ans)
+
+    asyncio.run(main())
+
+
+def write_json(path: str, obj) -> None:
+    """Atomically: a reader never sees half a file."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def launch_a13():
+    """Phase 27a-b's deployer process on the native front end (the spec's
+    ``seldon.io/frontend: native``) and a sync gRPC port."""
+    fd, logpath = tempfile.mkstemp(prefix="chip_smoke_deploy_", suffix=".log")
+    logfile = os.fdopen(fd, "w")
+    ctl = tempfile.mkdtemp(prefix="chip_smoke_deploy_ctl_")
+    cfg = {"spec_path": DEPLOY_SPEC, "extra_params": DEPLOY_EXTRA_PARAMS, "http_port": free_port(),
+           "grpc_port": free_port(), "ctl": ctl}
+    launched = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", "import sys, chip_smoke; chip_smoke.deployment_child(sys.argv[1])",
+                             json.dumps(cfg)], cwd=ROOT, stdout=logfile, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    ctx = {"procs": [proc], "logfile": logfile, "logpath": logpath, "launched": launched, "cfg": cfg, "n": 0,
+           "cleanup": lambda: shutil.rmtree(ctl, ignore_errors=True)}
+    ctx["ready"] = lambda: deploy_answer(ctx, 0)
+    return ctx
+
+
+def deploy_answer(ctx, n: int, timeout_s: float = DEPLOY_CMD_TIMEOUT_S) -> dict:
+    path = os.path.join(ctx["cfg"]["ctl"], f"ans-{n}.json")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        proc = ctx["procs"][0]
+        if os.path.exists(path):
+            with open(path) as f:
+                return json.load(f)
+        if proc.poll() is not None:
+            raise SmokeFailure(f"the deployer process exited with {proc.returncode}:\n{tail(ctx['logpath'])}")
+        time.sleep(0.02)
+    raise SmokeFailure(f"the deployer process gave no answer {n} in {timeout_s}s:\n{tail(ctx['logpath'])}")
+
+
+def deploy_cmd(ctx, op: str, **kw) -> dict:
+    ctx["n"] += 1
+    write_json(os.path.join(ctx["cfg"]["ctl"], "cmd.json"), {"n": ctx["n"], "op": op, **kw})
+    return deploy_answer(ctx, ctx["n"])
+
+
+def frame_client_rows(np, RawFrameClient, port: int, images, refs, index, errs) -> int:
+    """Every image alone, then all of them as one frame, through
+    ``RawFrameClient`` (SRT1 over HTTP/1.1 keep-alive); each row held
+    against the in-process rows as ``served_rows_errors`` does."""
+    flat = np.ascontiguousarray(images.reshape(len(images), -1))
+    pool = {"index": [index[i:i + 1] for i in range(len(images))] + [index], "pool": [index] * (len(images) + 1)}
+    answers = []
+    with RawFrameClient(port=port) as client:
+        for i in range(len(images)):
+            answers.append((i, client.predict(flat[i:i + 1])))
+        answers.append((len(images), client.predict(flat)))
+    for body, arr in answers:
+        rows = len(images) if body == len(images) else 1
+        check(arr.shape == (rows, NUM_CLASSES) and bool(np.isfinite(arr).all()),
+              f"RawFrameClient answer of shape {arr.shape}")
+        served_rows_errors(np, [(body, arr)], pool, lambda a, r: a, refs, rows, errs)
+    return len(answers)
+
+
+def deployment_paths(torch, np, kernels, resnet, card, native_numbers):
+    """27a-b: examples/native_frontend.yaml through the port's deployer."""
+    from seldon_core_tpu_torch.client.client import RawFrameClient
+    from seldon_core_tpu_torch.proto import pb, services
+    from seldon_core_tpu_torch.runtime import grpc_server
+
+    images, singles = single_bodies(np, pb, np.random.default_rng(SEED + 27))
+    grpc_rows = lambda resp, rows: proto_logits(pb, resp, rows)  # noqa: E731
+    out, errs = {}, []
+    ctx = EARLY.take("a13", launch_a13)
+    proc = ctx["procs"][0]
+    try:
+        local = reference_resnet(torch, resnet, SEED)
+        refs = reference_logits(torch, np, kernels, local, images)
+        del local
+        torch.cuda.empty_cache()
+        first = ctx["ready"]()
+        port, grpc_port = ctx["cfg"]["http_port"], ctx["cfg"]["grpc_port"]
+        status = first["status"]
+        log(f"27a {os.path.relpath(DEPLOY_SPEC, ROOT)} applied by the port's Deployer in {first['apply_s']:.1f}s "
+            f"(ready {ready_since(ctx):.1f}s after launch{early_note(ctx)}): state {status['state']}, generation "
+            f"{status['generation']}, devices {status['predictors']['main']['devices']}, rewrites "
+            f"{status['rewrites']}; C++ front server on port {port}, sync gRPC on {grpc_port}; card memory in use "
+            f"{first['card_used'] / 2 ** 30:.2f} GiB, the deployer process reserves "
+            f"{first['reserved'] / 2 ** 20:.0f} MiB [{card}]")
+        check(status["state"] == "Available" and status["predictors"]["main"]["devices"] == [0],
+              f"27a: the deployment is {status['state']} on {status['predictors']['main']['devices']}")
+        check(any("JAX_SERVER -> CUDA_SERVER" in r for r in status["rewrites"]),
+              f"27a: the spec's JAX_SERVER was not rewritten (C26): {status['rewrites']}")
+        r0 = deploy_cmd(ctx, "report")
+        # 14a's method without its batch-32 windows: one client's window (a fresh deployment's and
+        # channel's first calls land there), then 4 clients of batch-1 uint8 rawTensor rows
+        lane = grpc_lane(pb, services, grpc_server, port)
+        seq, answers, _ = load_window(lane, singles["bodies"], 1, GRPC_SEQUENTIAL_SECONDS)
+        served_rows_errors(np, answers, singles, grpc_rows, refs, 1, errs)
+        lat, answers, _ = load_window(lane, singles["bodies"], GRPC_LAT_CLIENTS, NATIVE_GRPC_SECONDS)
+        served_rows_errors(np, answers, singles, grpc_rows, refs, 1, errs)
+        grpc = window_numbers(np, lat, NATIVE_GRPC_SECONDS, GRPC_LAT_CLIENTS)
+        grpc.update(sequential_p50_ms=pct(seq, 0.5), sequential_max_ms=max(seq), sequential_requests=len(seq))
+        frames = frame_client_rows(np, RawFrameClient, port, images, refs, np.arange(len(images)), errs)
+        r1 = deploy_cmd(ctx, "report")
+        k1, batches = r1["k1"] - r0["k1"], r1["batches"] - r0["batches"]
+        h14 = native_numbers["grpc"]
+        log(f"27a native gRPC Seldon/Predict through the deployed spec: one client, {len(seq)} sequential "
+            f"requests: p50 {pct(seq, 0.5):.3f} ms, {tail_text(seq, '.3f')}; beside 14a in this run: p50 "
+            f"{grpc['p50_ms']:.3f} ms (14a {h14['p50_ms']:.3f}), p90 {grpc['p90_ms']:.3f}, p99 "
+            f"{grpc['p99_ms']:.3f} ms (14a {h14['p99_ms']:.3f}), {grpc['qps']:.1f} QPS (14a {h14['qps']:.1f}), "
+            f"{GRPC_LAT_CLIENTS} clients, {NATIVE_GRPC_SECONDS:.0f} s; {frames} RawFrameClient answers; "
+            f"{batches} batches, K1 launches {k1}; {len(errs)} rows, max rel L2 {max(errs):.3e} [{card}]")
+        check(k1_equals_batches(k1, batches), f"27a: K1 launches {k1} != {batches} batches in the deployer process")
+        check(max(errs) <= SERVED_VS_LOCAL_REL_L2, "27a: rows of the deployed spec disagree with the in-process model")
+        out["27a"] = {"grpc": grpc, "grpc_14a": {k: h14[k] for k in ("p50_ms", "p99_ms", "qps")},
+                      "frame_answers": frames, "k1_launches": k1, "batches": batches, "rows": len(errs),
+                      "max_row_rel_l2": max(errs), "apply_s": first["apply_s"], "card_used": first["card_used"],
+                      "reserved": first["reserved"]}
+        # (b) a rolling re-apply with another max_wait_ms under 2 clients
+        bodies = singles["bodies"]
+        stop = threading.Event()
+        mine_by_client = [[] for _ in range(DEPLOY_ROLL_CLIENTS)]
+
+        def client(k):
+            channel, predict = grpc_callable(services, grpc_server, port)
+            mine = mine_by_client[k]
+            try:
+                while not stop.is_set():
+                    body = (k + len(mine) * DEPLOY_ROLL_CLIENTS) % len(bodies)
+                    t = time.perf_counter()
+                    try:
+                        answer = predict(bodies[body], timeout=120)
+                    except Exception as e:  # noqa: BLE001 — a client-visible failure, counted below
+                        answer = e
+                    mine.append((t, (time.perf_counter() - t) * 1e3, body, answer))
+            finally:
+                channel.close()
+            return mine
+
+        with ThreadPoolExecutor(DEPLOY_ROLL_CLIENTS) as pool:
+            futures = [pool.submit(client, k) for k in range(DEPLOY_ROLL_CLIENTS)]
+            try:
+                deadline = time.perf_counter() + 60.0
+                while min(len(m) for m in mine_by_client) < DEPLOY_ROLL_WARM and time.perf_counter() < deadline:
+                    time.sleep(0.01)
+                t_cmd = time.perf_counter()
+                rolled = deploy_cmd(ctx, "reapply", max_wait_ms=DEPLOY_ROLL_WAIT_MS)
+                t_done = time.perf_counter()
+                time.sleep(DEPLOY_ROLL_AFTER_S)
+            finally:
+                stop.set()
+            records = sorted((r for f in futures for r in f.result()), key=lambda r: r[0])
+        during = sum(1 for r in records if t_cmd <= r[0] + r[1] / 1e3 and r[0] <= t_done)
+        failed = [r for r in records if isinstance(r[3], Exception) or r[3].status.status != pb.Status.SUCCESS]
+        answers = [(r[2], r[3]) for r in records if r not in failed]
+        served_rows_errors(np, answers, singles, grpc_rows, refs, 1, errs)
+        mem_gap = rolled["card_used"] - r1["card_used"]
+        st = rolled["status"]
+        log(f"27b rolling re-apply (max_wait_ms {DEPLOY_ROLL_WAIT_MS}) under {DEPLOY_ROLL_CLIENTS} clients: "
+            f"generation {st['generation']} live {rolled['live_s']:.1f}s after the command, the old one drained, "
+            f"closed and unloaded {rolled['drain_s']:.1f}s later (drained {rolled['drained']}, loaded "
+            f"{rolled['old_loaded']}, weights held {rolled['old_module']}); {len(records)} requests, {during} of "
+            f"them overlapping the re-apply and the drain, {len(failed)} failed, rows max rel L2 {max(errs):.3e}; "
+            f"card memory "
+            f"{r1['card_used'] / 2 ** 30:.3f} GiB before the re-apply, {rolled['card_used'] / 2 ** 30:.3f} GiB after "
+            f"the drain ({mem_gap / 2 ** 20:+.1f} MiB, limit {DEPLOY_MEM_TOL / 2 ** 20:.0f}); the deployer reserves "
+            f"{r1['reserved'] / 2 ** 20:.0f} -> {rolled['reserved'] / 2 ** 20:.0f} MiB [{card}]")
+        check(not failed, f"27b: {len(failed)} requests failed across the cutover: {failed[:1]}")
+        check(st["generation"] == 2 and st["state"] == "Available" and rolled["max_wait_ms"] == [DEPLOY_ROLL_WAIT_MS],
+              f"27b: generation {st['generation']} ({st['state']}) serves with max_wait_ms {rolled['max_wait_ms']}")
+        check(rolled["drained"] and rolled["old_loaded"] == [False] and rolled["old_module"] == [False],
+              "27b: the old generation was not drained and unloaded")
+        check(mem_gap <= DEPLOY_MEM_TOL, f"27b: card memory grew {mem_gap / 2 ** 20:.1f} MiB across the re-apply "
+              "and the drain: the old generation kept its memory")
+        check(max(errs) <= SERVED_VS_LOCAL_REL_L2, "27b: rows across the cutover disagree with the in-process model")
+        check(during >= DEPLOY_ROLL_CLIENTS, f"27b: only {during} requests overlapped the re-apply")
+        out["27b"] = {"requests": len(records), "during": during, "failed": len(failed), "live_s": rolled["live_s"],
+                      "drain_s": rolled["drain_s"], "card_used_before": r1["card_used"],
+                      "card_used_after": rolled["card_used"], "mem_gap": mem_gap}
+        gone = deploy_cmd(ctx, "delete")
+        proc.wait(timeout=60)
+        check(gone["deleted"] and proc.returncode == 0, f"27: Deployer.delete answered {gone}, the process exited "
+              f"{proc.returncode}:\n{tail(ctx['logpath'])}")
+    finally:
+        stop_server(proc)
+        ctx["logfile"].close()
+        ctx["cleanup"]()
+    return out
+
+
+def hpa_spec():
+    return {"name": "hpa-resnet", "annotations": {"seldon.io/worker-ready-timeout-s": str(DEPLOY_CMD_TIMEOUT_S)},
+            "predictors": [{
+        "name": "main", "traffic": 100,
+        "hpa": {"min_replicas": 1, "max_replicas": 2, "target_qps_per_replica": HPA_QPS_TARGET,
+                "poll_interval_s": 1.0, "scale_down_stabilization_s": 600.0},
+        "graph": {"name": "resnet", "type": "MODEL", "implementation": "CUDA_SERVER", "parameters": HPA_PARAMS}}]}
+
+
+def replica_numbers(base: str) -> dict:
+    status = http(base + "/health/status")["jsonData"]
+    m = metrics_values(http(base + "/metrics"))
+    batches = next(v for k, v in m.items() if k.startswith("cudaserver_batches_total"))
+    requests = next(v for k, v in m.items() if k.startswith("cudaserver_batched_requests_total"))
+    # the replica's own counts: all since its start, and those when its load (warmup included) had finished
+    total, ready = status["kernel_launches"]["fused_normalize"], status["kernel_launches_at_ready"]["fused_normalize"]
+    return {"k1": total - ready, "k1_total": total, "k1_at_ready": ready, "batches": batches, "requests": requests}
+
+
+def launch_a13_hpa():
+    """Phase 27c's hpa deployment, applied by the port's Deployer in this
+    process on a loop thread of its own, so its first replica process loads
+    beside the kernel build; ``ready()`` waits for the apply, ``cleanup()``
+    deletes the deployment (if a phase has not) and ends the loop."""
+    import asyncio
+
+    from seldon_core_tpu_torch.controlplane import Deployer, TpuDeployment
+
+    loop = LoopThread()
+    deployer = Deployer(device_ids=[0])
+    launched = time.perf_counter()
+    pending = asyncio.run_coroutine_threadsafe(
+        deployer.apply(TpuDeployment.from_dict(hpa_spec()), ready_timeout_s=DEPLOY_CMD_TIMEOUT_S), loop.loop)
+
+    def cleanup():
+        with contextlib.suppress(Exception):
+            pending.result(timeout=DEPLOY_CMD_TIMEOUT_S)
+        if "hpa-resnet" in deployer.deployments:
+            with contextlib.suppress(Exception):
+                loop.run(deployer.delete("hpa-resnet"))
+        loop.close()
+
+    return {"procs": [], "logfile": open(os.devnull, "w"), "logpath": os.devnull, "launched": launched,
+            "ready": lambda: pending.result(timeout=DEPLOY_CMD_TIMEOUT_S), "loop": loop, "deployer": deployer,
+            "cleanup": cleanup}
+
+
+def hpa_paths(torch, np, kernels, resnet, card, ctx):
+    """27c: a CUDA_SERVER ResNet-50 root with an hpa block (``ctx`` from
+    ``launch_a13_hpa``); 4 clients scale it out to a second replica
+    process on the same card."""
+    from seldon_core_tpu_torch.controlplane import DeploymentSpecError, TpuDeployment, serve_deployment
+    from seldon_core_tpu_torch.controlplane.deployer import build_generation
+    from seldon_core_tpu_torch.proto import pb, services
+    from seldon_core_tpu_torch.runtime import grpc_server
+
+    loop, deployer = ctx["loop"], ctx["deployer"]
+    managed = ctx["ready"]()
+    out = {}
+    images, singles = single_bodies(np, pb, np.random.default_rng(SEED + 270))
+    local = reference_resnet(torch, resnet, SEED)
+    refs = reference_logits(torch, np, kernels, local, images)
+    del local
+    torch.cuda.empty_cache()
+    http_port, grpc_port = free_port(), free_port()
+    runner, handle = loop.run(serve_deployment(deployer, "hpa-resnet", host="127.0.0.1", http_port=http_port,
+                                               grpc_port=grpc_port))
+    try:
+        gen = managed.current
+        rs, asc = gen.replicasets[0], gen.autoscalers[0]
+        first = next(iter(rs.processes.values()))
+        base1 = f"http://127.0.0.1:{first.spec.http_port}"
+        free0, _ = torch.cuda.mem_get_info()
+        idle = replica_numbers(base1)
+        check(idle["k1"] == 0 and idle["batches"] == 0, f"27c: replica 1 launched K1 since its load: {idle}")
+        bodies = singles["bodies"]
+        stop, errs = threading.Event(), []
+
+        def client(k):
+            channel, predict = grpc_callable(services, grpc_server, grpc_port)
+            mine = []
+            try:
+                while not stop.is_set():
+                    body = (k + len(mine) * HPA_CLIENTS) % len(bodies)
+                    try:
+                        mine.append((body, predict(bodies[body], timeout=120)))
+                    except Exception as e:  # noqa: BLE001 — counted below
+                        mine.append((body, e))
+            finally:
+                channel.close()
+            return mine
+
+        with ThreadPoolExecutor(HPA_CLIENTS) as pool:
+            t_load = time.monotonic()
+            futures = [pool.submit(client, k) for k in range(HPA_CLIENTS)]
+            try:
+                deadline = time.monotonic() + HPA_SCALE_TIMEOUT_S
+                while not any(d.applied == 2 for d in list(asc.history)) and time.monotonic() < deadline:
+                    time.sleep(0.05)
+                decision = next((d for d in list(asc.history) if d.applied == 2), None)
+                check(decision is not None and rs.replica_count == 2,
+                      f"27c: no scale-out within {HPA_SCALE_TIMEOUT_S}s: {list(asc.history)}")
+                second = [sp for sp in rs.processes.values() if sp is not first][0]
+                base2 = f"http://127.0.0.1:{second.spec.http_port}"
+                while replica_numbers(base2)["batches"] == 0:
+                    check(time.monotonic() < deadline, "27c: the second replica never served a batch")
+                    time.sleep(0.02)
+                t_serving = time.monotonic()
+                free1, _ = torch.cuda.mem_get_info()
+                # the join: each client's next request goes to replica 2, whose first calls are its process's
+                # first (a cold channel and code paths, S2); the shares count once both answer side by side
+                prev = (replica_numbers(base1)["requests"], replica_numbers(base2)["requests"])
+                while True:
+                    time.sleep(HPA_SETTLE_POLL_S)
+                    now = (replica_numbers(base1)["requests"], replica_numbers(base2)["requests"])
+                    if now[0] > prev[0] and now[1] > prev[1]:
+                        break
+                    check(time.monotonic() < deadline, "27c: the two replicas never answered side by side")
+                    prev = now
+                t_settled = time.monotonic()
+                a0, b0 = replica_numbers(base1), replica_numbers(base2)
+                time.sleep(HPA_SHARE_SECONDS)
+                a1, b1 = replica_numbers(base1), replica_numbers(base2)
+                workers = http(f"http://127.0.0.1:{http_port}/debug/workers")
+                fleet = http(f"http://127.0.0.1:{http_port}/debug/fleet")
+            finally:
+                stop.set()
+            answers = [a for f in futures for a in f.result()]
+        # at rest: a launch counts when it is enqueued, a batch when it is read back
+        a2, b2 = replica_numbers(base1), replica_numbers(base2)
+        failed = [a for a in answers if isinstance(a[1], Exception)]
+        check(not failed, f"27c: {len(failed)} requests failed: {failed[:1]}")
+        served_rows_errors(np, answers, singles, lambda r, n: proto_logits(pb, r, n), refs, 1, errs)
+        share = {"replica_1": a1["requests"] - a0["requests"], "replica_2": b1["requests"] - b0["requests"]}
+        second_mem = free0 - free1
+        for name, n in (("replica 1", a2), ("replica 2", b2)):
+            check(k1_equals_batches(n["k1"], n["batches"]), f"27c: {name}: K1 launches {n['k1']} != {n['batches']} batches")
+        log(f"27c hpa CUDA_SERVER ResNet-50 (bf16, max_batch_size 8, 1-2 replicas, target {HPA_QPS_TARGET} QPS a "
+            f"replica) under {HPA_CLIENTS} clients: scale decision {decision.at - t_load:.2f}s into the load "
+            f"(qps {decision.metric:.1f}), second replica serving {t_serving - decision.at:.2f}s after the decision, both "
+            f"answering side by side {t_settled - t_serving:.2f}s after its first batch; "
+            f"its process took {second_mem / 2 ** 20:.0f} MiB of card memory; shares over {HPA_SHARE_SECONDS:.0f} s: "
+            f"{share}; {len(answers)} requests, none failed, rows max rel L2 {max(errs):.3e}; K1 launches since each "
+            f"process's load = its batches, read at rest ({a2['k1_total']} - {a2['k1_at_ready']} at ready = "
+            f"{a2['batches']:.0f}, {b2['k1_total']} - {b2['k1_at_ready']} = {b2['batches']:.0f}) [{card}]")
+        check(min(share.values()) > 0, f"27c: a replica took no share: {share}")
+        check(max(errs) <= SERVED_VS_LOCAL_REL_L2, "27c: rows through the replicas disagree with the in-process model")
+        names = sorted(workers["workers"])
+        check(len(names) == 2 and all(w["state"] == "running" for w in workers["workers"].values()),
+              f"27c: /debug/workers lists {workers['workers']}")
+        check(fleet["enabled"] and sorted(fleet["replicas"]) == names and fleet["rollup"]["replicas_total"] == 2,
+              f"27c: /debug/fleet rolls up {fleet.get('replicas')}")
+        log(f"27c /debug/workers: {names} running; /debug/fleet: replicas_total {fleet['rollup']['replicas_total']}, "
+            f"states {[r['state'] for r in fleet['replicas'].values()]} (a CudaServer has no telemetry ring)")
+        glm = TpuDeployment.from_dict({"name": "glm-hpa", "predictors": [{
+            "name": "main", "hpa": {"min_replicas": 1, "max_replicas": 2, "target_qps_per_replica": 1.0},
+            "graph": {"name": "lm", "type": "MODEL", "implementation": "GENERATIVE_LM"}}]})
+        try:
+            build_generation(glm, device_ids=[0])
+            raise SmokeFailure("27c: a GENERATIVE_LM hpa spec with max_replicas 2 was admitted")
+        except DeploymentSpecError as e:
+            check("C27" in str(e) and "device-exclusive" in str(e), f"27c: the refusal does not cite C27: {e}")
+            log(f"27c GENERATIVE_LM with max_replicas 2 refused: {e}")
+        pids = [sp.proc.pid for sp in rs.processes.values()]
+        out["27c"] = {"decision_s": decision.at - t_load, "scale_out_s": t_serving - decision.at,
+                      "join_s": t_settled - t_serving,
+                      "second_replica_bytes": second_mem, "shares": share, "requests": len(answers),
+                      "replica_k1": [a2["k1"], b2["k1"]], "replica_batches": [a2["batches"], b2["batches"]],
+                      "max_row_rel_l2": max(errs),
+                      "fleet_states": [r["state"] for r in fleet["replicas"].values()]}
+    finally:
+        async def stop_front():
+            await handle.stop(None)
+            await runner.cleanup()
+
+        loop.run(stop_front())
+    check(loop.run(deployer.delete("hpa-resnet")), "27c: Deployer.delete found no deployment")
+    check(all(not pid_alive(pid) for pid in pids), f"27c: a replica outlived Deployer.delete: {pids}")
+    return out
+
+
+def pid_alive(pid: int, wait_s: float = 15.0) -> bool:
+    deadline = time.monotonic() + wait_s
+    while time.monotonic() < deadline:
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            return False
+        time.sleep(0.05)
+    return True
+
+
+def template_paths(torch, np, kernels, StreamingLM, card, loop):
+    """27d: ``templates.render("generation")`` at the generation config,
+    float32 with TF32 off, applied by the Deployer in this process and
+    served on the Python front end; sequential prompts over gRPC and REST
+    through SeldonTpuClient against an in-process StreamingLM; the
+    contract tester; K4 = layers x decode calls."""
+    from seldon_core_tpu_torch.client.client import SeldonTpuClient
+    from seldon_core_tpu_torch.controlplane import Deployer, TpuDeployment, serve_deployment, templates
+    from seldon_core_tpu_torch.testing.contract import Contract, run_contract_test
+
+    rendered = templates.render("generation", {"name": "lm-template", **GEN_TEMPLATE})
+    root = rendered["predictors"][0]["graph"]
+    check(root["implementation"] == "STREAMING_LM", f"27d: the template renders {root['implementation']}")
+    engine = {"dtype": "float32", "device": SCHED_DEVICE, "max_new_tokens": GEN_TEMPLATE_NEW, **LM_ENGINE}
+    root["parameters"] += [{"name": k, "value": str(v), "type": "INT" if isinstance(v, int) else "STRING"}
+                           for k, v in engine.items()]
+    rng = np.random.default_rng(SEED + 271)
+    prompts = [rng.integers(0, LM_CONFIG["vocab_size"], n) for n in SEQUENTIAL_PROMPTS]
+    out = {}
+    deployer = Deployer(device_ids=[0])
+    with no_tf32(torch):
+        t0 = time.perf_counter()
+        managed = loop.run(deployer.apply(TpuDeployment.from_dict(rendered), ready_timeout_s=DEPLOY_CMD_TIMEOUT_S))
+        apply_s = time.perf_counter() - t0
+        try:
+            http_port, grpc_port = free_port(), free_port()
+            runner, handle = loop.run(serve_deployment(deployer, "lm-template", host="127.0.0.1",
+                                                       http_port=http_port, grpc_port=grpc_port))
+            lm = managed.gateway.predictors[0].executor.component("lm")
+            lm.load()
+            served = {}
+            stats0 = lm.engine.engine_stats()
+            sched_sync(torch)
+            kernels.reset_launch_counts()
+            for transport in ("grpc", "rest"):
+                client = SeldonTpuClient(host="127.0.0.1", http_port=http_port, grpc_port=grpc_port,
+                                         transport=transport, timeout_s=300.0)
+                rows = []
+                for p in prompts:
+                    resp = client.predict(np.asarray([p], np.int64), meta={"tags": {"max_new_tokens":
+                                                                                    GEN_TEMPLATE_NEW}})
+                    check(resp.success, f"27d: a {transport} request failed: {str(resp.raw)[:300]}")
+                    rows.append(np.asarray(resp.data, np.int64).reshape(-1))
+                client.close()
+                served[transport] = rows
+            sched_sync(torch)
+            k4 = sum(v for k, v in kernels.launch_counts().items() if k.startswith("paged_decode"))
+            calls = decode_calls(lm.engine.engine_stats()) - decode_calls(stats0)
+            check(lm.engine._kernel_active and calls > 0 and k4 == LM_CONFIG["num_layers"] * calls,
+                  f"27d: K4 launched {k4} times over {calls} decode calls a layer on the deployed engine")
+            contract = Contract(features=[{"name": "tokens", "dtype": "int64",
+                                           "range": [0, LM_CONFIG["vocab_size"] - 1],
+                                           "shape": [GEN_CONTRACT_TOKENS]}])
+            client = SeldonTpuClient(host="127.0.0.1", http_port=http_port, transport="rest", timeout_s=300.0)
+            tested = run_contract_test(contract, client, n_requests=GEN_CONTRACT_REQUESTS, seed=SEED + 272)
+            client.close()
+            check(tested["failed"] == 0 and tested["succeeded"] == GEN_CONTRACT_REQUESTS,
+                  f"27d: the contract tester: {tested}")
+        finally:
+            async def teardown():
+                await handle.stop(None)
+                await runner.cleanup()
+                return await deployer.delete("lm-template")
+
+            loop.run(teardown())
+        ref = StreamingLM(device=SCHED_DEVICE, dtype="float32", max_new_tokens=GEN_TEMPLATE_NEW, **LM_CONFIG,
+                          **LM_ENGINE)
+        ref.load()
+        try:
+            local = [np.asarray(ref.predict(np.asarray([p], np.int64), [], {}), np.int64).reshape(-1) for p in prompts]
+        finally:
+            ref.unload()
+    equal = {t: sum(int(np.array_equal(a, b)) for a, b in zip(rows, local)) for t, rows in served.items()}
+    log(f"27d templates.render('generation') (vocab {GEN_TEMPLATE['vocab_size']}, d{GEN_TEMPLATE['d_model']}, "
+        f"{GEN_TEMPLATE['num_layers']} layers of {GEN_TEMPLATE['num_heads']} heads, f32, TF32 off) applied in "
+        f"{apply_s:.1f}s and served on the Python front end: prompts {list(SEQUENTIAL_PROMPTS)} x "
+        f"{GEN_TEMPLATE_NEW} new tokens through SeldonTpuClient equal the in-process StreamingLM's on "
+        f"{equal} of {len(prompts)}; K4 {k4} = {LM_CONFIG['num_layers']} x {calls} decode calls; contract tester "
+        f"{tested['succeeded']}/{tested['requests']} [{card}]")
+    check(all(v == len(prompts) for v in equal.values()), f"27d: served tokens differ from in-process: {equal}")
+    out["27d"] = {"apply_s": apply_s, "equal": equal, "k4_launches": k4, "decode_calls": calls,
+                  "contract": tested}
+    return out
+
+
+def control_plane_paths(torch, np, kernels, resnet, StreamingLM, card, native_numbers):
+    """Phase 27: A13 on the card.  (c)'s deployment and (a)-(b)'s deployer
+    process launched early with the other phases' servers."""
+    hpa = EARLY.take("a13_hpa", launch_a13_hpa)
+    try:
+        loop = LoopThread()
+        try:
+            out = template_paths(torch, np, kernels, StreamingLM, card, loop)
+        finally:
+            loop.close()
+        out.update(hpa_paths(torch, np, kernels, resnet, card, hpa))
+    finally:
+        hpa["cleanup"]()
+    out.update(deployment_paths(torch, np, kernels, resnet, card, native_numbers))
+    return out
+
+
 def run() -> int:
     try:
         import torch
@@ -7638,7 +8265,8 @@ def run() -> int:
                              ("gateway", launch_gateway), ("native", launch_native), ("a4", launch_a4),
                              ("a2_2", launch_a2_2), ("w8a8_lm", launch_w8a8_lm),
                              ("a5", lambda: launch_a5(torch, np, resnet, load_lm_params, make_lora_params)),
-                             ("a8_12", launch_a8_12), ("a9", launch_a9), ("a10", launch_a10)):
+                             ("a8_12", launch_a8_12), ("a9", launch_a9), ("a10", launch_a10), ("a13", launch_a13),
+                             ("a13_hpa", launch_a13_hpa)):
             EARLY.launch(name, launch)
         t0 = time.perf_counter()
         sources = ("fused_normalize", "paged_decode", "flash_attention", "int8_matmul")
@@ -7727,6 +8355,8 @@ def run() -> int:
         a11_numbers = component_paths(torch, np, resnet, CudaServer,
                                       (outliers, explainers, reqlogger, persistence, units), card)
         clock.mark("phase 26")
+        a13_numbers = control_plane_paths(torch, np, kernels, resnet, StreamingLM, card, native_numbers)
+        clock.mark("phase 27")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -7767,6 +8397,7 @@ def run() -> int:
         "detection": det_numbers,
         "disaggregated": disagg_numbers,
         "components": a11_numbers,
+        "control_plane": a13_numbers,
         "phase_seconds": clock.seconds,
         "seconds": time.perf_counter() - t_start,
     }
@@ -7796,6 +8427,12 @@ def run() -> int:
                                 "batches": det_numbers["24a"]["batches"],
                                 "path": f"served {DET_MODEL} at {DET_SIZE}x{DET_SIZE}, uint8 rawTensor with normalize "
                                         "(phase 24a)"},
+        "launches_on_phase27": {
+            "deployed_spec": {"launches": a13_numbers["27a"]["k1_launches"], "batches": a13_numbers["27a"]["batches"]},
+            "hpa_replicas": {"launches": a13_numbers["27c"]["replica_k1"],
+                             "batches": a13_numbers["27c"]["replica_batches"]},
+            "path": f"{os.path.relpath(DEPLOY_SPEC, ROOT)} applied by the port's Deployer behind the C++ ingress "
+                    "(27a), and a CUDA_SERVER hpa root's two replica processes on one card (27c)"},
         "shape_512": {f"{b}x{DET_SIZE}x{DET_SIZE}x3": {k: det_numbers["k1_512"][b][k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "copy_ms", "grid")} for b in (DET_BATCH, 1)},
         "launch_floor_ms": t32["launch_floor_ms"], "copy_ms": t32["copy_ms"],
@@ -7867,6 +8504,10 @@ def run() -> int:
                 "path": "DisaggregatedLM's decode engine over pages handed off by two in-process prefill engines "
                         "(f32 and bf16, 25a) and by a served PrefillLM over gRPC (25b); launches = layers x the "
                         "decode engine's decode calls, and the prefill engines make none (phase 25)"}
+            kernel_line["kernels"][-1]["launches_on_phase27d"] = {
+                "launches": a13_numbers["27d"]["k4_launches"], "decode_calls": a13_numbers["27d"]["decode_calls"],
+                "path": "the STREAMING_LM deployment rendered by templates.render('generation') and applied by the "
+                        "port's Deployer, f32, sequential prompts over gRPC and REST (phase 27d)"}
     serving, causal = flash_timings["serving"], flash_timings["causal"]
     kernel_line["kernels"].append({
         "name": "flash_attention",

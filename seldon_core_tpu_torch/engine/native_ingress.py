@@ -83,9 +83,10 @@ def _live_model_fn(gateway, feature_dim: int, out_dim: int):
     """The batch callback: it re-resolves the component through the
     gateway on every batch, so a swapped component serves on the fast
     lane too; a swap that changes the flat shapes fails the batch loudly
-    rather than serving wrong tensors (re-serve the deployment)."""
+    rather than serving wrong tensors (re-serve the deployment).  The
+    batch counts as in flight on its service, so a drain waits for it."""
 
-    def model_fn(batch):
+    def resolve():
         svc = gateway.entries[0][0] if len(gateway.entries) == 1 else None
         fast = svc.single_local_model() if svc is not None else None
         if fast is None:
@@ -93,7 +94,18 @@ def _live_model_fn(gateway, feature_dim: int, out_dim: int):
         component = fast[1]
         if int(component.flat_feature_dim()) != feature_dim or int(component.flat_out_dim()) != out_dim:
             raise RuntimeError("the model's shapes changed under the native ingress; re-serve the deployment")
-        return component.raw_batch_call(batch)
+        return svc, component
+
+    def model_fn(batch):
+        svc, component = resolve()
+        with svc.in_flight():
+            if not svc.paused:
+                return component.raw_batch_call(batch)
+        # paused: the service resolved just before a rolling re-apply's
+        # cutover is draining behind the newer generation; serve there
+        svc, component = resolve()
+        with svc.in_flight():
+            return component.raw_batch_call(batch)
 
     return model_fn
 

@@ -46,9 +46,12 @@ snapshot, and one request's capture stitched with its spans.  A scrape of
 ``/metrics`` whose ``Accept`` asks for ``application/openmetrics-text``
 gets OpenMetrics 1.0 with the histograms' trace exemplars.
 
-Not ported: ``/debug/workers`` and ``/debug/fleet``, which read the
-supervisor and the fleet view (``ROADMAP.md`` §A item 13), and the
-``grpc.aio`` front end: gRPC is
+``/debug/workers`` reads the deployment's supervised workers (the
+``supervisor=`` the deployer passes: remote nodes and hpa replicas) and
+each local engine's health; ``/debug/fleet`` polls their
+``/debug/telemetry`` through ``controlplane/fleetview.py``.
+
+Not ported: the ``grpc.aio`` front end: gRPC is
 served by the sync server of ``engine/sync_server.py`` alone (queued in
 ``ROADMAP.md`` §A until a deployment needs it).  Breakers, hedging,
 fallbacks and replica balancing run in the engine
@@ -86,10 +89,15 @@ class Gateway:
         predictors: Sequence[Tuple[PredictorService, float]],
         shadows: Sequence[PredictorService] = (),
         seed: Optional[int] = None,
+        supervisor=None,
         request_logger=None,
     ):
         if not predictors:
             raise ValueError("gateway needs at least one predictor")
+        # the deployment's out-of-process workers (None when every node is
+        # in-process): /debug/workers reads through it so the alert layer
+        # sees a restart-exhausted (silently dead) worker
+        self.supervisor = supervisor
         # the deployment's pair sink (utils/reqlogger.py): it sees every
         # finalized pair of the async ingress, whichever predictor served
         # it; a predictor's own logger sees its graph's pairs instead
@@ -606,6 +614,101 @@ def build_gateway_app(gateway: Gateway, auth=None) -> web.Application:
         return web.json_response({"puid": puid, "found": True, "capture": capture_doc, "spans": spans,
                                   "timeline": timeline})
 
+    async def debug_workers(_r: web.Request) -> web.Response:
+        """Supervised-worker lifecycle: alive/ready/restarts plus
+        the ``exhausted`` flag — a worker whose restart budget is spent
+        is DEAD until redeployed, and this endpoint is where the
+        breaker/alert layer (and operators) see that instead of
+        inferring it from connection refusals."""
+        sup = gateway.supervisor
+        health = sup.health() if sup is not None else {}
+        # engine health: the device-health watchdog's state per
+        # local paged engine — healthy | degraded | evacuating — plus
+        # the quarantine/migration counters the evacuation layer and
+        # alerting read alongside the process lifecycle states above
+        engines: Dict[str, Dict[str, object]] = {}
+        for svc in gateway.predictors:
+            for unit in svc.graph.walk():
+                component = svc.executor.component(unit.name)
+                engine = getattr(component, "engine", None)
+                stats_fn = getattr(engine, "engine_stats", None)
+                if stats_fn is None:
+                    continue
+                try:
+                    s = stats_fn()
+                except Exception:  # noqa: BLE001 — one sick engine must
+                    # not take the whole debug surface down
+                    engines[f"{svc.name}/{unit.name}"] = {"error": True}
+                    continue
+                engines[f"{svc.name}/{unit.name}"] = {
+                    "health": s.get("health", "healthy"),
+                    "health_state": s.get("health_state", 0),
+                    "watchdog_trips": s.get("watchdog_trips", 0),
+                    "quarantined": s.get("quarantined", 0),
+                    "migrated_out": s.get("migrated_out", 0),
+                    "migrated_in": s.get("migrated_in", 0),
+                }
+        return web.json_response({
+            "workers": health,
+            "engines": engines,
+            "degraded": sorted(
+                name for name, h in engines.items()
+                if h.get("health") not in (None, "healthy")
+            ),
+            "exhausted": sorted(
+                name for name, h in health.items() if h.get("exhausted")
+            ),
+        })
+
+    async def debug_fleet(_r: web.Request) -> web.Response:
+        """The merged fleet view: per-replica freshness +
+        saturation, adapter/prefix residency maps and the fleet rollup.
+        Endpoints come from ``SELDON_TPU_FLEET_ENDPOINTS``, else from
+        the local supervisor's workers, read again on every call so that
+        hpa replicas join and leave the view; polls happen at most once
+        per poll interval, executor-side (urllib must not block the loop)."""
+        import asyncio as _asyncio
+        import time as _time
+
+        from seldon_core_tpu_torch.controlplane import fleetview
+
+        agg = getattr(gateway, "_fleet_aggregator", None)
+        if agg is not None and getattr(gateway, "_fleet_from_supervisor", False):
+            agg.set_endpoints(fleetview.endpoints_from_supervisor(gateway.supervisor))
+        if agg is None:
+            endpoints = fleetview.endpoints_from_knob()
+            gateway._fleet_from_supervisor = False
+            if not endpoints and gateway.supervisor is not None:
+                endpoints = fleetview.endpoints_from_supervisor(
+                    gateway.supervisor
+                )
+                gateway._fleet_from_supervisor = True
+            if not endpoints:
+                return web.json_response({
+                    "enabled": False,
+                    "info": "no fleet endpoints (set "
+                            "SELDON_TPU_FLEET_ENDPOINTS or run workers "
+                            "under the local supervisor)",
+                })
+            agg = fleetview.TelemetryAggregator(endpoints)
+            try:
+                from seldon_core_tpu_torch.utils.metrics import (
+                    FleetPrometheusBridge,
+                )
+
+                agg.bridge = FleetPrometheusBridge(agg)
+            except Exception:  # noqa: BLE001 — metrics never block the view
+                logger.exception("fleet prometheus bridge unavailable")
+            gateway._fleet_aggregator = agg
+            gateway._fleet_last_poll = 0.0
+        now = _time.monotonic()
+        if now - getattr(gateway, "_fleet_last_poll", 0.0) >= agg.poll_s:
+            gateway._fleet_last_poll = now
+            await _asyncio.get_running_loop().run_in_executor(
+                None, agg.poll_once
+            )
+        return web.json_response({"enabled": True, **agg.fleet_view()})
+
     async def debug_knobs(_r: web.Request) -> web.Response:
         """The knob registry with this process's values, and the names
         that are set."""
@@ -633,6 +736,8 @@ def build_gateway_app(gateway: Gateway, auth=None) -> web.Application:
     app.router.add_route("*", "/unpause", unpause)
     app.router.add_get("/metrics", metrics_endpoint)
     app.router.add_get("/debug/engine", debug_engine)
+    app.router.add_get("/debug/workers", debug_workers)
+    app.router.add_get("/debug/fleet", debug_fleet)
     app.router.add_get("/debug/traces", debug_traces)
     app.router.add_get("/debug/knobs", debug_knobs)
     app.router.add_get("/debug/weights", debug_weights)

@@ -15,6 +15,7 @@ answers :meth:`PredictorService.explain`.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import logging
 import threading
 import time
@@ -103,6 +104,22 @@ class PredictorService:
                 self.stats["failures"] += 1
             if self._inflight == 0:
                 self._inflight_zero.set()
+
+    @contextlib.contextmanager
+    def in_flight(self):
+        """Hold the in-flight count ``drain`` waits on for work that
+        reaches a component without ``predict`` (the native ingress's fast
+        lane), so a drained generation is unloaded only after it."""
+        with self._stats_lock:
+            self._inflight += 1
+            self._inflight_zero.clear()
+        try:
+            yield
+        finally:
+            with self._stats_lock:
+                self._inflight -= 1
+                if self._inflight == 0:
+                    self._inflight_zero.set()
 
     # ------------------------------------------------------------- lifecycle
 

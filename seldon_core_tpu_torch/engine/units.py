@@ -151,5 +151,17 @@ def _lookup_builtin(name: str) -> Callable[..., Any]:
     return factory
 
 
+def implementation_path(name: str) -> str:
+    """Dotted module.Class path of a registered implementation — the
+    form the microservice CLI loads (used when a node runs its
+    implementation out-of-process).  A prepackaged server's path is read
+    from the registry without importing it."""
+    key = name.upper()
+    if key not in BUILTIN_IMPLEMENTATIONS and key in PREPACKAGED:
+        return PREPACKAGED[key].replace(":", ".")
+    factory = _lookup_builtin(name)
+    return f"{factory.__module__}.{factory.__qualname__}"
+
+
 def make_builtin(name: str, **kwargs: Any) -> Any:
     return _lookup_builtin(name)(**kwargs)

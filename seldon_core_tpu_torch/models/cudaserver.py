@@ -330,6 +330,10 @@ class CudaServer(TPUComponent):
         self.module: Optional[torch.nn.Module] = None
         self.batcher: Optional[DynamicBatcher | MultiSignatureBatcher] = None
         self._load_time_s: Optional[float] = None
+        # the process's launch counts when load finished, warmup included:
+        # the launches of served traffic are the counts less these, while
+        # nothing resets them (a replica process, /health/status)
+        self.launches_at_ready: Dict[str, int] = {}
         self._norm_scale: Optional[torch.Tensor] = None
         self._norm_shift: Optional[torch.Tensor] = None
 
@@ -547,6 +551,7 @@ class CudaServer(TPUComponent):
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         self._load_time_s = time.perf_counter() - t0
+        self.launches_at_ready = kernels.launch_counts()
         self._loaded = True
         logger.info(
             "cudaserver %s loaded on %s in %.2fs (buckets=%s, dtype=%s)",
@@ -554,9 +559,17 @@ class CudaServer(TPUComponent):
         )
 
     def unload(self) -> None:
+        """Stop the batcher (its threads are joined) and let go of the
+        weights, so a drained generation returns its card memory; a later
+        request loads again."""
         if self.batcher is not None:
             self.batcher.stop()
         self._loaded = False
+        self.module = None
+        self._qparams = {}
+        self._norm_scale = self._norm_shift = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     # -------------------------------------------------------------- serving
 
@@ -719,5 +732,6 @@ class CudaServer(TPUComponent):
             "model_uri": self.model_uri,
             "checkpoint_times": self.checkpoint_times,
             "kernel_launches": kernels.launch_counts(),
+            "kernel_launches_at_ready": self.launches_at_ready,
         }
 

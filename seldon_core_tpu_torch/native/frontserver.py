@@ -612,3 +612,21 @@ def read_http_response(sock, buf: bytes, timeout_s: Optional[float] = None):
             raise ConnectionError("server closed mid-body")
         rest += chunk
     return status, rest[:length], rest[length:]
+
+
+def pack_raw_frame(arr: np.ndarray) -> bytes:
+    """Encode an array as the binary raw-tensor frame (SRT1), through
+    the buffer-view codec (``codec/bufview.py``): one framing shared with
+    the zero-copy lane and the C++ parser."""
+    from seldon_core_tpu_torch.codec import bufview
+
+    return bufview.pack_frame(np.asarray(arr))
+
+
+def unpack_raw_frame(data: bytes) -> np.ndarray:
+    """Decode a binary raw-tensor frame (SRT1) into an array (a view over
+    ``data``; ``codec/bufview.py``)."""
+    from seldon_core_tpu_torch.codec import bufview
+
+    return bufview.unpack_frame(data).array()
+

@@ -87,6 +87,11 @@ def chunk_message(msg, chunk_bytes: int = STREAM_CHUNK_BYTES):
         yield pb.MessageChunk(data=raw[off:off + chunk_bytes])
 
 
+def assemble_chunks(chunks, cls):
+    """Reassemble a MessageChunk iterable into a `cls` message."""
+    return cls.FromString(b"".join(c.data for c in chunks))
+
+
 def full_service_name(service: str) -> str:
     return f"{PACKAGE}.{service}"
 
@@ -133,6 +138,26 @@ def generic_handler(service: str, dispatch: Dict[str, Callable]):
             response_serializer=lambda msg, _c=resp_cls: msg.SerializeToString(),
         )
     return grpc.method_handlers_generic_handler(full_service_name(service), handlers)
+
+
+def stream_callable(channel, service: str, method: str):
+    """Client-side stream-stream callable for service/method."""
+    _req_cls, resp_cls = STREAM_METHODS[service][method]
+    return channel.stream_stream(
+        method_path(service, method),
+        request_serializer=lambda msg: msg.SerializeToString(),
+        response_deserializer=resp_cls.FromString,
+    )
+
+
+def unary_stream_callable(channel, service: str, method: str):
+    """Client-side unary-stream callable (server streaming)."""
+    _req_cls, resp_cls = UNARY_STREAM_METHODS[service][method]
+    return channel.unary_stream(
+        method_path(service, method),
+        request_serializer=lambda msg: msg.SerializeToString(),
+        response_deserializer=resp_cls.FromString,
+    )
 
 
 def unary_callable(channel, service: str, method: str):

@@ -56,6 +56,12 @@ class NotImplementedByUser(MicroserviceError):
 class TPUComponent:
     """Base class for models / routers / transformers / combiners."""
 
+    # True for components whose caches are sized to the whole card, so a
+    # second process on the card would run out of memory: the control
+    # plane's hpa guard refuses subprocess replicas of them
+    # (controlplane/deployer.py, C27)
+    device_exclusive: bool = False
+
     def __init__(self, **kwargs: Any):
         pass
 

@@ -276,6 +276,20 @@ ENV_KNOBS: Dict[str, Knob] = _knobs(
     Knob("SELDON_TPU_TELEMETRY_RING", "int", "256", False,
          "telemetry time-series ring capacity (samples per replica)",
          "architecture.md §5c-ter"),
+    Knob("SELDON_TPU_FLEET_ENDPOINTS", "str", "", True,
+         "comma-separated replica base URLs (name=http://host:port,...) "
+         "the gateway's fleet aggregator polls for /debug/fleet (empty/0 "
+         "= derive from the local supervisor's workers, else fleet view "
+         "off)",
+         "architecture.md §5c-ter"),
+    Knob("SELDON_TPU_FLEET_POLL_S", "float", "2", False,
+         "fleet aggregator poll interval (seconds)",
+         "architecture.md §5c-ter"),
+    Knob("SELDON_TPU_FLEET_STALE_S", "float", "10", False,
+         "age after which a non-responding replica's fleet entry is "
+         "marked stale (it keeps its last snapshot; the poll loop never "
+         "fails over one dead replica)",
+         "architecture.md §5c-ter"),
     Knob("SELDON_TPU_CAPTURE", "flag", "0", True,
          "per-request capture plane: head-sampled / on-error / p99-breach "
          "requests stored as SRT1 capture containers for GET "
@@ -319,6 +333,28 @@ ANNOTATIONS: Dict[str, Annotation] = {
                    "REST read timeout (ms)"),
         Annotation("seldon.io/rest-connection-timeout", "int",
                    "REST connect timeout (ms)"),
+        Annotation("seldon.io/frontend", "str",
+                   "gateway frontend selection (e.g. 'native')"),
+        Annotation("seldon.io/worker-ready-timeout-s", "float",
+                   "supervised remote-worker readiness deadline"),
+        Annotation("seldon.io/oauth-key", "str", "gateway OAuth client key"),
+        Annotation("seldon.io/oauth-secret", "str", "gateway OAuth client secret"),
+        Annotation("seldon.io/oauth-token-ttl-s", "int", "OAuth token lifetime"),
+        Annotation("seldon.io/tls-cert", "path", "TLS certificate file"),
+        Annotation("seldon.io/tls-key", "path", "TLS private-key file"),
+        Annotation("seldon.io/tls-ca", "path", "TLS CA bundle for client auth"),
+        Annotation("seldon.io/tls-require-client-auth", "flag",
+                   "require mTLS client certificates"),
+        Annotation("seldon.io/request-log-url", "str",
+                   "request/response logger HTTP sink"),
+        Annotation("seldon.io/request-log-jsonl", "path",
+                   "request/response logger JSONL sink"),
+        Annotation("seldon.io/request-log-kafka", "str",
+                   "request/response logger Kafka sink (broker/topic)"),
+        Annotation("seldon.io/request-logger", "str",
+                   "gateway-level request/response pair logger sink spec: "
+                   "http(s)://url | kafka:brokers/topic | a JSONL file path "
+                   "(pairs stamped with puid + traceparent + cost)"),
     )
 }
 

@@ -59,6 +59,18 @@ def import_component(dotted: str, **kwargs: Any) -> Any:
     return getattr(module, class_name)(**kwargs)
 
 
+# the node roles a packaged component may declare (runtime/packager.py);
+# the CLI accepts the flag so an artifact's launch line runs unchanged
+SERVICE_TYPES = (
+    "MODEL",
+    "ROUTER",
+    "TRANSFORMER",
+    "OUTPUT_TRANSFORMER",
+    "COMBINER",
+    "OUTLIER_DETECTOR",
+)
+
+
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description="seldon-core-tpu microservice (PyTorch/CUDA port)")
     parser.add_argument("component", help="dotted path module.Class of the user component")
@@ -71,6 +83,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         help="typed parameter list JSON",
     )
     parser.add_argument("--unit-id", default=os.environ.get(UNIT_ID_ENV_NAME, ""))
+    parser.add_argument("--service-type", choices=SERVICE_TYPES, default="MODEL")
     parser.add_argument("--persistence", action="store_true", help="periodically checkpoint component state")
     parser.add_argument("--persistence-dir", default=os.environ.get("PERSISTENCE_DIR", os.path.join(tempfile.gettempdir(), "seldon-tpu-state")))
     parser.add_argument("--persistence-period-s", type=float, default=60.0)

@@ -995,3 +995,211 @@ class GenerationPrometheusBridge:
             self._metric("gauge", "seldon_tpu_engine_chunk_p99_ms",
                          "chunk-wall p99 over the flight recorder window").set(
                 float(recorder.stats()["chunk_p99_ms"]))
+
+
+# ---------------------------------------------------------------------------
+# control plane: the autoscaler's latency signal, worker lifecycle and the
+# fleet view (controlplane/{autoscaler,supervisor,fleetview}.py)
+# ---------------------------------------------------------------------------
+
+class HistogramQuantileSampler:
+    """Windowed quantile over one histogram series.
+
+    Each call diffs the cumulative bucket counts against the previous
+    sample and interpolates the quantile from the window's bucket deltas
+    (the same estimate PromQL's histogram_quantile(rate(...)) gives) —
+    the latency signal the autoscaler consumes for target_p95_ms
+    policies.  Returns 0.0 until traffic arrives.
+    """
+
+    def __init__(self, histogram_series: "_HistogramSeries", quantile: float = 0.95):
+        self._series = histogram_series
+        self.quantile = float(quantile)
+        self._last: Optional[List[float]] = None
+
+    def _cumulative(self) -> Tuple[List[float], List[float]]:
+        counts, _total = self._series.snapshot()  # per bucket, not cumulative
+        cum, acc = [], 0.0
+        for c in counts:
+            acc += c
+            cum.append(acc)
+        return [float(b) for b in self._series._upper], cum  # noqa: SLF001 — same module
+
+    def __call__(self) -> float:
+        bounds, cum = self._cumulative()
+        if self._last is None:
+            self._last = cum
+            return 0.0
+        deltas = [c - p for c, p in zip(cum, self._last)]
+        self._last = cum
+        if any(d < 0 for d in deltas):
+            # a counter reset mid-window: this sample is a fresh baseline
+            # and reports no traffic, as the first call does (PromQL's
+            # rate() makes the same choice on resets)
+            return 0.0
+        total = deltas[-1]
+        if total <= 0:
+            return 0.0
+        rank = self.quantile * total
+        prev_bound = 0.0
+        prev_cum = 0.0
+        for bound, c in zip(bounds, deltas):
+            if c >= rank:
+                if bound == math.inf:
+                    return prev_bound
+                span = c - prev_cum
+                frac = (rank - prev_cum) / span if span > 0 else 1.0
+                return prev_bound + frac * (bound - prev_bound)
+            prev_bound, prev_cum = bound, c
+        return prev_bound
+
+
+def api_latency_sampler(observer: PrometheusObserver, quantile: float = 0.95,
+                        method: str = "predictions") -> HistogramQuantileSampler:
+    """Quantile sampler over an observer's server-request histogram
+    (seconds); multiply by 1000 at the call site for ms targets."""
+    labels = {
+        "deployment_name": observer.deployment_name,
+        "predictor_name": observer.predictor_name,
+        "method": method,
+        "code": "200",
+    }
+    hist = observer._cache.get(  # noqa: SLF001 — same module
+        "histogram",
+        "seldon_api_engine_server_requests_duration_seconds",
+        tuple(sorted(labels)),
+        "external API request latency",
+    )
+    return HistogramQuantileSampler(hist.labels(**labels), quantile=quantile)
+
+
+def record_worker_health(worker: str, restarts: int, exhausted: bool,
+                         registry: Optional[Registry] = None) -> None:
+    """Supervised-worker lifecycle for the alert layer: cumulative
+    restart count and the restart-budget-exhausted flag (the silent-dead
+    state ``WorkerRestartsExhausted`` alerts on).  Never raises."""
+    try:
+        cache = _cache_for(registry)
+        cache.get("gauge", "seldon_tpu_worker_restarts", ("worker",),
+                  "restarts performed by the supervisor for this worker").labels(worker=worker).set(float(restarts))
+        cache.get("gauge", "seldon_tpu_worker_exhausted", ("worker",),
+                  "1 when the worker exceeded its restart budget and the supervisor gave up "
+                  "(the worker is dead until redeployed)").labels(worker=worker).set(1.0 if exhausted else 0.0)
+    except Exception:  # noqa: BLE001 — metrics never break supervision
+        logger.exception("worker health metric failed for %s", worker)
+
+
+# TelemetryAggregator.fleet_rollup() key -> (kind, metric name, doc).
+# COMPLETE BY CONTRACT like the engine bridge: every rollup key must
+# appear here or in FLEET_EXCLUDED (tests/test_torch_port_fleetview.py),
+# so a new fleet aggregate cannot silently skip export.
+# All gauges: the rollup is a point-in-time merge, re-summed per poll.
+FLEET_METRICS: Dict[str, Tuple[str, str, str]] = {
+    "replicas_total": ("gauge", "seldon_tpu_fleet_replicas",
+                       "replica endpoints the aggregator polls"),
+    "replicas_ok": ("gauge", "seldon_tpu_fleet_replicas_ok",
+                    "replicas with a fresh telemetry snapshot"),
+    "replicas_stale": ("gauge", "seldon_tpu_fleet_replicas_stale",
+                       "replicas whose last snapshot aged past the "
+                       "staleness window (not crashed — unpolled)"),
+    "replicas_incompatible": ("gauge",
+                              "seldon_tpu_fleet_replicas_incompatible",
+                              "replicas answering with a future/invalid "
+                              "telemetry schema"),
+    "fleet_queue_depth": ("gauge", "seldon_tpu_fleet_queue_depth",
+                          "queued streams across ok replicas"),
+    "fleet_active_slots": ("gauge", "seldon_tpu_fleet_active_slots",
+                           "live decode slots across ok replicas"),
+    "fleet_slots_total": ("gauge", "seldon_tpu_fleet_slot_capacity",
+                          "decode slot capacity across ok replicas"),
+    "fleet_goodput_tok_s": ("gauge", "seldon_tpu_fleet_goodput_tok_s",
+                            "decode tokens/s served across ok replicas"),
+    "fleet_prefill_tok_s": ("gauge", "seldon_tpu_fleet_prefill_tok_s",
+                            "prefill tokens/s across ok replicas"),
+    "fleet_completed_s": ("gauge", "seldon_tpu_fleet_completed_s",
+                          "streams completed/s across ok replicas"),
+    "fleet_shed_s": ("gauge", "seldon_tpu_fleet_shed_s",
+                     "streams shed/s across ok replicas"),
+    "fleet_preempted_s": ("gauge", "seldon_tpu_fleet_preempted_s",
+                          "streams preempted/s across ok replicas"),
+    "fleet_migrated_out_s": ("gauge", "seldon_tpu_fleet_migrated_out_s",
+                             "streams live-migrated/s across ok replicas"),
+    "fleet_pool_pages_used": ("gauge", "seldon_tpu_fleet_pool_pages_used",
+                              "KV pool pages in use across ok replicas"),
+    "fleet_pool_pages_total": ("gauge", "seldon_tpu_fleet_pool_page_capacity",
+                               "KV pool page capacity across ok replicas"),
+    "fleet_cost_page_s_s": ("gauge", "seldon_tpu_fleet_cost_page_s_s",
+                            "KV page-seconds accrued per second across "
+                            "ok replicas (cost ledger burn rate)"),
+    "fleet_prefix_hit_pct": ("gauge", "seldon_tpu_fleet_prefix_hit_pct",
+                             "mean prefix-cache hit % across ok replicas"),
+    "fleet_saturation_max": ("gauge", "seldon_tpu_fleet_saturation_max",
+                             "worst replica saturation score [0,1] — the "
+                             "FleetReplicaSaturated alert reads this"),
+    "fleet_saturation_mean": ("gauge", "seldon_tpu_fleet_saturation_mean",
+                              "mean replica saturation score [0,1]"),
+    "fleet_chunk_p99_ms": ("gauge", "seldon_tpu_fleet_chunk_p99_ms",
+                           "worst per-replica chunk-wall p99 (ms)"),
+    "fleet_predict_cost_s_max": ("gauge",
+                                 "seldon_tpu_fleet_predict_cost_s_max",
+                                 "worst predicted service seconds for a "
+                                 "nominal request across ok replicas"),
+    "fleet_kv_tier_host_bytes": ("gauge",
+                                 "seldon_tpu_fleet_kv_tier_host_bytes",
+                                 "demoted KV bytes parked in host RAM "
+                                 "across ok replicas (r22 KV tier)"),
+    "fleet_kv_tier_hit_rate": ("gauge",
+                               "seldon_tpu_fleet_kv_tier_hit_rate",
+                               "mean KV-tier promote hit rate [0,1] "
+                               "across replicas running the tier"),
+}
+
+# rollup keys not exported as their own series ("t" is the poll stamp)
+FLEET_EXCLUDED = {"t"}
+
+FLEET_REPLICA_SATURATION_METRIC = "seldon_tpu_fleet_replica_saturation"
+FLEET_REPLICA_STATE_METRIC = "seldon_tpu_fleet_replica_state"
+
+# replica freshness encoding for the per-replica state gauge
+FLEET_STATE_CODES = {"ok": 0, "stale": 1, "incompatible": 2, "never": 3}
+
+
+class FleetPrometheusBridge:
+    """TelemetryAggregator fleet view -> ``seldon_tpu_fleet_*`` gauges,
+    collected after every poll (the aggregator calls :meth:`collect`
+    when attached as its ``bridge``).  Complete-by-contract against
+    FLEET_METRICS/FLEET_EXCLUDED; per-replica saturation and state
+    export with a ``replica`` label the flat rollup can't carry."""
+
+    def __init__(self, aggregator, registry=None):
+        self.aggregator = aggregator
+        self._cache = _cache_for(registry)
+
+    def collect(self) -> None:
+        """Never raises — the bridge must not take the poll loop down."""
+        try:
+            self._collect()
+        except Exception:  # noqa: BLE001 — same discipline as the engine bridge
+            logger.exception("fleet prometheus bridge collect failed")
+
+    def _collect(self) -> None:
+        rollup = self.aggregator.fleet_rollup()
+        for key, value in rollup.items():
+            spec = FLEET_METRICS.get(key)
+            if spec is None:
+                continue  # contract-tested: unmapped => in FLEET_EXCLUDED
+            kind, name, doc = spec
+            self._cache.get(kind, name, (), doc).labels().set(float(value))
+        for replica, row in self.aggregator.replica_states().items():
+            self._cache.get(
+                "gauge", FLEET_REPLICA_SATURATION_METRIC, ("replica",),
+                "per-replica saturation score [0,1]",
+            ).labels(replica=replica).set(float(row.get("saturation", 0.0)))
+            self._cache.get(
+                "gauge", FLEET_REPLICA_STATE_METRIC, ("replica",),
+                "replica telemetry freshness (0 ok, 1 stale, "
+                "2 incompatible, 3 never polled)",
+            ).labels(replica=replica).set(
+                FLEET_STATE_CODES.get(row.get("state"), 3)
+            )
+

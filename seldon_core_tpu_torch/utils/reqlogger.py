@@ -84,12 +84,19 @@ class JsonlPairLogger:
 
 
 class HttpPairLogger:
-    """Buffered background POST of pairs (CloudEvents headers)."""
+    """Buffered background POST of pairs (CloudEvents headers).
+
+    A full buffer drops (counted in ``dropped``); :meth:`close` is bounded
+    as :meth:`KafkaPairLogger.close` is, so a dead endpoint never holds a
+    gateway's shutdown: what is still queued at the deadline is dropped
+    and counted."""
 
     def __init__(self, url: str, capacity: int = 1024, timeout_s: float = 2.0):
         self.url = url
         self.timeout_s = timeout_s
         self._queue: "queue.Queue[Optional[Dict]]" = queue.Queue(maxsize=capacity)
+        self._stopping = False  # close() sets it; the drain loop checks it
+        self._stop_deadline = float("inf")
         self._thread = threading.Thread(target=self._drain, daemon=True, name="seldon-tpu-reqlog")
         self._thread.start()
         self.dropped = 0
@@ -108,17 +115,46 @@ class HttpPairLogger:
 
     def _drain(self) -> None:
         while True:
-            pair = self._queue.get()
+            try:
+                # bounded get: the stop flag is seen even when the None
+                # sentinel could not be queued (a full queue at close)
+                pair = self._queue.get(timeout=0.25)
+            except queue.Empty:
+                if self._stopping:
+                    return
+                continue
             if pair is None:
+                return
+            if self._stopping and time.monotonic() > self._stop_deadline:
+                self.dropped += 1 + _discard(self._queue)  # the pair in hand and the rest
                 return
             try:
                 self._post(pair)
             except Exception as e:  # noqa: BLE001 — logging loses a pair, never a request
                 logger.warning("request logger POST failed: %s", e)
 
-    def close(self) -> None:
-        self._queue.put(None)
-        self._thread.join(timeout=5.0)
+    def close(self, timeout_s: float = 5.0) -> None:
+        """Bounded shutdown: pending pairs are posted while the deadline
+        allows; never blocks on a full queue or an endpoint that hangs."""
+        self._stopping = True
+        self._stop_deadline = time.monotonic() + timeout_s
+        try:
+            self._queue.put_nowait(None)
+        except queue.Full:
+            pass  # the drain loop's bounded get sees _stopping
+        self._thread.join(timeout=timeout_s)
+
+
+def _discard(q: "queue.Queue[Optional[Dict]]") -> int:
+    """Empty ``q`` without blocking; the number of pairs (not sentinels) taken."""
+    n = 0
+    while True:
+        try:
+            item = q.get_nowait()
+        except queue.Empty:
+            return n
+        if item is not None:
+            n += 1
 
 
 class KafkaPairLogger:
@@ -168,14 +204,7 @@ class KafkaPairLogger:
             if self._stopping and time.monotonic() > self._stop_deadline:
                 # past the close deadline the rest are dropped (counted, the
                 # sentinel excluded): shutdown never waits out a stuck broker
-                self.dropped += 1  # the pair in hand
-                while True:
-                    try:
-                        rest = self._queue.get_nowait()
-                    except queue.Empty:
-                        break
-                    if rest is not None:
-                        self.dropped += 1
+                self.dropped += 1 + _discard(self._queue)  # the pair in hand and the rest
                 return
             try:
                 key = (pair.get("puid") or "").encode() or None

@@ -156,3 +156,18 @@ def requests_tls_kwargs(creds: ChannelCredentials) -> dict:
     if creds.certificate_chain_file and creds.private_key_file:
         kwargs["cert"] = (creds.certificate_chain_file, creds.private_key_file)
     return kwargs
+
+
+def client_ssl_context(creds: ChannelCredentials) -> ssl.SSLContext:
+    """The REST lane's client context: ``verify=False`` turns checks off,
+    ``root_certificates_file`` is the CA, a chain and key give mTLS."""
+    if not creds.verify:
+        ctx = ssl.create_default_context()
+        ctx.check_hostname = False
+        ctx.verify_mode = ssl.CERT_NONE
+    else:
+        ctx = ssl.create_default_context(cafile=creds.root_certificates_file or None)
+    if creds.certificate_chain_file and creds.private_key_file:
+        ctx.load_cert_chain(creds.certificate_chain_file, creds.private_key_file)
+    return ctx
+

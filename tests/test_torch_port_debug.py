@@ -26,6 +26,7 @@ import contextlib
 import os
 import pathlib
 import re
+import time
 
 import jax
 import jax.numpy as jnp
@@ -133,6 +134,17 @@ async def _walk(app):
         answer = await resp.json()
         puid = answer["meta"]["puid"]
         out = {"answer": answer}
+        # gen.decode / gen.finish are queued under the engine lock and
+        # emitted when the engine's step ends, after the answer is delivered:
+        # wait for the flush (gen.finish is the last span) before reading.
+        deadline = time.monotonic() + 10.0
+        while True:
+            resp = await client.get(f"/debug/traces?trace_id={puid}")
+            spans = (await resp.json()).get("spans", []) if resp.status == 200 else []
+            if any(s["name"] == "gen.finish" for s in spans):
+                break
+            assert time.monotonic() < deadline, f"no gen.finish span for {puid} within 10 s: {spans}"
+            await asyncio.sleep(0.02)
         for key, path in (("engine", "/debug/engine"), ("detail", "/debug/engine?detail=1"),
                           ("traces", f"/debug/traces?trace_id={puid}"), ("knobs", "/debug/knobs"),
                           ("weights", "/debug/weights"), ("telemetry", "/debug/telemetry?window=60"),

@@ -77,7 +77,12 @@ def test_scan_covers_the_port():
                    "models/disagg.py", "components/outliers.py", "components/explainers.py",
                    "models/sklearnserver.py", "models/xgboostserver.py", "models/mlflowserver.py",
                    "models/proxyserver.py", "models/torchserver.py", "proto/tfserving_compat_pb2.py",
-                   "utils/reqlogger.py", "utils/kafka.py", "utils/reqconsumer.py", "utils/persistence.py"):
+                   "utils/reqlogger.py", "utils/kafka.py", "utils/reqconsumer.py", "utils/persistence.py",
+                   "controlplane/__init__.py", "controlplane/spec.py", "controlplane/defaulting.py",
+                   "controlplane/placement.py", "controlplane/templates.py", "controlplane/supervisor.py",
+                   "controlplane/autoscaler.py", "controlplane/deployer.py", "controlplane/fleetview.py",
+                   "client/client.py", "testing/contract.py", "testing/loadgen.py", "runtime/packager.py",
+                   "utils/graphviz.py", "tools/seldon_top.py"):
         assert f"seldon_core_tpu_torch/{module}" in names, module
     assert _forbidden("seldon_core_tpu.proto") and _forbidden("jax.numpy") and _forbidden("flax.linen")
     assert _forbidden("seldon_core_tpu.native") and _forbidden("ml_dtypes") and _forbidden("prometheus_client")
@@ -112,6 +117,11 @@ def test_importing_the_port_loads_no_jax():
         "import seldon_core_tpu_torch.utils.auth, seldon_core_tpu_torch.utils.metrics\n"
         "import seldon_core_tpu_torch.utils.credentials, seldon_core_tpu_torch.utils.storage\n"
         "import seldon_core_tpu_torch.utils.serialization, seldon_core_tpu_torch.utils.orbax\n"
+        "import seldon_core_tpu_torch.controlplane, seldon_core_tpu_torch.controlplane.templates\n"
+        "import seldon_core_tpu_torch.controlplane.fleetview, seldon_core_tpu_torch.client.client\n"
+        "import seldon_core_tpu_torch.testing.contract, seldon_core_tpu_torch.testing.loadgen\n"
+        "import seldon_core_tpu_torch.runtime.packager, seldon_core_tpu_torch.utils.graphviz\n"
+        "import seldon_core_tpu_torch.tools.seldon_top\n"
         "from seldon_core_tpu_torch.engine import units\n"
         "[units._lookup_builtin(name) for name in units.PREPACKAGED]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'seldon_core_tpu',\n"

@@ -195,6 +195,72 @@ class TestHttpPairLoggerDrainClose:
         assert time.monotonic() - t0 < 5.0 and not lg._thread.is_alive() and lg.dropped == 0
 
 
+class _SilentEndpoint:
+    """Accepts connections and never answers: every POST waits out its timeout."""
+
+    def __init__(self):
+        self.sock = socket.socket()
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(64)
+        self.port = self.sock.getsockname()[1]
+        self.held = []
+        self._thread = threading.Thread(target=self._accept, daemon=True)
+        self._thread.start()
+
+    def _accept(self):
+        while True:
+            try:
+                conn, _ = self.sock.accept()
+            except OSError:
+                return
+            self.held.append(conn)
+
+    def close(self):
+        self.sock.close()
+        for conn in self.held:
+            conn.close()
+
+
+class TestHttpPairLoggerBoundedClose:
+    """A full queue in front of an endpoint that never answers: close()
+    returns within its timeout plus 1 s and counts what it gave up."""
+
+    def _full_logger(self, endpoint, capacity=4):
+        lg = HttpPairLogger(f"http://127.0.0.1:{endpoint.port}/", capacity=capacity, timeout_s=2.0)
+        req, resp = msg([[1.0]]), msg([[2.0]])
+        lg(req, resp)  # the drain thread takes this one into a POST that hangs
+        deadline = time.monotonic() + 2.0
+        while lg._queue.qsize() > 0 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        for _ in range(capacity):
+            lg(req, resp)
+        assert lg._queue.full()
+        return lg
+
+    def test_close_returns_within_its_timeout_and_counts_the_rest(self):
+        endpoint = _SilentEndpoint()
+        try:
+            lg = self._full_logger(endpoint)
+            t0 = time.monotonic()
+            lg.close(timeout_s=0.5)
+            assert time.monotonic() - t0 < 0.5 + 1.0
+            lg._thread.join(timeout=10.0)  # the hung POST ends at its own 2 s timeout
+            assert not lg._thread.is_alive() and lg.dropped == 4
+        finally:
+            endpoint.close()
+
+    def test_gateway_close_is_bounded_with_it(self):
+        endpoint = _SilentEndpoint()
+        try:
+            lg = self._full_logger(endpoint)
+            gw = Gateway([(_service(), 1.0)], request_logger=lg)
+            t0 = time.monotonic()
+            run(gw.close())
+            assert time.monotonic() - t0 < 5.0 + 1.0
+        finally:
+            endpoint.close()
+
+
 class TestGatewayRequestLogger:
     def test_pairs_logged_after_finalize(self, tmp_path):
         path = str(tmp_path / "gw-pairs.jsonl")

@@ -128,6 +128,38 @@ class TestAgainstJaxServer:
         assert "fused_normalize" in health["kernel_launches"]
 
 
+def test_launches_at_ready_leave_the_traffic_launches(monkeypatch):
+    """``/health/status`` keeps the launch counts of the moment load
+    finished, warmup included, so a reader of a replica process gets its
+    traffic's launches as counts less those (one a batch).  On the CPU
+    the plain version counts nothing: a stand-in counts each device call
+    as K1 would on the card."""
+    from seldon_core_tpu_torch.ops import kernels
+
+    original = CudaServer.device_call
+
+    def counted(self, batch):
+        kernels._count("fused_normalize")
+        return original(self, batch)
+
+    monkeypatch.setattr(CudaServer, "device_call", counted)
+    cs = CudaServer(model="resnet_tiny", num_classes=NUM_CLASSES, dtype="float32", normalize=True,
+                    max_batch_size=4, device="cpu", warmup=True, warmup_dtypes=["uint8"])
+    before = kernels.launch_counts()["fused_normalize"]
+    cs.load()
+    try:
+        health = cs.health_status()
+        warm = health["kernel_launches_at_ready"]["fused_normalize"] - before
+        assert warm == len(health["buckets"]) * len(health["signatures"])
+        for n in (1, 3, 2):
+            cs.predict(np.random.default_rng(n).integers(0, 256, size=(n, *SHAPE), dtype=np.uint8), [])
+        health = cs.health_status()
+        served = health["kernel_launches"]["fused_normalize"] - health["kernel_launches_at_ready"]["fused_normalize"]
+        assert served == cs.batcher.stats.batches == 3
+    finally:
+        cs.unload()
+
+
 class TestOutputTails:
     @pytest.mark.parametrize("tail", [dict(softmax_outputs=True), dict(top_k=3)])
     def test_softmax_and_top_k_match_jax(self, tail):

@@ -151,11 +151,12 @@ def test_token_families_with_flash_match_jax_server(model):
         before = kernels.launch_counts()
         got, ref = cs.predict(tokens, []), np.asarray(js.predict(tokens, []))
         assert kernels.launch_counts() == before  # the CPU server takes the plain versions
+        causal = [b.causal for b in cs.module.blocks]  # read before unload, which lets the module go
     finally:
         js.unload()
         cs.unload()
     assert got.shape == ref.shape == ((2, 3) if model == "transformer_encoder" else (2, 24, 64))
-    assert all(b.causal == (model == "transformer_lm") for b in cs.module.blocks)
+    assert all(c == (model == "transformer_lm") for c in causal)
     np.testing.assert_allclose(got, ref, **TOL)
 
 
