@@ -134,7 +134,9 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    model, ``a1`` by body tag and ``a2`` by the ``X-Seldon-Adapter``
    header; 8 sequential requests equal an in-process ``PagedEngine`` of the
    same weights, adapters and int8 pool, bit for bit, at least 75% of the
-   concurrent rows equal theirs, adapter rows differ from the base row of
+   concurrent rows in ``Q_REF_CONCURRENT`` (8 of the 16: the base model
+   and both adapters, the shortest prompt to the longest) equal theirs,
+   each prompt alone, adapter rows differ from the base row of
    the same prompt, a body tag wins over the header, and the server's
    K4-int8+LoRA launches grow by exactly 8 layers x its decode calls;
    numbers: REST p50 and the largest of 16 sequential requests (prompt
@@ -208,7 +210,8 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    as ONE micro-batch, one ``Seldon/PredictRaw``; (c) the C++ load
    clients of ``bench.py``'s ``native_model_phase`` (``loadgen.cc``) on
    both wire formats: one connection at batch 1, then batch 32 at (8, 1)
-   best of three windows and (8, 4), (8, 8), (8, 12), every answer a 2xx
+   best of three windows and (8, 4), (8, 8), (8, 12) (the (8, 8) h2c
+   window at 48 batch threads 2 s, the others 0.5 s), every answer a 2xx
    / grpc-status 0 (their bodies, checked in (b) and (a), are not read);
    (d) every row served in (a) and (b), the container, PredictRaw and a
    JSON predict within 2e-2 of the in-process model and nearest its own
@@ -442,6 +445,36 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    front end: ``SeldonTpuClient`` over gRPC and REST gives an in-process
    ``StreamingLM``'s tokens, the contract tester passes, K4 = layers x
    decode calls; every ``Deployer.delete`` leaves no worker alive.
+28. device meshes (ROADMAP A12), on logical positions of ``cuda:0``, f32
+   with TF32 off unless a step names bf16: (a) ``SELDON_TPU_TP=2`` on the
+   one-card host degrades to one device with the JAX package's WARN and
+   the ``tp_degree`` gauge reads 1, ``strict=True`` raises, and
+   ``create_mesh()`` gives one ``cuda:0`` position; (b) ``PagedEngine`` at
+   the generation config on a ``{"data": 2, "model": 2}`` mesh of four
+   ``cuda:0`` positions (the gather lane and the ring chunk): 16 prompts
+   of the sequential lengths, 32 new tokens, ids equal to the unsharded
+   engine's 16 / 16, every position's pool bytes equal
+   ``paged_hbm_accounting(tp_degree=2, dp_degree=2)``'s shard; tp=2 with a
+   LoRA adapter and a ``SpeculativeLM`` ngram set on a mesh give the
+   one-device tokens; both engines' tokens/s printed (the positions share
+   one card: no gain is claimed); (c) ``ring_attention`` over a 4-position
+   ``seq`` ring at 8 heads x 64, sequence 1024, causal and not: f32 within
+   1e-5 of ``plain_attention``, bf16 within C8's step of the f32 plain
+   version as K3 is, and a ``TransformerLM`` with ``ring_attn_fn`` within
+   1e-4 of its plain forward's logits; (d) ``ShardedTrainer`` on
+   ResNet-50 (224x224x3, 1000 classes, batch 32) on a ``{"data": 2}``
+   mesh: three steps give the one-position trainer's losses within 1e-4
+   of the first loss; after the first step every parameter whose two
+   gradients agree to 1e-3 is within 1e-4 of its leaf's largest entry,
+   and after the third every parameter within that plus the drift Adam
+   makes of the layouts' measured gradient disagreement (lr x min(2, 2r)
+   a step); the first step's running
+   statistics (global-batch BatchNorm) within 1e-4 (a mean against its
+   channel's batch spread), the losses fall, and
+   ``serving_variables()`` served by ``CudaServer(model="resnet50",
+   normalize=true)`` answers the uint8 batch through K1 with the top-1 of
+   ``predict_batch`` on the same normalised floats (bf16 logits compared
+   with ``allclose``, C2).
 
 The first line names the card, torch, CUDA and ``grpc.__version__``.
 Output: the ``nvidia-smi`` line, then one ``{"kernels": [...]}`` line,
@@ -556,6 +589,10 @@ Q_LM_PARAMS = LM_PARAMS + [
 ]
 Q_WAVE_NEW = 32                 # phase 11: new tokens of the one-wave == alone check (LM_MAX_NEW until phase 22)
 #                                 and of the concurrent served rows against each prompt alone (since phase 25)
+# phase 11b: the concurrent rows held against the in-process reference, each
+# prompt alone (all 16 until phase 28 joined the time limit): the base model
+# and both adapters, the shortest prompt to the longest
+Q_REF_CONCURRENT = (0, 1, 2, 6, 10, 13, 14, 15)
 Q_LATENCY_REQUESTS = 16         # p50 and the largest, as GEN_LATENCY_REQUESTS
 # (impl, int8 pages, fold) -> the JAX kernel it replaces
 PAGED_VARIANTS = [("stream", True, False), ("grid", True, False), ("stream", False, True), ("stream", True, True)]
@@ -606,6 +643,7 @@ NATIVE_LOAD_SECONDS = 1.5       # bench.py's 6 s / 4: three windows of a third a
 NATIVE_SEQUENTIAL_SECONDS = 1.5  # 14c: one connection, batch 1, before the windows (3 s until phase 22)
 NATIVE_LOAD_DEPTHS = ((8, 4), (8, 8), (8, 12))  # (connections, requests in flight on each)
 NATIVE_BATCH_THREADS = (4, 48)  # 14c at each: the ingress default is one, bench.py's BENCH_NATIVE_BATCH_THREADS 48
+NATIVE_DEEP_H2C_SECONDS = 2.0   # 14c: the (8, 8) h2c window at 48 batch threads (in 0.5 s it once answered nothing)
 NATIVE_CONTAINER_ROWS = (1, 2, 5)  # one multi-frame container, one micro-batch
 # phase 15, A4 on the card: the request contract on every ingress of the deployment
 TLS_DIR = os.path.join(ROOT, "tests", "data", "torch_port_tls")  # test-only CA and server certificate
@@ -748,6 +786,19 @@ TORCHSCRIPT_ROWS = 4            # 26e: images a TORCH_SERVER request
 TORCHSCRIPT_REL_L2 = 2e-2       # 26e: served rows vs the in-process ResNet50, bf16
 XGB_TREES, XGB_DEPTH, XGB_FEATURES, XGB_ROWS = 200, 6, 16, 512  # 26f: the JSON booster
 LOGGED_REQUESTS = 8             # 26g: requests through a JSONL pair logger
+
+MESH_AXES = {"data": 2, "model": 2}  # 28b: four logical positions of cuda:0
+MESH_NEW = 32                   # 28b: new tokens a stream
+MESH_PROMPTS = 16               # 28b: prompts, the sequential lengths in turn
+RING_SEQ = 1024                 # 28c: the ring's sequence (4 positions of 256)
+RING_BATCH = 2
+RING_F32_TOL = 1e-5             # 28c: ring vs plain attention, f32
+RING_LM_TOL = 1e-4              # 28c: TransformerLM logits, ring vs plain
+TRAIN_BATCH = 32                # 28d: ResNet-50 images a step
+TRAIN_STEPS = 3
+TRAIN_REL_TOL = 1e-4            # 28d: {"data": 2} trainer vs one position, relative to the leaf's largest entry
+TRAIN_MIN_SHARE = 0.99          # 28d: parameter entries a step must hold within TRAIN_REL_TOL
+TRAIN_NOISE_FACTOR = 2.0        # 28d: gradients vs one position, against float32's own noise (reversed rows)
 
 
 class SmokeFailure(RuntimeError):
@@ -2224,8 +2275,8 @@ def quantized_generation_path(torch, np, PagedEngine, load_lm_params, WeightRegi
         check(eng._kv_int8, "the in-process reference engine has no int8 pool")
         local_single = [eng.generate(p, max_new_tokens=LM_MAX_NEW, adapter=a)
                         for p, a in zip(single_prompts, single_adapters)]
-        local_conc = [eng.generate(p, max_new_tokens=Q_WAVE_NEW, adapter=r[0] or r[1])
-                      for p, r in zip(conc_prompts, conc_routes)]
+        local_conc = {i: eng.generate(conc_prompts[i], max_new_tokens=Q_WAVE_NEW,
+                                      adapter=conc_routes[i][0] or conc_routes[i][1]) for i in Q_REF_CONCURRENT}
         del eng
         torch.cuda.empty_cache()
         status, _ = wait_ready(proc, base, logpath)
@@ -2270,10 +2321,10 @@ def quantized_generation_path(torch, np, PagedEngine, load_lm_params, WeightRegi
     check(metrics.get("paged_adapter_loads", 0) >= 2, f"/metrics shows no adapter loads: {metrics}")
 
     same_single = [bool((a == b).all()) for a, b in zip(served_single, local_single)]
-    share = float(np.mean([bool((a == b).all()) for a, b in zip(served_conc, local_conc)]))
+    share = float(np.mean([bool((served_conc[i] == local_conc[i]).all()) for i in Q_REF_CONCURRENT]))
     log(f"int8 + adapters served vs in-process engine, each prompt alone: {sum(same_single)}/{len(same_single)} "
-        f"sequential rows bit-identical; concurrent rows identical share {share:.3f} (limit "
-        f"{GEN_MIN_IDENTICAL_SHARE})")
+        f"sequential rows bit-identical; concurrent rows identical share {share:.3f} over "
+        f"{len(Q_REF_CONCURRENT)} of {len(conc_prompts)} (limit {GEN_MIN_IDENTICAL_SHARE})")
     check(all(same_single), f"sequential served rows differ from the in-process engine: {same_single}")
     check(share >= GEN_MIN_IDENTICAL_SHARE, f"too few concurrent rows equal the in-process engine: {share}")
     numbers = {
@@ -3444,13 +3495,15 @@ def batcher_means(m0, m1, labels: str):
             "batcher_total_mean_ms": total / max(n, 1)}
 
 
-def cpp_client_windows(load, base: str, what: str, card, after_first=None):
+def cpp_client_windows(load, base: str, what: str, card, after_first=None, windows=None):
     """bench.py's native_model_phase schedule for one C++ client: one
     connection sequential (NATIVE_SEQUENTIAL_SECONDS), then (8 connections, depth 1) best of
     three windows of NATIVE_LOAD_SECONDS / 3, then one window at each of
     NATIVE_LOAD_DEPTHS; every answer a 2xx / grpc-status 0.
-    ``after_first()`` runs once the one-connection run has drained."""
+    ``after_first()`` runs once the one-connection run has drained;
+    ``windows`` maps a (connections, depth) to a longer window's seconds."""
     window = NATIVE_LOAD_SECONDS / 3
+    windows = windows or {}
     runs = [dict(load("one", NATIVE_SEQUENTIAL_SECONDS, 1, 1), connections=1, depth=1, rows=1)]
     quiesce(base)
     if after_first is not None:
@@ -3459,7 +3512,8 @@ def cpp_client_windows(load, base: str, what: str, card, after_first=None):
         runs.append(dict(load("batch", window, 8, 1), connections=8, depth=1, rows=32))
         quiesce(base)
     for conns, depth in NATIVE_LOAD_DEPTHS:
-        runs.append(dict(load("batch", window, conns, depth), connections=conns, depth=depth, rows=32))
+        runs.append(dict(load("batch", windows.get((conns, depth), window), conns, depth), connections=conns,
+                         depth=depth, rows=32))
         quiesce(base)
     for r in runs:
         check(r["ok"] > 0 and r["non2xx"] == 0 and r["errors"] == 0, f"{what}: C++ client run failed: {r}")
@@ -3666,7 +3720,7 @@ def native_paths(torch, np, kernels, resnet, card, gateway_numbers, forward_ms_b
                 lambda which, sec, conns, depth: frontserver.native_load_grpc(
                     other_port, "/seldon.protos.Seldon/Predict", grpc_blobs[which], sec, conns, depth),
                 other_base, f"14c C++ client (lg_run_h2), rawTensor Seldon/Predict over h2c, {other_threads} batch "
-                f"threads", card),
+                f"threads", card, windows={(8, 8): NATIVE_DEEP_H2C_SECONDS} if other_threads == 48 else None),
         }
         m_t1, s_t1 = metrics_values(http(other_base + "/metrics")), native_stats(other_base)
         k1_t, batches_t = metric_delta(m_t0, m_t1, k1_key), metric_delta(m_t0, m_t1, batches_key)
@@ -8215,6 +8269,366 @@ def control_plane_paths(torch, np, kernels, resnet, StreamingLM, card, native_nu
     return out
 
 
+# ---------------------------------------------------------------- phase 28
+
+def mesh_degrade(torch, PagedEngine, params, card):
+    """28a: SELDON_TPU_TP=2 on the one-card host."""
+    import logging
+
+    from seldon_core_tpu_torch.parallel import create_mesh, resolve_mesh
+    from seldon_core_tpu_torch.parallel.mesh import available_devices
+
+    records = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    handler = Grab(level=logging.WARNING)
+    mesh_log = logging.getLogger("seldon_core_tpu_torch.parallel.mesh")
+    mesh_log.addHandler(handler)
+    try:
+        with knob_env(SELDON_TPU_TP="2"):
+            eng = PagedEngine(params, dtype="bfloat16", device=SCHED_DEVICE, **LM_CONFIG, **LM_ENGINE)
+            stats = eng.engine_stats()
+            del eng
+            try:
+                resolve_mesh(strict=True)
+                strict = "did not raise"
+            except ValueError as e:
+                strict = str(e)
+    finally:
+        mesh_log.removeHandler(handler)
+    distinct = torch.cuda.device_count()
+    check(distinct <= 1, f"28a needs the one-card host, found {distinct} CUDA devices")
+    check(any("tensor-parallel degree 2 needs 2 devices but the host exposes 1" in m for m in records),
+          f"SELDON_TPU_TP=2 on one card gave no degrade WARN: {records}")
+    check(stats["tp_degree"] == 1 and stats["dp_degree"] == 1, f"the degraded engine reports {stats['tp_degree']}")
+    check("degrading to single-chip" in strict, f"strict=True: {strict}")
+    mesh = create_mesh()
+    check(mesh.shape == {"data": 1} and [str(d) for d in mesh.devices.flat] == [str(available_devices()[0])],
+          f"create_mesh() with no devices: {mesh}")
+    log(f"28a SELDON_TPU_TP=2 on one card: WARN {records[0]!r}, gauge tp_degree {stats['tp_degree']}, strict raises; "
+        f"create_mesh() = {mesh}")
+    return {"warn": records[0], "tp_degree": stats["tp_degree"], "strict": strict}
+
+
+def mesh_engines(torch, np, kernels, PagedEngine, SpeculativeLM, params32, paged_hbm_accounting,
+                 make_lora_params, card):
+    """28b: the paged engine on a {"data": 2, "model": 2} mesh of cuda:0."""
+    from seldon_core_tpu_torch.parallel import create_mesh
+
+    cuda0 = torch.device(SCHED_DEVICE, 0) if SCHED_DEVICE == "cuda" else torch.device(SCHED_DEVICE)
+    rng = np.random.default_rng(SEED + 280)
+    V = LM_CONFIG["vocab_size"]
+    prompts = [rng.integers(0, V, SEQUENTIAL_PROMPTS[i % len(SEQUENTIAL_PROMPTS)]) for i in range(MESH_PROMPTS)]
+
+    def timed(eng):
+        t0 = time.perf_counter()
+        out = drive(eng, prompts, MESH_NEW)
+        sched_sync(torch)
+        return out, MESH_PROMPTS * MESH_NEW / (time.perf_counter() - t0)
+
+    with no_tf32(torch):
+        one = PagedEngine(params32, dtype="float32", device=SCHED_DEVICE, **LM_CONFIG, **LM_ENGINE, **NO_PREFIX_CACHE)
+        drive(one, prompts[:2], 2)  # first-use costs out of the timed run
+        want, one_tok_s = timed(one)
+        one_lane = "K4 pool chunk" if one._kernel_active else one._chunk_impl
+        del one
+        mesh = create_mesh(MESH_AXES, devices=[cuda0] * 4)
+        eng = PagedEngine(params32, dtype="float32", mesh=mesh, **LM_CONFIG, **LM_ENGINE, **NO_PREFIX_CACHE)
+        check(not eng._kernel_active, "a mesh engine took the kernel lane")
+        drive(eng, prompts[:2], 2)
+        got, mesh_tok_s = timed(eng)
+        same = sum(bool((a == b).all()) for a, b in zip(got, want))
+        stats = eng.engine_stats()
+        acct = paged_hbm_accounting(streams=1, ctx_len=eng.num_pages * eng.page_size, d_model=LM_CONFIG["d_model"],
+                                    num_layers=LM_CONFIG["num_layers"], page_size=eng.page_size, dtype_bytes=4,
+                                    num_heads=LM_CONFIG["num_heads"], num_pool_pages=eng.num_pages, tp_degree=2,
+                                    dp_degree=2)
+        held = {str(pos): eng.pages_k.position_nbytes(pos) + eng.pages_v.position_nbytes(pos)
+                for pos in mesh.positions()}
+        distinct = len({id(t) for t in eng.pages_k.shards.flat})
+        del eng
+        torch.cuda.empty_cache()
+        log(f"28b PagedEngine on {MESH_AXES} of four cuda:0 positions ({stats['chunk_impl']} chunk, gather lane): "
+            f"{same}/{MESH_PROMPTS} rows equal the unsharded engine's ({one_lane}); pool {held} bytes a position "
+            f"(accounting's shard {acct['pool_bytes']}, {distinct} distinct K shards); "
+            f"{mesh_tok_s:.1f} tokens/s against {one_tok_s:.1f} unsharded (the positions share one card) [{card}]")
+        check(same == MESH_PROMPTS, f"mesh engine rows equal the unsharded engine's on {same}/{MESH_PROMPTS}")
+        check((stats["tp_degree"], stats["dp_degree"]) == (2, 2), f"gauges {stats['tp_degree']}/{stats['dp_degree']}")
+        check(all(b == acct["pool_bytes"] for b in held.values()) and stats["pool_shard_bytes"] == acct["pool_bytes"]
+              and distinct == 4, f"pool bytes a position {held} != the accounting's {acct['pool_bytes']}")
+
+        # tp=2 with one adapter, against the unsharded engine on the gather
+        # lane with the same adapter
+        adapter = make_lora_params(1, num_layers=LM_CONFIG["num_layers"], d_model=LM_CONFIG["d_model"],
+                                   rank=LORA_RANK, alpha=float(LORA_RANK))
+        few = prompts[:len(SEQUENTIAL_PROMPTS)]
+        lora_kw = dict(max_adapters=1, lora_rank=LORA_RANK)
+        with knob_env(SELDON_TPU_PAGED_KERNEL="0"):
+            ref = PagedEngine(params32, dtype="float32", device=SCHED_DEVICE, **LM_CONFIG, **LM_ENGINE,
+                              **NO_PREFIX_CACHE, **lora_kw)
+            ref.load_adapter("a1", adapter)
+            want_a = drive(ref, few, MESH_NEW, adapter="a1")
+            del ref
+        tp = PagedEngine(params32, dtype="float32", mesh=create_mesh({"model": 2}, devices=[cuda0] * 2),
+                         **LM_CONFIG, **LM_ENGINE, **NO_PREFIX_CACHE, **lora_kw)
+        tp.load_adapter("a1", adapter)
+        got_a = drive(tp, few, MESH_NEW, adapter="a1")
+        del tp
+        same_a = sum(bool((a == b).all()) for a, b in zip(got_a, want_a))
+        check(same_a == len(few), f"tp=2 adapter rows equal the one-device engine's on {same_a}/{len(few)}")
+
+        # one SpeculativeLM ngram round set on the same mesh
+        spec = SpeculativeLM(device=SCHED_DEVICE, dtype="float32", mesh=mesh, page_size=LM_ENGINE["page_size"],
+                             draft="ngram", draft_k=SPEC_DRAFT_K, max_new_tokens=MESH_NEW, **LM_CONFIG)
+        rows = np.stack([np.tile(p[:16], 4) for p in prompts[:2]])  # echoes the n-gram drafts can follow
+        with knob_env(SELDON_TPU_PAGED_KERNEL="0"):
+            plain = PagedEngine(params32, dtype="float32", device=SCHED_DEVICE, **LM_CONFIG, **LM_ENGINE,
+                                **NO_PREFIX_CACHE)
+            want_s = drive(plain, list(rows), MESH_NEW)
+            del plain
+        got_s = spec.predict(rows, [])
+        g = spec.generator
+        check(bool((got_s == np.stack(want_s)).all()), "the mesh SpeculativeLM's rows differ from greedy decoding")
+        check((g.tp_degree, g.dp_degree) == (2, 2) and g.stats["rounds"] > 0, f"speculative generator {g.stats}")
+        accept = g.stats["accepted"] / max(1, g.stats["drafted"])
+        del spec
+        torch.cuda.empty_cache()
+    log(f"28b tp=2 + adapter a1: {same_a}/{len(few)} rows equal; SpeculativeLM ngram on {MESH_AXES}: "
+        f"{len(rows)} rows equal greedy, {g.stats['rounds']} rounds, acceptance {accept:.3f} [{card}]")
+    return {"rows_equal": same, "pool_bytes_a_position": acct["pool_bytes"], "mesh_tokens_per_s": mesh_tok_s,
+            "unsharded_tokens_per_s": one_tok_s, "adapter_rows_equal": same_a, "speculative_rounds": g.stats["rounds"],
+            "speculative_acceptance": accept}
+
+
+def mesh_ring(torch, np, kernels, transformer, card):
+    """28c: ring attention over a 4-position seq ring of cuda:0."""
+    from seldon_core_tpu_torch.parallel import create_mesh
+    from seldon_core_tpu_torch.parallel.ring_attention import plain_attention, ring_attention
+
+    cuda0 = torch.device(SCHED_DEVICE, 0) if SCHED_DEVICE == "cuda" else torch.device(SCHED_DEVICE)
+    ring = create_mesh({"seq": 4}, devices=[cuda0] * 4)
+    H, D = LM_CONFIG["num_heads"], LM_CONFIG["d_model"] // LM_CONFIG["num_heads"]
+    gen = torch.Generator(device=SCHED_DEVICE).manual_seed(SEED + 281)
+    out = {}
+    with no_tf32(torch):
+        for causal in (False, True):
+            q, k, v = (torch.randn(RING_BATCH, RING_SEQ, H, D, generator=gen, device=SCHED_DEVICE) for _ in range(3))
+            got = ring_attention(q, k, v, mesh=ring, seq_axis="seq", causal=causal)
+            want = plain_attention(q, k, v, causal=causal)
+            err32 = (got - want).abs().max().item()
+            check(err32 <= RING_F32_TOL, f"f32 ring vs plain attention (causal={causal}): {err32:.3e}")
+            qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+            ring_b = ring_attention(qb, kb, vb, mesh=ring, seq_axis="seq", causal=causal).float()
+            k3 = kernels.flash_attention(qb, kb, vb, causal=causal).float()  # a comparison launch
+            exact = plain_attention(qb.float(), kb.float(), vb.float(), causal=causal)
+            step = FLASH_STEP["bfloat16"]
+            peak = exact.abs().max().item()
+            bar = step * exact.abs() + step * 2.0 ** -8 * peak
+            ring_ok = bool(((ring_b - exact).abs() <= bar).all())
+            k3_ok = bool(((k3 - exact).abs() <= bar).all())
+            between = ((ring_b - k3).abs() / (step * k3.abs() + step * 2.0 ** -8 * peak)).max().item()
+            check(ring_ok and k3_ok, f"bf16 ring / K3 not within C8's step of the f32 plain attention "
+                                     f"(causal={causal}): ring {ring_ok}, K3 {k3_ok}")
+            out["causal" if causal else "full"] = {"f32_max_abs_err": err32, "bf16_ring_vs_k3_steps": between}
+            log(f"28c ring over 4 positions, ({RING_BATCH}, {RING_SEQ}, {H}, {D}) causal={causal}: f32 max |ring - "
+                f"plain| {err32:.3e} (limit {RING_F32_TOL}); bf16 ring and K3 within C8's step of the f32 plain "
+                f"version, ring vs K3 at most {between:.3f} of that step")
+        cfg = dict(LM_CONFIG, dtype=torch.float32)
+        plain_lm = transformer.TransformerLM(**cfg).reset_parameters(torch.Generator().manual_seed(SEED + 282))
+        plain_lm = plain_lm.to(cuda0).eval()
+        ring_lm = transformer.TransformerLM(attn_fn=transformer.ring_attn_fn(ring), **cfg).to(cuda0).eval()
+        ring_lm.load_state_dict(plain_lm.state_dict())
+        tokens = torch.from_numpy(np.random.default_rng(SEED + 283).integers(0, cfg["vocab_size"], (1, RING_SEQ)))
+        with torch.no_grad():
+            lm_err = (ring_lm(tokens.to(cuda0)) - plain_lm(tokens.to(cuda0))).abs().max().item()
+        del plain_lm, ring_lm
+        torch.cuda.empty_cache()
+    check(lm_err <= RING_LM_TOL, f"TransformerLM with ring_attn_fn: max |logits - plain| {lm_err:.3e}")
+    log(f"28c TransformerLM at the generation config, 1 x {RING_SEQ} tokens, ring_attn_fn over 4 positions: max "
+        f"|logits - plain forward's| {lm_err:.3e} (limit {RING_LM_TOL}) [{card}]")
+    out["lm_max_abs_err"] = lm_err
+    return out
+
+
+def copy_trainer_state(dst, src) -> None:
+    """``dst``'s parameters and AdamW moments set to ``src``'s; both
+    trainers replicate every parameter (no model axis)."""
+    for key, st in src.params.items():
+        first = st.shards.flat[0]
+        full = st.full(first.device)
+        moments = src.opt.state.get(first, {})
+        seen = set()
+        for t in dst.params[key].shards.flat:
+            if id(t) in seen:
+                continue
+            seen.add(id(t))
+            t.copy_(full.to(t.device))
+            dst.opt.state[t] = {name: v.clone().to(t.device) if v.dim() else v.clone() for name, v in moments.items()}
+
+
+def adamw_step_bound(betas, t: int) -> float:
+    """The largest |m_hat / sqrt(v_hat)| AdamW's step ``t`` can take
+    (Cauchy-Schwarz on the moments' sums): two trainers started from the
+    same state can differ by at most twice this times the learning rate."""
+    b1, b2 = betas
+    s = sum((b1 * b1 / b2) ** k for k in range(t))
+    return (1 - b1) / (1 - b2) ** 0.5 * s ** 0.5 * (1 - b2 ** t) ** 0.5 / (1 - b1 ** t)
+
+
+def trainer_step_parity(torch, one, synced, reverse, t: int, synced_loss: float, one_loss: float):
+    """28d's comparison of one step taken from the same state by one
+    position (``one``), the {"data": 2} trainer (``synced``) and one
+    position fed the rows in reverse (``reverse``)."""
+    lr = one.learning_rate
+    bound = 2.0 * adamw_step_bound(one.opt.defaults["betas"], t) * lr
+    total = within = within_rev = 0
+    worst_of_bound = grad_worst = grad_worst_rev = 0.0
+    for key, st in one.params.items():
+        dev = st.shards.flat[0].device
+        b = st.full(dev)
+        tol = TRAIN_REL_TOL * max(b.abs().max().item(), 1e-12)
+        diff = (synced.params[key].full(dev) - b).abs()
+        total += b.numel()
+        within += int((diff <= tol).sum())
+        within_rev += int(((reverse.params[key].full(dev) - b).abs() <= tol).sum())
+        worst_of_bound = max(worst_of_bound, float((diff / (bound + tol)).max()))
+        g = one.grads[key]
+        norm = max(g.norm().item(), 1e-30)
+        grad_worst = max(grad_worst, (synced.grads[key] - g).norm().item() / norm)
+        grad_worst_rev = max(grad_worst_rev, (reverse.grads[key] - g).norm().item() / norm)
+    out = {"step": t, "share": within / total, "reversed_share": within_rev / total,
+           "worst_of_bound": worst_of_bound, "grad_rel_l2": grad_worst, "reversed_grad_rel_l2": grad_worst_rev,
+           "grad_limit": max(TRAIN_REL_TOL, TRAIN_NOISE_FACTOR * grad_worst_rev),
+           "loss_rel": abs(synced_loss - one_loss) / abs(one_loss)}
+    check(out["share"] >= TRAIN_MIN_SHARE, f"step {t}: {out['share']:.6f} of the parameter entries within "
+                                           f"{TRAIN_REL_TOL} of their leaf's largest")
+    check(worst_of_bound <= 1.0, f"step {t}: a parameter entry at {worst_of_bound:.3f} of the AdamW bound")
+    check(grad_worst <= out["grad_limit"], f"step {t}: gradients rel L2 {grad_worst:.3e} against float32's "
+                                           f"{grad_worst_rev:.3e}")
+    check(out["loss_rel"] <= TRAIN_REL_TOL, f"step {t}: loss {synced_loss} vs one position's {one_loss}")
+    return out
+
+
+def mesh_trainer(torch, np, kernels, resnet, CudaServer, card):
+    """28d: ShardedTrainer on ResNet-50 over {"data": 2} of cuda:0, then served."""
+    from seldon_core_tpu_torch.parallel import ShardedTrainer, create_mesh
+
+    cuda0 = torch.device(SCHED_DEVICE, 0) if SCHED_DEVICE == "cuda" else torch.device(SCHED_DEVICE)
+    rng = np.random.default_rng(SEED + 284)
+    images = rng.integers(0, 256, (TRAIN_BATCH, *IMG), dtype=np.uint8)
+    labels = rng.integers(0, NUM_CLASSES, TRAIN_BATCH)
+    scale, shift = kernels.imagenet_affine()
+    x = images.astype(np.float32) * scale + shift  # K1's plain version in float32
+    init = resnet.ResNet50(num_classes=NUM_CLASSES, dtype=torch.float32).reset_parameters(
+        torch.Generator().manual_seed(SEED + 285)).state_dict()
+    losses = {2: [], 1: []}
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with no_tf32(torch):
+            def trainer(n):
+                return ShardedTrainer(resnet.ResNet50(num_classes=NUM_CLASSES, dtype=torch.float32),
+                                      np.zeros(IMG, np.float32), create_mesh({"data": n}, devices=[cuda0] * n),
+                                      params=init)
+
+            # two, one: the {"data": 2} trainer and one position, each
+            # trained three steps on its own (the losses); synced: the
+            # {"data": 2} trainer started at every step from one's state,
+            # and reverse: one position fed the rows in reverse order from
+            # the same state, whose difference from one is float32's own
+            # (the same sums in another order) and involves no mesh
+            two, one, synced, reverse = trainer(2), trainer(1), trainer(2), trainer(1)
+            rev_x, rev_y = x[::-1].copy(), labels[::-1].copy()
+            stats1, steps = {}, []
+            for step in range(TRAIN_STEPS):
+                copy_trainer_state(synced, one)
+                copy_trainer_state(reverse, one)
+                synced_loss = synced.train_batch(x, labels)["loss"]
+                reverse.train_batch(rev_x, rev_y)
+                for n, t in ((2, two), (1, one)):
+                    losses[n].append(t.train_batch(x, labels)["loss"])
+                    if step == 0:  # the first step depends on the initial weights only
+                        stats1[n] = {k: v.full(torch.device("cpu")).clone() for k, v in t.batch_stats.items()}
+                steps.append(trainer_step_parity(torch, one, synced, reverse, step + 1, synced_loss, losses[1][-1]))
+            del synced, reverse
+            for key in two.batch_stats:
+                a, b = stats1[2][key], stats1[1][key]
+                if key.endswith("running_mean"):
+                    # a mean is measured against its channel's spread: the
+                    # step's batch std, 0.1 of which the mean moved by
+                    var = stats1[1][key.replace("running_mean", "running_var")]
+                    scale = (0.1 * ((var - 0.9) / 0.1).clamp_min(1e-12).sqrt()).clamp_min(1e-12)
+                else:
+                    scale = b.abs().max().clamp_min(1e-12)
+                rel = ((a - b).abs() / scale).max().item()
+                check(rel <= TRAIN_REL_TOL, f"{key}: the first step's running statistics rel {rel:.3e}")
+            # measured against the first loss: a later loss can fall near zero
+            loss_rel = max(abs(p - q) for p, q in zip(losses[2], losses[1])) / abs(losses[1][0])
+            check(loss_rel <= TRAIN_REL_TOL, f"losses {losses[2]} vs one position's {losses[1]}")
+            check(losses[2][-1] < losses[2][0], f"the losses did not fall: {losses[2]}")
+            want = two.predict_batch(x)
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    log(f"28d ShardedTrainer ResNet-50 on {{'data': 2}} of cuda:0, batch {TRAIN_BATCH}, f32: losses "
+        f"{[round(v, 6) for v in losses[2]]} (one position {[round(v, 6) for v in losses[1]]}, worst rel "
+        f"{loss_rel:.2e}) [{card}]")
+    for st in steps:
+        log(f"28d step {st['step']} from one position's state: parameter entries within {TRAIN_REL_TOL} of their "
+            f"leaf's largest {st['share']:.6f} (reversed rows {st['reversed_share']:.6f}; limit {TRAIN_MIN_SHARE}), "
+            f"every entry at most {st['worst_of_bound']:.3f} of the AdamW bound; worst leaf's gradient rel L2 "
+            f"{st['grad_rel_l2']:.3e} (reversed rows {st['reversed_grad_rel_l2']:.3e}, limit {st['grad_limit']:.3e}); "
+            f"loss rel {st['loss_rel']:.2e} [{card}]")
+    variables = two.serving_variables()
+    del two, one
+    torch.cuda.empty_cache()
+    server = CudaServer(model="resnet50", num_classes=NUM_CLASSES, normalize=True, input_shape=list(IMG),
+                        max_batch_size=TRAIN_BATCH, buckets=[TRAIN_BATCH], warmup=False, variables=variables,
+                        device=SCHED_DEVICE)
+    server.load()
+    try:
+        batches0 = int(server.batcher.stats.batches)
+        kernels.reset_launch_counts()
+        served = np.asarray(server.predict(images, []), np.float32)
+        k1 = kernels.launch_counts()["fused_normalize"]
+        batches = int(server.batcher.stats.batches) - batches0
+    finally:
+        server.unload()
+    tol = 0.05 * float(np.abs(want).max())
+    diff = float(np.abs(served - want).max())
+    top2 = np.sort(want, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * diff
+    same_top1 = served.argmax(1) == want.argmax(1)
+    check(batches >= 1 and k1 == batches, f"the served uint8 images launched K1 {k1} times in {batches} batches")
+    check(diff <= tol, f"served bf16 logits vs predict_batch: max |diff| {diff:.3e} > {tol:.3e}")
+    check(bool(same_top1[clear].all()), f"top-1 differs on {int((~same_top1 & clear).sum())} rows whose f32 margin "
+                                        f"exceeds twice the logits' largest difference")
+    log(f"28d serving_variables() in CudaServer(resnet50, normalize, bf16): K1 launches {k1} in {batches} batches, max |served - "
+        f"predict_batch| {diff:.3e} (allclose atol {tol:.3e}, C2); top-1 equal on {int(same_top1.sum())}/"
+        f"{TRAIN_BATCH} rows, all {int(clear.sum())} rows whose margin exceeds twice that difference [{card}]")
+    return {"losses": losses[2], "losses_one_position": losses[1], "steps": steps,
+            "k1_launches": k1, "batches": batches, "served_max_abs_diff": diff,
+            "top1_equal": int(same_top1.sum()), "top1_clear_rows": int(clear.sum())}
+
+
+def mesh_paths(torch, np, kernels, resnet, transformer, CudaServer, PagedEngine, SpeculativeLM, load_lm_params,
+               paged_hbm_accounting, make_lora_params, card):
+    """Phase 28: device meshes (ROADMAP A12) on logical positions of cuda:0."""
+    params = load_lm_params("", LM_CONFIG, 0, torch.device(SCHED_DEVICE))
+    numbers = {"28a": mesh_degrade(torch, PagedEngine, params, card)}
+    del params
+    params32 = load_lm_params("", LM_CONFIG, 0, torch.device(SCHED_DEVICE))
+    numbers["28b"] = mesh_engines(torch, np, kernels, PagedEngine, SpeculativeLM, params32, paged_hbm_accounting,
+                                  make_lora_params, card)
+    del params32
+    torch.cuda.empty_cache()
+    numbers["28c"] = mesh_ring(torch, np, kernels, transformer, card)
+    numbers["28d"] = mesh_trainer(torch, np, kernels, resnet, CudaServer, card)
+    return numbers
+
+
 def run() -> int:
     try:
         import torch
@@ -8244,7 +8658,7 @@ def run() -> int:
         from seldon_core_tpu_torch.models.paged import PagedEngine, StreamingLM, paged_hbm_accounting
         from seldon_core_tpu_torch.models.registry import WeightRegistry
         from seldon_core_tpu_torch.models.resnet import same_pads
-        from seldon_core_tpu_torch.models.speculative import SpeculativeGenerator
+        from seldon_core_tpu_torch.models.speculative import SpeculativeGenerator, SpeculativeLM
         from seldon_core_tpu_torch.ops import _build, kernels, w8a8
         from seldon_core_tpu_torch.ops.lora import make_lora_params
         from seldon_core_tpu_torch.tools import probe_normalize
@@ -8357,6 +8771,9 @@ def run() -> int:
         clock.mark("phase 26")
         a13_numbers = control_plane_paths(torch, np, kernels, resnet, StreamingLM, card, native_numbers)
         clock.mark("phase 27")
+        mesh_numbers = mesh_paths(torch, np, kernels, resnet, transformer, CudaServer, PagedEngine, SpeculativeLM,
+                                  load_lm_params, paged_hbm_accounting, make_lora_params, card)
+        clock.mark("phase 28")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -8398,6 +8815,7 @@ def run() -> int:
         "disaggregated": disagg_numbers,
         "components": a11_numbers,
         "control_plane": a13_numbers,
+        "meshes": mesh_numbers,
         "phase_seconds": clock.seconds,
         "seconds": time.perf_counter() - t_start,
     }
@@ -8433,6 +8851,11 @@ def run() -> int:
                              "batches": a13_numbers["27c"]["replica_batches"]},
             "path": f"{os.path.relpath(DEPLOY_SPEC, ROOT)} applied by the port's Deployer behind the C++ ingress "
                     "(27a), and a CUDA_SERVER hpa root's two replica processes on one card (27c)"},
+        "launches_on_phase28": {"launches": mesh_numbers["28d"]["k1_launches"],
+                                "batches": mesh_numbers["28d"]["batches"],
+                                "path": "ResNet-50 trained by ShardedTrainer on {'data': 2} of cuda:0, its "
+                                        "serving_variables() in CudaServer(normalize=true), one uint8 batch of "
+                                        f"{TRAIN_BATCH} (phase 28d)"},
         "shape_512": {f"{b}x{DET_SIZE}x{DET_SIZE}x3": {k: det_numbers["k1_512"][b][k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "copy_ms", "grid")} for b in (DET_BATCH, 1)},
         "launch_floor_ms": t32["launch_floor_ms"], "copy_ms": t32["copy_ms"],

@@ -16,15 +16,14 @@ Two rules of the port beside the JAX package's:
   ``status["rewrites"]``.  The graph registry keeps no ``JAX_SERVER``.
   A ``component_class`` under the JAX package (``seldon_core_tpu.``)
   is a validation error: a worker of the port never imports it.
-* **One device a predictor.**  A predictor whose ``mesh_axes`` asks for
-  more than one device is refused: sharded serving is ``ROADMAP.md``
-  §A item 12.
+
+A predictor's ``mesh_axes`` sizes its device group at placement, as in
+the JAX package.
 """
 
 from __future__ import annotations
 
 import logging
-import math
 from typing import List
 
 from seldon_core_tpu_torch.controlplane.spec import DeploymentSpecError, TpuDeployment
@@ -100,10 +99,6 @@ def validate(dep: TpuDeployment) -> List[str]:
             validate_graph(p.graph)
         except GraphSpecError as e:
             problems.append(f"predictor {p.name!r}: {e}")
-        if p.mesh_axes and math.prod(int(v) for v in p.mesh_axes.values()) > 1:
-            problems.append(
-                f"predictor {p.name!r}: mesh_axes {dict(p.mesh_axes)} asks for more than one device; "
-                "sharded serving is not ported yet (ROADMAP.md §A item 12)")
         for unit in p.graph.walk():
             if (unit.component_class or "").startswith(JAX_PACKAGE_PREFIX):
                 problems.append(

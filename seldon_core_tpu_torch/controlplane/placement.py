@@ -6,8 +6,8 @@ CUDA device set of this host (``range(torch.cuda.device_count())``):
 each predictor gets a device group sized by its ``mesh_axes`` request
 (or one device), chosen round-robin so co-deployed predictors don't
 contend for the same card (the multi-tenancy concern of SURVEY §7
-"hard parts").  Defaulting refuses a mesh of more than one device
-(``ROADMAP.md`` §A item 12), so a group is one card.
+"hard parts").  :meth:`PredictorPlacement.build_mesh` turns a group into
+the port's ``parallel.mesh.Mesh`` over those cards.
 
 With no card and no ``device_ids`` the planner raises
 :class:`DeploymentSpecError`: there is no quiet CPU plan.  A caller
@@ -43,9 +43,24 @@ class PredictorPlacement:
     mesh_axes: Optional[Dict[str, int]] = None
 
     def build_mesh(self):
-        """A device mesh for this placement: not ported yet."""
-        raise DeploymentSpecError(
-            f"predictor {self.predictor!r}: device meshes are not ported yet (ROADMAP.md §A item 12)")
+        """The port's ``Mesh`` over this placement's CUDA devices (JAX
+        ``placement.py:27-37``): shaped by ``mesh_axes``, else one ``data``
+        axis over the group.  A device id the host's cards do not have
+        fails placement."""
+        import torch
+
+        from seldon_core_tpu_torch.parallel.mesh import create_mesh
+
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        missing = [i for i in self.device_ids if not 0 <= int(i) < count]
+        if missing:
+            raise DeploymentSpecError(
+                f"predictor {self.predictor!r}: devices {missing} are not among this host's {count} CUDA "
+                "devices")
+        devices = [torch.device("cuda", int(i)) for i in self.device_ids]
+        if self.mesh_axes:
+            return create_mesh(dict(self.mesh_axes), devices=devices)
+        return create_mesh({"data": len(devices)}, devices=devices)
 
 
 @dataclass

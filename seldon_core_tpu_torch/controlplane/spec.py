@@ -9,9 +9,8 @@ for cross-cutting knobs (timeouts, max message sizes — the reference's
 annotation system, reference: SURVEY §5.6).
 
 Instead of pods, a predictor's resources are **CUDA devices**: each
-predictor may pin device ids, and the placement planner assigns cards
-(a mesh shape of more than one device is refused until ``ROADMAP.md``
-§A item 12; ``controlplane/defaulting.py``).
+predictor may pin device ids, and the placement planner assigns cards,
+a group sized by the predictor's ``mesh_axes`` (``controlplane/placement.py``).
 
 Loadable from YAML/JSON:
 

@@ -439,3 +439,42 @@ def load_act_scales(module: torch.nn.Module, variables: Mapping[str, Any]) -> in
         buffers[key].copy_(torch.from_numpy(np.array(node, np.float32)))
         n += 1
     return n
+
+
+_NORM_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+
+
+def flax_variables(module: torch.nn.Module, state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """A port ``ResNet`` or ``MLPClassifier`` ``state_dict`` -> flax's
+    ``{"params": ..., "batch_stats": ...}`` tree (float32 numpy): the
+    inverse of :func:`resnet_params_from_flax` / :func:`mlp_params_from_flax`
+    (conv OIHW -> HWIO, dense (out, in) -> (in, out), BatchNorm weight /
+    bias / running statistics -> scale / bias / mean / var,
+    ``blocks.N.convK`` -> ``<BlockClass>_N/Conv_K``).  What a flax
+    checkpoint of these weights holds, and what ``CudaServer`` loads from
+    a ``model_uri``."""
+    tree: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for key, t in state_dict.items():
+        *mods, name = key.split(".")
+        if mods and mods[0] == "blocks":
+            layer = _PORT_LAYER.match(mods[2])
+            part = ({"conv": "Conv_", "bn": "BatchNorm_"}[layer.group(1)] + layer.group(2)) if layer else mods[2]
+            path = [f"{type(module.blocks[int(mods[1])]).__name__}_{mods[1]}", part]
+        else:
+            path = mods
+        arr = t.detach().float().cpu().numpy()
+        if name == "weight" and arr.ndim in (2, 4):  # a conv or a dense layer: a kernel
+            collection, leaf = "params", "kernel"
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        elif name == "bias" and path and (path[-1] == "head" or path[-1].startswith("dense_")):
+            collection, leaf = "params", "bias"
+        else:
+            collection, leaf = _NORM_LEAVES[name]
+        node = tree[collection]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    if not tree["batch_stats"]:
+        del tree["batch_stats"]
+    return tree

@@ -61,7 +61,13 @@ The server runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"`` (the tests do); asking for CUDA on a host without it is
 an error, never a quiet fall back to the CPU.
 
-Not ported yet: ``mesh`` (a ``BAD_PARAMETER`` error when set).
+``mesh`` (a ``parallel.mesh.Mesh``, or its axes as a dict: over the
+host's CUDA devices, or over CPU positions for ``device="cpu"``) serves
+a batch-sharded replica group, as ``JaxServer`` does: the weights are
+replicated once per distinct device of the mesh, each batch is split
+over the ``data`` axis (``data_axis``), every position runs the whole
+served program (K1 included) on its rows, and the positions' answers
+are joined in order.
 """
 
 from __future__ import annotations
@@ -85,7 +91,6 @@ from seldon_core_tpu_torch.runtime.component import MicroserviceError, TPUCompon
 logger = logging.getLogger(__name__)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
-_LATER = ("mesh",)
 
 
 def _compute_dtype(name: str) -> torch.dtype:
@@ -266,15 +271,10 @@ class CudaServer(TPUComponent):
         variables: Optional[Mapping[str, Any]] = None,
         model_uri: str = "",
         extra_input_shapes: Optional[Sequence[Sequence[int]]] = None,
+        mesh: Any = None,
+        data_axis: str = "data",
         **kwargs: Any,
     ):
-        later = sorted(k for k in _LATER if kwargs.get(k))
-        if later:
-            raise MicroserviceError(
-                f"CudaServer does not support {later} yet (later slices of the PyTorch port)",
-                status_code=400,
-                reason="BAD_PARAMETER",
-            )
         if model_uri and variables is not None:
             raise MicroserviceError("give model_uri or variables, not both", status_code=400,
                                     reason="BAD_PARAMETER")
@@ -295,6 +295,20 @@ class CudaServer(TPUComponent):
         self._qparams: Dict[str, surgery.QuantizedKernel] = {}
         self._apply_lock = threading.Lock()  # functional_call swaps the module's weights
         self.device = resolve_device(device)
+        if isinstance(mesh, str):
+            import json
+
+            mesh = json.loads(mesh) if mesh else None
+        if isinstance(mesh, Mapping):
+            from seldon_core_tpu_torch.models.paged import component_mesh
+
+            mesh = component_mesh(dict(mesh), self.device)
+        self.mesh = mesh or None
+        self.data_axis = data_axis
+        if self.mesh is not None:
+            # the first position's device holds the batcher's staging
+            self.device = self.mesh.devices.flat[0]
+        self._replicas: Dict[Any, torch.nn.Module] = {}
         self.model_name = model
         self.num_classes = int(num_classes)
         self.dtype_name = dtype
@@ -443,17 +457,59 @@ class CudaServer(TPUComponent):
         return (np.broadcast_to(np.asarray(scale, np.float32), (c,)).copy(),
                 np.broadcast_to(np.asarray(shift, np.float32), (c,)).copy())
 
+    def _data_positions(self) -> List[Any]:
+        """The devices of the mesh's data positions, in axis order (index 0
+        of every other axis)."""
+        mesh = self.mesh
+        if self.data_axis not in mesh.axis_names:
+            return [mesh.devices.flat[0]]
+        a = mesh.axis_names.index(self.data_axis)
+        out = []
+        for i in range(mesh.devices.shape[a]):
+            pos = [0] * len(mesh.axis_names)
+            pos[a] = i
+            out.append(mesh.devices[tuple(pos)])
+        return out
+
+    def _replicate(self) -> None:
+        """One copy of the weights per distinct device of the mesh."""
+        import copy
+
+        self._replicas = {self.device: self.module}
+        for dev in self.mesh.distinct_devices():
+            if dev not in self._replicas:
+                self._replicas[dev] = copy.deepcopy(self.module).to(dev)
+
     def apply_fn(self, x: torch.Tensor) -> torch.Tensor:
         """The served program on a device batch: normalize (uint8 only) ->
-        model -> softmax / top-k."""
+        model -> softmax / top-k.  Under a mesh, each data position runs it
+        on its rows with its device's weights; rows are joined in order."""
+        if self.mesh is None:
+            return self._apply_one(x, self.module, self.device)
+        devices = self._data_positions()
+        base, extra = divmod(x.shape[0], len(devices))
+        outs, off = [], 0
+        for i, dev in enumerate(devices):
+            n = base + (1 if i < extra else 0)
+            if n == 0:
+                continue
+            part = x[off:off + n].to(dev)
+            off += n
+            outs.append(self._apply_one(part, self._replicas[dev], dev).to(x.device))
+        return torch.cat(outs, dim=0)
+
+    def _apply_one(self, x: torch.Tensor, module: torch.nn.Module, device) -> torch.Tensor:
         if self.normalize and x.dtype == torch.uint8:
-            x = kernels.fused_normalize(x, self._norm_scale, self._norm_shift, out_dtype=self.compute_dtype)
+            scale, shift = self._norm_scale.to(device), self._norm_shift.to(device)
+            x = kernels.fused_normalize(x, scale, shift, out_dtype=self.compute_dtype)
         if self._qparams:
             weights = surgery.materialize(self._qparams, self.quantize, self._dequant_dtype())
+            if device != self.device:
+                weights = {k: v.to(device) for k, v in weights.items()}
             with self._apply_lock:
-                y = torch.func.functional_call(self.module, weights, (x,))
+                y = torch.func.functional_call(module, weights, (x,))
         else:
-            y = self.module(x)
+            y = module(x)
         if self.softmax_outputs:
             y = torch.softmax(y, dim=-1)
         if self.top_k:
@@ -529,6 +585,8 @@ class CudaServer(TPUComponent):
             self._quantize()
         else:
             self.param_bytes = surgery.tree_hbm_bytes(self.module.state_dict())
+        if self.mesh is not None:
+            self._replicate()
         batcher_cls = MultiSignatureBatcher if self.extra_input_shapes else DynamicBatcher
         self.batcher = batcher_cls(
             self.device_call,
@@ -566,6 +624,7 @@ class CudaServer(TPUComponent):
             self.batcher.stop()
         self._loaded = False
         self.module = None
+        self._replicas = {}
         self._qparams = {}
         self._norm_scale = self._norm_shift = None
         if self.device.type == "cuda":
@@ -716,6 +775,7 @@ class CudaServer(TPUComponent):
             "loaded": self._loaded,
             "device": str(self.device),
             "device_name": torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu",
+            "mesh": self.mesh.shape if self.mesh is not None else None,
             "dtype": self.dtype_name,
             "precision": self.precision or "bf16",
             "quantize": self.quantize,

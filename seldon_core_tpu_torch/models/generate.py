@@ -115,8 +115,10 @@ class Generator:
     Runs on ``cuda`` unless ``device="cpu"``; ``dtype`` is bfloat16 unless
     given.  ``quantize="int8"`` rests the kernels int8 (``ops/surgery.py``)
     and dequantises them once per ``generate`` call, never per step.
-    ``mesh`` / ``tp`` / ``dp`` above 1 are refused (``PagedEngine``'s
-    refusal)."""
+    ``mesh`` / ``tp`` / ``dp`` (``SELDON_TPU_TP`` / ``SELDON_TPU_DP``)
+    resolve as the paged engine's do and run ``parallel/tp.py``'s cached
+    forward: rows over ``data``, weights by JAX's specs and the cache's
+    heads over ``model``."""
 
     def __init__(
         self,
@@ -137,31 +139,65 @@ class Generator:
     ):
         # paged.py imports this module at its top: import it here
         from seldon_core_tpu_torch.models.cudaserver import resolve_device
-        from seldon_core_tpu_torch.models.paged import (_resolve_dtype, check_mesh_options, drop_float_kernels,
-                                                        rest_kernels_int8)
+        from seldon_core_tpu_torch.models.paged import _resolve_dtype, drop_float_kernels, rest_kernels_int8
         from seldon_core_tpu_torch.models.transformer import TransformerLM
+        from seldon_core_tpu_torch.parallel.mesh import resolve_mesh
 
-        check_mesh_options(tp=tp, dp=dp, mesh=mesh)
         self.quantize = validate_quantize_mode(quantize)
-        self.device = device if isinstance(device, torch.device) else resolve_device(device)
+        if mesh is None:
+            mesh = resolve_mesh(tp=tp, dp=dp)
+        self._mesh = mesh
+        self.tp_degree = mesh.axis_size("model") if mesh is not None else 1
+        self.dp_degree = mesh.axis_size("data") if mesh is not None else 1
+        if mesh is not None:
+            self.device = mesh.devices.flat[0]
+        else:
+            self.device = device if isinstance(device, torch.device) else resolve_device(device)
         self.dtype = _resolve_dtype(dtype)
         self.max_len = int(max_len)
         self.vocab_size = int(vocab_size)
         self.prompt_buckets = sorted(set(prompt_buckets or _buckets_for(self.max_len)))
-        module = TransformerLM(vocab_size=self.vocab_size, d_model=d_model, num_layers=num_layers,
-                               num_heads=num_heads, max_len=self.max_len, dtype=self.dtype)
-        module.load_state_dict(params)
-        self.module = module.to(self.device).eval().requires_grad_(False)
         self.quantize_manifest: List[Dict[str, Any]] = []
         self._qkernels = {}
-        if self.quantize == "int8":
-            self._qkernels, self.quantize_manifest = rest_kernels_int8(self.module, params, self.device)
-            drop_float_kernels(self.module, self._qkernels)
+        if mesh is not None:
+            self.module = self._mesh_module(params, mesh, d_model=d_model, num_layers=num_layers,
+                                            num_heads=num_heads)
+        else:
+            module = TransformerLM(vocab_size=self.vocab_size, d_model=d_model, num_layers=num_layers,
+                                   num_heads=num_heads, max_len=self.max_len, dtype=self.dtype)
+            module.load_state_dict(params)
+            self.module = module.to(self.device).eval().requires_grad_(False)
+            if self.quantize == "int8":
+                self._qkernels, self.quantize_manifest = rest_kernels_int8(self.module, params, self.device)
+                drop_float_kernels(self.module, self._qkernels)
         # the int8 lane swaps dequantised kernels into the shared module
         # for a whole call: one call at a time holds them
         self._weights_lock = threading.Lock()
         # the (batch, bucket, new_bucket) shapes served
         self.programs: Set[Tuple[int, int, int]] = set()
+
+    def _mesh_module(self, params, mesh, *, d_model: int, num_layers: int, num_heads: int):
+        """The mesh's cached forward (``parallel/tp.py``): an int8w
+        generator's kernels quantised on the host and laid out by JAX's
+        paired specs."""
+        from seldon_core_tpu_torch.models.transformer import TransformerLM
+        from seldon_core_tpu_torch.ops.surgery import QuantizedKernel, quantize_params
+        from seldon_core_tpu_torch.parallel.sharding import P
+        from seldon_core_tpu_torch.parallel.tp import MeshPagedLM
+
+        state = {k: v.detach().float().cpu() for k, v in params.items()}
+        qkernels = None
+        if self.quantize == "int8":
+            with torch.device("meta"):
+                template = TransformerLM(vocab_size=self.vocab_size, d_model=d_model, num_layers=num_layers,
+                                         num_heads=num_heads, max_len=self.max_len, dtype=self.dtype)
+            qstate, self.quantize_manifest = quantize_params(template, state=state)
+            qkernels = {k: v for k, v in qstate.items() if isinstance(v, QuantizedKernel)}
+        tp = mesh.axis_size("model")
+        heads = "model" if tp > 1 and num_heads % tp == 0 else None
+        return MeshPagedLM(state, vocab_size=self.vocab_size, d_model=d_model, num_layers=num_layers,
+                           num_heads=num_heads, max_len=self.max_len, dtype=self.dtype, mesh=mesh,
+                           pool_spec=P(None, None, None, heads), lanes_sharded=True, qkernels=qkernels)
 
     def _shape_key(self, batch: int, plen: int, max_new_tokens: int) -> Tuple[int, int, int]:
         if max_new_tokens < 1:
@@ -205,7 +241,10 @@ class Generator:
         generator = None
         if temperature > 0:
             generator = torch.Generator(device=dev).manual_seed(int(seed) % (1 << 63))
-        if self._qkernels:
+        if self._mesh is not None and self.quantize == "int8":
+            with self._weights_lock, self.module.materialized():
+                out = self._run(padded, plen, max_new_tokens, float(temperature), int(top_k), int(eos_id), generator)
+        elif self._qkernels:
             from seldon_core_tpu_torch.models.paged import materialized
 
             with self._weights_lock, materialized(self.module, self._qkernels, self.dtype):
@@ -266,13 +305,21 @@ class GenerativeLM(TPUComponent):
         dp: int = 0,
         quantize: str = "",
         device: str = "cuda",
+        mesh_axes: Optional[Dict[str, int]] = None,
         **kwargs: Any,
     ):
         super().__init__(**kwargs)
         self.config = dict(vocab_size=int(vocab_size), d_model=int(d_model), num_layers=int(num_layers),
                            num_heads=int(num_heads), max_len=int(max_len))
+        # serving-mesh degrees: 0 defers to SELDON_TPU_TP / SELDON_TPU_DP;
+        # mesh_axes (a component's spelling) wins over both
         self.tp = int(tp)
         self.dp = int(dp)
+        if isinstance(mesh_axes, str):
+            import json
+
+            mesh_axes = json.loads(mesh_axes) if mesh_axes else None
+        self.mesh_axes = dict(mesh_axes) if mesh_axes else None
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
         self.top_k = int(top_k)
@@ -293,10 +340,13 @@ class GenerativeLM(TPUComponent):
                 return
             from seldon_core_tpu_torch.models.cudaserver import resolve_device
 
+            from seldon_core_tpu_torch.models.paged import component_mesh
+
             device = resolve_device(self.device)
             params = load_lm_params(self.model_uri, self.config, self.seed, device)
             self.generator = Generator(params, quantize=self.quantize, tp=self.tp or None, dp=self.dp or None,
-                                       dtype=torch.bfloat16, device=device, **self.config)
+                                       mesh=component_mesh(self.mesh_axes, device), dtype=torch.bfloat16,
+                                       device=device, **self.config)
 
     def predict(self, X, names, meta=None):
         if self.generator is None:
@@ -319,4 +369,5 @@ class GenerativeLM(TPUComponent):
         gen = self.generator
         return {"loaded": gen is not None, "device": str(gen.device) if gen else self.device,
                 "dtype": "bfloat16", "quantize": self.quantize,
+                "tp_degree": gen.tp_degree if gen else None, "dp_degree": gen.dp_degree if gen else None,
                 "programs": sorted(gen.programs) if gen else [], "config": self.config}

@@ -110,7 +110,10 @@ Decisions of this slice:
   ``RNG_STATE_MISMATCH``, and the evacuation journals it;
 * the pool is always the split layout: a flat (rank-4) container is
   refused with the JAX engine's geometry message, never reshaped;
-* meshes raise, naming the later slice (``ROADMAP.md`` §A item 12);
+* a mesh (``mesh``, ``tp`` / ``dp``, ``SELDON_TPU_TP`` / ``SELDON_TPU_DP``)
+  runs the explicit programs of ``parallel/tp.py`` on the gather lane or
+  the ring chunk, never the kernel lane, as the JAX engine does; the pool
+  keeps the split layout there too;
 * an unknown ``SELDON_TPU_CHUNK_IMPL`` raises, where the JAX engine runs
   the ring chunk for it;
 * ``model_uri`` and an adapter's ``{"uri": ...}`` name flax msgpack
@@ -143,6 +146,9 @@ from seldon_core_tpu_torch.ops.lora import LORA_TARGETS, LoraPool, make_lora_par
 from seldon_core_tpu_torch.ops.surgery import (QuantizedKernel, quantize_mode_for, quantize_params,
                                                validate_precision, validate_quantize_mode)
 from seldon_core_tpu_torch.ops.w8a8 import W8A8Dense, quantize_weight
+from seldon_core_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, mesh_from_axes, resolve_mesh
+from seldon_core_tpu_torch.parallel.sharding import ShardedTensor, pool_spec
+from seldon_core_tpu_torch.parallel.tp import write_kv_mesh
 from seldon_core_tpu_torch.runtime import knobs as _knobs
 from seldon_core_tpu_torch.runtime.component import MicroserviceError, TPUComponent, gauge_metric
 from seldon_core_tpu_torch.utils import faults as _faults
@@ -256,36 +262,8 @@ def paged_ctx_buckets(device: torch.device) -> int:
     return int(val)
 
 
-# ---------------------------------------------------------------------------
-# later slices
-# ---------------------------------------------------------------------------
-
-# option -> where ROADMAP.md §A queues it
-_LATER_SLICES = {
-    "tp/dp/mesh": "queue item 12, parallel/*",
-}
-
-
-def _refuse(option: str) -> MicroserviceError:
-    return MicroserviceError(
-        f"{option} is not ported yet: it comes with a later slice of the PyTorch port "
-        f"(ROADMAP.md §A, {_LATER_SLICES[option]})",
-        status_code=400,
-        reason="BAD_PARAMETER",
-    )
-
-
-def check_mesh_options(*, tp=None, dp=None, mesh=None) -> None:
-    """Raise for a serving mesh (``tp`` or ``dp`` above 1, or a mesh): the
-    port does not run one yet."""
-    if int(tp or 0) > 1 or int(dp or 0) > 1 or bool(mesh):
-        raise _refuse("tp/dp/mesh")
-
-
-def check_ported_options(*, tp=None, dp=None, mesh=None) -> None:
-    """Raise for every option of the JAX engine the port does not run
-    yet (meshes) and for an unknown ``SELDON_TPU_KV_DTYPE``."""
-    check_mesh_options(tp=tp, dp=dp, mesh=mesh)
+def check_ported_options() -> None:
+    """Raise for an unknown ``SELDON_TPU_KV_DTYPE`` at construction."""
     paged_kv_dtype_mode()
 
 
@@ -403,6 +381,53 @@ def _cat(parts):
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
 
 
+def gather_attention(q, k, v, gk, gv, lengths, scale):
+    """The gather lane's attention for one bucket's lanes: ``q`` / ``k`` /
+    ``v`` (nb, L, h, hd) of this call, ``gk`` / ``gv`` (nb, P, ps, h, hd)
+    the lanes' gathered pages, ``lengths`` (nb,) the tokens already in
+    them.  Scores in the model dtype masked with its finfo.min (the cache
+    past each length, the call's own future), one float32 softmax over
+    both, the weights cast back."""
+    nb, seg_len, heads, head_dim = q.shape
+    cache_len = gk.shape[1] * gk.shape[2]
+    gk = gk.reshape(nb, cache_len, heads, head_dim)
+    gv = gv.reshape(nb, cache_len, heads, head_dim)
+    qs = q * scale
+    sc = torch.einsum("bqhd,bkhd->bhqk", qs, gk)
+    ss = torch.einsum("bqhd,bkhd->bhqk", qs, k)
+    neg = torch.finfo(sc.dtype).min
+    cache_mask = torch.arange(cache_len, device=q.device)[None, :] < lengths[:, None]
+    sc = torch.where(cache_mask[:, None, None, :], sc, neg)
+    pos = torch.arange(seg_len, device=q.device)
+    ss = torch.where((pos[None, :] <= pos[:, None])[None, None], ss, neg)
+    weights = torch.softmax(torch.cat([sc, ss], dim=-1).float(), dim=-1).to(q.dtype)
+    wc, ws = weights[..., :cache_len], weights[..., cache_len:]
+    return torch.einsum("bhqk,bkhd->bqhd", wc, gv) + torch.einsum("bhqk,bkhd->bqhd", ws, v)
+
+
+def ring_step_attention(q, k, v, ck, cv, ring_k, ring_v, step: int, len0, scale):
+    """One ring-chunk step's attention for one bucket's lanes: three score
+    products (the context gathered at the chunk's start ``ck`` / ``cv``
+    (nb, C, h, hd), columns at or past ``len0`` masked; the chunk's ring
+    ``ring_k`` / ``ring_v`` (nb, S, h, hd), columns at or past ``step``
+    masked; the current token), one float32 softmax over the three, the
+    weights cast back and the three weighted sums added (JAX
+    ``paged.py:432-512``)."""
+    C, S = ck.shape[1], ring_k.shape[1]
+    neg = torch.finfo(q.dtype).min
+    qb = q * scale
+    sc = torch.einsum("bqhd,bkhd->bhqk", qb, ck)
+    sr = torch.einsum("bqhd,bkhd->bhqk", qb, ring_k)
+    ss = torch.einsum("bqhd,bkhd->bhqk", qb, k)
+    ctx_mask = torch.arange(C, device=q.device)[None, :] < len0[:, None]
+    sc = torch.where(ctx_mask[:, None, None, :], sc, neg)
+    sr = torch.where((torch.arange(S, device=q.device) < step)[None, None, None, :], sr, neg)
+    weights = torch.softmax(torch.cat([sc, sr, ss], dim=-1).float(), dim=-1).to(q.dtype)
+    wc, wr, ws = weights[..., :C], weights[..., C:C + S], weights[..., C + S:]
+    return (torch.einsum("bhqk,bkhd->bqhd", wc, cv) + torch.einsum("bhqk,bkhd->bqhd", wr, ring_v)
+            + torch.einsum("bhqk,bkhd->bqhd", ws, v))
+
+
 class PagedTransformerBlock(TransformerBlock):
     """TransformerBlock whose attention reads a paged K/V pool.
 
@@ -477,28 +502,14 @@ class PagedTransformerBlock(TransformerBlock):
             # pages dequantised right after the fetch, one scale per page
             outs = []
             for tb, sl in buckets:
-                nb = tb.shape[0]
                 gk = pk[tb]  # (nb, P, ps, h, hd)
                 gv = pv[tb]
                 if kv_scales is not None:
                     sk, sv = kv_scales
-                    bshape = (nb, gk.shape[1], 1, 1, 1)
+                    bshape = (tb.shape[0], gk.shape[1], 1, 1, 1)
                     gk = (gk.float() * sk[tb].reshape(bshape)).to(q.dtype)
                     gv = (gv.float() * sv[tb].reshape(bshape)).to(q.dtype)
-                cache_len = gk.shape[1] * gk.shape[2]
-                gk = gk.reshape(nb, cache_len, heads, head_dim)
-                gv = gv.reshape(nb, cache_len, heads, head_dim)
-                qs = q[sl] * scale
-                sc = torch.einsum("bqhd,bkhd->bhqk", qs, gk)
-                ss = torch.einsum("bqhd,bkhd->bhqk", qs, k[sl])
-                neg = torch.finfo(sc.dtype).min
-                cache_mask = torch.arange(cache_len, device=x.device)[None, :] < lengths[sl][:, None]
-                sc = torch.where(cache_mask[:, None, None, :], sc, neg)
-                pos = torch.arange(seg_len, device=x.device)
-                ss = torch.where((pos[None, :] <= pos[:, None])[None, None], ss, neg)
-                weights = torch.softmax(torch.cat([sc, ss], dim=-1).float(), dim=-1).to(q.dtype)
-                wc, ws = weights[..., :cache_len], weights[..., cache_len:]
-                outs.append(torch.einsum("bhqk,bkhd->bqhd", wc, gv) + torch.einsum("bhqk,bkhd->bqhd", ws, v[sl]))
+                outs.append(gather_attention(q[sl], k[sl], v[sl], gk, gv, lengths[sl], scale))
             attn = _cat(outs).reshape(batch, seg_len, d_model)
         return self.mlp_tail(x, attn, lora, adapter_idx), k, v
 
@@ -519,25 +530,12 @@ class PagedTransformerBlock(TransformerBlock):
         batch, seg_len, d_model = x.shape
         q, k, v = self.split_heads(self.project("qkv", self.ln0(x), lora, adapter_idx))
         scale = _head_scale(d_model // self.num_heads, q.dtype)
-        S = ring_k.shape[1]
-        neg = torch.finfo(q.dtype).min
-        ring_mask = (torch.arange(S, device=x.device) < step)[None, None, None, :]
         outs, off = [], 0
         for ck, cv in zip(ctx_k, ctx_v):
-            nb, C = ck.shape[0], ck.shape[1]
-            sl = slice(off, off + nb)
-            off += nb
-            qb = q[sl] * scale
-            sc = torch.einsum("bqhd,bkhd->bhqk", qb, ck)
-            sr = torch.einsum("bqhd,bkhd->bhqk", qb, ring_k[sl])
-            ss = torch.einsum("bqhd,bkhd->bhqk", qb, k[sl])
-            ctx_mask = torch.arange(C, device=x.device)[None, :] < len0[sl][:, None]
-            sc = torch.where(ctx_mask[:, None, None, :], sc, neg)
-            sr = torch.where(ring_mask, sr, neg)
-            weights = torch.softmax(torch.cat([sc, sr, ss], dim=-1).float(), dim=-1).to(q.dtype)
-            wc, wr, ws = weights[..., :C], weights[..., C:C + S], weights[..., C + S:]
-            outs.append(torch.einsum("bhqk,bkhd->bqhd", wc, cv) + torch.einsum("bhqk,bkhd->bqhd", wr, ring_v[sl])
-                        + torch.einsum("bhqk,bkhd->bqhd", ws, v[sl]))
+            sl = slice(off, off + ck.shape[0])
+            off += ck.shape[0]
+            outs.append(ring_step_attention(q[sl], k[sl], v[sl], ck, cv, ring_k[sl], ring_v[sl], step, len0[sl],
+                                            scale))
         attn = _cat(outs).reshape(batch, seg_len, d_model)
         return self.mlp_tail(x, attn, lora, adapter_idx), k, v
 
@@ -661,6 +659,15 @@ def write_kv(pk, pv, new_k, new_v, block_tables, start, valid, *, page_size, max
     and takes the quantising write, :func:`_write_kv_int8`."""
     pk_pages, sk = kv_split(pk)
     pv_pages, sv = kv_split(pv)
+    if isinstance(pk_pages, ShardedTensor):
+        # a mesh engine's pools: each write lands on the positions that
+        # hold its page and heads (parallel/tp.py)
+        S = new_k.parts[next(iter(new_k.parts))].shape[2]
+        page, row = _write_positions(block_tables, start, valid, S, page_size=page_size, max_len=max_len,
+                                     from_zero=from_zero, device=block_tables.device)
+        write_kv_mesh(pk_pages, pv_pages, new_k, new_v, page, row,
+                      pages_sharded=pk_pages.spec.axis_of(1) is not None)
+        return pk, pv
     if sk is not None:
         _write_kv_int8(pk_pages, sk, pv_pages, sv, new_k, new_v, block_tables, start, valid,
                        page_size=page_size, max_len=max_len, from_zero=from_zero)
@@ -1138,12 +1145,30 @@ class PagedEngine:
         max_adapters: int = 0,
         lora_rank: int = 8,
         weight_registry: Any = None,
+        shard_min_weight_size: int = 16_384,
+        model_axis: str = MODEL_AXIS,
+        data_axis: str = DATA_AXIS,
     ):
-        check_ported_options(tp=tp, dp=dp, mesh=mesh)
+        check_ported_options()
         if max_len % page_size:
             raise ValueError(f"max_len {max_len} must be a multiple of page_size {page_size}")
         self.precision, self.quantize = _precision_modes(quantize, precision)
-        self.device = device if isinstance(device, torch.device) else resolve_device(device)
+        # the serving mesh (JAX paged.py:1431-1446): an explicit mesh wins,
+        # else tp= / dp= / SELDON_TPU_TP / SELDON_TPU_DP through the one
+        # precedence home, degrading (data axis first) with a WARN on a
+        # host with fewer distinct CUDA devices
+        if mesh is None:
+            mesh = resolve_mesh(tp=tp, dp=dp, model_axis=model_axis, data_axis=data_axis)
+        self._mesh = mesh
+        self._model_axis, self._data_axis = model_axis, data_axis
+        self.tp_degree = mesh.axis_size(model_axis) if mesh is not None else 1
+        self.dp_degree = mesh.axis_size(data_axis) if mesh is not None else 1
+        if mesh is not None:
+            # the controller's device: the engine's slot-major state lives
+            # on the mesh's first position
+            self.device = mesh.devices.flat[0]
+        else:
+            self.device = device if isinstance(device, torch.device) else resolve_device(device)
         self.dtype = _resolve_dtype(dtype)
         self.vocab_size = int(vocab_size)
         self.max_len = int(max_len)
@@ -1156,33 +1181,51 @@ class PagedEngine:
         self.max_steps = max(self.steps_per_call, int(max_steps_per_call or 0))
         # default pool = worst case (every slot full-length) + trash page
         self.num_pages = int(num_pages or self.max_slots * self.pages_per_stream + 1)
+        # sequence sharding (JAX paged.py:1500-1515): the data axis shards
+        # the pool's page dim (SELDON_TPU_SEQ_SHARD=0 replicates it), so
+        # the page count rounds up to a multiple of dp
+        self._seq_shard = _knobs.flag("SELDON_TPU_SEQ_SHARD")
+        if self.dp_degree > 1 and self._seq_shard and self.num_pages % self.dp_degree:
+            self.num_pages += -self.num_pages % self.dp_degree
         self.prompt_buckets = _buckets_for(self.max_len)
-        self.module = PagedTransformerLM(
-            vocab_size=vocab_size, d_model=d_model, num_layers=num_layers, num_heads=num_heads,
-            max_len=max_len, dtype=self.dtype, precision="w8a8" if self.precision == "w8a8" else "bf16",
-        )
-        self.module.load_state_dict(params)
-        self.module = self.module.to(self.device).eval().requires_grad_(False)
-        self._init_precision(params)
         head_dim = d_model // num_heads
         self.num_layers, self.num_heads, self.head_dim = int(num_layers), int(num_heads), head_dim
         pool_shape = (num_layers, self.num_pages, self.page_size, num_heads, head_dim)
         # the decode chunk: the pool chunk (per-step attention over the
         # pool, where the kernel lane lives) or the ring chunk
         mode = paged_kernel_mode()
-        eligible = paged_kernel_static_eligible(mode, True, self.dtype, self.device)
+        eligible = paged_kernel_static_eligible(mode, mesh is None, self.dtype, self.device)
         self._chunk_impl = resolve_chunk_impl(mode, eligible)
         # the length-bucketed split of each chunk's lanes (1 or 2 buckets)
         self._ctx_buckets = paged_ctx_buckets(self.device)
         # int8 pool: pages rest int8 with one float32 scale per page per
         # K/V in the sibling (layers, num_pages) tables
-        self._kv_int8 = paged_kv_int8(True, self._chunk_impl)
+        self._kv_int8 = paged_kv_int8(mesh is None, self._chunk_impl)
         pool_dtype = torch.int8 if self._kv_int8 else self.dtype
-        self.pages_k = torch.zeros(pool_shape, dtype=pool_dtype, device=self.device)
-        self.pages_v = torch.zeros(pool_shape, dtype=pool_dtype, device=self.device)
+        # lane sharding (JAX paged.py:1699-1713): a call's rows split over
+        # data when max_slots divides, else they replicate with a WARN
+        self._lane_sharded = self.dp_degree > 1 and self.max_slots % self.dp_degree == 0
+        if self.dp_degree > 1 and not self._lane_sharded:
+            logger.warning("decode lanes NOT sharded over (%r, %r): max_slots=%d is not divisible by mesh axis %r "
+                           "size %d — lane-major arrays replicate (pool page sharding is unaffected)",
+                           data_axis, model_axis, self.max_slots, data_axis, self.dp_degree)
+        if mesh is None:
+            self.module = PagedTransformerLM(
+                vocab_size=vocab_size, d_model=d_model, num_layers=num_layers, num_heads=num_heads,
+                max_len=max_len, dtype=self.dtype, precision="w8a8" if self.precision == "w8a8" else "bf16",
+            )
+            self.module.load_state_dict(params)
+            self.module = self.module.to(self.device).eval().requires_grad_(False)
+            self._init_precision(params)
+            self.pages_k = torch.zeros(pool_shape, dtype=pool_dtype, device=self.device)
+            self.pages_v = torch.zeros(pool_shape, dtype=pool_dtype, device=self.device)
+            self._pool_shard_bytes = 2 * self.pages_k.numel() * self.pages_k.element_size()
+        else:
+            self._init_mesh(params, pool_shape, pool_dtype, shard_min_weight_size)
         if self._kv_int8:
             self.scales_k = torch.zeros((num_layers, self.num_pages), dtype=torch.float32, device=self.device)
             self.scales_v = torch.zeros((num_layers, self.num_pages), dtype=torch.float32, device=self.device)
+            self._pool_shard_bytes += 2 * self.scales_k.numel() * 4
         else:
             self.scales_k = self.scales_v = None
         # which decode lane this engine runs (the `kernel_active` gauge):
@@ -1306,7 +1349,8 @@ class PagedEngine:
         self.max_adapters = max(0, int(max_adapters))
         self._registry = weight_registry
         self._lora = (LoraPool(num_layers=num_layers, d_model=d_model, max_adapters=self.max_adapters,
-                               rank=int(lora_rank), device=self.device) if self.max_adapters else None)
+                               rank=int(lora_rank), device=self.device, mesh=mesh, model_axis=model_axis)
+                      if self.max_adapters else None)
         self._adapter_io_lock = threading.Lock()
         self._adapter_table: Dict[str, int] = {}
         self._adapter_names: Dict[int, str] = {}
@@ -1321,6 +1365,41 @@ class PagedEngine:
         self._adapter_requests: Dict[str, int] = {}
         # each slot's adapter slot id (slot-major, like _block_tables)
         self._adapter_slots = np.zeros((self.max_slots,), np.int32)
+
+    def _init_mesh(self, params: Dict[str, torch.Tensor], pool_shape, pool_dtype, min_weight_size: int) -> None:
+        """The mesh engine's weights and pool (JAX ``shard_decode_state``):
+        :class:`parallel.tp.MeshPagedLM` over JAX's parameter specs (an
+        int8w engine's kernels quantised on the host and laid out by the
+        paired specs; a w8a8 engine's projections as int8 integers and
+        steps), and pools created already sharded, heads over
+        ``model`` and pages over ``data`` (``parallel.sharding.pool_spec``,
+        with its WARNs)."""
+        from seldon_core_tpu_torch.parallel.tp import MeshPagedLM
+
+        mesh = self._mesh
+        spec = pool_spec(mesh, num_pages=self.num_pages, num_heads=self.num_heads, model_axis=self._model_axis,
+                         data_axis=self._data_axis, seq_shard=self._seq_shard)
+        state = {k: v.detach().float().cpu() for k, v in params.items()}
+        self.quantize_manifest: List[Dict[str, Any]] = []
+        self._qkernels: Dict[str, QuantizedKernel] = {}
+        qkernels = None
+        if self.quantize == "int8":
+            with torch.device("meta"):
+                template = PagedTransformerLM(vocab_size=self.vocab_size, d_model=self.num_heads * self.head_dim,
+                                              num_layers=self.num_layers, num_heads=self.num_heads,
+                                              max_len=self.max_len, dtype=self.dtype)
+            qstate, self.quantize_manifest = quantize_params(template, state=state)
+            qkernels = {k: v for k, v in qstate.items() if isinstance(v, QuantizedKernel)}
+        self.module = MeshPagedLM(state, vocab_size=self.vocab_size, d_model=self.num_heads * self.head_dim,
+                                  num_layers=self.num_layers, num_heads=self.num_heads, max_len=self.max_len,
+                                  dtype=self.dtype, mesh=mesh, pool_spec=spec, lanes_sharded=self._lane_sharded,
+                                  model_axis=self._model_axis, data_axis=self._data_axis,
+                                  min_weight_size=min_weight_size, qkernels=qkernels,
+                                  precision="w8a8" if self.precision == "w8a8" else "bf16")
+        self.pages_k = ShardedTensor.zeros(mesh, pool_shape, spec, pool_dtype)
+        self.pages_v = ShardedTensor.zeros(mesh, pool_shape, spec, pool_dtype)
+        # the K+V bytes one position holds (JAX's addressable shard)
+        self._pool_shard_bytes = 2 * self.pages_k.position_nbytes(tuple(0 for _ in mesh.axis_names))
 
     def _init_observability(self) -> None:
         """The engine's telemetry and chaos state, each part behind its
@@ -1414,6 +1493,13 @@ class PagedEngine:
         """The compute-dtype kernels of an ``int8w`` engine for one device
         call (a prefill wave or a decode chunk), never one step; a no-op
         for every other lane."""
+        if self._mesh is not None:
+            if self.module.qkernels:
+                with self._lock:
+                    self._counters["weight_materializations"] += 1
+            with self.module.materialized():
+                yield
+            return
         if not self._qkernels:
             yield
             return
@@ -1425,6 +1511,8 @@ class PagedEngine:
     def weight_bytes(self) -> int:
         """Bytes of the model's weights as they rest on the device (int8
         kernels at one byte, their scales and the w8a8 steps included)."""
+        if self._mesh is not None:
+            return self.module.weight_bytes()
         total = sum(t.numel() * t.element_size() for t in self.module.parameters())
         for qk in self._qkernels.values():
             total += qk.q.numel() * qk.q.element_size() + qk.scale.numel() * qk.scale.element_size()
@@ -3330,6 +3418,8 @@ class PagedEngine:
         and a lane that emitted nothing writes nothing (its pages are
         never a shared prefix page: a lane writes at or past its prompt's
         length, and the last prompt page is always private)."""
+        if self._mesh is not None:
+            return self._chunk_ring_mesh(steps, st)
         L, B, ps = self.num_layers, self.max_slots, self.page_size
         h, hd = self.num_heads, self.head_dim
         ctx_k, ctx_v = [], []
@@ -3357,6 +3447,30 @@ class PagedEngine:
             toks.append(token)
         accepted = torch.arange(steps, device=self.device)[None, :] < st.emitted[:, None]
         write_kv(self.pages_k, self.pages_v, ring_k, ring_v, st.tables, len0, accepted, page_size=ps,
+                 max_len=self.max_len)
+        return toks
+
+    def _chunk_ring_mesh(self, steps: int, st: _ChunkState) -> List[torch.Tensor]:
+        """:meth:`_chunk_ring` over the mesh: each position gathers its
+        lanes' context at its heads once, keeps its part of the ring, and
+        the accepted columns are written to the positions holding their
+        pages at the end."""
+        rows, ctx = self.module.ring_context(self.pages_k, self.pages_v, st.split, self.max_slots)
+        ring_k, ring_v = self.module.ring_buffers(rows, steps)
+        len0 = st.lengths
+        toks = []
+        for t in range(steps):
+            token, active = self._decode_step(st)
+            positions = torch.clamp(st.lengths, max=self.max_len - 1)[:, None]
+            new_logits, nk, nv = self.module.forward_ring(token[:, None], positions, rows, ctx, ring_k, ring_v, t,
+                                                          len0, **st.model_kw)
+            ring_k.set_column(t, nk)
+            ring_v.set_column(t, nv)
+            st.logits = torch.where(active[:, None], new_logits[:, 0], st.logits)
+            st.lengths = st.lengths + active.int()
+            toks.append(token)
+        accepted = torch.arange(steps, device=self.device)[None, :] < st.emitted[:, None]
+        write_kv(self.pages_k, self.pages_v, ring_k, ring_v, st.tables, len0, accepted, page_size=self.page_size,
                  max_len=self.max_len)
         return toks
 
@@ -3407,8 +3521,8 @@ class PagedEngine:
         rec.update({
             "wall_ms": round(wall_s * 1000.0, 3),
             "prefill_wall_ms": round(prefill_wall_s * 1000.0, 3),
-            "tp_degree": 1,
-            "dp_degree": 1,
+            "tp_degree": self.tp_degree,
+            "dp_degree": self.dp_degree,
             "steps": steps,
             "buckets": [list(b) for b in buckets],
             "occupancy": occupancy,
@@ -3964,6 +4078,11 @@ class PagedEngine:
                 "prefix_pages_cached": len(self._lru),
                 "chunk_steps": dict(self._chunk_steps),
                 "kv_dtype_int8": int(self._kv_int8),
+                # the mesh degrees this engine runs at (1 = one device) and
+                # the K+V pool bytes one position holds
+                "tp_degree": self.tp_degree,
+                "dp_degree": self.dp_degree,
+                "pool_shard_bytes": self._pool_shard_bytes,
                 "adapters_resident": len(self._adapter_table),
                 "adapter_slots": self.max_adapters,
                 "health": health,
@@ -4140,6 +4259,18 @@ class PagedEngine:
 # the served component
 # ---------------------------------------------------------------------------
 
+def component_mesh(mesh_axes: Optional[Dict[str, int]], device: torch.device):
+    """A component's ``mesh_axes`` as a mesh (JAX ``mesh_from_axes``): over
+    the host's CUDA devices, or, for a component asked to run on the
+    CPU, over that many CPU positions; None without ``mesh_axes``."""
+    if not mesh_axes:
+        return None
+    if device.type == "cpu":
+        size = int(np.prod([int(v) for v in mesh_axes.values()]))
+        return mesh_from_axes(mesh_axes, devices=[device] * size)
+    return mesh_from_axes(mesh_axes)
+
+
 class StreamingLM(TPUComponent):
     """Deployable continuous-batching generation component.
 
@@ -4211,7 +4342,7 @@ class StreamingLM(TPUComponent):
         **kwargs: Any,
     ):
         super().__init__(**kwargs)
-        check_ported_options(tp=tp, dp=dp, mesh=mesh_axes)
+        check_ported_options()
         precision, quantize = _precision_modes(quantize, precision)  # fail at construction
         if isinstance(adapters, str):
             adapters = json.loads(adapters) if adapters else None
@@ -4223,8 +4354,12 @@ class StreamingLM(TPUComponent):
         self.dtype = _resolve_dtype(dtype)
         self.config = dict(vocab_size=int(vocab_size), d_model=int(d_model), num_layers=int(num_layers),
                            num_heads=int(num_heads), max_len=int(max_len))
+        if isinstance(mesh_axes, str):
+            mesh_axes = json.loads(mesh_axes) if mesh_axes else None
+        self.mesh_axes = dict(mesh_axes) if mesh_axes else None
         self.engine_config = dict(page_size=int(page_size), num_pages=int(num_pages) or None,
                                   max_slots=int(max_slots), steps_per_call=int(steps_per_call),
+                                  tp=int(tp or 0), dp=int(dp or 0),
                                   max_steps_per_call=int(max_steps_per_call), quantize=quantize,
                                   precision=precision, prefix_cache=prefix_cache, max_queue=int(max_queue),
                                   chunk_token_budget=int(chunk_token_budget),
@@ -4263,7 +4398,8 @@ class StreamingLM(TPUComponent):
             params = load_lm_params(self.model_uri, self.config, self.seed, self.device)
             engine = PagedEngine(params, dtype=self.dtype, device=self.device, max_adapters=self.max_adapters,
                                  lora_rank=self.lora_rank, weight_registry=self._register_adapters(),
-                                 **self.config, **self.engine_config)
+                                 mesh=component_mesh(self.mesh_axes, self.device), **self.config,
+                                 **self.engine_config)
             # first CUDA calls (library handles, the kernel build) pay here, not in a request
             engine.generate(np.zeros((1,), np.int32), max_new_tokens=2)
             self._wire_telemetry(engine)
@@ -4824,6 +4960,8 @@ class StreamingLM(TPUComponent):
             gauge_metric("paged_kv_dtype_int8", s["kv_dtype_int8"]),
             gauge_metric("paged_adapters_resident", s["adapters_resident"]),
             gauge_metric("paged_bucketed_chunks", s["bucketed_chunks"]),
+            gauge_metric("paged_tp_degree", s["tp_degree"]),
+            gauge_metric("paged_dp_degree", s["dp_degree"]),
         ]
         for key in ("shed", "expired", "preempted", "restored", "adapter_loads", "adapter_hits", "adapter_misses",
                     "adapter_evictions", "drained", "replayed", "kv_exports", "kv_imports", "migrated_out",

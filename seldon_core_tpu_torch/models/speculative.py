@@ -34,6 +34,7 @@ gather lane.
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
 import threading
 from typing import Any, Dict, List, Optional, Sequence
@@ -44,10 +45,12 @@ import torch
 from seldon_core_tpu_torch.models.cudaserver import resolve_device
 from seldon_core_tpu_torch.models.generate import _buckets_for, load_lm_params
 from seldon_core_tpu_torch.models.paged import (PagedTransformerLM, _resolve_dtype, check_ported_options,
-                                                drop_float_kernels, materialized, paged_kernel_mode,
+                                                component_mesh, drop_float_kernels, materialized, paged_kernel_mode,
                                                 paged_kernel_static_eligible, rest_kernels_int8, write_kv)
 from seldon_core_tpu_torch.ops import kernels
-from seldon_core_tpu_torch.ops.surgery import validate_quantize_mode
+from seldon_core_tpu_torch.ops.surgery import QuantizedKernel, quantize_params, validate_quantize_mode
+from seldon_core_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, resolve_mesh
+from seldon_core_tpu_torch.parallel.sharding import ShardedTensor, pool_spec
 from seldon_core_tpu_torch.runtime import knobs as _knobs
 from seldon_core_tpu_torch.runtime.component import MicroserviceError, TPUComponent, gauge_metric
 
@@ -78,28 +81,60 @@ class _PagedState:
     per forward."""
 
     def __init__(self, config: Dict[str, int], params: Dict[str, torch.Tensor], *, max_len: int, page_size: int,
-                 dtype: torch.dtype, device: torch.device, quantize: str = ""):
+                 dtype: torch.dtype, device: torch.device, quantize: str = "", mesh: Any = None,
+                 model_axis: str = MODEL_AXIS, data_axis: str = DATA_AXIS, min_weight_size: int = 16_384):
         self.quantize = validate_quantize_mode(quantize)
         self.dtype = dtype
         self.max_len = max_len
         self.page_size = page_size
-        module = PagedTransformerLM(dtype=dtype, **config)
-        module.load_state_dict(params)
-        self.module = module.to(device).eval().requires_grad_(False)
         self.quantize_manifest: List[Dict[str, Any]] = []
         self._qkernels = {}
-        if self.quantize == "int8":
-            self._qkernels, self.quantize_manifest = rest_kernels_int8(self.module, params, device)
-            drop_float_kernels(self.module, self._qkernels)
         heads = config["num_heads"]
-        shape = (config["num_layers"], max_len // page_size + 1, page_size, heads, config["d_model"] // heads)
-        self.pk = torch.zeros(shape, dtype=dtype, device=device)
-        self.pv = torch.zeros(shape, dtype=dtype, device=device)
+        num_pages = max_len // page_size + 1  # + trash page 0
+        if mesh is not None:
+            # the engine's mesh layout (JAX speculative.py:86-108): the page
+            # count rounds up to a multiple of dp (the identity table never
+            # reaches the extra pages), pools and weights sharded
+            from seldon_core_tpu_torch.parallel.tp import MeshPagedLM
+
+            seq_shard = _knobs.flag("SELDON_TPU_SEQ_SHARD")
+            dp = mesh.axis_size(data_axis)
+            if dp > 1 and seq_shard and num_pages % dp:
+                num_pages += -num_pages % dp
+            shape = (config["num_layers"], num_pages, page_size, heads, config["d_model"] // heads)
+            spec = pool_spec(mesh, num_pages=num_pages, num_heads=heads, model_axis=model_axis,
+                             data_axis=data_axis, seq_shard=seq_shard)
+            state = {k: v.detach().float().cpu() for k, v in params.items()}
+            qkernels = None
+            if self.quantize == "int8":
+                with torch.device("meta"):
+                    template = PagedTransformerLM(dtype=dtype, **config)
+                qstate, self.quantize_manifest = quantize_params(template, state=state)
+                qkernels = {k: v for k, v in qstate.items() if isinstance(v, QuantizedKernel)}
+            self.module = MeshPagedLM(state, dtype=dtype, mesh=mesh, pool_spec=spec, lanes_sharded=False,
+                                      model_axis=model_axis, data_axis=data_axis, min_weight_size=min_weight_size,
+                                      qkernels=qkernels, **config)
+            self.pk = ShardedTensor.zeros(mesh, shape, spec, dtype)
+            self.pv = ShardedTensor.zeros(mesh, shape, spec, dtype)
+            device = mesh.devices.flat[0]
+        else:
+            module = PagedTransformerLM(dtype=dtype, **config)
+            module.load_state_dict(params)
+            self.module = module.to(device).eval().requires_grad_(False)
+            if self.quantize == "int8":
+                self._qkernels, self.quantize_manifest = rest_kernels_int8(self.module, params, device)
+                drop_float_kernels(self.module, self._qkernels)
+            shape = (config["num_layers"], num_pages, page_size, heads, config["d_model"] // heads)
+            self.pk = torch.zeros(shape, dtype=dtype, device=device)
+            self.pv = torch.zeros(shape, dtype=dtype, device=device)
+        self.mesh = mesh
         self.table = torch.arange(1, max_len // page_size + 1, dtype=torch.int32, device=device)[None, :]
         self.length = 0  # host-side; rollback is an assignment
 
     def weights(self):
         """The compute-dtype kernels for one forward (a no-op unless int8)."""
+        if self.mesh is not None:
+            return self.module.materialized()
         if not self._qkernels:
             return contextlib.nullcontext()
         return materialized(self.module, self._qkernels, self.dtype)
@@ -137,17 +172,30 @@ class SpeculativeGenerator:
         mesh: Any = None,
         tp: Optional[int] = None,
         dp: Optional[int] = None,
+        model_axis: str = MODEL_AXIS,
+        data_axis: str = DATA_AXIS,
+        shard_min_weight_size: int = 16_384,
         quantize: str = "",
         chunk_token_budget: int = 0,
     ):
-        check_ported_options(tp=tp, dp=dp, mesh=mesh)
+        check_ported_options()
+        # the engine's mesh precedence: an explicit mesh wins, else tp= /
+        # dp= / SELDON_TPU_TP / SELDON_TPU_DP, degrading with a WARN
+        if mesh is None:
+            mesh = resolve_mesh(tp=tp, dp=dp, model_axis=model_axis, data_axis=data_axis)
+        self.mesh = mesh
+        self.tp_degree = mesh.axis_size(model_axis) if mesh is not None else 1
+        self.dp_degree = mesh.axis_size(data_axis) if mesh is not None else 1
         if max_len % page_size:
             raise ValueError(f"max_len {max_len} must be a multiple of page_size {page_size}")
         if draft not in ("ngram", "model"):
             raise ValueError(f"draft must be 'ngram' or 'model', got {draft!r}")
         if draft == "model" and draft_params is None:
             raise ValueError("draft='model' needs draft_params")
-        self.device = device if isinstance(device, torch.device) else resolve_device(device)
+        if mesh is not None:
+            self.device = mesh.devices.flat[0]
+        else:
+            self.device = device if isinstance(device, torch.device) else resolve_device(device)
         self.dtype = _resolve_dtype(dtype)
         self.vocab_size = int(vocab_size)
         self.max_len = int(max_len)
@@ -168,13 +216,14 @@ class SpeculativeGenerator:
         self.stats = {"rounds": 0, "drafted": 0, "accepted": 0, "tokens": 0}
         self.single_token_forwards = 0
         # the engine's lane rule: one-token forwards on the kernel lane
-        self._use_kernel = paged_kernel_static_eligible(paged_kernel_mode(), True, self.dtype, self.device)
+        self._use_kernel = paged_kernel_static_eligible(paged_kernel_mode(), mesh is None, self.dtype, self.device)
         target_cfg = dict(vocab_size=int(vocab_size), d_model=int(d_model), num_layers=int(num_layers),
                           num_heads=int(num_heads), max_len=self.max_len)
         if self._use_kernel:
             kernels.paged_kernel_impl(target_cfg["num_heads"], d_model // num_heads)  # a bad IMPL knob fails here
+        mesh_kw = dict(mesh=mesh, model_axis=model_axis, data_axis=data_axis, min_weight_size=shard_min_weight_size)
         self.target = _PagedState(target_cfg, params, max_len=self.max_len, page_size=self.page_size,
-                                  dtype=self.dtype, device=self.device, quantize=quantize)
+                                  dtype=self.dtype, device=self.device, quantize=quantize, **mesh_kw)
         self.quantize_manifest = self.target.quantize_manifest
         self.draft_state: Optional[_PagedState] = None
         if draft == "model":
@@ -185,7 +234,7 @@ class SpeculativeGenerator:
             if self._use_kernel:
                 kernels.paged_kernel_impl(cfg["num_heads"], cfg["d_model"] // cfg["num_heads"])
             self.draft_state = _PagedState(cfg, draft_params, max_len=self.max_len, page_size=self.page_size,
-                                           dtype=self.dtype, device=self.device, quantize=quantize)
+                                           dtype=self.dtype, device=self.device, quantize=quantize, **mesh_kw)
 
     # ---- forwards -----------------------------------------------------------
 
@@ -347,10 +396,11 @@ class SpeculativeLM(TPUComponent):
     ``draft_k``, ``ngram``, ``draft_uri`` / ``draft_config`` for a draft
     checkpoint (seeded with ``seed + 1`` when ``draft_uri`` is empty),
     ``page_size``, ``seed``, ``quantize`` and ``chunk_token_budget``;
-    ``mesh_axes``, ``tp > 1`` and ``dp > 1`` raise, naming their later
-    slice.  Runs on ``cuda`` unless ``device="cpu"``; ``dtype`` is
-    bfloat16 unless ``float32``.  ``metrics()`` exports the acceptance
-    rate and the verify rounds."""
+    ``mesh`` (a ``parallel.mesh.Mesh``), ``mesh_axes``, ``tp`` / ``dp`` run
+    the generator on a serving mesh (``models/paged.component_mesh``).
+    Runs on ``cuda`` unless ``device="cpu"``; ``dtype`` is bfloat16 unless
+    ``float32``.  ``metrics()`` exports the acceptance rate and the verify
+    rounds."""
 
     def __init__(
         self,
@@ -376,10 +426,18 @@ class SpeculativeLM(TPUComponent):
         chunk_token_budget: int = 0,
         device: str = "cuda",
         dtype: str = "bfloat16",
+        mesh: Any = None,
         **kwargs: Any,
     ):
         super().__init__(**kwargs)
-        check_ported_options(tp=tp, dp=dp, mesh=mesh_axes)
+        check_ported_options()
+        if isinstance(mesh_axes, str):
+            mesh_axes = json.loads(mesh_axes) if mesh_axes else None
+        self.mesh_axes = dict(mesh_axes) if mesh_axes else None
+        # an explicit Mesh (programmatic, as JaxServer's mesh=) wins over
+        # mesh_axes and the degrees
+        self.mesh = mesh
+        self.tp, self.dp = int(tp or 0), int(dp or 0)
         self.config = dict(vocab_size=int(vocab_size), d_model=int(d_model), num_layers=int(num_layers),
                            num_heads=int(num_heads), max_len=int(max_len))
         self.max_new_tokens = int(max_new_tokens)
@@ -419,7 +477,9 @@ class SpeculativeLM(TPUComponent):
             self.generator = SpeculativeGenerator(
                 params, dtype=self.dtype, device=self.device, page_size=self.page_size, draft=self.draft,
                 draft_k=self.draft_k, ngram=self.ngram, draft_params=draft_params, draft_config=self.draft_config,
-                quantize=self.quantize, chunk_token_budget=self.chunk_token_budget, **self.config)
+                quantize=self.quantize, chunk_token_budget=self.chunk_token_budget,
+                mesh=self.mesh or component_mesh(self.mesh_axes, self.device), tp=self.tp, dp=self.dp,
+                **self.config)
 
     def predict(self, X, names, meta=None):
         with self._gen_lock:

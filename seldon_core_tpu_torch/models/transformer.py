@@ -2,13 +2,14 @@
 
 The port's counterpart of ``seldon_core_tpu/models/transformer.py``
 ``TransformerBlock``, ``TransformerEncoder`` and ``TransformerLM``, with
-the LM's ``decode=True`` cache as :class:`DecodeCache` (``ring_attn_fn``
-comes with a later slice).
+the LM's ``decode=True`` cache as :class:`DecodeCache`.
 Attention is pluggable as in the JAX package: ``attn_fn`` is
-:func:`plain_attention` by default, ``ops.kernels.flash_attn_fn()`` for
-the CUDA flash kernel.  The parameter trees are the flax modules', name
-for name (``models/convert.py`` maps one onto the other), and the
-arithmetic follows flax's defaults, which differ from PyTorch's:
+:func:`plain_attention` (``parallel/ring_attention.py``) by default,
+``ops.kernels.flash_attn_fn()`` for the CUDA flash kernel and
+:func:`ring_attn_fn` for the sequence-parallel ring over a mesh axis.
+The parameter trees are the flax modules', name for name
+(``models/convert.py`` maps one onto the other), and the arithmetic
+follows flax's defaults, which differ from PyTorch's:
 
 * ``nn.LayerNorm(dtype=float32)``: epsilon 1e-6, computed in float32
   and returned in float32 whatever the input's dtype;
@@ -37,14 +38,13 @@ import math
 import functools
 from typing import Callable, List, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from seldon_core_tpu_torch.ops.lora import lora_delta
+from seldon_core_tpu_torch.parallel.ring_attention import plain_attention  # noqa: F401 (the family's default attention)
 
-NEG_INF = -1e30  # the JAX package's causal-mask fill (parallel/ring_attention.py)
 LN_EPS = 1e-6    # flax nn.LayerNorm's default epsilon
 
 
@@ -67,21 +67,19 @@ class Dense(nn.Linear):
         return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
 
 
-def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False) -> torch.Tensor:
-    """Single-device attention on (batch, seq, heads, dim), as the JAX
-    package's ``plain_attention``: scores in the input dtype, scaled in
-    float32, softmax in float32, weights cast back."""
-    scale = 1.0 / np.sqrt(q.shape[-1])
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
-    if causal:
-        s_q, s_k = scores.shape[-2], scores.shape[-1]
-        mask = torch.arange(s_k, device=q.device)[None, :] > torch.arange(s_q, device=q.device)[:, None]
-        scores = torch.where(mask[None, None], NEG_INF, scores)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
-
-
 AttnFn = Callable[..., torch.Tensor]
+
+
+def ring_attn_fn(mesh, seq_axis: str = "seq") -> AttnFn:
+    """Attention routed through the sequence-parallel ring
+    (``parallel.ring_attention.ring_attention``) over ``mesh``'s
+    ``seq_axis``."""
+    from seldon_core_tpu_torch.parallel.ring_attention import ring_attention
+
+    def fn(q, k, v, causal: bool = False):
+        return ring_attention(q, k, v, mesh=mesh, seq_axis=seq_axis, causal=causal)
+
+    return fn
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,6 +114,18 @@ class DecodeCache:
     @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in (*self.keys, *self.values))
+
+
+def cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Attention of ``q`` (B, L, h, hd) over every slot of a decode cache
+    ``ck`` / ``cv`` (B, max_len, h, hd) under ``mask`` (L, max_len), as
+    the JAX block's ``_cached_attention``: ``q`` scaled in its dtype,
+    scores masked with the dtype's finfo.min, softmax in float32, the
+    weights cast back."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q * head_scale(q.shape[-1], q.dtype), ck)
+    scores = torch.where(mask[None, None], scores, torch.finfo(scores.dtype).min)
+    weights = torch.softmax(scores.float(), dim=-1).to(ck.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, cv)
 
 
 class TransformerBlock(nn.Module):
@@ -179,10 +189,7 @@ class TransformerBlock(nn.Module):
         seg_len = x.shape[1]
         ck[:, index:index + seg_len] = k
         cv[:, index:index + seg_len] = v
-        scores = torch.einsum("bqhd,bkhd->bhqk", q * head_scale(q.shape[-1], q.dtype), ck)
-        scores = torch.where(mask[None, None], scores, torch.finfo(scores.dtype).min)
-        weights = torch.softmax(scores.float(), dim=-1).to(ck.dtype)
-        return self.mlp_tail(x, torch.einsum("bhqk,bkhd->bqhd", weights, cv).reshape(x.shape))
+        return self.mlp_tail(x, cached_attention(q, ck, cv, mask).reshape(x.shape))
 
 
 @torch.no_grad()

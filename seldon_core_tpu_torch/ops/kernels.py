@@ -458,6 +458,16 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / l).to(q.dtype)
 
 
+def _no_backward(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise for a kernel launch whose inputs need a gradient: the kernels
+    have no backward (nor have the JAX package's Pallas kernels a custom
+    gradient), and a launch would cut the graph silently.  Training runs
+    the module's plain path (``parallel/train.py``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel} has no backward: its inputs require a gradient (train on the module's "
+                           "plain path, e.g. attention='plain')")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
                     block_q: int = 128, block_k: int = 128) -> torch.Tensor:
     """Blockwise attention on (batch, seq, heads, head_dim) tensors.
@@ -487,6 +497,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
         return plain_attention(q, k, v, causal=True)
     if not q.is_cuda:
         return flash_attention_reference(q, k, v, causal=causal)
+    _no_backward("flash_attention (K3)", q, k, v)
     if q.dtype not in _FLASH_KINDS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32, bfloat16 or float16 q, k, v of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")

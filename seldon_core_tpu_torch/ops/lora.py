@@ -18,8 +18,10 @@ paged adapter pool, Punica's batched grouped matmul), on one device:
 
 Scaling (``alpha / rank``) is folded into B when the adapter is made, so
 serving carries no scale term and offline merging is plain
-``W + A @ B``.  The tensor-parallel shardings wait for ``parallel/*``
-(``ROADMAP.md`` §A item 12).
+``W + A @ B``.  Under a tensor-parallel mesh the pool's buffers are laid
+out by :meth:`LoraPool.shardings` (JAX ``AdapterTable.shardings``):
+column-parallel targets shard B's output dim, row-parallel targets A's
+input dim, indivisible dims replicate.
 """
 
 from __future__ import annotations
@@ -32,6 +34,9 @@ import torch
 # The decode projections adapters decorate; the embeddings and the head
 # stay base-only (the classic LoRA target set).
 LORA_TARGETS: Tuple[str, ...] = ("qkv", "attn_proj", "mlp_in", "mlp_out")
+# targets whose base layer is column-parallel under the JAX specs (output
+# dim sharded); the others are row-parallel
+_COLUMN_PARALLEL = ("qkv", "mlp_in")
 
 
 def target_dims(d_model: int, mlp_ratio: int = 4) -> Dict[str, Tuple[int, int]]:
@@ -133,21 +138,49 @@ class LoraPool:
     """
 
     def __init__(self, *, num_layers: int, d_model: int, max_adapters: int, rank: int = 8,
-                 mlp_ratio: int = 4, targets: Sequence[str] = LORA_TARGETS, device: Any = "cpu"):
+                 mlp_ratio: int = 4, targets: Sequence[str] = LORA_TARGETS, device: Any = "cpu",
+                 mesh: Any = None, model_axis: str = "model"):
         self.num_layers = int(num_layers)
         self.d_model = int(d_model)
         self.max_adapters = int(max_adapters)
         self.slots = self.max_adapters + 1
         self.rank = int(rank)
         self.targets = tuple(targets)
+        self.mesh = mesh
         self._dims = target_dims(d_model, mlp_ratio)
-        self.buffers: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.buffers: Dict[str, Tuple[Any, Any]] = {}
+        specs = self.shardings(mesh, model_axis) if mesh is not None else None
         for t in self.targets:
             d_in, d_out = self._dims[t]
-            self.buffers[t] = (
-                torch.zeros((self.num_layers, self.slots, d_in, self.rank), dtype=torch.float32, device=device),
-                torch.zeros((self.num_layers, self.slots, self.rank, d_out), dtype=torch.float32, device=device),
-            )
+            shapes = ((self.num_layers, self.slots, d_in, self.rank), (self.num_layers, self.slots, self.rank, d_out))
+            if mesh is None:
+                self.buffers[t] = tuple(torch.zeros(s, dtype=torch.float32, device=device) for s in shapes)
+            else:
+                from seldon_core_tpu_torch.parallel.sharding import ShardedTensor
+
+                self.buffers[t] = tuple(ShardedTensor.zeros(mesh, s, spec, torch.float32)
+                                        for s, spec in zip(shapes, specs[t]))
+
+    def shardings(self, mesh: Any, model_axis: str = "model") -> Dict[str, Tuple[Any, Any]]:
+        """The (A, B) partition specs of every target under ``mesh`` (JAX
+        ``ops/lora.py:227-245``): a column-parallel target shards B's
+        output dim with A replicated, a row-parallel one A's input dim
+        with B replicated, and an indivisible dim replicates both."""
+        from seldon_core_tpu_torch.parallel.sharding import P
+
+        axis = mesh.axis_size(model_axis) if mesh is not None else 1
+        out: Dict[str, Tuple[Any, Any]] = {}
+        for t in self.targets:
+            d_in, d_out = self._dims[t]
+            if axis <= 1:
+                out[t] = (P(), P())
+            elif t in _COLUMN_PARALLEL and d_out % axis == 0:
+                out[t] = (P(), P(None, None, None, model_axis))
+            elif t not in _COLUMN_PARALLEL and d_in % axis == 0:
+                out[t] = (P(None, None, model_axis, None), P())
+            else:
+                out[t] = (P(), P())
+        return out
 
     def device_args(self) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
         """The factor buffers the engine passes to its model."""
@@ -176,9 +209,15 @@ class LoraPool:
             staged[t] = (a, b)
         for t, (a, b) in staged.items():
             a_buf, b_buf = self.buffers[t]
+            if self.mesh is not None:
+                a_buf.put(1, torch.tensor([slot]), a[:, None])
+                b_buf.put(1, torch.tensor([slot]), b[:, None])
+                continue
             a_buf[:, slot].copy_(a)
             b_buf[:, slot].copy_(b)
 
     def hbm_bytes(self) -> int:
-        """Device bytes the pool holds."""
+        """Device bytes the pool holds (under a mesh, the distinct shards)."""
+        if self.mesh is not None:
+            return sum(a.distinct_nbytes() + b.distinct_nbytes() for a, b in self.buffers.values())
         return sum(a.nbytes + b.nbytes for a, b in self.buffers.values())

@@ -129,6 +129,18 @@ ENV_KNOBS: Dict[str, Knob] = _knobs(
          "points: utils/faults.KNOWN_POINTS)",
          "operations.md fault-injection"),
     # ---- generation engine ------------------------------------------------
+    Knob("SELDON_TPU_TP", "int", "0", True,
+         "tensor-parallel degree over the 'model' mesh axis, counted in "
+         "distinct CUDA devices (unset/empty/0 = one device)",
+         _PORT),
+    Knob("SELDON_TPU_DP", "int", "0", True,
+         "data-parallel degree over the 'data' mesh axis of the 2-D "
+         "serving mesh (unset/empty/0 = one replica group)",
+         _PORT),
+    Knob("SELDON_TPU_SEQ_SHARD", "flag", "1", True,
+         "shard the KV pool's page dim over the 'data' axis (0 = "
+         "replicate the pool over 'data')",
+         _PORT),
     Knob("SELDON_TPU_PAGED_KERNEL", "str", "auto", True,
          "paged decode lane: 'auto' (the CUDA kernel on a CUDA engine, the "
          "gather lane on the CPU), '1'/'force' (the kernel lane everywhere; "

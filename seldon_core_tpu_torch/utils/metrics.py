@@ -853,6 +853,15 @@ ENGINE_STATS_METRICS: Dict[str, Tuple[str, str, str]] = {
          "live container bytes parked in the tier's host-RAM level"),
     "kv_tier_disk_bytes": ("gauge", "seldon_tpu_engine_kv_tier_disk_bytes",
          "live container bytes parked in the tier's disk spill level"),
+    "tp_degree": ("gauge", "seldon_tpu_engine_tp_degree",
+                  "tensor-parallel degree the engine runs at "
+                  "(1 = single-chip)"),
+    "dp_degree": ("gauge", "seldon_tpu_engine_dp_degree",
+                  "data-parallel degree the engine runs at "
+                  "(1 = single replica group)"),
+    "pool_shard_bytes": ("gauge", "seldon_tpu_engine_pool_shard_bytes",
+                         "K+V pool bytes ONE device holds (per-shard "
+                         "under tensor parallelism, full pool at tp=1)"),
     # the port's own keys
     "active": ("gauge", "seldon_tpu_engine_slot_occupancy",
                "slots holding a live stream"),

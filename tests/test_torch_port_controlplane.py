@@ -178,23 +178,23 @@ class TestDefaultingValidation:
         ok = json.loads(json.dumps(spec).replace("seldon_core_tpu.", "seldon_core_tpu_torch."))
         default_and_validate(TpuDeployment.from_dict(ok))
 
-    def test_mesh_of_more_than_one_device_refused(self):
-        dep = TpuDeployment.from_dict(SIMPLE_SPEC)
-        dep.predictors[0].mesh_axes = {"data": 2, "model": 2}
-        with pytest.raises(DeploymentSpecError, match=r"more than one device.*ROADMAP.md §A item 12"):
-            default_and_validate(dep)
-        one = TpuDeployment.from_dict(SIMPLE_SPEC)
-        one.predictors[0].mesh_axes = {"data": 1}
-        default_and_validate(one)
+    def test_mesh_of_more_than_one_device_defaults_like_jax(self):
+        """A mesh of more than one device was refused here until A12
+        landed; now it passes the webhook as the JAX package's does, and
+        the spec defaults to the JAX package's."""
+        for axes in ({"data": 2, "model": 2}, {"data": 1}):
+            dep = TpuDeployment.from_dict(SIMPLE_SPEC)
+            dep.predictors[0].mesh_axes = dict(axes)
+            theirs = JaxTpuDeployment.from_dict(SIMPLE_SPEC)
+            theirs.predictors[0].mesh_axes = dict(axes)
+            mine = default_and_validate(dep)
+            assert mine.predictors[0].mesh_axes == axes
+            assert mine.to_dict() == _jax_server_to_cuda_server(jax_default_and_validate(theirs).to_dict())
 
     @pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
     def test_examples_default_like_the_jax_package(self, path):
         theirs = jax_default_and_validate(JaxTpuDeployment.load(str(path))).to_dict()
         mine = TpuDeployment.load(str(path))
-        if any(p.mesh_axes and np.prod(list(p.mesh_axes.values())) > 1 for p in mine.predictors):
-            with pytest.raises(DeploymentSpecError, match="ROADMAP.md §A item 12"):
-                default_and_validate(mine)
-            return
         assert default_and_validate(mine).to_dict() == _jax_server_to_cuda_server(theirs)
 
 
@@ -211,13 +211,28 @@ class TestPlacement:
         plan = plan_placement(dep, device_ids=[0, 1, 2, 3])
         assert plan.for_predictor("a").device_ids == [3] and plan.for_predictor("b").device_ids != [3]
 
-    def test_mesh_request_sizes_group(self):
+    def test_mesh_request_sizes_group(self, monkeypatch):
+        """The group is sized by the mesh; ``build_mesh`` (once refused,
+        A12) returns the port's Mesh over the group's CUDA devices, shaped
+        as the JAX package's, and fails placement for ids the host's
+        cards do not have."""
+        import torch
+
+        from seldon_core_tpu_torch.parallel import Mesh, mesh_shape
+
         dep = default_and_validate(TpuDeployment.from_dict(SIMPLE_SPEC))
         dep.predictors[0].mesh_axes = {"data": 2, "model": 2}
         plan = plan_placement(dep, device_ids=list(range(8)))
-        assert len(plan.for_predictor("main").device_ids) == 4
-        with pytest.raises(DeploymentSpecError, match="ROADMAP.md §A item 12"):
-            plan.for_predictor("main").build_mesh()
+        placement = plan.for_predictor("main")
+        assert len(placement.device_ids) == 4
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+        mesh = placement.build_mesh()
+        assert isinstance(mesh, Mesh) and mesh_shape(mesh) == {"data": 2, "model": 2}
+        assert [str(d) for d in mesh.devices.flat] == [f"cuda:{i}" for i in placement.device_ids]
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        with pytest.raises(DeploymentSpecError, match="not among this host's 2 CUDA devices"):
+            placement.build_mesh()
 
     def test_unavailable_claim_rejected(self):
         dep = default_and_validate(TpuDeployment.from_dict(SIMPLE_SPEC))

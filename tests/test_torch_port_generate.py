@@ -38,16 +38,20 @@ from seldon_core_tpu_torch.ops import surgery
 from seldon_core_tpu_torch.runtime.component import MicroserviceError
 
 CFG = dict(vocab_size=64, d_model=32, num_layers=2, num_heads=4, max_len=64)
+# the mesh generator's config: wide enough that every block kernel
+# reaches the sharding rule's 16,384 elements, so both packages shard
+# the same leaves at their defaults
+MESH_CFG = dict(CFG, d_model=128)
 F32_ATOL = 1e-5
 BF16_MIN_SHARE = 0.75
 PROMPT = np.array([[5, 9, 13, 2, 30]], np.int32)
 
 
-def _numpy_params(seed):
+def _numpy_params(seed, cfg=CFG):
     """The flax tree's structure, every leaf drawn from numpy: kernels
     LeCun-normal, embeddings normal / sqrt(d), biases small, LayerNorm
     scales in [0.5, 1.5]."""
-    shapes = jax.eval_shape(FlaxTransformerLM(dtype=jnp.float32, **CFG).init, jax.random.key(0),
+    shapes = jax.eval_shape(FlaxTransformerLM(dtype=jnp.float32, **cfg).init, jax.random.key(0),
                             jnp.zeros((1, 8), jnp.int32))["params"]
     rng = np.random.default_rng(seed)
 
@@ -251,14 +255,36 @@ class TestGenerator:
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
 
-    def test_mesh_refused_as_the_engine_refuses(self, params):
-        with pytest.raises(MicroserviceError) as engine_err:
-            PagedEngine(params, dtype="float32", device="cpu", tp=2, **CFG)
-        for kw in (dict(tp=2), dict(dp=2), dict(mesh=object())):
-            with pytest.raises(MicroserviceError) as err:
-                _port(params, **kw)
-            assert str(err.value) == str(engine_err.value)
-            assert err.value.reason == "BAD_PARAMETER"
+    def test_tp_dp_degrade_and_a_2x2_mesh_decodes_jax_s_tokens(self, params, flax_params, monkeypatch):
+        """Once refused as the engine refused meshes; both landed (A12).
+        ``tp`` / ``dp`` degrade as the engine's do (distinct CUDA devices);
+        an explicit mesh of CPU positions (dp 2, tp 2) decodes the JAX
+        generator's greedy tokens on its mesh and the one-device port's,
+        at a width where both shard the same leaves by default."""
+        from seldon_core_tpu.parallel import create_mesh as jax_create_mesh
+        from seldon_core_tpu_torch.parallel import P, create_mesh
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        want = _port(params).generate(PROMPT, max_new_tokens=8)
+        for kw in (dict(tp=2), dict(dp=2)):
+            gen = _port(params, **kw)
+            assert (gen.tp_degree, gen.dp_degree) == (1, 1)
+            assert (PagedEngine(params, dtype="float32", device="cpu", **CFG, **kw).tp_degree, gen.tp_degree) == (1, 1)
+            np.testing.assert_array_equal(gen.generate(PROMPT, max_new_tokens=8), want)
+        mesh_flax = _numpy_params(seed=23, cfg=MESH_CFG)
+        mesh_params = lm_params_from_flax(mesh_flax)
+        mesh = create_mesh({"data": 2, "model": 2}, devices=["cpu"] * 4)
+        gen = generate.Generator(mesh_params, dtype=torch.float32, mesh=mesh, **MESH_CFG)
+        assert (gen.tp_degree, gen.dp_degree) == (2, 2)
+        assert gen.module.specs["blocks.0.attn_proj.weight"] != P()  # the block kernels shard
+        prompts = np.concatenate([PROMPT, PROMPT[:, ::-1]])
+        got = gen.generate(prompts, max_new_tokens=8)
+        jmesh = jax_create_mesh({"data": 2, "model": 2}, devices=jax.devices()[:4])
+        jgot = jax_generate.Generator(mesh_flax, dtype=jnp.float32, mesh=jmesh, **MESH_CFG).generate(
+            prompts, max_new_tokens=8)
+        np.testing.assert_array_equal(got, np.asarray(jgot))
+        one = generate.Generator(mesh_params, dtype=torch.float32, device="cpu", **MESH_CFG)
+        np.testing.assert_array_equal(got, one.generate(prompts, max_new_tokens=8))
 
     def test_cuda_without_a_card_raises(self, params, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -320,11 +346,19 @@ class TestGenerativeLM:
         with pytest.raises(ValueError):
             generate.GenerativeLM(quantize="int4", device="cpu", **CFG)
 
-    def test_mesh_refused_at_load(self):
-        comp = generate.GenerativeLM(tp=2, device="cpu", **CFG)
-        with pytest.raises(MicroserviceError) as err:
-            comp.load()
-        assert err.value.reason == "BAD_PARAMETER"
+    def test_tp_and_mesh_axes_load_and_serve(self, monkeypatch):
+        """Once refused at load (A12 landed): ``tp=2`` loads, degraded to
+        one device on a host without two CUDA devices, and ``mesh_axes``
+        lays a CPU component over that many CPU positions; both serve."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        comp = generate.GenerativeLM(tp=2, device="cpu", max_new_tokens=3, **CFG)
+        comp.load()
+        assert comp.health_status()["tp_degree"] == 1
+        meshed = generate.GenerativeLM(mesh_axes={"model": 2}, device="cpu", max_new_tokens=3, **CFG)
+        meshed.load()
+        assert (meshed.generator.tp_degree, meshed.health_status()["tp_degree"]) == (2, 2)
+        out = meshed.predict(PROMPT, [])
+        assert out.shape == (1, 3) and out.dtype == np.int32
 
     def test_graph_registry_resolves_generative_lm(self):
         assert units._lookup_builtin("GENERATIVE_LM") is generate.GenerativeLM

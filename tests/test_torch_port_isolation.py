@@ -82,7 +82,9 @@ def test_scan_covers_the_port():
                    "controlplane/placement.py", "controlplane/templates.py", "controlplane/supervisor.py",
                    "controlplane/autoscaler.py", "controlplane/deployer.py", "controlplane/fleetview.py",
                    "client/client.py", "testing/contract.py", "testing/loadgen.py", "runtime/packager.py",
-                   "utils/graphviz.py", "tools/seldon_top.py"):
+                   "utils/graphviz.py", "tools/seldon_top.py", "parallel/__init__.py", "parallel/mesh.py",
+                   "parallel/sharding.py", "parallel/ring_attention.py", "parallel/multihost.py",
+                   "parallel/train.py", "parallel/tp.py", "utils/tf_convert.py"):
         assert f"seldon_core_tpu_torch/{module}" in names, module
     assert _forbidden("seldon_core_tpu.proto") and _forbidden("jax.numpy") and _forbidden("flax.linen")
     assert _forbidden("seldon_core_tpu.native") and _forbidden("ml_dtypes") and _forbidden("prometheus_client")
@@ -122,6 +124,8 @@ def test_importing_the_port_loads_no_jax():
         "import seldon_core_tpu_torch.testing.contract, seldon_core_tpu_torch.testing.loadgen\n"
         "import seldon_core_tpu_torch.runtime.packager, seldon_core_tpu_torch.utils.graphviz\n"
         "import seldon_core_tpu_torch.tools.seldon_top\n"
+        "import seldon_core_tpu_torch.parallel, seldon_core_tpu_torch.parallel.multihost\n"
+        "import seldon_core_tpu_torch.parallel.tp, seldon_core_tpu_torch.utils.tf_convert\n"
         "from seldon_core_tpu_torch.engine import units\n"
         "[units._lookup_builtin(name) for name in units.PREPACKAGED]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'seldon_core_tpu',\n"

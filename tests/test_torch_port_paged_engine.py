@@ -14,6 +14,7 @@ every option of the JAX engine that the port does not run yet raising,
 and an unknown knob value raising.
 """
 
+import logging
 import sys
 import threading
 import time
@@ -22,11 +23,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from seldon_core_tpu.models.paged import PagedEngine as JaxPagedEngine
 from seldon_core_tpu.models.transformer import TransformerLM as FlaxTransformerLM
 from seldon_core_tpu_torch.models.convert import lm_params_from_flax
 from seldon_core_tpu_torch.models.paged import PagedEngine, StreamingLM
+from seldon_core_tpu_torch.parallel import create_mesh
 from seldon_core_tpu_torch.runtime.component import MicroserviceError
 
 CFG = dict(vocab_size=64, d_model=32, num_layers=1, num_heads=2, max_len=256)
@@ -219,28 +222,50 @@ def test_lane_resolution_on_the_cpu(params, monkeypatch, lane, expect):
     assert eng._kernel_active is expect and eng.engine_stats()["kernel_active"] == int(expect)
 
 
-UNPORTED = [
+MESH_OPTIONS = [
     ("tp/dp/mesh", dict(tp=2)),
     ("tp/dp/mesh", dict(dp=2)),
 ]
 
 
-@pytest.mark.parametrize("option,kw", UNPORTED, ids=[f"{o}-{next(iter(k))}" for o, k in UNPORTED])
-def test_unported_options_raise_naming_the_slice(params, option, kw):
-    with pytest.raises(MicroserviceError, match="ROADMAP.md") as err:
-        PagedEngine(params, dtype="float32", device="cpu", **CFG, **{**ENGINE, **kw})
-    assert option in str(err.value) and err.value.reason == "BAD_PARAMETER"
-    with pytest.raises(MicroserviceError, match=option):
-        StreamingLM(device="cpu", **CFG, **kw)
+@pytest.mark.parametrize("option,kw", MESH_OPTIONS, ids=[f"{o}-{next(iter(k))}" for o, k in MESH_OPTIONS])
+def test_tp_dp_degrade_without_cards_and_run_sharded_on_cpu_positions(params, jax_tokens, option, kw, caplog,
+                                                                     monkeypatch):
+    """tp / dp once raised naming the later slice; they landed (ROADMAP
+    A12).  The degree counts distinct CUDA devices, so on a host without
+    enough of them ``tp=2`` / ``dp=2`` degrade to one device with the JAX
+    package's WARN and the engine reports degree 1; the same degree over
+    an explicit mesh of two CPU positions runs sharded.  Both decode the
+    JAX engine's greedy tokens."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with caplog.at_level(logging.WARNING, logger="seldon_core_tpu_torch.parallel.mesh"):
+        eng = PagedEngine(params, dtype="float32", device="cpu", prefix_cache=False, **CFG, **{**ENGINE, **kw})
+    assert "degrading to single-chip" in caplog.text
+    assert (eng.tp_degree, eng.dp_degree) == (1, 1) and eng.engine_stats()["tp_degree"] == 1
+    np.testing.assert_array_equal(_decode(eng, _prompts()), jax_tokens)
+    axis = "model" if "tp" in kw else "data"
+    sharded = PagedEngine(params, dtype="float32", mesh=create_mesh({axis: 2}, devices=["cpu"] * 2),
+                          prefix_cache=False, shard_min_weight_size=0, **CFG, **ENGINE)
+    assert sharded.engine_stats()["tp_degree" if axis == "model" else "dp_degree"] == 2
+    np.testing.assert_array_equal(_decode(sharded, _prompts()), jax_tokens)
+    StreamingLM(device="cpu", **CFG, **kw)  # the component takes the option as it is
 
 
-def test_a_speculative_engine_still_refuses_tp_naming_a12(params):
-    spec = dict(speculative={"draft": "ngram", "draft_k": 2}, tp=2)
-    with pytest.raises(MicroserviceError, match="queue item 12") as err:
-        PagedEngine(params, dtype="float32", device="cpu", **CFG, **{**ENGINE, **spec})
-    assert err.value.reason == "BAD_PARAMETER"
-    with pytest.raises(MicroserviceError, match="queue item 12"):
-        StreamingLM(device="cpu", **CFG, **spec)
+def test_speculative_engine_on_a_2x2_mesh_decodes_greedy(params, monkeypatch):
+    """A speculative engine once refused tp naming A12; it landed.  Over a
+    {"data": 2, "model": 2} mesh of CPU positions the verify rounds run
+    on the gather lane and decode the one-device speculative engine's
+    greedy tokens, which are plain greedy decoding's."""
+    spec = dict(speculative={"draft": "ngram", "draft_k": 2})
+    one = PagedEngine(params, dtype="float32", device="cpu", prefix_cache=False, **CFG, **{**ENGINE, **spec})
+    mesh = create_mesh({"data": 2, "model": 2}, devices=["cpu"] * 4)
+    sharded = PagedEngine(params, dtype="float32", mesh=mesh, prefix_cache=False, shard_min_weight_size=0,
+                          **CFG, **{**ENGINE, **spec})
+    assert (sharded.tp_degree, sharded.dp_degree) == (2, 2) and not sharded._kernel_active
+    prompts = _prompts()[:3]
+    np.testing.assert_array_equal(_decode(sharded, prompts), _decode(one, prompts))
+    assert sharded.engine_stats()["spec_drafted"] > 0
+    StreamingLM(device="cpu", mesh_axes={"model": 2}, **CFG, **spec)
 
 
 @pytest.mark.parametrize("env,value", [("SELDON_TPU_CHUNK_IMPL", "lanes")])

@@ -275,13 +275,34 @@ class TestDeviceAndParameters:
         assert err.value.reason == "UNKNOWN_MODEL"
 
     @pytest.mark.parametrize("name", ["model_uri", "quantize", "precision", "mesh", "extra_input_shapes"])
-    def test_later_slice_parameters_are_refused(self, name, tmp_path):
+    def test_ported_parameters_refuse_or_serve_as_jaxserver(self, name, tmp_path):
         # quantize and precision are ported (the int8 lanes): a value
         # outside their vocabulary is refused as JaxServer refuses it.
-        # model_uri and extra_input_shapes landed (ROADMAP A5, A6): the
-        # server takes them and serves; mesh is still a later slice's
+        # model_uri and extra_input_shapes landed (ROADMAP A5, A6), and
+        # mesh (A12): the server takes each and serves
         common = dict(device="cpu", model="resnet_tiny", num_classes=NUM_CLASSES, dtype="float32",
                       max_batch_size=2, warmup=False)
+        if name == "mesh":
+            # a batch-sharded replica group over a {"data": 2} mesh: the
+            # weights once per distinct device, each batch split over the
+            # data positions, the answers joined in order; JaxServer's
+            # data-sharded program on two host devices answers the same
+            from seldon_core_tpu.parallel import create_mesh as jax_create_mesh
+
+            variables = random_variables(FlaxResNetTiny(num_classes=NUM_CLASSES), SHAPE, seed=6)
+            mesh_common = dict(common, normalize=True, max_batch_size=4)
+            js = JaxServer(mesh=jax_create_mesh({"data": 2}, devices=jax.devices()[:2]), **mesh_common)
+            js.load()
+            js.variables = jax.device_put(variables)
+            cs = CudaServer(mesh={"data": 2}, variables=variables, **mesh_common)
+            cs.load()
+            x = _images(4, seed=7)
+            try:
+                assert cs.health_status()["mesh"] == {"data": 2} and len(cs._replicas) == 1
+                np.testing.assert_allclose(cs.predict(x, []), np.asarray(js.predict(x, [])), **TOL)
+            finally:
+                js.unload(), cs.unload()
+            return
         if name == "model_uri":
             from flax import serialization
 

@@ -22,6 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from flax import serialization as flax_serialization
 
 from seldon_core_tpu.models import speculative as jax_spec
@@ -237,14 +238,26 @@ def test_the_gather_lane_by_default_on_the_cpu(params, wrong, monkeypatch):
     assert not gen._use_kernel and gen.single_token_forwards > 0 and calls == []
 
 
-def test_generator_refuses_what_jax_refuses(params):
+def test_generator_refuses_what_jax_refuses(params, flax_params):
     with pytest.raises(ValueError, match="draft must be"):
         SpeculativeGenerator(params, device="cpu", draft="oracle", page_size=PAGE, **CFG)
     with pytest.raises(ValueError, match="draft_params"):
         SpeculativeGenerator(params, device="cpu", draft="model", page_size=PAGE, **CFG)
-    with pytest.raises(MicroserviceError, match="ROADMAP.md") as err:
-        SpeculativeGenerator(params, device="cpu", page_size=PAGE, tp=2, **CFG)
-    assert "queue item 12" in str(err.value)
+    # tp once raised here (A12 landed): over a {"model": 2} mesh of CPU
+    # positions the generator decodes the JAX generator's tokens on its
+    # two-device mesh
+    from seldon_core_tpu.parallel import create_mesh as jax_create_mesh
+    from seldon_core_tpu_torch.parallel import create_mesh
+
+    prompt = _prompts()[0]
+    gen = SpeculativeGenerator(params, dtype="float32", mesh=create_mesh({"model": 2}, devices=["cpu"] * 2),
+                               page_size=PAGE, draft_k=DRAFT_K, shard_min_weight_size=0, **CFG)
+    jgen = jax_spec.SpeculativeGenerator(flax_params, dtype=jnp.float32, page_size=PAGE, draft_k=DRAFT_K,
+                                         mesh=jax_create_mesh({"model": 2}, devices=jax.devices()[:2]),
+                                         shard_min_weight_size=0, **CFG)
+    assert gen.tp_degree == 2
+    np.testing.assert_array_equal(gen.generate(prompt, max_new_tokens=MAX_NEW),
+                                  np.asarray(jgen.generate(prompt, max_new_tokens=MAX_NEW)))
 
 
 # ---------------------------------------------------------------- SpeculativeLM
@@ -306,10 +319,22 @@ def test_speculative_lm_seeds_its_draft_with_seed_plus_one(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [dict(tp=2), dict(dp=2), dict(mesh_axes={"model": 2})], ids=["tp", "dp", "mesh"])
-def test_speculative_lm_refuses_meshes_naming_the_slice(kw):
-    with pytest.raises(MicroserviceError, match="queue item 12") as err:
-        SpeculativeLM(device="cpu", **CFG, **kw)
-    assert err.value.reason == "BAD_PARAMETER"
+def test_speculative_lm_serves_on_meshes_as_on_one_device(kw, lm_files, monkeypatch):
+    """The mesh options once raised naming A12; they landed.  ``tp`` /
+    ``dp`` count distinct CUDA devices and degrade to one device on a
+    host without them; ``mesh_axes`` on a CPU component lays the
+    generator over that many CPU positions.  Every case serves the rows
+    the one-device component serves."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lm_uri, _ = lm_files
+    common = dict(model_uri=lm_uri, page_size=PAGE, draft_k=DRAFT_K, max_new_tokens=MAX_NEW, dtype="float32",
+                  device="cpu", **CFG)
+    lm = SpeculativeLM(**common, **kw)
+    ref = SpeculativeLM(**common)
+    X = np.stack([p[:7] for p in _prompts() if len(p) >= 7])
+    np.testing.assert_array_equal(lm.predict(X, []), ref.predict(X, []))
+    want = (2, 1) if "mesh_axes" in kw else (1, 1)
+    assert (lm.generator.tp_degree, lm.generator.dp_degree) == want
 
 
 def test_speculative_lm_metrics_before_load():
