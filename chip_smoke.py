@@ -274,9 +274,10 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    R1, then 50 answers tagged ``degraded`` / ``fallback_for: model``,
    each within 2e-2 of an in-process int8w model and nearest its own
    image, the fallbacks counter = 50 and the fallback's K1 = its batches;
-   the time to the first degraded answer and the degraded p50; R1
-   restarted and warmed as R2, untagged answers again within 3 s;
-   (e) hedging on R1, measured only: ``seldon.io/hedge-ms`` at the p90 of
+   the time to the first degraded answer and the degraded p50 (R1 is not
+   restarted: 16c shows a breaker closing on a restarted replica);
+   (e) hedging on R1, measured only, run before (d) kills R1:
+   ``seldon.io/hedge-ms`` at the p90 of
    a 2 s unhedged window, then 1.5 s windows off, on, on, off; hedges and
    wins on ``/metrics`` = the client's counters; R1's rows between the
    requests sent and that plus the hedges; a ``SendFeedback`` under
@@ -475,6 +476,26 @@ JAX or of the JAX package.  Phases, each of which fails the run:
    normalize=true)`` answers the uint8 batch through K1 with the top-1 of
    ``predict_batch`` on the same normalised floats (bf16 logits compared
    with ``allclose``, C2).
+29. the ``grpc.aio`` gateway front end (``serve_gateway(grpc_mode="aio")``):
+   (a) the ResNet-50 one-node ``CUDA_SERVER`` graph (13a's served
+   parameters) in process behind an aio and a sync front end of one
+   gateway: uint8 rows [rows, 150528] over aio ``Seldon/Predict`` at
+   batch 1 and 32 and one batch-32 ``PredictStream``, every row within
+   2e-2 of the in-process model and nearest its own image, zero
+   failures, K1 launches = the batches (``/metrics``); p50 / p99 / QPS of
+   4 batch-1 clients on aio and on sync in turns (aio, sync, sync, aio)
+   after an untimed window on each, no gain claimed; (b) a bf16 ``StreamingLM`` at the generation config
+   behind an aio front end: the sequential prompts' ``GenerateStream``
+   chunks joined equal the unary ``Predict`` row bit for bit, a client
+   dropped after its first chunk leaves no slot or page within 2 s, a
+   spent ``x-seldon-deadline-ms`` answers the sync lane's status, the
+   ResNet gateway answers ``UNIMPLEMENTED``, K4 = layers x decode calls;
+   (c) an f32 engine (TF32 off) admits ``pack_frame`` / ``unpack_frame``
+   views of 8 prompts with ``submit_views``: greedy ids equal
+   ``submit``'s, an over-long third view raises and leaves nothing
+   queued, ``engine_stats()["jit_compiles"]`` >= 1 equals the growth of
+   ``seldon_tpu_jit_compiles_total`` on ``/metrics``, and a repeated wave
+   of the same shapes adds 0.
 
 The first line names the card, torch, CUDA and ``grpc.__version__``.
 Output: the ``nvidia-smi`` line, then one ``{"kernels": [...]}`` line,
@@ -799,6 +820,11 @@ TRAIN_STEPS = 3
 TRAIN_REL_TOL = 1e-4            # 28d: {"data": 2} trainer vs one position, relative to the leaf's largest entry
 TRAIN_MIN_SHARE = 0.99          # 28d: parameter entries a step must hold within TRAIN_REL_TOL
 TRAIN_NOISE_FACTOR = 2.0        # 28d: gradients vs one position, against float32's own noise (reversed rows)
+
+AIO_SECONDS = 2.0               # 29a: each latency turn of 4 batch-1 clients (aio, sync, sync, aio)
+AIO_WARM_SECONDS = 1.0          # 29a: one untimed window of those clients on each front end before the turns
+AIO_VIEW_PROMPTS = (20, 64, 65, 128, 200, 333, 512, 640)  # 29c: the 8 prompts admitted as buffer views
+AIO_VIEW_NEW = 32               # 29c: new tokens a view
 
 
 class SmokeFailure(RuntimeError):
@@ -4312,8 +4338,9 @@ def a2_2_paths(torch, np, kernels, resnet, CudaServer, card):
     """Phase 16: ROADMAP A2.2 on the card.  ResNet-50 (13a's served
     parameters) on two replicas behind a BalancedClient: (a) balanced
     steady state; (b) SIGKILL of one replica mid-window; (c) its restart
-    and the breaker closing; (d) a fallback route to an in-process int8w
-    model when the primary dies; (e) hedging, measured only."""
+    and the breaker closing; (e) hedging, measured only; then (d) a
+    fallback route to an in-process int8w model when the primary dies
+    (the primary stays down: its restart was 16c's again)."""
     from seldon_core_tpu_torch.proto import pb, services
     from seldon_core_tpu_torch.runtime import grpc_server
 
@@ -4455,6 +4482,44 @@ def a2_2_paths(torch, np, kernels, resnet, CudaServer, card):
         stop_server(proc)
         stop_server(replicas[1])
 
+        # (e) hedging on R1, measured only: off, then on at the unhedged p90, in turns
+        c0 = replica_counts(r_http[0])
+        first = timed_window(lane_of(off_port), bodies["bodies"], A22_CLIENTS, A22_HEDGE_P90_SECONDS)
+        hedge_ms = pct([r[1] for r in first], 0.9)
+        on_proc, on_base, on_port = start_gateway(
+            "hedge-on", {"name": "model", "type": "MODEL", "endpoint": on_r1}, logfile,
+            annotations={**A22_ANNOTATIONS, "seldon.io/hedge-ms": f"{hedge_ms:.3f}"})
+        gateways.append(on_proc)
+        wait_gateway([replicas[0], off_proc, on_proc], on_base, logpath)
+        windows, records = [], list(first)
+        for name, p in (("off", off_port), ("on", on_port), ("on", on_port), ("off", off_port)):
+            win = timed_window(lane_of(p), bodies["bodies"], A22_CLIENTS, A22_HEDGE_SECONDS)
+            records += win
+            windows.append({"hedge": name, **lat_numbers(win, A22_HEDGE_SECONDS)})
+        m = metric_samples(http(on_base + "/metrics"))
+        fired, wins = metric_sum(m, "seldon_tpu_transport_hedges_total"), metric_sum(m, "seldon_tpu_transport_hedge_wins_total")
+        fb_hedge = feedback_never_hedges(np, r_grpc[0])
+        c1 = replica_counts(r_http[0])
+        stop_server(on_proc)
+        stop_server(off_proc)
+        counters = child_clients(logpath, "hedge-on")["model"]
+        r1 = delta(c1, c0)
+        numbers["16e"] = {"hedge_ms": hedge_ms, "windows": windows, "hedges_fired": fired, "hedge_wins": wins,
+                          "client": counters, "feedback": fb_hedge, "r1_k1": r1["k1"], "r1_batches": r1["batches"],
+                          "r1_requests": r1["requests"], "client_requests": len(records)}
+        log(f"16e hedging at seldon.io/hedge-ms {hedge_ms:.3f} (p90 of {len(first)} unhedged requests): "
+            + "; ".join(f"{w['hedge']} p50 {w['p50_ms']:.3f} ms, p99 {w['p99_ms']:.3f}, {w['qps']:.1f} QPS"
+                        for w in windows)
+            + f"; /metrics hedges {fired:.0f}, wins {wins:.0f} (client {counters}); R1 served {r1['requests']:.0f} "
+            f"rows for {len(records)} requests, K1 {r1['k1']:.0f} = batches {r1['batches']:.0f}; SendFeedback "
+            f"under hedge-ms 1 fired {fb_hedge['hedges_fired']} hedges [{card}]")
+        check_rows(np, pb, records, bodies, refs, errs["16e"])
+        check(fired == counters["hedges_fired"] and wins == counters["hedge_wins"],
+              f"/metrics hedges {fired} / wins {wins} != the client's {counters}")
+        check(k1_equals_batches(r1["k1"], r1["batches"]), f"R1 K1 {r1['k1']} != batches {r1['batches']}")
+        check(len(records) <= r1["requests"] <= len(records) + fired,
+              f"R1 served {r1['requests']} rows for {len(records)} requests and {fired} hedges")
+
         # (d) a fallback route: the primary remote on R1, the fallback an in-process int8w model in the gateway
         base, port = fb_base, fb_port
         lane = lane_of(port)
@@ -4498,72 +4563,17 @@ def a2_2_paths(torch, np, kernels, resnet, CudaServer, card):
         fb = delta(m2, m1)
         check(fb["fallbacks"] == A22_SEQUENTIAL, f"fallbacks counter grew {fb['fallbacks']} for {A22_SEQUENTIAL}")
         check(k1_equals_batches(fb["k1"], fb["batches"]), f"fallback K1 {fb['k1']} != batches {fb['batches']}")
-        replicas[0] = start_replica(r_http[0], r_grpc[0], logfile)
-        wait_ready(replicas[0], f"http://127.0.0.1:{r_http[0]}", logpath)
-        warm = warm_replica(pb, services, grpc_server, r_grpc[0], bodies["bodies"])
-        t_ready = time.perf_counter()
-        resumed, send_close = None, lane()
-        try:
-            while time.perf_counter() - t_ready < A22_RESET_S + A22_PROBE_SLACK_S + 5.0:
-                resp = send_close[0](bodies["bodies"][0])
-                if "degraded" not in answer_tags(resp):
-                    resumed = time.perf_counter() - t_ready
-                    break
-        finally:
-            send_close[1]()
         open_p50 = pct([r[1] for r in degraded[10:]], 0.5)
         numbers["16d"] = {"healthy_p50_ms": pct([r[1] for r in healthy], 0.5), "malformed": malformed.status.code,
                           "spent": spent.status.code, "first_degraded_s": first_s, "degraded_p50_ms": open_p50,
                           "degraded_p99_ms": p99([r[1] for r in degraded[10:]]), "fallbacks": fb["fallbacks"],
-                          "fallback_k1": fb["k1"], "fallback_batches": fb["batches"], "r1_warm": warm,
-                          "resumed_after_ready_s": resumed}
+                          "fallback_k1": fb["k1"], "fallback_batches": fb["batches"]}
         d = numbers["16d"]
         log(f"16d SIGKILL R1: first degraded answer {first_s * 1e3:.3f} ms after the kill; {A22_SEQUENTIAL} "
             f"answers degraded / fallback_for model, p50 {open_p50:.3f} ms with the breaker open (requests 11-"
             f"{A22_SEQUENTIAL}; healthy p50 {d['healthy_p50_ms']:.3f}); fallbacks {fb['fallbacks']:.0f}; fallback "
-            f"K1 {fb['k1']:.0f} = batches {fb['batches']:.0f}; R1 restarted (sent to it directly, its first request "
-            f"{warm['first_ms']:.3f} ms, then at most {warm['concurrent_max_ms']:.3f}), untagged answers "
-            f"{resumed if resumed is None else f'{resumed:.3f} s'} after that [{card}]")
-        check(resumed is not None and resumed <= A22_RESET_S + A22_PROBE_SLACK_S,
-              "untagged answers did not resume once R1 was back")
+            f"K1 {fb['k1']:.0f} = batches {fb['batches']:.0f} [{card}]")
         stop_server(fb_proc)
-
-        # (e) hedging on R1, measured only: off, then on at the unhedged p90, in turns
-        c0 = replica_counts(r_http[0])
-        first = timed_window(lane_of(off_port), bodies["bodies"], A22_CLIENTS, A22_HEDGE_P90_SECONDS)
-        hedge_ms = pct([r[1] for r in first], 0.9)
-        on_proc, on_base, on_port = start_gateway(
-            "hedge-on", {"name": "model", "type": "MODEL", "endpoint": on_r1}, logfile,
-            annotations={**A22_ANNOTATIONS, "seldon.io/hedge-ms": f"{hedge_ms:.3f}"})
-        gateways.append(on_proc)
-        wait_gateway([replicas[0], off_proc, on_proc], on_base, logpath)
-        windows, records = [], list(first)
-        for name, p in (("off", off_port), ("on", on_port), ("on", on_port), ("off", off_port)):
-            win = timed_window(lane_of(p), bodies["bodies"], A22_CLIENTS, A22_HEDGE_SECONDS)
-            records += win
-            windows.append({"hedge": name, **lat_numbers(win, A22_HEDGE_SECONDS)})
-        m = metric_samples(http(on_base + "/metrics"))
-        fired, wins = metric_sum(m, "seldon_tpu_transport_hedges_total"), metric_sum(m, "seldon_tpu_transport_hedge_wins_total")
-        fb_hedge = feedback_never_hedges(np, r_grpc[0])
-        c1 = replica_counts(r_http[0])
-        stop_server(on_proc)
-        counters = child_clients(logpath, "hedge-on")["model"]
-        r1 = delta(c1, c0)
-        numbers["16e"] = {"hedge_ms": hedge_ms, "windows": windows, "hedges_fired": fired, "hedge_wins": wins,
-                          "client": counters, "feedback": fb_hedge, "r1_k1": r1["k1"], "r1_batches": r1["batches"],
-                          "r1_requests": r1["requests"], "client_requests": len(records)}
-        log(f"16e hedging at seldon.io/hedge-ms {hedge_ms:.3f} (p90 of {len(first)} unhedged requests): "
-            + "; ".join(f"{w['hedge']} p50 {w['p50_ms']:.3f} ms, p99 {w['p99_ms']:.3f}, {w['qps']:.1f} QPS"
-                        for w in windows)
-            + f"; /metrics hedges {fired:.0f}, wins {wins:.0f} (client {counters}); R1 served {r1['requests']:.0f} "
-            f"rows for {len(records)} requests, K1 {r1['k1']:.0f} = batches {r1['batches']:.0f}; SendFeedback "
-            f"under hedge-ms 1 fired {fb_hedge['hedges_fired']} hedges [{card}]")
-        check_rows(np, pb, records, bodies, refs, errs["16e"])
-        check(fired == counters["hedges_fired"] and wins == counters["hedge_wins"],
-              f"/metrics hedges {fired} / wins {wins} != the client's {counters}")
-        check(k1_equals_batches(r1["k1"], r1["batches"]), f"R1 K1 {r1['k1']} != batches {r1['batches']}")
-        check(len(records) <= r1["requests"] <= len(records) + fired,
-              f"R1 served {r1['requests']} rows for {len(records)} requests and {fired} hedges")
     finally:
         for p in gateways + replicas:
             if p is not None:
@@ -8629,6 +8639,329 @@ def mesh_paths(torch, np, kernels, resnet, transformer, CudaServer, PagedEngine,
     return numbers
 
 
+# ---------------------------------------------------------------- phase 29
+
+def engine_idle_after(eng, t0: float, limit_s: float) -> float:
+    """Seconds from ``t0`` until ``eng`` holds no slot, no queued stream
+    and every page is free again; inf past ``limit_s``."""
+    total = eng.engine_stats()["pool_pages_total"]
+    while time.perf_counter() - t0 < limit_s:
+        s = eng.engine_stats()
+        if s["active"] == 0 and s["queued"] == 0 and s["free_pages"] == total:
+            return time.perf_counter() - t0
+        time.sleep(0.01)
+    return float("inf")
+
+
+def serve_both(loop, gateway, modes=("aio", "sync")):
+    """One gateway behind a front end of each mode; {mode: (runner,
+    handle, REST base, gRPC port)}."""
+    from seldon_core_tpu_torch.engine.server import serve_gateway
+
+    async def start():
+        out = {}
+        for mode in modes:
+            http_port, grpc_port = free_port(), free_port()
+            runner, handle = await serve_gateway(gateway, host="127.0.0.1", http_port=http_port,
+                                                 grpc_port=grpc_port, grpc_mode=mode)
+            out[mode] = (runner, handle, f"http://127.0.0.1:{http_port}", grpc_port)
+        return out
+
+    return loop.run(start())
+
+
+def stop_both(loop, served):
+    async def stop():
+        for runner, handle, _base, _port in served.values():
+            await handle.stop(None)
+            await runner.cleanup()
+
+    loop.run(stop())
+
+
+def aio_resnet(torch, np, kernels, resnet, loop, card):
+    """29a: the ResNet-50 SeldonDeployment (phase 13's served parameters)
+    in process behind a ``grpc.aio`` front end and a sync one: uint8 rows
+    over ``Seldon/Predict`` at batch 1 and 32 and ``PredictStream``, then
+    4 batch-1 clients on each in turns.  Returns the numbers and the
+    serving state (kept for 29b and 29c)."""
+    from seldon_core_tpu_torch.engine import PredictorService, UnitSpec
+    from seldon_core_tpu_torch.engine.server import Gateway
+    from seldon_core_tpu_torch.proto import pb, services
+    from seldon_core_tpu_torch.runtime import grpc_server
+
+    rng = np.random.default_rng(SEED + 29)
+    all_images, images, _ = phase13_images(np, pb, rng)
+    local = reference_resnet(torch, resnet, SEED)
+    refs = reference_logits(torch, np, kernels, local, all_images)
+    del local
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    graph = {"name": "resnet50", "type": "MODEL", "implementation": "CUDA_SERVER", "parameters": GRPC_PARAMS}
+
+    async def build():
+        svc = PredictorService(UnitSpec.from_dict(graph), name=graph["name"])
+        return svc, Gateway([(svc, 1.0)])
+
+    svc, gateway = loop.run(build())
+    served = serve_both(loop, gateway)
+    load_s = time.perf_counter() - t0
+    labels = 'predictor="resnet50",unit="resnet50"'
+    aio_base, aio_port = served["aio"][2], served["aio"][3]
+
+    def counts():
+        m = metrics_values(http(aio_base + "/metrics"))
+        return {"k1": m[f'cudaserver_kernel_launches{{kernel="fused_normalize",{labels}}}'],
+                "batches": m[f"cudaserver_batches_total{{{labels}}}"],
+                "requests": m['seldon_api_gateway_requests_total{predictor="resnet50"}'],
+                "failures": m['seldon_api_gateway_failures_total{predictor="resnet50"}']}
+
+    errs, out = [], {"load_s": load_s}
+    grpc_rows = lambda resp, rows: proto_logits(pb, resp, rows)  # noqa: E731
+    lat, tput = images["latency"], images["throughput"]
+    c0 = counts()
+    channel, predict = grpc_callable(services, grpc_server, aio_port)
+    try:
+        for b, body in enumerate(lat["bodies"]):
+            served_rows_errors(np, [(b, predict(body, timeout=120))], lat, grpc_rows, refs, 1, errs)
+        for b, body in enumerate(tput["bodies"]):
+            served_rows_errors(np, [(b, predict(body, timeout=120))], tput, grpc_rows, refs, 32, errs)
+        stream = services.stream_callable(channel, "Seldon", "PredictStream")
+        parts = list(stream(services.chunk_message(tput["bodies"][0]), timeout=120))
+        streamed = pb.SeldonMessage.FromString(b"".join(c.data for c in parts))
+        served_rows_errors(np, [(0, streamed)], tput, grpc_rows, refs, 32, errs)
+    finally:
+        channel.close()
+    c1 = counts()
+    aio_k1, aio_batches = c1["k1"] - c0["k1"], c1["batches"] - c0["batches"]
+    log(f"29a aio gateway (ResNet-50 CUDA_SERVER in process, loaded with a sync front end beside it in "
+        f"{load_s:.1f}s): 8 batch-1 and 8 batch-32 Seldon/Predict answers and one batch-32 PredictStream "
+        f"({len(parts)} chunks back); {aio_batches:.0f} batches, K1 {aio_k1:.0f} [{card}]")
+    check(k1_equals_batches(aio_k1, aio_batches), f"29a: aio K1 launches {aio_k1} != batches {aio_batches}")
+    # untimed: each front end's first concurrent requests (the first use of new
+    # batch sizes and connections, S2) stay out of the turns
+    for mode in ("aio", "sync"):
+        _lat, answers, _ = load_window(grpc_lane(pb, services, grpc_server, served[mode][3]), lat["bodies"],
+                                       GRPC_LAT_CLIENTS, AIO_WARM_SECONDS)
+        served_rows_errors(np, answers, lat, grpc_rows, refs, 1, errs)
+    c_warm = counts()
+    turns = []
+    for mode in ("aio", "sync", "sync", "aio"):
+        m0 = counts()
+        lat_ms, answers, _ = load_window(grpc_lane(pb, services, grpc_server, served[mode][3]), lat["bodies"],
+                                         GRPC_LAT_CLIENTS, AIO_SECONDS)
+        m1 = counts()
+        served_rows_errors(np, answers, lat, grpc_rows, refs, 1, errs)
+        turns.append({"mode": mode, **window_numbers(np, lat_ms, AIO_SECONDS, GRPC_LAT_CLIENTS),
+                      "p99_ms": p99(lat_ms), "k1": m1["k1"] - m0["k1"], "batches": m1["batches"] - m0["batches"]})
+        if mode == "aio":
+            aio_k1 += turns[-1]["k1"]
+            aio_batches += turns[-1]["batches"]
+    c2 = counts()
+    warm_k1, warm_batches = c_warm["k1"] - c1["k1"], c_warm["batches"] - c1["batches"]
+    check(k1_equals_batches(warm_k1, warm_batches), f"29a: K1 launches {warm_k1} != batches {warm_batches} in the "
+          "untimed windows")
+    k1, batches = c2["k1"] - c0["k1"], c2["batches"] - c0["batches"]
+    failures, requests = c2["failures"] - c0["failures"], c2["requests"] - c0["requests"]
+    log("29a batch-1 Seldon/Predict, 4 clients, in turns: " + "; ".join(
+        f"{t['mode']} p50 {t['p50_ms']:.3f} ms, "
+        + (f"p99 {t['p99_ms']:.3f}" if t["p99_ms"] is not None else "no p99 (too few samples)")
+        + f", {t['qps']:.1f} QPS ({t['requests']} requests)" for t in turns)
+        + f"; no gain is claimed either way [{card}]")
+    log(f"29a: {requests:.0f} gateway requests, {failures:.0f} failures, {batches:.0f} batches, K1 {k1:.0f}; aio "
+        f"alone {aio_batches:.0f} batches, K1 {aio_k1:.0f}; {len(errs)} served rows, max rel L2 {max(errs):.3e} "
+        f"against the in-process model (limit {SERVED_VS_LOCAL_REL_L2}) [{card}]")
+    check(failures == 0, f"29a: the gateway counted {failures} failed requests")
+    check(k1_equals_batches(k1, batches) and k1_equals_batches(aio_k1, aio_batches),
+          f"29a: K1 launches {k1} != batches {batches} (aio {aio_k1} / {aio_batches})")
+    check(max(errs) <= SERVED_VS_LOCAL_REL_L2, "29a: served rows disagree with the in-process model")
+    out.update(turns=turns, k1_launches=int(k1), batches=int(batches), aio_k1_launches=int(aio_k1),
+               aio_batches=int(aio_batches), requests=int(requests), failures=int(failures), rows=len(errs),
+               max_row_rel_l2=max(errs))
+    return out, (svc, gateway, served)
+
+
+def aio_streams(torch, np, kernels, StreamingLM, loop, resnet_port, card):
+    """29b: a served bf16 StreamingLM behind a ``grpc.aio`` front end (and
+    a sync one for the refusals' codes): streams equal their unary rows,
+    a dropped client frees its slot and pages, K4 = layers x decode calls."""
+    import grpc
+
+    from seldon_core_tpu_torch.engine import PredictorService, UnitSpec
+    from seldon_core_tpu_torch.engine.server import Gateway
+    from seldon_core_tpu_torch.proto import pb
+    from seldon_core_tpu_torch.runtime.message import InternalMessage
+
+    rng = np.random.default_rng(SEED + 291)
+    V = LM_CONFIG["vocab_size"]
+    prompts = [rng.integers(0, V, n) for n in STREAM_PROMPTS]
+    lm = StreamingLM(device=SCHED_DEVICE, dtype="bfloat16", max_new_tokens=LM_MAX_NEW, **LM_CONFIG, **LM_ENGINE,
+                     **NO_PREFIX_CACHE)
+    lm.load()
+    check(lm.engine._chunk_impl == "pool" and lm.engine._kernel_active,
+          "29b: the served StreamingLM is not on the pool chunk's kernel lane")
+
+    async def build():
+        return Gateway([(PredictorService(UnitSpec(name="lm", type="MODEL", component=lm), name="gen"), 1.0)])
+
+    served = serve_both(loop, loop.run(build()))
+    channels = {mode: grpc.insecure_channel(f"127.0.0.1:{served[mode][3]}") for mode in served}
+    out = {}
+    try:
+        predict = channels["aio"].unary_unary("/seldon.protos.Seldon/Predict",
+                                             request_serializer=pb.SeldonMessage.SerializeToString,
+                                             response_deserializer=pb.SeldonMessage.FromString)
+        calls0 = decode_calls(lm.engine.engine_stats())
+        sched_sync(torch)
+        kernels.reset_launch_counts()
+        t_first, t_last, n_chunks = [], [], []
+        for p in prompts:
+            row = proto_tokens(np, InternalMessage, predict(proto_prompt(np, InternalMessage, p), timeout=300))
+            chunks, first, last, _ = grpc_stream(np, pb, InternalMessage, channels["aio"], p)
+            check([t for c in chunks for t in c] == row,
+                  "29b: the aio stream's tokens differ from the unary row of the same request")
+            check(len(row) == LM_MAX_NEW and all(0 <= t < V for t in row), "29b: a row is short or out of vocabulary")
+            t_first.append(first)
+            t_last.append(last)
+            n_chunks.append(len(chunks))
+        t0 = time.perf_counter()
+        dropped, *_ = grpc_stream(np, pb, InternalMessage, channels["aio"], prompts[0], max_new=STREAM_DROP_NEW,
+                                  drop_after_first=True)
+        freed = engine_idle_after(lm.engine, t0, 10 * STREAM_FREE_S)
+        sched_sync(torch)
+        k4 = sum(v for k, v in kernels.launch_counts().items() if k.startswith("paged_decode"))
+        calls = decode_calls(lm.engine.engine_stats()) - calls0
+        check(calls > 0 and k4 == LM_CONFIG["num_layers"] * calls,
+              f"29b: K4 launched {k4} times over {calls} decode calls a layer")
+        check(len(dropped) == 1 and freed <= STREAM_FREE_S,
+              f"29b: a dropped aio stream still held its slot or pages after {freed:.3f} s")
+        refused = {}
+        for mode, ch in channels.items():
+            call = ch.unary_stream("/seldon.protos.Seldon/GenerateStream",
+                                   request_serializer=pb.SeldonMessage.SerializeToString,
+                                   response_deserializer=pb.SeldonMessage.FromString)
+            try:
+                list(call(proto_prompt(np, InternalMessage, prompts[0]), timeout=60,
+                          metadata=(("x-seldon-deadline-ms", "0"),)))
+                refused[mode] = None
+            except grpc.RpcError as e:
+                refused[mode] = (e.code().name, e.details())
+        check(refused["aio"] is not None and refused["aio"] == refused["sync"],
+              f"29b: a spent deadline answers {refused['aio']} on aio, {refused['sync']} on sync")
+        with grpc.insecure_channel(f"127.0.0.1:{resnet_port}") as ch:
+            call = ch.unary_stream("/seldon.protos.Seldon/GenerateStream",
+                                   request_serializer=pb.SeldonMessage.SerializeToString,
+                                   response_deserializer=pb.SeldonMessage.FromString)
+            try:
+                list(call(proto_prompt(np, InternalMessage, prompts[0]), timeout=60))
+                unimplemented = None
+            except grpc.RpcError as e:
+                unimplemented = e.code().name
+        check(unimplemented == "UNIMPLEMENTED", f"29b: GenerateStream on the ResNet gateway answered {unimplemented}")
+        out.update(k4_launches=k4, decode_calls=calls, streams=len(prompts), chunks=n_chunks,
+                   first_chunk_p50_ms=pct(t_first, 0.5) * 1e3, last_chunk_p50_ms=pct(t_last, 0.5) * 1e3,
+                   dropped_freed_s=freed, spent_deadline=list(refused["aio"]), no_stream=unimplemented)
+        log(f"29b aio GenerateStream: {len(prompts)} streams bit-identical to their unary rows ({n_chunks} chunks); "
+            f"p50 first chunk {out['first_chunk_p50_ms']:.2f} ms, last {out['last_chunk_p50_ms']:.2f} ms; a client "
+            f"dropped after its first chunk: slot and pages free after {freed:.3f} s; a spent deadline answers "
+            f"{refused['aio'][0]} on aio and sync; the ResNet gateway answers {unimplemented}; K4 {k4} = "
+            f"{LM_CONFIG['num_layers']} x {calls} decode calls [{card}]")
+    finally:
+        for ch in channels.values():
+            ch.close()
+        stop_both(loop, served)
+        lm.unload()
+    return out
+
+
+def views_and_sentinel(torch, np, kernels, PagedEngine, load_lm_params, metrics_base, card):
+    """29c: ``submit_views`` and the first-use sentinels on an f32 engine
+    at the generation config (TF32 off)."""
+    from seldon_core_tpu_torch.codec import bufview
+    from seldon_core_tpu_torch.runtime.component import MicroserviceError
+    from seldon_core_tpu_torch.utils.jitwatch import JIT_COMPILES_METRIC
+
+    def series() -> float:
+        m = metrics_values(http(metrics_base + "/metrics"))
+        return sum(v for k, v in m.items() if k.startswith(JIT_COMPILES_METRIC + "{"))
+
+    rng = np.random.default_rng(SEED + 292)
+    prompts = [rng.integers(0, LM_CONFIG["vocab_size"], n).astype(np.int32) for n in AIO_VIEW_PROMPTS]
+    views = [bufview.unpack_frame(bufview.pack_frame(p)) for p in prompts]
+    tally = K4Tally(torch, kernels)
+    params32 = load_lm_params("", LM_CONFIG, SEED + 29, torch.device(SCHED_DEVICE))
+    with no_tf32(torch):
+        s0 = series()
+        eng = sched_engine(torch, PagedEngine, params32, dtype="float32", prefix_cache=False)
+
+        def wave(submit):
+            streams = submit()
+            eng.run()
+            check(all(st.error is None and st.result is not None for st in streams), "29c: a stream failed")
+            return [st.result.tolist() for st in streams]
+
+        got = tally.run(eng, lambda: wave(lambda: eng.submit_views(views, max_new_tokens=AIO_VIEW_NEW)),
+                        "29c submit_views")
+        n1, s1 = eng.engine_stats()["jit_compiles"], series()
+        want = tally.run(eng, lambda: wave(lambda: [eng.submit(p, max_new_tokens=AIO_VIEW_NEW) for p in prompts]),
+                         "29c submit")
+        n2, s2 = eng.engine_stats()["jit_compiles"], series()
+        try:
+            eng.submit_views([views[0], views[1], np.zeros(LM_CONFIG["max_len"] + 1, np.int32)], max_new_tokens=4)
+            refused = None
+        except MicroserviceError as e:
+            refused = (e.status_code, e.reason)
+        stats = eng.engine_stats()
+    same = sum(a == b for a, b in zip(got, want))
+    log(f"29c f32 (TF32 off): {len(views)} pack_frame / unpack_frame views admitted by submit_views, greedy ids "
+        f"equal submit's on {same} / {len(views)}; an over-long third view raised {refused}, then queued "
+        f"{stats['queued']}, active {stats['active']}; jit_compiles {n1} after the first wave = the /metrics "
+        f"series' growth {s1 - s0:.0f}, {n2 - n1} more on the repeated wave; K4 {tally.launches} = "
+        f"{LM_CONFIG['num_layers']} x {tally.steps} decode calls [{card}]")
+    check(same == len(views), "29c: submit_views' greedy ids differ from submit's")
+    check(refused is not None and refused[0] == 400 and stats["queued"] == 0 and stats["active"] == 0,
+          f"29c: the over-long view was {refused}; queued {stats['queued']}, active {stats['active']} after it")
+    check(n1 >= 1 and s1 - s0 == n1, f"29c: jit_compiles {n1} != the /metrics series' growth {s1 - s0}")
+    check(n2 == n1 and s2 == s1, f"29c: a repeated wave of the same shapes added {n2 - n1} first uses")
+    del eng
+    torch.cuda.empty_cache()
+    return {"views": len(views), "equal_rows": same, "refused": list(refused), "jit_compiles": n1,
+            "series_growth": s1 - s0, "repeat_added": n2 - n1, "k4_launches": tally.launches,
+            "decode_calls": tally.steps}
+
+
+def aio_paths(torch, np, kernels, resnet, StreamingLM, PagedEngine, load_lm_params, card):
+    """Phase 29: the ``grpc.aio`` front end on the headline path (29a) and
+    the generation path (29b), then ``submit_views`` and the sentinels
+    (29c)."""
+    t0 = time.perf_counter()
+    loop = LoopThread()
+    numbers, resnet_state = {}, None
+    try:
+        numbers["29a"], resnet_state = aio_resnet(torch, np, kernels, resnet, loop, card)
+        _svc, _gateway, resnet_served = resnet_state
+        numbers["29b"] = aio_streams(torch, np, kernels, StreamingLM, loop, resnet_served["aio"][3], card)
+        numbers["29c"] = views_and_sentinel(torch, np, kernels, PagedEngine, load_lm_params,
+                                            resnet_served["aio"][2], card)
+    finally:
+        if resnet_state is not None:
+            svc, gateway, served = resnet_state
+            stop_both(loop, served)
+            loop.run(gateway.close())
+            for unit in svc.graph.walk():
+                component = svc.executor.component(unit.name)
+                if hasattr(component, "unload"):
+                    component.unload()
+        loop.close()
+        if SCHED_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    numbers.update(k4_launches=numbers["29b"]["k4_launches"] + numbers["29c"]["k4_launches"],
+                   decode_calls=numbers["29b"]["decode_calls"] + numbers["29c"]["decode_calls"],
+                   seconds=time.perf_counter() - t0)
+    log(f"phase 29: {numbers['seconds']:.1f} s [{card}]")
+    return numbers
+
+
 def run() -> int:
     try:
         import torch
@@ -8774,6 +9107,8 @@ def run() -> int:
         mesh_numbers = mesh_paths(torch, np, kernels, resnet, transformer, CudaServer, PagedEngine, SpeculativeLM,
                                   load_lm_params, paged_hbm_accounting, make_lora_params, card)
         clock.mark("phase 28")
+        aio_numbers = aio_paths(torch, np, kernels, resnet, StreamingLM, PagedEngine, load_lm_params, card)
+        clock.mark("phase 29")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -8816,6 +9151,7 @@ def run() -> int:
         "components": a11_numbers,
         "control_plane": a13_numbers,
         "meshes": mesh_numbers,
+        "aio_gateway": aio_numbers,
         "phase_seconds": clock.seconds,
         "seconds": time.perf_counter() - t_start,
     }
@@ -8856,6 +9192,12 @@ def run() -> int:
                                 "path": "ResNet-50 trained by ShardedTrainer on {'data': 2} of cuda:0, its "
                                         "serving_variables() in CudaServer(normalize=true), one uint8 batch of "
                                         f"{TRAIN_BATCH} (phase 28d)"},
+        "launches_on_phase29": {"launches": aio_numbers["29a"]["aio_k1_launches"],
+                                "batches": aio_numbers["29a"]["aio_batches"],
+                                "with_the_sync_turns": {"launches": aio_numbers["29a"]["k1_launches"],
+                                                        "batches": aio_numbers["29a"]["batches"]},
+                                "path": "ResNet-50 SeldonDeployment in process behind serve_gateway(grpc_mode='aio'): "
+                                        "Seldon/Predict at batch 1 and 32 and PredictStream (phase 29a)"},
         "shape_512": {f"{b}x{DET_SIZE}x{DET_SIZE}x3": {k: det_numbers["k1_512"][b][k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "copy_ms", "grid")} for b in (DET_BATCH, 1)},
         "launch_floor_ms": t32["launch_floor_ms"], "copy_ms": t32["copy_ms"],
@@ -8927,6 +9269,12 @@ def run() -> int:
                 "path": "DisaggregatedLM's decode engine over pages handed off by two in-process prefill engines "
                         "(f32 and bf16, 25a) and by a served PrefillLM over gRPC (25b); launches = layers x the "
                         "decode engine's decode calls, and the prefill engines make none (phase 25)"}
+            kernel_line["kernels"][-1]["launches_on_phase29"] = {
+                "launches": aio_numbers["k4_launches"], "decode_calls": aio_numbers["decode_calls"],
+                "served_launches": aio_numbers["29b"]["k4_launches"],
+                "path": "a bf16 StreamingLM behind serve_gateway(grpc_mode='aio') over Seldon/GenerateStream and "
+                        "Predict (29b), and an f32 engine admitting submit_views (29c); one launch a layer a decode "
+                        "call (phase 29)"}
             kernel_line["kernels"][-1]["launches_on_phase27d"] = {
                 "launches": a13_numbers["27d"]["k4_launches"], "decode_calls": a13_numbers["27d"]["decode_calls"],
                 "path": "the STREAMING_LM deployment rendered by templates.render('generation') and applied by the "

@@ -6,7 +6,9 @@ from seldon_core_tpu_torch.codec.tensor import (  # noqa: F401
     array_to_ndarray,
     array_to_raw_tensor,
     array_to_tensor,
+    build_message,
     datadef_to_array,
+    get_data_from_proto,
     message_data_kind,
     ndarray_to_array,
     np_dtype,
@@ -16,11 +18,15 @@ from seldon_core_tpu_torch.codec.tensor import (  # noqa: F401
 from seldon_core_tpu_torch.codec.jsonpath import (  # noqa: F401
     build_json_payload,
     extract_json_payload,
+    json_feedback_to_proto,
+    json_to_proto,
+    proto_to_json,
 )
 from seldon_core_tpu_torch.codec.device import (  # noqa: F401
     PendingHostCopy,
     from_device,
     from_device_async,
+    from_device_many,
     is_device_array,
     to_device,
 )

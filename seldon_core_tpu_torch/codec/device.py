@@ -5,12 +5,13 @@ A decoded host array moves to device memory once per batch
 as a pending copy (``from_device_async``): a non-blocking copy into
 pinned host memory on the current stream, with a CUDA event recorded
 behind it.  The batcher's finishers wait on that event, so the readback
-of one batch overlaps the launch of the next.
+of one batch overlaps the launch of the next.  ``from_device_many``
+issues the pending copies of several tensors before it waits.
 """
 
 from __future__ import annotations
 
-from typing import Any, Union
+from typing import Any, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -55,6 +56,18 @@ def from_device_async(x: Any) -> Union[PendingHostCopy, np.ndarray]:
     if is_device_array(x):
         return PendingHostCopy(x)
     return from_device(x)
+
+
+def from_device_many(xs: Sequence[Any], dtype: Optional[Any] = None) -> List[np.ndarray]:
+    """Fetch N tensors to host memory as numpy arrays, issuing every
+    device-to-host copy before waiting on any, so N outputs cost about
+    one transfer's wait instead of N in turn.  Host arrays pass through
+    untouched; ``dtype`` casts each result (no copy where it matches)."""
+    pending = [from_device_async(x) for x in xs]
+    out = [p.result() if isinstance(p, PendingHostCopy) else p for p in pending]
+    if dtype is not None:
+        out = [a.astype(dtype, copy=False) for a in out]
+    return out
 
 
 def is_device_array(x: Any) -> bool:

@@ -12,8 +12,10 @@ import binascii
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
+from google.protobuf import json_format
 
 from seldon_core_tpu_torch.codec.tensor import PayloadError, raw_to_array
+from seldon_core_tpu_torch.proto import pb
 
 
 def _bytes_to_str(x: Any) -> Any:
@@ -24,6 +26,26 @@ def _bytes_to_str(x: Any) -> Any:
         return [_bytes_to_str(v) for v in x]
     return x
 
+
+def json_to_proto(body: Dict[str, Any]) -> pb.SeldonMessage:
+    msg = pb.SeldonMessage()
+    json_format.ParseDict(body, msg, ignore_unknown_fields=True)
+    return msg
+
+
+def proto_to_json(msg) -> Dict[str, Any]:
+    return json_format.MessageToDict(msg)
+
+
+def json_feedback_to_proto(body: Dict[str, Any]) -> pb.Feedback:
+    fb = pb.Feedback()
+    json_format.ParseDict(body, fb, ignore_unknown_fields=True)
+    return fb
+
+
+# ---------------------------------------------------------------------------
+# dict payload extraction / construction (no protos involved)
+# ---------------------------------------------------------------------------
 
 def extract_json_payload(body: Dict[str, Any]) -> Tuple[Any, Optional[Dict], Optional[Dict], str]:
     """Decode a REST request dict.

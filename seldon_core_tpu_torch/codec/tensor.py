@@ -24,7 +24,7 @@ Covers the payload kinds of the wire contract that this port serves:
 from __future__ import annotations
 
 import sys
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 from google.protobuf import json_format
@@ -187,6 +187,20 @@ def datadef_to_array(datadef: pb.DefaultData) -> np.ndarray:
     raise PayloadError(f"DefaultData has no decodable payload (kind={kind})")
 
 
+def get_data_from_proto(msg: pb.SeldonMessage) -> Any:
+    """Extract the user-facing payload from a SeldonMessage."""
+    kind = msg.WhichOneof("data_oneof")
+    if kind == "data":
+        return datadef_to_array(msg.data)
+    if kind == "binData":
+        return msg.binData
+    if kind == "strData":
+        return msg.strData
+    if kind == "jsonData":
+        return json_format.MessageToDict(msg.jsonData)
+    raise PayloadError("SeldonMessage carries no payload")
+
+
 # ---------------------------------------------------------------------------
 # encode: numpy / bytes / str / json -> proto
 # ---------------------------------------------------------------------------
@@ -235,6 +249,40 @@ def array_to_datadef(
     else:
         raise PayloadError(f"unknown data_type {data_type!r}")
     return datadef
+
+
+def build_message(
+    payload: Any,
+    names: Optional[Sequence[str]] = None,
+    data_type: Optional[str] = None,
+    meta: Optional[pb.Meta] = None,
+) -> pb.SeldonMessage:
+    """Wrap an arbitrary payload into a SeldonMessage.
+
+    numpy arrays / lists use DefaultData (``rawTensor`` for non-float64
+    numeric arrays, ``tensor`` for float64 and other kinds, ``ndarray``
+    for strings, unless ``data_type`` names one), bytes -> binData, str
+    -> strData, dict -> jsonData.
+    """
+    msg = pb.SeldonMessage()
+    if meta is not None:
+        msg.meta.CopyFrom(meta)
+    if isinstance(payload, bytes):
+        msg.binData = payload
+        return msg
+    if isinstance(payload, str):
+        msg.strData = payload
+        return msg
+    if isinstance(payload, dict):
+        json_format.ParseDict(payload, msg.jsonData)
+        return msg
+    arr = np.asarray(payload)
+    if data_type is None:
+        data_type = "tensor" if arr.dtype == np.float64 or arr.dtype.kind not in "fiub" else "rawTensor"
+        if arr.dtype.kind in "US":  # strings go through ndarray
+            data_type = "ndarray"
+    msg.data.CopyFrom(array_to_datadef(arr, names, data_type))
+    return msg
 
 
 def message_data_kind(msg: pb.SeldonMessage) -> Optional[str]:

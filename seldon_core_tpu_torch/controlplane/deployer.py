@@ -742,7 +742,7 @@ async def serve_deployment(
                 await http_handle.stop()
             raise
         logger.info("deployment %s serving http=:%d (native) grpc=:%d", name, http_port, grpc_port)
-        return http_handle, engine_server.GrpcServerHandle(grpc_srv)
+        return http_handle, engine_server.GrpcServerHandle(grpc_srv, is_aio=False)
     if frontend != "python":
         raise DeploymentSpecError(f"seldon.io/frontend must be 'python' or 'native', got {frontend!r}")
 

@@ -51,10 +51,12 @@ gets OpenMetrics 1.0 with the histograms' trace exemplars.
 each local engine's health; ``/debug/fleet`` polls their
 ``/debug/telemetry`` through ``controlplane/fleetview.py``.
 
-Not ported: the ``grpc.aio`` front end: gRPC is
-served by the sync server of ``engine/sync_server.py`` alone (queued in
-``ROADMAP.md`` §A until a deployment needs it).  Breakers, hedging,
-fallbacks and replica balancing run in the engine
+``serve_gateway(..., grpc_mode=)`` picks the gRPC front end: ``"sync"``
+(the default; the thread-pool server of ``engine/sync_server.py``,
+whose single-local-model fast path skips the loop) or ``"aio"``
+(``grpc.aio`` on the gateway's loop, :func:`add_seldon_service`).  Both
+keep one ingress contract, the sync server's helpers.  Breakers,
+hedging, fallbacks and replica balancing run in the engine
 (``engine/{transport,executor}.py``) behind every listener.
 """
 
@@ -70,14 +72,23 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import grpc
 from aiohttp import web
 
-from seldon_core_tpu_torch.engine.service import PredictorService
-from seldon_core_tpu_torch.engine.sync_server import build_sync_seldon_server, stream_fn, stream_tags
+from seldon_core_tpu_torch.engine.service import PredictorService, failure_message
+from seldon_core_tpu_torch.engine.sync_server import (
+    GENERATE_STREAM_UNSUPPORTED,
+    build_sync_seldon_server,
+    ingress_tags,
+    stream_fn,
+    stream_tags,
+)
+from seldon_core_tpu_torch.engine.sync_server import _ingress as _grpc_ingress
+from seldon_core_tpu_torch.proto import pb, services
 from seldon_core_tpu_torch.runtime import component as comp
-from seldon_core_tpu_torch.runtime.grpc_server import DEFAULT_MAX_MSG_BYTES
+from seldon_core_tpu_torch.runtime.grpc_server import DEFAULT_MAX_MSG_BYTES, message_size_options
 from seldon_core_tpu_torch.runtime.message import InternalFeedback, InternalMessage
 from seldon_core_tpu_torch.runtime.rest import _error_response, _ingress, _request_body
 from seldon_core_tpu_torch.utils import deadlines as _deadlines
 from seldon_core_tpu_torch.utils import metrics as _metrics
+from seldon_core_tpu_torch.utils.tracing import activate_context
 
 logger = logging.getLogger(__name__)
 
@@ -746,16 +757,138 @@ def build_gateway_app(gateway: Gateway, auth=None) -> web.Application:
     return app
 
 
-class GrpcServerHandle:
-    """Async facade over the sync gRPC server, so a caller on the loop
-    stops it without blocking the loop."""
+def add_seldon_service(server: grpc.aio.Server, gateway: Gateway, auth=None) -> None:
+    """Register the external ``Seldon`` service (``Predict``,
+    ``SendFeedback``, ``PredictStream``, ``GenerateStream``) on a
+    ``grpc.aio`` server (JAX ``engine/server.py:816-995``).  Every
+    handler runs on the server's loop; the ingress contract is the sync
+    server's (``engine/sync_server.py``: ``_ingress``, ``ingress_tags``,
+    ``stream_tags``, ``stream_fn``).  With ``auth``
+    (``utils.auth.OAuthConfig``) every method answers UNAUTHENTICATED
+    without a valid ``authorization: Bearer`` token, before a stream is
+    buffered."""
+    issuer = None
+    if auth is not None:
+        from seldon_core_tpu_torch.utils.auth import TokenIssuer
 
-    def __init__(self, server: grpc.Server):
+        issuer = TokenIssuer(auth)
+
+    async def check_auth(context) -> None:
+        if issuer is not None and not issuer.verify_grpc(context):
+            from seldon_core_tpu_torch.utils.auth import UNAUTHENTICATED_MSG
+
+            await context.abort(grpc.StatusCode.UNAUTHENTICATED, UNAUTHENTICATED_MSG)
+
+    async def answer(request: pb.SeldonMessage, context, method: str) -> pb.SeldonMessage:
+        msg = InternalMessage.from_proto(request)
+        ingress_tags(msg, context.invocation_metadata() or ())
+        svc = gateway.pick()
+        ctx, budget = _grpc_ingress(context)
+        try:
+            with activate_context(ctx), _deadlines.activate(budget):
+                _deadlines.check(f"gateway grpc ingress Seldon/{method}")
+                out = await gateway.predict(msg, predictor=svc.name)
+        except comp.MicroserviceError as e:  # the ingress fast-fail (DEADLINE_EXCEEDED), stamped as the sync server does
+            out = gateway.finalize_response(failure_message(e, msg.meta.puid), msg, svc)
+        return out.to_proto()
+
+    async def predict(request: pb.SeldonMessage, context) -> pb.SeldonMessage:
+        await check_auth(context)
+        return await answer(request, context, "Predict")
+
+    async def send_feedback(request: pb.Feedback, context) -> pb.SeldonMessage:
+        await check_auth(context)
+        fb = InternalFeedback.from_proto(request)
+        ctx, budget = _grpc_ingress(context)
+        try:
+            with activate_context(ctx), _deadlines.activate(budget):
+                _deadlines.check("gateway grpc ingress Seldon/SendFeedback")
+                out = await gateway.send_feedback(fb)
+        except comp.MicroserviceError as e:  # the ingress fast-fail (DEADLINE_EXCEEDED)
+            out = failure_message(e, fb.request.meta.puid if fb.request else "")
+        return out.to_proto()
+
+    async def generate_stream(request: pb.SeldonMessage, context):
+        """One prompt in, a SeldonMessage of newly decoded token ids out
+        per engine chunk.  The blocking generator is driven from the
+        loop's default executor, so no decode chunk blocks the loop; a
+        client that cancels closes it, which frees the engine stream's
+        slot and pages."""
+        import numpy as np
+
+        await check_auth(context)
+        msg = InternalMessage.from_proto(request)
+        gen_fn = stream_fn(gateway.pick())
+        if gen_fn is None:
+            await context.abort(grpc.StatusCode.UNIMPLEMENTED, GENERATE_STREAM_UNSUPPORTED)
+        meta = {"tags": stream_tags(msg, context.invocation_metadata() or ()), "puid": msg.meta.puid}
+        loop = asyncio.get_running_loop()
+        it = gen_fn(np.asarray(msg.host_payload()), [], meta=meta)
+        end = object()
+        pending = None
+        try:
+            while True:
+                pending = loop.run_in_executor(None, next, it, end)
+                try:
+                    # shielded: a cancel must not drop the future of a next() still running
+                    chunk = await asyncio.shield(pending)
+                except comp.MicroserviceError as e:
+                    await context.abort(grpc.StatusCode.INVALID_ARGUMENT if 400 <= e.status_code < 500
+                                        else grpc.StatusCode.INTERNAL, str(e))
+                if chunk is end:
+                    break
+                out = InternalMessage(payload=np.asarray(chunk)[None, :], kind="ndarray")
+                out.meta.puid = msg.meta.puid
+                yield out.to_proto()
+        finally:
+            if pending is not None and not pending.done():
+                # cancelled while next() waits for a chunk on the executor: a
+                # running generator cannot be closed, so it closes once that returns
+                pending.add_done_callback(lambda _f: loop.run_in_executor(None, it.close))
+            else:
+                await loop.run_in_executor(None, it.close)
+
+    async def predict_stream(request_iterator, context):
+        """Chunked predict: reassemble under the stream lane's own size
+        cap, answer as ``Predict`` does, stream the reply back in chunks."""
+        await check_auth(context)  # before any chunk is buffered
+        parts = []
+        total = 0
+        async for chunk in request_iterator:
+            total += len(chunk.data)
+            if total > services.STREAM_MAX_BYTES:
+                await context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED,
+                                    f"stream exceeds {services.STREAM_MAX_BYTES} bytes")
+            parts.append(chunk.data)
+        reply = await answer(pb.SeldonMessage.FromString(b"".join(parts)), context, "PredictStream")
+        for chunk in services.chunk_message(reply):
+            yield chunk
+
+    server.add_generic_rpc_handlers((services.generic_handler("Seldon", {
+        "Predict": predict,
+        "SendFeedback": send_feedback,
+        "PredictStream": predict_stream,
+        "GenerateStream": generate_stream,
+    }),))
+
+
+class GrpcServerHandle:
+    """Async facade over the sync and the aio gRPC servers, so a caller
+    on the loop stops either without blocking the loop."""
+
+    def __init__(self, server, is_aio: bool):
         self.server = server
+        self.is_aio = is_aio
 
     async def stop(self, grace=None):
-        event = self.server.stop(grace)
-        await asyncio.get_running_loop().run_in_executor(None, event.wait)
+        if self.is_aio:
+            await self.server.stop(grace)
+        else:
+            event = self.server.stop(grace)
+            await asyncio.get_running_loop().run_in_executor(None, event.wait)
+
+
+GRPC_MODES = ("sync", "aio")
 
 
 async def serve_gateway(
@@ -764,20 +897,32 @@ async def serve_gateway(
     http_port: int = 8000,
     grpc_port: int = 5001,
     max_message_bytes: int = DEFAULT_MAX_MSG_BYTES,
+    grpc_mode: str = "sync",
     tls=None,
     auth=None,
 ):
-    """Start the REST front server and the sync gRPC one; returns
-    (runner, GrpcServerHandle).  ``tls`` (``utils.tls.TlsConfig``)
-    terminates TLS and ``auth`` (``utils.auth.OAuthConfig``) requires
-    bearer tokens on both listeners.  Await it inside the running loop
-    that the sync server bridges into."""
+    """Start the REST front server and a gRPC one; returns (runner,
+    GrpcServerHandle).  ``grpc_mode`` picks the gRPC server: ``"sync"``
+    (the thread-pool server of ``engine/sync_server.py``, which bridges
+    into this loop) or ``"aio"`` (``grpc.aio`` on this loop,
+    :func:`add_seldon_service`); any other value raises.  ``tls``
+    (``utils.tls.TlsConfig``) terminates TLS and ``auth``
+    (``utils.auth.OAuthConfig``) requires bearer tokens on both
+    listeners.  Await it inside the running loop that serves them."""
     from seldon_core_tpu_torch.runtime import rest
     from seldon_core_tpu_torch.utils.tls import add_grpc_port
 
+    if grpc_mode not in GRPC_MODES:
+        raise ValueError(f"grpc_mode must be one of {GRPC_MODES}, got {grpc_mode!r}")
     runner = await rest.serve(build_gateway_app(gateway, auth=auth), host=host, port=http_port, tls=tls)
-    server = build_sync_seldon_server(gateway, asyncio.get_running_loop(), max_message_bytes=max_message_bytes,
-                                      auth=auth)
+    if grpc_mode == "sync":
+        server = build_sync_seldon_server(gateway, asyncio.get_running_loop(), max_message_bytes=max_message_bytes,
+                                          auth=auth)
+        add_grpc_port(server, f"{host}:{grpc_port}", tls)
+        server.start()
+        return runner, GrpcServerHandle(server, is_aio=False)
+    server = grpc.aio.server(options=message_size_options(max_message_bytes))
+    add_seldon_service(server, gateway, auth=auth)
     add_grpc_port(server, f"{host}:{grpc_port}", tls)
-    server.start()
-    return runner, GrpcServerHandle(server)
+    await server.start()
+    return runner, GrpcServerHandle(server, is_aio=True)

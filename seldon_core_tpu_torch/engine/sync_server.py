@@ -75,6 +75,17 @@ def stream_tags(msg: InternalMessage, carrier) -> dict:
     return tags
 
 
+def ingress_tags(msg: InternalMessage, carrier) -> None:
+    """A unary request's priority and adapter from the carrier (gRPC
+    metadata) into its tags, where its body has none: the body wins."""
+    prio = _deadlines.extract_priority(carrier)
+    if prio is not None and "priority" not in msg.meta.tags:
+        msg.meta.tags["priority"] = prio
+    adapter = _deadlines.extract_adapter(carrier)
+    if adapter and "adapter" not in msg.meta.tags:
+        msg.meta.tags["adapter"] = adapter
+
+
 def stream_fn(svc):
     """The ``predict_stream`` of a single-local-model predictor, or None."""
     fast = svc.single_local_model()
@@ -109,12 +120,7 @@ class SyncSeldonService:
 
         self._check_auth(context)
         msg = InternalMessage.from_proto(request)
-        prio = _deadlines.extract_priority(context.invocation_metadata() or ())
-        if prio is not None and "priority" not in msg.meta.tags:
-            msg.meta.tags["priority"] = prio
-        adapter = _deadlines.extract_adapter(context.invocation_metadata() or ())
-        if adapter and "adapter" not in msg.meta.tags:
-            msg.meta.tags["adapter"] = adapter
+        ingress_tags(msg, context.invocation_metadata() or ())
         svc = self.gateway.pick()
         if self.gateway.shadows:
             # isolated copies, fired on the loop: primary and shadow both mutate meta

@@ -124,6 +124,7 @@ Decisions of this slice:
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import logging
 import os
@@ -153,6 +154,7 @@ from seldon_core_tpu_torch.runtime import knobs as _knobs
 from seldon_core_tpu_torch.runtime.component import MicroserviceError, TPUComponent, gauge_metric
 from seldon_core_tpu_torch.utils import faults as _faults
 from seldon_core_tpu_torch.utils import telemetry as _telemetry
+from seldon_core_tpu_torch.utils.jitwatch import JitSentinel
 from seldon_core_tpu_torch.utils.deadlines import (clamp_priority, current_deadline, deadline_exceeded,
                                                    normalize_adapter)
 
@@ -1452,7 +1454,12 @@ class PagedEngine:
         self._profiler = None
         self._nan_guard = _knobs.flag("SELDON_TPU_NAN_GUARD")
         self._watchdog = EngineWatchdog() if watchdog_enabled() else None
-        self._chunk_sigs: set = set()
+        # first-use sentinels on the engine's four programs, under the JAX
+        # engine's names (utils/jitwatch.py): engine_stats()["jit_compiles"]
+        # sums them, and the watchdog exempts a wave that counted one
+        self._sentinels = {name: JitSentinel(name) for name in
+                           ("paged_chunk", "paged_prefill", "paged_spec_chunk", "paged_draft_rollout")}
+        self._wd_compiles = 0
         self._wd_builds = _build.build_events()
         self._pending_spans: list = []
 
@@ -1655,7 +1662,7 @@ class PagedEngine:
         for stream, name, start_s, duration_s, tags in pending:
             self._gen_span(stream, name, start_s, duration_s, **tags)
 
-    def _record_chunk(self, rec: Dict[str, Any], compiled: bool = False) -> None:
+    def _record_chunk(self, rec: Dict[str, Any]) -> None:
         """One wave's record into the flight recorder (naming the decode
         lane it ran), and its wall time into the watchdog.  Host
         bookkeeping only: ``wall_ms`` is the wall time around work that
@@ -1663,16 +1670,7 @@ class PagedEngine:
         rec.setdefault("kernel_active", int(self._kernel_active))
         if self.recorder is not None:
             self.recorder.record(rec)
-        self._feed_watchdog(float(rec.get("wall_ms", 0.0)), fault=False, compiles=int(compiled))
-
-    def _wave_compiled(self, sig: Tuple) -> bool:
-        """Whether a chunk of signature ``sig`` (steps, bucket spec,
-        chunk impl, KV dtype, verify width) is this engine's first: the
-        port's counterpart of a first-seen jit shape."""
-        if sig in self._chunk_sigs:
-            return False
-        self._chunk_sigs.add(sig)
-        return True
+        self._feed_watchdog(float(rec.get("wall_ms", 0.0)), fault=False)
 
     def _note_breach_puids(self, records, path) -> None:
         """The recorder's dump hook: every puid of a breached window is
@@ -1749,19 +1747,20 @@ class PagedEngine:
                 self._counters["captures"] += 1
         return path
 
-    def _feed_watchdog(self, wall_ms: float, fault: bool, compiles: int = 0) -> None:
+    def _feed_watchdog(self, wall_ms: float, fault: bool) -> None:
         """One wave into the health watchdog: its wall time, whether it
-        faulted, the pool's occupancy, and its compile events (a
-        first-seen chunk signature, kernel libraries built or loaded
-        meanwhile), which exempt it from the wall ceiling."""
+        faulted, the pool's occupancy, and its compile events since the
+        last wave (the sentinels' first calls under a new signature, kernel
+        libraries built or loaded), which exempt it from the wall ceiling."""
         wd = self._watchdog
         if wd is None:
             return
         from seldon_core_tpu_torch.ops import _build
 
+        seen = sum(s.compiles for s in self._sentinels.values())
         built = _build.build_events()
-        compiles += built - self._wd_builds
-        self._wd_builds = built
+        compiles = seen - self._wd_compiles + built - self._wd_builds
+        self._wd_compiles, self._wd_builds = seen, built
         with self._lock:
             used = self.num_pages - 1 - len(self._free_pages) - len(self._lru)
         wd.observe(wall_ms=wall_ms, compiled=compiles > 0, fault=fault,
@@ -1959,6 +1958,36 @@ class PagedEngine:
                     self._unpin_adapter_slot_locked(adapter_slot)
             raise
         return stream
+
+    def submit_views(self, views, **kwargs) -> List[_Stream]:
+        """Batched admission for the zero-copy lane (JAX
+        ``paged.py:3413-3450``): N token buffers (``codec.bufview``
+        ``BufferView`` s or arrays; an int32 one stays a view over its
+        buffer, no copy) are decoded to 1-D int32 prompts and admitted in
+        one pass.  Each stream keeps exactly :meth:`submit`'s semantics
+        (validation, queue-bound shedding, priority admission, deadline
+        fast-fail); ``kwargs`` apply to every view.  Admission is
+        all-or-nothing: when a later view's admission raises, every stream
+        this call already admitted is cancelled before the error surfaces,
+        so none decodes tokens nobody holds a handle to."""
+        from seldon_core_tpu_torch.codec.bufview import BufferView
+
+        prompts = []
+        for v in views:
+            arr = v.array() if isinstance(v, BufferView) else np.asarray(v)
+            prompts.append(arr.astype(np.int32, copy=False).reshape(-1))
+        admitted: List[_Stream] = []
+        try:
+            for p in prompts:
+                admitted.append(self.submit(p, **kwargs))
+        except BaseException:
+            for stream in admitted:
+                try:
+                    self.cancel(stream)
+                except Exception:  # noqa: BLE001 — the admission error below is the one the caller acts on
+                    logger.exception("submit_views rollback cancel failed")
+            raise
+        return admitted
 
     def _check_open(self) -> None:
         with self._lock:
@@ -2753,9 +2782,10 @@ class PagedEngine:
         last_pos = torch.from_numpy(true_lens - 1).to(dev)
         reads = torch.from_numpy(read_rows).to(dev)
         writes = reads if not use_cache else torch.from_numpy(write_rows).to(dev)
-        last, nk, nv = self.module(tokens, positions, self.pages_k, self.pages_v, reads, cached_t.int(),
-                                   use_kernel=self._kernel_active, select=last_pos,
-                                   **self._model_kwargs(adapter_rows))
+        static = f"cached,bucket={bucket},k={k},rp={rp}" if use_cache else f"bucket={bucket},k={k}"
+        last, nk, nv = self._sentinels["paged_prefill"].wrap(self.module, static=static)(
+            tokens, positions, self.pages_k, self.pages_v, reads, cached_t.int(), use_kernel=self._kernel_active,
+            select=last_pos, **self._model_kwargs(adapter_rows))
         zeros = torch.zeros((k,), dtype=torch.int32, device=dev)
         write_kv(kv_join(self.pages_k, self.scales_k), kv_join(self.pages_v, self.scales_v), nk, nv, writes, zeros,
                  None, page_size=ps, max_len=self.max_len, from_zero=True)
@@ -3510,7 +3540,7 @@ class PagedEngine:
 
     def _wave_record(self, phase: str, *, wall_s: float, prefill_wall_s: float, steps: int, buckets,
                      occupancy: int, admissions: int, stalls: int, decode_tokens: int, prefill_tokens: int,
-                     puids, trace_id: str, locked: Dict[str, Any], compiled: bool = False) -> None:
+                     puids, trace_id: str, locked: Dict[str, Any]) -> None:
         """Write one wave's record (the JAX engine's record keys); with
         neither the recorder nor the watchdog on, nothing."""
         if self.recorder is None and self._watchdog is None:
@@ -3537,7 +3567,7 @@ class PagedEngine:
             "prefix_pages_cached": locked["prefix_pages_cached"],
             **locked["deltas"],
         })
-        self._record_chunk(rec, compiled=compiled)
+        self._record_chunk(rec)
 
     def _record_prefill_wave(self, pre: Dict[str, Any], *, wall_s: float, tokens: int, occupancy: int,
                              admissions: int, stalls: int, puids) -> bool:
@@ -3674,14 +3704,17 @@ class PagedEngine:
             _faults.raise_if("paged.chunk")
         except _faults.InjectedFault as exc:
             return self._contain_chunk_fault(runnable, exc)
-        compiled = self._wave_compiled((steps, tuple(buckets), self._chunk_impl, self._kv_dtype_name(), 0))
         # page growth above may have staged demotions: gathered before the chunk writes
         self._tier_flush()
         self._profile_before_chunk()
         t_chunk = time.perf_counter()
         with torch.inference_mode(), self._materialized():
-            out = self._chunk(steps, buckets, perm, tables, lengths, done, max_new, eos_ids, samplers, adapter_ids,
-                              nan_victim=min(s.slot for s in runnable))
+            # the sampled lanes' host generators are no part of the program's
+            # signature (the JAX chunk takes (B,) temperature and top-k arrays)
+            chunk = self._sentinels["paged_chunk"].wrap(functools.partial(self._chunk, samplers=samplers),
+                                                        static=f"steps={steps},buckets={tuple(buckets)}")
+            out = chunk(steps, buckets, perm, tables, lengths, done, max_new, eos_ids, adapter_ids=adapter_ids,
+                        nan_victim=min(s.slot for s in runnable))
         chunk_wall = time.perf_counter() - t_chunk
         self._profile_after_chunk()
         toks, emitted, lengths_out = out[:, :steps], out[:, steps], out[:, steps + 1]
@@ -3723,7 +3756,7 @@ class PagedEngine:
         self._wave_record("decode", wall_s=chunk_wall, prefill_wall_s=wave_pwall, steps=steps, buckets=buckets,
                           occupancy=len(active), admissions=len(admitted), stalls=int(stalled.sum()),
                           decode_tokens=chunk_tokens, prefill_tokens=wave_ptok, puids=puids, trace_id=trace,
-                          locked=locked, compiled=compiled)
+                          locked=locked)
         return more
 
     def _step_speculative(self) -> bool:
@@ -3832,7 +3865,6 @@ class PagedEngine:
             _faults.raise_if("paged.chunk")
         except _faults.InjectedFault as exc:
             return self._contain_chunk_fault(runnable, exc)
-        compiled = self._wave_compiled((1, ((self.max_slots, pages_h),), "verify", self._kv_dtype_name(), L))
         mode = self.speculative["draft"]
         with torch.inference_mode():
             model_drafts = None
@@ -3846,7 +3878,7 @@ class PagedEngine:
                     tail = context[-W:]
                     windows[stream.slot, : len(tail)] = tail
                     lens[stream.slot] = len(tail)
-                model_drafts = self._draft_rollout(windows, lens)
+                model_drafts = self._sentinels["paged_draft_rollout"].wrap(self._draft_rollout)(windows, lens)
             segs = np.zeros((self.max_slots, L), np.int32)
             n_drafts = np.zeros((self.max_slots,), np.int32)
             active_mask = np.zeros((self.max_slots,), bool)
@@ -3869,7 +3901,8 @@ class PagedEngine:
             self._profile_before_chunk()
             t_chunk = time.perf_counter()
             with self._materialized():
-                out = self._spec_chunk(segs, n_drafts, active_mask, tables, lengths, adapter_ids)
+                out = self._sentinels["paged_spec_chunk"].wrap(self._spec_chunk)(segs, n_drafts, active_mask,
+                                                                                 tables, lengths, adapter_ids)
             chunk_wall = time.perf_counter() - t_chunk
             self._profile_after_chunk()
         toks, counts, lengths_out = out[:, :L], out[:, L], out[:, L + 1]
@@ -3903,7 +3936,7 @@ class PagedEngine:
         self._wave_record("spec_verify", wall_s=chunk_wall, prefill_wall_s=wave_pwall, steps=L, buckets=[],
                           occupancy=len(active), admissions=len(admitted), stalls=int(stalled.sum()),
                           decode_tokens=chunk_tokens, prefill_tokens=wave_ptok, puids=puids, trace_id=trace,
-                          locked=locked, compiled=compiled)
+                          locked=locked)
         return more
 
     def _wave_end_locked(self) -> bool:
@@ -4085,6 +4118,9 @@ class PagedEngine:
                 "pool_shard_bytes": self._pool_shard_bytes,
                 "adapters_resident": len(self._adapter_table),
                 "adapter_slots": self.max_adapters,
+                # first calls under a new signature at the four programs (the
+                # per-program split is jitwatch's own series, so the bridge skips it)
+                "jit_compiles": sum(st.compiles for st in self._sentinels.values()),
                 "health": health,
                 "health_state": health_code,
                 "watchdog_trips": trips,

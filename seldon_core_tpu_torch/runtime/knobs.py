@@ -260,6 +260,10 @@ ENV_KNOBS: Dict[str, Knob] = _knobs(
          "drain() live-migrates streams to before exiting; failures fall "
          "back to the drain journal (empty = journal only)",
          "operations.md evacuation-runbook"),
+    Knob("SELDON_TPU_JIT_SENTINEL", "flag", "1", True,
+         "first-use sentinel on the generation engine's programs: the first call under a new argument "
+         "signature counts in seldon_tpu_jit_compiles_total{program=} (0 = off)",
+         "architecture.md §5c"),
     Knob("SELDON_TPU_PROM_BRIDGE", "flag", "1", True,
          "GenerationPrometheusBridge wired in StreamingLM.load (0 = off)",
          "architecture.md §5c"),

@@ -19,8 +19,9 @@ no ``--platform`` flag.  ``--ssl-cert`` / ``--ssl-key`` (with
 ``OTEL_EXPORTER_OTLP_ENDPOINT``.  ``--persistence`` restores the
 component's ``checkpoint_state`` tree from ``--persistence-dir`` (or
 ``PERSISTENCE_DIR``) before load and snapshots it every
-``--persistence-period-s`` and at exit (``utils/persistence.py``).  Not
-ported: the component ``custom_service`` side loop.
+``--persistence-period-s`` and at exit (``utils/persistence.py``).  A
+component's ``custom_service()`` runs on a daemon thread once it has
+loaded (:func:`start_custom_service`).
 """
 
 from __future__ import annotations
@@ -146,6 +147,20 @@ async def run_servers(
             await runner.cleanup()
 
 
+def start_custom_service(user_model: Any):
+    """Run the component's optional ``custom_service()`` side loop on a
+    daemon thread (the reference runs it as a second process,
+    reference: microservice.py:29-47,363-368; a thread gives the same
+    lifetime without the fork).  Returns the thread, or None."""
+    if not hasattr(user_model, "custom_service"):
+        return None
+    import threading
+
+    thread = threading.Thread(target=user_model.custom_service, name="custom-service", daemon=True)
+    thread.start()
+    return thread
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     logging.basicConfig(level=args.log_level.upper(), format="%(asctime)s %(name)s %(levelname)s %(message)s")
@@ -173,6 +188,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         persistence_thread = manager.start_background(user_model, period_s=args.persistence_period_s)
     if hasattr(user_model, "load"):
         user_model.load()
+    start_custom_service(user_model)
     try:
         asyncio.run(run_servers(user_model, api=args.api, host=args.host, http_port=args.http_port,
                                 grpc_port=args.grpc_port, unit_id=args.unit_id, tls=tls))

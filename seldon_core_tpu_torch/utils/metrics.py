@@ -886,9 +886,10 @@ ENGINE_STATS_METRICS: Dict[str, Tuple[str, str, str]] = {
 # records; ``health`` is the string twin of ``health_state``;
 # ``cost_by_adapter`` is exported with adapter labels
 # (COST_LEDGER_METRICS); ``chunk_impl`` is a string and ``chunk_steps`` a
-# steps -> chunks dict (the debug surfaces read both)
+# steps -> chunks dict (the debug surfaces read both); ``jit_compiles``
+# is exported per program by utils/jitwatch.py itself
 ENGINE_STATS_EXCLUDED = {"chunk_wall_s", "prefill_wall_s", "health", "cost_by_adapter", "chunk_impl",
-                         "chunk_steps"}
+                         "chunk_steps", "jit_compiles"}
 
 ADAPTER_REQUESTS_METRIC = "seldon_tpu_engine_adapter_requests_total"
 

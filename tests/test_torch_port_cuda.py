@@ -982,3 +982,19 @@ def test_nan_screen_and_records_on_the_card(monkeypatch):
         assert kernels.launch_counts()["paged_decode_stream"] == cfg["num_layers"] * calls > 0
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_from_device_many_reads_every_card_tensor_back():
+    """``codec.from_device_many`` issues every device-to-host copy before
+    it waits: the same arrays as ``from_device`` one by one, host arrays
+    untouched, ``dtype`` applied to each."""
+    _need_card()
+    from seldon_core_tpu_torch.codec import from_device, from_device_many
+
+    xs = [torch.arange(4096, device="cuda", dtype=torch.float32).reshape(64, 64) * (i + 1) for i in range(4)]
+    host = np.arange(3, dtype=np.int64)
+    got = from_device_many([*xs, host])
+    assert got[-1] is host
+    for g, x in zip(got, xs):
+        np.testing.assert_array_equal(g, from_device(x))
+    assert all(a.dtype == np.float64 for a in from_device_many(xs, dtype=np.float64))

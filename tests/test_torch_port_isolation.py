@@ -58,6 +58,7 @@ def test_scan_covers_the_port():
     assert "seldon_core_tpu_torch/ops/kernels.py" in names
     assert "seldon_core_tpu_torch/models/paged.py" in names
     assert "seldon_core_tpu_torch/models/transformer.py" in names
+    assert "seldon_core_tpu_torch/utils/jitwatch.py" in names
     assert "seldon_core_tpu_torch/models/vit.py" in names
     assert "seldon_core_tpu_torch/ops/lora.py" in names
     assert "seldon_core_tpu_torch/models/registry.py" in names

@@ -135,9 +135,9 @@ def test_a_cold_engine_cannot_degrade_from_first_waves(params, monkeypatch):
 
 def test_first_seen_signatures_are_exempt_then_breaches_count(params):
     eng = _engine(params, SELDON_TPU_WATCHDOG_CHUNK_MS="0.000001")
-    eng.generate(_prompts(1)[0], max_new_tokens=4)  # one wave: its signature is new
+    eng.generate(_prompts(1)[0], max_new_tokens=4)  # one wave: its prefill's and its chunk's signatures are new
     stats = eng.engine_stats(detail=True)
-    assert stats["health"] == "healthy" and stats["watchdog"]["window_compiles"] == 1
+    assert stats["health"] == "healthy" and stats["watchdog"]["window_compiles"] == 2
     eng.generate(_prompts(1)[0], max_new_tokens=24)  # the same signature again and again
     stats = eng.engine_stats(detail=True)
     assert stats["health"] in ("degraded", "evacuating") and stats["watchdog_trips"] == 1
@@ -163,7 +163,9 @@ def test_evacuate_streams_skips_degraded_and_evacuating_peers(params):
     healthy = _engine(params)
     ref = _engine(params)
     want = [ref.generate(p, max_new_tokens=16) for p in _prompts()]
-    for _ in range(3):
+    # the first wave runs two new signatures, the second the prefix cache's
+    # suffix prefill: both exempt, then two breaches degrade the engine
+    for _ in range(4):
         degraded.generate(_prompts(1)[0], max_new_tokens=4)
     with _env(SELDON_TPU_FORCE_EVACUATE="1"):
         forced.generate(_prompts(1)[0], max_new_tokens=4)
